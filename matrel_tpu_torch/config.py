@@ -1,0 +1,235 @@
+"""Typed configuration for matrel_tpu_torch — the counterpart of
+``matrel_tpu/config.py``.
+
+Same frozen-dataclass shape and the same defaults as the JAX package's
+``MatrelConfig``. The knobs of the ported planes (planning, rewrites,
+execution, precision tiers, the plan cache) are live. Every knob of a
+plane this package has not ported yet is still a field, so a reader
+finds each counterpart, but setting it away from its default raises
+:class:`NotPortedError` at construction: an unported plane is never
+silently ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+
+class NotPortedError(NotImplementedError):
+    """A feature of the JAX package that this package does not run yet
+    (an unported node kind, dispatch or configuration plane)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class MatrelConfig:
+    """Global knobs for planning and execution (see the JAX package's
+    ``MatrelConfig`` docstring for the meaning of each field).
+
+    Live in this package: ``block_size``, ``mesh_shape`` (the VIRTUAL
+    grid the planner prices; one card always executes as 1x1),
+    ``mesh_axis_names``, ``broadcast_threshold_bytes``,
+    ``strategy_override``, ``sparsity_threshold`` (read by neither
+    package), ``comm_alpha_bytes``, ``default_dtype``,
+    ``matmul_precision``, ``keep_input_dtype``, ``use_pallas`` (here:
+    launch the hand-written CUDA kernels for CUDA tensors; False runs
+    their plain PyTorch versions), ``chain_opt``, ``rewrite_rules``,
+    ``plan_cache_max_plans``, ``hbm_budget_bytes``,
+    ``axis_cost_weights``, ``precision_sla``, ``precision_enable_bf16``,
+    ``precision_enable_int``.
+
+    ``matmul_precision`` keeps the TPU meaning of the JAX package:
+    "highest" is full IEEE f32 (TF32 off), "high" the 3-pass bf16
+    residual split, "default" one bf16 pass with f32 accumulation.
+    """
+
+    block_size: int = 512
+    mesh_shape: Optional[Tuple[int, int]] = None
+    mesh_axis_names: Tuple[str, str] = ("x", "y")
+    broadcast_threshold_bytes: int = 64 * 1024 * 1024
+    strategy_override: str = "auto"
+    sparsity_threshold: float = 0.05
+    spgemm_density_threshold: float = 0.25
+    spgemm_kernel_override: str = ""
+    comm_alpha_bytes: float = 200_000.0
+    default_dtype: str = "float32"
+    matmul_precision: str = "highest"
+    keep_input_dtype: bool = True
+    use_pallas: bool = True
+    pallas_interpret: bool = False
+    chain_opt: bool = True
+    rewrite_rules: bool = True
+    donate_intermediates: bool = True
+    join_pair_cap_entries: int = 1 << 26
+    join_bruteforce_max_pairs: int = 1 << 28
+    join_chunk_entries: int = 1 << 22
+    plan_cache_max_plans: int = 64
+    plan_cache_max_bytes: int = 4 << 30
+    autotune: bool = False
+    autotune_table_path: str = ""
+    autotune_max_dim: int = 8192
+    result_cache_max_bytes: int = 0
+    result_cache_max_entries: int = 256
+    serve_max_batch: int = 8
+    serve_max_inflight: int = 2
+    obs_level: str = "off"
+    obs_event_log: str = ""
+    obs_metrics_port: int = 0
+    slo_targets: str = ""
+    slo_fast_window_s: float = 60.0
+    slo_slow_window_s: float = 1800.0
+    slo_burn_threshold: float = 14.4
+    slo_burn_exit: float = 1.0
+    obs_flight_recorder: int = 0
+    obs_flight_recorder_path: str = ""
+    drift_table_path: str = ""
+    verify_plans: str = "off"
+    hbm_budget_bytes: int = 16 << 30
+    reshard_peak_budget_bytes: int = 0
+    axis_cost_weights: Tuple[float, float] = (1.0, 1.0)
+    fault_inject: str = ""
+    fault_inject_seed: int = 0
+    retry_max_attempts: int = 0
+    retry_backoff_ms: float = 25.0
+    retry_backoff_mult: float = 2.0
+    retry_jitter: float = 0.5
+    deadline_ms: float = 0.0
+    serve_queue_max: int = 0
+    serve_tenant_weights: str = ""
+    serve_tenant_queue_max: int = 0
+    brownout_enable: bool = False
+    brownout_window: int = 32
+    brownout_dwell: int = 8
+    brownout_wait_high_ms: float = 200.0
+    brownout_wait_low_ms: float = 50.0
+    brownout_depth_high: int = 64
+    brownout_depth_low: int = 8
+    brownout_miss_high: float = 0.25
+    brownout_miss_low: float = 0.05
+    breaker_threshold: int = 0
+    breaker_cooldown_ms: float = 1000.0
+    breaker_half_open_probes: int = 1
+    precision_sla: str = "default"
+    precision_enable_bf16: bool = True
+    precision_enable_int: bool = True
+    fusion_enable: bool = False
+    cse_enable: bool = False
+    cse_min_uses: int = 2
+    cse_template_max: int = 64
+    delta_patch_mode: str = "auto"
+    delta_rank_max: int = 512
+    fleet_slices: int = 0
+    fleet_span_margin: float = 1.0
+    fleet_directory_max: int = 4096
+    fleet_replicate_hits: int = 3
+    fleet_failover: bool = True
+    fleet_placement_calibration: bool = True
+    obs_provenance: int = 0
+    obs_event_log_max_bytes: int = 0
+    lockdep_enable: bool = False
+    lockdep_raise: bool = False
+    coeff_planner_enable: bool = False
+    coeff_min_samples: int = 3
+    coeff_replan_enable: bool = False
+    coeff_replan_interval: int = 32
+    coeff_replan_cooldown: int = 2
+    spill_enable: bool = False
+    spill_host_max_bytes: int = 2 << 30
+    spill_disk_hits: int = 1
+    state_dir: str = ""
+
+    def __post_init__(self):
+        for name in UNPORTED_KNOBS:
+            want = _FIELD_DEFAULTS[name]
+            if getattr(self, name) != want:
+                raise NotPortedError(
+                    f"MatrelConfig.{name}={getattr(self, name)!r}: the "
+                    f"plane behind this knob is not ported to "
+                    f"matrel_tpu_torch yet (only the default {want!r} "
+                    f"is accepted)")
+        if self.matmul_precision not in ("default", "high", "highest"):
+            raise ValueError(
+                f"matmul_precision must be one of 'default'/'high'/"
+                f"'highest', got {self.matmul_precision!r}")
+        w = tuple(self.axis_cost_weights)
+        if len(w) != 2 or not all(
+                isinstance(v, (int, float)) and v > 0.0 for v in w):
+            raise ValueError(
+                "axis_cost_weights must be two positive numbers "
+                f"(per mesh axis), got {self.axis_cost_weights!r}")
+        object.__setattr__(self, "axis_cost_weights",
+                           (float(w[0]), float(w[1])))
+        object.__setattr__(self, "precision_sla",
+                           normalize_sla(self.precision_sla))
+
+    def replace(self, **kw: Any) -> "MatrelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_FIELD_DEFAULTS = {f.name: f.default for f in dataclasses.fields(MatrelConfig)}
+
+#: Knobs whose plane is not ported: the S×S SpGEMM dispatch and its
+#: kernel registry, Pallas interpret mode, buffer donation, hoisted
+#: payloads (the plan cache's byte bound counts them), relational
+#: joins, autotune, the result cache and serving pipeline,
+#: observability, static verification, staged resharding, resilience,
+#: overload control, fusion, multi-query optimization, IVM, the fleet,
+#: lockdep, the cost-model loop and the durable spill hierarchy.
+UNPORTED_KNOBS = (
+    "spgemm_density_threshold", "spgemm_kernel_override",
+    "pallas_interpret", "donate_intermediates", "plan_cache_max_bytes",
+    "join_pair_cap_entries", "join_bruteforce_max_pairs",
+    "join_chunk_entries", "autotune", "autotune_table_path",
+    "autotune_max_dim", "result_cache_max_bytes",
+    "result_cache_max_entries", "serve_max_batch", "serve_max_inflight",
+    "obs_level", "obs_event_log", "obs_metrics_port", "slo_targets",
+    "slo_fast_window_s", "slo_slow_window_s", "slo_burn_threshold",
+    "slo_burn_exit", "obs_flight_recorder", "obs_flight_recorder_path",
+    "drift_table_path", "verify_plans", "reshard_peak_budget_bytes",
+    "fault_inject", "fault_inject_seed", "retry_max_attempts",
+    "retry_backoff_ms", "retry_backoff_mult", "retry_jitter",
+    "deadline_ms", "serve_queue_max", "serve_tenant_weights",
+    "serve_tenant_queue_max", "brownout_enable", "brownout_window",
+    "brownout_dwell", "brownout_wait_high_ms", "brownout_wait_low_ms",
+    "brownout_depth_high", "brownout_depth_low", "brownout_miss_high",
+    "brownout_miss_low", "breaker_threshold", "breaker_cooldown_ms",
+    "breaker_half_open_probes", "fusion_enable", "cse_enable",
+    "cse_min_uses", "cse_template_max", "delta_patch_mode",
+    "delta_rank_max", "fleet_slices", "fleet_span_margin",
+    "fleet_directory_max", "fleet_replicate_hits", "fleet_failover",
+    "fleet_placement_calibration", "obs_provenance",
+    "obs_event_log_max_bytes", "lockdep_enable", "lockdep_raise",
+    "coeff_planner_enable", "coeff_min_samples", "coeff_replan_enable",
+    "coeff_replan_interval", "coeff_replan_cooldown", "spill_enable",
+    "spill_host_max_bytes", "spill_disk_hits", "state_dir",
+)
+
+#: The per-query accuracy-SLA vocabulary (docs/PRECISION.md): named
+#: levels plus the explicit-dtype spellings that pin one tier.
+PRECISION_SLAS = ("default", "exact", "high", "fast",
+                  "float32", "bfloat16", "bf16x3", "int32", "int8")
+
+
+def normalize_sla(sla) -> str:
+    """Validate + normalise one precision-SLA value (config field or
+    per-query ``precision=`` argument). None → "default"."""
+    if sla is None:
+        return "default"
+    s = str(sla).lower().strip()
+    if s in ("bf16", "bfloat16"):
+        s = "bfloat16"
+    if s == "f32":
+        s = "float32"
+    if s not in PRECISION_SLAS:
+        raise ValueError(
+            f"precision SLA must be one of {PRECISION_SLAS} (or 'bf16'/"
+            f"'f32' aliases), got {sla!r}")
+    return s
+
+
+_default_config = MatrelConfig()
+
+
+def default_config() -> MatrelConfig:
+    return _default_config
+

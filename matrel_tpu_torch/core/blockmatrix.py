@@ -1,0 +1,223 @@
+"""BlockMatrix — the counterpart of ``matrel_tpu/core/blockmatrix.py``.
+
+One padded ``torch.Tensor`` on the mesh's device plus the metadata the
+optimizer reads: logical shape, the spec (layout metadata on the virtual
+grid), an nnz estimate, the block size, and the integrality facts the
+precision-tier chooser uses. Padding is exactly zero.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from matrel_tpu_torch.config import MatrelConfig, default_config
+from matrel_tpu_torch.core import mesh as mesh_lib, padding
+from matrel_tpu_torch.core.mesh import Mesh, P
+
+_DTYPES = {
+    "float32": torch.float32, "f32": torch.float32,
+    "float64": torch.float64, "float16": torch.float16,
+    "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+    "int8": torch.int8, "int16": torch.int16, "int32": torch.int32,
+    "int64": torch.int64, "uint8": torch.uint8, "bool": torch.bool,
+}
+
+
+def as_torch_dtype(dtype: Any) -> torch.dtype:
+    """torch dtype from a torch dtype, a name, or a numpy dtype (the
+    ml_dtypes ``bfloat16`` numpy dtype the JAX package hands out
+    included, matched by name)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise TypeError(f"unsupported dtype {dtype!r}") from None
+
+
+def tensor_from_numpy(arr: np.ndarray, dtype: Any,
+                      device: torch.device) -> torch.Tensor:
+    """Host array → tensor of ``dtype`` on ``device``. bfloat16 numpy
+    arrays (ml_dtypes) travel as their raw 16-bit pattern, so the bits
+    arrive unchanged."""
+    arr = np.array(arr, order="C")         # a writable host copy
+    want = as_torch_dtype(dtype)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device=device, dtype=want)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Tensor → host numpy. bfloat16 has no numpy dtype without
+    ml_dtypes, so it comes back as (exactly upcast) float32."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+@dataclasses.dataclass
+class BlockMatrix:
+    """A padded dense matrix on one device (see the JAX package's
+    BlockMatrix for the field contracts)."""
+
+    data: torch.Tensor
+    shape: Tuple[int, int]
+    mesh: Mesh
+    spec: P
+    nnz: Optional[int] = None
+    block_size: int = 512
+    integral: bool = False
+    int_abs_max: Optional[float] = None
+
+    # -- basic properties ---------------------------------------------------
+
+    @property
+    def padded_shape(self) -> Tuple[int, int]:
+        return tuple(self.data.shape)  # type: ignore[return-value]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    # -- construction -------------------------------------------------------
+
+    @classmethod
+    def from_numpy(cls, arr: np.ndarray, mesh: Optional[Mesh] = None,
+                   spec: Optional[P] = None, dtype: Any = None,
+                   config: Optional[MatrelConfig] = None,
+                   nnz: Optional[int] = None,
+                   integral: Optional[bool] = None) -> "BlockMatrix":
+        cfg = config or default_config()
+        arr = np.asarray(arr)
+        if integral is None:
+            integral = bool(np.issubdtype(arr.dtype, np.integer)
+                            or arr.dtype == np.bool_)
+        int_abs_max = (float(np.abs(arr).max()) if integral and arr.size
+                       else (0.0 if integral else None))
+        if arr.ndim == 1:
+            arr = arr.reshape(-1, 1)
+        if arr.ndim != 2:
+            raise ValueError(f"BlockMatrix is 2D; got shape {arr.shape}")
+        mesh = mesh or mesh_lib.make_mesh(cfg.mesh_shape, cfg.mesh_axis_names)
+        dtype = as_torch_dtype(dtype or cfg.default_dtype)
+        shape = tuple(arr.shape)
+        ps = padding.padded_shape(shape, mesh)
+        if spec is None:
+            spec = padding.canonical_spec(ps, mesh)
+        data = torch.zeros(ps, dtype=dtype, device=mesh.device)
+        data[: shape[0], : shape[1]] = tensor_from_numpy(arr, dtype,
+                                                         mesh.device)
+        return cls(data=data, shape=shape, mesh=mesh, spec=P(*spec),
+                   nnz=nnz, block_size=cfg.block_size,
+                   integral=bool(integral), int_abs_max=int_abs_max)
+
+    @classmethod
+    def from_array(cls, data: torch.Tensor, shape: Tuple[int, int],
+                   mesh: Mesh, spec: P, nnz: Optional[int] = None,
+                   block_size: Optional[int] = None) -> "BlockMatrix":
+        return cls(data=data, shape=tuple(shape), mesh=mesh, spec=spec,
+                   nnz=nnz,
+                   block_size=block_size or default_config().block_size)
+
+    @classmethod
+    def random(cls, shape: Tuple[int, int], mesh: Optional[Mesh] = None,
+               spec: Optional[P] = None, dtype: Any = None, seed: int = 0,
+               config: Optional[MatrelConfig] = None) -> "BlockMatrix":
+        """Uniform [0,1) random matrix, generated on the device from a
+        seeded ``torch.Generator`` (no host copy). Its values differ
+        from the JAX package's for the same seed."""
+        cfg = config or default_config()
+        mesh = mesh or mesh_lib.make_mesh(cfg.mesh_shape, cfg.mesh_axis_names)
+        dtype = as_torch_dtype(dtype or cfg.default_dtype)
+        ps = padding.padded_shape(tuple(shape), mesh)
+        if spec is None:
+            spec = padding.canonical_spec(ps, mesh)
+        gen = torch.Generator(device=mesh.device).manual_seed(seed)
+        vals = torch.rand(ps, generator=gen, device=mesh.device,
+                          dtype=torch.float32)
+        vals[shape[0]:, :] = 0
+        vals[:, shape[1]:] = 0
+        return cls(data=vals.to(dtype), shape=tuple(shape), mesh=mesh,
+                   spec=spec, nnz=None, block_size=cfg.block_size)
+
+    # -- materialisation ----------------------------------------------------
+
+    def to_numpy(self) -> np.ndarray:
+        """Copy to host, dropping padding (bfloat16 comes back as
+        float32)."""
+        return tensor_to_numpy(self.data[: self.shape[0], : self.shape[1]])
+
+    # -- lazy DSL (builds IR; mirrors the reference's Dataset implicits) ----
+
+    def expr(self):
+        from matrel_tpu_torch.ir.expr import leaf
+        return leaf(self)
+
+    def t(self):
+        return self.expr().t()
+
+    def multiply(self, other):
+        return self.expr().multiply(other)
+
+    def matmul(self, other):
+        return self.expr().multiply(other)
+
+    def add(self, other):
+        return self.expr().add(other)
+
+    def subtract(self, other):
+        return self.expr().subtract(other)
+
+    def elem_multiply(self, other):
+        return self.expr().elem_multiply(other)
+
+    def divide(self, other):
+        return self.expr().divide(other)
+
+    def add_scalar(self, s):
+        return self.expr().add_scalar(s)
+
+    def multiply_scalar(self, s):
+        return self.expr().multiply_scalar(s)
+
+    def power(self, p):
+        return self.expr().power(p)
+
+    def row_sum(self):
+        return self.expr().row_sum()
+
+    def col_sum(self):
+        return self.expr().col_sum()
+
+    def sum(self):
+        return self.expr().sum()
+
+    def trace(self):
+        return self.expr().trace()
+
+    def __matmul__(self, other):
+        return self.multiply(other)
+
+    def __add__(self, other):
+        return self.add(other)
+
+    def __sub__(self, other):
+        return self.subtract(other)
+
+    def __mul__(self, other):
+        if isinstance(other, (int, float)):
+            return self.multiply_scalar(other)
+        return self.elem_multiply(other)
+
+    def __repr__(self) -> str:
+        return (f"BlockMatrix(shape={self.shape}, dtype={self.dtype}, "
+                f"spec={self.spec}, nnz={self.nnz}, "
+                f"device={self.mesh.device}, grid={self.mesh.grid})")

@@ -1,0 +1,90 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
+shared library with a plain C interface and loaded with ``ctypes`` — no
+PyTorch headers, so a build takes seconds. Builds happen at first use,
+from the repository's sources only, into ``build/kernels/`` at the
+repository root, named by a digest of the source and flags (a stale
+library is never reused). ``nvcc``'s ``-Xptxas -v`` report (registers,
+shared memory, spills) is kept next to each library as ``.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LOCK = threading.Lock()
+_LIBS: Dict[Path, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                       "the CUDA toolkit at first use on a GPU host")
+
+
+def library_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{source.stem}-{digest[:16]}.so"
+
+
+def build(sources: Iterable[Path]) -> List[Path]:
+    """Compile every source whose library is missing — one ``nvcc`` per
+    source, all started together — and return the library paths."""
+    sources = [Path(s) for s in sources]
+    outs = [library_path(s) for s in sources]
+    todo = [(s, o) for s, o in zip(sources, outs) if not o.exists()]
+    if not todo:
+        return outs
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = []
+    for src, out in todo:
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        procs.append((src, out, tmp, proc))
+    failed = []
+    for src, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return outs
+
+
+def load(source_name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<source_name>``, built if needed."""
+    src = CSRC_DIR / source_name
+    with _LOCK:
+        lib = _LIBS.get(src)
+        if lib is None:
+            (path,) = build([src])
+            lib = ctypes.CDLL(str(path))
+            _LIBS[src] = lib
+        return lib

@@ -1,0 +1,162 @@
+"""PyTorch port: ``MatrelSession.compute`` end to end (rewrites → chain
+DP → planner → executor) held against the JAX package's session on the
+CPU, on the same numpy inputs.
+
+Plans are compared as equal: the chosen parenthesisation and the
+rewrite-rule hit counts. Numbers at the JAX tests' tolerances: dense
+products rtol=1e-4, atol=1e-5 (test_executor.py); the Gram under
+``matmul_precision="high"`` rtol=atol=2e-3 (test_executor.py's bf16
+split bound); SpMM rtol=atol=1e-4 (test_sparse.py).
+"""
+
+import jax
+import numpy as np
+import pytest
+
+from matrel_tpu.config import MatrelConfig as JConfig
+from matrel_tpu.core import mesh as jmesh_lib
+from matrel_tpu.core.sparse import BlockSparseMatrix as JBlockSparse
+from matrel_tpu.session import MatrelSession as JSession
+from matrel_tpu.workloads import chain_bench as j_chain
+
+from matrel_tpu_torch import convert
+from matrel_tpu_torch.config import MatrelConfig
+from matrel_tpu_torch.session import MatrelSession
+from matrel_tpu_torch.workloads import chain_bench as t_chain
+
+
+@pytest.fixture(scope="module")
+def jmesh():
+    return jmesh_lib.make_mesh((1, 1), devices=jax.devices()[:1])
+
+
+def sessions(jmesh, **cfg):
+    return (JSession(mesh=jmesh, config=JConfig(**cfg)),
+            MatrelSession(config=MatrelConfig(**cfg), device="cpu"))
+
+
+def pair(js, ts, arr):
+    """The same numpy matrix in both sessions."""
+    jm = js.from_numpy(arr)
+    return jm, convert.from_reference(jm, ts.mesh)
+
+
+def compare_plans(js, ts, je, te):
+    jp, tp = js.compile(je), ts.compile(te)
+    assert (t_chain.parenthesisation(tp.optimized)
+            == j_chain.parenthesisation(jp.optimized))
+    assert tp.meta["rule_hits"] == jp.meta["rule_hits"]
+    return t_chain.parenthesisation(tp.optimized)
+
+
+@pytest.mark.parametrize("dims", [(30, 5, 40, 6, 25), (8, 60, 4, 50, 3)])
+def test_four_operand_chain(jmesh, dims):
+    rng = np.random.default_rng(sum(dims))
+    js, ts = sessions(jmesh)
+    arrs = [rng.standard_normal((dims[i], dims[i + 1])).astype(np.float32)
+            for i in range(4)]
+    mats = [pair(js, ts, a) for a in arrs]
+    je = j_chain.build_chain([m[0] for m in mats])
+    te = t_chain.build_chain([m[1] for m in mats])
+    compare_plans(js, ts, je, te)
+    want = js.compute(je).to_numpy()
+    got = ts.compute(te).to_numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got, arrs[0] @ arrs[1] @ arrs[2] @ arrs[3],
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_skewed_abc_reorders(jmesh):
+    rng = np.random.default_rng(2)
+    js, ts = sessions(jmesh)
+    n, mid = 200, 10
+    arrs = [rng.random((n, mid), np.float32), rng.random((mid, n), np.float32),
+            rng.random((n, mid), np.float32)]
+    mats = [pair(js, ts, a) for a in arrs]
+    je = j_chain.build_chain([m[0] for m in mats])
+    te = t_chain.build_chain([m[1] for m in mats])
+    assert compare_plans(js, ts, je, te) == "(A·(B·C))"
+    np.testing.assert_allclose(ts.compute(te).to_numpy(),
+                               js.compute(je).to_numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_gram_high_precision(jmesh):
+    rng = np.random.default_rng(3)
+    js, ts = sessions(jmesh, matmul_precision="high")
+    a = rng.standard_normal((48, 24)).astype(np.float32)
+    jX, tX = pair(js, ts, a)
+    je = jX.expr().t().multiply(jX.expr())
+    te = tX.expr().t().multiply(tX.expr())
+    compare_plans(js, ts, je, te)
+    got = ts.compute(te).to_numpy()
+    np.testing.assert_allclose(got, js.compute(je).to_numpy(),
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got, a.T @ a, rtol=2e-3, atol=2e-3)
+
+
+def test_rewrites_and_aggregates(jmesh):
+    """(A·B)ᵀ·C with a row-sum on top: R2 transpose push-down and R3
+    aggregation push-down fire the same number of times in both
+    optimizers, and the answers agree."""
+    rng = np.random.default_rng(4)
+    js, ts = sessions(jmesh)
+    a, b, c = (rng.standard_normal(s).astype(np.float32)
+               for s in ((12, 7), (7, 12), (12, 5)))
+    (jA, tA), (jB, tB), (jC, tC) = (pair(js, ts, x) for x in (a, b, c))
+    je = jA.multiply(jB).t().multiply(jC).row_sum()
+    te = tA.multiply(tB).t().multiply(tC).row_sum()
+    compare_plans(js, ts, je, te)
+    np.testing.assert_allclose(ts.compute(te).to_numpy(),
+                               js.compute(je).to_numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_sparse_times_dense_query(jmesh):
+    rng = np.random.default_rng(5)
+    js, ts = sessions(jmesh)
+    s_np = np.zeros((64, 48), np.float32)
+    s_np[0:16, 16:32] = rng.standard_normal((16, 16))
+    s_np[32:48, 0:16] = rng.standard_normal((16, 16))
+    d = rng.standard_normal((48, 10)).astype(np.float32)
+    jS = JBlockSparse.from_numpy(s_np, block_size=16, mesh=jmesh)
+    tS = convert.from_reference(jS, ts.mesh)
+    jD, tD = pair(js, ts, d)
+    je, te = jS.multiply(jD), tS.multiply(tD)
+    compare_plans(js, ts, je, te)
+    got = ts.compute(te).to_numpy()
+    np.testing.assert_allclose(got, js.compute(je).to_numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, s_np @ d, rtol=1e-4, atol=1e-4)
+
+
+def test_plan_cache_hits_on_repeat():
+    ts = MatrelSession(device="cpu")
+    rng = np.random.default_rng(6)
+    A = ts.from_numpy(rng.standard_normal((6, 4)).astype(np.float32))
+    B = ts.from_numpy(rng.standard_normal((4, 3)).astype(np.float32))
+    e = A.multiply(B)
+    _, hit1, key = ts._compile_entry(e)
+    _, hit2, key2 = ts._compile_entry(A.multiply(B))
+    assert (hit1, hit2) == (False, True) and key == key2
+    _, hit3, key3 = ts._compile_entry(A.multiply(B), sla="fast")
+    assert not hit3 and key3.startswith("prec:fast|")
+    assert ts.plan_cache_info()["plans"] == 2
+
+
+def test_precision_sla_tiers_match(jmesh):
+    """Under SLA "fast" / "high" both planners stamp the same tier and
+    the port's bf16 split stays inside the documented bound."""
+    rng = np.random.default_rng(8)
+    a = rng.standard_normal((32, 64)).astype(np.float32)
+    b = rng.standard_normal((64, 16)).astype(np.float32)
+    for sla, tier in (("fast", "bf16x1"), ("high", "bf16x3")):
+        js, ts = sessions(jmesh, precision_sla=sla)
+        (jA, tA), (jB, tB) = pair(js, ts, a), pair(js, ts, b)
+        jp, tp = js.compile(jA.multiply(jB)), ts.compile(tA.multiply(tB))
+        assert (tp.optimized.attrs["precision_tier"]
+                == jp.optimized.attrs["precision_tier"] == tier)
+        got = tp.run().to_numpy()
+        bound = 2.0 ** (-8 if tier == "bf16x1" else -15) * 64 \
+            * np.abs(a).max() * np.abs(b).max()
+        assert np.abs(got - a @ b).max() <= bound

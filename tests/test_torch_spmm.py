@@ -1,0 +1,177 @@
+"""PyTorch port: block-sparse × dense SpMM (matrel_tpu_torch/ops/spmm.py
+and ops/pallas_spmm.py) held against the JAX package on the CPU.
+
+The JAX side runs its Pallas kernel B1 in interpret mode
+(``spmm(S, D, cfg, interpret=True)``, as tests/test_sparse.py does) on
+a 1x1 mesh; the port runs the kernel route's plain PyTorch version (CPU
+tensors). Both get the same numpy inputs through
+``matrel_tpu_torch.convert``. Tolerances: f32 at rtol=atol=1e-4 (the
+reference's own bound, test_sparse.py); bf16 compared in f32 at
+rtol=atol=2e-2 (one bf16 rounding of an f32 accumulation each side).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from matrel_tpu.config import MatrelConfig as JConfig
+from matrel_tpu.core import mesh as jmesh_lib
+from matrel_tpu.core.blockmatrix import BlockMatrix as JBlockMatrix
+from matrel_tpu.core.sparse import BlockSparseMatrix as JBlockSparse
+from matrel_tpu.executor import compile_expr as j_compile_expr
+from matrel_tpu.ir import expr as JE
+from matrel_tpu.ops import spmm as j_spmm
+
+from matrel_tpu_torch import convert
+from matrel_tpu_torch.config import MatrelConfig
+from matrel_tpu_torch.core.mesh import make_mesh
+from matrel_tpu_torch.executor import compile_expr
+from matrel_tpu_torch.ir import expr as E
+from matrel_tpu_torch.ops import pallas_spmm, spmm as t_spmm
+
+
+@pytest.fixture(scope="module")
+def jmesh():
+    return jmesh_lib.make_mesh((1, 1), devices=jax.devices()[:1])
+
+
+@pytest.fixture(scope="module")
+def tmesh():
+    return make_mesh(device="cpu")
+
+
+def block_sparse_np(rng, n, k, bs, density, empty_rows=()):
+    """Block-sparse numpy matrix (ragged edges allowed) with the given
+    block rows left empty."""
+    gr, gc = -(-n // bs), -(-k // bs)
+    a = np.zeros((gr * bs, gc * bs), np.float32)
+    nblocks = max(1, int(gr * gc * density))
+    for f in rng.choice(gr * gc, size=nblocks, replace=False):
+        bi, bj = f // gc, f % gc
+        if bi not in empty_rows:
+            a[bi * bs:(bi + 1) * bs, bj * bs:(bj + 1) * bs] = \
+                rng.standard_normal((bs, bs))
+    return a[:n, :k]
+
+
+def both(a, d, bs, jm, tm, dtype=np.float32):
+    S = JBlockSparse.from_numpy(a, block_size=bs, mesh=jm, dtype=dtype)
+    D = JBlockMatrix.from_numpy(d, mesh=jm, dtype=dtype)
+    return S, D, convert.from_reference(S, tm), convert.from_reference(D, tm)
+
+
+@pytest.mark.parametrize("bs,n,k,m", [(4, 18, 14, 5), (8, 40, 24, 16),
+                                      (16, 64, 48, 20)])
+def test_f32_matches_jax_interpret(jmesh, tmesh, bs, n, k, m):
+    rng = np.random.default_rng(bs)
+    a = block_sparse_np(rng, n, k, bs, 0.4)
+    d = rng.standard_normal((k, m)).astype(np.float32)
+    S, D, tS, tD = both(a, d, bs, jmesh, tmesh)
+    want = j_spmm.spmm(S, D, JConfig(use_pallas=False),
+                       interpret=True).to_numpy()
+    got = t_spmm.spmm(tS, tD).to_numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, a @ d, rtol=1e-4, atol=1e-4)
+
+
+def test_bf16_matches_jax_interpret(jmesh, tmesh):
+    rng = np.random.default_rng(7)
+    a = block_sparse_np(rng, 32, 32, 8, 0.5)
+    d = rng.standard_normal((32, 16)).astype(np.float32)
+    S, D, tS, tD = both(a, d, 8, jmesh, tmesh, dtype=jnp.bfloat16)
+    assert tS.dtype == torch.bfloat16 and tD.dtype == torch.bfloat16
+    want = np.asarray(j_spmm.spmm(S, D, JConfig(use_pallas=False),
+                                  interpret=True).to_numpy(), np.float32)
+    got = t_spmm.spmm(tS, tD)
+    assert got.dtype == torch.bfloat16          # output in payload dtype
+    np.testing.assert_allclose(got.to_numpy(), want, rtol=2e-2, atol=2e-2)
+
+
+def test_empty_block_rows_are_zero(jmesh, tmesh):
+    rng = np.random.default_rng(11)
+    a = block_sparse_np(rng, 48, 32, 8, 0.6, empty_rows=(1, 4))
+    d = rng.standard_normal((32, 9)).astype(np.float32)
+    S, D, tS, tD = both(a, d, 8, jmesh, tmesh)
+    want = j_spmm.spmm(S, D, JConfig(use_pallas=False),
+                       interpret=True).to_numpy()
+    got = t_spmm.spmm(tS, tD).to_numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert not got[8:16].any() and not got[32:40].any()
+
+
+def test_dense_times_sparse_transpose_path(jmesh, tmesh):
+    """A·S lowers as (Sᵀ·Aᵀ)ᵀ in both executors."""
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((5, 24)).astype(np.float32)
+    s_np = block_sparse_np(rng, 24, 16, 8, 0.5)
+    S = JBlockSparse.from_numpy(s_np, block_size=8, mesh=jmesh)
+    A = JBlockMatrix.from_numpy(a, mesh=jmesh)
+    tS = convert.from_reference(S, tmesh)
+    tA = convert.from_reference(A, tmesh)
+    want = j_compile_expr(JE.matmul(A.expr(), S.expr()), jmesh,
+                          JConfig(pallas_interpret=True)).run().to_numpy()
+    got = compile_expr(E.matmul(tA.expr(), tS.expr()), tmesh,
+                       MatrelConfig()).run().to_numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, a @ s_np, rtol=1e-4, atol=1e-4)
+    assert tS._transposed_memo is not None     # transposed once, memoised
+
+
+def test_reassigned_blocks_raise_on_kernel_route(tmesh):
+    rng = np.random.default_rng(3)
+    a = block_sparse_np(rng, 16, 16, 8, 0.5)
+    d = rng.standard_normal((16, 8)).astype(np.float32)
+    from matrel_tpu_torch.core.blockmatrix import BlockMatrix
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    S = BlockSparseMatrix.from_numpy(a, block_size=8, mesh=tmesh)
+    D = BlockMatrix.from_numpy(d, mesh=tmesh)
+    t_spmm.spmm(S, D)
+    S.blocks = torch.zeros_like(S.blocks)
+    with pytest.raises(ValueError, match="reassigned"):
+        t_spmm.spmm(S, D)
+    # a runner built after the reassignment bakes the NEW stack
+    D2 = BlockMatrix.from_numpy(rng.standard_normal((16, 5)).astype(
+        np.float32), mesh=tmesh)
+    assert not t_spmm.spmm(S, D2).to_numpy().any()
+    # the plain route (use_pallas=False) honours the reassignment
+    S.blocks = 2.0 * torch.ones_like(S.blocks)
+    out = t_spmm.spmm(S, D, MatrelConfig(use_pallas=False)).to_numpy()
+    np.testing.assert_allclose(out, S.to_numpy() @ d, rtol=1e-4, atol=1e-4)
+
+
+def test_runner_cache_purged_with_matrix(tmesh):
+    import gc
+    from matrel_tpu_torch.core.blockmatrix import BlockMatrix
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    rng = np.random.default_rng(4)
+    S = BlockSparseMatrix.from_numpy(block_sparse_np(rng, 16, 16, 8, 0.5),
+                                     block_size=8, mesh=tmesh)
+    D = BlockMatrix.from_numpy(rng.standard_normal((16, 4)), mesh=tmesh)
+    t_spmm.spmm(S, D)
+    sid = id(S)
+    assert any(k[0] == sid for k in t_spmm._RUNNER_CACHE)
+    del S
+    gc.collect()
+    assert not any(k[0] == sid for k in t_spmm._RUNNER_CACHE)
+
+
+def test_kernel_wrapper_cpu_uses_plain_version(tmesh):
+    """On CPU tensors the wrapper runs the plain version and launches
+    nothing; malformed operands are refused before any launch."""
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    rng = np.random.default_rng(9)
+    a = block_sparse_np(rng, 24, 16, 8, 0.5)
+    S = BlockSparseMatrix.from_numpy(a, block_size=8, mesh=tmesh)
+    _, payload, row_ptr, bcols = pallas_spmm.csr_payload(S)
+    d = torch.as_tensor(rng.standard_normal((16, 3)).astype(np.float32))
+    before = pallas_spmm.LAUNCHES
+    out = pallas_spmm.spmm_blocksparse(payload, row_ptr, bcols, d, 24)
+    assert pallas_spmm.LAUNCHES == before
+    np.testing.assert_allclose(out.numpy(), a @ d.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    with pytest.raises(TypeError):
+        pallas_spmm.spmm_blocksparse(payload, row_ptr, bcols, d.double(), 24)
+    with pytest.raises(ValueError):
+        pallas_spmm.spmm_blocksparse(payload, row_ptr, bcols, d.T, 24)
