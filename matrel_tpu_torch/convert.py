@@ -62,11 +62,49 @@ def block_sparse(blocks: np.ndarray, block_rows: np.ndarray,
         mesh=mesh)
 
 
+def coo_from_arrays(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                    shape: Tuple[int, int]):
+    """A COOMatrix from a JAX-side edge list (kept in the order given, so
+    both packages build their plans from the same input order)."""
+    from matrel_tpu_torch.core.coo import COOMatrix
+    return COOMatrix.from_edges(np.asarray(rows), np.asarray(cols),
+                                np.asarray(vals), shape=tuple(shape))
+
+
+def spmv_plan_from_arrays(n_rows: int, n_cols: int, block: int,
+                          capacity: int, src8: np.ndarray, lane: np.ndarray,
+                          off: np.ndarray, val: np.ndarray,
+                          ov_cols: Optional[np.ndarray] = None,
+                          ov_rows: Optional[np.ndarray] = None,
+                          ov_vals: Optional[np.ndarray] = None,
+                          padding_ratio: float = 0.0):
+    """An EdgeSpMVPlan from a JAX plan's compact tables and overflow COO
+    as numpy arrays, so both packages run on identical tables."""
+    from matrel_tpu_torch.ops.spmv import EdgeSpMVPlan
+
+    def opt(a, dtype):
+        return None if a is None else np.ascontiguousarray(a, dtype)
+
+    return EdgeSpMVPlan(
+        n_rows=int(n_rows), n_cols=int(n_cols), block=int(block),
+        capacity=int(capacity),
+        src8=np.ascontiguousarray(src8, np.int32),
+        lane=np.ascontiguousarray(lane, np.int8),
+        off=np.ascontiguousarray(off, np.int32),
+        val=np.ascontiguousarray(val, np.float32),
+        ov_cols=opt(ov_cols, np.int32), ov_rows=opt(ov_rows, np.int32),
+        ov_vals=opt(ov_vals, np.float32),
+        padding_ratio=float(padding_ratio))
+
+
 def from_reference(m, mesh: Mesh):
     """Duck-typed carry-over of one JAX-package matrix object: anything
     with ``blocks``/``block_rows``/``block_cols`` becomes a
-    BlockSparseMatrix, anything with ``data``/``spec`` a BlockMatrix.
-    Only attributes are read, through ``np.asarray``."""
+    BlockSparseMatrix, an edge list (``rows``/``cols``/``vals``) a
+    COOMatrix, anything with ``data``/``spec`` a BlockMatrix. Only
+    attributes are read, through ``np.asarray``."""
+    if hasattr(m, "vals") and hasattr(m, "rows"):
+        return coo_from_arrays(m.rows, m.cols, m.vals, m.shape)
     if hasattr(m, "blocks"):
         return block_sparse(np.asarray(m.blocks), np.asarray(m.block_rows),
                             np.asarray(m.block_cols), m.shape,

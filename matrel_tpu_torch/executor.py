@@ -2,19 +2,22 @@
 
 Lowers an optimized, annotated MatExpr into a function over the leaf
 tensors: each matmul goes to its planned strategy (one local product on
-one card), the block-sparse operand to the SpMM kernel route, and
-everything else to torch ops. PyTorch runs eagerly, so nothing stands
-in for ``jax.jit``: ``compile_expr`` plans once and the returned
-:class:`CompiledPlan` re-runs the lowered function.
+one card), the block-sparse operand to the SpMM kernel route, a COO
+operand against a narrow dense one to the compact SpMV/SpMM kernel route
+(``_coo_spmv_stack``), and everything else to torch ops. PyTorch runs
+eagerly, so nothing stands in for ``jax.jit``: ``compile_expr`` plans
+once and the returned :class:`CompiledPlan` re-runs the lowered
+function.
 
 Zero-padding invariant: every lowered intermediate is exactly 0 outside
 its logical region; ops that would break it (scalar-add, pow ≤ 0,
 broadcast add/sub/div) re-mask, and aggregates mask padding where zeros
 would change the answer (max/min).
 
-Lowered kinds: leaf, sparse_leaf, transpose, matmul, elemwise, scalar,
-agg. Every other kind, and the S×S SpGEMM dispatch, raises
-``NotPortedError``.
+Lowered kinds: leaf, sparse_leaf, coo_leaf, transpose, matmul,
+elemwise, scalar, agg. Every other kind, and the S×S SpGEMM dispatch
+(block-sparse or COO on both sides), raises ``NotPortedError``. The
+autotuned SpMV executor choice is not ported (its knob raises).
 """
 
 from __future__ import annotations
@@ -35,8 +38,13 @@ from matrel_tpu_torch.parallel import planner, strategies
 
 Tensor = torch.Tensor
 
-LOWERED_KINDS = ("leaf", "sparse_leaf", "transpose", "matmul", "elemwise",
-                 "scalar", "agg")
+LOWERED_KINDS = ("leaf", "sparse_leaf", "coo_leaf", "transpose", "matmul",
+                 "elemwise", "scalar", "agg")
+
+# Narrow-operand threshold for the COO SpMV dispatch. The planner calls
+# _coo_dispatch_plan itself (not this constant) so the plan-refusal
+# fallback is honoured too.
+COO_NARROW_MAX = 128
 
 
 def _valid_mask(shape: Tuple[int, int], pshape: Tuple[int, int],
@@ -115,6 +123,11 @@ class Lowerer:
             # densify when a sparse matrix is used outside a matmul; the
             # SpMM path handles the matmul case
             return node.attrs["matrix"].to_dense(self.config).data
+        if k == "coo_leaf":
+            # same densify fallback for element-sparse leaves; narrow
+            # matmuls take the SpMV path in _matmul
+            return node.attrs["matrix"].to_block(self.mesh,
+                                                 self.config).data
         if k == "transpose":
             return ev(node.children[0]).T
         if k == "matmul":
@@ -140,6 +153,30 @@ class Lowerer:
     def _matmul(self, node: MatExpr, ev) -> Tensor:
         l, r = node.children
         _spgemm_dispatch(node, self.config)   # S×S raises NotPortedError
+        # coo_leaf matmuls: the SpMV/SpMM kernels for narrow dense
+        # operands; wide ones (or refused plans) densify. The dispatch
+        # predicate is shared with the planner (_coo_dispatch_plan).
+        if l.kind == "coo_leaf":
+            A = l.attrs["matrix"]
+            plan = _coo_dispatch_plan(node)
+            if plan is None:
+                blk = A.to_block(self.mesh, self.config).data
+                return strategies.run_matmul("xla", blk, ev(r), self.mesh,
+                                             self.config)
+            out = self._coo_spmv_stack(plan, ev(r)[: A.shape[1],
+                                                   : r.shape[1]])
+            return _pad_to(out, padding.padded_shape(node.shape, self.mesh))
+        if r.kind == "coo_leaf":
+            # X·A = (Aᵀ·Xᵀ)ᵀ through the matrix's cached transpose plan
+            S = r.attrs["matrix"]
+            plan = _coo_dispatch_plan(node)
+            if plan is None:
+                blk = S.to_block(self.mesh, self.config).data
+                return strategies.run_matmul("xla", ev(l), blk, self.mesh,
+                                             self.config)
+            a = ev(l)[: l.shape[0], : l.shape[1]]
+            out = self._coo_spmv_stack(plan, a.T).T
+            return _pad_to(out, padding.padded_shape(node.shape, self.mesh))
         if l.kind == "sparse_leaf":
             from matrel_tpu_torch.ops import spmm as spmm_lib
             return spmm_lib.apply(l.attrs["matrix"], ev(r), r.shape,
@@ -197,6 +234,31 @@ class Lowerer:
 
         return strategies.run_matmul(strategy, a, b, self.mesh,
                                      self.config, epilogue=storage_epi)
+
+    def _coo_spmv_stack(self, plan, X: Tensor) -> Tensor:
+        """A·X for the k columns of ``X`` (n_cols, k) as an (n_rows, k)
+        f32 tensor. With ``use_pallas`` the compact-table kernels run (one
+        B2 launch for k = 1, one B3 launch otherwise — their plain
+        versions on the CPU); without it the expanded one-hot path, in
+        chunks of 64 columns."""
+        from matrel_tpu_torch.ops import pallas_spmv as pc
+        from matrel_tpu_torch.ops import spmv as spmv_lib
+        dev = X.device
+        X = X.float()
+        static = (plan.n_rows, plan.n_cols, plan.block)
+        if pc.compact_enabled(self.config):
+            tables = pc.compact_tables(plan, dev)
+            ov = plan.overflow_on(dev)
+            if X.shape[1] == 1:
+                return pc.compact_apply(static, tables, ov, X[:, 0])[:, None]
+            return pc.compact_matmat_apply(static, tables, ov, X)
+        arrays = plan.arrays(dev)
+        if X.shape[1] == 1:
+            return spmv_lib.spmv_apply(static, arrays, X[:, 0])[:, None]
+        extra = plan.spmm_extra(dev)
+        parts = [spmv_lib.spmm_apply(static, arrays, extra, X[:, j:j + 64])
+                 for j in range(0, X.shape[1], 64)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
     def _elemwise(self, node: MatExpr, ev) -> Tensor:
         l, r = node.children
@@ -303,13 +365,30 @@ class Lowerer:
 
 def _spgemm_dispatch(node: MatExpr, config=None) -> bool:
     """Will this matmul lower through the S×S SpGEMM path? Not ported:
-    an S×S matmul (both operands sparse leaves) raises."""
+    an S×S matmul (block-sparse or COO leaves on both sides, any mix)
+    raises."""
     l, r = node.children
-    if l.kind == "sparse_leaf" and r.kind == "sparse_leaf":
+    if l.kind in planner.SPARSE_KINDS and r.kind in planner.SPARSE_KINDS:
         raise NotPortedError(
-            "S×S block-sparse matmul (SpGEMM, TPU kernels B4–B7) is not "
+            "S×S sparse matmul (SpGEMM, TPU kernels B4–B7) is not "
             "ported to matrel_tpu_torch yet")
     return False
+
+
+def _coo_dispatch_plan(node: MatExpr):
+    """The EdgeSpMVPlan a coo_leaf matmul node dispatches through
+    ``_coo_spmv_stack``, or None (the densify path). The single source
+    of truth for the narrow-operand dispatch, shared with the planner."""
+    l, r = node.children
+    if l.kind == "coo_leaf":
+        k = r.shape[1]
+        return (l.attrs["matrix"]._get_plan()
+                if 0 < k <= COO_NARROW_MAX else None)
+    if r.kind == "coo_leaf":
+        k = l.shape[0]
+        return (r.attrs["matrix"]._get_plan_t()
+                if 0 < k <= COO_NARROW_MAX else None)
+    return None
 
 
 @dataclasses.dataclass
@@ -348,8 +427,9 @@ class CompiledPlan:
 
 
 def _check_one_mesh(expr: MatExpr, mesh: Mesh) -> None:
-    """All leaves (dense and sparse) must live on the plan's device and
-    grid."""
+    """All leaves (dense and block-sparse) must live on the plan's device
+    and grid. A COO leaf has no mesh: its host edge list goes to the
+    plan's device at first use."""
     def walk(n: MatExpr):
         if n.kind in ("leaf", "sparse_leaf"):
             m = n.attrs["matrix"].mesh
@@ -368,6 +448,8 @@ def compile_expr(expr: MatExpr, mesh: Optional[Mesh] = None,
     cfg = config or default_config()
     lvs = expr_leaves(expr)
     if mesh is None:
+        # a COO leaf carries no mesh: dense, then block-sparse leaves
+        # decide, else the configured default
         sparse = [n for n in _walk(expr) if n.kind == "sparse_leaf"]
         first = lvs[0] if lvs else (sparse[0] if sparse else None)
         mesh = (first.attrs["matrix"].mesh if first is not None

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from matrel_tpu_torch.config import MatrelConfig, default_config
@@ -210,8 +211,18 @@ def infer_layout(node: MatExpr, mesh: Mesh,
         if k == "leaf":
             return _layout_of(n, mesh)
         if k == "matmul":
+            # branch order mirrors Lowerer._matmul: spgemm, then coo_leaf
+            # on either side, then sparse_leaf
             if _spgemm_matmul(n, cfg):
                 return "2d"
+            if any(c.kind == "coo_leaf" for c in n.children):
+                if not _coo_narrow_matmul(n):
+                    return "2d"          # densify path: hard-coded xla
+                # "rep" only where the lowering pins it: one device. The
+                # compact sharded path (out_specs=P()) is not ported, so
+                # a virtual multi-device grid claims nothing — the JAX
+                # package's answer off the TPU.
+                return "rep" if mesh.size == 1 else "2d"
             if any(c.kind == "sparse_leaf" for c in n.children):
                 return "2d"
             return STRATEGY_OUT_LAYOUT.get(n.attrs.get("strategy"), "2d")
@@ -248,14 +259,31 @@ def infer_layout(node: MatExpr, mesh: Mesh,
     return walk(node)
 
 
+#: Sparse leaf kinds: a matmul of two dispatches S×S SpGEMM, one beside
+#: a dense operand its own SpMM / SpMV route.
+SPARSE_KINDS = ("sparse_leaf", "coo_leaf")
+
+
 def _spgemm_matmul(n: MatExpr, config=None) -> bool:
     """Will this matmul dispatch the S×S SpGEMM? The shared predicate
     lives in the executor; for the S×S path, which is not ported, it
     raises ``NotPortedError``."""
     l, r = n.children
-    if l.kind == "sparse_leaf" and r.kind == "sparse_leaf":
+    if l.kind in SPARSE_KINDS and r.kind in SPARSE_KINDS:
         from matrel_tpu_torch import executor as _exec
         return _exec._spgemm_dispatch(n, config)
+    return False
+
+
+def _coo_narrow_matmul(n: MatExpr) -> bool:
+    """Will this matmul dispatch the narrow COO SpMV path? Consults
+    ``executor._coo_dispatch_plan`` itself, so a refused plan (which
+    densifies) is honoured too; the plan it builds is memoised on the
+    matrix and needed at lowering anyway."""
+    l, r = n.children
+    if l.kind == "coo_leaf" or r.kind == "coo_leaf":
+        from matrel_tpu_torch import executor as _exec
+        return _exec._coo_dispatch_plan(n) is not None
     return False
 
 
@@ -293,6 +321,18 @@ def infer_dtype(node: MatExpr, config: Optional[MatrelConfig] = None,
         k = n.kind
         if k in ("leaf", "sparse_leaf"):
             return n.attrs["matrix"].dtype
+        if k == "coo_leaf":
+            # COO payloads are f32 by construction and the SpMV paths
+            # accumulate f32: checked with a raise, so a dtype-bearing
+            # COOMatrix fails loudly instead of planning as f32
+            m = n.attrs["matrix"]
+            vals = getattr(m, "vals", None)
+            if vals is not None and np.dtype(vals.dtype) != np.float32:
+                raise TypeError(
+                    f"COOMatrix payload dtype {vals.dtype} != float32: "
+                    "infer_dtype's COO rule (and the SpMV f32 "
+                    "accumulation it mirrors) no longer holds")
+            return torch.float32
         if k in ("transpose", "scalar", "agg", "vec", "select_value",
                  "select_index"):
             return walk(n.children[0])
@@ -424,7 +464,7 @@ def choose_precision_tier(node: MatExpr,
         return None
     a, b = node.children
     if _spgemm_matmul(node, cfg) or any(
-            c.kind == "sparse_leaf" for c in node.children):
+            c.kind in SPARSE_KINDS for c in node.children):
         return None
     da = infer_dtype(a, cfg, dtype_memo)
     db = infer_dtype(b, cfg, dtype_memo)
@@ -653,7 +693,7 @@ def _child_layout_hints(e: MatExpr, mesh: Optional[Mesh] = None,
     and its right operand col-sharded under bmm_left, when it could
     run that bmm)."""
     if e.kind == "matmul":
-        if any(c.kind == "sparse_leaf" for c in e.children):
+        if any(c.kind in SPARSE_KINDS for c in e.children):
             return (None, None)
         cfg = config or default_config()
         a, b = e.children

@@ -220,9 +220,9 @@ def _plan_key(e: MatExpr) -> Tuple[str, list]:
             m = n.attrs["matrix"]
             pins.append(m)
             parts.append(f"leaf:{id(m)}:{m.shape}:{m.spec}")
-        elif n.kind == "sparse_leaf":
-            # the tile structure is baked into the plan's runners: the
-            # key carries the matrix identity
+        elif n.kind in ("sparse_leaf", "coo_leaf"):
+            # the tile structure / SpMV plan is baked into the plan's
+            # runners: the key carries the matrix identity
             m = n.attrs["matrix"]
             pins.append(m)
             parts.append(f"{n.kind}:{id(m)}:{m.shape}")

@@ -23,14 +23,14 @@ from matrel_tpu_torch.parallel import planner as t_planner
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: corpus cases the port's slice covers (leaf, sparse_leaf, transpose,
-#: matmul, elemwise, scalar, agg; rank1 is rewritten away by R8)
+#: corpus cases the port's slices cover (leaf, sparse_leaf, coo_leaf,
+#: transpose, matmul, elemwise, scalar, agg; rank1 is rewritten away by
+#: R8)
 COVERED = ("block_sparse_matmul", "chain_interior_credit",
-           "chain_layout_flip", "chain_skewed", "gram_AtA",
-           "rank1_pushdown", "replicated_operand_matmul")
-#: cases left for later slices: solve (linreg), join_rows, coo_leaf
-NOT_PORTED = ("coo_spmv_matvec", "join_under_matmul",
-              "linreg_normal_equations")
+           "chain_layout_flip", "chain_skewed", "coo_spmv_matvec",
+           "gram_AtA", "rank1_pushdown", "replicated_operand_matmul")
+#: cases left for later slices: solve (linreg), join_rows
+NOT_PORTED = ("join_under_matmul", "linreg_normal_equations")
 
 
 def _load_tool():

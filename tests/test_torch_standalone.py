@@ -63,6 +63,44 @@ def test_imports_and_computes_without_jax():
     assert "standalone ok" in proc.stdout
 
 
+def test_coo_and_pagerank_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "matrel_tpu"):
+            sys.modules[name] = None          # import raises ImportError
+        import numpy as np
+        from matrel_tpu_torch.core.coo import COOMatrix
+        from matrel_tpu_torch.workloads import pagerank
+        from matrel_tpu_torch import MatrelSession
+        rng = np.random.default_rng(0)
+        n, m = 400, 3000
+        src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+        r = pagerank.pagerank_edges(src, dst, n, rounds=12, impl="onehot",
+                                    device="cpu").numpy()
+        a = np.zeros((n, n))
+        np.add.at(a, (src, dst), 1.0)
+        ref = pagerank.pagerank_numpy_oracle(a, rounds=12).ravel()
+        assert np.abs(r - ref).max() / np.abs(ref).max() < 1e-5
+        assert abs(r.sum() - 1.0) < 1e-3
+        A = COOMatrix.from_edges(src, dst, shape=(n, n))
+        s = MatrelSession(device="cpu")
+        x = rng.standard_normal((n, 1)).astype(np.float32)
+        y = s.compute(A.multiply(s.from_numpy(x))).to_numpy()
+        assert np.allclose(y, a @ x, rtol=1e-5, atol=1e-5)
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "matrel_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("standalone coo ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone coo ok" in proc.stdout
+
+
 def _imported_modules(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
