@@ -15,12 +15,24 @@
    hub row, sentinel slots, and B3 at k = 2, 5, 16 and 128 — and times
    each at its BASELINE shape with CUDA events beside the plain version,
    its bound and one PyTorch library call.
+   The S×S tile kernels B4–B7 (ops/pallas_spgemm.py) are held against
+   their plain versions every kernel id on every case, in f32 and bf16
+   at bs 8, 16, 24, 64, 128 and 512 (an empty intersection, single-pair
+   and >= 64-pair hub slots, ragged edges, unsorted B tiles, runs that
+   are not a multiple of G, both powerlaw buckets, a chunked band, a
+   band with an empty block row, the bs-512 band's grouped fallback),
+   and timed at n = 100,352 on the repo's own S×S deployments (bench.py
+   measure_spgemm / measure_sparse_kernels) beside the plain version,
+   the bound and the xla_gather torch composite.
 3. Path phases, through the entry points a user calls on the default
    device, with every kernel's launch count set to 0 just before each
    and read just after: BASELINE row 5 (PageRank, 30 rounds over
    1,000,000 nodes and 10,000,000 edges, impl="onehot", against a
    float64 scipy power iteration; then A·x, x'·A and A·X with X 1M x 16
    on the same graph as a COOMatrix through MatrelSession().compute),
+   four S×S queries A·B at n = 32,768 (1% random bf16 512-blocks, and
+   clustered, powerlaw and band structures in f32: B4, B5, B7 and B6 as
+   stamped, against a use_pallas=False session and float64 tiles),
    row 4 (block-sparse x dense, 100,352^2 at 1% of 512-blocks, bf16,
    plus the D'·S form), row 2 (skewed A·B·C, 10,000 x 100, f32, plan
    (A·(B·C))) and row 1 (4096^2 f32 multiply). Results are checked
@@ -53,6 +65,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # rounded once from such sums, so they may differ by one bf16 ulp
 # (2^-7 relative) more.
 TOL = {"float32": (1e-4, 1e-3), "bfloat16": (1e-2, 1e-2)}   # (rtol, atol)
+
+# Peak device memory of the whole run: the S×S phases set it (PERF.md
+# section 5 gives the reckoning, ~12 GiB), plus 25%.
+PEAK_LIMIT_BYTES = 15 * 2**30
 
 
 T0 = time.perf_counter()
@@ -684,6 +700,433 @@ def row5_timing(A, dev):
     return out
 
 
+# -- S×S SpGEMM: kernels B4–B7 (ops/pallas_spgemm.py) -----------------------
+
+#: The JAX package's S×S deployments (bench.py measure_spgemm and
+#: measure_sparse_kernels): full scale, and the compute comparison scale.
+SPGEMM_N, SPGEMM_CMP_N = 100_352, 32_768
+#: A registry runner's schedule → the kernel entry it launches.
+SPGEMM_KERNEL_OF = {"pairs": "spgemm_pairs", "grouped": "spgemm_grouped",
+                    "band": "spgemm_band", "bucketed": "spgemm_powerlaw"}
+SPGEMM_REPLACES = {
+    "spgemm_pairs": "matrel_tpu/ops/kernel_registry.py:297",
+    "spgemm_grouped": "matrel_tpu/ops/kernel_registry.py:406",
+    "spgemm_band": "matrel_tpu/ops/kernel_registry.py:659",
+    "spgemm_powerlaw": "matrel_tpu/ops/kernel_registry.py:696",
+}
+PALLAS_IDS = ("pallas_generic", "pallas_cluster", "pallas_band",
+              "pallas_powerlaw")
+
+
+def spgemm_launches() -> dict:
+    from matrel_tpu_torch.ops import pallas_spgemm as ps
+    return {"spgemm_pairs": ps.LAUNCHES_PAIRS,
+            "spgemm_grouped": ps.LAUNCHES_GROUPED,
+            "spgemm_band": ps.LAUNCHES_BAND,
+            "spgemm_powerlaw": ps.LAUNCHES_POWERLAW}
+
+
+def zero_spgemm_launches() -> None:
+    from matrel_tpu_torch.ops import pallas_spgemm as ps
+    ps.LAUNCHES_PAIRS = ps.LAUNCHES_GROUPED = 0
+    ps.LAUNCHES_BAND = ps.LAUNCHES_POWERLAW = 0
+
+
+def predicted_launches(run) -> dict:
+    """The launches one call of a registry runner makes, from its host
+    tables: one, or one per non-empty bucket."""
+    name = SPGEMM_KERNEL_OF[run.schedule]
+    n = len(run.tables["buckets"]) if run.schedule == "bucketed" else 1
+    return {k: (n if k == name else 0) for k in SPGEMM_REPLACES}
+
+
+def spgemm_runner(A, B, kid):
+    """(runner, masked A payload, masked B payload, n_out) of one
+    registry kernel over (A, B) under the default config."""
+    from matrel_tpu_torch.config import MatrelConfig
+    from matrel_tpu_torch.ops import kernel_registry as kr
+    from matrel_tpu_torch.ops import spgemm as sg
+    cfg = MatrelConfig()
+    pa, pb, slot, out_rows, out_cols = sg._pair_structure_cached(A, B)
+    out_dtype = sg._out_dtype(A, B, cfg)
+    n_out = int(out_rows.size)
+    run = kr.build_runner(kid, A, B, cfg, (slot, pa, pb, out_rows, out_cols),
+                          n_out, out_dtype)
+    return run, sg._edge_masked(A), sg._edge_masked(B), n_out
+
+
+def spgemm_plain(run, a, b, n_out):
+    """The plain version of a runner's kernel over the same host tables,
+    on the card."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.ops import pallas_spgemm as ps
+    t = run.tables
+
+    def i32(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.int32),
+                               device=a.device)
+
+    if run.schedule == "pairs":
+        return ps.spgemm_pairs_plain(a, b, i32(t["slot_ptr"]), i32(t["pa"]),
+                                     i32(t["pb"]))
+    if run.schedule == "grouped":
+        return ps.spgemm_grouped_plain(a, b, i32(t["src"]),
+                                       i32(t["group_slot"]), i32(t["pa"]),
+                                       i32(t["pb"]), t["group"], n_out)
+    if run.schedule == "band":
+        return ps.spgemm_band_plain(a, b, i32(t["a_idx"]), i32(t["b_idx"]),
+                                    i32(t["sel"]), t["wa"],
+                                    t["nchunks"] * t["rc"])
+    bs = a.shape[1]
+    out = torch.zeros((n_out, bs, bs), dtype=a.dtype, device=a.device)
+    for bk in t["buckets"]:
+        out[i32(bk["ids"]).long()] = ps.spgemm_grouped_plain(
+            a, b, i32(bk["src"]), i32(bk["group_slot"]), i32(bk["pa"]),
+            i32(bk["pb"]), bk["group"], len(bk["ids"]))
+    return out
+
+
+def tile_matrix(rows, cols, shape, bs, seed, mesh, dtype="float32"):
+    """A BlockSparseMatrix with the given tile coordinates (kept in the
+    order given) and standard-normal payloads made on the card."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.core.blockmatrix import as_torch_dtype
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blocks = torch.randn((len(rows), bs, bs), generator=gen, device=dev)
+    S = BlockSparseMatrix(
+        blocks=blocks.to(as_torch_dtype(dtype)),
+        block_rows=torch.as_tensor(np.asarray(rows, np.int32), device=dev),
+        block_cols=torch.as_tensor(np.asarray(cols, np.int32), device=dev),
+        shape=tuple(shape), block_size=bs, mesh=mesh)
+    S._seed_host_tiles(rows, cols)
+    return S
+
+
+def band_tiles(gr, offsets, drop_row=None):
+    import numpy as np
+    r = np.repeat(np.arange(gr), len(offsets))
+    c = r + np.tile(np.asarray(offsets), gr)
+    keep = (c >= 0) & (c < gr) & (r != drop_row)
+    return r[keep], c[keep]
+
+
+def as_dtype(S, dtype):
+    """S with its payload cast (tile lists shared)."""
+    import torch
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    if S.dtype == getattr(torch, dtype):
+        return S
+    T = BlockSparseMatrix(blocks=S.blocks.to(getattr(torch, dtype)),
+                          block_rows=S.block_rows, block_cols=S.block_cols,
+                          shape=S.shape, block_size=S.block_size,
+                          mesh=S.mesh)
+    T._seed_host_tiles(*S.host_tiles())
+    return T
+
+
+def spgemm_cases(mesh):
+    """(name, A, B, check) for the kernel phase; ``check(run_of)`` asserts
+    what the case is for on the runners' host tables."""
+    import numpy as np
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    from matrel_tpu_torch.ops import kernel_registry as kr
+    cases = []
+    A = kr.synthesize_structure("clustered_tile", 256, 8, mesh, seed=1)
+    B = kr.synthesize_structure("clustered_tile", 256, 8, mesh, seed=2)
+
+    def runs_not_multiple_of_g(run_of):
+        t = run_of("pallas_cluster").tables
+        live = t["src"] < len(t["pa"])
+        counts = np.bincount(np.repeat(t["group_slot"], t["group"])[live])
+        assert (counts % t["group"]).any(), "every run a multiple of G"
+    cases.append(("bs=8 clustered, runs not a multiple of G", A, B,
+                  runs_not_multiple_of_g))
+
+    A = kr.synthesize_structure("powerlaw_coo", 3072, 16, mesh, seed=3)
+
+    def hub_and_single(run_of):
+        t = run_of("pallas_generic").tables
+        runs = np.diff(t["slot_ptr"])
+        assert runs.max() >= 64 and runs.min() == 1, (runs.min(), runs.max())
+        assert len(run_of("pallas_powerlaw").tables["buckets"]) == 2
+    cases.append(("bs=16 powerlaw A·Aᵀ: a hub slot of >= 64 pairs, "
+                  "single-pair slots, both buckets", A, A.transpose(),
+                  hub_and_single))
+
+    A = BlockSparseMatrix.random((1000, 950), 0.05, block_size=24, mesh=mesh,
+                                 seed=4)
+    B = BlockSparseMatrix.random((950, 1001), 0.05, block_size=24,
+                                 mesh=mesh, seed=5)
+    cases.append(("bs=24 ragged random (overhang in the edge tiles)", A, B,
+                  None))
+
+    gr = 40
+    r, c = band_tiles(gr, range(-2, 3), drop_row=7)
+    A = tile_matrix(r, c, (gr * 64, gr * 64), 64, 6, mesh)
+    r, c = band_tiles(gr, range(-2, 3))
+    perm = np.random.default_rng(7).permutation(len(r))
+    B = tile_matrix(r[perm], c[perm], (gr * 64, gr * 64), 64, 7, mesh)
+
+    def band_unsorted(run_of, B=B):
+        assert run_of("pallas_band").schedule == "band"
+        assert np.any(np.diff(B.host_tiles()[0]) < 0)
+    cases.append(("bs=64 band, B with unsorted block_rows, A block row 7 "
+                  "empty", A, B, band_unsorted))
+
+    gr = 24
+    r, c = band_tiles(gr, range(-5, 6))
+    A = tile_matrix(r, c, (gr * 128, gr * 128), 128, 8, mesh)
+    B = tile_matrix(r, c, (gr * 128, gr * 128), 128, 9, mesh)
+
+    def band_chunked(run_of):
+        t = run_of("pallas_band").tables
+        assert t["nchunks"] > 1 and t["wa"] == 11, (t["nchunks"], t["wa"])
+    cases.append(("bs=128 11-wide band, chunked (rc < rr)", A, B,
+                  band_chunked))
+
+    gr = 8
+    r, c = band_tiles(gr, range(-2, 3))
+    A = tile_matrix(r, c, (gr * 512, gr * 512), 512, 10, mesh)
+    B = tile_matrix(r, c, (gr * 512, gr * 512), 512, 11, mesh)
+
+    def band_fallback(run_of):
+        assert run_of("pallas_band").schedule == "grouped"
+    cases.append(("bs=512 band: the grouped fallback (B5, not B6)", A, B,
+                  band_fallback))
+    return cases
+
+
+def spgemm_kernel_phase(mesh) -> None:
+    """B4–B7 against their plain versions on the card, every kernel id on
+    every case, in f32 and bf16, with each call's launches checked
+    against what its host tables predict; plus the empty intersection
+    (one zero tile, no launch)."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.ops import spgemm as sg
+    a = np.zeros((64, 64), np.float32)
+    a[:8, :8] = 1.0
+    b = np.zeros((64, 64), np.float32)
+    b[8:16, :] = 1.0
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    EA, EB = (BlockSparseMatrix.from_numpy(x, block_size=8, mesh=mesh)
+              for x in (a, b))
+    zero_spgemm_launches()
+    empty = sg.apply_dense(EA, EB)
+    torch.cuda.synchronize()
+    if any(spgemm_launches().values()) or empty.abs().max() != 0:
+        raise AssertionError("empty intersection: launched or nonzero")
+    log("kernel spgemm: empty intersection -> one zero tile, no launch ok")
+    for name, A0, B0, check in spgemm_cases(mesh):
+        for dtype_name in ("float32", "bfloat16"):
+            A, B = as_dtype(A0, dtype_name), as_dtype(B0, dtype_name)
+            runs = {}
+            for kid in PALLAS_IDS:
+                run, a_m, b_m, n_out = spgemm_runner(A, B, kid)
+                runs[kid] = run
+                zero_spgemm_launches()
+                got = run(a_m, b_m)
+                torch.cuda.synchronize()
+                launched = spgemm_launches()
+                if launched != predicted_launches(run):
+                    raise AssertionError(f"{name} {kid}: launches {launched}"
+                                         f", want {predicted_launches(run)}")
+                want = spgemm_plain(run, a_m, b_m, n_out)
+                err = check_close(f"{name} {dtype_name} {kid}",
+                                  got.reshape(-1, got.shape[-1]),
+                                  want.reshape(-1, want.shape[-1]),
+                                  dtype_name)
+                log(f"kernel {SPGEMM_KERNEL_OF[run.schedule]} [{name}] "
+                    f"{dtype_name} via {kid}: n_out={n_out}, "
+                    f"max_abs_err={err:.3e} ok")
+            if check is not None:
+                check(runs.__getitem__)
+            if name.startswith("bs=24"):
+                # the logical product, overhang scrubbed, vs float64
+                n, m = A.shape[0], B.shape[1]
+                dense = sg.apply_dense(A, B)[:n, :m]
+                ref = torch.as_tensor(A.to_numpy().astype(np.float64)
+                                      @ B.to_numpy().astype(np.float64),
+                                      device=dense.device)
+                err = check_close(f"{name} {dtype_name} vs float64",
+                                  dense, ref, dtype_name)
+                log(f"  logical product vs float64: max_abs_err={err:.3e}")
+
+
+def spgemm_bound(run, A, B, npairs: int, dtype_name: str):
+    """(bound_ms, bound_by): the A and B tiles this pair list touches and
+    the output stack once, over HBM bandwidth, vs 2·bs³ per real pair
+    over the dtype's peak."""
+    import numpy as np
+    from matrel_tpu_torch.ops import spgemm as sg
+    pa, pb, _, out_rows, _ = sg._pair_structure_cached(A, B)
+    bs = A.block_size
+    isz = A.blocks.element_size()
+    tiles = np.unique(pa).size + np.unique(pb).size + out_rows.size
+    t_bytes = tiles * bs * bs * isz / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * npairs * bs ** 3 / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def spgemm_pairs_at(mesh, n, random_seeds=(0, 1)):
+    """The repo's own S×S deployments at side n, one pair at a time:
+    (kernel entry, home kernel id, A, B, dtype name) — 1% random
+    512-blocks in bf16 (bench.py measure_spgemm), then the registry's
+    structure generators in f32 (measure_sparse_kernels, seeds 0 and 1;
+    the band at bs = 128, where its own kernel runs)."""
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    from matrel_tpu_torch.ops import kernel_registry as kr
+    A, B = (BlockSparseMatrix.random((n, n), 0.01, block_size=512,
+                                     mesh=mesh, seed=s, dtype="bfloat16")
+            for s in random_seeds)
+    yield "spgemm_pairs", "pallas_generic", A, B, "bfloat16"
+    for name, kid, structure, bs in (
+            ("spgemm_grouped", "pallas_cluster", "clustered_tile", 512),
+            ("spgemm_powerlaw", "pallas_powerlaw", "powerlaw_coo", 512),
+            ("spgemm_band", "pallas_band", "row_band", 128)):
+        A, B = (kr.synthesize_structure(structure, n, bs, mesh, seed=s)
+                for s in (0, 1))
+        yield name, kid, A, B, "float32"
+
+
+def spgemm_timing(mesh) -> dict:
+    """bench.py's S×S sweep at n = 100,352: per pair every admissible
+    registry kernel through spgemm_tiles(kernel=…) (CUDA events, median of
+    10), the home kernel's plain version, the bound, and the xla_gather
+    torch composite as the library column (no single PyTorch call
+    multiplies two block-sparse tile maps)."""
+    import torch
+    from matrel_tpu_torch.ops import spgemm as sg
+    rows = {}
+    for name, kid, A, B, dtype_name in spgemm_pairs_at(mesh, SPGEMM_N):
+        npairs = int(sg._pair_structure_cached(A, B)[0].size)
+        run, a_m, b_m, n_out = spgemm_runner(A, B, kid)
+        got = run(a_m, b_m)
+        want = spgemm_plain(run, a_m, b_m, n_out)
+        torch.cuda.synchronize()
+        err = check_close(f"{name} n={SPGEMM_N}",
+                          got.reshape(-1, got.shape[-1]),
+                          want.reshape(-1, want.shape[-1]), dtype_name)
+        del got, want
+        times = {k: time_ms(lambda k=k: sg.spgemm_tiles(A, B, kernel=k),
+                            warmup=2, runs=10)
+                 for k in ("xla_gather", "pallas_generic", kid)}
+        plain_ms = time_ms(lambda: spgemm_plain(run, a_m, b_m, n_out),
+                           warmup=1, runs=10)
+        bound_ms, bound_by = spgemm_bound(run, A, B, npairs, dtype_name)
+        detail = ""
+        if run.schedule == "bucketed":
+            detail = ", buckets " + " / ".join(
+                f"G={bk['group']} over {len(bk['ids'])} slots"
+                for bk in run.tables["buckets"])
+        elif run.schedule == "band":
+            t = run.tables
+            detail = f", wa={t['wa']} rc={t['rc']} nchunks={t['nchunks']}"
+        elif run.schedule == "grouped":
+            detail = f", G={run.tables['group']}"
+        log(f"S×S timing {name} ({dtype_name}, bs={A.block_size}, "
+            f"nnzb {A.nnzb}/{B.nnzb}, {npairs} pairs, {n_out} out tiles"
+            f"{detail}): " + ", ".join(f"{k} {v:.4f} ms"
+                                       for k, v in times.items())
+            + f"; plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}); kernel vs plain max_abs_err {err:.3e}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        rows[name] = {"max_abs_err": err, "ms": times[kid],
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by,
+                      "library_ms": times["xla_gather"]}
+        del A, B, run, a_m, b_m
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sampled_tiles_err(name, A, B, dense, dtype_name, rnd) -> float:
+    """Max abs error of 8 random output tiles of the dense product A·B
+    against a float64 numpy sum over their pairs (tolerance TOL)."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.ops import spgemm as sg
+    pa, pb, slot, out_rows, out_cols = sg._pair_structure_cached(A, B)
+    a_m = sg._edge_masked(A).float().cpu().numpy()
+    b_m = sg._edge_masked(B).float().cpu().numpy()
+    bs = A.block_size
+    err = 0.0
+    for s in rnd.choice(out_rows.size, size=min(8, out_rows.size),
+                        replace=False):
+        sel = slot == s
+        want = sum(a_m[i].astype(np.float64) @ b_m[j].astype(np.float64)
+                   for i, j in zip(pa[sel], pb[sel]))
+        r, c = int(out_rows[s]), int(out_cols[s])
+        got = dense[r * bs:(r + 1) * bs, c * bs:(c + 1) * bs]
+        err = max(err, check_close(f"{name} tile ({r}, {c}) vs float64",
+                                   got, torch.as_tensor(want,
+                                                        device=got.device),
+                                   dtype_name))
+    return err
+
+
+def path_spgemm(sess) -> tuple:
+    """The four S×S queries through MatrelSession().compute at n =
+    32,768: the stamp, the launch counts the host tables predict, the
+    dense result against a use_pallas=False session (the xla_gather
+    route) and 8 sampled output tiles against float64 numpy."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.ops import spgemm as sg
+    plain_sess = MatrelSession(config=MatrelConfig(use_pallas=False),
+                               device=sess.device)
+    launches = dict.fromkeys(SPGEMM_REPLACES, 0)
+    queries = {}
+    rnd = np.random.default_rng(12)
+    # bench.py's comparison seeds for the random pair
+    for name, kid, A, B, dtype_name in spgemm_pairs_at(
+            sess.mesh, SPGEMM_CMP_N, random_seeds=(2, 3)):
+        e = A.multiply(B)
+        stamp = sess.compile(e).optimized.attrs.get("spgemm_kernel")
+        if stamp != kid:
+            raise AssertionError(f"S×S {name}: stamped {stamp}, want {kid}")
+        run, _, _, _ = spgemm_runner(A, B, kid)
+        want_launches = predicted_launches(run)
+        zero_spgemm_launches()
+        Y = sess.compute(e)
+        torch.cuda.synchronize()
+        peaks = [torch.cuda.max_memory_allocated()]
+        got_launches = spgemm_launches()
+        if got_launches != want_launches:
+            raise AssertionError(f"S×S {name}: launches {got_launches}, "
+                                 f"want {want_launches}")
+        for k, v in got_launches.items():
+            launches[k] += v
+        n = A.shape[0]
+        if Y.shape != (n, n) or Y.data.dtype != getattr(torch, dtype_name):
+            raise AssertionError(f"S×S {name}: result {Y.shape} "
+                                 f"{Y.data.dtype}")
+        ref = plain_sess.compute(e)
+        peaks.append(torch.cuda.max_memory_allocated())
+        # slabs of 2048 rows keep the compare's f32 temporaries at ~1 GiB
+        err = check_close(f"S×S {name} vs the xla_gather route", Y.data,
+                          ref.data, dtype_name, rows_per_step=2048)
+        peaks.append(torch.cuda.max_memory_allocated())
+        del ref
+        e64 = sampled_tiles_err(f"S×S {name}", A, B, Y.data, dtype_name,
+                                rnd)
+        log(f"path S×S {name}: compute(A·B) n={n} {dtype_name} "
+            f"bs={A.block_size}, "
+            f"stamp {stamp}, launches {got_launches}, max_abs_err "
+            f"{err:.3e} vs the xla_gather route, {e64:.3e} vs float64 on 8 "
+            f"tiles; peak after compute / twin / compare "
+            + " / ".join(f"{p / 2**30:.3f}" for p in peaks) + " GiB")
+        del Y
+        queries[f"S×S {name} ({kid})"] = e
+        torch.cuda.empty_cache()
+    return launches, queries
+
+
 def path_latency(sess, queries: dict) -> None:
     """Warm compute() latency of each path query (plan cached): CUDA
     events around the whole call, median of 10 (host planning and
@@ -738,7 +1181,7 @@ def main() -> int:
     if sys.argv[1:] == ["--library-yardstick"]:
         return library_yardstick()
     from matrel_tpu_torch import MatrelSession
-    from matrel_tpu_torch.ops import pallas_spmm, pallas_spmv
+    from matrel_tpu_torch.ops import pallas_spgemm, pallas_spmm, pallas_spmv
     from matrel_tpu_torch.utils import cuda_build
 
     t_start = time.perf_counter()
@@ -747,11 +1190,11 @@ def main() -> int:
         f"CUDA {torch.version.cuda}; {card}")
 
     t0 = time.perf_counter()
-    sources = [cuda_build.CSRC_DIR / m.SOURCE
-               for m in (pallas_spmm, pallas_spmv)]
+    kernel_modules = (pallas_spmm, pallas_spmv, pallas_spgemm)
+    sources = [cuda_build.CSRC_DIR / m.SOURCE for m in kernel_modules]
     libs = cuda_build.build(sources)          # one nvcc each, in parallel
-    pallas_spmm.build()
-    pallas_spmv.build()
+    for m in kernel_modules:
+        m.build()
     log(f"build: {time.perf_counter() - t0:.1f} s -> "
         f"{', '.join(l.name for l in libs)}")
     for lib in libs:
@@ -773,6 +1216,13 @@ def main() -> int:
     del src, dst
     torch.cuda.empty_cache()
 
+    spgemm_kernel_phase(sess.mesh)
+    torch.cuda.empty_cache()
+    b47 = spgemm_timing(sess.mesh)
+    l_spgemm, q_spgemm = path_spgemm(sess)
+    queries.update(q_spgemm)
+    torch.cuda.empty_cache()
+
     library = run_library_yardstick()
     S, D = row4_inputs(sess)
     row = row4_timing(S, D, library)
@@ -789,9 +1239,9 @@ def main() -> int:
         f"yardstick process: {library.get('peak_gib')} GiB); row-5 "
         f"PageRank {pr_row['round_ms']:.4f} ms per round; total "
         f"{time.perf_counter() - t_start:.1f} s")
-    if peak > 4 * 2**30:
+    if peak > PEAK_LIMIT_BYTES:
         raise AssertionError(f"peak device memory {peak / 2**30:.3f} GiB "
-                             f"> 4 GiB")
+                             f"> {PEAK_LIMIT_BYTES / 2**30:.0f} GiB")
 
     kernels = [
         kernel_entry("spmm_blocksparse", pallas_spmm.SOURCE,
@@ -802,7 +1252,11 @@ def main() -> int:
         kernel_entry("spmm_compact", pallas_spmv.SOURCE,
                      "matrel_tpu/ops/pallas_spmv.py:334", l_spmm,
                      b23["spmm_compact"]),
-    ]
+    ] + [kernel_entry(name, pallas_spgemm.SOURCE, SPGEMM_REPLACES[name],
+                      l_spgemm[name], b47[name]) for name in SPGEMM_REPLACES]
+    missing = [k["name"] for k in kernels if k["launches"] < 1]
+    if missing:
+        raise AssertionError(f"no launch on a path for {missing}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

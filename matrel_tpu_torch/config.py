@@ -30,11 +30,12 @@ class MatrelConfig:
     grid the planner prices; one card always executes as 1x1),
     ``mesh_axis_names``, ``broadcast_threshold_bytes``,
     ``strategy_override``, ``sparsity_threshold`` (read by neither
-    package), ``comm_alpha_bytes``, ``default_dtype``,
-    ``matmul_precision``, ``keep_input_dtype``, ``use_pallas`` (here:
-    launch the hand-written CUDA kernels for CUDA tensors; False runs
-    their plain PyTorch versions), ``chain_opt``, ``rewrite_rules``,
-    ``plan_cache_max_plans``, ``hbm_budget_bytes``,
+    package), ``spgemm_density_threshold``, ``spgemm_kernel_override``
+    (validated against :data:`SPGEMM_KERNEL_IDS`), ``comm_alpha_bytes``,
+    ``default_dtype``, ``matmul_precision``, ``keep_input_dtype``,
+    ``use_pallas`` (here: launch the hand-written CUDA kernels for CUDA
+    tensors; False runs their plain PyTorch versions), ``chain_opt``,
+    ``rewrite_rules``, ``plan_cache_max_plans``, ``hbm_budget_bytes``,
     ``axis_cost_weights``, ``precision_sla``, ``precision_enable_bf16``,
     ``precision_enable_int``.
 
@@ -147,6 +148,12 @@ class MatrelConfig:
                     f"plane behind this knob is not ported to "
                     f"matrel_tpu_torch yet (only the default {want!r} "
                     f"is accepted)")
+        if (self.spgemm_kernel_override
+                and self.spgemm_kernel_override not in SPGEMM_KERNEL_IDS):
+            raise ValueError(
+                f"spgemm_kernel_override must be one of "
+                f"{SPGEMM_KERNEL_IDS} (or '' to disable), got "
+                f"{self.spgemm_kernel_override!r}")
         if self.matmul_precision not in ("default", "high", "highest"):
             raise ValueError(
                 f"matmul_precision must be one of 'default'/'high'/"
@@ -168,15 +175,13 @@ class MatrelConfig:
 
 _FIELD_DEFAULTS = {f.name: f.default for f in dataclasses.fields(MatrelConfig)}
 
-#: Knobs whose plane is not ported: the S×S SpGEMM dispatch and its
-#: kernel registry, Pallas interpret mode, buffer donation, hoisted
-#: payloads (the plan cache's byte bound counts them), relational
-#: joins, autotune, the result cache and serving pipeline,
+#: Knobs whose plane is not ported: Pallas interpret mode, buffer
+#: donation, hoisted payloads (the plan cache's byte bound counts them),
+#: relational joins, autotune, the result cache and serving pipeline,
 #: observability, static verification, staged resharding, resilience,
 #: overload control, fusion, multi-query optimization, IVM, the fleet,
 #: lockdep, the cost-model loop and the durable spill hierarchy.
 UNPORTED_KNOBS = (
-    "spgemm_density_threshold", "spgemm_kernel_override",
     "pallas_interpret", "donate_intermediates", "plan_cache_max_bytes",
     "join_pair_cap_entries", "join_bruteforce_max_pairs",
     "join_chunk_entries", "autotune", "autotune_table_path",
@@ -203,6 +208,13 @@ UNPORTED_KNOBS = (
     "coeff_replan_interval", "coeff_replan_cooldown", "spill_enable",
     "spill_host_max_bytes", "spill_disk_hits", "state_dir",
 )
+
+#: The SpGEMM kernel-registry vocabulary — what
+#: ``spgemm_kernel_override`` validates against at construction
+#: (``tests/test_torch_kernel_registry.py`` pins it equal to the ids of
+#: ``ops/kernel_registry.REGISTRY``).
+SPGEMM_KERNEL_IDS = ("xla_gather", "pallas_generic", "pallas_band",
+                     "pallas_cluster", "pallas_powerlaw")
 
 #: The per-query accuracy-SLA vocabulary (docs/PRECISION.md): named
 #: levels plus the explicit-dtype spellings that pin one tier.
@@ -233,3 +245,10 @@ _default_config = MatrelConfig()
 def default_config() -> MatrelConfig:
     return _default_config
 
+
+def pallas_enabled(config: Optional[MatrelConfig] = None) -> bool:
+    """Do the hand-written kernels run (the counterpart of the JAX
+    package's ``pallas_enabled``)? The port's gate is ``use_pallas``
+    alone: a CUDA tensor launches the kernel, a CPU tensor runs the
+    kernel's plain version, so no backend or interpret check applies."""
+    return (config or default_config()).use_pallas

@@ -52,7 +52,7 @@ def block_sparse(blocks: np.ndarray, block_rows: np.ndarray,
     blocks = np.asarray(blocks)
     dtype = as_torch_dtype(dtype if dtype is not None else blocks.dtype)
     dev = mesh.device
-    return BlockSparseMatrix(
+    S = BlockSparseMatrix(
         blocks=tensor_from_numpy(blocks, dtype, dev),
         block_rows=torch.as_tensor(np.array(block_rows, np.int32),
                                    device=dev),
@@ -60,6 +60,8 @@ def block_sparse(blocks: np.ndarray, block_rows: np.ndarray,
                                    device=dev),
         shape=(int(shape[0]), int(shape[1])), block_size=int(block_size),
         mesh=mesh)
+    S._seed_host_tiles(np.asarray(block_rows), np.asarray(block_cols))
+    return S
 
 
 def coo_from_arrays(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,

@@ -63,19 +63,39 @@ class BlockSparseMatrix:
     def dtype(self) -> torch.dtype:
         return self.blocks.dtype
 
+    def host_tiles(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(block_rows, block_cols) as host int64 arrays, memoised on the
+        matrix against the two index tensors: the S×S structure work
+        (pair lists, classifiers) reads this, never a device copy per
+        query. Constructors that start from host arrays seed it."""
+        memo = getattr(self, "_host_tiles_memo", None)
+        if (memo is None or memo[0] is not self.block_rows
+                or memo[1] is not self.block_cols):
+            memo = self._seed_host_tiles(self.block_rows.cpu().numpy(),
+                                         self.block_cols.cpu().numpy())
+        return memo[2], memo[3]
+
+    def _seed_host_tiles(self, rows, cols):
+        memo = (self.block_rows, self.block_cols,
+                np.asarray(rows, np.int64), np.asarray(cols, np.int64))
+        self._host_tiles_memo = memo
+        return memo
+
     # -- construction -------------------------------------------------------
 
     @classmethod
     def _from_host_tiles(cls, payload, rows, cols, shape, bs, mesh,
                          dtype) -> "BlockSparseMatrix":
         dev = mesh.device
-        return cls(
+        S = cls(
             blocks=tensor_from_numpy(payload, dtype, dev),
             block_rows=torch.as_tensor(np.asarray(rows, np.int32),
                                        device=dev),
             block_cols=torch.as_tensor(np.asarray(cols, np.int32),
                                        device=dev),
             shape=(int(shape[0]), int(shape[1])), block_size=bs, mesh=mesh)
+        S._seed_host_tiles(rows, cols)
+        return S
 
     @classmethod
     def from_numpy(cls, arr: np.ndarray, block_size: Optional[int] = None,
@@ -156,12 +176,13 @@ class BlockSparseMatrix:
         gen = torch.Generator(device=dev).manual_seed(seed)
         vals = torch.rand((nnzb, bs, bs), generator=gen, device=dev,
                           dtype=torch.float32).to(dtype)
-        return cls(blocks=vals,
-                   block_rows=torch.as_tensor((flat // gc).astype(np.int32),
-                                              device=dev),
-                   block_cols=torch.as_tensor((flat % gc).astype(np.int32),
-                                              device=dev),
-                   shape=(int(n), int(m)), block_size=bs, mesh=mesh)
+        rows, cols = flat // gc, flat % gc
+        S = cls(blocks=vals,
+                block_rows=torch.as_tensor(rows.astype(np.int32), device=dev),
+                block_cols=torch.as_tensor(cols.astype(np.int32), device=dev),
+                shape=(int(n), int(m)), block_size=bs, mesh=mesh)
+        S._seed_host_tiles(rows, cols)
+        return S
 
     # -- materialisation ----------------------------------------------------
 
@@ -194,12 +215,11 @@ class BlockSparseMatrix:
     def transpose(self) -> "BlockSparseMatrix":
         """Sᵀ: swap tile coordinates and transpose payloads (one device
         copy); re-sorted row-major to keep the kernel invariants."""
-        rows = self.block_cols.cpu().numpy()
-        cols = self.block_rows.cpu().numpy()
+        cols, rows = self.host_tiles()
         order = np.lexsort((cols, rows))
         dev = self.blocks.device
         idx = torch.as_tensor(order, device=dev)
-        return BlockSparseMatrix(
+        St = BlockSparseMatrix(
             blocks=self.blocks.transpose(1, 2)[idx].contiguous(),
             block_rows=torch.as_tensor(rows[order].astype(np.int32),
                                        device=dev),
@@ -207,6 +227,8 @@ class BlockSparseMatrix:
                                        device=dev),
             shape=(self.shape[1], self.shape[0]),
             block_size=self.block_size, mesh=self.mesh)
+        St._seed_host_tiles(rows[order], cols[order])
+        return St
 
     # -- lazy DSL -----------------------------------------------------------
 

@@ -14,18 +14,25 @@ its logical region; ops that would break it (scalar-add, pow ≤ 0,
 broadcast add/sub/div) re-mask, and aggregates mask padding where zeros
 would change the answer (max/min).
 
+An S×S matmul (block-sparse or COO leaves on both sides, any mix)
+whose estimated output block density is below
+``config.spgemm_density_threshold`` lowers through the tile-intersection
+SpGEMM (``ops/spgemm.py``) with the planner's ``spgemm_kernel`` stamp;
+above it, the densify fallthrough runs.
+
 Lowered kinds: leaf, sparse_leaf, coo_leaf, transpose, matmul,
-elemwise, scalar, agg. Every other kind, and the S×S SpGEMM dispatch
-(block-sparse or COO on both sides), raises ``NotPortedError``. The
+elemwise, scalar, agg. Every other kind raises ``NotPortedError``. The
 autotuned SpMV executor choice is not ported (its knob raises).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from matrel_tpu_torch.config import MatrelConfig, NotPortedError, default_config
@@ -109,7 +116,13 @@ class Lowerer:
                                                 leaf_pos)
                 return memo[node.uid]
 
-            return _pad_to(ev(root), pshape).contiguous()
+            try:
+                return _pad_to(ev(root), pshape).contiguous()
+            finally:
+                # ev refers to itself, so the memo would outlive the call
+                # (and hold every intermediate, the result included)
+                # until the garbage collector breaks the cycle
+                memo.clear()
 
         return fn
 
@@ -150,9 +163,44 @@ class Lowerer:
         return (u.kind == "leaf" and v.kind == "leaf"
                 and u.attrs["matrix"] is v.attrs["matrix"])
 
+    def _as_block_sparse(self, leaf_node: MatExpr, bs: int):
+        """The BlockSparseMatrix form of an S×S matmul operand: a
+        sparse_leaf carries one; a coo_leaf is bucketed into its touched
+        tiles (never densified), memoised on the matrix per (block size,
+        mesh)."""
+        from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+        m = leaf_node.attrs["matrix"]
+        if leaf_node.kind == "sparse_leaf":
+            return m
+        memo = getattr(m, "_block_sparse_memo", None)
+        if memo is not None and memo[0] == bs and memo[1] is self.mesh:
+            return memo[2]
+        S = BlockSparseMatrix.from_coo_arrays(
+            m.rows, m.cols, m.vals, m.shape, block_size=bs, mesh=self.mesh,
+            config=self.config, dtype="float32")
+        m._block_sparse_memo = (bs, self.mesh, S)
+        return S
+
+    def _spgemm(self, node: MatExpr) -> Tensor:
+        """S×S below the density crossover: tile-intersection SpGEMM,
+        scattered to the padded dense layout. The kernel comes from the
+        planner's ``spgemm_kernel`` stamp; an unstamped node asks the
+        shared chooser itself, so the two cannot drift."""
+        from matrel_tpu_torch.ops import spgemm as spgemm_lib
+        bs = _spgemm_block_size(node, self.config)
+        SA = self._as_block_sparse(node.children[0], bs)
+        SB = self._as_block_sparse(node.children[1], bs)
+        kid = node.attrs.get("spgemm_kernel")
+        if kid is None:
+            kid, _, _ = spgemm_kernel_choice(node, self.config)
+        return spgemm_lib.apply_dense(SA, SB, self.config, kernel=kid)
+
     def _matmul(self, node: MatExpr, ev) -> Tensor:
         l, r = node.children
-        _spgemm_dispatch(node, self.config)   # S×S raises NotPortedError
+        # S×S below the density crossover: SpGEMM. The dispatch predicate
+        # is shared with the planner (_spgemm_dispatch).
+        if _spgemm_dispatch(node, self.config):
+            return self._spgemm(node)
         # coo_leaf matmuls: the SpMV/SpMM kernels for narrow dense
         # operands; wide ones (or refused plans) densify. The dispatch
         # predicate is shared with the planner (_coo_dispatch_plan).
@@ -363,16 +411,108 @@ class Lowerer:
         return _mask_to_logical(out, node.shape)
 
 
-def _spgemm_dispatch(node: MatExpr, config=None) -> bool:
-    """Will this matmul lower through the S×S SpGEMM path? Not ported:
-    an S×S matmul (block-sparse or COO leaves on both sides, any mix)
-    raises."""
+def _spgemm_block_size(node: MatExpr, config=None):
+    """The tile edge an S×S matmul's SpGEMM would run at, or None when
+    the node is not an S×S candidate: both operands must be sparse
+    leaves, and two block-sparse operands must agree on block size. COO
+    operands adopt the block-sparse partner's grid, or
+    ``config.block_size`` for COO×COO."""
     l, r = node.children
-    if l.kind in planner.SPARSE_KINDS and r.kind in planner.SPARSE_KINDS:
-        raise NotPortedError(
-            "S×S sparse matmul (SpGEMM, TPU kernels B4–B7) is not "
-            "ported to matrel_tpu_torch yet")
-    return False
+    if (l.kind not in planner.SPARSE_KINDS
+            or r.kind not in planner.SPARSE_KINDS):
+        return None
+    sizes = [c.attrs["matrix"].block_size for c in node.children
+             if c.kind == "sparse_leaf"]
+    if len(sizes) == 2 and sizes[0] != sizes[1]:
+        return None
+    if sizes:
+        return sizes[0]
+    return (config or default_config()).block_size
+
+
+def _block_density_of(child: MatExpr, bs: int) -> float:
+    """Block-granular density of an S×S operand: block-sparse leaves
+    carry it; COO leaves count their touched tiles exactly from the host
+    edge lists (memoised per block size) — the probabilistic lift would
+    saturate for any element density above ~1/bs²."""
+    m = child.attrs["matrix"]
+    if child.kind == "sparse_leaf":
+        return m.density
+    memo = getattr(m, "_block_density_memo", None)
+    if memo is not None and memo[0] == bs:
+        return memo[1]
+    gr = math.ceil(m.shape[0] / bs)
+    gc = math.ceil(m.shape[1] / bs)
+    keys = (np.asarray(m.rows, np.int64) // bs) * gc \
+        + np.asarray(m.cols, np.int64) // bs
+    d = len(np.unique(keys)) / max(gr * gc, 1)
+    m._block_density_memo = (bs, d)
+    return d
+
+
+def spgemm_out_block_density(node: MatExpr, config=None):
+    """Estimated output BLOCK density of an S×S matmul — the quantity
+    the dispatch threshold compares. None when not an S×S candidate."""
+    from matrel_tpu_torch.ir import stats
+    bs = _spgemm_block_size(node, config)
+    if bs is None:
+        return None
+    l, r = node.children
+    kb = max(1, math.ceil(l.shape[1] / bs))
+    return stats.matmul_density(_block_density_of(l, bs),
+                                _block_density_of(r, bs), kb)
+
+
+def _spgemm_dispatch(node: MatExpr, config=None) -> bool:
+    """Will this matmul lower through the SpGEMM path? The single
+    source of truth, shared by ``Lowerer._matmul`` and the planner."""
+    cfg = config or default_config()
+    if cfg.spgemm_density_threshold <= 0.0:
+        return False
+    est = spgemm_out_block_density(node, cfg)
+    return est is not None and est < cfg.spgemm_density_threshold
+
+
+def spgemm_estimates(node: MatExpr, config=None) -> dict:
+    """Estimated output block density of a SpGEMM dispatch, plus the
+    pairs, FLOPs and HBM bytes it saves against the densify fallback."""
+    from matrel_tpu_torch.ir import stats
+    cfg = config or default_config()
+    bs = _spgemm_block_size(node, cfg)
+    l, r = node.children
+    k, m = l.shape[1], r.shape[1]
+    kb = max(1, math.ceil(k / bs))
+
+    def nnzb_of(child):
+        mtx = child.attrs["matrix"]
+        if child.kind == "sparse_leaf":
+            return float(mtx.nnzb)
+        gr = math.ceil(child.shape[0] / bs)
+        gc = math.ceil(child.shape[1] / bs)
+        return _block_density_of(child, bs) * gr * gc
+
+    rec = stats.spgemm_saved_estimate(nnzb_of(l), nnzb_of(r), kb, k, m,
+                                      bs)
+    rec["est_out_block_density"] = spgemm_out_block_density(node, cfg)
+    rec["block_size"] = bs
+    return rec
+
+
+def spgemm_kernel_choice(node: MatExpr, config=None):
+    """(kernel_id, structure_class, source) for a dispatching S×S
+    matmul — the single chooser shared by the planner's stamp and the
+    lowering of an unstamped node."""
+    from matrel_tpu_torch.ir import stats
+    from matrel_tpu_torch.ops import kernel_registry as kr
+    cfg = config or default_config()
+    bs = _spgemm_block_size(node, cfg)
+    l, r = node.children
+    structure = stats.pair_structure_class(
+        kr.structure_of_child(l, bs), kr.structure_of_child(r, bs))
+    est = spgemm_estimates(node, cfg)
+    npairs = max(int(round(est.get("est_pairs") or 0.0)), 1)
+    kid, source = kr.select_kernel(structure, bs, npairs, cfg)
+    return kid, structure, source
 
 
 def _coo_dispatch_plan(node: MatExpr):

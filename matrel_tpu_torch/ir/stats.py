@@ -1,6 +1,6 @@
 """Dimension + sparsity statistics propagation — the counterpart of
-``matrel_tpu/ir/stats.py`` (the structure classifiers and SpGEMM
-estimates of the S×S path are not ported yet).
+``matrel_tpu/ir/stats.py``, with the block-structure classifiers and
+the block-granular SpGEMM estimates of the S×S path.
 
 Pure-Python estimates over the MatExpr tree, no devices involved:
   density(A·B)   ≈ 1 - (1 - dA*dB)^k   (k = contraction dim)
@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import math
 from typing import Optional, Tuple
+
+import numpy as np
 
 
 def density_of(nnz: Optional[int], shape: Tuple[int, int]) -> float:
@@ -248,3 +250,155 @@ def matmul_out_nnz(n: int, k: int, m: int, nnz_a: Optional[int],
     da = density_of(nnz_a, (n, k))
     db = density_of(nnz_b, (k, m))
     return nnz_from_density(matmul_density(da, db, k), (n, m))
+
+
+# -- sparsity-structure classification (ops/kernel_registry.py) -------------
+# The structure-specialized SpGEMM kernels (JITSPMM's thesis,
+# arXiv:2312.05639) need to KNOW the shape of the sparsity, not just
+# its density. These closed-form classifiers read the block edge lists
+# the engine already computes (BlockSparseMatrix.block_rows/cols; COO
+# leaves bucketed at the dispatch block size) and bin each operand into
+# one of the STRUCTURE_CLASSES. Host-only numpy, no devices — the same
+# contract as everything else in this module.
+
+
+#: Structure-class vocabulary, most-specific first. "generic" is the
+#: conservative fallback every boundary case must land in.
+STRUCTURE_CLASSES = ("row_band", "clustered_tile", "powerlaw_coo",
+                     "generic")
+
+#: row_band: p90 of |tile offset (col - row) - median offset| must sit
+#: inside this fraction of the grid (or within BAND_SPREAD_TILES tiles
+#: absolutely — a tridiagonal or 5-point stencil band qualifies on any
+#: grid size).
+BAND_SPREAD_FRAC = 0.08
+BAND_SPREAD_TILES = 2.0
+
+#: powerlaw_coo: max per-block-row tile count >= this multiple of the
+#: MEDIAN (over OCCUPIED rows — the median is hub-robust where the
+#: mean is not: on a small grid two hub rows lift the mean enough to
+#: hide themselves), with at least POWERLAW_MIN_ROWS occupied rows so
+#: a 2-row matrix can't fake a hub.
+POWERLAW_SKEW = 6.0
+POWERLAW_MIN_ROWS = 8
+
+#: clustered_tile: mean occupied-4-neighbor count must beat the
+#: uniform-random expectation (4 * block density) by this factor AND
+#: clear an absolute floor; above CLUSTER_MAX_DENSITY everything is
+#: neighborly and the class says nothing.
+CLUSTER_NEIGHBOR_LIFT = 3.0
+CLUSTER_NEIGHBOR_MIN = 1.0
+CLUSTER_MAX_DENSITY = 0.5
+
+#: Below this many tiles no classifier has evidence — generic.
+STRUCTURE_MIN_TILES = 4
+
+
+def classify_block_structure(rows, cols, gr: int, gc: int) -> str:
+    """Structure class of one sparse operand from its block edge lists.
+
+    ``rows``/``cols`` are the tile coordinates (int arrays, any order,
+    duplicates allowed) on a (gr, gc) tile grid. Checks most-specific
+    first — row_band, then powerlaw_coo, then clustered_tile — and
+    falls back to "generic" whenever the evidence is thin (fewer than
+    STRUCTURE_MIN_TILES tiles, degenerate grids, boundary histograms
+    that clear no threshold)."""
+    rows = np.asarray(rows, np.int64).ravel()
+    cols = np.asarray(cols, np.int64).ravel()
+    if rows.size < STRUCTURE_MIN_TILES or gr < 2 or gc < 2:
+        return "generic"
+    if rows.size != cols.size:
+        return "generic"
+    ntiles = len(np.unique(rows * gc + cols))
+    density = ntiles / float(gr * gc)
+
+    # row_band: tiles hug one (possibly shifted) diagonal — the TILE
+    # offset col - row concentrates around its median. Measured in
+    # tiles: the absolute floor admits stencil-width bands on any
+    # grid, the fractional term scales with flagship grids.
+    off = (cols - rows).astype(np.float64)
+    med = float(np.median(off))
+    dev = float(np.quantile(np.abs(off - med), 0.90))
+    if dev <= max(BAND_SPREAD_TILES, BAND_SPREAD_FRAC * min(gr, gc)):
+        return "row_band"
+
+    # powerlaw_coo: per-block-row tile counts skewed (the PageRank /
+    # hub-graph shape) — a few rows own most of the tiles.
+    occ = np.bincount(rows, minlength=gr)
+    occ = occ[occ > 0]
+    if (occ.size >= POWERLAW_MIN_ROWS
+            and float(occ.max())
+            >= POWERLAW_SKEW * float(np.median(occ))):
+        return "powerlaw_coo"
+
+    # clustered_tile: occupied tiles form dense blobs — the mean count
+    # of occupied 4-neighbors beats the uniform-random expectation.
+    # Vectorized (sorted-key membership): a million-tile coo_leaf is
+    # classified in numpy time, not a Python per-tile loop.
+    if density <= CLUSTER_MAX_DENSITY:
+        keys = np.unique(rows * gc + cols)
+        col = keys % gc
+        neigh = (
+            (np.isin(keys + 1, keys) & (col < gc - 1)).sum()
+            + (np.isin(keys - 1, keys) & (col > 0)).sum()
+            + np.isin(keys + gc, keys).sum()
+            + np.isin(keys - gc, keys).sum())
+        mean_neigh = float(neigh) / max(keys.size, 1)
+        if (mean_neigh >= CLUSTER_NEIGHBOR_MIN
+                and mean_neigh >= CLUSTER_NEIGHBOR_LIFT * 4.0 * density):
+            return "clustered_tile"
+    return "generic"
+
+
+def pair_structure_class(class_a: str, class_b: str) -> str:
+    """Structure class of an S×S operand PAIR — what the SpGEMM kernel
+    actually runs over. Conservative: a specialized kernel is only
+    nominated when BOTH operands share its home structure (A·A-shaped
+    graph workloads, band×band chains); any mix falls back to
+    "generic", where the legacy kernels stand."""
+    if class_a == class_b and class_a in STRUCTURE_CLASSES:
+        return class_a
+    return "generic"
+
+
+# -- block-granular SpGEMM estimates (ops/spgemm.py dispatch + pricing) -----
+
+
+def block_density(elem_density: float, block_size: int) -> float:
+    """Probability a block_size×block_size tile holds ≥1 nonzero, under
+    the same independence assumption as matmul_density — lifts an
+    ELEMENT density (COO leaves) to the BLOCK granularity the SpGEMM
+    tile-intersection reasons at. Same stable 1-(1-p)^k form."""
+    if elem_density <= 0.0:
+        return 0.0
+    if elem_density >= 1.0:
+        return 1.0
+    return -math.expm1(block_size * block_size
+                       * math.log1p(-elem_density))
+
+
+def spgemm_pairs_estimate(nnzb_a: float, nnzb_b: float, kb: int) -> float:
+    """Expected (A-tile, B-tile) intersection pairs for a blocked
+    S×S multiply with kb contraction block-columns, tiles uniformly
+    scattered: each A tile in contraction column c meets the
+    ~nnzb_b/kb B tiles of block-row c."""
+    return nnzb_a * (nnzb_b / max(kb, 1))
+
+
+def spgemm_saved_estimate(nnzb_a: float, nnzb_b: float,
+                          kb: int, k: int, m: int, bs: int,
+                          itemsize: int = 4) -> dict:
+    """Estimated work the SpGEMM dispatch avoids vs the densify
+    fallback (SpMM over a DENSIFIED right operand — executor.py's S×S
+    fallthrough): FLOPs of 2·nnzb_a·bs²·m against 2·pairs·bs³, and the
+    HBM bytes of the dense (k, m) operand that is never materialised.
+    Feeds planner.matmul_decisions → obs/ query events."""
+    pairs = spgemm_pairs_estimate(nnzb_a, nnzb_b, kb)
+    flops_densify = 2.0 * nnzb_a * bs * bs * m
+    flops_spgemm = 2.0 * pairs * bs * bs * bs
+    return {
+        "est_pairs": pairs,
+        "est_saved_flops": max(0.0, flops_densify - flops_spgemm),
+        "est_saved_hbm_bytes": max(
+            0.0, float(k) * m * itemsize - nnzb_b * bs * bs * itemsize),
+    }

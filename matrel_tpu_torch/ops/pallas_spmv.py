@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from matrel_tpu_torch.config import MatrelConfig, default_config
+from matrel_tpu_torch.config import MatrelConfig, pallas_enabled
 from matrel_tpu_torch.ops import spmv as spmv_lib
 from matrel_tpu_torch.ops.spmv_routed import split_sum
 
@@ -59,10 +59,9 @@ _PLAIN_CHUNK_ELEMS = 1 << 23
 
 
 def compact_enabled(config: Optional[MatrelConfig] = None) -> bool:
-    """Do the compact-table kernels run (the counterpart of
-    ``config.pallas_enabled``)? The port's gate is ``use_pallas`` alone:
-    on a CPU tensor the kernel route runs its plain version."""
-    return (config or default_config()).use_pallas
+    """Do the compact-table kernels run? The shared kernel gate
+    :func:`config.pallas_enabled`."""
+    return pallas_enabled(config)
 
 
 def _library() -> ctypes.CDLL:

@@ -8,9 +8,12 @@ The strategy choice per matmul is made before execution from shapes,
 densities and operand layouts, with a communication-cost model over the
 mesh's (virtual) grid, and stamped on the node (``attrs["strategy"]`` /
 ``attrs["strategy_source"]``). On one card the grid is 1x1 and every
-matmul stamps ``("xla", "default")``; a virtual grid reproduces the JAX
-package's stamps. The join-scheme choice, autotune and the learned
-coefficients are not ported (their knobs raise ``NotPortedError``).
+dense matmul stamps ``("xla", "default")``; a virtual grid reproduces
+the JAX package's stamps. An S×S matmul that dispatches SpGEMM stamps
+``("spgemm", "dispatch")`` and the registry kernel it runs
+(``spgemm_kernel``, ``spgemm_structure``, ``spgemm_kernel_source``).
+The join-scheme choice, autotune and the learned coefficients are not
+ported (their knobs raise ``NotPortedError``).
 """
 
 from __future__ import annotations
@@ -265,9 +268,8 @@ SPARSE_KINDS = ("sparse_leaf", "coo_leaf")
 
 
 def _spgemm_matmul(n: MatExpr, config=None) -> bool:
-    """Will this matmul dispatch the S×S SpGEMM? The shared predicate
-    lives in the executor; for the S×S path, which is not ported, it
-    raises ``NotPortedError``."""
+    """Will this matmul dispatch the S×S SpGEMM? Consults the
+    executor's ``_spgemm_dispatch``, the single source of truth."""
     l, r = n.children
     if l.kind in SPARSE_KINDS and r.kind in SPARSE_KINDS:
         from matrel_tpu_torch import executor as _exec
@@ -756,6 +758,13 @@ def annotate_strategies(e: MatExpr, mesh: Mesh,
                                            consumer_hint=_consumer_hint,
                                            root_scale=_root_scale)
         e = e.with_attrs(strategy=strat, strategy_source=source)
+        if strat == "spgemm":
+            # which registry kernel the S×S lowering runs, from the
+            # shared chooser (executor.spgemm_kernel_choice)
+            from matrel_tpu_torch import executor as _exec
+            kid, struct, ksrc = _exec.spgemm_kernel_choice(e, config)
+            e = e.with_attrs(spgemm_kernel=kid, spgemm_structure=struct,
+                             spgemm_kernel_source=ksrc)
     infer_dtype(e, config, memo)     # seed this (possibly new-uid) node
     infer_layout(e, mesh, lmemo, config)
     return e

@@ -26,8 +26,7 @@ from matrel_tpu.session import MatrelSession as JSession
 from matrel_tpu.workloads import pagerank as jpr
 
 from matrel_tpu_torch import (BlockSparseMatrix, DeviceUnavailableError,
-                              MatrelConfig, MatrelSession, NotPortedError,
-                              convert)
+                              MatrelConfig, MatrelSession, convert)
 from matrel_tpu_torch.core.coo import COOMatrix
 from matrel_tpu_torch.ops import pallas_spmv as tpc
 from matrel_tpu_torch.parallel import planner as tplanner
@@ -236,13 +235,21 @@ def test_plan_cache_keys_coo_by_identity():
 
 
 def test_sparse_by_sparse_raises():
+    """COO × COO and COO × block-sparse run through compute now (the S×S
+    SpGEMM path, tests/test_torch_spgemm.py); what still raises is a
+    forced kernel id outside the registry."""
     _, _, tA = graph(9, n_r=64, n_c=64, m=300)
     ts = MatrelSession(device="cpu")
     S = BlockSparseMatrix.from_numpy(np.eye(64, dtype=np.float32),
                                      block_size=8, mesh=ts.mesh)
-    for e in (tA.multiply(tA), tA.multiply(S), S.multiply(tA)):
-        with pytest.raises(NotPortedError, match="S×S"):
-            ts.compute(e)
+    a = np.zeros((64, 64))
+    np.add.at(a, (tA.rows, tA.cols), tA.vals)
+    for e, want in ((tA.multiply(tA), a @ a), (tA.multiply(S), a),
+                    (S.multiply(tA), a)):
+        np.testing.assert_allclose(ts.compute(e).to_numpy(), want,
+                                   rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="spgemm_kernel_override"):
+        MatrelConfig(spgemm_kernel_override="densify")
 
 
 def test_planner_coo_rules():

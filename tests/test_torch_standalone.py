@@ -7,8 +7,8 @@ ported.
   JAX package (checked on the syntax tree, lazy imports included).
 - The default device is CUDA: without a card the session raises unless
   the caller asked for the CPU.
-- Unported node kinds, the S×S dispatch and knobs of unported planes
-  raise ``NotPortedError``.
+- Unported node kinds, the fused SpGEMM epilogue and knobs of unported
+  planes raise ``NotPortedError``.
 """
 
 import ast
@@ -101,6 +101,44 @@ def test_coo_and_pagerank_without_jax():
     assert "standalone coo ok" in proc.stdout
 
 
+def test_spgemm_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "matrel_tpu"):
+            sys.modules[name] = None          # import raises ImportError
+        import numpy as np
+        from matrel_tpu_torch import MatrelSession
+        from matrel_tpu_torch.core.coo import COOMatrix
+        from matrel_tpu_torch.ops import kernel_registry as kr
+        from matrel_tpu_torch.ops import pallas_spgemm, spgemm
+        s = MatrelSession(device="cpu")
+        A = kr.synthesize_structure("powerlaw_coo", 256, 16, s.mesh, seed=1)
+        a = A.to_numpy().astype(np.float64)
+        plan = s.compile(A.multiply(A))
+        assert plan.optimized.attrs["spgemm_kernel"] == "pallas_powerlaw"
+        out = s.compute(A.multiply(A)).to_numpy()
+        assert np.allclose(out, a @ a, rtol=1e-4, atol=1e-4)
+        rng = np.random.default_rng(0)
+        C = COOMatrix.from_edges(rng.integers(0, 256, 50),
+                                 rng.integers(0, 256, 50), shape=(256, 256))
+        c = np.zeros((256, 256))
+        np.add.at(c, (C.rows, C.cols), C.vals)
+        out = s.compute(C.multiply(A.expr())).to_numpy()
+        assert np.allclose(out, c @ a, rtol=1e-4, atol=1e-4)
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "matrel_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("standalone spgemm ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone spgemm ok" in proc.stdout
+
+
 def _imported_modules(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -141,7 +179,10 @@ def test_unported_planes_and_kinds_raise():
     b = s.from_numpy(rng.standard_normal((4, 1)).astype(np.float32))
     with pytest.raises(NotPortedError, match="solve"):
         s.compute(A.expr().solve(b))
+    with pytest.raises(NotPortedError, match="pallas_interpret"):
+        MatrelConfig(pallas_interpret=True)
+    from matrel_tpu_torch.ops import spgemm
     sp = np.eye(16, dtype=np.float32)
     S = BlockSparseMatrix.from_numpy(sp, block_size=8, mesh=s.mesh)
-    with pytest.raises(NotPortedError, match="S×S"):
-        s.compute(S.multiply(S))
+    with pytest.raises(NotPortedError, match="epilogue"):
+        spgemm.apply_dense(S, S, epilogue=lambda x: x)
