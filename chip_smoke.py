@@ -23,7 +23,11 @@
    band with an empty block row, the bs-512 band's grouped fallback),
    and timed at n = 100,352 on the repo's own S×S deployments (bench.py
    measure_spgemm / measure_sparse_kernels) beside the plain version,
-   the bound and the xla_gather torch composite.
+   the bound and the xla_gather torch composite. The routed SpMV B8
+   (ops/spmv_routed.py) is held against its plain version at passes 1,
+   2 and 3, split across CTAs and not, on the JAX tests' shapes (3 x 3
+   groups, 5,000 x 33,000, an empty destination and source group, a hot
+   cell in the overflow COO), and each whole product against float64.
 3. Path phases, through the entry points a user calls on the default
    device, with every kernel's launch count set to 0 just before each
    and read just after: BASELINE row 5 (PageRank, 30 rounds over
@@ -33,6 +37,14 @@
    four S×S queries A·B at n = 32,768 (1% random bf16 512-blocks, and
    clustered, powerlaw and band structures in f32: B4, B5, B7 and B6 as
    stamped, against a use_pallas=False session and float64 tiles),
+   routed_spmv on the row-5 graph at passes 2 and 3 (against the plain
+   version, the compact B2 route and float64 scipy), CG over the routed
+   Gram operator v -> A'(A v) + 0.1 v to 1e-5 (float64 residual; the same
+   solve over B2), row 3 (normal-equations linreg, 10,000,000 x 1000 from
+   bench_all.py's hash panels through fit_streaming at "high" and
+   "highest", against a float64 solve; then fit via compile_exprs,
+   fit_streaming and cg_least_squares on the first 1,000,000 rows held
+   whole),
    row 4 (block-sparse x dense, 100,352^2 at 1% of 512-blocks, bf16,
    plus the D'·S form), row 2 (skewed A·B·C, 10,000 x 100, f32, plan
    (A·(B·C))) and row 1 (4096^2 f32 multiply). Results are checked
@@ -700,6 +712,441 @@ def row5_timing(A, dev):
     return out
 
 
+# -- routed SpMV: kernel B8 (ops/spmv_routed.py) ----------------------------
+
+#: B8 against its plain version, relative to max|plain|: both add the same
+#: split parts, in f64, rounded once (shared-memory atomics vs
+#: index_add_ order), so they differ by about one f32 rounding.
+ROUTED_REL_TOL = 1e-6
+#: the whole routed product (overflow included) vs a float64 oracle: the
+#: JAX package's bounds (tests/test_spmv.py) at passes 2 and 3; passes 1
+#: truncates both value sides to 8 bits (2^-7 relative each).
+ROUTED_ORACLE_TOL = {1: 5e-2, 2: 5e-4, 3: 1e-6}
+#: CG over the row-5 Gram operator: tolerance, iteration cap and the
+#: ridge term that keeps AᵀA + l2·I well conditioned (AᵀA is singular:
+#: ~45 dangling nodes give zero columns).
+CG_TOL, CG_MAXITER, CG_L2 = 1e-5, 500, 0.1
+
+
+def routed_case(name, seed):
+    """(rows, cols, vals, n_rows, n_cols, build kwargs, empty (dst, src)
+    groups) for the routed kernel phase: the JAX tests' shapes
+    (tests/test_spmv.py TestRoutedSpMV)."""
+    import numpy as np
+    from matrel_tpu_torch.ops.spmv_routed import SPAN
+    rng = np.random.default_rng(seed)
+    kw, empty = {}, (None, None)
+    if name.startswith("3 x 3"):
+        n_rows = n_cols = 40_000
+        m = 20_000
+    elif name.startswith("rectangular"):
+        n_rows, n_cols, m = 5_000, 33_000, 8_000
+    elif name.startswith("empty"):
+        n_rows = n_cols = 40_000
+        m, kw, empty = 6_000, dict(max_padding=10.0), (1, 2)
+    else:                                   # hot cell into overflow
+        n_rows = n_cols = 40_000
+        m = 3_000
+        kw = dict(capacity_quantile=0.0, max_padding=1000.0)
+    rows = rng.integers(0, n_rows, m)
+    cols = rng.integers(0, n_cols, m)
+    vals = rng.standard_normal(m).astype(np.float32)
+    if empty[0] is not None:
+        rows = np.where(rows // SPAN == empty[0], rows - SPAN, rows)
+        cols = np.where(cols // SPAN == empty[1], cols - SPAN, cols)
+    if name.startswith("hot"):
+        rows[:1500] = 7
+        cols[:1500] = 11
+    return rows, cols, vals, n_rows, n_cols, kw, empty
+
+
+def routed_kernel_phase(dev) -> None:
+    """B8 against its plain version on the card (passes 1, 2 and 3, with
+    the source cells split across CTAs as the wrapper chooses and in one
+    CTA a group), each call's launch checked, and the whole routed
+    product (overflow included) against a float64 oracle."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.ops import spmv_routed as rt
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    names = ("3 x 3 groups, square", "rectangular 5,000 x 33,000",
+             "empty destination group 1 and source group 2",
+             "hot cell (0, 0) into the overflow COO")
+    for i, name in enumerate(names):
+        rows, cols, vals, n_rows, n_cols, kw, empty = routed_case(name,
+                                                                  500 + i)
+        plan = rt.build_routed_plan(rows, cols, vals, n_rows, n_cols, **kw)
+        if plan is None:
+            raise AssertionError(f"B8 {name}: plan refused")
+        if name.startswith("hot") != (plan.ov_rows is not None):
+            raise AssertionError(f"B8 {name}: overflow "
+                                 f"{plan.ov_rows is not None}")
+        tables = plan.tables_on(dev)
+        x_np = np.random.default_rng(600 + i).standard_normal(
+            n_cols).astype(np.float32)
+        x = torch.as_tensor(x_np, device=dev)
+        want = np.zeros(n_rows)
+        np.add.at(want, rows, vals.astype(np.float64) * x_np[cols])
+        default = rt.source_splits(plan.g_src, plan.g_dst, sms)
+        for passes in (1, 2, 3):
+            yp = rt.routed_scatter_plain(*tables, x, n_rows, passes)
+            for splits in sorted({default, 1}):
+                before = rt.LAUNCHES_ROUTED
+                y = rt.routed_scatter(*tables, x, n_rows, passes, splits)
+                torch.cuda.synchronize()
+                if rt.LAUNCHES_ROUTED != before + 1:
+                    raise AssertionError(f"B8 {name}: {rt.LAUNCHES_ROUTED - before}"
+                                         f" launches counted, want 1")
+                err = rel_err(f"B8 {name} passes={passes} splits={splits}",
+                              y, yp, ROUTED_REL_TOL)
+                if empty[0] is not None and y[
+                        empty[0] * rt.SPAN:(empty[0] + 1) * rt.SPAN].any():
+                    raise AssertionError(f"B8 {name}: empty group not zero")
+                log(f"kernel spmv_routed [{name}] g_s={plan.g_src} "
+                    f"g_d={plan.g_dst} cap={plan.cap} passes={passes} "
+                    f"splits={splits}: max_abs_err {err:.3e} vs plain ok")
+            full = rt.routed_spmv(plan, x, passes, device=dev)
+            e_or = rel_err(f"B8+overflow {name} passes={passes} vs float64",
+                           full.cpu(), torch.as_tensor(want),
+                           ROUTED_ORACLE_TOL[passes])
+            log(f"  routed_spmv [{name}] passes={passes}: {e_or:.3e} vs "
+                f"float64 oracle ok")
+
+
+def row5_edges():
+    """The row-5 matrix A = Âᵀ as an edge list: rows = dst, cols = src,
+    vals = 1/outdeg[src] (as row5_matrix builds it)."""
+    import numpy as np
+    src, dst = row5_graph()
+    outdeg = np.bincount(src, minlength=ROW5_N).astype(np.float32)
+    inv = np.where(outdeg > 0, 1.0 / np.maximum(outdeg, 1e-30),
+                   0.0).astype(np.float32)
+    return dst, src, inv[src]
+
+
+def scipy_csr(rows, cols, vals, n):
+    import numpy as np
+    import scipy.sparse as sp
+    return sp.csr_matrix((vals.astype(np.float64), (rows, cols)),
+                         shape=(n, n))
+
+
+def routed_bound(plan, passes):
+    """(bound_ms, bound_by) of one routed matvec on this run's data: each
+    real slot's 12 table bytes, x and y once, vs per real slot two
+    ``passes``-part splits (3 ops a part), one multiply and one add."""
+    import numpy as np
+    real = int(np.count_nonzero(plan.val))
+    nbytes = real * 12 + (plan.n_cols + plan.n_rows) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = real * (6 * passes + 2) / PEAK_FLOPS["float32"] * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")), real
+
+
+def path_row5_routed(dev, A, library_ms):
+    """routed_spmv at row 5: the plan build on the host, A·x at passes 2
+    and 3 through routed_spmv against the plain version, the compact B2
+    route (spmv_compact) and a float64 scipy oracle; then kernel and
+    plain times (CUDA events)."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.ops import pallas_spmv as pc
+    from matrel_tpu_torch.ops import spmv_routed as rt
+    rows, cols, vals = row5_edges()
+    t0 = time.perf_counter()
+    plan = rt.build_routed_plan(rows, cols, vals, ROW5_N, ROW5_N)
+    build_s = time.perf_counter() - t0
+    if plan is None:
+        raise AssertionError("row 5: routed plan refused")
+    n_ov = 0 if plan.ov_rows is None else len(plan.ov_rows)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.rand(ROW5_N, generator=gen, device=dev)
+    M = scipy_csr(rows, cols, vals, ROW5_N)
+    want = torch.as_tensor(M @ x.double().cpu().numpy())
+    rt.LAUNCHES_ROUTED = 0                 # the row-5 routed path
+    ys = {p: rt.routed_spmv(plan, x, passes=p, device=dev) for p in (2, 3)}
+    torch.cuda.synchronize()
+    launches = rt.LAUNCHES_ROUTED
+    if launches != 2:
+        raise AssertionError(f"row 5 routed: {launches} B8 launches, want 2")
+    b2_plan = A._get_plan()
+    out = {}
+    for passes, y in ys.items():
+        plain = rt.routed_spmv(plan, x, passes=passes, device=dev,
+                               use_pallas=False)
+        err = rel_err(f"row 5 routed passes={passes} vs plain", y, plain,
+                      ROUTED_REL_TOL)
+        b2 = pc.spmv_compact(b2_plan, x, passes=passes, device=dev)
+        # passes 3: both exact per slot; passes 2: B8 also truncates x
+        e_b2 = rel_err(f"row 5 routed passes={passes} vs B2", y, b2,
+                       ROUTED_REL_TOL if passes == 3 else 1e-4)
+        e_64 = rel_err(f"row 5 routed passes={passes} vs float64",
+                       y.cpu(), want, ROUTED_ORACLE_TOL[passes])
+        tables = plan.tables_on(dev)
+        ms = time_ms(lambda: rt.routed_scatter(*tables, x, ROW5_N, passes),
+                     warmup=3, runs=20, batch=10)
+        plain_ms = time_ms(lambda: rt.routed_scatter_plain(
+            *tables, x, ROW5_N, passes), warmup=1, runs=5)
+        (bound_ms, bound_by), real = routed_bound(plan, passes)
+        log(f"path row 5 routed A·x passes={passes}: max_abs_err {err:.3e} vs"
+            f" plain, {e_b2:.3e} vs B2, {e_64:.3e} vs float64 scipy; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), library {library_ms} ms (torch.sparse.mm f32 "
+            f"CSR, row5_timing)")
+        out[passes] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": library_ms}
+    log(f"row 5 routed plan: build {build_s:.2f} s on the host, g_s = g_d ="
+        f" {plan.g_src}, cap {plan.cap}, {plan.slots} slots ({real} real), "
+        f"padding ratio {plan.padding_ratio:.4f}, overflow {n_ov}, splits "
+        f"{rt.source_splits(plan.g_src, plan.g_dst, torch.cuda.get_device_properties(dev).multi_processor_count)}")
+    return launches, out, plan
+
+
+def path_row5_cg(dev, A, plan):
+    """CG over the routed Gram operator v ↦ Aᵀ(A·v) + l2·v at row 5
+    (passes 3), checked by a float64 residual, then the same solve over
+    the compact B2 operator."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.ops import pallas_spmv as pc
+    from matrel_tpu_torch.ops import spmv_routed as rt
+    from matrel_tpu_torch.workloads import cg
+    rows, cols, vals = row5_edges()
+    plan_t = rt.build_routed_plan(cols, rows, vals, ROW5_N, ROW5_N)
+    if plan_t is None:
+        raise AssertionError("row 5: routed transpose plan refused")
+    # cond(AᵀA + l2·I) <= (‖A‖₁‖A‖∞ + l2) / l2
+    norm1 = np.bincount(cols, weights=vals, minlength=ROW5_N).max()
+    norm_inf = np.bincount(rows, weights=vals, minlength=ROW5_N).max()
+    cond_bound = (norm1 * norm_inf + CG_L2) / CG_L2
+
+    def op_routed(v):
+        return rt.routed_spmv(plan_t, rt.routed_spmv(plan, v, 3, dev), 3,
+                              dev) + CG_L2 * v
+
+    b2, b2_t = A._get_plan(), A._get_plan_t()
+
+    def op_compact(v):
+        return pc.spmv_compact(b2_t, pc.spmv_compact(b2, v, 3, dev), 3,
+                               dev) + CG_L2 * v
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    b = torch.rand(ROW5_N, generator=gen, device=dev)
+    # warm: the transpose tables' upload and the first use of each
+    # vector kernel (loaded lazily) stay out of the timed solve
+    cg.cg_solve_linop(op_routed, b, tol=CG_TOL, maxiter=2)
+    torch.cuda.synchronize()
+    rt.LAUNCHES_ROUTED = 0                  # the row-5 CG path
+    t0 = time.perf_counter()
+    x, it = cg.cg_solve_linop(op_routed, b, tol=CG_TOL, maxiter=CG_MAXITER)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = rt.LAUNCHES_ROUTED
+    if it >= CG_MAXITER or launches != 2 * it:
+        raise AssertionError(f"row 5 CG: {it} iterations, {launches} B8 "
+                             f"launches")
+    M = scipy_csr(rows, cols, vals, ROW5_N)
+    x64, b64 = x.double().cpu().numpy(), b.double().cpu().numpy()
+    res = np.linalg.norm(M.T @ (M @ x64) + CG_L2 * x64 - b64) \
+        / np.linalg.norm(b64)
+    if not np.isfinite(x64).all() or res > 10 * CG_TOL:
+        raise AssertionError(f"row 5 CG: float64 relative residual {res}")
+    xc, it_c = cg.cg_solve_linop(op_compact, b, tol=CG_TOL,
+                                 maxiter=CG_MAXITER)
+    dx = float((x - xc).double().norm() / xc.double().norm())
+    if abs(it - it_c) > 2 or dx > 1e-4:
+        raise AssertionError(f"row 5 CG: routed {it} iterations vs B2 "
+                             f"{it_c}, relative difference {dx}")
+    state = (torch.zeros_like(b), b, b, torch.dot(b, b))
+    dev_ms = time_ms(lambda: cg.cg_step(op_routed, state), warmup=2,
+                     runs=10, batch=10)
+    # one iteration of the solver's loop split on the host clock: the
+    # launches of cg_step, then the read of ‖r‖² that waits for them
+    launch_s = wait_s = 0.0
+    for _ in range(it):
+        t0 = time.perf_counter()
+        state = cg.cg_step(op_routed, state)
+        t1 = time.perf_counter()
+        float(state[3])
+        launch_s += t1 - t0
+        wait_s += time.perf_counter() - t1
+    launch_ms, wait_ms = launch_s * 1e3 / it, wait_s * 1e3 / it
+    it_ms = wall_s * 1e3 / it
+    log(f"path row 5 CG (l2 = {CG_L2}, cond <= {cond_bound:.1f}, tol "
+        f"{CG_TOL}): {it} iterations, {launches} B8 launches, float64 "
+        f"relative residual {res:.3e}; B2 operator {it_c} iterations, "
+        f"relative difference {dx:.3e}; {it_ms:.4f} ms per iteration "
+        f"({wall_s:.3f} s), device-bound step {dev_ms:.4f} ms, host share "
+        f"{max(0.0, 1 - dev_ms / it_ms):.3f}; split on the host clock: "
+        f"launch {launch_ms:.4f} ms + wait for ‖r‖² {wait_ms:.4f} ms")
+    return launches, {"iterations": it, "ms_per_iteration": it_ms,
+                      "device_ms": dev_ms, "launch_ms": launch_ms,
+                      "wait_ms": wait_ms}
+
+
+# -- BASELINE row 3: normal-equations linreg ---------------------------------
+
+ROW3_N, ROW3_K, ROW3_PANEL, ROW3_RESIDENT = 10_000_000, 1000, 250_000, \
+    1_000_000
+U32 = 2.0 ** -24                    # f32 unit roundoff
+
+
+def row3_oracle(panel_fn, n_panels, snapshot):
+    """float64 Gram and right-hand side over the same panels, on the card:
+    (G, r) after ``snapshot`` panels and after all of them."""
+    import torch
+    G = r = None
+    snap = None
+    for p in range(n_panels):
+        xp, yp = panel_fn(p)
+        x64 = xp.double()
+        del xp
+        g, rr = x64.T @ x64, x64.T @ yp.double()
+        G = g if G is None else G + g
+        r = rr if r is None else r + rr
+        del x64, g, rr, yp
+        if p + 1 == snapshot:
+            snap = (G.clone(), r.clone())
+    torch.cuda.synchronize()
+    return snap, (G, r)
+
+
+def spectrum(G):
+    import torch
+    ev = torch.linalg.eigvalsh(G)
+    return float(ev[0]), float(ev[-1])
+
+
+#: Largest backward error ‖Gθ − r‖ / (‖G‖₂‖θ‖) a row-3 solve may show
+#: against the float64 normal equations (G, r): the bf16 split's 2^-16
+#: resolution, at which "high" works; f32 Grams summed over 10M rows
+#: stay below it. Unlike the forward error it does not grow with
+#: cond(XᵀX).
+ROW3_ETA_MAX = 2e-5
+
+
+def theta_check(name, theta, G, r, want):
+    """(backward error η, forward error ‖θ − θ64‖/‖θ64‖, cond) of a θ
+    against the float64 system (G, r) and its solution ``want``; raises
+    unless θ is finite, η ≤ ROW3_ETA_MAX and the forward error stays
+    within its first-order bound, 10·cond(G)·η."""
+    import torch
+    t = theta.double().reshape(-1, 1)
+    w = want.double().reshape(-1, 1)
+    if not torch.isfinite(t).all():
+        raise AssertionError(f"{name}: non-finite θ")
+    lo, hi = spectrum(G)
+    eta = float((G @ t - r).norm() / (hi * t.norm()))
+    fwd = float((t - w).norm() / w.norm())
+    cond = hi / lo
+    if eta > ROW3_ETA_MAX or fwd > 10 * cond * max(eta, U32):
+        raise AssertionError(f"{name}: backward error {eta} (max "
+                             f"{ROW3_ETA_MAX}), forward error {fwd} (cond "
+                             f"{cond:.3e})")
+    return eta, fwd, cond
+
+
+def path_row3_linreg(sess):
+    """BASELINE row 3 at full size through fit_streaming (bench_all.py's
+    hash panels, planted θ = 1) at precision "high" and "highest", held
+    against a float64 normal-equations solve; then fit through
+    compile_exprs on the first 1,000,000 rows held whole on the card,
+    against fit_streaming and cg_least_squares on the same rows."""
+    import torch
+    from matrel_tpu_torch.core import padding
+    from matrel_tpu_torch.core.blockmatrix import BlockMatrix
+    from matrel_tpu_torch.workloads import cg, linreg
+    dev = sess.device
+    n, k, panel = ROW3_N, ROW3_K, ROW3_PANEL
+    panel_fn = linreg.hash_panel_fn(panel, k, dev)
+    n_panels = n // panel
+    n1 = ROW3_RESIDENT
+    t0 = time.perf_counter()
+    (G1, r1), (G, r) = row3_oracle(panel_fn, n_panels, n1 // panel)
+    oracle_s = time.perf_counter() - t0
+    lo, hi = spectrum(G)
+    theta64 = torch.cholesky_solve(r, torch.linalg.cholesky(G))
+    e64 = float((theta64 - 1).abs().max())
+    if e64 > 1e-3:
+        raise AssertionError(f"row 3: float64 θ is {e64} from the planted 1")
+    log(f"row 3 oracle: float64 Gram over {n_panels} panels in "
+        f"{oracle_s:.2f} s; XᵀX eigenvalues [{lo:.4e}, {hi:.4e}], cond "
+        f"{hi / lo:.4e}; max|θ64 - 1| = {e64:.3e}")
+    linreg.fit_streaming(panel, k, panel_fn, panel_rows=panel)   # warm
+    flops = 2.0 * n * k * k + 2.0 * n * k
+    out = {}
+    for precision in ("high", "highest"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        theta = linreg.fit_streaming(n, k, panel_fn, panel_rows=panel,
+                                     precision=precision)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        eta, fwd, cond = theta_check(f"row 3 fit_streaming {precision}",
+                                     theta, G, r, theta64)
+        e1 = float((theta.double() - 1).abs().max())
+        log(f"path row 3 fit_streaming({n:,} x {k}, "
+            f"precision={precision!r}): {secs:.3f} s, "
+            f"{flops / secs / 1e12:.2f} TFLOP/s (2nk² + 2nk); vs float64: "
+            f"backward error {eta:.3e} ({eta / U32:.1f} u), forward "
+            f"{fwd:.3e} (cond·η = {cond * eta:.3e}), max|θ - 1| = "
+            f"{e1:.3e}; peak {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+            f" GiB")
+        out[precision] = {"s": secs, "tflops": flops / secs / 1e12,
+                          "eta": eta, "fwd": fwd}
+    del G, r
+    # the first n1 rows held whole: fit (compile_exprs), fit_streaming
+    # and CG on the ridge system, l2 = 1e-3·λ_max, whose condition
+    # (~1e3) CG can reach in a few hundred iterations (XᵀX alone has
+    # cond ~1e5)
+    X = torch.empty((n1, k), dtype=torch.float32, device=dev)
+    Y = torch.empty((n1, 1), dtype=torch.float32, device=dev)
+    for p in range(n1 // panel):
+        X[p * panel:(p + 1) * panel], Y[p * panel:(p + 1) * panel] = \
+            panel_fn(p)
+    spec = padding.canonical_spec((n1, k), sess.mesh)
+    Xb = BlockMatrix.from_array(X, (n1, k), sess.mesh, spec)
+    Yb = BlockMatrix.from_array(Y, (n1, 1), sess.mesh,
+                                padding.canonical_spec((n1, 1), sess.mesh))
+    l2 = 1e-3 * spectrum(G1)[1]
+    G1 = G1 + l2 * torch.eye(k, dtype=torch.float64, device=dev)
+    want1 = torch.cholesky_solve(r1, torch.linalg.cholesky(G1))
+    t0 = time.perf_counter()
+    th_fit = linreg.fit(Xb, Yb, l2=l2)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    th_str = linreg.fit_streaming(n1, k, panel_fn, panel_rows=panel, l2=l2)
+    t0 = time.perf_counter()
+    th_cg, it = cg.cg_least_squares(Xb, Y, l2=l2, tol=1e-6, maxiter=2000)
+    torch.cuda.synchronize()
+    cg_s = time.perf_counter() - t0
+    if it >= 2000:
+        raise AssertionError(f"row 3 CG did not converge in {it}")
+    errs = {name: theta_check(f"row 3 ({n1} rows) {name}", th, G1, r1,
+                              want1)
+            for name, th in (("fit", th_fit), ("fit_streaming", th_str),
+                             ("cg_least_squares", th_cg))}
+    cond1 = errs["fit"][2]
+    d_fs = float((th_fit - th_str).double().norm() / th_str.double().norm())
+    d_cg = float((th_cg.reshape(-1, 1) - th_fit).double().norm()
+                 / th_fit.double().norm())
+    if max(d_fs, d_cg) > 10 * cond1 * max(ROW3_ETA_MAX, 1e-6):
+        raise AssertionError(f"row 3 ({n1} rows): fit vs fit_streaming "
+                             f"{d_fs}, cg vs fit {d_cg}")
+    log(f"path row 3 (first {n1} rows resident, l2 = {l2:.4e}, cond "
+        f"{cond1:.3e}): fit via compile_exprs {fit_s:.3f} s, CG "
+        f"{it} iterations {cg_s:.3f} s; vs float64 (backward / forward) "
+        + ", ".join(f"{k_} {e[0]:.3e} / {e[1]:.3e}"
+                    for k_, e in errs.items())
+        + f"; fit vs fit_streaming {d_fs:.3e}, cg vs fit {d_cg:.3e}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del X, Y, Xb, Yb
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- S×S SpGEMM: kernels B4–B7 (ops/pallas_spgemm.py) -----------------------
 
 #: The JAX package's S×S deployments (bench.py measure_spgemm and
@@ -1181,7 +1628,8 @@ def main() -> int:
     if sys.argv[1:] == ["--library-yardstick"]:
         return library_yardstick()
     from matrel_tpu_torch import MatrelSession
-    from matrel_tpu_torch.ops import pallas_spgemm, pallas_spmm, pallas_spmv
+    from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
+                                      pallas_spmv, spmv_routed)
     from matrel_tpu_torch.utils import cuda_build
 
     t_start = time.perf_counter()
@@ -1190,7 +1638,7 @@ def main() -> int:
         f"CUDA {torch.version.cuda}; {card}")
 
     t0 = time.perf_counter()
-    kernel_modules = (pallas_spmm, pallas_spmv, pallas_spgemm)
+    kernel_modules = (pallas_spmm, pallas_spmv, pallas_spgemm, spmv_routed)
     sources = [cuda_build.CSRC_DIR / m.SOURCE for m in kernel_modules]
     libs = cuda_build.build(sources)          # one nvcc each, in parallel
     for m in kernel_modules:
@@ -1207,6 +1655,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     kernel_phase(sess.mesh)
     spmv_kernel_phase(dev)
+    routed_kernel_phase(dev)
     torch.cuda.empty_cache()
 
     src, dst, A = row5_matrix()
@@ -1214,6 +1663,10 @@ def main() -> int:
     l_spmv, l_spmm, queries = path_row5_compute(sess, A)
     b23 = row5_timing(A, dev)
     del src, dst
+    l_routed, b8, rplan = path_row5_routed(
+        dev, A, b23["spmv_compact"]["library_ms"])
+    l_cg, cg_row = path_row5_cg(dev, A, rplan)
+    del A, rplan
     torch.cuda.empty_cache()
 
     spgemm_kernel_phase(sess.mesh)
@@ -1233,12 +1686,15 @@ def main() -> int:
     queries.update(q4)
     queries.update(path_row2(sess))
     queries.update(path_row1(sess))
+    row3 = path_row3_linreg(sess)
     peak = torch.cuda.max_memory_allocated()
     path_latency(sess, queries)       # after the launch counts were read
     log(f"peak device memory {peak / 2**30:.3f} GiB (this process; the "
         f"yardstick process: {library.get('peak_gib')} GiB); row-5 "
-        f"PageRank {pr_row['round_ms']:.4f} ms per round; total "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"PageRank {pr_row['round_ms']:.4f} ms per round; row-5 CG "
+        f"{cg_row['ms_per_iteration']:.4f} ms per iteration; row 3 "
+        f"{row3['high']['s']:.3f} s (high) / {row3['highest']['s']:.3f} s "
+        f"(highest); total {time.perf_counter() - t_start:.1f} s")
     if peak > PEAK_LIMIT_BYTES:
         raise AssertionError(f"peak device memory {peak / 2**30:.3f} GiB "
                              f"> {PEAK_LIMIT_BYTES / 2**30:.0f} GiB")
@@ -1254,6 +1710,11 @@ def main() -> int:
                      b23["spmm_compact"]),
     ] + [kernel_entry(name, pallas_spgemm.SOURCE, SPGEMM_REPLACES[name],
                       l_spgemm[name], b47[name]) for name in SPGEMM_REPLACES]
+    kernels.append(dict(
+        kernel_entry("spmv_routed", spmv_routed.SOURCE,
+                     "matrel_tpu/ops/spmv_routed.py:232", l_routed + l_cg,
+                     b8[3]),
+        also_replaces="matrel_tpu/ops/spmv_routed.py:261"))
     missing = [k["name"] for k in kernels if k["launches"] < 1]
     if missing:
         raise AssertionError(f"no launch on a path for {missing}")

@@ -99,6 +99,35 @@ def spmv_plan_from_arrays(n_rows: int, n_cols: int, block: int,
         padding_ratio=float(padding_ratio))
 
 
+def routed_plan_from_arrays(n_rows: int, n_cols: int, g_src: int,
+                            g_dst: int, cap: int, loc_src: np.ndarray,
+                            loc_dst: np.ndarray, val: np.ndarray,
+                            ov_rows: Optional[np.ndarray] = None,
+                            ov_cols: Optional[np.ndarray] = None,
+                            ov_vals: Optional[np.ndarray] = None,
+                            padding_ratio: float = 0.0):
+    """A RoutedSpMVPlan from a JAX routed plan's tables (any layout that
+    reshapes to (g_src, g_dst, cap), the TPU tile layout included) and
+    overflow COO as numpy arrays, so both packages run on identical
+    tables."""
+    from matrel_tpu_torch.ops.spmv_routed import RoutedSpMVPlan
+    shp = (int(g_src), int(g_dst), int(cap))
+
+    def table(a, dtype):
+        return np.array(a, dtype).reshape(shp)      # a writable copy
+
+    def opt(a, dtype):
+        return None if a is None else np.array(a, dtype)
+
+    return RoutedSpMVPlan(
+        n_rows=int(n_rows), n_cols=int(n_cols), g_src=shp[0], g_dst=shp[1],
+        cap=shp[2], loc_src=table(loc_src, np.int32),
+        loc_dst=table(loc_dst, np.int32), val=table(val, np.float32),
+        ov_rows=opt(ov_rows, np.int32), ov_cols=opt(ov_cols, np.int32),
+        ov_vals=opt(ov_vals, np.float32),
+        padding_ratio=float(padding_ratio))
+
+
 def from_reference(m, mesh: Mesh):
     """Duck-typed carry-over of one JAX-package matrix object: anything
     with ``blocks``/``block_rows``/``block_cols`` becomes a

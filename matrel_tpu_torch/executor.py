@@ -20,9 +20,16 @@ whose estimated output block density is below
 SpGEMM (``ops/spgemm.py``) with the planner's ``spgemm_kernel`` stamp;
 above it, the densify fallthrough runs.
 
-Lowered kinds: leaf, sparse_leaf, coo_leaf, transpose, matmul,
-elemwise, scalar, agg. Every other kind raises ``NotPortedError``. The
-autotuned SpMV executor choice is not ported (its knob raises).
+``solve``/``inverse`` are dense local solves on the logical shape (LU,
+or Cholesky under ``assume="pos"``), in f32 with TF32 off.
+:func:`compile_exprs` lowers several roots into one :class:`MultiPlan`
+with one memo per call, so shared subexpressions (the Xᵀ of the normal
+equations' XᵀX and Xᵀy) are computed once.
+
+Lowered kinds: leaf, sparse_leaf, coo_leaf, transpose, matmul, solve,
+inverse, elemwise, scalar, agg. Every other kind raises
+``NotPortedError``. The autotuned SpMV executor choice is not ported
+(its knob raises).
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ from matrel_tpu_torch.parallel import planner, strategies
 Tensor = torch.Tensor
 
 LOWERED_KINDS = ("leaf", "sparse_leaf", "coo_leaf", "transpose", "matmul",
-                 "elemwise", "scalar", "agg")
+                 "solve", "inverse", "elemwise", "scalar", "agg")
 
 # Narrow-operand threshold for the COO SpMV dispatch. The planner calls
 # _coo_dispatch_plan itself (not this constant) so the plan-refusal
@@ -102,12 +109,23 @@ class Lowerer:
 
     def lower(self, root: MatExpr, leaf_order: List[MatExpr]) -> Callable:
         """A function of the leaf tensors (in ``leaf_order``) returning
-        the root's padded, contiguous value. Shared DAG nodes (by
-        identity) are computed once per call."""
-        leaf_pos = {l.uid: i for i, l in enumerate(leaf_order)}
-        pshape = padding.padded_shape(root.shape, self.mesh)
+        the root's padded, contiguous value."""
+        multi = self.lower_multi((root,), leaf_order)
 
         def fn(*leaf_arrays: Tensor) -> Tensor:
+            return multi(*leaf_arrays)[0]
+
+        return fn
+
+    def lower_multi(self, roots, leaf_order: List[MatExpr]) -> Callable:
+        """Several roots in one function with a SHARED memo: common
+        subexpressions (by node identity) are computed once per call —
+        e.g. XᵀX and Xᵀy of the normal equations share Xᵀ. Returns a
+        tuple of padded, contiguous root values."""
+        leaf_pos = {l.uid: i for i, l in enumerate(leaf_order)}
+        pshapes = [padding.padded_shape(r.shape, self.mesh) for r in roots]
+
+        def fn(*leaf_arrays: Tensor) -> Tuple[Tensor, ...]:
             memo: Dict[int, Tensor] = {}
 
             def ev(node: MatExpr) -> Tensor:
@@ -117,10 +135,11 @@ class Lowerer:
                 return memo[node.uid]
 
             try:
-                return _pad_to(ev(root), pshape).contiguous()
+                return tuple(_pad_to(ev(r), ps).contiguous()
+                             for r, ps in zip(roots, pshapes))
             finally:
                 # ev refers to itself, so the memo would outlive the call
-                # (and hold every intermediate, the result included)
+                # (and hold every intermediate, the results included)
                 # until the garbage collector breaks the cycle
                 memo.clear()
 
@@ -145,6 +164,10 @@ class Lowerer:
             return ev(node.children[0]).T
         if k == "matmul":
             return self._matmul(node, ev)
+        if k == "solve":
+            return self._solve(node, ev)
+        if k == "inverse":
+            return self._inverse(node, ev)
         if k == "elemwise":
             return self._elemwise(node, ev)
         if k == "scalar":
@@ -154,6 +177,45 @@ class Lowerer:
         raise NotPortedError(
             f"lowering for node kind {k!r} is not ported to "
             f"matrel_tpu_torch yet (ported: {', '.join(LOWERED_KINDS)})")
+
+    def _pad_to_node(self, out: Tensor, node: MatExpr) -> Tensor:
+        return _pad_to(out, padding.padded_shape(node.shape, self.mesh))
+
+    def _solve(self, node: MatExpr, ev) -> Tensor:
+        """X = A⁻¹·B as a dense solve on the LOGICAL shapes — LU by
+        default, Cholesky when attrs["assume"] == "pos" (the caller
+        asserts SPD; a non-SPD lhs under "pos" yields NaNs, not the LU
+        answer). Padded rows/cols are sliced off first (a zero-padded
+        square matrix is singular). A local solve for small/medium
+        systems such as the k×k Gram matrix, in f32 with TF32 off, cast
+        back when keep_input_dtype asks for it."""
+        strategies._highest_precision()
+        l, r = node.children
+        n, m = l.shape[0], r.shape[1]
+        a = ev(l)[:n, :n]
+        b = ev(r)[:n, :m]
+        if node.attrs.get("assume") == "pos":
+            c, info = torch.linalg.cholesky_ex(a.float())
+            out = torch.cholesky_solve(b.float(), c)
+            out = torch.where(info == 0, out,
+                              torch.full((), float("nan"), device=out.device))
+        else:
+            out = torch.linalg.solve(a.float(), b.float())
+        if self.config.keep_input_dtype and a.dtype == b.dtype:
+            out = out.to(a.dtype)
+        return self._pad_to_node(out, node)
+
+    def _inverse(self, node: MatExpr, ev) -> Tensor:
+        """A⁻¹ on the logical shape (see :meth:`_solve` for the padding
+        and dtype contract). R7 rewrites A⁻¹·B into solve(A, B)."""
+        strategies._highest_precision()
+        (c,) = node.children
+        n = c.shape[0]
+        a = ev(c)[:n, :n]
+        out = torch.linalg.inv(a.float())
+        if self.config.keep_input_dtype:
+            out = out.to(a.dtype)
+        return self._pad_to_node(out, node)
 
     @staticmethod
     def _same_operand(u: MatExpr, v: MatExpr) -> bool:
@@ -213,7 +275,7 @@ class Lowerer:
                                              self.config)
             out = self._coo_spmv_stack(plan, ev(r)[: A.shape[1],
                                                    : r.shape[1]])
-            return _pad_to(out, padding.padded_shape(node.shape, self.mesh))
+            return self._pad_to_node(out, node)
         if r.kind == "coo_leaf":
             # X·A = (Aᵀ·Xᵀ)ᵀ through the matrix's cached transpose plan
             S = r.attrs["matrix"]
@@ -224,7 +286,7 @@ class Lowerer:
                                              self.config)
             a = ev(l)[: l.shape[0], : l.shape[1]]
             out = self._coo_spmv_stack(plan, a.T).T
-            return _pad_to(out, padding.padded_shape(node.shape, self.mesh))
+            return self._pad_to_node(out, node)
         if l.kind == "sparse_leaf":
             from matrel_tpu_torch.ops import spmm as spmm_lib
             return spmm_lib.apply(l.attrs["matrix"], ev(r), r.shape,
@@ -566,6 +628,39 @@ class CompiledPlan:
                                  config=self.config)])
 
 
+@dataclasses.dataclass
+class MultiPlan:
+    """Several optimized roots lowered into one function over their
+    shared leaves (one memo per call, so common subexpressions run
+    once) — the counterpart of the JAX package's one-program MultiPlan.
+    Donation has no counterpart: PyTorch frees what no one holds."""
+
+    fn: Callable
+    leaf_order: List[MatExpr]
+    optimized: Tuple[MatExpr, ...]
+    mesh: Mesh
+    config: MatrelConfig
+    #: compile-time record: optimize_ms and rewrite-rule hit counts
+    meta: Dict = dataclasses.field(default_factory=dict)
+
+    def run(self, bindings: Optional[Dict[int, BlockMatrix]] = None
+            ) -> Tuple[BlockMatrix, ...]:
+        """Execute with current or rebound leaves (uid → BlockMatrix);
+        one BlockMatrix per root, in order."""
+        arrays = []
+        for l in self.leaf_order:
+            bound = (bindings or {}).get(l.uid)
+            m = bound if bound is not None else l.attrs["matrix"]
+            arrays.append(m.data)
+        outs = self.fn(*arrays)
+        return tuple(
+            BlockMatrix.from_array(
+                out, root.shape, self.mesh,
+                padding.canonical_spec(tuple(out.shape), self.mesh),
+                nnz=root.nnz)
+            for out, root in zip(outs, self.optimized))
+
+
 def _check_one_mesh(expr: MatExpr, mesh: Mesh) -> None:
     """All leaves (dense and block-sparse) must live on the plan's device
     and grid. A COO leaf has no mesh: its host edge list goes to the
@@ -608,6 +703,50 @@ def compile_expr(expr: MatExpr, mesh: Optional[Mesh] = None,
                         mesh=mesh, config=cfg,
                         meta={"optimize_ms": round(optimize_ms, 3),
                               "rule_hits": rule_hits})
+
+
+def compile_exprs(exprs, mesh: Optional[Mesh] = None,
+                  config: Optional[MatrelConfig] = None) -> MultiPlan:
+    """Compile several expressions into one plan with shared leaves."""
+    cfg = config or default_config()
+    exprs = tuple(exprs)
+    all_leaves = _unique_leaves(exprs)
+    if mesh is None:
+        mesh = (all_leaves[0].attrs["matrix"].mesh if all_leaves
+                else mesh_lib.make_mesh(cfg.mesh_shape, cfg.mesh_axis_names))
+    for e in exprs:
+        _check_one_mesh(e, mesh)
+    grid = mesh_lib.mesh_grid_shape(mesh)
+    rule_hits: Dict[str, int] = {}
+    t0 = time.perf_counter()
+    opts = tuple(planner.annotate_strategies(
+        rules.optimize(e, cfg, grid=grid, mesh=mesh, counts=rule_hits),
+        mesh, cfg) for e in exprs)
+    optimize_ms = (time.perf_counter() - t0) * 1e3
+    leaf_order = _unique_leaves(opts)
+    fn = Lowerer(mesh, cfg).lower_multi(opts, leaf_order)
+    return MultiPlan(fn=fn, leaf_order=leaf_order, optimized=opts,
+                     mesh=mesh, config=cfg,
+                     meta={"optimize_ms": round(optimize_ms, 3),
+                           "rule_hits": rule_hits})
+
+
+def _unique_leaves(exprs) -> List[MatExpr]:
+    """Dense leaves of several expressions, each once (by uid), in first
+    appearance order."""
+    out, seen = [], set()
+    for e in exprs:
+        for l in expr_leaves(e):
+            if l.uid not in seen:
+                seen.add(l.uid)
+                out.append(l)
+    return out
+
+
+def execute(expr: MatExpr, mesh: Optional[Mesh] = None,
+            config: Optional[MatrelConfig] = None) -> BlockMatrix:
+    """Compile and run one expression."""
+    return compile_expr(expr, mesh, config).run()
 
 
 def _walk(e: MatExpr):

@@ -1,19 +1,66 @@
-"""The bf16 residual split — the one piece of
-``matrel_tpu/ops/spmv_routed.py`` the compact SpMV kernels share.
+"""Routed SpMV — the counterpart of ``matrel_tpu/ops/spmv_routed.py``
+(TPU kernel B8: ``_make_gather_kernel`` and ``_make_scatter_kernel``).
 
-The rest of that module (the routed SpMV, TPU kernel B8) is not ported
-yet.
+The plan buckets a fixed edge list ``y[i] = Σ_{e: rows[e]=i} vals[e] ·
+x[cols[e]]`` by (source group, destination group) cells, both groups
+``SPAN`` = 16,384 wide, with one fixed capacity of slots a cell; each
+slot holds its edge's offset inside the source group (``loc_src``),
+inside the destination group (``loc_dst``) and its value (``val``, 0 in
+padded slots). Edges past a cell's capacity go to an overflow COO. The
+build is host numpy, line for line the JAX package's, so both packages
+hold equal tables; here they are stored (g_s, g_d, cap) rather than in
+the TPU's (…, cap/128, 128) tile layout.
+
+The TPU kernels turn the gather and the scatter into one-hot matmuls,
+because the TPU's gather engine is rate-limited per index and its matrix
+unit is not; they generate the one-hot factors in VMEM for every cell.
+On Hopper a gather from x is an ordinary load (x, 4 MB at BASELINE row
+5, stays in the 50 MB L2) and a scatter by destination is a reduction in
+shared memory, so the port computes the FUNCTION and not that schedule:
+one kernel (``csrc/spmv_routed.cu``) takes a destination group per CTA
+(its source cells split across a few CTAs when there are fewer groups
+than SMs), gathers ``x[gs·SPAN + loc_src]``, splits it into ``passes``
+bf16-grid parts as the TPU kernel does (:func:`_bf16_split`), multiplies
+by ``val``, splits the product the same way and adds the parts into a
+16,384-row f64 accumulator in shared memory; partial tiles are combined
+in a fixed order and each output row is rounded to f32 once. No one-hot
+tensor is built. The overflow COO is added outside the kernel with an
+f64 ``index_add_``.
+
+On a CUDA tensor :func:`routed_scatter` launches that kernel or raises;
+on a CPU tensor it runs :func:`routed_scatter_plain`, the same gather,
+split, product and f64 ``index_add_``. ``use_pallas=False`` asks for the
+plain version on any device. The compact SpMV kernels share
+:func:`split_sum`.
 """
 
 from __future__ import annotations
 
-from typing import List
+import ctypes
+import dataclasses
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
+
+Tensor = torch.Tensor
+
+SPAN = 128 * 128          # source/destination group width
+LANE = 128                # capacity granule (the TPU kernels' slot tile)
 
 #: int32 view of the mask 0xFFFF0000: keeps sign, exponent and the top
 #: 7 mantissa bits of an f32 — a value on the bf16 grid.
 _HI16 = -(1 << 16)
+
+#: Kernel launches made by :func:`routed_scatter` (B8), counted where
+#: the kernel is launched and nowhere else.
+LAUNCHES_ROUTED = 0
+
+SOURCE = "spmv_routed.cu"
+
+#: Slots per step of the plain version: bounds its temporaries to a few
+#: hundred MB at BASELINE row-5 size.
+_PLAIN_CHUNK_SLOTS = 1 << 23
 
 
 def _bf16_split(v: torch.Tensor, passes: int) -> List[torch.Tensor]:
@@ -36,9 +83,333 @@ def _bf16_split(v: torch.Tensor, passes: int) -> List[torch.Tensor]:
 
 def split_sum(v: torch.Tensor, passes: int) -> torch.Tensor:
     """Σ of the first ``passes`` parts of :func:`_bf16_split` — the value
-    each slot contributes to the compact SpMV kernels' sums."""
+    each slot contributes to the SpMV kernels' sums."""
     parts = _bf16_split(v, passes)
     out = parts[0]
     for p in parts[1:]:
         out = out + p
     return out
+
+
+# -- plan -----------------------------------------------------------------------
+
+
+def _key(device) -> str:
+    return str(torch.device(device))
+
+
+@dataclasses.dataclass
+class RoutedSpMVPlan:
+    """Compiled routed layout for ``y[i] = Σ_{e: rows[e]=i} vals[e]·x[cols[e]]``.
+
+    Host tables are (g_src, g_dst, cap) in source-major order:
+    ``loc_src``/``loc_dst`` int32 offsets inside the edge's source/
+    destination group (< SPAN), ``val`` f32 (0 in padded slots, which
+    then add nothing). Overflow: optional (rows, cols, vals) int32/int32/
+    f32 COO for edges past a cell's capacity, rows sorted ascending.
+    Device copies are made once per device and memoised on the plan
+    (:meth:`tables_on`, :meth:`overflow_on`).
+    """
+    n_rows: int
+    n_cols: int
+    g_src: int
+    g_dst: int
+    cap: int
+    loc_src: np.ndarray
+    loc_dst: np.ndarray
+    val: np.ndarray
+    ov_rows: Optional[np.ndarray]
+    ov_cols: Optional[np.ndarray]
+    ov_vals: Optional[np.ndarray]
+    padding_ratio: float
+    _dev: Dict[str, tuple] = dataclasses.field(default_factory=dict,
+                                               repr=False)
+    _ov_dev: Dict[str, tuple] = dataclasses.field(default_factory=dict,
+                                                  repr=False)
+
+    @property
+    def slots(self) -> int:
+        return self.g_src * self.g_dst * self.cap
+
+    def tables_on(self, device) -> tuple:
+        """(loc_src, loc_dst, val) on ``device``, each (g_s, g_d, cap)
+        contiguous; copied once per device."""
+        key = _key(device)
+        dev = self._dev.get(key)
+        if dev is None:
+            dev = tuple(torch.as_tensor(a, device=device).contiguous()
+                        for a in (self.loc_src, self.loc_dst, self.val))
+            self._dev[key] = dev
+        return dev
+
+    def overflow_on(self, device) -> tuple:
+        """The overflow COO on ``device`` as (cols, rows, vals) — int64
+        ids, f32 values — or ()."""
+        if self.ov_rows is None:
+            return ()
+        key = _key(device)
+        ov = self._ov_dev.get(key)
+        if ov is None:
+            ov = (torch.as_tensor(self.ov_cols, device=device).long(),
+                  torch.as_tensor(self.ov_rows, device=device).long(),
+                  torch.as_tensor(self.ov_vals, device=device))
+            self._ov_dev[key] = ov
+        return ov
+
+    def arrays(self, device) -> tuple:
+        """Tables plus overflow on ``device``, the ``arrays`` argument of
+        :func:`routed_apply`."""
+        return self.tables_on(device) + self.overflow_on(device)
+
+
+def build_routed_plan(rows, cols, vals=None, n_rows: int = None,
+                      n_cols: int = None, *,
+                      capacity_quantile: float = 0.997,
+                      max_padding: float = 3.0,
+                      max_slots: Optional[int] = None,
+                      max_cap: int = 4096
+                      ) -> Optional[RoutedSpMVPlan]:
+    """Host-side plan build (numpy, once per graph).
+
+    Cell capacity is the ``capacity_quantile`` of per-cell edge counts
+    rounded up to a multiple of 128; edges past it go to the overflow
+    COO. Returns None when the padded slot count exceeds
+    ``max_padding``× the edge count, ``max_slots``, or when capacity
+    exceeds ``max_cap`` — the JAX package's gates, kept so both packages
+    accept and refuse the same graphs (the Hopper kernel itself takes any
+    capacity)."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    m = rows.shape[0]
+    if n_rows is None:
+        n_rows = int(rows.max()) + 1 if m else 1
+    if n_cols is None:
+        n_cols = int(cols.max()) + 1 if m else 1
+    if m and (rows.min() < 0 or rows.max() >= n_rows
+              or cols.min() < 0 or cols.max() >= n_cols):
+        raise ValueError("edge indices out of bounds for "
+                         f"({n_rows}, {n_cols})")
+    if vals is None:
+        vals = np.ones((m,), np.float32)
+    else:
+        vals = np.asarray(vals, dtype=np.float32)
+
+    g_s = max(1, -(-n_cols // SPAN))
+    g_d = max(1, -(-n_rows // SPAN))
+    n_cells = g_s * g_d
+    cell = (cols // SPAN) * g_d + rows // SPAN
+    cnt = np.bincount(cell, minlength=n_cells)
+    if m == 0:
+        cap = LANE
+    else:
+        pos = cnt[cnt > 0]
+        cap_q = int(np.quantile(pos, capacity_quantile)) if pos.size else 0
+        cap = max(LANE, -(-cap_q // LANE) * LANE)
+    if cap > max_cap:
+        return None
+    if m and n_cells * cap > max_padding * m:
+        return None
+    if max_slots is not None and n_cells * cap > max_slots:
+        return None
+
+    order = np.argsort(cell, kind="stable")
+    cell_s = cell[order]
+    starts = np.zeros(n_cells + 1, np.int64)
+    np.cumsum(cnt, out=starts[1:])
+    slot = np.arange(m, dtype=np.int64) - starts[cell_s]
+    in_main = slot < cap
+
+    loc_src = np.zeros((n_cells, cap), np.int32)
+    loc_dst = np.zeros((n_cells, cap), np.int32)
+    val_t = np.zeros((n_cells, cap), np.float32)
+    cm, sm = cell_s[in_main], slot[in_main]
+    rows_s, cols_s, vals_s = rows[order], cols[order], vals[order]
+    loc_src[cm, sm] = (cols_s % SPAN)[in_main]
+    loc_dst[cm, sm] = (rows_s % SPAN)[in_main]
+    val_t[cm, sm] = vals_s[in_main]
+
+    n_ov = int(np.count_nonzero(~in_main))
+    if n_ov:
+        ov_r, ov_c, ov_v = (rows_s[~in_main], cols_s[~in_main],
+                            vals_s[~in_main])
+        o = np.argsort(ov_r, kind="stable")
+        ov = (ov_r[o].astype(np.int32), ov_c[o].astype(np.int32),
+              ov_v[o].astype(np.float32))
+    else:
+        ov = (None, None, None)
+
+    shp = (g_s, g_d, cap)
+    return RoutedSpMVPlan(
+        n_rows=n_rows, n_cols=n_cols, g_src=g_s, g_dst=g_d, cap=cap,
+        loc_src=loc_src.reshape(shp), loc_dst=loc_dst.reshape(shp),
+        val=val_t.reshape(shp),
+        ov_rows=ov[0], ov_cols=ov[1], ov_vals=ov[2],
+        padding_ratio=(n_cells * cap + n_ov) / max(m, 1))
+
+
+# -- kernel and plain version ------------------------------------------------------
+
+
+def _library() -> ctypes.CDLL:
+    from matrel_tpu_torch.utils import cuda_build
+    lib = cuda_build.load(SOURCE)
+    if lib.matrel_spmv_routed.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.matrel_spmv_routed.argtypes = [p, p, p, p, p, p, i, i, i, ll, ll,
+                                           i, i, i, p]
+        lib.matrel_spmv_routed.restype = ctypes.c_int
+    return lib
+
+
+def build() -> None:
+    """Compile (if needed) and load the kernel library."""
+    _library()
+
+
+def routed_scatter_plain(loc_src: Tensor, loc_dst: Tensor, val: Tensor,
+                         x: Tensor, n_rows: int, passes: int = 2) -> Tensor:
+    """Plain PyTorch B8: y[gd·SPAN + loc_dst] += split(split(x[gs·SPAN +
+    loc_src]) · val) over every slot of cell (gs, gd), where split(v) is
+    the sum of the first ``passes`` bf16-grid parts of v. Products and
+    parts are f32, the sums f64 (as the kernel's), rounded once. Returns
+    y (n_rows,) f32."""
+    g_s, g_d, cap = loc_src.shape
+    dev = x.device
+    xs = torch.zeros(g_s * SPAN, dtype=torch.float32, device=dev)
+    xs[: x.shape[0]] = split_sum(x, passes)
+    y = torch.zeros(g_d * SPAN, dtype=torch.float64, device=dev)
+    ls, ld, vv = (t.reshape(-1) for t in (loc_src, loc_dst, val))
+    cell_slots = g_d * cap                  # slots of one source group
+    step = max(cap, _PLAIN_CHUNK_SLOTS // cap * cap)
+    for s0 in range(0, ls.numel(), step):
+        pos = torch.arange(s0, min(s0 + step, ls.numel()), device=dev)
+        gs = pos // cell_slots
+        gd = (pos // cap) % g_d
+        w = xs[gs * SPAN + ls[pos].long()] * vv[pos]
+        y.index_add_(0, gd * SPAN + ld[pos].long(),
+                     split_sum(w, passes).double())
+    return y[:n_rows].float()
+
+
+def _check(loc_src, loc_dst, val, x, n_rows, passes) -> None:
+    if loc_src.dim() != 3 or loc_src.shape[2] < 1:
+        raise ValueError(f"tables must be (g_s, g_d, cap), got "
+                         f"{tuple(loc_src.shape)}")
+    for name, t, dt in (("loc_src", loc_src, torch.int32),
+                        ("loc_dst", loc_dst, torch.int32),
+                        ("val", val, torch.float32)):
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if t.shape != loc_src.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != loc_src "
+                             f"shape {tuple(loc_src.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    if x.dim() != 1:
+        raise ValueError(f"x must be 1-D, got {tuple(x.shape)}")
+    devs = {t.device for t in (loc_src, loc_dst, val, x)}
+    if len(devs) != 1:
+        raise ValueError(f"operands on different devices: "
+                         f"{sorted(map(str, devs))}")
+    if not all(t.is_contiguous() for t in (loc_src, loc_dst, val, x)):
+        raise ValueError("routed SpMV needs contiguous tensors")
+    if passes not in (1, 2, 3):
+        raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
+    g_s, g_d, _ = loc_src.shape
+    if x.shape[0] > g_s * SPAN:
+        raise ValueError(f"x has {x.shape[0]} entries, more than the "
+                         f"tables' {g_s} source groups of {SPAN}")
+    if not 0 <= n_rows <= g_d * SPAN:
+        raise ValueError(f"n_rows {n_rows} outside the tables' {g_d} "
+                         f"destination groups of {SPAN}")
+
+
+def source_splits(g_src: int, g_dst: int, sms: int) -> int:
+    """CTAs that share one destination group's source cells: enough for
+    the grid to cover the SMs in one wave (g_dst·splits ≤ sms where
+    possible), at most one per source group."""
+    return max(1, min(g_src, sms // max(g_dst, 1)))
+
+
+def routed_scatter(loc_src: Tensor, loc_dst: Tensor, val: Tensor, x: Tensor,
+                   n_rows: int, passes: int = 2,
+                   splits: Optional[int] = None) -> Tensor:
+    """B8: y (n_rows,) f32 from (g_s, g_d, cap) routed tables and a dense
+    f32 x. CUDA tensors launch the Hopper kernel on the current stream
+    (``splits`` CTAs a destination group, default
+    :func:`source_splits`); CPU tensors run :func:`routed_scatter_plain`."""
+    global LAUNCHES_ROUTED
+    _check(loc_src, loc_dst, val, x, n_rows, passes)
+    dev = x.device
+    if dev.type == "cpu":
+        return routed_scatter_plain(loc_src, loc_dst, val, x, n_rows, passes)
+    if dev.type != "cuda":
+        raise ValueError(f"routed_scatter runs on CUDA or CPU tensors, got "
+                         f"{dev}")
+    g_s, g_d, cap = loc_src.shape
+    y = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    if n_rows == 0:
+        return y
+    if splits is None:
+        splits = source_splits(
+            g_s, g_d,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+    if not 1 <= splits <= g_s:
+        raise ValueError(f"splits must be in [1, {g_s}], got {splits}")
+    # per-split partial tiles, combined in a fixed order by the kernel's
+    # second pass; none when one CTA owns a whole destination group
+    partial = torch.empty(splits * g_d * SPAN if splits > 1 else 0,
+                          dtype=torch.float64, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.matrel_spmv_routed(
+            loc_src.data_ptr(), loc_dst.data_ptr(), val.data_ptr(),
+            x.data_ptr(), y.data_ptr(), partial.data_ptr(), g_s, g_d, cap,
+            x.shape[0], n_rows, passes, splits, dev.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"spmv_routed kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES_ROUTED += 1
+    return y
+
+
+# -- plan-level API --------------------------------------------------------------
+
+
+def routed_apply(plan_static, arrays, x: Tensor, passes: int = 2,
+                 use_pallas: bool = True) -> Tensor:
+    """y = A·x. ``plan_static`` is (n_rows, n_cols, g_s, g_d, cap);
+    ``arrays`` is ``plan.arrays(device)``. ``passes`` sets the bf16
+    residual-split depth on both value sides: 2 → ~2^-16 relative error
+    (default), 3 → f32-faithful. ``use_pallas=False`` runs the plain
+    version."""
+    n_rows, n_cols = plan_static[:2]
+    fn = routed_scatter if use_pallas else routed_scatter_plain
+    xf = x.float().contiguous()
+    if xf.shape != (n_cols,):
+        raise ValueError(f"x shape {tuple(xf.shape)} != ({n_cols},)")
+    y = fn(*arrays[:3], xf, n_rows, passes)
+    if len(arrays) > 3:
+        # f32 products as the JAX package's, summed in f64 like the
+        # kernel's: a hot row's overflow holds thousands of terms, whose
+        # f32 sum alone would miss the f32-faithful bound of passes 3
+        ov_c, ov_r, ov_v = arrays[3:]
+        w_ov = (xf[ov_c] * ov_v).double()
+        y = y.double().index_add_(0, ov_r, w_ov).float()
+    return y
+
+
+def _static(plan: RoutedSpMVPlan):
+    return (plan.n_rows, plan.n_cols, plan.g_src, plan.g_dst, plan.cap)
+
+
+def routed_spmv(plan: RoutedSpMVPlan, x, passes: int = 2, device=None,
+                use_pallas: bool = True) -> Tensor:
+    """y = A·x through the routed tables on ``device`` (default: the
+    card)."""
+    from matrel_tpu_torch.core.mesh import resolve_device
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(-1)
+    return routed_apply(_static(plan), plan.arrays(dev), x, passes,
+                        use_pallas)

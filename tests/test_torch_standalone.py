@@ -7,6 +7,8 @@ ported.
   JAX package (checked on the syntax tree, lazy imports included).
 - The default device is CUDA: without a card the session raises unless
   the caller asked for the CPU.
+- The routed SpMV, the CG / power-iteration / linreg workloads and
+  ``solve`` queries run on the CPU with the JAX package blocked.
 - Unported node kinds, the fused SpGEMM epilogue and knobs of unported
   planes raise ``NotPortedError``.
 """
@@ -139,6 +141,57 @@ def test_spgemm_without_jax():
     assert "standalone spgemm ok" in proc.stdout
 
 
+def test_solvers_and_routed_spmv_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "matrel_tpu"):
+            sys.modules[name] = None          # import raises ImportError
+        import numpy as np
+        import torch
+        from matrel_tpu_torch import MatrelSession
+        from matrel_tpu_torch.ops import spmv_routed
+        from matrel_tpu_torch.workloads import cg, eigen, linreg
+        rng = np.random.default_rng(0)
+        n, m = 20000, 3000
+        rows, cols = rng.integers(0, n, m), rng.integers(0, n, m)
+        vals = rng.standard_normal(m).astype(np.float32)
+        plan = spmv_routed.build_routed_plan(rows, cols, vals, n, n,
+                                             max_padding=10.0)
+        x = rng.standard_normal(n).astype(np.float32)
+        y = spmv_routed.routed_spmv(plan, x, passes=3, device="cpu").numpy()
+        want = np.zeros(n)
+        np.add.at(want, rows, vals.astype(np.float64) * x[cols])
+        assert np.abs(y - want).max() <= 1e-6 * np.abs(want).max()
+        s = MatrelSession(device="cpu")
+        q = rng.standard_normal((12, 12)).astype(np.float32)
+        a = q @ q.T + 12 * np.eye(12, dtype=np.float32)
+        b = rng.standard_normal(12).astype(np.float32)
+        xs, it = cg.cg_solve(s.from_numpy(a), b, tol=1e-6)
+        assert np.allclose(xs.numpy(), np.linalg.solve(a, b), atol=1e-4)
+        lam, _ = eigen.power_iteration(s.from_numpy(a), rounds=300)
+        assert abs(lam - np.linalg.eigvalsh(a).max()) < 1e-3 * lam
+        X = rng.standard_normal((200, 6)).astype(np.float32)
+        t = linreg.fit(s.from_numpy(X), s.from_numpy(X @ np.ones((6, 1),
+                                                                 np.float32)))
+        assert np.allclose(t.numpy(), 1.0, atol=1e-4)
+        e = s.from_numpy(a).expr().solve(s.from_numpy(b[:, None]),
+                                         assume="pos")
+        assert np.allclose(s.compute(e).to_numpy()[:, 0],
+                           np.linalg.solve(a, b), atol=1e-4)
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "matrel_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("standalone solvers ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone solvers ok" in proc.stdout
+
+
 def _imported_modules(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -177,8 +230,8 @@ def test_unported_planes_and_kinds_raise():
     rng = np.random.default_rng(1)
     A = s.from_numpy(rng.standard_normal((4, 4)).astype(np.float32))
     b = s.from_numpy(rng.standard_normal((4, 1)).astype(np.float32))
-    with pytest.raises(NotPortedError, match="solve"):
-        s.compute(A.expr().solve(b))
+    with pytest.raises(NotPortedError, match="vec"):
+        s.compute(A.expr().vec())
     with pytest.raises(NotPortedError, match="pallas_interpret"):
         MatrelConfig(pallas_interpret=True)
     from matrel_tpu_torch.ops import spgemm
