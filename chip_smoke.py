@@ -12,7 +12,8 @@
    row and a column count that is not a multiple of the column tile; the
    compact SpMV B2 and SpMM B3 (ops/pallas_spmv.py) at passes 2 and 3
    with a block of zero slots, n_rows not a multiple of 512, an overflow
-   hub row, sentinel slots, and B3 at k = 2, 5, 16 and 128 — and times
+   hub row, sentinel slots, and B3 at k = 2, 5, 12, 16, 33 and 128 and
+   at k = 16 with X off a 16-byte boundary — and times
    each at its BASELINE shape with CUDA events beside the plain version,
    its bound and one PyTorch library call.
    The S×S tile kernels B4–B7 (ops/pallas_spgemm.py) are held against
@@ -24,10 +25,14 @@
    and timed at n = 100,352 on the repo's own S×S deployments (bench.py
    measure_spgemm / measure_sparse_kernels) beside the plain version,
    the bound and the xla_gather torch composite. The routed SpMV B8
-   (ops/spmv_routed.py) is held against its plain version at passes 1,
-   2 and 3, split across CTAs and not, on the JAX tests' shapes (3 x 3
-   groups, 5,000 x 33,000, an empty destination and source group, a hot
-   cell in the overflow COO), and each whole product against float64.
+   (ops/spmv_routed.py) is held against its plain version and the plain
+   walk of the plan's CSR view at passes 1, 2 and 3, at every sub-warp
+   width (1 to 32 lanes a row), on the JAX tests' shapes (3 x 3 groups,
+   5,000 x 33,000, an empty destination and source group, a hot cell in
+   the overflow COO) and a hub row of some 2,000 slots over every source
+   group, and each whole product against float64. B3 and B8 walk
+   each plan's CSR view (ops/csr_view.py, built on the card once per
+   plan); the bounds of B2, B3 and B8 are the CSR minimum.
 3. Path phases, through the entry points a user calls on the default
    device, with every kernel's launch count set to 0 just before each
    and read just after: BASELINE row 5 (PageRank, 30 rounds over
@@ -449,10 +454,12 @@ def spmv_case(n_rows, n_cols, m, seed, hub=None, empty_blocks=()):
 
 
 def spmv_kernel_phase(dev) -> None:
-    """B2 and B3 against their plain versions on the card, and the whole
+    """B2 and B3 against their plain versions on the card (B3 over the
+    plan's CSR view, also against the view's plain walk), and the whole
     compact product (overflow included) against a float64 oracle."""
     import numpy as np
     import torch
+    from matrel_tpu_torch.ops import csr_view as csr_lib
     from matrel_tpu_torch.ops import pallas_spmv as pc
     cases = [  # (name, n_rows, n_cols, edges, hub, empty blocks)
         ("blocks 1 and 3 with zero slots, n_rows % 512 = 452",
@@ -468,6 +475,7 @@ def spmv_kernel_phase(dev) -> None:
         if (hub is not None) != (plan.ov_rows is not None):
             raise AssertionError(f"{name}: overflow {plan.ov_rows is not None}")
         tables = pc.compact_tables(plan, dev)
+        view = pc.csr_view_on(plan, dev)
         ov = plan.overflow_on(dev)
         static = (plan.n_rows, plan.n_cols, plan.block)
         rng = np.random.default_rng(400 + i)
@@ -496,16 +504,30 @@ def spmv_kernel_phase(dev) -> None:
                            SPMV_ORACLE_TOL[passes])
             log(f"kernel spmv_compact [{name}] passes={passes}: max_abs_err "
                 f"{err:.3e} vs plain, {e_or:.3e} vs float64 oracle ok")
-            for k in (2, 5, 16, 128):
-                Xk = X[:, :k].contiguous()
-                Y = pc.spmm_scatter(*tables, Xk, n_rows, plan.block, passes)
+            for k in (2, 5, 12, 16, 33, 128, "16 unaligned"):
+                if k == "16 unaligned":     # k % 4 == 0, one column a lane
+                    Xk = torch.empty(n_cols * 16 + 1, device=dev)[1:].view(
+                        n_cols, 16)
+                    Xk.copy_(X[:, :16])
+                else:
+                    Xk = X[:, :k].contiguous()
+                kw = Xk.shape[1]
+                before = pc.LAUNCHES_SPMM
+                Y = pc.spmm_scatter(view, Xk, passes)
                 Yp = pc.spmm_scatter_plain(*tables, Xk, n_rows, plan.block,
                                            passes)
+                Yw = csr_lib.csr_walk_plain(view, Xk, passes, split_x=False)
                 torch.cuda.synchronize()
+                if pc.LAUNCHES_SPMM != before + 1:
+                    raise AssertionError(f"B3 {name}: "
+                                         f"{pc.LAUNCHES_SPMM - before} "
+                                         f"launches counted, want 1")
                 err = rel_err(f"B3 {name} k={k} passes={passes}", Y, Yp, tol)
-                full = pc.compact_matmat_apply(static, tables, ov, Xk, passes)
+                rel_err(f"B3 {name} k={k} passes={passes} vs the view's "
+                        f"plain walk", Y, Yw, tol)
+                full = pc.compact_matmat_apply(plan, Xk, passes)
                 e_or = rel_err(f"B3+overflow {name} k={k} vs float64",
-                               full.cpu(), torch.as_tensor(want[:, :k]),
+                               full.cpu(), torch.as_tensor(want[:, :kw]),
                                SPMV_ORACLE_TOL[passes])
                 log(f"kernel spmm_compact [{name}] k={k} passes={passes}: "
                     f"max_abs_err {err:.3e} vs plain, {e_or:.3e} vs "
@@ -663,16 +685,37 @@ def library_time(name, fn, want):
     return ms
 
 
+def csr_bound(real, n_rows, n_cols, k, ops_per_elem):
+    """(bound_ms, bound_by) of one SpMV (k = 1) or SpMM on this run's
+    data, the same work whatever implements it: the CSR minimum — each
+    real slot's 8 bytes (column and value), n_rows + 1 row pointers of
+    4 bytes, x (or X, k columns) read once and y (or Y) written once —
+    against ``ops_per_elem`` f32 operations a real slot and column."""
+    nbytes = real * 8 + (n_rows + 1) * 4 + (n_cols + n_rows) * 4 * k
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = real * k * ops_per_elem / PEAK_FLOPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def table_bound_ms(real, n_rows, n_cols, k, bytes_per_slot):
+    """The byte bound of the plans' own table formats: each real slot's
+    bytes there (13 compact, 12 routed), x (or X) and y (or Y) once —
+    logged beside the CSR minimum for comparison."""
+    nbytes = real * bytes_per_slot + (n_cols + n_rows) * 4 * k
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def row5_timing(A, dev):
     """B2 and B3 at the row-5 shape: kernel vs plain (CUDA events,
-    median), bound, and torch.sparse.mm on the CSR form (cuSPARSE)."""
+    median), bound, and torch.sparse.mm on the CSR form (cuSPARSE). B3
+    walks the plan's CSR view; its plain version reads the tables."""
     import torch
     from matrel_tpu_torch.ops import pallas_spmv as pc
     plan = A._get_plan()
     tables = pc.compact_tables(plan, dev)
+    view = pc.csr_view_on(plan, dev)
     n_rows, n_cols, block = plan.n_rows, plan.n_cols, plan.block
-    src8, lane = tables[0], tables[1]
-    real = int(((src8.long() * 8 + lane.long()) < n_cols).sum())
+    real = view.nnz
     gen = torch.Generator(device=dev).manual_seed(8)
     x = torch.rand(n_cols, generator=gen, device=dev)
     X = torch.rand((n_cols, ROW5_K), generator=gen, device=dev)
@@ -684,7 +727,7 @@ def row5_timing(A, dev):
             plain = lambda: pc.spmv_scatter_plain(*tables, x, n_rows, block, 3)
             lib = lambda: torch.sparse.mm(csr, x[:, None])
         else:
-            run = lambda: pc.spmm_scatter(*tables, X, n_rows, block, 3)
+            run = lambda: pc.spmm_scatter(view, X, 3)
             plain = lambda: pc.spmm_scatter_plain(*tables, X, n_rows, block, 3)
             lib = lambda: torch.sparse.mm(csr, X)
         got, want = run(), plain()
@@ -692,18 +735,15 @@ def row5_timing(A, dev):
         err = rel_err(f"{name} row-5 shape", got, want, SPMV_REL_TOL[3])
         ms = time_ms(run, warmup=3, runs=20, batch=10)
         plain_ms = time_ms(plain, warmup=1, runs=10)
-        # this run's data: each real slot's 13 table bytes, x (or X) and
-        # y (or Y) once; per real slot one multiply, the 3-pass split
-        # (6 ops) and one add, per column
-        nbytes = real * 13 + (n_cols + n_rows) * 4 * k
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = real * k * 8 / PEAK_FLOPS["float32"] * 1e3
-        bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                             "operations")
+        # per real slot and column: one multiply, the 3-pass split (6
+        # ops) and one add
+        bound = csr_bound(real, n_rows, n_cols, k, 8)
+        old_bound = table_bound_ms(real, n_rows, n_cols, k, 13)
         lib_ms = library_time(f"torch.sparse.mm f32 CSR k={k}", lib, got)
         log(f"row-5 shape {name} (k={k}, {real} real slots of "
-            f"{src8.numel()}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound[0]:.4f} ms ({bound[1]}), library {lib_ms} ms; "
+            f"{tables[0].numel()}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {bound[0]:.4f} ms ({bound[1]}, CSR minimum; "
+            f"{old_bound:.4f} ms at 13 B a slot), library {lib_ms} ms; "
             f"kernel vs plain max_abs_err {err:.3e}")
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound[0], "bound_by": bound[1],
@@ -715,7 +755,7 @@ def row5_timing(A, dev):
 # -- routed SpMV: kernel B8 (ops/spmv_routed.py) ----------------------------
 
 #: B8 against its plain version, relative to max|plain|: both add the same
-#: split parts, in f64, rounded once (shared-memory atomics vs
+#: split parts, in f64, rounded once (register sums in lane order vs
 #: index_add_ order), so they differ by about one f32 rounding.
 ROUTED_REL_TOL = 1e-6
 #: the whole routed product (overflow included) vs a float64 oracle: the
@@ -728,10 +768,18 @@ ROUTED_ORACLE_TOL = {1: 5e-2, 2: 5e-4, 3: 1e-6}
 CG_TOL, CG_MAXITER, CG_L2 = 1e-5, 500, 0.1
 
 
+#: the hub row of routed_case's "hub row" case
+ROUTED_HUB_ROW = 33_333
+#: every sub-warp width the B8 kernel is built for (lanes_per_row's range)
+ROUTED_LANES = (1, 2, 4, 8, 16, 32)
+
+
 def routed_case(name, seed):
     """(rows, cols, vals, n_rows, n_cols, build kwargs, empty (dst, src)
     groups) for the routed kernel phase: the JAX tests' shapes
-    (tests/test_spmv.py TestRoutedSpMV)."""
+    (tests/test_spmv.py TestRoutedSpMV), and a hub row of some 2,000
+    slots spread over every source group (tests/test_torch_csr_view.py's
+    hub_row), which one sub-warp walks whole."""
     import numpy as np
     from matrel_tpu_torch.ops.spmv_routed import SPAN
     rng = np.random.default_rng(seed)
@@ -744,6 +792,9 @@ def routed_case(name, seed):
     elif name.startswith("empty"):
         n_rows = n_cols = 40_000
         m, kw, empty = 6_000, dict(max_padding=10.0), (1, 2)
+    elif name.startswith("hub"):
+        n_rows = n_cols = 40_000
+        m = 20_000
     else:                                   # hot cell into overflow
         n_rows = n_cols = 40_000
         m = 3_000
@@ -757,21 +808,23 @@ def routed_case(name, seed):
     if name.startswith("hot"):
         rows[:1500] = 7
         cols[:1500] = 11
+    if name.startswith("hub"):
+        rows[rng.random(m) < 0.1] = ROUTED_HUB_ROW
     return rows, cols, vals, n_rows, n_cols, kw, empty
 
 
 def routed_kernel_phase(dev) -> None:
-    """B8 against its plain version on the card (passes 1, 2 and 3, with
-    the source cells split across CTAs as the wrapper chooses and in one
-    CTA a group), each call's launch checked, and the whole routed
-    product (overflow included) against a float64 oracle."""
+    """B8 against its plain version on the plan's tables and the plain
+    walk of its CSR view on the card (passes 1, 2 and 3, at every sub-warp
+    width in ROUTED_LANES), each call's launch checked, and the whole
+    routed product (overflow included) against a float64 oracle."""
     import numpy as np
     import torch
     from matrel_tpu_torch.ops import spmv_routed as rt
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     names = ("3 x 3 groups, square", "rectangular 5,000 x 33,000",
              "empty destination group 1 and source group 2",
-             "hot cell (0, 0) into the overflow COO")
+             "hot cell (0, 0) into the overflow COO",
+             "hub row 33,333 over every source group")
     for i, name in enumerate(names):
         rows, cols, vals, n_rows, n_cols, kw, empty = routed_case(name,
                                                                   500 + i)
@@ -782,29 +835,39 @@ def routed_kernel_phase(dev) -> None:
             raise AssertionError(f"B8 {name}: overflow "
                                  f"{plan.ov_rows is not None}")
         tables = plan.tables_on(dev)
+        view = plan.csr_on(dev)
+        if name.startswith("hub"):
+            hub = view.row_ptr[ROUTED_HUB_ROW:ROUTED_HUB_ROW + 2].tolist()
+            groups = set(np.unique(cols[rows == ROUTED_HUB_ROW] // rt.SPAN))
+            if hub[1] - hub[0] <= 1000 or groups != set(range(plan.g_src)):
+                raise AssertionError(f"B8 {name}: {hub[1] - hub[0]} slots "
+                                     f"from source groups {sorted(groups)}")
         x_np = np.random.default_rng(600 + i).standard_normal(
             n_cols).astype(np.float32)
         x = torch.as_tensor(x_np, device=dev)
         want = np.zeros(n_rows)
         np.add.at(want, rows, vals.astype(np.float64) * x_np[cols])
-        default = rt.source_splits(plan.g_src, plan.g_dst, sms)
         for passes in (1, 2, 3):
             yp = rt.routed_scatter_plain(*tables, x, n_rows, passes)
-            for splits in sorted({default, 1}):
+            yw = rt.csr_scatter_plain(view, x, passes)
+            for lanes in ROUTED_LANES:
                 before = rt.LAUNCHES_ROUTED
-                y = rt.routed_scatter(*tables, x, n_rows, passes, splits)
+                y = rt.routed_scatter(view, x, passes, lanes)
                 torch.cuda.synchronize()
                 if rt.LAUNCHES_ROUTED != before + 1:
                     raise AssertionError(f"B8 {name}: {rt.LAUNCHES_ROUTED - before}"
                                          f" launches counted, want 1")
-                err = rel_err(f"B8 {name} passes={passes} splits={splits}",
+                err = rel_err(f"B8 {name} passes={passes} lanes={lanes}",
                               y, yp, ROUTED_REL_TOL)
+                rel_err(f"B8 {name} passes={passes} lanes={lanes} vs the "
+                        f"view's plain walk", y, yw, ROUTED_REL_TOL)
                 if empty[0] is not None and y[
                         empty[0] * rt.SPAN:(empty[0] + 1) * rt.SPAN].any():
                     raise AssertionError(f"B8 {name}: empty group not zero")
                 log(f"kernel spmv_routed [{name}] g_s={plan.g_src} "
-                    f"g_d={plan.g_dst} cap={plan.cap} passes={passes} "
-                    f"splits={splits}: max_abs_err {err:.3e} vs plain ok")
+                    f"g_d={plan.g_dst} cap={plan.cap} nnz="
+                    f"{view.nnz} passes={passes} lanes={lanes}: "
+                    f"max_abs_err {err:.3e} vs plain ok")
             full = rt.routed_spmv(plan, x, passes, device=dev)
             e_or = rel_err(f"B8+overflow {name} passes={passes} vs float64",
                            full.cpu(), torch.as_tensor(want),
@@ -831,17 +894,15 @@ def scipy_csr(rows, cols, vals, n):
                          shape=(n, n))
 
 
-def routed_bound(plan, passes):
-    """(bound_ms, bound_by) of one routed matvec on this run's data: each
-    real slot's 12 table bytes, x and y once, vs per real slot two
-    ``passes``-part splits (3 ops a part), one multiply and one add."""
-    import numpy as np
-    real = int(np.count_nonzero(plan.val))
-    nbytes = real * 12 + (plan.n_cols + plan.n_rows) * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = real * (6 * passes + 2) / PEAK_FLOPS["float32"] * 1e3
-    return ((t_bytes, "bytes") if t_bytes >= t_ops
-            else (t_ops, "operations")), real
+def routed_bound(plan, passes, dev):
+    """(bound_ms, bound_by) of one routed matvec on this run's data (the
+    CSR minimum, :func:`csr_bound`; per real slot two ``passes``-part
+    splits of 3 ops a part, one multiply and one add), the bound at the
+    routed tables' 12 bytes a real slot, and the real slots."""
+    real = plan.csr_on(dev).nnz
+    bound = csr_bound(real, plan.n_rows, plan.n_cols, 1, 6 * passes + 2)
+    return bound, table_bound_ms(real, plan.n_rows, plan.n_cols, 1,
+                                 12), real
 
 
 def path_row5_routed(dev, A, library_ms):
@@ -864,6 +925,10 @@ def path_row5_routed(dev, A, library_ms):
     x = torch.rand(ROW5_N, generator=gen, device=dev)
     M = scipy_csr(rows, cols, vals, ROW5_N)
     want = torch.as_tensor(M @ x.double().cpu().numpy())
+    t0 = time.perf_counter()
+    plan.csr_on(dev)
+    torch.cuda.synchronize()
+    view_s = time.perf_counter() - t0
     rt.LAUNCHES_ROUTED = 0                 # the row-5 routed path
     ys = {p: rt.routed_spmv(plan, x, passes=p, device=dev) for p in (2, 3)}
     torch.cuda.synchronize()
@@ -883,24 +948,27 @@ def path_row5_routed(dev, A, library_ms):
                        ROUTED_REL_TOL if passes == 3 else 1e-4)
         e_64 = rel_err(f"row 5 routed passes={passes} vs float64",
                        y.cpu(), want, ROUTED_ORACLE_TOL[passes])
-        tables = plan.tables_on(dev)
-        ms = time_ms(lambda: rt.routed_scatter(*tables, x, ROW5_N, passes),
+        tables, view = plan.tables_on(dev), plan.csr_on(dev)
+        ms = time_ms(lambda: rt.routed_scatter(view, x, passes),
                      warmup=3, runs=20, batch=10)
         plain_ms = time_ms(lambda: rt.routed_scatter_plain(
             *tables, x, ROW5_N, passes), warmup=1, runs=5)
-        (bound_ms, bound_by), real = routed_bound(plan, passes)
+        (bound_ms, bound_by), old_bound, real = routed_bound(plan, passes,
+                                                             dev)
         log(f"path row 5 routed A·x passes={passes}: max_abs_err {err:.3e} vs"
             f" plain, {e_b2:.3e} vs B2, {e_64:.3e} vs float64 scipy; kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}), library {library_ms} ms (torch.sparse.mm f32 "
-            f"CSR, row5_timing)")
+            f"({bound_by}, CSR minimum; {old_bound:.4f} ms at 12 B a slot), "
+            f"library {library_ms} ms (torch.sparse.mm f32 CSR, "
+            f"row5_timing)")
         out[passes] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "library_ms": library_ms}
     log(f"row 5 routed plan: build {build_s:.2f} s on the host, g_s = g_d ="
         f" {plan.g_src}, cap {plan.cap}, {plan.slots} slots ({real} real), "
-        f"padding ratio {plan.padding_ratio:.4f}, overflow {n_ov}, splits "
-        f"{rt.source_splits(plan.g_src, plan.g_dst, torch.cuda.get_device_properties(dev).multi_processor_count)}")
+        f"padding ratio {plan.padding_ratio:.4f}, overflow {n_ov}; CSR view "
+        f"built on the card in {view_s:.3f} s, "
+        f"{rt.lanes_per_row(real, ROW5_N)} lanes a row")
     return launches, out, plan
 
 

@@ -6,52 +6,58 @@
 // together with the XLA width-8 gather-select that feeds them
 // (compact_apply, pallas_spmv.py:137-140).
 //
-// Input: an EdgeSpMVPlan's compact tables, (nb, cap) each, row-major:
+// Function: y[r] (B3: Y[r, :]) = sum over the slots of row r of
+// split(x[col] * val), where split(w) is the sum of the first `passes`
+// parts of w's bf16 mantissa-mask split (ops/spmv_routed.py::
+// _bf16_split): passes = 3 adds w exactly; passes = 2 adds w truncated
+// to its leading 16 significant bits, as the TPU kernel's two bf16
+// passes do. Products and parts are f32 (no TF32, no bf16 arithmetic);
+// the row sums are f64 and are rounded to f32 once, at the write. The
+// overflow COO is summed outside, with index_add_.
+//
+// B2 input: an EdgeSpMVPlan's compact tables, (nb, cap) each, row-major:
 // src8 int32, lane int8, off int32, val f32. Slot s of block b holds an
 // edge x[src8*8 + lane] * val -> y[b*block + off]; padded slots point at
-// the sentinel column n_cols and read 0. For each slot the kernels
-//   1. read src8, lane, off and val (coalesced: neighbouring threads,
-//      neighbouring slots);
-//   2. form idx = src8*8 + lane and read x[idx] (0 for idx >= n_cols);
-//   3. compute w = x[idx] * val in f32;
-//   4. add the sum of the first `passes` parts of w's bf16 mantissa-mask
-//      split (ops/spmv_routed.py::_bf16_split) into output row
-//      b*block + off. passes = 3 adds w exactly; passes = 2 adds w
-//      truncated to its leading 16 significant bits, as the TPU kernel's
-//      two bf16 passes do.
-// The overflow COO is summed outside, with index_add_.
+// the sentinel column n_cols and read 0. One CTA owns one block of
+// `block` output rows and walks the block's slots, 32 consecutive slots
+// per warp step (coalesced table loads). The plan sorts a block's slots
+// by row, so neighbouring lanes mostly share an output row: a warp-level
+// segmented scan sums each run of equal offs and only the run's last lane
+// adds into the CTA's f64 array in shared memory (shared-memory
+// atomicAdd); then the CTA writes each of its rows once (rows past
+// n_rows masked). The order of the atomic additions varies from run to
+// run; f64 sums hide it at f32 precision. Bound at BASELINE row 5 (n =
+// 1,000,000, 10,000,000 uniform edges, block 512: nb = 1954, cap ~ 5376,
+// ~10.5 M slots): the 13 B/slot tables plus x and y, ~0.145 GB, about
+// 0.043 ms at 3.35 TB/s; bytes bound it.
 //
-// Schedule. The TPU grid walks one block per step and builds one-hot
-// factors in VMEM for an MXU contraction. On Hopper one CTA owns one
-// block of `block` output rows (B3: one block and one chunk of kc output
-// columns) and walks the block's slots, 32 consecutive slots per warp
-// step. The plan sorts a block's slots by row, so neighbouring lanes
-// mostly share an output row: a warp-level segmented scan sums each run
-// of equal offs and only the run's last lane adds into the CTA's array
-// in shared memory (shared-memory atomicAdd). Then the CTA writes each
-// of its output rows exactly once (rows past n_rows masked). No global
-// atomics; rows with no slots get zeros.
+// B3 input: the plan's CSR view (ops/csr_view.py, pallas_spmv.py::
+// csr_view_on), built once per plan: row_ptr int32 (n_rows + 1) and one
+// 8-byte record a real slot, {int32 column, f32 value bits}, ordered by
+// output row, within a row in the plan's slot order (sentinel slots
+// dropped). X and Y are row-major (n_cols, k) and (n_rows, k) f32.
 //
-// Arithmetic. Products and split parts are f32 (no TF32, no bf16
-// arithmetic); the per-row sums are f64 and are rounded to f32 once, at
-// the write. The order of the atomic additions into one row varies from
-// run to run: with f32 sums a 5,000-term hub row differed from the
-// plain version (another order) by 1.6e-6 of max|y|; f64 sums make the
-// order invisible at f32 precision, so the kernel and its plain version
-// (which also sums in f64) agree to about one f32 rounding.
+// What bounds B3 on this card. Per slot and column: a 4-byte read of X
+// and ~8 f32 operations plus one f64 add, far below the card's ~300
+// operations a byte, so bytes bound it. At row 5, k = 16, the minimum is
+// the records (80 MB), row_ptr (4 MB), X read once and Y written once
+// (64 MB each): ~0.21 GB, ~0.064 ms at 3.35 TB/s. But X is larger than
+// the 50 MB L2 and each X row is gathered ~10 times (~0.64 GB of 64-byte
+// gathers), so the gathers that miss L2 set the real floor.
 //
-// Bound at BASELINE row 5 (n = 1,000,000 nodes, 10,000,000 uniform
-// edges, block 512: nb = 1954, cap ~ 5376, ~10.5 M slots): one matvec
-// must read the 13 B/slot tables (~137 MB) plus x and y (4 MB each),
-// ~0.145 GB, about 0.043 ms at 3.35 TB/s; the FLOPs are negligible, so
-// it is bound by bytes. x fits in the 50 MB L2, so its 10.5 M random
-// reads come from L2 (~0.34 GB of 32-byte sectors, a second, softer
-// floor). B3 at k = 16 must also read X and write Y (64 MB each): about
-// 0.08 ms. The design reads each table byte once (B3: once per column
-// chunk), with coalesced loads, and keeps the scatter in shared memory
-// so output traffic is one write per row. Left for later: slots sorted
-// by off once per plan with a segmented (deterministic) reduction,
-// cp.async/TMA staging of the tables, and a persistent schedule.
+// B3 design. One output row and a chunk of min(32, next_pow2(k))
+// columns belong to a group of lanes (further chunks over blockIdx.y):
+// 4 columns a lane with 16-byte loads when k % 4 == 0 and X is 16-byte
+// aligned (4 lanes a row at k = 16), else one column a lane. Per slot
+// the group reads the slot's record (one broadcast 8-byte load) and its
+// part of the X row (64 B at k = 16, coalesced); UNROLL = 4 slots are in
+// flight per group (8 and 16 measured slower at row 5), and `passes` is
+// a template argument (a loop over it at run time measured markedly
+// slower at row 5: the walk is bound by issue as much as by bytes).
+// Each lane adds its columns into f64 registers in slot order and writes
+// its part of the Y row once. No shared memory, no scans, no atomics; 256-thread
+// CTAs over row tiles fill all 132 SMs. Empty rows write 0; a hub row is
+// walked by its one group.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,8 +66,7 @@ namespace {
 
 constexpr int WIDTH = 8;          // gather row width of the compact layout
 constexpr int THREADS = 256;      // threads per CTA, both kernels
-constexpr int MAX_KC = 16;        // widest column chunk of the B3 kernel
-constexpr int MAX_SMEM = 64 * 1024;
+constexpr int UNROLL = 4;         // B3: slots in flight per group
 
 // Sum of the first `passes` parts of the mantissa-mask split of w. Each
 // part and residual is exact, and every partial sum is a subset of w's
@@ -69,6 +74,20 @@ constexpr int MAX_SMEM = 64 * 1024;
 __device__ __forceinline__ float split_sum(float w, int passes) {
   float acc = 0.0f, rem = w;
   for (int p = 0; p < passes; ++p) {
+    const float hi = __uint_as_float(__float_as_uint(rem) & 0xFFFF0000u);
+    acc += hi;
+    rem -= hi;
+  }
+  return acc;
+}
+
+// The same with `passes` fixed at compile time (the row walk's inner
+// loop then holds no loop over passes).
+template <int P>
+__device__ __forceinline__ float split_sum(float w) {
+  float acc = 0.0f, rem = w;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
     const float hi = __uint_as_float(__float_as_uint(rem) & 0xFFFF0000u);
     acc += hi;
     rem -= hi;
@@ -142,80 +161,92 @@ spmv_compact_kernel(const int* __restrict__ src8,
     if (row0 + i < n_rows) y[row0 + i] = (float)acc[i];
 }
 
-// B3: Y[b*block + off, c0:c0+kc] += split(X[idx, c0:c0+kc] * val). X and
-// Y are row-major (n_cols, k) and (n_rows, k) f32. grid = (nb, chunks);
-// each warp takes 32 consecutive slots at a time; each lane loads its
-// slot's kc floats of X into registers at once (16-byte loads when
-// x_vec: k % 4 == 0 and X 16-byte aligned), then the warp runs one
-// segmented scan per column. kc is a power of two <= MAX_KC. Dynamic
-// shared memory = block * kc doubles.
+// B3: Y[r, c] = sum over row r's records of split(X[col, c] * val).
+// A group of G lanes owns a row and W consecutive columns a lane (W = 4:
+// one 16-byte load of X and one 16-byte store of Y a lane and slot; k %
+// 4 == 0 and X 16-byte aligned). grid = (ceil(n_rows / (THREADS / G)),
+// ceil(k / (G * W))); group t of the CTA owns row
+// blockIdx.x * (THREADS / G) + t. No shuffles, so out-of-range rows and
+// columns return at once.
+template <int G, int W, int P>
 __global__ void __launch_bounds__(THREADS)
-spmm_compact_kernel(const int* __restrict__ src8,
-                    const int8_t* __restrict__ lane,
-                    const int* __restrict__ off,
-                    const float* __restrict__ val,
+spmm_compact_kernel(const int* __restrict__ row_ptr,
+                    const int2* __restrict__ cv,
                     const float* __restrict__ X, float* __restrict__ Y,
-                    int cap, int block, long long n_cols, long long n_rows,
-                    int k, int kc, int x_vec, int passes) {
-  extern __shared__ double acc[];
-  const int c0 = blockIdx.y * kc;
-  const int kw = min(kc, k - c0);           // columns of this chunk
-  for (int i = threadIdx.x; i < block * kc; i += blockDim.x) acc[i] = 0.0;
-  __syncthreads();
-  const int ln = threadIdx.x & 31;
-  const long long base = (long long)blockIdx.x * cap;
-  for (int s0 = threadIdx.x - ln; s0 < cap; s0 += blockDim.x) {
-    const long long p = base + s0 + ln;
-    const long long idx = (long long)__ldg(src8 + p) * WIDTH + __ldg(lane + p);
-    const int o = __ldg(off + p);
-    const bool real = idx >= 0 && idx < n_cols && (unsigned)o < (unsigned)block;
-    const int key = real ? o : -1 - ln;
-    const int start = run_start(key, ln);
-    const bool tail = run_tail(key, ln) && real;
-    const float v = real ? __ldg(val + p) : 0.0f;
-    float xv[MAX_KC];
+                    long long n_rows, long long n_cols, int k) {
+  const long long r =
+      (long long)blockIdx.x * (THREADS / G) + threadIdx.x / G;
+  const int c = (blockIdx.y * G + threadIdx.x % G) * W;
+  if (r >= n_rows || c >= k) return;
+  const int s0 = __ldg(row_ptr + r), s1 = __ldg(row_ptr + r + 1);
+  double acc[W];
 #pragma unroll
-    for (int c = 0; c < MAX_KC; ++c) xv[c] = 0.0f;
-    if (real) {
-      const float* xr = X + idx * k + c0;
-      if (x_vec) {            // c0 and kw are multiples of 4 here
+  for (int w = 0; w < W; ++w) acc[w] = 0.0;
+  for (int j0 = s0; j0 < s1; j0 += UNROLL) {
+    int2 rec[UNROLL];
+    float xv[UNROLL][W];
 #pragma unroll
-        for (int c = 0; c < MAX_KC; c += 4) {
-          if (c < kw) {
-            const float4 q = __ldg(reinterpret_cast<const float4*>(xr + c));
-            xv[c] = q.x; xv[c + 1] = q.y; xv[c + 2] = q.z; xv[c + 3] = q.w;
-          }
-        }
+    for (int u = 0; u < UNROLL; ++u)         // records, one a group
+      rec[u] = j0 + u < s1 ? __ldg(cv + j0 + u) : make_int2(-1, 0);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {       // X rows, coalesced a group
+      const bool live = rec[u].x >= 0 && rec[u].x < n_cols;
+      const float* xr = X + (long long)(live ? rec[u].x : 0) * k + c;
+      if constexpr (W == 4) {
+        const float4 q = live ? __ldg(reinterpret_cast<const float4*>(xr))
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        xv[u][0] = q.x; xv[u][1] = q.y; xv[u][2] = q.z; xv[u][3] = q.w;
       } else {
-#pragma unroll
-        for (int c = 0; c < MAX_KC; ++c)
-          if (c < kw) xv[c] = __ldg(xr + c);
+        xv[u][0] = live ? __ldg(xr) : 0.0f;
       }
     }
 #pragma unroll
-    for (int c = 0; c < MAX_KC; ++c) {
-      if (c < kw) {           // warp-uniform
-        const double w =
-            real ? (double)split_sum(xv[c] * v, passes) : 0.0;
-        const double sum = run_sum(w, start, ln);
-        if (tail) atomicAdd(&acc[o * kc + c], sum);
+    for (int u = 0; u < UNROLL; ++u) {       // in slot order
+      if (j0 + u < s1) {
+        const float v = __int_as_float(rec[u].y);
+#pragma unroll
+        for (int w = 0; w < W; ++w)
+          acc[w] += (double)split_sum<P>(xv[u][w] * v);
       }
     }
   }
-  __syncthreads();
-  const long long row0 = (long long)blockIdx.x * block;
-  for (int i = threadIdx.x; i < block * kc; i += blockDim.x) {
-    const int r = i / kc, c = i % kc;
-    if (row0 + r < n_rows && c0 + c < k)
-      Y[(row0 + r) * k + c0 + c] = (float)acc[i];
+  float* yr = Y + r * k + c;
+  if constexpr (W == 4) {
+    *reinterpret_cast<float4*>(yr) = make_float4(
+        (float)acc[0], (float)acc[1], (float)acc[2], (float)acc[3]);
+  } else {
+    *yr = (float)acc[0];
   }
+}
+
+template <int G, int W>
+cudaError_t launch_spmm(const int* row_ptr, const int2* cv, const float* X,
+                        float* Y, long long n_rows, long long n_cols, int k,
+                        int passes, cudaStream_t st) {
+  const long long rows_per_cta = THREADS / G;
+  const dim3 grid((unsigned)((n_rows + rows_per_cta - 1) / rows_per_cta),
+                  (unsigned)((k + G * W - 1) / (G * W)));
+  switch (passes) {
+    case 1:
+      spmm_compact_kernel<G, W, 1><<<grid, THREADS, 0, st>>>(
+          row_ptr, cv, X, Y, n_rows, n_cols, k);
+      break;
+    case 2:
+      spmm_compact_kernel<G, W, 2><<<grid, THREADS, 0, st>>>(
+          row_ptr, cv, X, Y, n_rows, n_cols, k);
+      break;
+    default:
+      spmm_compact_kernel<G, W, 3><<<grid, THREADS, 0, st>>>(
+          row_ptr, cv, X, Y, n_rows, n_cols, k);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Both entries launch on `stream`, never synchronise, and return
-// cudaGetLastError() (0 on success). cap must be a multiple of 32 (plans
-// round it to 128).
+// cudaGetLastError() (0 on success). B2: cap must be a multiple of 32
+// (plans round it to 128).
 extern "C" int matrel_spmv_compact(const void* src8, const void* lane,
                                    const void* off, const void* val,
                                    const void* x, void* y, int nb, int cap,
@@ -236,35 +267,49 @@ extern "C" int matrel_spmv_compact(const void* src8, const void* lane,
   return (int)cudaGetLastError();
 }
 
-extern "C" int matrel_spmm_compact(const void* src8, const void* lane,
-                                   const void* off, const void* val,
-                                   const void* X, void* Y, int nb, int cap,
-                                   int block, long long n_cols,
-                                   long long n_rows, int k, int kc,
-                                   int x_vec, int passes, int device,
+// B3 over the CSR view: cv must be 8-byte aligned; chunk (the columns a
+// group covers) is a power of two in [1, 32]; vec = 1 takes 4 columns a
+// lane, and needs k % 4 == 0 and X and Y 16-byte aligned.
+extern "C" int matrel_spmm_compact(const void* row_ptr, const void* cv,
+                                   const void* X, void* Y, long long n_rows,
+                                   long long n_cols, int k, int chunk,
+                                   int vec, int passes, int device,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const long long smem = (long long)block * kc * (long long)sizeof(double);
-  if (nb <= 0 || cap <= 0 || cap % 32 != 0 || block <= 0 || k <= 0 || kc <= 0 ||
-      kc > MAX_KC || (kc & (kc - 1)) != 0 || (x_vec && kc < 4 && k > kc) ||
-      passes < 1 || passes > 3 ||
-      smem > MAX_SMEM)
+  if (n_rows < 0 || n_rows >= (1LL << 31) || n_cols < 0 || k <= 0 ||
+      passes < 1 || passes > 3 || reinterpret_cast<uintptr_t>(cv) % 8 != 0 ||
+      (vec && (k % 4 != 0 || chunk < 4 ||
+               reinterpret_cast<uintptr_t>(X) % 16 != 0 ||
+               reinterpret_cast<uintptr_t>(Y) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
-  const long long chunks = (k + kc - 1) / kc;
-  if (chunks > 65535) return (int)cudaErrorInvalidConfiguration;
-  if (smem > 48 * 1024) {           // opt in above the 48 KB default
-    err = cudaFuncSetAttribute(spmm_compact_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  if ((k + chunk - 1) / chunk > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  if (n_rows == 0) return (int)cudaSuccess;
+  const int* rp = static_cast<const int*>(row_ptr);
+  const int2* c = static_cast<const int2*>(cv);
+  const float* Xp = static_cast<const float*>(X);
+  float* Yp = static_cast<float*>(Y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MATREL_SPMM(G, W) \
+  return (int)launch_spmm<G, W>(rp, c, Xp, Yp, n_rows, n_cols, k, passes, st)
+  if (vec) {
+    switch (chunk) {
+      case 4: MATREL_SPMM(1, 4);
+      case 8: MATREL_SPMM(2, 4);
+      case 16: MATREL_SPMM(4, 4);
+      case 32: MATREL_SPMM(8, 4);
+    }
+  } else {
+    switch (chunk) {
+      case 1: MATREL_SPMM(1, 1);
+      case 2: MATREL_SPMM(2, 1);
+      case 4: MATREL_SPMM(4, 1);
+      case 8: MATREL_SPMM(8, 1);
+      case 16: MATREL_SPMM(16, 1);
+      case 32: MATREL_SPMM(32, 1);
+    }
   }
-  const dim3 grid((unsigned)nb, (unsigned)chunks);
-  spmm_compact_kernel<<<grid, THREADS, (size_t)smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(src8), static_cast<const int8_t*>(lane),
-      static_cast<const int*>(off), static_cast<const float*>(val),
-      static_cast<const float*>(X), static_cast<float*>(Y), cap, block,
-      n_cols, n_rows, k, kc, x_vec, passes);
-  return (int)cudaGetLastError();
+#undef MATREL_SPMM
+  return (int)cudaErrorInvalidValue;
 }

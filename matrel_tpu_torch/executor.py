@@ -348,20 +348,20 @@ class Lowerer:
     def _coo_spmv_stack(self, plan, X: Tensor) -> Tensor:
         """A·X for the k columns of ``X`` (n_cols, k) as an (n_rows, k)
         f32 tensor. With ``use_pallas`` the compact-table kernels run (one
-        B2 launch for k = 1, one B3 launch otherwise — their plain
-        versions on the CPU); without it the expanded one-hot path, in
-        chunks of 64 columns."""
+        B2 launch for k = 1, one B3 launch over the plan's CSR view
+        otherwise — their plain versions on the CPU); without it the
+        expanded one-hot path, in chunks of 64 columns."""
         from matrel_tpu_torch.ops import pallas_spmv as pc
         from matrel_tpu_torch.ops import spmv as spmv_lib
         dev = X.device
         X = X.float()
         static = (plan.n_rows, plan.n_cols, plan.block)
         if pc.compact_enabled(self.config):
-            tables = pc.compact_tables(plan, dev)
-            ov = plan.overflow_on(dev)
             if X.shape[1] == 1:
-                return pc.compact_apply(static, tables, ov, X[:, 0])[:, None]
-            return pc.compact_matmat_apply(static, tables, ov, X)
+                return pc.compact_apply(static, pc.compact_tables(plan, dev),
+                                        plan.overflow_on(dev),
+                                        X[:, 0])[:, None]
+            return pc.compact_matmat_apply(plan, X)
         arrays = plan.arrays(dev)
         if X.shape[1] == 1:
             return spmv_lib.spmv_apply(static, arrays, X[:, 0])[:, None]

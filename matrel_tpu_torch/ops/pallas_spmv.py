@@ -4,21 +4,25 @@ and B3, ``_make_scatter_kernel_k``).
 
 An EdgeSpMVPlan's compact tables (``src8``/``lane``/``off``/``val``,
 13 bytes a slot) are copied to the device once and memoised on the plan
-(:func:`compact_tables`). One kernel per product reads them and does the
-whole slot pipeline: gather ``x[src8·8 + lane]`` (the sentinel column
-reads 0), multiply by ``val``, split the product into ``passes`` bf16
-parts as the TPU kernel does (``ops/spmv_routed.py``) and add the parts
-into the slot's output row. Row sums are f64, rounded once to f32, so
-the order of the additions (atomic on the card) does not show. The
-overflow COO is added outside the kernel with ``index_add_``.
+(:func:`compact_tables`). B2 reads them and does the whole slot
+pipeline: gather ``x[src8·8 + lane]`` (the sentinel column reads 0),
+multiply by ``val``, split the product into ``passes`` bf16 parts as the
+TPU kernel does (``ops/spmv_routed.py``) and add the parts into the
+slot's output row (shared-memory atomics, f64). B3 walks the plan's CSR
+view instead (:func:`csr_view_on`, ``ops/csr_view.py``: the real slots
+ordered by output row once per plan), one group of lanes a row and one
+lane a column, each row's sums in f64 registers. Both round each row to
+f32 once. The overflow COO is added outside the kernels with
+``index_add_``.
 
 On a CUDA tensor the wrappers :func:`spmv_scatter` (B2) and
 :func:`spmm_scatter` (B3) launch the hand-written Hopper kernels in
 ``csrc/spmv_compact.cu`` (built at first use, loaded with ctypes); on a
-CPU tensor they run the plain PyTorch versions beside them —
-:func:`spmv_scatter_plain` / :func:`spmm_scatter_plain`, the same
-function as gather, split and ``index_add_``. A CUDA tensor launches the
-kernel or raises; ``use_pallas=False`` asks for the plain version on any
+CPU tensor they run plain PyTorch versions — :func:`spmv_scatter_plain`
+on the tables, and the plain walk of the view for B3.
+:func:`spmm_scatter_plain` computes B3's function from the tables and is
+its kernel's yardstick. A CUDA tensor launches the kernel or raises;
+``use_pallas=False`` asks for the plain versions on the tables on any
 device.
 
 The sharded variants and ``compact_apply_chunked`` are not ported.
@@ -32,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from matrel_tpu_torch.config import MatrelConfig, pallas_enabled
+from matrel_tpu_torch.ops import csr_view as csr_lib
 from matrel_tpu_torch.ops import spmv as spmv_lib
 from matrel_tpu_torch.ops.spmv_routed import split_sum
 
@@ -46,12 +51,6 @@ LAUNCHES_SPMV = 0
 LAUNCHES_SPMM = 0
 
 SOURCE = "spmv_compact.cu"
-
-#: Widest column chunk one B3 CTA accumulates (each lane holds its
-#: slot's kc floats of X in registers), and the shared-memory budget of
-#: its accumulator (block × kc f64).
-_MAX_KC = 16
-_MAX_SMEM = 64 * 1024
 
 #: Slot × column elements per step of the plain versions: bounds their
 #: temporaries to a few hundred MB at BASELINE row-5 size.
@@ -72,8 +71,8 @@ def _library() -> ctypes.CDLL:
         lib.matrel_spmv_compact.argtypes = [p, p, p, p, p, p, i, i, i, ll,
                                             ll, i, i, p]
         lib.matrel_spmv_compact.restype = ctypes.c_int
-        lib.matrel_spmm_compact.argtypes = [p, p, p, p, p, p, i, i, i, ll,
-                                            ll, i, i, i, i, i, p]
+        lib.matrel_spmm_compact.argtypes = [p, p, p, p, ll, ll, i, i, i, i,
+                                            i, p]
         lib.matrel_spmm_compact.restype = ctypes.c_int
     return lib
 
@@ -138,7 +137,7 @@ def spmm_scatter_plain(src8: Tensor, lane: Tensor, off: Tensor, val: Tensor,
 # -- kernel wrappers -------------------------------------------------------------
 
 
-def _check(src8, lane, off, val, x, n_rows, block, passes, vector: bool):
+def _check(src8, lane, off, val, x, n_rows, block, passes):
     if src8.dim() != 2 or src8.shape[1] % 32:
         raise ValueError(f"tables must be (nb, cap) with cap a multiple of "
                          f"32, got {tuple(src8.shape)}")
@@ -150,10 +149,9 @@ def _check(src8, lane, off, val, x, n_rows, block, passes, vector: bool):
             raise ValueError(f"{name} shape {tuple(t.shape)} != src8 shape "
                              f"{tuple(src8.shape)}")
     if x.dtype != torch.float32:
-        raise TypeError(f"dense operand must be float32, got {x.dtype}")
-    if x.dim() != (1 if vector else 2):
-        raise ValueError(f"dense operand must be {'1' if vector else '2'}-D, "
-                         f"got {tuple(x.shape)}")
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    if x.dim() != 1:
+        raise ValueError(f"x must be 1-D, got {tuple(x.shape)}")
     devs = {t.device for t in (src8, lane, off, val, x)}
     if len(devs) != 1:
         raise ValueError(f"operands on different devices: "
@@ -182,7 +180,7 @@ def spmv_scatter(src8: Tensor, lane: Tensor, off: Tensor, val: Tensor,
     CUDA tensors launch the Hopper kernel on the current stream; CPU
     tensors run :func:`spmv_scatter_plain`."""
     global LAUNCHES_SPMV
-    _check(src8, lane, off, val, x, n_rows, block, passes, vector=True)
+    _check(src8, lane, off, val, x, n_rows, block, passes)
     dev = x.device
     if dev.type == "cpu":
         return spmv_scatter_plain(src8, lane, off, val, x, n_rows, block,
@@ -208,49 +206,44 @@ def spmv_scatter(src8: Tensor, lane: Tensor, off: Tensor, val: Tensor,
     return y
 
 
-def column_chunk(k: int, block: int) -> int:
-    """Columns one B3 CTA accumulates: the next power of two ≥ k, at
-    most 16 and at most what a (block × kc) f64 accumulator fits in
-    64 KB of shared memory."""
-    kc = 1
-    while kc < min(k, _MAX_KC):
-        kc *= 2
-    while kc > 1 and block * kc * 8 > _MAX_SMEM:
-        kc //= 2
-    return kc
+def column_chunk(k: int) -> int:
+    """Columns of X one group of lanes of the B3 kernel walks for a row:
+    the next power of two ≥ k, at most 32 (wider X is walked in further
+    chunks). A lane takes 4 of them with 16-byte loads where X allows,
+    else one."""
+    g = 1
+    while g < min(k, 32):
+        g *= 2
+    return g
 
 
-def spmm_scatter(src8: Tensor, lane: Tensor, off: Tensor, val: Tensor,
-                 X: Tensor, n_rows: int, block: int = spmv_lib.BLOCK,
+def spmm_scatter(view: csr_lib.CSRView, X: Tensor,
                  passes: int = 3) -> Tensor:
-    """B3: Y (n_rows, k) f32 = A·X from compact tables and a row-major
-    dense f32 X (n_cols, k). CUDA tensors launch the Hopper kernel on the
-    current stream; CPU tensors run :func:`spmm_scatter_plain`."""
+    """B3: Y (n_rows, k) f32 = A·X from a plan's CSR view
+    (:func:`csr_view_on`) and a row-major dense f32 X (view.n_cols, k).
+    CUDA tensors launch the Hopper kernel on the current
+    stream; CPU tensors run the plain walk of the view."""
     global LAUNCHES_SPMM
-    _check(src8, lane, off, val, X, n_rows, block, passes, vector=False)
+    csr_lib.check_operands(view, X, passes, dense_dim=2)
     dev = X.device
     if dev.type == "cpu":
-        return spmm_scatter_plain(src8, lane, off, val, X, n_rows, block,
-                                  passes)
+        return csr_lib.csr_walk_plain(view, X, passes, split_x=False)
     _launch_device(dev, "spmm_scatter")
-    nb, cap = src8.shape
+    n_rows = view.n_rows
     k = X.shape[1]
-    kc = column_chunk(k, block)
-    if block * kc * 8 > _MAX_SMEM:
-        raise ValueError(f"block {block} too large for the B3 kernel")
     Y = torch.empty((n_rows, k), dtype=torch.float32, device=dev)
-    if n_rows == 0 or k == 0 or nb == 0 or cap == 0:
+    if n_rows == 0 or k == 0:
         return Y.zero_()
-    # 16-byte loads of X rows: every row (and every 4-column chunk) starts
-    # on a 16-byte boundary
-    x_vec = int(k % 4 == 0 and X.data_ptr() % 16 == 0)
+    # 4 columns a lane: every X and Y row starts on a 16-byte boundary
+    vec = int(k % 4 == 0 and X.data_ptr() % 16 == 0
+              and Y.data_ptr() % 16 == 0)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.matrel_spmm_compact(
-            src8.data_ptr(), lane.data_ptr(), off.data_ptr(), val.data_ptr(),
-            X.data_ptr(), Y.data_ptr(), nb, cap, block, X.shape[0], n_rows,
-            k, kc, x_vec, passes, dev.index, stream)
+            view.row_ptr.data_ptr(), view.cv.data_ptr(), X.data_ptr(),
+            Y.data_ptr(), n_rows, view.n_cols, k, column_chunk(k), vec,
+            passes, dev.index, stream)
     if rc != 0:
         raise RuntimeError(f"spmm_scatter kernel launch failed: CUDA error "
                            f"{rc}")
@@ -278,6 +271,28 @@ def compact_tables(plan: spmv_lib.EdgeSpMVPlan, device
     return dev
 
 
+def csr_view_on(plan: spmv_lib.EdgeSpMVPlan, device) -> csr_lib.CSRView:
+    """The CSR view of the slots B3 adds, on ``device``:
+    every slot but the sentinels (column ≥ n_cols, or off ≥ block), in
+    row order, within a row in the plan's slot order (whatever the fill
+    that laid it out). Built there from :func:`compact_tables` once (a
+    stable ``torch.sort``) and memoised on the plan."""
+    key = spmv_lib._key(device)
+    view = plan._csr_dev.get(key)
+    if view is None:
+        src8, lane, off, val = compact_tables(plan, device)
+        nb = src8.shape[0]
+        cols = src8.long() * spmv_lib.WIDTH + lane.long()
+        rows = (torch.arange(nb, device=src8.device)[:, None] * plan.block
+                + off.long())
+        keep = ((cols >= 0) & (cols < plan.n_cols) & (off >= 0)
+                & (off < plan.block) & (rows < plan.n_rows))
+        view = csr_lib.csr_view(rows[keep], cols[keep], val[keep],
+                                plan.n_rows, plan.n_cols)
+        plan._csr_dev[key] = view
+    return view
+
+
 def compact_apply(plan_static, tables, ov, x: Tensor, passes: int = 3,
                   use_pallas: bool = True) -> Tensor:
     """y = A·x from compact tables. ``plan_static`` is (n_rows, n_cols,
@@ -292,15 +307,21 @@ def compact_apply(plan_static, tables, ov, x: Tensor, passes: int = 3,
     return y
 
 
-def compact_matmat_apply(plan_static, tables, ov, X: Tensor,
+def compact_matmat_apply(plan: spmv_lib.EdgeSpMVPlan, X: Tensor,
                          passes: int = 3, use_pallas: bool = True) -> Tensor:
-    """Y = A·X for dense X (n_cols, k) from compact tables: one kernel
-    launch for all k columns (the kernel walks them in chunks)."""
-    n_rows, n_cols, block = plan_static
-    fn = spmm_scatter if use_pallas else spmm_scatter_plain
-    Y = fn(*tables, X.float().contiguous(), n_rows, block, passes)
+    """Y = A·X for dense X (n_cols, k) on X's device: one B3 launch over
+    the plan's CSR view for all k columns, or with ``use_pallas=False``
+    the plain version on the compact tables; then the overflow COO."""
+    dev = X.device
+    X = X.float().contiguous()
+    if use_pallas:
+        Y = spmm_scatter(csr_view_on(plan, dev), X, passes)
+    else:
+        Y = spmm_scatter_plain(*compact_tables(plan, dev), X, plan.n_rows,
+                               plan.block, passes)
+    ov = plan.overflow_on(dev)
     if ov:
-        Y = spmv_lib._overflow_add_wide(Y, ov, X, n_rows)
+        Y = spmv_lib._overflow_add_wide(Y, ov, X, plan.n_rows)
     return Y
 
 
@@ -321,8 +342,7 @@ def spmm_compact(plan: spmv_lib.EdgeSpMVPlan, X, passes: int = 3,
     if X.shape[1] == 1:
         return spmv_compact(plan, X[:, 0], passes=passes, device=dev,
                             use_pallas=use_pallas)[:, None]
-    return compact_matmat_apply(_static(plan), compact_tables(plan, dev),
-                                plan.overflow_on(dev), X, passes, use_pallas)
+    return compact_matmat_apply(plan, X, passes, use_pallas)
 
 
 def spmv_compact(plan: spmv_lib.EdgeSpMVPlan, x, passes: int = 3,

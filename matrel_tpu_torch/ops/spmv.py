@@ -74,8 +74,8 @@ class EdgeSpMVPlan:
       val  (B, C) f32   — vals[e] (0 in padded slots)
     Overflow: optional (cols, rows, vals) int32/int32/f32 COO for edges
     beyond capacity, rows sorted ascending. Device copies (the expanded
-    one-hot tables, the compact tables, the overflow) are built lazily,
-    once per device, and memoised on the plan.
+    one-hot tables, the compact tables, the CSR view, the overflow) are
+    built lazily, once per device, and memoised on the plan.
     """
     n_rows: int
     n_cols: int
@@ -96,6 +96,8 @@ class EdgeSpMVPlan:
     _overflow_dev: Dict[str, tuple] = dataclasses.field(
         default_factory=dict, repr=False)
     _compact_dev: Dict[str, tuple] = dataclasses.field(
+        default_factory=dict, repr=False)
+    _csr_dev: Dict[str, object] = dataclasses.field(
         default_factory=dict, repr=False)
 
     @property

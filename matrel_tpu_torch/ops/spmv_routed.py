@@ -13,25 +13,24 @@ the TPU's (…, cap/128, 128) tile layout.
 
 The TPU kernels turn the gather and the scatter into one-hot matmuls,
 because the TPU's gather engine is rate-limited per index and its matrix
-unit is not; they generate the one-hot factors in VMEM for every cell.
-On Hopper a gather from x is an ordinary load (x, 4 MB at BASELINE row
-5, stays in the 50 MB L2) and a scatter by destination is a reduction in
-shared memory, so the port computes the FUNCTION and not that schedule:
-one kernel (``csrc/spmv_routed.cu``) takes a destination group per CTA
-(its source cells split across a few CTAs when there are fewer groups
-than SMs), gathers ``x[gs·SPAN + loc_src]``, splits it into ``passes``
-bf16-grid parts as the TPU kernel does (:func:`_bf16_split`), multiplies
-by ``val``, splits the product the same way and adds the parts into a
-16,384-row f64 accumulator in shared memory; partial tiles are combined
-in a fixed order and each output row is rounded to f32 once. No one-hot
-tensor is built. The overflow COO is added outside the kernel with an
-f64 ``index_add_``.
+unit is not. On Hopper a gather from x is an ordinary load (x, 4 MB at
+BASELINE row 5, stays in the 50 MB L2), so the port computes the
+FUNCTION and not that schedule. Once per plan and device the real slots
+are ordered by output row into a CSR view (:meth:`RoutedSpMVPlan.csr_on`,
+``ops/csr_view.py``); the kernel (``csrc/spmv_routed.cu``) walks each
+row's slots with a sub-warp of :func:`lanes_per_row` lanes, gathers
+``x[col]``, splits it into ``passes`` bf16-grid parts as the TPU kernel
+does (:func:`_bf16_split`), multiplies by ``val``, splits the product the
+same way and sums the parts in an f64 register; each output row is
+rounded to f32 once and written once. No one-hot tensor, no atomics. The
+overflow COO is added outside the kernel with an f64 ``index_add_``.
 
 On a CUDA tensor :func:`routed_scatter` launches that kernel or raises;
-on a CPU tensor it runs :func:`routed_scatter_plain`, the same gather,
-split, product and f64 ``index_add_``. ``use_pallas=False`` asks for the
-plain version on any device. The compact SpMV kernels share
-:func:`split_sum`.
+on a CPU tensor it runs :func:`csr_scatter_plain`, the plain walk of the
+same view. :func:`routed_scatter_plain` computes the function from the
+plan's own tables (gather, split, product and f64 ``index_add_``) and is
+the kernel's yardstick; ``use_pallas=False`` asks for it on any device.
+The compact SpMV kernels share :func:`split_sum`.
 """
 
 from __future__ import annotations
@@ -42,6 +41,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from matrel_tpu_torch.ops import csr_view as csr_lib
 
 Tensor = torch.Tensor
 
@@ -107,8 +108,8 @@ class RoutedSpMVPlan:
     destination group (< SPAN), ``val`` f32 (0 in padded slots, which
     then add nothing). Overflow: optional (rows, cols, vals) int32/int32/
     f32 COO for edges past a cell's capacity, rows sorted ascending.
-    Device copies are made once per device and memoised on the plan
-    (:meth:`tables_on`, :meth:`overflow_on`).
+    Device copies and the CSR view are made once per device and memoised
+    on the plan (:meth:`tables_on`, :meth:`csr_on`, :meth:`overflow_on`).
     """
     n_rows: int
     n_cols: int
@@ -126,6 +127,8 @@ class RoutedSpMVPlan:
                                                repr=False)
     _ov_dev: Dict[str, tuple] = dataclasses.field(default_factory=dict,
                                                   repr=False)
+    _csr_dev: Dict[str, "csr_lib.CSRView"] = dataclasses.field(
+        default_factory=dict, repr=False)
 
     @property
     def slots(self) -> int:
@@ -156,10 +159,29 @@ class RoutedSpMVPlan:
             self._ov_dev[key] = ov
         return ov
 
-    def arrays(self, device) -> tuple:
-        """Tables plus overflow on ``device``, the ``arrays`` argument of
-        :func:`routed_apply`."""
-        return self.tables_on(device) + self.overflow_on(device)
+    def csr_on(self, device) -> "csr_lib.CSRView":
+        """The CSR view of the slots the kernel adds, on
+        ``device``: real slots (val != 0, offsets inside their groups,
+        row < n_rows, column < n_cols) ordered by output row, within a
+        row by source group, then slot. Built there once (a stable
+        ``torch.sort``) and memoised."""
+        key = _key(device)
+        view = self._csr_dev.get(key)
+        if view is None:
+            ls, ld, val = (torch.as_tensor(a, device=device)
+                           for a in (self.loc_src, self.loc_dst, self.val))
+            g_s, g_d, _ = ls.shape
+            gs = torch.arange(g_s, device=ls.device).view(-1, 1, 1)
+            gd = torch.arange(g_d, device=ls.device).view(1, -1, 1)
+            rows = gd * SPAN + ld.long()
+            cols = gs * SPAN + ls.long()
+            keep = ((val != 0) & (ls >= 0) & (ls < SPAN) & (ld >= 0)
+                    & (ld < SPAN) & (rows < self.n_rows)
+                    & (cols < self.n_cols))
+            view = csr_lib.csr_view(rows[keep], cols[keep], val[keep],
+                                    self.n_rows, self.n_cols)
+            self._csr_dev[key] = view
+        return view
 
 
 def build_routed_plan(rows, cols, vals=None, n_rows: int = None,
@@ -247,7 +269,7 @@ def build_routed_plan(rows, cols, vals=None, n_rows: int = None,
         padding_ratio=(n_cells * cap + n_ov) / max(m, 1))
 
 
-# -- kernel and plain version ------------------------------------------------------
+# -- kernel and plain versions ------------------------------------------------------
 
 
 def _library() -> ctypes.CDLL:
@@ -255,8 +277,7 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE)
     if lib.matrel_spmv_routed.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.matrel_spmv_routed.argtypes = [p, p, p, p, p, p, i, i, i, ll, ll,
-                                           i, i, i, p]
+        lib.matrel_spmv_routed.argtypes = [p, p, p, p, ll, ll, i, i, i, p]
         lib.matrel_spmv_routed.restype = ctypes.c_int
     return lib
 
@@ -268,11 +289,11 @@ def build() -> None:
 
 def routed_scatter_plain(loc_src: Tensor, loc_dst: Tensor, val: Tensor,
                          x: Tensor, n_rows: int, passes: int = 2) -> Tensor:
-    """Plain PyTorch B8: y[gd·SPAN + loc_dst] += split(split(x[gs·SPAN +
-    loc_src]) · val) over every slot of cell (gs, gd), where split(v) is
-    the sum of the first ``passes`` bf16-grid parts of v. Products and
-    parts are f32, the sums f64 (as the kernel's), rounded once. Returns
-    y (n_rows,) f32."""
+    """Plain PyTorch B8 on the plan's own tables: y[gd·SPAN + loc_dst] +=
+    split(split(x[gs·SPAN + loc_src]) · val) over every slot of cell
+    (gs, gd), where split(v) is the sum of the first ``passes`` bf16-grid
+    parts of v. Products and parts are f32, the sums f64 (as the
+    kernel's), rounded once. Returns y (n_rows,) f32."""
     g_s, g_d, cap = loc_src.shape
     dev = x.device
     xs = torch.zeros(g_s * SPAN, dtype=torch.float32, device=dev)
@@ -291,82 +312,56 @@ def routed_scatter_plain(loc_src: Tensor, loc_dst: Tensor, val: Tensor,
     return y[:n_rows].float()
 
 
-def _check(loc_src, loc_dst, val, x, n_rows, passes) -> None:
-    if loc_src.dim() != 3 or loc_src.shape[2] < 1:
-        raise ValueError(f"tables must be (g_s, g_d, cap), got "
-                         f"{tuple(loc_src.shape)}")
-    for name, t, dt in (("loc_src", loc_src, torch.int32),
-                        ("loc_dst", loc_dst, torch.int32),
-                        ("val", val, torch.float32)):
-        if t.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if t.shape != loc_src.shape:
-            raise ValueError(f"{name} shape {tuple(t.shape)} != loc_src "
-                             f"shape {tuple(loc_src.shape)}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"x must be float32, got {x.dtype}")
-    if x.dim() != 1:
-        raise ValueError(f"x must be 1-D, got {tuple(x.shape)}")
-    devs = {t.device for t in (loc_src, loc_dst, val, x)}
-    if len(devs) != 1:
-        raise ValueError(f"operands on different devices: "
-                         f"{sorted(map(str, devs))}")
-    if not all(t.is_contiguous() for t in (loc_src, loc_dst, val, x)):
-        raise ValueError("routed SpMV needs contiguous tensors")
-    if passes not in (1, 2, 3):
-        raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
-    g_s, g_d, _ = loc_src.shape
-    if x.shape[0] > g_s * SPAN:
-        raise ValueError(f"x has {x.shape[0]} entries, more than the "
-                         f"tables' {g_s} source groups of {SPAN}")
-    if not 0 <= n_rows <= g_d * SPAN:
-        raise ValueError(f"n_rows {n_rows} outside the tables' {g_d} "
-                         f"destination groups of {SPAN}")
+def csr_scatter_plain(view: csr_lib.CSRView, x: Tensor,
+                      passes: int = 2) -> Tensor:
+    """Plain PyTorch walk of the plan's CSR view (:meth:`RoutedSpMVPlan.
+    csr_on`) — the kernel's schedule on the CPU: y[r] = Σ over row r's
+    slots of split(split(x[col]) · val), f64 sums rounded once. Returns
+    y (n_rows,) f32."""
+    return csr_lib.csr_walk_plain(view, x, passes, split_x=True)
 
 
-def source_splits(g_src: int, g_dst: int, sms: int) -> int:
-    """CTAs that share one destination group's source cells: enough for
-    the grid to cover the SMs in one wave (g_dst·splits ≤ sms where
-    possible), at most one per source group."""
-    return max(1, min(g_src, sms // max(g_dst, 1)))
+def lanes_per_row(nnz: int, n_rows: int) -> int:
+    """Lanes of the sub-warp that walks one output row: the largest
+    power of two at most the mean row length, within [1, 32] (8 at
+    BASELINE row 5's ~10 slots a row)."""
+    mean = nnz / max(n_rows, 1)
+    lanes = 1
+    while lanes < 32 and 2 * lanes <= mean:
+        lanes *= 2
+    return lanes
 
 
-def routed_scatter(loc_src: Tensor, loc_dst: Tensor, val: Tensor, x: Tensor,
-                   n_rows: int, passes: int = 2,
-                   splits: Optional[int] = None) -> Tensor:
-    """B8: y (n_rows,) f32 from (g_s, g_d, cap) routed tables and a dense
-    f32 x. CUDA tensors launch the Hopper kernel on the current stream
-    (``splits`` CTAs a destination group, default
-    :func:`source_splits`); CPU tensors run :func:`routed_scatter_plain`."""
+def routed_scatter(view: csr_lib.CSRView, x: Tensor, passes: int = 2,
+                   lanes: Optional[int] = None) -> Tensor:
+    """B8: y (n_rows,) f32 from a plan's CSR view and a dense f32 x
+    (view.n_cols,). CUDA tensors launch the Hopper
+    kernel on the current stream, ``lanes`` lanes a row (default
+    :func:`lanes_per_row`); CPU tensors run :func:`csr_scatter_plain`."""
     global LAUNCHES_ROUTED
-    _check(loc_src, loc_dst, val, x, n_rows, passes)
+    csr_lib.check_operands(view, x, passes, dense_dim=1)
     dev = x.device
     if dev.type == "cpu":
-        return routed_scatter_plain(loc_src, loc_dst, val, x, n_rows, passes)
+        return csr_scatter_plain(view, x, passes)
     if dev.type != "cuda":
         raise ValueError(f"routed_scatter runs on CUDA or CPU tensors, got "
                          f"{dev}")
-    g_s, g_d, cap = loc_src.shape
+    n_rows = view.n_rows
+    if lanes is None:
+        lanes = lanes_per_row(view.nnz, n_rows)
+    if lanes not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"lanes must be a power of two in [1, 32], got "
+                         f"{lanes}")
     y = torch.empty(n_rows, dtype=torch.float32, device=dev)
     if n_rows == 0:
         return y
-    if splits is None:
-        splits = source_splits(
-            g_s, g_d,
-            torch.cuda.get_device_properties(dev).multi_processor_count)
-    if not 1 <= splits <= g_s:
-        raise ValueError(f"splits must be in [1, {g_s}], got {splits}")
-    # per-split partial tiles, combined in a fixed order by the kernel's
-    # second pass; none when one CTA owns a whole destination group
-    partial = torch.empty(splits * g_d * SPAN if splits > 1 else 0,
-                          dtype=torch.float64, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.matrel_spmv_routed(
-            loc_src.data_ptr(), loc_dst.data_ptr(), val.data_ptr(),
-            x.data_ptr(), y.data_ptr(), partial.data_ptr(), g_s, g_d, cap,
-            x.shape[0], n_rows, passes, splits, dev.index, stream)
+            view.row_ptr.data_ptr(), view.cv.data_ptr(), x.data_ptr(),
+            y.data_ptr(), n_rows, view.n_cols, passes, lanes, dev.index,
+            stream)
     if rc != 0:
         raise RuntimeError(f"spmv_routed kernel launch failed: CUDA error "
                            f"{rc}")
@@ -377,39 +372,30 @@ def routed_scatter(loc_src: Tensor, loc_dst: Tensor, val: Tensor, x: Tensor,
 # -- plan-level API --------------------------------------------------------------
 
 
-def routed_apply(plan_static, arrays, x: Tensor, passes: int = 2,
-                 use_pallas: bool = True) -> Tensor:
-    """y = A·x. ``plan_static`` is (n_rows, n_cols, g_s, g_d, cap);
-    ``arrays`` is ``plan.arrays(device)``. ``passes`` sets the bf16
-    residual-split depth on both value sides: 2 → ~2^-16 relative error
-    (default), 3 → f32-faithful. ``use_pallas=False`` runs the plain
-    version."""
-    n_rows, n_cols = plan_static[:2]
-    fn = routed_scatter if use_pallas else routed_scatter_plain
-    xf = x.float().contiguous()
-    if xf.shape != (n_cols,):
-        raise ValueError(f"x shape {tuple(xf.shape)} != ({n_cols},)")
-    y = fn(*arrays[:3], xf, n_rows, passes)
-    if len(arrays) > 3:
+def routed_spmv(plan: RoutedSpMVPlan, x, passes: int = 2, device=None,
+                use_pallas: bool = True) -> Tensor:
+    """y = A·x on ``device`` (default: the card). ``passes`` sets the
+    bf16 residual-split depth on both value sides: 2 → ~2^-16 relative
+    error (default), 3 → f32-faithful. The kernel walks the plan's CSR
+    view; ``use_pallas=False`` runs :func:`routed_scatter_plain` on the
+    plan's tables."""
+    from matrel_tpu_torch.core.mesh import resolve_device
+    dev = resolve_device(device)
+    xf = torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(-1)
+    xf = xf.contiguous()
+    if xf.shape != (plan.n_cols,):
+        raise ValueError(f"x shape {tuple(xf.shape)} != ({plan.n_cols},)")
+    if use_pallas:
+        y = routed_scatter(plan.csr_on(dev), xf, passes)
+    else:
+        y = routed_scatter_plain(*plan.tables_on(dev), xf, plan.n_rows,
+                                 passes)
+    ov = plan.overflow_on(dev)
+    if ov:
         # f32 products as the JAX package's, summed in f64 like the
         # kernel's: a hot row's overflow holds thousands of terms, whose
         # f32 sum alone would miss the f32-faithful bound of passes 3
-        ov_c, ov_r, ov_v = arrays[3:]
+        ov_c, ov_r, ov_v = ov
         w_ov = (xf[ov_c] * ov_v).double()
         y = y.double().index_add_(0, ov_r, w_ov).float()
     return y
-
-
-def _static(plan: RoutedSpMVPlan):
-    return (plan.n_rows, plan.n_cols, plan.g_src, plan.g_dst, plan.cap)
-
-
-def routed_spmv(plan: RoutedSpMVPlan, x, passes: int = 2, device=None,
-                use_pallas: bool = True) -> Tensor:
-    """y = A·x through the routed tables on ``device`` (default: the
-    card)."""
-    from matrel_tpu_torch.core.mesh import resolve_device
-    dev = resolve_device(device)
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(-1)
-    return routed_apply(_static(plan), plan.arrays(dev), x, passes,
-                        use_pallas)

@@ -290,20 +290,25 @@ def test_kernel_wrappers_refuse_bad_operands():
         tpc.spmv_scatter(*tables, x, 600, passes=4)
     with pytest.raises(ValueError):
         tpc.spmv_scatter(*tables, x, 5000)                   # > nb·block
+    view = tpc.csr_view_on(tp, "cpu")
+    assert tpc.csr_view_on(tp, "cpu") is view                # memoised
     with pytest.raises(ValueError):
-        tpc.spmm_scatter(*tables, x, 600)                    # 1-D operand
+        tpc.spmm_scatter(view, x)                            # 1-D operand
     X = torch.as_tensor(rng.standard_normal((400, 6)).astype(np.float32))
     with pytest.raises(ValueError):
-        tpc.spmm_scatter(*tables, X.T, 600)                  # not contiguous
+        tpc.spmm_scatter(view, X.T)                          # not contiguous
+    with pytest.raises(ValueError):
+        tpc.spmm_scatter(view, X[:-1])                       # X too short
 
 
 @pytest.mark.parametrize("k,kc", [(1, 1), (2, 2), (5, 8), (16, 16),
-                                  (33, 16), (128, 16), (200, 16)])
+                                  (33, 32), (128, 32), (200, 32)])
 def test_b3_column_chunk(k, kc):
-    assert tpc.column_chunk(k, 512) == kc
-    assert 512 * tpc.column_chunk(k, 512) * 8 <= 64 * 1024   # f64 sums
-    assert tpc.column_chunk(64, 4096) == 2
-    assert tpc.column_chunk(64, 128) == 16
+    # the columns a group of lanes walks: the next power of two >= k, at
+    # most 32; wider X is walked in ceil(k / 32) column chunks
+    assert tpc.column_chunk(k) == kc
+    assert kc & (kc - 1) == 0 and kc <= 32
+    assert -(-k // kc) == (1 if k <= 32 else -(-k // 32))
 
 
 def test_use_pallas_false_runs_plain_version():

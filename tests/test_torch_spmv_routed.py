@@ -213,47 +213,52 @@ def test_plain_route_and_launch_count(monkeypatch):
 
 def _operands():
     _, _, tp = _plans("two_groups")
-    ls, ld, v = tp.tables_on("cpu")
-    x = torch.zeros(tp.n_cols)
-    return ls, ld, v, x, tp.n_rows
+    view = tp.csr_on("cpu")
+    return view.row_ptr, view.cv, view.n_cols, torch.zeros(tp.n_cols)
 
 
 @pytest.mark.parametrize("bad", (
-    "loc_dtype", "val_dtype", "x_dtype", "shape", "rank", "x_rank",
-    "noncontiguous", "passes", "x_too_long", "n_rows_too_big", "device"))
+    "row_ptr_dtype", "cv_dtype", "x_dtype", "cv_width", "cv_rank",
+    "x_rank", "noncontiguous", "passes", "misaligned", "row_ptr_empty",
+    "device", "x_too_long", "x_too_short", "not_a_view"))
 def test_wrapper_refuses_bad_operands(bad):
-    ls, ld, v, x, n_rows = _operands()
+    row_ptr, cv, n_cols, x = _operands()
     passes = 2
-    if bad == "loc_dtype":
-        ls = ls.long()
-    elif bad == "val_dtype":
-        v = v.double()
+    if bad == "row_ptr_dtype":
+        row_ptr = row_ptr.long()
+    elif bad == "cv_dtype":
+        cv = cv.long()
     elif bad == "x_dtype":
         x = x.double()
-    elif bad == "shape":
-        ld = ld[:, :, :-1].contiguous()
-    elif bad == "rank":
-        ls, ld, v = (t.reshape(t.shape[0], -1) for t in (ls, ld, v))
+    elif bad == "cv_width":
+        cv = cv[:, :1].contiguous()
+    elif bad == "cv_rank":
+        cv = cv.reshape(-1)
     elif bad == "x_rank":
         x = x[:, None]
     elif bad == "noncontiguous":
-        ls = ls.transpose(0, 1)
-        ld = ld.transpose(0, 1)
-        v = v.transpose(0, 1)
+        cv = cv.T.contiguous().T
     elif bad == "passes":
         passes = 4
-    elif bad == "x_too_long":
-        x = torch.zeros(ls.shape[0] * SPAN + 1)
-    elif bad == "n_rows_too_big":
-        n_rows = ls.shape[1] * SPAN + 1
+    elif bad == "misaligned":           # records not on 8-byte boundaries
+        cv = cv.reshape(-1)[1:-1].reshape(-1, 2)
+    elif bad == "row_ptr_empty":
+        row_ptr = row_ptr[:0]
     elif bad == "device":
-        ls, ld, v, x = (t.to("meta") for t in (ls, ld, v, x))
+        x = x.to("meta")
+    elif bad == "x_too_long":
+        x = torch.zeros(n_cols + 1)
+    elif bad == "x_too_short":
+        x = x[:-1]
     with pytest.raises((TypeError, ValueError)):
-        trouted.routed_scatter(ls, ld, v, x, n_rows, passes)
+        view = ((row_ptr, cv) if bad == "not_a_view"
+                else trouted.csr_lib.CSRView(row_ptr, cv, n_cols))
+        trouted.routed_scatter(view, x, passes)
 
 
-def test_source_splits():
-    # row 5: 62 destination groups on 132 SMs -> 2 CTAs a group
-    assert trouted.source_splits(62, 62, 132) == 2
-    assert trouted.source_splits(3, 1, 132) == 3      # at most g_src
-    assert trouted.source_splits(200, 200, 132) == 1
+@pytest.mark.parametrize("nnz,n_rows,lanes", [
+    (10_000_000, 1_000_000, 8),     # BASELINE row 5: ~10 slots a row
+    (0, 100, 1), (150, 100, 1), (400, 100, 4), (10**6, 100, 32),
+    (5, 1, 4)])
+def test_lanes_per_row(nnz, n_rows, lanes):
+    assert trouted.lanes_per_row(nnz, n_rows) == lanes
