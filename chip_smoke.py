@@ -4,22 +4,27 @@
     python3 chip_smoke.py
 
 1. Builds every CUDA kernel of the port's main paths from the sources in
-   this checkout (one nvcc per source, all started together; sm_90a) and
-   prints nvcc's register report.
+   this checkout (one nvcc per source, all started together; sm_90a),
+   prints nvcc's register report, and checks the build: no f32 SpGEMM
+   instance spills (ptxas) and B2/B3's library holds no shared-memory
+   atomic (cuobjdump -sass).
 2. Kernel phases: holds each kernel against its plain PyTorch version on
    the card — block-sparse SpMM B1 (ops/pallas_spmm.py) in f32 and bf16
    at bs 4, 8, 16, 24, 64 and 512, with empty block rows, a single block
    row and a column count that is not a multiple of the column tile; the
-   compact SpMV B2 and SpMM B3 (ops/pallas_spmv.py) at passes 2 and 3
-   with a block of zero slots, n_rows not a multiple of 512, an overflow
-   hub row, sentinel slots, and B3 at k = 2, 5, 12, 16, 33 and 128 and
-   at k = 16 with X off a 16-byte boundary — and times
+   compact SpMV B2 and SpMM B3 (ops/pallas_spmv.py), both over the plan's
+   CSR view, at passes 2 and 3 with a block of zero slots, n_rows not a
+   multiple of 512, an overflow hub row, sentinel slots, a hub row of
+   some 2,000 slots in the tables, B2 at every sub-warp width (1 to 32
+   lanes a row), and B3 at k = 2, 5, 12, 16, 33 and 128 and at k = 16
+   with X off a 16-byte boundary — and times
    each at its BASELINE shape with CUDA events beside the plain version,
    its bound and one PyTorch library call.
    The S×S tile kernels B4–B7 (ops/pallas_spgemm.py) are held against
    their plain versions every kernel id on every case, in f32 and bf16
-   at bs 8, 16, 24, 64, 128 and 512 (an empty intersection, single-pair
-   and >= 64-pair hub slots, ragged edges, unsorted B tiles, runs that
+   at bs 8, 10, 16, 24, 64, 128, 130, 192 and 512 (an empty
+   intersection, single-pair and >= 64-pair hub slots, ragged edges,
+   both f32 sub-tiles and both load paths, unsorted B tiles, runs that
    are not a multiple of G, both powerlaw buckets, a chunked band, a
    band with an empty block row, the bs-512 band's grouped fallback),
    and timed at n = 100,352 on the repo's own S×S deployments (bench.py
@@ -30,7 +35,7 @@
    width (1 to 32 lanes a row), on the JAX tests' shapes (3 x 3 groups,
    5,000 x 33,000, an empty destination and source group, a hot cell in
    the overflow COO) and a hub row of some 2,000 slots over every source
-   group, and each whole product against float64. B3 and B8 walk
+   group, and each whole product against float64. B2, B3 and B8 walk
    each plan's CSR view (ops/csr_view.py, built on the card once per
    plan); the bounds of B2, B3 and B8 are the CSR minimum.
 3. Path phases, through the entry points a user calls on the default
@@ -83,8 +88,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # (2^-7 relative) more.
 TOL = {"float32": (1e-4, 1e-3), "bfloat16": (1e-2, 1e-2)}   # (rtol, atol)
 
-# Peak device memory of the whole run: the S×S phases set it (PERF.md
-# section 5 gives the reckoning, ~12 GiB), plus 25%.
+# Peak device memory of the whole run: the S×S phases set it, with the
+# row-5 plans' CSR views still held (PERF.md section 5 gives the
+# reckoning, ~12.0 GiB), plus about 25%.
 PEAK_LIMIT_BYTES = 15 * 2**30
 
 
@@ -414,6 +420,9 @@ SPMV_REL_TOL = {3: 1e-6, 2: 1e-4}
 #: compact SpMV with its overflow COO vs a float64 oracle at passes=3
 #: (the JAX package's overflow bound) and at passes=2 (truncated parts).
 SPMV_ORACLE_TOL = {3: 1e-5, 2: 1e-4}
+#: every sub-warp width the row walk of B2 and B8 (csrc/csr_walk.cuh) is
+#: built for (lanes_per_row's range)
+WALK_LANES = (1, 2, 4, 8, 16, 32)
 ROW5_N, ROW5_EDGES, ROW5_ROUNDS, ROW5_K = 1_000_000, 10_000_000, 30, 16
 
 
@@ -434,29 +443,35 @@ def rel_err(name: str, got, want, tol: float) -> float:
     return err
 
 
-def spmv_case(n_rows, n_cols, m, seed, hub=None, empty_blocks=()):
-    """A random edge list and its plan; ``hub`` sends 30% of the edges
-    to one row (overflow), ``empty_blocks`` get no edges at all."""
+def spmv_case(n_rows, n_cols, m, seed, hub=None, empty_blocks=(),
+              hub_share=0.3, capacity_quantile=None):
+    """A random edge list and its plan; ``hub`` sends ``hub_share`` of the
+    edges to one row (into the overflow, unless ``capacity_quantile`` =
+    1.0 sizes the tables for it), ``empty_blocks`` get no edges at all."""
     import numpy as np
     from matrel_tpu_torch.ops import spmv as spmv_lib
     rng = np.random.default_rng(seed)
     rows = rng.integers(0, n_rows, m)
     if hub is not None:
-        rows = np.where(rng.random(m) < 0.3, hub, rows)
+        rows = np.where(rng.random(m) < hub_share, hub, rows)
     if empty_blocks:
         moved = np.isin(rows // spmv_lib.BLOCK, empty_blocks)
         rows = np.where(moved, (rows + spmv_lib.BLOCK) % n_rows, rows)
     cols = rng.integers(0, n_cols, m)
     vals = rng.standard_normal(m).astype(np.float32)
+    kw = {} if capacity_quantile is None else dict(
+        capacity_quantile=capacity_quantile, max_padding=1000.0)
     plan = spmv_lib.build_spmv_plan(rows, cols, vals, n_rows=n_rows,
-                                    n_cols=n_cols)
+                                    n_cols=n_cols, **kw)
     return rows, cols, vals, plan
 
 
 def spmv_kernel_phase(dev) -> None:
-    """B2 and B3 against their plain versions on the card (B3 over the
-    plan's CSR view, also against the view's plain walk), and the whole
-    compact product (overflow included) against a float64 oracle."""
+    """B2 and B3 over the plan's CSR view against their plain versions on
+    the card: the compact tables' (spmv_scatter_plain,
+    spmm_scatter_plain) and the view's plain walk; B2 at every sub-warp
+    width in WALK_LANES. Then the whole compact product (overflow
+    included) against a float64 oracle."""
     import numpy as np
     import torch
     from matrel_tpu_torch.ops import csr_view as csr_lib
@@ -468,16 +483,24 @@ def spmv_kernel_phase(dev) -> None:
         ("mostly sentinel slots, n_cols % 8 = 0", 1000, 4096, 3_000,
          None, ()),
         ("one block", 300, 77, 500, None, ()),
+        ("hub row 1,234 of some 2,000 slots in the tables", 40_000, 40_000,
+         20_000, 1234, ()),
     ]
     for i, (name, n_rows, n_cols, m, hub, empty) in enumerate(cases):
-        rows, cols, vals, plan = spmv_case(n_rows, n_cols, m, 300 + i, hub,
-                                           empty)
-        if (hub is not None) != (plan.ov_rows is not None):
+        in_tables = name.startswith("hub row")
+        rows, cols, vals, plan = spmv_case(
+            n_rows, n_cols, m, 300 + i, hub, empty,
+            hub_share=0.1 if in_tables else 0.3,
+            capacity_quantile=1.0 if in_tables else None)
+        if (hub is not None and not in_tables) != (plan.ov_rows is not None):
             raise AssertionError(f"{name}: overflow {plan.ov_rows is not None}")
         tables = pc.compact_tables(plan, dev)
         view = pc.csr_view_on(plan, dev)
-        ov = plan.overflow_on(dev)
-        static = (plan.n_rows, plan.n_cols, plan.block)
+        if in_tables:
+            slots = view.row_ptr[hub:hub + 2].tolist()
+            if slots[1] - slots[0] <= 1000:
+                raise AssertionError(f"B2 {name}: {slots[1] - slots[0]} "
+                                     f"slots")
         rng = np.random.default_rng(400 + i)
         x_np = rng.standard_normal(n_cols).astype(np.float32)
         X_np = rng.standard_normal((n_cols, 128)).astype(np.float32)
@@ -490,20 +513,34 @@ def spmv_kernel_phase(dev) -> None:
         np.add.at(want_x, rows, vals.astype(np.float64) * x_np[cols])
         for passes in (3, 2):
             tol = SPMV_REL_TOL[passes]
-            y = pc.spmv_scatter(*tables, x, n_rows, plan.block, passes)
             yp = pc.spmv_scatter_plain(*tables, x, n_rows, plan.block,
                                        passes)
-            torch.cuda.synchronize()
-            err = rel_err(f"B2 {name} passes={passes}", y, yp, tol)
-            for b in empty:
-                if y[b * 512:(b + 1) * 512].abs().max() != 0:
-                    raise AssertionError(f"B2 {name}: block {b} not zero")
-            full = pc.compact_apply(static, tables, ov, x, passes)
+            yw = csr_lib.csr_walk_plain(view, x, passes, split_x=False)
+            for lanes in WALK_LANES:
+                before = pc.LAUNCHES_SPMV
+                y = pc.spmv_scatter(view, x, passes, lanes)
+                torch.cuda.synchronize()
+                if pc.LAUNCHES_SPMV != before + 1:
+                    raise AssertionError(f"B2 {name}: "
+                                         f"{pc.LAUNCHES_SPMV - before} "
+                                         f"launches counted, want 1")
+                err = rel_err(f"B2 {name} passes={passes} lanes={lanes}",
+                              y, yp, tol)
+                rel_err(f"B2 {name} passes={passes} lanes={lanes} vs the "
+                        f"view's plain walk", y, yw, tol)
+                for b in empty:
+                    if y[b * 512:(b + 1) * 512].abs().max() != 0:
+                        raise AssertionError(f"B2 {name}: block {b} not "
+                                             f"zero")
+                log(f"kernel spmv_compact [{name}] nnz={view.nnz} "
+                    f"passes={passes} lanes={lanes}: max_abs_err {err:.3e} "
+                    f"vs plain ok")
+            full = pc.compact_apply(plan, x, passes)
             e_or = rel_err(f"B2+overflow {name} passes={passes} vs float64",
                            full.cpu(), torch.as_tensor(want_x),
                            SPMV_ORACLE_TOL[passes])
-            log(f"kernel spmv_compact [{name}] passes={passes}: max_abs_err "
-                f"{err:.3e} vs plain, {e_or:.3e} vs float64 oracle ok")
+            log(f"  compact_apply [{name}] passes={passes}: {e_or:.3e} vs "
+                f"float64 oracle ok")
             for k in (2, 5, 12, 16, 33, 128, "16 unaligned"):
                 if k == "16 unaligned":     # k % 4 == 0, one column a lane
                     Xk = torch.empty(n_cols * 16 + 1, device=dev)[1:].view(
@@ -706,11 +743,13 @@ def table_bound_ms(real, n_rows, n_cols, k, bytes_per_slot):
 
 
 def row5_timing(A, dev):
-    """B2 and B3 at the row-5 shape: kernel vs plain (CUDA events,
-    median), bound, and torch.sparse.mm on the CSR form (cuSPARSE). B3
-    walks the plan's CSR view; its plain version reads the tables."""
+    """B2 and B3 at the row-5 shape, both over the plan's CSR view: kernel
+    vs plain on the compact tables (CUDA events, median), bound, and
+    torch.sparse.mm on the CSR form (cuSPARSE); B2 also at 4 and 8 lanes
+    a row."""
     import torch
     from matrel_tpu_torch.ops import pallas_spmv as pc
+    from matrel_tpu_torch.ops.spmv_routed import lanes_per_row
     plan = A._get_plan()
     tables = pc.compact_tables(plan, dev)
     view = pc.csr_view_on(plan, dev)
@@ -723,7 +762,7 @@ def row5_timing(A, dev):
     out = {}
     for name, k in (("spmv_compact", 1), ("spmm_compact", ROW5_K)):
         if k == 1:
-            run = lambda: pc.spmv_scatter(*tables, x, n_rows, block, 3)
+            run = lambda: pc.spmv_scatter(view, x, 3)
             plain = lambda: pc.spmv_scatter_plain(*tables, x, n_rows, block, 3)
             lib = lambda: torch.sparse.mm(csr, x[:, None])
         else:
@@ -740,11 +779,19 @@ def row5_timing(A, dev):
         bound = csr_bound(real, n_rows, n_cols, k, 8)
         old_bound = table_bound_ms(real, n_rows, n_cols, k, 13)
         lib_ms = library_time(f"torch.sparse.mm f32 CSR k={k}", lib, got)
+        lanes = ""
+        if k == 1:
+            by_lanes = {n: time_ms(lambda n=n: pc.spmv_scatter(view, x, 3, n),
+                                   warmup=3, runs=20, batch=10)
+                        for n in (4, 8)}
+            lanes = (f" ({lanes_per_row(real, n_rows)} lanes a row; "
+                     + ", ".join(f"{n} lanes {t:.4f} ms"
+                                 for n, t in by_lanes.items()) + ")")
         log(f"row-5 shape {name} (k={k}, {real} real slots of "
-            f"{tables[0].numel()}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, bound {bound[0]:.4f} ms ({bound[1]}, CSR minimum; "
-            f"{old_bound:.4f} ms at 13 B a slot), library {lib_ms} ms; "
-            f"kernel vs plain max_abs_err {err:.3e}")
+            f"{tables[0].numel()}): kernel {ms:.4f} ms{lanes}, plain "
+            f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, CSR "
+            f"minimum; {old_bound:.4f} ms at 13 B a slot), library "
+            f"{lib_ms} ms; kernel vs plain max_abs_err {err:.3e}")
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound[0], "bound_by": bound[1],
                      "library_ms": lib_ms}
@@ -770,8 +817,6 @@ CG_TOL, CG_MAXITER, CG_L2 = 1e-5, 500, 0.1
 
 #: the hub row of routed_case's "hub row" case
 ROUTED_HUB_ROW = 33_333
-#: every sub-warp width the B8 kernel is built for (lanes_per_row's range)
-ROUTED_LANES = (1, 2, 4, 8, 16, 32)
 
 
 def routed_case(name, seed):
@@ -816,7 +861,7 @@ def routed_case(name, seed):
 def routed_kernel_phase(dev) -> None:
     """B8 against its plain version on the plan's tables and the plain
     walk of its CSR view on the card (passes 1, 2 and 3, at every sub-warp
-    width in ROUTED_LANES), each call's launch checked, and the whole
+    width in WALK_LANES), each call's launch checked, and the whole
     routed product (overflow included) against a float64 oracle."""
     import numpy as np
     import torch
@@ -850,7 +895,7 @@ def routed_kernel_phase(dev) -> None:
         for passes in (1, 2, 3):
             yp = rt.routed_scatter_plain(*tables, x, n_rows, passes)
             yw = rt.csr_scatter_plain(view, x, passes)
-            for lanes in ROUTED_LANES:
+            for lanes in WALK_LANES:
                 before = rt.LAUNCHES_ROUTED
                 y = rt.routed_scatter(view, x, passes, lanes)
                 torch.cuda.synchronize()
@@ -1255,6 +1300,16 @@ def predicted_launches(run) -> dict:
     return {k: (n if k == name else 0) for k in SPGEMM_REPLACES}
 
 
+def launch_ctas(run, n_out, bs, dtype_name) -> list:
+    """The CTAs of each kernel launch of a registry runner: its slots
+    times the sub-tiles of an output tile (f32: 128 x 128 for bs >= 128,
+    else 64 x 64; bf16: 64 x 64)."""
+    sub = 128 if dtype_name == "float32" and bs >= 128 else 64
+    slots = ([len(bk["ids"]) for bk in run.tables["buckets"]]
+             if run.schedule == "bucketed" else [n_out])
+    return [n * math.ceil(bs / sub) ** 2 for n in slots]
+
+
 def spgemm_runner(A, B, kid):
     """(runner, masked A payload, masked B payload, n_out) of one
     registry kernel over (A, B) under the default config."""
@@ -1379,6 +1434,22 @@ def spgemm_cases(mesh):
     cases.append(("bs=24 ragged random (overhang in the edge tiles)", A, B,
                   None))
 
+    # the f32 body's other instances: the 128 x 128 sub-tile with its
+    # ragged edge masked (bs 192), and the scalar loads of rows that are
+    # not 16-byte aligned (bs % 4 != 0) under both sub-tiles
+    for bs, n, k, m, dens, seed in ((192, 1500, 1400, 1300, 0.15, 20),
+                                    (130, 1100, 900, 1000, 0.2, 22),
+                                    (10, 300, 250, 310, 0.2, 24)):
+        A = BlockSparseMatrix.random((n, k), dens, block_size=bs, mesh=mesh,
+                                     seed=seed)
+        B = BlockSparseMatrix.random((k, m), dens, block_size=bs, mesh=mesh,
+                                     seed=seed + 1)
+        sub = 128 if bs >= 128 else 64
+        kind = ("rows 16-byte aligned" if bs % 4 == 0
+                else "scalar loads, bs % 4 != 0")
+        cases.append((f"bs={bs} ragged random, f32 sub-tile {sub} ({kind})",
+                      A, B, None))
+
     gr = 40
     r, c = band_tiles(gr, range(-2, 3), drop_row=7)
     A = tile_matrix(r, c, (gr * 64, gr * 64), 64, 6, mesh)
@@ -1460,7 +1531,7 @@ def spgemm_kernel_phase(mesh) -> None:
                     f"max_abs_err={err:.3e} ok")
             if check is not None:
                 check(runs.__getitem__)
-            if name.startswith("bs=24"):
+            if "ragged" in name:
                 # the logical product, overhang scrubbed, vs float64
                 n, m = A.shape[0], B.shape[1]
                 dense = sg.apply_dense(A, B)[:n, :m]
@@ -1545,8 +1616,9 @@ def spgemm_timing(mesh) -> dict:
             detail = f", G={run.tables['group']}"
         log(f"S×S timing {name} ({dtype_name}, bs={A.block_size}, "
             f"nnzb {A.nnzb}/{B.nnzb}, {npairs} pairs, {n_out} out tiles"
-            f"{detail}): " + ", ".join(f"{k} {v:.4f} ms"
-                                       for k, v in times.items())
+            f"{detail}, CTAs a launch "
+            f"{launch_ctas(run, n_out, A.block_size, dtype_name)}): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
             + f"; plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}); kernel vs plain max_abs_err {err:.3e}; peak "
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -1605,7 +1677,7 @@ def path_spgemm(sess) -> tuple:
         stamp = sess.compile(e).optimized.attrs.get("spgemm_kernel")
         if stamp != kid:
             raise AssertionError(f"S×S {name}: stamped {stamp}, want {kid}")
-        run, _, _, _ = spgemm_runner(A, B, kid)
+        run, _, _, n_out = spgemm_runner(A, B, kid)
         want_launches = predicted_launches(run)
         zero_spgemm_launches()
         Y = sess.compute(e)
@@ -1631,8 +1703,9 @@ def path_spgemm(sess) -> tuple:
         e64 = sampled_tiles_err(f"S×S {name}", A, B, Y.data, dtype_name,
                                 rnd)
         log(f"path S×S {name}: compute(A·B) n={n} {dtype_name} "
-            f"bs={A.block_size}, "
-            f"stamp {stamp}, launches {got_launches}, max_abs_err "
+            f"bs={A.block_size}, {n_out} output tiles, CTAs a launch "
+            f"{launch_ctas(run, n_out, A.block_size, dtype_name)} (132 "
+            f"SMs), stamp {stamp}, launches {got_launches}, max_abs_err "
             f"{err:.3e} vs the xla_gather route, {e64:.3e} vs float64 on 8 "
             f"tiles; peak after compute / twin / compare "
             + " / ".join(f"{p / 2**30:.3f}" for p in peaks) + " GiB")
@@ -1676,6 +1749,86 @@ def path_latency(sess, queries: dict) -> None:
             log(f"    {t:.4f} ms  {key[:90]}")
 
 
+def ptxas_functions(log_text: str) -> dict:
+    """{mangled function: (registers, stack, spill stores, spill loads)}
+    from an ``nvcc -Xptxas=-v`` log."""
+    import re
+    out, fn, props = {}, None, None
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn:
+            props = tuple(int(g) for g in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn and props is not None:
+            out[fn] = (int(m.group(1)),) + props
+            fn = props = None
+    return out
+
+
+def sass_counts(lib, opcodes) -> dict:
+    """{function: {opcode: count}} of a built library's SASS
+    (``cuobjdump -sass``); an opcode counts every instruction whose
+    mnemonic starts with it (``ATOMS`` counts ``ATOMS.CAST.SPIN.64``)."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = dict.fromkeys(opcodes, 0)
+            continue
+        m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and fn:
+            op = m.group(1)
+            for want in opcodes:
+                if op == want or op.startswith(want + "."):
+                    out[fn][want] += 1
+    return out
+
+
+def build_checks(libs) -> None:
+    """What the kernels' designs promise, read from the build: no f32
+    SpGEMM instance spills (ptxas), and B2/B3's library holds no
+    shared-memory atomic (SASS); logs the f32 instances' LDS.128 : FFMA
+    mix."""
+    by_name = {lib.stem.split("-")[0]: lib for lib in libs}
+    spg = by_name["libspgemm_registry"]
+    f32 = {fn: v for fn, v in ptxas_functions(
+        spg.with_suffix(".log").read_text()).items()
+        if "spgemm_f32_kernel" in fn}
+    if len(f32) != 12:
+        raise AssertionError(f"ptxas reported {len(f32)} f32 SpGEMM "
+                             f"instances, want 12 (3 pair lists x 2 "
+                             f"sub-tiles x 2 load paths)")
+    spills = {fn: v for fn, v in f32.items() if v[2] or v[3]}
+    if spills:
+        raise AssertionError(f"f32 SpGEMM instances spill: {spills}")
+    mix = sass_counts(spg, ("FFMA", "LDS", "LDS.128", "LDGSTS", "BAR"))
+    for fn, (regs, stack, _, _) in sorted(f32.items()):
+        c = mix.get(fn, {})
+        log(f"  f32 SpGEMM {fn[:60]}: {regs} registers, {stack} B stack, 0 "
+            f"spills; SASS FFMA {c.get('FFMA')}, LDS {c.get('LDS')} (LDS.128 "
+            f"{c.get('LDS.128')}), LDGSTS {c.get('LDGSTS')}, BAR "
+            f"{c.get('BAR')}")
+    atoms = {fn: c["ATOMS"] for fn, c in sass_counts(
+        by_name["libspmv_compact"], ("ATOMS", "ATOM", "RED")).items()
+        if c["ATOMS"]}
+    if atoms:
+        raise AssertionError(f"shared-memory atomics in spmv_compact: "
+                             f"{atoms}")
+    log("  spmv_compact SASS: no ATOMS")
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"matrel_tpu_torch/csrc/{source}",
@@ -1717,6 +1870,7 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas {lib.stem.split('-')[0]}: {line.strip()}")
+    build_checks(libs)
 
     sess = MatrelSession()            # the default device: cuda
     dev = sess.device

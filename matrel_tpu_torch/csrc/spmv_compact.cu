@@ -11,31 +11,27 @@
 // parts of w's bf16 mantissa-mask split (ops/spmv_routed.py::
 // _bf16_split): passes = 3 adds w exactly; passes = 2 adds w truncated
 // to its leading 16 significant bits, as the TPU kernel's two bf16
-// passes do. Products and parts are f32 (no TF32, no bf16 arithmetic);
-// the row sums are f64 and are rounded to f32 once, at the write. The
-// overflow COO is summed outside, with index_add_.
+// passes do. x itself is not split (B8 splits it). Products and parts
+// are f32 (no TF32, no bf16 arithmetic); the row sums are f64 and are
+// rounded to f32 once, at the write. The overflow COO is summed outside,
+// with index_add_.
 //
-// B2 input: an EdgeSpMVPlan's compact tables, (nb, cap) each, row-major:
-// src8 int32, lane int8, off int32, val f32. Slot s of block b holds an
-// edge x[src8*8 + lane] * val -> y[b*block + off]; padded slots point at
-// the sentinel column n_cols and read 0. One CTA owns one block of
-// `block` output rows and walks the block's slots, 32 consecutive slots
-// per warp step (coalesced table loads). The plan sorts a block's slots
-// by row, so neighbouring lanes mostly share an output row: a warp-level
-// segmented scan sums each run of equal offs and only the run's last lane
-// adds into the CTA's f64 array in shared memory (shared-memory
-// atomicAdd); then the CTA writes each of its rows once (rows past
-// n_rows masked). The order of the atomic additions varies from run to
-// run; f64 sums hide it at f32 precision. Bound at BASELINE row 5 (n =
-// 1,000,000, 10,000,000 uniform edges, block 512: nb = 1954, cap ~ 5376,
-// ~10.5 M slots): the 13 B/slot tables plus x and y, ~0.145 GB, about
-// 0.043 ms at 3.35 TB/s; bytes bound it.
+// Both kernels walk the plan's CSR view (ops/csr_view.py,
+// pallas_spmv.py::csr_view_on), built once per plan on the card:
+// row_ptr int32 (n_rows + 1) and one 8-byte record a real slot, {int32
+// column, f32 value bits}, ordered by output row, within a row in the
+// plan's slot order (the compact tables' sentinel slots dropped).
 //
-// B3 input: the plan's CSR view (ops/csr_view.py, pallas_spmv.py::
-// csr_view_on), built once per plan: row_ptr int32 (n_rows + 1) and one
-// 8-byte record a real slot, {int32 column, f32 value bits}, ordered by
-// output row, within a row in the plan's slot order (sentinel slots
-// dropped). X and Y are row-major (n_cols, k) and (n_rows, k) f32.
+// B2 is the row walk of csr_walk.cuh with SPLIT_X = false (B8, in
+// spmv_routed.cu, instantiates it with true): a sub-warp of
+// lanes_per_row lanes a row (8 at BASELINE row 5), f64 register sums in
+// view order, a shuffle reduce, each row rounded and written once. No
+// atomics and no shared memory: Hopper has no shared-memory f64 add
+// (atomicAdd(double) there is a compare-and-swap loop). Bound and floor
+// at row 5 are B8's (csr_walk.cuh): ~0.027 ms of bytes, but x's ~10 M
+// random 32-byte L2 sector reads set the floor.
+//
+// B3's X and Y are row-major (n_cols, k) and (n_rows, k) f32.
 //
 // What bounds B3 on this card. Per slot and column: a 4-byte read of X
 // and ~8 f32 operations plus one f64 add, far below the card's ~300
@@ -55,111 +51,19 @@
 // a template argument (a loop over it at run time measured markedly
 // slower at row 5: the walk is bound by issue as much as by bytes).
 // Each lane adds its columns into f64 registers in slot order and writes
-// its part of the Y row once. No shared memory, no scans, no atomics; 256-thread
+// its part of the Y row once. No shared memory, no atomics; 256-thread
 // CTAs over row tiles fill all 132 SMs. Empty rows write 0; a hub row is
 // walked by its one group.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "csr_walk.cuh"
+
 namespace {
 
-constexpr int WIDTH = 8;          // gather row width of the compact layout
-constexpr int THREADS = 256;      // threads per CTA, both kernels
+constexpr int THREADS = 256;      // threads per CTA
 constexpr int UNROLL = 4;         // B3: slots in flight per group
-
-// Sum of the first `passes` parts of the mantissa-mask split of w. Each
-// part and residual is exact, and every partial sum is a subset of w's
-// bits, so the f32 additions are exact too.
-__device__ __forceinline__ float split_sum(float w, int passes) {
-  float acc = 0.0f, rem = w;
-  for (int p = 0; p < passes; ++p) {
-    const float hi = __uint_as_float(__float_as_uint(rem) & 0xFFFF0000u);
-    acc += hi;
-    rem -= hi;
-  }
-  return acc;
-}
-
-// The same with `passes` fixed at compile time (the row walk's inner
-// loop then holds no loop over passes).
-template <int P>
-__device__ __forceinline__ float split_sum(float w) {
-  float acc = 0.0f, rem = w;
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const float hi = __uint_as_float(__float_as_uint(rem) & 0xFFFF0000u);
-    acc += hi;
-    rem -= hi;
-  }
-  return acc;
-}
-
-// First lane of this lane's run of equal keys among the warp's lanes
-// (runs are contiguous lanes; keys of inactive lanes must be unique so
-// they never merge). Every lane of the warp must call it.
-__device__ __forceinline__ int run_start(int key, int lane) {
-  const int prev = __shfl_up_sync(0xffffffffu, key, 1);
-  const unsigned heads =
-      __ballot_sync(0xffffffffu, lane == 0 || prev != key);
-  // the highest head at or below this lane
-  return 31 - __clz(heads & (0xffffffffu >> (31 - lane)));
-}
-
-// Does this lane end its run (the next lane holds another key)?
-__device__ __forceinline__ bool run_tail(int key, int lane) {
-  const int next = __shfl_down_sync(0xffffffffu, key, 1);
-  return lane == 31 || next != key;
-}
-
-// Inclusive sum of v over the lanes of this lane's run, from its first
-// lane `start` (a segmented Hillis-Steele scan). Every lane must call it.
-__device__ __forceinline__ double run_sum(double v, int start, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const double t = __shfl_up_sync(0xffffffffu, v, d);
-    if (lane - d >= start) v += t;
-  }
-  return v;
-}
-
-// B2: y[b*block + off] += split(x[src8*8 + lane] * val) over block b's
-// slots. grid = nb, dynamic shared memory = block doubles. Each warp
-// takes 32 consecutive slots at a time (coalesced table loads); lanes
-// whose slots share an off (the plan sorts a block's slots by row) are
-// summed by a warp-level segmented scan, and only the last lane of each
-// run adds into shared memory.
-__global__ void __launch_bounds__(THREADS)
-spmv_compact_kernel(const int* __restrict__ src8,
-                    const int8_t* __restrict__ lane,
-                    const int* __restrict__ off,
-                    const float* __restrict__ val,
-                    const float* __restrict__ x, float* __restrict__ y,
-                    int cap, int block, long long n_cols, long long n_rows,
-                    int passes) {
-  extern __shared__ double acc[];
-  for (int i = threadIdx.x; i < block; i += blockDim.x) acc[i] = 0.0;
-  __syncthreads();
-  const int ln = threadIdx.x & 31;
-  const long long base = (long long)blockIdx.x * cap;
-  for (int s0 = threadIdx.x - ln; s0 < cap; s0 += blockDim.x) {
-    const long long p = base + s0 + ln;    // cap is a multiple of 32
-    const long long idx = (long long)__ldg(src8 + p) * WIDTH + __ldg(lane + p);
-    const int o = __ldg(off + p);
-    // sentinel slots (idx >= n_cols) contribute 0 and take a unique key
-    const bool real = idx >= 0 && idx < n_cols && (unsigned)o < (unsigned)block;
-    const int key = real ? o : -1 - ln;
-    const double w =
-        real ? (double)split_sum(__ldg(x + idx) * __ldg(val + p), passes)
-             : 0.0;
-    const double sum = run_sum(w, run_start(key, ln), ln);
-    if (run_tail(key, ln) && real) atomicAdd(&acc[o], sum);
-  }
-  __syncthreads();
-  const long long row0 = (long long)blockIdx.x * block;
-  for (int i = threadIdx.x; i < block; i += blockDim.x)
-    if (row0 + i < n_rows) y[row0 + i] = (float)acc[i];
-}
 
 // B3: Y[r, c] = sum over row r's records of split(X[col, c] * val).
 // A group of G lanes owns a row and W consecutive columns a lane (W = 4:
@@ -206,7 +110,7 @@ spmm_compact_kernel(const int* __restrict__ row_ptr,
         const float v = __int_as_float(rec[u].y);
 #pragma unroll
         for (int w = 0; w < W; ++w)
-          acc[w] += (double)split_sum<P>(xv[u][w] * v);
+          acc[w] += (double)csr_walk::split_sum<P>(xv[u][w] * v);
       }
     }
   }
@@ -245,26 +149,16 @@ cudaError_t launch_spmm(const int* row_ptr, const int2* cv, const float* X,
 }  // namespace
 
 // Both entries launch on `stream`, never synchronise, and return
-// cudaGetLastError() (0 on success). B2: cap must be a multiple of 32
-// (plans round it to 128).
-extern "C" int matrel_spmv_compact(const void* src8, const void* lane,
-                                   const void* off, const void* val,
-                                   const void* x, void* y, int nb, int cap,
-                                   int block, long long n_cols,
-                                   long long n_rows, int passes, int device,
-                                   void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (nb <= 0 || cap <= 0 || cap % 32 != 0 || block <= 0 || passes < 1 ||
-      passes > 3 || (long long)block * (long long)sizeof(double) > 48 * 1024)
-    return (int)cudaErrorInvalidValue;
-  spmv_compact_kernel<<<nb, THREADS, block * sizeof(double),
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(src8), static_cast<const int8_t*>(lane),
-      static_cast<const int*>(off), static_cast<const float*>(val),
-      static_cast<const float*>(x), static_cast<float*>(y), cap, block,
-      n_cols, n_rows, passes);
-  return (int)cudaGetLastError();
+// cudaGetLastError() (0 on success).
+
+// B2 over the CSR view: cv must be 8-byte aligned; lanes is 1, 2, 4, 8,
+// 16 or 32.
+extern "C" int matrel_spmv_compact(const void* row_ptr, const void* cv,
+                                   const void* x, void* y, long long n_rows,
+                                   long long n_cols, int passes, int lanes,
+                                   int device, void* stream) {
+  return csr_walk::launch<false>(row_ptr, cv, x, y, n_rows, n_cols, passes,
+                                 lanes, device, stream);
 }
 
 // B3 over the CSR view: cv must be 8-byte aligned; chunk (the columns a

@@ -76,6 +76,44 @@ def _mask_to_logical(x: Tensor, shape: Tuple[int, int]) -> Tensor:
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+#: jnp.sum's result dtype where it differs from torch.sum's int64: bool and
+#: integers of up to 32 bits sum into int32 (signed) or uint32 (unsigned).
+_JNP_SUM_DTYPE = {torch.bool: torch.int32, torch.int8: torch.int32,
+                  torch.int16: torch.int32, torch.int32: torch.int32,
+                  torch.uint8: torch.uint32, torch.uint16: torch.uint32,
+                  torch.uint32: torch.uint32}
+
+
+def _jnp_sum(x: Tensor, dim: Optional[int]) -> Tensor:
+    """torch.sum with jnp.sum's result dtype. The int64 sum is cast down,
+    which wraps modulo 2^32 as a 32-bit accumulator does (torch has no
+    uint32 sum)."""
+    s = x.sum() if dim is None else x.sum(dim=dim)
+    dt = _JNP_SUM_DTYPE.get(x.dtype)
+    return s if dt is None else s.to(dt)
+
+
+def _unsigned_via_int64(lower, node: MatExpr, ev) -> Tensor:
+    """``lower(node, ev)`` where torch lacks the op for an unsigned
+    operand (uint16 and uint32, as jnp sums give them: torch has no add,
+    min, max or pow for them): such operands are widened to int64 and an
+    int64 result is cast back, which wraps modulo 2^32 as jnp's 32-bit
+    arithmetic does."""
+    unsigned = []
+
+    def ev_wide(child: MatExpr) -> Tensor:
+        t = ev(child)
+        if t.dtype in (torch.uint16, torch.uint32):
+            unsigned.append(t.dtype)
+            t = t.to(torch.int64)
+        return t
+
+    out = lower(node, ev_wide)
+    if unsigned and out.dtype == torch.int64:
+        out = out.to(max(unsigned, key=lambda d: d.itemsize))
+    return out
+
+
 def _diag_reduce(d: Tensor, kind: str) -> Tensor:
     """sum/count/avg/max/min of a 1-D entry vector."""
     if kind == "sum":
@@ -169,11 +207,11 @@ class Lowerer:
         if k == "inverse":
             return self._inverse(node, ev)
         if k == "elemwise":
-            return self._elemwise(node, ev)
+            return _unsigned_via_int64(self._elemwise, node, ev)
         if k == "scalar":
-            return self._scalar(node, ev)
+            return _unsigned_via_int64(self._scalar, node, ev)
         if k == "agg":
-            return self._agg(node, ev)
+            return _unsigned_via_int64(self._agg, node, ev)
         raise NotPortedError(
             f"lowering for node kind {k!r} is not ported to "
             f"matrel_tpu_torch yet (ported: {', '.join(LOWERED_KINDS)})")
@@ -347,9 +385,9 @@ class Lowerer:
 
     def _coo_spmv_stack(self, plan, X: Tensor) -> Tensor:
         """A·X for the k columns of ``X`` (n_cols, k) as an (n_rows, k)
-        f32 tensor. With ``use_pallas`` the compact-table kernels run (one
-        B2 launch for k = 1, one B3 launch over the plan's CSR view
-        otherwise — their plain versions on the CPU); without it the
+        f32 tensor. With ``use_pallas`` the compact-table kernels run over
+        the plan's CSR view (one B2 launch for k = 1, one B3 launch
+        otherwise — the view's plain walk on the CPU); without it the
         expanded one-hot path, in chunks of 64 columns."""
         from matrel_tpu_torch.ops import pallas_spmv as pc
         from matrel_tpu_torch.ops import spmv as spmv_lib
@@ -358,9 +396,7 @@ class Lowerer:
         static = (plan.n_rows, plan.n_cols, plan.block)
         if pc.compact_enabled(self.config):
             if X.shape[1] == 1:
-                return pc.compact_apply(static, pc.compact_tables(plan, dev),
-                                        plan.overflow_on(dev),
-                                        X[:, 0])[:, None]
+                return pc.compact_apply(plan, X[:, 0])[:, None]
             return pc.compact_matmat_apply(plan, X)
         arrays = plan.arrays(dev)
         if X.shape[1] == 1:
@@ -445,7 +481,7 @@ class Lowerer:
             return res.reshape(1, 1)
 
         if kind == "sum":
-            out = finish(red(torch.sum, x))
+            out = finish(_jnp_sum(x, dim))
         elif kind == "count":
             out = finish(red(torch.sum, x != 0).to(x.dtype))
         elif kind == "avg":

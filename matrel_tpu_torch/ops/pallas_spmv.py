@@ -4,26 +4,25 @@ and B3, ``_make_scatter_kernel_k``).
 
 An EdgeSpMVPlan's compact tables (``src8``/``lane``/``off``/``val``,
 13 bytes a slot) are copied to the device once and memoised on the plan
-(:func:`compact_tables`). B2 reads them and does the whole slot
-pipeline: gather ``x[src8·8 + lane]`` (the sentinel column reads 0),
-multiply by ``val``, split the product into ``passes`` bf16 parts as the
-TPU kernel does (``ops/spmv_routed.py``) and add the parts into the
-slot's output row (shared-memory atomics, f64). B3 walks the plan's CSR
-view instead (:func:`csr_view_on`, ``ops/csr_view.py``: the real slots
-ordered by output row once per plan), one group of lanes a row and one
-lane a column, each row's sums in f64 registers. Both round each row to
-f32 once. The overflow COO is added outside the kernels with
-``index_add_``.
+(:func:`compact_tables`). From them the plan's CSR view is built once
+(:func:`csr_view_on`, ``ops/csr_view.py``: the real slots ordered by
+output row, a stable ``torch.sort``), and both kernels walk it: B2 a
+sub-warp of lanes a row (the walk ``csrc/csr_walk.cuh`` that the routed
+SpMV B8 shares, with x not split), B3 a group of lanes a row and one
+lane per column or four. Each adds split(x[col] · val) — the product
+split into ``passes`` bf16 parts as the TPU kernel does
+(``ops/spmv_routed.py``) — into f64 registers in the view's order and
+rounds each row to f32 once. The overflow COO is added outside the
+kernels with ``index_add_``.
 
 On a CUDA tensor the wrappers :func:`spmv_scatter` (B2) and
 :func:`spmm_scatter` (B3) launch the hand-written Hopper kernels in
 ``csrc/spmv_compact.cu`` (built at first use, loaded with ctypes); on a
-CPU tensor they run plain PyTorch versions — :func:`spmv_scatter_plain`
-on the tables, and the plain walk of the view for B3.
-:func:`spmm_scatter_plain` computes B3's function from the tables and is
-its kernel's yardstick. A CUDA tensor launches the kernel or raises;
-``use_pallas=False`` asks for the plain versions on the tables on any
-device.
+CPU tensor they run the plain walk of the view. :func:`spmv_scatter_plain`
+and :func:`spmm_scatter_plain` compute the same functions from the
+tables and are the kernels' yardsticks. A CUDA tensor launches the
+kernel or raises; ``use_pallas=False`` asks for the plain versions on the
+tables on any device.
 
 The sharded variants and ``compact_apply_chunked`` are not ported.
 """
@@ -38,7 +37,7 @@ import torch
 from matrel_tpu_torch.config import MatrelConfig, pallas_enabled
 from matrel_tpu_torch.ops import csr_view as csr_lib
 from matrel_tpu_torch.ops import spmv as spmv_lib
-from matrel_tpu_torch.ops.spmv_routed import split_sum
+from matrel_tpu_torch.ops.spmv_routed import launch_walk, split_sum
 
 Tensor = torch.Tensor
 
@@ -68,8 +67,7 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE)
     if lib.matrel_spmv_compact.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.matrel_spmv_compact.argtypes = [p, p, p, p, p, p, i, i, i, ll,
-                                            ll, i, i, p]
+        lib.matrel_spmv_compact.argtypes = [p, p, p, p, ll, ll, i, i, i, p]
         lib.matrel_spmv_compact.restype = ctypes.c_int
         lib.matrel_spmm_compact.argtypes = [p, p, p, p, ll, ll, i, i, i, i,
                                             i, p]
@@ -137,72 +135,26 @@ def spmm_scatter_plain(src8: Tensor, lane: Tensor, off: Tensor, val: Tensor,
 # -- kernel wrappers -------------------------------------------------------------
 
 
-def _check(src8, lane, off, val, x, n_rows, block, passes):
-    if src8.dim() != 2 or src8.shape[1] % 32:
-        raise ValueError(f"tables must be (nb, cap) with cap a multiple of "
-                         f"32, got {tuple(src8.shape)}")
-    for name, t, dt in (("src8", src8, torch.int32), ("lane", lane, torch.int8),
-                        ("off", off, torch.int32), ("val", val, torch.float32)):
-        if t.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if t.shape != src8.shape:
-            raise ValueError(f"{name} shape {tuple(t.shape)} != src8 shape "
-                             f"{tuple(src8.shape)}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"x must be float32, got {x.dtype}")
-    if x.dim() != 1:
-        raise ValueError(f"x must be 1-D, got {tuple(x.shape)}")
-    devs = {t.device for t in (src8, lane, off, val, x)}
-    if len(devs) != 1:
-        raise ValueError(f"operands on different devices: "
-                         f"{sorted(map(str, devs))}")
-    if not all(t.is_contiguous() for t in (src8, lane, off, val, x)):
-        raise ValueError("compact SpMV needs contiguous tensors")
-    if passes not in (1, 2, 3):
-        raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
-    if block < 1 or block % spmv_lib.LO:
-        raise ValueError(f"block must be a positive multiple of "
-                         f"{spmv_lib.LO}, got {block}")
-    if not 0 <= n_rows <= src8.shape[0] * block:
-        raise ValueError(f"n_rows {n_rows} outside the tables' "
-                         f"{src8.shape[0]} blocks of {block}")
-
-
 def _launch_device(dev: torch.device, name: str) -> None:
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or CPU tensors, got {dev}")
 
 
-def spmv_scatter(src8: Tensor, lane: Tensor, off: Tensor, val: Tensor,
-                 x: Tensor, n_rows: int, block: int = spmv_lib.BLOCK,
-                 passes: int = 3) -> Tensor:
-    """B2: y (n_rows,) f32 from compact tables and a dense f32 vector x.
-    CUDA tensors launch the Hopper kernel on the current stream; CPU
-    tensors run :func:`spmv_scatter_plain`."""
+def spmv_scatter(view: csr_lib.CSRView, x: Tensor, passes: int = 3,
+                 lanes: Optional[int] = None) -> Tensor:
+    """B2: y (n_rows,) f32 = A·x from a plan's CSR view
+    (:func:`csr_view_on`) and a dense f32 x (view.n_cols,). CUDA tensors
+    launch the Hopper kernel on the current stream, ``lanes`` lanes a row
+    (default :func:`~matrel_tpu_torch.ops.spmv_routed.lanes_per_row`);
+    CPU tensors run the plain walk of the view."""
     global LAUNCHES_SPMV
-    _check(src8, lane, off, val, x, n_rows, block, passes)
-    dev = x.device
-    if dev.type == "cpu":
-        return spmv_scatter_plain(src8, lane, off, val, x, n_rows, block,
-                                  passes)
-    _launch_device(dev, "spmv_scatter")
-    nb, cap = src8.shape
-    if block * 8 > 48 * 1024:
-        raise ValueError(f"block {block} too large for the B2 kernel")
-    y = torch.empty(n_rows, dtype=torch.float32, device=dev)
-    if n_rows == 0 or nb == 0 or cap == 0:
-        return y.zero_()
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.matrel_spmv_compact(
-            src8.data_ptr(), lane.data_ptr(), off.data_ptr(), val.data_ptr(),
-            x.data_ptr(), y.data_ptr(), nb, cap, block, x.shape[0], n_rows,
-            passes, dev.index, stream)
-    if rc != 0:
-        raise RuntimeError(f"spmv_scatter kernel launch failed: CUDA error "
-                           f"{rc}")
-    LAUNCHES_SPMV += 1
+    csr_lib.check_operands(view, x, passes, dense_dim=1)
+    if x.device.type == "cpu":
+        return csr_lib.csr_walk_plain(view, x, passes, split_x=False)
+    y = launch_walk(_library().matrel_spmv_compact, "spmv_scatter", view, x,
+                    passes, lanes)
+    if view.n_rows:                 # an empty view launches nothing
+        LAUNCHES_SPMV += 1
     return y
 
 
@@ -272,7 +224,7 @@ def compact_tables(plan: spmv_lib.EdgeSpMVPlan, device
 
 
 def csr_view_on(plan: spmv_lib.EdgeSpMVPlan, device) -> csr_lib.CSRView:
-    """The CSR view of the slots B3 adds, on ``device``:
+    """The CSR view of the slots B2 and B3 add, on ``device``:
     every slot but the sentinels (column ≥ n_cols, or off ≥ block), in
     row order, within a row in the plan's slot order (whatever the fill
     that laid it out). Built there from :func:`compact_tables` once (a
@@ -293,17 +245,21 @@ def csr_view_on(plan: spmv_lib.EdgeSpMVPlan, device) -> csr_lib.CSRView:
     return view
 
 
-def compact_apply(plan_static, tables, ov, x: Tensor, passes: int = 3,
+def compact_apply(plan: spmv_lib.EdgeSpMVPlan, x: Tensor, passes: int = 3,
                   use_pallas: bool = True) -> Tensor:
-    """y = A·x from compact tables. ``plan_static`` is (n_rows, n_cols,
-    block); ``tables`` from :func:`compact_tables`; ``ov`` the overflow
-    COO on the same device (possibly empty). ``use_pallas=False`` runs
-    the plain version."""
-    n_rows, n_cols, block = plan_static
-    fn = spmv_scatter if use_pallas else spmv_scatter_plain
-    y = fn(*tables, x.float().contiguous(), n_rows, block, passes)
+    """y = A·x on x's device: one B2 launch over the plan's CSR view, or
+    with ``use_pallas=False`` the plain version on the compact tables;
+    then the overflow COO."""
+    dev = x.device
+    x = x.float().contiguous()
+    if use_pallas:
+        y = spmv_scatter(csr_view_on(plan, dev), x, passes)
+    else:
+        y = spmv_scatter_plain(*compact_tables(plan, dev), x, plan.n_rows,
+                               plan.block, passes)
+    ov = plan.overflow_on(dev)
     if ov:
-        y = spmv_lib._overflow_add(y, ov, x, n_rows)
+        y = spmv_lib._overflow_add(y, ov, x, plan.n_rows)
     return y
 
 
@@ -323,10 +279,6 @@ def compact_matmat_apply(plan: spmv_lib.EdgeSpMVPlan, X: Tensor,
     if ov:
         Y = spmv_lib._overflow_add_wide(Y, ov, X, plan.n_rows)
     return Y
-
-
-def _static(plan: spmv_lib.EdgeSpMVPlan):
-    return (plan.n_rows, plan.n_cols, plan.block)
 
 
 def spmm_compact(plan: spmv_lib.EdgeSpMVPlan, X, passes: int = 3,
@@ -352,5 +304,4 @@ def spmv_compact(plan: spmv_lib.EdgeSpMVPlan, x, passes: int = 3,
     from matrel_tpu_torch.core.mesh import resolve_device
     dev = resolve_device(device)
     x = torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(-1)
-    return compact_apply(_static(plan), compact_tables(plan, dev),
-                         plan.overflow_on(dev), x, passes, use_pallas)
+    return compact_apply(plan, x, passes, use_pallas)

@@ -332,20 +332,17 @@ def lanes_per_row(nnz: int, n_rows: int) -> int:
     return lanes
 
 
-def routed_scatter(view: csr_lib.CSRView, x: Tensor, passes: int = 2,
-                   lanes: Optional[int] = None) -> Tensor:
-    """B8: y (n_rows,) f32 from a plan's CSR view and a dense f32 x
-    (view.n_cols,). CUDA tensors launch the Hopper
-    kernel on the current stream, ``lanes`` lanes a row (default
-    :func:`lanes_per_row`); CPU tensors run :func:`csr_scatter_plain`."""
-    global LAUNCHES_ROUTED
-    csr_lib.check_operands(view, x, passes, dense_dim=1)
+def launch_walk(entry, name: str, view: csr_lib.CSRView, x: Tensor,
+                passes: int, lanes: Optional[int]) -> Tensor:
+    """y (n_rows,) f32 from one launch of a row walk over ``view``
+    (``csrc/csr_walk.cuh``) on x's CUDA device and current stream:
+    ``entry`` is the ctypes function of B2 or B8, which share the walk's
+    signature; ``lanes`` lanes a row (default :func:`lanes_per_row`). The
+    operands are checked by the caller; an empty view launches nothing.
+    Raises if the launch fails."""
     dev = x.device
-    if dev.type == "cpu":
-        return csr_scatter_plain(view, x, passes)
     if dev.type != "cuda":
-        raise ValueError(f"routed_scatter runs on CUDA or CPU tensors, got "
-                         f"{dev}")
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got {dev}")
     n_rows = view.n_rows
     if lanes is None:
         lanes = lanes_per_row(view.nnz, n_rows)
@@ -355,17 +352,30 @@ def routed_scatter(view: csr_lib.CSRView, x: Tensor, passes: int = 2,
     y = torch.empty(n_rows, dtype=torch.float32, device=dev)
     if n_rows == 0:
         return y
-    lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.matrel_spmv_routed(
-            view.row_ptr.data_ptr(), view.cv.data_ptr(), x.data_ptr(),
-            y.data_ptr(), n_rows, view.n_cols, passes, lanes, dev.index,
-            stream)
+        rc = entry(view.row_ptr.data_ptr(), view.cv.data_ptr(), x.data_ptr(),
+                   y.data_ptr(), n_rows, view.n_cols, passes, lanes,
+                   dev.index, stream)
     if rc != 0:
-        raise RuntimeError(f"spmv_routed kernel launch failed: CUDA error "
-                           f"{rc}")
-    LAUNCHES_ROUTED += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return y
+
+
+def routed_scatter(view: csr_lib.CSRView, x: Tensor, passes: int = 2,
+                   lanes: Optional[int] = None) -> Tensor:
+    """B8: y (n_rows,) f32 from a plan's CSR view and a dense f32 x
+    (view.n_cols,). CUDA tensors launch the Hopper
+    kernel on the current stream, ``lanes`` lanes a row (default
+    :func:`lanes_per_row`); CPU tensors run :func:`csr_scatter_plain`."""
+    global LAUNCHES_ROUTED
+    csr_lib.check_operands(view, x, passes, dense_dim=1)
+    if x.device.type == "cpu":
+        return csr_scatter_plain(view, x, passes)
+    y = launch_walk(_library().matrel_spmv_routed, "spmv_routed", view, x,
+                    passes, lanes)
+    if view.n_rows:                 # an empty view launches nothing
+        LAUNCHES_ROUTED += 1
     return y
 
 

@@ -4,9 +4,10 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface and loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds. Builds happen at first use,
 from the repository's sources only, into ``build/kernels/`` at the
-repository root, named by a digest of the source and flags (a stale
-library is never reused). ``nvcc``'s ``-Xptxas -v`` report (registers,
-shared memory, spills) is kept next to each library as ``.log``.
+repository root, named by a digest of the source, the headers beside it
+and the flags (a stale library is never reused). ``nvcc``'s ``-Xptxas
+-v`` report (registers, shared memory, spills) is kept next to each
+library as ``.log``.
 """
 
 from __future__ import annotations
@@ -43,9 +44,14 @@ def nvcc_path() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{source.stem}-{digest[:16]}.so"
+    """The library of ``source``, named by a digest of its bytes, of every
+    header beside it (``*.cuh``, which a source may include) and of the
+    flags: editing a header renames every library."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(sources: Iterable[Path]) -> List[Path]:

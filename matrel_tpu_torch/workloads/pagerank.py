@@ -115,18 +115,15 @@ def run_pagerank_onehot(prepared, rounds: int = 30, alpha: float = 0.85,
 
 def run_pagerank_compact(prepared, rounds: int = 30, alpha: float = 0.85,
                          passes: int = 2, device=None) -> Tensor:
-    """PageRank rounds over the compact-table SpMV (one B2 launch per
-    round on the card). ``passes`` trades round fidelity for speed:
-    2 → ~2^-16 relative error per matvec (ranking-grade), 3 → ~f32."""
+    """PageRank rounds over the compact SpMV (one B2 launch per round on
+    the card, over the plan's CSR view). ``passes`` trades round fidelity
+    for speed: 2 → ~2^-16 relative error per matvec (ranking-grade), 3 →
+    ~f32."""
     from matrel_tpu_torch.ops import pallas_spmv as pc
     dev = _prepared_device(prepared, device)
     plan, dangling = prepared
-    tables = pc.compact_tables(plan, dev)
-    ov = plan.overflow_on(dev)
-    static = (plan.n_rows, plan.n_cols, plan.block)
-    return _power_iterate(
-        lambda r: pc.compact_apply(static, tables, ov, r, passes),
-        plan.n_rows, rounds, alpha, dangling.to(dev), dev)
+    return _power_iterate(lambda r: pc.compact_apply(plan, r, passes),
+                          plan.n_rows, rounds, alpha, dangling.to(dev), dev)
 
 
 # Prepared-plan cache for repeated calls on the same graph (alpha/round

@@ -160,3 +160,31 @@ def test_precision_sla_tiers_match(jmesh):
         bound = 2.0 ** (-8 if tier == "bf16x1" else -15) * 64 \
             * np.abs(a).max() * np.abs(b).max()
         assert np.abs(got - a @ b).max() <= bound
+
+
+INT_QUERIES = {
+    "sum": lambda A, B: A.sum(),
+    "row_sum": lambda A, B: A.row_sum(),
+    "col_sum": lambda A, B: A.col_sum(),
+    "norm_fro": lambda A, B: A.expr().norm("fro"),
+    "trace_of_product": lambda A, B: A.multiply(B).trace(),
+}
+
+
+@pytest.mark.parametrize("query", sorted(INT_QUERIES))
+@pytest.mark.parametrize("dtype", ["int8", "int16", "int32", "uint8"])
+def test_integer_sums_keep_jnp_dtype(jmesh, dtype, query):
+    """Integer aggregates come back in jnp.sum's dtype (int8 and int16
+    promote to int32, uint8 to uint32, int32 stays), not torch.sum's
+    int64, with the reference's values. A 7 x 5 and a 5 x 7 operand keep
+    the padded region in play."""
+    rng = np.random.default_rng(31)
+    js, ts = sessions(jmesh)
+    a = rng.integers(0, 5, (7, 5)).astype(dtype)
+    b = rng.integers(0, 5, (5, 7)).astype(dtype)
+    jA, jB = (js.from_numpy(x, dtype=np.dtype(dtype)) for x in (a, b))
+    tA, tB = (convert.from_reference(m, ts.mesh) for m in (jA, jB))
+    want = js.compute(INT_QUERIES[query](jA, jB)).to_numpy()
+    got = ts.compute(INT_QUERIES[query](tA, tB)).to_numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)

@@ -278,20 +278,21 @@ def test_kernel_wrappers_refuse_bad_operands():
     tables = tpc.compact_tables(tp, "cpu")
     assert tpc.compact_tables(tp, "cpu") is tables           # memoised
     x = torch.as_tensor(rng.standard_normal(400).astype(np.float32))
-    y = tpc.spmv_scatter(*tables, x, 600)
-    np.testing.assert_allclose(y.numpy(), coo_oracle(rows, cols, vals,
-                                                     x.numpy(), 600),
-                               rtol=1e-5, atol=1e-5)
-    with pytest.raises(TypeError):
-        tpc.spmv_scatter(*tables, x.double(), 600)
-    with pytest.raises(TypeError):
-        tpc.spmv_scatter(tables[0].long(), *tables[1:], x, 600)
-    with pytest.raises(ValueError):
-        tpc.spmv_scatter(*tables, x, 600, passes=4)
-    with pytest.raises(ValueError):
-        tpc.spmv_scatter(*tables, x, 5000)                   # > nb·block
+    want = coo_oracle(rows, cols, vals, x.numpy(), 600)
+    np.testing.assert_allclose(tpc.spmv_scatter_plain(*tables, x, 600).numpy(),
+                               want, rtol=1e-5, atol=1e-5)
     view = tpc.csr_view_on(tp, "cpu")
     assert tpc.csr_view_on(tp, "cpu") is view                # memoised
+    y = tpc.spmv_scatter(view, x)
+    np.testing.assert_allclose(y.numpy(), want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(TypeError):
+        tpc.spmv_scatter(view, x.double())
+    with pytest.raises(TypeError):
+        tpc.spmv_scatter(tables, x)                          # not a view
+    with pytest.raises(ValueError):
+        tpc.spmv_scatter(view, x, passes=4)
+    with pytest.raises(ValueError):
+        tpc.spmv_scatter(view, x[None])                      # 2-D operand
     with pytest.raises(ValueError):
         tpc.spmm_scatter(view, x)                            # 1-D operand
     X = torch.as_tensor(rng.standard_normal((400, 6)).astype(np.float32))
@@ -299,6 +300,105 @@ def test_kernel_wrappers_refuse_bad_operands():
         tpc.spmm_scatter(view, X.T)                          # not contiguous
     with pytest.raises(ValueError):
         tpc.spmm_scatter(view, X[:-1])                       # X too short
+
+
+@pytest.mark.parametrize("n", [399, 401])
+def test_b2_refuses_x_of_another_length(n):
+    """x must have exactly view.n_cols entries: the kernel gathers
+    x[col] for every column of the view, and a longer x would hide a
+    caller's mix-up."""
+    rng = np.random.default_rng(15)
+    rows, cols, vals = random_coo(rng, 600, 400, 3000)
+    tp = tspmv.build_spmv_plan(rows, cols, vals, n_rows=600, n_cols=400)
+    x = torch.as_tensor(rng.standard_normal(n).astype(np.float32))
+    with pytest.raises(ValueError, match="view's columns are 400"):
+        tpc.spmv_scatter(tpc.csr_view_on(tp, "cpu"), x)
+
+
+def b2_case(name, rng):
+    """(rows, cols, vals, n_rows, n_cols, plan kwargs) of a B2 view case."""
+    kw = {}
+    if name == "hub_row":               # 1/3 of the edges on row 7, kept
+        n_r, n_c, m = 4096, 3000, 6000  # in the tables (no overflow)
+        rows, cols, vals = random_coo(rng, n_r, n_c, m)
+        rows[rng.random(m) < 1 / 3] = 7
+        kw = dict(capacity_quantile=1.0, max_padding=10.0)
+    elif name == "empty_blocks":        # blocks 1 and 3 hold no slot
+        n_r, n_c, m = 2500, 1999, 20_000
+        rows, cols, vals = random_coo(rng, n_r, n_c, m)
+        moved = np.isin(rows // tspmv.BLOCK, (1, 3))
+        rows = np.where(moved, (rows + tspmv.BLOCK) % n_r, rows)
+    elif name == "mostly_sentinel":     # ~30 edges a block of 128 slots
+        n_r, n_c, m = 5000, 4096, 300
+        rows, cols, vals = random_coo(rng, n_r, n_c, m)
+        kw = dict(max_padding=10.0)
+    else:                               # "overflow" and "transpose"
+        rows, cols, vals, n_r, n_c = hub_coo(rng)
+        if name == "transpose":         # x'·A: the plan of Aᵀ
+            rows, cols, n_r, n_c = cols, rows, n_c, n_r
+    return rows, cols, vals, n_r, n_c, kw
+
+
+@pytest.mark.parametrize("passes,tol", [(3, 1e-6), (2, 1e-4)])
+@pytest.mark.parametrize("case", ["hub_row", "empty_blocks",
+                                  "mostly_sentinel", "overflow",
+                                  "transpose"])
+def test_b2_view_matches_jax_interpret(case, passes, tol):
+    """B2 on the plan's CSR view (the wrapper's plain walk on the CPU)
+    against its yardstick on the compact tables, and compact_apply
+    (overflow included) against the JAX package's compact_apply in
+    interpret mode, on the same tables."""
+    rng = np.random.default_rng(40 + passes)
+    rows, cols, vals, n_r, n_c, kw = b2_case(case, rng)
+    jp = jspmv.build_spmv_plan(rows, cols, vals, n_rows=n_r, n_cols=n_c,
+                               **kw)
+    tp = to_port(jp)
+    assert (tp.ov_rows is not None) == (case == "overflow")
+    x = rng.standard_normal(n_c).astype(np.float32)
+    xt = torch.as_tensor(x)
+    view = tpc.csr_view_on(tp, "cpu")
+    before = tpc.LAUNCHES_SPMV
+    y = tpc.spmv_scatter(view, xt, passes)
+    assert tpc.LAUNCHES_SPMV == before          # CPU: plain walk
+    yp = tpc.spmv_scatter_plain(*tpc.compact_tables(tp, "cpu"), xt, n_r,
+                                tp.block, passes)
+    assert rel(y, yp) < tol
+    if case == "empty_blocks":
+        assert not y[tspmv.BLOCK:2 * tspmv.BLOCK].any()
+        assert not y[3 * tspmv.BLOCK:4 * tspmv.BLOCK].any()
+    if case == "hub_row":
+        hub = view.row_ptr[7:9].tolist()
+        assert hub[1] - hub[0] > 1000
+    ov = jp.overflow
+    static = (jp.n_rows, jp.n_cols, jp.block, jspmv.LO)
+    want = np.asarray(jpc.compact_apply(static, jpc.compact_tables(jp), ov,
+                                        jnp.asarray(x), passes,
+                                        interpret=True))
+    got = tpc.compact_apply(tp, xt, passes).numpy()
+    assert got.shape == (n_r,) and got.dtype == np.float32
+    assert rel(got, want) < max(tol, 1e-5 if ov else 0.0)
+    oracle_tol = {3: 1e-5, 2: 1e-4}[passes]
+    assert rel(got, coo_oracle(rows, cols, vals, x, n_r)) < oracle_tol
+
+
+@pytest.mark.parametrize("passes", [2, 3])
+def test_run_pagerank_compact_on_view_matches_jax(passes):
+    """PageRank's rounds go through B2 on the plan's CSR view; 10 rounds
+    on a graph with a hub of in-edges agree with the JAX package's
+    compact PageRank (interpret mode) at the JAX tests' bound."""
+    from matrel_tpu.workloads import pagerank as jpr
+    from matrel_tpu_torch.workloads import pagerank as tpr
+    rng = np.random.default_rng(50 + passes)
+    n, m = 3000, 24_000
+    src = rng.integers(0, n, m)
+    dst = np.where(rng.random(m) < 0.1, 11, rng.integers(0, n, m))
+    want = np.asarray(jpr.run_pagerank_compact(
+        jpr.prepare_pagerank_onehot(src, dst, n), rounds=10, passes=passes,
+        interpret=True))
+    prepared = tpr.prepare_pagerank_onehot(src, dst, n, device="cpu")
+    got = tpr.run_pagerank_compact(prepared, rounds=10, passes=passes)
+    assert tpc.csr_view_on(prepared[0], "cpu").n_rows == n
+    assert rel(got.numpy(), want) < {3: 1e-5, 2: 1e-4}[passes]
 
 
 @pytest.mark.parametrize("k,kc", [(1, 1), (2, 2), (5, 8), (16, 16),
