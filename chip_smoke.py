@@ -6,12 +6,18 @@
 1. Builds every CUDA kernel of the port's main paths from the sources in
    this checkout (one nvcc per source, all started together; sm_90a),
    prints nvcc's register report, and checks the build: no f32 SpGEMM
-   instance spills (ptxas) and B2/B3's library holds no shared-memory
-   atomic (cuobjdump -sass).
+   instance spills (ptxas), B2/B3's library holds no shared-memory
+   atomic, and every instance of the bf16 wgmma body
+   (csrc/bf16_tile_wgmma.cuh: B1's and B4-B7's) holds HGMMA and UTMALDG
+   and no HMMA in its SASS (cuobjdump -sass), spills nothing and has no
+   wgmma that ptxas serialised.
 2. Kernel phases: holds each kernel against its plain PyTorch version on
    the card — block-sparse SpMM B1 (ops/pallas_spmm.py) in f32 and bf16
-   at bs 4, 8, 16, 24, 64 and 512, with empty block rows, a single block
-   row and a column count that is not a multiple of the column tile; the
+   at bs 4, 8, 16, 24, 64, 128 and 512, with empty block rows, a single
+   block row, D shorter than the tile grid, output rows past it, a D off
+   a 16-byte boundary and a column count that is not a multiple of the
+   column tile, each bf16 case through the tile body ops/tile_body.py
+   assigns it (wgmma at bs 64, 128 and 512); the
    compact SpMV B2 and SpMM B3 (ops/pallas_spmv.py), both over the plan's
    CSR view, at passes 2 and 3 with a block of zero slots, n_rows not a
    multiple of 512, an overflow hub row, sentinel slots, a hub row of
@@ -27,9 +33,16 @@
    both f32 sub-tiles and both load paths, unsorted B tiles, runs that
    are not a multiple of G, both powerlaw buckets, a chunked band, a
    band with an empty block row, the bs-512 band's grouped fallback),
-   and timed at n = 100,352 on the repo's own S×S deployments (bench.py
+   every launch through the tile body ops/tile_body.py assigns it (bf16
+   at bs 64, 128 and 512: the wgmma body, over slots of several pairs,
+   grouped padding positions and band zero tiles), and timed at
+   n = 100,352 on the repo's own S×S deployments (bench.py
    measure_spgemm / measure_sparse_kernels) beside the plain version,
-   the bound and the xla_gather torch composite. The routed SpMV B8
+   the bound and the xla_gather torch composite. At row 4 and at the
+   bf16 S×S pair the wgmma body is timed against the WMMA body in turns
+   (the C entry points called with each body's code; not counted as
+   launches), with cuBLAS torch.bmm over the same pre-gathered tiles as
+   a diagnostic of the card's bf16 rate. The routed SpMV B8
    (ops/spmv_routed.py) is held against its plain version and the plain
    walk of the plan's CSR view at passes 1, 2 and 3, at every sub-warp
    width (1 to 32 lanes a row), on the JAX tests' shapes (3 x 3 groups,
@@ -46,7 +59,8 @@
    on the same graph as a COOMatrix through MatrelSession().compute),
    four S×S queries A·B at n = 32,768 (1% random bf16 512-blocks, and
    clustered, powerlaw and band structures in f32: B4, B5, B7 and B6 as
-   stamped, against a use_pallas=False session and float64 tiles),
+   stamped, the bf16 B4 launch through the wgmma body, against a
+   use_pallas=False session and float64 tiles),
    routed_spmv on the row-5 graph at passes 2 and 3 (against the plain
    version, the compact B2 route and float64 scipy), CG over the routed
    Gram operator v -> A'(A v) + 0.1 v to 1e-5 (float64 residual; the same
@@ -56,9 +70,10 @@
    fit_streaming and cg_least_squares on the first 1,000,000 rows held
    whole),
    row 4 (block-sparse x dense, 100,352^2 at 1% of 512-blocks, bf16,
-   plus the D'·S form), row 2 (skewed A·B·C, 10,000 x 100, f32, plan
-   (A·(B·C))) and row 1 (4096^2 f32 multiply). Results are checked
-   against the plain kernel versions or a float64 oracle.
+   plus the D'·S form; both launches through the wgmma body), row 2
+   (skewed A·B·C, 10,000 x 100, f32, plan (A·(B·C))) and row 1 (4096^2
+   f32 multiply). Results are checked against the plain kernel versions
+   or a float64 oracle.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -197,35 +212,48 @@ def spmm_bound(S, pm: int, out_rows: int, dtype_name: str):
 
 
 def kernel_phase(mesh):
+    """B1 against its plain version in f32 and bf16; every launch through
+    the tile body the case names (bf16; f32 always runs "f32")."""
     import torch
     from matrel_tpu_torch.ops import pallas_spmm
-    cases = [  # (bs, n, k, pm, density, output rows)
-        (4, 37, 29, 9, 0.4, 37),
-        (8, 203, 150, 77, 0.3, 203),
-        (16, 400, 320, 130, 0.2, 437),  # rows past the tile grid: zeros
-        (24, 100, 96, 33, 0.5, 100),
-        (64, 1000, 700, 200, 0.1, 1000),
-        (64, 50, 1000, 64, 0.5, 50),    # a single block row
-        (512, 4096, 4096, 520, 0.1, 4096),  # pm not a multiple of 64
+    cases = [  # (bs, n, k, pm, density, output rows, bf16 body, D offset)
+        (4, 37, 29, 9, 0.4, 37, "wmma", 0),
+        (8, 203, 150, 77, 0.3, 203, "wmma", 0),
+        (16, 400, 320, 130, 0.2, 437, "wmma", 0),  # rows past the grid
+        (24, 100, 96, 33, 0.5, 100, "wmma", 0),
+        (64, 1000, 700, 200, 0.1, 1000, "wgmma", 0),  # D shorter than grid
+        (64, 50, 1000, 64, 0.5, 50, "wgmma", 0),    # a single block row
+        (64, 1000, 700, 200, 0.1, 1000, "wmma", 1),  # D off 16 bytes
+        (128, 1000, 900, 136, 0.2, 1000, "wgmma", 0),  # D shorter than grid
+        (512, 4096, 4096, 520, 0.1, 4096, "wgmma", 0),  # pm % 256 != 0
+        (512, 2048, 1800, 256, 0.3, 2600, "wgmma", 0),  # both: rows, D
     ]
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
-        for i, (bs, n, k, pm, dens, rows) in enumerate(cases):
+        for i, (bs, n, k, pm, dens, rows, body, off) in enumerate(cases):
             S = make_case(bs, n, k, dens, dtype, 100 + i, mesh)
             gen = torch.Generator(device=mesh.device).manual_seed(200 + i)
-            d = torch.randn((k, pm), generator=gen,
-                            device=mesh.device).to(dtype)
+            d = torch.randn((k * pm + off,), generator=gen,
+                            device=mesh.device).to(dtype)[off:].view(k, pm)
             _, payload, row_ptr, bcols = pallas_spmm.csr_payload(S)
+            want_body = body if dtype_name == "bfloat16" else "f32"
+            before = dict(pallas_spmm.BODY_LAUNCHES)
             got = pallas_spmm.spmm_blocksparse(payload, row_ptr, bcols, d,
                                                rows)
+            launched = {b: v - before[b] for b, v in
+                        pallas_spmm.BODY_LAUNCHES.items() if v != before[b]}
+            if launched != {want_body: 1}:
+                raise AssertionError(f"spmm {dtype_name} bs={bs} pm={pm} "
+                                     f"offset={off}: bodies {launched}, "
+                                     f"want {want_body}")
             want = pallas_spmm.spmm_blocksparse_plain(
                 S.blocks, S.block_rows, S.block_cols, d, rows)
             torch.cuda.synchronize()
             err = check_close(f"spmm {dtype_name} bs={bs} n={n} k={k} "
                               f"pm={pm} rows={rows}", got, want, dtype_name)
             log(f"kernel spmm_blocksparse {dtype_name} bs={bs} n={n} k={k} "
-                f"pm={pm} rows={rows} nnzb={S.nnzb}: max_abs_err={err:.3e}"
-                f" ok")
+                f"pm={pm} rows={rows} nnzb={S.nnzb} D offset {off} "
+                f"({want_body} body): max_abs_err={err:.3e} ok")
 
 
 def row4_inputs(sess):
@@ -237,27 +265,87 @@ def row4_inputs(sess):
     return S, D
 
 
+def body_turns(name: str, launch, flops: float) -> dict:
+    """The WMMA body against the wgmma body on the same inputs, in turns
+    (wmma, wgmma, wgmma, wmma): ``launch(code)`` calls the C entry point
+    with a body's code directly, so these launches count nowhere."""
+    from matrel_tpu_torch.ops.tile_body import CODES
+    turns = [(b, time_ms(lambda b=b: launch(CODES[b]), batch=10))
+             for b in ("wmma", "wgmma", "wgmma", "wmma")]
+    log(f"{name} bodies in turns: " + ", ".join(
+        f"{b} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)"
+        for b, ms in turns))
+    return {b: [ms for bb, ms in turns if bb == b] for b in ("wmma",
+                                                             "wgmma")}
+
+
+def bmm_yardstick(name: str, a, b) -> float:
+    """Diagnostic: cuBLAS ``torch.bmm`` in bf16 over pre-gathered tile
+    pairs (the gather not timed) — the card's rate on this arithmetic.
+    The port never calls it."""
+    import torch
+    ms = time_ms(lambda: torch.bmm(a, b), warmup=2, runs=10)
+    flops = 2.0 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+    log(f"{name} diagnostic: cuBLAS torch.bmm bf16 over {a.shape[0]} "
+        f"pre-gathered pairs {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)")
+    return ms
+
+
 def row4_timing(S, D, library):
     """Kernel vs plain at the row-4 shape (bf16), beside the bound and
-    the library yardstick measured by :func:`library_yardstick`."""
+    the library yardstick measured by :func:`library_yardstick`; the
+    WMMA body against the wgmma body in turns, and the bmm diagnostic."""
+    import torch
     from matrel_tpu_torch.ops import pallas_spmm
     n = S.shape[0]
     _, payload, row_ptr, bcols = pallas_spmm.csr_payload(S)
     d = D.data
+    before = pallas_spmm.BODY_LAUNCHES["wgmma"]
     got = pallas_spmm.spmm_blocksparse(payload, row_ptr, bcols, d, n)
+    if pallas_spmm.BODY_LAUNCHES["wgmma"] != before + 1:
+        raise AssertionError("row-4 shape: not the wgmma body")
     want = pallas_spmm.spmm_blocksparse_plain(S.blocks, S.block_rows,
                                               S.block_cols, d, n)
     err = check_close("spmm row-4 shape", got, want, "bfloat16")
+    lib = pallas_spmm._library()
+    out = torch.empty_like(got)
+
+    def launch(code):
+        rc = lib.matrel_spmm_blocksparse(
+            payload.data_ptr(), row_ptr.data_ptr(), bcols.data_ptr(),
+            d.data_ptr(), out.data_ptr(), code, row_ptr.numel() - 1,
+            S.block_size, payload.shape[0], d.shape[0], d.shape[1], n, 1, 1,
+            d.device.index, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise AssertionError(f"row-4 body code {code}: error {rc}")
+
+    launch(1)
+    torch.cuda.synchronize()
+    err_wmma = check_close("spmm row-4 shape, WMMA body", out, want,
+                           "bfloat16")
     del got, want
+    flops = 2.0 * S.nnzb * S.block_size ** 2 * d.shape[1]
+    turns = body_turns("row-4 shape", launch, flops)
+    bs = S.block_size
+    dblocks = d[:S.grid[1] * bs].view(-1, bs, d.shape[1])
+    bmm_yardstick("row-4 shape", payload,
+                  dblocks.index_select(0, bcols.long()))
+    del out, dblocks
+    torch.cuda.empty_cache()
+    # 10 calls a sample: the wrapper's ~0.08 ms of host work a call
+    # would otherwise sit inside a 0.2 ms kernel's time
     ms = time_ms(lambda: pallas_spmm.spmm_blocksparse(payload, row_ptr,
-                                                      bcols, d, n))
+                                                      bcols, d, n), batch=10)
     plain_ms = time_ms(lambda: pallas_spmm.spmm_blocksparse_plain(
         S.blocks, S.block_rows, S.block_cols, d, n), warmup=1, runs=10)
     bound_ms, bound_by = spmm_bound(S, d.shape[1], n, "bfloat16")
     log(f"row-4 shape (bf16, nnzb={S.nnzb}): kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library "
         f"{library['library_ms']} ms ({library['note']}); kernel vs plain "
-        f"max_abs_err {err:.3e}")
+        f"max_abs_err {err:.3e} (WMMA body {err_wmma:.3e})")
+    if max(turns["wgmma"]) > min(turns["wmma"]):
+        raise AssertionError(f"row-4 shape: the wgmma body is slower than "
+                             f"the WMMA body: {turns}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library["library_ms"]}
@@ -343,7 +431,8 @@ def run_library_yardstick(timeout_s: float = 300.0) -> dict:
 
 
 def path_row4(sess, S, D):
-    """Row 4 through compute: S·D and D'·S (the transpose branch)."""
+    """Row 4 through compute: S·D and D'·S (the transpose branch), both
+    through the wgmma body (the caller zeroes the counts)."""
     import torch
     from matrel_tpu_torch.ops import pallas_spmm
     n = S.shape[0]
@@ -355,6 +444,10 @@ def path_row4(sess, S, D):
     if launches < 2:
         raise AssertionError(f"row 4 path launched the SpMM kernel "
                              f"{launches} times (want >= 2)")
+    if pallas_spmm.BODY_LAUNCHES["wgmma"] != launches:
+        raise AssertionError(f"row 4 path: bodies "
+                             f"{pallas_spmm.BODY_LAUNCHES}, want all "
+                             f"{launches} launches through wgmma")
     if Y.shape != (n, D.shape[1]) or Yt.shape != (D.shape[1], n):
         raise AssertionError(f"row 4: result shapes {Y.shape}, {Yt.shape}")
     want = pallas_spmm.spmm_blocksparse_plain(S.blocks, S.block_rows,
@@ -367,7 +460,8 @@ def path_row4(sess, S, D):
     e2 = check_close("row 4 D'·S", Yt.data.T, want_t, "bfloat16")
     del Yt, want_t
     log(f"path row 4: S·D and D'·S through compute, {launches} kernel "
-        f"launches, max_abs_err {e1:.3e} / {e2:.3e}")
+        f"launches (bodies {pallas_spmm.BODY_LAUNCHES}), max_abs_err "
+        f"{e1:.3e} / {e2:.3e}")
     return launches, {"row4 S·D": e, "row4 D'·S": et}
 
 
@@ -1290,6 +1384,27 @@ def zero_spgemm_launches() -> None:
     from matrel_tpu_torch.ops import pallas_spgemm as ps
     ps.LAUNCHES_PAIRS = ps.LAUNCHES_GROUPED = 0
     ps.LAUNCHES_BAND = ps.LAUNCHES_POWERLAW = 0
+    ps.BODY_LAUNCHES.update(dict.fromkeys(ps.BODY_LAUNCHES, 0))
+
+
+def spgemm_body(bs: int, dtype_name: str) -> str:
+    """The tile body ops/tile_body.py assigns a launch over bs-tiles (the
+    stacks the port allocates are 16-byte aligned)."""
+    from matrel_tpu_torch.ops import tile_body
+    if dtype_name == "float32":
+        return "f32"
+    return tile_body.bf16_body(bs, bs, True)
+
+
+def check_bodies(name: str, launches: dict, bs: int, dtype_name: str) -> None:
+    """Every launch counted since the counts were zeroed went through the
+    body :func:`spgemm_body` names."""
+    from matrel_tpu_torch.ops import pallas_spgemm as ps
+    want = spgemm_body(bs, dtype_name)
+    total = sum(launches.values())
+    got = {b: v for b, v in ps.BODY_LAUNCHES.items() if v}
+    if got != ({want: total} if total else {}):
+        raise AssertionError(f"{name}: bodies {got}, want {total} x {want}")
 
 
 def predicted_launches(run) -> dict:
@@ -1303,11 +1418,14 @@ def predicted_launches(run) -> dict:
 def launch_ctas(run, n_out, bs, dtype_name) -> list:
     """The CTAs of each kernel launch of a registry runner: its slots
     times the sub-tiles of an output tile (f32: 128 x 128 for bs >= 128,
-    else 64 x 64; bf16: 64 x 64)."""
-    sub = 128 if dtype_name == "float32" and bs >= 128 else 64
+    else 64 x 64; bf16: the wgmma body's 128 x 256, the WMMA body's
+    64 x 64)."""
+    body = spgemm_body(bs, dtype_name)
+    rows, cols = {"f32": (128, 128) if bs >= 128 else (64, 64),
+                  "wgmma": (128, 256), "wmma": (64, 64)}[body]
     slots = ([len(bk["ids"]) for bk in run.tables["buckets"]]
              if run.schedule == "bucketed" else [n_out])
-    return [n * math.ceil(bs / sub) ** 2 for n in slots]
+    return [n * math.ceil(bs / rows) * math.ceil(bs / cols) for n in slots]
 
 
 def spgemm_runner(A, B, kid):
@@ -1450,6 +1568,19 @@ def spgemm_cases(mesh):
         cases.append((f"bs={bs} ragged random, f32 sub-tile {sub} ({kind})",
                       A, B, None))
 
+    def wgmma_coverage(run_of, A, B):
+        """What the bf16 wgmma body must get right at this bs: slots of
+        several pairs (B4), grouped padding positions (B5) and, where
+        the band's own kernel runs, its zero tile (B6)."""
+        assert np.diff(run_of("pallas_generic").tables["slot_ptr"]).max() > 1
+        t = run_of("pallas_cluster").tables
+        assert (t["src"] >= len(t["pa"])).any(), "no padding position"
+        band = run_of("pallas_band")
+        if band.schedule == "band":
+            t = band.tables
+            assert ((t["a_idx"] >= A.nnzb).any()
+                    or (t["b_idx"] >= B.nnzb).any()), "no zero tile"
+
     gr = 40
     r, c = band_tiles(gr, range(-2, 3), drop_row=7)
     A = tile_matrix(r, c, (gr * 64, gr * 64), 64, 6, mesh)
@@ -1457,9 +1588,10 @@ def spgemm_cases(mesh):
     perm = np.random.default_rng(7).permutation(len(r))
     B = tile_matrix(r[perm], c[perm], (gr * 64, gr * 64), 64, 7, mesh)
 
-    def band_unsorted(run_of, B=B):
+    def band_unsorted(run_of, A=A, B=B):
         assert run_of("pallas_band").schedule == "band"
         assert np.any(np.diff(B.host_tiles()[0]) < 0)
+        wgmma_coverage(run_of, A, B)
     cases.append(("bs=64 band, B with unsorted block_rows, A block row 7 "
                   "empty", A, B, band_unsorted))
 
@@ -1468,9 +1600,10 @@ def spgemm_cases(mesh):
     A = tile_matrix(r, c, (gr * 128, gr * 128), 128, 8, mesh)
     B = tile_matrix(r, c, (gr * 128, gr * 128), 128, 9, mesh)
 
-    def band_chunked(run_of):
+    def band_chunked(run_of, A=A, B=B):
         t = run_of("pallas_band").tables
         assert t["nchunks"] > 1 and t["wa"] == 11, (t["nchunks"], t["wa"])
+        wgmma_coverage(run_of, A, B)
     cases.append(("bs=128 11-wide band, chunked (rc < rr)", A, B,
                   band_chunked))
 
@@ -1479,8 +1612,10 @@ def spgemm_cases(mesh):
     A = tile_matrix(r, c, (gr * 512, gr * 512), 512, 10, mesh)
     B = tile_matrix(r, c, (gr * 512, gr * 512), 512, 11, mesh)
 
-    def band_fallback(run_of):
+    def band_fallback(run_of, A=A, B=B):
         assert run_of("pallas_band").schedule == "grouped"
+        assert len(run_of("pallas_powerlaw").tables["buckets"]) == 2
+        wgmma_coverage(run_of, A, B)
     cases.append(("bs=512 band: the grouped fallback (B5, not B6)", A, B,
                   band_fallback))
     return cases
@@ -1521,14 +1656,17 @@ def spgemm_kernel_phase(mesh) -> None:
                 if launched != predicted_launches(run):
                     raise AssertionError(f"{name} {kid}: launches {launched}"
                                          f", want {predicted_launches(run)}")
+                check_bodies(f"{name} {dtype_name} {kid}", launched,
+                             A.block_size, dtype_name)
                 want = spgemm_plain(run, a_m, b_m, n_out)
                 err = check_close(f"{name} {dtype_name} {kid}",
                                   got.reshape(-1, got.shape[-1]),
                                   want.reshape(-1, want.shape[-1]),
                                   dtype_name)
                 log(f"kernel {SPGEMM_KERNEL_OF[run.schedule]} [{name}] "
-                    f"{dtype_name} via {kid}: n_out={n_out}, "
-                    f"max_abs_err={err:.3e} ok")
+                    f"{dtype_name} via {kid} "
+                    f"({spgemm_body(A.block_size, dtype_name)} body): "
+                    f"n_out={n_out}, max_abs_err={err:.3e} ok")
             if check is not None:
                 check(runs.__getitem__)
             if "ragged" in name:
@@ -1579,27 +1717,78 @@ def spgemm_pairs_at(mesh, n, random_seeds=(0, 1)):
         yield name, kid, A, B, "float32"
 
 
+def pair_bodies_in_turns(run, a, b, n_out, want) -> None:
+    """The bf16 B4 pair list through the WMMA body and the wgmma body in
+    turns (the C entry point called with each code), the WMMA body's
+    result held against the plain version too; then cuBLAS torch.bmm over
+    the same pairs, pre-gathered. The wgmma body must be the faster."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.ops import pallas_spgemm as ps
+    t = run.tables
+
+    def i32(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.int32),
+                               device=a.device)
+
+    slot_ptr, pa, pb = i32(t["slot_ptr"]), i32(t["pa"]), i32(t["pb"])
+    bs = a.shape[1]
+    out = torch.empty((n_out, bs, bs), dtype=a.dtype, device=a.device)
+    lib = ps._library()
+
+    def launch(code):
+        rc = lib.matrel_spgemm_pairs(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), slot_ptr.data_ptr(),
+            pa.data_ptr(), pb.data_ptr(), n_out, a.shape[0], b.shape[0], bs,
+            code, 1, 1, a.device.index,
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise AssertionError(f"S×S pair body code {code}: error {rc}")
+
+    launch(1)
+    torch.cuda.synchronize()
+    err = check_close("S×S bf16 pairs, WMMA body",
+                      out.reshape(-1, bs), want.reshape(-1, bs), "bfloat16")
+    log(f"S×S bf16 pairs, WMMA body vs plain max_abs_err {err:.3e}")
+    turns = body_turns(f"S×S bf16 pairs ({pa.numel()} pairs)", launch,
+                       2.0 * pa.numel() * bs ** 3)
+    del out
+    bmm_yardstick("S×S bf16 pairs", a.index_select(0, pa.long()),
+                  b.index_select(0, pb.long()))
+    torch.cuda.empty_cache()
+    if max(turns["wgmma"]) > min(turns["wmma"]):
+        raise AssertionError(f"S×S bf16 pairs: the wgmma body is slower "
+                             f"than the WMMA body: {turns}")
+
+
 def spgemm_timing(mesh) -> dict:
     """bench.py's S×S sweep at n = 100,352: per pair every admissible
     registry kernel through spgemm_tiles(kernel=…) (CUDA events, median of
-    10), the home kernel's plain version, the bound, and the xla_gather
-    torch composite as the library column (no single PyTorch call
-    multiplies two block-sparse tile maps)."""
+    10 samples of 5 calls, so that the host's work a call stays out of a
+    short kernel's time), the home kernel's plain version, the bound, and
+    the xla_gather torch composite as the library column (no single
+    PyTorch call multiplies two block-sparse tile maps); at the bf16 pair
+    list the two bf16 bodies in turns (:func:`pair_bodies_in_turns`)."""
     import torch
     from matrel_tpu_torch.ops import spgemm as sg
     rows = {}
     for name, kid, A, B, dtype_name in spgemm_pairs_at(mesh, SPGEMM_N):
         npairs = int(sg._pair_structure_cached(A, B)[0].size)
         run, a_m, b_m, n_out = spgemm_runner(A, B, kid)
+        zero_spgemm_launches()
         got = run(a_m, b_m)
+        check_bodies(f"{name} n={SPGEMM_N}", spgemm_launches(),
+                     A.block_size, dtype_name)
         want = spgemm_plain(run, a_m, b_m, n_out)
         torch.cuda.synchronize()
         err = check_close(f"{name} n={SPGEMM_N}",
                           got.reshape(-1, got.shape[-1]),
                           want.reshape(-1, want.shape[-1]), dtype_name)
+        if run.schedule == "pairs" and dtype_name == "bfloat16":
+            pair_bodies_in_turns(run, a_m, b_m, n_out, want)
         del got, want
         times = {k: time_ms(lambda k=k: sg.spgemm_tiles(A, B, kernel=k),
-                            warmup=2, runs=10)
+                            warmup=2, runs=10, batch=5)
                  for k in ("xla_gather", "pallas_generic", kid)}
         plain_ms = time_ms(lambda: spgemm_plain(run, a_m, b_m, n_out),
                            warmup=1, runs=10)
@@ -1687,6 +1876,7 @@ def path_spgemm(sess) -> tuple:
         if got_launches != want_launches:
             raise AssertionError(f"S×S {name}: launches {got_launches}, "
                                  f"want {want_launches}")
+        check_bodies(f"S×S {name}", got_launches, A.block_size, dtype_name)
         for k, v in got_launches.items():
             launches[k] += v
         n = A.shape[0]
@@ -1705,7 +1895,8 @@ def path_spgemm(sess) -> tuple:
         log(f"path S×S {name}: compute(A·B) n={n} {dtype_name} "
             f"bs={A.block_size}, {n_out} output tiles, CTAs a launch "
             f"{launch_ctas(run, n_out, A.block_size, dtype_name)} (132 "
-            f"SMs), stamp {stamp}, launches {got_launches}, max_abs_err "
+            f"SMs), stamp {stamp}, launches {got_launches} "
+            f"({spgemm_body(A.block_size, dtype_name)} body), max_abs_err "
             f"{err:.3e} vs the xla_gather route, {e64:.3e} vs float64 on 8 "
             f"tiles; peak after compute / twin / compare "
             + " / ".join(f"{p / 2**30:.3f}" for p in peaks) + " GiB")
@@ -1798,9 +1989,10 @@ def sass_counts(lib, opcodes) -> dict:
 
 def build_checks(libs) -> None:
     """What the kernels' designs promise, read from the build: no f32
-    SpGEMM instance spills (ptxas), and B2/B3's library holds no
-    shared-memory atomic (SASS); logs the f32 instances' LDS.128 : FFMA
-    mix."""
+    SpGEMM instance spills (ptxas), B2/B3's library holds no
+    shared-memory atomic (SASS), and each bf16 wgmma instance holds
+    HGMMA and UTMALDG and no HMMA (SASS), spills nothing and has no wgmma
+    that ptxas serialised; logs the f32 instances' LDS.128 : FFMA mix."""
     by_name = {lib.stem.split("-")[0]: lib for lib in libs}
     spg = by_name["libspgemm_registry"]
     f32 = {fn: v for fn, v in ptxas_functions(
@@ -1827,6 +2019,35 @@ def build_checks(libs) -> None:
         raise AssertionError(f"shared-memory atomics in spmv_compact: "
                              f"{atoms}")
     log("  spmv_compact SASS: no ATOMS")
+    # the bf16 wgmma body (csrc/bf16_tile_wgmma.cuh): B1's instance and
+    # B4-B7's three (one per pair list)
+    for lib_name, want in (("libspmm_blocksparse", 1),
+                           ("libspgemm_registry", 3)):
+        lib = by_name[lib_name]
+        log_text = lib.with_suffix(".log").read_text()
+        props = {fn: v for fn, v in ptxas_functions(log_text).items()
+                 if "bf16_wgmma_kernel" in fn}
+        sass = {fn: c for fn, c in sass_counts(
+            lib, ("HGMMA", "UTMALDG", "HMMA", "WARPGROUP")).items()
+            if "bf16_wgmma_kernel" in fn}
+        if len(props) != want or set(sass) != set(props):
+            raise AssertionError(f"{lib_name}: {len(props)} wgmma instances "
+                                 f"in the ptxas log, {len(sass)} in the "
+                                 f"SASS, want {want}")
+        for fn, (regs, stack, st, ld) in sorted(props.items()):
+            c = sass[fn]
+            if st or ld or not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]:
+                raise AssertionError(f"{lib_name} {fn}: spill stores {st}, "
+                                     f"loads {ld}, SASS {c}: want no spill, "
+                                     f"HGMMA and UTMALDG, no HMMA")
+            log(f"  bf16 wgmma {lib_name[3:]} {fn[-60:]}: {regs} registers,"
+                f" {stack} B stack, 0 spills; SASS HGMMA {c['HGMMA']}, "
+                f"UTMALDG {c['UTMALDG']}, WARPGROUP {c['WARPGROUP']}, HMMA 0")
+        serial = [line for line in log_text.splitlines()
+                  if "wgmma.mma_async instructions are serialized" in line]
+        if serial:
+            raise AssertionError(f"{lib_name}: ptxas serialised wgmma: "
+                                 f"{serial[0][:300]}")
 
 
 def kernel_entry(name, source, replaces, launches, row) -> dict:
@@ -1904,6 +2125,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     pallas_spmm.LAUNCHES = 0          # the row-4 path starts here
+    pallas_spmm.BODY_LAUNCHES.update(dict.fromkeys(
+        pallas_spmm.BODY_LAUNCHES, 0))
     launches, q4 = path_row4(sess, S, D)
     queries.update(q4)
     queries.update(path_row2(sess))

@@ -39,8 +39,14 @@
 // Ragged tiles (bs not a multiple of the sub-tile, bs down to 8) are
 // masked to zero at the shared-memory loads and at the store.
 //
-// Arithmetic. bf16 payloads run on the tensor cores (WMMA bf16 x bf16 ->
-// f32). f32 payloads run full-f32 FMA on the CUDA cores, never TF32 — the
+// Arithmetic. bf16 payloads run on the tensor cores: where the shape
+// allows (bf16_tile_wgmma.cuh::shape_ok and 16-byte aligned stacks) the
+// wgmma body of bf16_tile_wgmma.cuh — a 128 x 256 sub-tile a CTA, TMA
+// loads into a 4-stage ring flattened over the slot's pairs, two consumer
+// warpgroups — and elsewhere the 64 x 64 WMMA body below. The caller
+// chooses the body (ops/tile_body.py) and passes it as the dtype code;
+// this file refuses a wgmma code for a shape the body cannot take. f32
+// payloads run full-f32 FMA on the CUDA cores, never TF32 — the
 // counterpart of Precision.HIGHEST in _pallas_precision (:325).
 //
 // Bound. A pair does 2 bs^3 operations on 2 tiles; at bs = 512 that is
@@ -56,16 +62,18 @@
 // column (4 times at bs = 512), from L2; and a two-stage ring overlaps
 // the next k-chunk's copies with the current chunk's FMAs, across pair
 // boundaries (spgemm_f32_kernel). cuBLAS's own f32 FFMA GEMM reaches
-// ~53 TFLOP/s of the 67 on this card (PERF.md). bf16 runs a 64 x 64 WMMA
-// schedule whose loads do not overlap its compute (wgmma / TMA are later
-// work).
+// ~53 TFLOP/s of the 67 on this card (PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "bf16_tile_wgmma.cuh"
+
 namespace {
+
+using tile_wgmma::next_live;
 
 constexpr int BM = 64;          // bf16: output sub-tile rows per CTA
 constexpr int BN = 64;          // bf16: output sub-tile columns per CTA
@@ -195,18 +203,6 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// The first position t' >= t of slot s with a pair to multiply (padding
-// positions and the zero tile skipped), its tiles in ia / ib; false when
-// the slot has none left. The same for every thread of the CTA.
-template <class Pairs>
-__device__ __forceinline__ bool next_live(const Pairs& P, int s, int& t,
-                                          int t_end, int64_t& ia,
-                                          int64_t& ib) {
-  for (; t < t_end; ++t)
-    if (P.pair(s, t, ia, ib)) return true;
-  return false;
 }
 
 // As column of (k, row): rows XOR-swizzled by k / 4, so that the
@@ -413,8 +409,9 @@ cudaError_t launch_f32(const float* A, const float* B, float* out,
   return cudaGetLastError();
 }
 
-// bf16 payloads: WMMA 16x16x16 bf16 -> f32 on the tensor cores. Four
-// warps in a 2 x 2 arrangement, each owning a 32 x 32 quadrant.
+// bf16 payloads of the shapes the wgmma body does not take: WMMA
+// 16x16x16 bf16 -> f32 on the tensor cores. Four warps in a 2 x 2
+// arrangement, each owning a 32 x 32 quadrant.
 template <class Pairs>
 __global__ void __launch_bounds__(H_THREADS)
 spgemm_bf16_kernel(const __nv_bfloat16* __restrict__ A,
@@ -507,11 +504,33 @@ spgemm_bf16_kernel(const __nv_bfloat16* __restrict__ A,
   }
 }
 
-// One launch over n_slots output slots; returns cudaGetLastError().
+// The wgmma body over n_slots output slots: A and B as 3-D tensor maps
+// of n_a and n_b tiles.
+template <class Pairs>
+int launch_wgmma(const void* A, const void* B, void* out, const Pairs& P,
+                 long long n_slots, long long n_a, long long n_b, int bs,
+                 cudaStream_t s) {
+  namespace tw = tile_wgmma;
+  if (!tw::shape_ok(bs) || n_a < 1 || n_b < 1 || !tw::aligned16(A) ||
+      !tw::aligned16(B) || !tw::aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  int rc = tw::encode_tiles(&map_a, A, n_a, bs, tw::BM);
+  if (rc == 0) rc = tw::encode_tiles(&map_b, B, n_b, bs, tw::BK);
+  if (rc != 0) return rc;
+  return tw::launch<Pairs, false>(map_a, map_b,
+                                  static_cast<__nv_bfloat16*>(out), P,
+                                  n_slots, bs, bs, bs, s);
+}
+
+// One launch over n_slots output slots; dtype 0 = float32, 1 = bfloat16
+// (WMMA body), 2 = bfloat16 (wgmma body). Returns cudaGetLastError(), or
+// tile_wgmma::ENCODE_FAILED + the CUresult of a tensor map that could not
+// be encoded.
 template <class Pairs>
 int launch(const void* A, const void* B, void* out, const Pairs& P,
-           long long n_slots, int bs, int dtype, int a_vec, int b_vec,
-           int device, void* stream) {
+           long long n_slots, long long n_a, long long n_b, int bs, int dtype,
+           int a_vec, int b_vec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bs <= 0 || n_slots <= 0) return (int)cudaErrorInvalidValue;
@@ -526,6 +545,7 @@ int launch(const void* A, const void* B, void* out, const Pairs& P,
                      ? launch_f32<Pairs, 128>(a, b, o, P, n_slots, bs, vec, s)
                      : launch_f32<Pairs, 64>(a, b, o, P, n_slots, bs, vec, s));
   }
+  if (dtype == 2) return launch_wgmma(A, B, out, P, n_slots, n_a, n_b, bs, s);
   const long long nsub = (bs + BM - 1) / BM;
   const long long gx = n_slots * nsub * nsub;
   if (gx > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
@@ -542,19 +562,22 @@ int launch(const void* A, const void* B, void* out, const Pairs& P,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each entry point launches on `stream`
-// and returns cudaGetLastError() (0 on success); none synchronises. Index
-// tables are int32 device arrays.
+// dtype: 0 = float32, 1 = bfloat16 (WMMA body), 2 = bfloat16 (wgmma
+// body). Each entry point launches on `stream` and returns 0 or an error
+// code (launch above); none synchronises. Index tables are int32 device
+// arrays; A and B hold n_a and n_b tiles.
 
 // B4: n_out slots, pairs slot_ptr[s] .. slot_ptr[s+1] of pa / pb.
 extern "C" int matrel_spgemm_pairs(const void* A, const void* B, void* out,
                                    const void* slot_ptr, const void* pa,
-                                   const void* pb, long long n_out, int bs,
+                                   const void* pb, long long n_out,
+                                   long long n_a, long long n_b, int bs,
                                    int dtype, int a_vec, int b_vec, int device,
                                    void* stream) {
   const PairRuns P{static_cast<const int*>(slot_ptr),
                    static_cast<const int*>(pa), static_cast<const int*>(pb)};
-  return launch(A, B, out, P, n_out, bs, dtype, a_vec, b_vec, device, stream);
+  return launch(A, B, out, P, n_out, n_a, n_b, bs, dtype, a_vec, b_vec,
+                device, stream);
 }
 
 // B5 (ids null: local slot = output slot) and B7's bucket launches (ids:
@@ -563,6 +586,7 @@ extern "C" int matrel_spgemm_grouped(const void* A, const void* B, void* out,
                                      const void* src, const void* group_slot,
                                      const void* pa, const void* pb,
                                      const void* ids, long long n_slots,
+                                     long long n_a, long long n_b,
                                      int n_groups, int group, int npairs,
                                      int out_tiles, int bs, int dtype,
                                      int a_vec, int b_vec, int device,
@@ -573,8 +597,8 @@ extern "C" int matrel_spgemm_grouped(const void* A, const void* B, void* out,
                   static_cast<const int*>(group_slot),
                   static_cast<const int*>(pa), static_cast<const int*>(pb),
                   static_cast<const int*>(ids), n_groups, group, npairs};
-  return launch(A, B, out, P, n_slots, bs, dtype, a_vec, b_vec, device,
-                stream);
+  return launch(A, B, out, P, n_slots, n_a, n_b, bs, dtype, a_vec, b_vec,
+                device, stream);
 }
 
 // B6: n_out slots at band positions sel; a_idx [gr * wa], b_idx
@@ -588,5 +612,6 @@ extern "C" int matrel_spgemm_band(const void* A, const void* B, void* out,
   if (wa < 1 || width < 1) return (int)cudaErrorInvalidValue;
   const Band P{static_cast<const int*>(sel), static_cast<const int*>(a_idx),
                static_cast<const int*>(b_idx), wa, width, na, nb};
-  return launch(A, B, out, P, n_out, bs, dtype, a_vec, b_vec, device, stream);
+  return launch(A, B, out, P, n_out, na, nb, bs, dtype, a_vec, b_vec, device,
+                stream);
 }

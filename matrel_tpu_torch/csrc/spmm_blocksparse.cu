@@ -17,23 +17,31 @@
 // edges (any bs, any pm, D shorter than the tile grid) are masked to
 // zero at the shared-memory loads and at the store.
 //
-// Arithmetic. bf16 payloads run on the tensor cores (WMMA bf16 x bf16
-// -> f32). f32 payloads run full-f32 FMA on the CUDA cores, never TF32 —
-// the counterpart of Precision.HIGHEST at pallas_spmm.py:135-136.
+// Arithmetic. bf16 payloads run on the tensor cores: where the shape
+// allows (bf16_tile_wgmma.cuh::shape_ok, pm % 8 == 0, 16-byte aligned
+// pointers) the wgmma body of bf16_tile_wgmma.cuh — a 128 x 256 sub-tile
+// a CTA, TMA loads into a 4-stage ring, two consumer warpgroups — and
+// elsewhere the WMMA body below (64 x 64, synchronous loads). The caller
+// chooses the body (ops/tile_body.py) and passes it as the dtype code;
+// this file refuses a wgmma code for a shape the body cannot take. f32
+// payloads run full-f32 FMA on the CUDA cores, never TF32 — the
+// counterpart of Precision.HIGHEST at pallas_spmm.py:135-136.
 //
 // Bound at BASELINE row 4 (n = 100,352, bs = 512, 1% of tiles:
 // nnzb = 384, pm = 512, bf16): the kernel must move ~0.2 GB of tile
 // payload, at most ~0.2 GB of D row blocks and ~0.1 GB of output, about
-// 0.15 ms at 3.35 TB/s; it does 1.03e11 FLOP, about 0.10 ms at
-// 989 TFLOP/s. So it is bound by memory, ~0.15 ms. The design reads
-// each tile once per column tile (pm / BN = 8 times, mostly from L2)
-// and writes each output element once; it does not yet pipeline loads
-// with compute (cp.async / TMA / wgmma come in a later change).
+// 0.12 ms at 3.35 TB/s; it does 1.03e11 FLOP, about 0.10 ms at
+// 989 TFLOP/s. So it is bound by memory. The wgmma body reads each tile
+// once per column sub-tile (pm / 256 = 2 times) and each D panel once per
+// row sub-tile (bs / 128 = 4 times), mostly from L2, and writes each
+// output element once.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "bf16_tile_wgmma.cuh"
 
 namespace {
 
@@ -150,8 +158,9 @@ spmm_f32_kernel(const float* __restrict__ blocks, const int* __restrict__ row_pt
   }
 }
 
-// bf16 payloads: WMMA 16x16x16 bf16 -> f32 on the tensor cores. Four
-// warps in a 2 x 2 arrangement, each owning a 32 x 32 quadrant.
+// bf16 payloads of the shapes the wgmma body does not take: WMMA
+// 16x16x16 bf16 -> f32 on the tensor cores. Four warps in a 2 x 2
+// arrangement, each owning a 32 x 32 quadrant.
 __global__ void __launch_bounds__(H_THREADS)
 spmm_bf16_kernel(const __nv_bfloat16* __restrict__ blocks,
                  const int* __restrict__ row_ptr, const int* __restrict__ bcols,
@@ -249,26 +258,67 @@ spmm_bf16_kernel(const __nv_bfloat16* __restrict__ blocks,
   }
 }
 
+// B1's pair list for the wgmma body: the tiles of block row s in CSR
+// order; tile t multiplies D's row block bcols[t].
+struct CsrRows {
+  const int* __restrict__ row_ptr;
+  const int* __restrict__ bcols;
+  int gr;
+  __device__ int begin(int s) const { return s < gr ? row_ptr[s] : 0; }
+  __device__ int end(int s) const { return s < gr ? row_ptr[s + 1] : 0; }
+  __device__ bool pair(int, int t, int64_t& ia, int64_t& ib) const {
+    ia = t;
+    ib = bcols[t];
+    return true;
+  }
+};
+
+int launch_wgmma(const void* blocks, const void* row_ptr, const void* bcols,
+                 const void* d, void* out, int gr, int bs, long long nnzb,
+                 long long k_rows, long long pm, long long out_rows,
+                 cudaStream_t s) {
+  namespace tw = tile_wgmma;
+  if (!tw::shape_ok(bs) || pm % 8 != 0 || nnzb < 1 || k_rows < 1 ||
+      !tw::aligned16(blocks) || !tw::aligned16(d) || !tw::aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_a, map_d;
+  int rc = tw::encode_tiles(&map_a, blocks, nnzb, bs, tw::BM);
+  if (rc == 0) rc = tw::encode_dense(&map_d, d, k_rows, pm);
+  if (rc != 0) return rc;
+  const CsrRows P{static_cast<const int*>(row_ptr),
+                  static_cast<const int*>(bcols), gr};
+  return tw::launch<CsrRows, true>(
+      map_a, map_d, static_cast<__nv_bfloat16*>(out), P,
+      (out_rows + bs - 1) / bs, bs, out_rows, pm, s);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it never synchronises.
+// dtype: 0 = float32, 1 = bfloat16 (WMMA body), 2 = bfloat16 (wgmma body,
+// refused with cudaErrorInvalidValue for a shape it cannot take).
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// tile_wgmma::ENCODE_FAILED + the CUresult of a tensor map that could not
+// be encoded; it never synchronises.
 extern "C" int matrel_spmm_blocksparse(const void* blocks, const void* row_ptr,
                                        const void* bcols, const void* d,
                                        void* out, int dtype, int gr, int bs,
-                                       long long k_rows, long long pm,
+                                       long long nnzb, long long k_rows,
+                                       long long pm,
                                        long long out_rows, int a_vec, int d_vec,
                                        int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bs <= 0 || pm <= 0 || out_rows <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 2)
+    return launch_wgmma(blocks, row_ptr, bcols, d, out, gr, bs, nnzb, k_rows,
+                        pm, out_rows, s);
   const int chunks = (bs + BM - 1) / BM;
   const long long block_rows_out = (out_rows + bs - 1) / bs;
   const long long gx = block_rows_out * chunks;
   const long long gy = (pm + BN - 1) / BN;
   if (gx > 0x7fffffffLL || gy > 65535LL) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)gx, (unsigned)gy);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     spmm_f32_kernel<<<grid, F_THREADS, 0, s>>>(
         static_cast<const float*>(blocks), static_cast<const int*>(row_ptr),

@@ -23,8 +23,10 @@ differs only in how a slot's pairs are listed:
   bucket's local slots, written into the full stack through ``ids``.
 
 On a CUDA tensor each wrapper launches the hand-written Hopper kernel
-in ``csrc/spgemm_registry.cu`` (built at first use, loaded with ctypes)
-and counts the launch; on a CPU tensor it runs the plain PyTorch
+in ``csrc/spgemm_registry.cu`` (built at first use, loaded with ctypes;
+bf16 tiles through the body :mod:`tile_body` chooses by shape, the
+``wgmma`` body of ``csrc/bf16_tile_wgmma.cuh`` or the WMMA one) and
+counts the launch; on a CPU tensor it runs the plain PyTorch
 version beside it (``*_plain``), which reads the same tables: gather →
 batched f32 matmul (TF32 off) → ``index_add_`` in f32 → cast. A CUDA
 tensor launches the kernel or raises. The payload tables are read in
@@ -38,18 +40,22 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from matrel_tpu_torch.ops import tile_body
+
 Tensor = torch.Tensor
 
 #: Kernel launches of each wrapper, counted where the kernel is launched
 #: and nowhere else. B7 counts its bucket launches under its own name.
+#: BODY_LAUNCHES counts the launches of all four by tile body.
 LAUNCHES_PAIRS = 0
 LAUNCHES_GROUPED = 0
 LAUNCHES_BAND = 0
 LAUNCHES_POWERLAW = 0
+BODY_LAUNCHES = dict.fromkeys(tile_body.CODES, 0)
 
 SOURCE = "spgemm_registry.cu"
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 #: Pair × tile elements per step of the plain versions (and of the
 #: ``xla_gather`` composite): bounds each gathered operand to 64 MiB f32.
@@ -61,10 +67,11 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE)
     if lib.matrel_spgemm_pairs.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.matrel_spgemm_pairs.argtypes = [p, p, p, p, p, p, ll, i, i, i,
-                                            i, i, p]
+        lib.matrel_spgemm_pairs.argtypes = [p, p, p, p, p, p, ll, ll, ll,
+                                            i, i, i, i, i, p]
         lib.matrel_spgemm_grouped.argtypes = [p, p, p, p, p, p, p, p, ll,
-                                              i, i, i, i, i, i, i, i, i, p]
+                                              ll, ll, i, i, i, i, i, i, i,
+                                              i, i, p]
         lib.matrel_spgemm_band.argtypes = [p, p, p, p, p, p, ll, i, i, i,
                                            i, i, i, i, i, i, p]
         for fn in (lib.matrel_spgemm_pairs, lib.matrel_spgemm_grouped,
@@ -165,7 +172,7 @@ def _check(a: Tensor, b: Tensor, tables: Sequence[Tensor]) -> None:
                              f"{tuple(t.shape)}")
     if a.shape[1] != b.shape[1]:
         raise ValueError(f"tile sizes differ: {a.shape[1]} vs {b.shape[1]}")
-    if a.dtype not in _DTYPE_CODES or b.dtype != a.dtype:
+    if a.dtype not in _DTYPES or b.dtype != a.dtype:
         raise TypeError(f"payload dtypes {a.dtype}, {b.dtype}: both must be "
                         f"float32 or both bfloat16")
     if any(t.dtype != torch.int32 or t.dim() != 1 for t in tables):
@@ -178,10 +185,17 @@ def _check(a: Tensor, b: Tensor, tables: Sequence[Tensor]) -> None:
         raise ValueError("spgemm kernels need contiguous tensors")
 
 
-def _cuda_args(a: Tensor, b: Tensor):
-    """(dtype code, a_vec, b_vec, device index, stream) of one launch; the
-    vec flags allow 16-byte loads (rows a multiple of 16 bytes, aligned
-    stacks)."""
+def body(a: Tensor, b: Tensor, out: Tensor) -> str:
+    """The tile body a launch over these stacks runs
+    (:func:`tile_body.body_of`; the output's columns are ``bs``)."""
+    bs = a.shape[1]
+    return tile_body.body_of(a.dtype, bs, bs, a, b, out)
+
+
+def _cuda_args(a: Tensor, b: Tensor, out: Tensor):
+    """(body, body code, a_vec, b_vec, device index, stream) of one
+    launch; the vec flags allow the WMMA and f32 bodies 16-byte loads
+    (rows a multiple of 16 bytes, aligned stacks)."""
     dev = a.device
     if dev.type != "cuda":
         raise ValueError(f"spgemm kernels run on CUDA or CPU tensors, got "
@@ -191,12 +205,9 @@ def _cuda_args(a: Tensor, b: Tensor):
     a_vec = int(bs % vec == 0 and a.data_ptr() % 16 == 0)
     b_vec = int(bs % vec == 0 and b.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    return _DTYPE_CODES[a.dtype], a_vec, b_vec, dev.index, stream
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    chosen = body(a, b, out)
+    return (chosen, tile_body.CODES[chosen], a_vec, b_vec, dev.index,
+            stream)
 
 
 def spgemm_pairs(a: Tensor, b: Tensor, slot_ptr: Tensor, pa: Tensor,
@@ -210,29 +221,31 @@ def spgemm_pairs(a: Tensor, b: Tensor, slot_ptr: Tensor, pa: Tensor,
         return spgemm_pairs_plain(a, b, slot_ptr, pa, pb)
     n_out, bs = slot_ptr.numel() - 1, a.shape[1]
     out = torch.empty((n_out, bs, bs), dtype=a.dtype, device=a.device)
-    code, a_vec, b_vec, idx, stream = _cuda_args(a, b)
+    chosen, code, a_vec, b_vec, idx, stream = _cuda_args(a, b, out)
     with torch.cuda.device(a.device):
         rc = _library().matrel_spgemm_pairs(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), slot_ptr.data_ptr(),
-            pa.data_ptr(), pb.data_ptr(), n_out, bs, code, a_vec, b_vec, idx,
-            stream)
-    _raise_on(rc, "spgemm_pairs")
+            pa.data_ptr(), pb.data_ptr(), n_out, a.shape[0], b.shape[0], bs,
+            code, a_vec, b_vec, idx, stream)
+    tile_body.raise_on(rc, f"spgemm_pairs ({chosen} body)")
     LAUNCHES_PAIRS += 1
+    BODY_LAUNCHES[chosen] += 1
     return out
 
 
 def _launch_grouped(a, b, src, group_slot, pa, pb, group, n_slots, out,
                     ids: Optional[Tensor]) -> None:
-    code, a_vec, b_vec, idx, stream = _cuda_args(a, b)
+    chosen, code, a_vec, b_vec, idx, stream = _cuda_args(a, b, out)
     bs = a.shape[1]
     with torch.cuda.device(a.device):
         rc = _library().matrel_spgemm_grouped(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), src.data_ptr(),
             group_slot.data_ptr(), pa.data_ptr(), pb.data_ptr(),
-            0 if ids is None else ids.data_ptr(), n_slots,
-            group_slot.numel(), group, pa.numel(), out.shape[0], bs, code,
-            a_vec, b_vec, idx, stream)
-    _raise_on(rc, "spgemm_grouped")
+            0 if ids is None else ids.data_ptr(), n_slots, a.shape[0],
+            b.shape[0], group_slot.numel(), group, pa.numel(), out.shape[0],
+            bs, code, a_vec, b_vec, idx, stream)
+    tile_body.raise_on(rc, f"spgemm_grouped ({chosen} body)")
+    BODY_LAUNCHES[chosen] += 1
 
 
 def _check_grouped(a, b, src, group_slot, pa, pb, group):
@@ -301,12 +314,13 @@ def spgemm_band(a: Tensor, b: Tensor, a_idx: Tensor, b_idx: Tensor,
         return spgemm_band_plain(a, b, a_idx, b_idx, sel, wa, width)
     n_out, bs = sel.numel(), a.shape[1]
     out = torch.empty((n_out, bs, bs), dtype=a.dtype, device=a.device)
-    code, a_vec, b_vec, idx, stream = _cuda_args(a, b)
+    chosen, code, a_vec, b_vec, idx, stream = _cuda_args(a, b, out)
     with torch.cuda.device(a.device):
         rc = _library().matrel_spgemm_band(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), sel.data_ptr(),
             a_idx.data_ptr(), b_idx.data_ptr(), n_out, wa, width,
             a.shape[0], b.shape[0], bs, code, a_vec, b_vec, idx, stream)
-    _raise_on(rc, "spgemm_band")
+    tile_body.raise_on(rc, f"spgemm_band ({chosen} body)")
     LAUNCHES_BAND += 1
+    BODY_LAUNCHES[chosen] += 1
     return out

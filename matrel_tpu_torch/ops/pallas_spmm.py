@@ -3,7 +3,9 @@
 
 The hot op of BASELINE row 4. On a CUDA tensor the wrapper
 :func:`spmm_blocksparse` launches the hand-written Hopper kernel in
-``csrc/spmm_blocksparse.cu`` (built at first use, loaded with ctypes);
+``csrc/spmm_blocksparse.cu`` (built at first use, loaded with ctypes;
+bf16 payloads through the tile body :mod:`tile_body` chooses by shape,
+the ``wgmma`` body of ``csrc/bf16_tile_wgmma.cuh`` or the WMMA one);
 on a CPU tensor it runs the plain PyTorch version
 :func:`spmm_blocksparse_plain` beside it — the same function, gather →
 batched f32 matmul → ``index_add_``. There is no fallback from one to
@@ -24,14 +26,16 @@ import numpy as np
 import torch
 
 from matrel_tpu_torch.config import MatrelConfig
+from matrel_tpu_torch.ops import tile_body
 
 #: Kernel launches made by :func:`spmm_blocksparse` (counted where the
-#: kernel is launched and nowhere else).
+#: kernel is launched and nowhere else), in all and by tile body.
 LAUNCHES = 0
+BODY_LAUNCHES = dict.fromkeys(tile_body.CODES, 0)
 
 SOURCE = "spmm_blocksparse.cu"
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 #: Tiles per step of the plain version: bounds its f32 temporaries to
 #: about 3 x 64 MiB at bs = pm = 512.
@@ -44,7 +48,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.matrel_spmm_blocksparse
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, i, i, i, ll, ll, ll, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, ll, ll, ll, ll, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -84,7 +88,7 @@ def spmm_blocksparse_plain(blocks: torch.Tensor, block_rows: torch.Tensor,
 def _check(blocks, row_ptr, bcols, d, out_rows) -> None:
     if blocks.dim() != 3 or blocks.shape[1] != blocks.shape[2]:
         raise ValueError(f"blocks must be [nnzb, bs, bs], got {tuple(blocks.shape)}")
-    if blocks.dtype not in _DTYPE_CODES:
+    if blocks.dtype not in _DTYPES:
         raise TypeError(f"payload dtype {blocks.dtype} not supported "
                         f"(float32 or bfloat16)")
     if d.dtype != blocks.dtype:
@@ -107,13 +111,21 @@ def _check(blocks, row_ptr, bcols, d, out_rows) -> None:
         raise ValueError(f"out_rows must be >= 1, got {out_rows}")
 
 
+def body(blocks: torch.Tensor, d: torch.Tensor, out: torch.Tensor) -> str:
+    """The tile body a launch over these operands runs
+    (:func:`tile_body.body_of`; the output's columns are D's)."""
+    return tile_body.body_of(blocks.dtype, blocks.shape[1], d.shape[1],
+                             blocks, d, out)
+
+
 def spmm_blocksparse(blocks: torch.Tensor, row_ptr: torch.Tensor,
                      bcols: torch.Tensor, d: torch.Tensor,
                      out_rows: int) -> torch.Tensor:
     """Y[out_rows, pm] = S·D for S in CSR tile order (``row_ptr`` [gr+1],
     ``bcols`` [nnzb] int32, ``blocks`` [nnzb, bs, bs]) in the payload
-    dtype. CUDA tensors launch the Hopper kernel on the current stream;
-    CPU tensors run :func:`spmm_blocksparse_plain`."""
+    dtype. CUDA tensors launch the Hopper kernel on the current stream,
+    with the tile body :func:`body` chooses; CPU tensors run
+    :func:`spmm_blocksparse_plain`."""
     global LAUNCHES
     _check(blocks, row_ptr, bcols, d, out_rows)
     dev = blocks.device
@@ -131,18 +143,18 @@ def spmm_blocksparse(blocks: torch.Tensor, row_ptr: torch.Tensor,
     a_vec = int(bs % vec == 0 and blocks.data_ptr() % 16 == 0)
     d_vec = int(pm % vec == 0 and d.data_ptr() % 16 == 0)
     out = torch.empty((out_rows, pm), dtype=blocks.dtype, device=dev)
+    chosen = body(blocks, d, out)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.matrel_spmm_blocksparse(
             blocks.data_ptr(), row_ptr.data_ptr(), bcols.data_ptr(),
-            d.data_ptr(), out.data_ptr(), _DTYPE_CODES[blocks.dtype],
-            row_ptr.numel() - 1, bs, d.shape[0], pm, out_rows, a_vec, d_vec,
-            dev.index, stream)
-    if rc != 0:
-        raise RuntimeError(f"spmm_blocksparse kernel launch failed: CUDA "
-                           f"error {rc}")
+            d.data_ptr(), out.data_ptr(), tile_body.CODES[chosen],
+            row_ptr.numel() - 1, bs, nnzb, d.shape[0], pm, out_rows, a_vec,
+            d_vec, dev.index, stream)
+    tile_body.raise_on(rc, f"spmm_blocksparse ({chosen} body)")
     LAUNCHES += 1
+    BODY_LAUNCHES[chosen] += 1
     return out
 
 

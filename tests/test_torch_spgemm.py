@@ -30,6 +30,7 @@ from matrel_tpu_torch.core.mesh import make_mesh
 from matrel_tpu_torch.ops import kernel_registry as kr
 from matrel_tpu_torch.ops import pallas_spgemm as ps
 from matrel_tpu_torch.ops import spgemm as sg
+from matrel_tpu_torch.ops import tile_body
 
 JCFG = JConfig(pallas_interpret=True)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -233,3 +234,47 @@ def test_bf16_session_keeps_the_payload_dtype(jmesh, tmesh):
     assert ts.compile(TA.multiply(TA)).optimized.attrs["spgemm_kernel"] \
         == "pallas_cluster"
     _close(out.data, js.compute(JA.multiply(JA)).data, torch.bfloat16)
+
+
+# -- the bf16 tile body of B4–B7, chosen by shape before the launch ----------
+
+
+@pytest.mark.parametrize("bs,want", [
+    (512, "wgmma"),     # the S×S 1% random bf16 deployment (bench.py)
+    (64, "wgmma"), (128, "wgmma"), (256, "wgmma"),
+    (4, "wmma"), (8, "wmma"), (16, "wmma"), (24, "wmma"), (192, "wmma"),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_spgemm_body_by_shape(bs, want, dtype):
+    """B4–B7 take the wgmma body at bs a power of two >= 64 (output
+    columns = bs); f32 never asks for a bf16 body."""
+    a = torch.zeros((2, bs, bs), dtype=dtype)
+    b = torch.zeros((3, bs, bs), dtype=dtype)
+    out = torch.zeros((1, bs, bs), dtype=dtype)
+    got = ps.body(a, b, out)
+    assert got == (want if dtype == torch.bfloat16 else "f32")
+    if dtype == torch.bfloat16:
+        assert tile_body.bf16_body(bs, bs, True) == want
+
+
+def test_spgemm_misaligned_stack_takes_wmma():
+    flat = torch.zeros(2 * 512 * 512 + 1, dtype=torch.bfloat16)
+    a = flat[1:].view(2, 512, 512)
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    b = torch.zeros((2, 512, 512), dtype=torch.bfloat16)
+    out = torch.zeros((1, 512, 512), dtype=torch.bfloat16)
+    assert ps.body(a, b, out) == "wmma"
+    assert ps.body(b, a, out) == "wmma"
+    assert ps.body(b, b, out) == "wgmma"
+
+
+def test_spgemm_cpu_route_counts_no_body_launch(tmesh):
+    A = kr.synthesize_structure("powerlaw_coo", 128, 64, tmesh, seed=2)
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    A = BlockSparseMatrix(blocks=A.blocks.to(torch.bfloat16),
+                          block_rows=A.block_rows, block_cols=A.block_cols,
+                          shape=A.shape, block_size=A.block_size, mesh=tmesh)
+    before = dict(ps.BODY_LAUNCHES)
+    for kid in kr.kernel_ids():
+        sg.spgemm_tiles(A, A, kernel=kid)
+    assert ps.BODY_LAUNCHES == before

@@ -30,6 +30,7 @@ from matrel_tpu_torch.core.mesh import make_mesh
 from matrel_tpu_torch.executor import compile_expr
 from matrel_tpu_torch.ir import expr as E
 from matrel_tpu_torch.ops import pallas_spmm, spmm as t_spmm
+from matrel_tpu_torch.ops import tile_body
 
 
 @pytest.fixture(scope="module")
@@ -175,3 +176,65 @@ def test_kernel_wrapper_cpu_uses_plain_version(tmesh):
         pallas_spmm.spmm_blocksparse(payload, row_ptr, bcols, d.double(), 24)
     with pytest.raises(ValueError):
         pallas_spmm.spmm_blocksparse(payload, row_ptr, bcols, d.T, 24)
+
+
+# -- the bf16 tile body, chosen by shape before the launch --------------------
+
+#: (bs, pm, aligned, body): BASELINE row 4 and the other shapes the wgmma
+#: body is held to on the card take it; the ragged bf16 shapes, a D whose
+#: rows are not a multiple of 16 bytes and a misaligned operand do not.
+BODY_CASES = [
+    (512, 512, True, "wgmma"),     # BASELINE row 4
+    (64, 200, True, "wgmma"),
+    (128, 136, True, "wgmma"),
+    (512, 520, True, "wgmma"),
+    (4, 512, True, "wmma"),
+    (8, 512, True, "wmma"),
+    (16, 512, True, "wmma"),
+    (24, 512, True, "wmma"),
+    (192, 512, True, "wmma"),
+    (512, 77, True, "wmma"),
+    (512, 512, False, "wmma"),
+]
+
+
+@pytest.mark.parametrize("bs,pm,aligned,want", BODY_CASES)
+def test_bf16_body_by_shape(bs, pm, aligned, want):
+    assert tile_body.bf16_body(bs, pm, aligned) == want
+
+
+@pytest.mark.parametrize("bs,pm,aligned,want",
+                         [c for c in BODY_CASES if c[2]])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_spmm_body_of_operands(bs, pm, aligned, want, dtype):
+    """The wrapper's choice reads the operands: bf16 follows the shape
+    rule, f32 never asks for a bf16 body."""
+    blocks = torch.zeros((1, bs, bs), dtype=dtype)
+    d = torch.zeros((bs, pm), dtype=dtype)
+    out = torch.zeros((bs, pm), dtype=dtype)
+    got = pallas_spmm.body(blocks, d, out)
+    assert got == (want if dtype == torch.bfloat16 else "f32")
+
+
+def test_spmm_misaligned_or_empty_operand_takes_wmma():
+    blocks = torch.zeros((1, 512, 512), dtype=torch.bfloat16)
+    out = torch.zeros((512, 512), dtype=torch.bfloat16)
+    flat = torch.zeros(512 * 512 + 1, dtype=torch.bfloat16)
+    d = flat[1:].view(512, 512)                 # 2 bytes off a 16-byte line
+    assert d.is_contiguous() and d.data_ptr() % 16 != 0
+    assert pallas_spmm.body(blocks, d, out) == "wmma"
+    empty = torch.zeros((0, 512, 512), dtype=torch.bfloat16)
+    assert pallas_spmm.body(empty, d[:, :], out) == "wmma"
+
+
+def test_cpu_route_counts_no_body_launch(tmesh):
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    rng = np.random.default_rng(10)
+    a = block_sparse_np(rng, 128, 128, 64, 0.5)
+    S = BlockSparseMatrix.from_numpy(a, block_size=64, mesh=tmesh,
+                                     dtype="bfloat16")
+    _, payload, row_ptr, bcols = pallas_spmm.csr_payload(S)
+    d = torch.ones((128, 8), dtype=torch.bfloat16)
+    before = dict(pallas_spmm.BODY_LAUNCHES)
+    pallas_spmm.spmm_blocksparse(payload, row_ptr, bcols, d, 128)
+    assert pallas_spmm.BODY_LAUNCHES == before
