@@ -74,6 +74,18 @@
    (skewed A·B·C, 10,000 x 100, f32, plan (A·(B·C))) and row 1 (4096^2
    f32 multiply). Results are checked against the plain kernel versions
    or a float64 oracle.
+4. After the run's peak device memory is read and held to its bound:
+   MatrelSession.run_many over one batch of row 4's S·D, row 5's A·x on
+   the cached COO A, row 2's chain and a duplicate (one MultiPlan, a
+   cache hit on the reordered batch, each result bit-equal to its own
+   compute(), B1 and B2 launched from inside the batch), one vec and one
+   rank1 query against numpy; then the north-star 65k chain
+   (workloads/big_chain.py): both schedules at n = 8192 against a
+   float64 oracle, streaming_chain_slab at bench_all.py's sizes (n =
+   65,536, tile 8192, panel 16,384, bf16 cheap_gen seeds 1, 2, 3, "fro";
+   one warm and two timed runs, seconds and TFLOP/s against 4n³, the
+   generation / GEMM split from torch.profiler) held against the
+   tile-assembly schedule, under the phase's own peak-memory bound.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -1255,6 +1267,47 @@ def theta_check(name, theta, G, r, want):
     return eta, fwd, cond
 
 
+def gram_drift(panel_fn, n_panels, G) -> dict:
+    """Row 3's "high" Gram (the bf16 split of ops/gram.py) over every
+    panel, its bf16 passes run two ways: one tensor-core GEMM over a
+    panel's whole 250,000 rows, and ``strategies.local_dot``'s 2048-row
+    chunks summed in f32 (what the port runs). For each: the relative
+    Frobenius error and the mean relative drift of the diagonal against
+    the float64 Gram ``G``, and whether Cholesky still factors it. Raises
+    only if the chunked form does not factor."""
+    import torch
+    from matrel_tpu_torch.ops.gram import symmetric_gram
+    from matrel_tpu_torch.parallel import strategies
+
+    def one_gemm(a, b):
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    out = {}
+    for label, dot in (("one GEMM", one_gemm),
+                       ("2048-row chunks", strategies.local_dot)):
+        acc = None
+        for p in range(n_panels):
+            xp, _ = panel_fn(p)
+            g = symmetric_gram(xp, lambda a, b: dot(a.T, b))
+            acc = g if acc is None else acc + g
+            del xp, g
+        d = acc.double()
+        rel = float((d - G).norm() / G.norm())
+        drift = float(((d.diagonal() - G.diagonal())
+                       / G.diagonal()).mean())
+        factors = int(torch.linalg.cholesky_ex(acc)[1]) == 0
+        out[label] = {"rel": rel, "diag_drift": drift, "factors": factors}
+        del acc, d
+    if not out["2048-row chunks"]["factors"]:
+        raise AssertionError("row 3: the chunked bf16 Gram does not factor")
+    log("row 3 \"high\" Gram, bf16 passes on the tensor cores, vs float64: "
+        + "; ".join(f"{k}: ‖ΔG‖/‖G‖ {v['rel']:.3e}, mean diagonal drift "
+                    f"{v['diag_drift']:.3e}, Cholesky "
+                    f"{'factors' if v['factors'] else 'fails'}"
+                    for k, v in out.items()))
+    return out
+
+
 def path_row3_linreg(sess):
     """BASELINE row 3 at full size through fit_streaming (bench_all.py's
     hash panels, planted θ = 1) at precision "high" and "highest", held
@@ -1303,6 +1356,7 @@ def path_row3_linreg(sess):
             f" GiB")
         out[precision] = {"s": secs, "tflops": flops / secs / 1e12,
                           "eta": eta, "fwd": fwd}
+    out["gram_drift"] = gram_drift(panel_fn, n_panels, G)
     del G, r
     # the first n1 rows held whole: fit (compile_exprs), fit_streaming
     # and CG on the ridge system, l2 = 1e-3·λ_max, whose condition
@@ -1940,6 +1994,331 @@ def path_latency(sess, queries: dict) -> None:
             log(f"    {t:.4f} ms  {key[:90]}")
 
 
+# -- the rest of the core surface: run_many, vec, rank1 ---------------------
+
+
+def multi_plans(sess) -> int:
+    return sum(1 for k in sess._plan_cache if k.startswith("multi:"))
+
+
+def path_core_surface(sess, queries: dict) -> dict:
+    """``run_many`` over one batch of row 4's S·D (B1), row 5's A·x on
+    the cached COO A (B2), row 2's chain and a duplicate of S·D: one
+    MultiPlan compile, a cache hit on the reordered batch, each result
+    equal to its own ``compute``, and B1 and B2 launched from inside the
+    batch (the caller reads nothing else in between). Then one ``vec``
+    and one ``rank1`` query against numpy."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.ops import pallas_spmm, pallas_spmv as pc
+    names = ("row4 S·D", "row5 A·x", "row2 A·B·C")
+    batch = [queries[k] for k in names]
+    S, D = (c.attrs["matrix"] for c in batch[0].children)
+    batch.append(S.multiply(D))                # the duplicate root
+    pallas_spmm.LAUNCHES = pc.LAUNCHES_SPMV = 0
+    multi0 = multi_plans(sess)
+    t0 = time.perf_counter()
+    outs = sess.run_many(batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {"spmm_blocksparse": pallas_spmm.LAUNCHES,
+                "spmv_compact": pc.LAUNCHES_SPMV}
+    if multi_plans(sess) != multi0 + 1:
+        raise AssertionError(f"run_many: {multi_plans(sess) - multi0} "
+                             f"MultiPlan compiles, want 1")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"run_many: kernel launches {launches}, want "
+                             f"B1 and B2 from inside the batch")
+    if outs[3] is not outs[0]:
+        raise AssertionError("run_many: the duplicate root was not "
+                             "deduplicated")
+    rev = sess.run_many(list(reversed(batch)))
+    torch.cuda.synchronize()
+    if multi_plans(sess) != multi0 + 1:
+        raise AssertionError("run_many: the reordered batch recompiled")
+    for name, e, out, back in zip(names, batch, outs, reversed(rev)):
+        single = sess.compute(e)
+        if not (torch.equal(out.data, single.data)
+                and torch.equal(back.data, single.data)):
+            err = float((out.data.float() - single.data.float()).abs().max())
+            raise AssertionError(f"run_many {name}: differs from its own "
+                                 f"compute(), max abs {err}")
+    ms = time_ms(lambda: sess.run_many(batch), warmup=2, runs=10)
+    del outs, rev
+    X = sess.random((1000, 300), seed=8)
+    v = sess.compute(X.expr().vec()).to_numpy()
+    x = X.to_numpy()
+    if v.shape != (300_000, 1) or not np.array_equal(v[:, 0],
+                                                     x.T.reshape(-1)):
+        raise AssertionError("vec: differs from numpy's column-major vec")
+    u, w = sess.random((1000, 1), seed=9), sess.random((300, 1), seed=10)
+    e = X.expr().rank_one_update(u, w)
+    if sess.compile(e).optimized.kind != "rank1":
+        raise AssertionError("rank1: the plan's root is not rank1")
+    r = sess.compute(e).to_numpy()
+    want = x.astype(np.float64) + (u.to_numpy().astype(np.float64)
+                                   @ w.to_numpy().astype(np.float64).T)
+    rel = float(np.abs(r - want).max() / np.abs(want).max())
+    if r.shape != want.shape or not np.isfinite(r).all() or rel > 1e-6:
+        raise AssertionError(f"rank1: rel err {rel} vs float64")
+    log(f"path core surface: run_many over {', '.join(names)} and a "
+        f"duplicate: one MultiPlan, B1 {launches['spmm_blocksparse']} / B2 "
+        f"{launches['spmv_compact']} launches inside the batch, first call "
+        f"{first_s:.3f} s, warm {ms:.4f} ms a batch, reordered batch a "
+        f"cache hit, each result bit-equal to its own compute(); vec "
+        f"(1000 x 300) equal to numpy, rank1 rel err {rel:.3e} vs float64")
+    return launches
+
+
+def dp_timing(dev) -> dict:
+    """Host ms of one chain DP (``ir/chain.optimal_order``), native
+    (``utils/native.py``) against the Python DP, on the plan-snapshot
+    corpus's three chains (tools/plan_snapshot.py: skewed, the
+    col-sharded middle operand, the row-sharded first operand) on the
+    (2, 4) planning grid, and on a 30-operand chain on one card; median
+    of 20 calls each. Both DPs must reach the same cost (dense chains:
+    no density estimate to round)."""
+    import numpy as np
+    from matrel_tpu_torch.core.blockmatrix import BlockMatrix
+    from matrel_tpu_torch.core.mesh import P, make_mesh
+    from matrel_tpu_torch.ir import chain
+    from matrel_tpu_torch.ir.expr import leaf
+    from matrel_tpu_torch.utils import native
+    if native.load() is None:
+        raise AssertionError("the native chain DP did not build")
+    grid = make_mesh((2, 4), device=dev)
+    one = make_mesh(device=dev)
+    xy = ("x", "y")
+
+    def ops(mesh, dims, specs=None):
+        specs = specs or [None] * (len(dims) - 1)
+        return [leaf(BlockMatrix.from_numpy(
+            np.zeros((dims[i], dims[i + 1]), np.float32), mesh=mesh,
+            spec=specs[i])) for i in range(len(dims) - 1)]
+
+    rng = np.random.default_rng(1)
+    cases = {
+        "chain_skewed": (ops(grid, [2048, 64, 2048, 64]), grid),
+        "chain_layout_flip": (ops(grid, [16, 512, 512, 16],
+                                  [None, P(None, xy), None]), grid),
+        "chain_interior_credit": (ops(grid, [1600, 512, 512, 512],
+                                      [P(xy, None), None, None]), grid),
+        "30 operands": (ops(one, [int(d) for d in
+                                  rng.integers(10, 2000, 31)]), one),
+    }
+    out = {}
+    keep = native.chain_dp
+    for name, (chain_ops, mesh) in cases.items():
+        def run():
+            return chain.optimal_order(chain_ops, grid=mesh.grid, mesh=mesh)
+
+        times = {}
+        for label in ("native", "python"):
+            native.chain_dp = keep if label == "native" else (
+                lambda *a, **k: None)
+            try:
+                cost = run()[1]
+                samples = []
+                for _ in range(20):
+                    t0 = time.perf_counter()
+                    run()
+                    samples.append(time.perf_counter() - t0)
+            finally:
+                native.chain_dp = keep
+            times[label] = (statistics.median(samples) * 1e3, cost)
+        if times["native"][1] != times["python"][1]:
+            raise AssertionError(f"chain DP {name}: native cost "
+                                 f"{times['native'][1]} vs Python "
+                                 f"{times['python'][1]}")
+        out[name] = {k: v[0] for k, v in times.items()}
+    log("chain DP host ms per optimal_order, native / Python: "
+        + "; ".join(f"{k} {v['native']:.4f} / {v['python']:.4f}"
+                    for k, v in out.items()))
+    return out
+
+
+# -- the north-star 65k chain (workloads/big_chain.py) -----------------------
+
+#: bench_all.py bench_north_star's sizes: n, tile, panel.
+NS_N, NS_TILE, NS_PANEL = 65_536, 8192, 16_384
+#: The first correctness check's sizes (both schedules against float64).
+NS_CHECK_N, NS_CHECK_TILE, NS_CHECK_PANEL = 8192, 1024, 2048
+
+
+def ns_fro_rtol(k_first: int, k_second: int) -> float:
+    """Relative bound on how far the chain's Frobenius² may move from
+    the exactly accumulated value, on the model that the tensor cores'
+    f32 accumulator rounds toward zero at each 16-deep k-step (what the
+    sign and size of the measured drift show, PERF.md section 6): each
+    step loses at most one f32 ulp (2^-23 relative) of a running sum no
+    larger than the result, so a K-long product may shrink by
+    K / 16 · 2^-23; the second product carries the first's loss, and
+    squaring doubles both."""
+    return 2.0 * (k_first + k_second) / 16 * 2.0 ** -23
+
+
+#: A schedule at n = 8192 against the float64 oracle (T rounded to bf16
+#: as the body rounds it): the slab's two 8192-long products, 2.4e-4.
+NS_ORACLE_RTOL = ns_fro_rtol(NS_CHECK_N, NS_CHECK_N)
+#: The two schedules against each other at n = 65,536: the slab's two
+#: 65,536-long products plus the tile-assembly's 8192-long ones, 2.2e-3.
+NS_SCHEDULE_RTOL = ns_fro_rtol(NS_N, NS_N) + ns_fro_rtol(NS_TILE, NS_TILE)
+#: The north-star phase's own peak-memory bound, over what earlier phases
+#: still hold: 1.25 × the measured 11.000 GiB, the tile-assembly
+#: schedule's T·C step (PERF.md section 6 gives the reckoning).
+NS_PEAK_LIMIT_BYTES = int(13.75 * 2**30)
+
+
+def north_star_gens(tile: int, dev):
+    """bench_all.py's operands: bf16 cheap_gen, seeds 1, 2, 3."""
+    from matrel_tpu_torch.workloads import big_chain
+    return tuple(big_chain.cheap_gen(s, tile, device=dev) for s in (1, 2, 3))
+
+
+def north_star_oracle(n: int, tile: int, dev) -> float:
+    """float64 Frobenius² of (A·B)·C on the card, with T = A·B rounded
+    to f32 and then to bf16, as the slab body rounds its f32 product."""
+    import torch
+    A, B, C = (g.slab(0, 0, (n, n)) for g in north_star_gens(tile, dev))
+    T = (A.double() @ B.double()).float().to(torch.bfloat16)
+    del A, B
+    O = T.double() @ C.double()
+    return float((O * O).sum())
+
+
+def north_star_split(prof, n_panels: int, kt: int) -> dict:
+    """Device ms of one profiled run by stage: the A·B GEMMs, the T·C
+    GEMMs (the first kt and the last kt ``aten::mm`` calls of each
+    panel), the Frobenius reduction, and generation (every other
+    top-level op: the slab generators and their bf16 casts); plus the
+    copy kernels launched from inside a GEMM call (a strided ``out=``
+    that cuBLAS could not write in place would show here)."""
+    split = {"gemm_ab": 0.0, "gemm_tc": 0.0, "reduce": 0.0, "gen": 0.0}
+    inner_copies = 0
+    mm_seen = 0
+
+    def walk_copies(ev) -> int:
+        own = sum(1 for k in ev.kernels if "copy" in k.name.lower())
+        return own + sum(walk_copies(c) for c in ev.cpu_children)
+
+    tops = sorted((ev for ev in prof.events()
+                   if ev.cpu_parent is None
+                   and "CPU" in str(getattr(ev, "device_type", ""))),
+                  key=lambda ev: ev.time_range.start)
+    for ev in tops:
+        ms = ev.device_time_total / 1e3
+        if ev.name == "aten::mm":
+            stage = "gemm_ab" if (mm_seen % (2 * kt)) < kt else "gemm_tc"
+            mm_seen += 1
+            inner_copies += walk_copies(ev)
+        elif ev.name in ("aten::sum", "aten::square_"):
+            stage = "reduce"
+        else:
+            stage = "gen"
+        split[stage] += ms
+    if mm_seen != 2 * kt * n_panels:
+        raise AssertionError(f"north star profile: {mm_seen} aten::mm "
+                             f"calls, want {2 * kt * n_panels}")
+    split["inner_copies"] = inner_copies
+    return split
+
+
+def path_north_star(dev) -> dict:
+    """The north-star 65k chain through workloads/big_chain.py: both
+    schedules at n = 8192 against a float64 oracle; then
+    streaming_chain_slab at bench_all.py's sizes (one warm run, two timed
+    runs, host clock around synchronised runs), one profiled run for the
+    stage split, and streaming_chain (the tile-assembly schedule) on the
+    same generators against it. Holds its own peak device memory under
+    NS_PEAK_LIMIT_BYTES."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from matrel_tpu_torch.workloads import big_chain
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()      # what earlier phases hold
+    n, tile, panel = NS_CHECK_N, NS_CHECK_TILE, NS_CHECK_PANEL
+    oracle = north_star_oracle(n, tile, dev)
+    gens = north_star_gens(tile, dev)
+    small = {"slab": float(big_chain.streaming_chain_slab(
+                 n, *gens, tile=tile, panel=panel)),
+             "tile-assembly": float(big_chain.streaming_chain(
+                 n, *gens, tile=tile, panel=panel))}
+    small_rel = {k: abs(v - oracle) / abs(oracle) for k, v in small.items()}
+    for k, rel in small_rel.items():
+        if not math.isfinite(small[k]) or rel > NS_ORACLE_RTOL:
+            raise AssertionError(f"north star n={n} {k}: {small[k]!r} vs "
+                                 f"float64 {oracle!r}, rel {rel:.3e} > "
+                                 f"{NS_ORACLE_RTOL}")
+    log(f"north star n={n:,} (tile {tile}, panel {panel}): Frobenius² "
+        f"float64 {oracle:.9e}; slab rel {small_rel['slab']:.3e}, "
+        f"tile-assembly rel {small_rel['tile-assembly']:.3e}")
+
+    n, tile, panel = NS_N, NS_TILE, NS_PANEL
+    gens = north_star_gens(tile, dev)
+
+    def run():
+        return big_chain.streaming_chain_slab(n, *gens, tile=tile,
+                                              panel=panel)
+
+    warm = float(run())
+    secs, vals = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals.append(float(run()))          # float() waits for the card
+        secs.append(time.perf_counter() - t0)
+    if not all(math.isfinite(v) and v == warm for v in vals):
+        raise AssertionError(f"north star: runs gave {warm!r}, {vals}")
+    flops = big_chain.north_star_flops(n)
+    s_best = min(secs)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    split = north_star_split(prof, n // panel, n // tile)
+    busy = sum(split[k] for k in ("gemm_ab", "gemm_tc", "reduce", "gen"))
+    if busy <= 0.0:
+        raise AssertionError("north star: the profiler saw no device time")
+    if split["inner_copies"]:
+        raise AssertionError(f"north star: {split['inner_copies']} copy "
+                             f"kernels inside the GEMM calls")
+    t0 = time.perf_counter()
+    accum = float(big_chain.streaming_chain(n, *gens, tile=tile,
+                                            panel=panel))
+    accum_s = time.perf_counter() - t0
+    rel = abs(accum - warm) / abs(warm)
+    if not math.isfinite(accum) or rel > NS_SCHEDULE_RTOL:
+        raise AssertionError(f"north star: slab {warm!r} vs tile-assembly "
+                             f"{accum!r}, rel {rel:.3e} > {NS_SCHEDULE_RTOL}")
+    peak = torch.cuda.max_memory_allocated() - base
+    gemm_flops = flops / 2
+    log(f"path north star: streaming_chain_slab n={n:,} tile {tile} panel "
+        f"{panel} bf16 cheap_gen(1, 2, 3) 'fro': "
+        + ", ".join(f"{s:.4f}" for s in secs)
+        + f" s ({flops / s_best / 1e12:.1f} TFLOP/s against 4n³ = "
+        f"{flops:.4e}; bound {flops / PEAK_FLOPS['bfloat16']:.3f} s at "
+        f"989 TFLOP/s); Frobenius² {warm:.9e}; {device_line()}")
+    log(f"  profiled run, device ms: A·B GEMMs {split['gemm_ab']:.1f} "
+        f"({gemm_flops / split['gemm_ab'] / 1e9:.1f} TFLOP/s), T·C GEMMs "
+        f"{split['gemm_tc']:.1f} ({gemm_flops / split['gemm_tc'] / 1e9:.1f}"
+        f" TFLOP/s), generation {split['gen']:.1f} "
+        f"({split['gen'] / busy:.1%} of device time), reduction "
+        f"{split['reduce']:.1f}; device busy {busy:.1f} ms; 0 copy kernels "
+        f"inside the GEMM calls")
+    log(f"  tile-assembly schedule (streaming_chain) {accum_s:.3f} s, "
+        f"Frobenius² {accum:.9e}, rel {rel:.3e} against the slab; the "
+        f"phase's peak device memory {peak / 2**30:.3f} GiB over the "
+        f"{base / 2**30:.3f} GiB earlier phases hold")
+    if peak > NS_PEAK_LIMIT_BYTES:
+        raise AssertionError(f"north star peak device memory "
+                             f"{peak / 2**30:.3f} GiB > "
+                             f"{NS_PEAK_LIMIT_BYTES / 2**30:.2f} GiB")
+    return {"s": secs, "tflops": flops / s_best / 1e12, "split": split,
+            "peak_gib": peak / 2**30, "accum_s": accum_s, "rel": rel,
+            "small_rel": small_rel}
+
+
 def ptxas_functions(log_text: str) -> dict:
     """{mangled function: (registers, stack, spill stores, spill loads)}
     from an ``nvcc -Xptxas=-v`` log."""
@@ -2143,13 +2522,19 @@ def main() -> int:
     if peak > PEAK_LIMIT_BYTES:
         raise AssertionError(f"peak device memory {peak / 2**30:.3f} GiB "
                              f"> {PEAK_LIMIT_BYTES / 2**30:.0f} GiB")
+    l_batch = path_core_surface(sess, queries)
+    dp_timing(dev)
+    del queries, S, D
+    path_north_star(dev)              # holds its own peak-memory bound
 
     kernels = [
         kernel_entry("spmm_blocksparse", pallas_spmm.SOURCE,
-                     "matrel_tpu/ops/pallas_spmm.py:31", launches, row),
+                     "matrel_tpu/ops/pallas_spmm.py:31",
+                     launches + l_batch["spmm_blocksparse"], row),
         kernel_entry("spmv_compact", pallas_spmv.SOURCE,
                      "matrel_tpu/ops/pallas_spmv.py:50",
-                     launches_pr + l_spmv, b23["spmv_compact"]),
+                     launches_pr + l_spmv + l_batch["spmv_compact"],
+                     b23["spmv_compact"]),
         kernel_entry("spmm_compact", pallas_spmv.SOURCE,
                      "matrel_tpu/ops/pallas_spmv.py:334", l_spmm,
                      b23["spmm_compact"]),

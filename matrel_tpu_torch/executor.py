@@ -27,7 +27,7 @@ with one memo per call, so shared subexpressions (the Xᵀ of the normal
 equations' XᵀX and Xᵀy) are computed once.
 
 Lowered kinds: leaf, sparse_leaf, coo_leaf, transpose, matmul, solve,
-inverse, elemwise, scalar, agg. Every other kind raises
+inverse, elemwise, scalar, agg, vec, rank1. Every other kind raises
 ``NotPortedError``. The autotuned SpMV executor choice is not ported
 (its knob raises).
 """
@@ -53,7 +53,8 @@ from matrel_tpu_torch.parallel import planner, strategies
 Tensor = torch.Tensor
 
 LOWERED_KINDS = ("leaf", "sparse_leaf", "coo_leaf", "transpose", "matmul",
-                 "solve", "inverse", "elemwise", "scalar", "agg")
+                 "solve", "inverse", "elemwise", "scalar", "agg", "vec",
+                 "rank1")
 
 # Narrow-operand threshold for the COO SpMV dispatch. The planner calls
 # _coo_dispatch_plan itself (not this constant) so the plan-refusal
@@ -212,6 +213,10 @@ class Lowerer:
             return _unsigned_via_int64(self._scalar, node, ev)
         if k == "agg":
             return _unsigned_via_int64(self._agg, node, ev)
+        if k == "vec":
+            return self._vec(node, ev)
+        if k == "rank1":
+            return _unsigned_via_int64(self._rank1, node, ev)
         raise NotPortedError(
             f"lowering for node kind {k!r} is not ported to "
             f"matrel_tpu_torch yet (ported: {', '.join(LOWERED_KINDS)})")
@@ -382,6 +387,23 @@ class Lowerer:
 
         return strategies.run_matmul(strategy, a, b, self.mesh,
                                      self.config, epilogue=storage_epi)
+
+    def _vec(self, node: MatExpr, ev) -> Tensor:
+        """Column-major vec of the logical region, then padded rows."""
+        (child,) = node.children
+        n, m = child.shape
+        v = ev(child)[:n, :m].T.reshape(n * m, 1)
+        pshape = padding.padded_shape(node.shape, self.mesh)
+        if v.shape[0] != pshape[0]:
+            v = torch.nn.functional.pad(v, (0, 0, 0, pshape[0] - v.shape[0]))
+        return v
+
+    def _rank1(self, node: MatExpr, ev) -> Tensor:
+        """A + u·vᵀ over the padded operands (their padding is zero). The
+        outer product takes jnp.matmul's result dtype."""
+        a, u, v = (ev(c) for c in node.children)
+        uv = strategies.local_dot(u, v.T)
+        return a + uv.to(torch.promote_types(u.dtype, v.dtype))
 
     def _coo_spmv_stack(self, plan, X: Tensor) -> Tensor:
         """A·X for the k columns of ``X`` (n_cols, k) as an (n_rows, k)
@@ -765,6 +787,20 @@ def compile_exprs(exprs, mesh: Optional[Mesh] = None,
                      mesh=mesh, config=cfg,
                      meta={"optimize_ms": round(optimize_ms, 3),
                            "rule_hits": rule_hits})
+
+
+def plan_matmul_decisions(plan) -> List[dict]:
+    """Per-matmul planner-decision records of a compiled plan (a
+    :class:`CompiledPlan` or :class:`MultiPlan`), derived on first access
+    and cached in ``plan.meta``."""
+    meta = plan.meta
+    if "matmuls" not in meta:
+        roots = (plan.optimized if isinstance(plan.optimized, tuple)
+                 else (plan.optimized,))
+        meta["matmuls"] = [
+            d for o in roots
+            for d in planner.matmul_decisions(o, plan.mesh, plan.config)]
+    return meta["matmuls"]
 
 
 def _unique_leaves(exprs) -> List[MatExpr]:

@@ -3,9 +3,12 @@
 
 Collect maximal chains of matmul nodes A·B·C·…, run the O(n³) interval
 DP with a dimension-, sparsity- and layout-aware cost model, and
-re-parenthesise the tree to the minimum-cost order. This is the
-pure-Python DP of the JAX package (its reference implementation); the
-native ``chain_dp.cc`` mirror is not ported yet.
+re-parenthesise the tree to the minimum-cost order. Chains of three or
+more operands run the O(n³) loop in the native optimizer core
+(``native/chain_dp.cc`` through ``utils/native.py``, the same cost
+semantics); the pure-Python DP below is the reference implementation,
+used where the library is unavailable or the request prices what the
+native mirror does not know (a precision tier's FLOP scale).
 """
 
 from __future__ import annotations
@@ -55,6 +58,26 @@ def optimal_order(operands: List[MatExpr],
         weights = mesh_lib.axis_weights(mesh, config)
     from matrel_tpu_torch.parallel import planner as _planner
     flop_scale = _planner.sla_compute_factor(config)
+    # the native mirror predates precision tiers (and the JAX package's
+    # staged-reshard and learned-coefficient pricing, whose knobs the
+    # config refuses here): scaled requests run the Python DP
+    if n >= 3 and flop_scale == 1.0:
+        from matrel_tpu_torch.utils import native
+        dims = [op.shape[0] for op in operands] + [operands[-1].shape[1]]
+        res = native.chain_dp(dims, [op.density for op in operands],
+                              grid=grid,
+                              layouts=[stats.LAYOUT_CODES[l] for l in lays],
+                              weights=weights)
+        if res is not None:
+            splits, cost = res
+
+            def build(i: int, j: int) -> MatExpr:
+                if i == j:
+                    return operands[i]
+                s = int(splits[i][j])
+                return matmul(build(i, s), build(s + 1, j))
+
+            return build(0, n - 1), cost
     # best[i][j] = (cost, expr, layout) for operands[i..j] inclusive
     best: List[List[Optional[Tuple[float, MatExpr, str]]]] = [
         [None] * n for _ in range(n)

@@ -195,6 +195,11 @@ def infer_integral(node, memo: dict = None) -> bool:
     return walk(node)
 
 
+#: Integer codes of the operand layouts in the native chain DP's ABI
+#: (``native/chain_dp.cc``).
+LAYOUT_CODES = {"2d": 0, "row": 1, "col": 2, "rep": 3, "other": 4}
+
+
 def comm_proxy_layout(n: int, k: int, m: int, da: float, db: float,
                       gx: int, gy: int, itemsize: int = 4,
                       la: str = "2d", lb: str = "2d",

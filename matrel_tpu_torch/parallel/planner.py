@@ -2,7 +2,9 @@
 ``matrel_tpu/parallel/planner.py``, ported as far as
 ``annotate_strategies`` reaches under the slice's configuration:
 ``choose_strategy_ex``, ``comm_cost``, ``infer_layout``,
-``infer_dtype`` and ``choose_precision_tier``.
+``infer_dtype`` and ``choose_precision_tier``; plus the read-only
+decision records of an annotated plan (``matmul_decisions``,
+``comm_cost_axes``).
 
 The strategy choice per matmul is made before execution from shapes,
 densities and operand layouts, with a communication-cost model over the
@@ -157,6 +159,23 @@ def comm_cost(strategy: str, n: int, k: int, m: int,
     weighted byte-equivalents (layout-aware, α-β, topology-weighted)."""
     return _comm_detail(strategy, n, k, m, da, db, gx, gy, itemsize,
                         a_layout, b_layout, alpha_bytes, weights)[0]
+
+
+def comm_cost_axes(strategy: str, n: int, k: int, m: int,
+                   da: float, db: float, gx: int, gy: int,
+                   itemsize: int = 4,
+                   a_layout: str = "2d", b_layout: str = "2d",
+                   weights: Tuple[float, float] = (1.0, 1.0)
+                   ) -> Tuple[float, float]:
+    """Raw (unweighted) per-device bytes a strategy moves over each
+    grid axis, (x_bytes, y_bytes): the per-axis decomposition of
+    :func:`comm_cost`'s bill. ``weights`` only choose the stage order a
+    full-mesh collective's bytes are attributed under. (The JAX
+    package's learned-coefficient scaling is not ported; without it the
+    bytes are the same.)"""
+    _, bx, by = _comm_detail(strategy, n, k, m, da, db, gx, gy,
+                             itemsize, a_layout, b_layout, 0.0, weights)
+    return bx, by
 
 
 def _norm_axes(e):
@@ -377,6 +396,10 @@ def infer_dtype(node: MatExpr, config: Optional[MatrelConfig] = None,
 # their residual-split passes through the same strategy recipe.
 
 PRECISION_TIERS = ("f32", "bf16x1", "bf16x3", "int32", "int8")
+#: MXU passes a tier's multiply takes on the TPU (f32 is six bf16
+#: passes there): a planner record field, kept equal to the JAX
+#: package's.
+TIER_PASSES = {"f32": 6, "bf16x1": 1, "bf16x3": 3, "int32": 1, "int8": 1}
 TIER_COMPUTE_UNITS = {"f32": 3.0, "bf16x1": 0.5, "bf16x3": 1.5,
                       "int32": 1.0, "int8": 0.25}
 TIER_ITEMSIZE = {"f32": 4, "bf16x1": 2, "bf16x3": 4, "int32": 4, "int8": 1}
@@ -768,3 +791,96 @@ def annotate_strategies(e: MatExpr, mesh: Mesh,
     infer_dtype(e, config, memo)     # seed this (possibly new-uid) node
     infer_layout(e, mesh, lmemo, config)
     return e
+
+
+def matmul_decisions(root: MatExpr, mesh: Mesh,
+                     config: Optional[MatrelConfig] = None) -> list:
+    """Per-matmul decision records of an ANNOTATED plan: for every
+    matmul node (shared nodes once, children first) the chosen strategy
+    and why, the precision tier and what it costs, the dispatch a
+    sparse operand takes (with the S×S kernel and its estimates), or,
+    for a dense product, the operand layouts and the model's per-device
+    interconnect bytes on the grid. A pure read: nothing is re-chosen.
+
+    The records carry what the JAX package's carry with its result
+    cache, multi-query, staged-reshard, IVM, fusion and learned-
+    coefficient planes off — the planes this package has not ported."""
+    cfg = config or default_config()
+    gx, gy = mesh_lib.mesh_grid_shape(mesh)
+    wts = mesh_lib.axis_weights(mesh, cfg)
+    lmemo: dict = {}
+    out: list = []
+    seen: set = set()
+
+    def walk(n: MatExpr):
+        if n.uid in seen:
+            return
+        seen.add(n.uid)
+        for c in n.children:
+            walk(c)
+        if n.kind != "matmul":
+            return
+        a, b = n.children
+        nn, kk = a.shape
+        mm = b.shape[1]
+        rec = {"uid": n.uid, "dims": [nn, kk, mm],
+               "strategy": n.attrs.get("strategy", "xla"),
+               "source": n.attrs.get("strategy_source", "unknown"),
+               "flops": 2.0 * nn * kk * mm}
+        tier = n.attrs.get("precision_tier")
+        if tier is not None:
+            rec["precision_tier"] = tier
+            rec["est_passes"] = TIER_PASSES.get(tier)
+            rec["est_tier_cost"] = tier_matmul_cost(
+                tier, nn, kk, mm,
+                a.density if a.density is not None else 1.0,
+                b.density if b.density is not None else 1.0) \
+                if tier in TIER_COMPUTE_UNITS else None
+            rec["est_rel_err"] = TIER_EPS.get(tier)
+        if _spgemm_matmul(n, cfg):
+            from matrel_tpu_torch import executor as _exec
+            rec["dispatch"] = "spgemm"
+            rec.update(_exec.spgemm_estimates(n, cfg))
+            kid = n.attrs.get("spgemm_kernel")
+            struct = n.attrs.get("spgemm_structure")
+            ksrc = n.attrs.get("spgemm_kernel_source")
+            if kid is None:
+                kid, struct, ksrc = _exec.spgemm_kernel_choice(n, cfg)
+            rec["kernel_id"] = kid
+            rec["structure_class"] = struct
+            rec["kernel_source"] = ksrc
+            rec["est_vs_measured"] = ("measured" if ksrc == "measured"
+                                      else "estimate")
+        elif any(c.kind == "coo_leaf" for c in n.children):
+            # before sparse_leaf, in Lowerer._matmul's order
+            rec["dispatch"] = ("coo_spmv" if _coo_narrow_matmul(n)
+                               else "densify")
+        elif any(c.kind == "sparse_leaf" for c in n.children):
+            rec["dispatch"] = "spmm"
+        else:
+            la = infer_layout(a, mesh, lmemo, cfg)
+            lb = infer_layout(b, mesh, lmemo, cfg)
+            rec["layouts"] = [la, lb]
+            try:
+                # raw byte-equivalents (flat weights), summable as bytes
+                rec["est_ici_bytes"] = comm_cost(
+                    rec["strategy"], nn, kk, mm, a.density, b.density,
+                    gx, gy, a_layout=la, b_layout=lb,
+                    alpha_bytes=cfg.comm_alpha_bytes)
+                rec["est_axis_bytes"] = list(comm_cost_axes(
+                    rec["strategy"], nn, kk, mm, a.density, b.density,
+                    gx, gy, a_layout=la, b_layout=lb, weights=wts))
+                if wts[0] != wts[1]:
+                    # what the weighted ranking minimised: its own field
+                    rec["est_weighted_cost"] = comm_cost(
+                        rec["strategy"], nn, kk, mm, a.density,
+                        b.density, gx, gy, a_layout=la, b_layout=lb,
+                        alpha_bytes=cfg.comm_alpha_bytes, weights=wts)
+                    rec["axis_weights"] = list(wts)
+                    rec["topology_source"] = "config"
+            except ValueError:       # an override the model doesn't know
+                rec["est_ici_bytes"] = None
+        out.append(rec)
+
+    walk(root)
+    return out

@@ -9,7 +9,8 @@ a card that raises unless the caller asked for "cpu".
 The resilience, observability, serving and result-cache planes are not
 ported; their knobs are off by default (``NotPortedError`` otherwise),
 so ``compute`` is the JAX package's production branch: compile (or hit
-the plan cache) and run.
+the plan cache) and run. ``run_many`` runs a batch as one
+:class:`~matrel_tpu_torch.executor.MultiPlan` from the same cache.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import numpy as np
 import torch
 
 from matrel_tpu_torch import executor as executor_lib
-from matrel_tpu_torch.config import MatrelConfig, default_config, normalize_sla
+from matrel_tpu_torch.config import (MatrelConfig, NotPortedError,
+                                     default_config, normalize_sla)
 from matrel_tpu_torch.core import mesh as mesh_lib
 from matrel_tpu_torch.core.blockmatrix import BlockMatrix
 from matrel_tpu_torch.core.mesh import Mesh
@@ -152,12 +154,50 @@ class MatrelSession:
         # pin every id()-keyed object on the cached plan: a collected
         # object's address can be reused by a later, different object
         plan._cache_pin = (e, pins)
+        self._cache_insert(key, plan)
+        return plan, False, key
+
+    def _cache_insert(self, key: str, plan) -> None:
+        """Add a plan, then drop the least-recently-used ones past
+        ``config.plan_cache_max_plans`` (the new plan always stays)."""
         self._plan_cache[key] = plan
         while len(self._plan_cache) > max(self.config.plan_cache_max_plans,
                                           1):
             self._plan_cache.popitem(last=False)
             self._plan_cache_evicted += 1
-        return plan, False, key
+
+    def _compile_multi_entry(self, roots: List[MatExpr],
+                             sla: Optional[str] = None
+                             ) -> Tuple[executor_lib.MultiPlan, bool,
+                                        List[str]]:
+        """(multiplan, cache_hit, per-root keys): the MultiPlan twin of
+        :meth:`_compile_entry`, in the same cache. The key is the sorted
+        unique root keys under the precision prefix, so a batch
+        resubmitted in any order, or with duplicate roots, hits. The
+        plan remembers its root-key order (``_root_keys``) so callers map
+        outputs back to their own roots."""
+        sla = sla if sla is not None else self.config.precision_sla
+        keyed, pins = [], []
+        for e in roots:
+            k, p = _plan_key(e)
+            keyed.append(k)
+            pins.extend(p)
+        uniq: "OrderedDict[str, MatExpr]" = OrderedDict()
+        for k, e in zip(keyed, roots):
+            uniq.setdefault(k, e)
+        skeys = sorted(uniq)
+        mkey = ("multi:" + self._axisw_prefix() + _prec_prefix(sla)
+                + "||".join(skeys))
+        plan = self._plan_cache.get(mkey)
+        if plan is not None:
+            self._plan_cache.move_to_end(mkey)
+            return plan, True, keyed
+        plan = executor_lib.compile_exprs([uniq[k] for k in skeys],
+                                          self.mesh, self._sla_config(sla))
+        plan._cache_pin = (tuple(uniq[k] for k in skeys), pins)
+        plan._root_keys = tuple(skeys)
+        self._cache_insert(mkey, plan)
+        return plan, False, keyed
 
     def _axisw_prefix(self) -> str:
         wts = mesh_lib.axis_weights(self.mesh, self.config)
@@ -177,6 +217,43 @@ class MatrelSession:
         e = as_expr(expr)
         sla = self._resolve_sla(precision)
         return self._compile_entry(e, sla=sla)[0].run()
+
+    def run_many(self, exprs, precision: Optional[str] = None,
+                 deadline_ms: Optional[float] = None,
+                 tenant: Optional[str] = None,
+                 _queue_wait_ms=None,
+                 _inflight_depth: int = 0,
+                 _tenants=None,
+                 _brownout_rung: Optional[int] = None
+                 ) -> List[BlockMatrix]:
+        """Execute several queries as one batch: a single
+        :class:`~matrel_tpu_torch.executor.MultiPlan` (one memo per call,
+        so shared subexpressions run once; duplicate roots dedupe on
+        their structural key) from the session's plan cache, so a
+        recurring batch, in any order, compiles nothing. Results come
+        back in input order. ``precision`` is the batch's accuracy SLA.
+
+        ``deadline_ms``, ``tenant`` and the underscore parameters (the
+        serve pipeline's channel) belong to the resilience, tenancy and
+        serving planes, which are not ported: setting one raises
+        ``NotPortedError``."""
+        unported = {"deadline_ms": deadline_ms, "tenant": tenant,
+                    "_queue_wait_ms": _queue_wait_ms,
+                    "_inflight_depth": _inflight_depth or None,
+                    "_tenants": _tenants, "_brownout_rung": _brownout_rung}
+        for name, v in unported.items():
+            if v is not None:
+                raise NotPortedError(
+                    f"run_many({name}=...): the plane behind this "
+                    f"argument is not ported to matrel_tpu_torch yet")
+        es = [as_expr(x) for x in exprs]
+        if not es:
+            return []
+        plan, _, keys = self._compile_multi_entry(
+            es, sla=self._resolve_sla(precision))
+        outs = plan.run()
+        pos = {k: j for j, k in enumerate(plan._root_keys)}
+        return [outs[pos[k]] for k in keys]
 
     def explain(self, expr: MatExpr, physical: bool = True,
                 precision: Optional[str] = None) -> str:

@@ -1,0 +1,592 @@
+"""PyTorch port: the rest of the core surface held against the JAX package
+on the CPU — ``MatrelSession.run_many`` (one MultiPlan a batch, in the
+session's plan cache), the ``vec`` and ``rank1`` lowerings,
+``planner.matmul_decisions`` / ``executor.plan_matmul_decisions`` over
+the plan-snapshot corpus on a virtual (2, 4) grid, the native chain DP
+(``utils/native.py``) against the Python DP, and ``strategies.local_dot``
+on bf16 operands.
+
+Tolerances: a ``run_many`` result equals the same query's own
+``compute`` exactly (the same plan code on the same inputs) and the JAX
+package's within its test tolerances (dense rtol 1e-4 / atol 1e-5,
+sparse 1e-4); ``vec`` is a permutation, exact; ``rank1`` adds one
+product per entry, exact in f32 against the JAX package for these
+inputs and within 1e-6 of float64; decision records are equal field for
+field (floats by ``pytest.approx``, 1e-12 relative); the native DP's
+cost equals the Python DP's within 5% where densities are re-estimated
+per split (nnz rounding, as tests/test_native.py allows), exactly on
+dense chains.
+"""
+
+import importlib.util
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from matrel_tpu import executor as j_exec
+from matrel_tpu.config import MatrelConfig as JConfig
+from matrel_tpu.core import mesh as jmesh_lib
+from matrel_tpu.core.coo import COOMatrix as JCOO
+from matrel_tpu.core.sparse import BlockSparseMatrix as JBlockSparse
+from matrel_tpu.ir import rules as j_rules
+from matrel_tpu.parallel import planner as j_planner
+from matrel_tpu.session import MatrelSession as JSession
+
+from matrel_tpu_torch import convert, executor as t_exec
+from matrel_tpu_torch.config import MatrelConfig, NotPortedError
+from matrel_tpu_torch.core.mesh import make_mesh
+from matrel_tpu_torch.ir import chain as t_chain, expr as TE, rules as t_rules
+from matrel_tpu_torch.parallel import planner as t_planner, strategies
+from matrel_tpu_torch.session import MatrelSession
+from matrel_tpu_torch.utils import native
+from matrel_tpu_torch.workloads import chain_bench as t_chain_bench
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def jmesh():
+    return jmesh_lib.make_mesh((1, 1), devices=jax.devices()[:1])
+
+
+def sessions(jmesh, **cfg):
+    return (JSession(mesh=jmesh, config=JConfig(**cfg)),
+            MatrelSession(config=MatrelConfig(**cfg), device="cpu"))
+
+
+def pair(js, ts, arr):
+    jm = js.from_numpy(arr)
+    return jm, convert.from_reference(jm, ts.mesh)
+
+
+# -- run_many ----------------------------------------------------------------
+
+
+def _batch(js, ts, kind, seed):
+    """(JAX exprs, port exprs, float64 oracles) of one batch."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((40, 12)).astype(np.float32)
+    b = rng.standard_normal((12, 30)).astype(np.float32)
+    c = rng.standard_normal((30, 7)).astype(np.float32)
+    (jA, tA), (jB, tB), (jC, tC) = (pair(js, ts, x) for x in (a, b, c))
+    je = [jA.multiply(jB), jA.multiply(jB).multiply(jC)]
+    te = [tA.multiply(tB), tA.multiply(tB).multiply(tC)]
+    want = [a @ b, a @ b @ c]
+    if kind in ("coo", "mixed"):
+        rows = rng.integers(0, 40, 300)
+        cols = rng.integers(0, 40, 300)
+        vals = rng.standard_normal(300).astype(np.float32)
+        jS = JCOO.from_edges(rows, cols, vals, shape=(40, 40))
+        tS = convert.from_reference(jS, ts.mesh)
+        s = np.zeros((40, 40))
+        np.add.at(s, (rows, cols), vals)
+        x = rng.standard_normal((40, 1)).astype(np.float32)
+        jx, tx = pair(js, ts, x)
+        je += [jS.multiply(jx), jS.multiply(jA)]
+        te += [tS.multiply(tx), tS.multiply(tA)]
+        want += [s @ x, s @ a]
+    if kind in ("block_sparse", "mixed"):
+        sp = np.zeros((48, 40), np.float32)
+        sp[0:8, 8:16] = rng.standard_normal((8, 8))
+        sp[24:32, 32:40] = rng.standard_normal((8, 8))
+        jS = JBlockSparse.from_numpy(sp, block_size=8, mesh=js.mesh)
+        tS = convert.from_reference(jS, ts.mesh)
+        je.append(jS.multiply(jA))
+        te.append(tS.multiply(tA))
+        want.append(sp @ a)
+    # a duplicate of the first root (a fresh expression, the same key)
+    je.append(jA.multiply(jB))
+    te.append(tA.multiply(tB))
+    want.append(a @ b)
+    return je, te, want
+
+
+@pytest.mark.parametrize("kind", ["dense", "coo", "block_sparse", "mixed"])
+def test_run_many_matches_jax(jmesh, kind):
+    js, ts = sessions(jmesh)
+    je, te, want = _batch(js, ts, kind, seed=len(kind))
+    jout = js.run_many(je)
+    tout = ts.run_many(te)
+    assert len(tout) == len(te)
+    for g, j, w, e in zip(tout, jout, want, te):
+        assert g.shape == j.shape == w.shape
+        np.testing.assert_allclose(g.to_numpy(), j.to_numpy(), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(g.to_numpy(), w, rtol=1e-4, atol=1e-4)
+    # one MultiPlan, the duplicate root deduplicated (the same object)
+    assert ts.plan_cache_info()["plans"] == js.plan_cache_info()["plans"] \
+        == 1
+    assert tout[-1] is tout[0]
+    # a reordered batch is a cache hit, results in the new order
+    rev = ts.run_many(list(reversed(te)))
+    js.run_many(list(reversed(je)))
+    assert ts.plan_cache_info()["plans"] == js.plan_cache_info()["plans"] \
+        == 1
+    for g, w in zip(rev, reversed(tout)):
+        np.testing.assert_array_equal(g.to_numpy(), w.to_numpy())
+    # each result equals its own compute() exactly
+    for g, e in zip(tout, te):
+        np.testing.assert_array_equal(g.to_numpy(), ts.compute(e).to_numpy())
+
+
+def test_run_many_cache_keys(jmesh):
+    js, ts = sessions(jmesh)
+    je, te, _ = _batch(js, ts, "dense", seed=3)
+    plan, hit, keys = ts._compile_multi_entry(te)
+    assert not hit and len(keys) == len(te) and keys[0] == keys[-1]
+    assert plan._root_keys == tuple(sorted(set(keys)))
+    assert len(plan.optimized) == len(set(keys))
+    assert ts._compile_multi_entry(list(reversed(te)))[1]
+    # another precision SLA is another entry, keyed under its prefix
+    _, hit_fast, _ = ts._compile_multi_entry(te, sla="fast")
+    assert not hit_fast
+    assert any(k.startswith("multi:prec:fast|") for k in ts._plan_cache)
+    assert ts.plan_cache_info()["plans"] == 2
+    jp, jhit, jkeys = js._compile_multi_entry(je)
+    assert not jhit and len(jp.optimized) == len(plan.optimized)
+
+
+def test_run_many_precision_matches_jax(jmesh):
+    js, ts = sessions(jmesh)
+    je, te, want = _batch(js, ts, "dense", seed=4)
+    jout = js.run_many(je, precision="high")
+    tout = ts.run_many(te, precision="high")
+    for g, j in zip(tout, jout):
+        # the bf16 split's bound (test_torch_session.py)
+        np.testing.assert_allclose(g.to_numpy(), j.to_numpy(), rtol=2e-3,
+                                   atol=2e-3)
+
+
+def test_run_many_empty_and_unported_arguments(jmesh):
+    js, ts = sessions(jmesh)
+    assert ts.run_many([]) == [] and js.run_many([]) == []
+    assert ts.plan_cache_info()["plans"] == 0
+    A = ts.from_numpy(np.eye(4, dtype=np.float32))
+    for kw in ({"deadline_ms": 5.0}, {"tenant": "a"},
+               {"_queue_wait_ms": [1.0]}, {"_inflight_depth": 2},
+               {"_tenants": ["a"]}, {"_brownout_rung": 1}):
+        with pytest.raises(NotPortedError, match=next(iter(kw))):
+            ts.run_many([A.multiply(A)], **kw)
+
+
+# -- vec and rank1 -----------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def grid_meshes(mesh8):
+    return mesh8, make_mesh((2, 4), device="cpu")
+
+
+SHAPES = [(4, 8), (5, 3), (1, 7), (9, 1), (13, 6)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+def test_vec_matches_jax(grid_meshes, shape, dtype):
+    jm, tm = grid_meshes
+    js = JSession(mesh=jm)
+    ts = MatrelSession(mesh=tm)
+    rng = np.random.default_rng(shape[0] * 10 + shape[1])
+    arr = rng.integers(-50, 50, shape).astype(np.float32)
+    jA = js.from_numpy(arr.astype(np.int32) if dtype == "int32" else arr,
+                       dtype=dtype)
+    tA = convert.from_reference(jA, tm)
+    jv = js.compute(jA.expr().vec())
+    tv = ts.compute(tA.expr().vec())
+    assert tv.shape == jv.shape == (shape[0] * shape[1], 1)
+    # the padded layout too: zeros past the logical rows
+    np.testing.assert_array_equal(
+        tv.data.float().numpy(), np.asarray(jv.data).astype(np.float32))
+    np.testing.assert_array_equal(tv.to_numpy()[:, 0].astype(np.float32),
+                                  arr.T.reshape(-1))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_rank1_matches_jax(grid_meshes, shape, dtype):
+    jm, tm = grid_meshes
+    # rank1 reaches the lowering when the rewrite rules leave it alone
+    js = JSession(mesh=jm, config=JConfig(rewrite_rules=False))
+    ts = MatrelSession(mesh=tm, config=MatrelConfig(rewrite_rules=False))
+    n, m = shape
+    rng = np.random.default_rng(n * 10 + m + 1)
+    npdt = np.float32 if dtype == "float32" else np.int32
+    a, u, v = (rng.integers(-9, 9, s).astype(npdt)
+               for s in ((n, m), (n, 1), (m, 1)))
+    if dtype == "float32":
+        a = a + rng.standard_normal((n, m)).astype(np.float32)
+    (jA, tA), (ju, tu), (jv, tv) = (
+        (lambda jx: (jx, convert.from_reference(jx, tm)))(js.from_numpy(x))
+        for x in (a, u, v))
+    got = ts.compute(tA.expr().rank_one_update(tu, tv))
+    want = js.compute(jA.expr().rank_one_update(ju, jv))
+    assert got.shape == want.shape == (n, m)
+    assert got.to_numpy().dtype == want.to_numpy().dtype
+    np.testing.assert_array_equal(got.to_numpy(), want.to_numpy())
+    oracle = a.astype(np.float64) + u.astype(np.float64) @ v.T
+    np.testing.assert_allclose(got.to_numpy(), oracle, rtol=1e-6, atol=1e-6)
+
+
+def test_vec_and_rank1_are_lowered():
+    assert len(t_exec.LOWERED_KINDS) == 12
+    assert {"vec", "rank1"} <= set(t_exec.LOWERED_KINDS)
+
+
+# -- matmul_decisions --------------------------------------------------------
+
+
+def _load_snapshot_tool():
+    spec = importlib.util.spec_from_file_location(
+        "plan_snapshot", os.path.join(REPO, "tools", "plan_snapshot.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def corpus(mesh8):
+    return dict(_load_snapshot_tool().corpus(mesh8))
+
+
+def to_port(e, tmesh, memo=None):
+    """A JAX-package MatExpr carried node for node into the port's IR."""
+    memo = {} if memo is None else memo
+    if e.uid in memo:
+        return memo[e.uid]
+    attrs = dict(e.attrs)
+    if "matrix" in attrs:
+        attrs["matrix"] = convert.from_reference(attrs["matrix"], tmesh)
+    out = TE.MatExpr(e.kind, tuple(to_port(c, tmesh, memo)
+                                   for c in e.children),
+                     tuple(e.shape), e.nnz, attrs)
+    memo[e.uid] = out
+    return out
+
+
+#: The corpus cases the port plans (tests/test_torch_planner.py COVERED).
+COVERED = ("block_sparse_matmul", "chain_interior_credit",
+           "chain_layout_flip", "chain_skewed", "coo_spmv_matvec",
+           "gram_AtA", "linreg_normal_equations", "rank1_pushdown",
+           "replicated_operand_matmul")
+CONFIGS = {"default": {}, "sla_fast": {"precision_sla": "fast"},
+           "weighted_axes": {"axis_cost_weights": (1.0, 4.0)}}
+
+
+def _strip(recs):
+    """Records without the package-local node uid."""
+    return [{k: v for k, v in r.items() if k != "uid"} for r in recs]
+
+
+def _assert_records_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(_strip(got), _strip(want)):
+        assert set(g) == set(w), (sorted(g), sorted(w))
+        for k in w:
+            if isinstance(w[k], float):
+                assert g[k] == pytest.approx(w[k], rel=1e-12), k
+            elif isinstance(w[k], list):
+                assert g[k] == pytest.approx(w[k], rel=1e-12), k
+            else:
+                assert g[k] == w[k], k
+
+
+@pytest.mark.parametrize("cfg_name", CONFIGS)
+@pytest.mark.parametrize("name", COVERED)
+def test_matmul_decisions_match_jax(corpus, mesh8, name, cfg_name):
+    cfg = CONFIGS[cfg_name]
+    jcfg, tcfg = JConfig(**cfg), MatrelConfig(**cfg)
+    tmesh = make_mesh((2, 4), device="cpu")
+    je = corpus[name]
+    jopt = j_planner.annotate_strategies(
+        j_rules.optimize(je, jcfg, grid=(2, 4), mesh=mesh8), mesh8, jcfg)
+    topt = t_planner.annotate_strategies(
+        t_rules.optimize(to_port(je, tmesh), tcfg, grid=tmesh.grid,
+                         mesh=tmesh), tmesh, tcfg)
+    want = j_planner.matmul_decisions(jopt, mesh8, jcfg)
+    got = t_planner.matmul_decisions(topt, tmesh, tcfg)
+    assert want, name
+    _assert_records_equal(got, want)
+    assert len({r["uid"] for r in got}) == len(got)
+
+
+@pytest.mark.parametrize("name", ["chain_skewed", "gram_AtA",
+                                  "coo_spmv_matvec"])
+def test_plan_matmul_decisions_match_jax(corpus, mesh8, name):
+    tmesh = make_mesh((2, 4), device="cpu")
+    je = corpus[name]
+    jplan = j_exec.compile_expr(je, mesh8)
+    tplan = t_exec.compile_expr(to_port(je, tmesh), tmesh)
+    got = t_exec.plan_matmul_decisions(tplan)
+    _assert_records_equal(got, j_exec.plan_matmul_decisions(jplan))
+    assert t_exec.plan_matmul_decisions(tplan) is got     # cached in meta
+    # a MultiPlan: every root's records, in root order
+    multi = t_exec.compile_exprs((to_port(je, tmesh),), tmesh)
+    _assert_records_equal(t_exec.plan_matmul_decisions(multi), got)
+
+
+def test_comm_cost_axes_matches_jax():
+    rng = np.random.default_rng(11)
+    for strategy in strategies.STRATEGIES:
+        for _ in range(8):
+            n, k, m = (int(x) for x in rng.integers(1, 5000, 3))
+            da, db = (float(x) for x in rng.choice([1.0, 0.3, 0.01], 2))
+            la, lb = rng.choice(["2d", "row", "col", "rep"], 2)
+            grid = [(2, 4), (4, 2), (2, 2), (1, 8)][int(rng.integers(4))]
+            w = [(1.0, 1.0), (1.0, 4.0), (3.0, 1.0)][int(rng.integers(3))]
+            args = (strategy, n, k, m, da, db, *grid)
+            kw = dict(a_layout=str(la), b_layout=str(lb), weights=w)
+            assert t_planner.comm_cost_axes(*args, **kw) == pytest.approx(
+                j_planner.comm_cost_axes(*args, **kw), rel=1e-12)
+
+
+# -- the native chain DP -----------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def lib():
+    got = native.load()
+    assert got is not None, "the native DP must build (g++ is present)"
+    return got
+
+
+def _ops(dims, dens=None, grid=(1, 1)):
+    """Chain leaves of the given shapes and densities (metadata only, as
+    tests/test_native.py builds them)."""
+    import dataclasses
+    mesh = make_mesh(grid, device="cpu")
+    base = MatrelSession(mesh=mesh).from_numpy(np.zeros((8, 8), np.float32))
+    ops = []
+    for i in range(len(dims) - 1):
+        shape = (dims[i], dims[i + 1])
+        nnz = None if dens is None else int(dens[i] * shape[0] * shape[1])
+        ops.append(TE.leaf(dataclasses.replace(base, shape=shape, nnz=nnz)))
+    return ops
+
+
+def _python_dp(ops, grid, monkeypatch):
+    with monkeypatch.context() as mp:
+        mp.setattr(native, "chain_dp", lambda *a, **k: None)
+        return t_chain.optimal_order(ops, grid=grid)
+
+
+def test_native_library_builds_in_build_dir(lib):
+    assert native.LIB_PATH == os.path.join(REPO, "build", "native",
+                                           "libmatrel_chain_dp.so")
+    assert os.path.exists(native.LIB_PATH)
+    assert not native._stale()
+
+
+def test_native_matches_python_dense(lib, monkeypatch):
+    dims = [30, 35, 15, 5, 10, 20, 25]
+    ops = _ops(dims)
+    got, cost = t_chain.optimal_order(ops)
+    want, pcost = _python_dp(ops, (1, 1), monkeypatch)
+    assert cost == pytest.approx(pcost) == 2 * 15125   # CLRS optimum
+    assert (t_chain_bench.parenthesisation(got)
+            == t_chain_bench.parenthesisation(want))
+
+
+def _sparse_chains():
+    """tests/test_native.py's ten random sparse chains (seed 7)."""
+    rng = np.random.default_rng(7)
+    out = []
+    for _ in range(10):
+        n = int(rng.integers(3, 8))
+        dims = [int(rng.integers(2, 400)) for _ in range(n + 1)]
+        dens = [float(rng.choice([1.0, 1.0, 0.1, 0.01])) for _ in range(n)]
+        out.append((dims, dens))
+    return out
+
+
+def _comm_chains():
+    """tests/test_native.py's ten random chains on grids (seed 9)."""
+    rng = np.random.default_rng(9)
+    out = []
+    for _ in range(10):
+        n = int(rng.integers(3, 7))
+        dims = [int(rng.integers(2, 600)) for _ in range(n + 1)]
+        dens = [float(rng.choice([1.0, 1.0, 0.2, 0.02])) for _ in range(n)]
+        grid = tuple(int(g) for g in rng.choice([(1, 2), (2, 2), (2, 4),
+                                                 (4, 2)]))
+        out.append((dims, dens, grid))
+    return out
+
+
+def _jax_costs(dims, dens, grid, mesh8):
+    """(native, Python) DP costs of the JAX package on the same chain."""
+    import dataclasses
+    from matrel_tpu.core.blockmatrix import BlockMatrix as JBM
+    from matrel_tpu.ir import chain as j_chain
+    from matrel_tpu.ir.expr import leaf as j_leaf
+    from matrel_tpu.utils import native as j_native
+    base = JBM.from_numpy(np.zeros((8, 8), np.float32), mesh=mesh8)
+    ops = [j_leaf(dataclasses.replace(
+        base, shape=(dims[i], dims[i + 1]),
+        nnz=int(dens[i] * dims[i] * dims[i + 1])))
+        for i in range(len(dens))]
+    _, nat = j_chain.optimal_order(ops, grid=grid)
+    keep = j_native.chain_dp
+    j_native.chain_dp = lambda *a, **k: None
+    try:
+        _, py = j_chain.optimal_order(ops, grid=grid)
+    finally:
+        j_native.chain_dp = keep
+    return nat, py
+
+
+@pytest.mark.parametrize("i", range(10))
+def test_native_matches_python_sparse(lib, monkeypatch, mesh8, i):
+    dims, dens = _sparse_chains()[i]
+    ops = _ops(dims, dens)
+    _, cost = t_chain.optimal_order(ops)
+    _, pcost = _python_dp(ops, (1, 1), monkeypatch)
+    # same optimum within the nnz-int rounding of the density estimates
+    assert cost == pytest.approx(pcost, rel=0.05)
+    # and each DP equal to the JAX package's
+    assert (cost, pcost) == _jax_costs(dims, dens, (1, 1), mesh8)
+
+
+@pytest.mark.parametrize("i", range(10))
+def test_native_comm_dp_matches_python(lib, monkeypatch, mesh8, i):
+    dims, dens, grid = _comm_chains()[i]
+    ops = _ops(dims, dens, grid)
+    _, cost = t_chain.optimal_order(ops, grid=grid)
+    _, pcost = _python_dp(ops, grid, monkeypatch)
+    assert cost == pytest.approx(pcost, rel=0.05), (dims, dens, grid)
+    assert (cost, pcost) == _jax_costs(dims, dens, grid, mesh8)
+
+
+def test_native_matches_jax_native(lib):
+    """The same C ABI as the JAX package's bridge: equal split tables
+    and costs on the same chain, grid, layouts and weights."""
+    from matrel_tpu.utils import native as j_native
+    rng = np.random.default_rng(7)
+    for _ in range(6):
+        n = int(rng.integers(3, 9))
+        dims = [int(x) for x in rng.integers(2, 900, n + 1)]
+        dens = [float(x) for x in rng.choice([1.0, 0.5, 0.05], n)]
+        grid = [(1, 1), (2, 4), (4, 2)][int(rng.integers(3))]
+        lays = [int(x) for x in rng.integers(0, 5, n)]
+        w = [None, (1.0, 1.0), (1.0, 3.0)][int(rng.integers(3))]
+        got = native.chain_dp(dims, dens, grid=grid, layouts=lays,
+                              weights=w)
+        want = j_native.chain_dp(dims, dens, grid=grid, layouts=lays,
+                                 weights=w)
+        assert want is not None
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+
+
+def test_native_raw_api(lib):
+    splits, cost = native.chain_dp([10, 1000, 10, 1000], [1.0, 1.0, 1.0])
+    assert splits[0][2] == 1
+    assert cost == pytest.approx(2 * (10 * 1000 * 10 + 10 * 10 * 1000))
+    with pytest.raises(ValueError):
+        native.chain_dp([1, 2], [1.0, 1.0])
+
+
+def test_native_rebuilds_when_stale_and_degrades_without_compiler(
+        tmp_path, monkeypatch):
+    src = tmp_path / "chain_dp.cc"
+    src.write_text(open(native.SOURCE).read())
+    monkeypatch.setattr(native, "SOURCE", str(src))
+    monkeypatch.setattr(native, "LIB_PATH", str(tmp_path / "lib.so"))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    assert native._stale()
+    assert native.load() is not None and not native._stale()
+    os.utime(src, (os.path.getmtime(native.LIB_PATH) + 10,) * 2)
+    assert native._stale()
+    # no compiler: load() gives None once no library exists, and the
+    # chain order falls back to the Python DP
+    os.remove(native.LIB_PATH)
+
+    def no_gxx(*a, **k):
+        raise FileNotFoundError("g++")
+
+    monkeypatch.setattr(native.subprocess, "run", no_gxx)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    assert native.load() is None
+    assert native.chain_dp([10, 20, 30, 40], [1.0] * 3) is None
+    _, cost = t_chain.optimal_order(_ops([10, 20, 30, 40]))
+    assert cost == pytest.approx(2 * (10 * 20 * 30 + 10 * 30 * 40))
+
+
+# -- local_dot on bf16 -------------------------------------------------------
+
+
+def test_local_dot_bf16_on_the_cpu_widens():
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((33, 70)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((70, 9)).astype(np.float32))
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    got = strategies.local_dot(a, b)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, torch.matmul(a.float(), b.float()))
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card, so local_dot takes
+    its CUDA branch (whose GEMMs the test replaces by CPU products)."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("k,partial_bytes,want_groups", [
+    (100, 256 << 20, 0),          # one GEMM
+    (2 * strategies.TC_CHUNK - 1, 256 << 20, 0),
+    (3 * strategies.TC_CHUNK + 5, 256 << 20, 1),
+    (5 * strategies.TC_CHUNK, 2 * 4 * 6 * 4, 3),   # groups of two chunks
+])
+def test_local_dot_bf16_on_the_card_runs_tensor_core_chunks(
+        monkeypatch, k, partial_bytes, want_groups):
+    calls = []
+    mm, bmm = torch.mm, torch.bmm
+
+    def fake_mm(a, b, out_dtype=None, **kw):
+        calls.append(("mm", tuple(a.shape), out_dtype))
+        return mm(a.float(), b.float())
+
+    def fake_bmm(a, b, out_dtype=None, **kw):
+        calls.append(("bmm", tuple(a.shape), out_dtype))
+        return bmm(a.float(), b.float())
+
+    monkeypatch.setattr(torch, "mm", fake_mm)
+    monkeypatch.setattr(torch, "bmm", fake_bmm)
+    monkeypatch.setattr(strategies, "TC_PARTIAL_BYTES", partial_bytes)
+    rng = np.random.default_rng(k)
+    a = torch.from_numpy(rng.standard_normal((6, k)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((k, 4)).astype(np.float32))
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    # the left operand as a transposed view, as the Gram passes give it
+    at = a.T.contiguous().T.as_subclass(_OnCard)
+    got = strategies.local_dot(at, b.as_subclass(_OnCard))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (6, 4)
+    assert all(c[2] == torch.float32 for c in calls)
+    assert sum(c[0] == "bmm" for c in calls) == want_groups
+    if want_groups:
+        chunks = k // strategies.TC_CHUNK
+        assert sum(c[1][0] for c in calls if c[0] == "bmm") == chunks
+        assert all(c[1][1:] == (6, strategies.TC_CHUNK)
+                   for c in calls if c[0] == "bmm")
+    want = torch.matmul(a.double(), b.double())
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_local_dot_f32_and_mixed_stay_widened(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("no tensor-core path for these dtypes")
+
+    monkeypatch.setattr(strategies, "_tensor_core_dot", refuse)
+    a = torch.ones((3, 4)).as_subclass(_OnCard)
+    b = torch.ones((4, 2), dtype=torch.bfloat16).as_subclass(_OnCard)
+    assert strategies.local_dot(a, b).dtype == torch.float32
+    assert strategies.local_dot(a, a.T).dtype == torch.float32

@@ -7,8 +7,10 @@ ported.
   JAX package (checked on the syntax tree, lazy imports included).
 - The default device is CUDA: without a card the session raises unless
   the caller asked for the CPU.
-- The routed SpMV, the CG / power-iteration / linreg workloads and
-  ``solve`` queries run on the CPU with the JAX package blocked.
+- The routed SpMV, the CG / power-iteration / linreg workloads,
+  ``solve`` queries, the north-star chain (``workloads/big_chain.py``),
+  the native chain DP (``utils/native.py``), ``run_many``, ``vec`` and
+  ``rank1`` run on the CPU with the JAX package blocked.
 - Unported node kinds, the fused SpGEMM epilogue and knobs of unported
   planes raise ``NotPortedError``.
 """
@@ -192,6 +194,48 @@ def test_solvers_and_routed_spmv_without_jax():
     assert "standalone solvers ok" in proc.stdout
 
 
+def test_big_chain_and_core_surface_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "matrel_tpu"):
+            sys.modules[name] = None          # import raises ImportError
+        import numpy as np
+        import torch
+        from matrel_tpu_torch import MatrelSession
+        from matrel_tpu_torch.ir import chain
+        from matrel_tpu_torch.utils import native
+        from matrel_tpu_torch.workloads import big_chain
+        gens = [big_chain.cheap_gen(s, 8, torch.float32, 0.05, device="cpu")
+                for s in (1, 2, 3)]
+        slab = float(big_chain.streaming_chain_slab(
+            64, *gens, tile=8, panel=16, dtype=torch.float32))
+        A, B, C = (g.slab(0, 0, (64, 64)).double().numpy() for g in gens)
+        want = float(((A @ B @ C) ** 2).sum())
+        assert abs(slab - want) <= 1e-4 * want, (slab, want)
+        assert native.chain_dp([10, 1000, 10, 1000], [1.0] * 3) is not None
+        s = MatrelSession(device="cpu")
+        rng = np.random.default_rng(0)
+        a, b = (rng.standard_normal(sh).astype(np.float32)
+                for sh in ((20, 6), (6, 9)))
+        X, Y = s.from_numpy(a), s.from_numpy(b)
+        outs = s.run_many([X.multiply(Y), X.expr().vec(), X.multiply(Y)])
+        assert np.allclose(outs[0].to_numpy(), a @ b, rtol=1e-4, atol=1e-4)
+        assert np.array_equal(outs[1].to_numpy()[:, 0], a.T.reshape(-1))
+        assert outs[2] is outs[0] and s.plan_cache_info()["plans"] == 1
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "matrel_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("standalone big chain ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone big chain ok" in proc.stdout
+
+
 def _imported_modules(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -230,8 +274,8 @@ def test_unported_planes_and_kinds_raise():
     rng = np.random.default_rng(1)
     A = s.from_numpy(rng.standard_normal((4, 4)).astype(np.float32))
     b = s.from_numpy(rng.standard_normal((4, 1)).astype(np.float32))
-    with pytest.raises(NotPortedError, match="vec"):
-        s.compute(A.expr().vec())
+    with pytest.raises(NotPortedError, match="select_value"):
+        s.compute(A.expr().select_value(lambda x: x > 0))
     with pytest.raises(NotPortedError, match="pallas_interpret"):
         MatrelConfig(pallas_interpret=True)
     from matrel_tpu_torch.ops import spgemm
