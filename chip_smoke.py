@@ -86,6 +86,29 @@
    one warm and two timed runs, seconds and TFLOP/s against 4n³, the
    generation / GEMM split from torch.profiler) held against the
    tile-assembly schedule, under the phase's own peak-memory bound.
+5. path_relational: the relational σ/γ/⋈ surface and SQL, each
+   sub-phase through a fresh MatrelSession with its time, its error
+   against float64 and its own peak memory under REL_PEAK_LIMIT_GIB —
+   every pred (eq, lt, ge) × merge (mul, add, right) × kind × axis
+   (row, col, all) of agg(join_on_values(A, B)) over 8192² ⋈ 8192² f32
+   (2^52 logical pairs, never materialised), sampled rows and columns
+   against a float64 enumeration over the whole other side and "all"
+   against a float64 grid of distinct values, each within a derived
+   bound (vj_tol); a callable join at join_bruteforce_max_pairs; σ on
+   values, rows and blocks and join_on_index(A, B)·W over 16,384² f32,
+   join_on_rows at the 2^26-entry cap · V with its stamped scheme, the
+   products within product_tol, which the same queries with TF32 and
+   with bf16 products must miss; SQL
+   trace(A * A * A) over bench_all.py's 8192² adjacency, exact against
+   scipy.sparse, with explain_sql and a plan-cache hit on repeated
+   text, a select/rowsum and a joinvalue query; triangles over a
+   block-sparse adjacency of block-diagonal communities (n = 32,768, bs
+   512; the S×S kernel the stamp picks, launches counted, exact against
+   scipy, and that kernel held against its plain version on the same
+   S·S); cosine similarity of 16,384 × 1024 at "high" and "highest"
+   and σ(v > 0.9) on it; σ(v > median), matvec (B2 counted), row_count,
+   row_max and an eq join on row 5's 10M-edge COOMatrix; a 1 GiB
+   save_tiled / load_tiled, bit for bit.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -94,6 +117,7 @@ result, when there is no CUDA device or a phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -2319,6 +2343,878 @@ def path_north_star(dev) -> dict:
             "small_rel": small_rel}
 
 
+# -- the relational and SQL surface -------------------------------------------
+
+# Value joins: A, B dense REL_VJ_N² f32 (2^26 entries each at 8192), drawn
+# as round(64·x)/64 of a standard normal, so values repeat and "eq"
+# matches; REL_VJ_SAMPLES query entries per aggregate are held against a
+# float64 enumeration over the whole other side.
+REL_VJ_N, REL_VJ_SAMPLES = 8192, 48
+REL_VJ_PREDS = ("eq", "lt", "ge")
+REL_VJ_MERGES = ("mul", "add", "right")
+# the black-box (callable) join at join_bruteforce_max_pairs: 2^14 × 2^14
+REL_BB_N = 128
+# selections / index join: 16,384² f32 operands, times a 16,384 × 512
+# matrix; the row join L 8192 × 64 ⋈ R 8192 × 128 (2^26 entries, at the
+# cap) times 8192 × 256
+REL_SEL_N, REL_SEL_K = 16384, 512
+REL_JR_N, REL_JR_L, REL_JR_R, REL_JR_K = 8192, 64, 128, 256
+# SQL triangles over bench_all.py's adjacency (8192², 1%, seed 2)
+REL_TRI_N, REL_TRI_P = 8192, 0.01
+# block-sparse triangles: block-diagonal communities of REL_BS nodes
+REL_BS_N, REL_BS, REL_BS_P = 32768, 512, 0.05
+# cosine similarity of X REL_SIM_N × REL_SIM_D, clustered so that
+# σ(v > 0.9) keeps pairs
+REL_SIM_N, REL_SIM_D, REL_SIM_CLUSTERS = 16384, 1024, 256
+REL_IO_N = 16384
+REL_ROWS_CHECKED = 16
+# Each sub-phase's own peak device memory (PeakMeter: over what was
+# allocated when it started, its checks' own tensors left out) is held
+# under its bound: 1.25 × its peak on an H100 (PERF.md section 5).
+REL_PEAK_LIMIT_GIB = {k: 1.25 * v for k, v in {
+    "value_join": 8.063, "blackbox": 0.055, "selections": 4.319,
+    "sql": 0.750, "triangles_bs": 16.063, "similarity": 6.382,
+    "coo": 0.404, "io": 3.000}.items()}
+
+# An f32 product's entry against float64. Under the probabilistic model
+# of rounding (independent, mean-zero errors of at most U32; Higham and
+# Mary, SIAM J. Sci. Comput. 2019) a sum of K terms t_k of random sign
+# errs by more than PROD_C·U32·√K·‖t‖₂ with probability at most about
+# 2·exp(-PROD_C²/2), in any order of summation. The worst case,
+# K·U32·Σ|t|, also lets a TF32 or a bf16 product through; this bound
+# does not (lower_precision_ratios).
+PROD_C = 8.0
+
+
+def product_tol(x64, w64):
+    """PROD_C·U32·√K·‖t‖₂ for every entry of x·w (t_k = x_ik·w_kj)."""
+    return (PROD_C * U32 * math.sqrt(x64.shape[1])
+            * ((x64 * x64) @ (w64 * w64)).sqrt())
+
+
+class PeakMeter:
+    """A relational sub-phase's own peak device memory: the most
+    allocated over what was allocated when it started. Work inside
+    ``aside()`` (a check's own tensors) is left out; what it keeps
+    counts from then on."""
+
+    def __init__(self, name: str):
+        import gc
+        import torch
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        self.name, self.peak = name, 0
+        self.base = torch.cuda.memory_allocated()
+
+    def _read(self) -> None:
+        import torch
+        torch.cuda.synchronize()
+        self.peak = max(self.peak,
+                        torch.cuda.max_memory_allocated() - self.base)
+
+    @contextlib.contextmanager
+    def aside(self):
+        import torch
+        self._read()
+        yield
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def gib(self) -> float:
+        """The peak so far in GiB, held under the sub-phase's bound."""
+        self._read()
+        limit = REL_PEAK_LIMIT_GIB[self.name]
+        if self.peak > limit * 2**30:
+            raise AssertionError(f"{self.name}: peak device memory "
+                                 f"{self.peak / 2**30:.3f} GiB > "
+                                 f"{limit:.3f} GiB")
+        return self.peak / 2**30
+
+
+def synced(fn):
+    """(result, seconds): host clock around fn and a synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def dense_leaf(sess, data):
+    """A BlockMatrix over a tensor already on the card (no padding: the
+    shapes here divide the 1x1 grid)."""
+    from matrel_tpu_torch.core import padding
+    from matrel_tpu_torch.core.blockmatrix import BlockMatrix
+    return BlockMatrix.from_array(
+        data, tuple(data.shape), sess.mesh,
+        padding.canonical_spec(tuple(data.shape), sess.mesh))
+
+
+def need_launches(name: str, got: int) -> int:
+    if got < 1:
+        raise AssertionError(f"{name}: the kernel was not launched")
+    return got
+
+
+_VJ_PRED = {"eq": lambda x, y: x == y, "lt": lambda x, y: x < y,
+            "ge": lambda x, y: x >= y}
+_VJ_MERGE = {"mul": lambda x, y: x * y, "add": lambda x, y: x + y,
+             "right": lambda x, y: y + 0.0 * x}
+
+
+def vj_reference(q, other, pred, merge, axis):
+    """float64 stats of one pair-matrix row (axis "row": query an A
+    entry against all of B) or column ("col": a B entry against all of
+    A), enumerated over the whole other side: sum, nonzero count, max,
+    min of the row with its unmatched zeros, and Σ|merged| over the
+    matches."""
+    import torch
+    x, y = (q, other) if axis == "row" else (other, q)
+    p = torch.where(_VJ_PRED[pred](x, y), _VJ_MERGE[merge](x, y), 0.0)
+    return (float(p.sum()), int((p != 0).sum()), float(p.max()),
+            float(p.min()), float(p.abs().sum()))
+
+
+def vj_grid_reference(va, vb, pred, merge):
+    """float64 "all" aggregates over distinct values with multiplicities
+    (torch.unique, sort-based): the whole pair relation of 2^52 pairs
+    as a grid of distinct A values × distinct B values, weighted by
+    their counts."""
+    import torch
+    ua, ca = torch.unique(va, return_counts=True)
+    ub, cb = torch.unique(vb, return_counts=True)
+    u, w = ua.double()[:, None], ub.double()[None, :]
+    weight = ca.double()[:, None] * cb.double()[None, :]
+    p = torch.where(_VJ_PRED[pred](u, w), _VJ_MERGE[merge](u, w), 0.0)
+    s = float((p * weight).sum())
+    c = int(((p != 0).double() * weight).sum())
+    return {"sum": s, "count": c, "avg": s / c if c else 0.0,
+            "max": float(p.max()), "min": float(p.min()),
+            "abs": float((p.abs() * weight).sum())}
+
+
+def vj_tol(kind: str, want: float, count: int, prefix_err: float,
+           reduce_err: float = 0.0) -> float:
+    """The derived error bound of one streamed result (value_join.py):
+    the float64 prefix-table part (``prefix_err``: n·2^-53 per prefix,
+    times Σ|sv - mean| of the sorted side, twice for a range, times the
+    query's |va| for "mul"), the float64 reduction of an "all" axis
+    (``reduce_err``), and one f32 rounding of the result. Counts are
+    exact integers until that rounding; max/min are one f32 operation
+    on exact values."""
+    if kind in ("count", "max", "min"):
+        return U32 * abs(want)
+    if kind == "sum":
+        return U32 * abs(want) + prefix_err + reduce_err
+    return U32 * abs(want) + (prefix_err + reduce_err) / max(count, 1)
+
+
+def rel_value_join(dev) -> dict:
+    """agg(join_on_values(A, B, merge, pred)) for every pred × merge ×
+    kind × axis over A, B of REL_VJ_N² entries (2^26 × 2^26 logical
+    pairs, never materialised): every aggregate runs first, keeping its
+    sampled entries, and its peak is read before the float64 oracles
+    exist; then each result is checked. Then one black-box join at
+    join_bruteforce_max_pairs on the chunked path."""
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.relational import ops as R
+    meter = PeakMeter("value_join")
+    sess = MatrelSession(device=dev)
+    n = REL_VJ_N
+    g = torch.Generator(device=dev).manual_seed(21)
+    a = torch.randn(n, n, generator=g, device=dev).mul_(64).round_().div_(64)
+    b = torch.randn(n, n, generator=g, device=dev).mul_(64).round_().div_(64)
+    A, B = dense_leaf(sess, a), dense_leaf(sess, b)
+    rng = torch.Generator(device="cpu").manual_seed(5)
+    picks = {}
+    with meter.aside():
+        for axis, m in (("row", a), ("col", b)):
+            v = m.T.reshape(-1)                 # the pair coordinates
+            special = [int(v.argmax()), int(v.argmin()),
+                       int((v == 0).nonzero()[0]), int(v.sort().indices[
+                           v.numel() // 2])]
+            rand = torch.randint(0, v.numel(),
+                                 (REL_VJ_SAMPLES - len(special),),
+                                 generator=rng).tolist()
+            picks[axis] = torch.tensor(special + rand, device=dev)
+            del v
+    got, times = {}, {}
+    for pred in REL_VJ_PREDS:
+        for merge in REL_VJ_MERGES:
+            j = R.join_on_values(A, B, merge, pred)
+            for axis in ("row", "col", "all"):
+                for kind in ("sum", "count", "avg", "max", "min"):
+                    out, s = synced(lambda: sess.compute(
+                        R.aggregate(j, kind, axis)))
+                    times.setdefault(axis, []).append(s)
+                    if axis == "all":
+                        got[pred, merge, axis, kind] = [
+                            float(out.data[0, 0])]
+                        continue
+                    flat = out.data[:, 0] if axis == "row" else out.data[0]
+                    if flat.shape[0] != n * n or \
+                            out.data.dtype != torch.float32:
+                        raise AssertionError(
+                            f"value join {pred}/{merge}/{kind}/{axis}: "
+                            f"{tuple(out.data.shape)} {out.data.dtype}")
+                    got[pred, merge, axis, kind] = flat[picks[axis]].tolist()
+                    del out, flat
+    peak = meter.gib()
+    # the checks: float64 over the whole other side (sampled rows and
+    # columns) and the distinct-value grid ("all")
+    va, vb = a.T.reshape(-1), b.T.reshape(-1)
+    va64, vb64 = va.double(), vb.double()
+    # Σ|v - mean| of each side: the prefix-table error scale (vj_tol)
+    c_a = float((va64 - va64.mean()).abs().sum())
+    c_b = float((vb64 - vb64.mean()).abs().sum())
+    eps_prefix = 2.0 * va.numel() * 2.0 ** -53
+    worst, n_checked = 0.0, 0
+    for pred in REL_VJ_PREDS:
+        for merge in REL_VJ_MERGES:
+            grid = vj_grid_reference(va, vb, pred, merge)
+            refs = {}
+            for axis, other, own in (("row", vb64, va64),
+                                     ("col", va64, vb64)):
+                refs[axis] = [vj_reference(float(own[i]), other, pred, merge,
+                                           axis)
+                              for i in picks[axis].tolist()]
+            for axis in ("row", "col", "all"):
+                for kind in ("sum", "count", "avg", "max", "min"):
+                    if axis == "all":
+                        c_side = (float(va64.abs().sum()) if merge == "mul"
+                                  else float(va.numel()))
+                        wants = [(grid[kind], grid["count"],
+                                  eps_prefix * c_b * c_side,
+                                  2.0 ** -27 * grid["abs"])]
+                    else:
+                        own = va64 if axis == "row" else vb64
+                        c_other = c_b if axis == "row" else c_a
+                        qs = own[picks[axis]].abs().tolist()
+                        wants = []
+                        for (s_, c_, mx, mn, _), q in zip(refs[axis], qs):
+                            w = {"sum": s_, "count": c_,
+                                 "avg": s_ / c_ if c_ else 0.0, "max": mx,
+                                 "min": mn}[kind]
+                            scale = q if merge == "mul" else 1.0
+                            wants.append((w, c_, eps_prefix * c_other *
+                                          scale, 0.0))
+                    for gv, (w, c_, pe, re) in zip(
+                            got[pred, merge, axis, kind], wants):
+                        tol = vj_tol(kind, w, c_, pe, re)
+                        err = abs(gv - w)
+                        if not math.isfinite(gv) or err > tol:
+                            raise AssertionError(
+                                f"value join {pred}/{merge}/{kind}/{axis}: "
+                                f"{gv!r} vs float64 {w!r}, |err| {err:.3e}"
+                                f" > derived bound {tol:.3e}")
+                        worst = max(worst, err / tol if tol else
+                                    (0.0 if err == 0 else math.inf))
+                        n_checked += 1
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    n_aggs = len(REL_VJ_PREDS) * len(REL_VJ_MERGES) * 15
+    log(f"path relational, value join: {n_aggs} aggregates of join_on_values(A, B) over {n}² ⋈ {n}² f32 "
+        f"(2^{int(math.log2(n * n)) * 2} logical pairs), preds "
+        f"{REL_VJ_PREDS} × merges {REL_VJ_MERGES} × 5 kinds × row/col/"
+        f"all; {n_checked} results held against float64 (sampled rows and "
+        f"columns: enumeration over the whole other side; all: distinct-"
+        f"value grid), worst |err| / derived bound {worst:.3e}; median ms "
+        f"per aggregate (host clock, synchronised) row {med['row']:.1f} / "
+        f"col {med['col']:.1f} / all {med['all']:.1f}; total "
+        f"{sum(sum(v) for v in times.values()):.2f} s; peak {peak:.3f} GiB "
+        f"(the operands and the aggregates; the pair matrix would hold "
+        f"2^{int(math.log2(n * n)) * 2} entries)")
+    del A, B, a, b, va, vb, va64, vb64, j, sess
+    bb = rel_blackbox(dev)
+    return {"ms": med, "worst": worst, "checked": n_checked,
+            "peak_gib": peak, "blackbox": bb}
+
+
+def rel_blackbox(dev) -> dict:
+    """A callable merge and predicate over 2^14 × 2^14 entries (2^28
+    pairs, join_bruteforce_max_pairs) through the chunked path, every
+    row against float64 within the derived bound: each pair's f32
+    merge rounds twice (U32·(2|x·y| + |y|)), the row sum runs in float64,
+    the result rounds once. The peak is read before the check runs."""
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.relational import ops as R
+    meter = PeakMeter("blackbox")
+    sess = MatrelSession(device=dev)
+    n = REL_BB_N
+    g = torch.Generator(device=dev).manual_seed(22)
+    a = torch.randn(n, n, generator=g, device=dev)
+    b = torch.randn(n, n, generator=g, device=dev)
+    merge = lambda x, y: x * y - y
+    pred = lambda x, y: x + y > 0
+    e = R.aggregate(R.join_on_values(dense_leaf(sess, a),
+                                     dense_leaf(sess, b), merge, pred),
+                    "sum", "row")
+    cap = sess.config.join_bruteforce_max_pairs
+    if (n * n) ** 2 > cap:
+        raise AssertionError(f"black-box join: {(n * n) ** 2} pairs > {cap}")
+    out, first = synced(lambda: sess.compute(e))
+    _, warm = synced(lambda: sess.compute(e))
+    peak = meter.gib()
+    va, vb = a.T.reshape(-1).double(), b.T.reshape(-1).double()
+    worst = 0.0
+    for r in range(0, va.numel(), 2048):
+        x = va[r:r + 2048, None]
+        keep = (x + vb[None, :]) > 0
+        p = torch.where(keep, x * vb[None, :] - vb[None, :], 0.0)
+        want = p.sum(1)
+        bound = U32 * torch.where(keep, 2 * (x * vb[None, :]).abs()
+                                  + vb[None, :].abs(), 0.0).sum(1)
+        tol = bound + U32 * want.abs()
+        err = (out.data[r:r + 2048, 0].double() - want).abs()
+        if bool((err > tol).any()):
+            i = int((err - tol).argmax())
+            raise AssertionError(f"black-box join row {r + i}: |err| "
+                                 f"{float(err[i]):.3e} > {float(tol[i]):.3e}")
+        worst = max(worst, float((err / tol.clamp(min=1e-300)).max()))
+    log(f"path relational, black-box join: rowsum(join_on_values) with a "
+        f"callable merge and predicate over {n * n} × {n * n} entries "
+        f"({(n * n) ** 2} pairs = join_bruteforce_max_pairs), chunked "
+        f"{sess.config.join_chunk_entries} pairs a tile; first call "
+        f"{first * 1e3:.1f} ms, warm {warm * 1e3:.1f} ms; every row vs "
+        f"float64, worst |err| / derived bound {worst:.3e}; peak "
+        f"{peak:.3f} GiB")
+    return {"first_ms": first * 1e3, "warm_ms": warm * 1e3, "worst": worst,
+            "peak_gib": peak}
+
+
+def rows_vs_f64(name, got, want64, tol) -> float:
+    """max |got - want| over sampled rows, each entry within ``tol``
+    (a tensor of per-entry bounds, or a number)."""
+    err = (got.double() - want64).abs()
+    bad = err > tol
+    if bool(bad.any()):
+        i = int(bad.flatten().nonzero()[0])
+        raise AssertionError(f"{name}: |err| {float(err.flatten()[i]):.3e} "
+                             f"over its bound at flat index {i}")
+    return float(err.max())
+
+
+@contextlib.contextmanager
+def tf32_products():
+    """The port's f32 products as TF32: local_dot's precision guard
+    swapped for one that allows it (a lower precision for the product
+    bound to catch)."""
+    import torch
+    from matrel_tpu_torch.parallel import strategies
+    keep = strategies._highest_precision
+    strategies._highest_precision = lambda: setattr(
+        torch.backends.cuda.matmul, "allow_tf32", True)
+    try:
+        yield
+    finally:
+        strategies._highest_precision = keep
+        keep()
+
+
+def lower_precision_ratios(dev, name, make, rows, want, tol) -> dict:
+    """The same product query with TF32 products and with bf16 products
+    (matmul_precision "default"): max |err| / bound over the sampled
+    rows, each of which must miss the bound, or the bound could not see
+    the product path drop below f32."""
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    ratios = {}
+    for label, prec, ctx in (("tf32", "highest", tf32_products),
+                             ("bf16", "default", contextlib.nullcontext)):
+        s = MatrelSession(config=MatrelConfig(matmul_precision=prec),
+                          device=dev)
+        with ctx():
+            out = s.compute(make(s))
+        ratios[label] = float(((out.data[rows].double() - want).abs()
+                               / tol).max())
+        del out
+        if ratios[label] <= 1.0:
+            raise AssertionError(f"{name} with {label} products: max |err|"
+                                 f" / bound {ratios[label]:.3f} <= 1")
+    return ratios
+
+
+def rel_selections(dev) -> dict:
+    """σ and the index join over dense REL_SEL_N² f32 operands, and the
+    row join at the cap, each through compute(), sampled rows against
+    float64: σ exact, a product's entries within product_tol, which the
+    same product query with TF32 or bf16 products must miss."""
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.relational import ops as R
+    meter = PeakMeter("selections")
+    sess = MatrelSession(device=dev)
+    n, k = REL_SEL_N, REL_SEL_K
+    g = torch.Generator(device=dev).manual_seed(23)
+    a = torch.randn(n, n, generator=g, device=dev)
+    b = torch.randn(n, n, generator=g, device=dev)
+    w = torch.randn(n, k, generator=g, device=dev)
+    rows = torch.randint(0, n, (REL_ROWS_CHECKED,), generator=g,
+                         device=dev)
+    bs = 512
+    idx_name = f"join_on_index(A, B, 'mul') · W ({n}×{k})"
+
+    def index_join(s):
+        return R.join_on_index(dense_leaf(s, a), dense_leaf(s, b),
+                               "mul").multiply(dense_leaf(s, w))
+
+    with meter.aside():
+        idx = torch.arange(n, device=dev)
+        ar = a[rows].double()
+        x = (a[rows] * b[rows]).double()        # the join's rows, exact
+        w64 = w.double()
+        cases = {
+            "select_value(v > 0)": (
+                lambda s: R.select_entries(dense_leaf(s, a),
+                                           lambda v: v > 0),
+                torch.where(ar > 0, ar, 0.0), 0.0),
+            "select_rows(i % 2 == 0)": (
+                lambda s: R.select_rows(dense_leaf(s, a),
+                                        lambda i: i % 2 == 0),
+                ar * (rows % 2 == 0)[:, None], 0.0),
+            f"select_blocks(bi == bj, {bs})": (
+                lambda s: R.select_blocks(dense_leaf(s, a),
+                                          lambda bi, bj: bi == bj,
+                                          block_size=bs),
+                torch.where((rows // bs)[:, None] == (idx // bs)[None, :],
+                            ar, 0.0), 0.0),
+            idx_name: (index_join, x @ w64, product_tol(x, w64)),
+        }
+        del idx, ar, x, w64
+    stats = {}
+    for name, (make, want, tol) in cases.items():
+        e = make(sess)
+        out, first = synced(lambda: sess.compute(e))
+        warm = time_ms(lambda: sess.compute(e), warmup=1, runs=5)
+        err = rows_vs_f64(name, out.data[rows], want, tol)
+        stats[name] = {"first_ms": first * 1e3, "warm_ms": warm,
+                       "err": err}
+        if name == idx_name:
+            stats[name]["ratio"] = float(
+                ((out.data[rows].double() - want).abs() / tol).max())
+        del out
+    with meter.aside():
+        stats[idx_name]["lower"] = lower_precision_ratios(
+            dev, idx_name, index_join, rows, *cases[idx_name][1:])
+    del a, b, w, cases, e
+    sess = MatrelSession(device=dev)
+    # the row join at the cap, times V: the join_under_matmul shape
+    nr = REL_JR_N
+    l_ = torch.randn(nr, REL_JR_L, generator=g, device=dev)
+    r_ = torch.randn(nr, REL_JR_R, generator=g, device=dev)
+    v = torch.randn(REL_JR_L * REL_JR_R, REL_JR_K, generator=g, device=dev)
+
+    def row_join(s):
+        return R.join_on_rows(dense_leaf(s, l_), dense_leaf(s, r_),
+                              "mul").multiply(dense_leaf(s, v))
+
+    e = row_join(sess)
+    if nr * REL_JR_L * REL_JR_R > sess.config.join_pair_cap_entries:
+        raise AssertionError("row join over the cap")
+    scheme = sess.compile(e).optimized.children[0].attrs["replicate"]
+    jr = rows % nr
+    kk = REL_JR_L * REL_JR_R
+    with meter.aside():
+        pairs = (l_[jr][:, :, None] * r_[jr][:, None, :]).reshape(
+            len(jr), -1).double()
+        v64 = v.double()
+        want, tol = pairs @ v64, product_tol(pairs, v64)
+        del pairs, v64
+    out, first = synced(lambda: sess.compute(e))
+    warm = time_ms(lambda: sess.compute(e), warmup=1, runs=5)
+    name = (f"join_on_rows(L {nr}×{REL_JR_L}, R {nr}×{REL_JR_R}, 'mul') · "
+            f"V ({kk}×{REL_JR_K}), scheme {scheme}")
+    err = rows_vs_f64(name, out.data[jr], want, tol)
+    stats[name] = {"first_ms": first * 1e3, "warm_ms": warm, "err": err,
+                   "scheme": scheme, "ratio": float(
+                       ((out.data[jr].double() - want).abs() / tol).max())}
+    del out
+    with meter.aside():
+        stats[name]["lower"] = lower_precision_ratios(
+            dev, name, row_join, jr, want, tol)
+    peak = meter.gib()
+    for name, st in stats.items():
+        line = (f"path relational, {name}: first call "
+                f"{st['first_ms']:.2f} ms, warm {st['warm_ms']:.3f} ms "
+                f"(CUDA events, median of 5), max |err| vs float64 on "
+                f"{REL_ROWS_CHECKED} rows {st['err']:.3e}")
+        if "ratio" in st:
+            line += (f"; max |err| / bound {PROD_C:g}·u·√K·‖t‖₂: f32 "
+                     f"{st['ratio']:.4f}, the same query with TF32 "
+                     f"products {st['lower']['tf32']:.2f}, with bf16 "
+                     f"products {st['lower']['bf16']:.2f} (both must "
+                     f"exceed 1)")
+        log(line)
+    log(f"path relational, selections and index/row joins: peak "
+        f"{peak:.3f} GiB")
+    return {"queries": stats, "peak_gib": peak}
+
+
+def tri_adjacency(n: int, p: float, seed: int):
+    """bench_all.py bench_triangles' 0/1 symmetric adjacency."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    a = (rng.random((n, n)) < p).astype(np.float32)
+    a = np.triu(a, 1)
+    return a + a.T
+
+
+def scipy_trace_a3(a_sp) -> int:
+    """trace(A³) of a symmetric sparse adjacency: Σ (A·A) ∘ A, exact."""
+    return int(round((a_sp @ a_sp).multiply(a_sp).sum()))
+
+
+def rel_sql(dev) -> dict:
+    """SQL on the card: SELECT trace(A * A * A) FROM A over bench_all's
+    adjacency (exact against scipy.sparse), a select/rowsum query, a
+    joinvalue query, explain_sql, and the same text twice (one
+    plan-cache hit)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    meter = PeakMeter("sql")
+    sess = MatrelSession(device=dev)
+    n = REL_TRI_N
+    a = tri_adjacency(n, REL_TRI_P, 2)
+    want6 = scipy_trace_a3(sp.csr_matrix(a))
+    sess.register("A", sess.from_numpy(a))
+    q = "SELECT trace(A * A * A) FROM A"
+    plans0 = sess.plan_cache_info()["plans"]
+    out, first = synced(lambda: sess.compute(sess.sql(q)))
+    plans1 = sess.plan_cache_info()["plans"]
+    secs = []
+    for _ in range(3):
+        out, s = synced(lambda: sess.compute(sess.sql(q)))
+        secs.append(s)
+    hits_ok = sess.plan_cache_info()["plans"] == plans1 == plans0 + 1
+    got6 = float(out.data[0, 0])
+    if got6 != want6 or not hits_ok:
+        raise AssertionError(f"SQL triangles: trace(A³) {got6!r} vs scipy "
+                             f"{want6}; plans {plans0} → {plans1} → "
+                             f"{sess.plan_cache_info()['plans']}")
+    flops = 2.0 * n ** 3 + 2.0 * n ** 2
+    s_med = statistics.median(secs)
+    log(f"path relational, SQL {q!r} over {n}² f32 at {REL_TRI_P:.0%} "
+        f"(seed 2): {int(got6) // 6} triangles, trace(A³) {int(got6)} = "
+        f"scipy.sparse exactly; first call {first * 1e3:.1f} ms (parse, "
+        f"plan, run), warm {s_med * 1e3:.2f} ms (median of 3, host clock, "
+        f"synchronised; the same text re-parsed each time: "
+        f"{sess.plan_cache_info()['plans'] - plans0} plan compiled, 3 "
+        f"cache hits) = {flops / s_med / 1e12:.2f} TFLOP/s against "
+        f"2n³ + 2n²")
+    for line in sess.explain_sql(q).splitlines():
+        log(f"  explain_sql | {line}")
+    deg = sess.compute(sess.sql(
+        "SELECT rowsum(select(A, 'v > 0')) FROM A")).to_numpy()[:, 0]
+    if not np.array_equal(deg, a.sum(1)):
+        raise AssertionError("SQL rowsum(select(A, 'v > 0')) != degrees")
+    m = 512
+    g = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn(m, m, generator=g, device=dev).mul_(64).round_().div_(64)
+    sess.register("X", dense_leaf(sess, x))
+    jq = "SELECT rowsum(joinvalue(X, X, 'mul', 'lt')) FROM X"
+    out, js = synced(lambda: sess.compute(sess.sql(jq)))
+    vx = x.T.reshape(-1).double()
+    picks = torch.randint(0, vx.numel(), (64,), generator=g, device=dev)
+    c_x = float((vx - vx.mean()).abs().sum())
+    worst = 0.0
+    for i in picks.tolist():
+        s_, c_, _, _, _ = vj_reference(float(vx[i]), vx, "lt", "mul", "row")
+        gv = float(out.data[i, 0])
+        tol = vj_tol("sum", s_, c_, 2.0 * vx.numel() * 2.0 ** -53 * c_x
+                     * abs(float(vx[i])))
+        if abs(gv - s_) > tol:
+            raise AssertionError(f"SQL joinvalue row {i}: {gv!r} vs float64 "
+                                 f"{s_!r} > {tol:.3e}")
+        worst = max(worst, abs(gv - s_) / tol if tol else 0.0)
+    peak = meter.gib()
+    log(f"path relational, SQL {jq!r} ({m}² ⋈ {m}²): {js * 1e3:.1f} ms "
+        f"first call; 64 rows vs float64, worst |err| / derived bound "
+        f"{worst:.3e}; rowsum(select(A, 'v > 0')) = degrees exactly; peak "
+        f"{peak:.3f} GiB")
+    return {"tri": int(got6) // 6, "warm_ms": s_med * 1e3,
+            "tflops": flops / s_med / 1e12, "first_ms": first * 1e3,
+            "joinvalue_ms": js * 1e3, "peak_gib": peak}
+
+
+def rel_triangles_block_sparse(dev) -> dict:
+    """trace(S·S·S)/6 over a block-sparse adjacency of block-diagonal
+    communities (bs REL_BS, f32, n = REL_BS_N): S·S reaches the S×S
+    registry; the stamped kernel id, its launches and the exact count
+    against scipy."""
+    import numpy as np
+    import scipy.sparse as sp
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    from matrel_tpu_torch.ops import pallas_spmm
+    from matrel_tpu_torch.workloads import triangles
+    meter = PeakMeter("triangles_bs")
+    sess = MatrelSession(device=dev)
+    n, bs = REL_BS_N, REL_BS
+    rng = np.random.default_rng(25)
+    rows, cols = [], []
+    for k in range(0, n, bs):
+        blk = np.triu(rng.random((bs, bs)) < REL_BS_P, 1)
+        r, c = np.nonzero(blk)
+        rows += [r + k, c + k]
+        cols += [c + k, r + k]
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    S = BlockSparseMatrix.from_coo_arrays(rows, cols, np.ones(len(rows)),
+                                          (n, n), block_size=bs,
+                                          mesh=sess.mesh)
+    want6 = scipy_trace_a3(sp.csr_matrix((np.ones(len(rows), np.float32),
+                                          (rows, cols)), shape=(n, n)))
+    e = triangles.triangle_count_expr(S)
+    plan = sess.compile(e)
+
+    def stamps(node):
+        got = ([node.attrs["spgemm_kernel"]]
+               if "spgemm_kernel" in node.attrs else [])
+        return got + [k for c in node.children for k in stamps(c)]
+
+    def nodes(node):
+        yield node
+        for c in node.children:
+            yield from nodes(c)
+
+    kids = stamps(plan.optimized)
+    d_s = any(m.kind == "matmul" and sum(c.kind == "sparse_leaf"
+                                         for c in m.children) == 1
+              for m in nodes(plan.optimized))
+    zero_spgemm_launches()
+    pallas_spmm.LAUNCHES = 0
+    out, first = synced(lambda: sess.compute(e))
+    launches = spgemm_launches()
+    l_b1 = pallas_spmm.LAUNCHES
+    got6 = float(out.data[0, 0])
+    _, warm = synced(lambda: sess.compute(e))
+    if len(kids) != 1 or got6 != want6:
+        raise AssertionError(f"block-sparse triangles: stamps {kids}, "
+                             f"trace {got6!r} vs scipy {want6}")
+    # the stamp names a schedule; the kernels it launches are counted
+    # (pallas_band falls back to the grouped kernel at some shapes)
+    launched = {k: v for k, v in launches.items() if v}
+    need_launches(f"block-sparse triangles ({kids[0]})",
+                  sum(launched.values()))
+    peak = meter.gib()
+    # the launched kernel against its plain version on the path's S·S
+    run, a_m, b_m, n_out = spgemm_runner(S, S, kids[0])
+    if predicted_launches(run) != launches:
+        raise AssertionError(f"block-sparse triangles: the path launched "
+                             f"{launched}, the {kids[0]} runner of S·S "
+                             f"launches {predicted_launches(run)}")
+    kname = SPGEMM_KERNEL_OF[run.schedule]
+    dtype_name = str(a_m.dtype).removeprefix("torch.")
+    got = run(a_m, b_m)
+    want = spgemm_plain(run, a_m, b_m, n_out)
+    k_err = check_close(f"{kname} on the triangles' S·S (bs {bs})",
+                        got.reshape(-1, got.shape[-1]),
+                        want.reshape(-1, want.shape[-1]), dtype_name)
+    del got, want, a_m, b_m, run
+    log(f"path relational, triangles over a block-sparse adjacency "
+        f"(n={n:,}, {n // bs} communities of {bs}, p={REL_BS_P}, "
+        f"S.nnzb={S.nnzb}): stamp {kids[0]}, launches {launched}, "
+        f"{kname} vs its plain version on S·S ({n_out} {bs}² {dtype_name} "
+        f"tiles) max_abs_err {k_err:.3e}; B1 "
+        f"launches {l_b1} (the plan {'has a' if d_s else 'has no'} D·S "
+        f"product; rule R3 turns trace((S·S)·S) into Σ (S·S) ∘ Sᵀ); "
+        f"{int(got6) // 6} triangles = "
+        f"scipy.sparse exactly; first call {first * 1e3:.1f} ms, warm "
+        f"{warm * 1e3:.1f} ms; peak {peak:.3f} GiB")
+    return {"launches": launches, "b1": l_b1, "stamp": kids[0],
+            "max_abs_err": {kname: k_err},
+            "warm_ms": warm * 1e3, "first_ms": first * 1e3,
+            "peak_gib": peak, "tri": int(got6) // 6}
+
+
+def rel_similarity(dev) -> dict:
+    """cosine_similarity of a clustered X (REL_SIM_N × REL_SIM_D f32) at
+    "high" and "highest", then σ(v > 0.9), sampled rows against float64.
+    Bounds: K·U32 for the f32 Gram's entries over ‖x_i‖‖x_j‖ (Cauchy-
+    Schwarz), plus 2^-15 for "high"'s dropped lo·lo term, plus 8·U32 for
+    the norms and the divide."""
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.workloads import similarity
+    meter = PeakMeter("similarity")
+    n, d = REL_SIM_N, REL_SIM_D
+    g = torch.Generator(device=dev).manual_seed(26)
+    centers = torch.randn(REL_SIM_CLUSTERS, d, generator=g, device=dev)
+    label = torch.randint(0, REL_SIM_CLUSTERS, (n,), generator=g,
+                          device=dev)
+    x = centers[label] + 0.25 * torch.randn(n, d, generator=g, device=dev)
+    rows = torch.randint(0, n, (REL_ROWS_CHECKED,), generator=g, device=dev)
+    with meter.aside():
+        x64 = x.double()
+        nrm = x64.norm(dim=1)
+        want = (x64[rows] @ x64.T) / (nrm[rows, None] * nrm[None, :])
+        del x64, nrm
+    stats = {}
+    for prec in ("highest", "high"):
+        s = MatrelSession(config=MatrelConfig(matmul_precision=prec),
+                          device=dev)
+        X = dense_leaf(s, x)
+        tol = d * U32 + 8 * U32 + (2.0 ** -15 if prec == "high" else 0.0)
+        out, first = synced(lambda: similarity.cosine_similarity_expr(X)
+                            .compute(s))
+        warm = time_ms(lambda: similarity.cosine_similarity_expr(X)
+                       .compute(s), warmup=1, runs=5)
+        err = rows_vs_f64(f"cosine similarity ({prec})", out.data[rows],
+                          want, tol)
+        del out
+        e = similarity.cosine_similarity_expr(X).select_value(
+            lambda v: v > 0.9)
+        sel, sel_s = synced(lambda: e.compute(s))
+        got = sel.data[rows].double()
+        clear = (want - 0.9).abs() > tol        # not within tol of 0.9
+        want_sel = torch.where(want > 0.9, want, 0.0)
+        err_sel = rows_vs_f64(f"σ(v > 0.9) of the similarity ({prec})",
+                              torch.where(clear, got, want_sel), want_sel,
+                              tol)
+        kept = int((sel.data > 0).sum())
+        stats[prec] = {"first_ms": first * 1e3, "warm_ms": warm,
+                       "err": err, "sel_ms": sel_s * 1e3,
+                       "err_sel": err_sel, "kept": kept}
+        del sel, X, s
+    peak = meter.gib()
+    for prec, st in stats.items():
+        log(f"path relational, cosine_similarity X {n}×{d} f32 "
+            f"({REL_SIM_CLUSTERS} clusters) at {prec!r}: first call "
+            f"{st['first_ms']:.1f} ms, warm {st['warm_ms']:.3f} ms (CUDA "
+            f"events, median of 5), max |err| vs float64 on "
+            f"{REL_ROWS_CHECKED} rows {st['err']:.3e}; σ(v > 0.9) "
+            f"{st['sel_ms']:.1f} ms, {st['kept']:,} entries kept, "
+            f"|err| {st['err_sel']:.3e}")
+    log(f"path relational, similarity: peak {peak:.3f} GiB")
+    return {"queries": stats, "peak_gib": peak}
+
+
+def rel_coo(dev) -> dict:
+    """COO relational on row 5's 10M-edge graph: σ(v > median) then
+    matvec and compute (B2 counted), row_count and row_max against
+    scipy, and one join_on_value(…, "eq") under max_pairs."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.ops import pallas_spmv as pc
+    meter = PeakMeter("coo")
+    sess = MatrelSession(device=dev)
+    _, _, A = row5_matrix()
+    n = A.shape[0]
+    med = float(np.median(A.vals))
+    sel, sel_s = synced(lambda: A.select_value(lambda v: v > med))
+    csr = sp.csr_matrix((sel.vals.astype(np.float64), (sel.rows, sel.cols)),
+                        shape=sel.shape)
+    x = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(27),
+                   device=dev)
+    want = csr @ x.double().cpu().numpy()
+    pc.LAUNCHES_SPMV = 0                 # the σ-filtered matvec path
+    y, mv_first = synced(lambda: sel.matvec(x, device=dev))
+    y2 = sess.compute(sel.multiply(dense_leaf(sess, x[:, None])))
+    torch.cuda.synchronize()
+    launches = need_launches("σ-filtered matvec (B2)", pc.LAUNCHES_SPMV)
+    mv_warm = time_ms(lambda: sel.matvec(x, device=dev), warmup=1, runs=10)
+    scale = float(np.abs(want).max())
+    errs = [float(np.abs(t.double().cpu().numpy() - want).max()) / scale
+            for t in (y, y2.data[:, 0])]
+    if max(errs) > SPMV_ORACLE_TOL[3]:
+        raise AssertionError(f"σ-filtered matvec: rel err {errs} > "
+                             f"{SPMV_ORACLE_TOL[3]}")
+    cnt, cnt_s = synced(lambda: sel.row_count())
+    mx, mx_s = synced(lambda: sel.row_max())
+    csr.eliminate_zeros()
+    if not (np.array_equal(cnt[:, 0], np.diff(csr.indptr).astype(np.float32))
+            and np.array_equal(mx, csr.max(axis=1).toarray().astype(
+                np.float32))):
+        raise AssertionError("COO row_count / row_max differ from scipy")
+    # B: the selected graph's distinct values that occur at most 200,000
+    # times (the rare high 1/outdeg values), so the pairs stay under
+    # max_pairs
+    vals, counts = np.unique(sel.vals, return_counts=True)
+    pool = np.nonzero(counts <= 200_000)[0][:16]
+    from matrel_tpu_torch.core.coo import COOMatrix
+    Bq = COOMatrix.from_edges(np.arange(len(pool)),
+                              np.zeros(len(pool), np.int64), vals[pool],
+                              shape=(max(len(pool), 1), 1))
+    pairs, j_s = synced(lambda: sel.join_on_value(Bq, "mul", "eq",
+                                                  max_pairs=1 << 22))
+    ia, ja, ib, jb, pv = pairs
+    want_pairs = int(counts[pool].sum())
+    if len(pool) == 0 or len(pv) != want_pairs or not np.array_equal(
+            pv, (vals[pool][ib] ** 2).astype(np.float32)):
+        raise AssertionError(f"COO join_on_value: {len(pv)} pairs vs "
+                             f"{want_pairs}")
+    peak = meter.gib()
+    log(f"path relational, COO on row 5's graph ({A.nnz:,} edges): "
+        f"select_value(v > median {med:.4g}) {sel_s:.2f} s (host) → "
+        f"{sel.nnz:,} edges; matvec first call {mv_first:.2f} s (plan build"
+        f" included), warm {mv_warm:.4f} ms (CUDA events), {launches} B2 "
+        f"launches (matvec and compute), rel err vs float64 scipy "
+        f"{max(errs):.3e}; row_count {cnt_s * 1e3:.0f} ms, row_max "
+        f"{mx_s * 1e3:.0f} ms (host) = scipy; join_on_value(σA, "
+        f"{len(pool)} values, 'mul', 'eq') {j_s:.2f} s (host) → {len(pv):,} pairs (max_pairs "
+        f"{1 << 22:,}); peak {peak:.3f} GiB")
+    return {"launches": launches, "select_s": sel_s, "mv_ms": mv_warm,
+            "join_s": j_s, "pairs": len(pv), "peak_gib": peak,
+            "row_count_ms": cnt_s * 1e3, "row_max_ms": mx_s * 1e3}
+
+
+def rel_io(dev) -> dict:
+    """save_tiled / load_tiled of a REL_IO_N² f32 matrix through a
+    temporary directory under the checkout's build/, bit for bit."""
+    import tempfile
+    import torch
+    from matrel_tpu_torch import MatrelSession, io
+    meter = PeakMeter("io")
+    sess = MatrelSession(device=dev)
+    n = REL_IO_N
+    m = dense_leaf(sess, torch.randn(
+        n, n, generator=torch.Generator(device=dev).manual_seed(28),
+        device=dev))
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        _, save_s = synced(lambda: io.save_tiled(d, m))
+        back, load_s = synced(lambda: io.load_tiled(d, mesh=sess.mesh))
+        n_files = len(os.listdir(d))
+    if back.shape != m.shape or not torch.equal(back.data, m.data):
+        raise AssertionError("save_tiled / load_tiled changed the matrix")
+    peak = meter.gib()
+    gib = n * n * 4 / 2**30
+    log(f"path relational, io: save_tiled {n}² f32 ({gib:.0f} GiB, "
+        f"{n_files - 1} tiles + meta.json) {save_s:.2f} s, load_tiled "
+        f"{load_s:.2f} s, bit-equal; peak {peak:.3f} GiB")
+    return {"save_s": save_s, "load_s": load_s, "peak_gib": peak}
+
+
+def path_relational(dev) -> dict:
+    """MatRel's relational σ/γ/⋈ surface and SQL on the card: the
+    sub-phases above, each through a fresh session, with its time, its
+    error against its oracle and its own peak device memory. Returns
+    the launches it adds to B2 and the S×S kernels, and the error of
+    the S×S kernel it launched against its plain version at its shape."""
+    out = {"value_join": rel_value_join(dev),
+           "selections": rel_selections(dev),
+           "sql": rel_sql(dev),
+           "triangles_bs": rel_triangles_block_sparse(dev),
+           "similarity": rel_similarity(dev),
+           "coo": rel_coo(dev),
+           "io": rel_io(dev)}
+    peaks = {k: round(v["peak_gib"], 3) for k, v in out.items()}
+    peaks["blackbox"] = round(out["value_join"]["blackbox"]["peak_gib"], 3)
+    log(f"path relational: peaks by sub-phase (GiB) {peaks}; bounds "
+        f"{ {k: round(v, 3) for k, v in REL_PEAK_LIMIT_GIB.items()} }")
+    launches = dict(out["triangles_bs"]["launches"])
+    launches["spmv_compact"] = out["coo"]["launches"]
+    out["launches"] = launches
+    out["max_abs_err"] = out["triangles_bs"]["max_abs_err"]
+    return out
+
+
 def ptxas_functions(log_text: str) -> dict:
     """{mangled function: (registers, stack, spill stores, spill loads)}
     from an ``nvcc -Xptxas=-v`` log."""
@@ -2526,6 +3422,11 @@ def main() -> int:
     dp_timing(dev)
     del queries, S, D
     path_north_star(dev)              # holds its own peak-memory bound
+    rel = path_relational(dev)        # each sub-phase its bound
+    l_rel = rel["launches"]
+    for name, err in rel["max_abs_err"].items():   # the worst of both shapes
+        b47[name] = dict(b47[name], max_abs_err=max(
+            b47[name]["max_abs_err"], err))
 
     kernels = [
         kernel_entry("spmm_blocksparse", pallas_spmm.SOURCE,
@@ -2533,13 +3434,14 @@ def main() -> int:
                      launches + l_batch["spmm_blocksparse"], row),
         kernel_entry("spmv_compact", pallas_spmv.SOURCE,
                      "matrel_tpu/ops/pallas_spmv.py:50",
-                     launches_pr + l_spmv + l_batch["spmv_compact"],
-                     b23["spmv_compact"]),
+                     launches_pr + l_spmv + l_batch["spmv_compact"]
+                     + l_rel["spmv_compact"], b23["spmv_compact"]),
         kernel_entry("spmm_compact", pallas_spmv.SOURCE,
                      "matrel_tpu/ops/pallas_spmv.py:334", l_spmm,
                      b23["spmm_compact"]),
     ] + [kernel_entry(name, pallas_spgemm.SOURCE, SPGEMM_REPLACES[name],
-                      l_spgemm[name], b47[name]) for name in SPGEMM_REPLACES]
+                      l_spgemm[name] + l_rel[name], b47[name])
+         for name in SPGEMM_REPLACES]
     kernels.append(dict(
         kernel_entry("spmv_routed", spmv_routed.SOURCE,
                      "matrel_tpu/ops/spmv_routed.py:232", l_routed + l_cg,

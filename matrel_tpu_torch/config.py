@@ -177,14 +177,13 @@ _FIELD_DEFAULTS = {f.name: f.default for f in dataclasses.fields(MatrelConfig)}
 
 #: Knobs whose plane is not ported: Pallas interpret mode, buffer
 #: donation, hoisted payloads (the plan cache's byte bound counts them),
-#: relational joins, autotune, the result cache and serving pipeline,
+#: autotune, the result cache and serving pipeline,
 #: observability, static verification, staged resharding, resilience,
 #: overload control, fusion, multi-query optimization, IVM, the fleet,
 #: lockdep, the cost-model loop and the durable spill hierarchy.
 UNPORTED_KNOBS = (
     "pallas_interpret", "donate_intermediates", "plan_cache_max_bytes",
-    "join_pair_cap_entries", "join_bruteforce_max_pairs",
-    "join_chunk_entries", "autotune", "autotune_table_path",
+    "autotune", "autotune_table_path",
     "autotune_max_dim", "result_cache_max_bytes",
     "result_cache_max_entries", "serve_max_batch", "serve_max_inflight",
     "obs_level", "obs_event_log", "obs_metrics_port", "slo_targets",

@@ -203,6 +203,15 @@ class BlockMatrix:
     def trace(self):
         return self.expr().trace()
 
+    def select_value(self, predicate, **kw):
+        return self.expr().select_value(predicate, **kw)
+
+    def select_index(self, *, rows=None, cols=None):
+        return self.expr().select_index(rows=rows, cols=cols)
+
+    def join_on_index(self, other, merge):
+        return self.expr().join_on_index(other, merge)
+
     def __matmul__(self, other):
         return self.multiply(other)
 

@@ -14,7 +14,13 @@ the card, their plain versions on the CPU); with it off, and always for
 ``rmatvec``, the expanded one-hot path (``ops/spmv.py``) runs. Every
 product takes ``device=`` and runs on the card unless asked for another.
 
-``shard`` and the relational σ/γ/⋈ methods are not ported yet.
+The relational σ/γ/⋈ methods (``coalesce``, ``select_value``,
+``select_index``, the row/col aggregates, ``norm``, ``trace``,
+``join_on_index``, ``join_on_value``) run on the host over the edge
+list, O(nnz), as in the JAX package: predicates and merges are
+vectorised callables over numpy arrays. A selected matrix is a new
+``COOMatrix`` and goes on to the kernels through ``matvec``/``matmat``
+and ``compute``. ``shard`` is not ported.
 """
 
 from __future__ import annotations
@@ -49,6 +55,9 @@ class COOMatrix:
                                                    repr=False)
     _seg_bwd: Dict[str, tuple] = dataclasses.field(default_factory=dict,
                                                    repr=False)
+    # True when coordinates are known-unique (outputs of coalesce /
+    # select_value / joins): chained relational ops skip the re-sort
+    _coalesced: bool = dataclasses.field(default=False, repr=False)
 
     # ---------------------------------------------------------- build
     @classmethod
@@ -208,6 +217,213 @@ class COOMatrix:
         return BlockMatrix.from_numpy(self.to_dense(), mesh=mesh,
                                       config=config, nnz=self.nnz)
 
+    # ------------------------------------------------- relational (σ/γ/⋈)
+    # Edge-list forms of the relational operators: O(nnz) host work over
+    # the coordinates, with the dense masked semantics (0 = missing), so
+    # results agree with the IR lowerings wherever both are feasible.
+
+    def coalesce(self) -> "COOMatrix":
+        """Collapse duplicate coordinates additively (entry-level view);
+        returns self when coordinates are known-unique."""
+        if self._coalesced:
+            return self
+        m = self.shape[1]
+        keys, vals = _sum_dups(self.rows * m + self.cols, self.vals)
+        out = COOMatrix.from_edges(keys // m, keys % m, vals,
+                                   shape=self.shape)
+        out._coalesced = True
+        return out
+
+    def select_value(self, predicate, fill: float = 0.0) -> "COOMatrix":
+        """σ on ENTRY values (duplicates coalesced first: an entry's value
+        is the sum of its edges). Only fill=0 keeps the result sparse."""
+        if fill != 0.0:
+            raise ValueError("COOMatrix.select_value supports fill=0 "
+                             "only (a nonzero fill densifies; use "
+                             "to_block(...).select_value)")
+        A = self.coalesce()
+        keep = np.asarray(predicate(A.vals), bool)
+        out = COOMatrix.from_edges(A.rows[keep], A.cols[keep],
+                                   A.vals[keep], shape=self.shape)
+        out._coalesced = True
+        return out
+
+    def select_index(self, *, rows=None, cols=None) -> "COOMatrix":
+        """σ on indices: keep edges whose row/col satisfy the predicates
+        (vectorised callables over index arrays)."""
+        keep = np.ones(self.rows.shape, bool)
+        if rows is not None:
+            keep &= np.asarray(rows(self.rows), bool)
+        if cols is not None:
+            keep &= np.asarray(cols(self.cols), bool)
+        out = COOMatrix.from_edges(self.rows[keep], self.cols[keep],
+                                   self.vals[keep], shape=self.shape)
+        out._coalesced = self._coalesced   # subsets stay unique
+        return out
+
+    def _axis_agg(self, axis: str, kind: str) -> np.ndarray:
+        # count/avg/max/min are entry-level (γ over nonzero TUPLES):
+        # duplicates coalesce first; plain sums are additive anyway
+        A = self if kind == "sum" else self.coalesce()
+        ids = A.rows if axis == "row" else A.cols
+        n = self.shape[0] if axis == "row" else self.shape[1]
+        vals = A.vals
+        nz = vals != 0
+        if kind == "sum":
+            out = np.bincount(ids, weights=vals,
+                              minlength=n).astype(np.float32)
+        elif kind == "count":
+            out = np.bincount(ids[nz], minlength=n).astype(np.float32)
+        elif kind == "avg":
+            sv = np.bincount(ids, weights=vals, minlength=n)
+            c = np.bincount(ids[nz], minlength=n)
+            out = np.where(c > 0, sv / np.maximum(c, 1), 0.0)
+        elif kind in ("max", "min"):
+            fill = -np.inf if kind == "max" else np.inf
+            out = np.full(n, fill, np.float64)
+            op = np.maximum if kind == "max" else np.minimum
+            op.at(out, ids[nz], vals[nz].astype(np.float64))
+            out = np.where(np.isfinite(out), out, 0.0)
+            # a row/col with any MISSING entry includes implicit zeros in
+            # its max/min, as the dense lowering's full-region reduction
+            width = self.shape[1] if axis == "row" else self.shape[0]
+            cnt = np.bincount(ids[nz], minlength=n)
+            out = np.where(cnt < width, op(out, 0.0), out)
+        else:
+            raise ValueError(f"unknown aggregate {kind!r}")
+        return out.astype(np.float32)
+
+    def row_sum(self) -> np.ndarray:
+        """γ: per-row sums as (n, 1) — O(nnz), never densifies."""
+        return self._axis_agg("row", "sum")[:, None]
+
+    def col_sum(self) -> np.ndarray:
+        return self._axis_agg("col", "sum")[None, :]
+
+    def row_count(self) -> np.ndarray:
+        return self._axis_agg("row", "count")[:, None]
+
+    def col_count(self) -> np.ndarray:
+        return self._axis_agg("col", "count")[None, :]
+
+    def row_avg(self) -> np.ndarray:
+        return self._axis_agg("row", "avg")[:, None]
+
+    def col_avg(self) -> np.ndarray:
+        return self._axis_agg("col", "avg")[None, :]
+
+    def row_max(self) -> np.ndarray:
+        return self._axis_agg("row", "max")[:, None]
+
+    def row_min(self) -> np.ndarray:
+        return self._axis_agg("row", "min")[:, None]
+
+    def col_max(self) -> np.ndarray:
+        return self._axis_agg("col", "max")[None, :]
+
+    def col_min(self) -> np.ndarray:
+        return self._axis_agg("col", "min")[None, :]
+
+    def sum(self) -> float:
+        return float(self.vals.sum())
+
+    def norm(self, kind: str = "fro") -> float:
+        """Matrix norm over ENTRIES (duplicates coalesced first)."""
+        v = self.coalesce().vals.astype(np.float64)
+        if kind == "fro":
+            return float(np.sqrt((v * v).sum()))
+        if kind == "l1":
+            return float(np.abs(v).sum())
+        if kind == "max":
+            return float(np.abs(v).max()) if v.size else 0.0
+        raise ValueError(f"unknown norm kind {kind!r} "
+                         "(expected 'fro', 'l1', or 'max')")
+
+    def trace(self) -> float:
+        d = self.rows == self.cols
+        return float(self.vals[d].sum())
+
+    def join_on_index(self, other: "COOMatrix", merge) -> "COOMatrix":
+        """⋈ on index equality: C[i,j] = merge(A[i,j], B[i,j]) over the
+        UNION of both coordinate sets (absent entries read 0). merge is a
+        vectorised callable with merge(0, 0) == 0; exact zeros of the
+        result are dropped from the edge list."""
+        if tuple(self.shape) != tuple(other.shape):
+            raise ValueError(f"join_on_index shape mismatch: "
+                             f"{self.shape} vs {other.shape}")
+        if float(merge(np.float32(0.0), np.float32(0.0))) != 0.0:
+            raise ValueError(
+                "merge(0, 0) != 0: the result is dense (every absent "
+                "coordinate becomes nonzero) — use the dense IR "
+                "join_on_index for such merges")
+        m = self.shape[1]
+        ka_u, va = _sum_dups(self.rows * m + self.cols, self.vals)
+        kb_u, vb = _sum_dups(other.rows * m + other.cols, other.vals)
+        union = np.union1d(ka_u, kb_u)
+        a_full = np.zeros(union.shape, np.float32)
+        b_full = np.zeros(union.shape, np.float32)
+        a_full[np.searchsorted(union, ka_u)] = va
+        b_full[np.searchsorted(union, kb_u)] = vb
+        merged = np.asarray(merge(a_full, b_full), np.float32)
+        nz = merged != 0
+        out = COOMatrix.from_edges(union[nz] // m, union[nz] % m,
+                                   merged[nz], shape=self.shape)
+        out._coalesced = True
+        return out
+
+    def join_on_value(self, other: "COOMatrix", merge="mul",
+                      predicate="eq", max_pairs: int = 1 << 22):
+        """⋈ on values over NONZERO entry tuples (the dense IR's pair
+        matrix ranges over all logical entries; here only stored nonzero
+        entries join).
+
+        predicate: "eq"/"lt"/"le"/"gt"/"ge" (sort-based matching before
+        any pair is materialised) or a vectorised callable over
+        (va, vb) (brute force, capped). merge: "left"/"right"/"add"/
+        "mul" or a vectorised callable. Returns the matched pairs as
+        numpy arrays ``(ia, ja, ib, jb, value)``; refuses more than
+        ``max_pairs`` pairs."""
+        A = self.coalesce()
+        B = other.coalesce()
+        # zero-valued entries (duplicate cancellation) are absent
+        nza = A.vals != 0
+        nzb = B.vals != 0
+        a_rows, a_cols = A.rows[nza], A.cols[nza]
+        b_rows, b_cols = B.rows[nzb], B.cols[nzb]
+        va = A.vals[nza].astype(np.float32)
+        vb = B.vals[nzb].astype(np.float32)
+        merge_np = {"left": lambda x, y: x, "right": lambda x, y: y,
+                    "add": np.add, "mul": np.multiply}.get(merge, merge)
+        if not callable(merge_np):
+            raise ValueError(f"unknown merge {merge!r}")
+        if callable(predicate):
+            if va.size * vb.size > max_pairs:
+                raise ValueError(
+                    f"callable-predicate value join must enumerate "
+                    f"{va.size}x{vb.size} pairs (> max_pairs = "
+                    f"{max_pairs}); use a structured predicate "
+                    f"('eq'/'lt'/'le'/'gt'/'ge') or raise max_pairs")
+            mask = np.asarray(predicate(va[:, None], vb[None, :]), bool)
+            pa, pb = np.nonzero(mask)
+        else:
+            # the streaming executor path's predicate→range semantics
+            from matrel_tpu_torch.relational.value_join import match_range
+            order = np.argsort(vb, kind="stable")   # NaNs sort last
+            lo, hi = match_range(vb[order], va, predicate)
+            cnt = hi - lo
+            total = int(cnt.sum())
+            if total > max_pairs:
+                raise ValueError(
+                    f"value join matches {total} pairs (> max_pairs = "
+                    f"{max_pairs}); tighten the predicate or raise "
+                    f"max_pairs")
+            pa = np.repeat(np.arange(va.size), cnt)
+            # pair k of entry i maps to sorted-B slot lo[i] + offset
+            offs = np.arange(total) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+            pb = order[np.repeat(lo, cnt) + offs]
+        vals = np.asarray(merge_np(va[pa], vb[pb]), np.float32)
+        return (a_rows[pa], a_cols[pa], b_rows[pb], b_cols[pb], vals)
+
     # ------------------------------------------------------------ DSL
     def expr(self):
         """Enter the lazy IR as an element-sparse leaf: matmuls against
@@ -221,3 +437,13 @@ class COOMatrix:
     def multiply(self, other):
         from matrel_tpu_torch.ir import expr as E
         return E.matmul(self.expr(), E.as_expr(other))
+
+
+def _sum_dups(keys: np.ndarray, vals: np.ndarray):
+    """Collapse duplicate coordinates additively: unique keys + summed
+    values (host, O(nnz log nnz))."""
+    if keys.size == 0:
+        return keys, vals.astype(np.float32)
+    uniq, inv = np.unique(keys, return_inverse=True)
+    return uniq, np.bincount(inv, weights=vals,
+                             minlength=uniq.size).astype(np.float32)

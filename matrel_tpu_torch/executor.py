@@ -26,10 +26,19 @@ or Cholesky under ``assume="pos"``), in f32 with TF32 off.
 with one memo per call, so shared subexpressions (the Xᵀ of the normal
 equations' XᵀX and Xᵀy) are computed once.
 
+The relational nodes lower too: σ (select_value, select_index,
+select_block) as masks, join_index as an elementwise merge, join_rows /
+join_cols as a pairwise merge along the non-join axis (the planner's
+join scheme is stamped, and on one card no placement applies), and
+join_value as the capped pair matrix — or, under an aggregate, streamed
+without the pairs (``relational/value_join.py``). Their size guards
+raise before the operands are evaluated.
+
 Lowered kinds: leaf, sparse_leaf, coo_leaf, transpose, matmul, solve,
-inverse, elemwise, scalar, agg, vec, rank1. Every other kind raises
-``NotPortedError``. The autotuned SpMV executor choice is not ported
-(its knob raises).
+inverse, elemwise, scalar, agg, vec, rank1, select_value, select_index,
+select_block, join_index, join_value, join_rows, join_cols. Any other
+kind raises ``NotPortedError``. The autotuned SpMV executor choice is
+not ported (its knob raises).
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ from matrel_tpu_torch.config import MatrelConfig, NotPortedError, default_config
 from matrel_tpu_torch.core import mesh as mesh_lib, padding
 from matrel_tpu_torch.core.blockmatrix import BlockMatrix
 from matrel_tpu_torch.core.mesh import Mesh
-from matrel_tpu_torch.ir import rules
+from matrel_tpu_torch.ir import expr as expr_mod, rules
 from matrel_tpu_torch.ir.expr import MatExpr, leaves as expr_leaves
 from matrel_tpu_torch.parallel import planner, strategies
 
@@ -54,7 +63,8 @@ Tensor = torch.Tensor
 
 LOWERED_KINDS = ("leaf", "sparse_leaf", "coo_leaf", "transpose", "matmul",
                  "solve", "inverse", "elemwise", "scalar", "agg", "vec",
-                 "rank1")
+                 "rank1", "select_value", "select_index", "select_block",
+                 "join_index", "join_value", "join_rows", "join_cols")
 
 # Narrow-operand threshold for the COO SpMV dispatch. The planner calls
 # _coo_dispatch_plan itself (not this constant) so the plan-refusal
@@ -130,6 +140,19 @@ def _diag_reduce(d: Tensor, kind: str) -> Tensor:
     if kind == "min":
         return d.min()
     raise NotImplementedError(kind)
+
+
+def _mask(cond, device) -> Tensor:
+    """A user predicate's result as a boolean tensor (jnp.where reads any
+    nonzero as true; torch.where wants bool)."""
+    t = torch.as_tensor(cond, device=device)
+    return t if t.dtype == torch.bool else t != 0
+
+
+def _index(n: int, device) -> Tensor:
+    """Row/col indices for index predicates, int32 like jnp.arange, so
+    integer arithmetic in a predicate wraps as the JAX package's does."""
+    return torch.arange(n, dtype=torch.int32, device=device)
 
 
 def _pad_to(out: Tensor, pshape: Tuple[int, int]) -> Tensor:
@@ -217,12 +240,169 @@ class Lowerer:
             return self._vec(node, ev)
         if k == "rank1":
             return _unsigned_via_int64(self._rank1, node, ev)
+        if k == "select_value":
+            x = ev(node.children[0])
+            pred, fill = node.attrs["predicate"], node.attrs["fill"]
+            out = torch.where(_mask(pred(x), x.device), x,
+                              torch.tensor(fill, dtype=x.dtype,
+                                           device=x.device))
+            if fill != 0.0:
+                out = _mask_to_logical(out, node.shape)
+            return out
+        if k == "select_index":
+            return self._select_index(node, ev)
+        if k == "select_block":
+            x = ev(node.children[0])
+            bs = node.attrs["block_size"]
+            pn, pm = x.shape
+            bi = (_index(pn, x.device) // bs)[:, None]
+            bj = (_index(pm, x.device) // bs)[None, :]
+            return torch.where(_mask(node.attrs["predicate"](bi, bj),
+                                     x.device), x,
+                               torch.zeros((), dtype=x.dtype,
+                                           device=x.device))
+        if k == "join_index":
+            a, b = ev(node.children[0]), ev(node.children[1])
+            return _mask_to_logical(node.attrs["merge"](a, b), node.shape)
+        if k == "join_value":
+            return self._join_value(node, ev)
+        if k in ("join_rows", "join_cols"):
+            return self._join_axis(node, ev)
         raise NotPortedError(
             f"lowering for node kind {k!r} is not ported to "
             f"matrel_tpu_torch yet (ported: {', '.join(LOWERED_KINDS)})")
 
     def _pad_to_node(self, out: Tensor, node: MatExpr) -> Tensor:
         return _pad_to(out, padding.padded_shape(node.shape, self.mesh))
+
+    def _select_index(self, node: MatExpr, ev) -> Tensor:
+        x = ev(node.children[0])
+        rows, cols = node.attrs["rows"], node.attrs["cols"]
+        pn, pm = x.shape
+        keep = torch.ones((), dtype=torch.bool, device=x.device)
+        if rows is not None:
+            keep = keep & _mask(rows(_index(pn, x.device)), x.device)[:, None]
+        if cols is not None:
+            keep = keep & _mask(cols(_index(pm, x.device)), x.device)[None, :]
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+
+    def _join_axis(self, node: MatExpr, ev) -> Tensor:
+        """Row/col index joins: the statically shaped pairwise merge along
+        the non-join axis. The planner's ``attrs["replicate"]``
+        (choose_join_scheme) names the scheme; on one card both
+        operands are whole on the device, so no placement applies (the
+        JAX package constrains shardings only when its mesh has more
+        than one device)."""
+        out_entries = node.shape[0] * node.shape[1]
+        cap = self.config.join_pair_cap_entries
+        if out_entries > cap:
+            raise ValueError(
+                f"row/col join output has {node.shape[0]}x"
+                f"{node.shape[1]} = {out_entries} entries (> "
+                f"join_pair_cap_entries = {cap}); select/aggregate the "
+                f"operands first or raise the cap in MatrelConfig.")
+        l, r = node.children
+        a = ev(l)[: l.shape[0], : l.shape[1]]
+        b = ev(r)[: r.shape[0], : r.shape[1]]
+        merge = node.attrs["merge"]
+        if node.kind == "join_rows":
+            out = merge(a[:, :, None], b[:, None, :])       # (n, ma, mb)
+            out = out.reshape(l.shape[0], l.shape[1] * r.shape[1])
+        else:
+            out = merge(a[:, None, :], b[None, :, :])       # (na, nb, m)
+            out = out.reshape(l.shape[0] * r.shape[0], l.shape[1])
+        return self._pad_to_node(out, node)
+
+    def _entry_vectors(self, node: MatExpr, ev):
+        """Column-major logical-entry vectors (va, vb) of a join_value
+        node's operands (the pair matrix's row/col coordinates) as f32,
+        plus the dtype the dense lowering would produce (operand
+        promotion), so the streamed result is cast to match it."""
+        l, r = node.children
+        a, b = ev(l), ev(r)
+        va = a[: l.shape[0], : l.shape[1]].T.reshape(-1)
+        vb = b[: r.shape[0], : r.shape[1]].T.reshape(-1)
+        out_dtype = torch.promote_types(a.dtype, b.dtype)
+        return va.float(), vb.float(), out_dtype
+
+    def _agg_join_value(self, node: MatExpr, jnode: MatExpr, ev) -> Tensor:
+        """agg(join_on_value(A, B)) without the (na, nb) pair matrix:
+        sort-based O((na+nb)·log nb) for structured predicate+merge,
+        bounded chunkwise enumeration for black-box callables (capped),
+        elementwise for the diagonal."""
+        from matrel_tpu_torch.relational import value_join as vj
+        kind, axis = node.attrs["agg"], node.attrs["axis"]
+        merge_fn = jnode.attrs["merge"]
+        pred_fn = jnode.attrs["predicate"]
+        pred_kind = jnode.attrs.get("pred_kind")
+        merge_kind = jnode.attrs.get("merge_kind")
+        na, nb = jnode.shape
+        structured = (merge_kind is not None
+                      and (pred_kind is not None or pred_fn is None)
+                      and kind in vj.AGG_KINDS)
+        if (axis != "diag" and not structured
+                and na * nb > self.config.join_bruteforce_max_pairs):
+            # guard BEFORE evaluating the operands
+            raise ValueError(
+                f"aggregated value-join with callable merge/"
+                f"predicate must enumerate {na}x{nb} = {na * nb} "
+                f"pairs (> join_bruteforce_max_pairs = "
+                f"{self.config.join_bruteforce_max_pairs}). Use "
+                f"structured forms (predicate in "
+                f"{expr_mod.JOIN_PREDS}, merge in "
+                f"{expr_mod.JOIN_MERGES}) for the O(n log n) sort "
+                f"path, or raise the cap.")
+        va, vb, out_dtype = self._entry_vectors(jnode, ev)
+        if axis == "diag":
+            L = min(na, nb)
+            d = merge_fn(va[:L], vb[:L])
+            if pred_fn is not None:
+                d = torch.where(_mask(pred_fn(va[:L], vb[:L]), d.device), d,
+                                torch.zeros((), dtype=d.dtype,
+                                            device=d.device))
+            out = _diag_reduce(d, kind)
+            return self._pad_to_node(out.reshape(1, 1).to(out_dtype), node)
+        if structured:
+            out = vj.axis_agg_sorted(va, vb, pred_kind or "always",
+                                     merge_kind, kind, axis)
+        else:
+            out = vj.axis_agg_chunked(va, vb, merge_fn, pred_fn, kind,
+                                      axis, self.config.join_chunk_entries)
+        if axis == "row":
+            out = out.reshape(-1, 1)
+        elif axis == "col":
+            out = out.reshape(1, -1)
+        else:
+            out = out.reshape(1, 1)
+        return self._pad_to_node(out.to(out_dtype), node)
+
+    def _join_value(self, node: MatExpr, ev) -> Tensor:
+        """The materialised value join: the (|A|, |B|) pair matrix with
+        merge(va, vb) where the predicate holds, else 0. Capped by
+        ``config.join_pair_cap_entries`` (checked before the operands
+        are evaluated); aggregate the join to stream it instead."""
+        na, nb = node.shape
+        cap = self.config.join_pair_cap_entries
+        if na * nb > cap:
+            raise ValueError(
+                f"materialising a {na}x{nb} value-join pair matrix "
+                f"({na * nb} entries) exceeds join_pair_cap_entries = "
+                f"{cap}. Aggregate the join (e.g. agg(join, 'sum', "
+                f"'row')) to stream it without materialisation, or "
+                f"raise the cap in MatrelConfig.")
+        l, r = node.children
+        a, b = ev(l), ev(r)
+        va = a[: l.shape[0], : l.shape[1]].T.reshape(-1)
+        vb = b[: r.shape[0], : r.shape[1]].T.reshape(-1)
+        merge, pred = node.attrs["merge"], node.attrs["predicate"]
+        A, B = va[:, None], vb[None, :]
+        out = merge(A, B)
+        if pred is not None:
+            out = torch.where(_mask(pred(A, B), out.device), out,
+                              torch.zeros((), dtype=out.dtype,
+                                          device=out.device))
+        return self._pad_to_node(out, node)
 
     def _solve(self, node: MatExpr, ev) -> Tensor:
         """X = A⁻¹·B as a dense solve on the LOGICAL shapes — LU by
@@ -483,6 +663,9 @@ class Lowerer:
 
     def _agg(self, node: MatExpr, ev) -> Tensor:
         (child,) = node.children
+        if child.kind == "join_value":
+            # never materialise the pair matrix under an aggregate
+            return self._agg_join_value(node, child, ev)
         x = ev(child)
         kind, axis = node.attrs["agg"], node.attrs["axis"]
         n, m = child.shape

@@ -4,10 +4,12 @@ Every DSL call constructs a ``MatExpr`` node; ``.compute()`` triggers
 rewrite → chain-DP → physical planning → execution. Shape and sparsity
 metadata live on the nodes so the optimizer runs as pure Python.
 
-The relational join constructors are not ported yet. The other node
-kinds can be built (the rewrite rules produce them), but the executor
-lowers only leaf, sparse_leaf, transpose, matmul, elemwise, scalar and
-agg; any other kind raises ``NotPortedError`` at lowering.
+Every node kind of the JAX package is built and lowered here: the
+leaves, transpose, matmul, elemwise, scalar, agg, vec, rank1, solve and
+inverse, and the relational σ/⋈ nodes (select_value, select_index,
+select_block, join_index, join_value, join_rows, join_cols). A
+predicate or merge attr is a callable over torch tensors, or for joins
+a structured string (``JOIN_PREDS`` / ``JOIN_MERGES``).
 """
 
 from __future__ import annotations
@@ -163,6 +165,12 @@ class MatExpr:
 
     def select_index(self, *, rows=None, cols=None) -> "MatExpr":
         return select_index(self, rows=rows, cols=cols)
+
+    def join_on_index(self, other, merge) -> "MatExpr":
+        return join_on_index(self, as_expr(other), merge)
+
+    def join_on_value(self, other, merge, predicate=None) -> "MatExpr":
+        return join_on_value(self, as_expr(other), merge, predicate)
 
     def __matmul__(self, other):
         return self.multiply(other)
@@ -337,9 +345,80 @@ def select_value(a: MatExpr, predicate: Callable,
 
 
 def select_index(a: MatExpr, *, rows=None, cols=None) -> MatExpr:
-    """Relational σ on indices: keep rows/cols where the predicate holds."""
+    """Relational σ on indices: keep rows/cols where the predicate holds
+    (callables over index tensors, or None)."""
     return MatExpr("select_index", (a,), a.shape, a.nnz,
                    {"rows": rows, "cols": cols})
+
+
+def join_on_index(a: MatExpr, b: MatExpr, merge) -> MatExpr:
+    """⋈ on entry index equality: C[i,j] = merge(A[i,j], B[i,j]).
+    ``merge`` is a binary callable over tensors or a structured string
+    ("left"/"right"/"add"/"mul"), which lets the planner infer the
+    output dtype."""
+    if a.shape != b.shape:
+        raise ValueError(f"join_on_index shape mismatch: {a.shape} vs {b.shape}")
+    merge_kind, merge_fn = resolve_join_merge(merge)
+    return MatExpr("join_index", (a, b), a.shape, None,
+                   {"merge": merge_fn, "merge_kind": merge_kind})
+
+
+JOIN_PREDS = ("eq", "lt", "le", "gt", "ge")
+JOIN_MERGES = ("left", "right", "add", "mul")
+
+
+def resolve_join_pred(pred):
+    """(pred_kind, callable) for a structured-or-callable predicate.
+    Structured kinds compare va ? vb: "lt" means va < vb."""
+    if pred is None or callable(pred):
+        return None, pred
+    if pred not in JOIN_PREDS:
+        raise ValueError(f"unknown join predicate {pred!r}; expected a "
+                         f"callable or one of {JOIN_PREDS}")
+    import operator
+    fn = {"eq": operator.eq, "lt": operator.lt, "le": operator.le,
+          "gt": operator.gt, "ge": operator.ge}[pred]
+    return pred, fn
+
+
+def _take_left(a, b):
+    # broadcast WITHOUT arithmetic on b: a + 0*b turns a non-finite
+    # discarded operand into NaN (inf·0)
+    import torch
+    return a + torch.zeros_like(b)
+
+
+def resolve_join_merge(merge):
+    """(merge_kind, callable) for a structured-or-callable merge."""
+    if callable(merge):
+        return None, merge
+    if merge not in JOIN_MERGES:
+        raise ValueError(f"unknown join merge {merge!r}; expected a "
+                         f"callable or one of {JOIN_MERGES}")
+    fn = {"left": _take_left,
+          "right": lambda a, b: _take_left(b, a),
+          "add": lambda a, b: a + b,
+          "mul": lambda a, b: a * b}[merge]
+    return merge, fn
+
+
+def join_on_value(a: MatExpr, b: MatExpr, merge,
+                  predicate=None) -> MatExpr:
+    """⋈ on values: the (n·m_A) × (n·m_B) pair matrix over the
+    column-major entries of A and B, holding merge(va, vb) where
+    predicate(va, vb) holds and 0 elsewhere, as a lazy node.
+    Materialising it is capped by ``config.join_pair_cap_entries``; an
+    aggregate over it never materialises the pairs: structured
+    predicate/merge strings stream in O((na+nb)·log nb) by sort
+    (``relational/value_join.py``), callables fall back to capped
+    chunkwise enumeration."""
+    pred_kind, pred_fn = resolve_join_pred(predicate)
+    merge_kind, merge_fn = resolve_join_merge(merge)
+    na = a.shape[0] * a.shape[1]
+    nb = b.shape[0] * b.shape[1]
+    return MatExpr("join_value", (a, b), (na, nb), None,
+                   {"merge": merge_fn, "predicate": pred_fn,
+                    "merge_kind": merge_kind, "pred_kind": pred_kind})
 
 
 # -- utilities --------------------------------------------------------------
@@ -377,6 +456,13 @@ def pretty(e: MatExpr, indent: int = 0, mesh=None,
             extra += f"[{e.attrs['strategy_source']}]"
         if "precision_tier" in e.attrs:
             extra += f" precision={e.attrs['precision_tier']}"
+    elif e.kind in ("join_rows", "join_cols") and "replicate" in e.attrs:
+        extra = f" replicate={e.attrs['replicate']}"
+    elif e.kind == "join_value":
+        mk = e.attrs.get("merge_kind") or "<callable>"
+        pk = e.attrs.get("pred_kind") or (
+            "<callable>" if e.attrs.get("predicate") else "always")
+        extra = f" merge={mk} pred={pk}"
     if mesh is not None:
         from matrel_tpu_torch.parallel import planner as _pl
         if _lmemo is None:

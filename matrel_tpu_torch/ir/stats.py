@@ -139,6 +139,16 @@ def integral_abs_bound(node, memo: dict = None):
             if None in (ba, bu, bv):
                 return None
             return ba + bu * bv
+        if k == "join_index":
+            mk = n.attrs.get("merge_kind")
+            vals = [walk(c) for c in n.children]
+            if mk == "add":
+                return _mix(vals, sum)
+            if mk == "mul":
+                return _mix(vals, lambda v: v[0] * v[1])
+            if mk in ("left", "right"):
+                return _mix(vals, max)
+            return None
         return None
 
     return walk(node)
@@ -190,6 +200,13 @@ def infer_integral(node, memo: dict = None) -> bool:
             return False
         if k == "rank1":
             return all(walk(c) for c in n.children)
+        if k in ("join_index", "join_rows", "join_cols", "join_value"):
+            # structured merges are closed over integers; callables are
+            # black boxes
+            if n.attrs.get("merge_kind") in ("left", "right", "add",
+                                             "mul"):
+                return all(walk(c) for c in n.children)
+            return False
         return False
 
     return walk(node)

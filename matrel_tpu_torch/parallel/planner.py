@@ -14,8 +14,11 @@ dense matmul stamps ``("xla", "default")``; a virtual grid reproduces
 the JAX package's stamps. An S×S matmul that dispatches SpGEMM stamps
 ``("spgemm", "dispatch")`` and the registry kernel it runs
 (``spgemm_kernel``, ``spgemm_structure``, ``spgemm_kernel_source``).
-The join-scheme choice, autotune and the learned coefficients are not
-ported (their knobs raise ``NotPortedError``).
+Row/col index joins stamp the replication scheme ``choose_join_scheme``
+picks (``attrs["replicate"]``: "left", "right" or "align"); the scheme
+is priced with the closed-form reshard terms only, since the staged
+reshard plans (``reshard_peak_budget_bytes``), autotune and the learned
+coefficients are not ported (their knobs raise ``NotPortedError``).
 """
 
 from __future__ import annotations
@@ -251,13 +254,15 @@ def infer_layout(node: MatExpr, mesh: Mesh,
         if k == "transpose":
             c = walk(n.children[0])
             return {"row": "col", "col": "row"}.get(c, c)
-        if k in ("scalar", "select_value", "select_index", "rank1"):
+        if k in ("scalar", "select_value", "select_index", "select_block",
+                 "rank1"):
             return walk(n.children[0])
-        if k == "elemwise":
+        if k in ("elemwise", "join_index"):
             la, lb = walk(n.children[0]), walk(n.children[1])
-            if n.children[0].shape != n.shape:
+            # broadcast: the full-shaped operand's layout carries
+            if k == "elemwise" and n.children[0].shape != n.shape:
                 return lb
-            if n.children[1].shape != n.shape:
+            if k == "elemwise" and n.children[1].shape != n.shape:
                 return la
             if la == lb:
                 return la
@@ -275,6 +280,12 @@ def infer_layout(node: MatExpr, mesh: Mesh,
                 return "row"
             if axis == "col" and lc == "col":
                 return "col"
+            return "2d"
+        if k in ("join_rows", "join_cols"):
+            rep = n.attrs.get("replicate")
+            if rep in ("align", "left", "right"):
+                return _scheme_out_layout(rep, n, walk(n.children[0]),
+                                          walk(n.children[1]))
             return "2d"
         return "2d"
 
@@ -355,7 +366,7 @@ def infer_dtype(node: MatExpr, config: Optional[MatrelConfig] = None,
                     "accumulation it mirrors) no longer holds")
             return torch.float32
         if k in ("transpose", "scalar", "agg", "vec", "select_value",
-                 "select_index"):
+                 "select_index", "select_block"):
             return walk(n.children[0])
         if k == "matmul":
             if n.attrs.get("precision_tier") in ("int32", "int8"):
@@ -368,7 +379,7 @@ def infer_dtype(node: MatExpr, config: Optional[MatrelConfig] = None,
             if torch.bfloat16 in (da, db):
                 return torch.float32
             return _promote(da, db)
-        if k in ("elemwise", "rank1"):
+        if k in ("elemwise", "rank1", "join_value"):
             return _promote(*(walk(c) for c in n.children))
         if k == "inverse":
             da = walk(n.children[0])
@@ -382,6 +393,11 @@ def infer_dtype(node: MatExpr, config: Optional[MatrelConfig] = None,
             if cfg.keep_input_dtype and da == db:
                 return da
             return torch.float32
+        if k in ("join_rows", "join_cols", "join_index"):
+            # structured merges promote; user callables may not
+            if n.attrs.get("merge_kind") is not None:
+                return _promote(*(walk(c) for c in n.children))
+            return None
         return None
 
     return walk(node)
@@ -687,6 +703,95 @@ def choose_strategy_ex(node: MatExpr, mesh: Mesh,
     return best, "model"
 
 
+def _reshard_to_axis(bytes_: float, layout: str, axis: str,
+                     gx: int, gy: int,
+                     weights: Tuple[float, float] = (1.0, 1.0)) -> float:
+    """Per-device interconnect bytes to re-lay an operand 1D-sharded over
+    all devices along ``axis`` ("row"/"col") from its ``layout``, billed
+    at the topology weight of the mesh axis each move rides (the JAX
+    package's closed forms; its staged-plan pricing under
+    ``reshard_peak_budget_bytes`` is not ported)."""
+    p = max(gx * gy, 1)
+    wx, wy = weights
+    if layout == axis or layout == "rep":
+        return 0.0
+    if layout in ("2d", "other"):
+        # gather along the perpendicular mesh axis ("other" is costed
+        # exactly like "2d")
+        g_perp = gy if axis == "row" else gx
+        w_perp = wy if axis == "row" else wx
+        return (bytes_ / p) * (1 - 1 / g_perp) * w_perp
+    # opposite 1D sharding: all-to-all redistribution of the local shard
+    return _split_full_mesh(bytes_ / p, gx, gy, wx, wy)[0]
+
+
+#: Near-tie band for the consumer-aware join-scheme tiebreak: schemes
+#: within this relative margin of the cheapest are equal-cost, and the
+#: one whose output layout the consumer reads in place wins.
+JOIN_TIE_REL = 0.10
+
+
+def _scheme_out_layout(scheme: str, node: MatExpr,
+                       la: str, lb: str) -> str:
+    """Output layout each join scheme produces (infer_layout's join case,
+    phrased over candidate schemes)."""
+    if scheme == "align":
+        return "row" if node.kind == "join_rows" else "col"
+    return lb if scheme == "left" else la
+
+
+def choose_join_scheme(node: MatExpr, mesh: Mesh,
+                       config: Optional[MatrelConfig] = None,
+                       layout_memo: Optional[dict] = None,
+                       consumer_hint: Optional[str] = None) -> str:
+    """Which operand of a row/col index join to replicate — the
+    reference's join-scheme selection to minimise replication, with
+    per-layout cost terms:
+
+      "left"/"right" — all-gather that side everywhere (free when it is
+        already replicated); the kept side computes on its own layout;
+      "align" — replicate nothing: both operands re-laid 1D-sharded
+        along the join axis, the join computes shard-locally (only when
+        the join axis has at least one row/col per device).
+
+    Bytes are density-credited. Among schemes within ``JOIN_TIE_REL`` of
+    the cheapest, the one whose output layout matches
+    ``consumer_hint`` wins. Returns "left" | "right" | "align". On one
+    card every cost is 0 and "left" is stamped; the lowering applies no
+    placement there."""
+    a, b = node.children
+    gx, gy = mesh_lib.mesh_grid_shape(mesh)
+    p = max(gx * gy, 1)
+    axis = "row" if node.kind == "join_rows" else "col"
+    la = infer_layout(a, mesh, layout_memo, config)
+    lb = infer_layout(b, mesh, layout_memo, config)
+    a_bytes = _bytes(a.shape, a.density if a.density is not None else 1.0)
+    b_bytes = _bytes(b.shape, b.density if b.density is not None else 1.0)
+    wts = mesh_lib.axis_weights(mesh, config)
+
+    def ag(bytes_: float, layout: str) -> float:
+        if layout == "rep":
+            return 0.0
+        return _split_full_mesh(bytes_, gx, gy, wts[0], wts[1])[0]
+
+    cost = {"left": ag(a_bytes, la), "right": ag(b_bytes, lb)}
+    a_extent = a.shape[0] if axis == "row" else a.shape[1]
+    b_extent = b.shape[0] if axis == "row" else b.shape[1]
+    if a_extent != b_extent:
+        raise ValueError(
+            f"{node.kind} operands disagree on the join axis extent "
+            f"({a_extent} vs {b_extent}) — the align gate assumes the "
+            f"constructor-enforced equality (relational/ops.py)")
+    if a_extent >= p:
+        cost["align"] = (
+            _reshard_to_axis(a_bytes, la, axis, gx, gy, weights=wts)
+            + _reshard_to_axis(b_bytes, lb, axis, gx, gy, weights=wts))
+    best = min(cost, key=cost.get)
+    return _hint_tiebreak(
+        cost, best, lambda s: _scheme_out_layout(s, node, la, lb),
+        consumer_hint, JOIN_TIE_REL)
+
+
 def _child_root_scale(e: MatExpr, i: int, scale: float) -> float:
     """Fraction of the plan-root canonical re-lay charge child ``i``'s
     output layout is exposed to (see the JAX package)."""
@@ -698,12 +803,13 @@ def _child_root_scale(e: MatExpr, i: int, scale: float) -> float:
 
     k = e.kind
     child = e.children[i]
-    if k in ("scalar", "select_value", "select_index", "transpose"):
+    if k in ("scalar", "select_value", "select_index", "select_block",
+             "transpose"):
         return scale * _elems(e.shape) / _elems(child.shape)
     if k == "rank1":
         return scale if i == 0 else 0.0
-    if k == "elemwise":
-        if e.children[0].shape != e.children[1].shape:
+    if k in ("elemwise", "join_index"):
+        if k == "elemwise" and e.children[0].shape != e.children[1].shape:
             return scale if child.shape == e.shape else 0.0
         return scale * 0.5
     return 0.0
@@ -754,7 +860,8 @@ def annotate_strategies(e: MatExpr, mesh: Mesh,
                         _root_swap: bool = False,
                         _integral_memo: Optional[dict] = None) -> MatExpr:
     """Bottom-up pass stamping ``precision_tier`` (non-default SLAs),
-    ``strategy`` and ``strategy_source`` on every matmul node."""
+    ``strategy`` and ``strategy_source`` on every matmul node, and the
+    join scheme (``replicate``) on every row/col index join."""
     memo = {} if _dtype_memo is None else _dtype_memo
     lmemo = {} if _layout_memo is None else _layout_memo
     imemo = {} if _integral_memo is None else _integral_memo
@@ -788,6 +895,10 @@ def annotate_strategies(e: MatExpr, mesh: Mesh,
             kid, struct, ksrc = _exec.spgemm_kernel_choice(e, config)
             e = e.with_attrs(spgemm_kernel=kid, spgemm_structure=struct,
                              spgemm_kernel_source=ksrc)
+    if e.kind in ("join_rows", "join_cols") and "replicate" not in e.attrs:
+        e = e.with_attrs(replicate=choose_join_scheme(
+            e, mesh, config, layout_memo=lmemo,
+            consumer_hint=_consumer_hint))
     infer_dtype(e, config, memo)     # seed this (possibly new-uid) node
     infer_layout(e, mesh, lmemo, config)
     return e

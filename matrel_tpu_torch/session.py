@@ -11,11 +11,21 @@ ported; their knobs are off by default (``NotPortedError`` otherwise),
 so ``compute`` is the JAX package's production branch: compile (or hit
 the plan cache) and run. ``run_many`` runs a batch as one
 :class:`~matrel_tpu_torch.executor.MultiPlan` from the same cache.
+``sql``/``explain_sql`` compile the SQL surface (``sql.py``) into the
+same IR.
+
+Plan-cache keys are structural; a callable attr (a σ predicate, a ⋈
+merge) keys by the ``__matrel_key__`` tag ``sql.py`` attaches (so the
+same query text hits), else by a fingerprint of its code, closure,
+referenced globals and defaults, and only as a last resort by its
+pinned identity (``_fn_token``).
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
+import types
 from collections import OrderedDict
 from typing import List, Optional, Tuple, Union
 
@@ -126,13 +136,20 @@ class MatrelSession:
                 precision: Optional[str] = None
                 ) -> executor_lib.CompiledPlan:
         e = as_expr(expr)
-        return self._compile_entry(e, sla=self._resolve_sla(precision))[0]
+        return self._compile_entry(e, sla=self._resolve_sla(precision,
+                                                            e))[0]
 
-    def _resolve_sla(self, precision) -> str:
-        """A query's precision SLA: the explicit ``precision=`` argument,
-        else the session default (config.precision_sla)."""
+    def _resolve_sla(self, precision, e: Optional[MatExpr] = None) -> str:
+        """A query's precision SLA: the explicit ``precision=`` argument
+        beats a SQL ``PRECISION '...'`` clause (stamped out of band by
+        ``sql.parse_sql``) beats the session default
+        (config.precision_sla)."""
         if precision is not None:
             return normalize_sla(precision)
+        sql_sla = getattr(e, "_sql_precision", None) if e is not None \
+            else None
+        if sql_sla is not None:
+            return sql_sla            # parse_sql already normalised
         return self.config.precision_sla
 
     def _sla_config(self, sla: str) -> MatrelConfig:
@@ -215,7 +232,7 @@ class MatrelSession:
         ("exact"/"high"/"fast"/explicit dtype); None defers to
         ``config.precision_sla``."""
         e = as_expr(expr)
-        sla = self._resolve_sla(precision)
+        sla = self._resolve_sla(precision, e)
         return self._compile_entry(e, sla=sla)[0].run()
 
     def run_many(self, exprs, precision: Optional[str] = None,
@@ -267,6 +284,24 @@ class MatrelSession:
         head = "== Logical plan ==\n" + pretty(e)
         return head + "\n" + self.compile(e, precision=precision).explain()
 
+    def sql(self, query: str) -> MatExpr:
+        """SQL-ish entry point over the registered matrix tables (see
+        ``sql.py`` for the grammar); malformed input raises
+        ``SqlError``."""
+        from matrel_tpu_torch.sql import parse_sql
+        return parse_sql(query, self)
+
+    def explain_sql(self, query: str, analyze: bool = False) -> str:
+        """Plan text for a SQL query (strategies, join schemes and
+        value-join kinds included). ``analyze=True`` (EXPLAIN ANALYZE's
+        measured per-op tree) belongs to the observability plane, which
+        is not ported: it raises ``NotPortedError``."""
+        if analyze:
+            raise NotPortedError("explain_sql(analyze=True): the "
+                                 "observability plane is not ported to "
+                                 "matrel_tpu_torch yet")
+        return self.explain(self.sql(query))
+
 
 def _prec_prefix(sla: str) -> str:
     """Cache-key prefix isolating precision tiers ("default" keeps the
@@ -274,14 +309,111 @@ def _prec_prefix(sla: str) -> str:
     return "" if sla == "default" else f"prec:{sla}|"
 
 
-def _attr_token(v, pins: list) -> str:
-    """Encode an attr value into the plan key. Scalars and containers
-    key by value; anything else (callables included) by identity, pinned
-    so its address cannot be recycled into a false hit."""
+def _fn_token(fn, pins: list, seen: frozenset = frozenset()) -> str:
+    """Cache-key token for a callable attr. Distinct predicates/merges
+    key differently; identical ones (re-created lambdas with the same
+    behaviour, or the same SQL text) key alike. Preference order: the
+    ``__matrel_key__`` tag sql.py attaches, then a fingerprint of code,
+    bound instance, closure cells, referenced globals and defaults, then
+    id(). Every object keyed by id() is appended to ``pins``, which the
+    session keeps on the cached plan, so its address cannot be reused
+    into a false hit."""
+    key = getattr(fn, "__matrel_key__", None)
+    if key is not None:
+        return f"fnkey:{key}"
+    code = getattr(fn, "__code__", None)
+    if code is None:
+        pins.append(fn)
+        return f"fnid:{id(fn)}"
+    if id(fn) in seen:
+        # fn reachable from its own globals or closure: key the
+        # back-edge by pinned id to terminate
+        pins.append(fn)
+        return f"fnrec:{id(fn)}"
+    seen = seen | {id(fn)}
+    parts = [code.co_code.hex(), repr(code.co_consts), repr(code.co_names)]
+    # bound-method instance state is behaviour: Thresh(t).pred with
+    # different t share code, closure and globals
+    self_obj = getattr(fn, "__self__", None)
+    if self_obj is not None:
+        parts.append("self:" + _attr_token(self_obj, pins, seen))
+    for cell in (getattr(fn, "__closure__", None) or ()):
+        try:
+            parts.append(_attr_token(cell.cell_contents, pins, seen))
+        except ValueError:                 # an empty cell
+            pins.append(cell)
+            parts.append(f"cell:{id(cell)}")
+    # referenced globals are behaviour too (`thr = 0.5; lambda v: v >
+    # thr` after `thr = -0.5` must not key alike); names are collected
+    # through nested code objects. Modules key by name, scalars and
+    # small containers by value, anything else by pinned identity.
+    g = getattr(fn, "__globals__", None) or {}
+    for name in sorted(_code_names(code)):
+        if name in g:
+            v = g[name]
+            if isinstance(v, types.ModuleType):
+                parts.append(f"{name}=mod:{v.__name__}")
+            else:
+                parts.append(f"{name}=" + _attr_token(v, pins, seen))
+    # positional and keyword-only defaults, through _attr_token (a bare
+    # repr could collide for objects with a state-free __repr__)
+    parts.append(_attr_token(tuple(getattr(fn, "__defaults__", None)
+                                   or ()), pins, seen))
+    parts.append(_attr_token(getattr(fn, "__kwdefaults__", None) or {},
+                             pins, seen))
+    digest = hashlib.sha1("|".join(parts).encode()).hexdigest()[:16]
+    return f"fncode:{digest}"
+
+
+def _code_names(code) -> set:
+    """co_names of a code object and of every nested code object (inner
+    lambdas and genexps share __globals__)."""
+    names = set(code.co_names)
+    for c in code.co_consts:
+        if isinstance(c, types.CodeType):
+            names |= _code_names(c)
+    return names
+
+
+#: Containers above this many elements key by identity + length instead
+#: of by value, so a plan-cache lookup stays O(1) in their size.
+_VALUE_KEY_MAX_ELEMS = 256
+
+
+def _attr_token(v, pins: list, seen: frozenset = frozenset()) -> str:
+    """Encode any attr value into the plan key. Scalars key by value,
+    callables through :func:`_fn_token`, containers (tuple/list/dict/
+    set) by value — so in-place mutation of a global threshold list is
+    re-read at the next query — unless larger than
+    ``_VALUE_KEY_MAX_ELEMS`` (pinned identity + length). A container met
+    again inside its own walk keys the back-edge by pinned id. Anything
+    else keys by pinned identity: it may miss the cache, never share a
+    plan between distinct semantics."""
     if v is None or isinstance(v, (bool, int, float, str)):
         return repr(v)
+    if callable(v):
+        return _fn_token(v, pins, seen)
+    if isinstance(v, (tuple, list, dict, set, frozenset)):
+        if len(v) > _VALUE_KEY_MAX_ELEMS:
+            pins.append(v)
+            return f"bigcont:{type(v).__name__}:{id(v)}:len{len(v)}"
+        if id(v) in seen:
+            pins.append(v)
+            return f"cyc:{id(v)}"
+        seen = seen | {id(v)}
     if isinstance(v, (tuple, list)):
-        return "[" + ",".join(_attr_token(x, pins) for x in v) + "]"
+        return "[" + ",".join(_attr_token(x, pins, seen) for x in v) + "]"
+    if isinstance(v, dict):
+        try:
+            items = sorted(v.items())
+        except TypeError:
+            items = sorted(v.items(), key=lambda kv: repr(kv[0]))
+        return "{" + ",".join(
+            _attr_token(k, pins, seen) + ":" + _attr_token(x, pins, seen)
+            for k, x in items) + "}"
+    if isinstance(v, (set, frozenset)):
+        return "{" + ",".join(
+            sorted(_attr_token(x, pins, seen) for x in v)) + "}"
     pins.append(v)
     return f"obj:{type(v).__name__}:{id(v)}"
 

@@ -1,14 +1,18 @@
-"""ctypes bridge to the native chain DP (``native/chain_dp.cc``) — the
-counterpart of the chain-DP half of ``matrel_tpu/utils/native.py``.
+"""ctypes bridges to the native chain DP (``native/chain_dp.cc``) and
+the native text readers (``native/mtx_reader.cc``) — the counterpart of
+those parts of ``matrel_tpu/utils/native.py``.
 
-The same plain C ABI (``matrel_chain_dp``, ``_comm``, ``_layout``,
-``_topo``) built into this package's own library,
-``build/native/libmatrel_chain_dp.so`` under the repository root, with
-``g++ -O3 -fPIC -std=c++17 -shared`` at first use, and rebuilt when the
-source is newer than the library. The JAX package's library under
+The same plain C ABIs (``matrel_chain_dp``, ``_comm``, ``_layout``,
+``_topo``; ``matrel_mtx_open``, ``matrel_coo_csv_open``,
+``matrel_parse_fill``, ``matrel_parse_close``) built into this package's
+own libraries under ``build/native/`` at the repository root
+(``libmatrel_chain_dp.so``, ``libmatrel_ingest.so``), with ``g++ -O3
+-fPIC -std=c++17 -shared`` at first use, and rebuilt when the source is
+newer than the library. The JAX package's library under
 ``native/build/`` is never touched. Without a compiler (or a library)
 :func:`chain_dp` returns None and ``ir/chain.py`` runs its Python DP,
-the reference implementation — as the JAX package does.
+and :func:`mtx_read` / :func:`coo_csv_read` return None and ``io.py``
+parses with scipy / numpy — as the JAX package does.
 """
 
 from __future__ import annotations
@@ -29,32 +33,37 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 SOURCE = os.path.join(_REPO_ROOT, "native", "chain_dp.cc")
 LIB_PATH = os.path.join(_REPO_ROOT, "build", "native",
                         "libmatrel_chain_dp.so")
+INGEST_SOURCE = os.path.join(_REPO_ROOT, "native", "mtx_reader.cc")
+INGEST_LIB_PATH = os.path.join(_REPO_ROOT, "build", "native",
+                               "libmatrel_ingest.so")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_ingest_lib: Optional[ctypes.CDLL] = None
+_ingest_tried = False
 
 
-def _stale() -> bool:
-    return os.path.exists(SOURCE) and (
-        not os.path.exists(LIB_PATH)
-        or os.path.getmtime(SOURCE) > os.path.getmtime(LIB_PATH))
+def _is_stale(source: str, target: str) -> bool:
+    return os.path.exists(source) and (
+        not os.path.exists(target)
+        or os.path.getmtime(source) > os.path.getmtime(target))
 
 
-def _build() -> bool:
-    """Compile the library; False when g++ is missing or fails. The
+def _compile(source: str, target: str, flags=()) -> bool:
+    """Compile one library; False when g++ is missing or fails. The
     output is written beside the target and renamed over it, so a
     process loading the library never sees a half-written file."""
-    os.makedirs(os.path.dirname(LIB_PATH), exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = ["g++", "-O3", "-fPIC", "-std=c++17", "-shared", "-o", tmp,
-           SOURCE]
+    os.makedirs(os.path.dirname(target), exist_ok=True)
+    tmp = f"{target}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-fPIC", "-std=c++17", *flags, "-shared", "-o",
+           tmp, source]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(tmp, LIB_PATH)
+        os.replace(tmp, target)
         return True
     except (OSError, subprocess.SubprocessError) as e:
-        log.debug("native chain-dp build failed: %s", e)
+        log.debug("native build of %s failed: %s", source, e)
         if os.path.exists(tmp):
             os.remove(tmp)
         return False
@@ -89,7 +98,8 @@ def load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if _stale() and not _build() and not os.path.exists(LIB_PATH):
+        if (_is_stale(SOURCE, LIB_PATH) and not _compile(SOURCE, LIB_PATH)
+                and not os.path.exists(LIB_PATH)):
             return None
         try:
             lib = ctypes.CDLL(LIB_PATH)
@@ -155,3 +165,111 @@ def chain_dp(dims: Sequence[int], densities: Sequence[float],
     if rc != 0:
         return None
     return splits, float(cost.value)
+
+
+# -- native text ingestion (mtx_reader.cc) ----------------------------------
+
+_MTX_SYMMETRIC = 1
+_MTX_SKEW = 4
+_MTX_COMPLEX = 8
+
+
+def _bind_ingest(lib: ctypes.CDLL) -> None:
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    pi64 = ctypes.POINTER(ctypes.c_int64)
+    lib.matrel_mtx_open.restype = ctypes.c_void_p
+    lib.matrel_mtx_open.argtypes = [ctypes.c_char_p, pi64, pi64, pi64,
+                                    ctypes.POINTER(ctypes.c_int32)]
+    lib.matrel_coo_csv_open.restype = ctypes.c_void_p
+    lib.matrel_coo_csv_open.argtypes = [ctypes.c_char_p, pi64]
+    lib.matrel_parse_fill.restype = ctypes.c_int64
+    lib.matrel_parse_fill.argtypes = [ctypes.c_void_p, i64p, i64p, f64p,
+                                      ctypes.c_int64]
+    lib.matrel_parse_close.restype = None
+    lib.matrel_parse_close.argtypes = [ctypes.c_void_p]
+
+
+def load_ingest() -> Optional[ctypes.CDLL]:
+    """The native reader library, built if needed; None if unavailable."""
+    global _ingest_lib, _ingest_tried
+    with _lock:
+        if _ingest_lib is not None or _ingest_tried:
+            return _ingest_lib
+        _ingest_tried = True
+        if (_is_stale(INGEST_SOURCE, INGEST_LIB_PATH)
+                and not _compile(INGEST_SOURCE, INGEST_LIB_PATH,
+                                 ("-pthread",))
+                and not os.path.exists(INGEST_LIB_PATH)):
+            return None
+        try:
+            lib = ctypes.CDLL(INGEST_LIB_PATH)
+            _bind_ingest(lib)
+        except (OSError, AttributeError) as e:
+            log.debug("native ingest load failed: %s", e)
+            return None
+        _ingest_lib = lib
+        return _ingest_lib
+
+
+def _fill(lib, h, cap: int):
+    """Parse an opened handle's data section into fresh buffers of
+    ``cap`` entries; (rows, cols, vals) trimmed, or None on a parse
+    error. Closes the handle."""
+    try:
+        ri = np.empty(cap, dtype=np.int64)
+        ci = np.empty(cap, dtype=np.int64)
+        vals = np.empty(cap, dtype=np.float64)
+        got = lib.matrel_parse_fill(h, ri, ci, vals, cap)
+    finally:
+        lib.matrel_parse_close(h)
+    if got < 0:
+        return None
+    return ri[:got], ci[:got], vals[:got]
+
+
+def mtx_read(path: str) -> Optional[Tuple[Tuple[int, int], np.ndarray,
+                                          np.ndarray, np.ndarray]]:
+    """Parse a MatrixMarket file natively: ((rows, cols), row_idx,
+    col_idx, values) with symmetry expanded (mirror, or negated mirror
+    for skew, of the off-diagonal entries); None when the library is
+    unavailable or the file needs the scipy fallback (complex field,
+    parse error)."""
+    lib = load_ingest()
+    if lib is None:
+        return None
+    r, c, nnz = ctypes.c_int64(0), ctypes.c_int64(0), ctypes.c_int64(0)
+    flags = ctypes.c_int32(0)
+    h = lib.matrel_mtx_open(path.encode(), ctypes.byref(r),
+                            ctypes.byref(c), ctypes.byref(nnz),
+                            ctypes.byref(flags))
+    if not h:
+        return None
+    if flags.value & _MTX_COMPLEX:
+        lib.matrel_parse_close(h)
+        return None
+    parsed = _fill(lib, h, max(1, nnz.value))
+    if parsed is None:
+        return None
+    ri, ci, vals = parsed
+    if flags.value & _MTX_SYMMETRIC:
+        off = ri != ci
+        mv = -vals[off] if flags.value & _MTX_SKEW else vals[off]
+        ri, ci = (np.concatenate([ri, ci[off]]),
+                  np.concatenate([ci, ri[off]]))
+        vals = np.concatenate([vals, mv])
+    return (r.value, c.value), ri, ci, vals
+
+
+def coo_csv_read(path: str) -> Optional[Tuple[np.ndarray, np.ndarray,
+                                              np.ndarray]]:
+    """Parse 'i,j[,value]' coordinate text natively (0-based indices as
+    stored): (row_idx, col_idx, values), or None if unavailable."""
+    lib = load_ingest()
+    if lib is None:
+        return None
+    n = ctypes.c_int64(0)
+    h = lib.matrel_coo_csv_open(path.encode(), ctypes.byref(n))
+    if not h:
+        return None
+    return _fill(lib, h, max(1, int(n.value)))

@@ -233,7 +233,9 @@ def test_rank1_matches_jax(grid_meshes, shape, dtype):
 
 
 def test_vec_and_rank1_are_lowered():
-    assert len(t_exec.LOWERED_KINDS) == 12
+    # twelve kinds after the eighth slice, nineteen with the relational
+    # σ/⋈ kinds of the ninth
+    assert len(t_exec.LOWERED_KINDS) == 19
     assert {"vec", "rank1"} <= set(t_exec.LOWERED_KINDS)
 
 
@@ -374,11 +376,15 @@ def _python_dp(ops, grid, monkeypatch):
         return t_chain.optimal_order(ops, grid=grid)
 
 
+def _lib_stale() -> bool:
+    return native._is_stale(native.SOURCE, native.LIB_PATH)
+
+
 def test_native_library_builds_in_build_dir(lib):
     assert native.LIB_PATH == os.path.join(REPO, "build", "native",
                                            "libmatrel_chain_dp.so")
     assert os.path.exists(native.LIB_PATH)
-    assert not native._stale()
+    assert not _lib_stale()
 
 
 def test_native_matches_python_dense(lib, monkeypatch):
@@ -498,10 +504,10 @@ def test_native_rebuilds_when_stale_and_degrades_without_compiler(
     monkeypatch.setattr(native, "LIB_PATH", str(tmp_path / "lib.so"))
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_tried", False)
-    assert native._stale()
-    assert native.load() is not None and not native._stale()
+    assert _lib_stale()
+    assert native.load() is not None and not _lib_stale()
     os.utime(src, (os.path.getmtime(native.LIB_PATH) + 10,) * 2)
-    assert native._stale()
+    assert _lib_stale()
     # no compiler: load() gives None once no library exists, and the
     # chain order falls back to the Python DP
     os.remove(native.LIB_PATH)

@@ -5,9 +5,9 @@ Each corpus expression is built by the JAX package's own corpus builder
 on the (2, 4) test grid, carried node for node into the port's IR
 (leaves through ``matrel_tpu_torch.convert``), optimized and annotated
 by the port on the same virtual (2, 4) grid, and its signature — node
-kinds, strategy with source, inferred layouts — must equal the
-snapshot's. Cases whose node kinds the port does not lower yet are
-listed in ``NOT_PORTED`` (and in ROADMAP.md).
+kinds, strategy with source, join schemes, inferred layouts — must equal
+the snapshot's. Cases whose node kinds the port does not lower yet are
+listed in ``NOT_PORTED`` (and in ROADMAP.md); none are left.
 """
 
 import importlib.util
@@ -24,14 +24,14 @@ from matrel_tpu_torch.parallel import planner as t_planner
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: corpus cases the port's slices cover (leaf, sparse_leaf, coo_leaf,
-#: transpose, matmul, solve, elemwise, scalar, agg; rank1 is rewritten
-#: away by R8)
+#: transpose, matmul, solve, elemwise, scalar, agg, join_rows; rank1 is
+#: rewritten away by R8)
 COVERED = ("block_sparse_matmul", "chain_interior_credit",
            "chain_layout_flip", "chain_skewed", "coo_spmv_matvec",
-           "gram_AtA", "linreg_normal_equations", "rank1_pushdown",
-           "replicated_operand_matmul")
-#: cases left for later slices: join_rows
-NOT_PORTED = ("join_under_matmul",)
+           "gram_AtA", "join_under_matmul", "linreg_normal_equations",
+           "rank1_pushdown", "replicated_operand_matmul")
+#: cases left for later slices
+NOT_PORTED = ()
 
 
 def _load_tool():
@@ -52,13 +52,17 @@ def corpus(mesh8):
 
 def to_port(e, tmesh, memo=None):
     """Carry a JAX-package MatExpr into the port's IR node for node
-    (same kind, shape, nnz and attrs; matrices through convert)."""
+    (same kind, shape, nnz and attrs; matrices through convert; a
+    structured join merge rebuilt from its ``merge_kind`` by the port's
+    ``resolve_join_merge``, since a JAX callable cannot run here)."""
     memo = {} if memo is None else memo
     if e.uid in memo:
         return memo[e.uid]
     attrs = dict(e.attrs)
     if "matrix" in attrs:
         attrs["matrix"] = convert.from_reference(attrs["matrix"], tmesh)
+    if attrs.get("merge_kind") is not None:
+        attrs["merge"] = TE.resolve_join_merge(attrs["merge_kind"])[1]
     out = TE.MatExpr(e.kind, tuple(to_port(c, tmesh, memo)
                                    for c in e.children),
                      tuple(e.shape), e.nnz, attrs)
@@ -71,6 +75,8 @@ def signature(e, mesh, lmemo):
     if "strategy" in e.attrs:
         sig["strategy"] = e.attrs["strategy"]
         sig["source"] = e.attrs.get("strategy_source")
+    if "replicate" in e.attrs:
+        sig["scheme"] = e.attrs["replicate"]
     lay = t_planner.infer_layout(e, mesh, lmemo)
     if lay != "2d":
         sig["layout"] = lay

@@ -10,9 +10,12 @@ ported.
 - The routed SpMV, the CG / power-iteration / linreg workloads,
   ``solve`` queries, the north-star chain (``workloads/big_chain.py``),
   the native chain DP (``utils/native.py``), ``run_many``, ``vec`` and
-  ``rank1`` run on the CPU with the JAX package blocked.
-- Unported node kinds, the fused SpGEMM epilogue and knobs of unported
-  planes raise ``NotPortedError``.
+  ``rank1``, and the relational surface (``relational/``, the COO
+  σ/γ/⋈ methods, ``sql.py``, ``io.py`` with its native readers, the
+  triangle and similarity workloads) run on the CPU with the JAX
+  package blocked.
+- Node kinds outside ``LOWERED_KINDS``, the fused SpGEMM epilogue and
+  knobs of unported planes raise ``NotPortedError``.
 """
 
 import ast
@@ -236,6 +239,65 @@ def test_big_chain_and_core_surface_without_jax():
     assert "standalone big chain ok" in proc.stdout
 
 
+def test_relational_sql_and_io_without_jax(tmp_path):
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "matrel_tpu"):
+            sys.modules[name] = None          # import raises ImportError
+        import numpy as np
+        from matrel_tpu_torch import MatrelSession, io
+        from matrel_tpu_torch.core.coo import COOMatrix
+        from matrel_tpu_torch.relational import ops as R
+        from matrel_tpu_torch.workloads import similarity, triangles
+        s = MatrelSession(device="cpu")
+        rng = np.random.default_rng(0)
+        a = np.round(rng.standard_normal((12, 8)) * 4) / 4
+        a = a.astype(np.float32)
+        A = s.from_numpy(a)
+        got = s.compute(R.aggregate(R.join_on_values(A, A, "mul", "lt"),
+                                    "sum", "row")).to_numpy()[:, 0]
+        va = a.T.reshape(-1).astype(np.float64)
+        want = np.where(va[:, None] < va[None, :],
+                        va[:, None] * va[None, :], 0).sum(1)
+        assert np.allclose(got, want, rtol=1e-5, atol=1e-5)
+        s.register("A", A)
+        q = "SELECT rowsum(select(A, 'v > 0')) FROM A"
+        got = s.compute(s.sql(q)).to_numpy()
+        assert np.allclose(got, np.where(a > 0, a, 0).sum(1, keepdims=True))
+        s.compute(s.sql(q))
+        assert s.plan_cache_info()["plans"] == 2
+        assert "join_rows replicate=" in s.explain_sql(
+            "joinrows(A, A, 'mul')")
+        C = COOMatrix.from_edges([0, 1, 2], [1, 2, 0], [1.0, -2.0, 3.0],
+                                 shape=(3, 3))
+        sel = C.select_value(lambda v: v > 0)
+        y = sel.matvec(np.ones(3, np.float32), device="cpu").numpy()
+        assert np.allclose(y, [1.0, 0.0, 3.0])
+        p = {str(tmp_path / "m.mtx")!r}
+        with open(p, "w") as f:
+            f.write("%%MatrixMarket matrix coordinate real general\\n"
+                    "2 2 2\\n1 2 5.0\\n2 1 -1.0\\n")
+        m = io.load_mtx(p, mesh=s.mesh, block_size=2)
+        assert np.array_equal(m.to_numpy(), [[0, 5], [-1, 0]])
+        g = np.ones((4, 4), np.float32) - np.eye(4, dtype=np.float32)
+        assert triangles.triangle_count(s.from_numpy(g), s) == 4.0
+        x = rng.standard_normal((5, 3)).astype(np.float32)
+        sim = similarity.cosine_similarity(s.from_numpy(x), s)
+        assert np.allclose(np.diag(sim), 1.0, atol=1e-5)
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "matrel_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("standalone relational ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone relational ok" in proc.stdout
+
+
 def _imported_modules(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -274,8 +336,14 @@ def test_unported_planes_and_kinds_raise():
     rng = np.random.default_rng(1)
     A = s.from_numpy(rng.standard_normal((4, 4)).astype(np.float32))
     b = s.from_numpy(rng.standard_normal((4, 1)).astype(np.float32))
-    with pytest.raises(NotPortedError, match="select_value"):
-        s.compute(A.expr().select_value(lambda x: x > 0))
+    # every node kind of the JAX package lowers now (select_value was
+    # the unported example here until the relational slice); a kind
+    # outside LOWERED_KINDS still raises
+    from matrel_tpu_torch.ir.expr import MatExpr
+    with pytest.raises(NotPortedError, match="not_a_kind"):
+        s.compute(MatExpr("not_a_kind", (A.expr(),), (4, 4), None))
+    with pytest.raises(NotPortedError, match="reshard_peak_budget_bytes"):
+        MatrelConfig(reshard_peak_budget_bytes=1 << 20)
     with pytest.raises(NotPortedError, match="pallas_interpret"):
         MatrelConfig(pallas_interpret=True)
     from matrel_tpu_torch.ops import spgemm
