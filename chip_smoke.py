@@ -109,6 +109,32 @@
    and σ(v > 0.9) on it; σ(v > median), matvec (B2 counted), row_count,
    row_max and an eq join on row 5's 10M-edge COOMatrix; a 1 GiB
    save_tiled / load_tiled, bit for bit.
+6. path_coo_plane: row 5's plan built by the native counting-sort fill
+   (native/spmv_plan.cc, asserted loaded and used) and by the numpy
+   fill, host seconds each, B2 on both held to each other (rows with no
+   overflow edge bit-equal); save_plan / load_plan of it (bytes,
+   seconds; B2 on the loaded plan bit-equal); compact_apply_chunked(4)
+   bit-equal to compact_apply, both timed; B2 on the native, loaded and
+   chunked plans against its plain version; dense pagerank over a
+   16,384² f32 adjacency with dangling rows (ms a round against one
+   1 GiB read, float64 on the card); pagerank_csr on a near-regular 1M
+   graph (the table path: no B2 launch) and on row 5's (the fallback:
+   30 B2 launches), against float64; pagerank_block_sparse over 588 f32
+   tiles of a community adjacency with dangling and light rows (31 B1
+   launches, f32 body, one column), against float64, then B1 at that
+   shape against its plain version, its bound and torch.sparse.mm.
+7. path_autotune, its table in a temporary file under build/: the
+   SpGEMM family for every structure class at sides 8192 and 32,768
+   (bs 512; the band also at bs 128), every admissible kernel timed;
+   the same winners replayed from the table with no measurement; the
+   four S×S compute queries at n = 32,768 with autotune on (stamped
+   "measured" exactly where the table has a winner, results bit-equal
+   to the default session's where the kernel is the same); the SpMV
+   family on a 1M-node, 3M-edge graph (both variants timed, the winner
+   persisted, the result equal to the default's) and on row 5's plan
+   (over the expanded budget: no winner, no row); no matmul strategy
+   measured on the 1 x 1 card. Each of the two paths holds its own
+   peak-memory bound (NEW_PEAK_LIMIT_GIB).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -710,15 +736,17 @@ def row5_graph():
     return src, dst
 
 
-def pagerank_oracle(src, dst, n, rounds, alpha=0.85):
+def pagerank_oracle(src, dst, n, rounds, alpha=0.85, weights=None):
     """float64 power iteration over the scipy CSR form of Âᵀ with the
     package's dangling/teleport rule (workloads/pagerank.py
-    _power_body)."""
+    _power_body); ``weights`` per edge (default 1)."""
     import numpy as np
     import scipy.sparse as sp
-    outdeg = np.bincount(src, minlength=n).astype(np.float64)
+    w = (np.ones(len(src)) if weights is None
+         else np.asarray(weights, np.float64))
+    outdeg = np.bincount(src, weights=w, minlength=n)
     inv = np.where(outdeg > 0, 1.0 / np.maximum(outdeg, 1e-30), 0.0)
-    M = sp.csr_matrix((inv[src], (dst, src)), shape=(n, n))
+    M = sp.csr_matrix((w * inv[src], (dst, src)), shape=(n, n))
     dangling = outdeg == 0
     r = np.full(n, 1.0 / n)
     for _ in range(rounds):
@@ -2398,7 +2426,7 @@ class PeakMeter:
     ``aside()`` (a check's own tensors) is left out; what it keeps
     counts from then on."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, limits=None):
         import gc
         import torch
         gc.collect()
@@ -2406,6 +2434,7 @@ class PeakMeter:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         self.name, self.peak = name, 0
+        self.limits = REL_PEAK_LIMIT_GIB if limits is None else limits
         self.base = torch.cuda.memory_allocated()
 
     def _read(self) -> None:
@@ -2425,7 +2454,7 @@ class PeakMeter:
     def gib(self) -> float:
         """The peak so far in GiB, held under the sub-phase's bound."""
         self._read()
-        limit = REL_PEAK_LIMIT_GIB[self.name]
+        limit = self.limits[self.name]
         if self.peak > limit * 2**30:
             raise AssertionError(f"{self.name}: peak device memory "
                                  f"{self.peak / 2**30:.3f} GiB > "
@@ -3215,6 +3244,589 @@ def path_relational(dev) -> dict:
     return out
 
 
+# -- the rest of the COO plane: path_coo_plane ----------------------------------
+
+#: dense PageRank: a 16,384² f32 adjacency (1 GiB), edges at 1%, every
+#: DENSE_DANGLING-th row without out-edges
+COO_DENSE_N, COO_DENSE_P, COO_DENSE_DANGLING = 16384, 0.01, 7
+#: pagerank_csr's near-regular graph: every node's in-degree exactly this
+COO_CSR_DEG = 10
+#: block-sparse PageRank: block rows of COO_BS nodes, each with its
+#: diagonal tile and its two neighbours (wrapping), edges at COO_BS_P;
+#: every COO_BS_DANGLING-th row without out-edges, every
+#: COO_BS_LIGHT-th row weighted COO_BS_WEIGHT
+COO_BS_N, COO_BS, COO_BS_P = 100_352, 512, 0.05
+COO_BS_DANGLING, COO_BS_LIGHT, COO_BS_WEIGHT = 11, 5, 0.3
+COO_CHUNKS = 4
+#: PageRank (30 f32 rounds) against float64, relative to max|r|: row 5's
+#: bound (path_row5_pagerank)
+PR_REL_TOL = 1e-4
+#: the autotune path: SpGEMM probes at these (side, autotune_max_dim),
+#: every structure class at bs 512 and the band also at bs 128; the SpMV
+#: probe graph (about 3.3M slots, ~0.7 GB expanded)
+AT_SIDES = ((8192, 8192), (32768, 32768))
+AT_SPMV_N, AT_SPMV_EDGES = 1_000_000, 3_000_000
+#: each new path's own peak device memory, held under 1.25 × its peak on
+#: an H100 (PERF.md section 5)
+NEW_PEAK_LIMIT_GIB = {k: 1.25 * v for k, v in {
+    "coo_plane": 2.169, "autotune": 9.771}.items()}
+#: where the path phases write their files: inside the checkout, under
+#: the gitignored build/
+SCRATCH = os.path.join(HERE, "build", "chip_smoke")
+
+
+def coo_fills(dev, src, dst) -> dict:
+    """Row 5's plan (Âᵀ of the 10M-edge graph) by the native counting-sort
+    fill and by the numpy fill (host seconds each); B2 on both, held to
+    each other; save_plan / load_plan of the native plan, B2 on the
+    loaded plan bit-equal; compact_apply_chunked bit-equal to
+    compact_apply. Every B2 launch here goes through compact_apply or
+    compact_apply_chunked."""
+    import tempfile
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.ops import pallas_spmv as pc
+    from matrel_tpu_torch.ops import spmv as spmv_lib
+    from matrel_tpu_torch.utils import native
+    n = ROW5_N
+    outdeg = np.bincount(src, minlength=n).astype(np.float32)
+    inv = np.where(outdeg > 0, 1.0 / np.maximum(outdeg, 1e-30),
+                   0.0).astype(np.float32)
+    t0 = time.perf_counter()
+    if native.load_spmv() is None:      # built by g++ at first use
+        raise AssertionError("the native plan-fill library did not load")
+    lib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = spmv_lib.build_spmv_plan(dst, src, inv[src], n_rows=n, n_cols=n)
+    native_s = time.perf_counter() - t0
+    if plan.fill != "native":
+        raise AssertionError(f"row-5 plan build took the {plan.fill} fill: "
+                             f"the native library did not load")
+    counts = native.spmv_counts
+    native.spmv_counts = lambda *a, **k: None      # the numpy fill
+    try:
+        t0 = time.perf_counter()
+        plan_np = spmv_lib.build_spmv_plan(dst, src, inv[src], n_rows=n,
+                                           n_cols=n)
+        numpy_s = time.perf_counter() - t0
+    finally:
+        native.spmv_counts = counts
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.rand(n, generator=gen, device=dev)
+    y_nat = pc.compact_apply(plan, x)
+    y_np = pc.compact_apply(plan_np, x)
+    fill_err = check_close("B2 on the native plan vs the numpy plan", y_nat,
+                           y_np, "float32")
+    ov_rows = np.union1d(*(np.zeros(0) if p.ov_rows is None else p.ov_rows
+                           for p in (plan, plan_np)))
+    differ = torch.nonzero(y_nat != y_np).flatten().cpu().numpy()
+    outside = np.setdiff1d(differ, ov_rows)
+    if outside.size:
+        raise AssertionError(f"B2 native vs numpy plan: {outside.size} rows "
+                             f"with no overflow edge differ (first "
+                             f"{outside[:5]}): the CSR view's row order is "
+                             f"not the fills' common input order")
+    os.makedirs(SCRATCH, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=SCRATCH) as d:
+        path = os.path.join(d, "row5_plan.npz")
+        t0 = time.perf_counter()
+        spmv_lib.save_plan(path, plan)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = spmv_lib.load_plan(path)
+        load_s = time.perf_counter() - t0
+    y_load = pc.compact_apply(loaded, x)
+    if not torch.equal(y_load, y_nat):
+        raise AssertionError("B2 on the loaded plan is not bit-equal to B2 "
+                             "on the built one")
+    y_chunk = pc.compact_apply_chunked(plan, x, chunks=COO_CHUNKS)
+    if not torch.equal(y_chunk, y_nat):
+        raise AssertionError(f"compact_apply_chunked(chunks={COO_CHUNKS}) "
+                             f"is not bit-equal to compact_apply")
+    torch.cuda.synchronize()
+    launches = pc.LAUNCHES_SPMV
+    # checks and timing: launches from here on are not the path's
+    tol = SPMV_REL_TOL[3]
+    errs = {name: rel_err(f"B2 on the {name} plan vs its plain version",
+                          got, want, tol)
+            for name, got, want in (
+                ("native", y_nat, pc.compact_apply(plan, x,
+                                                   use_pallas=False)),
+                ("loaded", y_load, pc.compact_apply(loaded, x,
+                                                    use_pallas=False)),
+                ("chunked", y_chunk, pc.compact_apply_chunked(
+                    plan, x, chunks=COO_CHUNKS, use_pallas=False)))}
+    ms = time_ms(lambda: pc.compact_apply(plan, x), warmup=3, runs=20,
+                 batch=10)
+    chunk_ms = time_ms(lambda: pc.compact_apply_chunked(
+        plan, x, chunks=COO_CHUNKS), warmup=3, runs=20, batch=10)
+    n_ov = [0 if p.ov_rows is None else len(p.ov_rows)
+            for p in (plan, plan_np)]
+    log(f"path coo plane, fills: row-5 plan (nb={plan.src8.shape[0]}, "
+        f"cap={plan.capacity}, overflow native / numpy {n_ov[0]} / "
+        f"{n_ov[1]}) built in {native_s:.3f} s native (its library "
+        f"loaded, built if need be, in {lib_s:.3f} s first), {numpy_s:.3f} "
+        f"s numpy (host); B2 native vs numpy plan max_abs_err {fill_err:.3e}, "
+        f"{differ.size} rows differ, all of them rows with overflow edges "
+        f"({ov_rows.size}); save_plan {nbytes / 2**20:.1f} MiB in "
+        f"{save_s:.2f} s, load_plan {load_s:.2f} s, B2 on it bit-equal; "
+        f"compact_apply_chunked({COO_CHUNKS}) bit-equal, {chunk_ms:.4f} ms "
+        f"vs compact_apply {ms:.4f} ms (CUDA events); B2 vs plain max_abs_err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    del plan_np, loaded
+    return {"launches": launches, "plan": plan, "lib_s": lib_s,
+            "native_s": native_s,
+            "numpy_s": numpy_s, "fill_err": fill_err,
+            "rows_differ": int(differ.size), "save_s": save_s,
+            "load_s": load_s, "file_mib": nbytes / 2**20, "ms": ms,
+            "chunk_ms": chunk_ms, "max_abs_err": max(errs.values())}
+
+
+def coo_dense_pagerank(sess, meter) -> dict:
+    """pagerank on a 16,384² f32 BlockMatrix with dangling rows, 30
+    rounds: ms per round (CUDA events, 30 rounds less 0) against the
+    byte bound of one 1 GiB read a round, and the result against a
+    float64 power iteration on the card."""
+    import torch
+    from matrel_tpu_torch.workloads import pagerank as pr
+    n, dev = COO_DENSE_N, sess.device
+    gen = torch.Generator(device=dev).manual_seed(22)
+    a = (torch.rand((n, n), generator=gen, device=dev)
+         < COO_DENSE_P).to(torch.float32)
+    a.fill_diagonal_(0.0)
+    a[::COO_DENSE_DANGLING] = 0.0
+    A = dense_leaf(sess, a)
+    r, first_s = synced(lambda: pr.pagerank(A, rounds=ROW5_ROUNDS))
+    t30 = time_ms(lambda: pr.pagerank(A, rounds=ROW5_ROUNDS), warmup=1,
+                  runs=5)
+    t0 = time_ms(lambda: pr.pagerank(A, rounds=0), warmup=1, runs=5)
+    round_ms = (t30 - t0) / ROW5_ROUNDS
+    bound_ms = n * n * 4 / HBM_BYTES_PER_S * 1e3
+    with meter.aside():
+        a64 = a.double()
+        deg = a64.sum(1, keepdim=True)
+        inv = torch.where(deg > 0, 1.0 / deg.clamp(min=1e-30),
+                          torch.zeros((), dtype=torch.float64, device=dev))
+        dangling = deg[:, 0] == 0
+        r64 = torch.full((n, 1), 1.0 / n, dtype=torch.float64, device=dev)
+        for _ in range(ROW5_ROUNDS):
+            r64 = 0.85 * (a64.T @ (inv * r64) + r64[dangling].sum() / n) \
+                + 0.15 / n
+        err = rel_err("dense PageRank vs float64", r, r64, PR_REL_TOL)
+        del a64
+    total = float(r.double().sum())
+    if abs(total - 1.0) > 1e-3:
+        raise AssertionError(f"dense PageRank: sum {total}")
+    log(f"path coo plane, dense pagerank: {n}² f32 ({n * n * 4 / 2**30:.3f} "
+        f"GiB), "
+        f"{int((deg[:, 0] == 0).sum())} dangling rows, {ROW5_ROUNDS} rounds:"
+        f" {round_ms:.4f} ms a round (CUDA events; the call with 0 rounds "
+        f"{t0:.4f} ms), bound {bound_ms:.4f} ms (one read of A at 3.35 "
+        f"TB/s); first call {first_s:.3f} s; max abs err {err:.3e} vs "
+        f"float64, sum(r) {total:.7f}")
+    return {"round_ms": round_ms, "bound_ms": bound_ms, "zero_round_ms": t0,
+            "rel_err": err / float(r64.abs().max())}
+
+
+def coo_pagerank_csr(dev) -> dict:
+    """pagerank_csr on a near-regular graph (in-degree exactly
+    COO_CSR_DEG everywhere: the table path, no B2 launch) and on row 5's
+    graph (in-degrees too loose: the fallback to pagerank_edges, one B2
+    launch a round), each against a float64 power iteration. Returns the
+    B2 launches."""
+    import numpy as np
+    from matrel_tpu_torch.ops import pallas_spmv as pc
+    from matrel_tpu_torch.workloads import pagerank as pr
+    n = ROW5_N
+    rng = np.random.default_rng(23)
+    dst = np.repeat(np.arange(n, dtype=np.int32), COO_CSR_DEG)
+    src = rng.integers(0, n, dst.size, dtype=np.int32)
+    out = {}
+    for name, (s, d), want_b2 in (("regular", (src, dst), 0),
+                                  ("row 5", row5_graph(), ROW5_ROUNDS)):
+        before = pc.LAUNCHES_SPMV
+        r, secs = synced(lambda: pr.pagerank_csr(s, d, n, rounds=ROW5_ROUNDS,
+                                                 device=dev))
+        b2 = pc.LAUNCHES_SPMV - before
+        if b2 != want_b2:
+            raise AssertionError(f"pagerank_csr on the {name} graph launched "
+                                 f"B2 {b2} times, want {want_b2} (the "
+                                 f"{'table' if want_b2 == 0 else 'fallback'}"
+                                 f" path)")
+        ref = pagerank_oracle(s, d, n, ROW5_ROUNDS)
+        r64 = r.double().cpu().numpy()
+        rel = float(np.abs(r64 - ref).max() / np.abs(ref).max())
+        if rel > PR_REL_TOL or not np.isfinite(r64).all():
+            raise AssertionError(f"pagerank_csr {name}: rel err {rel}")
+        indeg = np.bincount(d, minlength=n)
+        log(f"path coo plane, pagerank_csr on the {name} graph: max "
+            f"in-degree {indeg.max()} vs mean {len(d) / n:.1f} -> "
+            f"{'table' if want_b2 == 0 else 'fallback to pagerank_edges'}"
+            f" ({b2} B2 launches); {secs:.2f} s a call (host table or plan "
+            f"included); max err / max|ref| {rel:.3e} vs float64")
+        out[name] = {"s": secs, "rel_err": rel, "b2": b2}
+    return out
+
+
+def community_graph(sess):
+    """The block-sparse community adjacency (COO_BS_* above) on the card,
+    as a BlockSparseMatrix, and its tile coordinates."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    n, bs, dev = COO_BS_N, COO_BS, sess.device
+    gr = n // bs
+    rows = np.repeat(np.arange(gr), 3)
+    cols = (rows + np.tile([-1, 0, 1], gr)) % gr
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    gen = torch.Generator(device=dev).manual_seed(24)
+    blocks = (torch.rand((len(rows), bs, bs), generator=gen, device=dev)
+              < COO_BS_P).to(torch.float32)
+    scale = torch.ones(n, device=dev)
+    scale[::COO_BS_LIGHT] = COO_BS_WEIGHT
+    scale[::COO_BS_DANGLING] = 0.0
+    blocks *= scale.reshape(gr, bs)[torch.as_tensor(rows, device=dev)][
+        :, :, None]
+    S = BlockSparseMatrix(
+        blocks=blocks,
+        block_rows=torch.as_tensor(rows.astype(np.int32), device=dev),
+        block_cols=torch.as_tensor(cols.astype(np.int32), device=dev),
+        shape=(n, n), block_size=bs, mesh=sess.mesh)
+    S._seed_host_tiles(rows, cols)
+    return S
+
+
+def coo_pagerank_block_sparse(sess, meter) -> dict:
+    """pagerank_block_sparse on the community adjacency: B1 launches (the
+    degree vector and one a round), ms a round (CUDA events, 30 rounds
+    less 0), the result against float64; then B1 at this shape (f32
+    tiles, one dense column) against its plain version, its time, bound
+    and torch.sparse.mm on the same Sᵀ as the library yardstick."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.ops import pallas_spmm
+    from matrel_tpu_torch.workloads import pagerank as pr
+    n, bs, dev = COO_BS_N, COO_BS, sess.device
+    S = community_graph(sess)
+    before = pallas_spmm.LAUNCHES
+    f32_before = pallas_spmm.BODY_LAUNCHES["f32"]
+    r, first_s = synced(lambda: pr.pagerank_block_sparse(
+        S, rounds=ROW5_ROUNDS))
+    launches = pallas_spmm.LAUNCHES - before
+    if launches != ROW5_ROUNDS + 1 or \
+            pallas_spmm.BODY_LAUNCHES["f32"] - f32_before != launches:
+        raise AssertionError(f"block-sparse PageRank launched B1 {launches} "
+                             f"times (want {ROW5_ROUNDS + 1}, f32 body)")
+    t30 = time_ms(lambda: pr.pagerank_block_sparse(S, rounds=ROW5_ROUNDS),
+                  warmup=1, runs=5)
+    t0 = time_ms(lambda: pr.pagerank_block_sparse(S, rounds=0), warmup=1,
+                 runs=5)
+    round_ms = (t30 - t0) / ROW5_ROUNDS
+    with meter.aside():
+        nz = torch.nonzero(S.blocks)
+        t, i, j = nz.T
+        rows_d = S.block_rows.long()[t] * bs + i
+        cols_d = S.block_cols.long()[t] * bs + j
+        w = S.blocks[t, i, j]
+        ref = pagerank_oracle(rows_d.cpu().numpy(), cols_d.cpu().numpy(), n,
+                              ROW5_ROUNDS,
+                              weights=w.double().cpu().numpy())
+        # the library yardstick's operand: Sᵀ as an f32 CSR tensor
+        csr = torch.sparse_coo_tensor(torch.stack([cols_d, rows_d]), w,
+                                      (n, n)).coalesce().to_sparse_csr()
+        del nz, t, i, j, rows_d, cols_d, w
+    r64 = r.double().cpu().numpy()[:, 0]
+    rel = float(np.abs(r64 - ref).max() / np.abs(ref).max())
+    if rel > PR_REL_TOL or not np.isfinite(r64).all():
+        raise AssertionError(f"block-sparse PageRank: rel err {rel}")
+    with meter.aside():
+        St = S.transpose()
+        _, payload, row_ptr, bcols = pallas_spmm.csr_payload(St)
+        gen = torch.Generator(device=dev).manual_seed(27)
+        d = torch.rand((n, 1), generator=gen, device=dev)
+        run = lambda: pallas_spmm.spmm_blocksparse(payload, row_ptr, bcols,
+                                                   d, n)
+        counts = (row_ptr[1:] - row_ptr[:-1]).long()
+        tile_rows = torch.repeat_interleave(
+            torch.arange(counts.numel(), device=dev), counts)
+        plain = lambda: pallas_spmm.spmm_blocksparse_plain(
+            payload, tile_rows, bcols, d, n)
+        got = run()
+        err = check_close("B1 f32 m=1 (block-sparse PageRank's Sᵀ·w) vs "
+                          "plain", got, plain(), "float32")
+        ms = time_ms(run, warmup=3, runs=20, batch=10)
+        plain_ms = time_ms(plain, warmup=1, runs=5)
+        bound = spmm_bound(St, 1, n, "float32")
+        lib_ms = library_time("torch.sparse.mm f32 CSR k=1 (Sᵀ of the "
+                              "community graph)",
+                              lambda: torch.sparse.mm(csr, d), got)
+        del St, payload, got, csr
+    log(f"path coo plane, block-sparse pagerank: n={n}, bs={bs}, "
+        f"{S.nnzb} f32 tiles ({S.nnzb * bs * bs * 4 / 2**20:.0f} MiB), "
+        f"{launches} B1 launches (f32 body, one column); {round_ms:.4f} ms "
+        f"a round (CUDA events; the call with 0 rounds {t0:.4f} ms); first "
+        f"call {first_s:.3f} s; max err / max|ref| {rel:.3e} vs float64. B1 "
+        f"at this shape: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]}), library {lib_ms} ms, max_abs_err "
+        f"vs plain {err:.3e}")
+    return {"launches": launches, "round_ms": round_ms, "rel_err": rel,
+            "b1": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound[0], "bound_by": bound[1],
+                   "library_ms": lib_ms}}
+
+
+def path_coo_plane(sess) -> dict:
+    """The rest of the COO plane on the card (coo_fills, dense, CSR and
+    block-sparse PageRank), launches counted from 0, under the path's
+    own peak-memory bound. Returns the B2 and B1 launches, B1's row at
+    the f32 one-column shape and row 5's native plan."""
+    from matrel_tpu_torch.ops import pallas_spmm, pallas_spmv as pc
+    meter = PeakMeter("coo_plane", NEW_PEAK_LIMIT_GIB)
+    pc.LAUNCHES_SPMV = 0
+    src, dst = row5_graph()
+    fills = coo_fills(sess.device, src, dst)
+    del src, dst
+    l_b2 = fills["launches"]
+    dense = coo_dense_pagerank(sess, meter)
+    pc.LAUNCHES_SPMV = 0
+    csr = coo_pagerank_csr(sess.device)
+    l_b2 += pc.LAUNCHES_SPMV
+    pallas_spmm.LAUNCHES = 0
+    bsp = coo_pagerank_block_sparse(sess, meter)
+    peak = meter.gib()
+    log(f"path coo plane: {l_b2} B2 and {bsp['launches']} B1 launches; peak "
+        f"{peak:.3f} GiB (bound {NEW_PEAK_LIMIT_GIB['coo_plane']:.3f})")
+    return {"launches": {"spmv_compact": l_b2,
+                         "spmm_blocksparse": bsp["launches"]},
+            "b1_f32_m1": bsp["b1"], "plan": fills.pop("plan"),
+            "fills": fills, "dense": dense, "csr": csr, "bsp": bsp,
+            "peak_gib": peak}
+
+
+# -- the measured-choice loop: path_autotune -----------------------------------
+
+
+def autotune_spgemm_sweep(mesh, path, at, counts) -> dict:
+    """lookup_or_measure_spgemm for every structure class at each
+    AT_SIDES side (bs 512; the band also at bs 128): every admissible
+    candidate must have a time in the table; then, with the in-process
+    caches cleared, the same winners from the table and no measurement.
+    Returns {key: (best, times, model pick)}."""
+    from matrel_tpu_torch import MatrelConfig
+    from matrel_tpu_torch.ir import stats
+    from matrel_tpu_torch.ops import kernel_registry as kr
+    probes = [(side, structure, 512, max_dim)
+              for side, max_dim in AT_SIDES
+              for structure in stats.STRUCTURE_CLASSES]
+    probes += [(side, "row_band", 128, max_dim) for side, max_dim in AT_SIDES]
+    out = {}
+    for side, structure, bs, max_dim in probes:
+        cfg = MatrelConfig(autotune=True, autotune_table_path=path,
+                           autotune_max_dim=max_dim)
+        t0 = time.perf_counter()
+        best = at.lookup_or_measure_spgemm(side, structure, bs, mesh, cfg)
+        secs = time.perf_counter() - t0
+        key = at._spgemm_key(side, structure, bs, 1, 1, at.backend_of(mesh))
+        entry = at.load_table(path).get(key)
+        cands = at.spgemm_candidates(structure, bs, cfg)
+        times = {} if entry is None else entry["times"]
+        if sorted(times) != sorted(cands):
+            raise AssertionError(f"autotune {key}: candidates {cands}, timed "
+                                 f"{sorted(times)}: an admissible kernel got "
+                                 f"no time")
+        model = kr.select_kernel(structure, bs, 1, MatrelConfig())
+        log(f"path autotune, S×S {structure} bs {bs} side {side}: "
+            + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
+                        sorted(times.items(), key=lambda kv: kv[1]))
+            + f" -> {best or 'tie'} (registry's model: {model[0]}, "
+            f"{model[1]}); {secs:.1f} s with the probe pair")
+        out[key] = (best, times, model[0])
+    n0 = counts["spgemm"]
+    at.clear_caches()
+    for side, structure, bs, max_dim in probes:
+        cfg = MatrelConfig(autotune=True, autotune_table_path=path,
+                           autotune_max_dim=max_dim)
+        key = at._spgemm_key(side, structure, bs, 1, 1, at.backend_of(mesh))
+        again = at.lookup_or_measure_spgemm(side, structure, bs, mesh, cfg)
+        if again != out[key][0]:
+            raise AssertionError(f"autotune {key}: replay gave {again}, "
+                                 f"measured {out[key][0]}")
+    if counts["spgemm"] != n0:
+        raise AssertionError(f"autotune replay measured "
+                             f"{counts['spgemm'] - n0} kernels, want 0")
+    log(f"path autotune: replay from the table, {len(probes)} classes, the "
+        f"same winners, 0 measurements")
+    return out
+
+
+def autotune_spgemm_queries(sess, asess, at, path) -> dict:
+    """The four S×S compute queries at n = 32,768 with autotune on: the
+    stamp reads "measured" wherever the table has a winner for the
+    pair's class; each result bit-equal to the default session's where
+    the kernel is the same, within TOL where it differs."""
+    import torch
+    out = {}
+    for name, kid, A, B, dtype_name in spgemm_pairs_at(
+            sess.mesh, SPGEMM_CMP_N, random_seeds=(2, 3)):
+        e = A.multiply(B)
+        attrs = asess.compile(e).optimized.attrs
+        stamp, src = attrs["spgemm_kernel"], attrs["spgemm_kernel_source"]
+        key = at._spgemm_key(SPGEMM_CMP_N, attrs["spgemm_structure"],
+                             A.block_size, 1, 1, at.backend_of(sess.mesh))
+        entry = at.load_table(path).get(key)
+        has_winner = bool(entry and entry.get("best"))
+        if (src == "measured") != has_winner or (
+                has_winner and stamp != entry["best"]):
+            raise AssertionError(f"S×S {name} with autotune: stamp {stamp} "
+                                 f"({src}), table {key}: {entry}")
+        default = sess.compile(e).optimized.attrs["spgemm_kernel"]
+        Y = asess.compute(e)
+        Y0 = sess.compute(e)
+        torch.cuda.synchronize()
+        if stamp == default:
+            if not torch.equal(Y.data, Y0.data):
+                raise AssertionError(f"S×S {name}: same kernel {stamp}, "
+                                     f"results differ")
+            err = 0.0
+        else:
+            err = check_close(f"S×S {name} {stamp} vs {default}", Y.data,
+                              Y0.data, dtype_name, rows_per_step=2048)
+        log(f"path autotune, S×S {name} n={SPGEMM_CMP_N}: stamp {stamp} "
+            f"({src}), default {default}; max_abs_err vs the default "
+            f"{err:.3e}")
+        out[name] = {"stamp": stamp, "source": src, "default": default,
+                     "err": err}
+        del Y, Y0
+        torch.cuda.empty_cache()
+    return out
+
+
+def autotune_spmv(sess, asess, at, path, row5_plan, counts) -> dict:
+    """The SpMV family: on a 1M-node, 3M-edge uniform graph both variants
+    are measured (at compile time of an autotuned compute) and the
+    winner persisted, and the result equals the default's within TOL;
+    on row 5's plan the expanded tables exceed the budget, so no winner
+    and no row."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.core.coo import COOMatrix
+    n = AT_SPMV_N
+    rng = np.random.default_rng(25)
+    A = COOMatrix.from_edges(rng.integers(0, n, AT_SPMV_EDGES),
+                             rng.integers(0, n, AT_SPMV_EDGES),
+                             rng.standard_normal(AT_SPMV_EDGES).astype(
+                                 np.float32), shape=(n, n))
+    x = sess.random((n, 1), seed=26)
+    plan = A._get_plan()
+    nb, cap = plan.src8.shape
+    Y, secs = synced(lambda: asess.compute(A.multiply(x)))
+    backend = at.backend_of(sess.mesh)
+    entry = at.load_table(path).get(at._spmv_key(plan, 1, 1, backend))
+    if entry is None or sorted(entry["times"]) != ["compact", "expanded"]:
+        raise AssertionError(f"SpMV autotune: row {entry}, want both "
+                             f"variants timed")
+    best = entry["best"]
+    if best != "expanded" and plan._tables:
+        raise AssertionError("the expanded probe left its one-hot tables on "
+                             "the plan")
+    Y0 = sess.compute(A.multiply(x))
+    err = check_close("A·x with autotune vs the default", Y.data, Y0.data,
+                      "float32")
+    r5_nb, r5_cap = row5_plan.src8.shape
+    before = counts["spmv"]
+    got = at.lookup_or_measure_spmv(row5_plan, sess.mesh, asess.config)
+    key5 = at._spmv_key(row5_plan, 1, 1, backend)
+    if got is not None or key5 in at.load_table(path):
+        raise AssertionError(f"row 5's plan ({r5_nb * r5_cap} slots) over "
+                             f"the expanded budget: got {got}, row written "
+                             f"{key5 in at.load_table(path)}")
+    log(f"path autotune, SpMV: {n} nodes, {AT_SPMV_EDGES} edges, "
+        f"nb·cap = {nb * cap} slots ({nb * cap * 224 / 1e9:.3f} GB "
+        f"expanded): "
+        + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
+                    sorted(entry["times"].items()))
+        + f" -> {best or 'tie'}; compute with autotune {secs:.2f} s (first "
+        f"call, both probes included), max_abs_err vs the default "
+        f"{err:.3e}. Row 5: nb·cap = {r5_nb * r5_cap} slots "
+        f"({r5_nb * r5_cap * 224 / 1e9:.3f} GB expanded > "
+        f"{at.SPMV_EXPANDED_BUDGET_BYTES / 1e9:.3f} GB): no winner, no row "
+        f"({counts['spmv'] - before} variant measured)")
+    del Y, Y0
+    return {"best": best, "times": entry["times"], "err": err,
+            "slots": nb * cap, "row5_slots": r5_nb * r5_cap}
+
+
+def path_autotune(sess, row5_plan) -> dict:
+    """The measured-choice loop on the card, its table in a temporary
+    file under build/: the SpGEMM sweep and replay, the four S×S compute
+    queries with autotune on, the SpMV family, and no matmul strategy
+    measured on the 1 × 1 card. Launches counted from 0; the path's own
+    peak-memory bound."""
+    import shutil
+    import tempfile
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.ops import pallas_spmv as pc
+    from matrel_tpu_torch.parallel import autotune as at
+    meter = PeakMeter("autotune", NEW_PEAK_LIMIT_GIB)
+    os.makedirs(SCRATCH, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=SCRATCH)
+    path = os.path.join(tmp, "autotune.json")
+    counts = dict.fromkeys(("matmul", "spmv", "spgemm"), 0)
+    orig = {"matmul": at.measure_strategy, "spmv": at.measure_spmv_variant,
+            "spgemm": at.measure_spgemm_kernel}
+
+    def counted(family):
+        def measure(*a, **k):
+            counts[family] += 1
+            return orig[family](*a, **k)
+        return measure
+
+    at.measure_strategy = counted("matmul")
+    at.measure_spmv_variant = counted("spmv")
+    at.measure_spgemm_kernel = counted("spgemm")
+    at.clear_caches()
+    zero_spgemm_launches()
+    pc.LAUNCHES_SPMV = pc.LAUNCHES_SPMM = 0
+    try:
+        acfg = MatrelConfig(autotune=True, autotune_table_path=path,
+                            autotune_max_dim=SPGEMM_CMP_N)
+        asess = MatrelSession(config=acfg, device=sess.device)
+        sweep = autotune_spgemm_sweep(sess.mesh, path, at, counts)
+        queries = autotune_spgemm_queries(sess, asess, at, path)
+        spmv = autotune_spmv(sess, asess, at, path, row5_plan, counts)
+        X = sess.random((4096, 4096), seed=28)
+        attrs = asess.compile(X.multiply(X)).optimized.attrs
+        table = at.load_table(path)
+        matmul_rows = [k for k in table if len(k.split("|")) == 4]
+        if counts["matmul"] or at._CACHE or matmul_rows or (
+                attrs["strategy"], attrs["strategy_source"]) != ("xla",
+                                                                 "default"):
+            raise AssertionError(f"matmul autotune on the 1 x 1 card: "
+                                 f"{counts['matmul']} measured, rows "
+                                 f"{matmul_rows}, stamp {attrs}")
+        torch.cuda.synchronize()
+        launches = dict(spgemm_launches(), spmv_compact=pc.LAUNCHES_SPMV,
+                        spmm_compact=pc.LAUNCHES_SPMM)
+    finally:
+        at.measure_strategy = orig["matmul"]
+        at.measure_spmv_variant = orig["spmv"]
+        at.measure_spgemm_kernel = orig["spgemm"]
+        at.clear_caches()
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak = meter.gib()
+    log(f"path autotune: {counts['spgemm']} SpGEMM kernels and "
+        f"{counts['spmv']} SpMV variants measured, 0 matmul strategies "
+        f"(1 x 1 card: {attrs['strategy']}, {attrs['strategy_source']}); "
+        f"{len(table)} table rows; launches {launches}; peak {peak:.3f} GiB "
+        f"(bound {NEW_PEAK_LIMIT_GIB['autotune']:.3f})")
+    return {"launches": launches, "sweep": sweep, "queries": queries,
+            "spmv": spmv, "counts": counts, "peak_gib": peak}
+
+
+
 def ptxas_functions(log_text: str) -> dict:
     """{mangled function: (registers, stack, spill stores, spill loads)}
     from an ``nvcc -Xptxas=-v`` log."""
@@ -3424,23 +4036,30 @@ def main() -> int:
     path_north_star(dev)              # holds its own peak-memory bound
     rel = path_relational(dev)        # each sub-phase its bound
     l_rel = rel["launches"]
+    coo = path_coo_plane(sess)        # each new path its bound
+    tuned = path_autotune(sess, coo.pop("plan"))
+    l_at = tuned["launches"]
     for name, err in rel["max_abs_err"].items():   # the worst of both shapes
         b47[name] = dict(b47[name], max_abs_err=max(
             b47[name]["max_abs_err"], err))
 
+    l_coo = coo["launches"]
     kernels = [
-        kernel_entry("spmm_blocksparse", pallas_spmm.SOURCE,
-                     "matrel_tpu/ops/pallas_spmm.py:31",
-                     launches + l_batch["spmm_blocksparse"], row),
+        dict(kernel_entry("spmm_blocksparse", pallas_spmm.SOURCE,
+                          "matrel_tpu/ops/pallas_spmm.py:31",
+                          launches + l_batch["spmm_blocksparse"]
+                          + l_coo["spmm_blocksparse"], row),
+             f32_one_column=coo["b1_f32_m1"]),
         kernel_entry("spmv_compact", pallas_spmv.SOURCE,
                      "matrel_tpu/ops/pallas_spmv.py:50",
                      launches_pr + l_spmv + l_batch["spmv_compact"]
-                     + l_rel["spmv_compact"], b23["spmv_compact"]),
+                     + l_rel["spmv_compact"] + l_coo["spmv_compact"]
+                     + l_at["spmv_compact"], b23["spmv_compact"]),
         kernel_entry("spmm_compact", pallas_spmv.SOURCE,
-                     "matrel_tpu/ops/pallas_spmv.py:334", l_spmm,
-                     b23["spmm_compact"]),
+                     "matrel_tpu/ops/pallas_spmv.py:334",
+                     l_spmm + l_at["spmm_compact"], b23["spmm_compact"]),
     ] + [kernel_entry(name, pallas_spgemm.SOURCE, SPGEMM_REPLACES[name],
-                      l_spgemm[name] + l_rel[name], b47[name])
+                      l_spgemm[name] + l_rel[name] + l_at[name], b47[name])
          for name in SPGEMM_REPLACES]
     kernels.append(dict(
         kernel_entry("spmv_routed", spmv_routed.SOURCE,

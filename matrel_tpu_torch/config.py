@@ -37,7 +37,11 @@ class MatrelConfig:
     tensors; False runs their plain PyTorch versions), ``chain_opt``,
     ``rewrite_rules``, ``plan_cache_max_plans``, ``hbm_budget_bytes``,
     ``axis_cost_weights``, ``precision_sla``, ``precision_enable_bf16``,
-    ``precision_enable_int``.
+    ``precision_enable_int``, ``join_pair_cap_entries``,
+    ``join_bruteforce_max_pairs``, ``join_chunk_entries``, ``autotune``
+    (measured matmul strategies, SpMV variants and SpGEMM kernels:
+    ``parallel/autotune.py``), ``autotune_table_path``,
+    ``autotune_max_dim``.
 
     ``matmul_precision`` keeps the TPU meaning of the JAX package:
     "highest" is full IEEE f32 (TF32 off), "high" the 3-pass bf16
@@ -177,14 +181,13 @@ _FIELD_DEFAULTS = {f.name: f.default for f in dataclasses.fields(MatrelConfig)}
 
 #: Knobs whose plane is not ported: Pallas interpret mode, buffer
 #: donation, hoisted payloads (the plan cache's byte bound counts them),
-#: autotune, the result cache and serving pipeline,
+#: the result cache and serving pipeline,
 #: observability, static verification, staged resharding, resilience,
 #: overload control, fusion, multi-query optimization, IVM, the fleet,
 #: lockdep, the cost-model loop and the durable spill hierarchy.
 UNPORTED_KNOBS = (
     "pallas_interpret", "donate_intermediates", "plan_cache_max_bytes",
-    "autotune", "autotune_table_path",
-    "autotune_max_dim", "result_cache_max_bytes",
+    "result_cache_max_bytes",
     "result_cache_max_entries", "serve_max_batch", "serve_max_inflight",
     "obs_level", "obs_event_log", "obs_metrics_port", "slo_targets",
     "slo_fast_window_s", "slo_slow_window_s", "slo_burn_threshold",

@@ -37,8 +37,11 @@ raise before the operands are evaluated.
 Lowered kinds: leaf, sparse_leaf, coo_leaf, transpose, matmul, solve,
 inverse, elemwise, scalar, agg, vec, rank1, select_value, select_index,
 select_block, join_index, join_value, join_rows, join_cols. Any other
-kind raises ``NotPortedError``. The autotuned SpMV executor choice is
-not ported (its knob raises).
+kind raises ``NotPortedError``. With ``config.autotune`` on, both
+compile paths measure the SpMV executor variant of every COO plan the
+plan dispatches (``parallel/autotune.lookup_or_measure_spmv``) and the
+lowering obeys a measured "compact" or "expanded"
+(``Lowerer.spmv_choice``).
 """
 
 from __future__ import annotations
@@ -168,6 +171,17 @@ class Lowerer:
     def __init__(self, mesh: Mesh, config: MatrelConfig):
         self.mesh = mesh
         self.config = config
+        # id(plan) -> (plan, measured SpMV executor variant "compact" |
+        # "expanded"), filled at compile time by the autotune loop; empty
+        # = the hand defaults decide. The entry holds the plan itself and
+        # a read checks identity, so a recycled id never misroutes.
+        self.spmv_choice: Dict[int, Tuple[object, str]] = {}
+
+    def _spmv_forced(self, plan) -> Optional[str]:
+        """The measured executor variant forced for this plan object, or
+        None (also for an id whose stored plan is another object)."""
+        entry = self.spmv_choice.get(id(plan))
+        return entry[1] if entry is not None and entry[0] is plan else None
 
     def lower(self, root: MatExpr, leaf_order: List[MatExpr]) -> Callable:
         """A function of the leaf tensors (in ``leaf_order``) returning
@@ -477,7 +491,7 @@ class Lowerer:
         SB = self._as_block_sparse(node.children[1], bs)
         kid = node.attrs.get("spgemm_kernel")
         if kid is None:
-            kid, _, _ = spgemm_kernel_choice(node, self.config)
+            kid, _, _ = spgemm_kernel_choice(node, self.config, self.mesh)
         return spgemm_lib.apply_dense(SA, SB, self.config, kernel=kid)
 
     def _matmul(self, node: MatExpr, ev) -> Tensor:
@@ -589,14 +603,16 @@ class Lowerer:
         """A·X for the k columns of ``X`` (n_cols, k) as an (n_rows, k)
         f32 tensor. With ``use_pallas`` the compact-table kernels run over
         the plan's CSR view (one B2 launch for k = 1, one B3 launch
-        otherwise — the view's plain walk on the CPU); without it the
+        otherwise — the view's plain walk on the CPU); without it, or
+        where the autotune loop measured "expanded" for this plan, the
         expanded one-hot path, in chunks of 64 columns."""
         from matrel_tpu_torch.ops import pallas_spmv as pc
         from matrel_tpu_torch.ops import spmv as spmv_lib
         dev = X.device
         X = X.float()
         static = (plan.n_rows, plan.n_cols, plan.block)
-        if pc.compact_enabled(self.config):
+        if (pc.compact_enabled(self.config)
+                and self._spmv_forced(plan) != "expanded"):
             if X.shape[1] == 1:
                 return pc.compact_apply(plan, X[:, 0])[:, None]
             return pc.compact_matmat_apply(plan, X)
@@ -801,10 +817,11 @@ def spgemm_estimates(node: MatExpr, config=None) -> dict:
     return rec
 
 
-def spgemm_kernel_choice(node: MatExpr, config=None):
+def spgemm_kernel_choice(node: MatExpr, config=None, mesh=None):
     """(kernel_id, structure_class, source) for a dispatching S×S
     matmul — the single chooser shared by the planner's stamp and the
-    lowering of an unstamped node."""
+    lowering of an unstamped node. With ``mesh`` and ``config.autotune``
+    the registry may answer with a measured winner."""
     from matrel_tpu_torch.ir import stats
     from matrel_tpu_torch.ops import kernel_registry as kr
     cfg = config or default_config()
@@ -814,7 +831,9 @@ def spgemm_kernel_choice(node: MatExpr, config=None):
         kr.structure_of_child(l, bs), kr.structure_of_child(r, bs))
     est = spgemm_estimates(node, cfg)
     npairs = max(int(round(est.get("est_pairs") or 0.0)), 1)
-    kid, source = kr.select_kernel(structure, bs, npairs, cfg)
+    side = max(l.shape[0], l.shape[1], r.shape[1])
+    kid, source = kr.select_kernel(structure, bs, npairs, cfg, side=side,
+                                   mesh=mesh)
     return kid, structure, source
 
 
@@ -832,6 +851,45 @@ def _coo_dispatch_plan(node: MatExpr):
         return (r.attrs["matrix"]._get_plan_t()
                 if 0 < k <= COO_NARROW_MAX else None)
     return None
+
+
+def _autotune_spmv_choices(opts, mesh: Mesh, cfg: MatrelConfig) -> dict:
+    """Measured SpMV executor variants for every COO matmul these plans
+    dispatch through ``_coo_spmv_stack`` (``config.autotune`` on):
+    id(plan) -> (plan, "compact" / "expanded"). Runs at compile time;
+    the dispatch condition is ``_coo_dispatch_plan``, shared with
+    ``Lowerer._matmul``."""
+    from matrel_tpu_torch.parallel import autotune
+
+    choices: dict = {}
+    seen: set = set()
+
+    def visit(n: MatExpr):
+        if n.uid in seen:        # expressions are DAGs
+            return
+        seen.add(n.uid)
+        if n.kind == "matmul" and any(c.kind == "coo_leaf"
+                                      for c in n.children):
+            plan = _coo_dispatch_plan(n)
+            if plan is not None and id(plan) not in choices:
+                best = autotune.lookup_or_measure_spmv(plan, mesh, cfg)
+                if best is not None:
+                    choices[id(plan)] = (plan, best)
+        for c in n.children:
+            visit(c)
+
+    for o in opts:
+        visit(o)
+    return choices
+
+
+def _lowerer(opts, mesh: Mesh, cfg: MatrelConfig) -> "Lowerer":
+    """A Lowerer for these plans, with the measured SpMV variants when
+    ``config.autotune`` is on."""
+    low = Lowerer(mesh, cfg)
+    if cfg.autotune:
+        low.spmv_choice = _autotune_spmv_choices(opts, mesh, cfg)
+    return low
 
 
 @dataclasses.dataclass
@@ -939,7 +997,7 @@ def compile_expr(expr: MatExpr, mesh: Optional[Mesh] = None,
     opt = planner.annotate_strategies(opt, mesh, cfg)
     optimize_ms = (time.perf_counter() - t0) * 1e3
     leaf_order = expr_leaves(opt)
-    fn = Lowerer(mesh, cfg).lower(opt, leaf_order)
+    fn = _lowerer((opt,), mesh, cfg).lower(opt, leaf_order)
     return CompiledPlan(fn=fn, leaf_order=leaf_order, optimized=opt,
                         mesh=mesh, config=cfg,
                         meta={"optimize_ms": round(optimize_ms, 3),
@@ -965,7 +1023,7 @@ def compile_exprs(exprs, mesh: Optional[Mesh] = None,
         mesh, cfg) for e in exprs)
     optimize_ms = (time.perf_counter() - t0) * 1e3
     leaf_order = _unique_leaves(opts)
-    fn = Lowerer(mesh, cfg).lower_multi(opts, leaf_order)
+    fn = _lowerer(opts, mesh, cfg).lower_multi(opts, leaf_order)
     return MultiPlan(fn=fn, leaf_order=leaf_order, optimized=opts,
                      mesh=mesh, config=cfg,
                      meta={"optimize_ms": round(optimize_ms, 3),

@@ -16,14 +16,15 @@ it is the home kernel of:
   pallas_powerlaw  powerlaw_coo home: output slots bucketed by pair-run
                    length, B5 once per bucket (B7)
 
-Selection order (``select_kernel``): config override > registry cost
-model (a specialized kernel only on its home structure class) > legacy
-default. The JAX package's measured-autotune branch is not ported (its
-knob raises). ``VMEM_PAIR_BUDGET_BYTES`` and every feasibility rule are
-the JAX package's, byte for byte, so the same inputs get the same stamp
-and the same schedule in both packages; the budgets were sized for the
-TPU's VMEM, and re-deriving them for Hopper's shared memory is later
-work. The builders keep the JAX package's host tables but not its
+Selection order (``select_kernel``): config override > measured winner
+(``config.autotune``: ``parallel/autotune.lookup_or_measure_spgemm``
+over this side class, structure class and block size on the device) >
+registry cost model (a specialized kernel only on its home structure
+class) > legacy default. ``VMEM_PAIR_BUDGET_BYTES`` and every
+feasibility rule are the JAX package's, byte for byte, so the same
+inputs get the same stamp and the same schedule in both packages; the
+budgets were sized for the TPU's VMEM, and re-deriving them for
+Hopper's shared memory waits for a measured gain. The builders keep the JAX package's host tables but not its
 pre-gathered payload copies: the kernels (``ops/pallas_spgemm.py``)
 read the payload stacks through the tables. The fused-epilogue hooks
 are not ported.
@@ -127,9 +128,12 @@ def legacy_default(bs: int, npairs: int,
 
 
 def select_kernel(structure: str, bs: int, npairs: int,
-                  config: Optional[MatrelConfig] = None) -> Tuple[str, str]:
+                  config: Optional[MatrelConfig] = None, side: int = 0,
+                  mesh=None) -> Tuple[str, str]:
     """(kernel_id, source) for one SpGEMM: "override" (config forcing
-    knob), "model" (a specialized kernel on its home structure class) or
+    knob), "measured" (with ``config.autotune``, a ``mesh`` and a
+    ``side``: the autotune table's admissible winner for this class),
+    "model" (a specialized kernel on its home structure class) or
     "default" (the legacy two-way choice)."""
     cfg = config or default_config()
     _LOOKUPS["count"] += 1
@@ -142,6 +146,12 @@ def select_kernel(structure: str, bs: int, npairs: int,
         if admissible(ov, bs, npairs, cfg):
             return ov, "override"
         return legacy_default(bs, npairs, cfg), "default"
+    if cfg.autotune and mesh is not None and side:
+        from matrel_tpu_torch.parallel import autotune
+        best = autotune.lookup_or_measure_spgemm(side, structure, bs, mesh,
+                                                 cfg)
+        if best is not None and admissible(best, bs, npairs, cfg):
+            return best, "measured"
     for kid, spec in REGISTRY.items():
         if (not spec.universal and structure in spec.structures
                 and admissible(kid, bs, npairs, cfg)):

@@ -24,7 +24,11 @@ tables and are the kernels' yardsticks. A CUDA tensor launches the
 kernel or raises; ``use_pallas=False`` asks for the plain versions on the
 tables on any device.
 
-The sharded variants and ``compact_apply_chunked`` are not ported.
+:func:`compact_apply_chunked` splits the plan's row blocks into
+stripes and runs B2 once per stripe (:func:`spmv_scatter_rows`, the
+walk over that row range of the view); each row is walked as in one
+launch, so its result is bit-equal to :func:`compact_apply`'s. The
+sharded variants are not ported.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ import torch
 from matrel_tpu_torch.config import MatrelConfig, pallas_enabled
 from matrel_tpu_torch.ops import csr_view as csr_lib
 from matrel_tpu_torch.ops import spmv as spmv_lib
-from matrel_tpu_torch.ops.spmv_routed import launch_walk, split_sum
+from matrel_tpu_torch.ops.spmv_routed import (launch_walk, lanes_per_row,
+                                              split_sum)
 
 Tensor = torch.Tensor
 
@@ -158,6 +163,37 @@ def spmv_scatter(view: csr_lib.CSRView, x: Tensor, passes: int = 3,
     return y
 
 
+def spmv_scatter_rows(view: csr_lib.CSRView, x: Tensor, r0: int, r1: int,
+                      out: Tensor, passes: int = 3) -> Tensor:
+    """B2 over rows [r0, r1) of the view: writes ``out[r0:r1]`` of a
+    (view.n_rows,) f32 ``out`` and returns ``out``. The sub-warp width
+    is :func:`~matrel_tpu_torch.ops.spmv_routed.lanes_per_row` of the
+    whole view, so each row is walked as :func:`spmv_scatter` walks it.
+    CUDA tensors launch the Hopper kernel on the current stream (one
+    launch, counted); CPU tensors run the plain walk of that range."""
+    global LAUNCHES_SPMV
+    csr_lib.check_operands(view, x, passes, dense_dim=1)
+    if not 0 <= r0 <= r1 <= view.n_rows:
+        raise ValueError(f"row range [{r0}, {r1}) outside [0, "
+                         f"{view.n_rows}]")
+    if (out.dtype != torch.float32 or tuple(out.shape) != (view.n_rows,)
+            or out.device != x.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({view.n_rows},) f32 "
+                         f"tensor on {x.device}")
+    if x.device.type == "cpu":
+        a, b = view.row_ptr[[r0, r1]].tolist()
+        part = csr_lib.CSRView((view.row_ptr[r0:r1 + 1] - a).contiguous(),
+                               view.cv[a:b], view.n_cols)
+        out[r0:r1] = csr_lib.csr_walk_plain(part, x, passes, split_x=False)
+        return out
+    launch_walk(_library().matrel_spmv_compact, "spmv_scatter", view, x,
+                passes, lanes_per_row(view.nnz, view.n_rows), rows=(r0, r1),
+                out=out)
+    if r1 > r0:                     # an empty range launches nothing
+        LAUNCHES_SPMV += 1
+    return out
+
+
 def column_chunk(k: int) -> int:
     """Columns of X one group of lanes of the B3 kernel walks for a row:
     the next power of two ≥ k, at most 32 (wider X is walked in further
@@ -260,6 +296,39 @@ def compact_apply(plan: spmv_lib.EdgeSpMVPlan, x: Tensor, passes: int = 3,
     ov = plan.overflow_on(dev)
     if ov:
         y = spmv_lib._overflow_add(y, ov, x, plan.n_rows)
+    return y
+
+
+def compact_apply_chunked(plan: spmv_lib.EdgeSpMVPlan, x: Tensor,
+                          passes: int = 3, chunks: int = 4,
+                          use_pallas: bool = True) -> Tensor:
+    """y = A·x as :func:`compact_apply`, with the plan's row blocks split
+    into ``chunks`` stripes of ⌈nb / chunks⌉ blocks and B2 launched once
+    per stripe, over rows [s·block, e·block) of the CSR view (with
+    ``use_pallas=False`` the plain version on the stripe's tables); the
+    overflow COO is added once, after the stripes. Bit-equal to
+    :func:`compact_apply`: every row's f64 sum runs over the same slots
+    in the same order and rounds once."""
+    dev = x.device
+    x = x.float().contiguous()
+    nb, block, n_rows = plan.src8.shape[0], plan.block, plan.n_rows
+    step = -(-nb // max(chunks, 1))
+    if use_pallas:
+        view = csr_view_on(plan, dev)
+        y = torch.empty(n_rows, dtype=torch.float32, device=dev)
+        for s in range(0, nb, step):
+            spmv_scatter_rows(view, x, min(s * block, n_rows),
+                              min((s + step) * block, n_rows), y, passes)
+    else:
+        tables = compact_tables(plan, dev)
+        y = torch.cat([
+            spmv_scatter_plain(*(t[s:s + step] for t in tables), x,
+                               min(step * block, n_rows - s * block),
+                               block, passes)
+            for s in range(0, nb, step)])
+    ov = plan.overflow_on(dev)
+    if ov:
+        y = spmv_lib._overflow_add(y, ov, x, n_rows)
     return y
 
 

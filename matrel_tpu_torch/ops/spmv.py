@@ -19,13 +19,24 @@ Two executors read a plan:
   device and sums with batched f32 products — the JAX package's XLA
   path, taken for ``use_pallas=False`` and by ``COOMatrix.rmatvec``.
 
-The plan build is host numpy (``_numpy_fill``); the JAX package's
-native counting-sort fill is not ported.
+The plan build runs on the host: the native counting-sort fill
+(``native/spmv_plan.cc`` through ``utils/native.py``, two O(m) passes)
+where its library loads, else the numpy fill (``_numpy_fill``: a stable
+argsort by row). Both give the same slots for a block; the native fill
+keeps them in input order, the numpy fill in row order (ties in input
+order), and each edge past a block's capacity goes to the overflow COO
+(with the native fill, the block's last edges in input order; with the
+numpy fill, its last edges in row order). :func:`save_plan` /
+:func:`load_plan` persist a plan's compact layout as one ``.npz`` in the
+JAX package's format, so a file saved by either package loads in the
+other.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -37,6 +48,11 @@ HI = 32          # off = hi*LO + lo one-hot factor sizes; HI*LO == BLOCK
 LO = 16
 
 Tensor = torch.Tensor
+
+# The process umask, read once (os.umask can only be read by setting it):
+# save_plan gives its file the mode a plain open() would.
+_UMASK = os.umask(0)
+os.umask(_UMASK)
 
 
 def _ext_table(x: Tensor, width: int = WIDTH) -> Tensor:
@@ -75,7 +91,9 @@ class EdgeSpMVPlan:
     Overflow: optional (cols, rows, vals) int32/int32/f32 COO for edges
     beyond capacity, rows sorted ascending. Device copies (the expanded
     one-hot tables, the compact tables, the CSR view, the overflow) are
-    built lazily, once per device, and memoised on the plan.
+    built lazily, once per device, and memoised on the plan. ``fill``
+    names the fill that laid the tables out ("native" or "numpy"; a
+    loaded plan says "loaded").
     """
     n_rows: int
     n_cols: int
@@ -89,6 +107,7 @@ class EdgeSpMVPlan:
     ov_rows: Optional[np.ndarray]
     ov_vals: Optional[np.ndarray]
     padding_ratio: float
+    fill: str = "numpy"
     _tables: Dict[str, tuple] = dataclasses.field(default_factory=dict,
                                                   repr=False)
     _spmm_tables: Dict[str, tuple] = dataclasses.field(
@@ -169,7 +188,9 @@ def build_spmv_plan(rows, cols, vals=None, n_rows: int = None,
                     max_padding: float = 4.0,
                     max_slots: Optional[int] = None
                     ) -> Optional[EdgeSpMVPlan]:
-    """Host-side plan build (numpy, once per graph).
+    """Host-side plan build (once per graph): the native counting-sort
+    fill where its library loads, else the numpy fill (``plan.fill``
+    says which ran).
 
     Capacity is the ``capacity_quantile`` of per-block edge counts rounded
     up to a multiple of 128; edges past it go to the overflow COO. Returns
@@ -194,7 +215,11 @@ def build_spmv_plan(rows, cols, vals=None, n_rows: int = None,
                          f"({n_rows}, {n_cols})")
 
     nb = -(-n_rows // block)
-    cnt = np.bincount(rows // block, minlength=nb)
+    from matrel_tpu_torch.utils import native as native_lib
+    cnt = native_lib.spmv_counts(rows, block, nb)
+    use_native = cnt is not None
+    if not use_native:
+        cnt = np.bincount(rows // block, minlength=nb)
     if m == 0:
         cap = 128
     else:
@@ -206,8 +231,13 @@ def build_spmv_plan(rows, cols, vals=None, n_rows: int = None,
     if max_slots is not None and nb * cap > max_slots:
         return None
     n_ov = int(np.maximum(cnt - cap, 0).sum())
-    src8, lane, off, val, ov_r64, ov_c64, ov_v = _numpy_fill(
-        rows, cols, vals, m, n_cols, block, nb, cap, cnt)
+    filled = native_lib.spmv_fill(rows, cols, vals, n_cols, block, nb, cap,
+                                  WIDTH, n_ov) if use_native else None
+    fill = "native" if filled is not None else "numpy"
+    if filled is None:
+        filled = _numpy_fill(rows, cols, vals, m, n_cols, block, nb, cap,
+                             cnt)
+    src8, lane, off, val, ov_r64, ov_c64, ov_v = filled
     if n_ov:
         ov_c = ov_c64.astype(np.int32)
         ov_r = ov_r64.astype(np.int32)
@@ -221,7 +251,8 @@ def build_spmv_plan(rows, cols, vals=None, n_rows: int = None,
         off=np.ascontiguousarray(off, np.int32),
         val=np.ascontiguousarray(val, np.float32),
         ov_cols=ov_c, ov_rows=ov_r, ov_vals=ov_v,
-        padding_ratio=(nb * cap + n_ov) / max(m, 1))
+        padding_ratio=(nb * cap + n_ov) / max(m, 1),
+        fill=fill)
 
 
 def _numpy_fill(rows, cols, vals, m, n_cols, block, nb, cap, cnt):
@@ -249,6 +280,61 @@ def _numpy_fill(rows, cols, vals, m, n_cols, block, nb, cap, cnt):
             (src_pad % WIDTH).astype(np.int8),
             off_pad.astype(np.int32), val_pad,
             rows_s[~in_main], cols_s[~in_main], vals_s[~in_main])
+
+
+def save_plan(path: str, plan: EdgeSpMVPlan) -> None:
+    """Persist a plan's compact layout as one ``.npz`` (the JAX package's
+    format): ``meta`` = [n_rows, n_cols, block, capacity, 1, WIDTH, LO]
+    — the format version and the constants baked into src8/lane/off —
+    then ``padding_ratio``, the four tables and the overflow COO when
+    there is one. The file is written beside ``path`` and renamed over
+    it, with the mode the process umask gives a new file."""
+    payload = dict(
+        meta=np.asarray([plan.n_rows, plan.n_cols, plan.block,
+                         plan.capacity, 1, WIDTH, LO], np.int64),
+        padding_ratio=np.asarray([plan.padding_ratio], np.float64),
+        src8=np.asarray(plan.src8), lane=np.asarray(plan.lane),
+        off=np.asarray(plan.off), val=np.asarray(plan.val))
+    if plan.ov_rows is not None:
+        payload.update(ov_rows=np.asarray(plan.ov_rows),
+                       ov_cols=np.asarray(plan.ov_cols),
+                       ov_vals=np.asarray(plan.ov_vals))
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)),
+                               suffix=".tmp")
+    try:
+        os.fchmod(fd, 0o666 & ~_UMASK)  # mkstemp's 0600 ignores the umask
+        with os.fdopen(fd, "wb") as f:
+            np.savez_compressed(f, **payload)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def load_plan(path: str) -> EdgeSpMVPlan:
+    """Load a plan saved by :func:`save_plan` (by either package). A file
+    saved under another format version or other WIDTH / LO constants
+    raises ``ValueError``."""
+    with np.load(path) as z:
+        meta = [int(v) for v in z["meta"]]
+        n_rows, n_cols, block, cap = meta[:4]
+        version, width, lo = (meta[4:7] if len(meta) >= 7 else (0, -1, -1))
+        if version != 1 or width != WIDTH or lo != LO:
+            raise ValueError(
+                f"plan file {path!r} was saved with format v{version} "
+                f"(WIDTH={width}, LO={lo}); this build expects v1 "
+                f"(WIDTH={WIDTH}, LO={LO}) — rebuild the plan")
+        has_ov = "ov_rows" in z.files
+        return EdgeSpMVPlan(
+            n_rows=n_rows, n_cols=n_cols, block=block, capacity=cap,
+            src8=z["src8"], lane=z["lane"], off=z["off"], val=z["val"],
+            ov_rows=z["ov_rows"] if has_ov else None,
+            ov_cols=z["ov_cols"] if has_ov else None,
+            ov_vals=z["ov_vals"] if has_ov else None,
+            padding_ratio=float(z["padding_ratio"][0]), fill="loaded")
 
 
 def _onehot_contrib(src8, sel, oh_hi, oh_lo, x_ext) -> Tensor:

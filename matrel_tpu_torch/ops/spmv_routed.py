@@ -333,30 +333,39 @@ def lanes_per_row(nnz: int, n_rows: int) -> int:
 
 
 def launch_walk(entry, name: str, view: csr_lib.CSRView, x: Tensor,
-                passes: int, lanes: Optional[int]) -> Tensor:
+                passes: int, lanes: Optional[int], rows=None,
+                out: Optional[Tensor] = None) -> Tensor:
     """y (n_rows,) f32 from one launch of a row walk over ``view``
     (``csrc/csr_walk.cuh``) on x's CUDA device and current stream:
     ``entry`` is the ctypes function of B2 or B8, which share the walk's
-    signature; ``lanes`` lanes a row (default :func:`lanes_per_row`). The
-    operands are checked by the caller; an empty view launches nothing.
-    Raises if the launch fails."""
+    signature; ``lanes`` lanes a row (default :func:`lanes_per_row` of
+    the whole view). ``rows`` = (r0, r1) walks only those rows, into
+    ``out[r0:r1]`` of a given (n_rows,) f32 ``out``: the launch reads
+    ``row_ptr`` and writes y from row r0 on, and ``row_ptr`` holds
+    positions in the whole ``cv``. The operands are checked by the
+    caller; an empty range launches nothing. Raises if the launch
+    fails."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or CPU tensors, got {dev}")
     n_rows = view.n_rows
+    r0, r1 = (0, n_rows) if rows is None else rows
     if lanes is None:
         lanes = lanes_per_row(view.nnz, n_rows)
     if lanes not in (1, 2, 4, 8, 16, 32):
         raise ValueError(f"lanes must be a power of two in [1, 32], got "
                          f"{lanes}")
-    y = torch.empty(n_rows, dtype=torch.float32, device=dev)
-    if n_rows == 0:
+    y = (torch.empty(n_rows, dtype=torch.float32, device=dev)
+         if out is None else out)
+    if r1 == r0:
         return y
+    itemsize = 4                    # int32 row_ptr, f32 y
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = entry(view.row_ptr.data_ptr(), view.cv.data_ptr(), x.data_ptr(),
-                   y.data_ptr(), n_rows, view.n_cols, passes, lanes,
-                   dev.index, stream)
+        rc = entry(view.row_ptr.data_ptr() + itemsize * r0,
+                   view.cv.data_ptr(), x.data_ptr(),
+                   y.data_ptr() + itemsize * r0, r1 - r0, view.n_cols,
+                   passes, lanes, dev.index, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     return y

@@ -17,8 +17,12 @@ the JAX package's stamps. An S×S matmul that dispatches SpGEMM stamps
 Row/col index joins stamp the replication scheme ``choose_join_scheme``
 picks (``attrs["replicate"]``: "left", "right" or "align"); the scheme
 is priced with the closed-form reshard terms only, since the staged
-reshard plans (``reshard_peak_budget_bytes``), autotune and the learned
+reshard plans (``reshard_peak_budget_bytes``) and the learned
 coefficients are not ported (their knobs raise ``NotPortedError``).
+With ``config.autotune`` on, a measured winner from
+``parallel/autotune.py`` overrides the byte model for a dense product
+on a grid of more than one device (source "measured"), and the S×S
+kernel stamp may come from a measured SpGEMM winner.
 """
 
 from __future__ import annotations
@@ -244,9 +248,12 @@ def infer_layout(node: MatExpr, mesh: Mesh,
                 if not _coo_narrow_matmul(n):
                     return "2d"          # densify path: hard-coded xla
                 # "rep" only where the lowering pins it: one device. The
-                # compact sharded path (out_specs=P()) is not ported, so
-                # a virtual multi-device grid claims nothing — the JAX
-                # package's answer off the TPU.
+                # JAX package also claims it for its compact sharded path
+                # (out_specs=P()) when autotune is off, since a measured
+                # "expanded" winner reroutes that dispatch; that path is
+                # not ported, so a virtual multi-device grid claims
+                # nothing, with autotune on or off — the JAX package's
+                # answer off the TPU.
                 return "rep" if mesh.size == 1 else "2d"
             if any(c.kind == "sparse_leaf" for c in n.children):
                 return "2d"
@@ -639,8 +646,9 @@ def choose_strategy_ex(node: MatExpr, mesh: Mesh,
                        consumer_hint: Optional[str] = None,
                        root_scale: float = 1.0) -> Tuple[str, str]:
     """(strategy, source) for one matmul node: "dispatch" (S×S),
-    "override", "model" (byte-model argmin) or "default" (single device
-    / no admissible candidate)."""
+    "override", "measured" (an autotune table winner, with
+    ``config.autotune``), "model" (byte-model argmin) or "default"
+    (single device / no admissible candidate)."""
     cfg = config or default_config()
     if _spgemm_matmul(node, cfg):
         return "spgemm", "dispatch"
@@ -657,6 +665,29 @@ def choose_strategy_ex(node: MatExpr, mesh: Mesh,
     _, pm = padding.padded_shape((k, m), mesh)
     la = infer_layout(a, mesh, layout_memo, cfg)
     lb = infer_layout(b, mesh, layout_memo, cfg)
+    if cfg.autotune:
+        # A measured winner beats the byte model only where the table's
+        # probes apply: both operand dtypes known and equal, dense
+        # operands (the probes are dense; a density credit would be
+        # bypassed), both laid out "2d" (as measured), admissible for
+        # these exact dims, and not a 1D-emitting winner at a plan root
+        # (the probes never pay the root's re-lay).
+        dta = infer_dtype(a, cfg, dtype_memo)
+        dtb = infer_dtype(b, cfg, dtype_memo)
+        dense = ((a.density is None or a.density >= 1.0)
+                 and (b.density is None or b.density >= 1.0))
+        if (dense and dta is not None and dta == dtb
+                and la == "2d" and lb == "2d"):
+            from matrel_tpu_torch.parallel import autotune
+            best = autotune.lookup_or_measure(n, k, m, mesh,
+                                              autotune.dtype_name(dta), cfg)
+            if (best is not None
+                    and admissible(best, pn, pk, pm, gx, gy,
+                                   itemsize=dta.itemsize,
+                                   hbm_budget_bytes=cfg.hbm_budget_bytes)
+                    and not (root_output
+                             and STRATEGY_OUT_LAYOUT.get(best) != "2d")):
+                return best, "measured"
     da, db = a.density, b.density
     cands = {}
     a_bytes = _bytes((n, k), da)
@@ -892,7 +923,7 @@ def annotate_strategies(e: MatExpr, mesh: Mesh,
             # which registry kernel the S×S lowering runs, from the
             # shared chooser (executor.spgemm_kernel_choice)
             from matrel_tpu_torch import executor as _exec
-            kid, struct, ksrc = _exec.spgemm_kernel_choice(e, config)
+            kid, struct, ksrc = _exec.spgemm_kernel_choice(e, config, mesh)
             e = e.with_attrs(spgemm_kernel=kid, spgemm_structure=struct,
                              spgemm_kernel_source=ksrc)
     if e.kind in ("join_rows", "join_cols") and "replicate" not in e.attrs:
@@ -956,7 +987,7 @@ def matmul_decisions(root: MatExpr, mesh: Mesh,
             struct = n.attrs.get("spgemm_structure")
             ksrc = n.attrs.get("spgemm_kernel_source")
             if kid is None:
-                kid, struct, ksrc = _exec.spgemm_kernel_choice(n, cfg)
+                kid, struct, ksrc = _exec.spgemm_kernel_choice(n, cfg, mesh)
             rec["kernel_id"] = kid
             rec["structure_class"] = struct
             rec["kernel_source"] = ksrc

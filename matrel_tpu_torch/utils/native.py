@@ -1,18 +1,22 @@
-"""ctypes bridges to the native chain DP (``native/chain_dp.cc``) and
-the native text readers (``native/mtx_reader.cc``) — the counterpart of
-those parts of ``matrel_tpu/utils/native.py``.
+"""ctypes bridges to the native chain DP (``native/chain_dp.cc``), the
+native text readers (``native/mtx_reader.cc``) and the native SpMV plan
+fill (``native/spmv_plan.cc``) — the counterpart of
+``matrel_tpu/utils/native.py``.
 
 The same plain C ABIs (``matrel_chain_dp``, ``_comm``, ``_layout``,
 ``_topo``; ``matrel_mtx_open``, ``matrel_coo_csv_open``,
-``matrel_parse_fill``, ``matrel_parse_close``) built into this package's
-own libraries under ``build/native/`` at the repository root
-(``libmatrel_chain_dp.so``, ``libmatrel_ingest.so``), with ``g++ -O3
+``matrel_parse_fill``, ``matrel_parse_close``; ``matrel_spmv_counts``,
+``matrel_spmv_fill``) built into this package's own libraries under
+``build/native/`` at the repository root (``libmatrel_chain_dp.so``,
+``libmatrel_ingest.so``, ``libmatrel_spmv_plan.so``), with ``g++ -O3
 -fPIC -std=c++17 -shared`` at first use, and rebuilt when the source is
 newer than the library. The JAX package's library under
 ``native/build/`` is never touched. Without a compiler (or a library)
 :func:`chain_dp` returns None and ``ir/chain.py`` runs its Python DP,
-and :func:`mtx_read` / :func:`coo_csv_read` return None and ``io.py``
-parses with scipy / numpy — as the JAX package does.
+:func:`mtx_read` / :func:`coo_csv_read` return None and ``io.py``
+parses with scipy / numpy, and :func:`spmv_counts` / :func:`spmv_fill`
+return None and ``ops/spmv.py`` fills its plan with numpy — as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -36,12 +40,17 @@ LIB_PATH = os.path.join(_REPO_ROOT, "build", "native",
 INGEST_SOURCE = os.path.join(_REPO_ROOT, "native", "mtx_reader.cc")
 INGEST_LIB_PATH = os.path.join(_REPO_ROOT, "build", "native",
                                "libmatrel_ingest.so")
+SPMV_SOURCE = os.path.join(_REPO_ROOT, "native", "spmv_plan.cc")
+SPMV_LIB_PATH = os.path.join(_REPO_ROOT, "build", "native",
+                             "libmatrel_spmv_plan.so")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 _ingest_lib: Optional[ctypes.CDLL] = None
 _ingest_tried = False
+_spmv_lib: Optional[ctypes.CDLL] = None
+_spmv_tried = False
 
 
 def _is_stale(source: str, target: str) -> bool:
@@ -273,3 +282,89 @@ def coo_csv_read(path: str) -> Optional[Tuple[np.ndarray, np.ndarray,
     if not h:
         return None
     return _fill(lib, h, max(1, int(n.value)))
+
+
+# -- native SpMV plan layout (spmv_plan.cc) ---------------------------------
+
+
+def _bind_spmv(lib: ctypes.CDLL) -> None:
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    i64 = ctypes.c_int64
+    lib.matrel_spmv_counts.restype = ctypes.c_int
+    lib.matrel_spmv_counts.argtypes = [i64p, i64, i64, i64, i64p]
+    lib.matrel_spmv_fill.restype = ctypes.c_int64
+    lib.matrel_spmv_fill.argtypes = [
+        i64p, i64p, ctypes.c_void_p, i64, i64, i64, i64, i64,
+        ctypes.c_int32, i32p, i8p, i32p, f32p, i64p, i64p, f32p, i64]
+
+
+def load_spmv() -> Optional[ctypes.CDLL]:
+    """The native SpMV plan-fill library, built if needed; None if
+    unavailable."""
+    global _spmv_lib, _spmv_tried
+    with _lock:
+        if _spmv_lib is not None or _spmv_tried:
+            return _spmv_lib
+        _spmv_tried = True
+        if (_is_stale(SPMV_SOURCE, SPMV_LIB_PATH)
+                and not _compile(SPMV_SOURCE, SPMV_LIB_PATH)
+                and not os.path.exists(SPMV_LIB_PATH)):
+            return None
+        try:
+            lib = ctypes.CDLL(SPMV_LIB_PATH)
+            _bind_spmv(lib)
+        except (OSError, AttributeError) as e:
+            log.debug("native spmv-plan load failed: %s", e)
+            return None
+        _spmv_lib = lib
+        return _spmv_lib
+
+
+def spmv_counts(rows: np.ndarray, block: int, nb: int
+                ) -> Optional[np.ndarray]:
+    """Per-block edge counts (pass 1 of the plan build); None if the
+    native path is unavailable or a row lies outside [0, nb·block)."""
+    lib = load_spmv()
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    counts = np.zeros(nb, dtype=np.int64)
+    rc = lib.matrel_spmv_counts(rows, rows.shape[0], block, nb, counts)
+    return counts if rc == 0 else None
+
+
+def spmv_fill(rows: np.ndarray, cols: np.ndarray,
+              vals: Optional[np.ndarray], n_cols: int, block: int,
+              nb: int, cap: int, width: int, n_overflow: int):
+    """Pass 2: scatter edges into the padded (nb, cap) plan tables in
+    input order. Returns (src8, lane, off, val, ov_rows, ov_cols,
+    ov_vals), or None when unavailable or the fill disagrees with
+    ``n_overflow``."""
+    lib = load_spmv()
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    m = rows.shape[0]
+    src8 = np.empty((nb, cap), dtype=np.int32)
+    lane = np.empty((nb, cap), dtype=np.int8)
+    off = np.empty((nb, cap), dtype=np.int32)
+    val = np.empty((nb, cap), dtype=np.float32)
+    ov_cap = max(1, n_overflow)
+    ov_r = np.empty(ov_cap, dtype=np.int64)
+    ov_c = np.empty(ov_cap, dtype=np.int64)
+    ov_v = np.empty(ov_cap, dtype=np.float32)
+    vptr = None
+    if vals is not None:
+        vals = np.ascontiguousarray(vals, dtype=np.float32)
+        vptr = vals.ctypes.data_as(ctypes.c_void_p)
+    got = lib.matrel_spmv_fill(rows, cols, vptr, m, n_cols, block, nb,
+                               cap, width, src8.reshape(-1),
+                               lane.reshape(-1), off.reshape(-1),
+                               val.reshape(-1), ov_r, ov_c, ov_v, ov_cap)
+    if got < 0 or got != n_overflow:
+        return None
+    return (src8, lane, off, val, ov_r[:got], ov_c[:got], ov_v[:got])

@@ -1,18 +1,23 @@
-"""PageRank power iteration over an edge list — the counterpart of
+"""PageRank power iteration — the counterpart of
 ``matrel_tpu/workloads/pagerank.py`` (BASELINE row 5: 1M-node graph,
 30 matvec rounds).
 
-The JAX package runs the whole loop as one jitted ``fori_loop``. Here
-the 30 rounds are a Python loop of eager torch ops around the SpMV
-kernel: each round is one kernel launch (B2 on the card), the overflow
-``index_add_`` and a few elementwise ops, with no host synchronisation
-between rounds.
+The JAX package runs each loop as one jitted ``fori_loop`` (the
+block-sparse one from the host). Here the rounds are a Python loop of
+eager torch ops around the product, with no host synchronisation
+between rounds: over an edge list one SpMV launch a round (B2 on the
+card), the overflow ``index_add_`` and a few elementwise ops.
 
-Ported: ``pagerank_edges`` on one device with impls ``auto``, ``segment``
-and ``onehot``; ``prepare_pagerank_onehot``, ``run_pagerank_onehot``,
-``run_pagerank_compact``; the byte-aware plan cache; and
-``pagerank_numpy_oracle``. Not ported yet: the mesh-sharded variants,
-dense ``pagerank``, ``pagerank_csr`` and ``pagerank_block_sparse``.
+Ported: ``pagerank`` (dense adjacency: one f32 Âᵀ·(r/deg) product a
+round, TF32 off); ``pagerank_edges`` on one device with impls ``auto``,
+``segment`` and ``onehot``; ``prepare_pagerank_onehot``,
+``run_pagerank_onehot``, ``run_pagerank_compact``; the byte-aware plan
+cache; ``pagerank_csr`` (a padded in-neighbour table, gathered and
+summed a round; it falls back to ``pagerank_edges`` on loose degree
+distributions); ``pagerank_block_sparse`` (degrees and every round
+through the block-sparse SpMM, B1 on the card, against a dense operand
+one column wide); and ``pagerank_numpy_oracle``. Not ported yet: the
+mesh-sharded variants.
 """
 
 from __future__ import annotations
@@ -25,6 +30,39 @@ import torch
 from matrel_tpu_torch.core.mesh import resolve_device
 
 Tensor = torch.Tensor
+
+
+def pagerank(A, rounds: int = 30, alpha: float = 0.85,
+             config=None) -> Tensor:
+    """r ← α·Âᵀ·r + (1-α)/N over a dense adjacency ``BlockMatrix`` (A[i, j]
+    = 1 for an edge i→j, Â its row-normalised form), ``rounds`` times on
+    A's device. Dangling nodes (zero out-degree) redistribute uniformly;
+    padded rows stay 0. Each round is one f32 product Aᵀ·(r/deg) with
+    TF32 off (``Precision.HIGHEST`` in the JAX package). Returns the
+    rank vector as an (N, 1) tensor."""
+    from matrel_tpu_torch.parallel.strategies import _highest_precision
+    n = A.shape[0]
+    if A.shape[0] != A.shape[1]:
+        raise ValueError(f"adjacency must be square, got {A.shape}")
+    ad = A.data
+    pn = ad.shape[0]
+    dev = ad.device
+    _highest_precision()
+    zero = torch.zeros((), dtype=ad.dtype, device=dev)
+    valid_row = (torch.arange(pn, device=dev) < n)[:, None]
+    deg = ad.sum(dim=1, keepdim=True)                    # out-degree
+    inv_deg = torch.where(deg > 0, 1.0 / deg.clamp(min=1e-30), zero)
+    dangling = (valid_row & (deg == 0)).to(ad.dtype)
+    r = torch.where(valid_row, torch.full((), 1.0 / n, dtype=ad.dtype,
+                                          device=dev), zero)
+    teleport = (1.0 - alpha) / n
+    at = ad.T
+    for _ in range(int(rounds)):
+        contrib = at @ (inv_deg * r)          # Âᵀ·r, Â = D⁻¹A
+        dmass = torch.sum(dangling * r)
+        r = torch.where(valid_row, alpha * (contrib + dmass / n) + teleport,
+                        zero)
+    return r[:n]
 
 
 def pagerank_edges(src, dst, n: int, rounds: int = 30, alpha: float = 0.85,
@@ -251,6 +289,84 @@ def _power_iterate(matvec: Callable, n: int, rounds: int, alpha: float,
     for _ in range(int(rounds)):
         r = body(r)
     return r
+
+
+def pagerank_csr(src, dst, n: int, rounds: int = 30, alpha: float = 0.85,
+                 max_degree_factor: float = 2.0, device=None) -> Tensor:
+    """PageRank through a padded in-neighbour table: a host-built (n, D)
+    table of each node's in-neighbours (D the largest in-degree), padded
+    with the sentinel ``n``, which reads 0; each round gathers r/outdeg
+    through it and sums each row — no scatter. The table does D / mean
+    degree times the gathers of the edge list, so it runs only where the
+    in-degrees are tight (D ≤ ``max_degree_factor`` × mean); anything
+    looser falls back to :func:`pagerank_edges`. Returns (n,)."""
+    dev = resolve_device(device)
+    src = np.asarray(src, dtype=np.int32)
+    dst = np.asarray(dst, dtype=np.int32)
+    indeg = np.bincount(dst, minlength=n)
+    D = int(indeg.max()) if len(dst) else 0
+    mean_deg = max(len(dst) / max(n, 1), 1.0)
+    if D > max_degree_factor * mean_deg:
+        return pagerank_edges(src, dst, n, rounds, alpha, device=dev)
+    order = np.argsort(dst, kind="stable")
+    dst_s, src_s = dst[order], src[order]
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(indeg, out=offsets[1:])
+    slot = np.arange(len(dst_s)) - offsets[dst_s]
+    neighbors = np.full((n, max(D, 1)), n, dtype=np.int32)  # n = sentinel
+    neighbors[dst_s, slot] = src_s
+    outdeg = np.bincount(src, minlength=n).astype(np.float32)
+    nbr = torch.as_tensor(neighbors, device=dev).long()
+    deg = torch.as_tensor(outdeg, device=dev)
+    inv_deg = torch.where(deg > 0, 1.0 / deg.clamp(min=1.0),
+                          torch.zeros((), device=dev))
+    dangling = (deg == 0).float()
+    pad = torch.zeros(1, dtype=torch.float32, device=dev)
+
+    def matvec(r: Tensor) -> Tensor:
+        return torch.cat([r * inv_deg, pad])[nbr].sum(dim=1)
+
+    return _power_iterate(matvec, n, rounds, alpha, dangling, dev)
+
+
+def pagerank_block_sparse(S, rounds: int = 30, alpha: float = 0.85,
+                          config=None) -> Tensor:
+    """PageRank over a block-sparse adjacency (clustered graphs whose
+    tiles are dense enough to pay). The out-degrees are S·1 and each
+    round is Sᵀ·(r/deg) followed by the dangling / teleport step, both
+    products through the block-sparse SpMM (``ops/spmm.py``: B1 on the
+    card, f32 tiles against one dense column); the loop is driven from
+    the host, as in the JAX package. Returns the (N, 1) rank vector."""
+    from matrel_tpu_torch.core.blockmatrix import BlockMatrix
+    from matrel_tpu_torch.ops import spmm as spmm_lib
+
+    n = S.shape[0]
+    if S.shape[0] != S.shape[1]:
+        raise ValueError(f"adjacency must be square, got {S.shape}")
+    st = S.transpose()
+    mesh = S.mesh
+    deg = spmm_lib.spmm(
+        S, BlockMatrix.from_numpy(np.ones((n, 1), np.float32), mesh=mesh),
+        config).data
+    dev = deg.device
+    zero = torch.zeros((), dtype=deg.dtype, device=dev)
+    # epsilon (not 1.0) floor: weighted adjacencies can have row sums
+    # below 1, and clamping those would skew the ranks
+    inv_deg = torch.where(deg > 0, 1.0 / deg.clamp(min=1e-30), zero)
+    valid = (torch.arange(deg.shape[0], device=dev) < n)[:, None]
+    dangling = ((deg == 0) & valid).float()
+    teleport = (1.0 - alpha) / n
+    r = BlockMatrix.from_numpy(np.full((n, 1), 1.0 / n, np.float32),
+                               mesh=mesh)
+    for _ in range(int(rounds)):
+        weighted = BlockMatrix.from_array(r.data * inv_deg, (n, 1), mesh,
+                                          r.spec)
+        contrib = spmm_lib.spmm(st, weighted, config).data
+        dmass = torch.sum(dangling * r.data)
+        r_new = torch.where(valid, alpha * (contrib + dmass / n) + teleport,
+                            zero)
+        r = BlockMatrix.from_array(r_new, (n, 1), mesh, r.spec)
+    return r.data[:n]
 
 
 def pagerank_numpy_oracle(a, rounds=30, alpha=0.85):

@@ -25,6 +25,7 @@ from matrel_tpu_torch import convert
 from matrel_tpu_torch.ops import pallas_spmv as tpc
 from matrel_tpu_torch.ops import spmv as tspmv
 from matrel_tpu_torch.ops import spmv_routed as trouted
+from matrel_tpu_torch.utils import native as tnative
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -77,10 +78,12 @@ def rel(got, want) -> float:
 
 @pytest.fixture
 def numpy_fill(monkeypatch):
-    """Make the JAX plan build take its numpy fill (the one the port
-    mirrors): the native counting-sort fill keeps input order within a
-    block, the numpy fill sorts each block's slots by row."""
+    """Make both packages' plan builds take their numpy fill: the native
+    counting-sort fill keeps input order within a block, the numpy fill
+    sorts each block's slots by row (the native fills are held to each
+    other in tests/test_torch_coo_plane.py)."""
     monkeypatch.setattr(native, "spmv_counts", lambda *a, **k: None)
+    monkeypatch.setattr(tnative, "spmv_counts", lambda *a, **k: None)
 
 
 @pytest.mark.parametrize("case", ["uniform", "hub", "weights_none",
