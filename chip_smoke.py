@@ -10,14 +10,20 @@
    atomic, and every instance of the bf16 wgmma body
    (csrc/bf16_tile_wgmma.cuh: B1's and B4-B7's) holds HGMMA and UTMALDG
    and no HMMA in its SASS (cuobjdump -sass), spills nothing and has no
-   wgmma that ptxas serialised.
+   wgmma that ptxas serialised; no instance of the f32 tile body
+   (csrc/f32_tile_simt.cuh: B4-B7's 12, B1's 4) or of B1's narrow row
+   walk (10) spills, and the narrow walk holds no atomic.
 2. Kernel phases: holds each kernel against its plain PyTorch version on
    the card — block-sparse SpMM B1 (ops/pallas_spmm.py) in f32 and bf16
    at bs 4, 8, 16, 24, 64, 128 and 512, with empty block rows, a single
    block row, D shorter than the tile grid, output rows past it, a D off
    a 16-byte boundary and a column count that is not a multiple of the
-   column tile, each bf16 case through the tile body ops/tile_body.py
-   assigns it (wgmma at bs 64, 128 and 512); the
+   column tile, each case through the tile body ops/tile_body.py
+   assigns it (bf16: wgmma at bs 64, 128 and 512; f32: the narrow row
+   walk up to F32_NARROW_MAX = W columns, else the SIMT tile body of
+   csrc/f32_tile_simt.cuh), plus f32 at pm = 1, 2, 3, W and W + 1 on bs
+   4, 10, 24 and 512 (the narrow body held bit-equal to its plain
+   version); the
    compact SpMV B2 and SpMM B3 (ops/pallas_spmv.py), both over the plan's
    CSR view, at passes 2 and 3 with a block of zero slots, n_rows not a
    multiple of 512, an overflow hub row, sentinel slots, a hub row of
@@ -70,7 +76,9 @@
    fit_streaming and cg_least_squares on the first 1,000,000 rows held
    whole),
    row 4 (block-sparse x dense, 100,352^2 at 1% of 512-blocks, bf16,
-   plus the D'·S form; both launches through the wgmma body), row 2
+   plus the D'·S form; both launches through the wgmma body; before it,
+   the same shape in f32 through the wide f32 body against its plain
+   version, its bound and torch.sparse.mm on the f32 CSR form), row 2
    (skewed A·B·C, 10,000 x 100, f32, plan (A·(B·C))) and row 1 (4096^2
    f32 multiply). Results are checked against the plain kernel versions
    or a float64 oracle.
@@ -121,8 +129,11 @@
    graph (the table path: no B2 launch) and on row 5's (the fallback:
    30 B2 launches), against float64; pagerank_block_sparse over 588 f32
    tiles of a community adjacency with dangling and light rows (31 B1
-   launches, f32 body, one column), against float64, then B1 at that
-   shape against its plain version, its bound and torch.sparse.mm.
+   launches, all through the narrow f32 body, one column), against
+   float64, then B1 at that shape bit-equal to its plain version, under
+   twice its byte bound, beside torch.sparse.mm on Sᵀ in CSR and in BSR
+   over the same tiles, and the two f32 bodies timed in turns at pm =
+   1, 2, 4, 8, 16 and 32 (the crossover that sets W).
 7. path_autotune, its table in a temporary file under build/: the
    SpGEMM family for every structure class at sides 8192 and 32,768
    (bs 512; the band also at bs 128), every admissible kernel timed;
@@ -139,6 +150,12 @@
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when there is no CUDA device or a phase fails.
+
+    python3 chip_smoke.py --b1-f32
+
+runs only B1's f32 crossover sweep and its wide body at row 4's shape,
+and prints digests of B4–B7's f32 outputs: run from two checkouts in one
+call, it compares two builds of the f32 bodies on one card.
 """
 
 from __future__ import annotations
@@ -275,9 +292,10 @@ def spmm_bound(S, pm: int, out_rows: int, dtype_name: str):
 
 def kernel_phase(mesh):
     """B1 against its plain version in f32 and bf16; every launch through
-    the tile body the case names (bf16; f32 always runs "f32")."""
+    the tile body the case names (bf16; f32 by width: the wide SIMT body
+    here, the narrow row walk in f32_cases())."""
     import torch
-    from matrel_tpu_torch.ops import pallas_spmm
+    from matrel_tpu_torch.ops import pallas_spmm, tile_body
     cases = [  # (bs, n, k, pm, density, output rows, bf16 body, D offset)
         (4, 37, 29, 9, 0.4, 37, "wmma", 0),
         (8, 203, 150, 77, 0.3, 203, "wmma", 0),
@@ -291,31 +309,66 @@ def kernel_phase(mesh):
         (512, 2048, 1800, 256, 0.3, 2600, "wgmma", 0),  # both: rows, D
     ]
     for dtype_name in ("float32", "bfloat16"):
-        dtype = getattr(torch, dtype_name)
         for i, (bs, n, k, pm, dens, rows, body, off) in enumerate(cases):
-            S = make_case(bs, n, k, dens, dtype, 100 + i, mesh)
-            gen = torch.Generator(device=mesh.device).manual_seed(200 + i)
-            d = torch.randn((k * pm + off,), generator=gen,
-                            device=mesh.device).to(dtype)[off:].view(k, pm)
-            _, payload, row_ptr, bcols = pallas_spmm.csr_payload(S)
-            want_body = body if dtype_name == "bfloat16" else "f32"
-            before = dict(pallas_spmm.BODY_LAUNCHES)
-            got = pallas_spmm.spmm_blocksparse(payload, row_ptr, bcols, d,
-                                               rows)
-            launched = {b: v - before[b] for b, v in
-                        pallas_spmm.BODY_LAUNCHES.items() if v != before[b]}
-            if launched != {want_body: 1}:
-                raise AssertionError(f"spmm {dtype_name} bs={bs} pm={pm} "
-                                     f"offset={off}: bodies {launched}, "
-                                     f"want {want_body}")
-            want = pallas_spmm.spmm_blocksparse_plain(
-                S.blocks, S.block_rows, S.block_cols, d, rows)
-            torch.cuda.synchronize()
-            err = check_close(f"spmm {dtype_name} bs={bs} n={n} k={k} "
-                              f"pm={pm} rows={rows}", got, want, dtype_name)
-            log(f"kernel spmm_blocksparse {dtype_name} bs={bs} n={n} k={k} "
-                f"pm={pm} rows={rows} nnzb={S.nnzb} D offset {off} "
-                f"({want_body} body): max_abs_err={err:.3e} ok")
+            want_body = (body if dtype_name == "bfloat16"
+                         else tile_body.f32_body(pm))
+            b1_case(mesh, dtype_name, 100 + i, bs, n, k, pm, dens, rows,
+                    want_body, off)
+    for i, (bs, n, k, pm, dens, rows, off) in enumerate(f32_cases()):
+        b1_case(mesh, "float32", 150 + i, bs, n, k, pm, dens, rows,
+                tile_body.f32_body(pm), off)
+
+
+def f32_cases():
+    """B1's f32 cases at the widths around the narrow body's limit W =
+    tile_body.F32_NARROW_MAX: (bs, n, k, pm, density, output rows, D
+    offset in floats). make_case leaves ~1/4 of the block rows empty."""
+    from matrel_tpu_torch.ops.tile_body import F32_NARROW_MAX as W
+    return [
+        (4, 37, 29, 1, 0.4, 45, 0),        # rows past the grid
+        (24, 100, 90, 2, 0.5, 100, 1),     # D shorter than grid, 4 B off
+        (10, 95, 83, 3, 0.4, 95, 0),       # bs % 4 != 0: scalar loads
+        (512, 2048, 1800, 1, 0.3, 2600, 1),  # PageRank's bs; rows, D, off
+        (24, 300, 280, W, 0.3, 330, 1),
+        (512, 2048, 1800, W, 0.3, 2048, 0),
+        (24, 300, 280, W + 1, 0.3, 330, 1),
+        (512, 2048, 1800, W + 1, 0.3, 2600, 0),
+    ]
+
+
+
+def b1_case(mesh, dtype_name, seed, bs, n, k, pm, dens, rows, want_body,
+            off):
+    """One B1 launch through the wrapper, its body asserted, against the
+    plain version: bit-equal on the narrow body (both sum in f64 and
+    round once), within TOL elsewhere."""
+    import torch
+    from matrel_tpu_torch.ops import pallas_spmm
+    dtype = getattr(torch, dtype_name)
+    S = make_case(bs, n, k, dens, dtype, seed, mesh)
+    gen = torch.Generator(device=mesh.device).manual_seed(seed + 100)
+    d = torch.randn((k * pm + off,), generator=gen,
+                    device=mesh.device).to(dtype)[off:].view(k, pm)
+    _, payload, row_ptr, bcols = pallas_spmm.csr_payload(S)
+    before = dict(pallas_spmm.BODY_LAUNCHES)
+    got = pallas_spmm.spmm_blocksparse(payload, row_ptr, bcols, d, rows)
+    launched = {b: v - before[b] for b, v in
+                pallas_spmm.BODY_LAUNCHES.items() if v != before[b]}
+    if launched != {want_body: 1}:
+        raise AssertionError(f"spmm {dtype_name} bs={bs} pm={pm} "
+                             f"offset={off}: bodies {launched}, want "
+                             f"{want_body}")
+    want = pallas_spmm.spmm_blocksparse_plain(
+        S.blocks, S.block_rows, S.block_cols, d, rows)
+    torch.cuda.synchronize()
+    name = f"spmm {dtype_name} bs={bs} n={n} k={k} pm={pm} rows={rows}"
+    err = check_close(name, got, want, dtype_name)
+    if want_body == "f32_narrow" and not torch.equal(got, want):
+        raise AssertionError(f"{name}: the narrow body is not bit-equal to "
+                             f"its plain version (max abs err {err:.3e})")
+    log(f"kernel spmm_blocksparse {dtype_name} bs={bs} n={n} k={k} "
+        f"pm={pm} rows={rows} nnzb={S.nnzb} D offset {off} "
+        f"({want_body} body): max_abs_err={err:.3e} ok")
 
 
 def row4_inputs(sess):
@@ -325,6 +378,33 @@ def row4_inputs(sess):
                                  mesh=sess.mesh, seed=1, dtype="bfloat16")
     D = sess.random((n, pm), dtype="bfloat16", seed=2)
     return S, D
+
+
+def b1_launcher(payload, row_ptr, bcols, d, out):
+    """``launch(code)``: B1's C entry point on these operands with a
+    body's code, past the wrapper, so these launches count nowhere;
+    returns the entry point's code when ``check`` is False, else raises
+    on any but 0."""
+    import torch
+    from matrel_tpu_torch.ops import pallas_spmm
+    lib = pallas_spmm._library()
+    bs, pm = payload.shape[1], d.shape[1]
+    vec = 16 // payload.element_size()
+    a_vec = int(bs % vec == 0 and payload.data_ptr() % 16 == 0)
+    d_vec = int(pm % vec == 0 and d.data_ptr() % 16 == 0)
+
+    def launch(code, check=True):
+        rc = lib.matrel_spmm_blocksparse(
+            payload.data_ptr(), row_ptr.data_ptr(), bcols.data_ptr(),
+            d.data_ptr(), out.data_ptr(), code, row_ptr.numel() - 1, bs,
+            payload.shape[0], d.shape[0], pm, out.shape[0], a_vec, d_vec,
+            d.device.index, torch.cuda.current_stream().cuda_stream)
+        if check and rc != 0:
+            raise AssertionError(f"B1 body code {code} (bs={bs}, pm={pm}): "
+                                 f"error {rc}")
+        return rc
+
+    return launch
 
 
 def body_turns(name: str, launch, flops: float) -> dict:
@@ -369,18 +449,8 @@ def row4_timing(S, D, library):
     want = pallas_spmm.spmm_blocksparse_plain(S.blocks, S.block_rows,
                                               S.block_cols, d, n)
     err = check_close("spmm row-4 shape", got, want, "bfloat16")
-    lib = pallas_spmm._library()
     out = torch.empty_like(got)
-
-    def launch(code):
-        rc = lib.matrel_spmm_blocksparse(
-            payload.data_ptr(), row_ptr.data_ptr(), bcols.data_ptr(),
-            d.data_ptr(), out.data_ptr(), code, row_ptr.numel() - 1,
-            S.block_size, payload.shape[0], d.shape[0], d.shape[1], n, 1, 1,
-            d.device.index, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise AssertionError(f"row-4 body code {code}: error {rc}")
-
+    launch = b1_launcher(payload, row_ptr, bcols, d, out)
     launch(1)
     torch.cuda.synchronize()
     err_wmma = check_close("spmm row-4 shape, WMMA body", out, want,
@@ -411,6 +481,181 @@ def row4_timing(S, D, library):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library["library_ms"]}
+
+
+def row4_f32_inputs(sess):
+    """Row 4's shape in f32: the same tile pattern and seeds as
+    :func:`row4_inputs` (nnzb 384, bs 512, D 100,352 x 512)."""
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    n, bs, pm = 100_352, 512, 512
+    S = BlockSparseMatrix.random((n, n), 0.01, block_size=bs,
+                                 mesh=sess.mesh, seed=1, dtype="float32")
+    D = sess.random((n, pm), dtype="float32", seed=2)
+    return S, D
+
+
+def row4_f32_timing(sess, with_library: bool = True) -> dict:
+    """B1's wide f32 body (csrc/f32_tile_simt.cuh) at row 4's shape in
+    f32: one launch through the wrapper (asserted on the "f32" body)
+    against the plain version, its time (CUDA events), the plain
+    version's, the bound (operations: 1.03e11 FLOP at 67 TFLOP/s) and
+    torch.sparse.mm on the f32 CSR form of S, which the body must not
+    lose to."""
+    import torch
+    from matrel_tpu_torch.ops import pallas_spmm
+    S, D = row4_f32_inputs(sess)
+    n = S.shape[0]
+    _, payload, row_ptr, bcols = pallas_spmm.csr_payload(S)
+    d = D.data
+    before = pallas_spmm.BODY_LAUNCHES["f32"]
+    got = pallas_spmm.spmm_blocksparse(payload, row_ptr, bcols, d, n)
+    if pallas_spmm.BODY_LAUNCHES["f32"] != before + 1:
+        raise AssertionError("row-4 shape in f32: not the wide f32 body")
+    want = pallas_spmm.spmm_blocksparse_plain(S.blocks, S.block_rows,
+                                              S.block_cols, d, n)
+    err = check_close("B1 f32 row-4 shape vs plain", got, want, "float32")
+    del want
+    run = lambda: pallas_spmm.spmm_blocksparse(payload, row_ptr, bcols, d,
+                                               n)
+    ms = time_ms(run, warmup=2, runs=10, batch=3)
+    plain_ms = time_ms(lambda: pallas_spmm.spmm_blocksparse_plain(
+        S.blocks, S.block_rows, S.block_cols, d, n), warmup=1, runs=5)
+    bound_ms, bound_by = spmm_bound(S, d.shape[1], n, "float32")
+    flops = 2.0 * S.nnzb * S.block_size ** 2 * d.shape[1]
+    lib_ms = None
+    if with_library:
+        csr = csr_form(S)
+        lib_ms = library_time("torch.sparse.mm f32 CSR, row-4 shape",
+                              lambda: torch.sparse.mm(csr, d), got)
+        del csr
+    log(f"B1 f32 at row 4's shape (nnzb={S.nnzb}, bs 512, pm 512, "
+        f"{flops:.3e} FLOP): wide body {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), library {lib_ms} ms; max_abs_err "
+        f"vs plain {err:.3e}")
+    if lib_ms is not None and ms > lib_ms:
+        raise AssertionError(f"B1 f32 at row 4's shape: the wide body "
+                             f"({ms:.4f} ms) is slower than torch.sparse.mm "
+                             f"({lib_ms:.4f} ms)")
+    del got, S, D
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+#: Widths of the crossover sweep: B1's two f32 bodies on block-sparse
+#: PageRank's tiles (the narrow body takes at most NARROW_MAX_C columns)
+B1_SWEEP_PM = (1, 2, 4, 8, 16, 32)
+NARROW_MAX_C = 16
+
+
+def b1_crossover(payload, row_ptr, bcols, n, dev) -> list:
+    """The narrow body (code 3) against the wide one (code 0) on the same
+    tiles at every width of B1_SWEEP_PM, through the C entry point, in
+    turns (wide, narrow, narrow, wide; CUDA events, 10 calls a sample).
+    Each body is first held to the plain version: the narrow one bit for
+    bit where the plain version sums in f64 too. A narrow code refused
+    by the library (a build without the narrow body) is recorded as
+    None. Returns one row a width."""
+    import torch
+    from matrel_tpu_torch.ops import pallas_spmm, tile_body
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    tile_rows = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=dev), counts)
+    rows = []
+    for pm in B1_SWEEP_PM:
+        gen = torch.Generator(device=dev).manual_seed(40 + pm)
+        d = torch.rand((n, pm), generator=gen, device=dev)
+        want = pallas_spmm.spmm_blocksparse_plain(payload, tile_rows, bcols,
+                                                  d, n)
+        outs = {b: torch.empty((n, pm), device=dev)
+                for b in ("f32", "f32_narrow")}
+        launch = {b: b1_launcher(payload, row_ptr, bcols, d, o)
+                  for b, o in outs.items()}
+        bodies = ["f32"]
+        if pm <= NARROW_MAX_C:
+            rc = launch["f32_narrow"](tile_body.CODES["f32_narrow"],
+                                      check=False)
+            if rc == 0:
+                bodies.append("f32_narrow")
+            elif rc != 1:                  # 1: cudaErrorInvalidValue
+                raise AssertionError(f"narrow body at pm={pm}: error {rc}")
+        launch["f32"](tile_body.CODES["f32"])
+        torch.cuda.synchronize()
+        errs = {}
+        for b in bodies:
+            errs[b] = check_close(f"B1 {b} body, PageRank tiles, pm={pm}",
+                                  outs[b], want, "float32")
+        if ("f32_narrow" in bodies and tile_body.f32_body(pm) == "f32_narrow"
+                and not torch.equal(outs["f32_narrow"], want)):
+            raise AssertionError(f"narrow body at pm={pm}: not bit-equal to "
+                                 f"the plain version")
+        order = ["f32", "f32_narrow", "f32_narrow", "f32"]
+        turns = {b: [] for b in bodies}
+        for b in order:
+            if b in bodies:
+                code = tile_body.CODES[b]
+                turns[b].append(time_ms(lambda: launch[b](code), warmup=3,
+                                        runs=10, batch=10))
+        row = {"pm": pm, "wide_ms": min(turns["f32"]),
+               "narrow_ms": (min(turns["f32_narrow"])
+                             if "f32_narrow" in turns else None),
+               "turns": turns, "max_abs_err": errs}
+        log(f"B1 f32 crossover, PageRank tiles, pm={pm}: wide "
+            f"{row['wide_ms']:.4f} ms, narrow {row['narrow_ms']} ms "
+            f"(turns {turns}); max_abs_err vs plain {errs}")
+        rows.append(row)
+        del d, want, outs, launch
+    wins = [r["pm"] for r in rows
+            if r["narrow_ms"] is not None and r["narrow_ms"] < r["wide_ms"]]
+    log(f"B1 f32 crossover: the narrow body wins at pm {wins}; measured W = "
+        f"{max(wins) if wins else None}, the rule's W = "
+        f"{tile_body.F32_NARROW_MAX}")
+    return rows
+
+
+def spgemm_f32_digests(mesh) -> dict:
+    """sha256 (16 hex digits) of every f32 output of spgemm_cases through
+    every kernel id: two builds of the shared f32 body compared run
+    against run."""
+    import hashlib
+    out = {}
+    for name, A0, B0, _ in spgemm_cases(mesh):
+        A, B = as_dtype(A0, "float32"), as_dtype(B0, "float32")
+        for kid in PALLAS_IDS:
+            run, a_m, b_m, _ = spgemm_runner(A, B, kid)
+            got = run(a_m, b_m).contiguous().cpu().numpy()
+            out[f"{name} {kid}"] = hashlib.sha256(got.tobytes()).hexdigest()[
+                :16]
+    return out
+
+
+def b1_f32_only() -> int:
+    """``python3 chip_smoke.py --b1-f32``: only B1's f32 measurements —
+    the crossover sweep on block-sparse PageRank's tiles, the wide body at
+    row 4's shape (no library call) — and the digests of B4–B7's f32
+    outputs; one JSON line. Run from two checkouts in one call, it
+    compares two builds of the f32 bodies on one card."""
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.ops import pallas_spgemm, pallas_spmm
+    from matrel_tpu_torch.utils import cuda_build
+    card = device_line()
+    cuda_build.build([cuda_build.CSRC_DIR / m.SOURCE
+                      for m in (pallas_spmm, pallas_spgemm)])
+    sess = MatrelSession()
+    S = community_graph(sess)
+    St = S.transpose()
+    _, payload, row_ptr, bcols = pallas_spmm.csr_payload(St)
+    sweep = b1_crossover(payload, row_ptr, bcols, S.shape[0], sess.device)
+    del S, St, payload
+    torch.cuda.empty_cache()
+    row4 = row4_f32_timing(sess, with_library=False)
+    digests = spgemm_f32_digests(sess.mesh)
+    print(card)
+    print(json.dumps({"checkout": HERE, "sweep": sweep, "row4_f32": row4,
+                      "spgemm_f32_sha256": digests}))
+    return 0
 
 
 def csr_form(S):
@@ -2068,6 +2313,7 @@ def path_core_surface(sess, queries: dict) -> dict:
     S, D = (c.attrs["matrix"] for c in batch[0].children)
     batch.append(S.multiply(D))                # the duplicate root
     pallas_spmm.LAUNCHES = pc.LAUNCHES_SPMV = 0
+    bodies0 = dict(pallas_spmm.BODY_LAUNCHES)
     multi0 = multi_plans(sess)
     t0 = time.perf_counter()
     outs = sess.run_many(batch)
@@ -2075,6 +2321,8 @@ def path_core_surface(sess, queries: dict) -> dict:
     first_s = time.perf_counter() - t0
     launches = {"spmm_blocksparse": pallas_spmm.LAUNCHES,
                 "spmv_compact": pc.LAUNCHES_SPMV}
+    bodies = {b: v - bodies0[b] for b, v in
+              pallas_spmm.BODY_LAUNCHES.items() if v != bodies0[b]}
     if multi_plans(sess) != multi0 + 1:
         raise AssertionError(f"run_many: {multi_plans(sess) - multi0} "
                              f"MultiPlan compiles, want 1")
@@ -2119,7 +2367,7 @@ def path_core_surface(sess, queries: dict) -> dict:
         f"{first_s:.3f} s, warm {ms:.4f} ms a batch, reordered batch a "
         f"cache hit, each result bit-equal to its own compute(); vec "
         f"(1000 x 300) equal to numpy, rank1 rel err {rel:.3e} vs float64")
-    return launches
+    return dict(launches, spmm_bodies=bodies)
 
 
 def dp_timing(dev) -> dict:
@@ -3500,10 +3748,13 @@ def community_graph(sess):
 
 def coo_pagerank_block_sparse(sess, meter) -> dict:
     """pagerank_block_sparse on the community adjacency: B1 launches (the
-    degree vector and one a round), ms a round (CUDA events, 30 rounds
-    less 0), the result against float64; then B1 at this shape (f32
-    tiles, one dense column) against its plain version, its time, bound
-    and torch.sparse.mm on the same Sᵀ as the library yardstick."""
+    degree vector and one a round, all through the narrow f32 body), ms
+    a round (CUDA events, 30 rounds less 0), the result against float64;
+    then B1 at this shape (f32 tiles, one dense column) bit-equal to its
+    plain version, its time (held under twice its byte bound), bound,
+    torch.sparse.mm on the same Sᵀ in CSR (the library yardstick) and in
+    BSR over the same tiles, and the crossover sweep of the two f32
+    bodies (b1_crossover)."""
     import numpy as np
     import torch
     from matrel_tpu_torch.ops import pallas_spmm
@@ -3511,14 +3762,16 @@ def coo_pagerank_block_sparse(sess, meter) -> dict:
     n, bs, dev = COO_BS_N, COO_BS, sess.device
     S = community_graph(sess)
     before = pallas_spmm.LAUNCHES
-    f32_before = pallas_spmm.BODY_LAUNCHES["f32"]
+    bodies_before = dict(pallas_spmm.BODY_LAUNCHES)
     r, first_s = synced(lambda: pr.pagerank_block_sparse(
         S, rounds=ROW5_ROUNDS))
     launches = pallas_spmm.LAUNCHES - before
-    if launches != ROW5_ROUNDS + 1 or \
-            pallas_spmm.BODY_LAUNCHES["f32"] - f32_before != launches:
+    bodies = {b: v - bodies_before[b] for b, v in
+              pallas_spmm.BODY_LAUNCHES.items() if v != bodies_before[b]}
+    if launches != ROW5_ROUNDS + 1 or bodies != {"f32_narrow": launches}:
         raise AssertionError(f"block-sparse PageRank launched B1 {launches} "
-                             f"times (want {ROW5_ROUNDS + 1}, f32 body)")
+                             f"times, bodies {bodies} (want "
+                             f"{ROW5_ROUNDS + 1}, all f32_narrow)")
     t30 = time_ms(lambda: pr.pagerank_block_sparse(S, rounds=ROW5_ROUNDS),
                   warmup=1, runs=5)
     t0 = time_ms(lambda: pr.pagerank_block_sparse(S, rounds=0), warmup=1,
@@ -3554,27 +3807,45 @@ def coo_pagerank_block_sparse(sess, meter) -> dict:
         plain = lambda: pallas_spmm.spmm_blocksparse_plain(
             payload, tile_rows, bcols, d, n)
         got = run()
+        want = plain()
         err = check_close("B1 f32 m=1 (block-sparse PageRank's Sᵀ·w) vs "
-                          "plain", got, plain(), "float32")
+                          "plain", got, want, "float32")
+        if not torch.equal(got, want):
+            raise AssertionError("B1 f32 m=1: the narrow body is not "
+                                 "bit-equal to its plain version")
         ms = time_ms(run, warmup=3, runs=20, batch=10)
         plain_ms = time_ms(plain, warmup=1, runs=5)
         bound = spmm_bound(St, 1, n, "float32")
         lib_ms = library_time("torch.sparse.mm f32 CSR k=1 (Sᵀ of the "
                               "community graph)",
                               lambda: torch.sparse.mm(csr, d), got)
-        del St, payload, got, csr
+        # torch's block-sparse (BSR) product over the same dense tiles:
+        # the fair yardstick for a kernel that reads every tile
+        bsr = torch.sparse_bsr_tensor(row_ptr, bcols, payload, size=(n, n))
+        bsr_ms = library_time("torch.sparse.mm f32 BSR 512² tiles k=1 (Sᵀ "
+                              "of the community graph)",
+                              lambda: torch.sparse.mm(bsr, d), got)
+        if ms > bound[0] * 2:
+            raise AssertionError(f"B1 f32 m=1: {ms:.4f} ms, past twice its "
+                                 f"byte bound {bound[0]:.4f} ms")
+        sweep = b1_crossover(payload, row_ptr, bcols, n, dev)
+        del St, payload, got, want, csr, bsr
     log(f"path coo plane, block-sparse pagerank: n={n}, bs={bs}, "
         f"{S.nnzb} f32 tiles ({S.nnzb * bs * bs * 4 / 2**20:.0f} MiB), "
-        f"{launches} B1 launches (f32 body, one column); {round_ms:.4f} ms "
+        f"{launches} B1 launches ({bodies}, one column); {round_ms:.4f} ms "
         f"a round (CUDA events; the call with 0 rounds {t0:.4f} ms); first "
         f"call {first_s:.3f} s; max err / max|ref| {rel:.3e} vs float64. B1 "
-        f"at this shape: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound[0]:.4f} ms ({bound[1]}), library {lib_ms} ms, max_abs_err "
-        f"vs plain {err:.3e}")
-    return {"launches": launches, "round_ms": round_ms, "rel_err": rel,
+        f"at this shape (f32_narrow body): {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), library "
+        f"CSR {lib_ms} ms, BSR {bsr_ms} ms, max_abs_err vs plain {err:.3e}")
+    return {"launches": launches, "bodies": bodies, "round_ms": round_ms,
+            "rel_err": rel,
             "b1": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound[0], "bound_by": bound[1],
-                   "library_ms": lib_ms}}
+                   "library_ms": lib_ms, "bsr_ms": bsr_ms,
+                   "crossover": [{k: r[k] for k in ("pm", "narrow_ms",
+                                                    "wide_ms")}
+                                 for r in sweep]}}
 
 
 def path_coo_plane(sess) -> dict:
@@ -3875,30 +4146,40 @@ def sass_counts(lib, opcodes) -> dict:
 
 
 def build_checks(libs) -> None:
-    """What the kernels' designs promise, read from the build: no f32
-    SpGEMM instance spills (ptxas), B2/B3's library holds no
-    shared-memory atomic (SASS), and each bf16 wgmma instance holds
+    """What the kernels' designs promise, read from the build: no f32 tile
+    instance (csrc/f32_tile_simt.cuh: B4–B7's 12, B1's 4) and no instance
+    of B1's narrow row walk spills (ptxas), the narrow walk and B2/B3's
+    library hold no atomic (SASS), and each bf16 wgmma instance holds
     HGMMA and UTMALDG and no HMMA (SASS), spills nothing and has no wgmma
-    that ptxas serialised; logs the f32 instances' LDS.128 : FFMA mix."""
+    that ptxas serialised; logs the f32 instances' LDS.128 : FFMA mix and
+    the narrow walk's DFMA : LDG mix."""
     by_name = {lib.stem.split("-")[0]: lib for lib in libs}
-    spg = by_name["libspgemm_registry"]
-    f32 = {fn: v for fn, v in ptxas_functions(
-        spg.with_suffix(".log").read_text()).items()
-        if "spgemm_f32_kernel" in fn}
-    if len(f32) != 12:
-        raise AssertionError(f"ptxas reported {len(f32)} f32 SpGEMM "
-                             f"instances, want 12 (3 pair lists x 2 "
-                             f"sub-tiles x 2 load paths)")
-    spills = {fn: v for fn, v in f32.items() if v[2] or v[3]}
-    if spills:
-        raise AssertionError(f"f32 SpGEMM instances spill: {spills}")
-    mix = sass_counts(spg, ("FFMA", "LDS", "LDS.128", "LDGSTS", "BAR"))
-    for fn, (regs, stack, _, _) in sorted(f32.items()):
-        c = mix.get(fn, {})
-        log(f"  f32 SpGEMM {fn[:60]}: {regs} registers, {stack} B stack, 0 "
-            f"spills; SASS FFMA {c.get('FFMA')}, LDS {c.get('LDS')} (LDS.128 "
-            f"{c.get('LDS.128')}), LDGSTS {c.get('LDGSTS')}, BAR "
-            f"{c.get('BAR')}")
+    for lib_name, kernel, want in (
+            ("libspgemm_registry", "f32_tile_kernel", 12),
+            ("libspmm_blocksparse", "f32_tile_kernel", 4),
+            ("libspmm_blocksparse", "spmm_narrow_kernel", 10)):
+        lib = by_name[lib_name]
+        props = {fn: v for fn, v in ptxas_functions(
+            lib.with_suffix(".log").read_text()).items() if kernel in fn}
+        if len(props) != want:
+            raise AssertionError(f"ptxas reported {len(props)} {kernel} "
+                                 f"instances in {lib_name}, want {want}")
+        spills = {fn: v for fn, v in props.items() if v[2] or v[3]}
+        if spills:
+            raise AssertionError(f"{lib_name}: {kernel} instances spill: "
+                                 f"{spills}")
+        ops = ("FFMA", "LDS", "LDS.128", "LDGSTS", "BAR", "DFMA", "LDG",
+               "F2F", "SHFL", "ATOM", "ATOMG", "ATOMS", "RED")
+        mix = sass_counts(lib, ops)
+        for fn, (regs, stack, _, _) in sorted(props.items()):
+            c = mix.get(fn, {})
+            atomics = {o: c.get(o) for o in ("ATOM", "ATOMG", "ATOMS", "RED")
+                       if c.get(o)}
+            if kernel == "spmm_narrow_kernel" and atomics:
+                raise AssertionError(f"{lib_name} {fn}: atomics {atomics}")
+            log(f"  {kernel} {lib_name[3:]} {fn[-60:]}: {regs} registers, "
+                f"{stack} B stack, 0 spills; SASS " + ", ".join(
+                    f"{o} {c.get(o)}" for o in ops if c.get(o)))
     atoms = {fn: c["ATOMS"] for fn, c in sass_counts(
         by_name["libspmv_compact"], ("ATOMS", "ATOM", "RED")).items()
         if c["ATOMS"]}
@@ -3956,6 +4237,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     if sys.argv[1:] == ["--library-yardstick"]:
         return library_yardstick()
+    if sys.argv[1:] == ["--b1-f32"]:
+        return b1_f32_only()
     from matrel_tpu_torch import MatrelSession
     from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
                                       pallas_spmv, spmv_routed)
@@ -4010,11 +4293,13 @@ def main() -> int:
     S, D = row4_inputs(sess)
     row = row4_timing(S, D, library)
     torch.cuda.empty_cache()
+    row4_f32 = row4_f32_timing(sess)
 
     pallas_spmm.LAUNCHES = 0          # the row-4 path starts here
     pallas_spmm.BODY_LAUNCHES.update(dict.fromkeys(
         pallas_spmm.BODY_LAUNCHES, 0))
     launches, q4 = path_row4(sess, S, D)
+    b1_bodies = {b: v for b, v in pallas_spmm.BODY_LAUNCHES.items() if v}
     queries.update(q4)
     queries.update(path_row2(sess))
     queries.update(path_row1(sess))
@@ -4044,12 +4329,16 @@ def main() -> int:
             b47[name]["max_abs_err"], err))
 
     l_coo = coo["launches"]
+    for part in (l_batch["spmm_bodies"], coo["bsp"]["bodies"]):
+        for b, v in part.items():
+            b1_bodies[b] = b1_bodies.get(b, 0) + v
     kernels = [
         dict(kernel_entry("spmm_blocksparse", pallas_spmm.SOURCE,
                           "matrel_tpu/ops/pallas_spmm.py:31",
                           launches + l_batch["spmm_blocksparse"]
                           + l_coo["spmm_blocksparse"], row),
-             f32_one_column=coo["b1_f32_m1"]),
+             launches_by_body=b1_bodies, f32_one_column=coo["b1_f32_m1"],
+             f32_row4=row4_f32),
         kernel_entry("spmv_compact", pallas_spmv.SOURCE,
                      "matrel_tpu/ops/pallas_spmv.py:50",
                      launches_pr + l_spmv + l_batch["spmv_compact"]
@@ -4066,6 +4355,9 @@ def main() -> int:
                      "matrel_tpu/ops/spmv_routed.py:232", l_routed + l_cg,
                      b8[3]),
         also_replaces="matrel_tpu/ops/spmv_routed.py:261"))
+    if sum(b1_bodies.values()) != kernels[0]["launches"]:
+        raise AssertionError(f"B1 launches by body {b1_bodies} do not add "
+                             f"up to its {kernels[0]['launches']} launches")
     missing = [k["name"] for k in kernels if k["launches"] < 1]
     if missing:
         raise AssertionError(f"no launch on a path for {missing}")

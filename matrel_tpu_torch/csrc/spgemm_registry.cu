@@ -55,14 +55,10 @@
 // pairs (989 TFLOP/s) lie near the line: the random 1% bf16 pair at
 // n = 100,352 needs ~0.77 GB (0.23 ms) and 191 GFLOP (0.19 ms).
 //
-// f32 design (B4-B7 share it). Exact f32 rules out the tensor cores, so
-// f32 pairs are bound by FMA issue on the CUDA cores. A thread holds
-// 8 x 8 outputs as 2 x 2 groups of 4 x 4 (4 LDS.128 feed 64 FFMA); a
-// 128 x 128 sub-tile re-reads each A and B tile once per sub-tile row or
-// column (4 times at bs = 512), from L2; and a two-stage ring overlaps
-// the next k-chunk's copies with the current chunk's FMAs, across pair
-// boundaries (spgemm_f32_kernel). cuBLAS's own f32 FFMA GEMM reaches
-// ~53 TFLOP/s of the 67 on this card (PERF.md).
+// f32 design (B4-B7 share it with B1's wide launches): the
+// register-blocked SIMT body of f32_tile_simt.cuh — 8 x 8 outputs a
+// thread, a 128 x 128 sub-tile for bs >= 128, a two-stage cp.async ring
+// flattened over the slot's pairs — over B's tiles (TileOperands).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -70,15 +66,12 @@
 #include <stdint.h>
 
 #include "bf16_tile_wgmma.cuh"
+#include "f32_tile_simt.cuh"
 
 namespace {
 
-using tile_wgmma::next_live;
-
 constexpr int BM = 64;          // bf16: output sub-tile rows per CTA
 constexpr int BN = 64;          // bf16: output sub-tile columns per CTA
-constexpr int F_BK = 16;        // k-chunk of the f32 kernel
-constexpr int F_THREADS = 256;  // f32: 16 x 16 threads
 constexpr int H_BK = 32;        // k-chunk of the bf16 kernel
 constexpr int H_THREADS = 128;  // 4 warps, 32 x 32 outputs each
 
@@ -177,237 +170,6 @@ struct Band {  // B6
   }
   __device__ int64_t out_slot(int s) const { return s; }
 };
-
-// -- f32 body: a register-blocked SIMT product with a two-stage ring --
-
-// 16-byte copy global -> shared that bypasses the registers (and L1);
-// src_bytes = 0 writes 16 zero bytes and reads nothing.
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
-                                           int src_bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-
-// The same for one float (rows that are not 16-byte aligned).
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
-                                          int src_bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// As column of (k, row): rows XOR-swizzled by k / 4, so that the
-// transposed store of A (a warp writes 8 rows x 4 k-quads) hits 32
-// distinct banks, while each aligned group of 4 rows stays contiguous
-// for the float4 reads.
-__device__ __forceinline__ int swz(int k, int row) {
-  return row ^ (((k >> 2) & 3) << 3);
-}
-
-// f32 payloads: full-f32 FMA on the CUDA cores (never TF32). The CTA owns
-// a TILE x TILE output sub-tile (TILE = 128 for bs >= 128, else 64) and
-// 256 threads in a 16 x 16 grid; thread (ty, tx) owns G x G groups of
-// 4 x 4 outputs (G = TILE / 64): rows g * 64 + ty * 4 + i, columns
-// h * 64 + tx * 4 + j, so every shared-memory read is a conflict-free
-// float4 (four LDS.128 feed 64 FFMA at TILE = 128).
-//
-// The k loop runs over (pair, k-chunk) steps flattened across the slot's
-// pairs, so the next pair's first chunk is in flight while the current
-// pair's last chunk computes. Shared memory is a ring of two k-chunks of
-// F_BK: while step i computes from one stage, step i + 1's chunks are
-// copied by cp.async (16 bytes a copy where VEC, 4 elsewhere, zero-filled
-// out of bounds): B into the other stage, A row-major into a staging
-// chunk, from which each thread stores the 16 bytes it copied into the
-// other stage transposed (k-major, swizzled) once its copies have landed.
-// cp.async cannot transpose; staging A in shared memory rather than in
-// registers lets the 128 x 128 instance fit 128 registers, 2 CTAs an SM
-// (measured 3-10% faster than A through registers at 1 CTA an SM). One
-// __syncthreads a step. Each output's FMA chain runs over the slot's
-// pairs in table order, then k ascending. VEC: bs % 4 == 0 and A, B and
-// out 16-byte aligned (without it the 128 x 128 instance needs more
-// registers and runs 1 CTA an SM).
-template <class Pairs, int TILE, bool VEC>
-__global__ void __launch_bounds__(F_THREADS, TILE == 128 ? (VEC ? 2 : 1) : 3)
-spgemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                  float* __restrict__ out, Pairs P, int bs, int nsub) {
-  constexpr int G = TILE / 64;
-  constexpr int M = 4 * G;                         // outputs a thread, a side
-  constexpr int NQ = TILE * F_BK / 4 / F_THREADS;  // float4s a thread a chunk
-  constexpr int BQ = TILE / 4;                     // float4s in a B row
-  __shared__ __align__(16) float As[2][F_BK][TILE];  // k-major, swizzled
-  __shared__ __align__(16) float Bs[2][F_BK][TILE];
-  __shared__ __align__(16) float Ast[TILE][F_BK];    // A chunk, row-major
-  const int tid = threadIdx.x;
-  const int per_slot = nsub * nsub;
-  const int s = (int)(blockIdx.x / per_slot);
-  const int sub = (int)(blockIdx.x % per_slot);
-  const int r0 = (sub / nsub) * TILE, c0 = (sub % nsub) * TILE;
-  const int t_end = P.end(s);
-  const int64_t tile = (int64_t)bs * bs;
-  const int ty = tid / 16, tx = tid % 16;
-  const int a_row = tid / 4, a_k = (tid % 4) * 4;  // + q * 64 rows
-
-  float acc[M][M];
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) acc[i][j] = 0.0f;
-
-  // A rows r0 + a_row + q * 64, columns k0 + a_k .. + 3, into Ast
-  auto load_a = [&](const float* at, int k0) {
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int r = r0 + a_row + q * 64, k = k0 + a_k;
-      const float* src = at + (int64_t)r * bs + k;
-      float* dst = &Ast[a_row + q * 64][a_k];
-      if constexpr (VEC) {
-        const bool ok = r < bs && k < bs;
-        cp_async16(dst, ok ? src : at, ok ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bool ok = r < bs && k + i < bs;
-          cp_async4(dst + i, ok ? src + i : at, ok ? 4 : 0);
-        }
-      }
-    }
-  };
-  // this thread's Ast segments into stage st: As[st][k][swz(k, row)]
-  auto store_a = [&](int st) {
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int r = a_row + q * 64;
-      const float4 v = *reinterpret_cast<const float4*>(&Ast[r][a_k]);
-      As[st][a_k + 0][swz(a_k, r)] = v.x;
-      As[st][a_k + 1][swz(a_k, r)] = v.y;
-      As[st][a_k + 2][swz(a_k, r)] = v.z;
-      As[st][a_k + 3][swz(a_k, r)] = v.w;
-    }
-  };
-  // B rows k0 .. k0 + F_BK, columns c0 .. c0 + TILE, into stage st
-  auto load_b = [&](const float* bt, int k0, int st) {
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int idx = tid + q * F_THREADS;
-      const int row = idx / BQ, col = (idx % BQ) * 4;
-      const int k = k0 + row, c = c0 + col;
-      const float* src = bt + (int64_t)k * bs + c;
-      float* dst = &Bs[st][row][col];
-      if constexpr (VEC) {
-        const bool ok = k < bs && c < bs;
-        cp_async16(dst, ok ? src : bt, ok ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bool ok = k < bs && c + i < bs;
-          cp_async4(dst + i, ok ? src + i : bt, ok ? 4 : 0);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-  int t = P.begin(s), k0 = 0;
-  int64_t ia = 0, ib = 0;
-  bool live = next_live(P, s, t, t_end, ia, ib);
-  if (live) {
-    load_a(A + ia * tile, 0);
-    load_b(B + ib * tile, 0, 0);
-    cp_async_wait_all();
-    store_a(0);
-    __syncthreads();
-    int st = 0;
-    while (true) {
-      // the next step: the next k-chunk, or the next live pair's first
-      k0 += F_BK;
-      if (k0 >= bs) {
-        k0 = 0;
-        ++t;
-        live = next_live(P, s, t, t_end, ia, ib);  // uniform for the CTA
-      }
-      if (live) {
-        load_a(A + ia * tile, k0);
-        load_b(B + ib * tile, k0, st ^ 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < F_BK; ++kk) {
-        float a[M], b[M];
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              &As[st][kk][g * 64 + swz(kk, ty * 4)]);
-          a[4 * g] = v.x; a[4 * g + 1] = v.y;
-          a[4 * g + 2] = v.z; a[4 * g + 3] = v.w;
-        }
-#pragma unroll
-        for (int h = 0; h < G; ++h) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              &Bs[st][kk][h * 64 + tx * 4]);
-          b[4 * h] = v.x; b[4 * h + 1] = v.y;
-          b[4 * h + 2] = v.z; b[4 * h + 3] = v.w;
-        }
-#pragma unroll
-        for (int i = 0; i < M; ++i)
-#pragma unroll
-          for (int j = 0; j < M; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      if (!live) break;
-      cp_async_wait_all();
-      store_a(st ^ 1);
-      __syncthreads();
-      st ^= 1;
-    }
-  }
-
-  float* o = out + P.out_slot(s) * tile;
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + g * 64 + ty * 4 + i;
-      if (r >= bs) continue;
-#pragma unroll
-      for (int h = 0; h < G; ++h) {
-        const int c = c0 + h * 64 + tx * 4;
-        float* dst = o + (int64_t)r * bs + c;
-        if constexpr (VEC) {
-          if (c < bs)
-            *reinterpret_cast<float4*>(dst) = make_float4(
-                acc[4 * g + i][4 * h], acc[4 * g + i][4 * h + 1],
-                acc[4 * g + i][4 * h + 2], acc[4 * g + i][4 * h + 3]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (c + j < bs) dst[j] = acc[4 * g + i][4 * h + j];
-        }
-      }
-    }
-}
-
-template <class Pairs, int TILE>
-cudaError_t launch_f32(const float* A, const float* B, float* out,
-                       const Pairs& P, long long n_slots, int bs, bool vec,
-                       cudaStream_t st) {
-  const long long nsub = (bs + TILE - 1) / TILE;
-  const long long gx = n_slots * nsub * nsub;
-  if (gx > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  if (vec)
-    spgemm_f32_kernel<Pairs, TILE, true><<<(unsigned)gx, F_THREADS, 0, st>>>(
-        A, B, out, P, bs, (int)nsub);
-  else
-    spgemm_f32_kernel<Pairs, TILE, false><<<(unsigned)gx, F_THREADS, 0, st>>>(
-        A, B, out, P, bs, (int)nsub);
-  return cudaGetLastError();
-}
 
 // bf16 payloads of the shapes the wgmma body does not take: WMMA
 // 16x16x16 bf16 -> f32 on the tensor cores. Four warps in a 2 x 2
@@ -541,9 +303,8 @@ int launch(const void* A, const void* B, void* out, const Pairs& P,
     float* o = static_cast<float*>(out);
     const bool vec = a_vec && b_vec && bs % 4 == 0 &&
                      reinterpret_cast<uintptr_t>(o) % 16 == 0;
-    return (int)(bs >= 128
-                     ? launch_f32<Pairs, 128>(a, b, o, P, n_slots, bs, vec, s)
-                     : launch_f32<Pairs, 64>(a, b, o, P, n_slots, bs, vec, s));
+    return (int)tile_f32::launch(a, b, o, P, tile_f32::TileOperands{},
+                                 n_slots, bs, bs, vec, s);
   }
   if (dtype == 2) return launch_wgmma(A, B, out, P, n_slots, n_a, n_b, bs, s);
   const long long nsub = (bs + BM - 1) / BM;

@@ -3,13 +3,16 @@
 
 The hot op of BASELINE row 4. On a CUDA tensor the wrapper
 :func:`spmm_blocksparse` launches the hand-written Hopper kernel in
-``csrc/spmm_blocksparse.cu`` (built at first use, loaded with ctypes;
-bf16 payloads through the tile body :mod:`tile_body` chooses by shape,
-the ``wgmma`` body of ``csrc/bf16_tile_wgmma.cuh`` or the WMMA one);
-on a CPU tensor it runs the plain PyTorch version
+``csrc/spmm_blocksparse.cu`` (built at first use, loaded with ctypes)
+through the tile body :mod:`tile_body` chooses by shape: for bf16 the
+``wgmma`` body of ``csrc/bf16_tile_wgmma.cuh`` or the WMMA one; for f32
+the row walk of the .cu file (``"f32_narrow"``, a dense operand of at
+most ``tile_body.F32_NARROW_MAX`` columns, as block-sparse PageRank's
+one) or the SIMT tile body of ``csrc/f32_tile_simt.cuh`` that B4–B7
+share. On a CPU tensor it runs the plain PyTorch version
 :func:`spmm_blocksparse_plain` beside it — the same function, gather →
-batched f32 matmul → ``index_add_``. There is no fallback from one to
-the other: a CUDA tensor launches the kernel or raises.
+batched matmul → ``index_add_``. There is no fallback from one to the
+other: a CUDA tensor launches the kernel or raises.
 
 The kernel walks each block row's tiles through a CSR ``row_ptr``
 built once per matrix on the host and memoised on the matrix
@@ -38,7 +41,8 @@ SOURCE = "spmm_blocksparse.cu"
 _DTYPES = (torch.float32, torch.bfloat16)
 
 #: Tiles per step of the plain version: bounds its f32 temporaries to
-#: about 3 x 64 MiB at bs = pm = 512.
+#: about 3 x 64 MiB at bs = pm = 512 (its f64 tiles, at narrow pm, to
+#: 128 MiB).
 _PLAIN_CHUNK_ELEMS = 1 << 24
 
 
@@ -62,9 +66,16 @@ def spmm_blocksparse_plain(blocks: torch.Tensor, block_rows: torch.Tensor,
                            block_cols: torch.Tensor, d: torch.Tensor,
                            out_rows: int) -> torch.Tensor:
     """Plain PyTorch Y = S·D: gather the dense row blocks each tile
-    reads, one batched matmul in f32 (TF32 off), ``index_add_`` into the
-    output row blocks, cast to the payload dtype. Rows of ``d`` past its
-    end read as zero; rows of Y past the tile grid are zero."""
+    reads, one batched matmul (TF32 off), ``index_add_`` into the output
+    row blocks, cast to the payload dtype. Rows of ``d`` past its end
+    read as zero; rows of Y past the tile grid are zero.
+
+    It sums as the kernel's body does: in f32, but for f32 payloads
+    whose D the narrow body takes (``tile_body.f32_body``), which sum in
+    f64 — every f32 × f32 product is exact there — and round once, so
+    the kernel and this version agree bit for bit, and both sit closer
+    to a float64 oracle than the JAX package's f32 sum (the CPU tests
+    hold them to it at its own f32 tolerance)."""
     from matrel_tpu_torch.parallel.strategies import _highest_precision
     nnzb, bs, _ = blocks.shape
     pm = d.shape[1]
@@ -73,13 +84,16 @@ def spmm_blocksparse_plain(blocks: torch.Tensor, block_rows: torch.Tensor,
     if d.shape[0] < want:
         d = torch.nn.functional.pad(d, (0, 0, 0, want - d.shape[0]))
     dblocks = d[:want].reshape(-1, bs, pm)
-    acc = torch.zeros((gr_out, bs, pm), dtype=torch.float32,
+    narrow = (blocks.dtype == torch.float32
+              and tile_body.f32_body(pm) == "f32_narrow")
+    acc_dtype = torch.float64 if narrow else torch.float32
+    acc = torch.zeros((gr_out, bs, pm), dtype=acc_dtype,
                       device=blocks.device)
     _highest_precision()
     step = max(1, _PLAIN_CHUNK_ELEMS // (bs * max(bs, pm)))
     for s in range(0, nnzb, step):
-        tiles = blocks[s:s + step].float()
-        gathered = dblocks[block_cols[s:s + step].long()].float()
+        tiles = blocks[s:s + step].to(acc_dtype)
+        gathered = dblocks[block_cols[s:s + step].long()].to(acc_dtype)
         acc.index_add_(0, block_rows[s:s + step].long(),
                        torch.bmm(tiles, gathered))
     return acc.reshape(gr_out * bs, pm)[:out_rows].to(blocks.dtype)
@@ -112,8 +126,11 @@ def _check(blocks, row_ptr, bcols, d, out_rows) -> None:
 
 
 def body(blocks: torch.Tensor, d: torch.Tensor, out: torch.Tensor) -> str:
-    """The tile body a launch over these operands runs
-    (:func:`tile_body.body_of`; the output's columns are D's)."""
+    """The tile body a launch over these operands runs: for f32 payloads
+    :func:`tile_body.f32_body` by D's width, else
+    :func:`tile_body.body_of` (the output's columns are D's)."""
+    if blocks.dtype == torch.float32:
+        return tile_body.f32_body(d.shape[1])
     return tile_body.body_of(blocks.dtype, blocks.shape[1], d.shape[1],
                              blocks, d, out)
 

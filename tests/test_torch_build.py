@@ -34,6 +34,19 @@ def test_sources_and_shared_header_present():
     assert "template <bool SPLIT_X>" in header.read_text()
 
 
+def test_tile_body_headers_shared_by_b1_and_b4_to_b7():
+    """B1 and B4–B7 share one f32 tile body and one bf16 one: both headers
+    sit in csrc/ and both kernel sources include both."""
+    assert {"bf16_tile_wgmma.cuh", "f32_tile_simt.cuh"} <= {
+        p.name for p in CSRC.glob("*.cuh")}
+    for name in ("spmm_blocksparse.cu", "spgemm_registry.cu"):
+        text = (CSRC / name).read_text()
+        assert '#include "bf16_tile_wgmma.cuh"' in text, name
+        assert '#include "f32_tile_simt.cuh"' in text, name
+    assert "f32_tile_kernel" in (CSRC / "f32_tile_simt.cuh").read_text()
+    assert "spmm_f32_kernel" not in (CSRC / "spmm_blocksparse.cu").read_text()
+
+
 @pytest.mark.parametrize("source", SOURCES)
 def test_header_edit_renames_library(csrc_copy, source):
     src = csrc_copy / source

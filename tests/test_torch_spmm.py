@@ -64,7 +64,7 @@ def both(a, d, bs, jm, tm, dtype=np.float32):
 
 
 @pytest.mark.parametrize("bs,n,k,m", [(4, 18, 14, 5), (8, 40, 24, 16),
-                                      (16, 64, 48, 20)])
+                                      (16, 64, 48, 20), (8, 40, 24, 1)])
 def test_f32_matches_jax_interpret(jmesh, tmesh, bs, n, k, m):
     rng = np.random.default_rng(bs)
     a = block_sparse_np(rng, n, k, bs, 0.4)
@@ -213,7 +213,10 @@ def test_spmm_body_of_operands(bs, pm, aligned, want, dtype):
     d = torch.zeros((bs, pm), dtype=dtype)
     out = torch.zeros((bs, pm), dtype=dtype)
     got = pallas_spmm.body(blocks, d, out)
-    assert got == (want if dtype == torch.bfloat16 else "f32")
+    assert got == (want if dtype == torch.bfloat16
+                   else tile_body.f32_body(pm))
+    if dtype == torch.float32:
+        assert got == "f32"                     # every pm here is wide
 
 
 def test_spmm_misaligned_or_empty_operand_takes_wmma():
@@ -238,3 +241,85 @@ def test_cpu_route_counts_no_body_launch(tmesh):
     before = dict(pallas_spmm.BODY_LAUNCHES)
     pallas_spmm.spmm_blocksparse(payload, row_ptr, bcols, d, 128)
     assert pallas_spmm.BODY_LAUNCHES == before
+
+
+# -- the f32 bodies: the narrow row walk up to F32_NARROW_MAX columns ----------
+
+W = tile_body.F32_NARROW_MAX
+
+#: (pm, body): one column (block-sparse PageRank), the widest narrow D
+#: and the first wide one.
+F32_BODY_CASES = [(1, "f32_narrow"), (W, "f32_narrow"), (W + 1, "f32")]
+
+
+def test_f32_narrow_max_within_the_kernel():
+    """The C side takes the narrow body up to 16 columns."""
+    assert 1 <= W <= 16
+    assert tile_body.CODES["f32_narrow"] == 3
+    assert len(set(tile_body.CODES.values())) == len(tile_body.CODES)
+
+
+@pytest.mark.parametrize("pm,want", F32_BODY_CASES)
+def test_f32_body_by_width(pm, want):
+    assert tile_body.f32_body(pm) == want
+
+
+@pytest.mark.parametrize("pm,want", F32_BODY_CASES)
+@pytest.mark.parametrize("bs", [4, 24, 512])
+def test_spmm_f32_body_of_operands(bs, pm, want):
+    """B1's f32 launches follow the width rule whatever the block size
+    or alignment; the S×S kernels, which have no narrow body, never take
+    it, even for tiles as narrow as D."""
+    from matrel_tpu_torch.ops import pallas_spgemm
+    blocks = torch.zeros((1, bs, bs))
+    flat = torch.zeros(bs * pm + 1)
+    for d in (flat[:-1].view(bs, pm), flat[1:].view(bs, pm)):
+        assert pallas_spmm.body(blocks, d, torch.zeros((bs, pm))) == want
+    assert pallas_spgemm.body(blocks, blocks, blocks) == "f32"
+
+
+def spmm_cpu(a, d, bs, tmesh, out_rows):
+    """The kernel wrapper on CPU tensors (its plain version) over the
+    block-sparse form of ``a``."""
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    S = BlockSparseMatrix.from_numpy(a, block_size=bs, mesh=tmesh)
+    _, payload, row_ptr, bcols = pallas_spmm.csr_payload(S)
+    return pallas_spmm.spmm_blocksparse(payload, row_ptr, bcols,
+                                        torch.as_tensor(d), out_rows)
+
+
+@pytest.mark.parametrize("bs,n,k,pm", [(6, 45, 29, 1), (4, 37, 22, 3),
+                                       (24, 100, 70, W), (5, 31, 17, 2)])
+def test_narrow_plain_within_one_ulp_of_f64(tmesh, bs, n, k, pm):
+    """At pm <= F32_NARROW_MAX the plain version (and so the narrow body
+    it is held bit-equal to on the card) sums in f64 and rounds once:
+    within one f32 ulp of the float64 product rounded to f32, on ragged
+    block sizes, empty block rows, output rows past the tile grid and a
+    D shorter than it."""
+    rng = np.random.default_rng(bs * 100 + pm)
+    gr = -(-n // bs)
+    a = block_sparse_np(rng, n, k, bs, 0.5, empty_rows=(1, gr - 2))
+    d = rng.standard_normal((k, pm)).astype(np.float32)
+    out_rows = n + 2 * bs + 3                   # rows past the tile grid
+    got = spmm_cpu(a, d, bs, tmesh, out_rows).numpy()
+    assert got.dtype == np.float32 and got.shape == (out_rows, pm)
+    want = np.zeros((out_rows, pm), np.float64)
+    want[:n] = a.astype(np.float64) @ d.astype(np.float64)
+    want32 = want.astype(np.float32)
+    ulp = np.spacing(np.abs(want32))
+    assert (np.abs(got.astype(np.float64) - want32) <= ulp).all()
+    assert not got[n:].any()
+    assert not got[bs:2 * bs].any() and not got[(gr - 2) * bs:(gr - 1) * bs].any()
+
+
+def test_wide_plain_still_sums_in_f32(tmesh):
+    """Past F32_NARROW_MAX the plain version keeps its f32 sum: one f32
+    matmul of the same operands, bit for bit."""
+    rng = np.random.default_rng(12)
+    bs, pm = 8, W + 1
+    a = block_sparse_np(rng, 16, 8, bs, 1.0)
+    d = rng.standard_normal((8, pm)).astype(np.float32)
+    got = spmm_cpu(a, d, bs, tmesh, 16)
+    want = torch.bmm(torch.as_tensor(a).view(2, 8, 8),
+                     torch.as_tensor(d).expand(2, 8, pm)).reshape(16, pm)
+    assert torch.equal(got, want)
