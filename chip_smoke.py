@@ -87,7 +87,13 @@
    the cached COO A, row 2's chain and a duplicate (one MultiPlan, a
    cache hit on the reordered batch, each result bit-equal to its own
    compute(), B1 and B2 launched from inside the batch), one vec and one
-   rank1 query against numpy; then the north-star 65k chain
+   rank1 query against numpy, session.zeros and eye at 16,384 (eye·A
+   bit-equal to A), row 4's S rebuilt by BlockMatrix.from_block_fn (its
+   tile occupancy) and by BlockSparseMatrix.from_scipy (its entries),
+   each holding its tiles, and rows 1 and 2 planned on the virtual
+   (2, 4) grid under reshard_peak_budget_bytes > 0 (strategies, staged
+   moves and root re-lays printed, results bit-equal to budget 0); then
+   the north-star 65k chain
    (workloads/big_chain.py): both schedules at n = 8192 against a
    float64 oracle, streaming_chain_slab at bench_all.py's sizes (n =
    65,536, tile 8192, panel 16,384, bf16 cheap_gen seeds 1, 2, 3, "fro";
@@ -146,6 +152,26 @@
    (over the expanded budget: no winner, no row); no matmul strategy
    measured on the 1 x 1 card. Each of the two paths holds its own
    peak-memory bound (NEW_PEAK_LIMIT_GIB).
+8. path_fusion (whole-plan fusion, under its own bound
+   FUSION_PEAK_LIMIT_GIB): (a) bench.py's two fusion chains at full
+   width — the PageRank step over a 16,384² f32 A and the linreg
+   epilogue over X of 1,000,000 x 1000 f32 — through
+   compile_staged_units (fusion off) and compile_region_units (fusion
+   on): dispatch counts, outputs bit-equal and within 8·u·√K of
+   float64, warm ms of both (CUDA events, in turns); (e) the
+   autotune fuse| family on both chains (ms per variant and the winner;
+   a "staged" winner leaves no stamp), run here and not in
+   path_autotune so that path's bound stays; (b) the PageRank step with
+   row 5's COOMatrix as Âᵀ through compute(), fusion on and off (the
+   region anchored on A·(w∘r) with the w∘r prologue, B2 launched inside
+   it, results bit-equal, within 1e-5 of float64 scipy); (c) the four
+   S×S queries of path_spgemm at n = 32,768 under ((A·B)·0.5)^2 (the
+   epilogue tile-wise over B5–B7's tile stacks, over the dense output
+   for B4's generic class, the kernel launched inside the region,
+   results bit-equal to fusion off); (d) row 4's S·D·0.5 through B1's
+   wgmma body, its epilogue in spmm.apply's slot, bit-equal to fusion
+   off. Warm compute() latency of both forms of (b)-(d), in turns
+   (fused, unfused, unfused, fused; CUDA events, medians of 10).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -2262,33 +2288,60 @@ def path_latency(sess, queries: dict) -> None:
     events around the whole call, median of 10 (host planning and
     launch gaps included); then where the device time of each goes,
     from torch.profiler over 5 warm calls."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     for name, e in queries.items():
         ms = time_ms(lambda: sess.compute(e), warmup=2, runs=10)
         log(f"latency {name}: {ms:.4f} ms per warm compute()")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                sess.compute(e)
+        device_split(lambda: sess.compute(e))
+
+
+#: how long device_split's discarded warm-up step runs its function
+PROFILER_WARMUP_S = 0.3
+
+
+def device_split(fn, calls: int = 5, top: int = 5) -> float:
+    """Device ms per call of ``fn`` from torch.profiler over ``calls``
+    warm calls, logged with its ``top`` kernels (ms a call and launches
+    a call); returns the total. A warm-up step of calls for at least
+    ``PROFILER_WARMUP_S`` comes first and is discarded: the trace starts
+    some time after the profiler does, and a shorter warm-up lost the
+    first calls' kernels of a sub-ms query. Each call is synchronised
+    inside its step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls,
+                                   repeat=1)) as prof:
+        t_end = time.perf_counter() + PROFILER_WARMUP_S
+        while True:
+            fn()
             torch.cuda.synchronize()
-        rows = []
-        for ev in prof.key_averages():
-            # device-side events only: a CPU op such as aten::mm also
-            # carries the time of the kernels it launched
-            if "CUDA" not in str(getattr(ev, "device_type", "")):
-                continue
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-            if dev_us > 0:
-                rows.append((dev_us / 5 / 1e3, ev.key))
-        rows.sort(reverse=True)
-        total = sum(r[0] for r in rows)
-        log(f"  device time per call {total:.4f} ms"
-            + ("" if rows else " (the profiler saw no device time)"))
-        for t, key in rows[:5]:
-            log(f"    {t:.4f} ms  {key[:90]}")
+            if time.perf_counter() >= t_end:
+                break
+        prof.step()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    rows = []
+    for ev in prof.key_averages():
+        # device-side events only: a CPU op such as aten::mm also
+        # carries the time of the kernels it launched, and the step
+        # annotation that of its whole step
+        if ("CUDA" not in str(getattr(ev, "device_type", ""))
+                or ev.key.startswith("ProfilerStep")):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / calls / 1e3, ev.count / calls, ev.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    log(f"  device time per call {total:.4f} ms"
+        + ("" if rows else " (the profiler saw no device time)"))
+    for t, n, key in rows[:top]:
+        log(f"    {t:.4f} ms  x{n:g}  {key[:90]}")
+    return total
 
 
 # -- the rest of the core surface: run_many, vec, rank1 ---------------------
@@ -2296,6 +2349,110 @@ def path_latency(sess, queries: dict) -> None:
 
 def multi_plans(sess) -> int:
     return sum(1 for k in sess._plan_cache if k.startswith("multi:"))
+
+
+#: the reshard budget rows 1 and 2 are planned under on the virtual (2, 4)
+#: grid in path_core_surface (any budget > 0 compiles the staged plans)
+CORE_RESHARD_BUDGET = 64 << 20
+CORE_EYE_N = 16384
+
+
+def core_leftovers(sess, S) -> dict:
+    """session.zeros and eye at 16,384 (eye·A bit-equal to A), and row
+    4's S rebuilt twice — BlockMatrix.from_block_fn over its tile grid
+    (the occupancy) and BlockSparseMatrix.from_scipy of its entries —
+    each holding S's tiles."""
+    import numpy as np
+    import scipy.sparse as sps
+    import torch
+    from matrel_tpu_torch.core.blockmatrix import BlockMatrix
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    dev, n = sess.device, CORE_EYE_N
+    Z, I = sess.zeros((n, n)), sess.eye(n)
+    if (bool(Z.data.any()) or I.nnz != n or float(I.data.sum()) != n
+            or not bool((torch.diagonal(I.data) == 1).all())):
+        raise AssertionError("zeros/eye: wrong entries")
+    A = sess.random((n, n), seed=33)
+    Y, eye_s = synced(lambda: sess.compute(I.multiply(A)))
+    if not torch.equal(Y.data, A.data):
+        raise AssertionError("eye·A differs from A")
+    del Z, I, A, Y
+    gr, gc = S.grid
+    rows, cols = S.host_tiles()
+    occ = torch.zeros((gr, gc), dtype=torch.bool, device=dev)
+    occ[S.block_rows.long(), S.block_cols.long()] = True
+    M = BlockMatrix.from_block_fn((gr, gc),
+                                  lambda r, c: occ[r.long(), c.long()],
+                                  mesh=sess.mesh)
+    nz = torch.nonzero(M.data).cpu().numpy()
+    if not (np.array_equal(nz[:, 0], rows) and np.array_equal(nz[:, 1], cols)):
+        raise AssertionError("from_block_fn: the occupancy differs from S's "
+                             "tiles")
+    bs = S.block_size
+    vals = S.blocks.float().cpu().numpy()
+    ii = np.arange(bs, dtype=np.int64)
+    r_idx = np.broadcast_to(rows[:, None, None] * bs + ii[None, :, None],
+                            vals.shape)
+    c_idx = np.broadcast_to(cols[:, None, None] * bs + ii[None, None, :],
+                            vals.shape)
+    sp = sps.coo_matrix((vals.ravel(), (r_idx.ravel(), c_idx.ravel())),
+                        shape=S.shape)
+    del vals, r_idx, c_idx
+    T, scipy_s = synced(lambda: BlockSparseMatrix.from_scipy(
+        sp, block_size=bs, mesh=sess.mesh, dtype="bfloat16"))
+    t_rows, t_cols = T.host_tiles()
+    if not (np.array_equal(t_rows, rows) and np.array_equal(t_cols, cols)
+            and torch.equal(T.blocks, S.blocks)):
+        raise AssertionError("from_scipy: tiles differ from S's")
+    log(f"path core surface: zeros/eye {n}², eye·A bit-equal to A "
+        f"({eye_s:.3f} s); row 4's S ({S.nnzb} tiles of {bs}²): "
+        f"from_block_fn over its {gr} x {gc} tile grid holds its tiles, "
+        f"from_scipy of its {sp.nnz} entries holds its tiles bit for bit "
+        f"({scipy_s:.2f} s host bucketing)")
+    return {"eye_s": eye_s, "from_scipy_s": scipy_s}
+
+
+def reshard_rows(dev) -> dict:
+    """Rows 1 and 2 planned on the virtual (2, 4) grid with
+    reshard_peak_budget_bytes > 0: strategies and staged-move records
+    printed, the root re-lay plans printed, results bit-equal to the
+    same grid at budget 0 (on one card every staged step is a local
+    copy)."""
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession, executor
+    from matrel_tpu_torch.core.mesh import make_mesh
+    from matrel_tpu_torch.parallel import reshard
+    from matrel_tpu_torch.workloads import chain_bench
+    mesh = make_mesh((2, 4), device=dev)
+    cfg = MatrelConfig(reshard_peak_budget_bytes=CORE_RESHARD_BUDGET)
+    s0 = MatrelSession(mesh=mesh)
+    sb = MatrelSession(mesh=mesh, config=cfg)
+    X, Y = s0.random((4096, 4096), seed=4), s0.random((4096, 4096), seed=5)
+    mats = chain_bench.skewed_abc(mesh, n=10_000, mid=100, seed=3)
+    out, moves = {}, 0
+    for name, e in (("row 1", X.multiply(Y)),
+                    ("row 2", chain_bench.build_chain(mats))):
+        plan = sb.compile(e)
+        recs = executor.plan_matmul_decisions(plan)
+        relay = reshard.root_relay_plan(plan.optimized, mesh, cfg)
+        y0, yb = s0.compute(e), sb.compute(e)
+        if not torch.equal(y0.data, yb.data):
+            raise AssertionError(f"reshard {name}: budgeted result differs "
+                                 f"from budget 0")
+        moves += sum(len(r["reshard"]["moves"]) for r in recs
+                     if "reshard" in r) + (relay is not None)
+        out[name] = {"strategies": [r["strategy"] for r in recs],
+                     "reshard": [r.get("reshard") for r in recs],
+                     "root_relay": relay.to_dict() if relay else None}
+        log(f"path core surface, {name} on the (2, 4) grid under a "
+            f"{CORE_RESHARD_BUDGET >> 20} MiB reshard budget: strategies "
+            f"{out[name]['strategies']}, staged moves "
+            f"{json.dumps(out[name]['reshard'])}, root re-lay "
+            f"{json.dumps(out[name]['root_relay'])}; result bit-equal to "
+            f"budget 0")
+    if moves < 1:
+        raise AssertionError("reshard rows: no staged move was planned")
+    return out
 
 
 def path_core_surface(sess, queries: dict) -> dict:
@@ -2367,6 +2524,8 @@ def path_core_surface(sess, queries: dict) -> dict:
         f"{first_s:.3f} s, warm {ms:.4f} ms a batch, reordered batch a "
         f"cache hit, each result bit-equal to its own compute(); vec "
         f"(1000 x 300) equal to numpy, rank1 rel err {rel:.3e} vs float64")
+    core_leftovers(sess, S)
+    reshard_rows(sess.device)
     return dict(launches, spmm_bodies=bodies)
 
 
@@ -4098,6 +4257,373 @@ def path_autotune(sess, row5_plan) -> dict:
 
 
 
+# -- whole-plan fusion: path_fusion -------------------------------------------
+
+#: bench.py's two fusion chains at full width: the PageRank step over a
+#: 16,384² f32 A (1 GiB, as path_coo_plane's dense adjacency) and the
+#: linreg epilogue over X of 1,000,000 x 1000 f32 (row 3's fit rows)
+FUSION_PR_N = 16384
+FUSION_LR_ROWS, FUSION_LR_K = 1_000_000, 1000
+#: path_fusion's own peak device memory, held under 1.25 × its peak on an
+#: H100 (PERF.md section 5)
+FUSION_PEAK_LIMIT_GIB = {"fusion": 1.25 * 16.988}
+
+
+def in_turns(fa, fb) -> tuple:
+    """(ms of fa, ms of fb), each the mean of two time_ms medians taken
+    in the order a, b, b, a (warm, CUDA events, 10 calls a median)."""
+    a1 = time_ms(fa, warmup=2, runs=10)
+    b1 = time_ms(fb, warmup=2, runs=10)
+    b2 = time_ms(fb, warmup=2, runs=10)
+    a2 = time_ms(fa, warmup=2, runs=10)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def fusion_sessions(sess):
+    """(a fresh session with ``sess``'s config, the same with
+    fusion_enable) on its card."""
+    from matrel_tpu_torch import MatrelSession
+    return (MatrelSession(config=sess.config, device=sess.device),
+            MatrelSession(config=sess.config.replace(fusion_enable=True),
+                          device=sess.device))
+
+
+def fused_region_of(fsess, e):
+    """(stamp, members, anchor) of the one fused region of e's plan in
+    the fusion session; raises unless there is exactly one, anchored on
+    a matmul."""
+    from matrel_tpu_torch.ir import fusion as fusion_lib
+    stamps = fusion_lib.collect_stamps(fsess.compile(e).optimized)
+    if len(stamps) != 1:
+        raise AssertionError(f"fusion: {len(stamps)} stamped regions, "
+                             f"want 1")
+    s = stamps[0]
+    members = fusion_lib.region_nodes(s)
+    anchor = members.get(s.attrs["fused_anchor"])
+    if anchor is None or anchor.kind != "matmul":
+        raise AssertionError(f"fusion: region {s.attrs['fused_region']} "
+                             f"has no matmul anchor")
+    return s, members, anchor
+
+
+def fusion_chains(sess) -> dict:
+    """bench.py's measure_fusion chains at full width, leaves made on the
+    card from a seed: {name: (expr, float64 reference, K of its
+    product)}."""
+    import torch
+    dev, n = sess.device, FUSION_PR_N
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    a, r, w = rand(n, n), rand(n, 1), rand(n, 1)
+    d = (rand(n, 1) < 0.05).float()
+    A, R, W, D = (dense_leaf(sess, t) for t in (a, r, w, d))
+    contrib = A.expr().t().multiply(W.expr().elem_multiply(R.expr()))
+    dmass = D.expr().elem_multiply(R.expr()).sum().multiply_scalar(1.0 / n)
+    pr = contrib.add(dmass).multiply_scalar(0.85).add_scalar(0.15 / n)
+    pr_ref = 0.85 * (a.double().T @ (w.double() * r.double())
+                     + float((d.double() * r.double()).sum()) / n) \
+        + 0.15 / n
+    rows, k = FUSION_LR_ROWS, FUSION_LR_K
+    x = rand(rows, k)
+    X = dense_leaf(sess, x)
+    I = dense_leaf(sess, torch.eye(k, device=dev))
+    lr = X.expr().t().multiply(X.expr()).multiply_scalar(1.0 / rows) \
+        .add(I.expr().multiply_scalar(0.1)) \
+        .row_sum().multiply_scalar(1.0 / k)
+    g = torch.zeros((k, k), dtype=torch.float64, device=dev)
+    for i in range(0, rows, 100_000):
+        xc = x[i:i + 100_000].double()
+        g += xc.T @ xc
+    lr_ref = (g / rows + 0.1 * torch.eye(k, dtype=torch.float64,
+                                         device=dev)).sum(1, keepdim=True) / k
+    del g
+    return {"pagerank_step": (pr, pr_ref, n),
+            "linreg_epilogue": (lr, lr_ref, rows)}
+
+
+def fusion_units(chains) -> dict:
+    """(a): each chain through compile_staged_units (fusion off) and
+    compile_region_units (fusion on): dispatch counts, outputs bit-equal
+    and against float64, warm ms of both (CUDA events, median of 10)."""
+    import torch
+    from matrel_tpu_torch import executor
+    from matrel_tpu_torch.config import default_config
+    off = default_config()
+    on = off.replace(fusion_enable=True)
+    out = {}
+    for name, (e, ref, k) in chains.items():
+        staged = executor.compile_staged_units(e, None, off)
+        fused = executor.compile_region_units(e, None, on)
+        regions = sum(1 for u in fused.units if u[3] > 1)
+        if regions != 1 or fused.dispatches >= staged.dispatches:
+            raise AssertionError(f"fusion {name}: {regions} regions, "
+                                 f"{fused.dispatches} fused vs "
+                                 f"{staged.dispatches} staged dispatches")
+        ys, first_s = synced(staged.run)
+        yf, first_f = synced(fused.run)
+        if not torch.equal(ys, yf):
+            raise AssertionError(f"fusion {name}: region units differ from "
+                                 f"staged units")
+        err = rel_err(f"fusion {name} vs float64", yf, ref,
+                      PROD_C * U32 * math.sqrt(k))
+        del ys, yf
+        ms_f, ms_s = in_turns(fused.run, staged.run)
+        out[name] = {"staged_ms": ms_s, "fused_ms": ms_f,
+                     "staged_dispatches": staged.dispatches,
+                     "fused_dispatches": fused.dispatches,
+                     "max_abs_err": err}
+        log(f"path fusion (a) {name}: staged units {staged.dispatches} "
+            f"dispatches {ms_s:.4f} ms, region units {fused.dispatches} "
+            f"dispatches {ms_f:.4f} ms (warm, in turns; first runs "
+            f"{first_s:.3f} / {first_f:.3f} s); outputs "
+            f"bit-equal, max abs err {err:.3e} vs float64")
+    return out
+
+
+def fusion_autotune(sess, chains) -> dict:
+    """(e): the autotune fuse| family on both chains of (a), its table in
+    a temporary file under build/: ms per variant and the winner; the
+    compile with autotune on stamps exactly when the winner is not
+    "staged", and a persisted "staged" row suppresses the stamp."""
+    import shutil
+    import tempfile
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.ir import fusion as fusion_lib, rules
+    from matrel_tpu_torch.parallel import autotune as at, planner
+    os.makedirs(SCRATCH, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=SCRATCH)
+    path = os.path.join(tmp, "autotune.json")
+    cfg = MatrelConfig(fusion_enable=True, autotune=True,
+                       autotune_table_path=path,
+                       autotune_max_dim=FUSION_LR_ROWS)
+    mesh = sess.mesh
+    out = {}
+    at.clear_caches()
+    try:
+        for name, (e, _ref, _k) in chains.items():
+            opt = planner.annotate_strategies(
+                rules.optimize(e, cfg, grid=mesh.grid, mesh=mesh), mesh, cfg)
+            (region,) = fusion_lib.segment(opt, cfg, mesh=mesh)
+            best = at.lookup_or_measure_fusion(region, opt, mesh, cfg)
+            table = at.load_table(path)
+            key = [k for k in table if k.startswith(f"fuse|{region.sig}|")]
+            if len(key) != 1 or set(table[key[0]]["times"]) != set(
+                    at.FUSION_VARIANTS):
+                raise AssertionError(f"fuse| {name}: table rows {key}")
+            times = table[key[0]]["times"]
+            asess = MatrelSession(config=cfg, device=sess.device)
+            stamped = len(fusion_lib.collect_stamps(
+                asess.compile(e).optimized))
+            if stamped != (0 if best == "staged" else 1):
+                raise AssertionError(f"fuse| {name}: winner {best}, "
+                                     f"{stamped} stamps")
+            at._persist(path, key[0], "staged", times)
+            at.clear_caches()
+            forced = fusion_lib.collect_stamps(MatrelSession(
+                config=cfg, device=sess.device).compile(e).optimized)
+            if forced:
+                raise AssertionError(f"fuse| {name}: a staged row left "
+                                     f"{len(forced)} stamps")
+            out[name] = {"key": key[0], "times_ms": {
+                v: t * 1e3 for v, t in times.items()}, "winner": best}
+            log(f"path fusion (e) {key[0]}: fused "
+                f"{times['fused'] * 1e3:.4f} ms, staged "
+                f"{times['staged'] * 1e3:.4f} ms (probes, CUDA events, "
+                f"median of 5), winner {best}; {stamped} stamp with "
+                f"autotune on, none once the row says staged")
+    finally:
+        at.clear_caches()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def fusion_coo_step(sess, fsess) -> dict:
+    """(b): the PageRank step with Âᵀ as row 5's COOMatrix through
+    compute, fusion on and off: the stamped region (anchor on the COO
+    leaf, the w∘r prologue, the epilogue), B2 launched inside it,
+    results bit-equal, against float64 scipy, warm latency of both."""
+    import numpy as np
+    import scipy.sparse as sps
+    import torch
+    from matrel_tpu_torch.ops import pallas_spmv as pc
+    src, dst, A = row5_matrix()
+    n, dev = ROW5_N, sess.device
+    gen = torch.Generator(device=dev).manual_seed(32)
+    r = torch.rand((n, 1), generator=gen, device=dev)
+    r /= r.sum()
+    w = torch.rand((n, 1), generator=gen, device=dev)
+    d = (torch.rand((n, 1), generator=gen, device=dev) < 0.05).float()
+    R, W, D = (dense_leaf(sess, t) for t in (r, w, d))
+    dmass = D.expr().elem_multiply(R.expr()).sum().multiply_scalar(1.0 / n)
+    e = A.multiply(W.expr().elem_multiply(R.expr())).add(dmass) \
+        .multiply_scalar(0.85).add_scalar(0.15 / n)
+    s, members, anchor = fused_region_of(fsess, e)
+    pro = anchor.children[1]
+    census = s.attrs["fused_census"]
+    if (anchor.children[0].kind != "coo_leaf" or pro.uid not in members
+            or pro.kind != "elemwise" or not {"scalar.mul", "scalar.add",
+                                              "elemwise.add"} <= set(census)):
+        raise AssertionError(f"fusion (b): region {s.attrs['fused_region']}"
+                             f" anchor {[c.kind for c in anchor.children]}")
+    pc.LAUNCHES_SPMV = 0
+    yf = fsess.compute(e)
+    torch.cuda.synchronize()
+    l_fused = pc.LAUNCHES_SPMV
+    ys = sess.compute(e)
+    torch.cuda.synchronize()
+    launches = pc.LAUNCHES_SPMV
+    if l_fused < 1:
+        raise AssertionError("fusion (b): B2 was not launched inside the "
+                             "fused region")
+    if not torch.equal(yf.data, ys.data):
+        raise AssertionError("fusion (b): fused and unfused steps differ")
+    a64 = sps.csr_matrix((A.vals.astype(np.float64), (A.rows, A.cols)),
+                         shape=(n, n))
+    r64, w64, d64 = (t.double().cpu().numpy() for t in (r, w, d))
+    ref = 0.85 * (a64 @ (w64 * r64) + float((d64 * r64).sum()) / n) \
+        + 0.15 / n
+    err = rel_err("fusion (b) vs float64", yf.data,
+                  torch.as_tensor(ref, device=dev), SPMV_ORACLE_TOL[3])
+    del yf, ys, a64
+    ms_f, ms_s = in_turns(lambda: fsess.compute(e), lambda: sess.compute(e))
+    log(f"path fusion (b) COO PageRank step ({n} nodes, {A.nnz} edges): "
+        f"region "
+        f"{s.attrs['fused_region']} anchored on A·(w∘r), {l_fused} B2 "
+        f"launches inside it ({launches} with the unfused twin), results "
+        f"bit-equal, max abs err {err:.3e} vs float64; warm compute() "
+        f"{ms_f:.4f} ms fused, {ms_s:.4f} ms unfused (in turns)")
+    return {"launches": launches, "fused_ms": ms_f, "unfused_ms": ms_s,
+            "region": s.attrs["fused_region"]}
+
+
+def fusion_spgemm(sess, fsess) -> dict:
+    """(c): path_spgemm's four S×S queries at n = 32,768 under the
+    zero-preserving chain ((A·B)·0.5)^2, fusion on and off: the epilogue
+    mode (tilewise on B5-B7's classes, dense on the generic one), the
+    kernel launched inside the region, results bit-equal, warm latency
+    of both."""
+    import torch
+    from matrel_tpu_torch.ir import fusion as fusion_lib
+    from matrel_tpu_torch.ops import kernel_registry as kr
+    launches = dict.fromkeys(SPGEMM_REPLACES, 0)
+    rows = {}
+    for name, kid, A, B, dtype_name in spgemm_pairs_at(
+            sess.mesh, SPGEMM_CMP_N, random_seeds=(2, 3)):
+        e = A.multiply(B).multiply_scalar(0.5).power(2.0)
+        s, members, anchor = fused_region_of(fsess, e)
+        ew = fusion_lib.epilogue_elementwise_chain(s, members, anchor.uid)
+        mode = kr.epilogue_mode(kr.pair_class_of(A, B), ew)
+        want = "dense" if name == "spgemm_pairs" else "tilewise"
+        if anchor.attrs.get("spgemm_kernel") != kid or mode != want:
+            raise AssertionError(f"fusion (c) {name}: kernel "
+                                 f"{anchor.attrs.get('spgemm_kernel')}, "
+                                 f"mode {mode} (want {kid}, {want})")
+        zero_spgemm_launches()
+        yf = fsess.compute(e)
+        torch.cuda.synchronize()
+        l_fused = spgemm_launches()[name]
+        ys = sess.compute(e)
+        torch.cuda.synchronize()
+        got = spgemm_launches()
+        if l_fused < 1:
+            raise AssertionError(f"fusion (c) {name}: not launched inside "
+                                 f"the region")
+        for k, v in got.items():
+            launches[k] += v
+        n = A.shape[0]
+        if (yf.shape != (n, n) or not torch.equal(yf.data, ys.data)
+                or not bool(torch.isfinite(yf.data).all())):
+            raise AssertionError(f"fusion (c) {name}: fused and unfused "
+                                 f"results differ")
+        del yf, ys
+        ms_f, ms_s = in_turns(lambda: fsess.compute(e),
+                              lambda: sess.compute(e))
+        log(f"path fusion (c) S×S {name} ({kid}, {dtype_name}, bs "
+            f"{A.block_size}) under ((A·B)·0.5)^2: epilogue {mode}, "
+            f"launches {got}, results bit-equal; warm compute() "
+            f"{ms_f:.4f} ms fused, {ms_s:.4f} ms unfused (in turns); "
+            f"device time, fused then unfused:")
+        rows[name] = {"mode": mode, "fused_ms": ms_f, "unfused_ms": ms_s,
+                      "fused_device_ms": device_split(
+                          lambda: fsess.compute(e), top=6),
+                      "unfused_device_ms": device_split(
+                          lambda: sess.compute(e), top=6)}
+        torch.cuda.empty_cache()
+    return {"launches": launches, "rows": rows}
+
+
+def fusion_spmm(sess, fsess) -> dict:
+    """(d): row 4's S·D (bf16, B1's wgmma body) under ·0.5, fusion on and
+    off: the epilogue through spmm.apply's slot, results bit-equal, warm
+    latency of both."""
+    import torch
+    from matrel_tpu_torch.ops import pallas_spmm
+    S, D = row4_inputs(sess)
+    e = S.multiply(D).multiply_scalar(0.5)
+    s, _members, _anchor = fused_region_of(fsess, e)
+    pallas_spmm.LAUNCHES = 0
+    bodies0 = dict(pallas_spmm.BODY_LAUNCHES)
+    yf = fsess.compute(e)
+    torch.cuda.synchronize()
+    l_fused = pallas_spmm.LAUNCHES
+    ys = sess.compute(e)
+    torch.cuda.synchronize()
+    launches = pallas_spmm.LAUNCHES
+    bodies = {b: v - bodies0[b] for b, v in
+              pallas_spmm.BODY_LAUNCHES.items() if v != bodies0[b]}
+    if l_fused < 1 or bodies != {"wgmma": launches}:
+        raise AssertionError(f"fusion (d): B1 {l_fused} launches inside the "
+                             f"region, bodies {bodies}")
+    if not torch.equal(yf.data, ys.data):
+        raise AssertionError("fusion (d): fused and unfused S·D·0.5 differ")
+    del yf, ys
+    ms_f, ms_s = in_turns(lambda: fsess.compute(e), lambda: sess.compute(e))
+    log(f"path fusion (d) row 4 S·D·0.5 (bf16, wgmma): region "
+        f"{s.attrs['fused_region']}, {launches} B1 launches, results "
+        f"bit-equal; warm compute() {ms_f:.4f} ms fused, {ms_s:.4f} ms "
+        f"unfused (in turns); device time, fused then unfused:")
+    device_split(lambda: fsess.compute(e))
+    device_split(lambda: sess.compute(e))
+    return {"launches": launches, "bodies": bodies, "fused_ms": ms_f,
+            "unfused_ms": ms_s}
+
+
+def path_fusion(sess) -> dict:
+    """Whole-plan fusion on the card, under the path's own peak-memory
+    bound: (a) bench.py's two chains as staged and region units, (e) the
+    autotune fuse| family on them, (b) the COO PageRank step, (c) the
+    four S×S queries under an epilogue, (d) row 4's S·D under one.
+    Launches counted from 0 in each."""
+    import torch
+    meter = PeakMeter("fusion", FUSION_PEAK_LIMIT_GIB)
+    base, fsess = fusion_sessions(sess)
+    chains = fusion_chains(sess)
+    units = fusion_units(chains)
+    peaks = {"a": meter.gib()}
+    tuned = fusion_autotune(sess, chains)
+    peaks["e"] = meter.gib()
+    del chains
+    torch.cuda.empty_cache()
+    coo = fusion_coo_step(base, fsess)
+    peaks["b"] = meter.gib()
+    torch.cuda.empty_cache()
+    sxs = fusion_spgemm(base, fsess)
+    peaks["c"] = meter.gib()
+    spmm = fusion_spmm(base, fsess)
+    peak = meter.gib()
+    log(f"path fusion: peak {peak:.3f} GiB (bound "
+        f"{FUSION_PEAK_LIMIT_GIB['fusion']:.3f}); the peak so far after "
+        + ", ".join(f"({k}) {v:.3f}" for k, v in peaks.items()) + " GiB")
+    return {"launches": dict(sxs["launches"], spmv_compact=coo["launches"],
+                             spmm_blocksparse=spmm["launches"]),
+            "spmm_bodies": spmm["bodies"], "units": units, "autotune": tuned,
+            "coo": coo, "spgemm": sxs["rows"], "spmm": spmm,
+            "peak_gib": peak}
+
+
 def ptxas_functions(log_text: str) -> dict:
     """{mangled function: (registers, stack, spill stores, spill loads)}
     from an ``nvcc -Xptxas=-v`` log."""
@@ -4324,31 +4850,37 @@ def main() -> int:
     coo = path_coo_plane(sess)        # each new path its bound
     tuned = path_autotune(sess, coo.pop("plan"))
     l_at = tuned["launches"]
+    fused = path_fusion(sess)         # its own bound
+    l_fu = fused["launches"]
     for name, err in rel["max_abs_err"].items():   # the worst of both shapes
         b47[name] = dict(b47[name], max_abs_err=max(
             b47[name]["max_abs_err"], err))
 
     l_coo = coo["launches"]
-    for part in (l_batch["spmm_bodies"], coo["bsp"]["bodies"]):
+    for part in (l_batch["spmm_bodies"], coo["bsp"]["bodies"],
+                 fused["spmm_bodies"]):
         for b, v in part.items():
             b1_bodies[b] = b1_bodies.get(b, 0) + v
     kernels = [
         dict(kernel_entry("spmm_blocksparse", pallas_spmm.SOURCE,
                           "matrel_tpu/ops/pallas_spmm.py:31",
                           launches + l_batch["spmm_blocksparse"]
-                          + l_coo["spmm_blocksparse"], row),
+                          + l_coo["spmm_blocksparse"]
+                          + l_fu["spmm_blocksparse"], row),
              launches_by_body=b1_bodies, f32_one_column=coo["b1_f32_m1"],
              f32_row4=row4_f32),
         kernel_entry("spmv_compact", pallas_spmv.SOURCE,
                      "matrel_tpu/ops/pallas_spmv.py:50",
                      launches_pr + l_spmv + l_batch["spmv_compact"]
                      + l_rel["spmv_compact"] + l_coo["spmv_compact"]
-                     + l_at["spmv_compact"], b23["spmv_compact"]),
+                     + l_at["spmv_compact"] + l_fu["spmv_compact"],
+                     b23["spmv_compact"]),
         kernel_entry("spmm_compact", pallas_spmv.SOURCE,
                      "matrel_tpu/ops/pallas_spmv.py:334",
                      l_spmm + l_at["spmm_compact"], b23["spmm_compact"]),
     ] + [kernel_entry(name, pallas_spgemm.SOURCE, SPGEMM_REPLACES[name],
-                      l_spgemm[name] + l_rel[name] + l_at[name], b47[name])
+                      l_spgemm[name] + l_rel[name] + l_at[name]
+                      + l_fu[name], b47[name])
          for name in SPGEMM_REPLACES]
     kernels.append(dict(
         kernel_entry("spmv_routed", spmv_routed.SOURCE,

@@ -13,7 +13,8 @@ silently ignored.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+import os
+from typing import Any, Mapping, Optional, Tuple
 
 
 class NotPortedError(NotImplementedError):
@@ -41,7 +42,11 @@ class MatrelConfig:
     ``join_bruteforce_max_pairs``, ``join_chunk_entries``, ``autotune``
     (measured matmul strategies, SpMV variants and SpGEMM kernels:
     ``parallel/autotune.py``), ``autotune_table_path``,
-    ``autotune_max_dim``.
+    ``autotune_max_dim``, ``fusion_enable`` (whole-plan fusion:
+    ``ir/fusion.py``) and ``reshard_peak_budget_bytes`` (staged-reshard
+    planning: ``parallel/reshard.py``; on one card every step is a local
+    copy, so it changes stamps, prices and decision records, never a
+    value).
 
     ``matmul_precision`` keeps the TPU meaning of the JAX package:
     "highest" is full IEEE f32 (TF32 off), "high" the 3-pass bf16
@@ -170,11 +175,57 @@ class MatrelConfig:
                 f"(per mesh axis), got {self.axis_cost_weights!r}")
         object.__setattr__(self, "axis_cost_weights",
                            (float(w[0]), float(w[1])))
+        # a negative budget would read as "unbounded" in every fits()
+        # check while the caller believes a cap is in force
+        if self.reshard_peak_budget_bytes < 0:
+            raise ValueError(
+                f"reshard_peak_budget_bytes must be >= 0 (0 = legacy "
+                f"single-shot reshards), "
+                f"got {self.reshard_peak_budget_bytes!r}")
         object.__setattr__(self, "precision_sla",
                            normalize_sla(self.precision_sla))
 
     def replace(self, **kw: Any) -> "MatrelConfig":
         return dataclasses.replace(self, **kw)
+
+    @staticmethod
+    def from_env(base: Optional["MatrelConfig"] = None) -> "MatrelConfig":
+        """A config from ``MATREL_*`` environment variables over ``base``
+        (the JAX package's parsing). A knob of an unported plane set
+        away from its default raises :class:`NotPortedError`, as at
+        construction."""
+        cfg = base or MatrelConfig()
+        overrides: dict = {}
+        for f in dataclasses.fields(MatrelConfig):
+            env_key = "MATREL_" + f.name.upper()
+            if env_key not in os.environ:
+                continue
+            raw = os.environ[env_key]
+            if f.type in ("int", int):
+                overrides[f.name] = int(raw)
+            elif f.type in ("float", float):
+                overrides[f.name] = float(raw)
+            elif f.type in ("bool", bool):
+                overrides[f.name] = raw.lower() in ("1", "true", "yes", "on")
+            elif f.name in ("mesh_shape", "axis_cost_weights"):
+                conv = int if f.name == "mesh_shape" else float
+                overrides[f.name] = tuple(
+                    conv(p) for p in raw.replace("x", ",").split(",") if p)
+            else:
+                overrides[f.name] = raw
+        return cfg.replace(**overrides) if overrides else cfg
+
+    @staticmethod
+    def from_dict(d: Mapping[str, Any],
+                  base: Optional["MatrelConfig"] = None) -> "MatrelConfig":
+        """``base`` with the fields of ``d`` replaced; an unknown key
+        raises KeyError, an unported knob :class:`NotPortedError`."""
+        cfg = base or MatrelConfig()
+        valid = {f.name for f in dataclasses.fields(MatrelConfig)}
+        unknown = set(d) - valid
+        if unknown:
+            raise KeyError(f"unknown MatrelConfig keys: {sorted(unknown)}")
+        return cfg.replace(**dict(d))
 
 
 _FIELD_DEFAULTS = {f.name: f.default for f in dataclasses.fields(MatrelConfig)}
@@ -182,8 +233,8 @@ _FIELD_DEFAULTS = {f.name: f.default for f in dataclasses.fields(MatrelConfig)}
 #: Knobs whose plane is not ported: Pallas interpret mode, buffer
 #: donation, hoisted payloads (the plan cache's byte bound counts them),
 #: the result cache and serving pipeline,
-#: observability, static verification, staged resharding, resilience,
-#: overload control, fusion, multi-query optimization, IVM, the fleet,
+#: observability, static verification, resilience,
+#: overload control, multi-query optimization, IVM, the fleet,
 #: lockdep, the cost-model loop and the durable spill hierarchy.
 UNPORTED_KNOBS = (
     "pallas_interpret", "donate_intermediates", "plan_cache_max_bytes",
@@ -192,7 +243,7 @@ UNPORTED_KNOBS = (
     "obs_level", "obs_event_log", "obs_metrics_port", "slo_targets",
     "slo_fast_window_s", "slo_slow_window_s", "slo_burn_threshold",
     "slo_burn_exit", "obs_flight_recorder", "obs_flight_recorder_path",
-    "drift_table_path", "verify_plans", "reshard_peak_budget_bytes",
+    "drift_table_path", "verify_plans",
     "fault_inject", "fault_inject_seed", "retry_max_attempts",
     "retry_backoff_ms", "retry_backoff_mult", "retry_jitter",
     "deadline_ms", "serve_queue_max", "serve_tenant_weights",
@@ -200,7 +251,7 @@ UNPORTED_KNOBS = (
     "brownout_dwell", "brownout_wait_high_ms", "brownout_wait_low_ms",
     "brownout_depth_high", "brownout_depth_low", "brownout_miss_high",
     "brownout_miss_low", "breaker_threshold", "breaker_cooldown_ms",
-    "breaker_half_open_probes", "fusion_enable", "cse_enable",
+    "breaker_half_open_probes", "cse_enable",
     "cse_min_uses", "cse_template_max", "delta_patch_mode",
     "delta_rank_max", "fleet_slices", "fleet_span_margin",
     "fleet_directory_max", "fleet_replicate_hits", "fleet_failover",
@@ -246,6 +297,13 @@ _default_config = MatrelConfig()
 
 def default_config() -> MatrelConfig:
     return _default_config
+
+
+def set_default_config(cfg: MatrelConfig) -> None:
+    """Replace the process-wide default config (what every call without
+    a ``config`` argument reads)."""
+    global _default_config
+    _default_config = cfg
 
 
 def pallas_enabled(config: Optional[MatrelConfig] = None) -> bool:

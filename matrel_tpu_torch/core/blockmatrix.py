@@ -9,7 +9,7 @@ precision-tier chooser uses. Padding is exactly zero.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,7 +87,31 @@ class BlockMatrix:
     def dtype(self) -> torch.dtype:
         return self.data.dtype
 
+    @property
+    def sparsity(self) -> float:
+        """Fraction of nonzeros (density). 1.0 when unknown/dense."""
+        if self.nnz is None:
+            return 1.0
+        n = self.shape[0] * self.shape[1]
+        return self.nnz / n if n else 0.0
+
+    @property
+    def is_padded(self) -> bool:
+        return self.padded_shape != self.shape
+
     # -- construction -------------------------------------------------------
+
+    @staticmethod
+    def _layout(shape, mesh, spec, dtype, config):
+        """(config, mesh, torch dtype, padded shape, spec) of a new
+        matrix: the defaults a constructor fills in."""
+        cfg = config or default_config()
+        mesh = mesh or mesh_lib.make_mesh(cfg.mesh_shape, cfg.mesh_axis_names)
+        dtype = as_torch_dtype(dtype or cfg.default_dtype)
+        ps = padding.padded_shape(tuple(shape), mesh)
+        if spec is None:
+            spec = padding.canonical_spec(ps, mesh)
+        return cfg, mesh, dtype, ps, spec
 
     @classmethod
     def from_numpy(cls, arr: np.ndarray, mesh: Optional[Mesh] = None,
@@ -148,12 +172,78 @@ class BlockMatrix:
         return cls(data=vals.to(dtype), shape=tuple(shape), mesh=mesh,
                    spec=spec, nnz=None, block_size=cfg.block_size)
 
+    @classmethod
+    def zeros(cls, shape, mesh=None, spec=None, dtype=None,
+              config=None) -> "BlockMatrix":
+        cfg, mesh, dtype, ps, spec = cls._layout(shape, mesh, spec, dtype,
+                                                 config)
+        return cls(data=torch.zeros(ps, dtype=dtype, device=mesh.device),
+                   shape=tuple(shape), mesh=mesh, spec=spec, nnz=0,
+                   block_size=cfg.block_size)
+
+    @classmethod
+    def eye(cls, n: int, mesh=None, spec=None, dtype=None,
+            config=None) -> "BlockMatrix":
+        cfg, mesh, dtype, ps, spec = cls._layout((n, n), mesh, spec, dtype,
+                                                 config)
+        data = torch.zeros(ps, dtype=dtype, device=mesh.device)
+        data[:n, :n].fill_diagonal_(1)
+        return cls(data=data, shape=(n, n), mesh=mesh, spec=spec, nnz=n,
+                   block_size=cfg.block_size)
+
+    @classmethod
+    def from_block_fn(cls, shape: Tuple[int, int],
+                      fn: Callable[[torch.Tensor, torch.Tensor],
+                                   torch.Tensor],
+                      mesh=None, spec=None, dtype=None, config=None,
+                      nnz: Optional[int] = None) -> "BlockMatrix":
+        """Entries from ``fn(row_idx, col_idx)`` on the device: ``fn``
+        gets broadcastable int64 index grids over the padded shape and
+        returns values (the padding is zeroed afterwards). The grids are
+        int32, as ``jnp.arange`` gives them, so integer arithmetic in
+        ``fn`` wraps as in the JAX package."""
+        cfg, mesh, dtype, ps, spec = cls._layout(shape, mesh, spec, dtype,
+                                                 config)
+        r = torch.arange(ps[0], dtype=torch.int32, device=mesh.device)[:, None]
+        c = torch.arange(ps[1], dtype=torch.int32, device=mesh.device)[None, :]
+        vals = torch.as_tensor(fn(r, c), device=mesh.device).to(dtype)
+        vals = torch.where((r < shape[0]) & (c < shape[1]), vals,
+                           torch.zeros((), dtype=dtype, device=mesh.device))
+        return cls(data=vals.contiguous(), shape=tuple(shape), mesh=mesh,
+                   spec=spec, nnz=nnz, block_size=cfg.block_size)
+
     # -- materialisation ----------------------------------------------------
 
     def to_numpy(self) -> np.ndarray:
         """Copy to host, dropping padding (bfloat16 comes back as
         float32)."""
         return tensor_to_numpy(self.data[: self.shape[0], : self.shape[1]])
+
+    def block_until_ready(self) -> "BlockMatrix":
+        """Wait until the device has computed ``data``."""
+        if self.data.is_cuda:
+            torch.cuda.synchronize(self.data.device)
+        return self
+
+    # -- layout metadata ----------------------------------------------------
+
+    def with_spec(self, spec: P) -> "BlockMatrix":
+        """The same matrix under another spec. On one card the tensor
+        stays whole; only the layout metadata the planner reads
+        changes."""
+        spec = P(*spec)
+        if spec == self.spec:
+            return self
+        return dataclasses.replace(self, spec=spec)
+
+    def valid_mask(self) -> torch.Tensor:
+        """Boolean mask of the logical (non-padding) region, padded shape."""
+        ps = self.padded_shape
+        r = torch.arange(ps[0], device=self.data.device)[:, None] \
+            < self.shape[0]
+        c = torch.arange(ps[1], device=self.data.device)[None, :] \
+            < self.shape[1]
+        return r & c
 
     # -- lazy DSL (builds IR; mirrors the reference's Dataset implicits) ----
 
@@ -202,6 +292,21 @@ class BlockMatrix:
 
     def trace(self):
         return self.expr().trace()
+
+    def norm(self, kind: str = "fro"):
+        return self.expr().norm(kind)
+
+    def inverse(self):
+        return self.expr().inverse()
+
+    def solve(self, b, assume: str = "general"):
+        return self.expr().solve(b, assume=assume)
+
+    def vec(self):
+        return self.expr().vec()
+
+    def rank_one_update(self, u, v):
+        return self.expr().rank_one_update(u, v)
 
     def select_value(self, predicate, **kw):
         return self.expr().select_value(predicate, **kw)

@@ -125,6 +125,19 @@ class BlockSparseMatrix:
                                     bs, mesh, dtype)
 
     @classmethod
+    def from_scipy(cls, sp, block_size: Optional[int] = None,
+                   mesh: Optional[Mesh] = None,
+                   config: Optional[MatrelConfig] = None,
+                   dtype: Any = None) -> "BlockSparseMatrix":
+        """From a scipy.sparse matrix: the element-sparse input is
+        bucketed into block-granular payloads without densifying the
+        whole matrix (only touched tiles are materialised)."""
+        coo = sp.tocoo()
+        return cls.from_coo_arrays(coo.row, coo.col, coo.data, coo.shape,
+                                   block_size=block_size, mesh=mesh,
+                                   config=config, dtype=dtype)
+
+    @classmethod
     def from_coo_arrays(cls, rows, cols, vals, shape: Tuple[int, int],
                         block_size: Optional[int] = None,
                         mesh: Optional[Mesh] = None,
@@ -229,6 +242,20 @@ class BlockSparseMatrix:
             block_size=self.block_size, mesh=self.mesh)
         St._seed_host_tiles(rows[order], cols[order])
         return St
+
+    def norm(self, kind: str = "fro") -> float:
+        """Matrix norm from the tile stack (tiles are unique by
+        construction; zeros outside kept tiles contribute nothing),
+        summed in float64 on the device."""
+        b = self.blocks.double()
+        if kind == "fro":
+            return float(torch.sqrt((b * b).sum()))
+        if kind == "l1":
+            return float(b.abs().sum())
+        if kind == "max":
+            return float(b.abs().max()) if self.nnzb else 0.0
+        raise ValueError(f"unknown norm kind {kind!r} "
+                         "(expected 'fro', 'l1', or 'max')")
 
     # -- lazy DSL -----------------------------------------------------------
 

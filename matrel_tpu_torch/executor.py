@@ -42,6 +42,22 @@ compile paths measure the SpMV executor variant of every COO plan the
 plan dispatches (``parallel/autotune.lookup_or_measure_spmv``) and the
 lowering obeys a measured "compact" or "expanded"
 (``Lowerer.spmv_choice``).
+
+Whole-plan fusion (``config.fusion_enable``, ``ir/fusion.py``): both
+compile paths stamp the fusable regions after the strategies, and a
+stamped root lowers through ``Lowerer._eval_region`` — one member
+evaluator for the region body and the epilogue, the member chain above
+the anchor matmul handed to its epilogue slot (the SpGEMM hook over
+B4–B7's tiles, ``spmm.apply``'s slot over B1's output, the finished
+output of the COO SpMV stack over B2, ``strategies.run_matmul``'s slot
+after the storage cast). ``compile_staged_units`` / ``compile_region_units``
+emit the plan as a sequence of unit programs (one Python callable over
+tensors each): one per physical op, or one per fused region.
+
+Staged reshards (``config.reshard_peak_budget_bytes`` > 0,
+``parallel/reshard.py``): the lowering compiles the ReshardPlan of
+every dense matmul operand re-lay and of every root's canonical re-lay,
+once per plan; on one card applying one is the identity.
 """
 
 from __future__ import annotations
@@ -158,6 +174,19 @@ def _index(n: int, device) -> Tensor:
     return torch.arange(n, dtype=torch.int32, device=device)
 
 
+def _region_info(root: MatExpr):
+    """(members, anchor or None, epilogue is elementwise) of a stamped
+    region root — what ``Lowerer._eval_region`` reads on every run."""
+    from matrel_tpu_torch.ir import fusion as fusion_lib
+    members = fusion_lib.region_nodes(root)
+    anchor_uid = root.attrs.get("fused_anchor")
+    anchor = members.get(anchor_uid) if anchor_uid is not None else None
+    if anchor is None or anchor.uid == root.uid:
+        return members, None, False
+    return members, anchor, fusion_lib.epilogue_elementwise_chain(
+        root, members, anchor.uid)
+
+
 def _pad_to(out: Tensor, pshape: Tuple[int, int]) -> Tensor:
     if tuple(out.shape) == tuple(pshape):
         return out
@@ -171,6 +200,17 @@ class Lowerer:
     def __init__(self, mesh: Mesh, config: MatrelConfig):
         self.mesh = mesh
         self.config = config
+        # staged-reshard bookkeeping (budget > 0 only): layout/dtype
+        # memos for the planner walks and the compiled moves, per node
+        # uid (operand moves) or root uid (the root relay), so a
+        # re-run compiles nothing
+        self._lay_memo: Dict[int, str] = {}
+        self._dt_memo: Dict[int, object] = {}
+        self.staged_moves: Dict[int, list] = {}
+        self.root_relays: Dict[int, object] = {}
+        # fused-region root uid -> (members, anchor, epilogue is
+        # elementwise): derived once per plan, not per run
+        self._regions: Dict[int, tuple] = {}
         # id(plan) -> (plan, measured SpMV executor variant "compact" |
         # "expanded"), filled at compile time by the autotune loop; empty
         # = the hand defaults decide. The entry holds the plan itself and
@@ -200,18 +240,34 @@ class Lowerer:
         tuple of padded, contiguous root values."""
         leaf_pos = {l.uid: i for i, l in enumerate(leaf_order)}
         pshapes = [padding.padded_shape(r.shape, self.mesh) for r in roots]
+        fused = self.config.fusion_enable
+        if self.config.reshard_peak_budget_bytes > 0:
+            for r in roots:
+                self._stage_root_relay(r, None)
 
         def fn(*leaf_arrays: Tensor) -> Tuple[Tensor, ...]:
             memo: Dict[int, Tensor] = {}
 
             def ev(node: MatExpr) -> Tensor:
                 if node.uid not in memo:
-                    memo[node.uid] = self._eval(node, ev, leaf_arrays,
+                    # a fused region (ir/fusion.py stamp) lowers as one
+                    # evaluation of its whole member set
+                    if fused and "fused_region" in node.attrs:
+                        out = self._eval_region(node, ev, leaf_arrays,
                                                 leaf_pos)
+                    else:
+                        out = self._eval(node, ev, leaf_arrays, leaf_pos)
+                    memo[node.uid] = out
                 return memo[node.uid]
 
+            def root_out(r: MatExpr, ps) -> Tensor:
+                out = _pad_to(ev(r), ps)
+                if r.uid in self.root_relays:
+                    out = self._stage_root_relay(r, out)
+                return out.contiguous()
+
             try:
-                return tuple(_pad_to(ev(r), ps).contiguous()
+                return tuple(root_out(r, ps)
                              for r, ps in zip(roots, pshapes))
             finally:
                 # ev refers to itself, so the memo would outlive the call
@@ -285,6 +341,63 @@ class Lowerer:
         raise NotPortedError(
             f"lowering for node kind {k!r} is not ported to "
             f"matrel_tpu_torch yet (ported: {', '.join(LOWERED_KINDS)})")
+
+    def _eval_region(self, root: MatExpr, ev, leaf_arrays,
+                     leaf_pos) -> Tensor:
+        """Lower one FUSED REGION (ir/fusion.py stamp) as one evaluation:
+        members lower through ``_eval``, region inputs (non-member
+        children) through the outer ``ev`` and its memo. The member
+        chain ABOVE the anchor matmul is composed into an epilogue
+        callable and handed to the producing kernel's epilogue slot, so
+        fused and staged lowerings run the same member code on the same
+        values (every re-mask of the zero-padding invariant runs where
+        the staged path runs it)."""
+        info = self._regions.get(root.uid)
+        if info is None:
+            info = self._regions[root.uid] = _region_info(root)
+        members, anchor, epi_ew = info
+
+        def make_lev(env: Dict[int, Tensor]):
+            """ONE member evaluator for the region body and the
+            epilogue closure, so the two never diverge."""
+
+            def lev(n: MatExpr) -> Tensor:
+                out = env.get(n.uid)
+                if out is not None:
+                    return out
+                if n.uid not in members:
+                    out = ev(n)          # region input
+                else:
+                    out = self._eval(n, lev, leaf_arrays, leaf_pos)
+                env[n.uid] = out
+                return out
+
+            return lev
+
+        # lev refers to itself, so each env is cleared on the way out:
+        # left to the garbage collector, the intermediates it holds would
+        # outlive the call (the lower_multi memo's rule)
+        env: Dict[int, Tensor] = {}
+        lev = make_lev(env)
+        try:
+            if anchor is None:
+                return lev(root)
+
+            def epilogue(x: Tensor) -> Tensor:
+                env2 = dict(env)
+                env2[anchor.uid] = x
+                try:
+                    return make_lev(env2)(root)
+                finally:
+                    env2.clear()
+
+            # the anchor's lowering consumes the epilogue: its output is
+            # the region root's value (operand prologues below the anchor
+            # lower through lev when the anchor evaluates its children)
+            return self._matmul(anchor, lev, epilogue=epilogue,
+                                epilogue_elementwise=epi_ew)
+        finally:
+            env.clear()
 
     def _pad_to_node(self, out: Tensor, node: MatExpr) -> Tensor:
         return _pad_to(out, padding.padded_shape(node.shape, self.mesh))
@@ -480,7 +593,8 @@ class Lowerer:
         m._block_sparse_memo = (bs, self.mesh, S)
         return S
 
-    def _spgemm(self, node: MatExpr) -> Tensor:
+    def _spgemm(self, node: MatExpr, epilogue=None,
+                epilogue_elementwise: bool = False) -> Tensor:
         """S×S below the density crossover: tile-intersection SpGEMM,
         scattered to the padded dense layout. The kernel comes from the
         planner's ``spgemm_kernel`` stamp; an unstamped node asks the
@@ -492,14 +606,26 @@ class Lowerer:
         kid = node.attrs.get("spgemm_kernel")
         if kid is None:
             kid, _, _ = spgemm_kernel_choice(node, self.config, self.mesh)
-        return spgemm_lib.apply_dense(SA, SB, self.config, kernel=kid)
+        return spgemm_lib.apply_dense(
+            SA, SB, self.config, kernel=kid, epilogue=epilogue,
+            epilogue_elementwise=epilogue_elementwise)
 
-    def _matmul(self, node: MatExpr, ev) -> Tensor:
+    def _matmul(self, node: MatExpr, ev, epilogue=None,
+                epilogue_elementwise: bool = False) -> Tensor:
+        """``epilogue`` is the fused-region slot (ir/fusion.py): a
+        callable applied to this matmul's padded output — the staged
+        consumer chain handed to the producing kernel. SpGEMM, SpMM and
+        the dense strategies take it through their own slots; every
+        other dispatch applies it to the branch's finished output
+        (``fin``), so fused and staged lowerings compute the same
+        values."""
+        fin = (lambda out: out) if epilogue is None else epilogue
         l, r = node.children
         # S×S below the density crossover: SpGEMM. The dispatch predicate
         # is shared with the planner (_spgemm_dispatch).
         if _spgemm_dispatch(node, self.config):
-            return self._spgemm(node)
+            return self._spgemm(node, epilogue=epilogue,
+                                epilogue_elementwise=epilogue_elementwise)
         # coo_leaf matmuls: the SpMV/SpMM kernels for narrow dense
         # operands; wide ones (or refused plans) densify. The dispatch
         # predicate is shared with the planner (_coo_dispatch_plan).
@@ -509,10 +635,10 @@ class Lowerer:
             if plan is None:
                 blk = A.to_block(self.mesh, self.config).data
                 return strategies.run_matmul("xla", blk, ev(r), self.mesh,
-                                             self.config)
+                                             self.config, epilogue=epilogue)
             out = self._coo_spmv_stack(plan, ev(r)[: A.shape[1],
                                                    : r.shape[1]])
-            return self._pad_to_node(out, node)
+            return fin(self._pad_to_node(out, node))
         if r.kind == "coo_leaf":
             # X·A = (Aᵀ·Xᵀ)ᵀ through the matrix's cached transpose plan
             S = r.attrs["matrix"]
@@ -520,14 +646,14 @@ class Lowerer:
             if plan is None:
                 blk = S.to_block(self.mesh, self.config).data
                 return strategies.run_matmul("xla", ev(l), blk, self.mesh,
-                                             self.config)
+                                             self.config, epilogue=epilogue)
             a = ev(l)[: l.shape[0], : l.shape[1]]
             out = self._coo_spmv_stack(plan, a.T).T
-            return self._pad_to_node(out, node)
+            return fin(self._pad_to_node(out, node))
         if l.kind == "sparse_leaf":
             from matrel_tpu_torch.ops import spmm as spmm_lib
             return spmm_lib.apply(l.attrs["matrix"], ev(r), r.shape,
-                                  self.config)
+                                  self.config, epilogue=epilogue)
         if r.kind == "sparse_leaf":
             # A·S = (Sᵀ·Aᵀ)ᵀ — the tile stack is transposed once and
             # memoised on the matrix
@@ -539,7 +665,7 @@ class Lowerer:
                 S._transposed_memo = st
             out = spmm_lib.apply(st, ev(l).T, (l.shape[1], l.shape[0]),
                                  self.config)
-            return out.T
+            return fin(out.T)
         gram = None
         if l.kind == "transpose" and self._same_operand(l.children[0], r):
             gram = ("AtA", r)
@@ -562,8 +688,10 @@ class Lowerer:
                 else:
                     mm = lambda p, q: strategies.run_matmul(
                         strategy, p, q.T, self.mesh, self.config)
-                return symmetric_gram(x, mm).float()
+                return fin(symmetric_gram(x, mm).float())
         a, b = ev(l), ev(r)
+        if self.config.reshard_peak_budget_bytes > 0:
+            a, b = self._stage_matmul_operands(node, a, b)
         tier = node.attrs.get("precision_tier")
         if tier is not None and tier != "f32":
             # the tier owns the output dtype (int32 / f32 accumulation);
@@ -571,16 +699,60 @@ class Lowerer:
             from matrel_tpu_torch.ops import precision as precision_lib
             mm = lambda p, q: strategies.run_matmul(
                 strategy, p, q, self.mesh, self.config)
-            return precision_lib.tiered_matmul(tier, a, b, mm)
+            return fin(precision_lib.tiered_matmul(tier, a, b, mm))
 
         def storage_epi(out: Tensor) -> Tensor:
+            # the keep_input_dtype storage cast runs before the fused
+            # epilogue, so the chain sees what the staged consumer sees
             if (self.config.keep_input_dtype and a.dtype == b.dtype
                     and out.dtype != a.dtype):
                 out = out.to(a.dtype)
-            return out
+            return fin(out)
 
         return strategies.run_matmul(strategy, a, b, self.mesh,
                                      self.config, epilogue=storage_epi)
+
+    def _stage_root_relay(self, root: MatExpr, out):
+        """A root's canonical re-lay through its compiled reshard steps
+        (budget > 0 only; ``reshard.root_relay_plan``). The plan is
+        compiled once, at lowering time (``out`` None); on one card
+        applying it returns ``out``."""
+        from matrel_tpu_torch.parallel import reshard as reshard_lib
+        if root.uid not in self.root_relays:
+            plan = reshard_lib.root_relay_plan(
+                root, self.mesh, self.config, self._lay_memo,
+                self._dt_memo)
+            if plan is None:
+                return out
+            self.root_relays[root.uid] = plan
+        if out is None:
+            return None
+        return reshard_lib.apply_staged(out, self.root_relays[root.uid],
+                                        self.mesh)
+
+    def _stage_matmul_operands(self, node: MatExpr, a: Tensor,
+                               b: Tensor) -> Tuple[Tensor, Tensor]:
+        """Apply the staged ReshardPlans of a dense matmul's operand
+        re-lays (``reshard.staged_matmul_moves``, the derivation shared
+        with ``matmul_decisions``), compiled once per node. With
+        autotune on, a measured "naive" winner for a move's shape class
+        skips its staging."""
+        from matrel_tpu_torch.parallel import reshard as reshard_lib
+        moves = self.staged_moves.get(node.uid)
+        if moves is None:
+            moves = reshard_lib.staged_matmul_moves(
+                node, self.mesh, self.config, self._lay_memo,
+                self._dt_memo)
+            self.staged_moves[node.uid] = moves
+        arrs = [a, b]
+        for i, plan in moves:
+            if self.config.autotune:
+                from matrel_tpu_torch.parallel import autotune
+                if autotune.lookup_or_measure_reshard(
+                        plan, self.mesh, self.config) == "naive":
+                    continue
+            arrs[i] = reshard_lib.apply_staged(arrs[i], plan, self.mesh)
+        return arrs[0], arrs[1]
 
     def _vec(self, node: MatExpr, ev) -> Tensor:
         """Column-major vec of the logical region, then padded rows."""
@@ -892,6 +1064,53 @@ def _lowerer(opts, mesh: Mesh, cfg: MatrelConfig) -> "Lowerer":
     return low
 
 
+def _fusion_meta(opts, cfg: MatrelConfig) -> Optional[Dict]:
+    """Plan-level fusion roll-up for ``plan.meta["fusion"]``: region
+    count, merged member census and the modelled dispatch/HBM savings
+    of every stamped boundary. None with fusion off (no extra walk)."""
+    if not cfg.fusion_enable:
+        return None
+    from matrel_tpu_torch.ir import fusion as fusion_lib
+    regions = 0
+    census: Dict[str, int] = {}
+    saved_d = 0
+    saved_b = 0.0
+    for o in opts:
+        for node in fusion_lib.collect_stamps(o):
+            regions += 1
+            for k, v in (node.attrs.get("fused_census") or {}).items():
+                census[k] = census.get(k, 0) + v
+            saved_d += int(node.attrs.get("fused_saved_dispatches") or 0)
+            saved_b += float(node.attrs.get("fused_saved_hbm_bytes")
+                             or 0.0)
+    return {"regions": regions, "census": census,
+            "est_saved_dispatches": saved_d,
+            "est_saved_hbm_bytes": saved_b}
+
+
+def _annotate(e: MatExpr, mesh: Mesh, cfg: MatrelConfig,
+              rule_hits: Optional[dict] = None,
+              fuse: bool = True) -> MatExpr:
+    """optimize → strategies → (with ``fusion_enable``) fusion stamps:
+    the planning half every compile path shares."""
+    opt = planner.annotate_strategies(
+        rules.optimize(e, cfg, grid=mesh_lib.mesh_grid_shape(mesh),
+                       mesh=mesh, counts=rule_hits), mesh, cfg)
+    if fuse and cfg.fusion_enable:
+        from matrel_tpu_torch.ir import fusion as fusion_lib
+        opt = fusion_lib.annotate_fusion(opt, mesh, cfg)
+    return opt
+
+
+def _plan_meta(opts, cfg: MatrelConfig, optimize_ms: float,
+               rule_hits: dict) -> Dict:
+    meta = {"optimize_ms": round(optimize_ms, 3), "rule_hits": rule_hits}
+    fus = _fusion_meta(opts, cfg)
+    if fus is not None:
+        meta["fusion"] = fus
+    return meta
+
+
 @dataclasses.dataclass
 class CompiledPlan:
     """A planned, lowered expression plus its leaf binding order —
@@ -992,16 +1211,14 @@ def compile_expr(expr: MatExpr, mesh: Optional[Mesh] = None,
     _check_one_mesh(expr, mesh)
     rule_hits: Dict[str, int] = {}
     t0 = time.perf_counter()
-    opt = rules.optimize(expr, cfg, grid=mesh_lib.mesh_grid_shape(mesh),
-                         mesh=mesh, counts=rule_hits)
-    opt = planner.annotate_strategies(opt, mesh, cfg)
+    opt = _annotate(expr, mesh, cfg, rule_hits)
     optimize_ms = (time.perf_counter() - t0) * 1e3
     leaf_order = expr_leaves(opt)
     fn = _lowerer((opt,), mesh, cfg).lower(opt, leaf_order)
     return CompiledPlan(fn=fn, leaf_order=leaf_order, optimized=opt,
                         mesh=mesh, config=cfg,
-                        meta={"optimize_ms": round(optimize_ms, 3),
-                              "rule_hits": rule_hits})
+                        meta=_plan_meta((opt,), cfg, optimize_ms,
+                                        rule_hits))
 
 
 def compile_exprs(exprs, mesh: Optional[Mesh] = None,
@@ -1015,19 +1232,15 @@ def compile_exprs(exprs, mesh: Optional[Mesh] = None,
                 else mesh_lib.make_mesh(cfg.mesh_shape, cfg.mesh_axis_names))
     for e in exprs:
         _check_one_mesh(e, mesh)
-    grid = mesh_lib.mesh_grid_shape(mesh)
     rule_hits: Dict[str, int] = {}
     t0 = time.perf_counter()
-    opts = tuple(planner.annotate_strategies(
-        rules.optimize(e, cfg, grid=grid, mesh=mesh, counts=rule_hits),
-        mesh, cfg) for e in exprs)
+    opts = tuple(_annotate(e, mesh, cfg, rule_hits) for e in exprs)
     optimize_ms = (time.perf_counter() - t0) * 1e3
     leaf_order = _unique_leaves(opts)
     fn = _lowerer(opts, mesh, cfg).lower_multi(opts, leaf_order)
     return MultiPlan(fn=fn, leaf_order=leaf_order, optimized=opts,
                      mesh=mesh, config=cfg,
-                     meta={"optimize_ms": round(optimize_ms, 3),
-                           "rule_hits": rule_hits})
+                     meta=_plan_meta(opts, cfg, optimize_ms, rule_hits))
 
 
 def plan_matmul_decisions(plan) -> List[dict]:
@@ -1067,3 +1280,207 @@ def _walk(e: MatExpr):
     for c in e.children:
         yield from _walk(c)
 
+
+
+# -- unit programs: the region seam (ir/fusion.py) ---------------------------
+#
+# ``compile_expr`` lowers the whole plan into one function; these
+# builders emit the plan as a SEQUENCE of unit programs instead:
+# ``compile_staged_units`` one per physical op (a dispatch and a
+# round-trip through device memory per plan edge), ``compile_region_units``
+# one per fused region. In eager PyTorch a unit is one Python callable
+# over tensors, so both forms launch the same kernels; the fused form
+# runs fewer units. The autotune ``fuse|`` loop measures one region's
+# pair through the same builders.
+
+#: Leaf kinds whose payloads stay INSIDE a unit (their lowerings read
+#: static host metadata off the node attrs).
+_UNIT_CONST_LEAVES = ("sparse_leaf", "coo_leaf")
+
+
+def _unit_fn(low: Lowerer, root: MatExpr, input_uids: Tuple[int, ...]):
+    """One unit program computing ``root`` from its unit inputs
+    (everything not in ``input_uids`` — members of the unit's region,
+    sparse-payload leaves — lowers inside, through the Lowerer's
+    per-node paths, so fused and staged units agree exactly)."""
+
+    def fn(*arrs):
+        env = dict(zip(input_uids, arrs))
+
+        def lev(n: MatExpr):
+            v = env.get(n.uid)
+            if v is not None:
+                return v
+            v = low._eval(n, lev, (), {})
+            env[n.uid] = v
+            return v
+
+        try:
+            return lev(root)
+        finally:
+            env.clear()       # lev refers to itself (the memo's rule)
+
+    return fn
+
+
+@dataclasses.dataclass
+class UnitPrograms:
+    """An expression compiled as a sequence of unit programs —
+    ``dispatches`` units per run (the count fusion shrinks). ``run()``
+    executes the units in topological order over padded tensors and
+    returns the root unit's output."""
+
+    #: (node, unit fn, input uids, member count) in execution order.
+    units: List
+    optimized: MatExpr
+    leaf_order: List[MatExpr]
+    mesh: Mesh
+    config: MatrelConfig
+
+    @property
+    def dispatches(self) -> int:
+        return len(self.units)
+
+    def run(self, bindings: Optional[Dict[int, Tensor]] = None):
+        env = {l.uid: l.attrs["matrix"].data for l in self.leaf_order}
+        if bindings:
+            env.update(bindings)
+        for node, fn, input_uids, _n in self.units:
+            env[node.uid] = fn(*(env[u] for u in input_uids))
+        return env[self.optimized.uid]
+
+
+def _build_units(opt: MatExpr, mesh: Mesh, cfg: MatrelConfig,
+                 per_region: bool) -> UnitPrograms:
+    from matrel_tpu_torch.ir import fusion as fusion_lib
+    low = Lowerer(mesh, cfg)
+    units: List = []
+    leaf_order: List[MatExpr] = []
+    seen: set = set()
+    member_of: Dict[int, int] = {}     # member uid -> region root uid
+    if per_region:
+        for stamp in fusion_lib.collect_stamps(opt):
+            for u in stamp.attrs.get("fused_members") or ():
+                member_of[u] = stamp.uid
+
+    def walk(n: MatExpr):
+        if n.uid in seen:
+            return
+        seen.add(n.uid)
+        for c in n.children:
+            walk(c)
+        if n.kind == "leaf":
+            leaf_order.append(n)
+            return
+        if n.kind in _UNIT_CONST_LEAVES:
+            return                      # inside the consumer unit
+        if n.uid in member_of:
+            return                      # inside its region unit
+        if per_region and "fused_region" in n.attrs:
+            members = fusion_lib.region_nodes(n)
+            inputs = []
+            in_seen = set()
+            for m in members.values():
+                for c in m.children:
+                    if (c.uid not in members
+                            and c.kind not in _UNIT_CONST_LEAVES
+                            and c.uid not in in_seen):
+                        in_seen.add(c.uid)
+                        inputs.append(c.uid)
+            units.append((n, _unit_fn(low, n, tuple(inputs)),
+                          tuple(inputs), len(members)))
+            return
+        inputs = tuple(c.uid for c in n.children
+                       if c.kind not in _UNIT_CONST_LEAVES)
+        units.append((n, _unit_fn(low, n, inputs), inputs, 1))
+
+    walk(opt)
+    if not units:                       # a bare leaf plan: identity unit
+        units.append((opt, lambda x: x, (opt.uid,), 1))
+    return UnitPrograms(units=units, optimized=opt,
+                        leaf_order=leaf_order, mesh=mesh, config=cfg)
+
+
+def _units_mesh(expr: MatExpr, mesh: Optional[Mesh],
+                cfg: MatrelConfig) -> Mesh:
+    if mesh is not None:
+        return mesh
+    lvs = expr_leaves(expr)
+    return lvs[0].attrs["matrix"].mesh if lvs else mesh_lib.make_mesh(
+        cfg.mesh_shape, cfg.mesh_axis_names)
+
+
+def compile_staged_units(expr: MatExpr, mesh: Optional[Mesh] = None,
+                         config: Optional[MatrelConfig] = None
+                         ) -> UnitPrograms:
+    """One unit program PER PHYSICAL OP — the staged floor the fused
+    form is measured against (fusion stamps are not applied)."""
+    cfg = config or default_config()
+    mesh = _units_mesh(expr, mesh, cfg)
+    return _build_units(_annotate(expr, mesh, cfg, fuse=False), mesh, cfg,
+                        per_region=False)
+
+
+def compile_region_units(expr: MatExpr, mesh: Optional[Mesh] = None,
+                         config: Optional[MatrelConfig] = None
+                         ) -> UnitPrograms:
+    """One unit program PER FUSED REGION (other nodes keep one each);
+    the regions are ``ir/fusion.annotate_fusion``'s, so with
+    ``config.fusion_enable`` off this equals the staged form."""
+    cfg = config or default_config()
+    mesh = _units_mesh(expr, mesh, cfg)
+    return _build_units(_annotate(expr, mesh, cfg), mesh, cfg,
+                        per_region=True)
+
+
+def region_probe_programs(root_node: MatExpr, member_uids,
+                          mesh: Mesh, cfg: MatrelConfig):
+    """(fused_fn, staged_units, input_uids, probe_tensors, root_uid) for
+    ONE region — the autotune ``fuse|`` measurement harness. Region
+    inputs are replaced by padded f32 probes from
+    ``np.random.default_rng(0)`` on the mesh's device; a region whose
+    members read sparse-leaf payloads returns None (a probe cannot
+    stand in for static tile metadata)."""
+    members = {root_node.uid: root_node}
+    want = set(member_uids)
+    stack = [root_node]
+    while stack:
+        n = stack.pop()
+        for c in n.children:
+            if c.uid in want and c.uid not in members:
+                members[c.uid] = c
+                stack.append(c)
+    inputs: List[MatExpr] = []
+    in_seen: set = set()
+    for m in members.values():
+        for c in m.children:
+            if c.uid in members or c.uid in in_seen:
+                continue
+            if c.kind in _UNIT_CONST_LEAVES:
+                return None
+            in_seen.add(c.uid)
+            inputs.append(c)
+    low = Lowerer(mesh, cfg)
+    input_uids = tuple(c.uid for c in inputs)
+    fused = _unit_fn(low, root_node, input_uids)
+    staged: List = []
+    order: List[MatExpr] = []
+    seen: set = set()
+
+    def topo(n: MatExpr):
+        if n.uid in seen or n.uid not in members:
+            return
+        seen.add(n.uid)
+        for c in n.children:
+            topo(c)
+        order.append(n)
+
+    topo(root_node)
+    for n in order:
+        ins = tuple(c.uid for c in n.children)
+        staged.append((n, _unit_fn(low, n, ins), ins))
+    rng = np.random.default_rng(0)
+    arrays = {c.uid: torch.as_tensor(rng.standard_normal(
+        padding.padded_shape(c.shape, mesh)).astype(np.float32),
+        device=mesh.device) for c in inputs}
+    return fused, staged, input_uids, arrays, root_node.uid

@@ -58,10 +58,13 @@ def optimal_order(operands: List[MatExpr],
         weights = mesh_lib.axis_weights(mesh, config)
     from matrel_tpu_torch.parallel import planner as _planner
     flop_scale = _planner.sla_compute_factor(config)
-    # the native mirror predates precision tiers (and the JAX package's
-    # staged-reshard and learned-coefficient pricing, whose knobs the
-    # config refuses here): scaled requests run the Python DP
-    if n >= 3 and flop_scale == 1.0:
+    # the native mirror predates precision tiers and staged-reshard
+    # pricing (and the JAX package's learned coefficients, whose knob
+    # the config refuses here): scaled or budgeted requests run the
+    # Python DP, the reference implementation, never dishonest pricing
+    reshard_budget = getattr(config, "reshard_peak_budget_bytes", 0) \
+        if config is not None else 0
+    if n >= 3 and flop_scale == 1.0 and reshard_budget == 0:
         from matrel_tpu_torch.utils import native
         dims = [op.shape[0] for op in operands] + [operands[-1].shape[1]]
         res = native.chain_dp(dims, [op.density for op in operands],

@@ -27,7 +27,10 @@ budgets were sized for the TPU's VMEM, and re-deriving them for
 Hopper's shared memory waits for a measured gain. The builders keep the JAX package's host tables but not its
 pre-gathered payload copies: the kernels (``ops/pallas_spgemm.py``)
 read the payload stacks through the tables. The fused-epilogue hooks
-are not ported.
+(``EPILOGUE_MODES``, ``register_epilogue_hook``) say where a fused
+region's epilogue runs over a kernel's output: tile-wise over the
+``[n_out, bs, bs]`` stack before the scatter, or over the dense output
+after it.
 """
 
 from __future__ import annotations
@@ -157,6 +160,49 @@ def select_kernel(structure: str, bs: int, npairs: int,
                 and admissible(kid, bs, npairs, cfg)):
             return kid, "model"
     return legacy_default(bs, npairs, cfg), "default"
+
+
+# -- fused epilogue hooks (whole-plan fusion, ir/fusion.py) -----------------
+# When a fused region absorbs a consumer chain into its producer SpGEMM,
+# the chain reaches the kernel's output here, per structure class,
+# without forking a kernel body. Each hook names how the epilogue is
+# applied:
+#
+#   "tilewise"  over the [n_out, bs, bs] OUTPUT TILE STACK before the
+#               dense scatter — nnzb·bs² elements instead of n·m. Only
+#               legal for zero-preserving, shape-polymorphic chains
+#               (scalar mul / pow>0 — the executor's
+#               epilogue_elementwise flag proves it); the untouched
+#               tiles stay exact zeros.
+#   "dense"     over the scattered padded dense output (always legal;
+#               the conservative default).
+
+EPILOGUE_MODES = ("tilewise", "dense")
+
+_EPILOGUE_HOOKS: Dict[str, str] = {}
+
+
+def register_epilogue_hook(structure: str, mode: str) -> None:
+    if mode not in EPILOGUE_MODES:
+        raise ValueError(
+            f"epilogue mode must be one of {EPILOGUE_MODES}, "
+            f"got {mode!r}")
+    _EPILOGUE_HOOKS[structure] = mode
+
+
+def epilogue_mode(structure: str, elementwise_ok: bool) -> str:
+    """The application mode of one fused SpGEMM epilogue: the structure
+    class's registered hook, demoted to "dense" whenever the chain is
+    not provably zero-preserving and shape-polymorphic."""
+    if not elementwise_ok:
+        return "dense"
+    return _EPILOGUE_HOOKS.get(structure, "dense")
+
+
+def apply_tile_epilogue(tiles, epilogue):
+    """Run a zero-preserving pointwise epilogue over the output tile
+    stack (the "tilewise" hook body — one place, every kernel)."""
+    return epilogue(tiles)
 
 
 # -- structure classification (memoised per operand) ------------------------
@@ -562,3 +608,11 @@ register_kernel(KernelSpec(
     kernel_id="pallas_powerlaw", structures=("powerlaw_coo",),
     needs_pallas=True, group=8, bucket_split=4,
     description="B7: output slots bucketed by pair count, B5 per bucket"))
+
+# fused-epilogue hooks per structure class: the home classes of the
+# specialized kernels (B5-B7) apply zero-preserving epilogues tile-wise;
+# "generic" (B4) keeps the dense post-scatter application
+register_epilogue_hook("row_band", "tilewise")
+register_epilogue_hook("clustered_tile", "tilewise")
+register_epilogue_hook("powerlaw_coo", "tilewise")
+register_epilogue_hook("generic", "dense")

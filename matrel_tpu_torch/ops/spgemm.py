@@ -13,8 +13,9 @@ densified operand.
   card, their plain versions on the CPU, or the ``xla_gather`` torch
   composite.
 
-The fused ``epilogue`` slot (fusion) and the sharded wrapper
-``spgemm_sharded`` are not ported.
+``apply_dense`` carries the fused-region ``epilogue`` slot
+(``ir/fusion.py``). The sharded wrapper ``spgemm_sharded`` is not
+ported.
 """
 
 from __future__ import annotations
@@ -26,8 +27,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from matrel_tpu_torch.config import (MatrelConfig, NotPortedError,
-                                     default_config)
+from matrel_tpu_torch.config import MatrelConfig, default_config
 from matrel_tpu_torch.core import padding
 from matrel_tpu_torch.core.sparse import BlockSparseMatrix
 
@@ -248,18 +248,27 @@ def spgemm(A: BlockSparseMatrix, B: BlockSparseMatrix,
 def apply_dense(A: BlockSparseMatrix, B: BlockSparseMatrix,
                 config: Optional[MatrelConfig] = None,
                 kernel: Optional[str] = None,
-                epilogue=None) -> torch.Tensor:
+                epilogue=None, epilogue_elementwise: bool = False
+                ) -> torch.Tensor:
     """SpGEMM for the executor: the product as a PADDED dense tensor
     (``padding.padded_shape`` on A's mesh), what every other lowering
     hands its consumer. The tile stack is scattered straight into the
     zeroed output through a (gr, gc, bs, bs) view of it, so the dense
-    result is materialised once. The fused ``epilogue`` slot is not
-    ported."""
-    if epilogue is not None:
-        raise NotPortedError(
-            "a fused SpGEMM epilogue (plan fusion) is not ported to "
-            "matrel_tpu_torch yet")
+    result is materialised once.
+
+    ``epilogue`` is the fused-region slot: the absorbed consumer chain
+    reaches the kernel's output through the registry's per-structure
+    hook (``kernel_registry.epilogue_mode``). A zero-preserving
+    pointwise chain (``epilogue_elementwise`` True, the executor's
+    proof) runs tile-wise over the output stack before the scatter on
+    the classes registered "tilewise" (B5–B7's); everything else runs
+    over the padded dense output after it. No kernel body is forked."""
+    from matrel_tpu_torch.ops import kernel_registry as kr
     tiles, out_rows, out_cols = spgemm_tiles(A, B, config, kernel=kernel)
+    if epilogue is not None and kr.epilogue_mode(
+            kr.pair_class_of(A, B), epilogue_elementwise) == "tilewise":
+        tiles = kr.apply_tile_epilogue(tiles, epilogue)
+        epilogue = None               # consumed before the scatter
     n, m = A.shape[0], B.shape[1]
     bs = A.block_size
     gr, gc = math.ceil(n / bs), math.ceil(m / bs)
@@ -281,4 +290,5 @@ def apply_dense(A: BlockSparseMatrix, B: BlockSparseMatrix,
     # tiles may overhang the logical edge on ragged shapes; the overhang
     # is exact zeros (_edge_masked scrubs both operands), and what lies
     # past the padded shape is cut off here
-    return dense[: pshape[0], : pshape[1]]
+    dense = dense[: pshape[0], : pshape[1]]
+    return dense if epilogue is None else epilogue(dense)

@@ -50,10 +50,16 @@ def _cached_runner(S, pm, out_pshape, cfg):
 
 
 def apply(S: BlockSparseMatrix, dd: torch.Tensor, d_shape: Tuple[int, int],
-          config: Optional[MatrelConfig] = None) -> torch.Tensor:
+          config: Optional[MatrelConfig] = None,
+          epilogue=None) -> torch.Tensor:
     """S (static tile metadata) × dense padded tensor ``dd`` of logical
     shape ``d_shape``; returns the padded product. ``dd`` is cast to the
-    payload dtype (the output is in the payload dtype either way)."""
+    payload dtype (the output is in the payload dtype either way).
+
+    ``epilogue`` is the fused-region slot: a callable applied to the
+    padded product (B1's output) in the same call, so an absorbed
+    consumer chain runs as the SpMM's epilogue. The runner is one per
+    matrix, never forked per epilogue; None keeps the plain path."""
     cfg = config or default_config()
     n, k = S.shape
     k2, m = d_shape
@@ -67,7 +73,7 @@ def apply(S: BlockSparseMatrix, dd: torch.Tensor, d_shape: Tuple[int, int],
     if tuple(out.shape) != out_pshape:
         out = torch.nn.functional.pad(
             out[:, : out_pshape[1]], (0, max(out_pshape[1] - pm, 0)))
-    return out
+    return out if epilogue is None else epilogue(out)
 
 
 def spmm(S: BlockSparseMatrix, D: BlockMatrix,

@@ -1,5 +1,5 @@
 """Measured choices — the counterpart of ``matrel_tpu/parallel/autotune.py``
-for its matmul, SpMV and SpGEMM families.
+for its matmul, SpMV, SpGEMM, fusion and reshard families.
 
 The planner's cost model and the kernel registry's rules are estimates;
 this module measures. For a shape class it times every admissible
@@ -17,13 +17,24 @@ sessions inherit it:
 * SpGEMM kernels (``lookup_or_measure_spgemm``): every registered
   kernel admissible on a structure class, over a synthetic operand pair
   of that class, consulted by ``kernel_registry.select_kernel``.
+* fused regions (``lookup_or_measure_fusion``, the ``fuse|`` family):
+  one region emitted both ways through the executor's unit-program
+  seam — one unit for the region ("fused") against one per member op
+  ("staged") — over synthetic probes; consulted by
+  ``fusion.annotate_fusion``, where a measured "staged" winner
+  suppresses the stamp;
+* staged reshards (``lookup_or_measure_reshard``, the ``reshard|``
+  family): a persisted row is honoured and single-step plans are never
+  measured. On one card both variants would time the same local copy,
+  so ``measure_reshard_variant`` raises ``NotPortedError`` until the
+  multi-rank slice; its candidates drop out and the model decides.
 
 Keys and table format are the JAX package's, so both packages share one
 table (default ``.matrel_autotune.json``); the backend field is the
 type of the device measured on, "cuda" or "cpu". Loading prunes only
-keys of no current format — the ``fuse|``, ``reshard|`` and ``ivm|``
-rows the JAX package writes stay, and ``_persist`` rewrites them as it
-found them. ``config.strategy_override`` and
+keys of no current format — the ``ivm|`` rows the JAX package writes
+stay, and ``_persist`` rewrites them as it found them.
+``config.strategy_override`` and
 ``config.spgemm_kernel_override`` still win over a measured winner.
 
 Timing: matmul strategies by the JAX package's marginal method (the
@@ -31,7 +42,9 @@ median of three marginal estimates over chained dependent runs, each
 chain ending in a scalar fetch); SpMV variants and SpGEMM kernels by the
 host clock around one call that ends in a scalar fetch (so it includes
 the synchronisation), the median of 5 after one warm call — the warm
-call also builds a CUDA library at first use. A winner within
+call also builds a CUDA library at first use; fused regions by CUDA
+events around each run on the card (the host clock on the CPU), the
+median of 5 after one warm run. A winner within
 ``TIE_REL`` of the runner-up is recorded as a tie (None): the model
 decides.
 """
@@ -48,7 +61,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from matrel_tpu_torch.config import MatrelConfig, default_config
+from matrel_tpu_torch.config import (MatrelConfig, NotPortedError,
+                                     default_config)
 from matrel_tpu_torch.core import mesh as mesh_lib, padding
 from matrel_tpu_torch.core.blockmatrix import BlockMatrix
 from matrel_tpu_torch.parallel import planner, strategies
@@ -594,8 +608,192 @@ def lookup_or_measure_spgemm(side: int, structure: str, bs: int, mesh,
     return best
 
 
+# -- fused regions: the fuse| family ------------------------------------------
+
+_FUSION_CACHE: Dict[str, Optional[str]] = {}
+
+FUSION_VARIANTS = ("fused", "staged")
+
+
+def _fusion_key(sig: str, side: int, gx: int, gy: int, backend: str,
+                weights: Tuple[float, float] = (1.0, 1.0)) -> str:
+    """``fuse|<sig>|<=side|grid|backend[|w..]`` — the region signature
+    is '|'-free by construction (``fusion.region_sig``); the side is
+    bucketed to a power of two like every other row."""
+    cls = 1 << max(0, math.ceil(math.log2(max(int(side), 1))))
+    return (f"fuse|{sig}|<={cls}|{gx}x{gy}|{backend}"
+            + _weights_suffix(weights))
+
+
+def _median_device_seconds(go, device, n_times: int) -> float:
+    """One warm run, then the median of ``n_times`` runs: CUDA events
+    around each on the card, the host clock on the CPU (where a run
+    ends when its ops do)."""
+    if device.type != "cuda":
+        return _median_seconds(go, n_times)
+    go()
+    torch.cuda.synchronize(device)
+    ts = []
+    for _ in range(max(n_times, 1)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        go()
+        end.record()
+        end.synchronize()
+        ts.append(start.elapsed_time(end) / 1e3)
+    ts.sort()
+    return ts[len(ts) // 2]
+
+
+def measure_fusion_region(region, root_tree, mesh,
+                          config: Optional[MatrelConfig] = None,
+                          n_times: int = 5) -> Dict[str, float]:
+    """{'fused': s, 'staged': s} medians for ONE region, both built by
+    the executor's unit-program seam over synthetic padded probes
+    (``executor.region_probe_programs``). Empty when the region is not
+    probeable (sparse-payload inputs); a variant that fails drops
+    out."""
+    from matrel_tpu_torch import executor as executor_lib
+    cfg = config or default_config()
+    node = _find_region_root(root_tree, region.root_uid)
+    if node is None:
+        return {}
+    probe = executor_lib.region_probe_programs(
+        node, region.member_uids, mesh, cfg)
+    if probe is None:
+        return {}
+    fused, staged, input_uids, arrays, root_uid = probe
+
+    def run_fused():
+        return fused(*(arrays[u] for u in input_uids))
+
+    def run_staged():
+        env = dict(arrays)
+        for n, fn, ins in staged:
+            env[n.uid] = fn(*(env[u] for u in ins))
+        return env[root_uid]
+
+    runs = {"fused": run_fused, "staged": run_staged}
+    return _measured("fusion", FUSION_VARIANTS,
+                     lambda v: _median_device_seconds(runs[v], mesh.device,
+                                                      n_times))
+
+
+def _find_region_root(root_tree, uid: int):
+    from matrel_tpu_torch.ir import fusion as fusion_lib
+    return fusion_lib._find_uid(root_tree, uid)
+
+
+def _member_dims(root_tree, uid: int):
+    n = _find_region_root(root_tree, uid)
+    return tuple(n.shape) if n is not None else ()
+
+
+def lookup_or_measure_fusion(region, root_tree, mesh,
+                             config: Optional[MatrelConfig] = None
+                             ) -> Optional[str]:
+    """The fusion pass's boundary consult (``config.autotune``):
+    "fused" / "staged" / None (no measured preference — the region
+    stamps). In-process cache, then the persisted table, then one
+    measurement (only for sides ≤ ``autotune_max_dim``); ties and
+    one-variant results resolve to None."""
+    cfg = config or default_config()
+    gx, gy = mesh_lib.mesh_grid_shape(mesh)
+    node = _find_region_root(root_tree, region.root_uid)
+    side = max([1] + [d for u in (region.member_uids + (region.root_uid,))
+                      for d in _member_dims(root_tree, u)])
+    key = _fusion_key(region.sig, side, gx, gy, backend_of(mesh),
+                      mesh_lib.axis_weights(mesh, cfg))
+    found, best = _cached_entry(_FUSION_CACHE, key, cfg)
+    if found:
+        _FUSION_CACHE[key] = best
+        return best
+    if node is None or side > cfg.autotune_max_dim:
+        _FUSION_CACHE[key] = None
+        return None
+    results = measure_fusion_region(region, root_tree, mesh, cfg)
+    if len(results) < 2:
+        _FUSION_CACHE[key] = None
+        return None
+    best = _pick_winner(results)
+    _FUSION_CACHE[key] = best
+    if cfg.autotune or cfg.autotune_table_path:
+        _persist(_table_path(cfg), key, best, results)
+    return best
+
+
+# -- staged reshards: the reshard| family -------------------------------------
+
+_RESHARD_CACHE: Dict[str, Optional[str]] = {}
+
+RESHARD_VARIANTS = ("staged", "naive")
+
+
+def _reshard_key(plan, gx: int, gy: int, backend: str,
+                 weights: Tuple[float, float] = (1.0, 1.0)) -> str:
+    """``reshard|src>dst|side|gxXgy|backend[|w..]`` — side bucketed to
+    the power of two above sqrt(nbytes/4), so a 3800² and a 4096² move
+    share a row."""
+    side = math.sqrt(max(plan.nbytes / 4.0, 1.0))
+    cls = 1 << max(0, math.ceil(math.log2(max(side, 1.0))))
+    return (f"reshard|{plan.src}>{plan.dst}|{cls}|{gx}x{gy}|{backend}"
+            + _weights_suffix(weights))
+
+
+def measure_reshard_variant(variant: str, plan, mesh,
+                            config: Optional[MatrelConfig] = None,
+                            n_times: int = 5) -> float:
+    """Median seconds of one lowering of the plan's move — in the JAX
+    package, the compiled step sequence ("staged") against one sharding
+    constraint ("naive") across the mesh's devices. On one card both
+    are the same local copy, so timing them would measure nothing: this
+    raises :class:`NotPortedError` until the multi-rank slice, and
+    :func:`lookup_or_measure_reshard` drops both candidates (the model
+    decides)."""
+    raise NotPortedError(
+        f"measuring the {variant!r} lowering of a {plan.src}->{plan.dst} "
+        f"reshard needs more than one rank; matrel_tpu_torch runs on one "
+        f"card, where every step is a local copy")
+
+
+def lookup_or_measure_reshard(plan, mesh,
+                              config: Optional[MatrelConfig] = None
+                              ) -> Optional[str]:
+    """Measured lowering for this reshard's shape class ("staged" /
+    "naive"), or None when the model's pick stands: single-step plans
+    (staged is naive), sides above ``autotune_max_dim``, ties, or
+    candidates that could not be measured. A persisted row is
+    honoured."""
+    cfg = config or default_config()
+    if len(plan.steps) < 2:
+        return None
+    gx, gy = mesh_lib.mesh_grid_shape(mesh)
+    key = _reshard_key(plan, gx, gy, backend_of(mesh),
+                       mesh_lib.axis_weights(mesh, cfg))
+    found, best = _cached_entry(_RESHARD_CACHE, key, cfg)
+    if found:
+        _RESHARD_CACHE[key] = best
+        return best
+    if math.sqrt(max(plan.nbytes / 4.0, 1.0)) > cfg.autotune_max_dim:
+        _RESHARD_CACHE[key] = None
+        return None
+    results = _measured(
+        "reshard", RESHARD_VARIANTS,
+        lambda v: measure_reshard_variant(v, plan, mesh, cfg))
+    if len(results) < 2:
+        _RESHARD_CACHE[key] = None
+        return None
+    best = _pick_winner(results)
+    _RESHARD_CACHE[key] = best
+    if cfg.autotune or cfg.autotune_table_path:
+        _persist(_table_path(cfg), key, best, results)
+    return best
+
+
 def clear_caches() -> None:
     """Forget every in-process measurement and table read (a fresh
     process, as far as this module knows); the table file stays."""
-    for cache in (_CACHE, _SPMV_CACHE, _SPGEMM_CACHE, _TABLE_CACHE):
+    for cache in (_CACHE, _SPMV_CACHE, _SPGEMM_CACHE, _FUSION_CACHE,
+                  _RESHARD_CACHE, _TABLE_CACHE):
         cache.clear()

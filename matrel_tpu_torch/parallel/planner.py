@@ -16,9 +16,10 @@ the JAX package's stamps. An S×S matmul that dispatches SpGEMM stamps
 (``spgemm_kernel``, ``spgemm_structure``, ``spgemm_kernel_source``).
 Row/col index joins stamp the replication scheme ``choose_join_scheme``
 picks (``attrs["replicate"]``: "left", "right" or "align"); the scheme
-is priced with the closed-form reshard terms only, since the staged
-reshard plans (``reshard_peak_budget_bytes``) and the learned
-coefficients are not ported (their knobs raise ``NotPortedError``).
+is priced with the closed-form reshard terms, or, with
+``reshard_peak_budget_bytes`` > 0, from the compiled staged plan
+(``parallel/reshard.py``). The learned coefficients are not ported
+(their knob raises ``NotPortedError``).
 With ``config.autotune`` on, a measured winner from
 ``parallel/autotune.py`` overrides the byte model for a dense product
 on a grid of more than one device (source "measured"), and the S×S
@@ -443,6 +444,13 @@ def tier_matmul_cost(tier: str, n: int, k: int, m: int,
     return compute + stats.HBM_FLOPS_PER_BYTE * hbm
 
 
+def tier_error_bound(tier: str, k: int, amax: float = 1.0,
+                     bmax: float = 1.0) -> float:
+    """Documented max-abs error bound of a k-deep product at a tier
+    (the TIER_EPS closed form)."""
+    return TIER_EPS[tier] * float(k) * float(amax) * float(bmax)
+
+
 def sla_allowed_tiers(sla: str, integral: bool,
                       config: Optional[MatrelConfig] = None) -> tuple:
     """Tiers admissible under an SLA (an accuracy floor)."""
@@ -637,6 +645,15 @@ def _hint_tiebreak(costs: dict, best, out_layout_of,
     return best
 
 
+def choose_strategy(node: MatExpr, mesh: Mesh,
+                    config: Optional[MatrelConfig] = None,
+                    dtype_memo: Optional[dict] = None,
+                    layout_memo: Optional[dict] = None) -> str:
+    """The cheapest admissible strategy for one matmul node."""
+    return choose_strategy_ex(node, mesh, config, dtype_memo,
+                              layout_memo)[0]
+
+
 def choose_strategy_ex(node: MatExpr, mesh: Mesh,
                        config: Optional[MatrelConfig] = None,
                        dtype_memo: Optional[dict] = None,
@@ -736,16 +753,27 @@ def choose_strategy_ex(node: MatExpr, mesh: Mesh,
 
 def _reshard_to_axis(bytes_: float, layout: str, axis: str,
                      gx: int, gy: int,
-                     weights: Tuple[float, float] = (1.0, 1.0)) -> float:
+                     weights: Tuple[float, float] = (1.0, 1.0),
+                     config: Optional[MatrelConfig] = None) -> float:
     """Per-device interconnect bytes to re-lay an operand 1D-sharded over
     all devices along ``axis`` ("row"/"col") from its ``layout``, billed
-    at the topology weight of the mesh axis each move rides (the JAX
-    package's closed forms; its staged-plan pricing under
-    ``reshard_peak_budget_bytes`` is not ported)."""
+    at the topology weight of the mesh axis each move rides.
+
+    With ``config.reshard_peak_budget_bytes`` > 0 the price is the
+    compiled ReshardPlan's (``parallel/reshard.py``): bit-identical to
+    these closed forms for single-axis moves, and the honestly higher
+    staged bill where the budget forces the opposite-1D flip through
+    2d. The default config never constructs a plan."""
     p = max(gx * gy, 1)
     wx, wy = weights
     if layout == axis or layout == "rep":
         return 0.0
+    if config is not None and config.reshard_peak_budget_bytes > 0:
+        from matrel_tpu_torch.parallel import reshard as reshard_lib
+        return reshard_lib.compile_reshard(
+            layout, axis, bytes_, gx, gy, weights,
+            peak_budget=float(config.reshard_peak_budget_bytes)
+        ).weighted_cost
     if layout in ("2d", "other"):
         # gather along the perpendicular mesh axis ("other" is costed
         # exactly like "2d")
@@ -815,8 +843,10 @@ def choose_join_scheme(node: MatExpr, mesh: Mesh,
             f"constructor-enforced equality (relational/ops.py)")
     if a_extent >= p:
         cost["align"] = (
-            _reshard_to_axis(a_bytes, la, axis, gx, gy, weights=wts)
-            + _reshard_to_axis(b_bytes, lb, axis, gx, gy, weights=wts))
+            _reshard_to_axis(a_bytes, la, axis, gx, gy, weights=wts,
+                             config=config)
+            + _reshard_to_axis(b_bytes, lb, axis, gx, gy, weights=wts,
+                               config=config))
     best = min(cost, key=cost.get)
     return _hint_tiebreak(
         cost, best, lambda s: _scheme_out_layout(s, node, la, lb),
@@ -944,15 +974,37 @@ def matmul_decisions(root: MatExpr, mesh: Mesh,
     for a dense product, the operand layouts and the model's per-device
     interconnect bytes on the grid. A pure read: nothing is re-chosen.
 
-    The records carry what the JAX package's carry with its result
-    cache, multi-query, staged-reshard, IVM, fusion and learned-
-    coefficient planes off — the planes this package has not ported."""
+    A matmul that anchors a fused region (``ir/fusion.py`` stamps)
+    carries the region's boundary (``fused_region``, ``fused_census``,
+    ``est_saved_dispatches``, ``est_saved_hbm_bytes``); with
+    ``reshard_peak_budget_bytes`` > 0 a dense product carries the staged
+    moves its lowering compiles (``reshard``). The records carry what
+    the JAX package's carry with its result cache, multi-query, IVM and
+    learned-coefficient planes off — the planes this package has not
+    ported."""
     cfg = config or default_config()
     gx, gy = mesh_lib.mesh_grid_shape(mesh)
     wts = mesh_lib.axis_weights(mesh, cfg)
     lmemo: dict = {}
+    dmemo: dict = {}
     out: list = []
     seen: set = set()
+    # anchor uid -> its region's stamp (stamps live on region roots);
+    # empty with fusion off
+    fused_of: dict = {}
+    fseen: set = set()
+
+    def fwalk(node: MatExpr):
+        if node.uid in fseen:
+            return
+        fseen.add(node.uid)
+        for c in node.children:
+            fwalk(c)
+        a_uid = node.attrs.get("fused_anchor")
+        if "fused_region" in node.attrs and a_uid is not None:
+            fused_of[a_uid] = node.attrs
+
+    fwalk(root)
 
     def walk(n: MatExpr):
         if n.uid in seen:
@@ -1020,8 +1072,25 @@ def matmul_decisions(root: MatExpr, mesh: Mesh,
                         alpha_bytes=cfg.comm_alpha_bytes, weights=wts)
                     rec["axis_weights"] = list(wts)
                     rec["topology_source"] = "config"
+                if cfg.reshard_peak_budget_bytes > 0:
+                    # the staged moves this product's lowering compiles
+                    # (the one derivation the executor shares)
+                    from matrel_tpu_torch.parallel import reshard as _resh
+                    rr = _resh.moves_record(_resh.staged_matmul_moves(
+                        n, mesh, cfg, lmemo, dmemo))
+                    if rr is not None:
+                        rec["reshard"] = rr
             except ValueError:       # an override the model doesn't know
                 rec["est_ici_bytes"] = None
+        fr = fused_of.get(n.uid)
+        if fr is not None:
+            # the anchored region's boundary; a SpGEMM anchor's
+            # est_saved_hbm_bytes (saved vs densify) keeps its meaning
+            rec["fused_region"] = fr.get("fused_region")
+            rec["fused_census"] = dict(fr.get("fused_census") or {})
+            rec["est_saved_dispatches"] = fr.get("fused_saved_dispatches")
+            rec.setdefault("est_saved_hbm_bytes",
+                           fr.get("fused_saved_hbm_bytes"))
         out.append(rec)
 
     walk(root)

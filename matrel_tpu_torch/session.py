@@ -130,6 +130,13 @@ class MatrelSession:
         return BlockMatrix.random(shape, mesh=self.mesh, config=self.config,
                                   **kw)
 
+    def zeros(self, shape: Tuple[int, int], **kw) -> BlockMatrix:
+        return BlockMatrix.zeros(shape, mesh=self.mesh, config=self.config,
+                                 **kw)
+
+    def eye(self, n: int, **kw) -> BlockMatrix:
+        return BlockMatrix.eye(n, mesh=self.mesh, config=self.config, **kw)
+
     # -- actions ------------------------------------------------------------
 
     def compile(self, expr: MatExpr,

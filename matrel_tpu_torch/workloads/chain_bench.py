@@ -1,15 +1,18 @@
 """Matrix-chain workload — the counterpart of
 ``matrel_tpu/workloads/chain_bench.py`` (BASELINE row 2: A·B·C, skewed).
 
-Builds a skewed chain through the IR so the DP reorders it, and
-renders which parenthesisation the optimizer chose.
+Builds a skewed chain through the IR so the DP reorders it, compiles
+it, and reports which parenthesisation the optimizer chose.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
+from matrel_tpu_torch.config import MatrelConfig, default_config
 from matrel_tpu_torch.core.blockmatrix import BlockMatrix
+from matrel_tpu_torch.executor import CompiledPlan, compile_expr
+from matrel_tpu_torch.ir import chain as chain_lib
 from matrel_tpu_torch.ir.expr import MatExpr, matmul
 
 
@@ -34,6 +37,17 @@ def parenthesisation(e: MatExpr) -> str:
         return f"{n.kind}[{walk(n.children[0]) if n.children else ''}]"
 
     return walk(e)
+
+
+def compile_chain(mats: Sequence[BlockMatrix],
+                  config: Optional[MatrelConfig] = None
+                  ) -> Tuple[CompiledPlan, str, float]:
+    """Compile a chain; returns (plan, chosen parenthesisation, est
+    cost)."""
+    cfg = config or default_config()
+    plan = compile_expr(build_chain(mats), mats[0].mesh, cfg)
+    return (plan, parenthesisation(plan.optimized),
+            chain_lib.chain_cost(plan.optimized))
 
 
 def skewed_abc(mesh, n: int = 10_000, mid: int = 100, seed: int = 0,

@@ -2,9 +2,14 @@
 on the CPU — ``MatrelSession.run_many`` (one MultiPlan a batch, in the
 session's plan cache), the ``vec`` and ``rank1`` lowerings,
 ``planner.matmul_decisions`` / ``executor.plan_matmul_decisions`` over
-the plan-snapshot corpus on a virtual (2, 4) grid, the native chain DP
-(``utils/native.py``) against the Python DP, and ``strategies.local_dot``
-on bf16 operands.
+the plan-snapshot corpus on a virtual (2, 4) grid (also with fusion on
+and under reshard budgets), the native chain DP (``utils/native.py``)
+against the Python DP, ``strategies.local_dot`` on bf16 operands, and
+the leftovers: ``MatrelConfig.from_env`` / ``from_dict`` /
+``set_default_config``, ``BlockMatrix.zeros`` / ``eye`` /
+``from_block_fn`` and the leaf shortcuts, ``session.zeros`` / ``eye``,
+``BlockSparseMatrix.from_scipy`` / ``norm``, ``planner.choose_strategy``
+/ ``tier_error_bound`` and ``chain_bench.compile_chain``.
 
 Tolerances: a ``run_many`` result equals the same query's own
 ``compute`` exactly (the same plan code on the same inputs) and the JAX
@@ -596,3 +601,263 @@ def test_local_dot_f32_and_mixed_stay_widened(monkeypatch):
     b = torch.ones((4, 2), dtype=torch.bfloat16).as_subclass(_OnCard)
     assert strategies.local_dot(a, b).dtype == torch.float32
     assert strategies.local_dot(a, a.T).dtype == torch.float32
+
+
+# -- fusion and reshard on the corpus: decision records -----------------------
+
+PLANE_CONFIGS = {
+    "fusion": {"fusion_enable": True},
+    "reshard_tight": {"reshard_peak_budget_bytes": 4096},
+    "reshard_loose": {"reshard_peak_budget_bytes": 1 << 30},
+    "both": {"fusion_enable": True, "reshard_peak_budget_bytes": 4096},
+}
+
+
+def _stamps_by_position(root):
+    order, seen = [], set()
+
+    def walk(n):
+        if n.uid in seen:
+            return
+        seen.add(n.uid)
+        for c in n.children:
+            walk(c)
+        order.append(n)
+
+    walk(root)
+    pos = {n.uid: i for i, n in enumerate(order)}
+    return [(pos[n.uid], n.attrs["fused_region"],
+             sorted(pos[u] for u in n.attrs["fused_members"]),
+             None if n.attrs["fused_anchor"] is None
+             else pos[n.attrs["fused_anchor"]],
+             n.attrs["fused_census"], n.attrs["fused_tier"],
+             n.attrs["fused_remask"], n.attrs["fused_saved_dispatches"],
+             n.attrs["fused_saved_hbm_bytes"])
+            for n in order if "fused_region" in n.attrs]
+
+
+@pytest.mark.parametrize("cfg_name", PLANE_CONFIGS)
+@pytest.mark.parametrize("name", COVERED)
+def test_plane_decisions_match_jax(corpus, mesh8, name, cfg_name):
+    """With fusion on and/or a reshard budget, compile_expr's stamps and
+    decision records on the (2, 4) grid equal the JAX package's."""
+    cfg = PLANE_CONFIGS[cfg_name]
+    tmesh = make_mesh((2, 4), device="cpu")
+    je = corpus[name]
+    jplan = j_exec.compile_expr(je, mesh8, JConfig(**cfg))
+    tplan = t_exec.compile_expr(to_port(je, tmesh), tmesh,
+                                MatrelConfig(**cfg))
+    _assert_records_equal(t_exec.plan_matmul_decisions(tplan),
+                          j_exec.plan_matmul_decisions(jplan))
+    assert _stamps_by_position(tplan.optimized) \
+        == _stamps_by_position(jplan.optimized)
+    assert tplan.meta.get("fusion") == jplan.meta.get("fusion")
+
+
+# -- the core surface's leftovers ---------------------------------------------
+
+
+def test_config_from_env_dict_and_default(monkeypatch):
+    from matrel_tpu_torch import config as t_config
+    from matrel_tpu_torch.config import UNPORTED_KNOBS
+    monkeypatch.setenv("MATREL_BLOCK_SIZE", "128")
+    monkeypatch.setenv("MATREL_MESH_SHAPE", "2x4")
+    monkeypatch.setenv("MATREL_AXIS_COST_WEIGHTS", "1,4")
+    monkeypatch.setenv("MATREL_FUSION_ENABLE", "yes")
+    monkeypatch.setenv("MATREL_MATMUL_PRECISION", "high")
+    got = MatrelConfig.from_env()
+    want = JConfig.from_env()
+    for f in ("block_size", "mesh_shape", "axis_cost_weights",
+              "fusion_enable", "matmul_precision"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert got.mesh_shape == (2, 4) and got.fusion_enable is True
+    base = MatrelConfig(block_size=64)
+    assert MatrelConfig.from_env(base).block_size == 128
+    d = {"block_size": 32, "reshard_peak_budget_bytes": 1 << 20,
+         "spgemm_kernel_override": "pallas_band"}
+    got = MatrelConfig.from_dict(d)
+    want = JConfig.from_dict(d)
+    assert all(getattr(got, k) == getattr(want, k) for k in d)
+    with pytest.raises(KeyError, match="not_a_knob"):
+        MatrelConfig.from_dict({"not_a_knob": 1})
+    with pytest.raises(ValueError):
+        MatrelConfig.from_dict({"reshard_peak_budget_bytes": -1})
+    # every knob still listed is refused by both constructors
+    assert "fusion_enable" not in UNPORTED_KNOBS
+    assert "reshard_peak_budget_bytes" not in UNPORTED_KNOBS
+    for name in UNPORTED_KNOBS:
+        default = t_config._FIELD_DEFAULTS[name]
+        other = ("x" if isinstance(default, str)
+                 else (not default) if isinstance(default, bool)
+                 else default + 1)
+        with pytest.raises(NotPortedError, match=name):
+            MatrelConfig.from_dict({name: other})
+    monkeypatch.setenv("MATREL_CSE_ENABLE", "1")
+    with pytest.raises(NotPortedError, match="cse_enable"):
+        MatrelConfig.from_env()
+    old = t_config.default_config()
+    try:
+        new = MatrelConfig(block_size=16)
+        t_config.set_default_config(new)
+        assert t_config.default_config() is new
+    finally:
+        t_config.set_default_config(old)
+    assert t_config.default_config() is old
+
+
+def test_unported_knobs_left_exactly_two():
+    """This slice took fusion_enable and reshard_peak_budget_bytes off
+    the list; every other knob of an unported plane stays."""
+    from matrel_tpu_torch.config import UNPORTED_KNOBS
+    for name in ("cse_enable", "delta_patch_mode", "delta_rank_max",
+                 "obs_level", "verify_plans", "spill_enable"):
+        assert name in UNPORTED_KNOBS
+    MatrelConfig(fusion_enable=True, reshard_peak_budget_bytes=1 << 20)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_blockmatrix_constructors_match_jax(grid_meshes, dtype):
+    from matrel_tpu.core.blockmatrix import BlockMatrix as JBM
+    from matrel_tpu_torch.core.blockmatrix import BlockMatrix as TBM
+    from matrel_tpu_torch.core.mesh import P
+    jm, tm = grid_meshes
+    for shape in ((13, 7), (16, 16), (1, 9)):
+        jz, tz = JBM.zeros(shape, mesh=jm, dtype=dtype), TBM.zeros(
+            shape, mesh=tm, dtype=dtype)
+        assert tz.padded_shape == jz.padded_shape and tz.nnz == jz.nnz == 0
+        assert tz.to_numpy().shape == shape and not tz.to_numpy().any()
+        assert tuple(tz.spec) == tuple(jz.spec)
+        assert tz.is_padded == jz.is_padded
+        assert tz.sparsity == jz.sparsity
+        np.testing.assert_array_equal(np.asarray(tz.valid_mask()),
+                                      np.asarray(jz.valid_mask()))
+        fn = lambda r, c: (r * 3 + c) % 7
+        jf = JBM.from_block_fn(shape, fn, mesh=jm, dtype=dtype, nnz=5)
+        tf = TBM.from_block_fn(shape, fn, mesh=tm, dtype=dtype, nnz=5)
+        np.testing.assert_array_equal(tf.to_numpy(),
+                                      np.asarray(jf.to_numpy(), np.float32))
+        assert tf.padded_shape == jf.padded_shape and tf.nnz == 5
+        assert float(tf.data.float().abs().sum()) == float(
+            np.abs(np.asarray(jf.data, np.float32)).sum())   # zero padding
+        assert tf.sparsity == jf.sparsity
+    for n in (1, 8, 13):
+        je, te = JBM.eye(n, mesh=jm, dtype=dtype), TBM.eye(n, mesh=tm,
+                                                          dtype=dtype)
+        np.testing.assert_array_equal(te.to_numpy(),
+                                      np.asarray(je.to_numpy(), np.float32))
+        assert te.nnz == je.nnz == n and te.padded_shape == je.padded_shape
+        assert float(te.data.float().sum()) == n
+    x = TBM.eye(8, mesh=tm)
+    assert x.block_until_ready() is x
+    assert x.with_spec(x.spec) is x
+    y = x.with_spec(P(("x", "y"), None))
+    assert y.spec == P(("x", "y"), None) and y.data is x.data
+    assert t_planner.infer_layout(y.expr(), tm) == "row"
+
+
+def test_blockmatrix_shortcuts_match_jax(jmesh):
+    js, ts = sessions(jmesh)
+    rng = np.random.default_rng(21)
+    a = rng.standard_normal((12, 12)).astype(np.float32) + 12 * np.eye(
+        12, dtype=np.float32)
+    b = rng.standard_normal((12, 3)).astype(np.float32)
+    u = rng.standard_normal((12, 1)).astype(np.float32)
+    v = rng.standard_normal((12, 1)).astype(np.float32)
+    (jA, tA), (jB, tB), (jU, tU), (jV, tV) = (pair(js, ts, x)
+                                              for x in (a, b, u, v))
+    cases = [(jA.norm(), tA.norm()), (jA.norm("max"), tA.norm("max")),
+             (jA.inverse(), tA.inverse()), (jA.solve(jB), tA.solve(tB)),
+             (jA.vec(), tA.vec()),
+             (jA.rank_one_update(jU, jV), tA.rank_one_update(tU, tV))]
+    for je, te in cases:
+        assert te.kind == je.kind and te.shape == je.shape
+        np.testing.assert_allclose(ts.compute(te).to_numpy(),
+                                   js.compute(je).to_numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_session_zeros_eye_and_identity_product(jmesh):
+    js, ts = sessions(jmesh)
+    z, jz = ts.zeros((5, 3)), js.zeros((5, 3))
+    np.testing.assert_array_equal(z.to_numpy(), np.asarray(jz.to_numpy()))
+    assert z.mesh is ts.mesh
+    eye = ts.eye(6)
+    np.testing.assert_array_equal(eye.to_numpy(), np.eye(6, dtype=np.float32))
+    a = np.random.default_rng(2).standard_normal((6, 4)).astype(np.float32)
+    A = ts.from_numpy(a)
+    np.testing.assert_array_equal(ts.compute(eye.multiply(A)).to_numpy(), a)
+
+
+def test_block_sparse_from_scipy_and_norm(jmesh):
+    import scipy.sparse as sps
+    tmesh = make_mesh(device="cpu")
+    m = sps.random(70, 45, density=0.05, format="csr", random_state=3,
+                   dtype=np.float32)
+    J = JBlockSparse.from_scipy(m, block_size=16, mesh=jmesh)
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix as TBS
+    Tm = TBS.from_scipy(m, block_size=16, mesh=tmesh)
+    np.testing.assert_array_equal(Tm.host_tiles()[0],
+                                  np.asarray(J.block_rows))
+    np.testing.assert_array_equal(Tm.host_tiles()[1],
+                                  np.asarray(J.block_cols))
+    np.testing.assert_array_equal(Tm.blocks.numpy(), np.asarray(J.blocks))
+    np.testing.assert_allclose(Tm.to_numpy(), m.toarray(), rtol=0, atol=0)
+    for kind in ("fro", "l1", "max"):
+        assert Tm.norm(kind) == pytest.approx(J.norm(kind), rel=1e-12)
+    with pytest.raises(ValueError):
+        Tm.norm("spectral")
+    empty = TBS.from_numpy(np.zeros((16, 16), np.float32), block_size=8,
+                           mesh=tmesh)
+    assert empty.norm("max") == JBlockSparse.from_numpy(
+        np.zeros((16, 16), np.float32), block_size=8,
+        mesh=jmesh).norm("max")
+
+
+def test_choose_strategy_and_tier_error_bound_match_jax(corpus, mesh8):
+    tmesh = make_mesh((2, 4), device="cpu")
+    for name in ("chain_skewed", "gram_AtA", "replicated_operand_matmul"):
+        je = corpus[name]
+        jopt = j_rules.optimize(je, JConfig(), grid=(2, 4), mesh=mesh8)
+        topt = t_rules.optimize(to_port(je, tmesh), MatrelConfig(),
+                                grid=(2, 4), mesh=tmesh)
+        jm = [n for n in _walk_nodes(jopt) if n.kind == "matmul"]
+        tm = [n for n in _walk_nodes(topt) if n.kind == "matmul"]
+        assert len(jm) == len(tm) > 0
+        for j, t in zip(jm, tm):
+            assert t_planner.choose_strategy(t, tmesh) \
+                == j_planner.choose_strategy(j, mesh8)
+    for tier in t_planner.TIER_EPS:
+        for k, amax, bmax in ((1, 1.0, 1.0), (4096, 2.5, 0.5)):
+            assert t_planner.tier_error_bound(tier, k, amax, bmax) \
+                == j_planner.tier_error_bound(tier, k, amax, bmax)
+
+
+def _walk_nodes(e):
+    out, seen = [], set()
+
+    def walk(n):
+        if n.uid in seen:
+            return
+        seen.add(n.uid)
+        for c in n.children:
+            walk(c)
+        out.append(n)
+
+    walk(e)
+    return out
+
+
+def test_compile_chain_matches_jax(jmesh):
+    from matrel_tpu.workloads import chain_bench as j_chain_bench
+    js, ts = sessions(jmesh)
+    rng = np.random.default_rng(4)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((300, 20), (20, 300), (300, 20))]
+    jm = [js.from_numpy(a) for a in arrs]
+    tm = [ts.from_numpy(a) for a in arrs]
+    jplan, jparen, jcost = j_chain_bench.compile_chain(jm)
+    tplan, tparen, tcost = t_chain_bench.compile_chain(tm)
+    assert tparen == jparen == "(A·(B·C))"
+    assert tcost == pytest.approx(jcost, rel=1e-12)
+    np.testing.assert_allclose(tplan.run().to_numpy(),
+                               jplan.run().to_numpy(), rtol=1e-4, atol=1e-3)

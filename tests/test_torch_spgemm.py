@@ -219,8 +219,11 @@ def test_mismatched_block_sizes_take_the_densify_path(jmesh, tmesh):
                                atol=1e-4)
     with pytest.raises(ValueError, match="block sizes"):
         sg.spgemm_tiles(A, B)
-    with pytest.raises(NotPortedError, match="epilogue"):
-        sg.apply_dense(A, A, epilogue=lambda x: x)
+    # the fused epilogue slot runs over the dense output of the
+    # generic class (its registered "dense" hook)
+    np.testing.assert_array_equal(
+        sg.apply_dense(A, A, epilogue=lambda x: x * 2.0).numpy(),
+        sg.apply_dense(A, A).numpy() * 2.0)
 
 
 def test_bf16_session_keeps_the_payload_dtype(jmesh, tmesh):

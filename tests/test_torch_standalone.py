@@ -14,8 +14,11 @@ ported.
   σ/γ/⋈ methods, ``sql.py``, ``io.py`` with its native readers, the
   triangle and similarity workloads) run on the CPU with the JAX
   package blocked.
-- Node kinds outside ``LOWERED_KINDS``, the fused SpGEMM epilogue and
-  knobs of unported planes raise ``NotPortedError``.
+- Whole-plan fusion (``ir/fusion.py``, the unit programs) and
+  staged-reshard planning (``parallel/reshard.py``) run on the CPU with
+  the JAX package blocked.
+- Node kinds outside ``LOWERED_KINDS`` and knobs of unported planes
+  raise ``NotPortedError``.
 """
 
 import ast
@@ -144,6 +147,61 @@ def test_spgemm_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "standalone spgemm ok" in proc.stdout
+
+
+def test_fusion_and_reshard_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "matrel_tpu"):
+            sys.modules[name] = None          # import raises ImportError
+        import numpy as np
+        from matrel_tpu_torch import MatrelConfig, MatrelSession, executor
+        from matrel_tpu_torch.core.mesh import make_mesh
+        from matrel_tpu_torch.ir import fusion
+        from matrel_tpu_torch.ops import kernel_registry as kr
+        rng = np.random.default_rng(0)
+        mesh = make_mesh((2, 4), device="cpu")
+        on = MatrelConfig(fusion_enable=True)
+        s = MatrelSession(mesh=mesh, config=on)
+        x = rng.standard_normal((32, 16)).astype(np.float32)
+        X = s.from_numpy(x)
+        e = X.expr().t().multiply(X.expr()).multiply_scalar(0.5) \\
+            .row_sum()
+        plan = s.compile(e)
+        assert len(fusion.collect_stamps(plan.optimized)) == 1
+        out = s.compute(e).to_numpy()
+        assert np.allclose(out, (x.T @ x * 0.5).sum(1, keepdims=True),
+                           rtol=1e-4, atol=1e-4)
+        ru = executor.compile_region_units(e, mesh, on)
+        su = executor.compile_staged_units(e, mesh, on)
+        assert ru.dispatches < su.dispatches
+        assert np.array_equal(ru.run().numpy(), su.run().numpy())
+        A = kr.synthesize_structure("row_band", 128, 8,
+                                    make_mesh(device="cpu"), seed=1)
+        q = A.multiply(A).multiply_scalar(0.5).power(2.0)
+        cfg8 = MatrelConfig(block_size=8, spgemm_density_threshold=0.6)
+        fused = MatrelSession(config=cfg8.replace(fusion_enable=True),
+                              device="cpu").compute(q).to_numpy()
+        staged = MatrelSession(config=cfg8, device="cpu").compute(q)
+        assert np.array_equal(fused, staged.to_numpy())
+        bud = MatrelSession(mesh=mesh, config=MatrelConfig(
+            reshard_peak_budget_bytes=1 << 20))
+        Y = bud.from_numpy(rng.standard_normal((48, 32)).astype(np.float32))
+        assert np.array_equal(bud.compute(Y.multiply(X)).to_numpy(),
+                              MatrelSession(mesh=mesh).compute(
+                                  Y.multiply(X)).to_numpy())
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "matrel_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("standalone fusion ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone fusion ok" in proc.stdout
 
 
 def test_solvers_and_routed_spmv_without_jax():
@@ -342,12 +400,15 @@ def test_unported_planes_and_kinds_raise():
     from matrel_tpu_torch.ir.expr import MatExpr
     with pytest.raises(NotPortedError, match="not_a_kind"):
         s.compute(MatExpr("not_a_kind", (A.expr(),), (4, 4), None))
-    with pytest.raises(NotPortedError, match="reshard_peak_budget_bytes"):
-        MatrelConfig(reshard_peak_budget_bytes=1 << 20)
+    with pytest.raises(NotPortedError, match="cse_enable"):
+        MatrelConfig(cse_enable=True)
     with pytest.raises(NotPortedError, match="pallas_interpret"):
         MatrelConfig(pallas_interpret=True)
     from matrel_tpu_torch.ops import spgemm
     sp = np.eye(16, dtype=np.float32)
     S = BlockSparseMatrix.from_numpy(sp, block_size=8, mesh=s.mesh)
-    with pytest.raises(NotPortedError, match="epilogue"):
-        spgemm.apply_dense(S, S, epilogue=lambda x: x)
+    with pytest.raises(NotPortedError, match="delta_patch_mode"):
+        MatrelConfig().replace(delta_patch_mode="patch")
+    # the fused SpGEMM epilogue slot is ported (ir/fusion.py)
+    assert torch.equal(spgemm.apply_dense(S, S, epilogue=lambda x: -x),
+                       -spgemm.apply_dense(S, S))
