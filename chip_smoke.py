@@ -173,6 +173,32 @@
    off. Warm compute() latency of both forms of (b)-(d), in turns
    (fused, unfused, unfused, fused; CUDA events, medians of 10).
 
+9. spgemm_library: torch.sparse.mm of each S×S pair's element-CSR
+   forms in f32 (cuSPARSE SpGEMM) at n = 100,352, by CUDA events, as the
+   library column of B4–B7 (xla_gather kept beside it); where cuSPARSE
+   cannot hold its workspace, the failure and the operand sizes. Then
+   path_multirank, last: four ranks spawned on a 2 x 2 grid (NCCL with a
+   card a rank where there are four cards, else gloo with all four on
+   this card; the backend, each rank's device and the collectives staged
+   through host memory are printed), each running through
+   MatrelSession(mesh=<rank mesh>): row 1 under each strategy forced in
+   turn (the collective tally, ms a product by CUDA events between
+   barriers, the error against the one-rank product within
+   8·u·√K·‖X_i‖·‖Y_:j‖, bit-equality; BMM also under a 64 MiB reshard
+   budget, its staged moves bit-equal to budget 0), row 2 under the
+   planner's stamps (equal to the one-card planner's on a virtual
+   (2, 2) grid) and under the budget, measure_reshard_variant staged
+   against naive, row 5's A·x (bit-equal to one card) and A·X (k = 16)
+   through COOMatrix.shard and compute (B2 / B3 on each rank's slice) and
+   the 30-round sharded PageRank (ms a round, against float64 scipy),
+   spgemm_sharded at n = 32,768, spmm_sharded at row 4's shape,
+   streaming_chain_sharded at n = 65,536 (one panel a rank, within
+   (p - 1)·u of the one-card slab) and autotune_matmul at 4096 (one
+   winner on every rank), each rank under its own peak bounds
+   (MR_PEAK_LIMIT_GIB). The ranks' B2 / B3 launches join the kernels
+   line (launches_on_ranks). The kernel phase also holds B2 / B3 on the
+   sentinel-padded slices of four ranks (spmv_slice_phase).
+
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when there is no CUDA device or a phase fails.
@@ -182,6 +208,12 @@ result, when there is no CUDA device or a phase fails.
 runs only B1's f32 crossover sweep and its wide body at row 4's shape,
 and prints digests of B4–B7's f32 outputs: run from two checkouts in one
 call, it compares two builds of the f32 bodies on one card.
+
+    python3 chip_smoke.py --multirank
+
+runs only path_multirank (after the build and the one-card 65k slab it
+is held against): on a host with four cards its ranks take NCCL, a card
+a rank.
 """
 
 from __future__ import annotations
@@ -684,6 +716,34 @@ def b1_f32_only() -> int:
     return 0
 
 
+def multirank_only() -> int:
+    """``python3 chip_smoke.py --multirank``: only path_multirank (after
+    building the kernels and one-card 65k slab it is held against), so
+    that it can run alone on a host with four cards, where its ranks
+    take NCCL. Prints the card line and the ranks' B2 / B3 launches."""
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
+                                      pallas_spmv, spmv_routed)
+    from matrel_tpu_torch.utils import cuda_build
+    from matrel_tpu_torch.workloads import big_chain
+    card = device_line()
+    log(f"torch {torch.__version__}; {torch.cuda.device_count()} card(s);"
+        f" {card}")
+    modules = (pallas_spmm, pallas_spmv, pallas_spgemm, spmv_routed)
+    cuda_build.build([cuda_build.CSRC_DIR / m.SOURCE for m in modules])
+    sess = MatrelSession()
+    gens = north_star_gens(NS_TILE, sess.device)
+    fro = float(big_chain.streaming_chain_slab(NS_N, *gens, tile=NS_TILE,
+                                               panel=NS_PANEL))
+    del gens
+    torch.cuda.empty_cache()
+    out = path_multirank(sess, fro)
+    print(card)
+    print(json.dumps({"multirank_launches": out["launches"]}))
+    return 0
+
+
 def csr_form(S):
     """The element-CSR form of S (int32 indices), built on the device
     block row by block row — the input of the library yardstick."""
@@ -996,6 +1056,59 @@ def spmv_kernel_phase(dev) -> None:
                 log(f"kernel spmm_compact [{name}] k={k} passes={passes}: "
                     f"max_abs_err {err:.3e} vs plain, {e_or:.3e} vs "
                     f"float64 oracle ok")
+    spmv_slice_phase(dev)
+
+
+def spmv_slice_phase(dev, ranks: int = 4) -> None:
+    """B2 and B3 on the sentinel-padded slices a rank mesh of ``ranks``
+    ranks gives each rank (spmv.shard_plan, each slice's own CSR view):
+    a one-block plan (ranks 1-3 hold no real block row) and a plan of
+    exactly one block a rank (a slice's n_rows = rows_per_rank · 512).
+    Each launch against its plain version on the slice's tables; the
+    slices' rows, concatenated, bit-equal to B2 over the whole plan (B2
+    walks a slice with the whole view's sub-warp width)."""
+    import types
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.ops import pallas_spmv as pc
+    from matrel_tpu_torch.ops import spmv as spmv_lib
+    for name, n_rows, m in (("one block", 300, 500),
+                            ("one block a rank", ranks * 512, 6000)):
+        _, _, _, plan = spmv_case(n_rows, 700, m, 77)
+        rng = np.random.default_rng(78)
+        x = torch.as_tensor(rng.standard_normal(700).astype(np.float32),
+                            device=dev)
+        X = torch.as_tensor(rng.standard_normal((700, 16)).astype(
+            np.float32), device=dev)
+        whole = pc.spmv_scatter(pc.csr_view_on(plan, dev), x)
+        ys, nnz = [], []
+        for r in range(ranks):
+            fake = types.SimpleNamespace(
+                size=ranks, ranks=types.SimpleNamespace(rank=r))
+            sl = spmv_lib.shard_plan(plan, fake)
+            loc = sl.local
+            view = pc.csr_view_on(loc, dev)
+            tables = pc.compact_tables(loc, dev)
+            y = pc.spmv_scatter(view, x, 3, sl.lanes)
+            Y = pc.spmm_scatter(view, X, 3)
+            rel_err(f"B2 slice [{name}] rank {r}", y,
+                    pc.spmv_scatter_plain(*tables, x, loc.n_rows,
+                                          loc.block, 3), SPMV_REL_TOL[3])
+            rel_err(f"B3 slice [{name}] rank {r}", Y,
+                    pc.spmm_scatter_plain(*tables, X, loc.n_rows,
+                                          loc.block, 3), SPMV_REL_TOL[3])
+            if view.nnz == 0 and (y.abs().max() != 0 or Y.abs().max() != 0):
+                raise AssertionError(f"slice [{name}] rank {r}: a slice "
+                                     f"with no real slot gave nonzeros")
+            ys.append(y)
+            nnz.append(view.nnz)
+        got = torch.cat(ys)[:n_rows]
+        if not torch.equal(got, whole):
+            raise AssertionError(f"B2 slices [{name}]: not bit-equal to "
+                                 f"the whole plan's B2")
+        log(f"kernel spmv_compact / spmm_compact [{name}, {ranks} rank "
+            f"slices of {loc.n_rows} rows, nnz {nnz}]: vs plain ok, "
+            f"slices bit-equal to the whole plan")
 
 
 def row5_graph():
@@ -2197,6 +2310,49 @@ def spgemm_timing(mesh) -> dict:
     return rows
 
 
+def spgemm_library(mesh, rows: dict) -> None:
+    """One PyTorch call beside each of B4–B7: torch.sparse.mm of the two
+    operands' element-CSR forms in f32 (cuSPARSE SpGEMM; f32 because its
+    bf16 SpGEMM is not offered) at spgemm_timing's shapes, by CUDA
+    events. It becomes the row's library_ms; where it runs out of device
+    memory or workspace, library_ms is None and ``library_oom`` says at
+    which operand sizes and how it failed. The xla_gather composite stays as xla_gather_ms.
+    Run after the run's peak is read: cuSPARSE's workspace is not the
+    port's memory."""
+    import torch
+    for name, _kid, A, B, _dtype in spgemm_pairs_at(mesh, SPGEMM_N):
+        row = rows[name]
+        row.setdefault("xla_gather_ms", row["library_ms"])
+        a = b = None
+        try:
+            a, b = (torch.sparse_csr_tensor(
+                c.crow_indices(), c.col_indices(), c.values().float(),
+                size=c.shape) for c in (csr_form(A), csr_form(B)))
+            del A, B
+            c = torch.sparse.mm(a, b)
+            nnz_out = int(c._nnz())
+            del c
+            ms = time_ms(lambda: torch.sparse.mm(a, b), warmup=1, runs=5)
+            row["library_ms"] = ms
+            row.pop("library_oom", None)
+            log(f"library torch.sparse.mm (cuSPARSE SpGEMM, f32 CSR) "
+                f"{name} n={SPGEMM_N:,}: {ms:.4f} ms, nnz {a._nnz():,} x "
+                f"{b._nnz():,} -> {nnz_out:,}")
+        except (torch.OutOfMemoryError, RuntimeError) as ex:
+            # cuSPARSE reports a workspace it cannot hold as an error of
+            # its own (CUSPARSE_STATUS_INSUFFICIENT_RESOURCES)
+            sizes = ("" if a is None else
+                     f"operand nnz {a._nnz():,} x {b._nnz():,}, ")
+            row["library_ms"] = None
+            row["library_oom"] = (f"{sizes}{type(ex).__name__}: "
+                                  f"{str(ex).splitlines()[0][:200]}")
+            log(f"library torch.sparse.mm {name} n={SPGEMM_N:,}: "
+                f"{row['library_oom']}")
+        finally:
+            del a, b
+            torch.cuda.empty_cache()
+
+
 def sampled_tiles_err(name, A, B, dense, dtype_name, rnd) -> float:
     """Max abs error of 8 random output tiles of the dense product A·B
     against a float64 numpy sum over their pairs (tolerance TOL)."""
@@ -2775,7 +2931,7 @@ def path_north_star(dev) -> dict:
                              f"{NS_PEAK_LIMIT_BYTES / 2**30:.2f} GiB")
     return {"s": secs, "tflops": flops / s_best / 1e12, "split": split,
             "peak_gib": peak / 2**30, "accum_s": accum_s, "rel": rel,
-            "small_rel": small_rel}
+            "small_rel": small_rel, "fro": warm}
 
 
 # -- the relational and SQL surface -------------------------------------------
@@ -4624,6 +4780,586 @@ def path_fusion(sess) -> dict:
             "peak_gib": peak}
 
 
+# -- multi-rank execution over torch.distributed (path_multirank) --------------
+
+#: The rank grid: 4 ranks, 2 × 2 (the square grid SUMMA needs).
+MR_GRID = (2, 2)
+#: Row 1's side (4096² f32) and row 2's (n, mid).
+MR_ROW1_N, MR_ROW2 = 4096, (10_000, 100)
+#: A rank that has not finished in this time fails the phase.
+MR_TIMEOUT_S = 600.0
+#: Row 1's product under each strategy forced in turn.
+MR_STRATEGIES = ("bmm_left", "bmm_right", "cpmm", "rmm", "summa", "xla")
+#: Row 2 planned again under this staged-reshard peak budget.
+MR_RESHARD_BUDGET = 64 << 20
+#: spgemm_sharded's side (1% random bf16 512-blocks, path_spgemm's pair).
+MR_SPGEMM_N = 32_768
+#: autotune_matmul's side on the rank grid.
+MR_AT_SIDE = 4096
+#: Each rank's own peak device memory bound (GiB), per sub-phase:
+#: 1.25 × the peak every rank read on the card (four ranks on one H100
+#: 80GB HBM3 over gloo, PERF.md §6; the chain's is one 16,384-row panel).
+MR_PEAK_LIMIT_GIB = {k: 1.25 * v for k, v in {
+    "row1": 0.422, "row2": 0.132, "row5": 0.438, "spgemm": 0.166,
+    "spmm": 0.920, "chain": 7.000, "autotune": 0.297}.items()}
+#: The single-rank answers the ranks compare with, written by the parent.
+MR_DIR = os.path.join(HERE, "build", "chip_smoke", "multirank")
+
+
+def mr_stamps(plan) -> list:
+    """Matmul strategy stamps of a plan, in post-order."""
+    out = []
+
+    def walk(n):
+        for c in n.children:
+            walk(c)
+        if n.kind == "matmul":
+            out.append(n.attrs.get("strategy"))
+
+    walk(plan.optimized)
+    return out
+
+
+def mr_free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class MrRank:
+    """One rank's side of path_multirank: its mesh, a timer that reads
+    CUDA events on rank 0 between barriers, and its own peak meter."""
+
+    def __init__(self, mesh, limits: dict):
+        self.mesh = mesh
+        self.rank = mesh.ranks.rank
+        self.limits = limits
+        self.out = {"peaks": {}}
+
+    def timed(self, fn, runs: int = 3):
+        """(result, ms): the median of ``runs`` runs of ``fn``, each
+        between two barriers, timed by CUDA events on this rank."""
+        import torch
+        from matrel_tpu_torch.parallel import collectives as coll
+        times, res = [], None
+        for _ in range(runs):
+            coll.barrier(self.mesh)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn()
+            stop.record()
+            stop.synchronize()
+            coll.barrier(self.mesh)
+            times.append(start.elapsed_time(stop))
+        return res, statistics.median(times)
+
+    @contextlib.contextmanager
+    def meter(self, name: str):
+        import gc
+        import torch
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        yield
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        self.out["peaks"][name] = peak
+        if peak > self.limits[name]:
+            raise AssertionError(f"rank {self.rank} {name}: peak device "
+                                 f"memory {peak:.3f} GiB > "
+                                 f"{self.limits[name]:.3f} GiB")
+
+    def block_of(self, full, spec):
+        """This rank's block of a whole host array under ``spec``."""
+        from matrel_tpu_torch.parallel import collectives as coll
+        r0, r1, c0, c1 = coll.rect(coll.layout_of(spec, self.mesh),
+                                   self.mesh.ranks.coords, self.mesh.grid,
+                                   full.shape)
+        return full[r0:r1, c0:c1]
+
+
+def mr_row1(me: MrRank) -> dict:
+    """Row 1 (4096² f32) under each strategy forced in turn: tally, ms a
+    product, max error against the single-rank product within
+    8·u·√K·‖X_i‖·‖Y_:j‖, and whether it is bit-equal to it."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.parallel import collectives as coll
+    ref = np.load(os.path.join(MR_DIR, "row1_ref.npy"), mmap_mode="r")
+    xr, yc = np.load(os.path.join(MR_DIR, "row1_norms.npy"))
+    # 8·u·√K·‖X_i‖₂·‖Y_:j‖₂ (Cauchy-Schwarz over Σ_k |x_ik·y_kj|, which
+    # bounds every partial sum of the row's dot product: uniform [0, 1)
+    # entries make the partial sums, not the terms, set the rounding)
+    tol = (PROD_C * U32 * math.sqrt(MR_ROW1_N)
+           * np.outer(xr, yc)).astype(np.float32)
+    out = {}
+    for s in MR_STRATEGIES:
+        sess = MatrelSession(mesh=me.mesh,
+                             config=MatrelConfig(strategy_override=s))
+        X = sess.random((MR_ROW1_N, MR_ROW1_N), seed=4)
+        Y = sess.random((MR_ROW1_N, MR_ROW1_N), seed=5)
+        e = X.multiply(Y)
+        stamps = mr_stamps(sess.compile(e))
+        sess.compute(e)                       # warm
+        coll.reset_tally()
+        res, ms = me.timed(lambda: sess.compute(e), runs=1)
+        tally = coll.tally()
+        _, ms = me.timed(lambda: sess.compute(e), runs=3)
+        got = res.data.cpu().numpy()
+        want = me.block_of(ref, res.spec)
+        bound = me.block_of(tol, res.spec)
+        err = np.abs(got - want)
+        if not np.isfinite(got).all() or (err > bound).any():
+            raise AssertionError(f"row 1 {s}: {int((err > bound).sum())} "
+                                 f"entries past 8·u·√K·‖X_i‖·‖Y_:j‖ (max "
+                                 f"err {float(err.max()):.3e})")
+        out[s] = {"stamps": stamps, "tally": tally, "ms": ms,
+                  "max_abs_err": float(err.max()),
+                  "err_over_bound": float((err / bound).max()),
+                  "bit_equal": bool(np.array_equal(got, want))}
+        if s.startswith("bmm"):
+            # the BMM operand re-lay (2d -> row / col) and the root's
+            # re-lay staged under a budget: apply_staged moves the blocks
+            out[s]["staged"] = mr_staged(me, s, X, Y, got)
+        del sess, X, Y, e, res
+    return out
+
+
+def mr_staged(me: MrRank, strategy: str, X, Y, want) -> dict:
+    """Row 1 under ``strategy`` and MR_RESHARD_BUDGET: the staged moves
+    the plan records and their collectives, bit-equal to budget 0."""
+    import numpy as np
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.executor import plan_matmul_decisions
+    from matrel_tpu_torch.parallel import collectives as coll
+    sess = MatrelSession(mesh=me.mesh, config=MatrelConfig(
+        strategy_override=strategy,
+        reshard_peak_budget_bytes=MR_RESHARD_BUDGET))
+    e = X.multiply(Y)
+    plan = sess.compile(e)
+    coll.reset_tally()
+    got = plan.run().data.cpu().numpy()
+    tally = coll.tally()
+    if not np.array_equal(got, want):
+        raise AssertionError(f"row 1 {strategy} under a reshard budget: "
+                             f"not bit-equal to budget 0")
+    moves = [d.get("reshard") for d in plan_matmul_decisions(plan)]
+    return {"moves": moves, "tally": tally}
+
+
+def mr_row2(me: MrRank) -> dict:
+    """Row 2's skewed A·B·C under the planner's own stamps, then under a
+    staged-reshard budget (apply_staged moving for real), bit-equal to
+    budget 0; measure_reshard_variant, staged against naive."""
+    import numpy as np
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.parallel import autotune, reshard
+    from matrel_tpu_torch.executor import plan_matmul_decisions
+    from matrel_tpu_torch.workloads import chain_bench
+    ref = np.load(os.path.join(MR_DIR, "row2_ref.npy"), mmap_mode="r")
+    outs, rec = {}, {}
+    for budget in (0, MR_RESHARD_BUDGET):
+        sess = MatrelSession(mesh=me.mesh, config=MatrelConfig(
+            reshard_peak_budget_bytes=budget))
+        mats = chain_bench.skewed_abc(me.mesh, *MR_ROW2, seed=3)
+        e = chain_bench.build_chain(mats)
+        plan = sess.compile(e)
+        res, ms = me.timed(lambda: sess.compute(e), runs=3)
+        outs[budget] = res.data.cpu().numpy()
+        rec[budget] = {"stamps": mr_stamps(plan), "ms": ms,
+                       "paren": chain_bench.parenthesisation(plan.optimized),
+                       "moves": [d.get("reshard") for d in
+                                 plan_matmul_decisions(plan)]}
+    want = me.block_of(ref, res.spec)
+    rel = float(np.abs(outs[0] - want).max() / np.abs(ref).max())
+    if rel > 1e-5:
+        raise AssertionError(f"row 2: rel err {rel} vs float64")
+    if not np.array_equal(outs[0], outs[MR_RESHARD_BUDGET]):
+        raise AssertionError("row 2: budgeted result not bit-equal to "
+                             "budget 0")
+    plan = reshard.compile_reshard("row", "col", MR_ROW1_N ** 2 * 4.0,
+                                   *me.mesh.grid, peak_budget=1.0)
+    times = {v: autotune.measure_reshard_variant(v, plan, me.mesh)
+             for v in autotune.RESHARD_VARIANTS}
+    return {"plans": rec, "rel_err": rel,
+            "reshard_ms": {k: v * 1e3 for k, v in times.items()},
+            "reshard_steps": plan.step_kinds}
+
+
+def mr_row5(me: MrRank) -> dict:
+    """Row 5: A·x and A·X (k = 16) through COOMatrix.shard and compute
+    (B2, B3 on each rank's slice), then the 30-round sharded PageRank.
+    Launches of B2 and B3 counted from here to the end."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.ops import pallas_spmv as pc
+    from matrel_tpu_torch.workloads import pagerank as pr
+    src, dst, A = row5_matrix()
+    dev = me.mesh.device
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(ROW5_N).astype(np.float32)
+    X = rng.standard_normal((ROW5_N, ROW5_K)).astype(np.float32)
+    pc.LAUNCHES_SPMV = pc.LAUNCHES_SPMM = 0
+    t0 = time.perf_counter()
+    As = A.shard(me.mesh)
+    y = As.matvec(x).cpu().numpy()
+    Y = As.matmat(X).cpu().numpy()
+    first_s = time.perf_counter() - t0
+    sess = MatrelSession(mesh=me.mesh)
+    Xb = sess.from_numpy(X)
+    Yc = sess.compute(A.expr().multiply(Xb))
+    xb = sess.from_numpy(x[:, None])
+    yc = sess.compute(A.expr().multiply(xb))
+    y1 = np.load(os.path.join(MR_DIR, "row5_y.npy"))
+    Y1 = np.load(os.path.join(MR_DIR, "row5_Y.npy"), mmap_mode="r")
+    if not np.array_equal(y, y1):
+        raise AssertionError(f"row 5 A·x sharded: not bit-equal to one "
+                             f"card ({int((y != y1).sum())} rows differ)")
+    rel_Y = float(np.abs(Y - Y1).max() / np.abs(Y1).max())
+    if rel_Y > SPMV_REL_TOL[3]:
+        raise AssertionError(f"row 5 A·X sharded: rel err {rel_Y}")
+    gotc = Yc.data.cpu().numpy()
+    if not np.array_equal(gotc, me.block_of(np.asarray(Y), Yc.spec)):
+        raise AssertionError("row 5 compute(A·X) differs from matmat")
+    if not np.array_equal(yc.data.cpu().numpy(),
+                          me.block_of(y[:, None], yc.spec)):
+        raise AssertionError("row 5 compute(A·x) differs from matvec")
+    xd = torch.as_tensor(x, device=dev)
+    Xd = torch.as_tensor(X, device=dev)
+    spmv_ms = me.timed(lambda: As.matvec(xd), runs=5)[1]
+    spmm_ms = me.timed(lambda: As.matmat(Xd), runs=5)[1]
+    r = pr.pagerank_edges(src, dst, ROW5_N, rounds=ROW5_ROUNDS,
+                          impl="onehot", passes=3, mesh=me.mesh)
+    prepared = pr.prepare_pagerank_onehot(src, dst, ROW5_N, device=dev)
+    pr_ms = me.timed(lambda: pr.run_pagerank_sharded(
+        prepared, me.mesh, ROW5_ROUNDS, passes=3), runs=3)[1]
+    r = r.double().cpu().numpy()
+    ref = np.load(os.path.join(MR_DIR, "row5_pr64.npy"))
+    r1 = np.load(os.path.join(MR_DIR, "row5_pr.npy"))
+    err64 = float(np.abs(r - ref).max())
+    if not np.isfinite(r).all() or err64 > 1e-5:
+        raise AssertionError(f"row 5 sharded PageRank: max err {err64} vs "
+                             f"float64 scipy")
+    return {"launches": {"spmv_compact": pc.LAUNCHES_SPMV,
+                         "spmm_compact": pc.LAUNCHES_SPMM},
+            "first_s": first_s, "spmv_ms": spmv_ms, "spmm_ms": spmm_ms,
+            "pagerank_round_ms": pr_ms / ROW5_ROUNDS,
+            "pagerank_err_f64": err64,
+            "pagerank_vs_one_card": float(np.abs(r - r1).max()),
+            "rel_err_Y": rel_Y}
+
+
+def mr_sparse(me: MrRank) -> dict:
+    """spgemm_sharded on path_spgemm's 1% random bf16 pair at n = 32,768
+    and spmm_sharded at row 4's shape, against the single-rank results."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.core.mesh import make_mesh
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    from matrel_tpu_torch.ops import spgemm as sg
+    sess = MatrelSession(mesh=me.mesh)
+    out = {}
+    with me.meter("spgemm"):
+        A, B = (BlockSparseMatrix.random(
+            (MR_SPGEMM_N, MR_SPGEMM_N), 0.01, block_size=512, mesh=me.mesh,
+            seed=s, dtype="bfloat16") for s in (2, 3))
+        C, ms = me.timed(lambda: sg.spgemm_sharded(A, B), runs=3)
+        want = torch.as_tensor(np.load(os.path.join(MR_DIR,
+                                                    "spgemm_tiles.npy")))
+        got = C.blocks.float().cpu()
+        err = check_close("spgemm_sharded", got.reshape(-1, 512),
+                          want.reshape(-1, 512), "bfloat16")
+        out["spgemm"] = {"ms": ms, "max_abs_err": err,
+                         "tiles": int(C.nnzb)}
+        del A, B, C
+    with me.meter("spmm"):
+        # row 4's S and D from their seeds; D whole on every rank, as
+        # the one-card session makes it
+        S, _ = row4_inputs(sess)
+        one = MatrelSession(mesh=make_mesh(device=me.mesh.device))
+        Dt = one.random((S.shape[1], 512), dtype="bfloat16", seed=2).data
+        Ss = S.shard(me.mesh)
+        R, ms = me.timed(lambda: Ss.multiply(Dt), runs=3)
+        want = me.block_of(np.load(os.path.join(MR_DIR, "spmm_ref.npy"),
+                                   mmap_mode="r"), R.spec)
+        err = check_close("spmm_sharded", R.data.float().cpu(),
+                          torch.as_tensor(np.array(want)), "bfloat16")
+        out["spmm"] = {"ms": ms, "max_abs_err": err, "cap": Ss.cap,
+                       "padding_ratio": Ss.padding_ratio}
+        del S, Ss, Dt, R, one
+    return out
+
+
+def mr_chain(me: MrRank) -> dict:
+    """streaming_chain_sharded at bench_all.py's sizes: one 16,384-row
+    panel a rank, one all_reduce of the scalar."""
+    import torch
+    from matrel_tpu_torch.workloads import big_chain
+    gens = north_star_gens(NS_TILE, me.mesh.device)
+    run = lambda: big_chain.streaming_chain_sharded(
+        NS_N, *gens, me.mesh, tile=NS_TILE, panel=NS_PANEL)
+    float(run())                                    # warm
+    secs = []
+    vals = []
+    for _ in range(2):
+        from matrel_tpu_torch.parallel import collectives as coll
+        coll.barrier(me.mesh)
+        t0 = time.perf_counter()
+        vals.append(float(run()))
+        secs.append(time.perf_counter() - t0)
+    return {"s": secs, "fro": vals[0], "same": vals[0] == vals[1]}
+
+
+def mr_autotune(me: MrRank) -> dict:
+    from matrel_tpu_torch.parallel import autotune
+    autotune._DEFAULT_TABLE = os.path.join(MR_DIR, "autotune.json")
+    best, times = autotune.autotune_matmul(MR_AT_SIDE, MR_AT_SIDE,
+                                           MR_AT_SIDE, mesh=me.mesh)
+    return {"best": best, "ms": {k: v * 1e3 for k, v in times.items()}}
+
+
+def mr_rank(rank: int, world: int, backend: str, init: str,
+            limits: dict) -> None:
+    """One rank of path_multirank: its log to ``rank<r>.log``, its
+    results to ``rank<r>.json`` under MR_DIR; ``limits`` the sub-phases'
+    peak-memory bounds (GiB)."""
+    import torch
+    log_f = open(os.path.join(MR_DIR, f"rank{rank}.log"), "w")
+    os.dup2(log_f.fileno(), 1)
+    os.dup2(log_f.fileno(), 2)
+    sys.path.insert(0, HERE)
+    from matrel_tpu_torch.core import mesh as mesh_lib
+    device = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+    mesh = mesh_lib.init_distributed(backend, init, world, rank,
+                                     grid=MR_GRID, device=device,
+                                     timeout_s=MR_TIMEOUT_S)
+    me = MrRank(mesh, limits)
+    me.out.update(backend=backend, world=world, device=str(mesh.device),
+                  coords=mesh.ranks.coords,
+                  host_staged=sorted(mesh.ranks.host_staged))
+    log(f"rank {rank}: backend {backend}, world {world}, device "
+        f"{mesh.device}, cell {mesh.ranks.coords}, host-staged "
+        f"{sorted(mesh.ranks.host_staged)}")
+    for name, fn in (("row1", mr_row1), ("row2", mr_row2),
+                     ("row5", mr_row5), ("sparse", mr_sparse),
+                     ("chain", mr_chain), ("autotune", mr_autotune)):
+        log(f"rank {rank}: {name}")
+        if name in limits:
+            with me.meter(name):
+                me.out[name] = fn(me)
+        else:
+            me.out[name] = fn(me)
+    # a failing rank raises before this: the parent kills the others
+    mesh_lib.shutdown_distributed()
+    with open(os.path.join(MR_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(me.out, f)
+
+
+def mr_references(sess, ns_fro: float) -> None:
+    """The single-rank answers, from the same seeds, on this card: row
+    1's product and its 8·u·√K·‖row‖ bound, row 2's float64 chain, row
+    5's A·x, A·X and PageRank (and float64 scipy's), spgemm's tiles and
+    row 4's product."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.ops import spgemm as sg
+    from matrel_tpu_torch.parallel import strategies
+    from matrel_tpu_torch.workloads import chain_bench, pagerank as pr
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    os.makedirs(MR_DIR, exist_ok=True)
+    save = lambda name, a: np.save(os.path.join(MR_DIR, name), a)
+    X = sess.random((MR_ROW1_N, MR_ROW1_N), seed=4).data
+    Y = sess.random((MR_ROW1_N, MR_ROW1_N), seed=5).data
+    save("row1_ref.npy", strategies.local_dot(X, Y).cpu().numpy())
+    # the bound's row norms of X and column norms of Y (mr_row1)
+    save("row1_norms.npy", np.stack([
+        X.double().norm(dim=1).cpu().numpy(),
+        Y.double().norm(dim=0).cpu().numpy()]))
+    del X, Y
+    mats = chain_bench.skewed_abc(sess.mesh, *MR_ROW2, seed=3)
+    A, B, C = (m.data.double() for m in mats)
+    save("row2_ref.npy", (A @ (B @ C)).cpu().numpy())
+    del A, B, C, mats
+    src, dst, M = row5_matrix()
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(ROW5_N).astype(np.float32)
+    X = rng.standard_normal((ROW5_N, ROW5_K)).astype(np.float32)
+    dev = sess.device
+    save("row5_y.npy", M.matvec(x, device=dev).cpu().numpy())
+    save("row5_Y.npy", M.matmat(X, device=dev).cpu().numpy())
+    save("row5_pr.npy", pr.pagerank_edges(
+        src, dst, ROW5_N, rounds=ROW5_ROUNDS, impl="onehot", passes=3,
+        device=dev).double().cpu().numpy())
+    save("row5_pr64.npy", pagerank_oracle(src, dst, ROW5_N, ROW5_ROUNDS))
+    del M, src, dst
+    SA, SB = (BlockSparseMatrix.random(
+        (MR_SPGEMM_N, MR_SPGEMM_N), 0.01, block_size=512, mesh=sess.mesh,
+        seed=s, dtype="bfloat16") for s in (2, 3))
+    save("spgemm_tiles.npy", sg.spgemm(SA, SB).blocks.float().cpu().numpy())
+    del SA, SB
+    S, D = row4_inputs(sess)
+    save("spmm_ref.npy", sess.compute(S.multiply(D)).data.float()
+         .cpu().numpy())
+    del S, D
+    with open(os.path.join(MR_DIR, "one_card.json"), "w") as f:
+        json.dump({"ns_fro": ns_fro}, f)
+    torch.cuda.empty_cache()
+
+
+def path_multirank(sess, ns_fro: float) -> dict:
+    """Four ranks on a 2 × 2 grid through MatrelSession(mesh=<rank
+    mesh>), each held against the single-rank answers: row 1 under every
+    strategy, row 2 under the planner's stamps (equal to the one-card
+    planner's on a virtual (2, 2) grid) and under a staged-reshard
+    budget, row 5's products and PageRank, spgemm_sharded, spmm_sharded,
+    streaming_chain_sharded and autotune_matmul. NCCL with a card a rank
+    where there are four cards, else gloo with the four ranks on this
+    card. Returns the ranks' B2 / B3 launches, summed."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from matrel_tpu_torch.core.mesh import make_mesh
+    from matrel_tpu_torch import MatrelSession as Session
+    from matrel_tpu_torch.workloads import chain_bench
+    t0 = time.perf_counter()
+    mr_references(sess, ns_fro)
+    ref_s = time.perf_counter() - t0
+    vsess = Session(mesh=make_mesh(MR_GRID, device=sess.device))
+    want_row2 = mr_stamps(vsess.compile(chain_bench.build_chain(
+        chain_bench.skewed_abc(vsess.mesh, *MR_ROW2, seed=3))))
+    del vsess
+    torch.cuda.empty_cache()
+    world = MR_GRID[0] * MR_GRID[1]
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    init = f"tcp://localhost:{mr_free_port()}"
+    for r in range(world):
+        for ext in ("json", "log"):
+            p = os.path.join(MR_DIR, f"rank{r}.{ext}")
+            if os.path.exists(p):
+                os.remove(p)
+    log(f"path multirank: {world} ranks on a {MR_GRID} grid, backend "
+        f"{backend} ({torch.cuda.device_count()} card(s)); single-rank "
+        f"answers {ref_s:.1f} s")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(mr_rank, args=(world, backend, init,
+                                            dict(MR_PEAK_LIMIT_GIB)),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + MR_TIMEOUT_S
+    failure = None
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"ranks did not finish in "
+                                   f"{MR_TIMEOUT_S} s")
+    except Exception as ex:        # noqa: BLE001 — reported with the logs
+        failure = ex
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+    wall_s = time.perf_counter() - t0
+    for r in range(world):
+        p = os.path.join(MR_DIR, f"rank{r}.log")
+        if os.path.exists(p):
+            for line in open(p).read().splitlines()[-(40 if failure
+                                                      else 12):]:
+                log(f"  rank {r} | {line}")
+    if failure is not None:
+        raise AssertionError(f"path multirank: {failure!r}")
+    ranks = [json.load(open(os.path.join(MR_DIR, f"rank{r}.json")))
+             for r in range(world)]
+    r0 = ranks[0]
+    log(f"path multirank: ranks done in {wall_s:.1f} s; backend "
+        f"{r0['backend']}, world {r0['world']}, devices "
+        + ", ".join(f"rank {r}: {o['device']}" for r, o in enumerate(ranks))
+        + f"; collectives staged through host memory: "
+        f"{r0['host_staged'] or 'none'}; {device_line()}")
+    for s in MR_STRATEGIES:
+        row = r0["row1"][s]
+        errs = [o["row1"][s]["max_abs_err"] for o in ranks]
+        log(f"  row 1 {s}: stamps {row['stamps']}, {row['ms']:.3f} ms a "
+            f"product (rank 0, CUDA events between barriers, median of "
+            f"3), tally {row['tally']}, max err {max(errs):.3e} ("
+            f"{max(o['row1'][s]['err_over_bound'] for o in ranks):.3f} of "
+            f"8·u·√K·‖X_i‖·‖Y_:j‖), bit-equal to one rank on "
+            f"{sum(o['row1'][s]['bit_equal'] for o in ranks)}/{world} "
+            f"ranks")
+        if "staged" in row:
+            log(f"    under a {MR_RESHARD_BUDGET >> 20} MiB reshard budget: "
+                f"moves {row['staged']['moves']}, tally "
+                f"{row['staged']['tally']}, bit-equal to budget 0")
+    plans = r0["row2"]["plans"]
+    for o in ranks:
+        if o["row2"]["plans"]["0"]["stamps"] != want_row2:
+            raise AssertionError(f"row 2 stamps {o['row2']['plans']} vs "
+                                 f"the virtual (2, 2) grid's {want_row2}")
+    log(f"  row 2: plan {plans['0']['paren']}, stamps "
+        f"{plans['0']['stamps']} (the virtual (2, 2) grid's: {want_row2}),"
+        f" {plans['0']['ms']:.3f} ms; under a "
+        f"{MR_RESHARD_BUDGET >> 20} MiB budget {plans[str(MR_RESHARD_BUDGET)]['ms']:.3f} "
+        f"ms, moves {plans[str(MR_RESHARD_BUDGET)]['moves']}, bit-equal "
+        f"to budget 0; rel err {r0['row2']['rel_err']:.3e} vs float64; "
+        f"measure_reshard_variant row->col {MR_ROW1_N}² "
+        f"({r0['row2']['reshard_steps']}): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                    r0["row2"]["reshard_ms"].items()))
+    row5 = r0["row5"]
+    launches = {k: sum(o["row5"]["launches"][k] for o in ranks)
+                for k in ("spmv_compact", "spmm_compact")}
+    log(f"  row 5: A·x {row5['spmv_ms']:.3f} ms, A·X (k = {ROW5_K}) "
+        f"{row5['spmm_ms']:.3f} ms (sharded, B2/B3 on each rank's slice, "
+        f"bit-equal / rel {row5['rel_err_Y']:.2e} vs one card; plan "
+        f"build and first call {row5['first_s']:.2f} s); PageRank "
+        f"{row5['pagerank_round_ms']:.4f} ms per round, max err "
+        f"{max(o['row5']['pagerank_err_f64'] for o in ranks):.2e} vs "
+        f"float64 scipy, {row5['pagerank_vs_one_card']:.2e} vs one card;"
+        f" B2 launches {launches['spmv_compact']}, B3 "
+        f"{launches['spmm_compact']} (summed over ranks)")
+    sp = r0["sparse"]
+    log(f"  spgemm_sharded n={MR_SPGEMM_N:,}: {sp['spgemm']['ms']:.3f} ms "
+        f"({sp['spgemm']['tiles']} tiles, max err "
+        f"{sp['spgemm']['max_abs_err']:.2e}); spmm_sharded at row 4: "
+        f"{sp['spmm']['ms']:.3f} ms (cap {sp['spmm']['cap']} tiles a "
+        f"rank, padding {sp['spmm']['padding_ratio']:.3f}, max err "
+        f"{sp['spmm']['max_abs_err']:.2e})")
+    ch = r0["chain"]
+    flops = 4.0 * NS_N ** 3
+    rel = abs(ch["fro"] - ns_fro) / abs(ns_fro)
+    # four panel partials summed in f32 in another order than one card's
+    # running sum: at most (p - 1) roundings of a sum no larger than it
+    bound = (world - 1) * U32
+    if not all(o["chain"]["same"] and o["chain"]["fro"] == ch["fro"]
+               for o in ranks) or rel > bound:
+        raise AssertionError(f"streaming_chain_sharded {ch} vs one card "
+                             f"{ns_fro!r}: rel {rel:.3e} > {bound:.3e}")
+    log(f"  streaming_chain_sharded n={NS_N:,} (one panel a rank): "
+        + ", ".join(f"{s:.3f}" for s in ch["s"])
+        + f" s ({flops / min(ch['s']) / 1e12:.1f} TFLOP/s against 4n³), "
+        f"Frobenius² {ch['fro']:.9e}, rel {rel:.2e} vs one card's "
+        f"streaming_chain_slab (bound {bound:.2e})")
+    at = [o["autotune"] for o in ranks]
+    if any(a != at[0] for a in at):
+        raise AssertionError(f"autotune winners differ across ranks: {at}")
+    log(f"  autotune_matmul {MR_AT_SIDE}² on the rank grid: winner "
+        f"{at[0]['best']} on every rank; "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in at[0]["ms"].items()))
+    log("  per-rank peak device memory (GiB): " + "; ".join(
+        f"rank {r} " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                 o["peaks"].items())
+        for r, o in enumerate(ranks)))
+    if min(launches.values()) < 1:
+        raise AssertionError(f"path multirank: B2/B3 launches {launches}")
+    return {"launches": launches, "ranks": ranks}
+
+
 def ptxas_functions(log_text: str) -> dict:
     """{mangled function: (registers, stack, spill stores, spill loads)}
     from an ``nvcc -Xptxas=-v`` log."""
@@ -4745,13 +5481,17 @@ def build_checks(libs) -> None:
 
 
 def kernel_entry(name, source, replaces, launches, row) -> dict:
-    return {"name": name, "route": "cuda",
-            "source": f"matrel_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]}
+    entry = {"name": name, "route": "cuda",
+             "source": f"matrel_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "library_ms": row["library_ms"]}
+    for extra in ("xla_gather_ms", "library_oom"):
+        if extra in row:
+            entry[extra] = row[extra]
+    return entry
 
 
 def main() -> int:
@@ -4765,6 +5505,8 @@ def main() -> int:
         return library_yardstick()
     if sys.argv[1:] == ["--b1-f32"]:
         return b1_f32_only()
+    if sys.argv[1:] == ["--multirank"]:
+        return multirank_only()
     from matrel_tpu_torch import MatrelSession
     from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
                                       pallas_spmv, spmv_routed)
@@ -4844,7 +5586,7 @@ def main() -> int:
     l_batch = path_core_surface(sess, queries)
     dp_timing(dev)
     del queries, S, D
-    path_north_star(dev)              # holds its own peak-memory bound
+    ns = path_north_star(dev)         # holds its own peak-memory bound
     rel = path_relational(dev)        # each sub-phase its bound
     l_rel = rel["launches"]
     coo = path_coo_plane(sess)        # each new path its bound
@@ -4852,6 +5594,9 @@ def main() -> int:
     l_at = tuned["launches"]
     fused = path_fusion(sess)         # its own bound
     l_fu = fused["launches"]
+    spgemm_library(sess.mesh, b47)    # cuSPARSE SpGEMM beside B4-B7
+    torch.cuda.empty_cache()
+    l_mr = path_multirank(sess, ns["fro"])["launches"]   # four ranks
     for name, err in rel["max_abs_err"].items():   # the worst of both shapes
         b47[name] = dict(b47[name], max_abs_err=max(
             b47[name]["max_abs_err"], err))
@@ -4869,15 +5614,19 @@ def main() -> int:
                           + l_fu["spmm_blocksparse"], row),
              launches_by_body=b1_bodies, f32_one_column=coo["b1_f32_m1"],
              f32_row4=row4_f32),
-        kernel_entry("spmv_compact", pallas_spmv.SOURCE,
-                     "matrel_tpu/ops/pallas_spmv.py:50",
-                     launches_pr + l_spmv + l_batch["spmv_compact"]
-                     + l_rel["spmv_compact"] + l_coo["spmv_compact"]
-                     + l_at["spmv_compact"] + l_fu["spmv_compact"],
-                     b23["spmv_compact"]),
-        kernel_entry("spmm_compact", pallas_spmv.SOURCE,
-                     "matrel_tpu/ops/pallas_spmv.py:334",
-                     l_spmm + l_at["spmm_compact"], b23["spmm_compact"]),
+        dict(kernel_entry("spmv_compact", pallas_spmv.SOURCE,
+                          "matrel_tpu/ops/pallas_spmv.py:50",
+                          launches_pr + l_spmv + l_batch["spmv_compact"]
+                          + l_rel["spmv_compact"] + l_coo["spmv_compact"]
+                          + l_at["spmv_compact"] + l_fu["spmv_compact"]
+                          + l_mr["spmv_compact"],
+                          b23["spmv_compact"]),
+             launches_on_ranks=l_mr["spmv_compact"]),
+        dict(kernel_entry("spmm_compact", pallas_spmv.SOURCE,
+                          "matrel_tpu/ops/pallas_spmv.py:334",
+                          l_spmm + l_at["spmm_compact"]
+                          + l_mr["spmm_compact"], b23["spmm_compact"]),
+             launches_on_ranks=l_mr["spmm_compact"]),
     ] + [kernel_entry(name, pallas_spgemm.SOURCE, SPGEMM_REPLACES[name],
                       l_spgemm[name] + l_rel[name] + l_at[name]
                       + l_fu[name], b47[name])

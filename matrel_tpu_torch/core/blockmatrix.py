@@ -1,9 +1,16 @@
 """BlockMatrix — the counterpart of ``matrel_tpu/core/blockmatrix.py``.
 
 One padded ``torch.Tensor`` on the mesh's device plus the metadata the
-optimizer reads: logical shape, the spec (layout metadata on the virtual
-grid), an nnz estimate, the block size, and the integrality facts the
-precision-tier chooser uses. Padding is exactly zero.
+optimizer reads: logical shape, the spec, an nnz estimate, the block
+size, and the integrality facts the precision-tier chooser uses. Padding
+is exactly zero.
+
+On one card (the virtual grid) ``data`` is the whole padded matrix and
+the spec is layout metadata the planner reads. On a rank mesh ``data``
+is this rank's block under ``spec`` (``parallel/collectives.py``): the
+constructors make the whole matrix from the seed or the array on every
+rank and keep the rank's block, :meth:`to_numpy` gathers, and
+:meth:`with_spec` moves the blocks.
 """
 
 from __future__ import annotations
@@ -81,7 +88,15 @@ class BlockMatrix:
 
     @property
     def padded_shape(self) -> Tuple[int, int]:
+        if self.mesh.ranked:
+            return padding.padded_shape(self.shape, self.mesh)
         return tuple(self.data.shape)  # type: ignore[return-value]
+
+    def as_shard(self):
+        """This rank's block as a ``collectives.Shard`` (rank mesh)."""
+        from matrel_tpu_torch.parallel import collectives as coll
+        return coll.Shard(self.data, coll.layout_of(self.spec, self.mesh),
+                          self.padded_shape)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -100,6 +115,17 @@ class BlockMatrix:
         return self.padded_shape != self.shape
 
     # -- construction -------------------------------------------------------
+
+    @staticmethod
+    def _place(full: torch.Tensor, mesh: Mesh, spec: P) -> torch.Tensor:
+        """The tensor a matrix holds of its whole padded value ``full``:
+        all of it on one card, the rank's block under ``spec`` on a rank
+        mesh."""
+        if not mesh.ranked:
+            return full
+        from matrel_tpu_torch.parallel import collectives as coll
+        return coll.local_of(full, coll.layout_of(spec, mesh),
+                             mesh).contiguous()
 
     @staticmethod
     def _layout(shape, mesh, spec, dtype, config):
@@ -139,7 +165,8 @@ class BlockMatrix:
         data = torch.zeros(ps, dtype=dtype, device=mesh.device)
         data[: shape[0], : shape[1]] = tensor_from_numpy(arr, dtype,
                                                          mesh.device)
-        return cls(data=data, shape=shape, mesh=mesh, spec=P(*spec),
+        return cls(data=cls._place(data, mesh, P(*spec)), shape=shape,
+                   mesh=mesh, spec=P(*spec),
                    nnz=nnz, block_size=cfg.block_size,
                    integral=bool(integral), int_abs_max=int_abs_max)
 
@@ -157,7 +184,8 @@ class BlockMatrix:
                config: Optional[MatrelConfig] = None) -> "BlockMatrix":
         """Uniform [0,1) random matrix, generated on the device from a
         seeded ``torch.Generator`` (no host copy). Its values differ
-        from the JAX package's for the same seed."""
+        from the JAX package's for the same seed; on a rank mesh every
+        rank makes the same matrix and keeps its block."""
         cfg = config or default_config()
         mesh = mesh or mesh_lib.make_mesh(cfg.mesh_shape, cfg.mesh_axis_names)
         dtype = as_torch_dtype(dtype or cfg.default_dtype)
@@ -169,7 +197,8 @@ class BlockMatrix:
                           dtype=torch.float32)
         vals[shape[0]:, :] = 0
         vals[:, shape[1]:] = 0
-        return cls(data=vals.to(dtype), shape=tuple(shape), mesh=mesh,
+        return cls(data=cls._place(vals.to(dtype), mesh, spec),
+                   shape=tuple(shape), mesh=mesh,
                    spec=spec, nnz=None, block_size=cfg.block_size)
 
     @classmethod
@@ -177,7 +206,8 @@ class BlockMatrix:
               config=None) -> "BlockMatrix":
         cfg, mesh, dtype, ps, spec = cls._layout(shape, mesh, spec, dtype,
                                                  config)
-        return cls(data=torch.zeros(ps, dtype=dtype, device=mesh.device),
+        full = torch.zeros(ps, dtype=dtype, device=mesh.device)
+        return cls(data=cls._place(full, mesh, spec),
                    shape=tuple(shape), mesh=mesh, spec=spec, nnz=0,
                    block_size=cfg.block_size)
 
@@ -188,7 +218,8 @@ class BlockMatrix:
                                                  config)
         data = torch.zeros(ps, dtype=dtype, device=mesh.device)
         data[:n, :n].fill_diagonal_(1)
-        return cls(data=data, shape=(n, n), mesh=mesh, spec=spec, nnz=n,
+        return cls(data=cls._place(data, mesh, spec), shape=(n, n),
+                   mesh=mesh, spec=spec, nnz=n,
                    block_size=cfg.block_size)
 
     @classmethod
@@ -209,15 +240,21 @@ class BlockMatrix:
         vals = torch.as_tensor(fn(r, c), device=mesh.device).to(dtype)
         vals = torch.where((r < shape[0]) & (c < shape[1]), vals,
                            torch.zeros((), dtype=dtype, device=mesh.device))
-        return cls(data=vals.contiguous(), shape=tuple(shape), mesh=mesh,
+        return cls(data=cls._place(vals.contiguous(), mesh, spec),
+                   shape=tuple(shape), mesh=mesh,
                    spec=spec, nnz=nnz, block_size=cfg.block_size)
 
     # -- materialisation ----------------------------------------------------
 
     def to_numpy(self) -> np.ndarray:
         """Copy to host, dropping padding (bfloat16 comes back as
-        float32)."""
-        return tensor_to_numpy(self.data[: self.shape[0], : self.shape[1]])
+        float32). On a rank mesh every rank calls it: the blocks are
+        gathered first."""
+        full = self.data
+        if self.mesh.ranked:
+            from matrel_tpu_torch.parallel import collectives as coll
+            full = coll.gather_full(self.as_shard(), self.mesh)
+        return tensor_to_numpy(full[: self.shape[0], : self.shape[1]])
 
     def block_until_ready(self) -> "BlockMatrix":
         """Wait until the device has computed ``data``."""
@@ -230,18 +267,29 @@ class BlockMatrix:
     def with_spec(self, spec: P) -> "BlockMatrix":
         """The same matrix under another spec. On one card the tensor
         stays whole; only the layout metadata the planner reads
-        changes."""
+        changes. On a rank mesh the blocks move (every rank calls it)."""
         spec = P(*spec)
         if spec == self.spec:
             return self
-        return dataclasses.replace(self, spec=spec)
+        data = self.data
+        if self.mesh.ranked:
+            from matrel_tpu_torch.parallel import collectives as coll
+            data = coll.relay(self.as_shard(), spec, self.mesh).local
+        return dataclasses.replace(self, data=data, spec=spec)
 
     def valid_mask(self) -> torch.Tensor:
-        """Boolean mask of the logical (non-padding) region, padded shape."""
-        ps = self.padded_shape
-        r = torch.arange(ps[0], device=self.data.device)[:, None] \
+        """Boolean mask of the logical (non-padding) region over ``data``
+        (the padded shape; this rank's block on a rank mesh)."""
+        r0, c0 = 0, 0
+        if self.mesh.ranked:
+            from matrel_tpu_torch.parallel import collectives as coll
+            r0, _, c0, _ = coll.rect(coll.layout_of(self.spec, self.mesh),
+                                     self.mesh.ranks.coords, self.mesh.grid,
+                                     self.padded_shape)
+        n, m = self.data.shape
+        r = torch.arange(r0, r0 + n, device=self.data.device)[:, None] \
             < self.shape[0]
-        c = torch.arange(ps[1], device=self.data.device)[None, :] \
+        c = torch.arange(c0, c0 + m, device=self.data.device)[None, :] \
             < self.shape[1]
         return r & c
 
@@ -334,4 +382,5 @@ class BlockMatrix:
     def __repr__(self) -> str:
         return (f"BlockMatrix(shape={self.shape}, dtype={self.dtype}, "
                 f"spec={self.spec}, nnz={self.nnz}, "
-                f"device={self.mesh.device}, grid={self.mesh.grid})")
+                f"device={self.mesh.device}, grid={self.mesh.grid}"
+                + (", ranked" if self.mesh.ranked else "") + ")")

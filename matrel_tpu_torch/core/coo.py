@@ -20,7 +20,10 @@ The relational σ/γ/⋈ methods (``coalesce``, ``select_value``,
 list, O(nnz), as in the JAX package: predicates and merges are
 vectorised callables over numpy arrays. A selected matrix is a new
 ``COOMatrix`` and goes on to the kernels through ``matvec``/``matmat``
-and ``compute``. ``shard`` is not ported.
+and ``compute``. :meth:`COOMatrix.shard` binds the matrix to a rank mesh:
+its ``matvec``/``matmat`` then run each rank's slice of block rows
+(``pallas_spmv.compact_sharded_apply``: B2/B3 per rank; the expanded
+one-hot slices with ``use_pallas`` off) and gather the rows.
 """
 
 from __future__ import annotations
@@ -58,6 +61,8 @@ class COOMatrix:
     # True when coordinates are known-unique (outputs of coalesce /
     # select_value / joins): chained relational ops skip the re-sort
     _coalesced: bool = dataclasses.field(default=False, repr=False)
+    # set by .shard(): the rank mesh the forward matvec/matmat run over
+    _mesh: Optional[object] = dataclasses.field(default=None, repr=False)
 
     # ---------------------------------------------------------- build
     @classmethod
@@ -127,6 +132,27 @@ class COOMatrix:
             self._plan_t_tried = True
         return self._plan_t
 
+    def shard(self, mesh) -> "COOMatrix":
+        """A copy whose forward ``matvec``/``matmat`` run over the rank
+        mesh: each rank contracts its slice of output blocks against the
+        replicated x, one all_gather assembles the result (every rank
+        gets it). ``rmatvec`` and the transpose keep the unsharded path.
+
+        Raises when the planner refuses this graph: distribution was
+        asked for, and a silent single-device segment sum would hide the
+        cliff; catch it and use the unsharded matrix if that is
+        acceptable."""
+        if not getattr(mesh, "ranked", False):
+            raise ValueError("COOMatrix.shard needs a rank mesh "
+                             "(core.mesh.init_distributed)")
+        plan = self._get_plan()
+        if plan is None:
+            raise ValueError(
+                "degree distribution too heavy-tailed for the one-hot "
+                "plan; sharded matvec unavailable for this graph")
+        return dataclasses.replace(self, _mesh=mesh, _seg_fwd={},
+                                   _seg_bwd={})
+
     # ------------------------------------------------------------ ops
     @staticmethod
     def _compact_mode() -> bool:
@@ -134,13 +160,26 @@ class COOMatrix:
         from matrel_tpu_torch.ops.pallas_spmv import compact_enabled
         return compact_enabled()
 
+    def _device(self, device) -> torch.device:
+        """The device a product runs on: the rank's on a sharded matrix,
+        else ``device`` (default: the card)."""
+        if self._mesh is not None:
+            return self._mesh.device
+        return resolve_device(device)
+
     def matvec(self, x, device=None) -> torch.Tensor:
-        """y = A·x, shape (n_rows,), on ``device`` (default: the card)."""
-        dev = resolve_device(device)
+        """y = A·x, shape (n_rows,), on ``device`` (default: the card;
+        the rank's device on a sharded matrix)."""
+        dev = self._device(device)
         x = torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(-1)
         if x.shape[0] != self.shape[1]:
             raise ValueError(f"x has {x.shape[0]} entries, A has "
                              f"{self.shape[1]} columns")
+        if self._mesh is not None:
+            from matrel_tpu_torch.ops import pallas_spmv as pc
+            if self._compact_mode():
+                return pc.compact_sharded_apply(self._plan, x, self._mesh)
+            return spmv_lib.spmv_sharded(self._plan, x, self._mesh)
         plan = self._get_plan()
         if plan is not None:
             if self._compact_mode():
@@ -168,13 +207,21 @@ class COOMatrix:
         """Y = A·X for dense X (n_cols, k): one shared gather for all
         columns (one B3 launch on the card). Falls back to a per-column
         matvec loop only when the plan build refused the graph."""
-        dev = resolve_device(device)
+        dev = self._device(device)
         X = torch.as_tensor(X, dtype=torch.float32, device=dev)
         if X.dim() != 2 or X.shape[0] != self.shape[1]:
             raise ValueError(f"X must be ({self.shape[1]}, k), "
                              f"got {tuple(X.shape)}")
         if X.shape[1] == 0:
             return X.new_zeros((self.shape[0], 0))
+        if self._mesh is not None:
+            from matrel_tpu_torch.ops import pallas_spmv as pc
+            if X.shape[1] == 1:
+                return self.matvec(X[:, 0])[:, None]
+            if self._compact_mode():
+                return pc.compact_sharded_matmat_apply(self._plan, X,
+                                                       self._mesh)
+            return spmv_lib.spmm_sharded(self._plan, X, self._mesh)
         plan = self._get_plan()
         if plan is not None:
             if self._compact_mode():

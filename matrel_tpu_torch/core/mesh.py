@@ -1,17 +1,25 @@
-"""Device plus virtual grid — the counterpart of ``matrel_tpu/core/mesh.py``.
+"""Device plus grid — the counterpart of ``matrel_tpu/core/mesh.py``.
 
 The JAX package lays a 2D ``jax.sharding.Mesh`` over the TPU chips and
-its partitioners are ``PartitionSpec``s. This package runs on ONE card,
-so execution is always 1x1: every array lives whole on ``mesh.device``.
-The mesh still carries a (gx, gy) grid — the VIRTUAL grid the planner
-prices strategies and pads dimensions on — so plan stamps can be held
-against the reference on the same grid (``tests/plan_snapshots.json``
-plans on (2, 4)).
+its partitioners are ``PartitionSpec``s. This package has two meshes:
+
+* the VIRTUAL grid (:func:`make_mesh`): one card, every array whole on
+  ``mesh.device``; the (gx, gy) grid is the one the planner prices
+  strategies and pads dimensions on, so plan stamps can be held against
+  the reference on the same grid (``tests/plan_snapshots.json`` plans on
+  (2, 4));
+* the RANK mesh (:func:`init_distributed`): one ``torch.distributed``
+  process a grid cell, laid out row-major as the JAX package lays its
+  devices (rank ``i·gy + j`` is cell (i, j)), with the process groups of
+  the two axes taken from a ``DeviceMesh``. ``mesh.ranks`` holds them;
+  values live as local shards (``parallel/collectives.py``) and every
+  rank runs the same program.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -54,17 +62,52 @@ def resolve_device(device: Union[str, torch.device, None] = None
     return dev
 
 
+class RankGroups:
+    """The ``torch.distributed`` side of a rank mesh: this process's rank
+    and its (i, j) cell, the backend, the process groups of the x and y
+    axes (``x`` joins the ranks of one column j, ``y`` those of one row
+    i, as ``shard_map`` axes do) and the collectives that stage CUDA
+    tensors through host memory (gloo refuses some of them; see
+    ``parallel/collectives.host_staged``). Compared by identity."""
+
+    def __init__(self, device_mesh, backend: str, grid: Tuple[int, int]):
+        import torch.distributed as dist
+        self.device_mesh = device_mesh
+        self.backend = backend
+        self.rank = dist.get_rank()
+        self.world_size = dist.get_world_size()
+        self.coords = divmod(self.rank, grid[1])
+        self.groups = {"x": device_mesh.get_group("x"),
+                       "y": device_mesh.get_group("y"),
+                       None: dist.group.WORLD}
+        #: collective names routed through host memory for CUDA tensors
+        self.host_staged: frozenset = frozenset()
+
+    def group(self, axis: Optional[str]):
+        """Process group of mesh axis "x" / "y", or the world (None)."""
+        return self.groups[axis]
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One execution device and the virtual (gx, gy) planning grid."""
+    """One execution device and the (gx, gy) grid: virtual on one card,
+    or a grid of ranks when ``ranks`` is set (see the module
+    docstring)."""
 
     device: torch.device
     grid: Tuple[int, int] = (1, 1)
     axis_names: Tuple[str, str] = ("x", "y")
+    ranks: Optional[RankGroups] = dataclasses.field(default=None,
+                                                    repr=False)
 
     @property
     def size(self) -> int:
         return self.grid[0] * self.grid[1]
+
+    @property
+    def ranked(self) -> bool:
+        """Is this a rank mesh (values held as per-rank shards)?"""
+        return self.ranks is not None
 
 
 def make_mesh(shape: Optional[Tuple[int, int]] = None,
@@ -83,10 +126,112 @@ def mesh_grid_shape(mesh: Mesh) -> Tuple[int, int]:
     return mesh.grid
 
 
+def near_square_factors(n: int) -> Tuple[int, int]:
+    """Factor n into (a, b) with a·b == n and a ≤ b, a as large as
+    possible (the JAX package's default grid for n devices)."""
+    a = int(math.isqrt(n))
+    while a > 1 and n % a != 0:
+        a -= 1
+    return a, n // a
+
+
+BACKENDS = ("nccl", "gloo")
+
+
+def init_distributed(backend: str, init_method: str, world_size: int,
+                     rank: int, grid: Optional[Tuple[int, int]] = None,
+                     device: Union[str, torch.device, None] = None,
+                     axis_names: Tuple[str, str] = ("x", "y"),
+                     timeout_s: float = 600.0) -> Mesh:
+    """Join the process group and build the rank mesh — the counterpart
+    of ``matrel_tpu/core/mesh.py``'s ``init_distributed`` + ``make_mesh``.
+
+    ``backend`` is named by the caller and never switched: "nccl" needs a
+    card per rank (fewer cards than ranks raise; its device is
+    ``cuda:rank`` unless ``device`` says otherwise), "gloo" runs on
+    ``device`` (the card by default, several ranks may share it; "cpu"
+    when asked). ``init_method`` is the rendezvous
+    (``tcp://localhost:<port>`` or ``file://<path>``); ``grid`` defaults
+    to the near-square factors of ``world_size``. Every rank calls this
+    with the same arguments but its own ``rank``."""
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    gx, gy = grid if grid is not None else near_square_factors(world_size)
+    if gx * gy != world_size:
+        raise ValueError(f"grid {grid} does not hold {world_size} ranks")
+    if backend == "nccl":
+        n_cards = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+        if n_cards < world_size:
+            raise DeviceUnavailableError(
+                f"nccl needs one card a rank: {world_size} ranks, "
+                f"{n_cards} cards (name backend='gloo' to share a card)")
+        dev = resolve_device(device if device is not None
+                             else f"cuda:{rank}")
+        torch.cuda.set_device(dev)
+    else:
+        dev = resolve_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group(
+            backend, init_method=init_method, world_size=world_size,
+            rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    dm = init_device_mesh("cuda" if backend == "nccl" else "cpu",
+                          (gx, gy), mesh_dim_names=tuple(axis_names))
+    ranks = RankGroups(dm, backend, (gx, gy))
+    mesh = Mesh(dev, (gx, gy), tuple(axis_names), ranks)
+    if backend == "gloo" and dev.type == "cuda":
+        from matrel_tpu_torch.parallel import collectives
+        ranks.host_staged = collectives.probe_host_staging(mesh)
+    return mesh
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group (every rank calls it). A barrier first:
+    a rank that tore its connections down while a peer still read the
+    last collective (a broadcast's sender returns before its receivers)
+    would fail that peer."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 def axis_weights(mesh: Mesh, config=None) -> Tuple[float, float]:
     """Per-axis inverse-bandwidth weights the comm model bills: the
     configured ``axis_cost_weights``. (The JAX package also detects TPU
-    slice boundaries; one card has none.)"""
+    slice boundaries; ranks here carry none.)"""
     from matrel_tpu_torch.config import default_config
     cfg = config or default_config()
     return tuple(cfg.axis_cost_weights)
+
+
+def _spec(mesh: Mesh, rows, cols) -> P:
+    x, y = mesh.axis_names
+    name = {"x": x, "y": y, "xy": (x, y)}
+    return P(name.get(rows), name.get(cols))
+
+
+def replicated(mesh: Mesh) -> P:
+    """Every rank holds the whole matrix."""
+    return P()
+
+
+def sharding_2d(mesh: Mesh) -> P:
+    """Both matrix dims sharded: the 2D block-cyclic analogue."""
+    return _spec(mesh, "x", "y")
+
+
+def sharding_row(mesh: Mesh) -> P:
+    """Row-sharded over the whole mesh (both axes on dim 0) — the
+    RowPartitioner analogue."""
+    return _spec(mesh, "xy", None)
+
+
+def sharding_col(mesh: Mesh) -> P:
+    """Column-sharded over the whole mesh — the ColumnPartitioner
+    analogue."""
+    return _spec(mesh, None, "xy")

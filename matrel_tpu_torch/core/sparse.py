@@ -220,9 +220,10 @@ class BlockSparseMatrix:
         data = torch.zeros(pshape, dtype=self.dtype,
                            device=self.blocks.device)
         data[:n, :m] = self._dense_tiles()[:n, :m]
+        spec = padding.canonical_spec(pshape, self.mesh)
         return BlockMatrix.from_array(
-            data, self.shape, self.mesh,
-            padding.canonical_spec(pshape, self.mesh),
+            BlockMatrix._place(data, self.mesh, spec), self.shape,
+            self.mesh, spec,
             nnz=min(self.nnz, n * m), block_size=self.block_size)
 
     def transpose(self) -> "BlockSparseMatrix":
@@ -258,6 +259,13 @@ class BlockSparseMatrix:
                          "(expected 'fro', 'l1', or 'max')")
 
     # -- lazy DSL -----------------------------------------------------------
+
+    def shard(self, mesh: Optional[Mesh] = None):
+        """Distribute the tile stack over a rank mesh (each rank holds
+        ~nnzb/P tiles in its output row range) — the scale-out SpMM
+        plan; see ``ops/spmm_sharded.py``."""
+        from matrel_tpu_torch.ops.spmm_sharded import shard_block_sparse
+        return shard_block_sparse(self, mesh)
 
     def expr(self):
         from matrel_tpu_torch.ir import expr as E

@@ -57,7 +57,21 @@ tensors each): one per physical op, or one per fused region.
 Staged reshards (``config.reshard_peak_budget_bytes`` > 0,
 ``parallel/reshard.py``): the lowering compiles the ReshardPlan of
 every dense matmul operand re-lay and of every root's canonical re-lay,
-once per plan; on one card applying one is the identity.
+once per plan; on one card applying one is the identity, on a rank mesh
+each step moves the blocks.
+
+On a rank mesh (``core/mesh.init_distributed``) every rank runs the same
+plan. Leaves and dense matmul outputs stay sharded
+(``collectives.Shard``): a dense matmul runs its stamped recipe
+(``strategies.run_ranked``), a transpose swaps the layout, and a COO
+operand against a narrow dense one runs B2/B3 on the rank's slice of
+block rows (:meth:`Lowerer._coo_spmv_stack`, the JAX package's
+``_coo_compact_sharded``). Every other lowering
+gathers a sharded input whole through one counted call
+(``collectives.gather_full``, tallied as ``gather_rep``) and runs
+locally on every rank — where the JAX package's GSPMD partitions the
+elementwise ops. Fused regions lower staged (the same values), and a
+root is cut to its canonical blocks.
 """
 
 from __future__ import annotations
@@ -187,6 +201,14 @@ def _region_info(root: MatExpr):
         root, members, anchor.uid)
 
 
+def _gather_rep(value, mesh) -> Tensor:
+    """A Shard gathered whole on every rank for a lowering that runs
+    locally: one counted call (``gather_rep`` in the tally)."""
+    from matrel_tpu_torch.parallel import collectives as coll
+    coll.TALLY[("exec", "gather_rep", "world")] += 1
+    return coll.gather_full(value, mesh)
+
+
 def _pad_to(out: Tensor, pshape: Tuple[int, int]) -> Tensor:
     if tuple(out.shape) == tuple(pshape):
         return out
@@ -240,15 +262,21 @@ class Lowerer:
         tuple of padded, contiguous root values."""
         leaf_pos = {l.uid: i for i, l in enumerate(leaf_order)}
         pshapes = [padding.padded_shape(r.shape, self.mesh) for r in roots]
-        fused = self.config.fusion_enable
+        ranked = self.mesh.ranked
+        # on a rank mesh a fused region lowers staged (the same values):
+        # its epilogue would meet one rank's block of the anchor output
+        fused = self.config.fusion_enable and not ranked
         if self.config.reshard_peak_budget_bytes > 0:
             for r in roots:
                 self._stage_root_relay(r, None)
 
         def fn(*leaf_arrays: Tensor) -> Tuple[Tensor, ...]:
             memo: Dict[int, Tensor] = {}
+            whole: Dict[int, Tensor] = {}
 
-            def ev(node: MatExpr) -> Tensor:
+            def value(node: MatExpr):
+                """The node's value as lowered: a Shard on a rank mesh
+                where the lowering keeps it sharded, else a tensor."""
                 if node.uid not in memo:
                     # a fused region (ir/fusion.py stamp) lowers as one
                     # evaluation of its whole member set
@@ -260,7 +288,19 @@ class Lowerer:
                     memo[node.uid] = out
                 return memo[node.uid]
 
+            def ev(node: MatExpr) -> Tensor:
+                out = value(node)
+                if not ranked or isinstance(out, Tensor):
+                    return out
+                if node.uid not in whole:
+                    whole[node.uid] = _gather_rep(out, self.mesh)
+                return whole[node.uid]
+
+            ev.value = value
+
             def root_out(r: MatExpr, ps) -> Tensor:
+                if ranked:
+                    return self._ranked_root(r, value(r), ps)
                 out = _pad_to(ev(r), ps)
                 if r.uid in self.root_relays:
                     out = self._stage_root_relay(r, out)
@@ -274,8 +314,22 @@ class Lowerer:
                 # (and hold every intermediate, the results included)
                 # until the garbage collector breaks the cycle
                 memo.clear()
+                whole.clear()
 
         return fn
+
+    def _ranked_root(self, r: MatExpr, out, ps) -> Tensor:
+        """This rank's block of a root under its canonical spec: a whole
+        value is cut (no collective), a Shard moves — through the
+        root's staged relay where one was compiled."""
+        from matrel_tpu_torch.parallel import collectives as coll
+        spec = padding.canonical_spec(ps, self.mesh)
+        if isinstance(out, Tensor):
+            return coll.shard_from_full(_pad_to(out, ps), spec,
+                                        self.mesh).local
+        if r.uid in self.root_relays:
+            out = self._stage_root_relay(r, out)
+        return coll.relay(out, spec, self.mesh).local.contiguous()
 
     # -- per-node lowering --------------------------------------------------
 
@@ -286,13 +340,17 @@ class Lowerer:
         if k == "sparse_leaf":
             # densify when a sparse matrix is used outside a matmul; the
             # SpMM path handles the matmul case
-            return node.attrs["matrix"].to_dense(self.config).data
+            bm = node.attrs["matrix"].to_dense(self.config)
+            return bm.as_shard() if self.mesh.ranked else bm.data
         if k == "coo_leaf":
             # same densify fallback for element-sparse leaves; narrow
             # matmuls take the SpMV path in _matmul
-            return node.attrs["matrix"].to_block(self.mesh,
-                                                 self.config).data
+            bm = node.attrs["matrix"].to_block(self.mesh, self.config)
+            return bm.as_shard() if self.mesh.ranked else bm.data
         if k == "transpose":
+            if self.mesh.ranked:
+                v = ev.value(node.children[0])
+                return v.t() if not isinstance(v, Tensor) else v.T
             return ev(node.children[0]).T
         if k == "matmul":
             return self._matmul(node, ev)
@@ -633,9 +691,11 @@ class Lowerer:
             A = l.attrs["matrix"]
             plan = _coo_dispatch_plan(node)
             if plan is None:
-                blk = A.to_block(self.mesh, self.config).data
-                return strategies.run_matmul("xla", blk, ev(r), self.mesh,
-                                             self.config, epilogue=epilogue)
+                blk = A.to_block(self.mesh, self.config)
+                blk = blk.as_shard() if self.mesh.ranked else blk.data
+                return strategies.run_matmul("xla", blk, self._operand(ev, r),
+                                             self.mesh, self.config,
+                                             epilogue=epilogue)
             out = self._coo_spmv_stack(plan, ev(r)[: A.shape[1],
                                                    : r.shape[1]])
             return fin(self._pad_to_node(out, node))
@@ -644,9 +704,11 @@ class Lowerer:
             S = r.attrs["matrix"]
             plan = _coo_dispatch_plan(node)
             if plan is None:
-                blk = S.to_block(self.mesh, self.config).data
-                return strategies.run_matmul("xla", ev(l), blk, self.mesh,
-                                             self.config, epilogue=epilogue)
+                blk = S.to_block(self.mesh, self.config)
+                blk = blk.as_shard() if self.mesh.ranked else blk.data
+                return strategies.run_matmul("xla", self._operand(ev, l), blk,
+                                             self.mesh, self.config,
+                                             epilogue=epilogue)
             a = ev(l)[: l.shape[0], : l.shape[1]]
             out = self._coo_spmv_stack(plan, a.T).T
             return fin(self._pad_to_node(out, node))
@@ -682,14 +744,19 @@ class Lowerer:
                 # terms of a Gram are transposes of each other, so one
                 # pass becomes a k×k transpose (ops/gram.py)
                 from matrel_tpu_torch.ops.gram import symmetric_gram
+
+                def run(p, q):
+                    out = strategies.run_matmul(strategy, p, q, self.mesh,
+                                                self.config)
+                    return (_gather_rep(out, self.mesh) if self.mesh.ranked
+                            else out)
+
                 if side == "AtA":
-                    mm = lambda p, q: strategies.run_matmul(
-                        strategy, p.T, q, self.mesh, self.config)
+                    mm = lambda p, q: run(p.T, q)
                 else:
-                    mm = lambda p, q: strategies.run_matmul(
-                        strategy, p, q.T, self.mesh, self.config)
+                    mm = lambda p, q: run(p, q.T)
                 return fin(symmetric_gram(x, mm).float())
-        a, b = ev(l), ev(r)
+        a, b = self._operand(ev, l), self._operand(ev, r)
         if self.config.reshard_peak_budget_bytes > 0:
             a, b = self._stage_matmul_operands(node, a, b)
         tier = node.attrs.get("precision_tier")
@@ -697,6 +764,12 @@ class Lowerer:
             # the tier owns the output dtype (int32 / f32 accumulation);
             # keep_input_dtype does not apply
             from matrel_tpu_torch.ops import precision as precision_lib
+            if self.mesh.ranked:
+                # the tier's passes run inside the recipe, on the blocks
+                return strategies.run_ranked(
+                    strategy, a, b, self.mesh,
+                    lambda p, q: precision_lib.tiered_matmul(
+                        tier, p, q, strategies.local_dot))
             mm = lambda p, q: strategies.run_matmul(
                 strategy, p, q, self.mesh, self.config)
             return fin(precision_lib.tiered_matmul(tier, a, b, mm))
@@ -711,6 +784,11 @@ class Lowerer:
 
         return strategies.run_matmul(strategy, a, b, self.mesh,
                                      self.config, epilogue=storage_epi)
+
+    def _operand(self, ev, node: MatExpr):
+        """A dense matmul operand: on a rank mesh as lowered (a Shard
+        stays sharded), else the tensor."""
+        return ev.value(node) if self.mesh.ranked else ev(node)
 
     def _stage_root_relay(self, root: MatExpr, out):
         """A root's canonical re-lay through its compiled reshard steps
@@ -783,8 +861,21 @@ class Lowerer:
         dev = X.device
         X = X.float()
         static = (plan.n_rows, plan.n_cols, plan.block)
-        if (pc.compact_enabled(self.config)
-                and self._spmv_forced(plan) != "expanded"):
+        compact = (pc.compact_enabled(self.config)
+                   and self._spmv_forced(plan) != "expanded")
+        if self.mesh.ranked:
+            # each rank's slice of block rows, one all_gather (the JAX
+            # package's _coo_compact_sharded); X arrives replicated
+            if compact:
+                if X.shape[1] == 1:
+                    return pc.compact_sharded_apply(plan, X[:, 0],
+                                                    self.mesh)[:, None]
+                return pc.compact_sharded_matmat_apply(plan, X, self.mesh)
+            if X.shape[1] == 1:
+                return spmv_lib.spmv_sharded(plan, X[:, 0],
+                                             self.mesh)[:, None]
+            return spmv_lib.spmm_sharded(plan, X, self.mesh)
+        if compact:
             if X.shape[1] == 1:
                 return pc.compact_apply(plan, X[:, 0])[:, None]
             return pc.compact_matmat_apply(plan, X)
@@ -1111,6 +1202,26 @@ def _plan_meta(opts, cfg: MatrelConfig, optimize_ms: float,
     return meta
 
 
+def _leaf_values(leaf_order, bindings, mesh) -> list:
+    """The current or rebound (uid → BlockMatrix) leaves' values: their
+    tensors, or on a rank mesh their Shards."""
+    out = []
+    for l in leaf_order:
+        bound = (bindings or {}).get(l.uid)
+        m = bound if bound is not None else l.attrs["matrix"]
+        out.append(m.as_shard() if mesh.ranked else m.data)
+    return out
+
+
+def _result(out: Tensor, root: MatExpr, mesh: Mesh) -> BlockMatrix:
+    """A root's padded value (this rank's canonical block on a rank
+    mesh) as a BlockMatrix."""
+    pshape = padding.padded_shape(root.shape, mesh)
+    return BlockMatrix.from_array(out, root.shape, mesh,
+                                  padding.canonical_spec(pshape, mesh),
+                                  nnz=root.nnz)
+
+
 @dataclasses.dataclass
 class CompiledPlan:
     """A planned, lowered expression plus its leaf binding order —
@@ -1127,16 +1238,8 @@ class CompiledPlan:
     def run(self, bindings: Optional[Dict[int, BlockMatrix]] = None
             ) -> BlockMatrix:
         """Execute with current or rebound leaves (uid → BlockMatrix)."""
-        arrays = []
-        for l in self.leaf_order:
-            bound = (bindings or {}).get(l.uid)
-            m = bound if bound is not None else l.attrs["matrix"]
-            arrays.append(m.data)
-        out = self.fn(*arrays)
-        return BlockMatrix.from_array(
-            out, self.optimized.shape, self.mesh,
-            padding.canonical_spec(tuple(out.shape), self.mesh),
-            nnz=self.optimized.nnz)
+        out = self.fn(*_leaf_values(self.leaf_order, bindings, self.mesh))
+        return _result(out, self.optimized, self.mesh)
 
     def explain(self) -> str:
         """Optimized plan with strategies and inferred layouts."""
@@ -1165,18 +1268,9 @@ class MultiPlan:
             ) -> Tuple[BlockMatrix, ...]:
         """Execute with current or rebound leaves (uid → BlockMatrix);
         one BlockMatrix per root, in order."""
-        arrays = []
-        for l in self.leaf_order:
-            bound = (bindings or {}).get(l.uid)
-            m = bound if bound is not None else l.attrs["matrix"]
-            arrays.append(m.data)
-        outs = self.fn(*arrays)
-        return tuple(
-            BlockMatrix.from_array(
-                out, root.shape, self.mesh,
-                padding.canonical_spec(tuple(out.shape), self.mesh),
-                nnz=root.nnz)
-            for out, root in zip(outs, self.optimized))
+        outs = self.fn(*_leaf_values(self.leaf_order, bindings, self.mesh))
+        return tuple(_result(out, root, self.mesh)
+                     for out, root in zip(outs, self.optimized))
 
 
 def _check_one_mesh(expr: MatExpr, mesh: Mesh) -> None:
@@ -1403,11 +1497,15 @@ def _build_units(opt: MatExpr, mesh: Mesh, cfg: MatrelConfig,
 
 def _units_mesh(expr: MatExpr, mesh: Optional[Mesh],
                 cfg: MatrelConfig) -> Mesh:
-    if mesh is not None:
-        return mesh
-    lvs = expr_leaves(expr)
-    return lvs[0].attrs["matrix"].mesh if lvs else mesh_lib.make_mesh(
-        cfg.mesh_shape, cfg.mesh_axis_names)
+    if mesh is None:
+        lvs = expr_leaves(expr)
+        mesh = lvs[0].attrs["matrix"].mesh if lvs else mesh_lib.make_mesh(
+            cfg.mesh_shape, cfg.mesh_axis_names)
+    if mesh.ranked:
+        raise NotPortedError(
+            "unit programs run on one device; on a rank mesh a plan "
+            "lowers through compile_expr (fused regions staged)")
+    return mesh
 
 
 def compile_staged_units(expr: MatExpr, mesh: Optional[Mesh] = None,
@@ -1440,7 +1538,10 @@ def region_probe_programs(root_node: MatExpr, member_uids,
     inputs are replaced by padded f32 probes from
     ``np.random.default_rng(0)`` on the mesh's device; a region whose
     members read sparse-leaf payloads returns None (a probe cannot
-    stand in for static tile metadata)."""
+    stand in for static tile metadata) or on a rank mesh (unit programs
+    run on one device)."""
+    if mesh.ranked:
+        return None
     members = {root_node.uid: root_node}
     want = set(member_uids)
     stack = [root_node]

@@ -27,8 +27,14 @@ tables on any device.
 :func:`compact_apply_chunked` splits the plan's row blocks into
 stripes and runs B2 once per stripe (:func:`spmv_scatter_rows`, the
 walk over that row range of the view); each row is walked as in one
-launch, so its result is bit-equal to :func:`compact_apply`'s. The
-sharded variants are not ported.
+launch, so its result is bit-equal to :func:`compact_apply`'s.
+
+On a rank mesh :func:`compact_sharded_apply` (B2) and
+:func:`compact_sharded_matmat_apply` (B3) run the kernel on each rank's
+slice of block rows (``spmv.shard_plan``: sentinel-padded, its tables and
+CSR view memoised on the slice's own plan), then one ``all_gather`` of
+the rows and the overflow COO on every rank. B2 walks each row with the
+whole plan's sub-warp width, so every row comes out as on one card.
 """
 
 from __future__ import annotations
@@ -374,3 +380,56 @@ def spmv_compact(plan: spmv_lib.EdgeSpMVPlan, x, passes: int = 3,
     dev = resolve_device(device)
     x = torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(-1)
     return compact_apply(plan, x, passes, use_pallas)
+
+
+# -- rank-mesh sharded -----------------------------------------------------------
+
+
+def shard_compact_tables(plan: spmv_lib.EdgeSpMVPlan, mesh):
+    """This rank's compact tables on its device: the sentinel-padded slice
+    of block rows (``spmv.shard_plan``), memoised per (plan, mesh)."""
+    return compact_tables(spmv_lib.shard_plan(plan, mesh).local, mesh.device)
+
+
+def compact_sharded_apply(plan: spmv_lib.EdgeSpMVPlan, x: Tensor, mesh,
+                          passes: int = 3, use_pallas: bool = True) -> Tensor:
+    """y = A·x on a rank mesh: B2 over this rank's slice (or its plain
+    version with ``use_pallas=False``), one all_gather, the overflow COO.
+    Every rank gets the whole y."""
+    sl = spmv_lib.shard_plan(plan, mesh)
+    loc, dev = sl.local, x.device
+    x = x.float().contiguous()
+    if use_pallas:
+        y_loc = spmv_scatter(csr_view_on(loc, dev), x, passes, sl.lanes)
+    else:
+        y_loc = spmv_scatter_plain(*shard_compact_tables(plan, mesh), x,
+                                   loc.n_rows, loc.block, passes)
+    y = spmv_lib.gather_rows(y_loc, sl, mesh)
+    ov = plan.overflow_on(dev)
+    return spmv_lib._overflow_add(y, ov, x, plan.n_rows) if ov else y
+
+
+def compact_sharded_matmat_apply(plan: spmv_lib.EdgeSpMVPlan, X: Tensor,
+                                 mesh, passes: int = 3,
+                                 use_pallas: bool = True) -> Tensor:
+    """Y = A·X on a rank mesh: B3 over this rank's slice, one
+    all_gather, the overflow COO."""
+    sl = spmv_lib.shard_plan(plan, mesh)
+    loc, dev = sl.local, X.device
+    X = X.float().contiguous()
+    if use_pallas:
+        Y_loc = spmm_scatter(csr_view_on(loc, dev), X, passes)
+    else:
+        Y_loc = spmm_scatter_plain(*shard_compact_tables(plan, mesh), X,
+                                   loc.n_rows, loc.block, passes)
+    Y = spmv_lib.gather_rows(Y_loc, sl, mesh)
+    ov = plan.overflow_on(dev)
+    return spmv_lib._overflow_add_wide(Y, ov, X, plan.n_rows) if ov else Y
+
+
+def spmv_compact_sharded(plan: spmv_lib.EdgeSpMVPlan, x, mesh,
+                         passes: int = 3, use_pallas: bool = True) -> Tensor:
+    """y = A·x with the compact tables cut over the rank mesh."""
+    x = torch.as_tensor(x, dtype=torch.float32,
+                        device=mesh.device).reshape(-1)
+    return compact_sharded_apply(plan, x, mesh, passes, use_pallas)

@@ -14,8 +14,8 @@ densified operand.
   composite.
 
 ``apply_dense`` carries the fused-region ``epilogue`` slot
-(``ir/fusion.py``). The sharded wrapper ``spgemm_sharded`` is not
-ported.
+(``ir/fusion.py``). ``spgemm_sharded`` cuts the pair list over the ranks
+of a rank mesh.
 """
 
 from __future__ import annotations
@@ -292,3 +292,63 @@ def apply_dense(A: BlockSparseMatrix, B: BlockSparseMatrix,
     # past the padded shape is cut off here
     dense = dense[: pshape[0], : pshape[1]]
     return dense if epilogue is None else epilogue(dense)
+
+
+# -- rank-sharded (ops/spmm_sharded.py style) -------------------------------
+
+
+def spgemm_sharded(A: BlockSparseMatrix, B: BlockSparseMatrix,
+                   config: Optional[MatrelConfig] = None
+                   ) -> BlockSparseMatrix:
+    """Scale-out SpGEMM on a rank mesh: the PAIR list cut over the ranks.
+
+    Output tile slots are cut into ``mesh.size`` equal contiguous
+    ranges; each rank owns the pairs landing in its range and computes
+    its local output sub-stack (gather / batched product / ``index_add_``
+    — an XLA composite in the JAX package, not a Pallas kernel), then one
+    ``all_gather`` assembles the stack on every rank. The operands are
+    whole on every rank (the tile stacks are the broadcast side)."""
+    from matrel_tpu_torch.ops.spmm_sharded import tile_bmm
+    from matrel_tpu_torch.parallel import collectives as coll
+    cfg = config or default_config()
+    _check_shapes(A, B)
+    mesh = A.mesh
+    if not mesh.ranked:
+        raise ValueError("spgemm_sharded needs a rank mesh "
+                         "(core.mesh.init_distributed)")
+    p, rank = mesh.size, mesh.ranks.rank
+    bs = A.block_size
+    pa, pb, slot, out_rows, out_cols = _pair_structure_cached(A, B)
+    out_dtype = _out_dtype(A, B, cfg)
+    dev = mesh.device
+    if pa.size == 0:
+        return BlockSparseMatrix(
+            blocks=torch.zeros((1, bs, bs), dtype=out_dtype, device=dev),
+            block_rows=torch.zeros(1, dtype=torch.int32, device=dev),
+            block_cols=torch.zeros(1, dtype=torch.int32, device=dev),
+            shape=(A.shape[0], B.shape[1]), block_size=bs, mesh=mesh)
+    n_out = int(out_rows.size)
+    spr = -(-n_out // p)                 # output slots per rank
+    mine = np.nonzero(slot // spr == rank)[0]
+    common = torch.promote_types(A.dtype, B.dtype)
+    ab = torch.cat([_edge_masked(A).to(common),
+                    torch.zeros((1, bs, bs), dtype=common, device=dev)])
+    bb = torch.cat([_edge_masked(B).to(common),
+                    torch.zeros((1, bs, bs), dtype=common, device=dev)])
+    local = torch.zeros((spr, bs, bs), dtype=torch.float32, device=dev)
+    # chunks of pairs bound the gathered (chunk, bs, bs) operands
+    step = max(1, (256 << 20) // (bs * bs * 4))
+    for c0 in range(0, mine.size, step):
+        sel = mine[c0:c0 + step]
+        ia = torch.as_tensor(pa[sel].astype(np.int64), device=dev)
+        ib = torch.as_tensor(pb[sel].astype(np.int64), device=dev)
+        sl = torch.as_tensor((slot[sel] % spr).astype(np.int64), device=dev)
+        local.index_add_(0, sl, tile_bmm(ab[ia], bb[ib]))
+    tiles = coll.all_gather(local, mesh, None, dim=0)[:n_out]
+    return BlockSparseMatrix(
+        blocks=tiles.to(out_dtype),
+        block_rows=torch.as_tensor(np.asarray(out_rows, np.int32),
+                                   device=dev),
+        block_cols=torch.as_tensor(np.asarray(out_cols, np.int32),
+                                   device=dev),
+        shape=(A.shape[0], B.shape[1]), block_size=bs, mesh=mesh)

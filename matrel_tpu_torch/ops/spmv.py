@@ -30,6 +30,14 @@ numpy fill, its last edges in row order). :func:`save_plan` /
 :func:`load_plan` persist a plan's compact layout as one ``.npz`` in the
 JAX package's format, so a file saved by either package loads in the
 other.
+
+On a rank mesh (``core/mesh.init_distributed``) :func:`shard_plan` cuts a
+plan's block rows over the ranks (:class:`PlanSlice`: the block axis
+padded to the rank count with sentinel slots, this rank's run of blocks
+a plan of its own), :func:`spmv_sharded` / :func:`spmm_sharded` contract
+each rank's slice against the replicated x over the expanded tables, one
+``all_gather`` assembles y and the overflow COO is added on every rank;
+the compact executor's sharded form is ``pallas_spmv.compact_sharded_apply``.
 """
 
 from __future__ import annotations
@@ -428,3 +436,122 @@ def spmv(plan: EdgeSpMVPlan, x: Tensor) -> Tensor:
     """y = A·x over the expanded tables, on x's device."""
     return spmv_apply((plan.n_rows, plan.n_cols, plan.block),
                       plan.arrays(x.device), x)
+
+
+# -- rank-mesh sharded --------------------------------------------------------
+
+
+def compact_pad_fills(n_cols: int) -> dict:
+    """Sentinel fill values for padded slots/blocks of the compact
+    layout, shared by every sharding path: src8·WIDTH + lane = n_cols
+    points past x (reads 0 / is dropped from a CSR view), val 0 kills
+    any contribution."""
+    return {"src8": n_cols // WIDTH, "lane": n_cols % WIDTH,
+            "off": 0, "val": 0.0}
+
+
+@dataclasses.dataclass
+class PlanSlice:
+    """One rank's share of a plan's block rows: ``local`` is a plan of
+    its own over blocks [rank·per, (rank + 1)·per) of the block axis
+    padded to ``size``·per with sentinel slots (``n_rows`` = per·block,
+    no overflow), so its device tables and CSR view are memoised on it
+    and never confused with the whole plan's. ``plan`` keeps the whole
+    plan's rows and overflow COO; ``lanes`` is the B2 sub-warp width of
+    the whole plan's view, so each row is walked as on one card."""
+    plan: EdgeSpMVPlan
+    local: EdgeSpMVPlan
+    rank: int
+    size: int
+    lanes: int
+
+
+def shard_plan(plan: EdgeSpMVPlan, mesh) -> PlanSlice:
+    """This rank's :class:`PlanSlice` of ``plan`` on the rank mesh,
+    memoised on the plan per mesh."""
+    from matrel_tpu_torch.ops.spmv_routed import lanes_per_row
+    memo = plan.__dict__.setdefault("_slices", {})
+    hit = memo.get(id(mesh))
+    if hit is not None and hit[0] is mesh:
+        return hit[1]
+    p, rank = mesh.size, mesh.ranks.rank
+    nb, cap = plan.src8.shape
+    per = -(-nb // p)
+    lo, hi = rank * per, min((rank + 1) * per, nb)
+    fills = compact_pad_fills(plan.n_cols)
+
+    def cut(a, fill):
+        part = np.asarray(a)[lo:hi] if lo < nb else np.asarray(a)[:0]
+        if part.shape[0] < per:
+            part = np.concatenate(
+                [part, np.full((per - part.shape[0], cap), fill,
+                               np.asarray(a).dtype)])
+        return np.ascontiguousarray(part)
+
+    local = EdgeSpMVPlan(
+        n_rows=per * plan.block, n_cols=plan.n_cols, block=plan.block,
+        capacity=cap, src8=cut(plan.src8, fills["src8"]),
+        lane=cut(plan.lane, fills["lane"]), off=cut(plan.off, fills["off"]),
+        val=cut(plan.val, fills["val"]), ov_cols=None, ov_rows=None,
+        ov_vals=None, padding_ratio=plan.padding_ratio, fill=plan.fill)
+    cols = plan.src8.astype(np.int64) * WIDTH + plan.lane
+    rows = (np.arange(nb)[:, None] * plan.block + plan.off)
+    real = ((cols < plan.n_cols) & (plan.off < plan.block)
+            & (rows < plan.n_rows))
+    sl = PlanSlice(plan, local, rank, p,
+                   lanes_per_row(int(real.sum()), plan.n_rows))
+    memo[id(mesh)] = (mesh, sl)
+    return sl
+
+
+def gather_rows(y_loc: Tensor, sl: PlanSlice, mesh) -> Tensor:
+    """The ranks' row slices of y assembled in rank order (one
+    ``all_gather`` over the world) and cut to the plan's rows."""
+    from matrel_tpu_torch.parallel import collectives as coll
+    return coll.all_gather(y_loc, mesh, None, dim=0)[:sl.plan.n_rows]
+
+
+def spmv_sharded_apply(sl: PlanSlice, x: Tensor, mesh) -> Tensor:
+    """y = A·x over a rank's slice of the expanded tables: the slice's
+    contraction against the replicated x, one all_gather, then the
+    overflow COO (every rank adds the same)."""
+    loc = sl.local
+    x = x.float()
+    y_loc = spmv_apply((loc.n_rows, loc.n_cols, loc.block),
+                       loc.arrays(x.device), x)
+    y = gather_rows(y_loc, sl, mesh)
+    ov = sl.plan.overflow_on(x.device)
+    return _overflow_add(y, ov, x, sl.plan.n_rows) if ov else y
+
+
+def spmm_sharded_apply(sl: PlanSlice, X: Tensor, mesh) -> Tensor:
+    """The k-wide :func:`spmv_sharded_apply` (Y = A·X)."""
+    loc = sl.local
+    X = X.float()
+    dev = X.device
+    y_loc = spmm_apply((loc.n_rows, loc.n_cols, loc.block),
+                       loc.arrays(dev), loc.spmm_extra(dev), X)
+    y = gather_rows(y_loc, sl, mesh)
+    ov = sl.plan.overflow_on(dev)
+    return _overflow_add_wide(y, ov, X, sl.plan.n_rows) if ov else y
+
+
+def spmv_sharded(plan: EdgeSpMVPlan, x: Tensor, mesh) -> Tensor:
+    """y = A·x with the plan's block rows cut over the rank mesh
+    (:func:`shard_plan`); every rank gets the whole y."""
+    return spmv_sharded_apply(shard_plan(plan, mesh),
+                              torch.as_tensor(x, device=mesh.device), mesh)
+
+
+def spmm_sharded(plan: EdgeSpMVPlan, X: Tensor, mesh,
+                 col_chunk: int = 64) -> Tensor:
+    """Y = A·X over the rank mesh, ``col_chunk`` columns at a time."""
+    X = torch.as_tensor(X, device=mesh.device).float()
+    if X.shape[1] == 0:
+        return X.new_zeros((plan.n_rows, 0))
+    if X.shape[1] == 1:
+        return spmv_sharded(plan, X[:, 0], mesh)[:, None]
+    sl = shard_plan(plan, mesh)
+    outs = [spmm_sharded_apply(sl, X[:, j:j + col_chunk], mesh)
+            for j in range(0, X.shape[1], col_chunk)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)

@@ -25,9 +25,14 @@ sessions inherit it:
   suppresses the stamp;
 * staged reshards (``lookup_or_measure_reshard``, the ``reshard|``
   family): a persisted row is honoured and single-step plans are never
-  measured. On one card both variants would time the same local copy,
-  so ``measure_reshard_variant`` raises ``NotPortedError`` until the
-  multi-rank slice; its candidates drop out and the model decides.
+  measured. On a rank mesh the step sequence is timed against one
+  direct move; on one card both would time the same local copy, so
+  ``measure_reshard_variant`` raises ``NotPortedError`` there, its
+  candidates drop out and the model decides.
+
+On a rank mesh every rank takes rank 0's answer (``_agree``): whether a
+row was found, and the medians measured, so all ranks pick one winner;
+only rank 0 writes the table.
 
 Keys and table format are the JAX package's, so both packages share one
 table (default ``.matrel_autotune.json``); the backend field is the
@@ -197,6 +202,9 @@ def _persist(path: str, key: str, best: Optional[str],
     the measurement). A lock older than 60 s is presumed dead and
     broken; the breaker re-stats the lock and proceeds only when its
     inode is the one it created, so two breakers never both merge."""
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return                  # ranks share one table: rank 0 writes it
     lock = f"{path}.lock"
     fd = None
     try:
@@ -272,11 +280,26 @@ def _median_seconds(go, n_times: int) -> float:
     return ts[len(ts) // 2]
 
 
-def _measured(family: str, candidates, measure) -> Dict[str, float]:
-    """{candidate: seconds} over ``candidates``. A candidate whose
-    measurement raises drops out of the comparison, as in the JAX
-    package, and is logged with its exception; a non-positive time is
-    noise, not a time."""
+def _agree(value, mesh):
+    """Rank 0's ``value`` on every rank of a rank mesh (``value`` itself
+    elsewhere): every rank must take the same measured choice, and the
+    same decision to measure, or their collectives stop matching."""
+    if getattr(mesh, "ranked", False):
+        from matrel_tpu_torch.parallel import collectives as coll
+        return coll.broadcast_object(value, mesh)
+    return value
+
+
+def _measured(family: str, candidates, measure,
+              mesh=None) -> Dict[str, float]:
+    """{candidate: seconds} over ``candidates`` (rank 0's medians on
+    every rank of a rank mesh). A candidate whose measurement raises
+    drops out of the comparison, as in the JAX package, and is logged
+    with its exception; a non-positive time is noise, not a time."""
+    return _agree(_measured_here(family, candidates, measure), mesh)
+
+
+def _measured_here(family: str, candidates, measure) -> Dict[str, float]:
     results: Dict[str, float] = {}
     for c in candidates:
         try:
@@ -304,13 +327,17 @@ def measure_strategy(strategy: str, A: BlockMatrix, B: BlockMatrix,
     most 48 multiplies. May return a non-positive value on a noisy host:
     callers treat that as no measurement."""
     mesh = A.mesh
+    ranked = mesh.ranked
+    a0, b0 = (A.as_shard(), B.as_shard()) if ranked else (A.data, B.data)
 
     def chained(n: int):
-        cur = A.data
+        # on a rank mesh each product is the recipe's re-lay and body,
+        # the output fed back as the next left operand
+        cur = a0
         for _ in range(n):
-            cur = strategies.run_matmul(strategy, cur, B.data, mesh,
-                                        config).to(A.dtype)
-        float(cur.float().sum())
+            cur = strategies.run_matmul(strategy, cur, b0, mesh, config,
+                                        epilogue=lambda o: o.to(A.dtype))
+        float((cur.local if ranked else cur).float().sum())
 
     def marginal(lo: int, hi: int) -> Tuple[float, float]:
         t0 = time.perf_counter()
@@ -324,6 +351,8 @@ def measure_strategy(strategy: str, A: BlockMatrix, B: BlockMatrix,
     chained(2)  # warm
     lo, hi = reps
     est, t_hi = marginal(lo, hi)
+    # the ranks of a rank mesh must run the same chains
+    t_hi = _agree(t_hi, mesh)
     if t_hi < min_window_s:
         scale = min(max(2, round(min_window_s / max(t_hi, 1e-4))),
                     max(48 // hi, 1))
@@ -361,7 +390,7 @@ def autotune_matmul(n: int, k: int, m: int, mesh=None, dtype="float32",
              if not (s == "summa" and gx != gy)
              and planner.admissible(s, pn, pk, pn, gx, gy)]
     results = _measured("matmul", cands,
-                        lambda s: measure_strategy(s, A, B, cfg))
+                        lambda s: measure_strategy(s, A, B, cfg), mesh)
     best = _pick_winner(results)
     _CACHE[key] = (best, results)
     if results and (cfg.autotune or cfg.autotune_table_path):
@@ -390,17 +419,18 @@ def _maybe_persist_cached(config: Optional[MatrelConfig],
         _persist(path, tkey, best, results)
 
 
-def _cached_entry(cache: dict, key: str, cfg: MatrelConfig):
+def _cached_entry(cache: dict, key: str, cfg: MatrelConfig, mesh=None):
     """(found, best) from an in-process cache of {key: best}, else the
     persisted table (a persisted tie is a measurement too: it is cached,
-    not re-measured), else (False, None)."""
+    not re-measured), else (False, None) — rank 0's answer on a rank
+    mesh."""
     if key in cache:
-        return True, cache[key]
+        return _agree((True, cache[key]), mesh)
     entry = _load_table_cached(_table_path(cfg)).get(key)
     if isinstance(entry, dict) and entry.get("times"):
         best = entry.get("best")
-        return True, best if isinstance(best, str) else None
-    return False, None
+        return _agree((True, best if isinstance(best, str) else None), mesh)
+    return _agree((False, None), mesh)
 
 
 def lookup_or_measure(n: int, k: int, m: int, mesh, dtype: str = "float32",
@@ -423,8 +453,8 @@ def lookup_or_measure(n: int, k: int, m: int, mesh, dtype: str = "float32",
     if key in _CACHE:
         _maybe_persist_cached(cfg, key)
         return _CACHE[key][0]
-    entry = _load_table_cached(_table_path(cfg)).get(
-        _table_key(side, gx, gy, str(dtype), backend, wts))
+    entry = _agree(_load_table_cached(_table_path(cfg)).get(
+        _table_key(side, gx, gy, str(dtype), backend, wts)), mesh)
     if isinstance(entry, dict) and entry.get("times"):
         best = entry.get("best")
         best = best if isinstance(best, str) else None
@@ -500,13 +530,13 @@ def lookup_or_measure_spmv(plan, mesh,
     gx, gy = mesh_lib.mesh_grid_shape(mesh)
     key = _spmv_key(plan, gx, gy, backend_of(mesh),
                     mesh_lib.axis_weights(mesh, cfg))
-    found, best = _cached_entry(_SPMV_CACHE, key, cfg)
+    found, best = _cached_entry(_SPMV_CACHE, key, cfg, mesh)
     if found:
         _SPMV_CACHE[key] = best
         return best
     results = _measured(
         "spmv", [v for v in SPMV_VARIANTS if _spmv_admissible(v, plan, cfg)],
-        lambda v: measure_spmv_variant(v, plan, mesh, cfg))
+        lambda v: measure_spmv_variant(v, plan, mesh, cfg), mesh)
     if len(results) < 2:
         _SPMV_CACHE[key] = None
         return None
@@ -584,7 +614,7 @@ def lookup_or_measure_spgemm(side: int, structure: str, bs: int, mesh,
     gx, gy = mesh_lib.mesh_grid_shape(mesh)
     key = _spgemm_key(side, structure, bs, gx, gy, backend_of(mesh),
                       mesh_lib.axis_weights(mesh, cfg))
-    found, best = _cached_entry(_SPGEMM_CACHE, key, cfg)
+    found, best = _cached_entry(_SPGEMM_CACHE, key, cfg, mesh)
     if found:
         _SPGEMM_CACHE[key] = best
         return best
@@ -597,7 +627,7 @@ def lookup_or_measure_spgemm(side: int, structure: str, bs: int, mesh,
                                 seed=SPGEMM_PROBE_SEEDS[1])
     results = _measured(
         "spgemm", spgemm_candidates(structure, bs, cfg),
-        lambda kid: measure_spgemm_kernel(kid, A, B, cfg))
+        lambda kid: measure_spgemm_kernel(kid, A, B, cfg), mesh)
     if len(results) < 2:
         _SPGEMM_CACHE[key] = None
         return None
@@ -677,7 +707,7 @@ def measure_fusion_region(region, root_tree, mesh,
     runs = {"fused": run_fused, "staged": run_staged}
     return _measured("fusion", FUSION_VARIANTS,
                      lambda v: _median_device_seconds(runs[v], mesh.device,
-                                                      n_times))
+                                                      n_times), mesh)
 
 
 def _find_region_root(root_tree, uid: int):
@@ -705,7 +735,7 @@ def lookup_or_measure_fusion(region, root_tree, mesh,
                       for d in _member_dims(root_tree, u)])
     key = _fusion_key(region.sig, side, gx, gy, backend_of(mesh),
                       mesh_lib.axis_weights(mesh, cfg))
-    found, best = _cached_entry(_FUSION_CACHE, key, cfg)
+    found, best = _cached_entry(_FUSION_CACHE, key, cfg, mesh)
     if found:
         _FUSION_CACHE[key] = best
         return best
@@ -744,17 +774,36 @@ def _reshard_key(plan, gx: int, gy: int, backend: str,
 def measure_reshard_variant(variant: str, plan, mesh,
                             config: Optional[MatrelConfig] = None,
                             n_times: int = 5) -> float:
-    """Median seconds of one lowering of the plan's move — in the JAX
-    package, the compiled step sequence ("staged") against one sharding
-    constraint ("naive") across the mesh's devices. On one card both
-    are the same local copy, so timing them would measure nothing: this
-    raises :class:`NotPortedError` until the multi-rank slice, and
-    :func:`lookup_or_measure_reshard` drops both candidates (the model
-    decides)."""
-    raise NotPortedError(
-        f"measuring the {variant!r} lowering of a {plan.src}->{plan.dst} "
-        f"reshard needs more than one rank; matrel_tpu_torch runs on one "
-        f"card, where every step is a local copy")
+    """Median seconds of one lowering of the plan's move on a rank mesh:
+    the compiled step sequence ("staged", ``reshard.apply_staged``)
+    against one direct move to the destination ("naive",
+    ``collectives.relay``), over a matrix of the plan's size laid out as
+    its source, the ranks in step (a barrier ends every run). On one card
+    both would be the same local copy, so there it raises
+    :class:`NotPortedError` and :func:`lookup_or_measure_reshard` drops
+    both candidates (the model decides)."""
+    if not getattr(mesh, "ranked", False):
+        raise NotPortedError(
+            f"measuring the {variant!r} lowering of a {plan.src}->"
+            f"{plan.dst} reshard needs a rank mesh; on one card every "
+            f"step is a local copy")
+    from matrel_tpu_torch.parallel import collectives as coll
+    from matrel_tpu_torch.parallel import reshard as reshard_lib
+    side = int(round(math.sqrt(plan.nbytes / 4.0)))
+    pshape = padding.padded_shape((side, side), mesh)
+    full = torch.ones(pshape, dtype=torch.float32, device=mesh.device)
+    x = coll.shard_from_full(full, plan.src, mesh)
+    del full
+
+    def go():
+        if variant == "staged":
+            y = reshard_lib.apply_staged(x, plan, mesh)
+        else:
+            y = coll.relay(x, plan.dst, mesh)
+        float(y.local[:1, :1].sum())
+        coll.barrier(mesh)
+
+    return _median_seconds(go, n_times)
 
 
 def lookup_or_measure_reshard(plan, mesh,
@@ -771,7 +820,7 @@ def lookup_or_measure_reshard(plan, mesh,
     gx, gy = mesh_lib.mesh_grid_shape(mesh)
     key = _reshard_key(plan, gx, gy, backend_of(mesh),
                        mesh_lib.axis_weights(mesh, cfg))
-    found, best = _cached_entry(_RESHARD_CACHE, key, cfg)
+    found, best = _cached_entry(_RESHARD_CACHE, key, cfg, mesh)
     if found:
         _RESHARD_CACHE[key] = best
         return best
@@ -780,7 +829,7 @@ def lookup_or_measure_reshard(plan, mesh,
         return None
     results = _measured(
         "reshard", RESHARD_VARIANTS,
-        lambda v: measure_reshard_variant(v, plan, mesh, cfg))
+        lambda v: measure_reshard_variant(v, plan, mesh, cfg), mesh)
     if len(results) < 2:
         _RESHARD_CACHE[key] = None
         return None

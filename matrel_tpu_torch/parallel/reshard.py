@@ -19,7 +19,8 @@ live during any reshard step. The planner prices join re-lays from the
 plans (``planner._reshard_to_axis``), ``matmul_decisions`` records the
 moves (``moves_record``), and the executor compiles them for every
 dense matmul and plan root. On one card :func:`apply_staged` has
-nothing to move: every layout state holds the whole tensor.
+nothing to move: every layout state holds the whole tensor; on a rank
+mesh it moves the blocks step by step.
 """
 
 from __future__ import annotations
@@ -489,7 +490,7 @@ def moves_record(moves) -> Optional[dict]:
 
 
 # ---------------------------------------------------------------------------
-# Execution — on one card every step is a local copy
+# Execution — a local copy on one card, the step's move on a rank mesh
 # ---------------------------------------------------------------------------
 
 
@@ -528,10 +529,19 @@ def plan_stageable(plan: ReshardPlan, pshape) -> bool:
 
 
 def apply_staged(arr, plan: ReshardPlan, mesh):
-    """Run a compiled plan's steps over ``arr``. The port executes on
-    one card, where every layout state holds the whole tensor, so each
-    step is a local copy and the value is ``arr`` itself: the plan is
-    still compiled and recorded (stamps, prices and decision records
-    equal the JAX package's), and a real per-step collective waits for
-    the multi-rank slice."""
+    """Run a compiled plan's steps over ``arr``. On one card every layout
+    state holds the whole tensor, so each step is a local copy and the
+    value is ``arr`` itself (the plan is still compiled and recorded:
+    stamps, prices and decision records equal the JAX package's). On a
+    rank mesh ``arr`` is a ``collectives.Shard`` and each step is its real
+    move to the step's state (``collectives.relay``: the all_to_all on
+    the step's axis, the gather, or the slice); the entries never
+    change."""
+    if not getattr(mesh, "ranked", False):
+        return arr
+    from matrel_tpu_torch.parallel import collectives as coll
+    if not isinstance(arr, coll.Shard):          # a whole value: rep
+        arr = coll.Shard(arr, coll.STATES["rep"], tuple(arr.shape))
+    for step in plan.steps:
+        arr = coll.relay(arr, step.dst_state, mesh)
     return arr

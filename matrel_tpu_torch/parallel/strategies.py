@@ -2,11 +2,17 @@
 ``matrel_tpu/parallel/strategies.py``.
 
 The JAX package runs each strategy (bmm_left/bmm_right/cpmm/rmm/summa/
-xla) as a ``shard_map`` collective recipe over the TPU mesh. This
-package executes on one card, where every strategy is the same local
-product: the stamp is kept (it is what the planner chose on the grid),
-the computation is one matmul. Multi-rank recipes over
-``torch.distributed`` come in a later slice.
+xla) as a ``shard_map`` collective recipe over the TPU mesh. Here:
+
+* on a rank mesh (``core/mesh.init_distributed``) each strategy is the
+  same recipe written as explicit collectives on the axis groups
+  (``parallel/collectives.py``): its operands are re-laid to the layouts
+  its ``in_specs`` name (:data:`RECIPE_LAYOUTS`), then its body runs —
+  BMM nothing more, CPMM one reduce-scatter over y, RMM nothing more
+  (its gathers are the re-lay), SUMMA Cannon's skew and a g−1 step ring
+  of isend/irecv pairs, XLA the local product of whole operands;
+* on one card (the virtual grid) every strategy is the same local
+  product: the stamp is kept, the computation is one matmul.
 
 Numerics follow the JAX package's ``Precision.HIGHEST``: float32
 products run in IEEE f32 with TF32 off, bf16 operands accumulate in
@@ -16,7 +22,7 @@ runs them), integers accumulate in at least int32.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -111,19 +117,108 @@ def _tensor_core_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 _PRECISION_TIER = {"default": "bf16x1", "high": "bf16x3"}
 
 
-def run_matmul(strategy: str, a: torch.Tensor, b: torch.Tensor, mesh,
-               config: Optional[MatrelConfig] = None,
-               epilogue=None) -> torch.Tensor:
-    """The stamped strategy's product on one device. ``epilogue`` is
-    applied to the output (the JAX package's fused-region slot, used
-    here for the ``keep_input_dtype`` storage cast)."""
-    if strategy not in STRATEGIES:
-        raise ValueError(f"unknown strategy {strategy!r}")
-    cfg = config or default_config()
+def _dot_for(cfg: MatrelConfig, a: torch.Tensor, b: torch.Tensor
+             ) -> Callable:
+    """The local product a strategy runs: ``local_dot``, or the bf16
+    passes of ``config.matmul_precision`` below "highest" for f32
+    operands."""
     tier = _PRECISION_TIER.get(cfg.matmul_precision)
     if tier is not None and a.dtype == b.dtype == torch.float32:
         from matrel_tpu_torch.ops.precision import tiered_matmul
-        out = tiered_matmul(tier, a, b, local_dot)
-    else:
-        out = local_dot(a, b)
+        return lambda p, q: tiered_matmul(tier, p, q, local_dot)
+    return local_dot
+
+
+# -- recipes on a rank mesh -------------------------------------------------------
+
+#: (layout of A, layout of B, layout of the output) of each recipe, in
+#: the ``collectives.STATES`` vocabulary: the JAX package's in_specs and
+#: out_specs.
+RECIPE_LAYOUTS = {
+    "bmm_right": ("row", "rep", "row"),
+    "bmm_left": ("rep", "col", "col"),
+    "cpmm": ("2d", "rowy", "2d"),
+    "rmm": ("rowx", "coly", "2d"),
+    "summa": ("2d", "2d", "2d"),
+    "xla": ("rep", "rep", None),
+}
+
+
+def _recipe_body(strategy: str, a: torch.Tensor, b: torch.Tensor, mesh,
+                 dot: Callable) -> torch.Tensor:
+    """The recipe's body on this rank's re-laid operand blocks: the
+    collectives after the re-lay."""
+    from matrel_tpu_torch.parallel import collectives as coll
+    if strategy == "cpmm":
+        # reduce-scatter partial C over the contraction axis; scatter
+        # the columns
+        return coll.reduce_scatter(dot(a, b), mesh, "y", dim=1)
+    if strategy != "summa" or mesh.grid[0] == 1:
+        return dot(a, b)
+    # Cannon's skew: rotate A left by its row index i along y and B up
+    # by its column index j along x, so step t multiplies A[i, i+j+t]
+    # with B[i+j+t, j]. Every rank runs the same g-1 shifts and keeps a
+    # shifted block only while t < i (resp. t < j): the collectives stay
+    # uniform across the mesh.
+    g = mesh.grid[0]
+    i, j = mesh.ranks.coords
+    for t in range(g - 1):
+        sa, sb = coll.shift(a, mesh, "y"), coll.shift(b, mesh, "x")
+        a, b = (sa if t < i else a), (sb if t < j else b)
+    acc = dot(a, b)
+    for _ in range(g - 1):
+        a, b = coll.shift(a, mesh, "y"), coll.shift(b, mesh, "x")
+        acc = acc + dot(a, b)
+    return acc
+
+
+def run_ranked(strategy: str, a, b, mesh, dot: Callable):
+    """One stamped product on a rank mesh: ``a`` and ``b`` are Shards
+    (or whole tensors, read as replicated); returns the output Shard in
+    the recipe's layout. SUMMA on a non-square grid runs CPMM, as in the
+    JAX package."""
+    from matrel_tpu_torch.core import padding
+    from matrel_tpu_torch.parallel import collectives as coll
+    from matrel_tpu_torch.parallel.planner import admissible
+    if strategy == "summa" and mesh.grid[0] != mesh.grid[1]:
+        strategy = "cpmm"
+    a = a if isinstance(a, coll.Shard) else coll.Shard(a, coll.STATES["rep"],
+                                                       tuple(a.shape))
+    b = b if isinstance(b, coll.Shard) else coll.Shard(b, coll.STATES["rep"],
+                                                       tuple(b.shape))
+    (pn, pk), pm = a.pshape, b.pshape[1]
+    if not admissible(strategy, pn, pk, pm, *mesh.grid):
+        raise ValueError(f"strategy {strategy!r} cannot cut a {pn}x{pk} · "
+                         f"{pk}x{pm} product on a {mesh.grid} grid")
+    la, lb, lo = RECIPE_LAYOUTS[strategy]
+    a, b = coll.relay(a, la, mesh), coll.relay(b, lb, mesh)
+    with coll.phase("exec"):
+        out = _recipe_body(strategy, a.local, b.local, mesh, dot)
+    if lo is None:          # xla: whole product, canonical blocks kept
+        return coll.shard_from_full(
+            out, padding.canonical_spec(tuple(out.shape), mesh), mesh)
+    return coll.Shard(out, coll.STATES[lo], (pn, pm))
+
+
+def run_matmul(strategy: str, a, b, mesh,
+               config: Optional[MatrelConfig] = None,
+               epilogue=None):
+    """The stamped strategy's product. On one device, one local product
+    of two tensors; on a rank mesh, the strategy's recipe
+    (:func:`run_ranked`) over Shards, returning a Shard. ``epilogue`` is
+    applied to the output (the JAX package's fused-region slot, used
+    here for the ``keep_input_dtype`` storage cast; on a rank mesh to
+    this rank's block)."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r}")
+    cfg = config or default_config()
+    if getattr(mesh, "ranked", False):
+        from matrel_tpu_torch.parallel import collectives as coll
+        la = a.local if isinstance(a, coll.Shard) else a
+        lb = b.local if isinstance(b, coll.Shard) else b
+        out = run_ranked(strategy, a, b, mesh, _dot_for(cfg, la, lb))
+        if epilogue is not None:
+            out = coll.Shard(epilogue(out.local), out.layout, out.pshape)
+        return out
+    out = _dot_for(cfg, a, b)(a, b)
     return out if epilogue is None else epilogue(out)

@@ -25,8 +25,10 @@ eager op each: no fused multiply-add, so the f32 values are bit for bit
 those of the JAX package's CPU run (``cheap_gen``; ``default_gen``'s
 ``sin`` may differ by one ulp).
 
-``streaming_chain_sharded`` (row panels over a mesh, one reduction at
-the end) waits for the multi-rank strategies.
+``streaming_chain_sharded`` divides the row panels over the ranks of a
+rank mesh: each rank runs the single-card panel bodies on its own
+panels (the generators make operands location-free, so no input moves),
+then one ``all_reduce`` of the scalar.
 """
 
 from __future__ import annotations
@@ -165,38 +167,47 @@ def streaming_chain(n: int, gen_a: Gen, gen_b: Gen, gen_c: Gen,
     Returns a 0-d f32 tensor (Frobenius² by default, or "sum") on the
     generators' device; no n×n array is ever held."""
     _check_dims(n, tile, panel)
+    acc = None
+    for i in range(n // panel):
+        r = _assembly_panel(i, n, gen_a, gen_b, gen_c, tile, panel, dtype,
+                            reduce)
+        acc = r if acc is None else acc + r
+    return acc
+
+
+def _assembly_panel(i: int, n: int, gen_a: Gen, gen_b: Gen, gen_c: Gen,
+                    tile: int, panel: int, dtype, reduce: str) -> Tensor:
+    """reduce(O_i) of row panel i under the tile-assembly schedule (see
+    :func:`streaming_chain`)."""
     kt, pt = n // tile, panel // tile
 
     def row_block(gen: Gen, k: int) -> Tensor:
         """Row block k, (tile, n), from kt generated tiles."""
         return torch.cat([gen(k, j).to(dtype) for j in range(kt)], dim=1)
 
-    def col_panel(gen: Gen, i: int, k: int) -> Tensor:
+    def col_panel(gen: Gen, k: int) -> Tensor:
         """(panel, tile) column slab: tiles (i·pt + ti, k) stacked."""
         return torch.cat([gen(i * pt + ti, k).to(dtype)
                           for ti in range(pt)], dim=0)
 
-    acc = None
-    for i in range(n // panel):
-        # T_i contracted k-block by k-block, so each row block of B is
-        # generated once per panel
-        part = None
-        for k in range(kt):
-            p = _dot(col_panel(gen_a, i, k), row_block(gen_b, k))
-            part = p if part is None else part.add_(p)
-            del p                      # before the next product exists
-        t_i = part.to(dtype)
-        del part
-        o_i = None
-        for k in range(kt):
-            p = _dot(t_i[:, k * tile:(k + 1) * tile], row_block(gen_c, k))
-            o_i = p if o_i is None else o_i.add_(p)
-            del p
-        del t_i
-        r = _reduced(o_i, reduce)
-        del o_i                        # before the next panel's carry
-        acc = r if acc is None else acc + r
-    return acc
+    # T_i contracted k-block by k-block, so each row block of B is
+    # generated once per panel
+    part = None
+    for k in range(kt):
+        p = _dot(col_panel(gen_a, k), row_block(gen_b, k))
+        part = p if part is None else part.add_(p)
+        del p                      # before the next product exists
+    t_i = part.to(dtype)
+    del part
+    o_i = None
+    for k in range(kt):
+        p = _dot(t_i[:, k * tile:(k + 1) * tile], row_block(gen_c, k))
+        o_i = p if o_i is None else o_i.add_(p)
+        del p
+    del t_i
+    r = _reduced(o_i, reduce)
+    del o_i                        # before the next panel's carry
+    return r
 
 
 def streaming_chain_slab(n: int, gen_a: Gen, gen_b: Gen, gen_c: Gen,
@@ -214,29 +225,66 @@ def streaming_chain_slab(n: int, gen_a: Gen, gen_b: Gen, gen_c: Gen,
     The reduction accumulates in a 0-d f32 tensor on the device: the
     loop never waits for the card. Needs ``.slab``-capable generators
     (:func:`default_gen` / :func:`cheap_gen`)."""
-    _check_dims(n, tile, panel)
-    for g in (gen_a, gen_b, gen_c):
-        if not hasattr(g, "slab"):
-            raise ValueError("streaming_chain_slab needs .slab-capable "
-                             "generators (default_gen / cheap_gen)")
-    kt = n // tile
+    _check_slab(n, tile, panel, gen_a, gen_b, gen_c)
     acc = None
     for i in range(n // panel):
-        a_i = gen_a.slab(i * panel, 0, (panel, n)).to(dtype)
-        t_i = torch.empty((panel, n), dtype=dtype, device=a_i.device)
-        for j in range(kt):
-            b_j = gen_b.slab(0, j * tile, (n, tile)).to(dtype)
-            _dot_into(a_i, b_j, t_i[:, j * tile:(j + 1) * tile])
-            del b_j
-        del a_i
-        part = torch.zeros((), dtype=torch.float32, device=t_i.device)
-        for j in range(kt):
-            c_j = gen_c.slab(0, j * tile, (n, tile)).to(dtype)
-            part += _reduced(_dot(t_i, c_j), reduce)
-            del c_j
-        del t_i
+        part = _slab_panel(i, n, gen_a, gen_b, gen_c, tile, panel, dtype,
+                           reduce)
         acc = part if acc is None else acc + part
     return acc
+
+
+def _check_slab(n: int, tile: int, panel: int, *gens: Gen) -> None:
+    _check_dims(n, tile, panel)
+    for g in gens:
+        if not hasattr(g, "slab"):
+            raise ValueError("the slab schedule needs .slab-capable "
+                             "generators (default_gen / cheap_gen)")
+
+
+def _slab_panel(i: int, n: int, gen_a: Gen, gen_b: Gen, gen_c: Gen,
+                tile: int, panel: int, dtype, reduce: str) -> Tensor:
+    """reduce((A_i·B)·C) of row panel i under the slab schedule (see
+    :func:`streaming_chain_slab`), a 0-d f32 tensor on the device."""
+    kt = n // tile
+    a_i = gen_a.slab(i * panel, 0, (panel, n)).to(dtype)
+    t_i = torch.empty((panel, n), dtype=dtype, device=a_i.device)
+    for j in range(kt):
+        b_j = gen_b.slab(0, j * tile, (n, tile)).to(dtype)
+        _dot_into(a_i, b_j, t_i[:, j * tile:(j + 1) * tile])
+        del b_j
+    del a_i
+    part = torch.zeros((), dtype=torch.float32, device=t_i.device)
+    for j in range(kt):
+        c_j = gen_c.slab(0, j * tile, (n, tile)).to(dtype)
+        part += _reduced(_dot(t_i, c_j), reduce)
+        del c_j
+    return part
+
+
+def streaming_chain_sharded(n: int, gen_a: Gen, gen_b: Gen, gen_c: Gen,
+                            mesh, tile: int = 8192, panel: int = 16384,
+                            dtype=torch.bfloat16, reduce: str = "fro"
+                            ) -> Tensor:
+    """Rank-sharded streaming chain: row panels divided over ALL ranks of
+    a rank mesh (rank r takes panels [r·per, (r + 1)·per)), each running
+    the slab schedule's panel body (the tile-assembly body for
+    generators without ``.slab``) on its own panels, then one
+    ``all_reduce`` of the f32 scalar. Every rank gets the result; the
+    generators make their tiles on the rank's device."""
+    from matrel_tpu_torch.parallel import collectives as coll
+    _check_dims(n, tile, panel)
+    npan, p = n // panel, mesh.size
+    if npan % p:
+        raise ValueError(f"panels ({npan}) must divide over ranks ({p})")
+    per = npan // p
+    slab = all(hasattr(g, "slab") for g in (gen_a, gen_b, gen_c))
+    body = _slab_panel if slab else _assembly_panel
+    acc = None
+    for i in range(mesh.ranks.rank * per, (mesh.ranks.rank + 1) * per):
+        part = body(i, n, gen_a, gen_b, gen_c, tile, panel, dtype, reduce)
+        acc = part if acc is None else acc + part
+    return coll.all_reduce(acc.reshape(1), mesh)[0]
 
 
 def north_star_flops(n: int) -> float:

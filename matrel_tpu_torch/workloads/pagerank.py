@@ -16,8 +16,12 @@ cache; ``pagerank_csr`` (a padded in-neighbour table, gathered and
 summed a round; it falls back to ``pagerank_edges`` on loose degree
 distributions); ``pagerank_block_sparse`` (degrees and every round
 through the block-sparse SpMM, B1 on the card, against a dense operand
-one column wide); and ``pagerank_numpy_oracle``. Not ported yet: the
-mesh-sharded variants.
+one column wide); and ``pagerank_numpy_oracle``. With ``mesh=`` a rank
+mesh, ``pagerank_edges`` runs the sharded variants: each rank holds its
+slice of the plan's block rows and every round is B2 on the slice (the
+expanded one-hot slice with ``use_pallas`` off), one ``all_gather`` of r
+and the overflow COO — the JAX package's one ``shard_map``'d loop as a
+Python loop on every rank.
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ def pagerank(A, rounds: int = 30, alpha: float = 0.85,
 
 def pagerank_edges(src, dst, n: int, rounds: int = 30, alpha: float = 0.85,
                    impl: str = "auto", weights=None, passes: int = 3,
-                   device=None) -> Tensor:
+                   device=None, mesh=None) -> Tensor:
     """PageRank over an edge list (src[e] → dst[e]) on ``device``
     (default: the card); returns the (n,) rank vector.
 
@@ -78,11 +82,30 @@ def pagerank_edges(src, dst, n: int, rounds: int = 30, alpha: float = 0.85,
     the one-hot path on a CUDA device (falling back when the plan build
     refuses the graph or exceeds the slot budget) and the segment path
     on the CPU, as the JAX package does off the TPU.
+
+    ``mesh`` (a rank mesh; every rank calls with the same graph) runs the
+    one-hot impls sharded over the ranks (the segment path runs whole on
+    every rank); every rank gets the whole vector.
     """
     if impl not in ("auto", "segment", "onehot"):
         raise ValueError(f"unknown impl {impl!r}")
-    dev = resolve_device(device)
-    if impl == "onehot":
+    if mesh is not None and not getattr(mesh, "ranked", False):
+        raise ValueError("pagerank_edges(mesh=) needs a rank mesh "
+                         "(core.mesh.init_distributed)")
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    if mesh is not None and (impl == "onehot"
+                             or (impl == "auto" and dev.type == "cuda")):
+        out = _pagerank_sharded(
+            src, dst, n, rounds, alpha, mesh,
+            max_slots=None if impl == "onehot"
+            else _auto_max_slots() * mesh.size,
+            weights=weights, passes=passes)
+        if out is not None:
+            return out
+        if impl == "onehot":
+            raise ValueError("impl='onehot' requested but build_spmv_plan "
+                             "refused the graph; use impl='segment'")
+    elif impl == "onehot":
         out = _pagerank_onehot(src, dst, n, rounds, alpha, weights=weights,
                                passes=passes, device=dev)
         if out is None:
@@ -92,7 +115,7 @@ def pagerank_edges(src, dst, n: int, rounds: int = 30, alpha: float = 0.85,
                 "plan (build_spmv_plan refused); use impl='segment' or "
                 "'auto'")
         return out
-    if impl == "auto" and dev.type == "cuda":
+    if impl == "auto" and dev.type == "cuda" and mesh is None:
         out = _pagerank_onehot(src, dst, n, rounds, alpha,
                                max_slots=_auto_max_slots(), weights=weights,
                                passes=passes, device=dev)
@@ -238,6 +261,44 @@ def _pagerank_onehot(src, dst, n: int, rounds: int, alpha: float,
         return run_pagerank_compact(prepared, rounds, alpha, passes=passes,
                                     device=dev)
     return run_pagerank_onehot(prepared, rounds, alpha, device=dev)
+
+
+def _pagerank_sharded(src, dst, n: int, rounds: int, alpha: float, mesh,
+                      max_slots: int = None, weights=None,
+                      passes: int = 3) -> Optional[Tensor]:
+    """PageRank over the plan's block rows cut over the rank mesh: each
+    round B2 on this rank's slice (``pallas_spmv.compact_sharded_apply``;
+    the expanded one-hot slice, ``spmv.spmv_sharded_apply``, with
+    ``use_pallas`` off), one all_gather of r, the overflow COO. None
+    when the plan build refuses the graph."""
+    dev = mesh.device
+    prepared = _cache_get_or_insert(
+        _graph_fingerprint(src, dst, n, weights) + (str(dev), "sharded"),
+        lambda: prepare_pagerank_onehot(src, dst, n, max_slots=max_slots,
+                                        weights=weights, device=dev),
+        lambda pr_: -(-_plan_slots(pr_) // mesh.size))
+    if prepared is None:
+        return None
+    return run_pagerank_sharded(prepared, mesh, rounds, alpha, passes)
+
+
+def run_pagerank_sharded(prepared, mesh, rounds: int = 30,
+                         alpha: float = 0.85, passes: int = 3) -> Tensor:
+    """PageRank rounds over a prepared plan cut over the rank mesh: B2 on
+    this rank's slice of block rows a round (``use_pallas`` off: the
+    expanded one-hot slice), one all_gather of r, the overflow COO.
+    Every rank calls it and gets the whole vector."""
+    from matrel_tpu_torch.ops import pallas_spmv as pc
+    from matrel_tpu_torch.ops import spmv as spmv_lib
+    dev = _prepared_device(prepared, mesh.device)
+    plan, dangling = prepared
+    if pc.compact_enabled():
+        matvec = lambda r: pc.compact_sharded_apply(plan, r, mesh, passes)
+    else:
+        sl = spmv_lib.shard_plan(plan, mesh)
+        matvec = lambda r: spmv_lib.spmv_sharded_apply(sl, r, mesh)
+    return _power_iterate(matvec, plan.n_rows, rounds, alpha,
+                          dangling.to(dev), dev)
 
 
 def _pagerank_segment(src, dst, n: int, rounds: int, alpha: float,

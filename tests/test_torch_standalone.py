@@ -17,6 +17,9 @@ ported.
 - Whole-plan fusion (``ir/fusion.py``, the unit programs) and
   staged-reshard planning (``parallel/reshard.py``) run on the CPU with
   the JAX package blocked.
+- A rank process of a gloo rank mesh (``core/mesh.init_distributed``)
+  runs a recipe, a sharded matvec and a staged reshard with the JAX
+  package blocked.
 - Node kinds outside ``LOWERED_KINDS`` and knobs of unported planes
   raise ``NotPortedError``.
 """
@@ -374,6 +377,67 @@ def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(REPO / path)
            if m.split(".")[0] in ("jax", "jaxlib", "matrel_tpu")]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_rank_processes_without_jax(tmp_path):
+    """Two gloo CPU ranks, each its own interpreter with the JAX package
+    blocked: a rank mesh, a CPMM product, a sharded COO matvec and a
+    staged reshard run, and neither rank loads jax or matrel_tpu."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "matrel_tpu"):
+            sys.modules[name] = None          # import raises ImportError
+        import numpy as np
+        import torch
+        from matrel_tpu_torch import MatrelConfig, MatrelSession
+        from matrel_tpu_torch.core import mesh as mesh_lib
+        from matrel_tpu_torch.core.coo import COOMatrix
+        from matrel_tpu_torch.parallel import collectives as coll, reshard
+        rank, store = int(sys.argv[1]), sys.argv[2]
+        mesh = mesh_lib.init_distributed("gloo", "file://" + store, 2, rank,
+                                         grid=(1, 2), device="cpu",
+                                         timeout_s=60)
+        rng = np.random.default_rng(0)
+        a = rng.standard_normal((10, 12)).astype(np.float32)
+        b = rng.standard_normal((12, 6)).astype(np.float32)
+        s = MatrelSession(mesh=mesh, config=MatrelConfig(
+            strategy_override="cpmm"))
+        out = s.compute(s.from_numpy(a).multiply(s.from_numpy(b)))
+        assert np.allclose(out.to_numpy(), a @ b, rtol=1e-4, atol=1e-4)
+        M = COOMatrix.from_edges([0, 1, 5], [2, 3, 4], [1.0, 2.0, 3.0],
+                                 shape=(6, 6))
+        x = np.arange(6, dtype=np.float32)
+        assert np.allclose(M.shard(mesh).matvec(x).numpy(),
+                           M.to_dense() @ x)
+        full = torch.arange(24.0).reshape(4, 6)
+        plan = reshard.compile_reshard("row", "col", 96.0, 1, 2)
+        moved = reshard.apply_staged(coll.shard_from_full(full, "row", mesh),
+                                     plan, mesh)
+        assert torch.equal(coll.gather_full(moved, mesh), full)
+        mesh_lib.shutdown_distributed()
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "matrel_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("rank ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    store = str(tmp_path / "store")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), store],
+                              cwd=str(REPO), env=env, text=True,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+        assert "rank ok" in out
 
 
 def test_default_device_needs_a_card(monkeypatch):
