@@ -173,7 +173,32 @@
    off. Warm compute() latency of both forms of (b)-(d), in turns
    (fused, unfused, unfused, fused; CUDA events, medians of 10).
 
-9. spgemm_library: torch.sparse.mm of each S×S pair's element-CSR
+9. path_serving (the serving plane: serve/, ir/delta.py; each
+   sub-phase under its own bound SERVE_PEAK_LIMIT_GIB): (a) four client
+   threads of two tenants (stride weights a:3, b:1) submit 48 queries
+   — row 4's S·D (B1), row 5's A·x (B2), row 2's chain, row 1 — to
+   session.submit (batches of 6, 2 in flight, an 8 GiB result cache):
+   every answer bit-equal to compute() on a cache-off session, 44 cache
+   hits for 4 distinct queries, B1 and B2 launched only for the first
+   computations, per-tenant counts and submit-to-result p50 / p99 (host
+   clock, synchronised), a 0.001 ms deadline failing typed; (b) the mix
+   under a 160 MiB budget, the cache's entries after every answer those
+   of a byte-budgeted LRU model; (c) six consumers of row 4's S·D in one
+   run_many batch with cse_enable: B1 once, all six answers bit-equal
+   to the un-hoisted batch, warm ms of both in turns;
+   (d) the streaming dashboard (workloads/streaming.py) at n = 16,384,
+   batch 64, window 8, k = 32 through register_delta and through plain
+   register rebinds, in turns, one warm tick and 6 timed: integer
+   queries bit-equal between the modes and to float64 on the card
+   every tick, feature_product within its f32 bound, median ms a tick,
+   patched / killed / reused-plan counts, and the dashboard's PageRank
+   warm-restarted over each session's binding on the card, equal
+   between the modes and within alpha^k·|r0 - r*|_1 of the float64
+   fixed point every tick; (e) S·S at n = 32,768 (1%
+   0/1 512-blocks, B4) patched for a 64-entry COO delta through the
+   SpGEMM form (B4 launches counted; force mode: the estimate prices
+   the patch out), within 1e-4 of a recompute, ms of both.
+10. spgemm_library: torch.sparse.mm of each S×S pair's element-CSR
    forms in f32 (cuSPARSE SpGEMM) at n = 100,352, by CUDA events, as the
    library column of B4–B7 (xla_gather kept beside it); where cuSPARSE
    cannot hold its workspace, the failure and the operand sizes. Then
@@ -208,6 +233,10 @@ result, when there is no CUDA device or a phase fails.
 runs only B1's f32 crossover sweep and its wide body at row 4's shape,
 and prints digests of B4–B7's f32 outputs: run from two checkouts in one
 call, it compares two builds of the f32 bodies on one card.
+
+    python3 chip_smoke.py --serving
+
+runs only path_serving (after the build).
 
     python3 chip_smoke.py --multirank
 
@@ -741,6 +770,24 @@ def multirank_only() -> int:
     out = path_multirank(sess, fro)
     print(card)
     print(json.dumps({"multirank_launches": out["launches"]}))
+    return 0
+
+
+def serving_only() -> int:
+    """``python3 chip_smoke.py --serving``: only path_serving (after
+    building the kernels), printing the card line and its launches."""
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
+                                      pallas_spmv, spmv_routed)
+    from matrel_tpu_torch.utils import cuda_build
+    card = device_line()
+    log(f"torch {torch.__version__}; {card}")
+    modules = (pallas_spmm, pallas_spmv, pallas_spgemm, spmv_routed)
+    cuda_build.build([cuda_build.CSRC_DIR / m.SOURCE for m in modules])
+    out = path_serving(MatrelSession())
+    print(card)
+    print(json.dumps({"serving_launches": out["launches"]}))
     return 0
 
 
@@ -4780,6 +4827,622 @@ def path_fusion(sess) -> dict:
             "peak_gib": peak}
 
 
+# -- the serving plane (path_serving) ------------------------------------------
+
+#: (a) the tenants' stride weights, the admission width, the in-flight
+#: bound, the cache budget; 4 threads x 12 submissions.
+SERVE_WEIGHTS = "a:3,b:1"
+SERVE_THREADS, SERVE_PER_THREAD = 4, 12
+SERVE_BATCH, SERVE_INFLIGHT = 6, 2
+SERVE_CACHE_BYTES = 8 << 30
+#: (b) a budget below the mix's result bytes (row 4's 98 MiB bf16 and
+#: row 1's 64 MiB cannot both stay) and the order the mix is run in.
+SERVE_EVICT_BYTES = 160 << 20
+SERVE_EVICT_ORDER = ("row4 S·D", "row1 4096^2", "row2 A·B·C", "row5 A·x",
+                     "row4 S·D", "row2 A·B·C", "row1 4096^2", "row5 A·x",
+                     "row4 S·D", "row1 4096^2")
+#: (d) the streaming dashboard: n (a 1 GiB f32 0/1 adjacency), edges a
+#: batch, window, feature width, and the ticks timed after one warm tick.
+SERVE_IVM_N, SERVE_IVM_BATCH, SERVE_IVM_WINDOW, SERVE_IVM_K = \
+    16_384, 64, 8, 32
+SERVE_IVM_TICKS = 6
+#: (e) S×S at path_spgemm's compute scale: 1% random 512-blocks of 0/1
+#: f32 entries (integer products: the patch and the recompute are exact
+#: in f32), and the COO delta's entry count.
+SERVE_SPARSE_N, SERVE_SPARSE_BS, SERVE_SPARSE_DENS = 32_768, 512, 0.01
+SERVE_SPARSE_EDGES = 64
+#: The sub-phases' peak device memory over what was held when each
+#: started, measured on the H100 (PERF.md, PR 14), plus 25%.
+SERVE_PEAK_LIMIT_GIB = {k: 1.25 * v for k, v in {
+    "serve_submit": 0.246, "serve_evict": 0.311, "serve_cse": 1.819,
+    "serve_ivm_dense": 29.142, "serve_ivm_sparse": 20.372}.items()}
+
+
+def serve_counts() -> dict:
+    """The launch counts path_serving reads: B1 (with its bodies), B2
+    and the four S×S kernels."""
+    from matrel_tpu_torch.ops import pallas_spmm, pallas_spmv as pc
+    return dict(spgemm_launches(), spmm_blocksparse=pallas_spmm.LAUNCHES,
+                spmv_compact=pc.LAUNCHES_SPMV,
+                **{f"b1_{b}": v for b, v in
+                   pallas_spmm.BODY_LAUNCHES.items()})
+
+
+def counts_since(c0: dict) -> dict:
+    return {k: v - c0[k] for k, v in serve_counts().items()}
+
+
+def serve_queries(sess) -> dict:
+    """The mix: row 4's S·D (B1, bf16), row 5's A·x (B2, 1M nodes / 10M
+    edges), row 2's chain and row 1's 4096² product — each a builder of
+    a fresh expression tree, as independent clients would send them."""
+    from matrel_tpu_torch.workloads import chain_bench
+    S, D = row4_inputs(sess)
+    _src, _dst, A = row5_matrix()
+    x = sess.random((ROW5_N, 1), seed=6)
+    mats = chain_bench.skewed_abc(sess.mesh, n=10_000, mid=100, seed=3)
+    X = sess.random((4096, 4096), seed=4)
+    Y = sess.random((4096, 4096), seed=5)
+    return {"row4 S·D": lambda: S.multiply(D),
+            "row5 A·x": lambda: A.multiply(x),
+            "row2 A·B·C": lambda: chain_bench.build_chain(mats),
+            "row1 4096^2": lambda: X.multiply(Y)}
+
+
+def percentile(xs, q: float) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def serving_submit(dev, qs: dict, want: dict) -> dict:
+    """(a) Four threads (tenants a, a, b, b) submit 48 queries: each its
+    first distinct query, then — once all four answered — 11 more of
+    the mix. Every answer bit-equal to compute() on a cache-off session;
+    hits = submissions − distinct queries; B1 and B2 launch only for the
+    first computations; a 0.001 ms deadline fails typed."""
+    import threading
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.resilience import DeadlineExceeded
+    meter = PeakMeter("serve_submit", SERVE_PEAK_LIMIT_GIB)
+    sess = MatrelSession(config=MatrelConfig(
+        serve_tenant_weights=SERVE_WEIGHTS, serve_max_batch=SERVE_BATCH,
+        serve_max_inflight=SERVE_INFLIGHT,
+        result_cache_max_bytes=SERVE_CACHE_BYTES), device=dev)
+    names = list(qs)
+    lat = {"a": [], "b": []}
+    answers, errors = [], []
+    lock = threading.Lock()
+    first_done = threading.Barrier(SERVE_THREADS + 1, timeout=900)
+    go_on = threading.Barrier(SERVE_THREADS + 1, timeout=900)
+
+    def one(name, tenant):
+        t0 = time.perf_counter()
+        fut = sess.submit(qs[name](), tenant=tenant)
+        out = fut.result(timeout=900)
+        if fut.ready_event is not None:
+            fut.ready_event.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        with lock:
+            lat[tenant].append(ms)
+            answers.append((name, tenant, out))
+
+    def client(i):
+        tenant = "a" if i < SERVE_THREADS // 2 else "b"
+        try:
+            torch.cuda.set_device(dev)
+            one(names[i % len(names)], tenant)
+            first_done.wait()
+            go_on.wait()
+            for j in range(1, SERVE_PER_THREAD):
+                one(names[(i + j) % len(names)], tenant)
+        except BaseException as ex:      # noqa: BLE001 — re-raised below
+            errors.append(ex)
+            first_done.abort()
+            go_on.abort()
+
+    c0 = serve_counts()
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    try:
+        first_done.wait()
+        torch.cuda.synchronize()
+        first = counts_since(c0)
+        go_on.wait()
+    except threading.BrokenBarrierError:
+        first = None
+    for t in threads:
+        t.join(timeout=900)
+    wall_s = time.perf_counter() - t0
+    if errors or first is None or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve (a): clients failed: {errors!r}")
+    torch.cuda.synchronize()
+    total = counts_since(c0)
+    info = sess.result_cache_info()
+    n_sub = SERVE_THREADS * SERVE_PER_THREAD
+    if len(answers) != n_sub:
+        raise AssertionError(f"serve (a): {len(answers)} answers of "
+                             f"{n_sub}")
+    if info["hits"] != n_sub - len(names) or info["misses"] != len(names):
+        raise AssertionError(f"serve (a): cache {info}, want "
+                             f"{n_sub - len(names)} hits and "
+                             f"{len(names)} misses")
+    for k in ("spmm_blocksparse", "spmv_compact"):
+        if first[k] < 1 or total[k] != first[k]:
+            raise AssertionError(f"serve (a): {k} launches {first[k]} for "
+                                 f"the first computations, {total[k]} in "
+                                 f"all: want >= 1, and none after")
+    for name, _tenant, out in answers:
+        if not torch.equal(out.data, want[name].data):
+            raise AssertionError(f"serve (a) {name}: not bit-equal to "
+                                 f"compute() on a cache-off session")
+    late = sess.submit(qs["row1 4096^2"](), deadline_ms=0.001)
+    try:
+        late.result(timeout=900)
+    except DeadlineExceeded:
+        pass
+    else:
+        raise AssertionError("serve (a): a 0.001 ms deadline was met")
+    sess.serve_close(timeout=900)
+    served = {t: len(v) for t, v in lat.items()}
+    row = {"submissions": n_sub, "distinct": len(names),
+           "served": served, "hits": info["hits"],
+           "misses": info["misses"], "batches": sess._serve.batches,
+           "wall_s": wall_s,
+           "latency_ms": {t: {"p50": percentile(v, 50),
+                              "p99": percentile(v, 99)}
+                          for t, v in lat.items()},
+           "launches_first": {k: first[k] for k in
+                              ("spmm_blocksparse", "spmv_compact")},
+           "cache_bytes": info["bytes"], "peak_gib": meter.gib()}
+    log(f"serve (a): {n_sub} submissions by {SERVE_THREADS} threads "
+        f"(weights {SERVE_WEIGHTS}) in {row['batches']} batches, "
+        f"{wall_s:.3f} s; served {served}; cache hits {info['hits']} = "
+        f"{n_sub} - {len(names)} distinct; B1 / B2 launched "
+        f"{first['spmm_blocksparse']} / {first['spmv_compact']} times, all "
+        f"for the first computations; submit-to-result ms (host clock, "
+        f"synchronised) " + "; ".join(
+            f"{t}: p50 {d['p50']:.3f} p99 {d['p99']:.3f}"
+            for t, d in row["latency_ms"].items())
+        + "; every answer bit-equal to compute(); the 0.001 ms deadline "
+        f"failed typed; peak {row['peak_gib']:.3f} GiB")
+    return row
+
+
+def serving_evict(dev, qs: dict, want: dict) -> dict:
+    """(b) The mix run one submission at a time under a 160 MiB budget:
+    after every answer the cache's bytes stay within the budget and its
+    entries, in LRU order, are those of a byte-budgeted LRU model over
+    the same sizes; every answer bit-equal to compute()."""
+    import torch
+    from collections import OrderedDict
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.serve.result_cache import result_nbytes
+    meter = PeakMeter("serve_evict", SERVE_PEAK_LIMIT_GIB)
+    sess = MatrelSession(config=MatrelConfig(
+        result_cache_max_bytes=SERVE_EVICT_BYTES,
+        serve_max_batch=SERVE_BATCH), device=dev)
+    sizes = {k: result_nbytes(v) for k, v in want.items()}
+    model: "OrderedDict[str, int]" = OrderedDict()
+    evicted = hits = 0
+    latest = {}
+    for name in SERVE_EVICT_ORDER:
+        out = sess.submit(qs[name]()).result(timeout=900)
+        if not torch.equal(out.data, want[name].data):
+            raise AssertionError(f"serve (b) {name}: not bit-equal to "
+                                 f"compute()")
+        latest[name] = out
+        if name in model:
+            model.move_to_end(name)
+            hits += 1
+        elif sizes[name] <= SERVE_EVICT_BYTES:
+            model[name] = sizes[name]
+            while sum(model.values()) > SERVE_EVICT_BYTES:
+                model.popitem(last=False)
+                evicted += 1
+        got = []
+        for _k, ent in sess._result_cache.items_snapshot():
+            got.append(next(n for n, o in latest.items()
+                            if o is ent.result))
+        info = sess.result_cache_info()
+        if info["bytes"] > SERVE_EVICT_BYTES:
+            raise AssertionError(f"serve (b): {info['bytes']} bytes cached "
+                                 f"> budget {SERVE_EVICT_BYTES}")
+        if got != list(model) or info["evicted"] != evicted \
+                or info["hits"] != hits:
+            raise AssertionError(f"serve (b) after {name}: entries {got}, "
+                                 f"LRU model {list(model)}; info {info}")
+    sess.serve_close(timeout=900)
+    row = {"budget_bytes": SERVE_EVICT_BYTES, "sizes": sizes,
+           "submissions": len(SERVE_EVICT_ORDER), "hits": hits,
+           "evicted": evicted, "peak_gib": meter.gib()}
+    log(f"serve (b): {len(SERVE_EVICT_ORDER)} submissions under a "
+        f"{SERVE_EVICT_BYTES >> 20} MiB budget (result bytes "
+        + ", ".join(f"{k} {v}" for k, v in sizes.items())
+        + f"): {evicted} LRU evictions and {hits} hits, as the model "
+        f"predicts after every answer, bytes never over the budget, every "
+        f"answer bit-equal to compute(); peak {row['peak_gib']:.3f} GiB")
+    return row
+
+
+def cse_batch(S, D):
+    """Six consumers of row 4's S·D, each with its own S·D subtree:
+    scaled (×2, ×0.5), shifted (+1), transposed, and the row and column
+    sums of its entries squared."""
+    def sd():
+        return S.multiply(D)
+    return [sd().multiply_scalar(2.0), sd().multiply_scalar(0.5),
+            sd().add_scalar(1.0), sd().t(),
+            sd().elem_multiply(sd()).row_sum(),
+            sd().elem_multiply(sd()).col_sum()]
+
+
+def serving_cse(dev, qs: dict) -> dict:
+    """(c) One batch of six queries sharing row 4's S·D as an interior:
+    with cse_enable the interior is hoisted — B1 launches once for the
+    batch — and every answer is bit-equal to the same batch un-hoisted
+    (whose plan rewrites the transposed consumer t(S·D) into Dᵀ·Sᵀ, which
+    the executor runs as B1's S·D on D, transposed); warm ms of both
+    batches, in turns."""
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    meter = PeakMeter("serve_cse", SERVE_PEAK_LIMIT_GIB)
+    S, D = (c.attrs["matrix"] for c in qs["row4 S·D"]().children)
+    on = MatrelSession(config=MatrelConfig(cse_enable=True), device=dev)
+    off = MatrelSession(device=dev)
+    c0 = serve_counts()
+    hoisted = on.run_many(cse_batch(S, D))
+    torch.cuda.synchronize()
+    l_on = counts_since(c0)
+    c1 = serve_counts()
+    plain = off.run_many(cse_batch(S, D))
+    torch.cuda.synchronize()
+    l_off = counts_since(c1)
+    if l_on["spmm_blocksparse"] != 1:
+        raise AssertionError(f"serve (c): B1 launched "
+                             f"{l_on['spmm_blocksparse']} times for the "
+                             f"hoisted batch, want 1")
+    info = on.mqo_info()
+    if info["cse_hoisted"] != 1 or info["cse_batches"] != 1:
+        raise AssertionError(f"serve (c): mqo {info}")
+    for k, (h, p) in enumerate(zip(hoisted, plain)):
+        if not torch.equal(h.data, p.data):
+            raise AssertionError(f"serve (c) consumer {k}: not bit-equal "
+                                 f"to the un-hoisted batch")
+    uses = [cse_uses(sub) for _orig, sub in on._mqo.recent]
+    del hoisted, plain
+    ms_on, ms_off = in_turns(lambda: on.run_many(cse_batch(S, D)),
+                             lambda: off.run_many(cse_batch(S, D)))
+    row = {"consumers": 6, "b1_hoisted": l_on["spmm_blocksparse"],
+           "b1_unhoisted": l_off["spmm_blocksparse"], "mqo": info,
+           "hoist_uses": uses,
+           "warm_ms_hoisted": ms_on, "warm_ms_unhoisted": ms_off,
+           "peak_gib": meter.gib()}
+    log(f"serve (c): six consumers of row 4's S·D in one run_many batch: "
+        f"hoisted, B1 launched {row['b1_hoisted']} time (un-hoisted: "
+        f"{row['b1_unhoisted']}); all six answers bit-equal to the "
+        f"un-hoisted batch; warm {ms_on:.3f} ms "
+        f"hoisted vs {ms_off:.3f} ms un-hoisted a batch (CUDA events, in "
+        f"turns); the hoist's cse stamp counts {uses[-1]} uses; mqo "
+        f"{info}; peak {row['peak_gib']:.3f} GiB")
+    return row
+
+
+def cse_uses(e):
+    """The ``uses`` of the first cse-stamped leaf under ``e``."""
+    stamp = e.attrs.get("cse")
+    if stamp is not None:
+        return stamp["uses"]
+    for c in e.children:
+        got = cse_uses(c)
+        if got is not None:
+            return got
+    return None
+
+
+def ivm_tick(g, mode: str):
+    """One dashboard tick: the update (register_delta or a plain
+    register) then all five queries, synchronised; (record, answers,
+    ms)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = g.step_delta() if mode == "patch" else g.step_rebind()
+    outs = {k: g.sess.run(q) for k, q in g.queries().items()}
+    torch.cuda.synchronize()
+    return rec, outs, (time.perf_counter() - t0) * 1e3
+
+
+def serving_ivm_dense(dev) -> dict:
+    """(d) The streaming dashboard at n = 16,384 through two sessions of
+    the same seed, in turns: register_delta (patch mode) and a plain
+    register (rebind mode). One warm tick, then 6 timed. Every tick the
+    integer queries are bit-equal between the modes and to float64 on
+    the card (torch.matmul of the adjacency, independent of the
+    session); feature_product is within the f32 bound
+    (γ_n + t·(γ_c + 2u))·(A_cum·F) of float64, A_cum the adjacency plus
+    every |ΔA| so far."""
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.workloads.streaming import StreamingGraph
+    meter = PeakMeter("serve_ivm_dense", SERVE_PEAK_LIMIT_GIB)
+    cfg = MatrelConfig(result_cache_max_bytes=SERVE_CACHE_BYTES)
+    n, c = SERVE_IVM_N, 4 * SERVE_IVM_BATCH
+    graphs = {mode: StreamingGraph(
+        MatrelSession(config=cfg, device=dev), n=n,
+        batch_edges=SERVE_IVM_BATCH, window=SERVE_IVM_WINDOW,
+        feature_k=SERVE_IVM_K, seed=0) for mode in ("patch", "rebind")}
+    for g in graphs.values():
+        for q in g.queries().values():
+            g.sess.run(q)
+    torch.cuda.synchronize()
+    u = 2.0 ** -24
+    gamma = lambda k: k * u / (1 - k * u)        # noqa: E731
+    with meter.aside():
+        feats64 = torch.from_numpy(graphs["patch"].feats).to(dev).double()
+        a_prev = torch.from_numpy(graphs["patch"].adj).to(dev).double()
+        a_cum = a_prev.clone()
+    ms = {"patch": [], "rebind": []}
+    pr_ms, pr_err = [], []
+    recs = []
+    worst = 0.0
+    for tick in range(1 + SERVE_IVM_TICKS):
+        outs = {}
+        for mode, g in graphs.items():
+            rec, outs[mode], t_ms = ivm_tick(g, mode)
+            if tick:
+                ms[mode].append(t_ms)
+                if mode == "patch":
+                    recs.append(rec)
+        if not (graphs["patch"].adj == graphs["rebind"].adj).all():
+            raise AssertionError("serve (d): the two streams diverged")
+        # the dashboard's PageRank: warm-restarted over each session's
+        # binding on the card (cold on the first tick)
+        r0 = graphs["patch"]._pr
+        prs = {}
+        for mode, g in graphs.items():
+            prs[mode], pr_s = synced(g.pagerank)
+            if mode == "patch":
+                pr_ms.append(pr_s * 1e3)
+        if not torch.equal(prs["patch"], prs["rebind"]):
+            raise AssertionError(f"serve (d) tick {tick}: PageRank differs "
+                                 f"between the modes")
+        with meter.aside():
+            a64 = torch.from_numpy(graphs["patch"].adj).to(dev).double()
+            a_cum += (a64 - a_prev).abs()
+            a_prev = a64
+            aa = a64 @ a64
+            want = {"degrees": a64.sum(1, keepdim=True),
+                    "label_counts": a64 @ torch.from_numpy(
+                        graphs["patch"].onehot).to(dev).double(),
+                    "common_neighbors": aa,
+                    "triangles6": (aa * a64.T).sum().reshape(1, 1)}
+            for k, w in want.items():
+                p, r = outs["patch"][k], outs["rebind"][k]
+                pv = p.data[:w.shape[0], :w.shape[1]]
+                rv = r.data[:w.shape[0], :w.shape[1]]
+                if not (torch.equal(pv, rv) and torch.equal(pv.double(), w)):
+                    raise AssertionError(f"serve (d) tick {tick} {k}: "
+                                         f"patch / rebind / float64 differ")
+            del aa, want
+            # PageRank against the float64 fixed point of the oracle's
+            # adjacency: the iteration contracts by alpha in L1, so k
+            # rounds from r0 land within alpha^k·|r0 - r*| (its early
+            # stop at a step below 1e-10 within alpha/(1-alpha)·1e-10)
+            star = pagerank_f64(a64)
+            if r0 is None:
+                r0 = torch.full_like(star, 1.0 / n)
+                k = 60
+            else:
+                k = 8
+            err = float((prs["patch"] - star).abs().sum())
+            bound = (SERVE_PR_ALPHA ** k * float((r0 - star).abs().sum())
+                     + 1e-9)
+            if not (math.isfinite(err) and err <= bound):
+                raise AssertionError(f"serve (d) tick {tick}: PageRank "
+                                     f"|r - r*|_1 {err} > {bound}")
+            pr_err.append({"rounds": k, "l1_err": err, "bound": bound})
+            del star
+            f64 = a64 @ feats64
+            bound = ((gamma(n) + (tick + 1) * (gamma(c) + 2 * u))
+                     * (a_cum @ feats64))
+            for mode in ("patch", "rebind"):
+                got = outs[mode]["feature_product"].data[:n, :]
+                err = (got.double() - f64).abs()
+                if bool((err > bound).any()):
+                    raise AssertionError(f"serve (d) tick {tick} "
+                                         f"feature_product ({mode}) outside "
+                                         f"its f32 bound")
+                worst = max(worst, float((err / bound.clamp_min(1e-300))
+                                         .max()))
+            del f64, bound, err, a64
+        del outs
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    row = {"n": n, "ticks": SERVE_IVM_TICKS, "median_ms": med,
+           "speedup": med["rebind"] / med["patch"],
+           "patched": sum(r["patched"] for r in recs),
+           "killed": sum(r["killed"] for r in recs),
+           "reused_plans": sum(r["reused_plans"] for r in recs),
+           "priced_out": sum(r["priced_out"] for r in recs),
+           "rules": recs[-1]["rules"],
+           "feature_err_over_bound": worst,
+           "pagerank_cold_ms": pr_ms[0],
+           "pagerank_warm_median_ms": statistics.median(pr_ms[1:]),
+           "pagerank": pr_err, "peak_gib": meter.gib()}
+    log(f"serve (d): dashboard n={n} (batch {SERVE_IVM_BATCH} edges, "
+        f"window {SERVE_IVM_WINDOW}, k={SERVE_IVM_K}), {SERVE_IVM_TICKS} "
+        f"ticks after a warm one: median {med['patch']:.3f} ms a tick "
+        f"patched vs {med['rebind']:.3f} ms rebound "
+        f"({row['speedup']:.2f}x); patched {row['patched']}, killed "
+        f"{row['killed']}, reused plans {row['reused_plans']}, priced out "
+        f"{row['priced_out']}, rules {row['rules']}; integer queries "
+        f"bit-equal between the modes and to float64 every tick; "
+        f"feature_product worst err / bound {worst:.3e}; PageRank over "
+        f"the binding {pr_ms[0]:.3f} ms cold (60 rounds), "
+        f"{row['pagerank_warm_median_ms']:.3f} ms warm (8 rounds, median), "
+        f"equal between the modes, within alpha^k·|r0 - r*| of float64 "
+        f"every tick (last |r - r*|_1 {pr_err[-1]['l1_err']:.3e}); peak "
+        f"{row['peak_gib']:.3f} GiB")
+    return row
+
+
+#: PageRank's damping in the dashboard (StreamingGraph.pagerank's).
+SERVE_PR_ALPHA = 0.85
+
+
+def pagerank_f64(a64, rounds: int = 400, tol: float = 1e-14):
+    """The float64 oracle: power iteration from uniform over the
+    adjacency ``a64`` to its fixed point (dangling mass spread
+    uniformly), independent of the port."""
+    import torch
+    n = a64.shape[0]
+    deg = a64.sum(1)
+    w = torch.where(deg > 0, 1.0 / deg.clamp_min(1.0), 0.0)
+    dangling = deg == 0
+    r = torch.full((n,), 1.0 / n, dtype=torch.float64, device=a64.device)
+    for _ in range(rounds):
+        nxt = (SERVE_PR_ALPHA * (torch.mv(a64.T, w * r)
+                                 + r[dangling].sum() / n)
+               + (1.0 - SERVE_PR_ALPHA) / n)
+        done = float((nxt - r).abs().sum()) < tol
+        r = nxt
+        if done:
+            break
+    return r
+
+
+def serving_ivm_sparse(dev) -> dict:
+    """(e) S×S at n = 32,768 cached (B4), then a 64-entry COO delta
+    through register_delta in force mode — the estimate alone prices
+    this patch out (two n² combines against a 1%-dense product), so the
+    mode is forced as tests/test_delta.py forces it — through the
+    SpGEMM form of _delta_product (ΔS·S and S'·ΔS; launches counted),
+    within that test's atol 1e-4 of a full recompute; ms of the patch
+    against the recompute."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    from matrel_tpu_torch.ir import delta as delta_lib
+    meter = PeakMeter("serve_ivm_sparse", SERVE_PEAK_LIMIT_GIB)
+    n, bs = SERVE_SPARSE_N, SERVE_SPARSE_BS
+    sess = MatrelSession(config=MatrelConfig(
+        result_cache_max_bytes=SERVE_CACHE_BYTES,
+        delta_patch_mode="force"), device=dev)
+    S = BlockSparseMatrix.random((n, n), SERVE_SPARSE_DENS, block_size=bs,
+                                 mesh=sess.mesh, seed=21)
+    S.blocks = (S.blocks < 0.2).float()       # 0/1 entries
+    sess.register("S", S)
+
+    def query():
+        return sess.table("S").multiply(sess.table("S"))
+    c_cold = serve_counts()
+    Y0, cold_s = synced(lambda: sess.run(query()))
+    l_cold = {k: v for k, v in counts_since(c_cold).items()
+              if k in SPGEMM_REPLACES}
+    stamp = sess.compile(query()).optimized.attrs.get("spgemm_kernel")
+    del Y0
+    rng = np.random.default_rng(22)
+    rows = rng.integers(0, n, SERVE_SPARSE_EDGES)
+    cols = rng.integers(0, n, SERVE_SPARSE_EDGES)
+    vals = np.ones(SERVE_SPARSE_EDGES, np.float32)
+    old = sess.table("S")
+    d = delta_lib.as_delta((rows, cols, vals), old, "coo")
+    (_k, ent), = sess._result_cache.items_snapshot()
+    spec = delta_lib.derive_patch(ent.expr, old,
+                                  d.apply_to(old, sess.mesh, sess.config),
+                                  d, ent.result, sess.mesh, sess.config)
+    del ent
+    c0 = serve_counts()
+    rec, patch_s = synced(lambda: sess.register_delta(
+        "S", (rows, cols, vals), kind="coo"))
+    l_patch = {k: v for k, v in counts_since(c0).items()
+               if k in SPGEMM_REPLACES}
+    if rec["patched"] != 1 or rec["rules"].get("spgemm", 0) < 1:
+        raise AssertionError(f"serve (e): {rec}")
+    if l_patch["spgemm_pairs"] < 1:
+        raise AssertionError(f"serve (e): the patch launched {l_patch}, "
+                             f"want B4 (spgemm_pairs)")
+    hits0 = sess.result_cache_info()["hits"]
+    got = sess.run(query())
+    if sess.result_cache_info()["hits"] != hits0 + 1:
+        raise AssertionError("serve (e): the re-run did not hit the "
+                             "patched entry")
+    fresh = MatrelSession(device=dev)
+    S1 = sess.table("S")
+    want, recompute_s = synced(lambda: fresh.compute(S1.multiply(S1)))
+    warm_ms = time_ms(lambda: fresh.compute(S1.multiply(S1)), warmup=1,
+                      runs=5)
+    with meter.aside():
+        err = 0.0
+        for r in range(0, n, 4096):
+            diff = (got.data[r:r + 4096] - want.data[r:r + 4096]).abs()
+            err = max(err, float(diff.max()))
+        if not err <= 1e-4:
+            raise AssertionError(f"serve (e): patched S·S differs from the "
+                                 f"recompute by {err} > 1e-4")
+    del got, want
+    row = {"n": n, "nnzb": S.nnzb, "delta_entries": SERVE_SPARSE_EDGES,
+           "stamp": stamp, "cold_compute_s": cold_s,
+           "cold_launches": l_cold, "patch_ms": patch_s * 1e3,
+           "patch_launches": l_patch, "rules": rec["rules"],
+           "recompute_ms": recompute_s * 1e3, "recompute_warm_ms": warm_ms,
+           "est_patch_flops": spec.est_patch_flops,
+           "est_full_flops": spec.est_full_flops, "max_abs_err": err,
+           "peak_gib": meter.gib()}
+    log(f"serve (e): S·S n={n} ({S.nnzb} tiles of {bs}, stamp {stamp}) "
+        f"cached in {cold_s:.3f} s; a {SERVE_SPARSE_EDGES}-entry COO "
+        f"delta patched in {row['patch_ms']:.3f} ms (register_delta, "
+        f"synchronised; rules {rec['rules']}, S×S launches {l_patch}) vs "
+        f"a recompute of {row['recompute_ms']:.3f} ms cold / "
+        f"{warm_ms:.3f} ms warm; the estimate alone prices the patch at "
+        f"{spec.est_patch_flops:.4g} FLOPs against "
+        f"{spec.est_full_flops:.4g} (force mode); max |patched - "
+        f"recompute| {err:.3e}; peak {row['peak_gib']:.3f} GiB")
+    return row
+
+
+def path_serving(sess) -> dict:
+    """The serving plane on the card (serve/, ir/delta.py): (a)
+    concurrent submit by two tenants, (b) LRU eviction under a budget,
+    (c) cross-query CSE, (d) the streaming dashboard patched against
+    rebound, (e) a sparse delta through the SpGEMM form. Each sub-phase
+    its own peak bound (SERVE_PEAK_LIMIT_GIB)."""
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    dev = sess.device
+    t0 = time.perf_counter()
+    qs = serve_queries(sess)
+    ref = MatrelSession(device=dev)            # the result cache off
+    c0 = serve_counts()
+    want = {k: ref.compute(f()) for k, f in qs.items()}
+    torch.cuda.synchronize()
+    l_ref = counts_since(c0)
+    rows = {"submit": serving_submit(dev, qs, want)}
+    torch.cuda.empty_cache()
+    rows["evict"] = serving_evict(dev, qs, want)
+    rows["cse"] = serving_cse(dev, qs)
+    del qs, want, ref
+    torch.cuda.empty_cache()
+    rows["ivm_dense"] = serving_ivm_dense(dev)
+    torch.cuda.empty_cache()
+    rows["ivm_sparse"] = serving_ivm_sparse(dev)
+    torch.cuda.empty_cache()
+    total = counts_since(c0)           # every sub-phase's launches
+    rows["reference_launches"] = {k: l_ref[k] for k in
+                                  ("spmm_blocksparse", "spmv_compact")}
+    log(f"path serving: {time.perf_counter() - t0:.1f} s; launches B1 "
+        f"{total['spmm_blocksparse']}, B2 {total['spmv_compact']}, B4 "
+        f"{total['spgemm_pairs']}")
+    print(json.dumps({"serving": rows}, default=float))
+    bodies = {k[3:]: v for k, v in total.items()
+              if k.startswith("b1_") and v}
+    return {"launches": total, "spmm_bodies": bodies, "rows": rows}
+
+
 # -- multi-rank execution over torch.distributed (path_multirank) --------------
 
 #: The rank grid: 4 ranks, 2 × 2 (the square grid SUMMA needs).
@@ -5507,6 +6170,8 @@ def main() -> int:
         return b1_f32_only()
     if sys.argv[1:] == ["--multirank"]:
         return multirank_only()
+    if sys.argv[1:] == ["--serving"]:
+        return serving_only()
     from matrel_tpu_torch import MatrelSession
     from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
                                       pallas_spmv, spmv_routed)
@@ -5594,6 +6259,9 @@ def main() -> int:
     l_at = tuned["launches"]
     fused = path_fusion(sess)         # its own bound
     l_fu = fused["launches"]
+    torch.cuda.empty_cache()
+    served = path_serving(sess)       # each sub-phase its bound
+    l_sv = served["launches"]
     spgemm_library(sess.mesh, b47)    # cuSPARSE SpGEMM beside B4-B7
     torch.cuda.empty_cache()
     l_mr = path_multirank(sess, ns["fro"])["launches"]   # four ranks
@@ -5603,7 +6271,7 @@ def main() -> int:
 
     l_coo = coo["launches"]
     for part in (l_batch["spmm_bodies"], coo["bsp"]["bodies"],
-                 fused["spmm_bodies"]):
+                 fused["spmm_bodies"], served["spmm_bodies"]):
         for b, v in part.items():
             b1_bodies[b] = b1_bodies.get(b, 0) + v
     kernels = [
@@ -5611,7 +6279,8 @@ def main() -> int:
                           "matrel_tpu/ops/pallas_spmm.py:31",
                           launches + l_batch["spmm_blocksparse"]
                           + l_coo["spmm_blocksparse"]
-                          + l_fu["spmm_blocksparse"], row),
+                          + l_fu["spmm_blocksparse"]
+                          + l_sv["spmm_blocksparse"], row),
              launches_by_body=b1_bodies, f32_one_column=coo["b1_f32_m1"],
              f32_row4=row4_f32),
         dict(kernel_entry("spmv_compact", pallas_spmv.SOURCE,
@@ -5619,7 +6288,7 @@ def main() -> int:
                           launches_pr + l_spmv + l_batch["spmv_compact"]
                           + l_rel["spmv_compact"] + l_coo["spmv_compact"]
                           + l_at["spmv_compact"] + l_fu["spmv_compact"]
-                          + l_mr["spmv_compact"],
+                          + l_sv["spmv_compact"] + l_mr["spmv_compact"],
                           b23["spmv_compact"]),
              launches_on_ranks=l_mr["spmv_compact"]),
         dict(kernel_entry("spmm_compact", pallas_spmv.SOURCE,
@@ -5629,7 +6298,7 @@ def main() -> int:
              launches_on_ranks=l_mr["spmm_compact"]),
     ] + [kernel_entry(name, pallas_spgemm.SOURCE, SPGEMM_REPLACES[name],
                       l_spgemm[name] + l_rel[name] + l_at[name]
-                      + l_fu[name], b47[name])
+                      + l_fu[name] + l_sv[name], b47[name])
          for name in SPGEMM_REPLACES]
     kernels.append(dict(
         kernel_entry("spmv_routed", spmv_routed.SOURCE,

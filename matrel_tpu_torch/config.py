@@ -43,10 +43,19 @@ class MatrelConfig:
     (measured matmul strategies, SpMV variants and SpGEMM kernels:
     ``parallel/autotune.py``), ``autotune_table_path``,
     ``autotune_max_dim``, ``fusion_enable`` (whole-plan fusion:
-    ``ir/fusion.py``) and ``reshard_peak_budget_bytes`` (staged-reshard
+    ``ir/fusion.py``), ``reshard_peak_budget_bytes`` (staged-reshard
     planning: ``parallel/reshard.py``; on one card every step is a local
     copy, so it changes stamps, prices and decision records, never a
-    value).
+    value), and the serve plane's: ``result_cache_max_bytes`` /
+    ``result_cache_max_entries`` (``serve/result_cache.py``),
+    ``serve_max_batch``, ``serve_max_inflight``, ``serve_queue_max``,
+    ``serve_tenant_weights`` (parsed by :func:`parse_tenant_weights`) and
+    ``serve_tenant_queue_max`` (``serve/pipeline.py``,
+    ``serve/admission.py``), ``deadline_ms`` and the ``retry_*`` knobs
+    (``resilience/retry.py``; a retry re-runs the same plan — the
+    degradation ladder is not ported), ``cse_enable``, ``cse_min_uses``
+    and ``cse_template_max`` (``serve/mqo.py``), ``delta_patch_mode``
+    and ``delta_rank_max`` (``ir/delta.py``, ``serve/ivm.py``).
 
     ``matmul_precision`` keeps the TPU meaning of the JAX package:
     "highest" is full IEEE f32 (TF32 off), "high" the 3-pass bf16
@@ -184,6 +193,63 @@ class MatrelConfig:
                 f"got {self.reshard_peak_budget_bytes!r}")
         object.__setattr__(self, "precision_sla",
                            normalize_sla(self.precision_sla))
+        # the serve plane's knobs, validated as the JAX package does: a
+        # zero admission width or in-flight bound would deadlock the
+        # coalescing loop, a negative retry/deadline has no meaning
+        if self.result_cache_max_entries < 1:
+            raise ValueError(
+                f"result_cache_max_entries must be >= 1, "
+                f"got {self.result_cache_max_entries!r}")
+        if self.serve_max_batch < 1:
+            raise ValueError(
+                f"serve_max_batch must be >= 1, got {self.serve_max_batch!r}")
+        if self.serve_max_inflight < 1:
+            raise ValueError(
+                f"serve_max_inflight must be >= 1, "
+                f"got {self.serve_max_inflight!r}")
+        if self.retry_max_attempts < 0:
+            raise ValueError(
+                f"retry_max_attempts must be >= 0, "
+                f"got {self.retry_max_attempts!r}")
+        if self.retry_backoff_ms < 0 or self.retry_backoff_mult < 1.0 \
+                or not (0.0 <= self.retry_jitter <= 1.0):
+            raise ValueError(
+                "retry backoff needs retry_backoff_ms >= 0, "
+                "retry_backoff_mult >= 1, retry_jitter in [0, 1]; got "
+                f"({self.retry_backoff_ms!r}, "
+                f"{self.retry_backoff_mult!r}, {self.retry_jitter!r})")
+        if self.deadline_ms < 0:
+            raise ValueError(
+                f"deadline_ms must be >= 0 (0 disables), "
+                f"got {self.deadline_ms!r}")
+        if self.serve_queue_max < 0:
+            raise ValueError(
+                f"serve_queue_max must be >= 0 (0 = unbounded), "
+                f"got {self.serve_queue_max!r}")
+        if self.serve_tenant_weights:
+            parse_tenant_weights(self.serve_tenant_weights)
+        if self.serve_tenant_queue_max < 0:
+            raise ValueError(
+                f"serve_tenant_queue_max must be >= 0 (0 = no "
+                f"per-tenant cap), got {self.serve_tenant_queue_max!r}")
+        mode = self.delta_patch_mode.lower()
+        if mode not in ("auto", "force", "off"):
+            raise ValueError(
+                f"delta_patch_mode must be one of 'auto'/'force'/"
+                f"'off', got {self.delta_patch_mode!r}")
+        object.__setattr__(self, "delta_patch_mode", mode)
+        if self.delta_rank_max < 1:
+            raise ValueError(
+                f"delta_rank_max must be >= 1, "
+                f"got {self.delta_rank_max!r}")
+        if self.cse_min_uses < 2:
+            raise ValueError(
+                f"cse_min_uses must be >= 2 (an interior used once "
+                f"is not shared), got {self.cse_min_uses!r}")
+        if self.cse_template_max < 1:
+            raise ValueError(
+                f"cse_template_max must be >= 1, "
+                f"got {self.cse_template_max!r}")
 
     def replace(self, **kw: Any) -> "MatrelConfig":
         return dataclasses.replace(self, **kw)
@@ -232,34 +298,25 @@ _FIELD_DEFAULTS = {f.name: f.default for f in dataclasses.fields(MatrelConfig)}
 
 #: Knobs whose plane is not ported: Pallas interpret mode, buffer
 #: donation, hoisted payloads (the plan cache's byte bound counts them),
-#: the result cache and serving pipeline,
-#: observability, static verification, resilience,
-#: overload control, multi-query optimization, IVM, the fleet,
-#: lockdep, the cost-model loop and the durable spill hierarchy.
+#: observability and SLOs, static verification, fault injection,
+#: brownout and circuit breakers, the fleet, lockdep, the cost-model
+#: loop and the durable spill hierarchy.
 UNPORTED_KNOBS = (
     "pallas_interpret", "donate_intermediates", "plan_cache_max_bytes",
-    "result_cache_max_bytes",
-    "result_cache_max_entries", "serve_max_batch", "serve_max_inflight",
     "obs_level", "obs_event_log", "obs_metrics_port", "slo_targets",
     "slo_fast_window_s", "slo_slow_window_s", "slo_burn_threshold",
     "slo_burn_exit", "obs_flight_recorder", "obs_flight_recorder_path",
-    "drift_table_path", "verify_plans",
-    "fault_inject", "fault_inject_seed", "retry_max_attempts",
-    "retry_backoff_ms", "retry_backoff_mult", "retry_jitter",
-    "deadline_ms", "serve_queue_max", "serve_tenant_weights",
-    "serve_tenant_queue_max", "brownout_enable", "brownout_window",
-    "brownout_dwell", "brownout_wait_high_ms", "brownout_wait_low_ms",
-    "brownout_depth_high", "brownout_depth_low", "brownout_miss_high",
-    "brownout_miss_low", "breaker_threshold", "breaker_cooldown_ms",
-    "breaker_half_open_probes", "cse_enable",
-    "cse_min_uses", "cse_template_max", "delta_patch_mode",
-    "delta_rank_max", "fleet_slices", "fleet_span_margin",
-    "fleet_directory_max", "fleet_replicate_hits", "fleet_failover",
-    "fleet_placement_calibration", "obs_provenance",
-    "obs_event_log_max_bytes", "lockdep_enable", "lockdep_raise",
-    "coeff_planner_enable", "coeff_min_samples", "coeff_replan_enable",
-    "coeff_replan_interval", "coeff_replan_cooldown", "spill_enable",
-    "spill_host_max_bytes", "spill_disk_hits", "state_dir",
+    "drift_table_path", "verify_plans", "fault_inject", "fault_inject_seed",
+    "brownout_enable", "brownout_window", "brownout_dwell",
+    "brownout_wait_high_ms", "brownout_wait_low_ms", "brownout_depth_high",
+    "brownout_depth_low", "brownout_miss_high", "brownout_miss_low",
+    "breaker_threshold", "breaker_cooldown_ms", "breaker_half_open_probes",
+    "fleet_slices", "fleet_span_margin", "fleet_directory_max",
+    "fleet_replicate_hits", "fleet_failover", "fleet_placement_calibration",
+    "obs_provenance", "obs_event_log_max_bytes", "lockdep_enable",
+    "lockdep_raise", "coeff_planner_enable", "coeff_min_samples",
+    "coeff_replan_enable", "coeff_replan_interval", "coeff_replan_cooldown",
+    "spill_enable", "spill_host_max_bytes", "spill_disk_hits", "state_dir",
 )
 
 #: The SpGEMM kernel-registry vocabulary — what
@@ -290,6 +347,44 @@ def normalize_sla(sla) -> str:
             f"precision SLA must be one of {PRECISION_SLAS} (or 'bf16'/"
             f"'f32' aliases), got {sla!r}")
     return s
+
+
+def parse_tenant_weights(spec) -> dict:
+    """Validate + parse a ``serve_tenant_weights`` spec
+    (``"gold:4,silver:2,bronze:1"``) into ``{tenant: float weight}``.
+    Empty/None → {} (one implicit tenant, the FIFO). Raises
+    ``ValueError`` on empty names, duplicate names, or non-positive
+    weights (the JAX package's parser)."""
+    if not spec:
+        return {}
+    out: dict = {}
+    for part in (p.strip() for p in str(spec).split(",")):
+        if not part:
+            continue
+        name, sep, w = part.partition(":")
+        name = name.strip()
+        if not sep or not name:
+            raise ValueError(
+                f"serve_tenant_weights entry {part!r} must be "
+                f"'name:weight'")
+        if name in out:
+            raise ValueError(
+                f"serve_tenant_weights names tenant {name!r} twice")
+        try:
+            weight = float(w)
+        except ValueError:
+            raise ValueError(
+                f"serve_tenant_weights weight {w!r} (tenant "
+                f"{name!r}) is not a number") from None
+        if not weight > 0.0:
+            raise ValueError(
+                f"serve_tenant_weights weight for {name!r} must be "
+                f"> 0, got {weight!r}")
+        out[name] = weight
+    if not out:
+        raise ValueError(
+            f"serve_tenant_weights {spec!r} names no tenants")
+    return out
 
 
 _default_config = MatrelConfig()

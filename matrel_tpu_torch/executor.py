@@ -717,16 +717,25 @@ class Lowerer:
             return spmm_lib.apply(l.attrs["matrix"], ev(r), r.shape,
                                   self.config, epilogue=epilogue)
         if r.kind == "sparse_leaf":
-            # A·S = (Sᵀ·Aᵀ)ᵀ — the tile stack is transposed once and
-            # memoised on the matrix
+            # A·S = (Sᵀ·Aᵀ)ᵀ
             from matrel_tpu_torch.ops import spmm as spmm_lib
-            S = r.attrs["matrix"]
-            st = getattr(S, "_transposed_memo", None)
-            if st is None:
-                st = S.transpose()
-                S._transposed_memo = st
-            out = spmm_lib.apply(st, ev(l).T, (l.shape[1], l.shape[0]),
+            out = spmm_lib.apply(_sparse_transposed(r.attrs["matrix"]),
+                                 ev(l).T, (l.shape[1], l.shape[0]),
                                  self.config)
+            return fin(out.T)
+        if _transposed_sparse(l):
+            # Sᵀ·X: B1 over the transposed tile stack, never a densified
+            # Sᵀ
+            from matrel_tpu_torch.ops import spmm as spmm_lib
+            S = l.children[0].attrs["matrix"]
+            return spmm_lib.apply(_sparse_transposed(S), ev(r), r.shape,
+                                  self.config, epilogue=epilogue)
+        if _transposed_sparse(r):
+            # X·Sᵀ = (S·Xᵀ)ᵀ: the rewrite of t(S·D) into Dᵀ·Sᵀ lands
+            # here, and runs B1's S·D on D itself
+            from matrel_tpu_torch.ops import spmm as spmm_lib
+            out = spmm_lib.apply(r.children[0].attrs["matrix"], ev(l).T,
+                                 (l.shape[1], l.shape[0]), self.config)
             return fin(out.T)
         gram = None
         if l.kind == "transpose" and self._same_operand(l.children[0], r):
@@ -1100,6 +1109,21 @@ def spgemm_kernel_choice(node: MatExpr, config=None, mesh=None):
     return kid, structure, source
 
 
+def _transposed_sparse(e: MatExpr) -> bool:
+    """``e`` is the transpose of a block-sparse leaf."""
+    return e.kind == "transpose" and e.children[0].kind == "sparse_leaf"
+
+
+def _sparse_transposed(S):
+    """Sᵀ of a block-sparse matrix: the tile stack is transposed once
+    and memoised on the matrix."""
+    st = getattr(S, "_transposed_memo", None)
+    if st is None:
+        st = S.transpose()
+        S._transposed_memo = st
+    return st
+
+
 def _coo_dispatch_plan(node: MatExpr):
     """The EdgeSpMVPlan a coo_leaf matmul node dispatches through
     ``_coo_spmv_stack``, or None (the densify path). The single source
@@ -1193,9 +1217,42 @@ def _annotate(e: MatExpr, mesh: Mesh, cfg: MatrelConfig,
     return opt
 
 
+def _precision_meta(opts, cfg: MatrelConfig) -> Optional[Dict]:
+    """The query SLA, the stamped tier census and the worst-case
+    relative error bound over every tiered matmul (TIER_EPS · k), or
+    None under the "default" SLA — the JAX package's ``precision``
+    plan meta (the result cache composes patched bounds from it)."""
+    if cfg.precision_sla == "default":
+        return None
+    tiers: Dict[str, int] = {}
+    bound = [0.0]
+    seen: set = set()
+
+    def walk(n: MatExpr):
+        if n.uid in seen:
+            return
+        seen.add(n.uid)
+        for c in n.children:
+            walk(c)
+        t = n.attrs.get("precision_tier")
+        if n.kind == "matmul" and t is not None:
+            tiers[t] = tiers.get(t, 0) + 1
+            eps = planner.TIER_EPS.get(t)
+            if eps:
+                bound[0] = max(bound[0], eps * n.children[0].shape[1])
+
+    for o in opts:
+        walk(o)
+    return {"sla": cfg.precision_sla, "tiers": tiers,
+            "est_rel_err_bound": bound[0]}
+
+
 def _plan_meta(opts, cfg: MatrelConfig, optimize_ms: float,
                rule_hits: dict) -> Dict:
     meta = {"optimize_ms": round(optimize_ms, 3), "rule_hits": rule_hits}
+    prec = _precision_meta(opts, cfg)
+    if prec is not None:
+        meta["precision"] = prec
     fus = _fusion_meta(opts, cfg)
     if fus is not None:
         meta["fusion"] = fus
@@ -1348,7 +1405,27 @@ def plan_matmul_decisions(plan) -> List[dict]:
         meta["matmuls"] = [
             d for o in roots
             for d in planner.matmul_decisions(o, plan.mesh, plan.config)]
+        ivm = meta.get("ivm")
+        if isinstance(ivm, dict):
+            # a delta-patch plan (serve/ivm.py): the optimizer may
+            # rebuild the stamped root, so the pricing rides plan.meta
+            for d in meta["matmuls"]:
+                d.setdefault("delta_rule", ivm.get("rule"))
+                d.setdefault("delta_est_saved_flops",
+                             ivm.get("est_saved_flops"))
     return meta["matmuls"]
+
+
+def multiplan_root_decisions(plan: "MultiPlan") -> List[List[dict]]:
+    """Per-root decision records of a MultiPlan, aligned with
+    ``plan.optimized``; derived on first access, cached in
+    ``plan.meta``."""
+    meta = plan.meta
+    if "matmuls_per_root" not in meta:
+        meta["matmuls_per_root"] = [
+            planner.matmul_decisions(o, plan.mesh, plan.config)
+            for o in plan.optimized]
+    return meta["matmuls_per_root"]
 
 
 def _unique_leaves(exprs) -> List[MatExpr]:

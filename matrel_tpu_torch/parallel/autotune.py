@@ -1,5 +1,5 @@
 """Measured choices — the counterpart of ``matrel_tpu/parallel/autotune.py``
-for its matmul, SpMV, SpGEMM, fusion and reshard families.
+for its matmul, SpMV, SpGEMM, fusion, reshard and IVM families.
 
 The planner's cost model and the kernel registry's rules are estimates;
 this module measures. For a shape class it times every admissible
@@ -28,7 +28,12 @@ sessions inherit it:
   measured. On a rank mesh the step sequence is timed against one
   direct move; on one card both would time the same local copy, so
   ``measure_reshard_variant`` raises ``NotPortedError`` there, its
-  candidates drop out and the model decides.
+  candidates drop out and the model decides;
+* IVM patch-vs-recompute (``lookup_or_measure_ivm``, the ``ivm|``
+  family): the delta plane (``serve/ivm.py``) looks a winner up per
+  (delta rule, side class); a measured "recompute" kills the entry
+  instead of patching at a loss. Measured only when a caller hands both
+  runners in.
 
 On a rank mesh every rank takes rank 0's answer (``_agree``): whether a
 row was found, and the medians measured, so all ranks pick one winner;
@@ -37,8 +42,7 @@ only rank 0 writes the table.
 Keys and table format are the JAX package's, so both packages share one
 table (default ``.matrel_autotune.json``); the backend field is the
 type of the device measured on, "cuda" or "cpu". Loading prunes only
-keys of no current format — the ``ivm|`` rows the JAX package writes
-stay, and ``_persist`` rewrites them as it found them.
+keys of no current format.
 ``config.strategy_override`` and
 ``config.spgemm_kernel_override`` still win over a measured winner.
 
@@ -840,9 +844,60 @@ def lookup_or_measure_reshard(plan, mesh,
     return best
 
 
+# -- IVM patch-vs-recompute: the ivm| family ----------------------------------
+
+_IVM_CACHE: Dict[str, Optional[str]] = {}
+
+IVM_VARIANTS = ("patch", "recompute")
+
+
+def _ivm_key(rule: str, side: int, gx: int, gy: int, backend: str,
+             weights: Tuple[float, float] = (1.0, 1.0)) -> str:
+    """``ivm|<rule>|<side class>|gxXgy|backend[|w..]`` — the side
+    bucketed to the power of two at or above it (no ``<=``: the JAX
+    package's ivm row), the rule from :data:`DELTA_RULES`."""
+    cls = 1 << max(0, math.ceil(math.log2(max(side, 1))))
+    return (f"ivm|{rule}|{cls}|{gx}x{gy}|{backend}"
+            + _weights_suffix(weights))
+
+
+def lookup_or_measure_ivm(rule: str, side: int, mesh,
+                          config: Optional[MatrelConfig] = None,
+                          patch_s=None, full_s=None) -> Optional[str]:
+    """The delta plane's patch-vs-recompute consult
+    (``serve/ivm.py``): "patch" / "recompute" / None (no measured
+    preference — the FLOP estimate decides). In-process cache, then the
+    persisted table (rank 0's answer on a rank mesh); ``patch_s`` /
+    ``full_s`` are zero-arg callables returning median seconds of the
+    two forms, called at most once each — without them nothing is
+    measured and no negative answer is cached. Ties and one-variant
+    results resolve to None."""
+    cfg = config or default_config()
+    gx, gy = mesh_lib.mesh_grid_shape(mesh)
+    key = _ivm_key(rule, side, gx, gy, backend_of(mesh),
+                   mesh_lib.axis_weights(mesh, cfg))
+    found, best = _cached_entry(_IVM_CACHE, key, cfg, mesh)
+    if found:
+        _IVM_CACHE[key] = best
+        return best
+    if patch_s is None or full_s is None or side > cfg.autotune_max_dim:
+        return None
+    runs = {"patch": patch_s, "recompute": full_s}
+    results = _measured("ivm", IVM_VARIANTS, lambda v: float(runs[v]()),
+                        mesh)
+    if len(results) < 2:
+        _IVM_CACHE[key] = None
+        return None
+    best = _pick_winner(results)
+    _IVM_CACHE[key] = best
+    if cfg.autotune or cfg.autotune_table_path:
+        _persist(_table_path(cfg), key, best, results)
+    return best
+
+
 def clear_caches() -> None:
     """Forget every in-process measurement and table read (a fresh
     process, as far as this module knows); the table file stays."""
     for cache in (_CACHE, _SPMV_CACHE, _SPGEMM_CACHE, _FUSION_CACHE,
-                  _RESHARD_CACHE, _TABLE_CACHE):
+                  _RESHARD_CACHE, _IVM_CACHE, _TABLE_CACHE):
         cache.clear()

@@ -978,10 +978,12 @@ def matmul_decisions(root: MatExpr, mesh: Mesh,
     carries the region's boundary (``fused_region``, ``fused_census``,
     ``est_saved_dispatches``, ``est_saved_hbm_bytes``); with
     ``reshard_peak_budget_bytes`` > 0 a dense product carries the staged
-    moves its lowering compiles (``reshard``). The records carry what
-    the JAX package's carry with its result cache, multi-query, IVM and
-    learned-coefficient planes off — the planes this package has not
-    ported."""
+    moves its lowering compiles (``reshard``). Operands that entered
+    planning as result-cache or CSE leaves are marked (``rc_operands``,
+    ``cse_operands``), and a delta-patch plan's records carry its
+    pricing (``delta_rule``, ``delta_est_saved_flops``). The records
+    carry what the JAX package's carry with its learned-coefficient
+    plane off — a plane this package has not ported."""
     cfg = config or default_config()
     gx, gy = mesh_lib.mesh_grid_shape(mesh)
     wts = mesh_lib.axis_weights(mesh, cfg)
@@ -1031,6 +1033,16 @@ def matmul_decisions(root: MatExpr, mesh: Mesh,
                 b.density if b.density is not None else 1.0) \
                 if tier in TIER_COMPUTE_UNITS else None
             rec["est_rel_err"] = TIER_EPS.get(tier)
+        # an operand that entered planning as a result-cache leaf, or
+        # as a batch-shared CSE hoist (serve/): which side(s)
+        rc_ops = [bool(c.kind == "leaf" and c.attrs.get("result_cache"))
+                  for c in n.children]
+        if any(rc_ops):
+            rec["rc_operands"] = rc_ops
+        cse_ops = [bool(c.kind == "leaf" and c.attrs.get("cse"))
+                   for c in n.children]
+        if any(cse_ops):
+            rec["cse_operands"] = cse_ops
         if _spgemm_matmul(n, cfg):
             from matrel_tpu_torch import executor as _exec
             rec["dispatch"] = "spgemm"
@@ -1082,6 +1094,12 @@ def matmul_decisions(root: MatExpr, mesh: Mesh,
                         rec["reshard"] = rr
             except ValueError:       # an override the model doesn't know
                 rec["est_ici_bytes"] = None
+        ivm = root.attrs.get("ivm_patch")
+        if isinstance(ivm, dict):
+            # a delta-patch plan (serve/ivm.py stamps the root): the
+            # pricing that chose patching over recompute
+            rec["delta_rule"] = ivm.get("rule")
+            rec["delta_est_saved_flops"] = ivm.get("est_saved_flops")
         fr = fused_of.get(n.uid)
         if fr is not None:
             # the anchored region's boundary; a SpGEMM anchor's

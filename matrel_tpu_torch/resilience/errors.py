@@ -1,0 +1,151 @@
+"""Typed error taxonomy of the serve plane — the counterpart of
+``matrel_tpu/resilience/errors.py``.
+
+The single authority for "is this failure worth retrying?":
+
+- **transient** failures (device/runtime hiccups: out of memory, a
+  collective timeout) are retry candidates — re-running the same work
+  can succeed;
+- **deterministic** failures (compile/shape/type errors, verification
+  errors) would fail identically on every attempt; the retry policy
+  re-raises them at once.
+
+Every resilience-surface error is typed: callers catch
+``DeadlineExceeded``/``DrainTimeout``/``AdmissionShed``/
+``PipelineClosed`` by class. The classes, their messages and the
+classification are the JAX package's, with the device runtime's failure
+vocabulary replaced by the CUDA runtime's (only out-of-memory is
+transient). The error types of planes not ported yet — injected
+faults, circuit breakers, the fleet, checkpoint and spill corruption —
+are added with those planes.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+
+class ResilienceError(Exception):
+    """Base for every typed error the resilience layer raises itself
+    (deadlines, sheds, closed pipelines). External failures — device
+    runtime errors, verification errors — keep their own types and are
+    CLASSIFIED by :func:`classify` instead."""
+
+
+class DeadlineExceeded(ResilienceError, TimeoutError):
+    """A query's per-query deadline expired before it produced a
+    result — raised at admission, between retry attempts, or when a
+    backoff sleep would overshoot the deadline. Never retried."""
+
+    def __init__(self, deadline_ms: float, elapsed_ms: float,
+                 context: str = "query"):
+        self.deadline_ms = deadline_ms
+        self.elapsed_ms = elapsed_ms
+        super().__init__(
+            f"{context} deadline of {deadline_ms:.0f} ms exceeded "
+            f"({elapsed_ms:.0f} ms elapsed)")
+
+
+class QueryAborted(ResilienceError):
+    """The caller cancelled (or the pipeline stopped) BETWEEN retry
+    attempts — the sanctioned cancellation point: a running device
+    dispatch cannot be interrupted, but the retry loop checks its
+    abort hook before every new attempt."""
+
+
+class DrainTimeout(ResilienceError, TimeoutError):
+    """``session.serve_drain(timeout=...)`` gave up waiting on a wedged
+    admission worker. The queue state is untouched — a later drain
+    (or a healthy worker) can still finish the work."""
+
+    def __init__(self, timeout_s: float, pending: int):
+        self.timeout_s = timeout_s
+        self.pending = pending
+        super().__init__(
+            f"serve drain timed out after {timeout_s:g} s "
+            f"({pending} task(s) still unfinished)")
+
+
+class PipelineClosed(ResilienceError):
+    """``submit`` after ``close()``: the admission worker is stopped,
+    so enqueueing would strand the future forever. Typed so callers
+    can distinguish "session shut down" from a query failure."""
+
+
+class AdmissionShed(ResilienceError):
+    """Backpressure shed: the bounded admission queue is full (the
+    global ``config.serve_queue_max`` bound, or — checked FIRST — this
+    tenant's ``config.serve_tenant_queue_max`` quota), or the brownout
+    controller's rung-3 tenant shed refused the submission. The
+    submission is REFUSED rather than allowed to grow the queue
+    without bound — the typed load-shedding contract protecting the
+    queries already admitted. ``tenant`` names the shed tenant (None
+    for the implicit single tenant); ``scope`` says which bound fired
+    ("tenant" quota / "queue" global / "brownout" rung 3)."""
+
+    def __init__(self, queue_max: int, tenant: Optional[str] = None,
+                 scope: str = "queue"):
+        self.queue_max = queue_max
+        self.tenant = tenant
+        self.scope = scope
+        who = f" (tenant {tenant!r})" if tenant else ""
+        if scope == "brownout":
+            msg = (f"submission shed{who}: brownout rung 3 sheds "
+                   f"lowest-weight tenants under sustained overload — "
+                   f"retry later")
+        elif scope == "tenant":
+            msg = (f"per-tenant admission quota full{who} "
+                   f"({queue_max} pending); submission shed — retry "
+                   f"later or raise config.serve_tenant_queue_max")
+        else:
+            msg = (f"serve admission queue full ({queue_max} "
+                   f"pending){who}; submission shed — retry later or "
+                   f"raise config.serve_queue_max")
+        super().__init__(msg)
+
+
+#: Exception type names treated as transient runtime faults: the CUDA
+#: allocator's out-of-memory error as torch raises it (``OutOfMemoryError``;
+#: a retry after the caching allocator releases blocks can succeed).
+#: Matched by NAME so the taxonomy works across versions that move the
+#: class. Other CUDA faults (``AcceleratorError``: an illegal address, a
+#: device-side assert) are sticky — they poison the context, so a retry
+#: cannot succeed — and classify deterministic unless their message
+#: carries a marker below.
+_TRANSIENT_TYPE_NAMES = frozenset({"OutOfMemoryError"})
+
+#: Message substrings that mark an otherwise-ambiguous runtime error
+#: transient: failures a retry can plausibly clear.
+_TRANSIENT_MARKERS = ("out of memory", "collective")
+
+
+def is_transient(exc: BaseException) -> bool:
+    """True when a retry of the SAME work can plausibly succeed."""
+    if isinstance(exc, ResilienceError):
+        # deadlines, sheds, closed pipelines: all deterministic by
+        # construction — retrying cannot help
+        return False
+    name = type(exc).__name__
+    if name == "VerificationError":
+        # the static verifier's findings are properties of the PLAN —
+        # identical on every attempt
+        return False
+    if name in _TRANSIENT_TYPE_NAMES:
+        return True
+    if isinstance(exc, (MemoryError,)):
+        return True
+    if isinstance(exc, (ValueError, TypeError, KeyError,
+                        NotImplementedError, AssertionError,
+                        AttributeError, IndexError, ZeroDivisionError)):
+        # compile/user/shape errors: deterministic
+        return False
+    msg = str(exc)
+    return any(m in msg for m in _TRANSIENT_MARKERS)
+
+
+def classify(exc: BaseException) -> str:
+    """``"transient"`` or ``"deterministic"`` — the retry policy's one
+    question. Unknown exception types classify DETERMINISTIC unless
+    they carry a transient marker: silently retrying an unknown bug
+    class would mask it (and burn deadline) instead of surfacing it."""
+    return "transient" if is_transient(exc) else "deterministic"

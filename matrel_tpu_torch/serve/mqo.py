@@ -1,0 +1,314 @@
+"""Admission-time multi-query optimization — the counterpart of
+``matrel_tpu/serve/mqo.py``.
+
+Two mechanisms, both driven by the session's one structural-key walk
+(``session._plan_key_spans`` — span-slice joins, never subtree
+re-walks):
+
+**Cross-query CSE** (:func:`choose_hoists` / :func:`substitute`): the
+interior subtrees shared by >= ``config.cse_min_uses`` occurrences
+across a batch are hoisted into a compute-once MultiPlan of their own;
+every consumer re-enters planning with the result substituted as an
+already-laid-out leaf carrying a ``cse`` stamp — the result-cache
+interior-hit shape, so ``matmul_decisions`` marks the hoist-fed
+operands (``cse_operands``). Hoists happen only at fused-region
+boundaries (kinds outside ``ir/fusion.FUSABLE_KINDS``) and only over
+subtrees holding a matmul.
+
+**Plan-template reuse** (:class:`MqoState` + :func:`template_key`):
+queries structurally identical modulo dense-leaf bindings key one
+template on the leaf-abstracted structural key (dense leaves emit a
+token of exactly the metadata planning reads: shape, spec, dtype,
+density, integrality and its bound, plus the leaf's identity class);
+steady-state traffic rebinds leaves into the cached plan through
+``plan.run(bindings=...)`` and pays no optimize. Sparse/COO leaves keep
+their identity tokens: their payloads are baked into the compiled plan.
+
+Keys, stamps and counters are the JAX package's. The MV116 verifier
+pass (its dynamic half replays :attr:`MqoState.recent`) and the
+snapshot seeding of ``save_state``/``restore`` belong to unported
+planes; ``recent`` is kept, the seeding counters stay 0.
+
+Zero-overhead contract: ``cse_enable = False`` (the default)
+constructs NOTHING from this module (``_CONSTRUCTED`` is the
+poisoned-init test hook), and every cache key keeps its format.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict, deque
+from typing import Dict, List, Optional, Tuple
+
+#: Test hook (tests/test_cse.py): with ``cse_enable`` off NOTHING in
+#: this module is ever constructed — the count stays exactly 0 over
+#: the whole default-config suite (the ir/fusion._CONSTRUCTED idiom).
+_CONSTRUCTED = {"count": 0}
+
+#: Ring depth of :attr:`MqoState.recent` — what MV116's dynamic half
+#: can re-prove without the state pinning unbounded device results.
+RECENT_MAX = 8
+
+
+def _fusable_kinds() -> tuple:
+    from matrel_tpu_torch.ir import fusion as fusion_lib
+    return fusion_lib.FUSABLE_KINDS
+
+
+@dataclasses.dataclass
+class HoistPlan:
+    """One shared interior chosen for compute-once execution: the
+    canonical subtree (first occurrence — all occurrences are
+    structurally identical by key), its standalone structural key
+    (byte-identical to ``_plan_key`` of the subtree — the spans
+    contract), and the uid of EVERY occurrence across the batch so
+    substitution can replace each consumer site."""
+
+    key: str
+    expr: object                  # MatExpr — the canonical occurrence
+    uses: int
+    uids: Tuple[int, ...]
+
+    def __post_init__(self):
+        _CONSTRUCTED["count"] += 1
+
+
+@dataclasses.dataclass
+class TemplateEntry:
+    """One compiled plan held rebindable: ``slots`` is, in PLAN-ROOT
+    order, each root's (abstract key, dense-leaf uids in pre-order) —
+    a probe pairs its own roots to slots by abstract key and binds new
+    matrices onto the recorded uids. ``pins`` keeps every id()-keyed
+    object of the abstract key alive (sparse payload matrices,
+    fn-token globals) so the key can never falsely hit a recycled
+    address — the plan-cache ``_cache_pin`` discipline."""
+
+    plan: object
+    slots: Tuple[Tuple[str, Tuple[int, ...]], ...]
+    pins: Tuple
+
+    def __post_init__(self):
+        _CONSTRUCTED["count"] += 1
+
+
+class MqoState:
+    """Per-session multi-query-optimization state: the template cache
+    (abstract key -> :class:`TemplateEntry`, LRU-bounded by
+    ``config.cse_template_max``), the lifetime counters the serve
+    events report as deltas, and the bounded ring of recent
+    hoist-substituted executions MV116's dynamic half replays."""
+
+    def __init__(self, config):
+        _CONSTRUCTED["count"] += 1
+        self.config = config
+        self.templates: "OrderedDict[str, TemplateEntry]" = OrderedDict()
+        self.cse_hoisted = 0          # lifetime hoisted interiors
+        self.cse_batches = 0          # batches that hoisted anything
+        self.template_hits = 0        # lifetime template-served queries
+        self.template_inserts = 0
+        #: (original root expr, substituted expr) of recent CSE-fed
+        #: executions — MV116's dynamic-verify feed: executing both
+        #: fresh and comparing proves substituted ≡ unshared.
+        self.recent: deque = deque(maxlen=RECENT_MAX)
+        #: abstract keys a ``save_state()`` snapshot would seed (the
+        #: JAX package's spill plane — not ported): always empty here
+        self.seeded: set = set()
+        self.templates_rewarmed = 0
+
+    def info(self) -> dict:
+        """``plan_cache_info``-style surface."""
+        return {"templates": len(self.templates),
+                "template_hits": self.template_hits,
+                "template_inserts": self.template_inserts,
+                "cse_hoisted": self.cse_hoisted,
+                "cse_batches": self.cse_batches,
+                "seeded_templates": len(self.seeded),
+                "templates_rewarmed": self.templates_rewarmed}
+
+    def remember(self, orig, substituted) -> None:
+        self.recent.append((orig, substituted))
+
+    def put_template(self, key: str, entry: TemplateEntry) -> None:
+        # canonical structural key only: the template
+        # cache must never key off id()/uid/spec-repr shortcuts — a
+        # recycled address or a re-created same-layout leaf would
+        # alias two distinct plans
+        self.templates[key] = entry
+        self.templates.move_to_end(key)
+        if key in self.seeded:
+            self.seeded.discard(key)
+            self.templates_rewarmed += 1
+        while len(self.templates) > self.config.cse_template_max:
+            self.templates.popitem(last=False)
+
+    def get_template(self, key: str) -> Optional[TemplateEntry]:
+        ent = self.templates.get(key)
+        if ent is not None:
+            self.templates.move_to_end(key)
+        return ent
+
+
+# -- leaf-abstracted structural keys (plan templates) -------------------
+
+
+def template_key(e) -> Tuple[str, list, list]:
+    """(abstract key, pins, dense leaves in pre-order) for one root.
+
+    Dense leaves emit a session-independent token carrying EXACTLY the
+    host metadata the planner consults about a leaf — shape and
+    PartitionSpec (``_layout_of``/``infer_layout``), dtype (HBM gates,
+    autotune classes), density (``comm_cost``), integrality flag and
+    bound (``infer_integral``/``integral_abs_bound`` — the precision
+    tier chooser) — PLUS the leaf's identity CLASS (first-occurrence
+    numbering of the matrix object within this root): the optimizer
+    consults which leaves hold the SAME matrix (``t(X) @ X`` dedupes
+    its two leaves into one Gram operand; ``t(X) @ Y`` cannot), so the
+    equality pattern is part of what determines the compiled program
+    and must be part of the key — ``#0/#0`` and ``#0/#1`` never share
+    a template. With metadata and pattern both encoded, any tree with
+    the same token sequence optimizes to the identical program modulo
+    leaf bindings (the optimizer never reads leaf VALUES), and
+    rebinding is as safe as re-running the plan. Sparse/COO leaves
+    keep their identity tokens (payloads are trace constants in the
+    compiled program — not rebindable) and are pinned. Interior tokens
+    come byte-identical from the session's one structural-walk
+    implementation. Raises ``KeyError`` when the tree is ineligible
+    (the ``_plan_key_spans`` leaf-token contract)."""
+    from matrel_tpu_torch import session as session_mod
+
+    pins: list = []
+    leaves: list = []
+    classes: dict = {}
+
+    def tok(n):
+        m = n.attrs.get("matrix")
+        if n.kind == "leaf":
+            leaves.append(n)
+            cls = classes.setdefault(id(m), len(classes))
+            return ("tleaf#{}:{}:{}:{}:{}:{}:{}".format(
+                cls, m.shape, m.spec, _dtype_name(m.dtype),
+                getattr(m, "density", None),
+                bool(getattr(m, "integral", False)),
+                getattr(m, "int_abs_max", None)))
+        # sparse payloads are compiled-in constants — identity-keyed
+        # and pinned, exactly like the concrete key
+        pins.append(m)
+        return f"{n.kind}:{id(m)}:{m.shape}"
+
+    parts, wpins, _spans = session_mod._plan_key_spans(e, leaf_token=tok)
+    return "|".join(parts), pins + wpins, leaves
+
+
+def _dtype_name(dtype) -> str:
+    """A dtype as the JAX package's numpy names spell it ("float32",
+    "bfloat16")."""
+    return str(dtype).replace("torch.", "")
+
+
+def rebindable(entry: TemplateEntry) -> bool:
+    """A template is rebindable iff every DENSE leaf of its compiled
+    program is a leaf its abstract key recorded — a program leaf the
+    key never saw (an optimizer rewrite that re-created the node with
+    a fresh uid) would silently keep its compiled-in matrix on a
+    rebind: stale data, the one failure mode this guard exists for.
+    Recorded leaves the program DROPPED (``t(X) @ X`` dedup, algebraic
+    elimination) are fine: their bindings are simply ignored, and the
+    identity classes in the abstract key guarantee the new batch's
+    leaves dedupe the same way."""
+    plan = entry.plan
+    plan_uids = {l.uid for l in plan.leaf_order if l.kind == "leaf"}
+    recorded = {u for _k, uids in entry.slots for u in uids}
+    return plan_uids <= recorded
+
+
+# -- cross-query CSE ----------------------------------------------------
+
+
+def choose_hoists(entries, min_uses: int = 2) -> List[HoistPlan]:
+    """Pick the shared interiors of one batch, top-down maximal.
+
+    ``entries`` is ``[(root expr, parts, spans), ...]`` — each root's
+    single ``_plan_key_spans`` walk. A node is a hoist CANDIDATE when
+    it is a proper interior (not a leaf, not its query's root — whole-
+    root sharing is the MultiPlan uniq's job), its kind lies outside
+    ``FUSABLE_KINDS`` (the hoist boundary must coincide with a fused-
+    region edge so epilogue fusion composes instead of splitting), and
+    its subtree carries at least one matmul (a shared transpose-of-a-
+    leaf is not worth a dispatch). Candidates group by their standalone
+    span key; groups with >= ``min_uses`` occurrences hoist. Marking
+    is top-down: inside a hoisted subtree nothing is re-considered —
+    the interior computes once either way."""
+    fusable = _fusable_kinds()
+    counts: Dict[str, int] = {}
+    canon: Dict[str, object] = {}
+
+    def candidate(n, is_root: bool) -> bool:
+        return (not is_root and bool(n.children)
+                and n.kind not in fusable and _has_matmul(n))
+
+    for e, parts, spans in entries:
+        for n, is_root in _walk_interiors(e):
+            if not candidate(n, is_root):
+                continue
+            s, t = spans[n.uid]
+            k = "|".join(parts[s:t])
+            counts[k] = counts.get(k, 0) + 1
+            canon.setdefault(k, n)
+
+    shared = {k for k, c in counts.items() if c >= min_uses}
+    if not shared:
+        return []
+    hoists: Dict[str, List[int]] = {}
+
+    def mark(n, parts, spans, is_root: bool):
+        if n.uid in spans and not is_root and bool(n.children):
+            s, t = spans[n.uid]
+            k = "|".join(parts[s:t])
+            if k in shared and n.kind not in fusable \
+                    and _has_matmul(n):
+                hoists.setdefault(k, []).append(n.uid)
+                return                      # top-down maximal
+        for c in n.children:
+            mark(c, parts, spans, False)
+
+    for e, parts, spans in entries:
+        mark(e, parts, spans, True)
+    return [HoistPlan(key=k, expr=canon[k], uses=len(uids),
+                      uids=tuple(uids))
+            for k, uids in sorted(hoists.items())]
+
+
+def _walk_interiors(e):
+    """Yield (node, is_root) for every interior node, pre-order."""
+    out = []
+
+    def walk(n, is_root):
+        if not n.children:
+            return
+        out.append((n, is_root))
+        for c in n.children:
+            walk(c, False)
+
+    walk(e, True)
+    return out
+
+
+def _has_matmul(n) -> bool:
+    if n.kind == "matmul":
+        return True
+    return any(_has_matmul(c) for c in n.children)
+
+
+def substitute(e, leaf_of: Dict[int, object]):
+    """Rebuild ``e`` with every uid in ``leaf_of`` replaced by its
+    compute-once leaf — the ``_rc_substitute`` shape, but keyed on the
+    exact occurrence uids ``choose_hoists`` marked (no re-probing)."""
+    hit = leaf_of.get(e.uid)
+    if hit is not None:
+        return hit
+    if not e.children:
+        return e
+    new_children = tuple(substitute(c, leaf_of) for c in e.children)
+    if all(nc is c for nc, c in zip(new_children, e.children)):
+        return e
+    return e.with_children(new_children)

@@ -1,0 +1,229 @@
+"""Sliding-window streaming graph — the IVM proving workload, the
+counterpart of ``matrel_tpu/workloads/streaming.py``.
+
+A graph dashboard re-runs a fixed query set over an adjacency that
+changes a little per tick: a batch of edges arrives, the batch that
+entered ``window`` ticks ago expires. The adjacency is a dense INTEGRAL
+BlockMatrix (0/1 entries), the dashboard queries are trace(A³), A·L
+label counts, A·A common neighbours, degrees and A·F feature products,
+and each tick's change is one ``session.register_delta`` COO batch (+1
+per arrival, −1 per expiry, symmetrised) — so every repeat answers from
+the delta-patched result cache, and the integer queries patch exactly.
+
+The edge batches are constant-capacity (zero-padded slots): every
+tick's delta shares one signature, so the delta plane re-runs its
+compiled patch plans with rebound factors. ``step_rebind`` is the
+control arm: a plain ``register`` (transitive kill, full recompute).
+``pagerank()`` warm-restarts the power iteration from the previous
+tick's vector (``ir/delta.pagerank_warm_restart``) over the session's
+binding, on its device. A numpy mirror of the adjacency rides along as
+the oracle (and as the rebind arm's upload). Edges, deltas and oracles are
+the JAX package's for a seed.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from matrel_tpu_torch.ir import delta as delta_lib
+
+
+class EdgeStream:
+    """Seeded sliding-window undirected edge stream over ``n`` nodes:
+    each ``step()`` yields (arrivals, expiries) as (k, 2) index arrays
+    with i < j, arrivals disjoint from the live edge set, expiries the
+    batch that arrived ``window`` steps ago (empty until the window
+    fills)."""
+
+    def __init__(self, n: int, batch_edges: int = 32, window: int = 8,
+                 seed: int = 0):
+        if n < 4 or batch_edges < 1 or window < 1:
+            raise ValueError("EdgeStream needs n >= 4, "
+                             "batch_edges >= 1, window >= 1")
+        self.n = n
+        self.batch_edges = batch_edges
+        self.window = window
+        self._rng = np.random.default_rng(seed)
+        self._live: set = set()
+        self._batches: list = []
+
+    def step(self) -> Tuple[np.ndarray, np.ndarray]:
+        adds = []
+        tries = 0
+        while len(adds) < self.batch_edges and tries < 100 * self.batch_edges:
+            tries += 1
+            i = int(self._rng.integers(0, self.n))
+            j = int(self._rng.integers(0, self.n))
+            if i == j:
+                continue
+            e = (min(i, j), max(i, j))
+            if e in self._live:
+                continue
+            self._live.add(e)
+            adds.append(e)
+        expires: list = []
+        self._batches.append(list(adds))
+        if len(self._batches) > self.window:
+            expires = self._batches.pop(0)
+            for e in expires:
+                self._live.discard(e)
+        return (np.asarray(adds, np.int64).reshape(-1, 2),
+                np.asarray(expires, np.int64).reshape(-1, 2))
+
+
+def _delta_arrays(adds: np.ndarray, expires: np.ndarray,
+                  capacity: int) -> Tuple[np.ndarray, np.ndarray,
+                                          np.ndarray]:
+    """One symmetric COO batch (+1 arrivals, −1 expiries), padded to a
+    FIXED capacity with zero-valued (0,0) slots — constant capacity
+    means one delta signature per stream, so the plane's patch plans
+    rebind instead of recompiling every tick."""
+    rows: list = []
+    cols: list = []
+    vals: list = []
+    for (i, j) in adds:
+        rows += [i, j]
+        cols += [j, i]
+        vals += [1.0, 1.0]
+    for (i, j) in expires:
+        rows += [i, j]
+        cols += [j, i]
+        vals += [-1.0, -1.0]
+    if len(rows) > capacity:
+        raise ValueError(f"delta batch {len(rows)} exceeds fixed "
+                         f"capacity {capacity}")
+    pad = capacity - len(rows)
+    rows += [0] * pad
+    cols += [0] * pad
+    vals += [0.0] * pad
+    return (np.asarray(rows, np.int64), np.asarray(cols, np.int64),
+            np.asarray(vals, np.float32))
+
+
+class StreamingGraph:
+    """The dashboard: a session-bound streaming adjacency plus the
+    fixed query set and its numpy oracle (see module docstring)."""
+
+    def __init__(self, sess, n: int, batch_edges: int = 32,
+                 window: int = 8, feature_k: int = 32,
+                 n_labels: int = 8, seed: int = 0, name: str = "A"):
+        self.sess = sess
+        self.n = n
+        self.name = name
+        self.stream = EdgeStream(n, batch_edges, window, seed)
+        #: fixed per-tick delta capacity: 2 slots per arrival + 2 per
+        #: expiry (symmetrized), zero-padded
+        self.capacity = 4 * batch_edges
+        rng = np.random.default_rng(seed + 1)
+        self.adj = np.zeros((n, n), np.float32)       # the oracle
+        # warm the window so the first measured ticks already expire
+        for _ in range(window):
+            adds, expires = self.stream.step()
+            self._apply_host(adds, expires)
+        feats = rng.random((n, feature_k), dtype=np.float32)
+        labels = rng.integers(0, n_labels, n)
+        onehot = np.zeros((n, n_labels), np.float32)
+        onehot[np.arange(n), labels] = 1.0
+        sess.register(name, sess.from_numpy(self.adj, integral=True))
+        sess.register(name + "_feats", sess.from_numpy(feats))
+        sess.register(name + "_labels",
+                      sess.from_numpy(onehot, integral=True))
+        self.feats = feats
+        self.onehot = onehot
+        self._pr: Optional[torch.Tensor] = None
+
+    # -- queries (the dashboard set; rebuilt per tick like a client) --------
+
+    def queries(self) -> Dict[str, object]:
+        s = self.sess
+        a = s.table(self.name).expr()
+        a2 = s.table(self.name).expr()
+        a3 = s.table(self.name).expr()
+        return {
+            "degrees": a.row_sum(),
+            "feature_product": a.multiply(
+                s.table(self.name + "_feats").expr()),
+            "label_counts": a.multiply(
+                s.table(self.name + "_labels").expr()),
+            "common_neighbors": a.multiply(a2),
+            "triangles6": a.multiply(a2).multiply(a3).trace(),
+        }
+
+    def run_all(self) -> Dict[str, np.ndarray]:
+        return {k: self.sess.run(q).to_numpy()
+                for k, q in self.queries().items()}
+
+    def oracle(self) -> Dict[str, np.ndarray]:
+        A = self.adj
+        return {
+            "degrees": A.sum(axis=1, keepdims=True),
+            "feature_product": A @ self.feats,
+            "label_counts": A @ self.onehot,
+            "common_neighbors": A @ A,
+            "triangles6": np.trace(A @ A @ A).reshape(1, 1),
+        }
+
+    def triangle_count(self) -> float:
+        """The graph-count headline: trace(A³)/6 from the (cached,
+        delta-patched) dashboard entry."""
+        return float(self.sess.run(
+            self.queries()["triangles6"]).to_numpy()[0, 0]) / 6.0
+
+    # -- the stream ---------------------------------------------------------
+
+    def _apply_host(self, adds: np.ndarray, expires: np.ndarray):
+        for (i, j) in adds:
+            self.adj[i, j] += 1.0
+            self.adj[j, i] += 1.0
+        for (i, j) in expires:
+            self.adj[i, j] -= 1.0
+            self.adj[j, i] -= 1.0
+
+    def step_delta(self) -> dict:
+        """One tick through the IVM plane: register the constant-
+        capacity COO delta; dependent cached entries patch in place.
+        Returns register_delta's summary."""
+        adds, expires = self.stream.step()
+        rows, cols, vals = _delta_arrays(adds, expires, self.capacity)
+        self._apply_host(adds, expires)
+        return self.sess.register_delta(self.name, (rows, cols, vals),
+                                        kind="coo")
+
+    def step_rebind(self) -> dict:
+        """One tick through the plain path — a register() rebind
+        (transitive invalidation, full recompute on the next run) — the
+        control arm the patched path is compared against."""
+        adds, expires = self.stream.step()
+        self._apply_host(adds, expires)
+        self.sess.register(
+            self.name,
+            self.sess.from_numpy(self.adj, integral=True))
+        return {"adds": int(adds.shape[0]),
+                "expires": int(expires.shape[0])}
+
+    # -- the iterative member: PageRank warm restart ------------------------
+
+    def pagerank(self, rounds: int = 8, cold_rounds: int = 60,
+                 alpha: float = 0.85) -> torch.Tensor:
+        """Ranks over the CURRENT adjacency — the session's binding, on
+        its device — warm-restarted from the previous tick's vector
+        (ir/delta.pagerank_warm_restart): a cold start pays
+        ``cold_rounds``, the warm restart ``rounds``, and for a small
+        per-tick delta both land on the same fixed point. Returns the
+        float64 rank vector on the binding's device."""
+        bm = self.sess.table(self.name)
+        full = bm.data
+        if bm.mesh.ranked:
+            from matrel_tpu_torch.parallel import collectives as coll
+            full = coll.gather_full(bm.as_shard(), bm.mesh)
+        adj = full[: self.n, : self.n]
+        r0 = (self._pr if self._pr is not None
+              else torch.full((self.n,), 1.0 / self.n,
+                              dtype=torch.float64, device=adj.device))
+        warm_rounds = rounds if self._pr is not None else cold_rounds
+        self._pr = delta_lib.pagerank_warm_restart(
+            adj, r0, alpha=alpha, rounds=warm_rounds)
+        return self._pr

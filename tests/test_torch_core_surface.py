@@ -172,11 +172,16 @@ def test_run_many_empty_and_unported_arguments(jmesh):
     assert ts.run_many([]) == [] and js.run_many([]) == []
     assert ts.plan_cache_info()["plans"] == 0
     A = ts.from_numpy(np.eye(4, dtype=np.float32))
-    for kw in ({"deadline_ms": 5.0}, {"tenant": "a"},
+    # the serve plane's arguments are ported (the batch deadline, the
+    # tenant tag and the pipeline's channel); the brownout plane's rung
+    # is not
+    for kw in ({"deadline_ms": 60_000.0}, {"tenant": "a"},
                {"_queue_wait_ms": [1.0]}, {"_inflight_depth": 2},
-               {"_tenants": ["a"]}, {"_brownout_rung": 1}):
-        with pytest.raises(NotPortedError, match=next(iter(kw))):
-            ts.run_many([A.multiply(A)], **kw)
+               {"_tenants": ["a"]}):
+        out, = ts.run_many([A.multiply(A)], **kw)
+        assert torch.equal(out.data, A.data)
+    with pytest.raises(NotPortedError, match="_brownout_rung"):
+        ts.run_many([A.multiply(A)], _brownout_rung=1)
 
 
 # -- vec and rank1 -----------------------------------------------------------
@@ -692,8 +697,12 @@ def test_config_from_env_dict_and_default(monkeypatch):
                  else default + 1)
         with pytest.raises(NotPortedError, match=name):
             MatrelConfig.from_dict({name: other})
+    # a knob this package ported reads from the environment; one still
+    # fenced raises there as at construction
     monkeypatch.setenv("MATREL_CSE_ENABLE", "1")
-    with pytest.raises(NotPortedError, match="cse_enable"):
+    assert MatrelConfig.from_env().cse_enable is True
+    monkeypatch.setenv("MATREL_OBS_LEVEL", "on")
+    with pytest.raises(NotPortedError, match="obs_level"):
         MatrelConfig.from_env()
     old = t_config.default_config()
     try:
@@ -706,13 +715,19 @@ def test_config_from_env_dict_and_default(monkeypatch):
 
 
 def test_unported_knobs_left_exactly_two():
-    """This slice took fusion_enable and reshard_peak_budget_bytes off
-    the list; every other knob of an unported plane stays."""
+    """fusion_enable and reshard_peak_budget_bytes left the list with
+    the fusion slice, the serve plane's knobs with the serving slice;
+    every other knob of an unported plane stays."""
     from matrel_tpu_torch.config import UNPORTED_KNOBS
-    for name in ("cse_enable", "delta_patch_mode", "delta_rank_max",
-                 "obs_level", "verify_plans", "spill_enable"):
+    for name in ("fusion_enable", "reshard_peak_budget_bytes",
+                 "cse_enable", "delta_patch_mode", "delta_rank_max",
+                 "result_cache_max_bytes", "serve_tenant_weights"):
+        assert name not in UNPORTED_KNOBS
+    for name in ("obs_level", "verify_plans", "spill_enable",
+                 "fleet_slices", "brownout_enable", "fault_inject"):
         assert name in UNPORTED_KNOBS
-    MatrelConfig(fusion_enable=True, reshard_peak_budget_bytes=1 << 20)
+    MatrelConfig(fusion_enable=True, reshard_peak_budget_bytes=1 << 20,
+                 cse_enable=True, delta_patch_mode="force")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

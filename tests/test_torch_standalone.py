@@ -17,11 +17,14 @@ ported.
 - Whole-plan fusion (``ir/fusion.py``, the unit programs) and
   staged-reshard planning (``parallel/reshard.py``) run on the CPU with
   the JAX package blocked.
+- The serving plane (the result cache, ``submit`` with tenants and
+  deadlines, cross-query CSE, ``register_delta`` over the streaming
+  dashboard) runs on the CPU with the JAX package blocked.
 - A rank process of a gloo rank mesh (``core/mesh.init_distributed``)
   runs a recipe, a sharded matvec and a staged reshard with the JAX
   package blocked.
-- Node kinds outside ``LOWERED_KINDS`` and knobs of unported planes
-  raise ``NotPortedError``.
+- Node kinds outside ``LOWERED_KINDS``, knobs of unported planes and
+  ``save_state`` raise ``NotPortedError``.
 """
 
 import ast
@@ -205,6 +208,57 @@ def test_fusion_and_reshard_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "standalone fusion ok" in proc.stdout
+
+
+def test_serving_plane_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "matrel_tpu"):
+            sys.modules[name] = None          # import raises ImportError
+        import numpy as np
+        from matrel_tpu_torch import MatrelConfig, MatrelSession
+        from matrel_tpu_torch.resilience import DeadlineExceeded
+        from matrel_tpu_torch.workloads.streaming import StreamingGraph
+        rng = np.random.default_rng(0)
+        s = MatrelSession(config=MatrelConfig(
+            result_cache_max_bytes=1 << 24, cse_enable=True,
+            serve_tenant_weights="a:3,b:1"), device="cpu")
+        x = rng.standard_normal((32, 16)).astype(np.float32)
+        X = s.from_numpy(x)
+        g = X.expr().t().multiply(X.expr())
+        outs = s.run_many([g.multiply_scalar(2.0), g.row_sum()])
+        assert s.mqo_info()["cse_hoisted"] == 1
+        assert np.allclose(outs[0].to_numpy(), 2 * x.T @ x, rtol=1e-4,
+                           atol=1e-4)
+        futs = [s.submit(g.multiply_scalar(2.0), tenant=t)
+                for t in ("a", "b")]
+        assert all(f.result(timeout=60) is outs[0] for f in futs)
+        late = s.submit(g, deadline_ms=0.001)
+        try:
+            late.result(timeout=60)
+            raise AssertionError("a 0.001 ms deadline was met")
+        except DeadlineExceeded:
+            pass
+        s.serve_close(timeout=60)
+        d = StreamingGraph(s, n=48, batch_edges=4, window=2, feature_k=4)
+        d.run_all()
+        for _ in range(2):
+            assert d.step_delta()["patched"] >= 1
+            got, want = d.run_all(), d.oracle()
+            for k in ("degrees", "common_neighbors", "triangles6"):
+                assert np.array_equal(got[k], want[k]), k
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "matrel_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("standalone serving ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone serving ok" in proc.stdout
 
 
 def test_solvers_and_routed_spmv_without_jax():
@@ -452,8 +506,8 @@ def test_default_device_needs_a_card(monkeypatch):
 def test_unported_planes_and_kinds_raise():
     with pytest.raises(NotPortedError, match="obs_level"):
         MatrelConfig(obs_level="on")
-    with pytest.raises(NotPortedError, match="result_cache_max_bytes"):
-        MatrelConfig().replace(result_cache_max_bytes=1 << 20)
+    with pytest.raises(NotPortedError, match="spill_enable"):
+        MatrelConfig().replace(spill_enable=True)
     s = MatrelSession(device="cpu")
     rng = np.random.default_rng(1)
     A = s.from_numpy(rng.standard_normal((4, 4)).astype(np.float32))
@@ -464,15 +518,17 @@ def test_unported_planes_and_kinds_raise():
     from matrel_tpu_torch.ir.expr import MatExpr
     with pytest.raises(NotPortedError, match="not_a_kind"):
         s.compute(MatExpr("not_a_kind", (A.expr(),), (4, 4), None))
-    with pytest.raises(NotPortedError, match="cse_enable"):
-        MatrelConfig(cse_enable=True)
+    with pytest.raises(NotPortedError, match="brownout_enable"):
+        MatrelConfig(brownout_enable=True)
     with pytest.raises(NotPortedError, match="pallas_interpret"):
         MatrelConfig(pallas_interpret=True)
     from matrel_tpu_torch.ops import spgemm
     sp = np.eye(16, dtype=np.float32)
     S = BlockSparseMatrix.from_numpy(sp, block_size=8, mesh=s.mesh)
-    with pytest.raises(NotPortedError, match="delta_patch_mode"):
-        MatrelConfig().replace(delta_patch_mode="patch")
+    with pytest.raises(NotPortedError, match="fleet_slices"):
+        MatrelConfig().replace(fleet_slices=2)
+    with pytest.raises(NotPortedError, match="save_state"):
+        s.save_state("unused")
     # the fused SpGEMM epilogue slot is ported (ir/fusion.py)
     assert torch.equal(spgemm.apply_dense(S, S, epilogue=lambda x: -x),
                        -spgemm.apply_dense(S, S))
