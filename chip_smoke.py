@@ -198,7 +198,33 @@
    0/1 512-blocks, B4) patched for a 64-entry COO delta through the
    SpGEMM form (B4 launches counted; force mode: the estimate prices
    the patch out), within 1e-4 of a recompute, ms of both.
-10. spgemm_library: torch.sparse.mm of each S×S pair's element-CSR
+10. path_ops (the observability plane and the resilience ladder:
+   obs/, resilience/, parallel/coeffs.py; each sub-phase under its own
+   bound OPS_PEAK_LIMIT_GIB) over row 4's S·D (B1), row 5's Âᵀ·x through
+   compute (B2) and S×S 1% random bf16 at n = 32,768 (B4): (a) obs on
+   (event log, flight recorder, provenance, lockdep): every answer
+   bit-equal to obs off, one query event a run, the span tree, why
+   naming each plan, the registry's count, the log read back; with (h)
+   one scrape of /metrics and /json on the loopback endpoint and no
+   exporter thread after serve_close; (b) EXPLAIN ANALYZE of each: the
+   kernel's torch.profiler ms against its PERF.md kernel ms (within
+   OPS_ANALYZE_FACTOR), every launch under a matrel.* range, the B1 /
+   B2 / B4 node's synced ms between that kernel's and PERF.md's device
+   time of the query plus OPS_NODE_HOST_MS, the plan-as-run line beside
+   it; (c) warm
+   ms obs off against obs on, in turns, off against path_latency's; (d)
+   transient faults at execute 1, 2, 3 times on row 4's S·D: rungs 1-3
+   climbed, stamped and evented, B1 launched only at rungs <= 2, answers
+   within bf16 tolerance of rung 0's; (e) a fatal fault trips the
+   breaker, CircuitOpen, the half-open probe closes it and runs B1; (f)
+   a submit burst of two tenants under tight brownout watermarks: rungs
+   up to 3 and back to 0, tenant b shed at rung 3, rung-2 answers
+   served stale and stamped, overload events matching the rungs; (g)
+   analyzed runs under every strategy on the (2, 4) virtual grid fill a
+   drift table under backend "cuda"; coeff_planner_enable takes its
+   epoch into the plan key, the stamps that change on row 2's chain and
+   a 4096² product printed, the answers equal.
+11. spgemm_library: torch.sparse.mm of each S×S pair's element-CSR
    forms in f32 (cuSPARSE SpGEMM) at n = 100,352, by CUDA events, as the
    library column of B4–B7 (xla_gather kept beside it); where cuSPARSE
    cannot hold its workspace, the failure and the operand sizes. Then
@@ -237,6 +263,10 @@ call, it compares two builds of the f32 bodies on one card.
     python3 chip_smoke.py --serving
 
 runs only path_serving (after the build).
+
+    python3 chip_smoke.py --ops
+
+runs only path_ops (after the build).
 
     python3 chip_smoke.py --multirank
 
@@ -788,6 +818,52 @@ def serving_only() -> int:
     out = path_serving(MatrelSession())
     print(card)
     print(json.dumps({"serving_launches": out["launches"]}))
+    return 0
+
+
+def lock_order_checked(name: str, fn):
+    """``fn()`` with the lock-order sanitizer armed (utils/lockdep.py:
+    every lock built meanwhile is instrumented — the sessions, pipelines,
+    admission queues and caches of the phase); fails on a recorded
+    inversion or self-deadlock, or a cycle in the order graph."""
+    from matrel_tpu_torch.utils import lockdep
+    lockdep.reset()
+    lockdep.enable()
+    try:
+        out = fn()
+        diags = lockdep.diagnostics()
+        edges = sorted(lockdep.order_graph())
+        acyclic = lockdep.is_acyclic()
+    finally:
+        lockdep.disable()
+        lockdep.reset()
+    bad = [d for d in diags if d["diag"] in ("inversion", "self_deadlock")]
+    if bad or not acyclic:
+        raise AssertionError(f"{name}: lockdep recorded {bad}, order "
+                             f"graph {edges}")
+    log(f"{name} under lockdep: {len(edges)} order edges "
+        f"{[f'{a} -> {b}' for a, b in edges]}, no inversion; "
+        f"{len(diags)} other diagnostic(s) "
+        f"{sorted({d['diag'] for d in diags})}")
+    return out
+
+
+def ops_only() -> int:
+    """``python3 chip_smoke.py --ops``: only path_ops (after building
+    the kernels), printing the card line and its launches; (c) then
+    compares obs off with PERF.md's warm latencies only by eye."""
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
+                                      pallas_spmv, spmv_routed)
+    from matrel_tpu_torch.utils import cuda_build
+    card = device_line()
+    log(f"torch {torch.__version__}; {card}")
+    modules = (pallas_spmm, pallas_spmv, pallas_spgemm, spmv_routed)
+    cuda_build.build([cuda_build.CSRC_DIR / m.SOURCE for m in modules])
+    out = path_ops(MatrelSession())
+    print(card)
+    print(json.dumps({"ops_launches": out["launches"]}))
     return 0
 
 
@@ -2486,15 +2562,18 @@ def path_spgemm(sess) -> tuple:
     return launches, queries
 
 
-def path_latency(sess, queries: dict) -> None:
+def path_latency(sess, queries: dict) -> dict:
     """Warm compute() latency of each path query (plan cached): CUDA
     events around the whole call, median of 10 (host planning and
     launch gaps included); then where the device time of each goes,
-    from torch.profiler over 5 warm calls."""
+    from torch.profiler over 5 warm calls. Returns {name: ms}."""
+    out = {}
     for name, e in queries.items():
         ms = time_ms(lambda: sess.compute(e), warmup=2, runs=10)
         log(f"latency {name}: {ms:.4f} ms per warm compute()")
         device_split(lambda: sess.compute(e))
+        out[name] = ms
+    return out
 
 
 #: how long device_split's discarded warm-up step runs its function
@@ -2529,9 +2608,10 @@ def device_split(fn, calls: int = 5, top: int = 5) -> float:
     for ev in prof.key_averages():
         # device-side events only: a CPU op such as aten::mm also
         # carries the time of the kernels it launched, and the step
-        # annotation that of its whole step
+        # annotation that of its whole step, as the executor's
+        # matrel.<label> ranges do that of their operator's kernels
         if ("CUDA" not in str(getattr(ev, "device_type", ""))
-                or ev.key.startswith("ProfilerStep")):
+                or ev.key.startswith(("ProfilerStep", "matrel."))):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -5443,6 +5523,721 @@ def path_serving(sess) -> dict:
     return {"launches": total, "spmm_bodies": bodies, "rows": rows}
 
 
+# -- the observability plane and the resilience ladder (path_ops) -------------
+
+#: The sub-phases' peak device memory over what was held when each
+#: started, measured on the H100 (PERF.md, PR 15), plus 25%.
+OPS_PEAK_LIMIT_GIB = {k: 1.25 * v for k, v in {
+    "ops_obs": 3.100, "ops_analyze": 2.014, "ops_overhead": 2.014,
+    "ops_ladder": 0.539, "ops_breaker": 0.144, "ops_brownout": 0.756,
+    "ops_drift": 1.284}.items()}
+#: The kernel and whole-query device ms the analyze check holds each
+#: query's node to (PERF.md §6's kernel table and §5's device time per
+#: call; H100 80GB HBM3, 700 W): B1 at row 4's S·D, B2 at row 5's A·x,
+#: B4 inside S×S 1% random bf16 at n = 32,768.
+OPS_KERNEL_MS = {"B1": 0.2081, "B2": 0.1013, "B4": 0.0238}
+OPS_QUERY_DEVICE_MS = {"B1": 0.2012, "B2": 0.0916, "B4": 0.7203}
+#: The stated agreement: the kernel's profiled device ms (torch.profiler
+#: over the analyzed runs) within [1/F, F] of its PERF.md kernel ms; the
+#: node's synced ms at least that kernel's and at most PERF.md's device
+#: ms of the query plus OPS_NODE_HOST_MS — a synced node is its kernels
+#: plus host work (the launch, allocations, B2's padded x, the syncs'
+#: round trip), which bounds a sub-0.1 ms node from below.
+OPS_ANALYZE_FACTOR = 2.0
+OPS_NODE_HOST_MS = 0.5
+#: unprofiled analyzed runs a query; the node's ms is their median
+OPS_ANALYZE_RUNS = 5
+#: The device-event substring of each kernel's symbol (csrc/).
+OPS_KERNEL_SYMBOL = {"B1": "bf16_wgmma_kernel", "B2": "csr_walk",
+                     "B4": "bf16_wgmma_kernel"}
+#: (d) the ladder runs transient faults at execute 1, 2, 3 times.
+OPS_LADDER_FIRES = (1, 2, 3)
+#: (e) breaker threshold and cooldown.
+OPS_BREAKER = dict(breaker_threshold=2, breaker_cooldown_ms=200.0)
+#: (f) tight brownout watermarks: one rung a cycle while any signal is
+#: hot (depth past 4 queued or queue-wait p95 past 20 ms), down one a
+#: cycle once every signal is cold (empty queue, p95 under 2 ms).
+OPS_BROWNOUT = dict(
+    brownout_enable=True, brownout_window=4, brownout_dwell=1,
+    brownout_wait_high_ms=20.0, brownout_wait_low_ms=2.0,
+    brownout_depth_high=4, brownout_depth_low=1,
+    serve_tenant_weights=SERVE_WEIGHTS, serve_max_batch=2,
+    result_cache_max_bytes=SERVE_CACHE_BYTES, obs_provenance=256)
+OPS_BURST = 64
+#: (g) the strategies each query's analyzed runs are forced through
+#: (every candidate of the (2, 4) virtual grid; SUMMA needs a square
+#: one), and the runs a strategy.
+OPS_GRID = (2, 4)
+OPS_STRATEGIES = ("bmm_right", "bmm_left", "cpmm", "rmm", "xla")
+OPS_SAMPLES = 2
+
+
+def ops_counts() -> dict:
+    """B1 (with its bodies), B2 and B4 launch counts."""
+    c = serve_counts()
+    return {k: v for k, v in c.items()
+            if k in ("spmm_blocksparse", "spmv_compact", "spgemm_pairs")
+            or k.startswith("b1_")}
+
+
+def ops_since(c0: dict) -> dict:
+    return {k: v - c0[k] for k, v in ops_counts().items()}
+
+
+def ops_queries(sess) -> dict:
+    """The three queries of path_ops on ``sess``'s mesh, each a builder
+    of a fresh expression tree and the kernel it reaches: row 4's S·D
+    (B1), row 5's Âᵀ·x (B2), S×S 1% random bf16 at n = 32,768 (B4)."""
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    S, D = row4_inputs(sess)
+    _src, _dst, A = row5_matrix()
+    x = sess.random((ROW5_N, 1), seed=6)
+    P, Q = (BlockSparseMatrix.random((SPGEMM_CMP_N, SPGEMM_CMP_N), 0.01,
+                                     block_size=512, mesh=sess.mesh,
+                                     seed=s, dtype="bfloat16")
+            for s in (2, 3))
+    return {"B1": (lambda: S.multiply(D), "spmm_blocksparse"),
+            "B2": (lambda: A.multiply(x), "spmv_compact"),
+            "B4": (lambda: P.multiply(Q), "spgemm_pairs")}
+
+
+def ops_free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def ops_scrape(url: str) -> str:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=60) as r:
+        if r.status != 200:
+            raise AssertionError(f"ops (h): {url} answered {r.status}")
+        return r.read().decode()
+
+
+def ops_nested(prof, symbol: str) -> tuple:
+    """(launches of the kernel named ``symbol`` whose host launch call is
+    in this torch.profiler trace, how many of those ran under a
+    ``matrel.*`` range — the launch call's chain of enclosing host
+    events reaches one — and their mean device µs, and the kernels of
+    that name in the trace without their launch call). Device records
+    of other windows (the discarded warm-up step, an earlier profiler)
+    can reach a trace without the host call that made them; they are
+    counted apart."""
+    from torch.autograd import DeviceType
+    events = list(prof.events())
+    launches = {e.id: e for e in events
+                if e.device_type == DeviceType.CPU and "aunch" in e.name}
+    linked = under = unlinked = 0
+    dev_us = 0.0
+    for k in events:
+        if k.device_type == DeviceType.CPU or symbol not in k.name:
+            continue
+        r = launches.get(k.id)
+        if r is None:
+            unlinked += 1
+            continue
+        linked += 1
+        dev_us += k.time_range.end - k.time_range.start
+        while r is not None and not r.name.startswith("matrel."):
+            r = r.cpu_parent
+        under += r is not None
+    return linked, under, dev_us / max(linked, 1), unlinked
+
+
+def ops_profiled(fn, calls: int = 10):
+    """A torch.profiler trace of ``calls`` calls of ``fn``, after a
+    discarded warm-up step of calls for at least PROFILER_WARMUP_S
+    (device_split's schedule: the trace starts some time after the
+    profiler does, and a later profiler in a process has seen no kernel
+    of one sub-ms call even after the warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        t_end = time.perf_counter() + PROFILER_WARMUP_S
+        while True:
+            fn()
+            torch.cuda.synchronize()
+            if time.perf_counter() >= t_end:
+                break
+        prof.step()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+        prof.step()
+    return prof
+
+
+def ops_obs(dev, qs: dict, want: dict, tmp: str) -> dict:
+    """(a) obs on (event log, flight recorder, provenance, lockdep) and
+    (h) the metrics endpoint: each query's answer bit-equal to the same
+    query with obs off, one ``query`` event a run, the span tree
+    query → plan / query.execute, ``why`` naming each plan, the
+    registry counting the runs, the log read back through read_events;
+    one scrape of /metrics and /json shows the counters; after
+    serve_close no exporter thread survives."""
+    import hashlib
+    import threading
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.obs.events import read_events
+    from matrel_tpu_torch.obs.metrics import REGISTRY
+    from matrel_tpu_torch.utils import lockdep
+    meter = PeakMeter("ops_obs", OPS_PEAK_LIMIT_GIB)
+    log_path = os.path.join(tmp, "events.jsonl")
+    REGISTRY.reset()
+    lockdep.reset()
+    sess = MatrelSession(config=MatrelConfig(
+        obs_level="on", obs_event_log=log_path, obs_flight_recorder=512,
+        obs_provenance=64, obs_metrics_port=ops_free_port(),
+        lockdep_enable=True), device=dev)
+    c0 = ops_counts()
+    for name, (build, _k) in qs.items():
+        out = sess.compute(build())
+        if not torch.equal(out.data, want[name].data):
+            raise AssertionError(f"ops (a) {name}: obs on is not "
+                                 f"bit-equal to obs off")
+    torch.cuda.synchronize()
+    got = ops_since(c0)
+    for name, (_b, k) in qs.items():
+        if got[k] < 1:
+            raise AssertionError(f"ops (a) {name}: {k} not launched")
+    url = sess._exporter.url
+    prom = ops_scrape(url + "/metrics")
+    snap = json.loads(ops_scrape(url + "/json"))
+    n = len(qs)
+    if f"matrel_query_count {float(n)!r}" not in prom \
+            or snap["metrics"]["counters"].get("query.count") != n:
+        raise AssertionError(f"ops (h): the scrape does not count {n} "
+                             f"queries")
+    events = read_events(log_path)
+    queries = [e for e in events if e["kind"] == "query"]
+    spans = [e for e in events if e["kind"] == "span"]
+    if len(queries) != n or REGISTRY.counter("query.count").value != n:
+        raise AssertionError(f"ops (a): {len(queries)} query events, "
+                             f"registry {REGISTRY.snapshot()['counters']}")
+    by_id = {s["span_id"]: s for s in spans}
+    roots = [s for s in spans if s["name"] == "query"]
+    for want_name in ("plan", "query.execute"):
+        kids = [s for s in spans if s["name"] == want_name
+                and by_id.get(s["parent_id"], {}).get("name") == "query"]
+        if len(kids) != n or len(roots) != n:
+            raise AssertionError(f"ops (a): {len(kids)} {want_name} "
+                                 f"spans under {len(roots)} query roots")
+    plan_hashes = {hashlib.sha1(k.encode()).hexdigest()[:16]
+                   for k in sess._plan_cache}
+    why = sess.why(last=n)
+    if {w["key_hash"] for w in why} != plan_hashes \
+            or any(not w.get("strategies") for w in why):
+        raise AssertionError(f"ops (a): why {why} does not name the "
+                             f"plans")
+    exec_ms = {q["root_kind"] + str(i): q["execute_ms"]
+               for i, q in enumerate(queries)}
+    sess.serve_close()
+    alive = [t.name for t in threading.enumerate()
+             if t.name == "matrel-metrics" and t.is_alive()]
+    if alive or sess._flight is None or not len(sess._flight):
+        raise AssertionError(f"ops (h): exporter threads {alive} after "
+                             f"serve_close")
+    diags = lockdep.diagnostics()
+    if diags or not lockdep.is_acyclic():
+        raise AssertionError(f"ops (a): lockdep recorded {diags}")
+    lockdep.disable()
+    row = {"query_events": len(queries), "span_events": len(spans),
+           "events": len(events), "launches": got,
+           "execute_ms_host": exec_ms, "scrape_bytes": len(prom),
+           "lock_edges": len(lockdep.order_graph()),
+           "peak_gib": meter.gib()}
+    log(f"ops (a): obs on, {n} queries bit-equal to obs off, {len(events)} "
+        f"events ({len(queries)} query, {len(spans)} span), why names "
+        f"every plan, registry query.count {n}, launches {got}; (h) "
+        f"/metrics {len(prom)} B and /json count the runs, no exporter "
+        f"thread after serve_close; lockdep {row['lock_edges']} order "
+        f"edges, no inversion; peak {row['peak_gib']:.3f} GiB")
+    return row
+
+
+def ops_analyze(dev, qs: dict, tmp: str) -> dict:
+    """(b) EXPLAIN ANALYZE of each query: the tree names its B1 / B2 /
+    B4 node; the kernel's profiled device ms against its PERF.md kernel
+    ms (OPS_ANALYZE_FACTOR), every launch under a ``matrel.*`` range, and
+    the node's synced ms between that kernel's and PERF.md's device ms
+    of the query plus OPS_NODE_HOST_MS; the plan-as-run line beside
+    it."""
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.obs import analyze as analyze_mod
+    meter = PeakMeter("ops_analyze", OPS_PEAK_LIMIT_GIB)
+    sess = MatrelSession(config=MatrelConfig(
+        obs_level="on", obs_event_log=os.path.join(tmp, "analyze.jsonl")),
+        device=dev)
+    f = OPS_ANALYZE_FACTOR
+    rows = {}
+    for name, (build, _k) in qs.items():
+        e = build()
+        text = sess.explain(e, analyze=True)
+        if "== Analyzed physical plan" not in text:
+            raise AssertionError(f"ops (b) {name}: {text[-300:]}")
+        plan = sess.compile(e)
+        analyze_mod.measure_per_op(plan)               # warm
+        # the node's ms: the median of OPS_ANALYZE_RUNS unprofiled runs;
+        # the kernel's device ms a launch: more runs under torch.profiler
+        runs = []
+        for _ in range(OPS_ANALYZE_RUNS):
+            per_op, total_s = analyze_mod.measure_per_op(plan)
+            node = [(lbl, s) for lbl, s in per_op.values()
+                    if lbl.startswith("matmul")]
+            if len(node) != 1:
+                raise AssertionError(f"ops (b) {name}: matmul nodes "
+                                     f"{node}")
+            runs.append((node[0][1], node[0][0], per_op, total_s))
+        runs.sort(key=lambda r: r[0])
+        node_s, label, per_op, total_s = runs[len(runs) // 2]
+        prof = ops_profiled(lambda: analyze_mod.measure_per_op(plan))
+        launched, nested, kern_us, unlinked = ops_nested(
+            prof, OPS_KERNEL_SYMBOL[name])
+        if launched < 1 or nested != launched:
+            raise AssertionError(f"ops (b) {name}: {nested} of {launched} "
+                                 f"launches under a matrel.* range "
+                                 f"({unlinked} without their launch call)")
+        node_ms, kern_ms = node_s * 1e3, kern_us / 1e3
+        plan_line = next(ln for ln in text.splitlines()
+                         if "plan as run:" in ln)
+        ratio_node = node_ms / OPS_QUERY_DEVICE_MS[name]
+        ratio_kern = kern_ms / OPS_KERNEL_MS[name]
+        if not (1 / f <= ratio_kern <= f and kern_ms <= node_ms
+                <= OPS_QUERY_DEVICE_MS[name] + OPS_NODE_HOST_MS):
+            raise AssertionError(
+                f"ops (b) {name}: node {label} {node_ms:.4f} ms (PERF "
+                f"device {OPS_QUERY_DEVICE_MS[name]} + {OPS_NODE_HOST_MS} "
+                f"host), kernel {kern_ms:.4f} ms (PERF "
+                f"{OPS_KERNEL_MS[name]}, factor {f})")
+        rows[name] = {"node": label, "node_ms": node_ms,
+                      "launches_under_matrel_range": nested,
+                      "profiled_kernel_ms": kern_ms,
+                      "per_op_total_ms": sum(s for _, s in
+                                             per_op.values()) * 1e3,
+                      "run_ms": total_s * 1e3, "fused_line": plan_line,
+                      "node_vs_perf": ratio_node,
+                      "kernel_vs_perf": ratio_kern}
+        log(f"ops (b) {name}: node {label} {node_ms:.4f} ms synced "
+            f"({ratio_node:.2f}x PERF.md's {OPS_QUERY_DEVICE_MS[name]} "
+            f"device ms), its kernel {kern_ms:.4f} ms by torch.profiler "
+            f"({ratio_kern:.2f}x PERF.md's {OPS_KERNEL_MS[name]}), "
+            f"{nested} of {launched} launches under a matrel.* range "
+            f"({unlinked} more of other windows); "
+            f"{plan_line.strip('= ')}")
+    # EXPLAIN ANALYZE through the SQL surface, on the card
+    sess.register("X", sess.random((4096, 4096), seed=4))
+    text = sess.explain_sql("SELECT X * X FROM X", analyze=True)
+    if "== Analyzed physical plan" not in text or " ms]" not in text:
+        raise AssertionError(f"ops (b) SQL: {text[-300:]}")
+    rows["sql_plan_line"] = next(ln for ln in text.splitlines()
+                                 if "plan as run:" in ln)
+    log(f"ops (b) explain_sql(SELECT X * X FROM X, analyze=True), "
+        f"4096² f32: {rows['sql_plan_line'].strip('= ')}")
+    rows["peak_gib"] = meter.gib()
+    return rows
+
+
+def ops_overhead(dev, qs: dict, latency) -> dict:
+    """(c) warm ms a query with obs off against obs on (event log,
+    spans, query records), CUDA events, in turns (off, on, on, off;
+    medians of 10): the on-cost as measured, and off against
+    path_latency's figure for the same query in this run."""
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    import tempfile
+    meter = PeakMeter("ops_overhead", OPS_PEAK_LIMIT_GIB)
+    off = MatrelSession(device=dev)
+    tmp = tempfile.mkdtemp(dir=SCRATCH)
+    on = MatrelSession(config=MatrelConfig(
+        obs_level="on", obs_event_log=os.path.join(tmp, "e.jsonl")),
+        device=dev)
+    lat_name = {"B1": "row4 S·D", "B2": "row5 A·x",
+                "B4": "S×S spgemm_pairs (pallas_generic)"}
+    rows = {}
+    for name, (build, _k) in qs.items():
+        e_off, e_on = build(), build()
+        off.compute(e_off)
+        on.compute(e_on)
+        ms_off, ms_on = in_turns(lambda: off.compute(e_off),
+                                 lambda: on.compute(e_on))
+        ref = (latency or {}).get(lat_name[name])
+        rows[name] = {"off_ms": ms_off, "on_ms": ms_on,
+                      "on_cost_ms": ms_on - ms_off,
+                      "path_latency_ms": ref}
+        if ref is not None and not 2 / 3 <= ms_off / ref <= 1.5:
+            raise AssertionError(f"ops (c) {name}: obs off {ms_off:.4f} "
+                                 f"ms against path_latency's {ref:.4f}")
+        log(f"ops (c) {name}: warm compute() obs off {ms_off:.4f} ms, "
+            f"obs on {ms_on:.4f} ms (on-cost {ms_on - ms_off:+.4f} ms); "
+            f"path_latency {ref if ref is None else f'{ref:.4f}'} ms")
+    rows["peak_gib"] = meter.gib()
+    return rows
+
+
+def ops_ladder(dev, qs: dict, want: dict, tmp: str) -> dict:
+    """(d) a transient fault at execute on the B1 query, 1, 2 and 3
+    times: the attempts climb rungs 1..k, the answer within the bf16
+    tolerance of rung 0's, plan.meta["degrade"] and the fault / retry /
+    degrade events right, B1 launched only when the answering rung is
+    <= 2 (rung 3 runs the plain composite); ms of each degraded plan."""
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.obs.events import read_events
+    from matrel_tpu_torch.resilience import degrade, faults
+    meter = PeakMeter("ops_ladder", OPS_PEAK_LIMIT_GIB)
+    build, _k = qs["B1"]
+    rows = {}
+    for k in OPS_LADDER_FIRES:
+        faults.reset()
+        log_path = os.path.join(tmp, f"ladder{k}.jsonl")
+        sess = MatrelSession(config=MatrelConfig(
+            fault_inject=f"execute:transient:p=1.0:max={k}",
+            retry_max_attempts=len(OPS_LADDER_FIRES),
+            retry_backoff_ms=0.0, obs_level="on",
+            obs_event_log=log_path), device=dev)
+        c0 = ops_counts()
+        out = sess.compute(build())
+        torch.cuda.synchronize()
+        b1 = ops_since(c0)["spmm_blocksparse"]
+        err = check_close(f"ops (d) rung {k}", out.data,
+                          want["B1"].data, "bfloat16")
+        keys = [key for key in sess._plan_cache
+                if key.startswith(f"degr:{k}|")]
+        if len(keys) != 1 or sess._plan_cache[keys[0]].meta.get(
+                "degrade") != degrade.rung_meta(k):
+            raise AssertionError(f"ops (d) rung {k}: plan keys "
+                                 f"{list(sess._plan_cache)}")
+        ev = read_events(log_path)
+        seq = [(e["kind"], e.get("rung")) for e in ev
+               if e["kind"] in ("retry", "degrade")]
+        want_seq = [x for r in range(1, k + 1)
+                    for x in (("retry", r), ("degrade", r))]
+        faults_ev = [e for e in ev if e["kind"] == "fault"]
+        if seq != want_seq or len(faults_ev) != k or any(
+                e.get("site") != "execute" or e["error"] != "InjectedFault"
+                for e in faults_ev):
+            raise AssertionError(f"ops (d) rung {k}: events {seq}, "
+                                 f"faults {faults_ev}")
+        if b1 != (1 if k <= 2 else 0):
+            raise AssertionError(f"ops (d) rung {k}: B1 launched {b1} "
+                                 f"times")
+        plan = sess._plan_cache[keys[0]]
+        ms = time_ms(plan.run, warmup=2, runs=10)
+        rows[k] = {"label": degrade.rung_label(k), "b1_launches": b1,
+                   "max_abs_err": err, "plan_ms": ms}
+        log(f"ops (d) rung {k} ({degrade.rung_label(k)}): {k} injected "
+            f"transient faults, events retry/degrade 1..{k}, B1 {b1} "
+            f"launch(es), max_abs_err {err:.3e} vs rung 0, the degraded "
+            f"plan {ms:.4f} ms warm")
+    faults.reset()
+    rows["peak_gib"] = meter.gib()
+    return rows
+
+
+def ops_breaker(dev, qs: dict, want: dict) -> dict:
+    """(e) a fatal injected fault at execute trips the B1 query's
+    breaker after breaker_threshold failures; admission raises the
+    typed CircuitOpen; after the cooldown the half-open probe runs B1
+    and closes it."""
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.resilience import faults
+    from matrel_tpu_torch.resilience.errors import (CircuitOpen,
+                                                    InjectedFault)
+    meter = PeakMeter("ops_breaker", OPS_PEAK_LIMIT_GIB)
+    faults.reset()
+    thr = OPS_BREAKER["breaker_threshold"]
+    sess = MatrelSession(config=MatrelConfig(
+        fault_inject=f"execute:fatal:p=1.0:max={thr}", **OPS_BREAKER),
+        device=dev)
+    build, _k = qs["B1"]
+    e = build()
+    cls = sess._breakers.plan_class(e)
+    trail = []
+    for _ in range(thr + 1):
+        try:
+            sess.compute(e)
+            trail.append("ok")
+        except InjectedFault:
+            trail.append("InjectedFault")
+        except CircuitOpen:
+            trail.append("CircuitOpen")
+    state_open = sess._breakers.state(cls)
+    time.sleep(OPS_BREAKER["breaker_cooldown_ms"] / 1e3 * 1.5)
+    c0 = ops_counts()
+    out = sess.compute(e)
+    torch.cuda.synchronize()
+    b1 = ops_since(c0)["spmm_blocksparse"]
+    if (trail != ["InjectedFault"] * thr + ["CircuitOpen"]
+            or state_open != "open"
+            or sess._breakers.state(cls) != "closed" or b1 != 1
+            or not torch.equal(out.data, want["B1"].data)):
+        raise AssertionError(f"ops (e): trail {trail}, {state_open} -> "
+                             f"{sess._breakers.state(cls)}, B1 {b1}")
+    faults.reset()
+    snap = sess._breakers.snapshot()
+    row = {"class": cls, "trail": trail, "transitions":
+           snap["transitions"], "peak_gib": meter.gib()}
+    log(f"ops (e): class {cls}: {trail} -> open; after "
+        f"{OPS_BREAKER['breaker_cooldown_ms']:.0f} ms the probe ran B1 "
+        f"once and closed it ({snap['transitions']}); the answer "
+        f"bit-equal to obs off")
+    return row
+
+
+def ops_brownout(dev, qs: dict, want: dict, tmp: str) -> dict:
+    """(f) a submit burst over two tenants (row 4's S·D and row 5's A·x,
+    path_serving (a)'s sizes) under tight brownout watermarks: the rung
+    climbs to 3 and falls back to 0; at rung 3 the low-weight tenant b
+    is shed typed; stale-tolerant queries admitted at rung >= 2 are
+    served the rebind-stale cached answer, stamped ``stale`` in the
+    ledger; every overload event's rung is the controller's, and the
+    events rise to 3 and fall to 0."""
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.obs.events import read_events
+    from matrel_tpu_torch.resilience.errors import AdmissionShed
+    from matrel_tpu_torch.utils import lockdep
+    meter = PeakMeter("ops_brownout", OPS_PEAK_LIMIT_GIB)
+    log_path = os.path.join(tmp, "brownout.jsonl")
+    lockdep.reset()
+    sess = MatrelSession(config=MatrelConfig(
+        obs_level="on", obs_event_log=log_path, lockdep_enable=True,
+        **OPS_BROWNOUT), device=dev)
+    b1_build, _ = qs["B1"]
+    b2_build, _ = qs["B2"]
+    # the stale entry: cache S·D over D, then rebind D's catalog name;
+    # the burst's S·D runs over the new binding, so it never re-caches
+    # the stale query's key
+    e_old = b1_build()
+    S_ = e_old.children[0].attrs["matrix"]
+    D_ = e_old.children[1].attrs["matrix"]
+    sess.register("D", D_)
+    old = sess.compute(e_old)
+    D_new = sess.random(D_.shape, dtype="bfloat16", seed=9)
+    sess.register("D", D_new)
+    want_new = MatrelSession(device=dev).compute(S_.multiply(D_new))
+    if sess.result_cache_info()["stale_entries"] != 1:
+        raise AssertionError(f"ops (f): {sess.result_cache_info()}")
+    ctl = sess._brownout
+    futs, shed = [], 0
+    for i in range(OPS_BURST):
+        try:
+            if i % 2 == 0:
+                futs.append(("B1", sess.submit(S_.multiply(D_new),
+                                               tenant="a")))
+            else:
+                futs.append(("B2", sess.submit(b2_build(), tenant="b")))
+        except AdmissionShed as ex:          # tenant b at rung 3
+            if ex.scope != "brownout":
+                raise
+            shed += 1
+    t_end = time.perf_counter() + 120
+    while ctl.rung() < 3 and time.perf_counter() < t_end:
+        time.sleep(0.0005)
+    rung_at_shed = ctl.rung()
+    shed_after = 0
+    for _ in range(4):
+        try:
+            futs.append(("B2", sess.submit(b2_build(), tenant="b")))
+        except AdmissionShed as ex:
+            if ex.scope != "brownout":
+                raise
+            shed_after += 1
+    shed += shed_after
+    sess.serve_drain(timeout=600)
+    stale_futs = []
+    for _ in range(30):              # the trickle: one cycle a query
+        f = sess.submit(e_old, tenant="a", staleness_ms=3.6e6)
+        f.result(timeout=600)
+        stale_futs.append(f)
+        if ctl.rung() == 0:
+            break
+    sess.serve_drain(timeout=600)
+    for name, f in futs:
+        out = f.result(timeout=600)
+        if name == "B1":
+            check_close("ops (f) S·D", out.data, want_new.data,
+                        "bfloat16")
+        else:
+            scale = float(want["B2"].data.abs().max())
+            err = float((out.data.float() - want["B2"].data.float())
+                        .abs().max())
+            if not err <= 1e-2 * scale:
+                raise AssertionError(f"ops (f) A·x: err {err} at scale "
+                                     f"{scale}")
+    n_stale = 0
+    for f in stale_futs:
+        out = f.result()
+        if out is old:              # the graveyard's entry, as cached
+            n_stale += 1
+        else:                       # computed (rung < 2): the same query
+            check_close("ops (f) stale-tolerant S·D", out.data, old.data,
+                        "bfloat16")
+    t_end = time.perf_counter() + 10        # the last cycle's event
+    while time.perf_counter() < t_end:
+        ov = [e for e in read_events(log_path) if e["kind"] == "overload"]
+        if ov and ov[-1]["rung"] == 0:
+            break
+        time.sleep(0.01)
+    rungs = [e["rung"] for e in ov]
+    stale_recs = [w for w in sess.why(last=0) if w["path"] == "stale"]
+    shed_ev = sum(e["sheds"].get("b", 0) for e in ov)
+    peak_at = rungs.index(3) if 3 in rungs else -1
+    if (rung_at_shed < 3 or shed_after != 4 or shed_ev != shed
+            or any(e["rung"] != e["brownout"]["rung"] for e in ov)
+            or peak_at < 0 or rungs[-1] != 0
+            or rungs[:peak_at + 1] != sorted(rungs[:peak_at + 1])
+            or sess._serve.stale_served < 1
+            or n_stale != sess._serve.stale_served
+            or len(stale_recs) != sess._serve.stale_served):
+        raise AssertionError(
+            f"ops (f): rung at shed {rung_at_shed}, shed {shed} "
+            f"(events {shed_ev}), rungs {rungs}, stale "
+            f"{sess._serve.stale_served} / {len(stale_recs)} records")
+    sess.serve_close(timeout=600)
+    diags = lockdep.diagnostics()
+    if diags or not lockdep.is_acyclic():
+        raise AssertionError(f"ops (f): lockdep recorded {diags}")
+    lockdep.disable()
+    snap = ctl.snapshot()
+    row = {"rungs": rungs, "max_rung": max(rungs), "shed_b": shed,
+           "stale_served": sess._serve.stale_served,
+           "overload_events": len(ov), "entered": snap["entered"],
+           "exited": snap["exited"], "submitted": len(futs)
+           + len(stale_futs), "peak_gib": meter.gib()}
+    log(f"ops (f): {OPS_BURST} submissions by tenants a:3, b:1 then a "
+        f"trickle of {len(stale_futs)}; overload rungs {rungs}; tenant b "
+        f"shed {shed} times at rung 3 (typed, counted in the events); "
+        f"{row['stale_served']} answers served stale at rung >= 2, each "
+        f"stamped in the ledger and bit-equal to the cached one; "
+        f"lockdep no inversion; peak {row['peak_gib']:.3f} GiB")
+    return row
+
+
+def ops_drift(dev, tmp: str) -> dict:
+    """(g) analyzed runs of row 2's chain and a 4096² product, each
+    strategy forced in turn on the (2, 4) virtual grid, fill a drift
+    table under backend "cuda"; with coeff_planner_enable and
+    coeff_min_samples met, the plan key takes the table's epoch and the
+    stamps that change are printed; both plans compute the same
+    answer."""
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.executor import plan_matmul_decisions
+    from matrel_tpu_torch.obs import drift
+    from matrel_tpu_torch.obs.events import read_events
+    from matrel_tpu_torch.parallel import coeffs
+    from matrel_tpu_torch.workloads import chain_bench
+    meter = PeakMeter("ops_drift", OPS_PEAK_LIMIT_GIB)
+    log_path = os.path.join(tmp, "drift.jsonl")
+    table = os.path.join(tmp, "drift_table.json")
+    base = MatrelConfig(mesh_shape=OPS_GRID, drift_table_path=table)
+
+    def queries(s):
+        mats = chain_bench.skewed_abc(s.mesh, n=10_000, mid=100, seed=3)
+        X = s.random((4096, 4096), seed=4)
+        Y = s.random((4096, 4096), seed=5)
+        return {"row2 A·B·C": chain_bench.build_chain(mats),
+                "4096^2": X.multiply(Y)}
+
+    for strat in OPS_STRATEGIES:
+        s = MatrelSession(config=base.replace(
+            strategy_override=strat, obs_level="on",
+            obs_event_log=log_path), device=dev)
+        for e in queries(s).values():
+            for _ in range(OPS_SAMPLES):
+                s.explain(e, analyze=True)
+    ev = read_events(log_path)
+    samples = list(drift.iter_samples(ev))
+    if not samples or any(x["backend"] != dev.type for x in samples):
+        raise AssertionError(f"ops (g): samples {samples[:3]}")
+    drift.update_table(table, drift.calibrate(samples))
+    coeffs.reset_coefficient_cache()
+    epoch = coeffs.epoch(table)
+    analytic = MatrelSession(config=base, device=dev)
+    learned = MatrelSession(config=base.replace(
+        coeff_planner_enable=True, coeff_min_samples=OPS_SAMPLES),
+        device=dev)
+    if epoch == coeffs.COLD_EPOCH \
+            or learned._coeff_prefix() != f"coeffv:{epoch}|":
+        raise AssertionError(f"ops (g): epoch {epoch}, prefix "
+                             f"{learned._coeff_prefix()}")
+    rows = {"epoch": epoch, "samples": len(samples),
+            "table_rows": len(drift.load_table(table)["entries"])}
+    for name in ("row2 A·B·C", "4096^2"):
+        stamps = []
+        outs = []
+        for s in (analytic, learned):
+            e = queries(s)[name]
+            plan = s.compile(e)
+            stamps.append([(d["strategy"], d.get("cost"), tuple(d["dims"]))
+                           for d in plan_matmul_decisions(plan)])
+            outs.append(s.compute(e))
+        if not all(k.startswith(f"coeffv:{epoch}|")
+                   for k in learned._plan_cache):
+            raise AssertionError(f"ops (g): keys {list(learned._plan_cache)}")
+        err = check_close(f"ops (g) {name}", outs[1].data, outs[0].data,
+                          "float32")
+        changed = [(a, b) for a, b in zip(*stamps) if a != b]
+        rows[name] = {"analytic": stamps[0], "learned": stamps[1],
+                      "changed": changed, "max_abs_err": err}
+        log(f"ops (g) {name}: stamps analytic {stamps[0]} -> learned "
+            f"{stamps[1]}; changed {changed}; the same answer "
+            f"(max_abs_err {err:.3e})")
+        del outs
+        torch.cuda.empty_cache()
+    rows["peak_gib"] = meter.gib()
+    log(f"ops (g): {len(samples)} analyze samples under backend "
+        f"{dev.type}, "
+        f"{rows['table_rows']} calibration rows, epoch {epoch}")
+    return rows
+
+
+def path_ops(sess, latency=None) -> dict:
+    """The observability plane and the resilience ladder on the card
+    (obs/, resilience/, parallel/coeffs.py), at BASELINE's shapes over
+    B1 (row 4's S·D), B2 (row 5's Âᵀ·x through compute) and B4 (S×S 1%
+    random bf16 at n = 32,768): (a) obs on with (h) the metrics endpoint,
+    (b) EXPLAIN ANALYZE against torch.profiler, (c) the obs-off / on
+    cost, (d) the degradation ladder, (e) the breaker, (f) brownout, (g)
+    drift and learned coefficients. Each sub-phase its own peak bound
+    (OPS_PEAK_LIMIT_GIB)."""
+    import tempfile
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    dev = sess.device
+    t0 = time.perf_counter()
+    os.makedirs(SCRATCH, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=SCRATCH, prefix="ops-")
+    qs = ops_queries(sess)
+    ref = MatrelSession(device=dev)            # every knob at its default
+    c0 = ops_counts()
+    want = {k: ref.compute(b()) for k, (b, _kern) in qs.items()}
+    torch.cuda.synchronize()
+    rows = {"obs": ops_obs(dev, qs, want, tmp)}
+    rows["analyze"] = ops_analyze(dev, qs, tmp)
+    rows["overhead"] = ops_overhead(dev, qs, latency)
+    rows["ladder"] = ops_ladder(dev, qs, want, tmp)
+    rows["breaker"] = ops_breaker(dev, qs, want)
+    rows["brownout"] = ops_brownout(dev, qs, want, tmp)
+    del ref
+    torch.cuda.empty_cache()
+    rows["drift"] = ops_drift(dev, tmp)
+    total = ops_since(c0)
+    log(f"path ops: {time.perf_counter() - t0:.1f} s; launches B1 "
+        f"{total['spmm_blocksparse']}, B2 {total['spmv_compact']}, B4 "
+        f"{total['spgemm_pairs']}")
+    print(json.dumps({"ops": rows}, default=str))
+    bodies = {k[3:]: v for k, v in total.items()
+              if k.startswith("b1_") and v}
+    return {"launches": total, "spmm_bodies": bodies, "rows": rows}
+
+
 # -- multi-rank execution over torch.distributed (path_multirank) --------------
 
 #: The rank grid: 4 ranks, 2 × 2 (the square grid SUMMA needs).
@@ -6172,6 +6967,8 @@ def main() -> int:
         return multirank_only()
     if sys.argv[1:] == ["--serving"]:
         return serving_only()
+    if sys.argv[1:] == ["--ops"]:
+        return ops_only()
     from matrel_tpu_torch import MatrelSession
     from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
                                       pallas_spmv, spmv_routed)
@@ -6238,7 +7035,7 @@ def main() -> int:
     queries.update(path_row1(sess))
     row3 = path_row3_linreg(sess)
     peak = torch.cuda.max_memory_allocated()
-    path_latency(sess, queries)       # after the launch counts were read
+    latency = path_latency(sess, queries)   # after the launch counts
     log(f"peak device memory {peak / 2**30:.3f} GiB (this process; the "
         f"yardstick process: {library.get('peak_gib')} GiB); row-5 "
         f"PageRank {pr_row['round_ms']:.4f} ms per round; row-5 CG "
@@ -6260,8 +7057,11 @@ def main() -> int:
     fused = path_fusion(sess)         # its own bound
     l_fu = fused["launches"]
     torch.cuda.empty_cache()
-    served = path_serving(sess)       # each sub-phase its bound
+    served = lock_order_checked("path_serving", lambda: path_serving(sess))
     l_sv = served["launches"]
+    torch.cuda.empty_cache()
+    ops = path_ops(sess, latency)     # each sub-phase its bound
+    l_ops = ops["launches"]
     spgemm_library(sess.mesh, b47)    # cuSPARSE SpGEMM beside B4-B7
     torch.cuda.empty_cache()
     l_mr = path_multirank(sess, ns["fro"])["launches"]   # four ranks
@@ -6271,7 +7071,8 @@ def main() -> int:
 
     l_coo = coo["launches"]
     for part in (l_batch["spmm_bodies"], coo["bsp"]["bodies"],
-                 fused["spmm_bodies"], served["spmm_bodies"]):
+                 fused["spmm_bodies"], served["spmm_bodies"],
+                 ops["spmm_bodies"]):
         for b, v in part.items():
             b1_bodies[b] = b1_bodies.get(b, 0) + v
     kernels = [
@@ -6280,7 +7081,8 @@ def main() -> int:
                           launches + l_batch["spmm_blocksparse"]
                           + l_coo["spmm_blocksparse"]
                           + l_fu["spmm_blocksparse"]
-                          + l_sv["spmm_blocksparse"], row),
+                          + l_sv["spmm_blocksparse"]
+                          + l_ops["spmm_blocksparse"], row),
              launches_by_body=b1_bodies, f32_one_column=coo["b1_f32_m1"],
              f32_row4=row4_f32),
         dict(kernel_entry("spmv_compact", pallas_spmv.SOURCE,
@@ -6288,7 +7090,8 @@ def main() -> int:
                           launches_pr + l_spmv + l_batch["spmv_compact"]
                           + l_rel["spmv_compact"] + l_coo["spmv_compact"]
                           + l_at["spmv_compact"] + l_fu["spmv_compact"]
-                          + l_sv["spmv_compact"] + l_mr["spmv_compact"],
+                          + l_sv["spmv_compact"] + l_ops["spmv_compact"]
+                          + l_mr["spmv_compact"],
                           b23["spmv_compact"]),
              launches_on_ranks=l_mr["spmv_compact"]),
         dict(kernel_entry("spmm_compact", pallas_spmv.SOURCE,
@@ -6298,7 +7101,8 @@ def main() -> int:
              launches_on_ranks=l_mr["spmm_compact"]),
     ] + [kernel_entry(name, pallas_spgemm.SOURCE, SPGEMM_REPLACES[name],
                       l_spgemm[name] + l_rel[name] + l_at[name]
-                      + l_fu[name] + l_sv[name], b47[name])
+                      + l_fu[name] + l_sv[name] + l_ops.get(name, 0),
+                      b47[name])
          for name in SPGEMM_REPLACES]
     kernels.append(dict(
         kernel_entry("spmv_routed", spmv_routed.SOURCE,

@@ -3,7 +3,8 @@
 
 Same frozen-dataclass shape and the same defaults as the JAX package's
 ``MatrelConfig``. The knobs of the ported planes (planning, rewrites,
-execution, precision tiers, the plan cache) are live. Every knob of a
+execution, precision tiers, the plan cache, serving, observability,
+resilience, the learned planner coefficients) are live. Every knob of a
 plane this package has not ported yet is still a field, so a reader
 finds each counterpart, but setting it away from its default raises
 :class:`NotPortedError` at construction: an unported plane is never
@@ -52,10 +53,21 @@ class MatrelConfig:
     ``serve_tenant_weights`` (parsed by :func:`parse_tenant_weights`) and
     ``serve_tenant_queue_max`` (``serve/pipeline.py``,
     ``serve/admission.py``), ``deadline_ms`` and the ``retry_*`` knobs
-    (``resilience/retry.py``; a retry re-runs the same plan — the
-    degradation ladder is not ported), ``cse_enable``, ``cse_min_uses``
+    (``resilience/retry.py``), ``cse_enable``, ``cse_min_uses``
     and ``cse_template_max`` (``serve/mqo.py``), ``delta_patch_mode``
-    and ``delta_rank_max`` (``ir/delta.py``, ``serve/ivm.py``).
+    and ``delta_rank_max`` (``ir/delta.py``, ``serve/ivm.py``), and the
+    observability and resilience planes': ``obs_level``,
+    ``obs_event_log``, ``obs_event_log_max_bytes``, ``obs_metrics_port``,
+    ``obs_flight_recorder``, ``obs_flight_recorder_path``,
+    ``obs_provenance`` (``obs/``), the ``slo_*`` knobs (``obs/slo.py``),
+    ``drift_table_path`` (``obs/drift.py``), ``lockdep_enable`` /
+    ``lockdep_raise`` (``utils/lockdep.py``), ``fault_inject`` /
+    ``fault_inject_seed`` (``resilience/faults.py``), the ``brownout_*``
+    knobs (``resilience/brownout.py``), the ``breaker_*`` knobs
+    (``resilience/breaker.py``), and ``coeff_planner_enable`` /
+    ``coeff_min_samples`` (``parallel/coeffs.py``). A retry climbs the
+    degradation ladder (``resilience/degrade.py``); its rung 3 runs the
+    composite paths instead of the hand-written kernels, by design.
 
     ``matmul_precision`` keeps the TPU meaning of the JAX package:
     "highest" is full IEEE f32 (TF32 off), "high" the 3-pass bf16
@@ -158,6 +170,12 @@ class MatrelConfig:
     state_dir: str = ""
 
     def __post_init__(self):
+        level = self.obs_level.lower()
+        if level not in ("off", "on", "analyze"):
+            raise ValueError(
+                f"obs_level must be one of 'off'/'on'/'analyze', "
+                f"got {self.obs_level!r}")
+        object.__setattr__(self, "obs_level", level)
         for name in UNPORTED_KNOBS:
             want = _FIELD_DEFAULTS[name]
             if getattr(self, name) != want:
@@ -250,6 +268,88 @@ class MatrelConfig:
             raise ValueError(
                 f"cse_template_max must be >= 1, "
                 f"got {self.cse_template_max!r}")
+        self._check_obs_resilience()
+
+    def _check_obs_resilience(self) -> None:
+        """The observability and resilience knobs, validated as the JAX
+        package does: a malformed fault or SLO spec, an out-of-range
+        port, un-separated hysteresis thresholds or a sanitizer raise
+        mode with no sanitizer fails here, never silently doing nothing
+        while the operator believes it is in force."""
+        if not (0 <= self.obs_metrics_port <= 65535):
+            raise ValueError(
+                f"obs_metrics_port must be a port in [0, 65535] "
+                f"(0 disables the endpoint), "
+                f"got {self.obs_metrics_port!r}")
+        if self.slo_targets:
+            parse_slo_targets(self.slo_targets)
+        if not (0.0 < self.slo_fast_window_s < self.slo_slow_window_s):
+            raise ValueError(
+                "slo windows need 0 < slo_fast_window_s < "
+                "slo_slow_window_s, got "
+                f"({self.slo_fast_window_s!r}, "
+                f"{self.slo_slow_window_s!r})")
+        if not (0.0 < self.slo_burn_exit < self.slo_burn_threshold):
+            raise ValueError(
+                "slo burn thresholds need 0 < slo_burn_exit < "
+                "slo_burn_threshold (the hysteresis separation), got "
+                f"({self.slo_burn_exit!r}, "
+                f"{self.slo_burn_threshold!r})")
+        if self.obs_flight_recorder < 0:
+            raise ValueError(
+                f"obs_flight_recorder must be >= 0 (ring capacity; "
+                f"0 disables), got {self.obs_flight_recorder!r}")
+        if self.fault_inject:
+            from matrel_tpu_torch.resilience.faults import parse_spec
+            parse_spec(self.fault_inject)
+        if self.brownout_window < 1 or self.brownout_dwell < 1:
+            raise ValueError(
+                "brownout_window and brownout_dwell must be >= 1; got "
+                f"({self.brownout_window!r}, {self.brownout_dwell!r})")
+        for name, lo, hi in (
+                ("wait", self.brownout_wait_low_ms,
+                 self.brownout_wait_high_ms),
+                ("depth", self.brownout_depth_low,
+                 self.brownout_depth_high),
+                ("miss", self.brownout_miss_low,
+                 self.brownout_miss_high)):
+            if not (0 <= lo < hi):
+                raise ValueError(
+                    f"brownout_{name} thresholds need 0 <= low < high "
+                    f"(the hysteresis separation), got ({lo!r}, {hi!r})")
+        if not (0.0 <= self.brownout_miss_high <= 1.0):
+            raise ValueError(
+                f"brownout_miss_high must be a rate in [0, 1], "
+                f"got {self.brownout_miss_high!r}")
+        if self.breaker_threshold < 0:
+            raise ValueError(
+                f"breaker_threshold must be >= 0 (0 disables "
+                f"breakers), got {self.breaker_threshold!r}")
+        if self.breaker_cooldown_ms <= 0 \
+                or self.breaker_half_open_probes < 1:
+            raise ValueError(
+                "breakers need breaker_cooldown_ms > 0 and "
+                "breaker_half_open_probes >= 1; got "
+                f"({self.breaker_cooldown_ms!r}, "
+                f"{self.breaker_half_open_probes!r})")
+        if self.obs_provenance < 0:
+            raise ValueError(
+                f"obs_provenance must be >= 0 (0 disables the "
+                f"provenance ledger), got {self.obs_provenance!r}")
+        if self.obs_event_log_max_bytes < 0:
+            raise ValueError(
+                f"obs_event_log_max_bytes must be >= 0 (0 disables "
+                f"event-log rotation), "
+                f"got {self.obs_event_log_max_bytes!r}")
+        if self.lockdep_raise and not self.lockdep_enable:
+            raise ValueError(
+                "lockdep_raise requires lockdep_enable (a raise mode "
+                "with no instrumentation in force would silently "
+                "check nothing)")
+        if self.coeff_min_samples < 1:
+            raise ValueError(
+                f"coeff_min_samples must be >= 1, "
+                f"got {self.coeff_min_samples!r}")
 
     def replace(self, **kw: Any) -> "MatrelConfig":
         return dataclasses.replace(self, **kw)
@@ -298,23 +398,13 @@ _FIELD_DEFAULTS = {f.name: f.default for f in dataclasses.fields(MatrelConfig)}
 
 #: Knobs whose plane is not ported: Pallas interpret mode, buffer
 #: donation, hoisted payloads (the plan cache's byte bound counts them),
-#: observability and SLOs, static verification, fault injection,
-#: brownout and circuit breakers, the fleet, lockdep, the cost-model
-#: loop and the durable spill hierarchy.
+#: static verification, the fleet, the coefficient re-plan controller
+#: and the durable spill hierarchy.
 UNPORTED_KNOBS = (
     "pallas_interpret", "donate_intermediates", "plan_cache_max_bytes",
-    "obs_level", "obs_event_log", "obs_metrics_port", "slo_targets",
-    "slo_fast_window_s", "slo_slow_window_s", "slo_burn_threshold",
-    "slo_burn_exit", "obs_flight_recorder", "obs_flight_recorder_path",
-    "drift_table_path", "verify_plans", "fault_inject", "fault_inject_seed",
-    "brownout_enable", "brownout_window", "brownout_dwell",
-    "brownout_wait_high_ms", "brownout_wait_low_ms", "brownout_depth_high",
-    "brownout_depth_low", "brownout_miss_high", "brownout_miss_low",
-    "breaker_threshold", "breaker_cooldown_ms", "breaker_half_open_probes",
+    "verify_plans",
     "fleet_slices", "fleet_span_margin", "fleet_directory_max",
     "fleet_replicate_hits", "fleet_failover", "fleet_placement_calibration",
-    "obs_provenance", "obs_event_log_max_bytes", "lockdep_enable",
-    "lockdep_raise", "coeff_planner_enable", "coeff_min_samples",
     "coeff_replan_enable", "coeff_replan_interval", "coeff_replan_cooldown",
     "spill_enable", "spill_host_max_bytes", "spill_disk_hits", "state_dir",
 )
@@ -384,6 +474,73 @@ def parse_tenant_weights(spec) -> dict:
     if not out:
         raise ValueError(
             f"serve_tenant_weights {spec!r} names no tenants")
+    return out
+
+
+#: The SLO objective vocabulary: latency targets at named quantiles
+#: (milliseconds) plus availability.
+SLO_OBJECTIVES = ("avail", "p50_ms", "p90_ms", "p95_ms", "p99_ms")
+
+
+def parse_slo_targets(spec) -> dict:
+    """Validate + parse an ``slo_targets`` spec
+    (``"gold:p95_ms=50,avail=0.999;bronze:avail=0.99"``) into
+    ``{tenant: {objective: float target}}``. Empty/None → {} (no
+    objectives, no monitors). Raises ``ValueError`` on unknown
+    objectives, duplicate tenants, availability targets outside (0, 1)
+    or non-positive latency targets (the JAX package's parser)."""
+    if not spec:
+        return {}
+    out: dict = {}
+    for tpart in (p.strip() for p in str(spec).split(";")):
+        if not tpart:
+            continue
+        tenant, sep, objs = tpart.partition(":")
+        tenant = tenant.strip()
+        if not sep or not tenant:
+            raise ValueError(
+                f"slo_targets entry {tpart!r} must be "
+                f"'tenant:objective=target[,objective=target...]'")
+        if tenant in out:
+            raise ValueError(
+                f"slo_targets names tenant {tenant!r} twice")
+        targets: dict = {}
+        for opart in (p.strip() for p in objs.split(",")):
+            if not opart:
+                continue
+            obj, osep, val = opart.partition("=")
+            obj = obj.strip()
+            if not osep or obj not in SLO_OBJECTIVES:
+                raise ValueError(
+                    f"slo_targets objective {opart!r} (tenant "
+                    f"{tenant!r}) must be one of {SLO_OBJECTIVES} "
+                    f"with '=target'")
+            if obj in targets:
+                raise ValueError(
+                    f"slo_targets names objective {obj!r} twice for "
+                    f"tenant {tenant!r}")
+            try:
+                target = float(val)
+            except ValueError:
+                raise ValueError(
+                    f"slo_targets target {val!r} (tenant {tenant!r}, "
+                    f"objective {obj!r}) is not a number") from None
+            if obj == "avail":
+                if not (0.0 < target < 1.0):
+                    raise ValueError(
+                        f"slo_targets avail target for {tenant!r} "
+                        f"must be in (0, 1), got {target!r}")
+            elif not target > 0.0:
+                raise ValueError(
+                    f"slo_targets latency target {obj} for "
+                    f"{tenant!r} must be > 0 ms, got {target!r}")
+            targets[obj] = target
+        if not targets:
+            raise ValueError(
+                f"slo_targets entry {tpart!r} declares no objectives")
+        out[tenant] = targets
+    if not out:
+        raise ValueError(f"slo_targets {spec!r} names no tenants")
     return out
 
 

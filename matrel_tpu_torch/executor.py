@@ -90,9 +90,16 @@ from matrel_tpu_torch.core.blockmatrix import BlockMatrix
 from matrel_tpu_torch.core.mesh import Mesh
 from matrel_tpu_torch.ir import expr as expr_mod, rules
 from matrel_tpu_torch.ir.expr import MatExpr, leaves as expr_leaves
+from matrel_tpu_torch.obs import trace as trace_lib
 from matrel_tpu_torch.parallel import planner, strategies
+from matrel_tpu_torch.resilience import faults as faults_lib
+from matrel_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
+
+#: Is a profiler recording? (one C call; the per-node range and label
+#: are built only then)
+_profiling = torch.autograd._profiler_enabled
 
 LOWERED_KINDS = ("leaf", "sparse_leaf", "coo_leaf", "transpose", "matmul",
                  "solve", "inverse", "elemwise", "scalar", "agg", "vec",
@@ -209,6 +216,28 @@ def _gather_rep(value, mesh) -> Tensor:
     return coll.gather_full(value, mesh)
 
 
+def _op_label(node: MatExpr, region: bool) -> str:
+    """A node's profiler / analyze label — the JAX package's: the
+    region signature for a fused region, else the kind, a matmul's
+    strategy and its precision tier."""
+    if region:
+        return f"fused:{node.attrs['fused_region']}"
+    label = node.kind
+    if node.kind == "matmul":
+        label += ":" + node.attrs.get("strategy", "xla")
+        tier = node.attrs.get("precision_tier")
+        if tier is not None:
+            label += f"@{tier}"
+    return label
+
+
+def _device_sync(mesh: Mesh) -> None:
+    """Wait for the mesh's device (analyze mode only; nothing on the
+    CPU, whose ops are synchronous)."""
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+
+
 def _pad_to(out: Tensor, pshape: Tuple[int, int]) -> Tensor:
     if tuple(out.shape) == tuple(pshape):
         return out
@@ -219,9 +248,15 @@ def _pad_to(out: Tensor, pshape: Tuple[int, int]) -> Tensor:
 class Lowerer:
     """Recursively lowers MatExpr nodes to torch ops over padded tensors."""
 
-    def __init__(self, mesh: Mesh, config: MatrelConfig):
+    def __init__(self, mesh: Mesh, config: MatrelConfig,
+                 op_hook: Optional[Callable] = None):
         self.mesh = mesh
         self.config = config
+        # analyze-mode per-op hook: callable(node, label, seconds),
+        # invoked after each node's evaluation WITH a device sync
+        # (obs/analyze.py sets it; compile_expr never does, so the
+        # query path stays sync-free)
+        self.op_hook = op_hook
         # staged-reshard bookkeeping (budget > 0 only): layout/dtype
         # memos for the planner walks and the compiled moves, per node
         # uid (operand moves) or root uid (the root relay), so a
@@ -266,6 +301,8 @@ class Lowerer:
         # on a rank mesh a fused region lowers staged (the same values):
         # its epilogue would meet one rank's block of the anchor output
         fused = self.config.fusion_enable and not ranked
+        cfg = self.config
+        hook = self.op_hook
         if self.config.reshard_peak_budget_bytes > 0:
             for r in roots:
                 self._stage_root_relay(r, None)
@@ -273,18 +310,26 @@ class Lowerer:
         def fn(*leaf_arrays: Tensor) -> Tuple[Tensor, ...]:
             memo: Dict[int, Tensor] = {}
             whole: Dict[int, Tensor] = {}
+            # analyze-mode bookkeeping: a node's window contains its
+            # children's, so each frame tracks child time and reports
+            # the EXCLUSIVE remainder
+            child_time: List[float] = []
 
             def value(node: MatExpr):
                 """The node's value as lowered: a Shard on a rank mesh
                 where the lowering keeps it sharded, else a tensor."""
                 if node.uid not in memo:
-                    # a fused region (ir/fusion.py stamp) lowers as one
-                    # evaluation of its whole member set
-                    if fused and "fused_region" in node.attrs:
-                        out = self._eval_region(node, ev, leaf_arrays,
-                                                leaf_pos)
+                    # fault site "lower" (resilience/faults.py): one
+                    # attribute read when injection is off
+                    faults_lib.check("lower", cfg)
+                    region = fused and "fused_region" in node.attrs
+                    if hook is None and not _profiling():
+                        out = self._eval_node(node, region, ev,
+                                              leaf_arrays, leaf_pos)
                     else:
-                        out = self._eval(node, ev, leaf_arrays, leaf_pos)
+                        out = self._eval_observed(node, region, ev,
+                                                  leaf_arrays, leaf_pos,
+                                                  child_time)
                     memo[node.uid] = out
                 return memo[node.uid]
 
@@ -317,6 +362,38 @@ class Lowerer:
                 whole.clear()
 
         return fn
+
+    def _eval_node(self, node: MatExpr, region: bool, ev, leaf_arrays,
+                   leaf_pos):
+        """One node's evaluation: a fused region (ir/fusion.py stamp)
+        as one evaluation of its whole member set, else the node."""
+        if region:
+            return self._eval_region(node, ev, leaf_arrays, leaf_pos)
+        return self._eval(node, ev, leaf_arrays, leaf_pos)
+
+    def _eval_observed(self, node: MatExpr, region: bool, ev,
+                       leaf_arrays, leaf_pos, child_time: list):
+        """:meth:`_eval_node` under the node's profiler range
+        ``matrel.<label>`` (the JAX package's per-operator
+        ``annotate``) and, in analyze mode, timed exclusive of its
+        children between two device syncs — the one sanctioned sync of
+        the lowering path, reached only through ``op_hook``."""
+        label = _op_label(node, region)
+        hook = self.op_hook
+        if hook is not None:
+            child_time.append(0.0)
+            _device_sync(self.mesh)
+            t0 = time.perf_counter()
+        with annotate(f"matrel.{label}"):
+            out = self._eval_node(node, region, ev, leaf_arrays, leaf_pos)
+        if hook is not None:
+            _device_sync(self.mesh)
+            dt = time.perf_counter() - t0
+            spent_in_children = child_time.pop()
+            if child_time:
+                child_time[-1] += dt
+            hook(node, label, max(dt - spent_in_children, 0.0))
+        return out
 
     def _ranked_root(self, r: MatExpr, out, ps) -> Tensor:
         """This rank's block of a root under its canonical spec: a whole
@@ -1170,10 +1247,11 @@ def _autotune_spmv_choices(opts, mesh: Mesh, cfg: MatrelConfig) -> dict:
     return choices
 
 
-def _lowerer(opts, mesh: Mesh, cfg: MatrelConfig) -> "Lowerer":
+def _lowerer(opts, mesh: Mesh, cfg: MatrelConfig,
+             op_hook: Optional[Callable] = None) -> "Lowerer":
     """A Lowerer for these plans, with the measured SpMV variants when
-    ``config.autotune`` is on."""
-    low = Lowerer(mesh, cfg)
+    ``config.autotune`` is on (``op_hook``: the analyze-mode timer)."""
+    low = Lowerer(mesh, cfg, op_hook=op_hook)
     if cfg.autotune:
         low.spmv_choice = _autotune_spmv_choices(opts, mesh, cfg)
     return low
@@ -1248,8 +1326,9 @@ def _precision_meta(opts, cfg: MatrelConfig) -> Optional[Dict]:
 
 
 def _plan_meta(opts, cfg: MatrelConfig, optimize_ms: float,
-               rule_hits: dict) -> Dict:
-    meta = {"optimize_ms": round(optimize_ms, 3), "rule_hits": rule_hits}
+               trace_ms: float, rule_hits: dict) -> Dict:
+    meta = {"optimize_ms": round(optimize_ms, 3),
+            "trace_ms": round(trace_ms, 3), "rule_hits": rule_hits}
     prec = _precision_meta(opts, cfg)
     if prec is not None:
         meta["precision"] = prec
@@ -1361,15 +1440,17 @@ def compile_expr(expr: MatExpr, mesh: Optional[Mesh] = None,
                                         cfg.mesh_axis_names))
     _check_one_mesh(expr, mesh)
     rule_hits: Dict[str, int] = {}
-    t0 = time.perf_counter()
-    opt = _annotate(expr, mesh, cfg, rule_hits)
-    optimize_ms = (time.perf_counter() - t0) * 1e3
+    # phase(): timed always (meta carries the durations), emitted as
+    # parent-linked spans only when a tracer is active
+    with trace_lib.phase("plan.optimize") as sp_opt:
+        opt = _annotate(expr, mesh, cfg, rule_hits)
     leaf_order = expr_leaves(opt)
-    fn = _lowerer((opt,), mesh, cfg).lower(opt, leaf_order)
+    with trace_lib.phase("plan.trace") as sp_tr:
+        fn = _lowerer((opt,), mesh, cfg).lower(opt, leaf_order)
     return CompiledPlan(fn=fn, leaf_order=leaf_order, optimized=opt,
                         mesh=mesh, config=cfg,
-                        meta=_plan_meta((opt,), cfg, optimize_ms,
-                                        rule_hits))
+                        meta=_plan_meta((opt,), cfg, sp_opt.dur_ms,
+                                        sp_tr.dur_ms, rule_hits))
 
 
 def compile_exprs(exprs, mesh: Optional[Mesh] = None,
@@ -1384,14 +1465,15 @@ def compile_exprs(exprs, mesh: Optional[Mesh] = None,
     for e in exprs:
         _check_one_mesh(e, mesh)
     rule_hits: Dict[str, int] = {}
-    t0 = time.perf_counter()
-    opts = tuple(_annotate(e, mesh, cfg, rule_hits) for e in exprs)
-    optimize_ms = (time.perf_counter() - t0) * 1e3
+    with trace_lib.phase("plan.optimize", roots=len(exprs)) as sp_opt:
+        opts = tuple(_annotate(e, mesh, cfg, rule_hits) for e in exprs)
     leaf_order = _unique_leaves(opts)
-    fn = _lowerer(opts, mesh, cfg).lower_multi(opts, leaf_order)
+    with trace_lib.phase("plan.trace") as sp_tr:
+        fn = _lowerer(opts, mesh, cfg).lower_multi(opts, leaf_order)
     return MultiPlan(fn=fn, leaf_order=leaf_order, optimized=opts,
                      mesh=mesh, config=cfg,
-                     meta=_plan_meta(opts, cfg, optimize_ms, rule_hits))
+                     meta=_plan_meta(opts, cfg, sp_opt.dur_ms,
+                                     sp_tr.dur_ms, rule_hits))
 
 
 def plan_matmul_decisions(plan) -> List[dict]:
@@ -1426,6 +1508,25 @@ def multiplan_root_decisions(plan: "MultiPlan") -> List[List[dict]]:
             planner.matmul_decisions(o, plan.mesh, plan.config)
             for o in plan.optimized]
     return meta["matmuls_per_root"]
+
+
+#: Decision-record columns the provenance ledger keeps: the chosen
+#: strategy, WHY (autotune/model/override), the precision tier and a
+#: delta-patch rule (the JAX package's projection).
+_PROVENANCE_KEEP = ("strategy", "source", "precision_tier",
+                    "delta_rule")
+
+
+def plan_provenance(plan, decisions: Optional[List[dict]] = None
+                    ) -> List[dict]:
+    """A compiled plan's strategy/tier/coefficient provenance, projected
+    for the answer ledger (obs/provenance.py). ``decisions`` lets
+    MultiPlan callers pass one root's records
+    (:func:`multiplan_root_decisions`)."""
+    if decisions is None:
+        decisions = plan_matmul_decisions(plan)
+    return [{k: d[k] for k in _PROVENANCE_KEEP
+             if d.get(k) is not None} for d in decisions]
 
 
 def _unique_leaves(exprs) -> List[MatExpr]:

@@ -58,13 +58,31 @@ def optimal_order(operands: List[MatExpr],
         weights = mesh_lib.axis_weights(mesh, config)
     from matrel_tpu_torch.parallel import planner as _planner
     flop_scale = _planner.sla_compute_factor(config)
-    # the native mirror predates precision tiers and staged-reshard
-    # pricing (and the JAX package's learned coefficients, whose knob
-    # the config refuses here): scaled or budgeted requests run the
-    # Python DP, the reference implementation, never dishonest pricing
+    # the native mirror predates precision tiers, staged-reshard
+    # pricing and learned comm weights: scaled, budgeted or
+    # coefficient-priced requests run the Python DP, the reference
+    # implementation, never dishonest pricing
     reshard_budget = getattr(config, "reshard_peak_budget_bytes", 0) \
         if config is not None else 0
-    if n >= 3 and flop_scale == 1.0 and reshard_budget == 0:
+    # learned comm weights (parallel/coeffs.py): under
+    # coeff_planner_enable each step's byte bill converts to
+    # FLOP-equivalents at the MEASURED ratio of its shape class on the
+    # plan's backend; cold classes keep the analytic constant
+    coeff_cw = None
+    shape_cls = None
+    if (config is not None
+            and getattr(config, "coeff_planner_enable", False)
+            and gx * gy > 1):
+        from matrel_tpu_torch.obs import drift as drift_lib
+        from matrel_tpu_torch.parallel import coeffs as coeffs_lib
+        backend = mesh.device.type if mesh is not None else "cpu"
+        coeff_cw = coeffs_lib.chain_comm_weights(
+            drift_lib.table_path(config), backend,
+            min_samples=getattr(config, "coeff_min_samples", 1)) or None
+        if coeff_cw is not None:
+            shape_cls = drift_lib.shape_class
+    if (n >= 3 and flop_scale == 1.0 and reshard_budget == 0
+            and coeff_cw is None):
         from matrel_tpu_torch.utils import native
         dims = [op.shape[0] for op in operands] + [operands[-1].shape[1]]
         res = native.chain_dp(dims, [op.density for op in operands],
@@ -94,10 +112,14 @@ def optimal_order(operands: List[MatExpr],
             for s in range(i, j):
                 cl, el, ll = best[i][s]
                 cr, er, lr = best[s + 1][j]
+                cw = (coeff_cw.get(shape_cls(
+                    (el.shape[0], el.shape[1], er.shape[1])))
+                    if coeff_cw is not None else None)
                 step, lay = stats.chain_step_cost_layout(
                     el.shape[0], el.shape[1], er.shape[1],
                     el.density, er.density, gx, gy, ll, lr,
-                    weights=weights, flop_scale=flop_scale)
+                    weights=weights, flop_scale=flop_scale,
+                    comm_weight=cw)
                 total = cl + cr + step
                 if cand is None or total < cand[0]:
                     cand = (total, matmul(el, er), lay)

@@ -255,14 +255,20 @@ def chain_step_cost(n: int, k: int, m: int, da: float, db: float,
 def chain_step_cost_layout(n: int, k: int, m: int, da: float, db: float,
                            gx: int, gy: int, la: str, lb: str,
                            weights: tuple = (1.0, 1.0),
-                           flop_scale: float = 1.0) -> tuple:
+                           flop_scale: float = 1.0,
+                           comm_weight=None) -> tuple:
     """(step cost, output layout): per-layout, topology-weighted comm
     terms; ``flop_scale`` is the precision tier's relative compute time
-    per MAC (planner.sla_compute_factor)."""
+    per MAC (planner.sla_compute_factor). ``comm_weight`` overrides
+    :data:`COMM_FLOPS_PER_BYTE` with a MEASURED flops-per-byte ratio for
+    this step's shape class (``parallel/coeffs.chain_comm_weights``,
+    under ``config.coeff_planner_enable``); None keeps the constant,
+    bit-identical."""
     comm, lay = comm_proxy_layout(n, k, m, da, db, gx, gy, la=la, lb=lb,
                                   weights=weights)
+    w = COMM_FLOPS_PER_BYTE if comm_weight is None else float(comm_weight)
     return (matmul_cost(n, k, m, da, db) * flop_scale
-            + COMM_FLOPS_PER_BYTE * comm), lay
+            + w * comm), lay
 
 
 def matmul_out_nnz(n: int, k: int, m: int, nnz_a: Optional[int],

@@ -1,0 +1,236 @@
+"""Structured JSONL event log — the counterpart of
+``matrel_tpu/obs/events.py`` (the Spark event-log analogue).
+
+One line per event, append-only, schema-versioned. ``MatrelSession``
+emits one ``query`` record per run, one ``serve`` record per
+micro-batched admission, ``span`` records (parent-linked tracing
+scopes, ``obs/trace.py``), ``analyze`` records (measured per-op trees
+joined to decision records — the drift auditor's feed,
+``obs/drift.py``) and the resilience plane's ``fault`` / ``retry`` /
+``degrade`` / ``overload`` / ``alert`` records. The record format and
+the schema version are the JAX package's, so either package reads the
+other's log (``tests/test_torch_obs.py`` holds both directions).
+
+Writing discipline: a single ``write()`` of one line per event on an
+O_APPEND descriptor (atomic for sane line sizes on POSIX), emission
+failures are swallowed after a one-time warning — observability must
+never fail a query — and every record carries ``schema`` + ``ts`` so
+readers can filter and migrate.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from typing import Iterator, List, Optional
+
+from matrel_tpu_torch.utils import lockdep
+
+log = logging.getLogger("matrel_tpu_torch.obs")
+
+#: Bump when a reader-visible field changes meaning. Readers skip
+#: records with a MAJOR version they don't know.
+SCHEMA_VERSION = 1
+
+#: Default log file (cwd-relative, like the autotune table's default).
+DEFAULT_EVENT_LOG = ".matrel_events.jsonl"
+
+
+def resolve_path(path: Optional[str]) -> str:
+    """Config value → concrete path ('' / None → the default name)."""
+    return path or DEFAULT_EVENT_LOG
+
+
+def rotated_path(path: Optional[str]) -> str:
+    """The single rotation sibling: ``<log>.1``."""
+    return resolve_path(path) + ".1"
+
+
+#: Serialises the size-check + rename of rotation across every writer
+#: thread in this process (sessions of one process share one log). Cross-process writers stay safe without it: each append
+#: is one O_APPEND write, and a concurrent rename at worst lands a
+#: line in the .1 sibling instead of the fresh main file — readers
+#: stitch both.
+_ROTATE_LOCK = lockdep.make_lock("obs.event_rotate")
+
+
+class EventLog:
+    """Append-only JSONL writer. ``emit`` stamps schema/ts/kind and
+    writes one line; it never raises (a broken disk must not break the
+    query that happened to be observed).
+
+    Line atomicity: each record is ONE ``os.write`` on an O_APPEND
+    descriptor — POSIX appends are atomic for sane line sizes, so
+    fleet slices and the parent session interleaving on the same log
+    produce whole lines, never spliced ones. A torn line (crashed
+    writer, full disk) is the READER's problem and is counted + warned
+    there (:func:`iter_events`).
+
+    With ``max_bytes`` > 0 the log rotates to a single ``.1`` sibling
+    once it reaches the threshold (the previous ``.1`` is replaced) —
+    disk is bounded at ~2x max_bytes while readers stitch the pair.
+    0 keeps the historical unbounded append, byte-identical."""
+
+    def __init__(self, path: Optional[str] = None, max_bytes: int = 0):
+        self.path = resolve_path(path)
+        self.max_bytes = max_bytes
+        self._warned = False
+
+    def emit(self, kind: str, record: dict) -> Optional[dict]:
+        """Append one event. Returns the full record as written, or
+        None when the write failed (already logged)."""
+        full = {"schema": SCHEMA_VERSION, "ts": round(time.time(), 3),
+                "kind": kind}
+        full.update(record)
+        try:
+            line = json.dumps(full, default=_jsonable)
+        except (TypeError, ValueError) as e:
+            self._warn(f"unserialisable event dropped: {e}")
+            return None
+        try:
+            fd = os.open(self.path,
+                         os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+            try:
+                os.write(fd, (line + "\n").encode())
+            finally:
+                os.close(fd)
+        except OSError as e:
+            self._warn(f"could not append to {self.path}: {e}")
+            return None
+        if self.max_bytes > 0:
+            self._maybe_rotate()
+        return full
+
+    def _maybe_rotate(self) -> None:
+        """Rotate ``path`` → ``path.1`` once the threshold is reached.
+        Size is re-checked under the process-wide lock so concurrent
+        writers rotate exactly once per crossing; failures are
+        swallowed like emit's (rotation must never fail a query)."""
+        try:
+            if os.path.getsize(self.path) < self.max_bytes:
+                return
+            with _ROTATE_LOCK:
+                if os.path.getsize(self.path) >= self.max_bytes:
+                    os.replace(self.path, self.path + ".1")
+        except OSError as e:
+            self._warn(f"could not rotate {self.path}: {e}")
+
+    def _warn(self, msg: str) -> None:
+        if not self._warned:
+            log.warning("event log: %s (further failures silenced)", msg)
+            self._warned = True
+
+
+def _jsonable(v):
+    """Last-resort encoder: numpy scalars/arrays and anything else that
+    slipped into a record become plain Python or a repr string."""
+    tolist = getattr(v, "tolist", None)
+    if callable(tolist):
+        try:
+            return tolist()
+        except Exception:  # fallback encoder — falls through to the next encoding, ends at repr()
+            pass
+    item = getattr(v, "item", None)
+    if callable(item):
+        try:
+            return item()
+        except Exception:  # fallback encoder — falls through to repr()
+            pass
+    return repr(v)
+
+
+def read_events(path: Optional[str] = None,
+                kinds: Optional[tuple] = None,
+                tail_bytes: Optional[int] = None) -> List[dict]:
+    """Parse an event-log file. Unparseable lines and unknown schema
+    versions are skipped (a reader must survive a log written by a
+    crashed process mid-line). Missing file → empty list.
+    ``tail_bytes`` bounds the read to the file's last N bytes — the
+    live readers' contract (the metrics endpoint's drift view): a
+    multi-GB host log must cost a scrape O(tail), not O(history)."""
+    out: List[dict] = []
+    for rec in iter_events(path, tail_bytes=tail_bytes):
+        if kinds is None or rec.get("kind") in kinds:
+            out.append(rec)
+    return out
+
+
+def iter_events(path: Optional[str] = None,
+                tail_bytes: Optional[int] = None) -> Iterator[dict]:
+    """Yield parsed records, skipping anything unreadable. Corrupt
+    lines are COUNTED and warned about once per read (the robust-
+    reader contract): a log truncated mid-line by
+    a crashed process must never take the reader down with it — but a
+    silently shrinking history would hide the corruption entirely.
+    With ``tail_bytes`` the read starts at most N bytes before EOF
+    (the first, almost-surely partial line is dropped, not counted
+    corrupt).
+
+    When rotation left a ``<log>.1`` sibling the pair is stitched
+    transparently — oldest first, and ``tail_bytes`` spans BOTH files
+    (the budget left after the main file reaches into the sibling's
+    tail), so every reader (drift, the scrape endpoint)
+    sees one continuous log regardless of when rotation fired."""
+    p = resolve_path(path)
+    prev = p + ".1"
+    # (path, bytes-to-skip-from-its-start) pairs, oldest file first.
+    # A rotation between the two stat calls at worst re-reads a
+    # record's worth of history — never loses the tail.
+    plan: List[tuple] = []
+    main_size = os.path.getsize(p) if os.path.exists(p) else None
+    prev_size = os.path.getsize(prev) if os.path.exists(prev) else None
+    if tail_bytes is None:
+        if prev_size is not None:
+            plan.append((prev, 0))
+        if main_size is not None:
+            plan.append((p, 0))
+    elif main_size is not None and main_size > tail_bytes:
+        plan.append((p, main_size - tail_bytes))
+    else:
+        if prev_size is not None:
+            remain = tail_bytes - (main_size or 0)
+            plan.append((prev, max(0, prev_size - remain)))
+        if main_size is not None:
+            plan.append((p, 0))
+    if not plan:
+        return
+    skipped = 0
+    for fpath, start in plan:
+        try:
+            f = open(fpath)
+        except OSError:
+            if fpath != p:
+                continue           # sibling vanished; nothing to chase
+            try:
+                # the main file rotated away between the stat and the
+                # open — its bytes moved to the sibling, so follow
+                # them (at worst this re-reads a little history;
+                # never loses the tail)
+                f = open(prev)
+            except OSError:
+                continue
+        with f:
+            if start > 0:
+                f.seek(start)
+                f.readline()       # discard the cut-off line
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except json.JSONDecodeError:
+                    skipped += 1
+                    continue
+                if not isinstance(rec, dict):
+                    skipped += 1
+                    continue
+                if rec.get("schema") != SCHEMA_VERSION:
+                    continue
+                yield rec
+    if skipped:
+        log.warning("event log %s: skipped %d corrupt line(s) "
+                    "(crashed-writer debris; readers continue)",
+                    p, skipped)

@@ -1,0 +1,354 @@
+"""Metrics registry — counters, gauges and sketch-backed timing
+histograms; the counterpart of ``matrel_tpu/obs/metrics.py``.
+
+Thread-safe and dependency-free: the session, the serve pipeline and
+the resilience plane record into the process registry; ``snapshot()``
+is the read surface (the event log embeds slices of it,
+``StepTimer.table()`` renders from it, the live metrics endpoint —
+``obs/export.py`` — serves it).
+
+Recording is cheap (a lock and a few float ops, once per QUERY, never
+per element and never on the device), values aggregate after the fact
+(histograms keep count/total/min/max plus a bounded, MERGEABLE
+quantile sketch) and names are plain dotted strings
+(``plan_cache.hit``, ``query.execute_ms``).
+
+:class:`QuantileSketch` is a DDSketch-style log-bucketed histogram
+(arXiv:1908.10693: geometric buckets, a relative-error bound, a
+bucket-count bound enforced by collapsing the lowest buckets). It is
+pure Python and its arithmetic is the JAX package's line for line, so
+a sketch built or merged in either package holds the same buckets and
+answers the same quantiles bit for bit (``tests/test_torch_obs.py``).
+Every quantile the port reports flows through :func:`percentile`.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Dict, Iterable, Optional
+from matrel_tpu_torch.utils import lockdep
+
+#: Default relative-accuracy target for every timing sketch: a reported
+#: quantile x̃_q satisfies |x̃_q − x_q| <= DEFAULT_ALPHA · x_q for the
+#: true (nearest-rank, lower) quantile x_q — 1% is far inside what any
+#: latency SLO cares about and keeps bucket counts small.
+DEFAULT_ALPHA = 0.01
+
+#: Bucket-count bound per sketch (the bounded-memory contract — the
+#: old reservoir's 512 slots, now 512 GEOMETRIC buckets ≈ a 1:28000
+#: dynamic range at the default alpha). Past it the LOWEST buckets
+#: collapse together, so high quantiles — the SLO-bearing ones — keep
+#: their bound while the tiny-value tail degrades first.
+_MAX_BUCKETS = 512
+
+#: Values at or below this are counted in the zero bucket (timings are
+#: nonnegative by domain; exact zeros are legal and common for cache
+#: hits). Negative inputs clamp here too.
+_MIN_TRACKABLE = 1e-9
+
+
+class QuantileSketch:
+    """Bounded-memory, mergeable quantile sketch over NONNEGATIVE
+    values (DDSketch-style log-bucketed histogram).
+
+    A value v > 0 lands in bucket ``ceil(log_γ(v))`` with
+    ``γ = (1+α)/(1-α)``; the bucket's midpoint estimate
+    ``2·γ^k/(γ+1)`` is within a factor (1±α) of every value the bucket
+    holds — THE relative-error bound, asserted by the accuracy battery
+    in tests/test_torch_obs.py. ``merge`` adds bucket counts (sketches are a
+    commutative monoid — merge order never changes an estimate, also
+    test-pinned), so per-thread / per-process sketches aggregate
+    exactly like Spark accumulators.
+
+    Not thread-safe on its own — :class:`Histogram` wraps it under the
+    registry lock; standalone users are single-threaded.
+    """
+
+    __slots__ = ("alpha", "gamma", "_log_gamma", "count", "sum",
+                 "min", "max", "zeros", "_buckets", "max_buckets")
+
+    def __init__(self, alpha: float = DEFAULT_ALPHA,
+                 max_buckets: int = _MAX_BUCKETS):
+        if not (0.0 < alpha < 1.0):
+            raise ValueError(
+                f"QuantileSketch alpha must be in (0, 1), got {alpha!r}")
+        if max_buckets < 2:
+            raise ValueError(
+                f"QuantileSketch needs max_buckets >= 2, "
+                f"got {max_buckets!r}")
+        self.alpha = float(alpha)
+        self.gamma = (1.0 + alpha) / (1.0 - alpha)
+        self._log_gamma = math.log(self.gamma)
+        self.count = 0
+        self.sum = 0.0
+        self.min: Optional[float] = None
+        self.max: Optional[float] = None
+        self.zeros = 0
+        self._buckets: Dict[int, int] = {}
+        self.max_buckets = int(max_buckets)
+
+    # -- write side --------------------------------------------------------
+
+    def add(self, value: float, n: int = 1) -> None:
+        v = float(value)
+        if n <= 0:
+            return
+        self.count += n
+        self.sum += v * n
+        self.min = v if self.min is None else min(self.min, v)
+        self.max = v if self.max is None else max(self.max, v)
+        if v <= _MIN_TRACKABLE:
+            self.zeros += n
+            return
+        k = math.ceil(math.log(v) / self._log_gamma)
+        self._buckets[k] = self._buckets.get(k, 0) + n
+        if len(self._buckets) > self.max_buckets:
+            self._collapse()
+
+    def _collapse(self) -> None:
+        """Fold the lowest bucket into its neighbour above — the
+        DDSketch collapse: high quantiles (the SLO-bearing ones) keep
+        the bound, the smallest-value tail coarsens first."""
+        keys = sorted(self._buckets)
+        lo, nxt = keys[0], keys[1]
+        self._buckets[nxt] += self._buckets.pop(lo)
+
+    def merge(self, other: "QuantileSketch") -> "QuantileSketch":
+        """Fold ``other`` into this sketch (same alpha required —
+        bucket keys only line up on one γ). Returns self."""
+        if abs(other.alpha - self.alpha) > 1e-12:
+            raise ValueError(
+                f"cannot merge sketches with different alpha "
+                f"({self.alpha} vs {other.alpha})")
+        self.count += other.count
+        self.sum += other.sum
+        self.zeros += other.zeros
+        for k, n in other._buckets.items():
+            self._buckets[k] = self._buckets.get(k, 0) + n
+        for v in (other.min, other.max):
+            if v is not None:
+                self.min = v if self.min is None else min(self.min, v)
+                self.max = v if self.max is None else max(self.max, v)
+        while len(self._buckets) > self.max_buckets:
+            self._collapse()
+        return self
+
+    # -- read side ---------------------------------------------------------
+
+    def quantile(self, q: float) -> Optional[float]:
+        """The q-quantile estimate (q in [0, 1]); None when empty.
+        Matches the nearest-rank (lower) definition — the value at
+        0-indexed rank ``floor(q·(count-1))`` — within the documented
+        relative error; q == 0 / q == 1 return the EXACT tracked
+        min/max."""
+        if self.count == 0:
+            return None
+        q = min(max(float(q), 0.0), 1.0)
+        rank = int(q * (self.count - 1))
+        if rank <= 0:
+            return self.min
+        if rank >= self.count - 1:
+            return self.max
+        if rank < self.zeros:
+            return 0.0
+        cum = self.zeros
+        for k in sorted(self._buckets):
+            cum += self._buckets[k]
+            if cum > rank:
+                est = 2.0 * self.gamma ** k / (self.gamma + 1.0)
+                # min/max are tracked exactly — clamping can only
+                # move an estimate TOWARD the true value
+                return min(max(est, self.min), self.max)
+        return self.max      # numerical safety; unreachable in theory
+
+    @property
+    def mean(self) -> float:
+        return self.sum / self.count if self.count else 0.0
+
+    def summary(self) -> dict:
+        """JSON-ready roll-up (the endpoint/`top` payload shape)."""
+        return {"count": self.count,
+                "sum": round(self.sum, 6),
+                "mean": round(self.mean, 6),
+                "min": self.min, "max": self.max,
+                "p50": self.quantile(0.50),
+                "p90": self.quantile(0.90),
+                "p95": self.quantile(0.95),
+                "p99": self.quantile(0.99)}
+
+    def to_dict(self) -> dict:
+        """Serialisable form (``from_dict`` round-trips it) — how
+        sketches ride JSON snapshots across processes for merging."""
+        return {"alpha": self.alpha, "count": self.count,
+                "sum": self.sum, "min": self.min, "max": self.max,
+                "zeros": self.zeros,
+                "buckets": {str(k): n
+                            for k, n in sorted(self._buckets.items())}}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "QuantileSketch":
+        sk = cls(alpha=float(d.get("alpha", DEFAULT_ALPHA)))
+        sk.count = int(d.get("count", 0))
+        sk.sum = float(d.get("sum", 0.0))
+        sk.min = d.get("min")
+        sk.max = d.get("max")
+        sk.zeros = int(d.get("zeros", 0))
+        sk._buckets = {int(k): int(n)
+                       for k, n in (d.get("buckets") or {}).items()}
+        return sk
+
+
+def percentile(values: Iterable[float], q: float,
+               alpha: float = DEFAULT_ALPHA) -> Optional[float]:
+    """THE shared quantile definition: feed ``values`` through one
+    :class:`QuantileSketch` and query it. The brownout controller's
+    p95 signal calls this, so every quantile the port reports agrees
+    with the live plane's sketches within the documented relative
+    error. None when ``values`` is empty."""
+    sk = QuantileSketch(alpha)
+    for v in values:
+        sk.add(v)
+    return sk.quantile(q)
+
+
+class Counter:
+    """Monotonic accumulator (the Spark accumulator analogue)."""
+
+    __slots__ = ("_lock", "_value")
+
+    def __init__(self, lock: threading.Lock):
+        self._lock = lock
+        self._value = 0.0
+
+    def inc(self, value: float = 1.0) -> None:
+        with self._lock:
+            self._value += value
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Gauge:
+    """Last-write-wins instantaneous value (e.g. cache occupancy)."""
+
+    __slots__ = ("_lock", "_value")
+
+    def __init__(self, lock: threading.Lock):
+        self._lock = lock
+        self._value = 0.0
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Histogram:
+    """Timing/size distribution: count, total, min, max + a bounded
+    mergeable :class:`QuantileSketch` over ALL observations (the old
+    bounded reservoir reported a recent window; the sketch reports the
+    metric's lifetime within the documented relative error)."""
+
+    __slots__ = ("_lock", "count", "total", "min", "max", "_sketch")
+
+    def __init__(self, lock: threading.Lock):
+        self._lock = lock
+        self.count = 0
+        self.total = 0.0
+        self.min: Optional[float] = None
+        self.max: Optional[float] = None
+        self._sketch = QuantileSketch()
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        with self._lock:
+            self.count += 1
+            self.total += v
+            self.min = v if self.min is None else min(self.min, v)
+            self.max = v if self.max is None else max(self.max, v)
+            self._sketch.add(v)
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0
+
+    def percentile(self, q: float) -> float:
+        """q in [0, 1], over ALL observations (sketch-estimated within
+        DEFAULT_ALPHA relative error; q 0/1 exact). 0.0 when empty —
+        the historical empty-histogram convention."""
+        with self._lock:
+            est = self._sketch.quantile(q)
+        return 0.0 if est is None else est
+
+    def sketch_summary(self) -> dict:
+        """The sketch's quantile roll-up (the endpoint's payload)."""
+        with self._lock:
+            return self._sketch.summary()
+
+    def summary(self) -> dict:
+        with self._lock:
+            return {"count": self.count,
+                    "total": round(self.total, 6),
+                    "mean": round(self.mean, 6),
+                    "min": self.min, "max": self.max,
+                    "p50": self._sketch.quantile(0.50),
+                    "p95": self._sketch.quantile(0.95),
+                    "p99": self._sketch.quantile(0.99)}
+
+
+class MetricsRegistry:
+    """Name → metric map; one lock per registry (recording is per-query,
+    not per-element — contention is irrelevant at that rate and a single
+    lock keeps snapshot() consistent)."""
+
+    def __init__(self):
+        self._lock = lockdep.make_lock("obs.metrics_registry")
+        self._counters: Dict[str, Counter] = {}
+        self._gauges: Dict[str, Gauge] = {}
+        self._histograms: Dict[str, Histogram] = {}
+
+    def counter(self, name: str) -> Counter:
+        with self._lock:
+            c = self._counters.get(name)
+            if c is None:
+                c = self._counters[name] = Counter(self._lock)
+        return c
+
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            g = self._gauges.get(name)
+            if g is None:
+                g = self._gauges[name] = Gauge(self._lock)
+        return g
+
+    def histogram(self, name: str) -> Histogram:
+        with self._lock:
+            h = self._histograms.get(name)
+            if h is None:
+                h = self._histograms[name] = Histogram(self._lock)
+        return h
+
+    def snapshot(self) -> dict:
+        """Plain-dict view of every metric — JSON-ready."""
+        with self._lock:
+            counters = {k: c._value for k, c in self._counters.items()}
+            gauges = {k: g._value for k, g in self._gauges.items()}
+            hists = list(self._histograms.items())
+        return {"counters": counters, "gauges": gauges,
+                "histograms": {k: h.summary() for k, h in hists}}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+            self._histograms.clear()
+
+
+#: Process-wide default registry — what the session and StepTimer use
+#: unless handed a private one.
+REGISTRY = MetricsRegistry()

@@ -1,0 +1,329 @@
+"""Structured tracing spans + the flight recorder — the counterpart of
+``matrel_tpu/obs/trace.py``.
+
+The event log says WHAT each query decided; this module says WHERE THE
+TIME WENT: a ``span()`` context threaded through admission → plan →
+execute, emitting parent-linked records into the same schema-versioned
+event log, renderable as a Chrome/Perfetto timeline
+(:func:`chrome_trace`).
+
+A span's time is the HOST clock (``time.perf_counter``). No span
+synchronises the device: on a CUDA tensor a span around a launch
+measures the launch, not the kernel — device time is
+``obs/analyze.py``'s job (explicitly asked for) or ``torch.profiler``'s
+(``utils/profiling.py``).
+
+Three cost tiers, strictly ordered:
+
+- **Inactive** (``obs_level="off"``, flight recorder off — the
+  default): :func:`span` returns a shared no-op singleton — no
+  allocation, no clock reads, no stack bookkeeping. ``phase()`` (the
+  executor's compile-phase form) still reads the clock because its
+  durations feed ``plan.meta`` regardless of observability.
+- **Flight recorder only** (``config.obs_flight_recorder > 0``, obs
+  off): spans are timed and appended to a bounded in-memory ring — no
+  file I/O, no event assembly — so a failure can dump the last N
+  records as a post-mortem artifact.
+- **Full** (``obs_level != "off"``): span records ALSO append to the
+  JSONL event log (``kind: "span"``).
+
+Activation is per-thread (``activate()``): the session activates its
+tracer around each query/batch, and the serve admission worker
+activates it in its own thread, so parent links never cross threads.
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import json
+import os
+import threading
+import time
+from typing import List, Optional
+
+from matrel_tpu_torch.obs.events import SCHEMA_VERSION
+from matrel_tpu_torch.utils import lockdep
+
+_SPAN_SEQ = itertools.count(1)
+
+_tls = threading.local()
+
+
+def _span_stack() -> list:
+    s = getattr(_tls, "stack", None)
+    if s is None:
+        s = _tls.stack = []
+    return s
+
+
+def active_tracer() -> Optional["Tracer"]:
+    return getattr(_tls, "tracer", None)
+
+
+class _Activation:
+    """Context manager installing a tracer for the current thread.
+    ``activate(None)`` is a sanctioned no-op (the session passes its
+    tracer straight through; sessions without one pay two attribute
+    writes per query)."""
+
+    __slots__ = ("tracer", "_prev")
+
+    def __init__(self, tracer: Optional["Tracer"]):
+        self.tracer = tracer
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = getattr(_tls, "tracer", None)
+        _tls.tracer = self.tracer
+        return self.tracer
+
+    def __exit__(self, *exc):
+        _tls.tracer = self._prev
+        return False
+
+
+def activate(tracer: Optional["Tracer"]) -> _Activation:
+    return _Activation(tracer)
+
+
+class _NoopSpan:
+    """The inactive-path singleton: enters/exits without touching the
+    clock or the span stack. ``dur_ms`` stays None — callers that need
+    a duration unconditionally use :func:`phase` instead."""
+
+    __slots__ = ()
+    dur_ms = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs):
+        return self
+
+    def elapsed_ms(self):
+        return None
+
+
+_NOOP = _NoopSpan()
+
+
+class Span:
+    """One timed scope. Parent-linked through the per-thread stack;
+    emitted through the owning tracer at exit (when there is one)."""
+
+    __slots__ = ("name", "attrs", "tracer", "span_id", "parent_id",
+                 "t0", "t0_epoch", "dur_ms")
+
+    def __init__(self, name: str, tracer: Optional["Tracer"],
+                 attrs: dict):
+        self.name = name
+        self.tracer = tracer
+        self.attrs = attrs
+        self.span_id = None
+        self.parent_id = None
+        self.t0 = None
+        self.t0_epoch = None
+        self.dur_ms = None
+
+    def __enter__(self):
+        if self.tracer is not None:
+            self.span_id = next(_SPAN_SEQ)
+            stack = _span_stack()
+            self.parent_id = stack[-1] if stack else None
+            stack.append(self.span_id)
+        self.t0_epoch = time.time()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.dur_ms = (time.perf_counter() - self.t0) * 1e3
+        if self.tracer is not None:
+            stack = _span_stack()
+            if stack and stack[-1] == self.span_id:
+                stack.pop()
+            rec = {"name": self.name,
+                   "span_id": self.span_id,
+                   "parent_id": self.parent_id,
+                   "t0": round(self.t0_epoch, 6),
+                   "dur_ms": round(self.dur_ms, 3),
+                   "pid": os.getpid(),
+                   "tid": threading.get_ident()}
+            if exc_type is not None:
+                # the error rides the span so a flight-recorder dump
+                # shows WHICH scope died, not just that something did
+                rec["error"] = repr(exc)[:200]
+            if self.attrs:
+                rec["attrs"] = self.attrs
+            self.tracer.emit_span(rec)
+        return False
+
+    def set(self, **attrs) -> "Span":
+        """Attach attributes discovered mid-scope (e.g. cache hit)."""
+        self.attrs.update(attrs)
+        return self
+
+    def elapsed_ms(self) -> float:
+        """Wall milliseconds since enter — readable BEFORE exit (the
+        serve batch reports its wall while still inside the span)."""
+        return (time.perf_counter() - self.t0) * 1e3
+
+
+def span(name: str, **attrs):
+    """A span that costs NOTHING when no tracer is active for this
+    thread (the obs-off / recorder-off contract). Use everywhere the
+    duration is purely observational."""
+    tr = active_tracer()
+    if tr is None:
+        return _NOOP
+    return Span(name, tr, attrs)
+
+
+def phase(name: str, **attrs) -> Span:
+    """A span that ALWAYS times (``dur_ms`` readable after exit) and
+    emits only when a tracer is active — for the executor's compile
+    phases, whose durations feed ``plan.meta`` regardless of
+    observability (the pre-span behaviour, one mechanism)."""
+    return Span(name, active_tracer(), attrs)
+
+
+class Tracer:
+    """Routes finished span records to the session's emission path
+    (event log when obs is on, flight-recorder ring when configured —
+    the session's ``_obs_emit`` decides). Never raises: a broken sink
+    must not fail the scope it was observing."""
+
+    __slots__ = ("_emit_fn",)
+
+    def __init__(self, emit_fn):
+        self._emit_fn = emit_fn
+
+    def emit_span(self, rec: dict) -> None:
+        try:
+            self._emit_fn("span", rec)
+        except Exception:  # never-fail obs sink — a broken emitter must not fail the observed scope (and logging here could recurse per span)
+            pass
+
+
+class FlightRecorder:
+    """Bounded in-memory ring of the last N span/event records —
+    always-cheap (a deque append under a lock; no I/O, no assembly),
+    independent of ``obs_level``. Dumped to a JSON artifact on
+    compile failure / serve-batch failure or an explicit
+    ``session.dump_flight_recorder()``, so a field failure
+    leaves a post-mortem trail instead of a bare error string."""
+
+    def __init__(self, capacity: int):
+        self.capacity = int(capacity)
+        self._buf: "collections.deque" = collections.deque(
+            maxlen=self.capacity)
+        self._lock = lockdep.make_lock("obs.flight_ring")
+        self.dumps = 0
+
+    def add(self, record: dict) -> None:
+        with self._lock:
+            self._buf.append(record)
+
+    def snapshot(self) -> List[dict]:
+        with self._lock:
+            return list(self._buf)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._buf)
+
+    def dump(self, path: str, reason: str,
+             error: Optional[str] = None) -> str:
+        """Write the ring as one JSON artifact (atomic rename, same
+        discipline as the autotune table). Returns the path."""
+        artifact = {
+            "schema": SCHEMA_VERSION,
+            "kind": "flight_recorder",
+            "dumped_at": round(time.time(), 3),
+            "reason": reason,
+            "error": error,
+            "capacity": self.capacity,
+            "records": self.snapshot(),
+        }
+        self.dumps += 1
+        tmp = f"{path}.tmp{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(artifact, f, default=repr)
+        os.replace(tmp, path)
+        return path
+
+
+#: Default flight-recorder artifact name (cwd-relative, like the event
+#: log's default).
+DEFAULT_FLIGHT_PATH = ".matrel_flight.json"
+
+
+# ---------------------------------------------------------------------------
+# Chrome/Perfetto export — spans → trace_event JSON
+# ---------------------------------------------------------------------------
+
+
+def chrome_trace(events: List[dict], last: Optional[int] = None) -> dict:
+    """Render span records as a Chrome ``trace_event`` JSON object
+    (the "JSON Array Format" with complete "X" events) loadable in
+    Perfetto / chrome://tracing. Nesting comes from per-tid timestamp
+    containment — exactly how the spans nested live — and every event's
+    args carry the explicit span/parent ids for cross-checking.
+
+    ``last`` keeps only the most recent N ROOT spans (parent_id null)
+    plus their descendants — "show me the last serve batch" without
+    hand-filtering a long log."""
+    spans = [e for e in events if e.get("kind") == "span"
+             and isinstance(e.get("dur_ms"), (int, float))]
+    spans.sort(key=lambda e: e.get("t0") or 0.0)
+    if last is not None and last >= 0:
+        # span ids are per-PROCESS sequences (a shared log mixes
+        # sessions, drills and bench runs by design), so the root
+        # selection and the descendant closure must key by
+        # (pid, span_id) — a bare span_id would pull an unrelated
+        # earlier process's spans into "the last batch"
+        def sid(e):
+            return (e.get("pid"), e.get("span_id"))
+
+        roots = [sid(e) for e in spans
+                 if e.get("parent_id") is None
+                 and e.get("span_id") is not None]
+        keep = set(roots[-last:] if last > 0 else [])
+        # descend: children name their parent, so iterate to fixpoint
+        # (span lists are small; the log reader already bounded them)
+        grew = True
+        while grew:
+            grew = False
+            for e in spans:
+                if ((e.get("pid"), e.get("parent_id")) in keep
+                        and sid(e) not in keep):
+                    keep.add(sid(e))
+                    grew = True
+        spans = [e for e in spans if sid(e) in keep]
+    trace_events = []
+    for e in spans:
+        t0 = e.get("t0")
+        if not isinstance(t0, (int, float)):
+            # older/foreign record: reconstruct start from the emission
+            # timestamp (stamped at exit)
+            t0 = float(e.get("ts", 0.0)) - e["dur_ms"] / 1e3
+        args = {"span_id": e.get("span_id"),
+                "parent_id": e.get("parent_id")}
+        if e.get("attrs"):
+            args.update(e["attrs"])
+        if e.get("error"):
+            args["error"] = e["error"]
+        trace_events.append({
+            "name": e.get("name", "span"),
+            "cat": "matrel",
+            "ph": "X",
+            "ts": round(t0 * 1e6, 3),          # epoch microseconds
+            "dur": round(e["dur_ms"] * 1e3, 3),
+            "pid": e.get("pid", 0),
+            "tid": e.get("tid", 0),
+            "args": args,
+        })
+    return {"traceEvents": trace_events, "displayTimeUnit": "ms"}

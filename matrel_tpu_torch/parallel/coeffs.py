@@ -1,0 +1,211 @@
+"""Learned planner coefficients — the counterpart of
+``matrel_tpu/parallel/coeffs.py``: the one seam between the drift table
+(``obs/drift.py``) and every cost consult of the planner and chain DP.
+
+The drift auditor calibrates per-(strategy, shape-class, backend)
+ms/GFLOP and ms/est-MiB ratios from live query and analyze events.
+Consumers read them at two altitudes:
+
+- :func:`strategy_coefficients` — the table's own per-strategy rows,
+  keyed exactly the way ``drift.calibrate`` keys them
+  (``"strategy|class|backend"``, tiered strategies ``rmm@bf16x3``).
+  ``planner.choose_strategy_ex`` ranks candidate strategies with these.
+- :func:`class_coefficients` — the count-weighted per-(shape-class,
+  backend, tier) blend. The chain DP's comm-weight consult uses this
+  altitude: a parenthesisation step has no stamped strategy yet.
+
+Both are memoised on the table file's stat signature, so per-decision
+consults never re-parse an unchanged table. :func:`epoch` digests the
+DECISION-RELEVANT values only (the blended ratios, not
+counts/timestamps) into the short token the session's ``coeffv:``
+plan-key prefix embeds: plans compiled under different coefficients
+never share a cache slot.
+
+Rows are keyed by the port's own backend (``"cuda"`` / ``"cpu"``), so
+an H100 plan is never priced by a TPU calibration. Cold classes fall
+back to the analytic closed forms — the constants below only ever
+decide rankings, never numerics.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import math
+import os
+from typing import Dict, Optional, Tuple
+
+from matrel_tpu_torch.utils import lockdep
+
+#: Analytic fallback coefficients: deliberately round numbers in the planner's
+#: "relative units are what matter" tradition — ~1 TFLOP/s effective
+#: per device and ~50 GB/s effective collective bandwidth. A
+#: drift-calibrated row replaces both the moment one exists.
+ANALYTIC_MS_PER_GFLOP = 1.0
+ANALYTIC_MS_PER_MIB = 0.02
+
+#: Epoch token of a missing/empty table — a fixed literal (not a hash
+#: of ``{}``) so the cold ``coeffv:`` prefix is self-describing in a
+#: dumped plan-cache key.
+COLD_EPOCH = "cold"
+
+_lock = lockdep.make_lock("parallel.coeffs")
+_cache: dict = {}
+
+
+def _payload(path: str) -> dict:
+    """The parsed-and-derived view of one drift table, memoised on the
+    file's stat signature (the export-endpoint drift-cache idiom):
+    ``{"strategy": rows, "class": rows, "epoch": token}``. A missing /
+    unreadable table is the normal cold case — empty rows, COLD_EPOCH."""
+    try:
+        st = os.stat(path)
+        sig = (st.st_size, st.st_mtime_ns)
+    except OSError:
+        return {"strategy": {}, "class": {}, "epoch": COLD_EPOCH}
+    with _lock:
+        hit = _cache.get(path)
+        if hit is not None and hit[0] == sig:
+            return hit[1]
+    from matrel_tpu_torch.obs import drift
+    entries = drift.load_table(path).get("entries", {})
+    strat_rows: Dict[str, dict] = {}
+    acc: Dict[Tuple[str, str, str], dict] = {}
+    digest_parts = []
+    for key in sorted(entries):
+        row = entries[key]
+        if not isinstance(row, dict):
+            continue
+        n = int(row.get("count") or 0)
+        if n <= 0:
+            continue
+        gf = row.get("ms_per_gflop")
+        mib = row.get("ms_per_est_mib")
+        gf = float(gf) if isinstance(gf, (int, float)) else None
+        mib = float(mib) if isinstance(mib, (int, float)) else None
+        # NaN/inf ratios (a poisoned or hand-edited table) must never
+        # reach a ranking: min() over a dict with one NaN cost is
+        # order-dependent — drop the bad field, keep the row
+        if gf is not None and not math.isfinite(gf):
+            gf = None
+        if mib is not None and not math.isfinite(mib):
+            mib = None
+        if gf is None and mib is None:
+            continue
+        strat_rows[key] = {"ms_per_gflop": gf, "ms_per_mib": mib,
+                           "count": n, "source": "measured"}
+        # the epoch digests VALUES, not counts: a count-only merge
+        # (same blended ratios) must not shatter every live plan key
+        digest_parts.append(f"{key}={gf}:{mib}")
+        strat = str(row.get("strategy") or "")
+        tier = strat.split("@", 1)[1] if "@" in strat else ""
+        ckey = (str(row.get("class") or "?"),
+                str(row.get("backend") or "?"), tier)
+        slot = acc.setdefault(ckey, {"_gf": 0.0, "_gfn": 0,
+                                     "_mib": 0.0, "_mibn": 0})
+        if gf is not None:
+            slot["_gf"] += gf * n
+            slot["_gfn"] += n
+        if mib is not None:
+            slot["_mib"] += mib * n
+            slot["_mibn"] += n
+    class_rows: Dict[Tuple[str, str, str], dict] = {}
+    for ckey, slot in acc.items():
+        if not slot["_gfn"] and not slot["_mibn"]:
+            continue
+        class_rows[ckey] = {
+            "ms_per_gflop": (slot["_gf"] / slot["_gfn"]
+                             if slot["_gfn"] else None),
+            "ms_per_mib": (slot["_mib"] / slot["_mibn"]
+                           if slot["_mibn"] else None),
+            "count": max(slot["_gfn"], slot["_mibn"]),
+            "source": "measured",
+        }
+    if digest_parts:
+        epoch_tok = hashlib.sha1(
+            "|".join(digest_parts).encode()).hexdigest()[:12]
+    else:
+        epoch_tok = COLD_EPOCH
+    payload = {"strategy": strat_rows, "class": class_rows,
+               "epoch": epoch_tok}
+    with _lock:
+        _cache[path] = (sig, payload)
+    return payload
+
+
+def strategy_coefficients(path: str) -> Dict[str, dict]:
+    """Per-strategy calibration rows keyed ``"strategy|class|backend"``
+    (the drift table's own key format; tiered strategies carry their
+    ``@tier`` suffix inside the strategy token). Rows:
+    ``{"ms_per_gflop", "ms_per_mib", "count", "source": "measured"}``
+    with non-finite ratios dropped. Empty when the table is cold."""
+    return _payload(path)["strategy"]
+
+
+def strategy_row(strategy: str, cls: str, backend: str, path: str,
+                 tier: str = "") -> Optional[dict]:
+    """The calibration row one candidate strategy would be priced by,
+    or None (cold). ``tier`` joins the strategy token the way the
+    drift auditor keys tiered samples (``rmm@bf16x3``); the empty tier
+    keeps the historical bare-strategy key."""
+    tok = f"{strategy}@{tier}" if tier else strategy
+    return _payload(path)["strategy"].get(f"{tok}|{cls}|{backend}")
+
+
+def class_coefficients(path: str) -> Dict[Tuple[str, str, str], dict]:
+    """The per-(shape-class, backend, tier) count-weighted blend.
+    Rows: ``{"ms_per_gflop",
+    "ms_per_mib", "count", "source": "measured"}``."""
+    return _payload(path)["class"]
+
+
+def epoch(path: str) -> str:
+    """Short content token of the table's decision-relevant values —
+    what the session's ``coeffv:`` plan-key prefix embeds and the
+    provenance ledger records per answer. Stable across count-only
+    merges and ``updated`` re-stamps; changes exactly when a blended
+    ratio changes (a re-plan round). :data:`COLD_EPOCH` for a
+    missing/empty table."""
+    return _payload(path)["epoch"]
+
+
+def predict_ms(row: dict, gflops: float, weighted_cost: float) -> float:
+    """One candidate's predicted milliseconds under a calibration row:
+    compute term (ms/GFLOP × GFLOPs) + comm term (ms/est-MiB × the
+    weighted byte-equivalents the analytic model priced — the same
+    quantity the drift samples' ``est_bytes`` carried, so the ratio
+    applies to what it was calibrated against). A row missing one
+    ratio prices that term analytically (the cold-term fallback)."""
+    gf = row.get("ms_per_gflop")
+    mib = row.get("ms_per_mib")
+    cg = float(gf) if gf is not None else ANALYTIC_MS_PER_GFLOP
+    cm = float(mib) if mib is not None else ANALYTIC_MS_PER_MIB
+    return cg * gflops + cm * (weighted_cost / (1 << 20))
+
+
+def chain_comm_weights(path: str, backend: str,
+                       min_samples: int = 1) -> Dict[str, float]:
+    """Per-shape-class measured comm weight for the chain DP's step
+    cost: FLOP-equivalents per byte, derived from the class blend as
+    ``(ms_per_mib / 2^20) / (ms_per_gflop / 1e9)`` — how many device
+    FLOPs buy the time of one interconnect byte ON THIS BACKEND, by
+    measurement. Classes missing either ratio (or under
+    ``min_samples``) are absent — the DP falls back to the analytic
+    ``stats.COMM_FLOPS_PER_BYTE`` for them. Untier rows only: the
+    DP prices un-annotated interior steps."""
+    out: Dict[str, float] = {}
+    for (cls, bk, tier), row in class_coefficients(path).items():
+        if bk != backend or tier:
+            continue
+        if int(row.get("count") or 0) < min_samples:
+            continue
+        gf, mib = row.get("ms_per_gflop"), row.get("ms_per_mib")
+        if gf is None or mib is None or gf <= 0 or mib <= 0:
+            continue
+        out[cls] = (mib / (1 << 20)) / (gf / 1e9)
+    return out
+
+
+def reset_coefficient_cache() -> None:
+    """Test hook: drop the stat-signature memo."""
+    with _lock:
+        _cache.clear()

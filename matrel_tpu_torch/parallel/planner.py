@@ -18,8 +18,10 @@ Row/col index joins stamp the replication scheme ``choose_join_scheme``
 picks (``attrs["replicate"]``: "left", "right" or "align"); the scheme
 is priced with the closed-form reshard terms, or, with
 ``reshard_peak_budget_bytes`` > 0, from the compiled staged plan
-(``parallel/reshard.py``). The learned coefficients are not ported
-(their knob raises ``NotPortedError``).
+(``parallel/reshard.py``). Under ``config.coeff_planner_enable`` a
+model decision ranks in predicted milliseconds when every candidate
+has a warm drift-table row for the plan's backend
+(``parallel/coeffs.py``; stamp ``cost_model``).
 With ``config.autotune`` on, a measured winner from
 ``parallel/autotune.py`` overrides the byte model for a dense product
 on a grid of more than one device (source "measured"), and the S×S
@@ -162,27 +164,47 @@ def comm_cost(strategy: str, n: int, k: int, m: int,
               itemsize: int = 4,
               a_layout: str = "2d", b_layout: str = "2d",
               alpha_bytes: float = 0.0,
-              weights: Tuple[float, float] = (1.0, 1.0)) -> float:
+              weights: Tuple[float, float] = (1.0, 1.0),
+              coeff: Optional[dict] = None) -> float:
     """Estimated per-device interconnect cost of one strategy, in
-    weighted byte-equivalents (layout-aware, α-β, topology-weighted)."""
-    return _comm_detail(strategy, n, k, m, da, db, gx, gy, itemsize,
+    weighted byte-equivalents (layout-aware, α-β, topology-weighted) —
+    or in calibrated milliseconds when a ``coeff`` row
+    (``parallel/coeffs.py``) is passed: its ms/est-MiB ratio was
+    calibrated against exactly this quantity. None keeps the raw
+    byte-equivalents, bit-identical."""
+    cost = _comm_detail(strategy, n, k, m, da, db, gx, gy, itemsize,
                         a_layout, b_layout, alpha_bytes, weights)[0]
+    if coeff is not None:
+        from matrel_tpu_torch.parallel import coeffs as coeffs_lib
+        cm = coeff.get("ms_per_mib")
+        if cm is None:
+            cm = coeffs_lib.ANALYTIC_MS_PER_MIB
+        return float(cm) * (cost / (1 << 20))
+    return cost
 
 
 def comm_cost_axes(strategy: str, n: int, k: int, m: int,
                    da: float, db: float, gx: int, gy: int,
                    itemsize: int = 4,
                    a_layout: str = "2d", b_layout: str = "2d",
-                   weights: Tuple[float, float] = (1.0, 1.0)
+                   weights: Tuple[float, float] = (1.0, 1.0),
+                   coeff: Optional[dict] = None
                    ) -> Tuple[float, float]:
     """Raw (unweighted) per-device bytes a strategy moves over each
     grid axis, (x_bytes, y_bytes): the per-axis decomposition of
     :func:`comm_cost`'s bill. ``weights`` only choose the stage order a
-    full-mesh collective's bytes are attributed under. (The JAX
-    package's learned-coefficient scaling is not ported; without it the
-    bytes are the same.)"""
+    full-mesh collective's bytes are attributed under; ``coeff`` (same
+    contract as :func:`comm_cost`) scales both into calibrated
+    milliseconds."""
     _, bx, by = _comm_detail(strategy, n, k, m, da, db, gx, gy,
                              itemsize, a_layout, b_layout, 0.0, weights)
+    if coeff is not None:
+        from matrel_tpu_torch.parallel import coeffs as coeffs_lib
+        cm = coeff.get("ms_per_mib")
+        if cm is None:
+            cm = coeffs_lib.ANALYTIC_MS_PER_MIB
+        scale = float(cm) / (1 << 20)
+        return bx * scale, by * scale
     return bx, by
 
 
@@ -661,11 +683,21 @@ def choose_strategy_ex(node: MatExpr, mesh: Mesh,
                        root_output: bool = False,
                        root_transposed: bool = False,
                        consumer_hint: Optional[str] = None,
-                       root_scale: float = 1.0) -> Tuple[str, str]:
+                       root_scale: float = 1.0,
+                       cost_detail: Optional[dict] = None
+                       ) -> Tuple[str, str]:
     """(strategy, source) for one matmul node: "dispatch" (S×S),
     "override", "measured" (an autotune table winner, with
     ``config.autotune``), "model" (byte-model argmin) or "default"
-    (single device / no admissible candidate)."""
+    (single device / no admissible candidate).
+
+    ``cost_detail`` (an out-param dict) reports which cost model priced
+    a "model" decision under ``config.coeff_planner_enable``:
+    ``{"cost": "measured"}`` when every admissible candidate had a warm
+    ``parallel/coeffs.py`` row for this (strategy[@tier], shape-class,
+    backend) population and the ranking ran in predicted milliseconds,
+    ``{"cost": "analytic"}`` when any candidate was cold and the closed
+    forms decided. The backend is the plan's device type."""
     cfg = config or default_config()
     if _spgemm_matmul(node, cfg):
         return "spgemm", "dispatch"
@@ -744,6 +776,30 @@ def choose_strategy_ex(node: MatExpr, mesh: Mesh,
                  for s, c in cands.items()}
     if not cands:
         return "xla", "default"
+    if cfg.coeff_planner_enable:
+        # learned-coefficient ranking: only when EVERY admissible
+        # candidate is warm (comparing one candidate's milliseconds
+        # against another's byte-equivalents would be a units error)
+        from matrel_tpu_torch.obs import drift as drift_lib
+        from matrel_tpu_torch.parallel import coeffs as coeffs_lib
+        cost_src = "analytic"
+        path = drift_lib.table_path(cfg)
+        cls = drift_lib.shape_class((n, k, m))
+        backend = mesh.device.type
+        gf = 2.0 * n * k * m / 1e9
+        measured: Optional[dict] = {}
+        for s, c in cands.items():
+            row = coeffs_lib.strategy_row(s, cls, backend, path,
+                                          tier=tier or "")
+            if row is None or row["count"] < cfg.coeff_min_samples:
+                measured = None
+                break
+            measured[s] = coeffs_lib.predict_ms(row, gf, c)
+        if measured:
+            cands = measured
+            cost_src = "measured"
+        if cost_detail is not None:
+            cost_detail["cost"] = cost_src
     best = min(cands, key=cands.get)
     if not root_output:
         best = _hint_tiebreak(cands, best, STRATEGY_OUT_LAYOUT.get,
@@ -941,14 +997,22 @@ def annotate_strategies(e: MatExpr, mesh: Mesh,
         if tier is not None:
             e = e.with_attrs(precision_tier=tier)
     if e.kind == "matmul" and "strategy" not in e.attrs:
+        # cost-model provenance: requested — and stamped — only under
+        # coeff_planner_enable, so default plans carry no new attr
+        detail = ({} if config is not None
+                  and config.coeff_planner_enable else None)
         strat, source = choose_strategy_ex(e, mesh, config,
                                            dtype_memo=memo,
                                            layout_memo=lmemo,
                                            root_output=_root_scale > 0.0,
                                            root_transposed=_root_swap,
                                            consumer_hint=_consumer_hint,
-                                           root_scale=_root_scale)
-        e = e.with_attrs(strategy=strat, strategy_source=source)
+                                           root_scale=_root_scale,
+                                           cost_detail=detail)
+        stamp = {"strategy": strat, "strategy_source": source}
+        if detail is not None and detail.get("cost"):
+            stamp["cost_model"] = detail["cost"]
+        e = e.with_attrs(**stamp)
         if strat == "spgemm":
             # which registry kernel the S×S lowering runs, from the
             # shared chooser (executor.spgemm_kernel_choice)
@@ -981,9 +1045,9 @@ def matmul_decisions(root: MatExpr, mesh: Mesh,
     moves its lowering compiles (``reshard``). Operands that entered
     planning as result-cache or CSE leaves are marked (``rc_operands``,
     ``cse_operands``), and a delta-patch plan's records carry its
-    pricing (``delta_rule``, ``delta_est_saved_flops``). The records
-    carry what the JAX package's carry with its learned-coefficient
-    plane off — a plane this package has not ported."""
+    pricing (``delta_rule``, ``delta_est_saved_flops``). Under
+    ``coeff_planner_enable`` a model-ranked product records which cost
+    model priced it (``cost``)."""
     cfg = config or default_config()
     gx, gy = mesh_lib.mesh_grid_shape(mesh)
     wts = mesh_lib.axis_weights(mesh, cfg)
@@ -1023,6 +1087,12 @@ def matmul_decisions(root: MatExpr, mesh: Mesh,
                "strategy": n.attrs.get("strategy", "xla"),
                "source": n.attrs.get("strategy_source", "unknown"),
                "flops": 2.0 * nn * kk * mm}
+        cm = n.attrs.get("cost_model")
+        if cm:
+            # which cost model priced the ranking ("measured" learned
+            # coefficients / "analytic" closed forms); absent with
+            # coeff_planner_enable off
+            rec["cost"] = cm
         tier = n.attrs.get("precision_tier")
         if tier is not None:
             rec["precision_tier"] = tier

@@ -28,6 +28,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+from matrel_tpu_torch.utils.profiling import annotate
+
 #: Public layout vocabulary a reshard plan moves between — the
 #: planner's layout model (planner.LAYOUTS minus "other", which is
 #: costed like "2d" per the LAYOUTS contract and normalised here).
@@ -536,12 +538,14 @@ def apply_staged(arr, plan: ReshardPlan, mesh):
     rank mesh ``arr`` is a ``collectives.Shard`` and each step is its real
     move to the step's state (``collectives.relay``: the all_to_all on
     the step's axis, the gather, or the slice); the entries never
-    change."""
+    change. On a rank mesh each step's move runs under its profiler
+    range ``matrel.reshard:<kind>`` (``utils/profiling.annotate``)."""
     if not getattr(mesh, "ranked", False):
         return arr
     from matrel_tpu_torch.parallel import collectives as coll
     if not isinstance(arr, coll.Shard):          # a whole value: rep
         arr = coll.Shard(arr, coll.STATES["rep"], tuple(arr.shape))
     for step in plan.steps:
-        arr = coll.relay(arr, step.dst_state, mesh)
+        with annotate(f"matrel.reshard:{step.kind}"):
+            arr = coll.relay(arr, step.dst_state, mesh)
     return arr

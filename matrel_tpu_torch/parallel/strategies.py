@@ -27,6 +27,7 @@ from typing import Callable, Optional
 import torch
 
 from matrel_tpu_torch.config import MatrelConfig, default_config
+from matrel_tpu_torch.resilience import faults as faults_lib
 
 STRATEGIES = ("bmm_left", "bmm_right", "cpmm", "rmm", "summa", "xla")
 
@@ -211,6 +212,9 @@ def run_matmul(strategy: str, a, b, mesh,
     this rank's block)."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}")
+    # fault site "strategy" (resilience/faults.py): one attribute read
+    # when injection is off
+    faults_lib.check("strategy", config)
     cfg = config or default_config()
     if getattr(mesh, "ranked", False):
         from matrel_tpu_torch.parallel import collectives as coll

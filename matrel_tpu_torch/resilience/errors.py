@@ -4,19 +4,20 @@
 The single authority for "is this failure worth retrying?":
 
 - **transient** failures (device/runtime hiccups: out of memory, a
-  collective timeout) are retry candidates — re-running the same work
-  can succeed;
+  collective timeout, injected transients from the fault harness) are
+  retry candidates — re-running the same work can succeed;
 - **deterministic** failures (compile/shape/type errors, verification
-  errors) would fail identically on every attempt; the retry policy
-  re-raises them at once.
+  errors, injected fatals, a kernel that fails to build or launch)
+  would fail identically on every attempt; the retry policy re-raises
+  them at once, so the degradation ladder never climbs around them.
 
 Every resilience-surface error is typed: callers catch
 ``DeadlineExceeded``/``DrainTimeout``/``AdmissionShed``/
 ``PipelineClosed`` by class. The classes, their messages and the
 classification are the JAX package's, with the device runtime's failure
-vocabulary replaced by the CUDA runtime's (only out-of-memory is
-transient). The error types of planes not ported yet — injected
-faults, circuit breakers, the fleet, checkpoint and spill corruption —
+vocabulary replaced by the CUDA runtime's: out of memory is the only
+transient runtime error that was not injected. The error types of
+planes not ported yet — the fleet, checkpoint and spill corruption —
 are added with those planes.
 """
 
@@ -30,6 +31,26 @@ class ResilienceError(Exception):
     (deadlines, sheds, closed pipelines). External failures — device
     runtime errors, verification errors — keep their own types and are
     CLASSIFIED by :func:`classify` instead."""
+
+
+class InjectedFault(ResilienceError):
+    """A fault the seeded injection harness raised at an instrumented
+    choke point (``resilience/faults.py``). ``transient`` drives the
+    retry classification: transient injections model device hiccups
+    and ARE retried (each retry climbing one rung of the degradation
+    ladder); fatal ones model deterministic poison and are not."""
+
+    def __init__(self, site: str, kind: str, call_index: int,
+                 rule: Optional[str] = None):
+        self.site = site
+        self.kind = kind
+        self.transient = kind == "transient"
+        self.call_index = call_index
+        self.rule = rule
+        super().__init__(
+            f"injected {kind} fault at site {site!r} "
+            f"(call #{call_index}"
+            + (f", rule {rule!r}" if rule else "") + ")")
 
 
 class DeadlineExceeded(ResilienceError, TimeoutError):
@@ -104,6 +125,26 @@ class AdmissionShed(ResilienceError):
         super().__init__(msg)
 
 
+class CircuitOpen(ResilienceError):
+    """A plan class's circuit breaker is OPEN
+    (``resilience/breaker.py``): the class kept failing after the retry
+    budget, so further queries of that class fail FAST instead of
+    burning compile/retry budget the healthy classes need. Carries the
+    half-open probe schedule: ``retry_after_ms`` until the next probe
+    window, ``probes`` allowed then. Never retried."""
+
+    def __init__(self, plan_class: str, retry_after_ms: float,
+                 probes: int = 1):
+        self.plan_class = plan_class
+        self.retry_after_ms = retry_after_ms
+        self.probes = probes
+        super().__init__(
+            f"circuit open for plan class {plan_class!r}: the class "
+            f"kept failing past its retry budget — fails fast; "
+            f"half-open probe window ({probes} probe(s)) in "
+            f"{max(retry_after_ms, 0.0):.0f} ms")
+
+
 #: Exception type names treated as transient runtime faults: the CUDA
 #: allocator's out-of-memory error as torch raises it (``OutOfMemoryError``;
 #: a retry after the caching allocator releases blocks can succeed).
@@ -121,6 +162,8 @@ _TRANSIENT_MARKERS = ("out of memory", "collective")
 
 def is_transient(exc: BaseException) -> bool:
     """True when a retry of the SAME work can plausibly succeed."""
+    if isinstance(exc, InjectedFault):
+        return exc.transient
     if isinstance(exc, ResilienceError):
         # deadlines, sheds, closed pipelines: all deterministic by
         # construction — retrying cannot help

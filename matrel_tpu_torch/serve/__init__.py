@@ -11,10 +11,12 @@
   mqo           cross-query CSE and plan templates (``cse_enable``)
   ivm           the delta plane behind ``session.register_delta``
 
+The pipeline also carries the brownout controller, the circuit
+breakers and the SLO outcome feed (``resilience/``, ``obs/slo.py``).
 The spill hierarchy (``spill.py``), the fleet (``fleet.py``,
 ``placement.py``) and the cost-model re-plan controller (``replan.py``)
-are not ported: they need the checkpoint, drift and learned-coefficient
-planes first.
+are not ported: they need the checkpoint plane first (the drift table
+and the learned coefficients they read are ported).
 """
 
 from matrel_tpu_torch.serve.admission import AdmissionQueue  # noqa: F401

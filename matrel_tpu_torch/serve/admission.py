@@ -20,11 +20,14 @@ serve pipeline — the counterpart of ``matrel_tpu/serve/admission.py``.
   and re-check the bound, so a queue full of expired entries admits a
   fresh query.
 
-Thread-safety and the drain contract: one ``threading.Lock`` (the JAX
-package's lock name ``serve.admission``) backs everything; the
+Thread-safety and the drain contract: one lock (``"serve.admission"``
+in the lockdep inventory) backs everything; the
 ``all_tasks_done``/``unfinished_tasks``/``task_done`` surface mirrors
-``queue.Queue``, and ``get``/``get_nowait`` raise ``queue.Empty``. The
-SLO feed of the JAX package's queue is not ported.
+``queue.Queue``, and ``get``/``get_nowait`` raise ``queue.Empty``.
+
+SLO feed (``obs/slo.py``; None when off): a typed shed and every purged
+expired entry are availability bad events, reported per tenant outside
+the lock (the monitor's alert emission does I/O).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from matrel_tpu_torch.config import parse_tenant_weights
 from matrel_tpu_torch.resilience.errors import (AdmissionShed,
                                                 DeadlineExceeded)
 from matrel_tpu_torch.resilience.retry import now as _now
+from matrel_tpu_torch.utils import lockdep
 
 #: Stride-scheduling numerator: pass advances by BASE/weight per pop,
 #: so a weight-4 tenant is popped 4x as often as a weight-1 tenant
@@ -60,13 +64,14 @@ class AdmissionQueue:
     inspects ``entry[1]`` (the future) and ``entry[4]`` (the deadline)
     — both present from the 5-tuple shape on."""
 
-    def __init__(self, config):
+    def __init__(self, config, slo=None):
         self.weights: Dict[str, float] = parse_tenant_weights(
             getattr(config, "serve_tenant_weights", ""))
         self.global_max = int(getattr(config, "serve_queue_max", 0))
         self.tenant_max = int(getattr(config,
                                       "serve_tenant_queue_max", 0))
-        self._lock = threading.Lock()      # "serve.admission"
+        self.slo = slo
+        self._lock = lockdep.make_lock("serve.admission")
         self._not_empty = threading.Condition(self._lock)
         # queue.Queue-compatible drain surface (pipeline.drain waits
         # on these exact names)
@@ -116,6 +121,7 @@ class AdmissionQueue:
         key = tenant if tenant is not None else self._entry_tenant(
             entry)
         to_fail: list = []
+        shed = False
         try:
             with self._lock:
                 dq = self._queues.get(key)
@@ -125,6 +131,7 @@ class AdmissionQueue:
                 if self.tenant_max > 0 and len(dq) >= self.tenant_max:
                     self._purge_expired_locked(key, to_fail)
                     if len(dq) >= self.tenant_max:
+                        shed = True
                         self.sheds[key] = self.sheds.get(key, 0) + 1
                         raise AdmissionShed(self.tenant_max,
                                             tenant=key or None,
@@ -133,6 +140,7 @@ class AdmissionQueue:
                         and self._size >= self.global_max:
                     self._purge_expired_locked(None, to_fail)
                     if self._size >= self.global_max:
+                        shed = True
                         self.sheds[key] = self.sheds.get(key, 0) + 1
                         raise AdmissionShed(self.global_max,
                                             tenant=key or None,
@@ -154,9 +162,33 @@ class AdmissionQueue:
                 # instead of racing set_exception
                 if fut.set_running_or_notify_cancel():
                     fut.set_exception(ex)
+            if self.slo is not None:
+                if shed:
+                    self.slo.record_shed(key or None)
+                for _f, _ex, t in to_fail:
+                    self.slo.record_miss(t or None)
 
     # queue.Queue compat (tests enqueue legacy short tuples directly)
     put_nowait = put
+
+    def record_shed(self, tenant: Optional[str]) -> None:
+        """Count a shed decided outside the bounds (the brownout rung-3
+        tenant shed happens in the pipeline, before ``put``)."""
+        key = tenant or ""
+        with self._lock:
+            self.sheds[key] = self.sheds.get(key, 0) + 1
+        if self.slo is not None:
+            self.slo.record_shed(tenant)
+
+    @staticmethod
+    def entry_provenance(entry) -> dict:
+        """One queue tuple projected for a lineage record (the
+        provenance ledger's stale-serve capture)."""
+        return {
+            "tenant": (entry[5] or None) if len(entry) > 5 else None,
+            "sla": entry[3] if len(entry) > 3 else None,
+            "staleness_ms": entry[6] if len(entry) > 6 else None,
+        }
 
     @staticmethod
     def _entry_tenant(entry) -> str:

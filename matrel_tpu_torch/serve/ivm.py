@@ -27,9 +27,11 @@ The plane owns:
 
 Entry mutation happens only through the result cache's patch/apply seam
 (``apply_patch`` / ``rekey`` / ``drop``). The session builds a
-DeltaPlane lazily on the first ``register_delta``. The provenance
-ledger, the brownout graveyard and the obs ``delta`` event are not
-ported (their knobs stay fenced).
+DeltaPlane lazily on the first ``register_delta``. With a brownout
+controller the entries a delta kills move to the stale graveyard
+(rung 2 may serve them); each applied patch appends one link to the
+provenance ledger's chain (``obs_provenance``); every delta emits one
+``delta`` obs event.
 """
 
 from __future__ import annotations
@@ -96,7 +98,7 @@ class DeltaPlane:
         old_prefix = delta_lib.delta_prefix(gen_old)
         new_prefix = delta_lib.delta_prefix(gen)
         rc = sess._result_cache
-        keep_stale = False          # the brownout graveyard: not ported
+        keep_stale = sess._brownout is not None
         deps = frozenset({id(old)})
         snapshot = rc.items_snapshot()
         dependents = [(k, e) for k, e in snapshot if e.dep_ids & deps]
@@ -172,6 +174,7 @@ class DeltaPlane:
             "est_saved_flops": round(saved_total, 1),
             "ms": round((_now() - t0) * 1e3, 3),
         }
+        sess._emit_delta_event(record)
         return record
 
     # -- one entry ----------------------------------------------------------
@@ -281,6 +284,11 @@ class DeltaPlane:
         if not ok:
             self._programs.pop(ivm_id, None)
             return False, 0.0
+        if sess._prov is not None:
+            # one lineage link per applied patch (the chain and the
+            # composed bound live on the ledger, the stamp on the entry)
+            sess._prov.stamp_patched(new_ent, gen, meta.rule,
+                                     meta.err_bound)
         if meta.plan is not None and meta.rebindable:
             # a plan over baked sparse payloads (the S×S form) would
             # answer the next same-signature delta with this one's

@@ -18,8 +18,8 @@ objects, so a recycled address can at worst invalidate a valid entry.
 Eviction: byte-budgeted LRU over the device bytes each cached result
 pins (its padded tensor). A result larger than the whole budget is never
 inserted. Thread-safe — the serve pipeline's worker and the caller's
-thread share one cache (one ``threading.RLock``; the JAX package's lock
-name ``serve.result_cache``).
+thread share one cache (one RLock, ``"serve.result_cache"`` in the
+lockdep inventory, ``utils/lockdep.py``).
 
 The spill hierarchy is not ported: ``spill`` stays None, and the
 branches that would demote to or thaw from it never run.
@@ -30,7 +30,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import logging
-import threading
 from collections import OrderedDict
 from typing import FrozenSet, Optional, Tuple
 
@@ -38,6 +37,7 @@ import torch
 
 from matrel_tpu_torch.core.blockmatrix import BlockMatrix
 from matrel_tpu_torch.resilience.retry import now as _now
+from matrel_tpu_torch.utils import lockdep
 
 _log = logging.getLogger("matrel_tpu_torch.serve")
 
@@ -97,6 +97,9 @@ class CacheEntry:
     delta_rule: ``ir/delta.DELTA_RULES`` member of the last patch.
     ivm_id: stable identity across patch generations (the delta
       plane's patch-plan reuse key; None until first patched).
+    provenance: compact lineage stamp written only through the
+      provenance ledger's seams (``obs/provenance.py``); None while
+      ``obs_provenance`` is off.
     hits: lifetime consult count of this entry.
     """
 
@@ -113,6 +116,7 @@ class CacheEntry:
     delta_gen: int = 0
     delta_rule: Optional[str] = None
     ivm_id: Optional[int] = None
+    provenance: Optional[dict] = None
     hits: int = 0
 
 
@@ -126,7 +130,7 @@ class ResultCache:
     """
 
     def __init__(self):
-        self._lock = threading.RLock()      # "serve.result_cache"
+        self._lock = lockdep.make_rlock("serve.result_cache")
         self._entries: "OrderedDict[str, CacheEntry]" = OrderedDict()
         self._bytes = 0
         self.hits = 0

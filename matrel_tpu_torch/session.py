@@ -17,19 +17,35 @@ knob asks for it, exactly where the JAX package's sits:
   (``serve/pipeline.py``: micro-batches, per-tenant weighted-fair
   admission, deadlines, bisection); ``serve_drain``/``serve_close``;
 - per-query deadlines and retries (``deadline_ms``, ``retry_*``;
-  ``resilience/``): a retry re-runs the same plan — the degradation
-  ladder is not ported;
+  ``resilience/``): each retry of a transient failure climbs one rung
+  of the degradation ladder (``resilience/degrade.py`` — rung 3 runs
+  the composite paths instead of the hand-written kernels, by design;
+  a kernel that fails to build or launch is not transient and is never
+  laddered around); injected faults (``fault_inject``), per-plan-class
+  circuit breakers (``breaker_threshold``) and the brownout controller
+  (``brownout_enable``);
 - cross-query CSE and plan templates (``cse_enable``; ``serve/mqo.py``);
 - incremental view maintenance: ``register_delta`` patches dependent
   cached results (``serve/ivm.py``, ``ir/delta.py``).
 
+The observability plane (``obs/``) rides the same seams: the JSONL
+event log and metrics registry (``obs_level``), tracing spans and the
+flight recorder (``obs_flight_recorder``), SLO monitors
+(``slo_targets``), the loopback metrics endpoint (``obs_metrics_port``),
+the answer provenance ledger behind :meth:`MatrelSession.why`
+(``obs_provenance``), EXPLAIN ANALYZE (``explain(analyze=True)``), the
+lock-order sanitizer (``lockdep_enable``) and the drift-fitted planner
+coefficients (``coeff_planner_enable``). No span synchronises the
+device; only analysis does, when asked for.
+
 With every knob at its default ``compute`` is the JAX package's
 production branch: compile (or hit the plan cache) and run, plans and
-results bit-identical to a session without the serve plane. The
-observability, brownout, breaker, fault-injection, fleet and spill
-planes are not ported: their knobs raise ``NotPortedError``, and so do
-``save_state``/``restore``. ``sql``/``explain_sql`` compile the SQL
-surface (``sql.py``) into the same IR.
+results bit-identical to a session without the serve, obs and
+resilience planes — no event is assembled, no span or plane object
+built, no sync added. The fleet and spill planes are not ported: their
+knobs raise ``NotPortedError``, and so do ``save_state``/``restore``.
+``sql``/``explain_sql`` compile the SQL surface (``sql.py``) into the
+same IR.
 
 Plan-cache keys are structural; a callable attr (a σ predicate, a ⋈
 merge) keys by the ``__matrel_key__`` tag ``sql.py`` attaches (so the
@@ -41,8 +57,10 @@ pinned identity (``_fn_token``).
 from __future__ import annotations
 
 import hashlib
+import itertools
 import logging
-import threading
+import os
+import time
 import types
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple, Union
@@ -57,17 +75,29 @@ from matrel_tpu_torch.core import mesh as mesh_lib
 from matrel_tpu_torch.core.blockmatrix import BlockMatrix
 from matrel_tpu_torch.core.mesh import Mesh
 from matrel_tpu_torch.ir.expr import MatExpr, as_expr
+from matrel_tpu_torch.obs import export as export_lib
+from matrel_tpu_torch.obs import provenance as provenance_lib
+from matrel_tpu_torch.obs import slo as slo_lib
+from matrel_tpu_torch.obs import trace as trace_lib
+from matrel_tpu_torch.resilience import breaker as breaker_lib
+from matrel_tpu_torch.resilience import brownout as brownout_lib
+from matrel_tpu_torch.resilience import degrade as degrade_lib
+from matrel_tpu_torch.resilience import errors as rerrors
+from matrel_tpu_torch.resilience import faults as faults_lib
 from matrel_tpu_torch.resilience import retry as retry_lib
 from matrel_tpu_torch.resilience.retry import RetryPolicy
 from matrel_tpu_torch.serve import mqo as mqo_lib
 from matrel_tpu_torch.serve.result_cache import (CacheEntry, ResultCache,
                                                  result_nbytes)
+from matrel_tpu_torch.utils import lockdep
 
 log = logging.getLogger("matrel_tpu_torch")
 
 _active: Optional["MatrelSession"] = None
 
 Device = Union[str, torch.device, None]
+
+_query_seq = itertools.count()
 
 
 class MatrelSession:
@@ -77,6 +107,11 @@ class MatrelSession:
                  config: Optional[MatrelConfig] = None,
                  device: Device = None):
         self.config = config or default_config()
+        # the lock-order sanitizer (utils/lockdep.py) is armed BEFORE
+        # any of this session's locks is built, so they all come back
+        # instrumented; off (the default) this is one false branch
+        if self.config.lockdep_enable:
+            lockdep.enable(raise_on_violation=self.config.lockdep_raise)
         if mesh is not None and device is not None \
                 and mesh.device != mesh_lib.resolve_device(device):
             raise ValueError(f"mesh is on {mesh.device}, device={device!r}")
@@ -96,10 +131,35 @@ class MatrelSession:
         # the caller's thread compile concurrently.
         self._result_cache = ResultCache()
         self._serve = None
-        self._compile_lock = threading.RLock()
+        self._compile_lock = lockdep.make_rlock("session.compile")
         self._mqo: Optional["mqo_lib.MqoState"] = None
         self._delta_plane = None
         self._delta_gen = 0
+        self._event_log = None      # built lazily (obs_level != "off")
+        # obs and resilience planes: each None for the default config
+        # (nothing constructed, nothing consulted). The flight-recorder
+        # ring is independent of obs_level; the tracer exists iff any
+        # span consumer does — with neither, compute()'s fast path
+        # never creates a span object at all.
+        fr_cap = self.config.obs_flight_recorder
+        self._flight = (trace_lib.FlightRecorder(fr_cap)
+                        if fr_cap > 0 else None)
+        self._tracer = (trace_lib.Tracer(self._obs_emit)
+                        if (self._flight is not None
+                            or self.config.obs_level != "off")
+                        else None)
+        self._brownout = brownout_lib.from_config(self.config)
+        self._breakers = breaker_lib.BreakerRegistry.from_config(
+            self.config)
+        self._slo = slo_lib.from_config(self.config,
+                                        emit=self._emit_alert_event)
+        self._prov = provenance_lib.from_config(self.config)
+        # the metrics endpoint is built LAST: its handler snapshots the
+        # planes above (a port that cannot bind raises here)
+        self._exporter = export_lib.from_config(self)
+        if self.config.lockdep_enable:
+            # lockdep diagnostics ride the one obs funnel
+            lockdep.set_emit(lambda rec: self._obs_emit("lockdep", rec))
 
     @property
     def device(self) -> torch.device:
@@ -158,8 +218,11 @@ class MatrelSession:
             # old binding is stale — drop it (dep sets are transitive,
             # so results built from cached intermediates drop too); a
             # no-op while the cache is off or empty
+            # with a brownout controller the invalidated entries move to
+            # the bounded stale graveyard (rung 2 may serve them to
+            # queries declaring a staleness_ms tolerance)
             self._result_cache.invalidate_deps(
-                {id(old)}, keep_stale=False,
+                {id(old)}, keep_stale=self._brownout is not None,
                 stale_max=self.config.result_cache_max_entries,
                 stale_max_bytes=self.config.result_cache_max_bytes)
 
@@ -193,7 +256,14 @@ class MatrelSession:
             if self._delta_plane is None:
                 from matrel_tpu_torch.serve.ivm import DeltaPlane
                 self._delta_plane = DeltaPlane(self)
-            return self._delta_plane.apply(name, old, d)
+            out = self._delta_plane.apply(name, old, d)
+        # SLO feed: patch latency reports under the pseudo-tenant "ivm"
+        # (a no-op without a declared ivm target)
+        if self._slo is not None and isinstance(out.get("ms"),
+                                                (int, float)):
+            self._slo.observe_latency(slo_lib.IVM_TENANT,
+                                      float(out["ms"]))
+        return out
 
     def save_state(self, directory: Optional[str] = None) -> dict:
         """Snapshot of the session's durable state — the spill plane
@@ -253,22 +323,38 @@ class MatrelSession:
             return self.config
         return self.config.replace(precision_sla=sla)
 
-    def _compile_entry(self, e: MatExpr, sla: Optional[str] = None
+    def _compile_entry(self, e: MatExpr, sla: Optional[str] = None,
+                       rung: int = 0
                        ) -> Tuple[executor_lib.CompiledPlan, bool, str]:
-        """(plan, cache_hit, key)."""
+        """(plan, cache_hit, key). ``rung`` > 0 compiles a DEGRADED
+        retry attempt (``resilience/degrade.py``): the config loses the
+        rung's features and the key gains the ``degr:<rung>|`` prefix,
+        so a degraded plan never shares the original's cache slot."""
         sla = sla if sla is not None else self.config.precision_sla
+        # fault site "compile": one attribute read when injection is off
+        faults_lib.check("compile", self.config)
         key, pins = _plan_key(e)
-        key = self._axisw_prefix() + _prec_prefix(sla) + key
+        key = (degrade_lib.key_prefix(rung) + self._axisw_prefix()
+               + self._coeff_prefix() + _prec_prefix(sla) + key)
         with self._compile_lock:
             plan = self._plan_cache.get(key)
             if plan is not None:
                 self._plan_cache.move_to_end(key)
                 return plan, True, key
-            plan = executor_lib.compile_expr(e, self.mesh,
-                                             self._sla_config(sla))
+            try:
+                plan = executor_lib.compile_expr(
+                    e, self.mesh,
+                    degrade_lib.apply_rung(self._sla_config(sla), rung))
+            except Exception as ex:
+                # the post-mortem trail BEFORE the error propagates
+                # (no-op with the flight recorder off)
+                self._flight_auto_dump(ex)
+                raise
             # pin every id()-keyed object on the cached plan: a collected
             # object's address can be reused by a later, different object
             plan._cache_pin = (e, pins)
+            if rung:
+                plan.meta["degrade"] = degrade_lib.rung_meta(rung)
             self._cache_insert(key, plan)
             return plan, False, key
 
@@ -282,7 +368,8 @@ class MatrelSession:
             self._plan_cache_evicted += 1
 
     def _compile_multi_entry(self, roots: List[MatExpr],
-                             sla: Optional[str] = None
+                             sla: Optional[str] = None,
+                             rung: int = 0
                              ) -> Tuple[executor_lib.MultiPlan, bool,
                                         List[str]]:
         """(multiplan, cache_hit, per-root keys): the MultiPlan twin of
@@ -292,6 +379,7 @@ class MatrelSession:
         plan remembers its root-key order (``_root_keys``) so callers map
         outputs back to their own roots."""
         sla = sla if sla is not None else self.config.precision_sla
+        faults_lib.check("compile", self.config)
         keyed, pins = [], []
         for e in roots:
             k, p = _plan_key(e)
@@ -301,16 +389,23 @@ class MatrelSession:
         for k, e in zip(keyed, roots):
             uniq.setdefault(k, e)
         skeys = sorted(uniq)
-        mkey = ("multi:" + self._axisw_prefix() + _prec_prefix(sla)
-                + "||".join(skeys))
+        mkey = ("multi:" + degrade_lib.key_prefix(rung)
+                + self._axisw_prefix() + self._coeff_prefix()
+                + _prec_prefix(sla) + "||".join(skeys))
         with self._compile_lock:
             plan = self._plan_cache.get(mkey)
             if plan is not None:
                 self._plan_cache.move_to_end(mkey)
                 return plan, True, keyed
-            plan = executor_lib.compile_exprs([uniq[k] for k in skeys],
-                                              self.mesh,
-                                              self._sla_config(sla))
+            try:
+                plan = executor_lib.compile_exprs(
+                    [uniq[k] for k in skeys], self.mesh,
+                    degrade_lib.apply_rung(self._sla_config(sla), rung))
+            except Exception as ex:
+                self._flight_auto_dump(ex)
+                raise
+            if rung:
+                plan.meta["degrade"] = degrade_lib.rung_meta(rung)
             plan._cache_pin = (tuple(uniq[k] for k in skeys), pins)
             plan._root_keys = tuple(skeys)
             self._cache_insert(mkey, plan)
@@ -321,6 +416,24 @@ class MatrelSession:
         if wts == (1.0, 1.0):
             return ""
         return f"axisw:{wts[0]:g}x{wts[1]:g}|"
+
+    def _coeff_epoch(self) -> Optional[str]:
+        """The coefficient epoch in force (``parallel/coeffs.epoch`` — a
+        digest of the drift table's blended ratios), or None with
+        ``coeff_planner_enable`` off."""
+        if not self.config.coeff_planner_enable:
+            return None
+        from matrel_tpu_torch.obs import drift as drift_lib
+        from matrel_tpu_torch.parallel import coeffs as coeffs_lib
+        return coeffs_lib.epoch(drift_lib.table_path(self.config))
+
+    def _coeff_prefix(self) -> str:
+        """Coefficient-epoch plan-key isolation: plans ranked under
+        different learned coefficients never share a cache slot (a
+        re-calibration bumps the epoch; old entries age out by LRU).
+        Empty with ``coeff_planner_enable`` off."""
+        ep = self._coeff_epoch()
+        return "" if ep is None else f"coeffv:{ep}|"
 
     def plan_cache_info(self) -> dict:
         return {"plans": len(self._plan_cache),
@@ -354,6 +467,9 @@ class MatrelSession:
         consult and, on a miss, every interior probe. Every consult,
         probe and insertion keys under ``prefix``, so precision tiers
         and delta generations partition the cache."""
+        # fault site "rc_probe": a faulting consult is what the
+        # ladder's rung-4 bypass routes around
+        faults_lib.check("rc_probe", self.config)
         parts, pins, spans = _plan_key_spans(e)
         key = prefix + "|".join(parts)
         ent = self._result_cache.lookup(key)
@@ -378,7 +494,11 @@ class MatrelSession:
             stamp["delta"] = {"gen": ent.delta_gen,
                               "rule": ent.delta_rule,
                               "err_bound": ent.err_bound}
-        return expr_mod.leaf(ent.result).with_attrs(result_cache=stamp)
+        node = expr_mod.leaf(ent.result).with_attrs(result_cache=stamp)
+        if self._prov is not None:
+            # the consumed entry's lineage rides the substitution leaf
+            node = self._prov.stamp_leaf(node, ent)
+        return node
 
     def _rc_substitute(self, e: MatExpr, parts: Optional[list] = None,
                        spans: Optional[dict] = None,
@@ -440,8 +560,8 @@ class MatrelSession:
                         staleness_ms: Optional[float]):
         """The STALE entry for this query iff it declared a
         ``staleness_ms`` tolerance its age fits (the brownout rung-2
-        consult; nothing feeds the stale graveyard while brownout is
-        not ported, so this finds nothing)."""
+        consult: only a session with a brownout controller keeps the
+        graveyard, so otherwise this finds nothing)."""
         if (not self._rc_enabled() or not staleness_ms
                 or staleness_ms <= 0):
             return None
@@ -451,13 +571,15 @@ class MatrelSession:
 
     def _rc_insert(self, key: str, pins: list, executed: MatExpr,
                    out: BlockMatrix, orig: Optional[MatExpr] = None,
-                   prec: str = "", plan=None) -> None:
+                   prec: str = "", plan=None,
+                   prov: Optional[dict] = None) -> None:
         """Cache one executed result under its structural key.
         ``executed`` is the (possibly substituted) tree that ran — its
         leaves name the deps; ``pins`` keep the key's id()-referenced
         objects alive; ``orig`` is the pre-substitution tree the delta
         plane derives patches from; ``plan`` supplies the stamped tier's
-        error bound."""
+        error bound; ``prov`` is the producing answer's lineage summary
+        (the entry's provenance stamp names it)."""
         from matrel_tpu_torch.ir import expr as expr_mod
         from matrel_tpu_torch.parallel import planner
         bound = 0.0
@@ -476,6 +598,8 @@ class MatrelSession:
             prec=prec,
             err_bound=bound,
         )
+        if prov is not None and self._prov is not None:
+            self._prov.stamp_entry(ent, prov["path"], prov["query_id"])
         self._result_cache.put(key, ent,
                                self.config.result_cache_max_bytes,
                                self.config.result_cache_max_entries)
@@ -500,17 +624,20 @@ class MatrelSession:
                     "cse_batches": 0}
         return self._mqo.info()
 
-    def _tpl_prefix(self, sla: str) -> str:
+    def _tpl_prefix(self, sla: str, rung: int = 0) -> str:
         """Template keys compose the concrete plan key's isolation
-        prefixes, so a fast-SLA template never serves an exact query."""
-        return self._axisw_prefix() + _prec_prefix(sla)
+        prefixes (``degr:``/``axisw:``/``coeffv:``/``prec:``), so a
+        degraded or fast-SLA template never serves a pristine exact
+        query."""
+        return (degrade_lib.key_prefix(rung) + self._axisw_prefix()
+                + self._coeff_prefix() + _prec_prefix(sla))
 
-    def _template_probe(self, e: MatExpr, sla: str):
+    def _template_probe(self, e: MatExpr, sla: str, rung: int = 0):
         """(plan, concrete key, bindings) when a cached template serves
         this query by rebinding its dense leaves; None when the concrete
         plan is cached, the tree is ineligible, no template matches, or
         one template leaf would face two distinct matrices."""
-        prefix = self._tpl_prefix(sla)
+        prefix = self._tpl_prefix(sla, rung)
         key, _pins = _plan_key(e)
         ckey = prefix + key
         with self._compile_lock:
@@ -537,7 +664,8 @@ class MatrelSession:
             st.template_hits += 1
             return ent.plan, ckey, bindings
 
-    def _template_insert(self, e: MatExpr, plan, sla: str) -> None:
+    def _template_insert(self, e: MatExpr, plan, sla: str,
+                         rung: int = 0) -> None:
         """Record a freshly compiled single plan as a rebindable
         template (only when every dense leaf of the program is one the
         abstract key recorded)."""
@@ -552,14 +680,15 @@ class MatrelSession:
             return
         with self._compile_lock:
             st = self._mqo_state()
-            st.put_template(self._tpl_prefix(sla) + akey, ent)
+            st.put_template(self._tpl_prefix(sla, rung) + akey, ent)
             st.template_inserts += 1
 
-    def _template_probe_multi(self, roots: List[MatExpr], sla: str):
+    def _template_probe_multi(self, roots: List[MatExpr], sla: str,
+                              rung: int = 0):
         """(plan, per-root concrete keys, pos, bindings) when a cached
         MultiPlan template matches this batch modulo dense-leaf
         bindings (roots pair to slots by abstract key)."""
-        prefix = self._tpl_prefix(sla)
+        prefix = self._tpl_prefix(sla, rung)
         keyed = []
         for e in roots:
             k, _p = _plan_key(e)
@@ -611,7 +740,8 @@ class MatrelSession:
             st.template_hits += len(roots)
             return ent.plan, keyed, pos, bindings
 
-    def _template_insert_multi(self, plan, sla: str) -> None:
+    def _template_insert_multi(self, plan, sla: str,
+                               rung: int = 0) -> None:
         """Record a freshly compiled MultiPlan as a rebindable template
         (its pinned unique roots are in plan-root order)."""
         roots = plan._cache_pin[0]
@@ -631,11 +761,11 @@ class MatrelSession:
         with self._compile_lock:
             st = self._mqo_state()
             st.put_template(
-                "multi:" + self._tpl_prefix(sla)
+                "multi:" + self._tpl_prefix(sla, rung)
                 + "||".join(sorted(ak for ak, _u in slots)), ent)
             st.template_inserts += 1
 
-    def _cse_hoist_batch(self, pend: list, sla: str,
+    def _cse_hoist_batch(self, pend: list, sla: str, rung: int,
                          rc: bool) -> Tuple[list, int]:
         """Hoist the shared interiors of one pending batch into a
         compute-once MultiPlan, then substitute each result into its
@@ -654,17 +784,20 @@ class MatrelSession:
         if not hoists:
             return pend, 0
         st = self._mqo_state()
-        hexprs = [h.expr for h in hoists]
-        bindings = None
-        tpl = self._template_probe_multi(hexprs, sla)
-        if tpl is not None:
-            plan, hkeys, pos, bindings = tpl
-        else:
-            plan, p_hit, hkeys = self._compile_multi_entry(hexprs, sla=sla)
-            pos = {k: j for j, k in enumerate(plan._root_keys)}
-            if not p_hit:
-                self._template_insert_multi(plan, sla)
-        outs = self._arbitrated_run(plan, bindings=bindings)
+        with trace_lib.span("cse.hoist", shared=len(hoists)):
+            hexprs = [h.expr for h in hoists]
+            bindings = None
+            tpl = self._template_probe_multi(hexprs, sla, rung)
+            if tpl is not None:
+                plan, hkeys, pos, bindings = tpl
+            else:
+                plan, p_hit, hkeys = self._compile_multi_entry(
+                    hexprs, sla=sla, rung=rung)
+                pos = {k: j for j, k in enumerate(plan._root_keys)}
+                if not p_hit:
+                    self._template_insert_multi(plan, sla, rung)
+            faults_lib.check("execute", self.config)
+            outs = self._arbitrated_run(plan, bindings=bindings)
         rc_prefix = self._rc_key_prefix(sla)
         leaf_of: dict = {}
         for h, hk in zip(hoists, hkeys):
@@ -679,12 +812,20 @@ class MatrelSession:
                 "uses": h.uses,
             }
             node = expr_mod.leaf(out).with_attrs(cse=stamp)
+            summary = None
+            if self._prov is not None:
+                summary = self._prov_capture(
+                    "cse_hoist", full, sla, rung=rung, expr=h.expr,
+                    result=out, executed=h.expr, plan=plan,
+                    strategies=executor_lib.multiplan_root_decisions(
+                        plan)[pos[hk]])
             if rc:
                 # the interior key is exactly what a later query's
                 # _rc_substitute probe computes for a matching subtree
                 _k2, p2 = _plan_key(h.expr)
                 self._rc_insert(full, p2, h.expr, out, orig=h.expr,
-                                prec=_prec_prefix(sla), plan=plan)
+                                prec=_prec_prefix(sla), plan=plan,
+                                prov=summary)
             for u in h.uids:
                 leaf_of[u] = node
         new_pend = []
@@ -697,11 +838,369 @@ class MatrelSession:
         st.cse_batches += 1
         return new_pend, len(hoists)
 
+    # -- observability (obs/) ------------------------------------------------
+
+    def _obs_enabled(self) -> bool:
+        return self.config.obs_level != "off"
+
+    def _obs_event_log(self):
+        from matrel_tpu_torch.obs.events import EventLog, resolve_path
+        path = resolve_path(self.config.obs_event_log)
+        max_bytes = self.config.obs_event_log_max_bytes
+        if (self._event_log is None or self._event_log.path != path
+                or self._event_log.max_bytes != max_bytes):
+            self._event_log = EventLog(path, max_bytes=max_bytes)
+        return self._event_log
+
+    def _obs_emit(self, kind: str, record: dict) -> None:
+        """The one emission funnel for session events AND finished
+        spans: the JSONL event log when obs is on, the flight-recorder
+        ring when configured — each independently."""
+        full = None
+        if self._obs_enabled():
+            full = self._obs_event_log().emit(kind, record)
+        if self._flight is not None:
+            if full is None:
+                from matrel_tpu_torch.obs.events import SCHEMA_VERSION
+                full = {"schema": SCHEMA_VERSION,
+                        "ts": round(time.time(), 3), "kind": kind}
+                full.update(record)
+            self._flight.add(full)
+
+    # -- answer provenance ledger (obs/provenance.py) -------------------------
+
+    def _prov_capture(self, path: str, key: str, sla: str,
+                      rung: int = 0, expr=None, result=None, ent=None,
+                      executed=None, plan=None, strategies=None,
+                      stale=None) -> Optional[dict]:
+        """One lineage record + ``provenance`` event per served answer.
+        Callers guard on ``self._prov is not None`` (the off path
+        assembles no arguments); a capture failure never fails the
+        answer it describes. The record keeps the compile config the
+        answer was produced under (SLA + degrade rung), so audit replay
+        reconstructs it."""
+        try:
+            cfg = degrade_lib.apply_rung(self._sla_config(sla), rung)
+            summary = self._prov.capture(
+                path, key, sla, rung=rung, expr=expr, result=result,
+                ent=ent, executed=executed, plan=plan,
+                strategies=strategies, mesh=self.mesh, config=cfg,
+                stale=stale, coeff_epoch=self._coeff_epoch())
+            self._obs_emit("provenance", summary)
+            return summary
+        except Exception:
+            log.warning("obs: provenance record dropped", exc_info=True)
+            return None
+
+    def _prov_capture_stale(self, e: MatExpr, ent, meta: dict) -> None:
+        """Rung-2 stale-serve capture (serve/pipeline.py): the
+        structural key recomputed (paid only with the ledger on) and
+        the staleness grant the answer was served under."""
+        sla = meta.get("sla") or self.config.precision_sla
+        parts, _pins, _spans = _plan_key_spans(e)
+        key = self._rc_key_prefix(sla) + "|".join(parts)
+        stale = {"staleness_ms": float(meta.get("staleness_ms") or 0.0)}
+        if meta.get("tenant"):
+            stale["tenant"] = meta["tenant"]
+        self._prov_capture("stale", key, sla, ent=ent, stale=stale)
+
+    def why(self, query=None, last: int = 10) -> list:
+        """Lineage of recently served answers: the JSON-safe summary
+        dicts of the provenance ledger, newest last. ``query`` filters
+        by key / key-hash substring or ledger query id, or by the
+        answer itself (a BlockMatrix matches by identity). Empty when
+        ``config.obs_provenance`` is 0."""
+        if self._prov is None:
+            return []
+        if query is None:
+            recs = self._prov.last(last)
+        elif isinstance(query, BlockMatrix):
+            recs = [r for r in self._prov.records() if r.result is query]
+        else:
+            recs = self._prov.find(str(query))
+        return [r.summary for r in recs]
+
+    def provenance_info(self) -> dict:
+        """``plan_cache_info``-style surface of the ledger."""
+        if self._prov is None:
+            return {"records": 0, "cap": 0, "captured": 0, "chains": 0}
+        return self._prov.info()
+
+    # -- flight recorder (obs/trace.py) ---------------------------------------
+
+    def dump_flight_recorder(self, path: Optional[str] = None,
+                             reason: str = "explicit",
+                             error: Optional[str] = None
+                             ) -> Optional[str]:
+        """Write the flight-recorder ring as a JSON artifact and return
+        its path (None when the recorder is off)."""
+        if self._flight is None:
+            return None
+        p = (path or self.config.obs_flight_recorder_path
+             or trace_lib.DEFAULT_FLIGHT_PATH)
+        return self._flight.dump(p, reason, error=error)
+
+    def _flight_auto_dump(self, ex: BaseException,
+                          reason: str = "compile_failure") -> None:
+        """Best-effort dump on a failure path — a post-mortem artifact
+        never masks the original exception."""
+        if self._flight is None:
+            return
+        try:
+            p = self.dump_flight_recorder(reason=reason,
+                                          error=repr(ex)[:500])
+            log.warning("flight recorder dumped to %s (%s)", p, reason)
+        except Exception:
+            log.warning("flight recorder dump failed", exc_info=True)
+
+    # -- obs event emitters ---------------------------------------------------
+
+    def _emit_query_event(self, e: MatExpr, plan, hit: bool, key: str,
+                          execute_ms: float, first_execution: bool,
+                          out: BlockMatrix, matmuls=None,
+                          rule_hits=None, batch=None,
+                          tenant: Optional[str] = None,
+                          cache_label: Optional[str] = None) -> None:
+        """One event-log record + metrics updates per query run, from
+        data the compile path already produced (plan.meta). The JAX
+        package's fields; ``backend`` is the result's device type and,
+        on a CUDA result, ``execute_clock: "host"`` says ``execute_ms``
+        timed the launch (no span syncs the device)."""
+        from matrel_tpu_torch.obs.metrics import REGISTRY
+        meta = plan.meta or {}
+        if matmuls is None:
+            matmuls = executor_lib.plan_matmul_decisions(plan)
+        sql_hash = getattr(e, "_sql_hash", None)
+        record = {
+            "query_id": f"q{os.getpid()}-{next(_query_seq)}",
+            "source": "sql" if sql_hash else "dsl",
+            "source_hash": sql_hash
+            or hashlib.sha1(key.encode()).hexdigest()[:16],
+            "root_kind": e.kind,
+            "cache": cache_label or ("hit" if hit else "miss"),
+            "optimize_ms": (0.0 if cache_label == "template_hit"
+                            else meta.get("optimize_ms")),
+            "trace_ms": (0.0 if cache_label == "template_hit"
+                         else meta.get("trace_ms")),
+            # compile-scoped: a cache hit ran no rewrite rules
+            "rule_hits": (rule_hits if rule_hits is not None
+                          else ({} if hit else meta.get("rule_hits",
+                                                        {}))),
+            "matmuls": matmuls,
+            "execute_ms": round(execute_ms, 3),
+            "first_execution": first_execution,
+            "out_shape": list(out.shape),
+            "out_nnz": out.nnz,
+            "plan_cache": self.plan_cache_info(),
+        }
+        if batch is not None:
+            record["batch"] = batch
+        if tenant:
+            record["tenant"] = tenant
+        if meta.get("fusion"):
+            record["fusion"] = meta["fusion"]
+        if self._rc_enabled():
+            record["result_cache"] = self._result_cache.info()
+        device = out.data.device
+        record["backend"] = device.type
+        if device.type == "cuda":
+            record["execute_clock"] = "host"
+        if self.config.coeff_planner_enable:
+            record["coeff_epoch"] = self._coeff_epoch()
+        self._obs_emit("query", record)
+        REGISTRY.counter("query.count").inc()
+        REGISTRY.counter("plan_cache.hit" if hit
+                         else "plan_cache.miss").inc()
+        if cache_label == "template_hit":
+            REGISTRY.counter("mqo.template_hit").inc()
+        REGISTRY.gauge("plan_cache.plans").set(len(self._plan_cache))
+        REGISTRY.gauge("plan_cache.evicted").set(self._plan_cache_evicted)
+        REGISTRY.histogram("query.execute_ms").observe(execute_ms)
+        if not hit:
+            if meta.get("optimize_ms") is not None:
+                REGISTRY.histogram("query.optimize_ms").observe(
+                    meta["optimize_ms"])
+            for rule, n in meta.get("rule_hits", {}).items():
+                REGISTRY.counter(f"optimizer.rule.{rule}").inc(n)
+        for d in matmuls:
+            REGISTRY.counter(f"planner.strategy.{d['strategy']}").inc()
+
+    def _emit_verify_event(self, plan) -> None:
+        """One ``verify`` record per observed run of a plan that carries
+        the static verifier's diagnostics. The verifier
+        (``verify_plans``) is not ported, so no plan carries them yet
+        and this emits nothing; the record's shape is the JAX
+        package's."""
+        diags = (plan.meta or {}).get("diagnostics")
+        if diags is None:
+            return
+        from matrel_tpu_torch.obs.metrics import REGISTRY
+        self._obs_emit("verify", {
+            "mode": self.config.verify_plans,
+            "count": len(diags),
+            "errors": sum(1 for d in diags if d["severity"] == "error"),
+            "codes": sorted({d["code"] for d in diags}),
+        })
+        REGISTRY.counter("verify.count").inc()
+        if diags:
+            REGISTRY.counter("verify.diagnostics").inc(len(diags))
+
+    def _emit_rc_hit_event(self, e: MatExpr, key: str, out: BlockMatrix,
+                           tenant: Optional[str] = None) -> None:
+        """Query record of a WHOLE-query result-cache hit: nothing
+        compiled, nothing run."""
+        from matrel_tpu_torch.obs.metrics import REGISTRY
+        sql_hash = getattr(e, "_sql_hash", None)
+        self._obs_emit("query", {
+            **({"tenant": tenant} if tenant else {}),
+            "query_id": f"q{os.getpid()}-{next(_query_seq)}",
+            "source": "sql" if sql_hash else "dsl",
+            "source_hash": sql_hash
+            or hashlib.sha1(key.encode()).hexdigest()[:16],
+            "root_kind": e.kind,
+            "cache": "rc_hit",
+            "optimize_ms": None,
+            "trace_ms": None,
+            "rule_hits": {},
+            "matmuls": [],
+            "execute_ms": 0.0,
+            "first_execution": False,
+            "out_shape": list(out.shape),
+            "out_nnz": out.nnz,
+            "plan_cache": self.plan_cache_info(),
+            "result_cache": self._result_cache.info(),
+        })
+        REGISTRY.counter("query.count").inc()
+        REGISTRY.counter("result_cache.hit").inc()
+
+    def _emit_delta_event(self, record: dict) -> None:
+        """One ``delta`` record per ``register_delta`` (obs on or the
+        flight recorder on; nothing otherwise): the maintenance
+        summary. Never fails the register."""
+        if not self._obs_enabled() and self._flight is None:
+            return
+        from matrel_tpu_torch.obs.metrics import REGISTRY
+        try:
+            rec = dict(record)
+            if self._rc_enabled():
+                rec["result_cache"] = self._result_cache.info()
+            self._obs_emit("delta", rec)
+            REGISTRY.counter("ivm.registered").inc()
+            REGISTRY.counter("ivm.patched").inc(record.get("patched", 0))
+            REGISTRY.counter("ivm.killed").inc(record.get("killed", 0))
+        except Exception:
+            log.warning("obs: delta event dropped", exc_info=True)
+
+    def _emit_serve_event(self, record: dict) -> None:
+        """One ``serve`` record per micro-batched admission (obs on):
+        batch size, queue waits, result-cache state, in-flight depth."""
+        from matrel_tpu_torch.obs.metrics import REGISTRY
+        record = dict(record)
+        record["result_cache"] = self._result_cache.info()
+        self._obs_emit("serve", record)
+        REGISTRY.counter("serve.batches").inc()
+        REGISTRY.counter("serve.queries").inc(record.get("batch_size", 0))
+        for w in record.get("queue_wait_ms") or ():
+            REGISTRY.histogram("serve.queue_wait_ms").observe(w)
+        REGISTRY.gauge("result_cache.entries").set(
+            record["result_cache"]["entries"])
+        REGISTRY.gauge("result_cache.bytes").set(
+            record["result_cache"]["bytes"])
+
+    def _emit_alert_event(self, record: dict) -> None:
+        """One ``alert`` record per SLO alert TRANSITION (event log when
+        obs is on, flight ring whenever it exists)."""
+        from matrel_tpu_torch.obs.metrics import REGISTRY
+        try:
+            self._obs_emit("alert", record)
+            REGISTRY.counter(
+                "slo.alerts.fired" if record.get("state") == "firing"
+                else "slo.alerts.cleared").inc()
+            REGISTRY.gauge("slo.alerts.active").set(
+                record.get("active", 0))
+        except Exception:
+            log.warning("obs: alert event dropped", exc_info=True)
+
+    def _emit_overload_event(self, record: dict) -> None:
+        """One ``overload`` record per admission cycle while the control
+        plane is active (serve/pipeline.py assembles it)."""
+        from matrel_tpu_torch.obs.metrics import REGISTRY
+        try:
+            self._obs_emit("overload", record)
+            REGISTRY.gauge("overload.rung").set(record.get("rung", 0))
+        except Exception:
+            log.warning("obs: overload event dropped", exc_info=True)
+
+    def _emit_fault_event(self, ex: BaseException, scope: str) -> None:
+        """One ``fault`` record per failure the resilient path caught
+        (obs on / flight recorder on); injected faults carry their
+        site."""
+        if not self._obs_enabled() and self._flight is None:
+            return
+        rec = {"scope": scope, "error": type(ex).__name__,
+               "classification": rerrors.classify(ex),
+               "message": str(ex)[:200]}
+        if isinstance(ex, rerrors.InjectedFault):
+            rec["site"] = ex.site
+            rec["injected"] = True
+        try:
+            self._obs_emit("fault", rec)
+        except Exception:
+            log.warning("obs: fault event dropped", exc_info=True)
+
+    def _emit_retry_event(self, ex: BaseException, attempt: int,
+                          rung: int, scope: str) -> None:
+        if not self._obs_enabled() and self._flight is None:
+            return
+        try:
+            self._obs_emit("retry", {
+                "scope": scope, "attempt": attempt, "rung": rung,
+                "rung_label": degrade_lib.rung_label(rung),
+                "error": type(ex).__name__})
+        except Exception:
+            log.warning("obs: retry event dropped", exc_info=True)
+
+    def _emit_degrade_event(self, rung: int, ex: BaseException,
+                            scope: str) -> None:
+        if not self._obs_enabled() and self._flight is None:
+            return
+        try:
+            self._obs_emit("degrade", {
+                "scope": scope, "rung": rung,
+                "rung_label": degrade_lib.rung_label(rung),
+                "cause": type(ex).__name__})
+        except Exception:
+            log.warning("obs: degrade event dropped", exc_info=True)
+
     def _arbitrated_run(self, plan, bindings=None):
         """Run one compiled plan (``bindings`` rebinds dense leaves by
         uid — template hits). The JAX package serialises this under a
-        fleet's execution lock; without a fleet it is ``plan.run``."""
+        fleet's execution lock; without a fleet it is ``plan.run``. A
+        sanctioned dispatch point for the lock-order sanitizer."""
+        lockdep.note_dispatch("session.dispatch")
         return plan.run(bindings=bindings)
+
+    def _run_observed(self, e: MatExpr, plan, hit: bool, key: str,
+                      tenant: Optional[str] = None, bindings=None,
+                      cache_label: Optional[str] = None) -> BlockMatrix:
+        """Run one compiled plan under the ``query.execute`` span and
+        emit its query record (the obs-on half of compute()). The span
+        reads the host clock and adds no device sync: on the card
+        ``execute_ms`` is the launch time."""
+        first = not getattr(plan, "_obs_executed", False)
+        with trace_lib.phase("query.execute",
+                             cache=cache_label
+                             or ("hit" if hit else "miss")) as sp:
+            out = self._arbitrated_run(plan, bindings=bindings)
+        plan._obs_executed = True
+        try:
+            self._emit_query_event(e, plan, hit, key, sp.dur_ms, first,
+                                   out, tenant=tenant,
+                                   cache_label=cache_label)
+            self._emit_verify_event(plan)
+        except Exception:   # the result exists: never fail the query
+            log.warning("obs: query event dropped", exc_info=True)
+        return out
 
     # -- actions ------------------------------------------------------------
 
@@ -713,68 +1212,148 @@ class MatrelSession:
         ("exact"/"high"/"fast"/explicit dtype); None defers to a SQL
         PRECISION clause, then ``config.precision_sla``. ``deadline_ms``
         is the per-query deadline (None defers to ``config.deadline_ms``;
-        expiry raises the typed ``DeadlineExceeded``). ``tenant`` names
-        the query's tenant (admission fairness lives in ``submit``)."""
+        expiry raises the typed ``DeadlineExceeded``). ``tenant`` tags
+        the query's obs records (admission fairness lives in
+        ``submit``). With breakers on, an open plan class fails fast
+        typed (``CircuitOpen``)."""
         e = as_expr(expr)
         sla = self._resolve_sla(precision, e)
         pol = RetryPolicy.from_config(self.config, deadline_ms)
         rc = self._rc_enabled()
-        if pol is not None:
-            return self._compute_resilient(e, rc, sla, pol)
-        if not rc and not self._cse_on():
-            # the production path: no cache-key walks beyond the plan
-            # cache's own
-            return self._arbitrated_run(self._compile_entry(e, sla=sla)[0])
-        return self._compute_observed(e, rc, sla)
+        if self._breakers is None:
+            return self._compute_dispatch(e, sla, pol, rc, tenant)
+        bclass = self._breakers.plan_class(e)
+        self._breakers.admit(bclass)
+        try:
+            out = self._compute_dispatch(e, sla, pol, rc, tenant)
+        except Exception as ex:
+            self._breakers.record(
+                bclass,
+                False if breaker_lib.counts_as_failure(ex) else None)
+            raise
+        self._breakers.record(bclass, True)
+        return out
 
     # the reference's Dataset actions read as "run the query"
     run = compute
 
+    def _compute_dispatch(self, e: MatExpr, sla: str,
+                          pol: Optional[RetryPolicy], rc: bool,
+                          tenant: Optional[str]) -> BlockMatrix:
+        """compute() behind the breaker gate: the resilient / fast /
+        observed three-way."""
+        if pol is not None:
+            return self._compute_resilient(e, rc, sla, pol,
+                                           tenant=tenant)
+        if (not rc and not self._obs_enabled() and self._tracer is None
+                and not self._cse_on() and self._prov is None):
+            # the production path: no event assembly, no span, no
+            # cache-key walks beyond the plan cache's own (with
+            # fault_inject set the policy above is never None). A
+            # provenance ledger takes the observed path: every answer
+            # appends its record (the JAX package's gate omits the
+            # ledger, so there a plain compute() records nothing)
+            return self._arbitrated_run(self._compile_entry(e, sla=sla)[0])
+        # per-thread tracer activation: the executor's compile phases
+        # and every span below parent-link into this query's trail
+        with trace_lib.activate(self._tracer), \
+                trace_lib.span("query", root_kind=e.kind):
+            return self._compute_observed(e, rc, sla, tenant=tenant)
+
     def _compute_observed(self, e: MatExpr, rc: bool,
-                          sla: Optional[str] = None) -> BlockMatrix:
+                          sla: Optional[str] = None, rung: int = 0,
+                          tenant: Optional[str] = None) -> BlockMatrix:
         """compute() past the fast-path gate: result-cache admission,
-        the plan-template probe, compile, execute, insert."""
+        the plan-template probe, compile, execute, insert — each scoped
+        by a span. ``rung`` is the degradation ladder's step."""
         sla = sla if sla is not None else self.config.precision_sla
         key = pins = None
         orig = e
         if rc:
-            ent, key, pins, e = self._rc_admit(e, self._rc_key_prefix(sla))
+            with trace_lib.span("rc.probe") as sp:
+                ent, key, pins, e = self._rc_admit(
+                    e, self._rc_key_prefix(sla))
+                sp.set(hit=ent is not None)
             if ent is not None:
+                if self._obs_enabled():
+                    try:
+                        self._emit_rc_hit_event(e, key, ent.result,
+                                                tenant=tenant)
+                    except Exception:
+                        log.warning("obs: query event dropped",
+                                    exc_info=True)
+                if self._prov is not None:
+                    self._prov_capture("rc_hit", key, sla, rung=rung,
+                                       ent=ent)
                 return ent.result
-        bindings = None
-        tpl = self._template_probe(e, sla) if self._cse_on() else None
-        if tpl is not None:
-            plan, _pkey, bindings = tpl
+        bindings = cache_label = None
+        with trace_lib.span("plan"):
+            tpl = (self._template_probe(e, sla, rung)
+                   if self._cse_on() else None)
+            if tpl is not None:
+                plan, pkey, bindings = tpl
+                hit, cache_label = True, "template_hit"
+            else:
+                plan, hit, pkey = self._compile_entry(e, sla=sla,
+                                                      rung=rung)
+                if self._cse_on() and not hit:
+                    self._template_insert(e, plan, sla, rung)
+        # fault site "execute": the host-side dispatch point — the main
+        # retryable site
+        faults_lib.check("execute", self.config)
+        if self._obs_enabled():
+            out = self._run_observed(e, plan, hit, pkey, tenant=tenant,
+                                     bindings=bindings,
+                                     cache_label=cache_label)
         else:
-            plan, hit, _pkey = self._compile_entry(e, sla=sla)
-            if self._cse_on() and not hit:
-                self._template_insert(e, plan, sla)
-        out = self._arbitrated_run(plan, bindings=bindings)
+            with trace_lib.span("query.execute"):
+                out = self._arbitrated_run(plan, bindings=bindings)
+        summary = None
+        if self._prov is not None:
+            # captured BEFORE the cache insert, so the new entry's
+            # stamp names this record's query id
+            summary = self._prov_capture(
+                "execute", key if key is not None else pkey, sla,
+                rung=rung, expr=orig, result=out, executed=e, plan=plan)
         if rc:
             self._rc_insert(key, pins, e, out, orig=orig,
-                            prec=_prec_prefix(sla), plan=plan)
+                            prec=_prec_prefix(sla), plan=plan,
+                            prov=summary)
         return out
 
     def _compute_resilient(self, e: MatExpr, rc: bool, sla: str,
-                           pol: RetryPolicy,
-                           should_abort=None) -> BlockMatrix:
+                           pol: RetryPolicy, should_abort=None,
+                           tenant: Optional[str] = None) -> BlockMatrix:
         """The attempt loop: run the query; on a TRANSIENT failure
-        retry with backoff (the same plan — the degradation ladder is
-        not ported). Deterministic failures, exhausted attempts and
-        expired deadlines propagate typed; a result delivered past the
-        deadline raises too."""
+        retry with backoff, climbing one rung of the degradation ladder
+        per retry (``resilience/degrade.py``; rung 4 also bypasses the
+        result cache). Deterministic failures — a kernel that does not
+        build or launch among them — exhausted attempts and expired
+        deadlines propagate typed; a result delivered past the deadline
+        raises too."""
         deadline = pol.deadline()
         attempt = 0
+        rung = 0
         while True:
             deadline.raise_if_expired()
             try:
-                out = self._compute_observed(e, rc, sla)
+                with trace_lib.activate(self._tracer), \
+                        trace_lib.span("query", root_kind=e.kind,
+                                       attempt=attempt, rung=rung):
+                    out = self._compute_observed(
+                        e, rc and rung < degrade_lib.RC_BYPASS_RUNG,
+                        sla, rung=rung, tenant=tenant)
                 deadline.raise_if_expired()
                 return out
             except Exception as ex:
+                self._emit_fault_event(ex, scope="query")
                 if not pol.should_retry(ex, attempt):
                     raise
                 attempt += 1
+                rung, escalated = degrade_lib.next_rung(rung)
+                self._emit_retry_event(ex, attempt, rung, scope="query")
+                if escalated:
+                    self._emit_degrade_event(rung, ex, scope="query")
                 pol.backoff_sleep(attempt, deadline,
                                   should_abort=should_abort)
 
@@ -798,80 +1377,206 @@ class MatrelSession:
         ``deadline_ms`` the batch deadline (None defers to
         ``config.deadline_ms``); ``tenant`` tags the batch.
 
-        ``_queue_wait_ms``, ``_inflight_depth`` and ``_tenants`` are the
-        serve pipeline's channel into the JAX package's serve events
-        (not ported: accepted, unused); ``_brownout_rung`` belongs to
-        the brownout plane, which is not ported — setting it raises
-        ``NotPortedError``."""
-        if _brownout_rung is not None:
-            raise NotPortedError(
-                "run_many(_brownout_rung=...): the brownout plane is not "
-                "ported to matrel_tpu_torch yet")
+        The underscore parameters are the serve pipeline's channel into
+        the ``serve`` / ``query`` obs records: per-query queue waits,
+        the in-flight depth, per-query tenants and the brownout rung the
+        batch was admitted under."""
         es = [as_expr(x) for x in exprs]
         if not es:
             return []
+        if _tenants is None and tenant:
+            _tenants = [tenant] * len(es)
         sla = self._resolve_sla(precision)
         pol = RetryPolicy.from_config(self.config, deadline_ms)
         if pol is not None:
-            return self._run_many_resilient(es, sla, pol)
-        return self._run_many_observed(es, self._rc_enabled(), sla)
+            return self._run_many_resilient(
+                es, sla, pol, _queue_wait_ms, _inflight_depth,
+                _tenants=_tenants, _brownout_rung=_brownout_rung)
+        rc = self._rc_enabled()
+        obs = self._obs_enabled()
+        with trace_lib.activate(self._tracer), \
+                trace_lib.span("serve.batch", size=len(es)) as sp_batch:
+            return self._run_many_observed(
+                es, rc, obs, sp_batch, _queue_wait_ms, _inflight_depth,
+                sla, _tenants=_tenants, _brownout_rung=_brownout_rung)
 
     def _run_many_resilient(self, es, sla: str, pol: RetryPolicy,
-                            should_abort=None) -> List[BlockMatrix]:
+                            _queue_wait_ms=None, _inflight_depth: int = 0,
+                            should_abort=None, _tenants=None,
+                            _brownout_rung: Optional[int] = None
+                            ) -> List[BlockMatrix]:
         """The batch twin of :meth:`_compute_resilient`: the whole
-        MultiPlan retries as one unit."""
+        MultiPlan retries as one unit, climbing the same ladder."""
         deadline = pol.deadline()
         attempt = 0
+        rung = 0
         while True:
             deadline.raise_if_expired(context="batch")
+            rc = self._rc_enabled() and rung < degrade_lib.RC_BYPASS_RUNG
+            obs = self._obs_enabled()
             try:
-                outs = self._run_many_observed(es, self._rc_enabled(), sla)
+                with trace_lib.activate(self._tracer), \
+                        trace_lib.span("serve.batch", size=len(es),
+                                       attempt=attempt,
+                                       rung=rung) as sp_batch:
+                    outs = self._run_many_observed(
+                        es, rc, obs, sp_batch, _queue_wait_ms,
+                        _inflight_depth, sla, rung=rung,
+                        _tenants=_tenants,
+                        _brownout_rung=_brownout_rung)
                 deadline.raise_if_expired(context="batch")
                 return outs
             except Exception as ex:
+                self._emit_fault_event(ex, scope="batch")
                 if not pol.should_retry(ex, attempt):
                     raise
                 attempt += 1
+                rung, escalated = degrade_lib.next_rung(rung)
+                self._emit_retry_event(ex, attempt, rung, scope="batch")
+                if escalated:
+                    self._emit_degrade_event(rung, ex, scope="batch")
                 pol.backoff_sleep(attempt, deadline,
                                   should_abort=should_abort)
 
-    def _run_many_observed(self, es, rc: bool, sla: str
+    def _run_many_observed(self, es, rc: bool, obs: bool, sp_batch,
+                           _queue_wait_ms, _inflight_depth,
+                           sla: Optional[str] = None, rung: int = 0,
+                           _tenants=None,
+                           _brownout_rung: Optional[int] = None
                            ) -> List[BlockMatrix]:
+        sla = sla if sla is not None else self.config.precision_sla
+
+        def _tenant_of(i):
+            return (_tenants[i] if _tenants is not None
+                    and i < len(_tenants) else None)
         results: Dict[int, BlockMatrix] = {}
         rc_meta: dict = {}
         pend: list = []
         for i, e in enumerate(es):
             orig = e
             if rc:
-                ent, key, pins, e = self._rc_admit(
-                    e, self._rc_key_prefix(sla))
+                with trace_lib.span("rc.probe", index=i) as sp:
+                    ent, key, pins, e = self._rc_admit(
+                        e, self._rc_key_prefix(sla))
+                    sp.set(hit=ent is not None)
                 if ent is not None:
                     results[i] = ent.result
+                    if obs:
+                        try:
+                            self._emit_rc_hit_event(
+                                e, key, ent.result, tenant=_tenant_of(i))
+                        except Exception:
+                            log.warning("obs: query event dropped",
+                                        exc_info=True)
+                    if self._prov is not None:
+                        self._prov_capture("rc_hit", key, sla, rung=rung,
+                                           ent=ent)
                     continue
                 rc_meta[i] = (key, pins, orig)
             pend.append((i, e))
+        execute_ms = 0.0
+        plan_hit = None
+        cse_hoisted = 0
+        tpl_hit = False
         if pend:
             if self._cse_on() and len(pend) > 1:
-                pend, _n = self._cse_hoist_batch(pend, sla, rc)
+                pend, cse_hoisted = self._cse_hoist_batch(pend, sla, rung,
+                                                          rc)
             bindings = None
-            tpl = (self._template_probe_multi([e for _, e in pend], sla)
-                   if self._cse_on() else None)
-            if tpl is not None:
-                plan, keys, pos, bindings = tpl
-            else:
-                plan, plan_hit, keys = self._compile_multi_entry(
-                    [e for _, e in pend], sla=sla)
-                pos = {k: j for j, k in enumerate(plan._root_keys)}
-                if self._cse_on() and not plan_hit:
-                    self._template_insert_multi(plan, sla)
-            outs = self._arbitrated_run(plan, bindings=bindings)
-            for (i, e), k in zip(pend, keys):
+            with trace_lib.span("plan", roots=len(pend)):
+                tpl = (self._template_probe_multi(
+                    [e for _, e in pend], sla, rung)
+                    if self._cse_on() else None)
+                if tpl is not None:
+                    plan, keys, pos, bindings = tpl
+                    plan_hit = tpl_hit = True
+                else:
+                    plan, plan_hit, keys = self._compile_multi_entry(
+                        [e for _, e in pend], sla=sla, rung=rung)
+                    pos = {k: j for j, k in enumerate(plan._root_keys)}
+                    if self._cse_on() and not plan_hit:
+                        self._template_insert_multi(plan, sla, rung)
+            # fault site "execute" — per batch attempt (host side)
+            faults_lib.check("execute", self.config)
+            # the batch's execute span: host clock, no device sync
+            with trace_lib.span("serve.execute",
+                                executed=len(pend)) as sp_ex:
+                outs = self._arbitrated_run(plan, bindings=bindings)
+            if obs:
+                execute_ms = sp_ex.dur_ms or 0.0
+            first = not getattr(plan, "_obs_executed", False)
+            plan._obs_executed = True
+            for j, ((i, e), k) in enumerate(zip(pend, keys)):
                 out = outs[pos[k]]
                 results[i] = out
+                summary = None
+                if self._prov is not None:
+                    if rc:
+                        p_key, _p, p_orig = rc_meta[i]
+                    else:
+                        p_key, p_orig = k, e
+                    summary = self._prov_capture(
+                        "execute", p_key, sla, rung=rung, expr=p_orig,
+                        result=out, executed=e, plan=plan,
+                        strategies=executor_lib.multiplan_root_decisions(
+                            plan)[pos[k]])
                 if rc:
                     key, pins, orig = rc_meta[i]
                     self._rc_insert(key, pins, e, out, orig=orig,
-                                    prec=_prec_prefix(sla), plan=plan)
+                                    prec=_prec_prefix(sla), plan=plan,
+                                    prov=summary)
+                if obs:
+                    try:
+                        per_root = executor_lib.multiplan_root_decisions(
+                            plan)
+                        self._emit_query_event(
+                            e, plan, bool(plan_hit), k,
+                            execute_ms / max(len(pend), 1), first, out,
+                            matmuls=per_root[pos[k]],
+                            # one root carries the batch's compile-time
+                            # rule hits; the rest {}
+                            rule_hits=({} if (j > 0 or plan_hit)
+                                       else (plan.meta or {}).get(
+                                           "rule_hits", {})),
+                            batch={"size": len(es), "index": i},
+                            tenant=_tenant_of(i),
+                            cache_label=("template_hit" if tpl_hit
+                                         else None))
+                    except Exception:
+                        log.warning("obs: query event dropped",
+                                    exc_info=True)
+            if obs:
+                try:
+                    self._emit_verify_event(plan)
+                except Exception:
+                    log.warning("obs: verify event dropped",
+                                exc_info=True)
+        if obs:
+            try:
+                record = {
+                    "batch_size": len(es),
+                    "executed": len(pend),
+                    "rc_hits": len(es) - len(pend),
+                    "plan_cache_hit": plan_hit,
+                    "queue_wait_ms": _queue_wait_ms,
+                    "inflight_depth": _inflight_depth,
+                    "execute_ms": round(execute_ms, 3),
+                    "wall_ms": round(sp_batch.elapsed_ms() or 0.0, 3),
+                }
+                if _tenants is not None:
+                    census: dict = {}
+                    for t in _tenants:
+                        census[t or ""] = census.get(t or "", 0) + 1
+                    record["tenants"] = census
+                if _brownout_rung:
+                    record["brownout_rung"] = _brownout_rung
+                if self._cse_on():
+                    record["cse_hoisted"] = cse_hoisted
+                    record["template_hits"] = (len(pend) if tpl_hit
+                                               else 0)
+                self._emit_serve_event(record)
+            except Exception:
+                log.warning("obs: serve event dropped", exc_info=True)
         return [results[i] for i in range(len(es))]
 
     # -- asynchronous admission (serve/pipeline.py) -------------------------
@@ -932,22 +1637,59 @@ class MatrelSession:
 
     def serve_close(self, timeout: Optional[float] = None) -> None:
         """Drain, then stop the admission worker; a later ``submit``
-        raises the typed ``PipelineClosed``."""
+        raises the typed ``PipelineClosed``. Also stops the metrics
+        endpoint when one runs (a GC finalizer covers sessions that
+        are simply dropped), even when the drain times out."""
         t_end = None if timeout is None else retry_lib.now() + timeout
-        if self._serve is not None:
-            self._serve.close(timeout=retry_lib.deadline_left(t_end))
+        try:
+            if self._serve is not None:
+                self._serve.close(timeout=retry_lib.deadline_left(t_end))
+        finally:
+            if self._exporter is not None:
+                self._exporter.stop()
 
     def explain(self, expr: MatExpr, physical: bool = True,
+                analyze: bool = False,
                 precision: Optional[str] = None) -> str:
         """Logical and optimized plan text; with ``physical`` the
         expression is compiled (cached), so the optimized section
-        carries the chosen matmul strategies."""
+        carries the chosen matmul strategies.
+
+        ``analyze=True`` (or ``config.obs_level == "analyze"``) RUNS the
+        plan once per op — each node bracketed by device syncs and timed
+        exclusive of its children — plus one warm run of the plan as the
+        session runs it, and appends the measured tree beside the
+        planner's estimates (``obs/analyze.py``). With obs on it also
+        emits one ``analyze`` event (the drift auditor's feed). Off the
+        hot path: nothing is measured, and nothing synced, unless
+        asked."""
         e = as_expr(expr)
         if not physical:
+            if analyze:
+                raise ValueError(
+                    "explain(analyze=True) requires physical=True")
             return e.explain(self.config)
         from matrel_tpu_torch.ir.expr import pretty
         head = "== Logical plan ==\n" + pretty(e)
-        return head + "\n" + self.compile(e, precision=precision).explain()
+        plan = self.compile(e, precision=precision)
+        text = head + "\n" + plan.explain()
+        if analyze or self.config.obs_level == "analyze":
+            from matrel_tpu_torch.obs import analyze as analyze_mod
+            try:
+                per_op, _total = analyze_mod.measure_per_op(plan)
+                fused = analyze_mod.measure_fused(plan)
+                text += "\n" + analyze_mod.render(plan, per_op, fused)
+                if self._obs_enabled():
+                    try:
+                        self._obs_emit("analyze",
+                                       analyze_mod.analyze_record(
+                                           plan, per_op, fused))
+                    except Exception:
+                        log.warning("obs: analyze event dropped",
+                                    exc_info=True)
+            except Exception as ex:   # analysis must not fail EXPLAIN
+                text += f"\n== Analysis unavailable: {ex!r} =="
+        return text
 
     def sql(self, query: str) -> MatExpr:
         """SQL-ish entry point over the registered matrix tables (see
@@ -958,14 +1700,9 @@ class MatrelSession:
 
     def explain_sql(self, query: str, analyze: bool = False) -> str:
         """Plan text for a SQL query (strategies, join schemes and
-        value-join kinds included). ``analyze=True`` (EXPLAIN ANALYZE's
-        measured per-op tree) belongs to the observability plane, which
-        is not ported: it raises ``NotPortedError``."""
-        if analyze:
-            raise NotPortedError("explain_sql(analyze=True): the "
-                                 "observability plane is not ported to "
-                                 "matrel_tpu_torch yet")
-        return self.explain(self.sql(query))
+        value-join kinds included); ``analyze=True`` appends the
+        measured per-op tree (EXPLAIN ANALYZE)."""
+        return self.explain(self.sql(query), analyze=analyze)
 
 
 def _prec_prefix(sla: str) -> str:

@@ -173,15 +173,12 @@ def test_run_many_empty_and_unported_arguments(jmesh):
     assert ts.plan_cache_info()["plans"] == 0
     A = ts.from_numpy(np.eye(4, dtype=np.float32))
     # the serve plane's arguments are ported (the batch deadline, the
-    # tenant tag and the pipeline's channel); the brownout plane's rung
-    # is not
+    # tenant tag, the pipeline's channel and the brownout rung)
     for kw in ({"deadline_ms": 60_000.0}, {"tenant": "a"},
                {"_queue_wait_ms": [1.0]}, {"_inflight_depth": 2},
-               {"_tenants": ["a"]}):
+               {"_tenants": ["a"]}, {"_brownout_rung": 1}):
         out, = ts.run_many([A.multiply(A)], **kw)
         assert torch.equal(out.data, A.data)
-    with pytest.raises(NotPortedError, match="_brownout_rung"):
-        ts.run_many([A.multiply(A)], _brownout_rung=1)
 
 
 # -- vec and rank1 -----------------------------------------------------------
@@ -702,7 +699,9 @@ def test_config_from_env_dict_and_default(monkeypatch):
     monkeypatch.setenv("MATREL_CSE_ENABLE", "1")
     assert MatrelConfig.from_env().cse_enable is True
     monkeypatch.setenv("MATREL_OBS_LEVEL", "on")
-    with pytest.raises(NotPortedError, match="obs_level"):
+    assert MatrelConfig.from_env().obs_level == "on"
+    monkeypatch.setenv("MATREL_SPILL_ENABLE", "1")
+    with pytest.raises(NotPortedError, match="spill_enable"):
         MatrelConfig.from_env()
     old = t_config.default_config()
     try:
@@ -714,20 +713,51 @@ def test_config_from_env_dict_and_default(monkeypatch):
     assert t_config.default_config() is old
 
 
+#: The observability and resilience planes' knobs (and the learned
+#: planner coefficients'), which left ``UNPORTED_KNOBS`` together.
+OBS_RESILIENCE_KNOBS = (
+    "obs_level", "obs_event_log", "obs_event_log_max_bytes",
+    "obs_metrics_port", "obs_flight_recorder", "obs_flight_recorder_path",
+    "obs_provenance", "slo_targets", "slo_fast_window_s",
+    "slo_slow_window_s", "slo_burn_threshold", "slo_burn_exit",
+    "drift_table_path", "lockdep_enable", "lockdep_raise", "fault_inject",
+    "fault_inject_seed", "brownout_enable", "brownout_window",
+    "brownout_dwell", "brownout_wait_high_ms", "brownout_wait_low_ms",
+    "brownout_depth_high", "brownout_depth_low", "brownout_miss_high",
+    "brownout_miss_low", "breaker_threshold", "breaker_cooldown_ms",
+    "breaker_half_open_probes", "coeff_planner_enable",
+    "coeff_min_samples")
+
+#: What stays fenced: the verifier, the fleet, the re-plan controller,
+#: the spill hierarchy and the JAX-only execution knobs.
+STILL_FENCED = (
+    "pallas_interpret", "donate_intermediates", "plan_cache_max_bytes",
+    "verify_plans", "fleet_slices", "fleet_span_margin",
+    "fleet_directory_max", "fleet_replicate_hits", "fleet_failover",
+    "fleet_placement_calibration", "coeff_replan_enable",
+    "coeff_replan_interval", "coeff_replan_cooldown", "spill_enable",
+    "spill_host_max_bytes", "spill_disk_hits", "state_dir")
+
+
 def test_unported_knobs_left_exactly_two():
     """fusion_enable and reshard_peak_budget_bytes left the list with
-    the fusion slice, the serve plane's knobs with the serving slice;
-    every other knob of an unported plane stays."""
+    the fusion slice, the serve plane's knobs with the serving slice,
+    the observability and resilience planes' 31 with theirs; exactly
+    the 17 knobs of the planes still unported stay."""
     from matrel_tpu_torch.config import UNPORTED_KNOBS
     for name in ("fusion_enable", "reshard_peak_budget_bytes",
                  "cse_enable", "delta_patch_mode", "delta_rank_max",
                  "result_cache_max_bytes", "serve_tenant_weights"):
         assert name not in UNPORTED_KNOBS
-    for name in ("obs_level", "verify_plans", "spill_enable",
-                 "fleet_slices", "brownout_enable", "fault_inject"):
-        assert name in UNPORTED_KNOBS
+    assert len(OBS_RESILIENCE_KNOBS) == 31
+    for name in OBS_RESILIENCE_KNOBS:
+        assert name not in UNPORTED_KNOBS
+    assert tuple(UNPORTED_KNOBS) == STILL_FENCED
     MatrelConfig(fusion_enable=True, reshard_peak_budget_bytes=1 << 20,
-                 cse_enable=True, delta_patch_mode="force")
+                 cse_enable=True, delta_patch_mode="force",
+                 obs_level="on", fault_inject="execute:transient:n=1",
+                 brownout_enable=True, breaker_threshold=2,
+                 coeff_planner_enable=True)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -20,6 +20,11 @@ ported.
 - The serving plane (the result cache, ``submit`` with tenants and
   deadlines, cross-query CSE, ``register_delta`` over the streaming
   dashboard) runs on the CPU with the JAX package blocked.
+- The observability plane (the event log, spans, the flight recorder,
+  EXPLAIN ANALYZE, ``session.why``, the drift table and learned
+  coefficients, the loopback metrics endpoint, lockdep) and the
+  resilience ladder (injected faults climbing the degradation rungs,
+  the breaker, brownout) run on the CPU with the JAX package blocked.
 - A rank process of a gloo rank mesh (``core/mesh.init_distributed``)
   runs a recipe, a sharded matvec and a staged reshard with the JAX
   package blocked.
@@ -259,6 +264,62 @@ def test_serving_plane_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "standalone serving ok" in proc.stdout
+
+
+def test_obs_and_resilience_planes_without_jax(tmp_path):
+    code = textwrap.dedent(f"""
+        import sys, json, urllib.request
+        for name in ("jax", "jaxlib", "matrel_tpu"):
+            sys.modules[name] = None          # import raises ImportError
+        import numpy as np
+        from matrel_tpu_torch import MatrelConfig, MatrelSession
+        from matrel_tpu_torch.obs import drift
+        from matrel_tpu_torch.obs.events import read_events
+        from matrel_tpu_torch.parallel import coeffs
+        from matrel_tpu_torch.utils import lockdep, profiling
+        log = {str(tmp_path / "ev.jsonl")!r}
+        table = {str(tmp_path / "drift.json")!r}
+        s = MatrelSession(config=MatrelConfig(
+            obs_level="on", obs_event_log=log, obs_flight_recorder=32,
+            obs_provenance=16, lockdep_enable=True,
+            fault_inject="execute:transient:p=1.0:max=3",
+            retry_max_attempts=3, retry_backoff_ms=0.0,
+            breaker_threshold=2, brownout_enable=True,
+            drift_table_path=table, coeff_planner_enable=True,
+            mesh_shape=(2, 2), obs_metrics_port=0), device="cpu")
+        rng = np.random.default_rng(0)
+        a = rng.standard_normal((32, 32)).astype(np.float32)
+        A = s.from_numpy(a)
+        out = s.compute(A.multiply(A)).to_numpy()
+        assert np.allclose(out, a @ a, rtol=1e-4, atol=1e-4)
+        assert s.why(last=1)[0]["degrade"]["rung"] == 3
+        text = s.explain(A.multiply(A).multiply(A), analyze=True)
+        assert "== Analyzed physical plan" in text
+        ev = read_events(log)
+        kinds = {{e["kind"] for e in ev}}
+        assert {{"query", "span", "fault", "retry", "degrade",
+                 "analyze", "provenance"}} <= kinds, kinds
+        drift.update_table(table, drift.calibrate(
+            list(drift.iter_samples(ev))))
+        assert coeffs.epoch(table) != coeffs.COLD_EPOCH
+        f = s.submit(A.multiply(A))
+        assert np.allclose(f.result(timeout=60).to_numpy(), a @ a,
+                           rtol=1e-4, atol=1e-4)
+        s.serve_close(timeout=60)
+        assert lockdep.diagnostics() == [] and lockdep.is_acyclic()
+        lockdep.disable()
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "matrel_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("standalone obs ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone obs ok" in proc.stdout
 
 
 def test_solvers_and_routed_spmv_without_jax():
@@ -504,8 +565,8 @@ def test_default_device_needs_a_card(monkeypatch):
 
 
 def test_unported_planes_and_kinds_raise():
-    with pytest.raises(NotPortedError, match="obs_level"):
-        MatrelConfig(obs_level="on")
+    with pytest.raises(NotPortedError, match="verify_plans"):
+        MatrelConfig(verify_plans="warn")
     with pytest.raises(NotPortedError, match="spill_enable"):
         MatrelConfig().replace(spill_enable=True)
     s = MatrelSession(device="cpu")
@@ -518,8 +579,8 @@ def test_unported_planes_and_kinds_raise():
     from matrel_tpu_torch.ir.expr import MatExpr
     with pytest.raises(NotPortedError, match="not_a_kind"):
         s.compute(MatExpr("not_a_kind", (A.expr(),), (4, 4), None))
-    with pytest.raises(NotPortedError, match="brownout_enable"):
-        MatrelConfig(brownout_enable=True)
+    with pytest.raises(NotPortedError, match="coeff_replan_enable"):
+        MatrelConfig(coeff_planner_enable=True, coeff_replan_enable=True)
     with pytest.raises(NotPortedError, match="pallas_interpret"):
         MatrelConfig(pallas_interpret=True)
     from matrel_tpu_torch.ops import spgemm
