@@ -224,7 +224,33 @@
    drift table under backend "cuda"; coeff_planner_enable takes its
    epoch into the plan key, the stamps that change on row 2's chain and
    a 4096² product printed, the answers equal.
-11. spgemm_library: torch.sparse.mm of each S×S pair's element-CSR
+11. path_durable (the durable half of serving and the static plan
+   verifier: serve/spill.py, utils/checkpoint.py, utils/resilience.py,
+   serve/replan.py, analysis/; state in a directory under the
+   gitignored build/chip_smoke/, removed at the end; each sub-phase
+   under its own bound DURABLE_PEAK_LIMIT_GIB): (a) row 4's S·D (B1,
+   bf16, 98 MiB) and two more S·D results through a result cache whose
+   device budget holds one and a host tier that holds one: S·D ages to
+   disk, answers its next consult bit-equal with no B1 launch, its entry
+   stamped with its tier and priced legs; the measured d2h, disk-write,
+   disk-read and h2d ms printed beside coeffs.spill_cost_ms's price, and
+   the host copy pinned against pageable; a rebind of D kills the host
+   and disk entries and unlinks the artifact; (b) save_state and restore
+   in a fresh session: the first consult answers from the snapshot,
+   bit-equal, no B1 launch; a flipped bit in the artifact is a miss (B1
+   once, the right answer); a truncated snapshot cold-starts with a
+   warning; (c) save_catalog / load_catalog of row 4's S and D, S·D
+   recomputed bit-equal; run_resilient over block-sparse PageRank (B1's
+   f32 narrow walk) with a checkpoint every 5 rounds and a transient
+   fault at the checkpoint site, bit-equal to the clean run; (d)
+   verify_plans="error" over B1, B2 and B4: no error diagnostic, one
+   launch each, the Verifier section, the plan.verify span, the verify
+   host ms a plan, warm queries against path_latency's; session.verify
+   of a hand-tampered spill stamp fires MV117; (e) re-planning on the
+   (2, 4) virtual grid: the controller checks, re-calibrates and
+   re-warms, every answer bit-equal, only strategy / cost stamps
+   changed.
+12. spgemm_library: torch.sparse.mm of each S×S pair's element-CSR
    forms in f32 (cuSPARSE SpGEMM) at n = 100,352, by CUDA events, as the
    library column of B4–B7 (xla_gather kept beside it); where cuSPARSE
    cannot hold its workspace, the failure and the operand sizes. Then
@@ -267,6 +293,10 @@ runs only path_serving (after the build).
     python3 chip_smoke.py --ops
 
 runs only path_ops (after the build).
+
+    python3 chip_smoke.py --durable
+
+runs only path_durable (after the build).
 
     python3 chip_smoke.py --multirank
 
@@ -6238,6 +6268,563 @@ def path_ops(sess, latency=None) -> dict:
     return {"launches": total, "spmm_bodies": bodies, "rows": rows}
 
 
+# -- the durable half of serving and the plan verifier (path_durable) ---------
+
+#: The sub-phases' peak device memory over what was held when each
+#: started, measured on the H100 (PERF.md §6, PR 16), plus 25%.
+DURABLE_PEAK_LIMIT_GIB = {k: 1.25 * v for k, v in {
+    "durable_spill": 0.854, "durable_restart": 0.902,
+    "durable_checkpoint": 2.300, "durable_verify": 6.548,
+    "durable_replan": 0.344}.items()}
+#: (a) the host-tier copies timed each way (pinned and pageable), turns
+DURABLE_PIN_TURNS = 3
+#: (c) block-sparse PageRank rounds under run_resilient, its checkpoint
+#: interval, and the fault: the checkpoint site's third check (the save
+#: after round 9) raises a transient InjectedFault
+DURABLE_PR_ROUNDS = 20
+DURABLE_CKPT_INTERVAL = 5
+DURABLE_FAULT = "checkpoint:transient:n=3"
+#: (e) the re-plan controller's interval, the seeded records a candidate
+#: strategy and the warm queries streamed
+DURABLE_REPLAN_INTERVAL = 32
+DURABLE_REPLAN_SEED = 20
+DURABLE_REPLAN_QUERIES = 32
+
+
+def durable_root() -> str:
+    """A fresh state directory under the gitignored build/chip_smoke/."""
+    import tempfile
+    os.makedirs(SCRATCH, exist_ok=True)
+    return tempfile.mkdtemp(dir=SCRATCH, prefix="durable-")
+
+
+def spill_legs_priced(legs: list, nbytes: int, dims) -> list:
+    """Each measured leg beside coeffs.spill_cost_ms's price for it (the
+    drift table is cold on this machine: the analytic ms/MiB)."""
+    from matrel_tpu_torch.obs import drift
+    from matrel_tpu_torch.parallel import coeffs
+    out = []
+    for leg in legs:
+        est, src = coeffs.spill_cost_ms([leg["leg"]], nbytes,
+                                        drift.shape_class(dims), "cuda",
+                                        drift.table_path())
+        out.append({"leg": leg["leg"], "ms": leg["ms"], "est_ms": est,
+                    "cost": src,
+                    "gb_per_s": leg["bytes"] / (leg["ms"] * 1e6)
+                    if leg["ms"] > 0 else None})
+    return out
+
+
+def pinned_legs(t) -> dict:
+    """d2h into pinned (serve/spill.to_host, the host tier's copy) and
+    pageable host memory, and h2d back from each, in turns (pinned,
+    pageable, pageable, pinned), host clock around a synchronised copy:
+    the measurement the host tier's pinned copy rests on."""
+    import torch
+    from matrel_tpu_torch.serve import spill as spill_lib
+    ms = {"pinned": {"d2h": [], "h2d": []},
+          "pageable": {"d2h": [], "h2d": []}}
+    order = ["pinned", "pageable", "pageable", "pinned"]
+    for _ in range(DURABLE_PIN_TURNS):
+        for kind in order:
+            host, s = synced(lambda: spill_lib.to_host(t)
+                             if kind == "pinned" else t.to("cpu"))
+            ms[kind]["d2h"].append(s * 1e3)
+            back, s = synced(lambda: host.to(t.device))
+            ms[kind]["h2d"].append(s * 1e3)
+            if not torch.equal(back, t):
+                raise AssertionError(f"spill {kind} round trip differs")
+            del host, back
+    return {k: {leg: statistics.median(v) for leg, v in d.items()}
+            for k, d in ms.items()}
+
+
+def durable_spill(sess, S, D, root: str) -> dict:
+    """(a) Row 4's S·D (B1 wgmma, bf16) and two more S·D results through
+    a result cache whose device budget holds one, a host tier that holds
+    one and a disk tier: the first result (given a hit, as the reuse
+    gate asks) ages to disk; consulted again it answers bit-equal with
+    no B1 launch, its entry stamped with its tier and priced legs; a
+    rebind of D kills the host and disk entries and unlinks the
+    artifact."""
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    meter = PeakMeter("durable_spill", DURABLE_PEAK_LIMIT_GIB)
+    nbytes = D.data.numel() * D.data.element_size()
+    cfg = MatrelConfig(result_cache_max_bytes=int(1.5 * nbytes),
+                       spill_enable=True,
+                       spill_host_max_bytes=int(1.5 * nbytes),
+                       spill_disk_hits=1, state_dir=os.path.join(root, "a"))
+    s = MatrelSession(config=cfg, device=sess.device)
+    n = S.shape[0]
+    S2, S3 = (BlockSparseMatrix.random((n, n), 0.01, block_size=512,
+                                       mesh=sess.mesh, seed=seed,
+                                       dtype="bfloat16")
+              for seed in (11, 12))
+    for name, m in (("S", S), ("S2", S2), ("S3", S3), ("D", D)):
+        s.register(name, m)
+    events = []
+    wired = s._spill.emit
+    s._spill.emit = lambda rec: (events.append(rec), wired(rec))
+
+    def q(name):
+        return s.table(name).multiply(s.table("D"))
+
+    c0 = ops_counts()
+    first = s.compute(q("S"))
+    with meter.aside():
+        first_bits = first.data.clone()
+    s.compute(q("S"))                       # a hit: the reuse gate's
+    s.compute(q("S2"))
+    s.compute(q("S2"))
+    s.compute(q("S3"))                      # S·D ages device→host→disk
+    del first
+    info = dict(s.result_cache_info()["spill"])
+    launched = ops_since(c0)["spmm_blocksparse"]
+    if (info["disk_entries"], info["host_entries"], launched) != (1, 1, 3):
+        raise AssertionError(f"durable (a): tiers {info}, B1 {launched}")
+    c1 = ops_counts()
+    again, thaw_s = synced(lambda: s.compute(q("S")))
+    if ops_since(c1)["spmm_blocksparse"] != 0:
+        raise AssertionError("durable (a): the disk-tier hit launched B1")
+    if not torch.equal(again.data, first_bits):
+        raise AssertionError("durable (a): the thawed S·D differs")
+    (ent,) = [e for _k, e in s._result_cache.items_snapshot()
+              if e.spill is not None and e.spill["tier"] == "disk"]
+    stamp = dict(ent.spill)
+    if stamp["tier"] != "disk" or stamp["legs"] != ["disk_read", "h2d"]:
+        raise AssertionError(f"durable (a): stamp {stamp}")
+    demote = next(e for e in events if e["op"] == "demote"
+                  and any(leg["leg"] == "disk_write" for leg in e["legs"]))
+    first_demote = next(e for e in events if e["op"] == "demote")
+    promote = next(e for e in events if e["op"] == "promote")
+    legs = ([first_demote["legs"][0]]
+            + [leg for leg in demote["legs"] if leg["leg"] == "disk_write"]
+            + promote["legs"])
+    priced = spill_legs_priced(legs, nbytes, D.shape)
+    for p in priced:
+        log(f"durable (a) leg {p['leg']}: {p['ms']:.3f} ms measured "
+            f"({p['gb_per_s']:.2f} GB/s) against {p['est_ms']:.3f} ms "
+            f"priced ({p['cost']}) for {nbytes / 2**20:.1f} MiB")
+    log(f"durable (a): the disk-tier consult answered bit-equal in "
+        f"{thaw_s * 1e3:.3f} ms (synced), no B1 launch; stamp tier "
+        f"{stamp['tier']} legs {stamp['legs']} est {stamp['est_ms']} ms "
+        f"({stamp['cost']}), fits {stamp['fits']}")
+    with meter.aside():
+        pins = pinned_legs(again.data)
+    log(f"durable (a) host tier, {nbytes / 2**20:.1f} MiB: pinned d2h "
+        f"{pins['pinned']['d2h']:.3f} / h2d {pins['pinned']['h2d']:.3f} ms, "
+        f"pageable d2h {pins['pageable']['d2h']:.3f} / h2d "
+        f"{pins['pageable']['h2d']:.3f} ms")
+    del again
+    # after the thaw: S·D on the card, S·D3 on host, S·D2 on disk
+    before = dict(s.result_cache_info()["spill"])
+    # (a promotion leaves its artifact in place, as the JAX package
+    # does: a snapshot may index it; a later demotion rewrites it)
+    arts = [te.file for _k, te in s._spill.items_for_snapshot()[1]]
+    s.register("D", sess.random(D.shape, dtype="bfloat16", seed=9))
+    after = dict(s.result_cache_info()["spill"])
+    left = [f for f in arts if os.path.exists(f)]
+    if (before["host_entries"] < 1 or before["disk_entries"] < 1
+            or not arts or after["host_entries"] or after["disk_entries"]
+            or left or s.result_cache_info()["entries"]):
+        raise AssertionError(f"durable (a) rebind: before {before}, after "
+                             f"{after}, artifacts {arts} -> {left}")
+    log(f"durable (a) rebind of D: host {before['host_entries']} -> 0, "
+        f"disk {before['disk_entries']} -> 0, its artifacts {len(arts)} "
+        f"unlinked")
+    launches = ops_since(c0)
+    del s, S2, S3
+    return {"launches": launches, "tiers": info, "stamp": stamp,
+            "legs": priced, "thaw_ms": thaw_s * 1e3, "host_copy": pins,
+            "rebind": {"before": before, "after": after},
+            "peak_gib": meter.gib()}
+
+
+def durable_restart(sess, S, D, root: str) -> dict:
+    """(b) save_state, then restore in a fresh session (spill_enable,
+    the same state_dir): its first consult of S·D answers from the
+    snapshot, bit-equal, with no B1 launch. A sha1-tampered artifact is
+    a miss (B1 launches once, the answer right); a truncated snapshot
+    cold-starts with a warning."""
+    import logging
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    meter = PeakMeter("durable_restart", DURABLE_PEAK_LIMIT_GIB)
+    cfg = MatrelConfig(result_cache_max_bytes=8 << 30, spill_enable=True,
+                       state_dir=os.path.join(root, "b"))
+
+    def fresh():
+        return MatrelSession(config=cfg, device=sess.device)
+
+    def q(s):
+        return s.table("S").multiply(s.table("D"))
+
+    s1 = fresh()
+    s1.register("S", S)
+    s1.register("D", D)
+    c0 = ops_counts()
+    first = s1.compute(q(s1))
+    save = s1.save_state()
+    del s1
+    s2 = fresh()
+    rest, restore_s = synced(s2.restore)
+    c1 = ops_counts()
+    got, thaw_s = synced(lambda: s2.compute(q(s2)))
+    thawed = s2.result_cache_info()["spill"]["thawed_restored"]
+    if (not rest["restored"] or rest["rc_entries"] != 1 or thawed != 1
+            or ops_since(c1)["spmm_blocksparse"] != 0
+            or not torch.equal(got.data, first.data)):
+        raise AssertionError(f"durable (b): restore {rest}, thawed "
+                             f"{thawed}, B1 {ops_since(c1)}")
+    del s2, got
+    spill_dir = os.path.join(cfg.state_dir, "spill")
+    (victim,) = [f for f in os.listdir(spill_dir) if f.endswith(".npy")]
+    with open(os.path.join(spill_dir, victim), "r+b") as fh:
+        fh.seek(-1, os.SEEK_END)
+        last = fh.read(1)
+        fh.seek(-1, os.SEEK_END)
+        fh.write(bytes([last[0] ^ 0x01]))      # one flipped bit
+    s3 = fresh()
+    s3.restore()
+    c2 = ops_counts()
+    got3 = s3.compute(q(s3))
+    corrupt = s3.result_cache_info()["spill"]["corrupt"]
+    if (corrupt != 1 or ops_since(c2)["spmm_blocksparse"] != 1
+            or not torch.equal(got3.data, first.data)):
+        raise AssertionError(f"durable (b) tampered: corrupt {corrupt}, "
+                             f"B1 {ops_since(c2)}")
+    del s3, got3
+    step_dir = save["path"]
+    meta = os.path.join(step_dir, "meta.json")
+    with open(meta, "r+b") as fh:
+        fh.truncate(os.path.getsize(meta) // 2)
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logging.getLogger("matrel_tpu_torch.serve").addHandler(handler)
+    try:
+        s4 = fresh()
+        cold = s4.restore()
+    finally:
+        logging.getLogger("matrel_tpu_torch.serve").removeHandler(handler)
+    warned = [r.getMessage() for r in records
+              if r.levelno >= logging.WARNING]
+    if cold["restored"] or not any("cold-starting" in w for w in warned):
+        raise AssertionError(f"durable (b) truncated: {cold}, {warned}")
+    del s4, first
+    log(f"durable (b): save_state {save['ms']:.1f} ms ({save['catalog']} "
+        f"tables, {save['rc_entries']} entry); restore "
+        f"{restore_s * 1e3:.1f} ms; first consult from the snapshot "
+        f"{thaw_s * 1e3:.3f} ms, bit-equal, no B1 launch; a flipped bit in "
+        f"the artifact: a miss, B1 once, the right answer; a truncated "
+        f"snapshot cold-starts ({warned[0][:80]})")
+    return {"launches": ops_since(c0), "save_ms": save["ms"],
+            "restore_ms": restore_s * 1e3, "thaw_ms": thaw_s * 1e3,
+            "peak_gib": meter.gib()}
+
+
+def durable_checkpoint(sess, S, D, root: str) -> dict:
+    """(c) save_catalog / load_catalog of row 4's S and D and S·D
+    recomputed bit-equal; run_resilient over block-sparse PageRank (B1's
+    f32 narrow walk, one launch a round) with a checkpoint every 5
+    rounds and one transient fault injected at the checkpoint site,
+    ending bit-equal to an unfaulted run and to pagerank_block_sparse."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.core.blockmatrix import BlockMatrix
+    from matrel_tpu_torch.ops import spmm as spmm_lib
+    from matrel_tpu_torch.resilience import faults
+    from matrel_tpu_torch.utils.checkpoint import CheckpointManager
+    from matrel_tpu_torch.utils.resilience import run_resilient
+    from matrel_tpu_torch.workloads import pagerank as pr
+    meter = PeakMeter("durable_checkpoint", DURABLE_PEAK_LIMIT_GIB)
+    c0 = ops_counts()
+    s1 = MatrelSession(device=sess.device)
+    s1.register("S", S)
+    s1.register("D", D)
+    want = s1.compute(S.multiply(D))
+    _, save_s = synced(lambda: s1.save_catalog(os.path.join(root, "cat")))
+    s2 = MatrelSession(device=sess.device)
+    names, load_s = synced(lambda: s2.load_catalog(
+        os.path.join(root, "cat")))
+    c1 = ops_counts()
+    got = s2.compute(s2.table("S").multiply(s2.table("D")))
+    if (names != ["D", "S"] or ops_since(c1)["spmm_blocksparse"] != 1
+            or not torch.equal(got.data, want.data)):
+        raise AssertionError(f"durable (c) catalog: {names}, "
+                             f"{ops_since(c1)}")
+    del s1, s2, got, want
+    G = community_graph(sess)
+    n, mesh, alpha = G.shape[0], sess.mesh, 0.85
+    st = G.transpose()
+    deg = spmm_lib.spmm(G, BlockMatrix.from_numpy(
+        np.ones((n, 1), np.float32), mesh=mesh)).data
+    zero = torch.zeros((), dtype=deg.dtype, device=deg.device)
+    inv_deg = torch.where(deg > 0, 1.0 / deg.clamp(min=1e-30), zero)
+    valid = (torch.arange(deg.shape[0], device=deg.device) < n)[:, None]
+    dangling = ((deg == 0) & valid).float()
+    r0 = BlockMatrix.from_numpy(np.full((n, 1), 1.0 / n, np.float32),
+                                mesh=mesh)
+
+    def body(step, mats, state):
+        r = mats["r"]
+        w = BlockMatrix.from_array(r.data * inv_deg, (n, 1), mesh, r.spec)
+        contrib = spmm_lib.spmm(st, w).data
+        dmass = torch.sum(dangling * r.data)
+        r_new = torch.where(valid, alpha * (contrib + dmass / n)
+                            + (1.0 - alpha) / n, zero)
+        return ({"r": BlockMatrix.from_array(r_new, (n, 1), mesh, r.spec)},
+                dict(state, last=step, rounds=state.get("rounds", 0) + 1))
+
+    def run(sub, spec):
+        faults.reset()
+        cm = CheckpointManager(os.path.join(root, sub),
+                               config=MatrelConfig(fault_inject=spec))
+        return run_resilient(body, cm, mesh, {"r": r0},
+                             num_steps=DURABLE_PR_ROUNDS,
+                             checkpoint_interval=DURABLE_CKPT_INTERVAL)
+
+    c2 = ops_counts()
+    (clean, cstate), clean_s = synced(lambda: run("clean", ""))
+    (faulted, fstate), fault_s = synced(lambda: run("faulted",
+                                                    DURABLE_FAULT))
+    faults.reset()
+    rounds = ops_since(c2)["spmm_blocksparse"]
+    ref = pr.pagerank_block_sparse(G, rounds=DURABLE_PR_ROUNDS)
+    redo = 2 * DURABLE_CKPT_INTERVAL - DURABLE_CKPT_INTERVAL
+    if (not torch.equal(faulted["r"].data, clean["r"].data)
+            or not torch.equal(clean["r"].data[:n], ref)
+            or cstate["rounds"] != DURABLE_PR_ROUNDS
+            or fstate["rounds"] != DURABLE_PR_ROUNDS
+            or rounds != 2 * DURABLE_PR_ROUNDS + redo):
+        raise AssertionError(f"durable (c) run_resilient: states "
+                             f"{cstate} {fstate}, B1 {rounds}")
+    log(f"durable (c): save_catalog {save_s * 1e3:.1f} ms, load_catalog "
+        f"{load_s * 1e3:.1f} ms, S·D recomputed bit-equal; run_resilient "
+        f"PageRank {DURABLE_PR_ROUNDS} rounds clean {clean_s * 1e3:.1f} ms, "
+        f"with the checkpoint fault {fault_s * 1e3:.1f} ms ({redo} rounds "
+        f"redone from the step-{DURABLE_CKPT_INTERVAL - 1} checkpoint), "
+        f"bit-equal to the clean run and to pagerank_block_sparse")
+    del G, st, clean, faulted, ref
+    return {"launches": ops_since(c0), "save_catalog_ms": save_s * 1e3,
+            "load_catalog_ms": load_s * 1e3, "clean_ms": clean_s * 1e3,
+            "faulted_ms": fault_s * 1e3, "peak_gib": meter.gib()}
+
+
+def durable_verify(sess, latency, root: str) -> dict:
+    """(d) verify_plans="error" on row 4's S·D (B1), row 5's Âᵀ·x (B2)
+    and the bf16 random S×S query (B4): no error diagnostic, one launch
+    each, the Verifier section in each explain, the plan.verify span with
+    obs on, the verifier's host ms a plan; warm queries against
+    path_latency's figures; then session.verify on a hand-tampered spill
+    stamp fires MV117."""
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession, analysis
+    from matrel_tpu_torch.ir import expr as expr_mod
+    from matrel_tpu_torch.obs.events import read_events
+    meter = PeakMeter("durable_verify", DURABLE_PEAK_LIMIT_GIB)
+    qs = ops_queries(sess)
+    log_path = os.path.join(root, "verify.jsonl")
+    on = MatrelSession(config=MatrelConfig(
+        verify_plans="error", obs_level="on", obs_event_log=log_path),
+        device=sess.device)
+    warm = MatrelSession(config=MatrelConfig(verify_plans="error"),
+                         device=sess.device)
+    ref = MatrelSession(device=sess.device)
+    lat_name = {"B1": "row4 S·D", "B2": "row5 A·x",
+                "B4": "S×S spgemm_pairs (pallas_generic)"}
+    c0 = ops_counts()
+    rows = {}
+    for name, (build, kern) in qs.items():
+        e = build()
+        c = ops_counts()
+        out = on.compute(e)
+        got = ops_since(c)[kern]
+        plan = on.compile(e)
+        diags = plan.meta["diagnostics"]
+        errors = [d for d in diags if d["severity"] == "error"]
+        text = on.explain(e)
+        want = ref.compute(build())
+        if (got != 1 or errors or "== Verifier ==" not in text
+                or not torch.equal(out.data, want.data)):
+            raise AssertionError(f"durable (d) {name}: launches {got}, "
+                                 f"diagnostics {diags}")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            analysis.verify_plan(plan.optimized, on.mesh, plan.config)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ew = build()
+        warm.compute(ew)
+        ms = time_ms(lambda: warm.compute(ew), warmup=2, runs=10)
+        lat = (latency or {}).get(lat_name[name])
+        if lat is not None and not 2 / 3 <= ms / lat <= 1.5:
+            raise AssertionError(f"durable (d) {name}: warm {ms:.4f} ms "
+                                 f"with the verifier on, path_latency "
+                                 f"{lat:.4f}")
+        rows[name] = {"diagnostics": [d["code"] for d in diags],
+                      "verify_ms": statistics.median(times),
+                      "warm_ms": ms, "path_latency_ms": lat}
+        log(f"durable (d) {name}: {len(diags)} diagnostic(s) "
+            f"{[d['code'] for d in diags]}, {kern} launched once, verify "
+            f"{statistics.median(times):.3f} ms a plan (host); warm "
+            f"compute() {ms:.4f} ms against path_latency "
+            f"{lat if lat is None else f'{lat:.4f}'} ms")
+        del out, want
+    spans = [r for r in read_events(log_path)
+             if r["kind"] == "span" and r["name"] == "plan.verify"]
+    if len(spans) != len(qs):
+        raise AssertionError(f"durable (d): {len(spans)} plan.verify spans")
+    rows["span_ms"] = [s["dur_ms"] for s in spans]
+    S, D = row4_inputs(sess)
+    stale = expr_mod.leaf(D).with_attrs(result_cache={
+        "key_hash": "tampered", "layout": "2d", "dtype": "bfloat16",
+        "deps": [], "spill": {"tier": "hbm", "legs": [],
+                              "cost": "measured"}})
+    codes = [d.code for d in on.verify(S.multiply(stale))]
+    if "MV117" not in codes:
+        raise AssertionError(f"durable (d) tampered stamp: {codes}")
+    rows["tampered"] = codes
+    log(f"durable (d): plan.verify spans {rows['span_ms']} ms; a spill "
+        f"stamp claiming the device tier: {codes}")
+    rows["launches"] = ops_since(c0)
+    del qs, on, warm, ref, S, D
+    rows["peak_gib"] = meter.gib()
+    return rows
+
+
+def durable_replan(sess, root: str) -> dict:
+    """(e) a (2, 4) virtual-grid session with coeff_replan_enable and an
+    interval of DURABLE_REPLAN_INTERVAL records streams warm 4096²
+    products. One card runs every strategy as the same local product, so
+    its own timings hold no rank-order inversion: the window is seeded
+    with one at this query's dims (cpmm, the fewest estimated bytes,
+    measured 10x slower than each other candidate; DURABLE_REPLAN_SEED
+    records a strategy, round robin). The controller checks on the
+    records, re-calibrates, bumps the epoch and re-warms the plan; every
+    answer is bit-equal to the first, and the re-planned decision differs
+    from the first only in its strategy stamp (with that strategy's
+    priced bytes) and cost provenance."""
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.executor import plan_matmul_decisions
+    from matrel_tpu_torch.parallel import coeffs
+    meter = PeakMeter("durable_replan", DURABLE_PEAK_LIMIT_GIB)
+    table = os.path.join(root, "replan_drift.json")
+    s = MatrelSession(config=MatrelConfig(
+        mesh_shape=OPS_GRID, obs_level="on",
+        obs_event_log=os.path.join(root, "replan.jsonl"),
+        drift_table_path=table, coeff_planner_enable=True,
+        coeff_replan_enable=True,
+        coeff_replan_interval=DURABLE_REPLAN_INTERVAL,
+        coeff_replan_cooldown=2), device=sess.device)
+    ctl = s._replan
+    X = s.random((4096, 4096), seed=4)
+    Y = s.random((4096, 4096), seed=5)
+    first = s.compute(X.multiply(Y))
+    dec0 = [{k: v for k, v in d.items() if k != "uid"}
+            for d in plan_matmul_decisions(s.compile(X.multiply(Y)))]
+    dims = dec0[0]["dims"]
+    for _ in range(DURABLE_REPLAN_SEED):
+        for strat in OPS_STRATEGIES:
+            ms, est = (10.0, 1000.0) if strat == "cpmm" else (1.0, 2000.0)
+            ctl.observe({"kind": "query", "backend": sess.device.type,
+                         "cache": "miss", "execute_ms": ms,
+                         "matmuls": [{"strategy": strat, "dims": dims,
+                                      "flops": 2.0 * dims[0] * dims[1]
+                                      * dims[2], "est_ici_bytes": est}]})
+    t0 = time.perf_counter()
+    for _ in range(DURABLE_REPLAN_QUERIES):
+        out = s.compute(X.multiply(Y))
+        if not torch.equal(out.data, first.data):
+            raise AssertionError("durable (e): a re-planned answer differs")
+    ctl.drain(60.0)
+    stream_s = time.perf_counter() - t0
+    dec1 = [{k: v for k, v in d.items() if k != "uid"}
+            for d in plan_matmul_decisions(s.compile(X.multiply(Y)))]
+    changed = sorted({k for a, b in zip(dec0, dec1) for k in set(a) | set(b)
+                      if a.get(k) != b.get(k)})
+    info = ctl.info()
+    rec = ctl.events[0] if ctl.events else {}
+    if (info["replans"] < 1 or info["checks"] < 2
+            or not set(changed) <= {"strategy", "source", "cost",
+                                    "est_ici_bytes", "est_axis_bytes"}
+            or s._coeff_prefix() != f"coeffv:{coeffs.epoch(table)}|"):
+        raise AssertionError(f"durable (e): {info}, changed {changed}, "
+                             f"round {rec}")
+    log(f"durable (e): {DURABLE_REPLAN_QUERIES} warm queries in "
+        f"{stream_s:.2f} s; controller {info}; round 1 {rec.get('classes')} "
+        f"epoch {rec.get('old_epoch')} -> {rec.get('epoch')}, re-warmed "
+        f"{rec.get('replanned')} of {rec.get('matched')}; decision "
+        f"{[(d['strategy'], d.get('cost')) for d in dec0]} -> "
+        f"{[(d['strategy'], d.get('cost')) for d in dec1]}; changed "
+        f"{changed}; every answer bit-equal")
+    del s, X, Y, first, out
+    return {"controller": info, "round": {k: rec.get(k) for k in (
+        "classes", "old_epoch", "epoch", "matched", "replanned")},
+        "changed": changed, "stream_s": stream_s, "peak_gib": meter.gib()}
+
+
+def path_durable(sess, latency=None) -> dict:
+    """The durable half of serving and the static plan verifier on the
+    card (serve/spill.py, utils/checkpoint.py, utils/resilience.py,
+    serve/replan.py, analysis/): (a) the spill tiers at row 4's size,
+    (b) warm restart, (c) the catalog checkpoint and run_resilient, (d)
+    the verifier on the main path over B1, B2 and B4, (e) re-planning.
+    All state goes to a directory under the gitignored build/, removed
+    at the end; each sub-phase its own peak bound
+    (DURABLE_PEAK_LIMIT_GIB)."""
+    import shutil
+    import torch
+    t0 = time.perf_counter()
+    root = durable_root()
+    c0 = ops_counts()
+    S, D = row4_inputs(sess)
+    rows = {}
+    try:
+        rows["spill"] = durable_spill(sess, S, D, root)
+        rows["restart"] = durable_restart(sess, S, D, root)
+        rows["checkpoint"] = durable_checkpoint(sess, S, D, root)
+        del S, D
+        torch.cuda.empty_cache()
+        rows["verify"] = durable_verify(sess, latency, root)
+        torch.cuda.empty_cache()
+        rows["replan"] = durable_replan(sess, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = ops_since(c0)
+    log(f"path durable: {time.perf_counter() - t0:.1f} s; launches B1 "
+        f"{total['spmm_blocksparse']}, B2 {total['spmv_compact']}, B4 "
+        f"{total['spgemm_pairs']}")
+    print(json.dumps({"durable": rows}, default=str))
+    bodies = {k[3:]: v for k, v in total.items()
+              if k.startswith("b1_") and v}
+    return {"launches": total, "spmm_bodies": bodies, "rows": rows}
+
+
+def durable_only() -> int:
+    """``python3 chip_smoke.py --durable``: only path_durable (after
+    building the kernels), printing the card line and its launches; (d)
+    then compares the warm queries with PERF.md's latencies only by
+    eye."""
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
+                                      pallas_spmv, spmv_routed)
+    from matrel_tpu_torch.utils import cuda_build
+    card = device_line()
+    log(f"torch {torch.__version__}; {card}")
+    modules = (pallas_spmm, pallas_spmv, pallas_spgemm, spmv_routed)
+    cuda_build.build([cuda_build.CSRC_DIR / m.SOURCE for m in modules])
+    out = path_durable(MatrelSession())
+    print(card)
+    print(json.dumps({"durable_launches": out["launches"]}))
+    return 0
+
+
 # -- multi-rank execution over torch.distributed (path_multirank) --------------
 
 #: The rank grid: 4 ranks, 2 × 2 (the square grid SUMMA needs).
@@ -6969,6 +7556,8 @@ def main() -> int:
         return serving_only()
     if sys.argv[1:] == ["--ops"]:
         return ops_only()
+    if sys.argv[1:] == ["--durable"]:
+        return durable_only()
     from matrel_tpu_torch import MatrelSession
     from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
                                       pallas_spmv, spmv_routed)
@@ -7062,6 +7651,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     ops = path_ops(sess, latency)     # each sub-phase its bound
     l_ops = ops["launches"]
+    torch.cuda.empty_cache()
+    durable = path_durable(sess, latency)   # each sub-phase its bound
+    l_du = durable["launches"]
     spgemm_library(sess.mesh, b47)    # cuSPARSE SpGEMM beside B4-B7
     torch.cuda.empty_cache()
     l_mr = path_multirank(sess, ns["fro"])["launches"]   # four ranks
@@ -7072,7 +7664,7 @@ def main() -> int:
     l_coo = coo["launches"]
     for part in (l_batch["spmm_bodies"], coo["bsp"]["bodies"],
                  fused["spmm_bodies"], served["spmm_bodies"],
-                 ops["spmm_bodies"]):
+                 ops["spmm_bodies"], durable["spmm_bodies"]):
         for b, v in part.items():
             b1_bodies[b] = b1_bodies.get(b, 0) + v
     kernels = [
@@ -7082,7 +7674,8 @@ def main() -> int:
                           + l_coo["spmm_blocksparse"]
                           + l_fu["spmm_blocksparse"]
                           + l_sv["spmm_blocksparse"]
-                          + l_ops["spmm_blocksparse"], row),
+                          + l_ops["spmm_blocksparse"]
+                          + l_du["spmm_blocksparse"], row),
              launches_by_body=b1_bodies, f32_one_column=coo["b1_f32_m1"],
              f32_row4=row4_f32),
         dict(kernel_entry("spmv_compact", pallas_spmv.SOURCE,
@@ -7091,7 +7684,7 @@ def main() -> int:
                           + l_rel["spmv_compact"] + l_coo["spmv_compact"]
                           + l_at["spmv_compact"] + l_fu["spmv_compact"]
                           + l_sv["spmv_compact"] + l_ops["spmv_compact"]
-                          + l_mr["spmv_compact"],
+                          + l_du["spmv_compact"] + l_mr["spmv_compact"],
                           b23["spmv_compact"]),
              launches_on_ranks=l_mr["spmv_compact"]),
         dict(kernel_entry("spmm_compact", pallas_spmv.SOURCE,
@@ -7101,7 +7694,8 @@ def main() -> int:
              launches_on_ranks=l_mr["spmm_compact"]),
     ] + [kernel_entry(name, pallas_spgemm.SOURCE, SPGEMM_REPLACES[name],
                       l_spgemm[name] + l_rel[name] + l_at[name]
-                      + l_fu[name] + l_sv[name] + l_ops.get(name, 0),
+                      + l_fu[name] + l_sv[name] + l_ops.get(name, 0)
+                      + l_du.get(name, 0),
                       b47[name])
          for name in SPGEMM_REPLACES]
     kernels.append(dict(

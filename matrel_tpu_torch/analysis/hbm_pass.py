@@ -1,0 +1,97 @@
+"""Per-device HBM feasibility (MV105).
+
+Per-device memory is the binding constraint for distributed linear
+algebra (arXiv:2112.09017): RMM replicates A along y and B along x, BMM
+replicates one operand everywhere — on shapes where the byte model
+still ranks them cheapest, the replicated operands may simply not fit
+the device (``config.hbm_budget_bytes``). The planner's ``admissible``
+drops such plans before costing; this pass re-checks the STAMPED plan
+against the verifying config's budget, so a plan annotated under a
+different budget (cached, hand-stamped, or produced by an older
+planner) is still caught before execution.
+
+The closed forms live in ``planner.strategy_hbm_bytes`` — ONE source
+shared by the gate and the verifier, so the two cannot disagree about
+what fits.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+from matrel_tpu_torch.analysis.diagnostics import Diagnostic, node_addr
+from matrel_tpu_torch.analysis.strategy_pass import _dispatch_kind
+from matrel_tpu_torch.core import mesh as mesh_lib, padding
+from matrel_tpu_torch.parallel import planner
+
+
+def check_hbm_feasibility(root, mesh, config) -> Iterator[Diagnostic]:
+    """MV105 on every matmul stamped with a distributed strategy: its
+    per-device working set (operand shards × replication factor +
+    accumulator, padded dims, inferred itemsize) must fit
+    ``config.hbm_budget_bytes``. xla/spgemm stamps and fast-path
+    dispatches are exempt — xla is the library-decomposed product and
+    the sparse paths' working set is the pair list, not a dense
+    replication factor. Budget 0 disables the pass."""
+    budget = config.hbm_budget_bytes
+    if budget <= 0:
+        return
+    gx, gy = mesh_lib.mesh_grid_shape(mesh)
+    seen = set()
+    dmemo: dict = {}
+
+    def walk(n) -> Iterator[Diagnostic]:
+        if n.uid in seen:
+            return
+        seen.add(n.uid)
+        for c in n.children:
+            yield from walk(c)
+        if n.kind != "matmul":
+            return
+        strat = n.attrs.get("strategy")
+        if strat in (None, "xla", "spgemm"):
+            return
+        if _dispatch_kind(n, config) is not None:
+            return          # fast path: the stamp's specs never run
+        a, b = n.children
+        nn, kk = a.shape
+        mm = b.shape[1]
+        pn, pk = padding.padded_shape((nn, kk), mesh)
+        _, pm = padding.padded_shape((kk, mm), mesh)
+        dt = planner.infer_dtype(n, config, dmemo)
+        isz = dt.itemsize if dt is not None else 4
+        need = planner.strategy_hbm_bytes(strat, pn, pk, pm, gx, gy,
+                                          isz)
+        if need > budget:
+            hint = ("re-plan on this config (admissible() now "
+                    "drops this strategy; cpmm/summa keep the "
+                    "working set O(N^2/P)), or raise "
+                    "hbm_budget_bytes if the chip really has "
+                    "more HBM")
+            # when a NON-replicating alternative fits the budget, the
+            # operands can still move: a peak-bounded staged reshard
+            # (parallel/reshard.py) re-lays them to that strategy's
+            # layout without the full-gather transient the one-shot
+            # move risks — name the knob instead of leaving a hard
+            # refusal
+            alts = [s for s in ("cpmm", "summa")
+                    if planner.admissible(s, pn, pk, pm, gx, gy,
+                                          itemsize=isz,
+                                          hbm_budget_bytes=budget)]
+            if alts:
+                hint += (f"; a staged reshard would make {alts[0]!r} "
+                         "feasible here — set config."
+                         "reshard_peak_budget_bytes > 0 so the "
+                         "re-lays run as peak-bounded step sequences "
+                         "(MV109)")
+            yield Diagnostic(
+                code="MV105", severity="error", node=node_addr(n),
+                message=f"strategy {strat!r} needs "
+                        f"{need / 2**30:.2f} GiB per device "
+                        f"(dims ({pn}, {pk}, {pm}), itemsize {isz}, "
+                        f"{gx}x{gy} grid) but hbm_budget_bytes is "
+                        f"{budget / 2**30:.2f} GiB — the replicated "
+                        "operands cannot exist on the chip",
+                fix_hint=hint)
+
+    yield from walk(root)

@@ -1,0 +1,144 @@
+"""Zero-padding invariant flow (MV103).
+
+The system-wide invariant (core/padding.py): every lowered intermediate
+is EXACTLY 0 outside its logical region, so matmul/add/elementwise-
+multiply compose without masks. Ops whose math breaks that (scalar-add,
+pow<=0, broadcasted add/sub, non-zero select fills, black-box join
+merges — 0 op 0 != 0) must re-mask, and the executor does; but the
+contract lives only in executor code and scattered tests. This pass
+makes it DATA: :data:`PADDING_CONTRACT` mirrors each lowering's effect
+on the invariant, and the checker walks the plan against it:
+
+  * a node whose lowering breaks the invariant without a re-mask is an
+    MV103 error (today that means the contract table was edited to
+    match a lowering change that dropped a mask — the tripwire this
+    pass exists for);
+  * a node KIND the table does not know is an MV103 warning: a new op
+    was added to the executor without declaring its padding behaviour,
+    so the invariant can no longer be proven for any plan containing
+    it.
+
+One diagnostic per root cause, not a cascade per consumer: the report
+points at the node that broke the invariant, not at the matmul three
+levels up that would compute garbage from it.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterator
+
+from matrel_tpu_torch.analysis.diagnostics import Diagnostic, node_addr
+
+#: Effect vocabulary: "clean" — preserves the invariant given clean
+#: children; "remask" — the op breaks it but the lowering re-masks the
+#: result to the logical region; "breaks" — breaks it with NO re-mask
+#: (never emitted by the real contract below; the value exists so a
+#: contract edit that mirrors a lost mask trips MV103 loudly).
+CLEAN, REMASK, BREAKS = "clean", "remask", "breaks"
+
+
+def _scalar_effect(node) -> str:
+    op, v = node.attrs["op"], node.attrs["value"]
+    if op == "mul":
+        return CLEAN                       # 0 * v == 0
+    if op == "add":
+        return REMASK if v != 0.0 else CLEAN
+    if op == "pow":
+        return REMASK if v <= 0 else CLEAN  # 0**0 == 1, 0**-1 == inf
+    return BREAKS                          # unknown scalar op: no proof
+
+
+def _elemwise_effect(node) -> str:
+    l, r = node.children
+    if l.shape != r.shape and node.attrs["op"] != "mul":
+        # broadcast writes real values into the padded region of the
+        # size-1 operand's axis; executor re-masks all ops but mul
+        # (0 * anything == 0 needs none)
+        return REMASK
+    return CLEAN  # 0 op 0 == 0 for add/sub/mul/min/max; div masks b==0
+
+
+def _select_value_effect(node) -> str:
+    # where(pred(x), x, fill): padding holds x == 0, so a non-zero fill
+    # lands wherever pred(0) is False — executor re-masks exactly then
+    return REMASK if node.attrs["fill"] != 0.0 else CLEAN
+
+
+#: kind -> effect(node). The mirror of executor.Lowerer._eval's masking
+#: behaviour — update BOTH together (tests/test_analysis.py seeds a
+#: broken entry to prove the checker fires; the executor's own masking
+#: is proven dynamically by test_executor/test_fuzz oracles).
+PADDING_CONTRACT: Dict[str, Callable] = {
+    "leaf": lambda n: CLEAN,          # constructors zero-pad
+    "sparse_leaf": lambda n: CLEAN,   # to_dense scatters into zeros
+    "coo_leaf": lambda n: CLEAN,      # to_block likewise
+    "transpose": lambda n: CLEAN,
+    "matmul": lambda n: CLEAN,        # 0-rows x 0-cols stay 0; SpGEMM/
+                                      # SpMV paths pad their outputs
+    "solve": lambda n: CLEAN,         # computes on logical slice, pads
+    "inverse": lambda n: CLEAN,
+    "elemwise": _elemwise_effect,
+    "scalar": _scalar_effect,
+    "agg": lambda n: REMASK,          # _mask_to_logical on every axis
+    "vec": lambda n: CLEAN,           # logical slice, zero pad
+    "rank1": lambda n: CLEAN,         # a + u.vT of clean operands
+    "select_value": _select_value_effect,
+    "select_index": lambda n: CLEAN,  # where(keep, x, 0) over x == 0
+    "select_block": lambda n: CLEAN,
+    "join_index": lambda n: REMASK,   # black-box merge: 0 op 0 != 0
+    "join_value": lambda n: CLEAN,    # built from logical entries
+    "join_rows": lambda n: CLEAN,     # merge on logical slices, pads
+    "join_cols": lambda n: CLEAN,
+}
+
+
+def check_padding_flow(root, mesh, config,
+                       contract: Dict[str, Callable] = None
+                       ) -> Iterator[Diagnostic]:
+    """Flow the invariant through the plan against ``contract``
+    (default :data:`PADDING_CONTRACT`; injectable for fixture tests)."""
+    rules = PADDING_CONTRACT if contract is None else contract
+    seen: set = set()
+    # the diagnostic fires AT the node that breaks/unknowns the
+    # invariant — one report per root cause, no per-consumer cascade —
+    # so the walk tracks only visited-ness, not a propagated dirty bit
+    # (a carried bit would be dead state here, and wrong for re-mask
+    # nodes, whose mask restores the region regardless of the child)
+
+    def walk(n) -> Iterator[Diagnostic]:
+        if n.uid in seen:
+            return
+        seen.add(n.uid)
+        for c in n.children:
+            yield from walk(c)
+        rule = rules.get(n.kind)
+        if rule is None:
+            yield Diagnostic(
+                code="MV103", severity="warning", node=node_addr(n),
+                message=f"node kind {n.kind!r} has no entry in the "
+                        "padding contract — the zero-padding invariant "
+                        "cannot be proven for this plan",
+                fix_hint="declare the new lowering's effect in "
+                         "analysis/padding_pass.PADDING_CONTRACT "
+                         "(and re-mask in the executor if it breaks "
+                         "the invariant)")
+            return
+        if rule(n) == BREAKS:
+            yield Diagnostic(
+                code="MV103", severity="error", node=node_addr(n),
+                message=f"lowering of {n.kind!r} "
+                        f"(attrs {_attr_summary(n)}) breaks the "
+                        "zero-padding invariant and is not followed by "
+                        "a re-mask — downstream matmuls/aggregates "
+                        "would read garbage from the padded region",
+                fix_hint="re-mask the result (_mask_to_logical) in the "
+                         "executor, then mark the contract entry "
+                         "'remask'")
+
+    yield from walk(root)
+
+
+def _attr_summary(n) -> str:
+    keys = ("op", "value", "fill", "agg", "axis")
+    got = {k: n.attrs[k] for k in keys if k in n.attrs}
+    return repr(got) if got else "{}"

@@ -4,7 +4,8 @@
 Same frozen-dataclass shape and the same defaults as the JAX package's
 ``MatrelConfig``. The knobs of the ported planes (planning, rewrites,
 execution, precision tiers, the plan cache, serving, observability,
-resilience, the learned planner coefficients) are live. Every knob of a
+resilience, the learned planner coefficients, re-planning, the spill
+hierarchy and the static verifier) are live. Every knob of a
 plane this package has not ported yet is still a field, so a reader
 finds each counterpart, but setting it away from its default raises
 :class:`NotPortedError` at construction: an unported plane is never
@@ -64,8 +65,14 @@ class MatrelConfig:
     ``lockdep_raise`` (``utils/lockdep.py``), ``fault_inject`` /
     ``fault_inject_seed`` (``resilience/faults.py``), the ``brownout_*``
     knobs (``resilience/brownout.py``), the ``breaker_*`` knobs
-    (``resilience/breaker.py``), and ``coeff_planner_enable`` /
-    ``coeff_min_samples`` (``parallel/coeffs.py``). A retry climbs the
+    (``resilience/breaker.py``), ``coeff_planner_enable`` /
+    ``coeff_min_samples`` (``parallel/coeffs.py``), the durable half's:
+    ``coeff_replan_enable`` / ``coeff_replan_interval`` /
+    ``coeff_replan_cooldown`` (``serve/replan.py``), ``spill_enable``,
+    ``spill_host_max_bytes``, ``spill_disk_hits`` and ``state_dir``
+    (``serve/spill.py``; the disk tier and ``save_state`` write under
+    ``state_dir``), and ``verify_plans`` ("off" / "warn" / "error":
+    ``analysis/``, run at compile time before lowering). A retry climbs the
     degradation ladder (``resilience/degrade.py``); its rung 3 runs the
     composite paths instead of the hand-written kernels, by design.
 
@@ -176,6 +183,14 @@ class MatrelConfig:
                 f"obs_level must be one of 'off'/'on'/'analyze', "
                 f"got {self.obs_level!r}")
         object.__setattr__(self, "obs_level", level)
+        # a misspelled "eror" would silently disable the verifier's
+        # raise and ship the very plan it exists to block
+        vp = self.verify_plans.lower()
+        if vp not in ("off", "warn", "error"):
+            raise ValueError(
+                f"verify_plans must be one of 'off'/'warn'/'error', "
+                f"got {self.verify_plans!r}")
+        object.__setattr__(self, "verify_plans", vp)
         for name in UNPORTED_KNOBS:
             want = _FIELD_DEFAULTS[name]
             if getattr(self, name) != want:
@@ -350,6 +365,35 @@ class MatrelConfig:
             raise ValueError(
                 f"coeff_min_samples must be >= 1, "
                 f"got {self.coeff_min_samples!r}")
+        if self.coeff_replan_enable and not self.coeff_planner_enable:
+            raise ValueError(
+                "coeff_replan_enable requires coeff_planner_enable "
+                "(re-planning recalibrates coefficients the planner "
+                "would otherwise never consult)")
+        if self.coeff_replan_interval < 1:
+            raise ValueError(
+                f"coeff_replan_interval must be >= 1, "
+                f"got {self.coeff_replan_interval!r}")
+        if self.coeff_replan_cooldown < 0:
+            raise ValueError(
+                f"coeff_replan_cooldown must be >= 0, "
+                f"got {self.coeff_replan_cooldown!r}")
+        # a spill hierarchy under a disabled result cache would demote
+        # nothing while the operator believes the working set extends
+        # past device memory
+        if self.spill_enable and self.result_cache_max_bytes <= 0:
+            raise ValueError(
+                "spill_enable requires result_cache_max_bytes > 0 "
+                "(the spill hierarchy extends the result cache — with "
+                "the cache off there is nothing to demote)")
+        if self.spill_host_max_bytes < 1:
+            raise ValueError(
+                f"spill_host_max_bytes must be >= 1, "
+                f"got {self.spill_host_max_bytes!r}")
+        if self.spill_disk_hits < 0:
+            raise ValueError(
+                f"spill_disk_hits must be >= 0 (0 ages everything "
+                f"the host tier evicts), got {self.spill_disk_hits!r}")
 
     def replace(self, **kw: Any) -> "MatrelConfig":
         return dataclasses.replace(self, **kw)
@@ -397,16 +441,12 @@ class MatrelConfig:
 _FIELD_DEFAULTS = {f.name: f.default for f in dataclasses.fields(MatrelConfig)}
 
 #: Knobs whose plane is not ported: Pallas interpret mode, buffer
-#: donation, hoisted payloads (the plan cache's byte bound counts them),
-#: static verification, the fleet, the coefficient re-plan controller
-#: and the durable spill hierarchy.
+#: donation, hoisted payloads (the plan cache's byte bound counts them)
+#: and the fleet.
 UNPORTED_KNOBS = (
     "pallas_interpret", "donate_intermediates", "plan_cache_max_bytes",
-    "verify_plans",
     "fleet_slices", "fleet_span_margin", "fleet_directory_max",
     "fleet_replicate_hits", "fleet_failover", "fleet_placement_calibration",
-    "coeff_replan_enable", "coeff_replan_interval", "coeff_replan_cooldown",
-    "spill_enable", "spill_host_max_bytes", "spill_disk_hits", "state_dir",
 )
 
 #: The SpGEMM kernel-registry vocabulary — what

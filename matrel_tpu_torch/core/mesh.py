@@ -200,6 +200,14 @@ def shutdown_distributed() -> None:
         dist.destroy_process_group()
 
 
+#: Default relative inverse bandwidth of a mesh axis whose hops cross a
+#: slice boundary, against an in-slice axis (the JAX package's value: a
+#: byte over the cross-slice axis costs ~8 in-slice bytes of time).
+#: ``config.axis_cost_weights`` calibrates the ratio of a given fabric;
+#: placement (``serve/placement.py``) bills an unmeasured cut at this.
+DCN_AXIS_WEIGHT = 8.0
+
+
 def axis_weights(mesh: Mesh, config=None) -> Tuple[float, float]:
     """Per-axis inverse-bandwidth weights the comm model bills: the
     configured ``axis_cost_weights``. (The JAX package also detects TPU

@@ -1015,6 +1015,13 @@ class Lowerer:
     def _scalar(self, node: MatExpr, ev) -> Tensor:
         x = ev(node.children[0])
         op, v = node.attrs["op"], node.attrs["value"]
+        if (not x.dtype.is_floating_point and x.dtype != torch.bool
+                and not (torch.iinfo(x.dtype).min <= v
+                         <= torch.iinfo(x.dtype).max)):
+            # a constant the integer dtype cannot hold (norm's ·-1 on an
+            # unsigned value): computed in int64, so |x| = max(x, -x)
+            # comes out as numpy's, not wrapped (the JAX package raises)
+            x = x.to(torch.int64)
         s = torch.tensor(v, dtype=x.dtype, device=x.device)
         if op == "mul":
             return x * s
@@ -1061,7 +1068,13 @@ class Lowerer:
                                      torch.zeros((), device=x.device)
                                      ).to(x.dtype))
         elif kind in ("max", "min"):
-            fill = float("-inf") if kind == "max" else float("inf")
+            if x.dtype.is_floating_point or x.dtype == torch.bool:
+                fill = float("-inf") if kind == "max" else float("inf")
+            else:
+                # an integer dtype has no infinity: its extreme value is
+                # the identity of max / min
+                info = torch.iinfo(x.dtype)
+                fill = info.min if kind == "max" else info.max
             masked = torch.where(_valid_mask((n, m), (pn, pm), x.device), x,
                                  torch.tensor(fill, dtype=x.dtype,
                                               device=x.device))
@@ -1325,10 +1338,31 @@ def _precision_meta(opts, cfg: MatrelConfig) -> Optional[Dict]:
             "est_rel_err_bound": bound[0]}
 
 
+def _verify_plans(opts, mesh, cfg: MatrelConfig) -> Optional[List[dict]]:
+    """Run the static verifier (``analysis/``) over the annotated roots
+    when ``config.verify_plans`` asks for it — before lowering: at
+    "error" a misdescribed or infeasible plan raises here and nothing
+    is lowered, at "warn" the findings are logged and recorded. Returns
+    the diagnostic dicts for ``plan.meta`` (None with the gate off, so
+    the default compile path pays nothing). Imported lazily: the
+    analysis → executor dependency stays one-way at module load."""
+    if cfg.verify_plans == "off":
+        return None
+    from matrel_tpu_torch import analysis
+    diags = []
+    for o in opts:
+        diags.extend(analysis.verify_plan(o, mesh, cfg))
+    analysis.enforce(diags, cfg.verify_plans)
+    return [d.to_dict() for d in diags]
+
+
 def _plan_meta(opts, cfg: MatrelConfig, optimize_ms: float,
-               trace_ms: float, rule_hits: dict) -> Dict:
+               trace_ms: float, rule_hits: dict,
+               diagnostics: Optional[List[dict]] = None) -> Dict:
     meta = {"optimize_ms": round(optimize_ms, 3),
             "trace_ms": round(trace_ms, 3), "rule_hits": rule_hits}
+    if diagnostics is not None:
+        meta["diagnostics"] = diagnostics
     prec = _precision_meta(opts, cfg)
     if prec is not None:
         meta["precision"] = prec
@@ -1444,13 +1478,15 @@ def compile_expr(expr: MatExpr, mesh: Optional[Mesh] = None,
     # parent-linked spans only when a tracer is active
     with trace_lib.phase("plan.optimize") as sp_opt:
         opt = _annotate(expr, mesh, cfg, rule_hits)
+    with trace_lib.phase("plan.verify"):
+        diags = _verify_plans((opt,), mesh, cfg)
     leaf_order = expr_leaves(opt)
     with trace_lib.phase("plan.trace") as sp_tr:
         fn = _lowerer((opt,), mesh, cfg).lower(opt, leaf_order)
     return CompiledPlan(fn=fn, leaf_order=leaf_order, optimized=opt,
                         mesh=mesh, config=cfg,
                         meta=_plan_meta((opt,), cfg, sp_opt.dur_ms,
-                                        sp_tr.dur_ms, rule_hits))
+                                        sp_tr.dur_ms, rule_hits, diags))
 
 
 def compile_exprs(exprs, mesh: Optional[Mesh] = None,
@@ -1467,13 +1503,15 @@ def compile_exprs(exprs, mesh: Optional[Mesh] = None,
     rule_hits: Dict[str, int] = {}
     with trace_lib.phase("plan.optimize", roots=len(exprs)) as sp_opt:
         opts = tuple(_annotate(e, mesh, cfg, rule_hits) for e in exprs)
+    with trace_lib.phase("plan.verify"):
+        diags = _verify_plans(opts, mesh, cfg)
     leaf_order = _unique_leaves(opts)
     with trace_lib.phase("plan.trace") as sp_tr:
         fn = _lowerer(opts, mesh, cfg).lower_multi(opts, leaf_order)
     return MultiPlan(fn=fn, leaf_order=leaf_order, optimized=opts,
                      mesh=mesh, config=cfg,
                      meta=_plan_meta(opts, cfg, sp_opt.dur_ms,
-                                     sp_tr.dur_ms, rule_hits))
+                                     sp_tr.dur_ms, rule_hits, diags))
 
 
 def plan_matmul_decisions(plan) -> List[dict]:

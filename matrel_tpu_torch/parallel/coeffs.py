@@ -43,6 +43,20 @@ from matrel_tpu_torch.utils import lockdep
 ANALYTIC_MS_PER_GFLOP = 1.0
 ANALYTIC_MS_PER_MIB = 0.02
 
+#: Transfer legs of the result-cache spill hierarchy
+#: (``serve/spill.py``) — each calibrates its own ``spill:<leg>`` drift
+#: row (``obs/drift.py`` ingests live ``spill`` events).
+SPILL_LEGS = ("d2h", "h2d", "disk_write", "disk_read")
+
+#: Analytic fallback ms/MiB per spill leg (the JAX package's round
+#: numbers: ~20 GB/s each way between device and host, ~2 GB/s to
+#: disk), so a cold table still ranks device ≪ host ≪ disk. A
+#: drift-calibrated ``spill:<leg>`` row replaces a leg the moment one
+#: exists; ``PERF.md`` §6 sets the H100's measured legs beside these.
+ANALYTIC_SPILL_MS_PER_MIB = {
+    "d2h": 0.05, "h2d": 0.05, "disk_write": 0.5, "disk_read": 0.5,
+}
+
 #: Epoch token of a missing/empty table — a fixed literal (not a hash
 #: of ``{}``) so the cold ``coeffv:`` prefix is self-describing in a
 #: dumped plan-cache key.
@@ -180,6 +194,36 @@ def predict_ms(row: dict, gflops: float, weighted_cost: float) -> float:
     cg = float(gf) if gf is not None else ANALYTIC_MS_PER_GFLOP
     cm = float(mib) if mib is not None else ANALYTIC_MS_PER_MIB
     return cg * gflops + cm * (weighted_cost / (1 << 20))
+
+
+def spill_leg_row(leg: str, cls: str, backend: str,
+                  path: str) -> Optional[dict]:
+    """The calibration row one spill transfer leg is priced by, or None
+    (cold). Legs key the drift table as ``spill:<leg>`` strategy
+    tokens, so the drift loop (live ``spill`` events → ``calibrate`` →
+    this seam) closes over them as over the matmul strategies."""
+    return strategy_row(f"spill:{leg}", cls, backend, path)
+
+
+def spill_cost_ms(legs, nbytes: float, cls: str, backend: str,
+                  path: str) -> Tuple[float, str]:
+    """Predicted milliseconds of a spill plan's transfer legs (the bill
+    a lower-tier hit pays instead of recompute) and its provenance
+    token: ``"measured"`` when every leg priced from a calibrated row,
+    ``"analytic"`` when any leg fell back to
+    :data:`ANALYTIC_SPILL_MS_PER_MIB` (all or nothing, as
+    ``choose_strategy_ex`` stamps)."""
+    mib = float(nbytes) / (1 << 20)
+    total = 0.0
+    source = "measured"
+    for leg in legs:
+        row = spill_leg_row(leg, cls, backend, path)
+        coef = row.get("ms_per_mib") if row is not None else None
+        if coef is None:
+            coef = ANALYTIC_SPILL_MS_PER_MIB.get(leg, ANALYTIC_MS_PER_MIB)
+            source = "analytic"
+        total += float(coef) * mib
+    return total, source
 
 
 def chain_comm_weights(path: str, backend: str,

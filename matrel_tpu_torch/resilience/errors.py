@@ -16,9 +16,8 @@ Every resilience-surface error is typed: callers catch
 ``PipelineClosed`` by class. The classes, their messages and the
 classification are the JAX package's, with the device runtime's failure
 vocabulary replaced by the CUDA runtime's: out of memory is the only
-transient runtime error that was not injected. The error types of
-planes not ported yet — the fleet, checkpoint and spill corruption —
-are added with those planes.
+transient runtime error that was not injected. The fleet's error type
+is added with the fleet.
 """
 
 from __future__ import annotations
@@ -145,6 +144,31 @@ class CircuitOpen(ResilienceError):
             f"{max(retry_after_ms, 0.0):.0f} ms")
 
 
+class CheckpointCorruption(ResilienceError):
+    """A checkpoint artifact failed its stored checksum (or its
+    metadata does not parse): the restore refuses to hand back
+    silently-corrupt arrays. The caller decides whether an older step
+    is acceptable."""
+
+
+class SnapshotCorruption(CheckpointCorruption):
+    """A durable-state artifact (a disk-tier spill entry or a
+    ``save_state()`` snapshot member — ``serve/spill.py``) failed its
+    stored sha1 or does not parse. Same checksum discipline and the same
+    deterministic classification as :class:`CheckpointCorruption`; the
+    session's restore catches it and cold-starts with a warning, and a
+    disk-tier thaw treats it as a cache miss: the entry drops, the query
+    recomputes, the answer is never wrong."""
+
+    def __init__(self, artifact: str, detail: str = ""):
+        self.artifact = artifact
+        self.detail = detail
+        super().__init__(
+            f"durable-state artifact {artifact!r} is corrupt"
+            + (f": {detail}" if detail else "")
+            + " — refusing to thaw silently-corrupt data")
+
+
 #: Exception type names treated as transient runtime faults: the CUDA
 #: allocator's out-of-memory error as torch raises it (``OutOfMemoryError``;
 #: a retry after the caching allocator releases blocks can succeed).
@@ -165,8 +189,8 @@ def is_transient(exc: BaseException) -> bool:
     if isinstance(exc, InjectedFault):
         return exc.transient
     if isinstance(exc, ResilienceError):
-        # deadlines, sheds, closed pipelines: all deterministic by
-        # construction — retrying cannot help
+        # deadlines, sheds, closed pipelines, corruption: all
+        # deterministic by construction — retrying cannot help
         return False
     name = type(exc).__name__
     if name == "VerificationError":

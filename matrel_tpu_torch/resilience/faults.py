@@ -38,7 +38,7 @@ Instrumented sites (each named after the choke point it lives at)::
                  per attempt — the main retryable site)
     rc_probe     session._rc_admit (result-cache consult)
     serve_admit  the serve pipeline's admission worker
-    checkpoint   the checkpoint plane (not ported: no site checks it)
+    checkpoint   utils/checkpoint.CheckpointManager save / restore
 
 The OFF contract is structural: with ``config.fault_inject == ""``
 (the default) :func:`check` returns after one string truthiness test

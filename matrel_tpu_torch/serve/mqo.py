@@ -110,8 +110,8 @@ class MqoState:
         #: executions — MV116's dynamic-verify feed: executing both
         #: fresh and comparing proves substituted ≡ unshared.
         self.recent: deque = deque(maxlen=RECENT_MAX)
-        #: abstract keys a ``save_state()`` snapshot would seed (the
-        #: JAX package's spill plane — not ported): always empty here
+        #: abstract keys a restored ``save_state()`` snapshot seeded
+        #: that no compile has re-warmed yet (``serve/spill.py``)
         self.seeded: set = set()
         self.templates_rewarmed = 0
 
@@ -146,6 +146,27 @@ class MqoState:
         if ent is not None:
             self.templates.move_to_end(key)
         return ent
+
+    def template_keys(self) -> list:
+        """LRU-ordered abstract keys (coldest first) for ``save_state()``
+        — plus any seeded key not yet re-warmed, so a restart of a
+        restart does not forget the original hot set."""
+        out = sorted(self.seeded)
+        out.extend(k for k in self.templates if k not in self.seeded)
+        return out
+
+    def seed_templates(self, keys) -> int:
+        """Install a snapshot's template keys (``restore()``'s seam).
+        Bounded by ``cse_template_max``; non-string rows are skipped (a
+        snapshot is never a correctness surface)."""
+        installed = 0
+        for k in keys:
+            if len(self.seeded) >= self.config.cse_template_max:
+                break
+            if isinstance(k, str) and k not in self.templates:
+                self.seeded.add(k)
+                installed += 1
+        return installed
 
 
 # -- leaf-abstracted structural keys (plan templates) -------------------

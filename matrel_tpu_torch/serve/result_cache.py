@@ -21,8 +21,10 @@ inserted. Thread-safe — the serve pipeline's worker and the caller's
 thread share one cache (one RLock, ``"serve.result_cache"`` in the
 lockdep inventory, ``utils/lockdep.py``).
 
-The spill hierarchy is not ported: ``spill`` stays None, and the
-branches that would demote to or thaw from it never run.
+With ``spill_enable`` a ``serve/spill.py`` SpillManager is attached:
+evictions demote to host RAM (then disk) instead of dropping, and a miss
+thaws from the lower tiers. Without it ``spill`` stays None and those
+branches never run.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import logging
 from collections import OrderedDict
 from typing import FrozenSet, Optional, Tuple
 
+import numpy as np
 import torch
 
 from matrel_tpu_torch.core.blockmatrix import BlockMatrix
@@ -46,27 +49,44 @@ _log = logging.getLogger("matrel_tpu_torch.serve")
 _NBYTES_WARNED = [False]
 
 
+def _itemsize(dtype) -> int:
+    """Bytes an element of a torch or numpy dtype takes."""
+    if isinstance(dtype, torch.dtype):
+        return int(dtype.itemsize)
+    return int(np.dtype(dtype).itemsize)
+
+
 def result_nbytes(result: BlockMatrix) -> int:
     """Device bytes a cached result pins: its PADDED tensor,
     ``numel() * element_size()`` (bf16 sizes as 2 bytes — the JAX
     package's numpy-dtype sizing has no bf16 and would fall back).
 
-    A result without a usable tensor (a foreign object) must NOT size
-    as 0 — a 0-byte entry escapes the LRU byte budget entirely — so it
-    falls back to the unpadded ``shape × 4`` estimate, warning once."""
+    A foreign array with a shape and dtype sizes the same way. One
+    missing even those must NOT size as 0 — a 0-byte entry escapes the
+    LRU byte budget entirely — so it falls back to the unpadded
+    ``shape × itemsize`` estimate (itemsize 4 when the dtype is gone
+    too), warning once."""
     data = getattr(result, "data", None)
     if isinstance(data, torch.Tensor):
         return int(data.numel()) * int(data.element_size())
     try:
-        est = int(result.shape[0]) * int(result.shape[1]) * 4
+        return int(np.prod(data.shape)) * _itemsize(data.dtype)
+    except (AttributeError, TypeError):
+        pass
+    try:
+        itemsize = _itemsize(data.dtype)
+    except (AttributeError, TypeError):
+        itemsize = 4            # f32, the package-wide default dtype
+    try:
+        est = int(result.shape[0]) * int(result.shape[1]) * itemsize
     except (AttributeError, TypeError, IndexError):
         est = 0                 # not a BlockMatrix at all
     if not _NBYTES_WARNED[0]:
         _NBYTES_WARNED[0] = True
         _log.warning(
-            "result_nbytes: cached result has no tensor; falling back "
-            "to the unpadded shape*4 estimate (%d bytes) for LRU "
-            "accounting (warned once)", est)
+            "result_nbytes: cached result's array has no usable "
+            "shape/dtype; falling back to the unpadded shape*itemsize "
+            "estimate (%d bytes) for LRU accounting (warned once)", est)
     return est
 
 
@@ -100,7 +120,18 @@ class CacheEntry:
     provenance: compact lineage stamp written only through the
       provenance ledger's seams (``obs/provenance.py``); None while
       ``obs_provenance`` is off.
-    hits: lifetime consult count of this entry.
+    fleet: multi-slice provenance of an entry replicated from another
+      slice's cache (the fleet is not ported: always None here; MV114
+      reads it).
+    hits: lifetime consult count of this entry — the expected-reuse
+      signal the spill policy's host→disk gate reads
+      (``config.spill_disk_hits``).
+    spill: tier provenance of an entry promoted back from a lower tier
+      (``serve/spill.py``): ``{"tier": "host"/"disk"/"restored", "legs":
+      [...], "est_ms": float, "cost": "measured"/"analytic", "fits":
+      bool, "measured": [...]}`` — which tier it thawed from and the
+      priced transfer legs it paid, which MV117 re-checks. None for an
+      entry that has only ever lived on the device.
     """
 
     key_hash: str
@@ -116,8 +147,10 @@ class CacheEntry:
     delta_gen: int = 0
     delta_rule: Optional[str] = None
     ivm_id: Optional[int] = None
+    fleet: Optional[dict] = None
     provenance: Optional[dict] = None
     hits: int = 0
+    spill: Optional[dict] = None
 
 
 class ResultCache:
@@ -156,7 +189,7 @@ class ResultCache:
         # register_delta is ever used (the bit-identity contract)
         self.patched = 0
         self.rekeyed = 0
-        # spill hierarchy (the JAX package's serve/spill.py): the
+        # spill hierarchy (serve/spill.py): the
         # attached SpillManager, or None — the default, and the ONLY
         # state the default config ever sees (zero spill objects).
         # When attached, evictions DEMOTE instead of dropping and
@@ -204,6 +237,15 @@ class ResultCache:
             ent.hits += 1
             self.hits += 1
             return ent
+
+    def note_restored_hit(self) -> None:
+        """Counter correction for the session's restored-snapshot
+        consult: the first-level ``lookup`` already counted a miss
+        before the name-keyed index thawed the value — a served answer
+        must read as the hit it was."""
+        with self._lock:
+            self.misses = max(self.misses - 1, 0)
+            self.hits += 1
 
     def probe(self, key: str) -> Optional[CacheEntry]:
         with self._lock:

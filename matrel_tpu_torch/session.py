@@ -26,7 +26,14 @@ knob asks for it, exactly where the JAX package's sits:
   (``brownout_enable``);
 - cross-query CSE and plan templates (``cse_enable``; ``serve/mqo.py``);
 - incremental view maintenance: ``register_delta`` patches dependent
-  cached results (``serve/ivm.py``, ``ir/delta.py``).
+  cached results (``serve/ivm.py``, ``ir/delta.py``);
+- the durable half (``spill_enable``, ``state_dir``; ``serve/spill.py``):
+  evicted results demote to host RAM and disk and promote back on a
+  miss, ``save_state``/``restore`` snapshot and warm-restart the
+  session, ``save_catalog``/``load_catalog`` persist the tables
+  (``utils/checkpoint.py``);
+- drift-triggered re-planning (``coeff_replan_enable``;
+  ``serve/replan.py``).
 
 The observability plane (``obs/``) rides the same seams: the JSONL
 event log and metrics registry (``obs_level``), tracing spans and the
@@ -36,14 +43,16 @@ the answer provenance ledger behind :meth:`MatrelSession.why`
 (``obs_provenance``), EXPLAIN ANALYZE (``explain(analyze=True)``), the
 lock-order sanitizer (``lockdep_enable``) and the drift-fitted planner
 coefficients (``coeff_planner_enable``). No span synchronises the
-device; only analysis does, when asked for.
+device; only analysis does, when asked for. The static plan verifier
+(``analysis/``) runs at compile time under ``verify_plans``, on demand
+through :meth:`MatrelSession.verify`, and in ``explain``.
 
 With every knob at its default ``compute`` is the JAX package's
 production branch: compile (or hit the plan cache) and run, plans and
 results bit-identical to a session without the serve, obs and
 resilience planes — no event is assembled, no span or plane object
-built, no sync added. The fleet and spill planes are not ported: their
-knobs raise ``NotPortedError``, and so do ``save_state``/``restore``.
+built, no sync added. The fleet is not ported: its knobs raise
+``NotPortedError``.
 ``sql``/``explain_sql`` compile the SQL surface (``sql.py``) into the
 same IR.
 
@@ -69,8 +78,8 @@ import numpy as np
 import torch
 
 from matrel_tpu_torch import executor as executor_lib
-from matrel_tpu_torch.config import (MatrelConfig, NotPortedError,
-                                     default_config, normalize_sla)
+from matrel_tpu_torch.config import (MatrelConfig, default_config,
+                                     normalize_sla)
 from matrel_tpu_torch.core import mesh as mesh_lib
 from matrel_tpu_torch.core.blockmatrix import BlockMatrix
 from matrel_tpu_torch.core.mesh import Mesh
@@ -87,6 +96,7 @@ from matrel_tpu_torch.resilience import faults as faults_lib
 from matrel_tpu_torch.resilience import retry as retry_lib
 from matrel_tpu_torch.resilience.retry import RetryPolicy
 from matrel_tpu_torch.serve import mqo as mqo_lib
+from matrel_tpu_torch.serve import replan as replan_lib
 from matrel_tpu_torch.serve.result_cache import (CacheEntry, ResultCache,
                                                  result_nbytes)
 from matrel_tpu_torch.utils import lockdep
@@ -135,6 +145,15 @@ class MatrelSession:
         self._mqo: Optional["mqo_lib.MqoState"] = None
         self._delta_plane = None
         self._delta_gen = 0
+        # the durable spill hierarchy (serve/spill.py): host/disk tiers
+        # under the result cache and the warm-restart snapshot index —
+        # None for the default config (spill._CONSTRUCTED stays 0)
+        self._spill = None
+        if self.config.spill_enable:
+            from matrel_tpu_torch.serve.spill import SpillManager
+            self._spill = SpillManager(self)
+            self._spill.emit = self._emit_spill_event
+            self._result_cache.attach_spill(self._spill)
         self._event_log = None      # built lazily (obs_level != "off")
         # obs and resilience planes: each None for the default config
         # (nothing constructed, nothing consulted). The flight-recorder
@@ -154,6 +173,11 @@ class MatrelSession:
         self._slo = slo_lib.from_config(self.config,
                                         emit=self._emit_alert_event)
         self._prov = provenance_lib.from_config(self.config)
+        # the cost-model re-plan controller (serve/replan.py): turns a
+        # firing drift rank-order flag into a re-calibration and a
+        # background re-warm of the affected cached plans — None unless
+        # coeff_replan_enable (replan._CONSTRUCTED stays 0)
+        self._replan = replan_lib.from_config(self.config, self)
         # the metrics endpoint is built LAST: its handler snapshots the
         # planes above (a port that cannot bind raises here)
         self._exporter = export_lib.from_config(self)
@@ -225,6 +249,11 @@ class MatrelSession:
                 {id(old)}, keep_stale=self._brownout is not None,
                 stale_max=self.config.result_cache_max_entries,
                 stale_max_bytes=self.config.result_cache_max_bytes)
+            if self._spill is not None:
+                # restored snapshot entries carry dep NAMES, not ids:
+                # the rebind kill reaches them by name (the id cascade
+                # above already covered the live host/disk tiers)
+                self._spill.invalidate_names({name})
 
     def table(self, name: str):
         return self.catalog[name]
@@ -265,19 +294,81 @@ class MatrelSession:
                                       float(out["ms"]))
         return out
 
+    def save_catalog(self, directory: str,
+                     step: Optional[int] = None) -> str:
+        """Persist every registered table (atomic step directory, specs
+        included; ``utils/checkpoint.py``'s format, which the JAX
+        package reads too). ``step`` defaults to the next step in the
+        directory (a fixed default would be GC'd by keep-k the moment
+        older saves carry higher steps). Dense tables save as matrices,
+        block-sparse ones as the format's sparse entries; a COO table
+        has no entry in the format and raises TypeError. Returns the
+        step path."""
+        from matrel_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                       split_catalog)
+        dense, sparse, other = split_catalog(self.catalog)
+        if other:
+            raise TypeError(
+                f"save_catalog: table(s) {other} are COO matrices, which "
+                f"the checkpoint format has no entry for")
+        mgr = CheckpointManager(directory, config=self.config)
+        if step is None:
+            step = mgr.next_step()
+        return mgr.save(step, matrices=dense, sparse=sparse)
+
+    def load_catalog(self, directory: str,
+                     step: Optional[int] = None) -> list:
+        """Restore tables saved by :meth:`save_catalog` (by either
+        package) into this session's catalog, existing names
+        overwritten. Returns the restored names; an empty directory
+        gives an empty list."""
+        from matrel_tpu_torch.utils.checkpoint import CheckpointManager
+        got = CheckpointManager(directory,
+                                config=self.config).restore_all(self.mesh,
+                                                                step)
+        if got is None:
+            return []
+        _step, mats, sparse, _arrays, _state = got
+        mats = {**mats, **sparse}
+        # through register(): an overwritten name is a catalog REBIND,
+        # and cached results computed from the old binding invalidate
+        for name in sorted(mats):
+            self.register(name, mats[name])
+        return sorted(mats)
+
     def save_state(self, directory: Optional[str] = None) -> dict:
-        """Snapshot of the session's durable state — the spill plane
-        and the checkpoint format it needs are not ported."""
-        raise NotPortedError(
-            "save_state: the durable spill plane (serve/spill.py, "
-            "utils/checkpoint.py) is not ported to matrel_tpu_torch yet")
+        """Snapshot this session's durable state — catalog bindings
+        (the checkpoint step format), the result-cache index (entries
+        with catalog-name-computable keys, frozen as sha1-verified disk
+        artifacts), MQO template keys and the autotune / drift tables —
+        under ``directory`` (default ``config.state_dir``; neither set
+        raises ValueError). A later :meth:`restore` in a new process
+        comes back serving warm. Without ``spill_enable`` only the
+        catalog and tables persist (cached results are skipped, counted
+        in the summary). Returns the save summary, also emitted as a
+        ``spill`` event (op ``save_state``)."""
+        from matrel_tpu_torch.serve import spill as spill_lib
+        with self._compile_lock:
+            out = spill_lib.save_state(self, directory)
+        self._emit_spill_event({"op": "save_state", **out})
+        return out
 
     def restore(self, directory: Optional[str] = None) -> dict:
-        """Warm restart from a :meth:`save_state` snapshot — not
-        ported (see :meth:`save_state`)."""
-        raise NotPortedError(
-            "restore: the durable spill plane (serve/spill.py, "
-            "utils/checkpoint.py) is not ported to matrel_tpu_torch yet")
+        """Warm-restart this session from a :meth:`save_state` snapshot:
+        the catalog restored through :meth:`register`, tables written if
+        absent, the result-cache index seeded into the spill hierarchy's
+        restored tier (requires ``spill_enable``; entries thaw lazily on
+        first consult, paying only the priced transfer), MQO template
+        keys re-indexed. A corrupt or truncated snapshot warns and
+        cold-starts — restore never crashes a restart; a disk-tier entry
+        failing its sha1 later is a per-entry miss, never a wrong
+        answer. Returns the restore summary, also emitted as a
+        ``spill`` event (op ``restore``)."""
+        from matrel_tpu_torch.serve import spill as spill_lib
+        with self._compile_lock:
+            out = spill_lib.load_snapshot(self, directory)
+        self._emit_spill_event({"op": "restore", **out})
+        return out
 
     # -- constructors bound to this session's mesh/config ------------------
 
@@ -439,6 +530,47 @@ class MatrelSession:
         return {"plans": len(self._plan_cache),
                 "evicted": self._plan_cache_evicted}
 
+    def _replan_warm(self, classes) -> dict:
+        """Proactively recompile cached plans whose matmul decisions
+        touch the given shape classes, under the current coefficient
+        epoch (``serve/replan.py``'s background thread calls this after
+        a re-calibration). Correctness never depends on it — the
+        ``coeffv:`` key prefix already makes every post-bump lookup miss
+        and recompile lazily; this pass pays the compiles off the query
+        path. Each entry re-warms from its pinned root expr(s) at the
+        session's default SLA and rung 0. Old-epoch entries stay until
+        LRU eviction: an in-flight query holding one is never
+        invalidated under it."""
+        from matrel_tpu_torch.obs import drift as drift_lib
+        with self._compile_lock:
+            snapshot = list(self._plan_cache.values())
+        matched = warmed = 0
+        for plan in snapshot:
+            pin = getattr(plan, "_cache_pin", None)
+            if pin is None:
+                continue
+            try:
+                decs = executor_lib.plan_matmul_decisions(plan)
+            except Exception:
+                # best-effort census: an unreadable plan is skipped; the
+                # lazy coeffv: miss still re-plans it
+                continue
+            if not any(drift_lib.shape_class(d.get("dims") or ())
+                       in classes for d in decs):
+                continue
+            matched += 1
+            roots = pin[0]
+            try:
+                if isinstance(roots, tuple):
+                    self._compile_multi_entry(list(roots))
+                else:
+                    self._compile_entry(roots)
+                warmed += 1
+            except Exception:
+                log.warning("replan: warm recompile failed",
+                            exc_info=True)
+        return {"matched": matched, "replanned": warmed}
+
     # -- cross-query result cache (serve/result_cache.py) -------------------
 
     def _rc_enabled(self) -> bool:
@@ -473,10 +605,44 @@ class MatrelSession:
         parts, pins, spans = _plan_key_spans(e)
         key = prefix + "|".join(parts)
         ent = self._result_cache.lookup(key)
+        if ent is None and self._spill is not None \
+                and self._spill.restored_count():
+            # warm restart: a restored snapshot's name-keyed index may
+            # hold this query's value frozen at the disk tier — thaw
+            # it, and the repeat pays a priced transfer, not a recompute
+            ent = self._rc_thaw_restored(e, prefix, key)
         if ent is not None:
             return ent, key, pins, e
         return None, key, pins, self._rc_substitute(e, parts, spans,
                                                     prefix)
+
+    def _rc_thaw_restored(self, e: MatExpr, prefix: str, key: str):
+        """Consult the restored-snapshot index on a cache miss: the
+        session-independent NAME key (``placement.fleet_key`` — catalog
+        names, not id()s) is the only key format that survives a process
+        boundary. A thaw re-resolves dep names against the live catalog,
+        re-inserts under the query's live structural key (so the next
+        repeat is a plain device hit) and corrects the miss the lookup
+        already counted. Precision tiers stay isolated: the entry thaws
+        only for a query under the same ``prec:`` token it was cached
+        under."""
+        from matrel_tpu_torch.serve import placement as placement_lib
+        nk = placement_lib.fleet_key(
+            e, {id(m): n for n, m in self.catalog.items()})
+        if nk is None:
+            return None
+        # the prec component of the admission prefix (the delta:<gen>|
+        # part, when present, always precedes it and ends at its "|")
+        prec = (prefix.split("|", 1)[1]
+                if prefix.startswith("delta:") else prefix)
+        ent = self._spill.thaw_restored(nk, prec, self.catalog.get)
+        if ent is None:
+            return None
+        self._result_cache.note_restored_hit()
+        self._result_cache.put(key, ent,
+                               self.config.result_cache_max_bytes,
+                               self.config.result_cache_max_entries)
+        return ent
 
     def _rc_leaf(self, ent: CacheEntry) -> MatExpr:
         """A cache entry lifted into planning as an already-laid-out
@@ -494,6 +660,13 @@ class MatrelSession:
             stamp["delta"] = {"gen": ent.delta_gen,
                               "rule": ent.delta_rule,
                               "err_bound": ent.err_bound}
+        if ent.fleet:
+            stamp["fleet"] = dict(ent.fleet)
+        if ent.spill:
+            # the consumed value was thawed from a lower tier: MV117
+            # re-checks the stamped legs against the step vocabulary and
+            # the peak budget claim
+            stamp["spill"] = dict(ent.spill)
         node = expr_mod.leaf(ent.result).with_attrs(result_cache=stamp)
         if self._prov is not None:
             # the consumed entry's lineage rides the substitution leaf
@@ -941,11 +1114,15 @@ class MatrelSession:
         return self._flight.dump(p, reason, error=error)
 
     def _flight_auto_dump(self, ex: BaseException,
-                          reason: str = "compile_failure") -> None:
+                          reason: Optional[str] = None) -> None:
         """Best-effort dump on a failure path — a post-mortem artifact
         never masks the original exception."""
         if self._flight is None:
             return
+        if reason is None:
+            reason = ("verification_error"
+                      if type(ex).__name__ == "VerificationError"
+                      else "compile_failure")
         try:
             p = self.dump_flight_recorder(reason=reason,
                                           error=repr(ex)[:500])
@@ -1008,6 +1185,11 @@ class MatrelSession:
         if self.config.coeff_planner_enable:
             record["coeff_epoch"] = self._coeff_epoch()
         self._obs_emit("query", record)
+        if self._replan is not None:
+            # feed the re-plan controller after emission: it sees the
+            # record the log does, and its own failure can never drop
+            # the query event
+            self._replan.observe(record)
         REGISTRY.counter("query.count").inc()
         REGISTRY.counter("plan_cache.hit" if hit
                          else "plan_cache.miss").inc()
@@ -1026,11 +1208,11 @@ class MatrelSession:
             REGISTRY.counter(f"planner.strategy.{d['strategy']}").inc()
 
     def _emit_verify_event(self, plan) -> None:
-        """One ``verify`` record per observed run of a plan that carries
-        the static verifier's diagnostics. The verifier
-        (``verify_plans``) is not ported, so no plan carries them yet
-        and this emits nothing; the record's shape is the JAX
-        package's."""
+        """One ``verify`` record per observed run of a plan compiled with
+        ``verify_plans`` on: the diagnostic codes the compile-time
+        verifier produced for it (empty codes = verified clean). Cache
+        hits re-report the compile-time findings; "cache" on the query
+        record says no new verify happened."""
         diags = (plan.meta or {}).get("diagnostics")
         if diags is None:
             return
@@ -1044,6 +1226,38 @@ class MatrelSession:
         REGISTRY.counter("verify.count").inc()
         if diags:
             REGISTRY.counter("verify.diagnostics").inc(len(diags))
+
+    def verify(self, expr: MatExpr) -> list:
+        """Run the static plan verifier (``analysis/``) on this
+        expression's optimized, strategy-annotated plan and return the
+        diagnostic list — whatever ``config.verify_plans`` says (that
+        gate controls the compile path; this is the on-demand surface).
+        Planning only: nothing is lowered or executed."""
+        from matrel_tpu_torch import analysis
+        from matrel_tpu_torch.ir import rules
+        from matrel_tpu_torch.parallel import planner
+        e = as_expr(expr)
+        grid = mesh_lib.mesh_grid_shape(self.mesh)
+        opt = planner.annotate_strategies(
+            rules.optimize(e, self.config, grid=grid, mesh=self.mesh),
+            self.mesh, self.config)
+        return analysis.verify_plan(opt, self.mesh, self.config)
+
+    def _emit_spill_event(self, record: dict) -> None:
+        """One ``spill`` record per tier move (demote / promote / thaw —
+        ``serve/spill.py``'s emit hook) and per save_state / restore: the
+        measured transfer legs the drift auditor calibrates
+        ``spill:<leg>`` rows from. Obs or flight recorder on; a no-op
+        otherwise. Never fails the cache operation."""
+        if not self._obs_enabled() and self._flight is None:
+            return
+        from matrel_tpu_torch.obs.metrics import REGISTRY
+        try:
+            self._obs_emit("spill", dict(record))
+            REGISTRY.counter(
+                f"spill.{record.get('op') or 'op'}").inc()
+        except Exception:
+            log.warning("obs: spill event dropped", exc_info=True)
 
     def _emit_rc_hit_event(self, e: MatExpr, key: str, out: BlockMatrix,
                            tenant: Optional[str] = None) -> None:
@@ -1673,6 +1887,22 @@ class MatrelSession:
         head = "== Logical plan ==\n" + pretty(e)
         plan = self.compile(e, precision=precision)
         text = head + "\n" + plan.explain()
+        # the static verifier's findings next to the physical plan they
+        # describe: the compile-time diagnostics when the verify_plans
+        # gate produced them, else the passes run here (off the hot
+        # path) against the PLAN's config, so a per-query SLA is
+        # verified against the SLA the plan compiled under (MV108)
+        try:
+            from matrel_tpu_torch import analysis
+            diags = (plan.meta or {}).get("diagnostics")
+            if diags is None:
+                diags = analysis.verify_plan(plan.optimized, self.mesh,
+                                             plan.config)
+            else:
+                diags = [analysis.Diagnostic(**d) for d in diags]
+            text += "\n== Verifier ==\n" + analysis.render(diags)
+        except Exception as ex:     # verification must not fail EXPLAIN
+            text += f"\n== Verifier unavailable: {ex!r} =="
         if analyze or self.config.obs_level == "analyze":
             from matrel_tpu_torch.obs import analyze as analyze_mod
             try:

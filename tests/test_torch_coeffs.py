@@ -2,9 +2,11 @@
 (``matrel_tpu_torch/parallel/coeffs.py``) and their consults in the
 planner, the chain DP and the session's plan key, held against the JAX
 package's ``parallel/coeffs.py`` on the CPU, mirroring
-``tests/test_coeffs.py`` (less ``TestReplanController``: the re-plan
-controller, ``serve/replan.py``, is not ported and its knobs stay
-fenced).
+``tests/test_coeffs.py``; and the re-plan controller
+(``serve/replan.py``): ``TestReplanController``'s cases fed the same
+query records in both packages give the same round records, epochs and
+counters, and a session with ``coeff_replan_enable`` re-plans its warm
+queries with unchanged answers.
 
 The same drift table (written once, read by both packages) gives the
 same strategy rows, class blends, chain comm weights and epoch token;
@@ -32,12 +34,14 @@ from matrel_tpu.core.blockmatrix import BlockMatrix as JBlockMatrix
 from matrel_tpu.obs import drift as jdrift
 from matrel_tpu.parallel import coeffs as jcoeffs
 from matrel_tpu.parallel import planner as jplanner
+from matrel_tpu.serve import replan as jreplan
 from matrel_tpu.session import MatrelSession as JSession
 
 from matrel_tpu_torch import executor as texec
 from matrel_tpu_torch.config import MatrelConfig
 from matrel_tpu_torch.obs import drift
 from matrel_tpu_torch.parallel import coeffs, planner
+from matrel_tpu_torch.serve import replan as treplan
 from matrel_tpu_torch.session import MatrelSession
 
 CLS = "<=128"
@@ -449,3 +453,170 @@ class TestPlanKeyEpoch:
     def test_default_table_path_equal(self):
         assert drift.table_path(MatrelConfig()) == \
             jdrift.table_path(JConfig()) == ".matrel_drift.json"
+
+
+# -- the re-plan controller (serve/replan.py) ---------------------------------
+
+
+def _query(strategy, ms, est, dims=(64, 64, 64)):
+    return {"kind": "query", "backend": "cpu", "cache": "miss",
+            "execute_ms": ms,
+            "matmuls": [{"strategy": strategy, "dims": list(dims),
+                         "flops": 2.0 * dims[0] * dims[1] * dims[2],
+                         "est_ici_bytes": est}]}
+
+
+class TestReplanController:
+    """The JAX tests' cases, each fed to both packages' controllers (each
+    with its own drift table); the round records, epochs and counters
+    must be equal."""
+
+    @staticmethod
+    def _ctls(tmp_path, **kw):
+        kw.setdefault("coeff_replan_cooldown", 2)
+        kw.setdefault("coeff_replan_interval", 10 ** 6)
+        out = []
+        for mod, cfg, name in ((jreplan, JConfig, "j"),
+                               (treplan, MatrelConfig, "t")):
+            out.append(mod.from_config(cfg(
+                obs_level="off",
+                drift_table_path=str(tmp_path / f"{name}.json"),
+                coeff_planner_enable=True, coeff_replan_enable=True,
+                **kw)))
+        return out
+
+    @staticmethod
+    def _feed(ctls, strategy, ms, est, k=3):
+        for c in ctls:
+            for _ in range(k):
+                c.observe(_query(strategy, ms, est))
+
+    @staticmethod
+    def _check(ctls):
+        recs = [c.check() for c in ctls]
+        assert recs[0] == recs[1]
+        assert ctls[0].info() == ctls[1].info()
+        return recs[1]
+
+    def test_from_config_default_is_structural_zero(self):
+        for mod, cfg in ((jreplan, JConfig), (treplan, MatrelConfig)):
+            before = mod._CONSTRUCTED["count"]
+            assert mod.from_config(cfg()) is None
+            assert mod._CONSTRUCTED["count"] == before
+
+    def test_flag_fires_recalibrates_and_bumps_epoch(self, tmp_path):
+        ctls = self._ctls(tmp_path)
+        assert isinstance(ctls[1], treplan.ReplanController)
+        self._feed(ctls, "cpmm", ms=10.0, est=1000.0)
+        self._feed(ctls, "rmm", ms=1.0, est=2000.0)
+        rec = self._check(ctls)
+        assert rec is not None and ctls[1].replans == 1
+        assert rec["classes"] == ["<=64"]
+        assert rec["old_epoch"] == coeffs.COLD_EPOCH
+        assert rec["epoch"] != coeffs.COLD_EPOCH
+        assert rec["flags"][0]["model_prefers"] == "cpmm"
+        assert rec["flags"][0]["measured_prefers"] == "rmm"
+        assert rec["replanned"] == 0          # no session attached
+        row = coeffs.strategy_row("cpmm", "<=64", "cpu",
+                                  str(tmp_path / "t.json"))
+        assert row is not None and row["source"] == "measured"
+        assert ctls[1].info()["window"] == 0
+
+    def test_cooldown_suppresses_immediate_refire(self, tmp_path):
+        ctls = self._ctls(tmp_path)
+        self._feed(ctls, "cpmm", ms=10.0, est=1000.0)
+        self._feed(ctls, "rmm", ms=1.0, est=2000.0)
+        assert self._check(ctls) is not None
+        self._feed(ctls, "cpmm", ms=10.0, est=1000.0)
+        self._feed(ctls, "rmm", ms=1.0, est=2000.0)
+        assert self._check(ctls) is None
+        assert ctls[1].replans == 1
+
+    def test_reversal_needs_two_consecutive_checks(self, tmp_path):
+        ctls = self._ctls(tmp_path, coeff_replan_cooldown=0)
+        self._feed(ctls, "cpmm", ms=10.0, est=1000.0)
+        self._feed(ctls, "rmm", ms=1.0, est=2000.0)
+        assert self._check(ctls) is not None
+        self._feed(ctls, "rmm", ms=10.0, est=1000.0)
+        self._feed(ctls, "cpmm", ms=1.0, est=2000.0)
+        assert self._check(ctls) is None
+        assert self._check(ctls) is not None
+        assert ctls[1].replans == 2
+
+    def test_interval_triggers_check_from_observe(self, tmp_path):
+        ctls = self._ctls(tmp_path, coeff_replan_interval=2)
+        for c in ctls:
+            c.observe(_query("rmm", 1.0, 1000.0))
+            assert c.checks == 0
+            c.observe(_query("rmm", 1.0, 1000.0))
+            assert c.checks == 1
+
+    def test_observe_never_raises(self, tmp_path):
+        for c in self._ctls(tmp_path):
+            c.observe({"kind": "query", "matmuls": 5,
+                       "execute_ms": "garbage"})
+            c.observe({})
+            assert c.info()["window"] == 0
+
+    def test_replan_config_requires_planner(self):
+        for cfg in (JConfig, MatrelConfig):
+            with pytest.raises(ValueError):
+                cfg(coeff_replan_enable=True)
+
+
+class TestReplanSession:
+    def test_default_session_constructs_no_replan_state(self):
+        before = treplan._CONSTRUCTED["count"]
+        s = MatrelSession(device="cpu")
+        rng = np.random.default_rng(2)
+        x = rng.standard_normal((48, 16)).astype(np.float32)
+        X = s.from_numpy(x)
+        out = s.run(X.expr().t().multiply(X.expr()))
+        assert treplan._CONSTRUCTED["count"] == before
+        assert s._replan is None and s._coeff_prefix() == ""
+        np.testing.assert_allclose(out.to_numpy(), x.T @ x, rtol=TOL,
+                                   atol=TOL)
+
+    def test_warm_queries_replan_with_unchanged_answers(self, tmp_path):
+        """obs on, a 4-query interval and a poisoned drift table: the
+        controller checks on the query stream, re-calibrates, bumps the
+        epoch and re-warms the cached plan; every answer is bit-equal to
+        the first."""
+        table = str(tmp_path / "drift.json")
+        s = MatrelSession(config=MatrelConfig(
+            obs_level="on", obs_event_log=str(tmp_path / "ev.jsonl"),
+            drift_table_path=table, coeff_planner_enable=True,
+            coeff_replan_enable=True, coeff_replan_interval=4,
+            coeff_replan_cooldown=0), device="cpu")
+        ctl = s._replan
+        assert isinstance(ctl, treplan.ReplanController)
+        rng = np.random.default_rng(3)
+        A = s.from_numpy(rng.standard_normal((64, 64)).astype(np.float32))
+        B = s.from_numpy(rng.standard_normal((64, 64)).astype(np.float32))
+        q = A.expr().multiply(B.expr())
+        first = s.run(q).data.clone()
+        # the model and the measurement disagree on this class: feed the
+        # controller the inversion, then let the warm stream check it
+        for _ in range(3):
+            ctl.observe(_query("cpmm", 10.0, 1000.0))
+            ctl.observe(_query("rmm", 1.0, 2000.0))
+        for _ in range(8):
+            assert torch_equal(s.run(q).data, first)
+        ctl.drain(30.0)
+        assert ctl.checks >= 2 and ctl.replans >= 1
+        rec = ctl.events[0]
+        assert rec["old_epoch"] == coeffs.COLD_EPOCH
+        # the warm races the stream's own lazy recompile: it finds the
+        # old-epoch plan, and maybe the new one too
+        assert rec["matched"] >= 1 and rec["replanned"] == rec["matched"]
+        assert ctl.events[-1]["epoch"] == coeffs.epoch(table)
+        assert s._coeff_prefix() == f"coeffv:{coeffs.epoch(table)}|"
+        assert torch_equal(s.run(q).data, first)
+        kinds = [json.loads(line)["kind"]
+                 for line in open(str(tmp_path / "ev.jsonl"))]
+        assert "replan" in kinds
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a, b))

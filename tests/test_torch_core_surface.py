@@ -700,8 +700,10 @@ def test_config_from_env_dict_and_default(monkeypatch):
     assert MatrelConfig.from_env().cse_enable is True
     monkeypatch.setenv("MATREL_OBS_LEVEL", "on")
     assert MatrelConfig.from_env().obs_level == "on"
-    monkeypatch.setenv("MATREL_SPILL_ENABLE", "1")
-    with pytest.raises(NotPortedError, match="spill_enable"):
+    monkeypatch.setenv("MATREL_VERIFY_PLANS", "warn")
+    assert MatrelConfig.from_env().verify_plans == "warn"
+    monkeypatch.setenv("MATREL_FLEET_SLICES", "2")
+    with pytest.raises(NotPortedError, match="fleet_slices"):
         MatrelConfig.from_env()
     old = t_config.default_config()
     try:
@@ -728,22 +730,28 @@ OBS_RESILIENCE_KNOBS = (
     "breaker_half_open_probes", "coeff_planner_enable",
     "coeff_min_samples")
 
-#: What stays fenced: the verifier, the fleet, the re-plan controller,
-#: the spill hierarchy and the JAX-only execution knobs.
+#: The verifier's, the re-plan controller's and the durable spill
+#: hierarchy's knobs, which left ``UNPORTED_KNOBS`` together.
+DURABLE_VERIFIER_KNOBS = (
+    "verify_plans", "coeff_replan_enable", "coeff_replan_interval",
+    "coeff_replan_cooldown", "spill_enable", "spill_host_max_bytes",
+    "spill_disk_hits", "state_dir")
+
+#: What stays fenced: the fleet and the JAX-only execution knobs.
 STILL_FENCED = (
     "pallas_interpret", "donate_intermediates", "plan_cache_max_bytes",
-    "verify_plans", "fleet_slices", "fleet_span_margin",
-    "fleet_directory_max", "fleet_replicate_hits", "fleet_failover",
-    "fleet_placement_calibration", "coeff_replan_enable",
-    "coeff_replan_interval", "coeff_replan_cooldown", "spill_enable",
-    "spill_host_max_bytes", "spill_disk_hits", "state_dir")
+    "fleet_slices", "fleet_span_margin", "fleet_directory_max",
+    "fleet_replicate_hits", "fleet_failover",
+    "fleet_placement_calibration")
 
 
 def test_unported_knobs_left_exactly_two():
     """fusion_enable and reshard_peak_budget_bytes left the list with
     the fusion slice, the serve plane's knobs with the serving slice,
-    the observability and resilience planes' 31 with theirs; exactly
-    the 17 knobs of the planes still unported stay."""
+    the observability and resilience planes' 31 with theirs, the
+    verifier's, re-planner's and spill hierarchy's 8 with the durable
+    slice; exactly the 9 knobs of the fleet and the JAX-only execution
+    paths stay."""
     from matrel_tpu_torch.config import UNPORTED_KNOBS
     for name in ("fusion_enable", "reshard_peak_budget_bytes",
                  "cse_enable", "delta_patch_mode", "delta_rank_max",
@@ -752,12 +760,19 @@ def test_unported_knobs_left_exactly_two():
     assert len(OBS_RESILIENCE_KNOBS) == 31
     for name in OBS_RESILIENCE_KNOBS:
         assert name not in UNPORTED_KNOBS
-    assert tuple(UNPORTED_KNOBS) == STILL_FENCED
+    assert len(DURABLE_VERIFIER_KNOBS) == 8
+    for name in DURABLE_VERIFIER_KNOBS:
+        assert name not in UNPORTED_KNOBS
+    assert tuple(UNPORTED_KNOBS) == STILL_FENCED and len(STILL_FENCED) == 9
     MatrelConfig(fusion_enable=True, reshard_peak_budget_bytes=1 << 20,
                  cse_enable=True, delta_patch_mode="force",
                  obs_level="on", fault_inject="execute:transient:n=1",
                  brownout_enable=True, breaker_threshold=2,
-                 coeff_planner_enable=True)
+                 coeff_planner_enable=True, verify_plans="error",
+                 coeff_replan_enable=True, coeff_replan_interval=4,
+                 coeff_replan_cooldown=0, result_cache_max_bytes=1 << 20,
+                 spill_enable=True, spill_host_max_bytes=1 << 20,
+                 spill_disk_hits=0, state_dir="unused")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -22,7 +22,9 @@ planner stamps equal the JAX package's on the same grid; staged reshard
 moves bit-equal; a budgeted plan bit-equal to budget 0; the sharded
 SpMV/SpMM (the plain B2/B3 versions on the CPU, and the expanded
 slices), sharded PageRank, ``spgemm_sharded``, ``spmm_sharded`` and
-``streaming_chain_sharded``; measured choices agreed from rank 0.
+``streaming_chain_sharded``; measured choices agreed from rank 0; a
+checkpoint of a rank-laid matrix (every rank gathers, rank 0 writes,
+every rank restores its own block under the saved spec).
 """
 
 import os
@@ -92,7 +94,7 @@ def _mark(stage: str) -> None:
     print(f"{time.monotonic():.1f} battery: {stage}", flush=True)
 
 
-def _battery(mesh, world):
+def _battery(mesh, world, out_dir):
     from matrel_tpu_torch.config import MatrelConfig
     from matrel_tpu_torch.core.blockmatrix import BlockMatrix
     from matrel_tpu_torch.core.coo import COOMatrix
@@ -209,6 +211,21 @@ def _battery(mesh, world):
     res["chain_slab"] = float(big_chain.streaming_chain_slab(
         CHAIN_N, *gens, tile=CHAIN_TILE, panel=panel, dtype=torch.float32))
 
+    _mark("a checkpoint on the ranks")
+    # utils/checkpoint.py on a rank mesh: the save gathers (every rank),
+    # rank 0 writes; each rank restores its own block under the spec
+    import torch.distributed as dist
+    from matrel_tpu_torch.utils.checkpoint import CheckpointManager
+    cm = CheckpointManager(os.path.join(out_dir, "ckpt"))
+    cm.save(0, matrices={"A": A}, state={"world": world})
+    dist.barrier()
+    step, mats, _arrs, state = cm.restore(mesh)
+    got = mats["A"]
+    res["ckpt"] = (step, state, tuple(got.spec) == tuple(A.spec),
+                   got.shape == A.shape,
+                   bool(torch.equal(got.data, A.data)),
+                   bool(np.array_equal(got.to_numpy(), a)))
+
     _mark("a measured matmul choice")
     # a measured matmul choice: rank 0's medians on every rank
     best, times = autotune.autotune_matmul(16, 16, 16, mesh=mesh)
@@ -234,7 +251,7 @@ def _rank_main(rank, world_size, grid, store, out_dir):
                                      rank, grid=grid, device="cpu",
                                      timeout_s=JOIN_TIMEOUT_S)
     try:
-        res = _battery(mesh, f"{grid[0]}x{grid[1]}")
+        res = _battery(mesh, f"{grid[0]}x{grid[1]}", out_dir)
     except BaseException:
         traceback.print_exc()          # into the rank's log
         raise                          # the parent kills the world
@@ -483,6 +500,14 @@ def test_measured_choice_agreed(worlds, world):
     outs = [r["autotune"] for r in worlds[world]]
     assert all(o == outs[0] for o in outs)
     assert outs[0][1], "no strategy was measured"
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_checkpoint_on_ranks(worlds, world):
+    """Every rank restores its own block of the rank-laid matrix, bit
+    for bit, under the saved spec and state."""
+    for r in worlds[world]:
+        assert r["ckpt"] == (0, {"world": world}, True, True, True, True)
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -15,8 +15,10 @@ same seeded numpy arrays. Compared:
   payloads — ``plan_cache_max_bytes`` stays fenced);
 - the metrics registry's counter names and values, histogram names
   and counts;
-- span trees as (name, parent name) multisets, less the JAX package's
-  ``plan.verify`` phase (the static verifier is not ported);
+- span trees as (name, parent name) multisets, the ``plan.verify``
+  phase included;
+- ``verify`` records (mode, count, errors, codes) with the static
+  verifier's diagnostics;
 - quantile sketches bucket for bucket and quantile for quantile (both
   are the same pure-Python arithmetic);
 - drift-table keys, ratios and flags from the same injected records,
@@ -128,8 +130,6 @@ def span_tree(path):
     by_id = {s["span_id"]: s for s in spans}
     out = []
     for s in spans:
-        if s["name"] == "plan.verify":
-            continue
         p = by_id.get(s["parent_id"])
         out.append((s["name"], p["name"] if p else None))
     return sorted(out, key=repr)
@@ -700,6 +700,50 @@ class TestTracingSpans:
         assert tt == span_tree(js.config.obs_event_log)
         assert ("query.execute", "query") in tt
         assert ("plan", "query") in tt and ("plan.optimize", "plan") in tt
+        assert ("plan.verify", "plan") in tt
+
+    @pytest.mark.parametrize("mode", ["warn", "error"])
+    def test_verify_records_equal(self, jmesh, tmp_path, mode):
+        """With verify_plans on, each observed run emits one ``verify``
+        record carrying the compile-time diagnostics: equal between the
+        packages for a clean plan (a plan-cache hit re-reports it), and
+        for a summa override on the (2, 4) grid (MV101: recorded at
+        "warn", raised before lowering at "error", in both)."""
+        js, ts = twins(jmesh, tmp_path, obs_level="on", verify_plans=mode)
+        a = arrs()
+        for s in (js, ts):
+            s.run(chain(s, a))
+            s.run(chain(s, a))
+        from matrel_tpu_torch.core.mesh import make_mesh
+        over = dict(obs_level="on", verify_plans=mode,
+                    strategy_override="summa")
+        jo = JSession(mesh=jmesh_lib.make_mesh((2, 4)), config=JConfig(
+            obs_event_log=str(tmp_path / "jo.jsonl"), **over))
+        to = MatrelSession(mesh=make_mesh((2, 4), device="cpu"),
+                           config=MatrelConfig(
+                               obs_event_log=str(tmp_path / "to.jsonl"),
+                               **over))
+        for s in (jo, to):
+            A, B = s.from_numpy(a[0]), s.from_numpy(a[1])
+            try:
+                s.run(A.expr() @ B.expr())
+            except Exception as ex:
+                assert mode == "error"
+                assert type(ex).__name__ == "VerificationError"
+                assert "MV101" in str(ex)
+        recs = [[{k: r[k] for k in ("mode", "count", "errors", "codes")}
+                 for r in (kinds(x.config.obs_event_log, "verify")
+                           + kinds(y.config.obs_event_log, "verify"))]
+                for x, y in ((js, jo), (ts, to))]
+        assert recs[0] == recs[1]
+        clean = {"mode": mode, "count": 0, "errors": 0, "codes": []}
+        flagged = {"mode": mode, "count": 1, "errors": 1,
+                   "codes": ["MV101"]}
+        assert recs[1] == ([clean, clean, flagged] if mode == "warn"
+                           else [clean, clean])
+        tt = span_tree(ts.config.obs_event_log)
+        assert tt == span_tree(js.config.obs_event_log)
+        assert ("plan.verify", "plan") in tt
 
     def test_serve_batch_span_tree_equal(self, jmesh, tmp_path):
         js, ts = twins(jmesh, tmp_path, obs_level="on",

@@ -631,7 +631,7 @@ class TestFutures:
         pl._ensure_worker()
         ts.serve_close(timeout=WAIT_S)
 
-    def test_fleet_and_durable_state_stay_fenced(self, rng):
+    def test_fleet_and_durable_state_stay_fenced(self, rng, tmp_path):
         ts = MatrelSession(device="cpu")
         A = ts.from_numpy(rand(rng, 8, 8))
         # the fleet is refused where the config is built: no session,
@@ -644,10 +644,14 @@ class TestFutures:
                 build()
         assert ts.submit(A.expr().t()).result(timeout=WAIT_S) is not None
         ts.serve_close(timeout=WAIT_S)
-        with pytest.raises(NotPortedError, match="save_state"):
-            ts.save_state("unused")
-        with pytest.raises(NotPortedError, match="restore"):
-            ts.restore("unused")
+        # the durable state is ported (serve/spill.py): without a
+        # directory save_state and restore refuse as the JAX package's
+        # do; an empty directory restores as a clean cold start
+        with pytest.raises(ValueError, match="state_dir"):
+            ts.save_state()
+        with pytest.raises(ValueError, match="state_dir"):
+            ts.restore()
+        assert ts.restore(str(tmp_path))["reason"] == "no snapshot"
 
 
 # -- the admission queue (tests/test_overload.py::TestAdmissionQueue) ----------
@@ -878,15 +882,17 @@ class TestErrorTaxonomy:
         assert rerrors.is_transient(exc) == (want == "transient")
 
     def test_only_ported_planes_types(self):
-        """The taxonomy holds the serve and resilience planes' typed
-        errors (injected faults and open breakers among them); those of
-        the planes still fenced (the fleet, checkpoint and spill
-        corruption) are not defined, nor are the XLA runtime's names."""
+        """The taxonomy holds the serve, resilience and durable planes'
+        typed errors (injected faults, open breakers, checkpoint and
+        spill corruption among them, corruption deterministic); the
+        fleet's, still fenced, is not defined, nor are the XLA
+        runtime's names."""
         import matrel_tpu_torch.resilience.errors as mod
-        for have in ("InjectedFault", "CircuitOpen"):
+        for have in ("InjectedFault", "CircuitOpen",
+                     "CheckpointCorruption", "SnapshotCorruption"):
             assert hasattr(mod, have)
-        for gone in ("FleetSliceLost", "CheckpointCorruption",
-                     "SnapshotCorruption"):
-            assert not hasattr(mod, gone)
+        assert issubclass(mod.SnapshotCorruption, mod.CheckpointCorruption)
+        assert mod.classify(mod.SnapshotCorruption("x")) == "deterministic"
+        assert not hasattr(mod, "FleetSliceLost")
         assert not any("Xla" in n or "Jax" in n
                        for n in mod._TRANSIENT_TYPE_NAMES)

@@ -188,3 +188,69 @@ def test_integer_sums_keep_jnp_dtype(jmesh, dtype, query):
     got = ts.compute(INT_QUERIES[query](tA, tB)).to_numpy()
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
+
+
+# -- max / min aggregates of integer values (ROADMAP Queue C, C2) -----------
+
+INT_EXTREMES = {
+    "row_max": (lambda A: A.expr().row_max(),
+                lambda a: a.max(axis=1, keepdims=True)),
+    "row_min": (lambda A: A.expr().row_min(),
+                lambda a: a.min(axis=1, keepdims=True)),
+    "col_max": (lambda A: A.expr().col_max(),
+                lambda a: a.max(axis=0, keepdims=True)),
+    "col_min": (lambda A: A.expr().col_min(),
+                lambda a: a.min(axis=0, keepdims=True)),
+    "norm_max": (lambda A: A.expr().norm("max"),
+                 lambda a: np.abs(a).max().reshape(1, 1)),
+}
+
+
+@pytest.mark.parametrize("query", sorted(INT_EXTREMES))
+@pytest.mark.parametrize("dtype", ["int8", "uint8", "int32"])
+def test_integer_max_min_answer_as_numpy(dtype, query):
+    """The padding is filled with the dtype's extreme value, not ±inf
+    (which an integer tensor cannot hold), and norm's ·-1 on an unsigned
+    value runs in int64. The JAX package raises here, so the oracle is
+    numpy. A 7 x 5 leaf keeps the padded region in play on the (2, 4)
+    grid; the values avoid int8's -128, whose |x| wraps in numpy as in
+    torch."""
+    from matrel_tpu_torch.core.mesh import make_mesh
+    rng = np.random.default_rng(32)
+    lo = 0 if dtype == "uint8" else -100
+    a = rng.integers(lo, 100, (7, 5)).astype(dtype)
+    for mesh in (make_mesh(device="cpu"), make_mesh((2, 4), device="cpu")):
+        ts = MatrelSession(mesh=mesh)
+        A = ts.from_numpy(a, dtype=dtype)
+        build, oracle = INT_EXTREMES[query]
+        got = ts.compute(build(A)).to_numpy()
+        np.testing.assert_array_equal(got, oracle(a))
+
+
+def test_exact_sla_integer_product_row_max():
+    """Under precision_sla="exact" an integer-valued f32 product takes
+    the int32 tier, so ``(A @ B).row_max()`` aggregates an integer
+    value: it answers as numpy, through compute and through run_many."""
+    rng = np.random.default_rng(33)
+    a = rng.integers(-6, 7, (9, 6)).astype(np.float32)
+    b = rng.integers(-6, 7, (6, 11)).astype(np.float32)
+    ts = MatrelSession(config=MatrelConfig(precision_sla="exact"),
+                       device="cpu")
+    A, B = ts.from_numpy(a, integral=True), ts.from_numpy(b, integral=True)
+    q = A.expr().multiply(B.expr()).row_max()
+    q2 = A.expr().multiply(B.expr()).col_min()
+    tiers = [n.attrs.get("precision_tier") for n in _walk(
+        ts.compile(q).optimized) if n.kind == "matmul"]
+    assert tiers == ["int32"]
+    want, want2 = (a @ b).max(axis=1, keepdims=True), (a @ b).min(
+        axis=0, keepdims=True)
+    np.testing.assert_array_equal(ts.compute(q).to_numpy(), want)
+    got = ts.run_many([q, q2])
+    np.testing.assert_array_equal(got[0].to_numpy(), want)
+    np.testing.assert_array_equal(got[1].to_numpy(), want2)
+
+
+def _walk(n):
+    yield n
+    for c in n.children:
+        yield from _walk(c)

@@ -28,8 +28,12 @@ ported.
 - A rank process of a gloo rank mesh (``core/mesh.init_distributed``)
   runs a recipe, a sharded matvec and a staged reshard with the JAX
   package blocked.
-- Node kinds outside ``LOWERED_KINDS``, knobs of unported planes and
-  ``save_state`` raise ``NotPortedError``.
+- The durable half of serving (the spill tiers, ``save_state`` /
+  ``restore``, ``save_catalog`` / ``load_catalog``, ``run_resilient``)
+  and the static verifier (``verify_plans``, ``session.verify``) run on
+  the CPU with the JAX package blocked.
+- Node kinds outside ``LOWERED_KINDS`` and the knobs of unported planes
+  (the fleet, the JAX-only execution knobs) raise ``NotPortedError``.
 """
 
 import ast
@@ -264,6 +268,64 @@ def test_serving_plane_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "standalone serving ok" in proc.stdout
+
+
+def test_durable_state_and_verifier_without_jax(tmp_path):
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "matrel_tpu"):
+            sys.modules[name] = None          # import raises ImportError
+        import numpy as np
+        from matrel_tpu_torch import MatrelConfig, MatrelSession
+        from matrel_tpu_torch.utils.checkpoint import CheckpointManager
+        from matrel_tpu_torch.utils.resilience import run_resilient
+        root = sys.argv[1]
+        rng = np.random.default_rng(0)
+        cfg = MatrelConfig(result_cache_max_bytes=20000, spill_enable=True,
+                           spill_host_max_bytes=1, spill_disk_hits=0,
+                           state_dir=root, verify_plans="error",
+                           coeff_planner_enable=True,
+                           coeff_replan_enable=True,
+                           drift_table_path=root + "/drift.json")
+        s = MatrelSession(config=cfg, device="cpu")
+        a, b = (rng.standard_normal((64, 64)).astype(np.float32)
+                for _ in range(2))
+        s.register("a", s.from_numpy(a))
+        s.register("b", s.from_numpy(b))
+        qa = s.table("a").expr().multiply(s.table("b").expr())
+        qb = s.table("b").expr().multiply(s.table("a").expr())
+        r = s.run(qa).to_numpy()
+        s.run(qb)
+        assert s.result_cache_info()["spill"]["disk_entries"] == 1
+        assert np.array_equal(s.run(qa).to_numpy(), r)
+        assert s.verify(qa) == []
+        assert "== Verifier ==" in s.explain(qa)
+        assert s.save_state()["rc_entries"] == 2
+        s2 = MatrelSession(config=cfg, device="cpu")
+        assert s2.restore()["restored"]
+        q2 = s2.table("a").expr().multiply(s2.table("b").expr())
+        assert np.array_equal(s2.run(q2).to_numpy(), r)
+        assert s2.result_cache_info()["spill"]["thawed_restored"] == 1
+        s2.save_catalog(root + "/cat")
+        assert MatrelSession(device="cpu").load_catalog(
+            root + "/cat") == ["a", "b"]
+        cm = CheckpointManager(root + "/ckpt")
+        _m, st = run_resilient(lambda i, m, st: (m, dict(st, last=i)),
+                               cm, s.mesh, {"a": s.table("a")},
+                               num_steps=3, checkpoint_interval=2)
+        assert st["last"] == 2 and cm.latest_step() == 2
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "matrel_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("standalone durable ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=str(REPO), env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone durable ok" in proc.stdout
 
 
 def test_obs_and_resilience_planes_without_jax(tmp_path):
@@ -565,10 +627,13 @@ def test_default_device_needs_a_card(monkeypatch):
 
 
 def test_unported_planes_and_kinds_raise():
-    with pytest.raises(NotPortedError, match="verify_plans"):
-        MatrelConfig(verify_plans="warn")
-    with pytest.raises(NotPortedError, match="spill_enable"):
-        MatrelConfig().replace(spill_enable=True)
+    # the verifier's, re-planner's and spill hierarchy's knobs are
+    # ported; the JAX-only execution knobs stay fenced
+    assert MatrelConfig(verify_plans="warn").verify_plans == "warn"
+    with pytest.raises(NotPortedError, match="donate_intermediates"):
+        MatrelConfig(donate_intermediates=False)
+    with pytest.raises(NotPortedError, match="plan_cache_max_bytes"):
+        MatrelConfig().replace(plan_cache_max_bytes=1)
     s = MatrelSession(device="cpu")
     rng = np.random.default_rng(1)
     A = s.from_numpy(rng.standard_normal((4, 4)).astype(np.float32))
@@ -579,8 +644,8 @@ def test_unported_planes_and_kinds_raise():
     from matrel_tpu_torch.ir.expr import MatExpr
     with pytest.raises(NotPortedError, match="not_a_kind"):
         s.compute(MatExpr("not_a_kind", (A.expr(),), (4, 4), None))
-    with pytest.raises(NotPortedError, match="coeff_replan_enable"):
-        MatrelConfig(coeff_planner_enable=True, coeff_replan_enable=True)
+    assert MatrelConfig(coeff_planner_enable=True,
+                        coeff_replan_enable=True).coeff_replan_enable
     with pytest.raises(NotPortedError, match="pallas_interpret"):
         MatrelConfig(pallas_interpret=True)
     from matrel_tpu_torch.ops import spgemm
@@ -588,8 +653,8 @@ def test_unported_planes_and_kinds_raise():
     S = BlockSparseMatrix.from_numpy(sp, block_size=8, mesh=s.mesh)
     with pytest.raises(NotPortedError, match="fleet_slices"):
         MatrelConfig().replace(fleet_slices=2)
-    with pytest.raises(NotPortedError, match="save_state"):
-        s.save_state("unused")
+    with pytest.raises(ValueError, match="state_dir"):
+        s.save_state()
     # the fused SpGEMM epilogue slot is ported (ir/fusion.py)
     assert torch.equal(spgemm.apply_dense(S, S, epilogue=lambda x: -x),
                        -spgemm.apply_dense(S, S))
