@@ -250,7 +250,30 @@
    (2, 4) virtual grid: the controller checks, re-calibrates and
    re-warms, every answer bit-equal, only strategy / cost stamps
    changed.
-12. spgemm_library: torch.sparse.mm of each S×S pair's element-CSR
+12. path_fleet (the multi-slice serving fleet and the operator tools:
+   serve/fleet.py, core/mesh slice views, obs/history.py, obs/top.py,
+   the trace / why CLIs, bridge.py, __main__.py; each sub-phase under
+   its own bound FLEET_PEAK_LIMIT_GIB): a fleet_slices=2 session on the
+   1 x 1 grid ("shared" slices: two slice sessions on the card, the
+   catalog shared), obs and provenance on, the mix's tables named in
+   its catalog: (a) four client threads of two tenants submit row 4's
+   S·D (B1), row 5's Âᵀ·x (B2), the 1% random bf16 S×S at 32,768 (B4)
+   and row 2's chain, each placed on a slice, every answer bit-equal to
+   one plain session; the warm latency of a slice-placed S·D beside one
+   session's submit; (b) the repeats answer through the directory with
+   0 launches; (c) S·D replicates into the other slice after 2 remote
+   hits (fleet_replicate_hits): the copy's ms and the reshard plan's
+   price, the replica bit-equal; (d) queued entries on slice 0 re-admit
+   on slice 1 after kill_slice(0), bit-equal, an expired one fails
+   DeadlineExceeded, and with no live slice a submit fails
+   FleetSliceLost; (e) a rebind of D drops the directory's records and
+   the cached S·D, the next answer right; (f) the (2, 4) virtual grid
+   under verify_plans="error": two (2, 2) slices, the sparse tables
+   pinned to the span, 0 diagnostics; (g) history --summary (its fleet
+   roll-up), trace --export chrome, why and top --once --log over the
+   run's own event log, the bridge on localhost, and the CLI's pagerank
+   over row 5's edges (B2), the same top ten as path_row5_pagerank.
+13. spgemm_library: torch.sparse.mm of each S×S pair's element-CSR
    forms in f32 (cuSPARSE SpGEMM) at n = 100,352, by CUDA events, as the
    library column of B4–B7 (xla_gather kept beside it); where cuSPARSE
    cannot hold its workspace, the failure and the operand sizes. Then
@@ -297,6 +320,10 @@ runs only path_ops (after the build).
     python3 chip_smoke.py --durable
 
 runs only path_durable (after the build).
+
+    python3 chip_smoke.py --fleet
+
+runs only path_fleet (after the build).
 
     python3 chip_smoke.py --multirank
 
@@ -1316,6 +1343,8 @@ def path_row5_pagerank(src, dst):
             or abs(total - 1.0) > 1e-3:
         raise AssertionError(f"row 5 PageRank: shape {tuple(r.shape)}, "
                              f"sum {total}")
+    ROW5_PR_TOP[:] = [(int(i), float(r64[i]))
+                      for i in np.argsort(r64)[::-1][:10]]
     ref = pagerank_oracle(src, dst, n, ROW5_ROUNDS)
     rel = float(np.abs(r64 - ref).max() / np.abs(ref).max())
     if rel > 1e-4:
@@ -6825,6 +6854,635 @@ def durable_only() -> int:
     return 0
 
 
+# -- the multi-slice serving fleet and the operator tools (path_fleet) ---------
+
+#: Each sub-phase's peak device memory over what was held when it
+#: started (the checks' own tensors left out), measured on the H100
+#: (PERF.md §6, path_fleet), plus 25%. A directory hit allocates
+#: nothing.
+FLEET_PEAK_LIMIT_GIB = {k: 1.25 * v for k, v in {
+    "fleet_submit": 2.805, "fleet_hit": 0.0, "fleet_replicate": 0.192,
+    "fleet_failover": 2.150, "fleet_rebind": 0.288, "fleet_virtual": 2.881,
+    "fleet_tools": 0.863}.items()}
+#: (a) the mix's names, the kernel each reaches (None: cuBLAS only),
+#: and the tenant of the client thread that submits it.
+FLEET_MIX = (("row4 S·D", "spmm_blocksparse", "a"),
+             ("row5 A·x", "spmv_compact", "a"),
+             ("S×S 1% bf16", "spgemm_pairs", "b"),
+             ("row2 A·B·C", None, "b"))
+#: (a) warm slice-placed submits timed on a cache-off fleet, and (c)
+#: the hot-entry threshold.
+FLEET_WARM_RUNS = 10
+FLEET_REPLICATE_HITS = 2
+FLEET_DIR = os.path.join(HERE, "build", "chip_smoke", "fleet")
+#: path_row5_pagerank's top ten (node, rank), which (g) holds the CLI's
+#: PageRank to when the whole script runs.
+ROW5_PR_TOP: list = []
+
+
+def fleet_tables(sess) -> dict:
+    """Register the fleet mix's tables in ``sess``'s catalog (a query is
+    fleet-eligible only over named tables): row 4's S and D, row 5's Âᵀ
+    and x, the 1% random bf16 pair at 32,768, row 2's A, B, C."""
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    from matrel_tpu_torch.workloads import chain_bench
+    S, D = row4_inputs(sess)
+    _src, _dst, A = row5_matrix()
+    tables = {"S": S, "D": D, "A5": A,
+              "x5": sess.random((ROW5_N, 1), seed=6)}
+    for nm, s in (("P", 2), ("Q", 3)):
+        tables[nm] = BlockSparseMatrix.random(
+            (SPGEMM_CMP_N, SPGEMM_CMP_N), 0.01, block_size=512,
+            mesh=sess.mesh, seed=s, dtype="bfloat16")
+    for nm, m in zip(("R2A", "R2B", "R2C"), chain_bench.skewed_abc(
+            sess.mesh, n=10_000, mid=100, seed=3)):
+        tables[nm] = m
+    for nm, m in tables.items():
+        sess.register(nm, m)
+    return tables
+
+
+def fleet_queries(sess) -> dict:
+    """The mix over ``sess``'s catalog, each a builder of a fresh tree."""
+    from matrel_tpu_torch.workloads import chain_bench
+    t = sess.table
+    return {"row4 S·D": lambda: t("S").multiply(t("D")),
+            "row5 A·x": lambda: t("A5").multiply(t("x5")),
+            "S×S 1% bf16": lambda: t("P").multiply(t("Q")),
+            "row2 A·B·C": lambda: chain_bench.build_chain(
+                [t("R2A"), t("R2B"), t("R2C")])}
+
+
+def fleet_plain(qs: dict, tables: dict, device) -> dict:
+    """Each query through one plain session (cache off) over the same
+    tables: the answers the fleet is held bit-equal to."""
+    from matrel_tpu_torch import MatrelSession
+    plain = MatrelSession(device=device)
+    for nm, m in tables.items():
+        plain.register(nm, m)
+    pq = fleet_queries(plain)
+    return {name: plain.compute(pq[name]()) for name in qs}
+
+
+def fleet_session(dev, log_path: str, **over):
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    cfg = dict(fleet_slices=2, result_cache_max_bytes=8 << 30,
+               obs_level="on", obs_event_log=log_path, obs_provenance=64,
+               serve_tenant_weights="a:2,b:1")
+    cfg.update(over)
+    return MatrelSession(config=MatrelConfig(**cfg), device=dev)
+
+
+def same_bits(name: str, got, want) -> None:
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype \
+            or not torch.equal(got.data, want.data):
+        raise AssertionError(f"fleet {name}: not bit-equal to one plain "
+                             f"session ({got.dtype} {got.shape} vs "
+                             f"{want.dtype} {want.shape})")
+
+
+def submit_ms(sess, e, routed=None, **kw):
+    """Submit-to-result on the host clock, the result synchronised;
+    ``routed`` (a list) collects the time ``submit`` took to return."""
+    import torch
+    t0 = time.perf_counter()
+    fut = sess.submit(e, **kw)
+    if routed is not None:
+        routed.append((time.perf_counter() - t0) * 1e3)
+    out = fut.result(timeout=900)
+    if getattr(fut, "ready_event", None) is not None:
+        fut.ready_event.synchronize()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def fleet_submit(sess, qs, want, dev) -> dict:
+    """(a) Four client threads of two tenants submit the four queries at
+    once; every answer bit-equal to one plain session, each placed on a
+    slice, B1, B2 and B4 launched through the slice sessions. Then the
+    warm latency of a slice-placed S·D (a cache-off fleet, so every
+    submit computes) beside one cache-off session's submit."""
+    import threading
+    import torch
+    meter = PeakMeter("fleet_submit", FLEET_PEAK_LIMIT_GIB)
+    got, errors, lock = {}, [], threading.Lock()
+    go = threading.Barrier(len(FLEET_MIX), timeout=900)
+
+    def client(name, tenant):
+        try:
+            torch.cuda.set_device(dev)
+            go.wait()
+            out, ms = submit_ms(sess, qs[name](), tenant=tenant)
+            with lock:
+                got[name] = (out, ms)
+        except BaseException as ex:      # noqa: BLE001 — re-raised below
+            errors.append(ex)
+            go.abort()
+
+    c0 = ops_counts()
+    threads = [threading.Thread(target=client, args=(n, t), daemon=True)
+               for n, _k, t in FLEET_MIX]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or len(got) != len(FLEET_MIX):
+        raise AssertionError(f"fleet (a): clients failed: {errors!r}")
+    sess.serve_drain(timeout=900)
+    launched = ops_since(c0)
+    for name, kern, _t in FLEET_MIX:
+        with meter.aside():
+            same_bits(f"(a) {name}", got[name][0], want[name])
+        if kern is not None and launched[kern] < 1:
+            raise AssertionError(f"fleet (a): {kern} never launched")
+    info = sess.fleet_info()
+    if info["source"] != "shared" or info["placed"] != {
+            "slice": len(FLEET_MIX), "span": 0}:
+        raise AssertionError(f"fleet (a): census {info['placed']} on "
+                             f"{info['source']} slices")
+    per_slice = {s["id"]: s["submitted"] for s in info["slices"]}
+    # warm slice-placed latency: a cache-off fleet computes every submit
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    cold = MatrelSession(config=MatrelConfig(fleet_slices=2), device=dev)
+    single = MatrelSession(device=dev)
+    for s in (cold, single):
+        s.register("S", sess.table("S"))
+        s.register("D", sess.table("D"))
+    warm, routed = {}, {}
+    for label, s in (("fleet", cold), ("single", single), ("fleet", cold),
+                     ("single", single)):
+        q = s.table("S").multiply(s.table("D"))
+        submit_ms(s, q)                                 # compile, warm
+        ret = []
+        times = [submit_ms(s, q, routed=ret)[1]
+                 for _ in range(FLEET_WARM_RUNS)]
+        warm.setdefault(label, []).append(statistics.median(times))
+        routed.setdefault(label, []).append(statistics.median(ret))
+    for s in (cold, single):
+        s.serve_close(timeout=900)
+    row = {"placed": info["placed"], "per_slice": per_slice,
+           "first_ms": {n: got[n][1] for n in got},
+           "launches": {k: launched[k] for k in
+                        ("spmm_blocksparse", "spmv_compact",
+                         "spgemm_pairs")},
+           "warm_slice_ms": warm["fleet"], "warm_single_ms": warm["single"],
+           "submit_return_ms": routed, "peak_gib": meter.gib()}
+    log(f"fleet (a): {len(FLEET_MIX)} queries by {len(FLEET_MIX)} client "
+        f"threads (tenants a, a, b, b) placed {info['placed']} on "
+        f"{info['source']} slices {per_slice}; first submit-to-result ms "
+        + ", ".join(f"{n} {ms:.1f}" for n, ms in row["first_ms"].items())
+        + f"; launches {row['launches']}; every answer bit-equal to one "
+        f"plain session; warm slice-placed S·D "
+        f"{'/'.join(f'{v:.3f}' for v in warm['fleet'])} ms against one "
+        f"session's submit {'/'.join(f'{v:.3f}' for v in warm['single'])}"
+        f" ms (median of {FLEET_WARM_RUNS}, in turns; submit() itself "
+        f"returned in {'/'.join(f'{v:.3f}' for v in routed['fleet'])} / "
+        f"{'/'.join(f'{v:.3f}' for v in routed['single'])} ms); peak "
+        f"{row['peak_gib']:.3f} GiB")
+    return row
+
+
+def fleet_hit(sess, qs, want) -> dict:
+    """(b) The same four queries again: round robin prefers the other
+    slice, and the directory answers each from its owner's cache with
+    no launch."""
+    meter = PeakMeter("fleet_hit", FLEET_PEAK_LIMIT_GIB)
+    d0 = sess._fleet.directory.info()
+    c0 = ops_counts()
+    lat = {}
+    for name, _k, tenant in FLEET_MIX:
+        out, lat[name] = submit_ms(sess, qs[name](), tenant=tenant)
+        with meter.aside():
+            same_bits(f"(b) {name}", out, want[name])
+    launched = ops_since(c0)
+    d1 = sess._fleet.directory.info()
+    hits = d1["hits"] - d0["hits"]
+    if any(launched[k] for k in ("spmm_blocksparse", "spmv_compact",
+                                 "spgemm_pairs")) or hits != len(FLEET_MIX):
+        raise AssertionError(f"fleet (b): {hits} directory hits, launches "
+                             f"{launched}")
+    row = {"hit_ms": lat, "hits": hits,
+           "remote": d1["remote_hits"] - d0["remote_hits"],
+           "peak_gib": meter.gib()}
+    log(f"fleet (b): {hits} directory hits ({row['remote']} remote), 0 "
+        f"launches, bit-equal; submit-to-result ms "
+        + ", ".join(f"{n} {ms:.3f}" for n, ms in lat.items())
+        + " (path_serving's single-session cache hit: ~1.4 ms, PERF.md)")
+    return row
+
+
+def fleet_replicate(sess, qs, want) -> dict:
+    """(c) Hot-entry replication of S·D (``fleet_replicate_hits`` = 2):
+    remote hits until the entry migrates; the copy (device to host to
+    device, timed around ``_replicate_entry``) and what the reshard plan
+    priced (the ``migrate`` event); the replica answers bit-equal."""
+    import torch
+    from matrel_tpu_torch.obs.events import read_events
+    from matrel_tpu_torch.serve import placement
+    meter = PeakMeter("fleet_replicate", FLEET_PEAK_LIMIT_GIB)
+    fleet = sess._fleet
+    name = "row4 S·D"
+    timed = []
+    orig = fleet._replicate_entry
+
+    def timed_copy(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        timed.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    fleet._replicate_entry = timed_copy
+    try:
+        for _ in range(8):
+            submit_ms(sess, qs[name]())
+            fleet.quiesce_replication(timeout=900)
+            if fleet.migrations:
+                break
+    finally:
+        del fleet._replicate_entry
+    fkey = placement.fleet_key(qs[name](), fleet._names)
+    rec = fleet.directory.lookup(fkey)
+    if fleet.migrations != 1 or not rec.replicas:
+        raise AssertionError(f"fleet (c): {fleet.migrations} migrations, "
+                             f"replicas {rec.replicas}")
+    (rid, rkey), = rec.replicas.items()
+    ent = fleet.slice_by_id(rid).session._result_cache.lookup(rkey)
+    with meter.aside():
+        same_bits("(c) replica", ent.result, want[name])
+    c0 = ops_counts()
+    hit_lat = [submit_ms(sess, qs[name]())[1] for _ in range(4)]
+    if ops_since(c0)["spmm_blocksparse"]:
+        raise AssertionError("fleet (c): a replica hit launched B1")
+    ev = [e for e in read_events(sess.config.obs_event_log)
+          if e.get("kind") == "fleet" and e.get("event") == "migrate"]
+    mig = ev[-1]
+    row = {"copy_ms": timed, "nbytes": mig["nbytes"],
+           "reshard_steps": mig["reshard_steps"],
+           "peak_bytes": mig["peak_bytes"],
+           "est_dcn_cost": mig["est_dcn_cost"], "replica_slice": rid,
+           "owner": rec.owner, "hits_ms": hit_lat, "peak_gib": meter.gib()}
+    log(f"fleet (c): S·D ({mig['nbytes'] / 2**20:.1f} MiB, "
+        f"{ent.dtype}) replicated slice {rec.owner} -> {rid} after "
+        f"{FLEET_REPLICATE_HITS} remote hits: copy {timed[-1]:.3f} ms "
+        f"(host clock, synchronised; through the host, pageable); the "
+        f"reshard plan priced steps {mig['reshard_steps']}, peak "
+        f"{mig['peak_bytes'] / 2**20:.1f} MiB, DCN bill "
+        f"{mig['est_dcn_cost'] / 2**20:.1f} MiB-weighted; replica "
+        f"bit-equal; then hits {'/'.join(f'{v:.3f}' for v in hit_lat)} ms"
+        f", 0 launches; peak {row['peak_gib']:.3f} GiB")
+    return row
+
+
+def fleet_failover(sess, tables, qs, want, dev, log_path) -> dict:
+    """(d) A fresh fleet over the same tables: the four queries and one
+    already-expired entry queued on slice 0 before its worker starts,
+    then ``kill_slice(0)``: the four re-admit on slice 1 (tenants kept)
+    and answer bit-equal, the expired one fails typed; with no live
+    slice a submit refuses typed (``FleetSliceLost``)."""
+    from concurrent.futures import Future
+    from matrel_tpu_torch.resilience.errors import (DeadlineExceeded,
+                                                     FleetSliceLost)
+    from matrel_tpu_torch.resilience.retry import Deadline
+    meter = PeakMeter("fleet_failover", FLEET_PEAK_LIMIT_GIB)
+    fs = fleet_session(dev, log_path)
+    for nm, m in tables.items():
+        fs.register(nm, m)
+    fq = fleet_queries(fs)
+    fleet = fs._ensure_fleet()
+    sl = fleet.slices[0]
+    pipe = sl.session._ensure_serve()
+    futs = {}
+    for name, _k, tenant in FLEET_MIX:
+        fut = Future()
+        fut.ready_event = None
+        pipe._q.put((fleet._rebind(fq[name](), sl), fut,
+                     time.perf_counter(), "default", Deadline(600_000.0),
+                     tenant, None), tenant)
+        futs[name] = fut
+    late = Future()
+    late.ready_event = None
+    dl = Deadline(0.001)
+    time.sleep(0.01)
+    pipe._q.put((fleet._rebind(fq["row2 A·B·C"](), sl), late,
+                 time.perf_counter(), "default", dl, "b", None), "b")
+    depths = pipe._q.tenant_depths()
+    c0 = ops_counts()
+    t0 = time.perf_counter()
+    requeued = fleet.kill_slice(0)
+    kill_ms = (time.perf_counter() - t0) * 1e3
+    for name, fut in futs.items():
+        out = fut.result(timeout=900)
+        with meter.aside():
+            same_bits(f"(d) {name}", out, want[name])
+    del out
+    try:
+        late.result(timeout=900)
+    except DeadlineExceeded:
+        pass
+    else:
+        raise AssertionError("fleet (d): an expired entry was served")
+    fs.serve_drain(timeout=900)
+    launched = ops_since(c0)
+    survivor = fleet.slices[1].submitted
+    fleet.kill_slice(1)
+    try:
+        fs.submit(fq["row4 S·D"]()).result(timeout=900)
+    except FleetSliceLost:
+        pass
+    else:
+        raise AssertionError("fleet (d): no live slice, yet answered")
+    info = fs.fleet_info()
+    fs.serve_close(timeout=900)
+    if requeued != len(FLEET_MIX) or info["failovers"] != 2:
+        raise AssertionError(f"fleet (d): requeued {requeued}, "
+                             f"failovers {info['failovers']}")
+    row = {"queued": depths, "requeued": requeued, "kill_ms": kill_ms,
+           "survivor_submitted": survivor,
+           "launches": {k: launched[k] for k in
+                        ("spmm_blocksparse", "spmv_compact",
+                         "spgemm_pairs")},
+           "peak_gib": meter.gib()}
+    log(f"fleet (d): queued {depths} on slice 0, kill_slice(0) in "
+        f"{kill_ms:.3f} ms re-admitted {requeued} onto slice 1, every "
+        f"answer bit-equal (launches {row['launches']}); the expired "
+        f"entry failed DeadlineExceeded; with no live slice a submit "
+        f"failed FleetSliceLost; peak {row['peak_gib']:.3f} GiB")
+    return row
+
+
+def fleet_rebind(sess, tables, qs) -> dict:
+    """(e) Rebind D: the directory's records over D and the slices'
+    cached S·D drop; the next S·D computes (B1) bit-equal to one plain
+    session on the new D."""
+    meter = PeakMeter("fleet_rebind", FLEET_PEAK_LIMIT_GIB)
+    fleet = sess._fleet
+    d0 = fleet.directory.info()
+    D2 = sess.random(tables["D"].shape, dtype="bfloat16", seed=12)
+    t0 = time.perf_counter()
+    sess.register("D", D2)
+    reg_ms = (time.perf_counter() - t0) * 1e3
+    d1 = fleet.directory.info()
+    new_tables = dict(tables, D=D2)
+    want = fleet_plain({"row4 S·D": None}, new_tables, sess.device)
+    c0 = ops_counts()
+    out, ms = submit_ms(sess, qs["row4 S·D"]())
+    with meter.aside():
+        same_bits("(e) row4 S·D after rebind", out, want["row4 S·D"])
+    launched = ops_since(c0)["spmm_blocksparse"]
+    dropped = d1["invalidated"] - d0["invalidated"]
+    if dropped < 1 or launched < 1:
+        raise AssertionError(f"fleet (e): {dropped} records dropped, B1 "
+                             f"launched {launched}")
+    row = {"register_ms": reg_ms, "records_dropped": dropped,
+           "answer_ms": ms, "b1": launched, "peak_gib": meter.gib()}
+    log(f"fleet (e): register('D') in {reg_ms:.3f} ms dropped {dropped} "
+        f"directory record(s) and the slices' cached S·D; the next S·D "
+        f"launched B1 {launched} time(s) in {ms:.3f} ms, bit-equal to one "
+        f"plain session on the new D; peak {row['peak_gib']:.3f} GiB")
+    return row, new_tables
+
+
+def fleet_virtual(dev, log_path) -> dict:
+    """(f) The (2, 4) virtual grid with verify_plans="error": two (2, 2)
+    slices; dense tables rebuilt on each sub-grid, the sparse ones
+    (S, Âᵀ, P, Q) pinned to the span. 0 diagnostics on every plan, and
+    each answer bit-equal to one plain session on the grid it ran on."""
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    meter = PeakMeter("fleet_virtual", FLEET_PEAK_LIMIT_GIB)
+    fs = fleet_session(dev, log_path, mesh_shape=(2, 4),
+                       verify_plans="error")
+    tables = fleet_tables(fs)
+    fq = fleet_queries(fs)
+    c0 = ops_counts()
+    got = {name: fs.submit(fq[name](), tenant=t).result(timeout=900)
+           for name, _k, t in FLEET_MIX}
+    fs.serve_drain(timeout=900)
+    launched = ops_since(c0)
+    fleet = fs._fleet
+    pinned = sorted(nm for nm, m in tables.items()
+                    if id(m) not in fleet._names)
+    diags = []
+    for s in [fs] + [sl.session for sl in fleet.slices]:
+        for plan in list(s._plan_cache.values()):
+            diags += (plan.meta or {}).get("diagnostics") or []
+    info = fs.fleet_info()
+    # the dense row-2 chain runs on a (2, 2) slice over its rebuilt
+    # tables when placement keeps it there, else on the (2, 4) parent
+    on_slice = info["placed"]["slice"] == 1
+    with meter.aside():
+        for grid, names in (((2, 4), [n for n, k, _t in FLEET_MIX
+                                      if k or not on_slice]),
+                            ((2, 2), ["row2 A·B·C"] if on_slice else [])):
+            if not names:
+                continue
+            src = fs if grid == (2, 4) else fleet.slices[0].session
+            plain = MatrelSession(config=MatrelConfig(mesh_shape=grid),
+                                  device=dev)
+            for nm in tables:
+                if nm in src.catalog:
+                    plain.register(nm, src.catalog[nm])
+            pq = fleet_queries(plain)
+            for name in names:
+                same_bits(f"(f) {name}", got[name],
+                          plain.compute(pq[name]()))
+    fs.serve_close(timeout=900)
+    if info["source"] != "virtual" or diags or info["pinned"] != 3 \
+            or pinned != ["A5", "P", "Q", "S"]:
+        raise AssertionError(f"fleet (f): source {info['source']}, "
+                             f"diagnostics {diags}, pinned {pinned} "
+                             f"({info['pinned']} queries)")
+    row = {"source": info["source"], "placed": info["placed"],
+           "pinned_queries": info["pinned"], "pinned_tables": pinned,
+           "diagnostics": len(diags),
+           "launches": {k: launched[k] for k in
+                        ("spmm_blocksparse", "spmv_compact",
+                         "spgemm_pairs")},
+           "peak_gib": meter.gib()}
+    log(f"fleet (f): (2, 4) grid, {info['source']} (2, 2) slices, "
+        f"verify_plans='error': placed {info['placed']}, {info['pinned']} "
+        f"pinned over sparse tables {pinned}; {len(diags)} diagnostics; "
+        f"launches {row['launches']}; answers bit-equal to plain sessions "
+        f"on (2, 4) and (2, 2); peak {row['peak_gib']:.3f} GiB")
+    return row
+
+
+def fleet_tools(log_path: str, dev) -> dict:
+    """(g) The operator tools over the run's own event log — history
+    --summary (its fleet roll-up), trace --export chrome, why, top
+    --once --log — then the bridge on localhost, and ``python -m
+    matrel_tpu_torch pagerank`` (in process) over row 5's edges: B2 for
+    every round and the same top ten as path_row5_pagerank."""
+    import argparse
+    import io
+    from contextlib import redirect_stdout
+    import numpy as np
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.__main__ import main as cli
+    from matrel_tpu_torch.bridge import BridgeClient, BridgeServer
+    from matrel_tpu_torch.obs import history, provenance, top, trace
+    from matrel_tpu_torch.ops import pallas_spmv as pc
+    meter = PeakMeter("fleet_tools", FLEET_PEAK_LIMIT_GIB)
+
+    def text(fn, **kw):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with redirect_stdout(buf):
+            rc = fn(argparse.Namespace(**kw))
+        return rc, buf.getvalue(), (time.perf_counter() - t0) * 1e3
+
+    rc, hist, hist_ms = text(history.main, log=log_path, last=None,
+                             summary=True, drift=False, drift_table=None,
+                             coeffs=False, no_save=True, check=False)
+    fleet_lines = [ln for ln in hist.splitlines()
+                   if ln.startswith("fleet:")]
+    chrome = log_path + ".chrome.json"
+    rc2, tr, tr_ms = text(trace.main, export="chrome", log=log_path,
+                          out=chrome, last=None)
+    spans = json.loads(tr)["spans"]
+    rc3, why, why_ms = text(provenance.main, log=log_path, last=10_000,
+                            key=None, audit=False, sample=8, check=False,
+                            device=str(dev))
+    rc4, frame, top_ms = text(top.main, url=None, port=None, log=log_path,
+                              interval=0.0, once=True, iterations=None)
+    if rc or rc2 or rc3 or rc4 or not fleet_lines or spans < 1 \
+            or "fleet: owner slice" not in why \
+            or not frame.startswith("matrel_tpu_torch top"):
+        raise AssertionError(f"fleet (g): tools rc {rc, rc2, rc3, rc4}, "
+                             f"{len(fleet_lines)} fleet lines, {spans} "
+                             f"spans")
+    srv = BridgeServer(MatrelSession(device=dev))
+    srv.serve_background()
+    client = BridgeClient("127.0.0.1", srv.port)
+    a = np.arange(64 * 64, dtype=np.float32).reshape(64, 64) % 7
+    t0 = time.perf_counter()
+    client.call("upload", name="M", data=a.tolist())
+    client.call("sql", query="M * M", store="MM")
+    got = np.asarray(client.call("fetch", name="MM")["data"])
+    bridge_ms = (time.perf_counter() - t0) * 1e3
+    client.call("shutdown")
+    client.close()
+    srv.server_close()
+    if not np.array_equal(got, a @ a):
+        raise AssertionError("fleet (g): the bridge's M * M is wrong")
+    src, dst = row5_graph()
+    os.makedirs(FLEET_DIR, exist_ok=True)
+    csv = os.path.join(FLEET_DIR, "row5_edges.csv")
+    t0 = time.perf_counter()
+    with open(csv, "w") as f:
+        f.write("\n".join(map("{},{}".format, src.tolist(),
+                              dst.tolist())))
+    write_s = time.perf_counter() - t0
+    if not ROW5_PR_TOP:
+        from matrel_tpu_torch.workloads import pagerank as pr
+        r = pr.pagerank_edges(src, dst, ROW5_N, rounds=ROW5_ROUNDS,
+                              impl="onehot", passes=3).cpu().numpy()
+        ROW5_PR_TOP.extend((int(i), float(r[i]))
+                           for i in np.argsort(r)[::-1][:10])
+    n0 = pc.LAUNCHES_SPMV
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        cli(["pagerank", csv, "--top", "10"])
+    cli_s = time.perf_counter() - t0
+    b2 = pc.LAUNCHES_SPMV - n0
+    out = json.loads(buf.getvalue())
+    top10 = [(t["node"], t["rank"]) for t in out["top"]]
+    os.remove(csv)
+    rank_err = max(abs(a[1] - b[1]) / b[1]
+                   for a, b in zip(top10, ROW5_PR_TOP))
+    if [a[0] for a in top10] != [b[0] for b in ROW5_PR_TOP] \
+            or rank_err > 1e-6 or out["nodes"] != ROW5_N \
+            or b2 != ROW5_ROUNDS:
+        raise AssertionError(f"fleet (g): CLI PageRank top ten {top10} vs "
+                             f"{ROW5_PR_TOP}, {out['nodes']} nodes, B2 "
+                             f"{b2}")
+    row = {"history_ms": hist_ms, "fleet_lines": fleet_lines,
+           "trace_spans": spans, "trace_ms": tr_ms, "why_ms": why_ms,
+           "top_ms": top_ms, "bridge_ms": bridge_ms,
+           "csv_write_s": write_s, "cli_pagerank_s": cli_s, "b2": b2,
+           "top10_rank_rel_err": rank_err,
+           "peak_gib": meter.gib()}
+    log(f"fleet (g): history --summary {hist_ms:.1f} ms ({fleet_lines}); "
+        f"trace --export chrome {spans} spans in {tr_ms:.1f} ms; why "
+        f"{why_ms:.1f} ms; top --once --log {top_ms:.1f} ms; bridge "
+        f"upload / sql / fetch {bridge_ms:.1f} ms, exact; CLI pagerank "
+        f"over 10M edges {cli_s:.2f} s (CSV written in {write_s:.2f} s), "
+        f"B2 x {b2}, the same top ten as path_row5_pagerank (ranks "
+        f"within {rank_err:.1e} relative); peak "
+        f"{row['peak_gib']:.3f} GiB")
+    return row
+
+
+def path_fleet(sess) -> dict:
+    """The multi-slice serving fleet and the operator tools on the card
+    (serve/fleet.py, core/mesh slice views, obs/history.py, obs/top.py,
+    the trace / why CLIs, bridge.py, __main__.py): on the 1 x 1 grid with
+    fleet_slices=2 ("shared": both slice sessions on the card, tables
+    shared) and obs on, (a) four client threads, (b) directory hits, (c)
+    hot-entry replication, (d) failover, (e) a rebind, then (f) the
+    (2, 4) virtual grid under verify_plans="error" and (g) the tools
+    over the run's own log. Every answer bit-equal to one plain session;
+    each sub-phase its own peak bound (FLEET_PEAK_LIMIT_GIB)."""
+    import shutil
+    import torch
+    t0 = time.perf_counter()
+    dev = sess.device
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    os.makedirs(FLEET_DIR)
+    log_path = os.path.join(FLEET_DIR, "events.jsonl")
+    c0 = ops_counts()
+    fs = fleet_session(dev, log_path,
+                       fleet_replicate_hits=FLEET_REPLICATE_HITS)
+    tables = fleet_tables(fs)
+    qs = fleet_queries(fs)
+    want = fleet_plain(qs, tables, dev)
+    rows = {}
+    try:
+        rows["submit"] = fleet_submit(fs, qs, want, dev)
+        rows["hit"] = fleet_hit(fs, qs, want)
+        rows["replicate"] = fleet_replicate(fs, qs, want)
+        rows["failover"] = fleet_failover(fs, tables, qs, want, dev,
+                                          log_path)
+        rows["rebind"], tables = fleet_rebind(fs, tables, qs)
+        fs.serve_close(timeout=900)
+        del fs, qs, want, tables
+        torch.cuda.empty_cache()
+        rows["virtual"] = fleet_virtual(dev, log_path)
+        torch.cuda.empty_cache()
+        rows["tools"] = fleet_tools(log_path, dev)
+    finally:
+        shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    total = ops_since(c0)
+    log(f"path fleet: {time.perf_counter() - t0:.1f} s; launches B1 "
+        f"{total['spmm_blocksparse']}, B2 {total['spmv_compact']}, B4 "
+        f"{total['spgemm_pairs']}")
+    print(json.dumps({"fleet": rows}, default=str))
+    bodies = {k[3:]: v for k, v in total.items()
+              if k.startswith("b1_") and v}
+    return {"launches": total, "spmm_bodies": bodies, "rows": rows}
+
+
+def fleet_only() -> int:
+    """``python3 chip_smoke.py --fleet``: only path_fleet (after building
+    the kernels), printing the card line and its launches."""
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
+                                      pallas_spmv, spmv_routed)
+    from matrel_tpu_torch.utils import cuda_build
+    card = device_line()
+    log(f"torch {torch.__version__}; {card}")
+    modules = (pallas_spmm, pallas_spmv, pallas_spgemm, spmv_routed)
+    cuda_build.build([cuda_build.CSRC_DIR / m.SOURCE for m in modules])
+    out = path_fleet(MatrelSession())
+    print(card)
+    print(json.dumps({"fleet_launches": out["launches"]}))
+    return 0
+
+
 # -- multi-rank execution over torch.distributed (path_multirank) --------------
 
 #: The rank grid: 4 ranks, 2 × 2 (the square grid SUMMA needs).
@@ -7558,6 +8216,8 @@ def main() -> int:
         return ops_only()
     if sys.argv[1:] == ["--durable"]:
         return durable_only()
+    if sys.argv[1:] == ["--fleet"]:
+        return fleet_only()
     from matrel_tpu_torch import MatrelSession
     from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
                                       pallas_spmv, spmv_routed)
@@ -7654,6 +8314,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     durable = path_durable(sess, latency)   # each sub-phase its bound
     l_du = durable["launches"]
+    torch.cuda.empty_cache()
+    fleet = path_fleet(sess)          # each sub-phase its bound
+    l_fl = fleet["launches"]
+    torch.cuda.empty_cache()
     spgemm_library(sess.mesh, b47)    # cuSPARSE SpGEMM beside B4-B7
     torch.cuda.empty_cache()
     l_mr = path_multirank(sess, ns["fro"])["launches"]   # four ranks
@@ -7664,7 +8328,8 @@ def main() -> int:
     l_coo = coo["launches"]
     for part in (l_batch["spmm_bodies"], coo["bsp"]["bodies"],
                  fused["spmm_bodies"], served["spmm_bodies"],
-                 ops["spmm_bodies"], durable["spmm_bodies"]):
+                 ops["spmm_bodies"], durable["spmm_bodies"],
+                 fleet["spmm_bodies"]):
         for b, v in part.items():
             b1_bodies[b] = b1_bodies.get(b, 0) + v
     kernels = [
@@ -7675,7 +8340,8 @@ def main() -> int:
                           + l_fu["spmm_blocksparse"]
                           + l_sv["spmm_blocksparse"]
                           + l_ops["spmm_blocksparse"]
-                          + l_du["spmm_blocksparse"], row),
+                          + l_du["spmm_blocksparse"]
+                          + l_fl["spmm_blocksparse"], row),
              launches_by_body=b1_bodies, f32_one_column=coo["b1_f32_m1"],
              f32_row4=row4_f32),
         dict(kernel_entry("spmv_compact", pallas_spmv.SOURCE,
@@ -7684,7 +8350,8 @@ def main() -> int:
                           + l_rel["spmv_compact"] + l_coo["spmv_compact"]
                           + l_at["spmv_compact"] + l_fu["spmv_compact"]
                           + l_sv["spmv_compact"] + l_ops["spmv_compact"]
-                          + l_du["spmv_compact"] + l_mr["spmv_compact"],
+                          + l_du["spmv_compact"] + l_fl["spmv_compact"]
+                          + l_mr["spmv_compact"],
                           b23["spmv_compact"]),
              launches_on_ranks=l_mr["spmv_compact"]),
         dict(kernel_entry("spmm_compact", pallas_spmv.SOURCE,
@@ -7695,7 +8362,7 @@ def main() -> int:
     ] + [kernel_entry(name, pallas_spgemm.SOURCE, SPGEMM_REPLACES[name],
                       l_spgemm[name] + l_rel[name] + l_at[name]
                       + l_fu[name] + l_sv[name] + l_ops.get(name, 0)
-                      + l_du.get(name, 0),
+                      + l_du.get(name, 0) + l_fl.get(name, 0),
                       b47[name])
          for name in SPGEMM_REPLACES]
     kernels.append(dict(

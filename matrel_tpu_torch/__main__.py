@@ -1,0 +1,284 @@
+"""CLI: python -m matrel_tpu_torch <command>
+
+The counterpart of ``python -m matrel_tpu``. Commands that compute run
+on the card unless given ``--device cpu``.
+
+Commands:
+  info [--device D]     torch device, grid and config summary
+  bench                 not ported: raises NotPortedError (the port's
+                        benchmark is not written yet)
+  serve [--port P] [--device D]
+                        run the JSON-RPC bridge server
+  sql "<query>" [--table name=path.npy ...] [--device D]
+                        one-shot SQL query
+  autotune N [K M] [--device D]
+                        time every matmul strategy for the given dims
+  pagerank PATH [--device D]
+                        PageRank over a .mtx adjacency or src,dst CSV
+  history [--last N] [--summary] [--drift] [--log PATH]
+                        aggregate a query event log (the history-server
+                        analogue; log written when MATREL_OBS_LEVEL=on);
+                        --drift runs the cost-model drift auditor
+                        (obs/drift.py) over the same log
+  trace --export chrome [--log PATH] [--out PATH] [--last N]
+                        render the log's tracing spans as a
+                        Chrome/Perfetto trace_event JSON
+  top [--url U | --port P | --log PATH] [--interval S] [--once]
+                        live operator console: per-tenant QPS /
+                        p50/p95/p99 / goodput / shed rate / SLO burn
+                        rate + active alerts, polling a session's
+                        metrics endpoint (config.obs_metrics_port) or
+                        tailing an event log
+  why [--last N] [--key K] [--log PATH] [--audit [--device D]]
+                        render served answers' lineage trees from the
+                        event log's ``provenance`` records (written
+                        when config.obs_provenance > 0); --audit
+                        replays a sampled workload's lineages fresh
+                        (cache bypassed) and proves each served
+                        answer bit-equal / within its stamped
+                        err_bound (with --check, a nonzero exit on a
+                        disagreement)
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+
+def cmd_info(args):
+    import torch
+    from matrel_tpu_torch.config import default_config
+    from matrel_tpu_torch.core import mesh as mesh_lib
+    cfg = default_config()
+    mesh = mesh_lib.make_mesh(cfg.mesh_shape, cfg.mesh_axis_names,
+                              device=args.device)
+    dev = mesh.device
+    print(json.dumps({
+        "torch": torch.__version__,
+        "device": str(dev),
+        "device_name": (torch.cuda.get_device_name(dev)
+                        if dev.type == "cuda" else "cpu"),
+        "grid": dict(zip(mesh.axis_names, mesh.grid)),
+        "config": {f: getattr(cfg, f) for f in (
+            "block_size", "broadcast_threshold_bytes", "strategy_override",
+            "matmul_precision", "use_pallas", "chain_opt")},
+    }, indent=2))
+
+
+def cmd_bench(args):
+    from matrel_tpu_torch.config import NotPortedError
+    raise NotPortedError(
+        "bench: the JAX package's bench.py measures the JAX package; "
+        "the port has no benchmark of its own yet (chip_smoke.py drives "
+        "and times its paths on the card)")
+
+
+def cmd_serve(args):
+    from matrel_tpu_torch.bridge import BridgeServer
+    srv = BridgeServer(port=args.port, device=args.device)
+    print(f"matrel_tpu_torch bridge listening on 127.0.0.1:{srv.port}",
+          flush=True)
+    srv.serve_forever()
+
+
+def cmd_sql(args):
+    import numpy as np
+    from matrel_tpu_torch.session import MatrelSession
+    sess = MatrelSession.builder().device(args.device).get_or_create()
+    for spec in args.table or []:
+        name, path = spec.split("=", 1)
+        sess.register(name, sess.from_numpy(np.load(path)))
+    if getattr(args, "explain", False):
+        print(sess.explain_sql(args.query))
+        return
+    out = sess.compute(sess.sql(args.query))
+    np.set_printoptions(precision=5, suppress=True, threshold=200)
+    print(out.to_numpy())
+
+
+def cmd_autotune(args):
+    from matrel_tpu_torch.config import default_config
+    from matrel_tpu_torch.core import mesh as mesh_lib
+    from matrel_tpu_torch.parallel.autotune import autotune_matmul
+    cfg = default_config()
+    n = args.n
+    k = args.k or n
+    m = args.m or n
+    mesh = mesh_lib.make_mesh(cfg.mesh_shape, cfg.mesh_axis_names,
+                              device=args.device)
+    best, table = autotune_matmul(n, k, m, mesh=mesh, config=cfg)
+    print(json.dumps({"best": best,
+                      "seconds": {s: round(t, 6) for s, t in table.items()}},
+                     indent=2))
+
+
+def cmd_history(args):
+    import sys
+    from matrel_tpu_torch.obs import history
+    sys.exit(history.main(args))
+
+
+def cmd_trace(args):
+    import sys
+    from matrel_tpu_torch.obs import trace
+    sys.exit(trace.main(args))
+
+
+def cmd_top(args):
+    import sys
+    from matrel_tpu_torch.obs import top
+    sys.exit(top.main(args))
+
+
+def cmd_why(args):
+    import sys
+    from matrel_tpu_torch.obs import provenance
+    sys.exit(provenance.main(args))
+
+
+def cmd_pagerank(args):
+    import numpy as np
+    from matrel_tpu_torch import io as mio
+    from matrel_tpu_torch.workloads.pagerank import pagerank_edges
+    if args.path.endswith(".mtx"):
+        A = mio.load_mtx_coo(args.path)
+        src, dst, w, n = A.rows, A.cols, A.vals, max(A.shape)
+    else:  # 'src,dst[,w]' CSV / edge list (weight defaults to 1)
+        src, dst, w = mio.read_edges_csv(args.path)
+        n = int(max(src.max(), dst.max())) + 1
+    if np.all(w == 1.0):
+        w = None                      # unweighted fast path
+    ranks = pagerank_edges(src, dst, int(n), rounds=args.rounds,
+                           alpha=args.alpha, weights=w,
+                           device=args.device).cpu().numpy()
+    top = np.argsort(ranks)[::-1][:args.top]
+    print(json.dumps({
+        "nodes": int(n), "edges": int(len(src)),
+        "rounds": args.rounds,
+        "top": [{"node": int(i), "rank": float(ranks[i])} for i in top],
+        "rank_sum": float(ranks.sum()),
+    }, indent=2))
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="matrel_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    on_device = argparse.ArgumentParser(add_help=False)
+    on_device.add_argument("--device", default=None,
+                           help="torch device to run on (default: the "
+                                "card; 'cpu' runs the plain versions "
+                                "on the host)")
+    sub.add_parser("info", parents=[on_device]).set_defaults(fn=cmd_info)
+    sub.add_parser("bench").set_defaults(fn=cmd_bench)
+    sp = sub.add_parser("serve", parents=[on_device])
+    sp.add_argument("--port", type=int, default=8765)
+    sp.set_defaults(fn=cmd_serve)
+    sq = sub.add_parser("sql", parents=[on_device])
+    sq.add_argument("query")
+    sq.add_argument("--table", action="append")
+    sq.add_argument("--explain", action="store_true",
+                    help="print the logical + optimized plan instead "
+                         "of executing")
+    sq.set_defaults(fn=cmd_sql)
+    sa = sub.add_parser("autotune", parents=[on_device])
+    sa.add_argument("n", type=int)
+    sa.add_argument("k", type=int, nargs="?")
+    sa.add_argument("m", type=int, nargs="?")
+    sa.set_defaults(fn=cmd_autotune)
+    hi = sub.add_parser("history")
+    hi.add_argument("--last", type=int, default=None,
+                    help="show only the most recent N query records")
+    hi.add_argument("--summary", action="store_true",
+                    help="per-strategy / cache roll-up instead of the "
+                         "per-query table")
+    hi.add_argument("--log", default=None,
+                    help="event-log path (default: the obs default, "
+                         ".matrel_events.jsonl)")
+    hi.add_argument("--drift", action="store_true",
+                    help="cost-model drift audit: estimated vs "
+                         "measured calibration per strategy/shape "
+                         "class/backend, rank-order flags, persisted "
+                         "table update")
+    hi.add_argument("--drift-table", default=None,
+                    help="calibration-table path (default: "
+                         "config.drift_table_path, else "
+                         ".matrel_drift.json)")
+    hi.add_argument("--coeffs", action="store_true",
+                    help="cost-model loop view: planner decisions by "
+                         "cost source, coefficient epoch, and every "
+                         "rank-order flag paired with whether a "
+                         "re-plan round actioned it")
+    hi.add_argument("--no-save", action="store_true",
+                    help="with --drift: report only, don't update the "
+                         "persisted calibration table")
+    hi.add_argument("--check", action="store_true",
+                    help="with --drift: exit nonzero when any DRIFT "
+                         "rank-order flag fires; with --summary: exit "
+                         "nonzero on any UN-CLEARED SLO alert; with "
+                         "--coeffs: exit nonzero on a firing but "
+                         "UNACTIONED flag — the CI gates")
+    hi.set_defaults(fn=cmd_history)
+    tp = sub.add_parser("top")
+    tp.add_argument("--url", default=None,
+                    help="metrics-endpoint base URL "
+                         "(http://127.0.0.1:<obs_metrics_port>)")
+    tp.add_argument("--port", type=int, default=None,
+                    help="shorthand for --url http://127.0.0.1:PORT")
+    tp.add_argument("--log", default=None,
+                    help="event-log path to tail instead of polling "
+                         "an endpoint (same resolution as history)")
+    tp.add_argument("--interval", type=float, default=2.0,
+                    help="refresh interval in seconds (default 2)")
+    tp.add_argument("--once", action="store_true",
+                    help="render one frame and exit (scripting/tests)")
+    tp.add_argument("--iterations", type=int, default=None,
+                    help="stop after N frames (default: run until "
+                         "interrupted)")
+    tp.set_defaults(fn=cmd_top)
+    tr = sub.add_parser("trace")
+    tr.add_argument("--export", default="chrome",
+                    help="output format (chrome: trace_event JSON for "
+                         "Perfetto / chrome://tracing)")
+    tr.add_argument("--log", default=None,
+                    help="event-log path (same resolution as history)")
+    tr.add_argument("--out", default=None,
+                    help="output path (default: <log>.chrome.json; "
+                         "'-' for stdout)")
+    tr.add_argument("--last", type=int, default=None,
+                    help="keep only the last N root spans (+ their "
+                         "descendants)")
+    tr.set_defaults(fn=cmd_trace)
+    wy = sub.add_parser("why", parents=[on_device])
+    wy.add_argument("--last", type=int, default=10,
+                    help="show only the most recent N lineage records")
+    wy.add_argument("--key", default=None,
+                    help="filter by cache-key / key-hash substring or "
+                         "exact ledger query id")
+    wy.add_argument("--log", default=None,
+                    help="event-log path (same resolution as history)")
+    wy.add_argument("--audit", action="store_true",
+                    help="audit replay: run the built-in serve "
+                         "workload (cache hits, an interior hit, an "
+                         "IVM-patched serve), then re-execute sampled "
+                         "lineages fresh and compare against the "
+                         "served answers")
+    wy.add_argument("--sample", type=int, default=8,
+                    help="with --audit: number of lineages to replay "
+                         "(default 8)")
+    wy.add_argument("--check", action="store_true",
+                    help="with --audit: exit nonzero when any replay "
+                         "disagrees — the CI gate")
+    wy.set_defaults(fn=cmd_why)
+    pr = sub.add_parser("pagerank", parents=[on_device])
+    pr.add_argument("path", help=".mtx adjacency or 'src,dst' CSV edges")
+    pr.add_argument("--rounds", type=int, default=30)
+    pr.add_argument("--alpha", type=float, default=0.85)
+    pr.add_argument("--top", type=int, default=10)
+    pr.set_defaults(fn=cmd_pagerank)
+    args = p.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

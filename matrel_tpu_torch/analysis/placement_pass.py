@@ -1,7 +1,7 @@
 """MV114 — fleet placement stamps must match the topology they
-claim to be priced on. The fleet that writes these stamps is not
-ported; a hand-stamped plan, or one replayed from a fleet session, is
-still checked.
+claim to be priced on. The fleet (``serve/fleet.py``) writes them: a
+span-placed query's ``placement`` stamp, and a replicated entry's
+``fleet`` provenance on its cache leaf.
 
 Two hazard shapes, both the MV107 stale-stamp class:
 

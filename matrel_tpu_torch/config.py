@@ -5,11 +5,9 @@ Same frozen-dataclass shape and the same defaults as the JAX package's
 ``MatrelConfig``. The knobs of the ported planes (planning, rewrites,
 execution, precision tiers, the plan cache, serving, observability,
 resilience, the learned planner coefficients, re-planning, the spill
-hierarchy and the static verifier) are live. Every knob of a
-plane this package has not ported yet is still a field, so a reader
-finds each counterpart, but setting it away from its default raises
-:class:`NotPortedError` at construction: an unported plane is never
-silently ignored.
+hierarchy, the static verifier and the serving fleet) are live, and
+so is every other field: each is validated as the JAX package
+validates it.
 """
 
 from __future__ import annotations
@@ -72,9 +70,32 @@ class MatrelConfig:
     ``spill_host_max_bytes``, ``spill_disk_hits`` and ``state_dir``
     (``serve/spill.py``; the disk tier and ``save_state`` write under
     ``state_dir``), and ``verify_plans`` ("off" / "warn" / "error":
-    ``analysis/``, run at compile time before lowering). A retry climbs the
+    ``analysis/``, run at compile time before lowering), and the fleet's
+    ``fleet_slices``, ``fleet_span_margin``, ``fleet_directory_max``,
+    ``fleet_replicate_hits``, ``fleet_failover`` and
+    ``fleet_placement_calibration`` (``serve/fleet.py``). A retry climbs the
     degradation ladder (``resilience/degrade.py``); its rung 3 runs the
     composite paths instead of the hand-written kernels, by design.
+
+    Three execution knobs of the JAX package keep their field and take
+    the torch meaning of what they control:
+
+    - ``pallas_interpret``: the JAX package runs its Pallas paths in
+      interpret mode off the TPU (and ignores the flag on one). Here a
+      kernel wrapper given a CPU tensor always runs its plain PyTorch
+      version, which is that mode, and a CUDA tensor always launches
+      the kernel: the flag is accepted either way and changes no plan
+      and no value.
+    - ``donate_intermediates``: the JAX package donates rebound leaf
+      buffers only in ``CompiledPlan.run(donate=True)``, which nothing
+      in it calls. Torch frees an intermediate at its last reference
+      and ``CompiledPlan.run`` has no donate argument, so both values
+      run the same plan.
+    - ``plan_cache_max_bytes``: the byte bound on the hoisted payloads
+      cached plans pin. A plan here pins none (its tables live on its
+      leaf matrices), so the bound counts zero bytes and only
+      ``plan_cache_max_plans`` evicts; it must be >= 0, as a negative
+      bound would evict every plan in the JAX package.
 
     ``matmul_precision`` keeps the TPU meaning of the JAX package:
     "highest" is full IEEE f32 (TF32 off), "high" the 3-pass bf16
@@ -191,14 +212,10 @@ class MatrelConfig:
                 f"verify_plans must be one of 'off'/'warn'/'error', "
                 f"got {self.verify_plans!r}")
         object.__setattr__(self, "verify_plans", vp)
-        for name in UNPORTED_KNOBS:
-            want = _FIELD_DEFAULTS[name]
-            if getattr(self, name) != want:
-                raise NotPortedError(
-                    f"MatrelConfig.{name}={getattr(self, name)!r}: the "
-                    f"plane behind this knob is not ported to "
-                    f"matrel_tpu_torch yet (only the default {want!r} "
-                    f"is accepted)")
+        if self.plan_cache_max_bytes < 0:
+            raise ValueError(
+                f"plan_cache_max_bytes must be >= 0, "
+                f"got {self.plan_cache_max_bytes!r}")
         if (self.spgemm_kernel_override
                 and self.spgemm_kernel_override not in SPGEMM_KERNEL_IDS):
             raise ValueError(
@@ -283,6 +300,28 @@ class MatrelConfig:
             raise ValueError(
                 f"cse_template_max must be >= 1, "
                 f"got {self.cse_template_max!r}")
+        # the fleet's knobs, validated as the JAX package does: a
+        # negative slice count would read as "off" while the operator
+        # believes a fleet serves; a non-positive span margin makes
+        # spanning unreachable; a zero directory bound would evict every
+        # ownership record at insert
+        if self.fleet_slices < 0:
+            raise ValueError(
+                f"fleet_slices must be >= 0 (0 disables the fleet), "
+                f"got {self.fleet_slices!r}")
+        if self.fleet_span_margin <= 0:
+            raise ValueError(
+                f"fleet_span_margin must be > 0, "
+                f"got {self.fleet_span_margin!r}")
+        if self.fleet_directory_max < 1:
+            raise ValueError(
+                f"fleet_directory_max must be >= 1, "
+                f"got {self.fleet_directory_max!r}")
+        if self.fleet_replicate_hits < 0:
+            raise ValueError(
+                f"fleet_replicate_hits must be >= 0 (0 disables "
+                f"hot-entry replication), "
+                f"got {self.fleet_replicate_hits!r}")
         self._check_obs_resilience()
 
     def _check_obs_resilience(self) -> None:
@@ -401,9 +440,7 @@ class MatrelConfig:
     @staticmethod
     def from_env(base: Optional["MatrelConfig"] = None) -> "MatrelConfig":
         """A config from ``MATREL_*`` environment variables over ``base``
-        (the JAX package's parsing). A knob of an unported plane set
-        away from its default raises :class:`NotPortedError`, as at
-        construction."""
+        (the JAX package's parsing), validated as at construction."""
         cfg = base or MatrelConfig()
         overrides: dict = {}
         for f in dataclasses.fields(MatrelConfig):
@@ -429,7 +466,7 @@ class MatrelConfig:
     def from_dict(d: Mapping[str, Any],
                   base: Optional["MatrelConfig"] = None) -> "MatrelConfig":
         """``base`` with the fields of ``d`` replaced; an unknown key
-        raises KeyError, an unported knob :class:`NotPortedError`."""
+        raises KeyError; the values are validated as at construction."""
         cfg = base or MatrelConfig()
         valid = {f.name for f in dataclasses.fields(MatrelConfig)}
         unknown = set(d) - valid
@@ -437,17 +474,6 @@ class MatrelConfig:
             raise KeyError(f"unknown MatrelConfig keys: {sorted(unknown)}")
         return cfg.replace(**dict(d))
 
-
-_FIELD_DEFAULTS = {f.name: f.default for f in dataclasses.fields(MatrelConfig)}
-
-#: Knobs whose plane is not ported: Pallas interpret mode, buffer
-#: donation, hoisted payloads (the plan cache's byte bound counts them)
-#: and the fleet.
-UNPORTED_KNOBS = (
-    "pallas_interpret", "donate_intermediates", "plan_cache_max_bytes",
-    "fleet_slices", "fleet_span_margin", "fleet_directory_max",
-    "fleet_replicate_hits", "fleet_failover", "fleet_placement_calibration",
-)
 
 #: The SpGEMM kernel-registry vocabulary — what
 #: ``spgemm_kernel_override`` validates against at construction
@@ -602,5 +628,6 @@ def pallas_enabled(config: Optional[MatrelConfig] = None) -> bool:
     """Do the hand-written kernels run (the counterpart of the JAX
     package's ``pallas_enabled``)? The port's gate is ``use_pallas``
     alone: a CUDA tensor launches the kernel, a CPU tensor runs the
-    kernel's plain version, so no backend or interpret check applies."""
+    kernel's plain version (the JAX package's interpret mode), so no
+    backend check applies and ``pallas_interpret`` changes nothing."""
     return (config or default_config()).use_pallas

@@ -19,6 +19,7 @@ its partitioners are ``PartitionSpec``s. This package has two meshes:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple, Union
 
@@ -208,13 +209,154 @@ def shutdown_distributed() -> None:
 DCN_AXIS_WEIGHT = 8.0
 
 
-def axis_weights(mesh: Mesh, config=None) -> Tuple[float, float]:
-    """Per-axis inverse-bandwidth weights the comm model bills: the
-    configured ``axis_cost_weights``. (The JAX package also detects TPU
-    slice boundaries; ranks here carry none.)"""
+# -- mesh topology ----------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GridCell:
+    """One cell (i, j) of a mesh's (gx, gy) grid — what the JAX
+    package's device is to its mesh. On one card every cell runs on the
+    mesh's device; a cell carries no slice index (nothing here detects a
+    slice boundary)."""
+
+    row: int
+    col: int
+    gy: int = 1
+
+    @property
+    def id(self) -> int:
+        """Row-major index, as the JAX package numbers its devices."""
+        return self.row * self.gy + self.col
+
+
+def mesh_cells(mesh) -> list:
+    """The mesh's cells as rows of a 2D list: a port mesh's
+    :class:`GridCell` grid, or the ``devices`` array of a stand-in that
+    carries one (the tests' fake multi-slice mesh)."""
+    devs = getattr(mesh, "devices", None)
+    if devs is not None:
+        return [list(row) for row in devs]
+    gx, gy = mesh.grid
+    return [[GridCell(i, j, gy) for j in range(gy)] for i in range(gx)]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshTopology:
+    """Per-axis interconnect description of a 2D mesh (the JAX
+    package's). ``axis_weights[i]`` is the relative inverse bandwidth of
+    mesh axis i: the comm model bills a collective leg over axis i at
+    bytes × axis_weights[i]; (1.0, 1.0) is the homogeneous mesh.
+    ``source`` says where the weights came from: "config" (an explicit
+    ``config.axis_cost_weights``), "detected" (slice boundaries found
+    through the cells' ``slice_index``) or "default"."""
+
+    axis_weights: Tuple[float, float] = (1.0, 1.0)
+    source: str = "default"
+
+    @property
+    def uniform(self) -> bool:
+        return self.axis_weights[0] == self.axis_weights[1]
+
+
+def detect_slice_axes(mesh) -> Tuple[bool, bool]:
+    """Which mesh axes cross a slice boundary, from the cells'
+    ``slice_index``: an axis crosses when two cells adjacent along it
+    belong to different slices. Cells without a slice index (every
+    port mesh) detect as (False, False)."""
+    ids = [[getattr(d, "slice_index", None) for d in row]
+           for row in mesh_cells(mesh)]
+    flat = [s for row in ids for s in row]
+    if any(s is None for s in flat) or len(set(flat)) <= 1:
+        return False, False
+    gx = len(ids)
+    gy = len(ids[0]) if gx else 0
+    x_cross = any(ids[i][j] != ids[i + 1][j]
+                  for i in range(gx - 1) for j in range(gy))
+    y_cross = any(ids[i][j] != ids[i][j + 1]
+                  for i in range(gx) for j in range(gy - 1))
+    return x_cross, y_cross
+
+
+def _resolve_topology(mesh, weights: Tuple[float, float]) -> MeshTopology:
+    if weights != (1.0, 1.0):
+        return MeshTopology(weights, "config")
+    try:
+        crossings = detect_slice_axes(mesh)
+    except Exception:         # exotic stand-ins must not break planning
+        crossings = (False, False)
+    if any(crossings):
+        return MeshTopology(
+            tuple(DCN_AXIS_WEIGHT if c else 1.0 for c in crossings),
+            "detected")
+    return MeshTopology((1.0, 1.0), "default")
+
+
+_resolve_topology_cached = functools.lru_cache(maxsize=64)(
+    _resolve_topology)
+
+
+def mesh_topology(mesh, config=None) -> MeshTopology:
+    """The topology governing cost models on this mesh: an explicit
+    ``config.axis_cost_weights`` other than (1.0, 1.0) wins, else
+    slice-boundary detection weights each crossing axis
+    ``DCN_AXIS_WEIGHT``, else the homogeneous default. Never raises;
+    memoised per (mesh, configured weights)."""
     from matrel_tpu_torch.config import default_config
     cfg = config or default_config()
-    return tuple(cfg.axis_cost_weights)
+    w = tuple(cfg.axis_cost_weights)
+    try:
+        return _resolve_topology_cached(mesh, w)
+    except TypeError:         # unhashable mesh stand-ins (tests)
+        return _resolve_topology(mesh, w)
+
+
+def axis_weights(mesh, config=None) -> Tuple[float, float]:
+    """``mesh_topology(mesh, config).axis_weights`` — the (wx, wy) every
+    weighted costing path bills."""
+    return mesh_topology(mesh, config).axis_weights
+
+
+# -- slice views (the serving fleet: serve/fleet.py) ---------------------------
+
+
+def slice_device_groups(mesh, n: int):
+    """Partition a mesh's cells into ``n`` serving-slice groups:
+    ``(groups, source)``, the cells row-major as the JAX package takes
+    its devices.
+
+    - ``"detected"``: the cells carry ``slice_index`` values whose
+      distinct count is ``n`` (only a stand-in mesh does);
+    - ``"virtual"``: the cells split into ``n`` equal contiguous runs;
+    - ``"shared"``: fewer cells than would split evenly (the 1x1 grid
+      of one card): every group is the whole cell set, and the slices
+      share the card while keeping their own queues, workers and
+      caches."""
+    if n < 1:
+        raise ValueError(f"slice count must be >= 1, got {n!r}")
+    devs = [d for row in mesh_cells(mesh) for d in row]
+    by_slice: dict = {}
+    for d in devs:
+        by_slice.setdefault(getattr(d, "slice_index", None), []).append(d)
+    if None not in by_slice and len(by_slice) == n:
+        return [by_slice[k] for k in sorted(by_slice)], "detected"
+    if len(devs) >= n and len(devs) % n == 0:
+        c = len(devs) // n
+        return [devs[i * c:(i + 1) * c] for i in range(n)], "virtual"
+    return [list(devs) for _ in range(n)], "shared"
+
+
+def slice_meshes(mesh, n: int):
+    """``n`` slice meshes over :func:`slice_device_groups`' partition:
+    ``(meshes, source)``. A virtual or detected slice is a near-square
+    sub-grid of its group's cell count on the parent's device (same
+    axis names); a shared slice is the parent mesh itself."""
+    groups, source = slice_device_groups(mesh, n)
+    if source == "shared":
+        return [mesh for _ in groups], source
+    return [Mesh(getattr(mesh, "device", None),
+                 near_square_factors(len(g)),
+                 tuple(getattr(mesh, "axis_names", ("x", "y"))))
+            for g in groups], source
 
 
 def _spec(mesh: Mesh, rows, cols) -> P:

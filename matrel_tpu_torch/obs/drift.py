@@ -404,3 +404,73 @@ def update_table(path: str, calib: Dict[str, dict]) -> dict:
         json.dump(table, f, indent=1)
     os.replace(tmp, path)
     return table
+
+
+# ---------------------------------------------------------------------------
+# Report — `history --drift`
+# ---------------------------------------------------------------------------
+
+
+def report(events: List[dict],
+           table_path_str: Optional[str] = None,
+           persist: bool = True) -> str:
+    """The drift-audit text: calibration rows, rank-order flags, and
+    (when ``persist``) the table merge."""
+    return audit(events, table_path_str, persist)[0]
+
+
+def audit(events: List[dict],
+          table_path_str: Optional[str] = None,
+          persist: bool = True):
+    """(report text, rank-order flags) — the machine-checkable face of
+    the drift audit: ``history --drift --check`` exits nonzero when
+    any flag fired, so a CI gate reads cost-model drift instead of a
+    human reading the table."""
+    samples = list(iter_samples(events))
+    calib = calibrate(samples)
+    flags = rank_flags(samples)
+    lines = [f"drift audit: {len(samples)} sample(s) "
+             f"({sum(1 for s in samples if s['source'] == 'analyze')} "
+             f"analyze, "
+             f"{sum(1 for s in samples if s['source'] == 'query')} "
+             f"query) -> {len(calib)} calibration row(s)"]
+    if calib:
+        header = (f"{'strategy':<18}{'class':<10}{'backend':<9}"
+                  f"{'n':>4}{'med ms':>10}{'ms/GFLOP':>12}"
+                  f"{'ms/est MiB':>12}")
+        lines += ["", header, "-" * len(header)]
+        for key in sorted(calib):
+            r = calib[key]
+            lines.append(
+                f"{r['strategy']:<18}{r['class']:<10}"
+                f"{r['backend']:<9}{r['count']:>4}"
+                f"{r['ms_median']:>10.3f}"
+                + (f"{r['ms_per_gflop']:>12.4f}"
+                   if r["ms_per_gflop"] is not None else f"{'-':>12}")
+                + (f"{r['ms_per_est_mib']:>12.4f}"
+                   if r["ms_per_est_mib"] is not None
+                   else f"{'-':>12}"))
+    if flags:
+        lines.append("")
+        for fl in flags:
+            lines.append(
+                f"DRIFT {fl['class']} {fl['backend']}: model prefers "
+                f"{fl['model_prefers']} "
+                f"(est {fl['est_bytes'][0]:.3g} < "
+                f"{fl['est_bytes'][1]:.3g} bytes) but it measured "
+                f"{fl['slowdown']}x slower than "
+                f"{fl['measured_prefers']} "
+                f"({fl['measured_ms'][0]} vs {fl['measured_ms'][1]} "
+                f"ms; n={fl['samples']})")
+    else:
+        lines.append("rank-order: estimates agree with measurement "
+                     "(no flags)")
+    if persist:
+        path = table_path_str or table_path()
+        try:
+            table = update_table(path, calib)
+            lines.append(f"calibration table: {path} "
+                         f"({len(table['entries'])} entries)")
+        except OSError as e:     # auditing must not fail on a bad disk
+            lines.append(f"calibration table NOT persisted: {e}")
+    return "\n".join(lines), flags

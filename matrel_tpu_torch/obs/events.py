@@ -141,6 +141,19 @@ def _jsonable(v):
     return repr(v)
 
 
+def emit_tool_event(kind: str, record: dict,
+                    anchor_dir: Optional[str] = None) -> Optional[dict]:
+    """Emission entry point for out-of-session tools (a benchmark
+    harness, a soak guard): the log path is ``$MATREL_OBS_EVENT_LOG``,
+    else the default log name anchored at ``anchor_dir`` (typically the
+    repo root, so tool records land in one file whatever the cwd), else
+    the cwd default. Never raises, as :meth:`EventLog.emit`."""
+    path = os.environ.get("MATREL_OBS_EVENT_LOG")
+    if not path and anchor_dir:
+        path = os.path.join(anchor_dir, DEFAULT_EVENT_LOG)
+    return EventLog(path).emit(kind, record)
+
+
 def read_events(path: Optional[str] = None,
                 kinds: Optional[tuple] = None,
                 tail_bytes: Optional[int] = None) -> List[dict]:

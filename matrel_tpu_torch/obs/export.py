@@ -153,8 +153,8 @@ class _Handler(BaseHTTPRequestHandler):
 def snapshot(session) -> dict:
     """The live telemetry snapshot: registry metrics (sketch-backed
     histogram summaries included), SLO states, brownout rung, breaker
-    states, plan/result-cache and IVM counters, serve-queue depths and
-    drift flags. Sections whose subsystem is off are None — the JSON
+    states, plan/result-cache and IVM counters, serve-queue depths,
+    drift flags and the fleet. Sections whose subsystem is off are None — the JSON
     shape tells the consumer what is configured."""
     sess = session
     snap = {
@@ -187,6 +187,10 @@ def snapshot(session) -> dict:
         }
     else:
         snap["serve"] = None
+    fleet = getattr(sess, "_fleet", None)
+    # the fleet tier: per-slice state (queue depths, result caches,
+    # SLO, brownout), the directory and the placement census
+    snap["fleet"] = fleet.info() if fleet is not None else None
     return snap
 
 

@@ -1,0 +1,996 @@
+"""Event-log aggregation — the history-server analogue, the counterpart
+of ``matrel_tpu/obs/history.py`` (same records, same text out: the two
+packages' logs read the same).
+
+``python -m matrel_tpu_torch history [--last N] [--summary] [--log PATH]``
+replays a JSONL event log (obs/events.py) into per-query and
+per-strategy tables, the way the reference's Spark history server
+replays an event log into the UI. Plain text out; no state kept.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+from matrel_tpu_torch.obs.events import read_events, resolve_path
+from matrel_tpu_torch.obs import metrics as metrics_lib
+
+
+def _fmt(v, nd=2) -> str:
+    if v is None:
+        return "-"
+    if isinstance(v, float):
+        return f"{v:.{nd}f}"
+    return str(v)
+
+
+def render_queries(events: List[dict], last: Optional[int] = None) -> str:
+    """Per-query table (most recent last), one row per query record."""
+    qs = [e for e in events if e.get("kind") == "query"]
+    if last is not None:
+        # qs[-0:] would be the WHOLE list — 0 must mean "none"
+        qs = qs[-last:] if last > 0 else []
+    if not qs:
+        return "no query events"
+    header = (f"{'query_id':<18}{'src':<5}{'cache':<6}{'opt_ms':>8}"
+              f"{'exec_ms':>9}  {'strategies':<22}{'out_shape'}")
+    lines = [header, "-" * len(header)]
+    for e in qs:
+        strats = ",".join(sorted({d.get("strategy", "?")
+                                  for d in e.get("matmuls", [])})) or "-"
+        shape = "x".join(str(s) for s in e.get("out_shape", [])) or "-"
+        lines.append(
+            f"{e.get('query_id', '?'):<18}{e.get('source', '?'):<5}"
+            f"{e.get('cache', '?'):<6}{_fmt(e.get('optimize_ms')):>8}"
+            f"{_fmt(e.get('execute_ms')):>9}  {strats:<22}{shape}")
+    return "\n".join(lines)
+
+
+def summarize(events: List[dict]) -> dict:
+    """Aggregate a log into the per-query / per-strategy roll-up the
+    papers' strategy-win tables come from."""
+    qs = [e for e in events if e.get("kind") == "query"]
+    hits = sum(1 for e in qs if e.get("cache") == "hit")
+    exec_ms = [e["execute_ms"] for e in qs
+               if isinstance(e.get("execute_ms"), (int, float))]
+    strategies: Dict[str, dict] = {}
+    rule_hits: Dict[str, int] = {}
+    tiers: Dict[str, dict] = {}
+    spk: Dict[str, dict] = {}
+    # whole-plan fusion roll-up: region counts, member-op
+    # census and the modelled dispatch/HBM savings from each query
+    # record's plan-level ``fusion`` field (executor._fusion_meta) —
+    # the event-log view of what the fusion pass is actually buying
+    fusion: dict = {"queries": 0, "regions": 0, "census": {},
+                    "est_saved_dispatches": 0,
+                    "est_saved_hbm_bytes": 0.0}
+    reshards: dict = {"matmuls": 0, "steps": {}, "bytes_x": 0.0,
+                      "bytes_y": 0.0, "peak_bytes": 0.0}
+    for e in qs:
+        fus = e.get("fusion")
+        if isinstance(fus, dict) and fus.get("regions"):
+            fusion["queries"] += 1
+            fusion["regions"] += int(fus.get("regions") or 0)
+            for k, v in (fus.get("census") or {}).items():
+                fusion["census"][k] = fusion["census"].get(k, 0) \
+                    + int(v)
+            fusion["est_saved_dispatches"] += int(
+                fus.get("est_saved_dispatches") or 0)
+            fusion["est_saved_hbm_bytes"] += float(
+                fus.get("est_saved_hbm_bytes") or 0.0)
+        for d in e.get("matmuls", []):
+            # staged-reshard roll-up: step kinds, per-axis
+            # bytes and the worst per-device peak across every staged
+            # move in the log — the event-log view of what the reshard
+            # planner is actually doing (and the regression signal
+            # when a layout change starts paying a gather it didn't)
+            rr = d.get("reshard")
+            if isinstance(rr, dict):
+                reshards["matmuls"] += 1
+                for kind in rr.get("steps") or ():
+                    reshards["steps"][kind] = \
+                        reshards["steps"].get(kind, 0) + 1
+                ba = rr.get("bytes_by_axis") or (0.0, 0.0)
+                if len(ba) == 2 and all(
+                        isinstance(v, (int, float)) for v in ba):
+                    reshards["bytes_x"] += ba[0]
+                    reshards["bytes_y"] += ba[1]
+                if isinstance(rr.get("peak_bytes"), (int, float)):
+                    reshards["peak_bytes"] = max(reshards["peak_bytes"],
+                                                 rr["peak_bytes"])
+            # precision-tier roll-up: chosen tier + the pass
+            # counts the cost model billed, so a tier-selection
+            # regression (an "exact" stream suddenly running bf16)
+            # surfaces in `history --summary`
+            t = d.get("precision_tier")
+            if t:
+                row = tiers.setdefault(t, {"count": 0, "passes": 0})
+                row["count"] += 1
+                if isinstance(d.get("est_passes"), int):
+                    row["passes"] += d["est_passes"]
+            # SpGEMM kernel census: which registry kernels
+            # the planner stamped, over which structure classes, and
+            # how often a measured winner overrode the estimate — the
+            # event-log view of the specialized-kernel loop (a
+            # structure whose census is all "generic" means the
+            # classifier never fires; all "estimate" means the
+            # autotuner never measured)
+            kid = d.get("kernel_id")
+            if kid:
+                row = spk.setdefault(kid, {"count": 0, "measured": 0,
+                                           "structures": {}})
+                row["count"] += 1
+                if d.get("est_vs_measured") == "measured":
+                    row["measured"] += 1
+                sc = d.get("structure_class")
+                if sc:
+                    row["structures"][sc] = \
+                        row["structures"].get(sc, 0) + 1
+            s = strategies.setdefault(
+                d.get("strategy", "?"),
+                {"count": 0, "flops": 0.0, "est_ici_bytes": 0.0})
+            s["count"] += 1
+            if isinstance(d.get("flops"), (int, float)):
+                s["flops"] += d["flops"]
+            if isinstance(d.get("est_ici_bytes"), (int, float)):
+                s["est_ici_bytes"] += d["est_ici_bytes"]
+            # per-axis comm bytes (planner.matmul_decisions):
+            # rolled up per strategy so a regression that shifts
+            # traffic onto the slow DCN axis is visible in the event
+            # log even when the total stays flat
+            ab = d.get("est_axis_bytes")
+            if (isinstance(ab, (list, tuple)) and len(ab) == 2
+                    and all(isinstance(v, (int, float)) for v in ab)):
+                s["est_axis_bytes_x"] = (s.get("est_axis_bytes_x", 0.0)
+                                         + ab[0])
+                s["est_axis_bytes_y"] = (s.get("est_axis_bytes_y", 0.0)
+                                         + ab[1])
+            # SpGEMM dispatch records carry estimated savings vs the
+            # densify fallback (planner.matmul_decisions) — rolled up
+            # so the report shows the win per strategy
+            if isinstance(d.get("est_saved_flops"), (int, float)):
+                s["est_saved_flops"] = (s.get("est_saved_flops", 0.0)
+                                        + d["est_saved_flops"])
+            if isinstance(d.get("est_saved_hbm_bytes"), (int, float)):
+                s["est_saved_hbm_bytes"] = (
+                    s.get("est_saved_hbm_bytes", 0.0)
+                    + d["est_saved_hbm_bytes"])
+        for rule, n in (e.get("rule_hits") or {}).items():
+            rule_hits[rule] = rule_hits.get(rule, 0) + int(n)
+    last_cache = qs[-1].get("plan_cache", {}) if qs else {}
+    return {
+        "queries": len(qs),
+        "cache_hits": hits,
+        "cache_hit_rate": round(hits / len(qs), 3) if qs else None,
+        "rc_hits": sum(1 for e in qs if e.get("cache") == "rc_hit"),
+        "ivm": _summarize_ivm(events),
+        "alerts": _summarize_alerts(events),
+        "fleet": _summarize_fleet(events),
+        "serve": _summarize_serve(events),
+        "cse": _summarize_cse(events),
+        "spill": _summarize_spill(events),
+        "cost_model": _summarize_cost_model(events),
+        "lockdep": _summarize_lockdep(events),
+        "resilience": _summarize_resilience(events, len(qs)),
+        "overload": _summarize_overload(events),
+        "execute_ms_total": round(sum(exec_ms), 3),
+        "execute_ms_mean": (round(sum(exec_ms) / len(exec_ms), 3)
+                            if exec_ms else None),
+        "phase_quantiles": _phase_quantiles(qs),
+        "plan_cache": last_cache,
+        "strategies": strategies,
+        "precision_tiers": tiers,
+        "spgemm_kernels": spk,
+        "fusion": fusion if fusion["queries"] else None,
+        "reshards": reshards if reshards["matmuls"] else None,
+        "rule_hits": rule_hits,
+        "bench_runs": sum(1 for e in events if e.get("kind") == "bench"),
+        "bench_errors": _last_bench_errors(events),
+        "soak_runs": sum(1 for e in events if e.get("kind") == "soak"),
+        "span_count": sum(1 for e in events if e.get("kind") == "span"),
+        "verify_runs": sum(1 for e in events
+                           if e.get("kind") == "verify"),
+        "verify_diagnostics": sum(
+            int(e.get("count", 0)) for e in events
+            if e.get("kind") == "verify"),
+    }
+
+
+#: Per-query phase fields the quantile roll-up covers.
+_PHASE_FIELDS = ("optimize_ms", "trace_ms", "execute_ms")
+
+
+def _phase_quantiles(qs: List[dict]) -> Dict[str, dict]:
+    """p50/p95 of optimize/trace/execute milliseconds PER QUERY KIND
+    (root_kind) — the serve roll-up's nearest-rank helper applied to
+    the query phases, so a latency regression in one query shape is
+    visible instead of drowning in the global mean. Cache-hit records
+    repeat their plan's compile-time optimize/trace values by design
+    (the numbers describe the plan that ran); execute_ms is always
+    this run's own."""
+    by_kind: Dict[str, Dict[str, list]] = {}
+    for e in qs:
+        kind = str(e.get("root_kind") or "?")
+        rows = by_kind.setdefault(kind,
+                                  {f: [] for f in _PHASE_FIELDS})
+        for f in _PHASE_FIELDS:
+            v = e.get(f)
+            if isinstance(v, (int, float)):
+                rows[f].append(float(v))
+    out: Dict[str, dict] = {}
+    for kind, rows in by_kind.items():
+        entry: dict = {"count": max(len(rows[f])
+                                    for f in _PHASE_FIELDS)}
+        for f in _PHASE_FIELDS:
+            vals = sorted(rows[f])
+            entry[f] = {"p50": _pctile(vals, 0.50),
+                        "p95": _pctile(vals, 0.95)}
+        out[kind] = entry
+    return out
+
+
+def _last_bench_errors(events: List[dict]) -> Dict[str, dict]:
+    """Most recent ``bench_error`` record per metric — the relay-wedge
+    trail bench.py leaves when a probe fails (today that failure lives
+    only in the BENCH_*.json tail string; here the roll-up surfaces
+    it next to the successful runs)."""
+    out: Dict[str, dict] = {}
+    for e in events:
+        if e.get("kind") != "bench_error":
+            continue
+        out[str(e.get("metric") or "?")] = {
+            "ts": e.get("ts"),
+            "error": str(e.get("error") or "")[:300],
+            "attempts": e.get("attempts"),
+            "last_known_good": e.get("last_known_good"),
+        }
+    return out
+
+
+def _pctile(vals: List[float], q: float):
+    """Quantile through the SHARED sketch definition
+    (obs/metrics.percentile), so the offline replay and `top` never
+    disagree on the same data: both report ONE definition, pinned
+    to agree with the nearest-rank oracle within the sketch's
+    documented relative error (tests). None when empty."""
+    return metrics_lib.percentile(vals, q)
+
+
+def _summarize_serve(events: List[dict]) -> dict:
+    """Roll up ``serve`` records (session.run_many / the submit
+    pipeline — one per micro-batched admission) into the serving
+    headline numbers: QPS over the batches' own wall clocks, the
+    result-cache hit ratio, and queue-latency percentiles."""
+    sv = [e for e in events if e.get("kind") == "serve"]
+    queries = sum(int(e.get("batch_size") or 0) for e in sv)
+    wall_ms = sum(float(e.get("wall_ms") or 0.0) for e in sv)
+    waits = sorted(
+        float(w) for e in sv for w in (e.get("queue_wait_ms") or ())
+        if isinstance(w, (int, float)))
+    # hit ratio from PER-RECORD deltas (rc_hits/batch_size), summed
+    # over the whole log like every other roll-up here — the snapshot
+    # counters inside "result_cache" are session-lifetime cumulative,
+    # so reading only the last record's would discard every earlier
+    # session's behaviour in a multi-session log (and mix in non-serve
+    # sess.run() consults). The last snapshot still rides along for
+    # the eviction/invalidation display.
+    rc_hits = sum(int(e.get("rc_hits") or 0) for e in sv)
+    rc = sv[-1].get("result_cache", {}) if sv else {}
+    return {
+        "batches": len(sv),
+        "queries": queries,
+        "qps": (round(queries / (wall_ms / 1e3), 2) if wall_ms > 0
+                else None),
+        "rc_hit_ratio": (round(rc_hits / queries, 3) if queries
+                         else None),
+        "queue_wait_p50_ms": _pctile(waits, 0.50),
+        "queue_wait_p95_ms": _pctile(waits, 0.95),
+        "result_cache": rc,
+    }
+
+
+def _summarize_cse(events: List[dict]) -> Optional[dict]:
+    """Roll up the multi-query-optimization deltas (serve/mqo.py) — ``cse_hoisted``/``template_hits``
+    ride each serve record only when ``config.cse_enable`` is on, and
+    query events stamped ``cache="template_hit"`` prove the zero
+    optimize/trace steady state. None when no record carries either
+    (CSE off, or a log from before CSE), so such summaries render
+    byte-identically."""
+    sv = [e for e in events if e.get("kind") == "serve"
+          and ("cse_hoisted" in e or "template_hits" in e)]
+    tpl_q = sum(1 for e in events if e.get("kind") == "query"
+                and e.get("cache") == "template_hit")
+    if not sv and not tpl_q:
+        return None
+    return {
+        "batches": len(sv),
+        "hoisted": sum(int(e.get("cse_hoisted") or 0) for e in sv),
+        "template_hits": sum(int(e.get("template_hits") or 0)
+                             for e in sv),
+        "template_hit_queries": tpl_q,
+    }
+
+
+def _summarize_spill(events: List[dict]) -> Optional[dict]:
+    """Roll up the ``spill`` records (serve/spill.py;
+    serve/spill.py): demotion/promotion traffic by tier, the
+    measured transfer bytes/ms per leg (the drift loop's raw feed),
+    and the save_state/restore lifecycle. None when the log carries
+    no spill traffic — a pre-durability (or ``spill_enable=False``)
+    log renders byte-identically."""
+    sp = [e for e in events if e.get("kind") == "spill"]
+    if not sp:
+        return None
+    out = {"demoted": 0, "aged_to_disk": 0, "promoted": {},
+           "legs": {}, "save_states": 0, "restores": 0,
+           "restored_entries": 0}
+    for e in sp:
+        op = e.get("op")
+        if op == "demote":
+            out["demoted"] += 1
+            out["aged_to_disk"] += int(e.get("aged_to_disk") or 0)
+        elif op == "promote":
+            t = str(e.get("tier") or "?")
+            out["promoted"][t] = out["promoted"].get(t, 0) + 1
+        elif op == "save_state":
+            out["save_states"] += 1
+        elif op == "restore":
+            out["restores"] += 1
+            out["restored_entries"] += int(e.get("rc_entries") or 0)
+        for leg in e.get("legs") or ():
+            if not isinstance(leg, dict):
+                continue
+            row = out["legs"].setdefault(
+                str(leg.get("leg") or "?"), {"n": 0, "bytes": 0.0,
+                                             "ms": 0.0})
+            row["n"] += 1
+            row["bytes"] += float(leg.get("bytes") or 0.0)
+            row["ms"] += float(leg.get("ms") or 0.0)
+    return out
+
+
+def _summarize_lockdep(events: List[dict]) -> Optional[dict]:
+    """Roll up runtime-lockdep diagnostics (utils/lockdep.py;
+    utils/lockdep.py) — ``lockdep`` records ride the obs funnel
+    only when ``config.lockdep_enable`` armed the sanitizer, so None
+    (and a byte-identical summary) on every default-config log. Any
+    recorded inversion/self-deadlock flips ``--summary --check`` to
+    exit 1: a lock-order violation in a capture log is a latent
+    deadlock, not a statistic."""
+    lds = [e for e in events if e.get("kind") == "lockdep"]
+    if not lds:
+        return None
+    by_diag: Dict[str, int] = {}
+    locks: Dict[str, int] = {}
+    for e in lds:
+        d = str(e.get("diag") or "?")
+        by_diag[d] = by_diag.get(d, 0) + 1
+        for key in ("lock", "held"):
+            if e.get(key):
+                locks[str(e[key])] = locks.get(str(e[key]), 0) + 1
+    inversions = (by_diag.get("inversion", 0)
+                  + by_diag.get("self_deadlock", 0))
+    return {
+        "diagnostics": len(lds),
+        "by_diag": by_diag,
+        "inversions": inversions,
+        "locks": locks,
+        "last_msg": str(lds[-1].get("msg") or ""),
+    }
+
+
+def _summarize_resilience(events: List[dict], n_queries: int) -> dict:
+    """Roll up ``fault``/``retry``/``degrade`` records (the resilience
+    layer's event kinds) into the rates the serve
+    plane's health is judged by: how often queries fault, how often a
+    retry saves one, and which degradation rungs are being climbed —
+    a rising rung census is a cost-model/kernel regression wearing a
+    recovery mechanism's clothes."""
+    faults = [e for e in events if e.get("kind") == "fault"]
+    retries = [e for e in events if e.get("kind") == "retry"]
+    degrades = [e for e in events if e.get("kind") == "degrade"]
+    rungs: Dict[str, int] = {}
+    for e in degrades:
+        lbl = str(e.get("rung_label") or e.get("rung") or "?")
+        rungs[lbl] = rungs.get(lbl, 0) + 1
+    sites: Dict[str, int] = {}
+    for e in faults:
+        s = str(e.get("site") or e.get("error") or "?")
+        sites[s] = sites.get(s, 0) + 1
+    return {
+        "faults": len(faults),
+        "injected": sum(1 for e in faults if e.get("injected")),
+        "retries": len(retries),
+        "bisects": sum(1 for e in retries
+                       if e.get("scope") == "serve_bisect"),
+        "degrades": len(degrades),
+        "retry_rate": (round(len(retries) / n_queries, 3)
+                       if n_queries else None),
+        "rungs": rungs,
+        "fault_sites": sites,
+    }
+
+
+def _summarize_cost_model(events: List[dict]) -> Optional[dict]:
+    """Cost-model loop roll-up (serve/replan.py): how many
+    planner decisions ranked by measured coefficients vs the analytic
+    closed forms, the coefficient epoch the log ends on, and the
+    re-plan rounds the drift controller actioned. None when the log
+    carries no cost-model signal at all (coeff planner off — the
+    roll-up key is absent, not zeroed, so default-config reports are
+    bit-identical to a log without the loop)."""
+    counts: Dict[str, int] = {}
+    epoch = None
+    for e in events:
+        if e.get("kind") != "query":
+            continue
+        if e.get("coeff_epoch"):
+            epoch = e["coeff_epoch"]
+        for d in e.get("matmuls") or ():
+            c = d.get("cost")
+            if c:
+                counts[c] = counts.get(c, 0) + 1
+    replans = [e for e in events if e.get("kind") == "replan"]
+    if not counts and epoch is None and not replans:
+        return None
+    rewarmed = sum(int(e.get("replanned") or 0) for e in replans)
+    out = {"measured": counts.get("measured", 0),
+           "analytic": counts.get("analytic", 0),
+           "epoch": epoch,
+           "replans": len(replans),
+           "rewarmed": rewarmed}
+    if replans:
+        last = replans[-1]
+        out["last_replan"] = {"classes": last.get("classes"),
+                              "epoch": last.get("epoch")}
+    return out
+
+
+def _summarize_ivm(events: List[dict]) -> Optional[dict]:
+    """Roll up ``delta`` records (one per session.register_delta —
+    serve/ivm.py) into the incremental-view-maintenance
+    headline: how many cached entries were patched in place vs killed
+    (the historical behaviour), how often a compiled patch plan was
+    REUSED with rebound leaves (the steady-state stream path), the
+    per-rule census, and the modelled FLOPs the patches avoided.
+    Per-record fields are per-generation deltas, so summing is correct
+    across sessions (the serve roll-up's discipline). None when the
+    delta plane was never used — the summary stays byte-identical for
+    historical logs."""
+    dv = [e for e in events if e.get("kind") == "delta"]
+    if not dv:
+        return None
+    rules: Dict[str, int] = {}
+    patched = killed = rekeyed = priced_out = reused = 0
+    saved = 0.0
+    names: Dict[str, int] = {}
+    for e in dv:
+        patched += int(e.get("patched") or 0)
+        killed += int(e.get("killed") or 0)
+        rekeyed += int(e.get("rekeyed") or 0)
+        priced_out += int(e.get("priced_out") or 0)
+        reused += int(e.get("reused_plans") or 0)
+        saved += float(e.get("est_saved_flops") or 0.0)
+        names[str(e.get("name") or "?")] = \
+            names.get(str(e.get("name") or "?"), 0) + 1
+        for r, n in (e.get("rules") or {}).items():
+            rules[r] = rules.get(r, 0) + int(n)
+    examined = patched + killed
+    return {
+        "registers": len(dv),
+        "patched": patched,
+        "killed": killed,
+        "priced_out": priced_out,
+        "rekeyed": rekeyed,
+        "reused_plans": reused,
+        "patch_rate": (round(patched / examined, 3) if examined
+                       else None),
+        "est_saved_gflops": round(saved / 1e9, 3),
+        "rules": rules,
+        "names": names,
+    }
+
+
+def _summarize_fleet(events: List[dict]) -> Optional[dict]:
+    """Multi-slice fleet roll-up (serve/fleet.py): placement census
+    from the per-submission ``placement`` records, lifecycle counts
+    from ``fleet`` records, and a PER-SLICE query/serve breakdown
+    from the slice tags every slice session stamps on its events.
+    None when the log carries no fleet traffic — the summary stays
+    byte-identical for single-controller logs."""
+    placements = [e for e in events if e.get("kind") == "placement"]
+    fleet_evs = [e for e in events if e.get("kind") == "fleet"]
+    tagged = [e for e in events
+              if e.get("kind") == "query" and e.get("slice")
+              is not None]
+    if not placements and not fleet_evs and not tagged:
+        return None
+    routed: Dict[str, int] = {}
+    coeff: Dict[str, int] = {}
+    for e in placements:
+        r = str(e.get("routed") or "?")
+        routed[r] = routed.get(r, 0) + 1
+        c = str(e.get("coeff_source") or "?")
+        coeff[c] = coeff.get(c, 0) + 1
+    slices: Dict[str, dict] = {}
+    for e in tagged:
+        s = slices.setdefault(str(e["slice"]),
+                              {"queries": 0, "rc_hits": 0,
+                               "execute_ms": 0.0})
+        s["queries"] += 1
+        if e.get("cache") == "rc_hit":
+            s["rc_hits"] += 1
+        if isinstance(e.get("execute_ms"), (int, float)):
+            s["execute_ms"] += e["execute_ms"]
+    lifecycle: Dict[str, int] = {}
+    for e in fleet_evs:
+        k = str(e.get("event") or "?")
+        lifecycle[k] = lifecycle.get(k, 0) + 1
+    return {
+        "placements": len(placements),
+        "routed": routed,
+        "coeff_sources": coeff,
+        "directory_hits": routed.get("directory", 0)
+        + routed.get("directory_remote", 0),
+        "remote_hits": routed.get("directory_remote", 0),
+        "lifecycle": lifecycle,
+        "slices": slices,
+    }
+
+
+def _summarize_alerts(events: List[dict]) -> Optional[dict]:
+    """Roll up ``alert`` records (SLO burn-rate alert TRANSITIONS —
+    obs/slo.py fire/clear edges) into the per-tenant SLO view: alert
+    counts, last-known state per (tenant, objective), the last
+    reported attainment (worst across a tenant's objectives), and the
+    un-cleared set — what ``history --summary --check`` (and `make
+    obs-report`) exits nonzero on. None when no alert ever fired —
+    historical logs summarize byte-identically."""
+    al = [e for e in events if e.get("kind") == "alert"]
+    if not al:
+        return None
+    last: Dict[tuple, dict] = {}
+    fired_by_tenant: Dict[str, int] = {}
+    fired = cleared = 0
+    for e in al:
+        tenant = str(e.get("tenant") or "?")
+        last[(tenant, str(e.get("objective") or "?"))] = e
+        if e.get("state") == "firing":
+            fired += 1
+            fired_by_tenant[tenant] = \
+                fired_by_tenant.get(tenant, 0) + 1
+        elif e.get("state") == "clear":
+            cleared += 1
+    tenants: Dict[str, dict] = {}
+    for (t, o), e in sorted(last.items()):
+        row = tenants.setdefault(
+            t, {"fired": fired_by_tenant.get(t, 0),
+                "attainment": None, "objectives": {}})
+        row["objectives"][o] = str(e.get("state") or "?")
+        att = e.get("attainment")
+        if isinstance(att, (int, float)):
+            row["attainment"] = (att if row["attainment"] is None
+                                 else min(row["attainment"], att))
+    uncleared = [f"{t}:{o}" for (t, o), e in sorted(last.items())
+                 if e.get("state") == "firing"]
+    return {"events": len(al), "fired": fired, "cleared": cleared,
+            "uncleared": uncleared, "tenants": tenants}
+
+
+def _summarize_overload(events: List[dict]) -> Optional[dict]:
+    """Roll up ``overload`` records (one per admission cycle while the
+    control plane is active — serve/pipeline.py)
+    into the numbers saturation is judged by: per-tenant shed rate and
+    p99 queue wait, the brownout rung census, and breaker
+    open/half-open/close transition counts. Shed/purge/transition
+    fields on each record are PER-CYCLE DELTAS (the serve roll-up's
+    multi-session discipline), so summing them is correct across
+    sessions; rung/depth fields are instantaneous."""
+    ov = [e for e in events if e.get("kind") == "overload"]
+    if not ov:
+        return None
+    rungs: Dict[str, int] = {}
+    tenants: Dict[str, dict] = {}
+    trans = {"open": 0, "half_open": 0, "close": 0}
+    purged = stale = misses = 0
+    for e in ov:
+        rungs[str(e.get("rung", 0))] = \
+            rungs.get(str(e.get("rung", 0)), 0) + 1
+        purged += int(e.get("purged_expired") or 0)
+        stale += int(e.get("stale_served") or 0)
+        misses += int(e.get("deadline_misses") or 0)
+        for t, n in (e.get("admitted") or {}).items():
+            row = tenants.setdefault(
+                t, {"admitted": 0, "sheds": 0, "waits": []})
+            row["admitted"] += int(n)
+        for t, n in (e.get("sheds") or {}).items():
+            row = tenants.setdefault(
+                t, {"admitted": 0, "sheds": 0, "waits": []})
+            row["sheds"] += int(n)
+        for t, ws in (e.get("tenant_waits_ms") or {}).items():
+            row = tenants.setdefault(
+                t, {"admitted": 0, "sheds": 0, "waits": []})
+            row["waits"].extend(float(w) for w in ws
+                                if isinstance(w, (int, float)))
+        br = e.get("breakers") or {}
+        for k, n in (br.get("transitions") or {}).items():
+            if k in trans:
+                trans[k] += int(n)
+    out_tenants: Dict[str, dict] = {}
+    for t, row in tenants.items():
+        seen = row["admitted"] + row["sheds"]
+        waits = sorted(row["waits"])
+        out_tenants[t or "(default)"] = {
+            "admitted": row["admitted"],
+            "sheds": row["sheds"],
+            "shed_rate": (round(row["sheds"] / seen, 3) if seen
+                          else None),
+            "queue_wait_p99_ms": _pctile(waits, 0.99),
+        }
+    last_br = (ov[-1].get("breakers") or {})
+    return {
+        "cycles": len(ov),
+        "rungs": rungs,
+        "max_rung": max((int(e.get("rung") or 0) for e in ov),
+                        default=0),
+        "tenants": out_tenants,
+        "purged_expired": purged,
+        "stale_served": stale,
+        "deadline_misses": misses,
+        "breaker_transitions": trans,
+        "breakers_open_now": last_br.get("open") or [],
+    }
+
+
+def render_summary(events: List[dict]) -> str:
+    s = summarize(events)
+    lines = [
+        f"queries: {s['queries']}  cache hit rate: "
+        f"{_fmt(s['cache_hit_rate'], 3)}  "
+        f"(evicted: {s['plan_cache'].get('evicted', 0)})",
+        f"execute_ms: total {_fmt(s['execute_ms_total'])}  "
+        f"mean {_fmt(s['execute_ms_mean'])}",
+        f"other events: bench={s['bench_runs']} soak={s['soak_runs']} "
+        f"verify={s['verify_runs']}"
+        + (f" ({s['verify_diagnostics']} diagnostic(s))"
+           if s["verify_diagnostics"] else "")
+        + (f" spans={s['span_count']}" if s.get("span_count") else ""),
+    ]
+    for metric, err in sorted((s.get("bench_errors") or {}).items()):
+        lkg = err.get("last_known_good") or {}
+        lines.append(
+            f"LAST BENCH ERROR [{metric}]: {err['error']}"
+            + (f" (last known good: {lkg.get('tflops', lkg)})"
+               if lkg else ""))
+    pq = s.get("phase_quantiles") or {}
+    if pq:
+        lines.append("")
+        header = (f"{'query kind':<14}{'n':>5}"
+                  f"{'opt p50/p95':>16}{'trace p50/p95':>16}"
+                  f"{'exec p50/p95':>16}")
+        lines += [header, "-" * len(header)]
+        for kind in sorted(pq):
+            q = pq[kind]
+            cells = "".join(
+                f"{_fmt(q[f]['p50'])}/{_fmt(q[f]['p95'])}".rjust(16)
+                for f in ("optimize_ms", "trace_ms", "execute_ms"))
+            lines.append(f"{kind:<14}{q['count']:>5}{cells} ms")
+    rs = s.get("resilience") or {}
+    if rs.get("faults") or rs.get("retries") or rs.get("degrades"):
+        line = (f"resilience: {rs['faults']} fault(s) "
+                f"({rs['injected']} injected), {rs['retries']} "
+                f"retrie(s) (rate {_fmt(rs['retry_rate'], 3)}), "
+                f"{rs['degrades']} degrade(s)")
+        if rs.get("bisects"):
+            line += f", {rs['bisects']} serve bisection(s)"
+        if rs.get("rungs"):
+            line += "; rungs: " + ", ".join(
+                f"{k}={v}" for k, v in sorted(rs["rungs"].items()))
+        if rs.get("fault_sites"):
+            line += "; sites: " + ", ".join(
+                f"{k}={v}" for k, v in sorted(
+                    rs["fault_sites"].items()))
+        lines.append(line)
+    fl = s.get("fleet")
+    if fl:
+        line = (f"fleet: {fl['placements']} placement(s)"
+                + ("; routed: " + ", ".join(
+                    f"{k}={v}" for k, v in sorted(fl["routed"].items()))
+                   if fl["routed"] else "")
+                + (f"; {fl['directory_hits']} directory hit(s) "
+                   f"({fl['remote_hits']} remote)"
+                   if fl["directory_hits"] else ""))
+        if fl.get("coeff_sources"):
+            line += "; coeffs: " + ", ".join(
+                f"{k}={v}"
+                for k, v in sorted(fl["coeff_sources"].items()))
+        if fl.get("lifecycle"):
+            line += "; events: " + ", ".join(
+                f"{k}={v}"
+                for k, v in sorted(fl["lifecycle"].items()))
+        lines.append(line)
+        if fl.get("slices"):
+            header = (f"{'slice':<8}{'queries':>9}{'rc hits':>9}"
+                      f"{'exec ms':>11}")
+            lines += [header, "-" * len(header)]
+            for sid in sorted(fl["slices"]):
+                d = fl["slices"][sid]
+                lines.append(
+                    f"{sid:<8}{d['queries']:>9}{d['rc_hits']:>9}"
+                    f"{_fmt(d['execute_ms']):>11}")
+    ov = s.get("overload")
+    if ov:
+        line = (f"overload: {ov['cycles']} cycle(s), max rung "
+                f"{ov['max_rung']}; rungs: " + ", ".join(
+                    f"{k}={v}" for k, v in sorted(ov["rungs"].items()))
+                + f"; purged {ov['purged_expired']} expired, "
+                  f"{ov['stale_served']} stale-served, "
+                  f"{ov['deadline_misses']} deadline miss(es)")
+        bt = ov.get("breaker_transitions") or {}
+        if any(bt.values()) or ov.get("breakers_open_now"):
+            line += ("; breakers: " + ", ".join(
+                f"{k}={v}" for k, v in sorted(bt.items())))
+            if ov.get("breakers_open_now"):
+                line += (" (open now: "
+                         + ", ".join(ov["breakers_open_now"]) + ")")
+        lines.append(line)
+        if ov.get("tenants"):
+            # SLO-attainment + alert-count columns ride
+            # the per-tenant roll-up, sourced from the `alert` events
+            al = s.get("alerts") or {}
+            al_t = al.get("tenants") or {}
+            header = (f"{'tenant':<14}{'admitted':>9}{'sheds':>7}"
+                      f"{'shed rate':>11}{'wait p99':>10}"
+                      f"{'slo attain':>12}{'alerts':>8}")
+            lines += [header, "-" * len(header)]
+            for t in sorted(ov["tenants"]):
+                d = ov["tenants"][t]
+                a = al_t.get(t, {})
+                lines.append(
+                    f"{t:<14}{d['admitted']:>9}{d['sheds']:>7}"
+                    f"{_fmt(d['shed_rate'], 3):>11}"
+                    f"{_fmt(d['queue_wait_p99_ms']):>7} ms"
+                    f"{_fmt(a.get('attainment'), 4):>12}"
+                    f"{_fmt(a.get('fired') if a else None):>8}")
+    al = s.get("alerts")
+    if al:
+        line = (f"slo alerts: {al['fired']} fired / {al['cleared']} "
+                f"cleared")
+        if al["uncleared"]:
+            line += ("; UNCLEARED: " + ", ".join(al["uncleared"])
+                     + " (--check exits nonzero)")
+        lines.append(line)
+    ivm = s.get("ivm")
+    if ivm:
+        lines.append(
+            f"ivm: {ivm['registers']} delta(s), {ivm['patched']} "
+            f"patched / {ivm['killed']} killed "
+            f"({ivm['priced_out']} priced out; patch rate "
+            f"{_fmt(ivm['patch_rate'], 3)}), {ivm['reused_plans']} "
+            f"plan reuse(s), {ivm['rekeyed']} rekeyed, est saved "
+            f"{_fmt(ivm['est_saved_gflops'])} GFLOPs"
+            + ("; rules: " + ", ".join(
+                f"{k}={v}" for k, v in sorted(ivm["rules"].items()))
+               if ivm.get("rules") else ""))
+    sv = s.get("serve") or {}
+    if sv.get("batches"):
+        lines.append(
+            f"serve: {sv['batches']} batch(es), {sv['queries']} "
+            f"queries, QPS {_fmt(sv['qps'])}, result-cache hit ratio "
+            f"{_fmt(sv['rc_hit_ratio'], 3)}, queue wait p50/p95 "
+            f"{_fmt(sv['queue_wait_p50_ms'])}/"
+            f"{_fmt(sv['queue_wait_p95_ms'])} ms"
+            + (f" (rc evicted: {sv['result_cache'].get('evicted', 0)}, "
+               f"invalidated: "
+               f"{sv['result_cache'].get('invalidated', 0)})"
+               if sv.get("result_cache") else ""))
+    cse = s.get("cse")
+    if cse:
+        lines.append(
+            f"mqo: {cse['hoisted']} interior(s) hoisted over "
+            f"{cse['batches']} batch(es), {cse['template_hits']} "
+            f"template rebind(s), {cse['template_hit_queries']} "
+            f"zero-optimize quer(ies)")
+    sp = s.get("spill")
+    if sp:
+        line = (f"spill: {sp['demoted']} demotion(s) "
+                f"({sp['aged_to_disk']} aged to disk)"
+                + ("; promoted: " + ", ".join(
+                    f"{k}={v}"
+                    for k, v in sorted(sp["promoted"].items()))
+                   if sp["promoted"] else ""))
+        if sp.get("legs"):
+            line += "; legs: " + ", ".join(
+                f"{k}={v['n']}x{_fmt(v['bytes'] / (1 << 20))}MiB/"
+                f"{_fmt(v['ms'])}ms"
+                for k, v in sorted(sp["legs"].items()))
+        if sp.get("save_states") or sp.get("restores"):
+            line += (f"; durability: {sp['save_states']} "
+                     f"save_state(s), {sp['restores']} restore(s)")
+            if sp.get("restored_entries"):
+                line += (f" ({sp['restored_entries']} entr(ies) "
+                         f"rethawable)")
+        lines.append(line)
+    cmod = s.get("cost_model")
+    if cmod:
+        line = (f"cost model: {cmod['measured']} measured / "
+                f"{cmod['analytic']} analytic decision(s)")
+        if cmod.get("epoch"):
+            line += f", epoch {cmod['epoch']}"
+        if cmod.get("replans"):
+            line += (f", {cmod['replans']} re-plan round(s) "
+                     f"({cmod['rewarmed']} plan(s) re-warmed)")
+            lr = cmod.get("last_replan") or {}
+            if lr.get("classes"):
+                line += ("; last: classes "
+                         + ", ".join(lr["classes"])
+                         + f" -> epoch {lr.get('epoch')}")
+        lines.append(line)
+    ld = s.get("lockdep")
+    if ld:
+        diags = ", ".join(f"{k}: {v}"
+                          for k, v in sorted(ld["by_diag"].items()))
+        lines.append(
+            f"lockdep: {ld['diagnostics']} diagnostic(s) "
+            f"({diags}), {ld['inversions']} order inversion(s)"
+            + (" — LATENT DEADLOCK (--check exits nonzero)"
+               if ld["inversions"] else ""))
+    if s["strategies"]:
+        lines.append("")
+        header = (f"{'strategy':<12}{'matmuls':>8}{'GFLOPs':>10}"
+                  f"{'est ICI MiB':>13}")
+        lines += [header, "-" * len(header)]
+        for name in sorted(s["strategies"],
+                           key=lambda k: -s["strategies"][k]["count"]):
+            d = s["strategies"][name]
+            line = (f"{name:<12}{d['count']:>8}"
+                    f"{d['flops'] / 1e9:>10.2f}"
+                    f"{d['est_ici_bytes'] / 2**20:>13.2f}")
+            if ("est_axis_bytes_x" in d) or ("est_axis_bytes_y" in d):
+                line += (f"  axes x/y: "
+                         f"{d.get('est_axis_bytes_x', 0.0) / 2**20:.2f}/"
+                         f"{d.get('est_axis_bytes_y', 0.0) / 2**20:.2f}"
+                         f" MiB")
+            if d.get("est_saved_flops") or d.get("est_saved_hbm_bytes"):
+                line += (f"  saved: {d.get('est_saved_flops', 0) / 1e9:.2f}"
+                         f" GFLOPs / "
+                         f"{d.get('est_saved_hbm_bytes', 0) / 2**20:.1f}"
+                         f" MiB HBM")
+            lines.append(line)
+    if s.get("precision_tiers"):
+        lines.append("")
+        lines.append("precision tiers: " + ", ".join(
+            f"{t}={d['count']} ({d['passes']} passes)"
+            for t, d in sorted(s["precision_tiers"].items())))
+    fus = s.get("fusion")
+    if fus:
+        lines.append(
+            f"fusion: {fus['regions']} region(s) over "
+            f"{fus['queries']} query(ies) ["
+            + ", ".join(f"{k}={v}"
+                        for k, v in sorted(fus["census"].items()))
+            + f"], est saved {fus['est_saved_dispatches']} "
+              f"dispatch(es) / "
+              f"{fus['est_saved_hbm_bytes'] / 2**20:.2f} MiB HBM")
+    if s.get("spgemm_kernels"):
+        lines.append("")
+        lines.append("spgemm kernels: " + ", ".join(
+            f"{k}={d['count']}"
+            + (f" ({d['measured']} measured)" if d.get("measured")
+               else "")
+            + (" [" + ", ".join(
+                f"{sc}={n}" for sc, n in sorted(
+                    d["structures"].items())) + "]"
+               if d.get("structures") else "")
+            for k, d in sorted(s["spgemm_kernels"].items())))
+    rsh = s.get("reshards")
+    if rsh:
+        lines.append(
+            f"reshards: {rsh['matmuls']} staged matmul move(s) ("
+            + ", ".join(f"{k}={v}"
+                        for k, v in sorted(rsh["steps"].items()))
+            + f"), bytes x/y {rsh['bytes_x'] / 2**20:.2f}/"
+              f"{rsh['bytes_y'] / 2**20:.2f} MiB, "
+              f"peak {rsh['peak_bytes'] / 2**20:.2f} MiB/device")
+    if s["rule_hits"]:
+        lines.append("")
+        lines.append("rewrite-rule hits: " + ", ".join(
+            f"{k}={v}" for k, v in sorted(s["rule_hits"].items())))
+    return "\n".join(lines)
+
+
+def main(args) -> int:
+    """CLI backend for ``python -m matrel_tpu_torch history``. Path
+    precedence matches the writers: ``--log`` beats
+    ``$MATREL_OBS_EVENT_LOG`` beats the cwd default — so the reader
+    aimed at a host follows the same env var its tools emit under."""
+    import os
+    path = resolve_path(args.log or os.environ.get("MATREL_OBS_EVENT_LOG"))
+    events = read_events(path)
+    if not events and not getattr(args, "drift", False):
+        print(f"no events in {path}")
+        return 0
+    print(f"# {len(events)} event(s) in {path}")
+    if getattr(args, "drift", False):
+        # the cost-model drift auditor (obs/drift.py): calibration
+        # ratios + rank-order flags, table persisted next to the
+        # autotune tables. --check turns the flags into an exit code
+        # so a CI gate reads drift instead of a human reading the
+        # table
+        from matrel_tpu_torch.obs import drift
+        text, flags = drift.audit(
+            events,
+            table_path_str=getattr(args, "drift_table", None),
+            persist=not getattr(args, "no_save", False))
+        print(text)
+        if getattr(args, "check", False) and flags:
+            print(f"DRIFT CHECK FAILED: {len(flags)} rank-order "
+                  f"flag(s) — the planner prefers a strategy that "
+                  f"measures slower")
+            return 1
+    elif getattr(args, "coeffs", False):
+        # the cost-model loop view (serve/replan.py):
+        # rank-order flags the log's samples support, each paired with
+        # whether a later `replan` event actioned it. --check turns a
+        # firing-but-UNACTIONED flag into a nonzero exit: the drift
+        # controller either is not running (coeff_replan_enable off
+        # while drift fires) or is wedged — either way the loop is
+        # open and a report must not read green over it
+        from matrel_tpu_torch.obs import drift
+        flags = drift.rank_flags(list(drift.iter_samples(events)))
+        actioned = set()
+        for e in events:
+            if e.get("kind") != "replan":
+                continue
+            for fl in e.get("flags") or ():
+                actioned.add((fl.get("class"), fl.get("backend")))
+        cmod = _summarize_cost_model(events) or {}
+        print(f"cost model: {cmod.get('measured', 0)} measured / "
+              f"{cmod.get('analytic', 0)} analytic decision(s), "
+              f"epoch {cmod.get('epoch')}, "
+              f"{cmod.get('replans', 0)} re-plan round(s)")
+        unactioned = []
+        for fl in flags:
+            key = (fl["class"], fl["backend"])
+            done = key in actioned
+            if not done:
+                unactioned.append(fl)
+            print(f"  flag [{fl['class']}|{fl['backend']}]: model "
+                  f"prefers {fl['model_prefers']}, measures "
+                  f"{fl['slowdown']}x slower than "
+                  f"{fl['measured_prefers']} "
+                  f"({'actioned' if done else 'UNACTIONED'})")
+        if not flags:
+            print("  no rank-order flags — model agrees with "
+                  "measurement on every sampled population")
+        if getattr(args, "check", False) and unactioned:
+            print(f"COEFF CHECK FAILED: {len(unactioned)} firing "
+                  f"rank-order flag(s) with no re-plan round — the "
+                  f"cost-model loop is open")
+            return 1
+    elif args.summary:
+        print(render_summary(events))
+        if getattr(args, "check", False):
+            # the --drift --check idiom applied to SLO alerts: an
+            # alert whose LAST transition is "firing" means the log
+            # ends mid-incident — a report / CI must not
+            # read green over it
+            al = _summarize_alerts(events)
+            if al and al["uncleared"]:
+                print(f"SLO CHECK FAILED: {len(al['uncleared'])} "
+                      f"un-cleared alert(s): "
+                      + ", ".join(al["uncleared"]))
+                return 1
+            # same idiom for the concurrency sanitizer: a recorded
+            # lock-order inversion is a deadlock that has not
+            # happened YET — a capture log carrying one must fail
+            # the report, not scroll past in the roll-up
+            ld = _summarize_lockdep(events)
+            if ld and ld["inversions"]:
+                print(f"LOCKDEP CHECK FAILED: {ld['inversions']} "
+                      f"lock-order inversion(s) recorded "
+                      f"({ld['last_msg']})")
+                return 1
+    else:
+        print(render_queries(events, last=args.last))
+    return 0

@@ -448,3 +448,92 @@ def render(summary: dict) -> str:
             + (f" [{s['provenance']}]" if s.get("provenance") else "")
             for s in strategies))
     return "\n".join(lines)
+
+
+def _audit_workload(device=None):
+    """A self-contained serve workload covering the replayable paths
+    (fresh execute, whole rc hit, interior substitution, exact int
+    path, rebind + delta patch) on a ledger-enabled session — what
+    ``why --audit`` samples when no live session exists, on ``device``
+    (the card unless the caller asks for another). Small sizes; the
+    fleet and degrade paths need threads and are not in it."""
+    import numpy as np
+
+    from matrel_tpu_torch.config import default_config
+    from matrel_tpu_torch.session import MatrelSession
+
+    cfg = default_config().replace(obs_provenance=64,
+                                   result_cache_max_bytes=1 << 26)
+    sess = MatrelSession(config=cfg, device=device)
+    rng = np.random.default_rng(7)
+    A = sess.from_numpy(rng.standard_normal((48, 64)).astype(np.float32))
+    B = sess.from_numpy(rng.standard_normal((64, 32)).astype(np.float32))
+    adj = (rng.random((32, 32)) < 0.2).astype(np.float32)
+    sess.register("A", sess.from_numpy(adj, integral=True))
+
+    def q_int():
+        return sess.table("A").expr().multiply(
+            sess.table("A").expr())
+
+    # fresh executes (one batch, the int query riding it for the
+    # exact path), the same batch again = whole hits, then a
+    # superexpression = interior substitution
+    batch = [A.expr().multiply(B.expr()),
+             A.expr().multiply(B.expr()).multiply_scalar(2.0),
+             q_int()]
+    sess.run_many(batch)
+    sess.run_many(batch)
+    sess.run(A.expr().multiply(B.expr()).multiply_scalar(3.0))
+    # rebind + delta patch: the patched entry's next
+    # serve is the ivm_patched path, exact (integer counts)
+    rows = rng.integers(0, 32, 5)
+    cols = rng.integers(0, 32, 5)
+    sess.register_delta("A", (rows, cols, np.ones(5, np.float32)),
+                        kind="coo")
+    sess.run(q_int())
+    return sess
+
+
+def main(args) -> int:
+    """``python -m matrel_tpu_torch why`` — render lineage records from
+    the event log, or (``--audit``) drive the self-contained workload on
+    ``--device`` and replay sampled lineages fresh."""
+    if getattr(args, "audit", False):
+        sess = _audit_workload(getattr(args, "device", None))
+        verdict = audit(sess, sample=args.sample)
+        for r in verdict["results"]:
+            status = "ok" if r["ok"] else "FAIL"
+            detail = (f"bit-equal" if r.get("exact")
+                      else f"rel_err {r.get('rel_err', 0.0):.3e} "
+                           f"<= tol {r.get('tol', 0.0):.3e}")
+            if not r["ok"]:
+                detail = r.get(
+                    "error",
+                    f"rel_err {r.get('rel_err', 0.0):.3e} "
+                    f"> tol {r.get('tol', 0.0):.3e}")
+            print(f"audit {r['query_id']} [{r['path']}] "
+                  f"{status}: {detail}")
+        print(f"audit: {verdict['sampled']} sampled, "
+              f"{verdict['failed']} failed, "
+              f"{verdict['skipped_no_expr']} unreplayable"
+              f" -> {'OK' if verdict['ok'] else 'FAILED'}")
+        if getattr(args, "check", False):
+            return 0 if verdict["ok"] else 1
+        return 0
+    from matrel_tpu_torch.obs.events import read_events
+    events = read_events(getattr(args, "log", None) or None,
+                         kinds=("provenance",))
+    key = getattr(args, "key", None)
+    if key:
+        events = [e for e in events
+                  if key in e.get("key_hash", "")
+                  or key == e.get("query_id")]
+    last = getattr(args, "last", None) or 10
+    events = events[-last:]
+    if not events:
+        print("no provenance records (is obs_provenance > 0 and "
+              "obs_level != 'off'?)")
+        return 0
+    for e in events:
+        print(render(e))
+    return 0

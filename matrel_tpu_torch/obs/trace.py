@@ -327,3 +327,27 @@ def chrome_trace(events: List[dict], last: Optional[int] = None) -> dict:
             "args": args,
         })
     return {"traceEvents": trace_events, "displayTimeUnit": "ms"}
+
+
+def main(args) -> int:
+    """CLI backend for ``python -m matrel_tpu_torch trace --export
+    chrome``. Path precedence matches ``history``: --log beats
+    $MATREL_OBS_EVENT_LOG beats the cwd default."""
+    from matrel_tpu_torch.obs.events import read_events, resolve_path
+    if args.export != "chrome":
+        print(f"unknown export format {args.export!r} "
+              f"(supported: chrome)")
+        return 2
+    path = resolve_path(args.log or os.environ.get(
+        "MATREL_OBS_EVENT_LOG"))
+    events = read_events(path)
+    doc = chrome_trace(events, last=args.last)
+    out_path = args.out or (path + ".chrome.json")
+    if out_path == "-":
+        print(json.dumps(doc))
+        return 0
+    with open(out_path, "w") as f:
+        json.dump(doc, f)
+    print(json.dumps({"spans": len(doc["traceEvents"]),
+                      "log": path, "out": out_path}))
+    return 0

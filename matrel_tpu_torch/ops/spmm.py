@@ -98,3 +98,10 @@ def _xla_spmm(S, pm, out_pshape, cfg):
 
     return run
 
+
+
+def spmv(S: BlockSparseMatrix, v: BlockMatrix,
+         config: Optional[MatrelConfig] = None) -> BlockMatrix:
+    """Sparse matrix × vector — the PageRank building block (``spmm``
+    with a one-column ``v``)."""
+    return spmm(S, v, config)

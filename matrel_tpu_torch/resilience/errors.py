@@ -16,8 +16,7 @@ Every resilience-surface error is typed: callers catch
 ``PipelineClosed`` by class. The classes, their messages and the
 classification are the JAX package's, with the device runtime's failure
 vocabulary replaced by the CUDA runtime's: out of memory is the only
-transient runtime error that was not injected. The fleet's error type
-is added with the fleet.
+transient runtime error that was not injected.
 """
 
 from __future__ import annotations
@@ -122,6 +121,24 @@ class AdmissionShed(ResilienceError):
                    f"pending){who}; submission shed — retry later or "
                    f"raise config.serve_queue_max")
         super().__init__(msg)
+
+
+class FleetSliceLost(ResilienceError):
+    """A serving slice died (or was killed) with this query queued on
+    it and the fleet could not re-admit it elsewhere: failover is off
+    (``config.fleet_failover=False``), no surviving slice exists, or
+    the query's leaves could not be rebound onto a survivor's catalog.
+    The refusal is typed: the caller knows the answer was never
+    computed (``serve/fleet.py``)."""
+
+    def __init__(self, slice_id: int, detail: str = ""):
+        self.slice_id = slice_id
+        self.detail = detail
+        super().__init__(
+            f"serving slice {slice_id} lost"
+            + (f": {detail}" if detail else "")
+            + " — query could not be re-admitted onto a surviving "
+              "slice")
 
 
 class CircuitOpen(ResilienceError):

@@ -271,6 +271,26 @@ class AdmissionQueue:
             if self.unfinished_tasks <= 0:
                 self.all_tasks_done.notify_all()
 
+    def steal_entries(self) -> list:
+        """Remove and return every queued entry as ``(entry, tenant)``
+        pairs — the dead/wedged-slice failover surface
+        (``serve/fleet.py``): the fleet re-admits them onto surviving
+        slices with futures, deadlines and tenants intact. The stolen
+        entries' unfinished-task counts are released (their completion
+        is another queue's business now), so a drain of the dead
+        pipeline never waits on work that moved."""
+        with self._lock:
+            out = []
+            for key, dq in self._queues.items():
+                while dq:
+                    out.append((dq.popleft(), key))
+            self._size = 0
+            self.unfinished_tasks = max(
+                self.unfinished_tasks - len(out), 0)
+            if self.unfinished_tasks <= 0:
+                self.all_tasks_done.notify_all()
+            return out
+
     # -- observability -----------------------------------------------------
 
     def qsize(self) -> int:

@@ -253,6 +253,21 @@ class ServePipeline:
         finally:
             self._stop.set()
 
+    def readmit_entry(self, entry, tenant: str) -> None:
+        """Fleet-failover seam (``serve/fleet.py`` is the one caller):
+        enqueue an already-built entry under the same closed-check +
+        enqueue + worker-ensure atomicity ``submit`` keeps, so a stolen
+        future re-admitted into a pipeline a concurrent ``close()`` just
+        flipped refuses typed instead of stranding in a workerless
+        queue. Raises ``PipelineClosed`` / ``AdmissionShed``."""
+        with self._lock:
+            if self._closed:
+                raise PipelineClosed(
+                    "re-admission after close(): the admission "
+                    "worker is stopped")
+            self._q.put(entry, tenant)
+            self._ensure_worker()
+
     @property
     def closed(self) -> bool:
         return self._closed

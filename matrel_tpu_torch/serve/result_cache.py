@@ -121,8 +121,9 @@ class CacheEntry:
       provenance ledger's seams (``obs/provenance.py``); None while
       ``obs_provenance`` is off.
     fleet: multi-slice provenance of an entry replicated from another
-      slice's cache (the fleet is not ported: always None here; MV114
-      reads it).
+      slice's cache (``serve/fleet.py``'s hot-entry replication writes
+      ``{"owner", "layout", "dtype"}``; MV114 reads it). None for an
+      entry computed where it lives.
     hits: lifetime consult count of this entry — the expected-reuse
       signal the spill policy's host→disk gate reads
       (``config.spill_disk_hits``).

@@ -21,14 +21,15 @@ Two jobs, one seam:
   session's learned state — catalog bindings (the checkpoint step
   format, ``utils/checkpoint.py``), the result-cache index (every entry
   with a catalog-name computable key, written as disk-tier artifacts),
-  the MQO template keys and the autotune / drift tables — so a restarted
+  the fleet directory's demand hints, the MQO template keys and the
+  autotune / drift tables — so a restarted
   ``MatrelSession.restore()`` comes back serving warm: restored entries
   sit in a name-keyed index (``placement.fleet_key``'s
   session-independent token format — raw structural keys embed ``id()``s
   and mean nothing across processes) and thaw lazily on first consult,
   with dep NAMES re-resolved against the live catalog so invalidation
-  keeps working. The fleet is not ported, so the snapshot's fleet record
-  is empty (None), as the JAX package writes for a session without one.
+  keeps working. The fleet's records are name-keyed too, so one
+  package's snapshot seeds the other's fleet directory.
 
 Artifacts are the JAX package's ``.npy`` files; a bfloat16 result is
 stored as its raw 16-bit patterns (``|V2``, what numpy writes for an
@@ -700,10 +701,17 @@ def save_state(session, directory: Optional[str] = None) -> dict:
 
 
 def _export_fleet(session):
-    """The fleet directory's records. The fleet is not ported, so there
-    are none: None, what the JAX package writes for a session without a
-    fleet."""
-    return None
+    """Name-keyed fleet-directory records, or None without a fleet.
+    Affinity hints only: a restored directory warms routing, it proves
+    nothing (``serve/fleet.py``)."""
+    if session._fleet is None:
+        return None
+    try:
+        return session._fleet.export_directory()
+    except Exception:
+        _log.warning("save_state: fleet directory not exported",
+                     exc_info=True)
+        return None
 
 
 def _export_templates(session):
@@ -851,10 +859,22 @@ def _restore_tables(config, tables: dict) -> list:
 
 
 def _restore_fleet(session, records) -> int:
-    """Fleet records seed nothing: the fleet is not ported (its knobs
-    stay fenced), so a snapshot from a fleet session restores without
-    its affinity hints — they are hints, never a correctness surface."""
-    return 0
+    """Seed a fleet session's directory with a snapshot's demand hints
+    (building the fleet if it is not yet); a session without
+    ``fleet_slices`` seeds nothing."""
+    if not records or session.config.fleet_slices < 1:
+        return 0
+    try:
+        fleet = session._ensure_fleet()
+    except Exception:
+        _log.warning("restore: fleet not built", exc_info=True)
+        return 0
+    try:
+        return fleet.seed_directory(records)
+    except Exception:
+        _log.warning("restore: fleet directory not seeded",
+                     exc_info=True)
+        return 0
 
 
 def _restore_templates(session, keys) -> int:

@@ -51,8 +51,14 @@ With every knob at its default ``compute`` is the JAX package's
 production branch: compile (or hit the plan cache) and run, plans and
 results bit-identical to a session without the serve, obs and
 resilience planes — no event is assembled, no span or plane object
-built, no sync added. The fleet is not ported: its knobs raise
-``NotPortedError``.
+built, no sync added.
+
+The multi-slice serving fleet (``fleet_slices`` >= 1; ``serve/fleet.py``)
+turns ``submit`` into a routing decision: per-slice sessions on the
+same card (each its own queue, worker and result cache), a catalog-name
+keyed directory that answers a repeat from any slice's cache, hot-entry
+replication and failover. ``fleet_info`` reports it; with the default 0
+no fleet object is built and ``submit`` is the single-session pipeline.
 ``sql``/``explain_sql`` compile the SQL surface (``sql.py``) into the
 same IR.
 
@@ -172,6 +178,15 @@ class MatrelSession:
             self.config)
         self._slo = slo_lib.from_config(self.config,
                                         emit=self._emit_alert_event)
+        # the multi-slice serving fleet (serve/fleet.py): built lazily on
+        # the first submit when config.fleet_slices >= 1 — None for the
+        # default config (no slice sessions, no directory). _slice_tag
+        # marks THIS session as slice N of a fleet (its obs events carry
+        # the tag); _exec_lock is the fleet's execution lock, shared by
+        # the parent and every slice session (None: plain plan.run)
+        self._fleet = None
+        self._slice_tag: Optional[int] = None
+        self._exec_lock = None
         self._prov = provenance_lib.from_config(self.config)
         # the cost-model re-plan controller (serve/replan.py): turns a
         # firing drift rank-order flag into a re-calibration and a
@@ -237,6 +252,13 @@ class MatrelSession:
     def register(self, name: str, matrix) -> None:
         old = self.catalog.get(name)
         self.catalog[name] = matrix
+        if self._fleet is not None and old is not matrix:
+            # fleet write-through: the table replicates into every
+            # slice, slice caches invalidate through each slice
+            # session's own rebind path, directory records naming it
+            # drop; a re-register of the same object is a no-op here
+            # as below
+            self._fleet.on_register(name, matrix)
         if old is not None and old is not matrix:
             # a catalog REBIND: every cached result computed from the
             # old binding is stale — drop it (dep sets are transitive,
@@ -286,6 +308,12 @@ class MatrelSession:
                 from matrel_tpu_torch.serve.ivm import DeltaPlane
                 self._delta_plane = DeltaPlane(self)
             out = self._delta_plane.apply(name, old, d)
+        if self._fleet is not None:
+            # fleet slices hold REPLICAS of the old binding, which
+            # cannot be patched remotely: re-replicate the new binding
+            # (slice caches and directory records invalidate; a slice
+            # repeat pays one recompute)
+            self._fleet.on_register(name, self.catalog[name])
         # SLO feed: patch latency reports under the pseudo-tenant "ivm"
         # (a no-op without a declared ivm target)
         if self._slo is not None and isinstance(out.get("ms"),
@@ -340,7 +368,8 @@ class MatrelSession:
         """Snapshot this session's durable state — catalog bindings
         (the checkpoint step format), the result-cache index (entries
         with catalog-name-computable keys, frozen as sha1-verified disk
-        artifacts), MQO template keys and the autotune / drift tables —
+        artifacts), the fleet directory's demand hints, MQO template
+        keys and the autotune / drift tables —
         under ``directory`` (default ``config.state_dir``; neither set
         raises ValueError). A later :meth:`restore` in a new process
         comes back serving warm. Without ``spill_enable`` only the
@@ -358,11 +387,12 @@ class MatrelSession:
         the catalog restored through :meth:`register`, tables written if
         absent, the result-cache index seeded into the spill hierarchy's
         restored tier (requires ``spill_enable``; entries thaw lazily on
-        first consult, paying only the priced transfer), MQO template
-        keys re-indexed. A corrupt or truncated snapshot warns and
-        cold-starts — restore never crashes a restart; a disk-tier entry
-        failing its sha1 later is a per-entry miss, never a wrong
-        answer. Returns the restore summary, also emitted as a
+        first consult, paying only the priced transfer), the fleet
+        directory re-seeded as affinity hints (``fleet_slices`` >= 1),
+        MQO template keys re-indexed. A corrupt or truncated snapshot
+        warns and cold-starts — restore never crashes a restart; a
+        disk-tier entry failing its sha1 later is a per-entry miss,
+        never a wrong answer. Returns the restore summary, also emitted as a
         ``spill`` event (op ``restore``)."""
         from matrel_tpu_torch.serve import spill as spill_lib
         with self._compile_lock:
@@ -1028,7 +1058,10 @@ class MatrelSession:
     def _obs_emit(self, kind: str, record: dict) -> None:
         """The one emission funnel for session events AND finished
         spans: the JSONL event log when obs is on, the flight-recorder
-        ring when configured — each independently."""
+        ring when configured — each independently. A fleet slice's
+        records carry its slice id."""
+        if self._slice_tag is not None and "slice" not in record:
+            record = {**record, "slice": self._slice_tag}
         full = None
         if self._obs_enabled():
             full = self._obs_event_log().emit(kind, record)
@@ -1045,20 +1078,25 @@ class MatrelSession:
     def _prov_capture(self, path: str, key: str, sla: str,
                       rung: int = 0, expr=None, result=None, ent=None,
                       executed=None, plan=None, strategies=None,
-                      stale=None) -> Optional[dict]:
+                      fleet=None, stale=None, mesh=None,
+                      config=None) -> Optional[dict]:
         """One lineage record + ``provenance`` event per served answer.
         Callers guard on ``self._prov is not None`` (the off path
         assembles no arguments); a capture failure never fails the
         answer it describes. The record keeps the compile config the
         answer was produced under (SLA + degrade rung), so audit replay
-        reconstructs it."""
+        reconstructs it; a fleet directory hit passes the serving
+        slice's ``mesh`` and ``config`` and its ``fleet`` hop."""
         try:
-            cfg = degrade_lib.apply_rung(self._sla_config(sla), rung)
+            cfg = config if config is not None else \
+                degrade_lib.apply_rung(self._sla_config(sla), rung)
             summary = self._prov.capture(
                 path, key, sla, rung=rung, expr=expr, result=result,
                 ent=ent, executed=executed, plan=plan,
-                strategies=strategies, mesh=self.mesh, config=cfg,
-                stale=stale, coeff_epoch=self._coeff_epoch())
+                strategies=strategies,
+                mesh=mesh if mesh is not None else self.mesh,
+                config=cfg, fleet=fleet, stale=stale,
+                coeff_epoch=self._coeff_epoch())
             self._obs_emit("provenance", summary)
             return summary
         except Exception:
@@ -1388,11 +1426,55 @@ class MatrelSession:
 
     def _arbitrated_run(self, plan, bindings=None):
         """Run one compiled plan (``bindings`` rebinds dense leaves by
-        uid — template hits). The JAX package serialises this under a
-        fleet's execution lock; without a fleet it is ``plan.run``. A
-        sanctioned dispatch point for the lock-order sanitizer."""
+        uid — template hits). Without a fleet this IS ``plan.run``.
+        Under a fleet the parent and every slice share one execution
+        lock (``_exec_lock``) and the plan runs to COMPLETION under it:
+        the card is synchronised before the lock drops, so two slices'
+        programs are never in flight together. Cache hits, planning and
+        admission never come here. A sanctioned dispatch point for the
+        lock-order sanitizer (the fleet lock is declared dispatch_ok)."""
         lockdep.note_dispatch("session.dispatch")
-        return plan.run(bindings=bindings)
+        if self._exec_lock is None:
+            return plan.run(bindings=bindings)
+        with self._exec_lock:
+            out = plan.run(bindings=bindings)
+            if self.mesh.device.type == "cuda":
+                torch.cuda.synchronize(self.mesh.device)
+            return out
+
+    def _emit_placement_event(self, record: dict) -> None:
+        """One ``placement`` record per fleet-routed submission
+        (serve/fleet.py assembles it: mode, routed target, directory
+        outcome, coefficient provenance, the two cost estimates) — the
+        feed for ``history --summary``'s fleet roll-up. Never fails a
+        query."""
+        from matrel_tpu_torch.obs.metrics import REGISTRY
+        try:
+            self._obs_emit("placement", record)
+            REGISTRY.counter(
+                f"fleet.placed.{record.get('routed', '?')}").inc()
+        except Exception:
+            log.warning("obs: placement event dropped", exc_info=True)
+
+    def _emit_fleet_event(self, record: dict) -> None:
+        """One ``fleet`` record per fleet lifecycle event (slice kill /
+        failover, hot-entry migration, priced-out migration), carried
+        with the fleet's census so offline replay can reconstruct its
+        state transitions."""
+        from matrel_tpu_torch.obs.metrics import REGISTRY
+        try:
+            rec = dict(record)
+            if self._fleet is not None:
+                rec["fleet"] = {
+                    "placed": dict(self._fleet.placed),
+                    "failovers": self._fleet.failovers,
+                    "migrations": self._fleet.migrations,
+                }
+            self._obs_emit("fleet", rec)
+            REGISTRY.counter(
+                f"fleet.event.{record.get('event', '?')}").inc()
+        except Exception:
+            log.warning("obs: fleet event dropped", exc_info=True)
 
     def _run_observed(self, e: MatExpr, plan, hit: bool, key: str,
                       tenant: Optional[str] = None, bindings=None,
@@ -1810,13 +1892,21 @@ class MatrelSession:
         past it; a closed pipeline raises ``PipelineClosed``, a full
         queue ``AdmissionShed`` (per-tenant quota first). ``tenant``
         names the tenant for weighted-fair admission
-        (``config.serve_tenant_weights``). The multi-slice fleet is not
-        ported: ``config.fleet_slices`` stays in ``UNPORTED_KNOBS``, so
-        no session reaches here with ``fleet_slices >= 1``."""
+        (``config.serve_tenant_weights``).
+
+        With ``config.fleet_slices >= 1`` the submission routes through
+        the multi-slice serving fleet (``serve/fleet.py``): placement
+        decides slice-local vs spanning execution, the directory answers
+        repeats from any slice's cache, and a dead slice's queue fails
+        over. The default (0) runs the single-session pipeline."""
         e = as_expr(expr)
         if deadline_ms is None and self.config.deadline_ms > 0:
             deadline_ms = self.config.deadline_ms
         sla = self._resolve_sla(precision, e)
+        if self.config.fleet_slices >= 1:
+            return self._ensure_fleet().submit(
+                e, sla, deadline_ms=deadline_ms, tenant=tenant,
+                staleness_ms=staleness_ms)
         return self._submit_pipeline(e, sla, deadline_ms=deadline_ms,
                                      tenant=tenant,
                                      staleness_ms=staleness_ms)
@@ -1831,21 +1921,43 @@ class MatrelSession:
                     self._serve = ServePipeline(self)
         return self._serve
 
+    def _ensure_fleet(self):
+        """This session's (lazily built) fleet controller — built under
+        the lock, as the pipeline is."""
+        if self._fleet is None:
+            from matrel_tpu_torch.serve.fleet import FleetController
+            with self._compile_lock:
+                if self._fleet is None:
+                    self._fleet = FleetController(self)
+        return self._fleet
+
     def _submit_pipeline(self, e: MatExpr, sla: str,
                          deadline_ms: Optional[float] = None,
                          tenant: Optional[str] = None,
                          staleness_ms: Optional[float] = None):
+        """The single-session admission path — also the fleet's SPAN
+        executor (a span-placed query is one program over the full
+        mesh, i.e. exactly this pipeline)."""
         return self._ensure_serve().submit(e, sla,
                                            deadline_ms=deadline_ms,
                                            tenant=tenant,
                                            staleness_ms=staleness_ms)
 
+    def fleet_info(self) -> Optional[dict]:
+        """Fleet snapshot (None when the fleet is off or not yet built):
+        per-slice state, directory counters, placement census,
+        migration and failover counts."""
+        return self._fleet.info() if self._fleet is not None else None
+
     def serve_drain(self, timeout: Optional[float] = None) -> None:
         """Block until every submitted query is dispatched and every
         dispatched batch has finished on the device. ``timeout``
         (seconds) bounds the wait: a wedged worker raises the typed
-        ``DrainTimeout``, the queue untouched."""
+        ``DrainTimeout``, the queue untouched. ONE absolute deadline
+        spans the fleet and the parent pipeline."""
         t_end = None if timeout is None else retry_lib.now() + timeout
+        if self._fleet is not None:
+            self._fleet.drain(timeout=retry_lib.deadline_left(t_end))
         if self._serve is not None:
             self._serve.drain(timeout=retry_lib.deadline_left(t_end))
 
@@ -1853,14 +1965,22 @@ class MatrelSession:
         """Drain, then stop the admission worker; a later ``submit``
         raises the typed ``PipelineClosed``. Also stops the metrics
         endpoint when one runs (a GC finalizer covers sessions that
-        are simply dropped), even when the drain times out."""
+        are simply dropped), even when the drain times out. ONE
+        absolute deadline spans the fleet and the parent; every slice
+        and the parent are closed before the first failure
+        propagates."""
         t_end = None if timeout is None else retry_lib.now() + timeout
         try:
-            if self._serve is not None:
-                self._serve.close(timeout=retry_lib.deadline_left(t_end))
+            if self._fleet is not None:
+                self._fleet.close(timeout=retry_lib.deadline_left(t_end))
         finally:
-            if self._exporter is not None:
-                self._exporter.stop()
+            try:
+                if self._serve is not None:
+                    self._serve.close(
+                        timeout=retry_lib.deadline_left(t_end))
+            finally:
+                if self._exporter is not None:
+                    self._exporter.stop()
 
     def explain(self, expr: MatExpr, physical: bool = True,
                 analyze: bool = False,

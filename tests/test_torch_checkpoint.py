@@ -9,7 +9,8 @@ crossing between the packages (a JAX-written step, bfloat16 leaf
 included, restored by the port; a port-written f32 / int32 step restored
 by the JAX package); a port-written bfloat16 step restored bit-equal;
 the session's ``save_catalog`` / ``load_catalog`` with a block-sparse
-table; and ``run_resilient`` through a transient fault injected at the
+table; fleet directory hints one package's ``save_state`` exports and
+the other's ``restore`` seeds; and ``run_resilient`` through a transient fault injected at the
 ``checkpoint`` site.
 """
 
@@ -298,6 +299,56 @@ class TestCrossPackage:
         assert torch.equal(S2.block_rows, S.block_rows)
         assert torch.equal(S2.block_cols, S.block_cols)
         assert S2.shape == S.shape and S2.block_size == S.block_size
+
+
+    @pytest.mark.parametrize("writer", ["jax", "torch"])
+    def test_fleet_directory_hints_cross_packages(self, mesh8, tmesh8,
+                                                  tmp_path, writer):
+        """A fleet session's ``save_state`` exports its directory's
+        name-keyed demand hints; the other package's ``restore`` seeds
+        them into its own fleet directory, and its first fresh insert
+        of the key merges the saved demand in."""
+        rng = np.random.default_rng(8)
+        arrs = {nm: rng.standard_normal((32, 32)).astype(np.float32)
+                for nm in ("A", "B")}
+        sides = {"jax": (JSession, JConfig, mesh8),
+                 "torch": (TSession, TConfig, tmesh8)}
+        reader = "torch" if writer == "jax" else "jax"
+
+        def fleet_session(side, sub):
+            sess_cls, cfg_cls, mesh = sides[side]
+            sess = sess_cls(mesh=mesh, config=cfg_cls(
+                fleet_slices=2, result_cache_max_bytes=1 << 26,
+                state_dir=str(tmp_path / sub)))
+            for nm, a in arrs.items():
+                sess.register(nm, sess.from_numpy(a))
+            return sess
+
+        def query(sess):
+            return sess.table("A").expr().multiply(sess.table("B").expr())
+
+        w = fleet_session(writer, "w")
+        for _ in range(3):               # one insert, two directory hits
+            w.submit(query(w)).result(timeout=60)
+            w.serve_drain(timeout=60)
+        saved = w._fleet.export_directory()
+        summary = w.save_state()
+        w.serve_close(timeout=60)
+        assert len(saved) == 1 and sum(saved[0]["hits"].values()) == 2
+        r = fleet_session(reader, "r")
+        out = r.restore(str(tmp_path / "w"))
+        assert out["fleet"] == 1
+        assert r._fleet.directory.info()["seed_hints"] == 1
+        assert r._fleet.export_directory() == [
+            {"key": saved[0]["key"], "hits": saved[0]["hits"]}]
+        r.submit(query(r)).result(timeout=60)
+        r.serve_drain(timeout=60)
+        rec = r._fleet.directory.lookup(saved[0]["key"])
+        assert rec is not None
+        assert {str(k): v for k, v in rec.hits.items()} == saved[0]["hits"]
+        assert r._fleet.directory.info()["seed_hints"] == 0
+        r.serve_close(timeout=60)
+        assert summary["catalog"] == 2
 
 
 # ---------------------------------------------------------------------------

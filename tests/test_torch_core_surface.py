@@ -43,7 +43,7 @@ from matrel_tpu.parallel import planner as j_planner
 from matrel_tpu.session import MatrelSession as JSession
 
 from matrel_tpu_torch import convert, executor as t_exec
-from matrel_tpu_torch.config import MatrelConfig, NotPortedError
+from matrel_tpu_torch.config import MatrelConfig
 from matrel_tpu_torch.core.mesh import make_mesh
 from matrel_tpu_torch.ir import chain as t_chain, expr as TE, rules as t_rules
 from matrel_tpu_torch.parallel import planner as t_planner, strategies
@@ -661,7 +661,6 @@ def test_plane_decisions_match_jax(corpus, mesh8, name, cfg_name):
 
 def test_config_from_env_dict_and_default(monkeypatch):
     from matrel_tpu_torch import config as t_config
-    from matrel_tpu_torch.config import UNPORTED_KNOBS
     monkeypatch.setenv("MATREL_BLOCK_SIZE", "128")
     monkeypatch.setenv("MATREL_MESH_SHAPE", "2x4")
     monkeypatch.setenv("MATREL_AXIS_COST_WEIGHTS", "1,4")
@@ -684,18 +683,21 @@ def test_config_from_env_dict_and_default(monkeypatch):
         MatrelConfig.from_dict({"not_a_knob": 1})
     with pytest.raises(ValueError):
         MatrelConfig.from_dict({"reshard_peak_budget_bytes": -1})
-    # every knob still listed is refused by both constructors
-    assert "fusion_enable" not in UNPORTED_KNOBS
-    assert "reshard_peak_budget_bytes" not in UNPORTED_KNOBS
-    for name in UNPORTED_KNOBS:
-        default = t_config._FIELD_DEFAULTS[name]
-        other = ("x" if isinstance(default, str)
-                 else (not default) if isinstance(default, bool)
+    # every knob once fenced is read by both constructors as the JAX
+    # package reads it, and refused where the JAX package refuses it
+    for name in ONCE_FENCED:
+        default = getattr(MatrelConfig(), name)
+        other = ((not default) if isinstance(default, bool)
                  else default + 1)
-        with pytest.raises(NotPortedError, match=name):
-            MatrelConfig.from_dict({name: other})
-    # a knob this package ported reads from the environment; one still
-    # fenced raises there as at construction
+        got, want = MatrelConfig.from_dict({name: other}), JConfig.from_dict(
+            {name: other})
+        assert getattr(got, name) == getattr(want, name) == other
+    for name, bad in (("fleet_slices", -1), ("fleet_directory_max", 0)):
+        with pytest.raises(ValueError, match=name):
+            MatrelConfig.from_dict({name: bad})
+        with pytest.raises(ValueError, match=name):
+            JConfig.from_dict({name: bad})
+    # the ported planes' knobs read from the environment
     monkeypatch.setenv("MATREL_CSE_ENABLE", "1")
     assert MatrelConfig.from_env().cse_enable is True
     monkeypatch.setenv("MATREL_OBS_LEVEL", "on")
@@ -703,7 +705,12 @@ def test_config_from_env_dict_and_default(monkeypatch):
     monkeypatch.setenv("MATREL_VERIFY_PLANS", "warn")
     assert MatrelConfig.from_env().verify_plans == "warn"
     monkeypatch.setenv("MATREL_FLEET_SLICES", "2")
-    with pytest.raises(NotPortedError, match="fleet_slices"):
+    monkeypatch.setenv("MATREL_FLEET_FAILOVER", "0")
+    got, want = MatrelConfig.from_env(), JConfig.from_env()
+    assert (got.fleet_slices, got.fleet_failover) == (
+        want.fleet_slices, want.fleet_failover) == (2, False)
+    monkeypatch.setenv("MATREL_FLEET_SPAN_MARGIN", "0")
+    with pytest.raises(ValueError, match="fleet_span_margin"):
         MatrelConfig.from_env()
     old = t_config.default_config()
     try:
@@ -737,8 +744,9 @@ DURABLE_VERIFIER_KNOBS = (
     "coeff_replan_cooldown", "spill_enable", "spill_host_max_bytes",
     "spill_disk_hits", "state_dir")
 
-#: What stays fenced: the fleet and the JAX-only execution knobs.
-STILL_FENCED = (
+#: The last fenced knobs: the fleet's six and the three execution knobs
+#: that took their torch meaning (``config.py``'s docstring).
+ONCE_FENCED = (
     "pallas_interpret", "donate_intermediates", "plan_cache_max_bytes",
     "fleet_slices", "fleet_span_margin", "fleet_directory_max",
     "fleet_replicate_hits", "fleet_failover",
@@ -746,24 +754,23 @@ STILL_FENCED = (
 
 
 def test_unported_knobs_left_exactly_two():
-    """fusion_enable and reshard_peak_budget_bytes left the list with
-    the fusion slice, the serve plane's knobs with the serving slice,
-    the observability and resilience planes' 31 with theirs, the
-    verifier's, re-planner's and spill hierarchy's 8 with the durable
-    slice; exactly the 9 knobs of the fleet and the JAX-only execution
-    paths stay."""
-    from matrel_tpu_torch.config import UNPORTED_KNOBS
-    for name in ("fusion_enable", "reshard_peak_budget_bytes",
-                 "cse_enable", "delta_patch_mode", "delta_rank_max",
-                 "result_cache_max_bytes", "serve_tenant_weights"):
-        assert name not in UNPORTED_KNOBS
+    """The knob fence is gone: fusion_enable and
+    reshard_peak_budget_bytes left it with the fusion slice, the serve
+    plane's knobs with the serving slice, the observability and
+    resilience planes' 31 with theirs, the verifier's, re-planner's and
+    spill hierarchy's 8 with the durable slice, and the last 9 (the
+    fleet's and the three execution knobs) with the fleet slice. Every
+    one of them is accepted away from its default."""
+    from matrel_tpu_torch import config as t_config
+    assert not hasattr(t_config, "UNPORTED_KNOBS")
     assert len(OBS_RESILIENCE_KNOBS) == 31
-    for name in OBS_RESILIENCE_KNOBS:
-        assert name not in UNPORTED_KNOBS
     assert len(DURABLE_VERIFIER_KNOBS) == 8
-    for name in DURABLE_VERIFIER_KNOBS:
-        assert name not in UNPORTED_KNOBS
-    assert tuple(UNPORTED_KNOBS) == STILL_FENCED and len(STILL_FENCED) == 9
+    assert len(ONCE_FENCED) == 9
+    MatrelConfig(pallas_interpret=True, donate_intermediates=False,
+                 plan_cache_max_bytes=0, fleet_slices=2,
+                 fleet_span_margin=0.5, fleet_directory_max=8,
+                 fleet_replicate_hits=0, fleet_failover=False,
+                 fleet_placement_calibration=False)
     MatrelConfig(fusion_enable=True, reshard_peak_budget_bytes=1 << 20,
                  cse_enable=True, delta_patch_mode="force",
                  obs_level="on", fault_inject="execute:transient:n=1",
@@ -921,3 +928,88 @@ def test_compile_chain_matches_jax(jmesh):
     assert tcost == pytest.approx(jcost, rel=1e-12)
     np.testing.assert_allclose(tplan.run().to_numpy(),
                                jplan.run().to_numpy(), rtol=1e-4, atol=1e-3)
+
+
+# -- the three execution knobs with a torch meaning ----------------------------
+
+
+def _knob_query(s, S, a, b):
+    A, B = s.from_numpy(a), s.from_numpy(b)
+    return S.expr().multiply(A.expr()).add(A.expr().multiply(B.expr()))
+
+
+def _knob_run(s, S, a, b):
+    e = _knob_query(s, S, a, b)
+    plan = s.compile(e)
+    stamps = [(n.kind, n.attrs.get("strategy"), n.attrs.get("precision"))
+              for n in _post_order(plan.optimized)]
+    return s.compute(e).to_numpy(), stamps, s.plan_cache_info()["plans"]
+
+
+def _post_order(root):
+    out, seen = [], set()
+
+    def walk(n):
+        if n.uid in seen:
+            return
+        seen.add(n.uid)
+        for c in n.children:
+            walk(c)
+        out.append(n)
+
+    walk(root)
+    return out
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("pallas_interpret", True),
+    ("donate_intermediates", False),
+    ("plan_cache_max_bytes", 0),
+    ("plan_cache_max_bytes", 1),
+])
+def test_execution_knobs_take_their_torch_meaning(jmesh, knob, value):
+    """``pallas_interpret`` (the CPU route already runs each kernel's
+    plain version), ``donate_intermediates`` (nothing to donate in
+    torch) and ``plan_cache_max_bytes`` (a port plan pins no hoisted
+    payloads) change no plan and no value: the port with the knob set
+    equals the port at its default, and the JAX package with the same
+    knob, stamp for stamp and within the JAX tests' tolerance — the
+    block-sparse S·D term runs B1's path (its plain version here)."""
+    rng = np.random.default_rng(5)
+    sp = np.zeros((64, 64), np.float32)
+    sp[:32, 32:] = rng.standard_normal((32, 32))
+    a = rng.standard_normal((64, 64)).astype(np.float32)
+    b = rng.standard_normal((64, 64)).astype(np.float32)
+    js, ts = sessions(jmesh, **{knob: value})
+    base = MatrelSession(config=MatrelConfig(), device="cpu")
+    JS = JBlockSparse.from_numpy(sp, block_size=16, mesh=jmesh)
+    got, gstamps, gplans = _knob_run(ts, convert.from_reference(JS, ts.mesh),
+                                     a, b)
+    ref, rstamps, _ = _knob_run(base, convert.from_reference(
+        JS, base.mesh), a, b)
+    je = _knob_query(js, JS, a, b)
+    jplan = js.compile(je)
+    want = np.asarray(js.compute(je).to_numpy())
+    np.testing.assert_array_equal(got, ref)
+    assert gstamps == rstamps == [
+        (n.kind, n.attrs.get("strategy"), n.attrs.get("precision"))
+        for n in _post_order(jplan.optimized)]
+    np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(got, sp @ a + a @ b, rtol=3e-4, atol=3e-4)
+    # the byte bound counts zero bytes: the plan stays cached
+    assert gplans == 1
+
+
+def test_spmv_is_spmm():
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    from matrel_tpu_torch.ops import spmm as t_spmm
+    tm = make_mesh(device="cpu")
+    rng = np.random.default_rng(2)
+    sp = np.kron(np.eye(2), rng.standard_normal((8, 8))).astype(np.float32)
+    S = BlockSparseMatrix.from_numpy(sp, block_size=8, mesh=tm)
+    v = rng.standard_normal((16, 1)).astype(np.float32)
+    from matrel_tpu_torch.core.blockmatrix import BlockMatrix
+    V = BlockMatrix.from_numpy(v, mesh=tm)
+    got = t_spmm.spmv(S, V).to_numpy()
+    np.testing.assert_array_equal(got, t_spmm.spmm(S, V).to_numpy())
+    np.testing.assert_allclose(got, sp @ v, rtol=1e-5, atol=1e-5)

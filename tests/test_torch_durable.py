@@ -13,9 +13,9 @@ integer case).
 Covered: the ``result_nbytes`` fallbacks, the host and disk tiers and the
 expected-reuse gate, rebind kills across every tier, the structural zero
 of the default config, warm restart, the sha1 miss, the corrupt-snapshot
-cold start, MQO template seeding, MV117 and the knobs' validation. The
-fleet is not ported: its two seed cases run on the JAX package, and the
-port's snapshot writes an empty fleet record and seeds nothing from one.
+cold start, MQO template seeding, the fleet directory's demand hints
+(both packages' directories, and a fleet session's export and seed
+through ``save_state`` / ``restore``), MV117 and the knobs' validation.
 Added for the port: a bfloat16 result through the disk tier and a warm
 restart, bit-equal.
 """
@@ -47,6 +47,7 @@ from matrel_tpu_torch.ir import expr as TE
 from matrel_tpu_torch.parallel import reshard as t_reshard
 from matrel_tpu_torch.resilience.errors import (CheckpointCorruption,
                                                 SnapshotCorruption)
+from matrel_tpu_torch.serve import fleet as t_fleet
 from matrel_tpu_torch.serve import mqo as t_mqo
 from matrel_tpu_torch.serve import result_cache as t_rc
 from matrel_tpu_torch.serve import spill as t_spill
@@ -566,23 +567,31 @@ class TestSaveRestore:
 class TestWarmSeeds:
 
     def test_fleet_seed_hints_merge_into_first_fresh_insert(self, pkgs):
-        d = j_fleet.FleetDirectory(max_entries=4)
         records = [{"key": "k1", "hits": {"0": 3, "1": 2}}, "junk",
                    {"key": 7}, {"key": "k2", "hits": {"0": 1}}]
-        assert d.seed_hints(records) == 2
-        rec = j_fleet.DirectoryRecord(
-            owner=0, owner_key="local", nbytes=64, layout="2d",
-            dtype="float32", dep_names=frozenset({"a"}), hits={0: 1})
-        d.record_insert("k1", rec)
-        assert d.lookup("k1").hits == {0: 4, 1: 2}
-        # the port has no fleet: the same records seed nothing
-        assert t_spill._restore_fleet(pkgs[1].session(), records) == 0
+        got = []
+        for mod in (j_fleet, t_fleet):
+            d = mod.FleetDirectory(max_entries=4)
+            n = d.seed_hints(records)
+            rec = mod.DirectoryRecord(
+                owner=0, owner_key="local", nbytes=64, layout="2d",
+                dtype="float32", dep_names=frozenset({"a"}), hits={0: 1})
+            d.record_insert("k1", rec)
+            got.append((n, d.lookup("k1").hits, d.info()))
+        assert got[0] == got[1]
+        assert got[1][:2] == (2, {0: 4, 1: 2})
+        # a session without fleet_slices seeds nothing, in both
+        for pkg, spill in zip(pkgs, (j_spill, t_spill)):
+            assert spill._restore_fleet(pkg.session(), records) == 0
 
     def test_fleet_export_state_carries_unconsumed_hints(self, pkgs):
-        d = j_fleet.FleetDirectory(max_entries=4)
-        d.seed_hints([{"key": "k2", "hits": {"1": 5}}])
-        out = {r["key"]: r for r in d.export_state()}
-        assert out["k2"]["hits"] == {"1": 5}
+        got = []
+        for mod in (j_fleet, t_fleet):
+            d = mod.FleetDirectory(max_entries=4)
+            d.seed_hints([{"key": "k2", "hits": {"1": 5}}])
+            got.append(d.export_state())
+        assert got[0] == got[1]
+        assert {r["key"]: r for r in got[1]}["k2"]["hits"] == {"1": 5}
         # a session without a fleet exports an empty record in both
         assert (j_spill._export_fleet(pkgs[0].session())
                 is t_spill._export_fleet(pkgs[1].session()) is None)

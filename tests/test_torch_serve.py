@@ -38,7 +38,7 @@ from matrel_tpu.serve.admission import AdmissionQueue as JAdmissionQueue
 from matrel_tpu.session import MatrelSession as JSession
 
 from matrel_tpu_torch import executor as t_exec
-from matrel_tpu_torch.config import MatrelConfig, NotPortedError
+from matrel_tpu_torch.config import MatrelConfig
 from matrel_tpu_torch.resilience import errors as rerrors
 from matrel_tpu_torch.resilience.retry import Deadline
 from matrel_tpu_torch.serve.admission import AdmissionQueue
@@ -634,16 +634,22 @@ class TestFutures:
     def test_fleet_and_durable_state_stay_fenced(self, rng, tmp_path):
         ts = MatrelSession(device="cpu")
         A = ts.from_numpy(rand(rng, 8, 8))
-        # the fleet is refused where the config is built: no session,
-        # and so no submit, ever sees fleet_slices >= 1
-        for build in (lambda: MatrelConfig(fleet_slices=1),
-                      lambda: ts.config.replace(fleet_slices=2),
-                      lambda: MatrelSession(config=MatrelConfig(
-                          fleet_slices=1), device="cpu")):
-            with pytest.raises(NotPortedError, match="fleet_slices"):
-                build()
+        # the default submit builds no fleet; fleet_slices >= 1 routes
+        # the same query through a fleet (serve/fleet.py) whose slices
+        # share the 1 x 1 grid, with the same answer
         assert ts.submit(A.expr().t()).result(timeout=WAIT_S) is not None
+        assert ts._fleet is None and ts.fleet_info() is None
         ts.serve_close(timeout=WAIT_S)
+        fs = MatrelSession(config=MatrelConfig(fleet_slices=2),
+                           device="cpu")
+        fA = fs.from_numpy(A.to_numpy())
+        fs.register("A", fA)
+        out = fs.submit(fA.expr().t()).result(timeout=WAIT_S)
+        np.testing.assert_array_equal(out.to_numpy(), A.to_numpy().T)
+        info = fs.fleet_info()
+        assert info["source"] == "shared" and len(info["slices"]) == 2
+        assert info["placed"] == {"slice": 1, "span": 0}
+        fs.serve_close(timeout=WAIT_S)
         # the durable state is ported (serve/spill.py): without a
         # directory save_state and restore refuse as the JAX package's
         # do; an empty directory restores as a clean cold start
@@ -822,11 +828,9 @@ class TestResultCacheInfoSurface:
         ("delta_rank_max", 64),
     ])
     def test_serve_knobs_are_live(self, knob, value):
-        """The serve plane's knobs left ``UNPORTED_KNOBS``: each is
-        accepted at a non-default value, as a keyword and through
-        ``from_dict``, as the JAX package accepts it."""
-        from matrel_tpu_torch.config import UNPORTED_KNOBS
-        assert knob not in UNPORTED_KNOBS
+        """The serve plane's knobs are live: each is accepted at a
+        non-default value, as a keyword and through ``from_dict``, as
+        the JAX package accepts it."""
         got = getattr(MatrelConfig(**{knob: value}), knob)
         assert got == getattr(JConfig(**{knob: value}), knob) == value
         assert MatrelConfig.from_dict({knob: value}) \
@@ -882,17 +886,19 @@ class TestErrorTaxonomy:
         assert rerrors.is_transient(exc) == (want == "transient")
 
     def test_only_ported_planes_types(self):
-        """The taxonomy holds the serve, resilience and durable planes'
-        typed errors (injected faults, open breakers, checkpoint and
-        spill corruption among them, corruption deterministic); the
-        fleet's, still fenced, is not defined, nor are the XLA
-        runtime's names."""
+        """The taxonomy holds the serve, resilience, durable and fleet
+        planes' typed errors (injected faults, open breakers, checkpoint
+        and spill corruption, a lost slice; corruption and a lost slice
+        deterministic), and none of the XLA runtime's names."""
         import matrel_tpu_torch.resilience.errors as mod
         for have in ("InjectedFault", "CircuitOpen",
                      "CheckpointCorruption", "SnapshotCorruption"):
             assert hasattr(mod, have)
         assert issubclass(mod.SnapshotCorruption, mod.CheckpointCorruption)
         assert mod.classify(mod.SnapshotCorruption("x")) == "deterministic"
-        assert not hasattr(mod, "FleetSliceLost")
+        assert mod.classify(mod.FleetSliceLost(0)) == "deterministic"
+        assert str(mod.FleetSliceLost(1, "no surviving slice")) == (
+            "serving slice 1 lost: no surviving slice — query could not "
+            "be re-admitted onto a surviving slice")
         assert not any("Xla" in n or "Jax" in n
                        for n in mod._TRANSIENT_TYPE_NAMES)

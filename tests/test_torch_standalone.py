@@ -328,6 +328,80 @@ def test_durable_state_and_verifier_without_jax(tmp_path):
     assert "standalone durable ok" in proc.stdout
 
 
+def test_fleet_and_tools_without_jax(tmp_path):
+    """The fleet on the virtual (2, 4) grid, its event log read by the
+    history, trace, top and why CLIs, the bridge and ``utils/debug``,
+    with the JAX package blocked."""
+    code = textwrap.dedent("""
+        import argparse, contextlib, io, sys
+        for name in ("jax", "jaxlib", "matrel_tpu"):
+            sys.modules[name] = None          # import raises ImportError
+        import numpy as np
+        import torch
+        from matrel_tpu_torch import MatrelConfig, MatrelSession
+        from matrel_tpu_torch.__main__ import main as cli
+        from matrel_tpu_torch.bridge import BridgeClient, BridgeServer
+        from matrel_tpu_torch.utils.debug import assert_finite, checked
+        log = sys.argv[1] + "/events.jsonl"
+        s = MatrelSession(config=MatrelConfig(
+            fleet_slices=2, mesh_shape=(2, 4), obs_level="on",
+            obs_event_log=log, obs_provenance=8,
+            result_cache_max_bytes=1 << 24), device="cpu")
+        rng = np.random.default_rng(0)
+        a, b = (rng.standard_normal((32, 32)).astype(np.float32)
+                for _ in range(2))
+        s.register("a", s.from_numpy(a))
+        s.register("b", s.from_numpy(b))
+        q = s.table("a").expr().multiply(s.table("b").expr())
+        r = s.submit(q).result(timeout=60).to_numpy()
+        assert np.allclose(r, a @ b, rtol=1e-4, atol=1e-4)
+        assert np.array_equal(s.submit(q).result(timeout=60).to_numpy(), r)
+        info = s.fleet_info()
+        assert info["source"] == "virtual"
+        assert info["directory"]["hits"] == 1
+        s.serve_close(timeout=60)
+        for argv in (["history", "--log", log, "--summary"],
+                     ["trace", "--export", "chrome", "--log", log,
+                      "--out", "-"],
+                     ["top", "--once", "--log", log],
+                     ["why", "--log", log]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                try:
+                    cli(argv)
+                except SystemExit as ex:
+                    assert not ex.code, (argv, ex.code)
+            assert buf.getvalue(), argv
+        srv = BridgeServer(MatrelSession(device="cpu"))
+        srv.serve_background()
+        c = BridgeClient("127.0.0.1", srv.port)
+        c.call("upload", name="A", data=[[1.0, 2.0], [3.0, 4.0]])
+        assert c.call("sql", query="transpose(A)")["data"] == [
+            [1.0, 3.0], [2.0, 4.0]]
+        c.call("shutdown")
+        c.close()
+        srv.server_close()
+        assert_finite(torch.ones(3))
+        try:
+            checked(lambda x: torch.log(x))(-torch.ones(2))
+        except FloatingPointError:
+            pass
+        else:
+            raise AssertionError("checked let a NaN through")
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "matrel_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("standalone fleet ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=str(REPO), env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone fleet ok" in proc.stdout
+
+
 def test_obs_and_resilience_planes_without_jax(tmp_path):
     code = textwrap.dedent(f"""
         import sys, json, urllib.request
@@ -627,13 +701,14 @@ def test_default_device_needs_a_card(monkeypatch):
 
 
 def test_unported_planes_and_kinds_raise():
-    # the verifier's, re-planner's and spill hierarchy's knobs are
-    # ported; the JAX-only execution knobs stay fenced
+    # every knob is live now: the verifier's, re-planner's and spill
+    # hierarchy's, the fleet's and the three execution knobs with their
+    # torch meaning (config.py)
     assert MatrelConfig(verify_plans="warn").verify_plans == "warn"
-    with pytest.raises(NotPortedError, match="donate_intermediates"):
-        MatrelConfig(donate_intermediates=False)
-    with pytest.raises(NotPortedError, match="plan_cache_max_bytes"):
-        MatrelConfig().replace(plan_cache_max_bytes=1)
+    assert MatrelConfig(donate_intermediates=False).donate_intermediates \
+        is False
+    assert MatrelConfig().replace(
+        plan_cache_max_bytes=1).plan_cache_max_bytes == 1
     s = MatrelSession(device="cpu")
     rng = np.random.default_rng(1)
     A = s.from_numpy(rng.standard_normal((4, 4)).astype(np.float32))
@@ -646,13 +721,11 @@ def test_unported_planes_and_kinds_raise():
         s.compute(MatExpr("not_a_kind", (A.expr(),), (4, 4), None))
     assert MatrelConfig(coeff_planner_enable=True,
                         coeff_replan_enable=True).coeff_replan_enable
-    with pytest.raises(NotPortedError, match="pallas_interpret"):
-        MatrelConfig(pallas_interpret=True)
+    assert MatrelConfig(pallas_interpret=True).pallas_interpret is True
     from matrel_tpu_torch.ops import spgemm
     sp = np.eye(16, dtype=np.float32)
     S = BlockSparseMatrix.from_numpy(sp, block_size=8, mesh=s.mesh)
-    with pytest.raises(NotPortedError, match="fleet_slices"):
-        MatrelConfig().replace(fleet_slices=2)
+    assert MatrelConfig().replace(fleet_slices=2).fleet_slices == 2
     with pytest.raises(ValueError, match="state_dir"):
         s.save_state()
     # the fused SpGEMM epilogue slot is ported (ir/fusion.py)
