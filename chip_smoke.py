@@ -7501,10 +7501,17 @@ MR_SPGEMM_N = 32_768
 MR_AT_SIDE = 4096
 #: Each rank's own peak device memory bound (GiB), per sub-phase:
 #: 1.25 × the peak every rank read on the card (four ranks on one H100
-#: 80GB HBM3 over gloo, PERF.md §6; the chain's is one 16,384-row panel).
+#: 80GB HBM3 over gloo, PERF.md §6; the chain's is one 16,384-row panel;
+#: "tail" the largest of sharded_tail's four, row 4's S·D with the tile
+#: stack whole on every rank).
 MR_PEAK_LIMIT_GIB = {k: 1.25 * v for k, v in {
     "row1": 0.422, "row2": 0.132, "row5": 0.438, "spgemm": 0.166,
-    "spmm": 0.920, "chain": 7.000, "autotune": 0.297}.items()}
+    "spmm": 0.920, "chain": 7.000, "autotune": 0.297,
+    "tail": 0.562}.items()}
+#: sharded_tail (d): register_delta's matrix side and edge count, and
+#: the align join's rows and operand widths
+MR_DELTA_N, MR_DELTA_EDGES = 4096, 64
+MR_JOIN_ROWS, MR_JOIN_COLS = 65_536, 16
 #: The single-rank answers the ranks compare with, written by the parent.
 MR_DIR = os.path.join(HERE, "build", "chip_smoke", "multirank")
 
@@ -7828,6 +7835,182 @@ def mr_autotune(me: MrRank) -> dict:
     return {"best": best, "ms": {k: v * 1e3 for k, v in times.items()}}
 
 
+def mr_sharded_tail(me: MrRank) -> dict:
+    """The sharded lowerings on the ranks, each sub-phase's peak read
+    apart (the largest bounded by MR_PEAK_LIMIT_GIB["tail"]): (a) row
+    1's 4096² product, then ⊙ C · 0.5 + 1 and row_sum — no whole gather
+    (``gather_rep``) — against the one-rank answer; (b) row 4's S·D in
+    bf16, B1 on each rank's 128-column slice of D, against the one-card
+    product; (c) row 5's A·x through compute with the damping tail
+    (A·x) · 0.85 + c (B2 on each rank's slice of block rows); (d) one
+    register_delta on a 4096² dense table and one "align" row join."""
+    import gc
+    import numpy as np
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.executor import plan_matmul_decisions
+    from matrel_tpu_torch.ops import pallas_spmm, pallas_spmv as pc
+    from matrel_tpu_torch.parallel import collectives as coll
+    from matrel_tpu_torch.relational import ops as R
+    out = {"peaks": {}, "ms": {}}
+
+    def sub(name, fn):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        out["peaks"][name] = (torch.cuda.max_memory_allocated()
+                              - base) / 2**30
+
+    sess = MatrelSession(mesh=me.mesh)
+
+    def row1_tail():
+        X, Y, C = (sess.random((MR_ROW1_N, MR_ROW1_N), seed=s)
+                   for s in (4, 5, 6))
+        e = (X.multiply(Y).elem_multiply(C).multiply_scalar(0.5)
+             .add_scalar(1.0).row_sum())
+        sess.compute(e)                                   # warm
+        coll.reset_tally()
+        res = sess.compute(e)
+        tally = coll.tally()
+        if tally.get("gather_rep:world"):
+            raise AssertionError(f"sharded tail (a) gathered whole: {tally}")
+        _, ms = me.timed(lambda: sess.compute(e), runs=3)
+        want = me.block_of(np.load(os.path.join(MR_DIR, "tail_ref.npy"))
+                           [:, None], res.spec)
+        bound = me.block_of(np.load(os.path.join(MR_DIR, "tail_bound.npy"))
+                            [:, None], res.spec)
+        got = res.data.cpu().numpy()
+        err = np.abs(got.astype(np.float64) - want)
+        if not np.isfinite(got).all() or (err > bound).any():
+            raise AssertionError(f"sharded tail (a): {int((err > bound).sum())}"
+                                 f" rows past their bound (max err "
+                                 f"{float(err.max()):.3e})")
+        return {"tally": tally, "ms": ms, "max_abs_err": float(err.max()),
+                "err_over_bound": float((err / bound).max()),
+                "bit_equal": bool(np.array_equal(got, want))}
+
+    def row4_cols():
+        S, D = row4_inputs(sess)
+        e = S.multiply(D)
+        split = [d.get("spmm_ranks") for d in
+                 plan_matmul_decisions(sess.compile(e))]
+        if split != ["col_slice"]:
+            raise AssertionError(f"sharded tail (b): B1 split {split}")
+        pallas_spmm.LAUNCHES = 0
+        pallas_spmm.BODY_LAUNCHES.update(dict.fromkeys(
+            pallas_spmm.BODY_LAUNCHES, 0))
+        coll.reset_tally()
+        res = sess.compute(e)
+        tally = coll.tally()
+        first = pallas_spmm.LAUNCHES
+        _, ms = me.timed(lambda: sess.compute(e), runs=3)
+        got = res.data.float()
+        want = torch.as_tensor(np.array(me.block_of(np.load(
+            os.path.join(MR_DIR, "spmm_ref.npy"), mmap_mode="r"),
+            res.spec)), device=got.device)
+        err = check_close("sharded tail (b) S·D", got, want, "bfloat16")
+        bodies = {b: v for b, v in pallas_spmm.BODY_LAUNCHES.items() if v}
+        if first < 1 or set(bodies) != {"wgmma"}:
+            raise AssertionError(f"sharded tail (b): B1 launches {first}, "
+                                 f"bodies {bodies}")
+        return {"split": split, "tally": tally, "ms": ms,
+                "launches": pallas_spmm.LAUNCHES, "first_launches": first,
+                "bodies": bodies, "max_abs_err": err,
+                "bit_equal": bool(torch.equal(got, want)),
+                "slice_cols": D.padded_shape[1] // me.mesh.size}
+
+    def row5_damping():
+        _src, _dst, A = row5_matrix()
+        rng = np.random.default_rng(11)
+        x = rng.standard_normal(ROW5_N).astype(np.float32)
+        c = (np.random.default_rng(12).random((ROW5_N, 1)) * 0.15
+             / ROW5_N).astype(np.float32)
+        xb, cb = sess.from_numpy(x[:, None]), sess.from_numpy(c)
+        e = A.expr().multiply(xb).multiply_scalar(0.85).add(cb)
+        pc.LAUNCHES_SPMV = 0
+        res = sess.compute(e)
+        launches = pc.LAUNCHES_SPMV
+        _, ms = me.timed(lambda: sess.compute(e), runs=3)
+        y1 = np.load(os.path.join(MR_DIR, "row5_y.npy"))[:, None]
+        want = me.block_of(y1 * np.float32(0.85) + c, res.spec)
+        got = res.data.cpu().numpy()
+        err = np.abs(got - want)
+        # the damping's two f32 roundings, as numpy rounds them
+        if not np.isfinite(got).all() or (
+                err > 2 * U32 * np.abs(want) + 1e-30).any():
+            raise AssertionError(f"sharded tail (c): max err "
+                                 f"{float(err.max()):.3e}")
+        if launches < 1:
+            raise AssertionError("sharded tail (c): no B2 launch")
+        return {"ms": ms, "launches": launches,
+                "max_abs_err": float(err.max()),
+                "bit_equal": bool(np.array_equal(got, want))}
+
+    def delta_and_join():
+        dsess = MatrelSession(mesh=me.mesh, config=MatrelConfig(
+            result_cache_max_bytes=1 << 30))
+        A = dsess.random((MR_DELTA_N, MR_DELTA_N), seed=7)
+        B = dsess.random((MR_DELTA_N, MR_DELTA_N), seed=8)
+        dsess.register("A", A)
+        q = lambda: dsess.catalog["A"].expr().multiply(B.expr())
+        dsess.run(q())
+        rng = np.random.default_rng(13)
+        edges = (rng.integers(0, MR_DELTA_N, MR_DELTA_EDGES),
+                 rng.integers(0, MR_DELTA_N, MR_DELTA_EDGES),
+                 rng.standard_normal(MR_DELTA_EDGES).astype(np.float32))
+        t0 = time.perf_counter()
+        rec = dsess.register_delta("A", edges, kind="coo")
+        torch.cuda.synchronize()
+        delta_s = time.perf_counter() - t0
+        patched = dsess.run(q()).data
+        full = MatrelSession(mesh=me.mesh).compute(
+            dsess.catalog["A"].multiply(B)).data
+        # both within the product bound 8·u·√K of the exact answer
+        rel = float((patched - full).abs().max() / full.abs().max())
+        bound = 2 * PROD_C * U32 * math.sqrt(MR_DELTA_N)
+        if rec["patched"] != 1 or rel > bound:
+            raise AssertionError(f"sharded tail (d) register_delta: "
+                                 f"{rec}, rel {rel:.3e} > {bound:.3e}")
+        jr = np.random.default_rng(14)
+        a = jr.standard_normal((MR_JOIN_ROWS, MR_JOIN_COLS)).astype(
+            np.float32)
+        b = jr.standard_normal((MR_JOIN_ROWS, MR_JOIN_COLS)).astype(
+            np.float32)
+        je = R.join_on_rows(sess.from_numpy(a), sess.from_numpy(b),
+                            "mul").with_attrs(replicate="align")
+        coll.reset_tally()
+        jres = sess.compute(je)
+        jtally = coll.tally()
+        if any(k.startswith(("all_gather", "gather_rep")) for k in jtally):
+            raise AssertionError(f"sharded tail (d) align join moved a "
+                                 f"whole operand: {jtally}")
+        _, join_ms = me.timed(lambda: sess.compute(je), runs=3)
+        want = me.block_of((a[:, :, None] * b[:, None, :]).reshape(
+            MR_JOIN_ROWS, -1), jres.spec)
+        if not np.array_equal(jres.data.cpu().numpy(), want):
+            raise AssertionError("sharded tail (d) align join differs "
+                                 "from numpy")
+        return {"delta": {k: rec[k] for k in ("patched", "rules",
+                                              "est_saved_flops")},
+                "delta_s": delta_s, "delta_rel_err": rel,
+                "join_tally": jtally, "join_ms": join_ms}
+
+    for name, fn in (("row1", row1_tail), ("row4", row4_cols),
+                     ("row5", row5_damping), ("delta_join", delta_and_join)):
+        log(f"rank {me.rank}: sharded_tail {name}")
+        sub(name, fn)
+    peak = max(out["peaks"].values())
+    if peak > me.limits["tail"]:
+        raise AssertionError(f"rank {me.rank} sharded_tail: peak device "
+                             f"memory {peak:.3f} GiB > "
+                             f"{me.limits['tail']:.3f} GiB ({out['peaks']})")
+    return out
+
+
 def mr_rank(rank: int, world: int, backend: str, init: str,
             limits: dict) -> None:
     """One rank of path_multirank: its log to ``rank<r>.log``, its
@@ -7852,7 +8035,8 @@ def mr_rank(rank: int, world: int, backend: str, init: str,
         f"{sorted(mesh.ranks.host_staged)}")
     for name, fn in (("row1", mr_row1), ("row2", mr_row2),
                      ("row5", mr_row5), ("sparse", mr_sparse),
-                     ("chain", mr_chain), ("autotune", mr_autotune)):
+                     ("chain", mr_chain), ("autotune", mr_autotune),
+                     ("sharded_tail", mr_sharded_tail)):
         log(f"rank {rank}: {name}")
         if name in limits:
             with me.meter(name):
@@ -7880,12 +8064,23 @@ def mr_references(sess, ns_fro: float) -> None:
     save = lambda name, a: np.save(os.path.join(MR_DIR, name), a)
     X = sess.random((MR_ROW1_N, MR_ROW1_N), seed=4).data
     Y = sess.random((MR_ROW1_N, MR_ROW1_N), seed=5).data
-    save("row1_ref.npy", strategies.local_dot(X, Y).cpu().numpy())
+    XY = strategies.local_dot(X, Y)
+    save("row1_ref.npy", XY.cpu().numpy())
     # the bound's row norms of X and column norms of Y (mr_row1)
-    save("row1_norms.npy", np.stack([
-        X.double().norm(dim=1).cpu().numpy(),
-        Y.double().norm(dim=0).cpu().numpy()]))
-    del X, Y
+    xr, yc = X.double().norm(dim=1), Y.double().norm(dim=0)
+    save("row1_norms.npy", np.stack([xr.cpu().numpy(), yc.cpu().numpy()]))
+    # sharded_tail (a): ((X·Y) ⊙ C · 0.5 + 1) summed by rows, and its
+    # bound: each product entry within 8·u·√K·‖X_i‖·‖Y_:j‖ on both
+    # sides, scaled by 0.5·|C_ij| and summed over j, plus both row sums'
+    # rounding (2·m·u·Σ_j |t_ij|)
+    C = sess.random((MR_ROW1_N, MR_ROW1_N), seed=6).data
+    t = XY * C * 0.5 + 1.0
+    save("tail_ref.npy", t.sum(dim=1).cpu().numpy())
+    save("tail_bound.npy", (
+        PROD_C * U32 * math.sqrt(MR_ROW1_N) * xr
+        * (C.double().abs() @ yc)
+        + 2 * MR_ROW1_N * U32 * t.double().abs().sum(dim=1)).cpu().numpy())
+    del X, Y, XY, C, t, xr, yc
     mats = chain_bench.skewed_abc(sess.mesh, *MR_ROW2, seed=3)
     A, B, C = (m.data.double() for m in mats)
     save("row2_ref.npy", (A @ (B @ C)).cpu().numpy())
@@ -8058,8 +8253,45 @@ def path_multirank(sess, ns_fro: float) -> dict:
         f"rank {r} " + ", ".join(f"{k} {v:.3f}" for k, v in
                                  o["peaks"].items())
         for r, o in enumerate(ranks)))
+    tails = [o["sharded_tail"] for o in ranks]
+    t0r = tails[0]
+    a, b, c, d = (t0r[k] for k in ("row1", "row4", "row5", "delta_join"))
+    log(f"  sharded_tail (a) row 1 ((X·Y) ⊙ C · 0.5 + 1 → row_sum, "
+        f"{MR_ROW1_N}²): {a['ms']:.3f} ms (rank 0, CUDA events between "
+        f"barriers, median of 3), tally {a['tally']}, max err "
+        f"{max(t['row1']['max_abs_err'] for t in tails):.3e} ("
+        f"{max(t['row1']['err_over_bound'] for t in tails):.3f} of its "
+        f"bound), bit-equal to one rank on "
+        f"{sum(t['row1']['bit_equal'] for t in tails)}/{world} ranks")
+    log(f"  sharded_tail (b) row 4 S·D bf16, B1 on {b['slice_cols']}-column"
+        f" slices ({b['split']}): {b['ms']:.3f} ms, tally {b['tally']}, "
+        f"B1 launches {sum(t['row4']['launches'] for t in tails)} over "
+        f"the ranks (bodies {b['bodies']} on rank 0), max err "
+        f"{max(t['row4']['max_abs_err'] for t in tails):.3e} vs one card,"
+        f" bit-equal on {sum(t['row4']['bit_equal'] for t in tails)}/"
+        f"{world} ranks")
+    log(f"  sharded_tail (c) row 5 (A·x) · 0.85 + c: {c['ms']:.3f} ms, B2 "
+        f"launches {sum(t['row5']['launches'] for t in tails)}, max err "
+        f"{max(t['row5']['max_abs_err'] for t in tails):.3e}, bit-equal "
+        f"on {sum(t['row5']['bit_equal'] for t in tails)}/{world} ranks")
+    log(f"  sharded_tail (d) register_delta {MR_DELTA_N}² + "
+        f"{MR_DELTA_EDGES} edges: {d['delta']}, {d['delta_s']:.3f} s, rel "
+        f"{max(t['delta_join']['delta_rel_err'] for t in tails):.3e} vs "
+        f"recompute; align join {MR_JOIN_ROWS}×{MR_JOIN_COLS}²: "
+        f"{d['join_ms']:.3f} ms, tally {d['join_tally']}")
+    log(f"  sharded_tail per-rank peaks (GiB; the whole {MR_ROW1_N}² f32 "
+        f"product is {MR_ROW1_N ** 2 * 4 / 2**30:.4f} GiB): " + "; ".join(
+            f"rank {r} " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                     t["peaks"].items())
+            for r, t in enumerate(tails)))
     if min(launches.values()) < 1:
         raise AssertionError(f"path multirank: B2/B3 launches {launches}")
+    b1 = sum(t["row4"]["launches"] for t in tails)
+    if b1 < world:
+        raise AssertionError(f"path multirank: B1 launches {b1} on the "
+                             f"ranks")
+    launches["spmv_compact"] += sum(t["row5"]["launches"] for t in tails)
+    launches["spmm_blocksparse"] = b1
     return {"launches": launches, "ranks": ranks}
 
 
@@ -8329,7 +8561,8 @@ def main() -> int:
     for part in (l_batch["spmm_bodies"], coo["bsp"]["bodies"],
                  fused["spmm_bodies"], served["spmm_bodies"],
                  ops["spmm_bodies"], durable["spmm_bodies"],
-                 fleet["spmm_bodies"]):
+                 fleet["spmm_bodies"],
+                 {"wgmma": l_mr["spmm_blocksparse"]}):
         for b, v in part.items():
             b1_bodies[b] = b1_bodies.get(b, 0) + v
     kernels = [
@@ -8341,9 +8574,11 @@ def main() -> int:
                           + l_sv["spmm_blocksparse"]
                           + l_ops["spmm_blocksparse"]
                           + l_du["spmm_blocksparse"]
-                          + l_fl["spmm_blocksparse"], row),
+                          + l_fl["spmm_blocksparse"]
+                          + l_mr["spmm_blocksparse"], row),
              launches_by_body=b1_bodies, f32_one_column=coo["b1_f32_m1"],
-             f32_row4=row4_f32),
+             f32_row4=row4_f32,
+             launches_on_ranks=l_mr["spmm_blocksparse"]),
         dict(kernel_entry("spmv_compact", pallas_spmv.SOURCE,
                           "matrel_tpu/ops/pallas_spmv.py:50",
                           launches_pr + l_spmv + l_batch["spmv_compact"]

@@ -283,15 +283,9 @@ class BlockMatrix:
         r0, c0 = 0, 0
         if self.mesh.ranked:
             from matrel_tpu_torch.parallel import collectives as coll
-            r0, _, c0, _ = coll.rect(coll.layout_of(self.spec, self.mesh),
-                                     self.mesh.ranks.coords, self.mesh.grid,
-                                     self.padded_shape)
-        n, m = self.data.shape
-        r = torch.arange(r0, r0 + n, device=self.data.device)[:, None] \
-            < self.shape[0]
-        c = torch.arange(c0, c0 + m, device=self.data.device)[None, :] \
-            < self.shape[1]
-        return r & c
+            r0, _, c0, _ = coll.block_rect(self.as_shard(), self.mesh)
+        return padding.valid_mask(self.shape, tuple(self.data.shape),
+                                  self.data.device, (r0, c0))
 
     # -- lazy DSL (builds IR; mirrors the reference's Dataset implicits) ----
 

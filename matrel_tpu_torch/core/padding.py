@@ -34,3 +34,17 @@ def canonical_spec(pshape: Tuple[int, int], mesh: Mesh) -> P:
     row = x if pshape[0] % gx == 0 and pshape[0] >= gx and gx > 1 else None
     col = y if pshape[1] % gy == 0 and pshape[1] >= gy and gy > 1 else None
     return P(row, col)
+
+
+def valid_mask(shape: Tuple[int, int], block_shape: Tuple[int, int],
+               device, offset: Tuple[int, int] = (0, 0)):
+    """Boolean mask of the logical region ``shape`` over a block of
+    ``block_shape`` whose first entry sits at global (row, col)
+    ``offset``: the whole padded matrix at (0, 0), or one rank's block
+    of it on a rank mesh."""
+    import torch
+    r = torch.arange(offset[0], offset[0] + block_shape[0],
+                     device=device)[:, None] < shape[0]
+    c = torch.arange(offset[1], offset[1] + block_shape[1],
+                     device=device)[None, :] < shape[1]
+    return r & c

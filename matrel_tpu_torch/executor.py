@@ -61,17 +61,27 @@ once per plan; on one card applying one is the identity, on a rank mesh
 each step moves the blocks.
 
 On a rank mesh (``core/mesh.init_distributed``) every rank runs the same
-plan. Leaves and dense matmul outputs stay sharded
-(``collectives.Shard``): a dense matmul runs its stamped recipe
-(``strategies.run_ranked``), a transpose swaps the layout, and a COO
-operand against a narrow dense one runs B2/B3 on the rank's slice of
-block rows (:meth:`Lowerer._coo_spmv_stack`, the JAX package's
-``_coo_compact_sharded``). Every other lowering
-gathers a sharded input whole through one counted call
-(``collectives.gather_full``, tallied as ``gather_rep``) and runs
-locally on every rank — where the JAX package's GSPMD partitions the
-elementwise ops. Fused regions lower staged (the same values), and a
-root is cut to its canonical blocks.
+plan over its blocks (``collectives.Shard``), as the JAX package's GSPMD
+partitions it. A dense matmul runs its stamped recipe
+(``strategies.run_ranked``); S·D runs B1 on the rank's column slice of
+D where ``spmm.rank_split`` allows (``Lowerer._spmm``), the product a
+Shard by columns; a COO operand against a narrow dense one runs B2/B3
+on the rank's slice of block rows, then one all-gather (the JAX
+package's ``_coo_compact_sharded``). Elementwise, scalar, σ, index
+joins and rank1 run on the rank's block (a Shard of another layout
+relays to the first one's; a whole tensor is cut; index predicates and
+re-masks read the block's global offsets); aggregates reduce the block,
+then across the group that splits the reduced dim
+(``collectives.axis_reduce``); row / col joins merge each rank's slice
+of the join axis under the planner's scheme (``_join_axis_ranked``);
+value joins split the query side (``_value_join_shares``, the pair
+matrix by rows). What needs every entry gathers it whole through one
+counted call (``collectives.gather_full``, tallied as ``gather_rep``):
+solve and inverse (local dense solves, as the JAX package's), vec, a
+broadcast vector, rank1's vectors, a "left" / "right" join's replicated
+operand, a value join's entry vectors. Fused regions run their epilogue
+on the rank's block of the anchor output; unit programs run over the
+leaves' Shards; a root is cut to its canonical blocks.
 """
 
 from __future__ import annotations
@@ -112,18 +122,13 @@ LOWERED_KINDS = ("leaf", "sparse_leaf", "coo_leaf", "transpose", "matmul",
 COO_NARROW_MAX = 128
 
 
-def _valid_mask(shape: Tuple[int, int], pshape: Tuple[int, int],
-                device) -> Tensor:
-    r = torch.arange(pshape[0], device=device)[:, None] < shape[0]
-    c = torch.arange(pshape[1], device=device)[None, :] < shape[1]
-    return r & c
-
-
-def _mask_to_logical(x: Tensor, shape: Tuple[int, int]) -> Tensor:
-    """Zero out everything outside the logical region."""
-    if tuple(x.shape) == tuple(shape):
+def _mask_to_logical(x: Tensor, shape: Tuple[int, int],
+                     off: Tuple[int, int] = (0, 0)) -> Tensor:
+    """Zero out everything outside the logical region; ``off`` is the
+    global (row, col) of ``x``'s first entry (a rank's block)."""
+    if off[0] + x.shape[0] <= shape[0] and off[1] + x.shape[1] <= shape[1]:
         return x
-    return torch.where(_valid_mask(shape, tuple(x.shape), x.device), x,
+    return torch.where(padding.valid_mask(shape, tuple(x.shape), x.device, off), x,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -149,16 +154,19 @@ def _unsigned_via_int64(lower, node: MatExpr, ev) -> Tensor:
     operand (uint16 and uint32, as jnp sums give them: torch has no add,
     min, max or pow for them): such operands are widened to int64 and an
     int64 result is cast back, which wraps modulo 2^32 as jnp's 32-bit
-    arithmetic does."""
+    arithmetic does. A Shard widens and narrows its block."""
     unsigned = []
 
-    def ev_wide(child: MatExpr) -> Tensor:
-        t = ev(child)
+    def widen(t):
         if t.dtype in (torch.uint16, torch.uint32):
             unsigned.append(t.dtype)
             t = t.to(torch.int64)
         return t
 
+    def ev_wide(child: MatExpr) -> Tensor:
+        return widen(ev(child))
+
+    ev_wide.value = lambda child: widen(ev.value(child))
     out = lower(node, ev_wide)
     if unsigned and out.dtype == torch.int64:
         out = out.to(max(unsigned, key=lambda d: d.itemsize))
@@ -189,10 +197,11 @@ def _mask(cond, device) -> Tensor:
     return t if t.dtype == torch.bool else t != 0
 
 
-def _index(n: int, device) -> Tensor:
+def _index(n: int, device, start: int = 0) -> Tensor:
     """Row/col indices for index predicates, int32 like jnp.arange, so
-    integer arithmetic in a predicate wraps as the JAX package's does."""
-    return torch.arange(n, dtype=torch.int32, device=device)
+    integer arithmetic in a predicate wraps as the JAX package's does;
+    ``start`` is a rank's block's global offset."""
+    return torch.arange(start, start + n, dtype=torch.int32, device=device)
 
 
 def _region_info(root: MatExpr):
@@ -214,6 +223,45 @@ def _gather_rep(value, mesh) -> Tensor:
     from matrel_tpu_torch.parallel import collectives as coll
     coll.TALLY[("exec", "gather_rep", "world")] += 1
     return coll.gather_full(value, mesh)
+
+
+def _evaluator(value: Callable, mesh: Mesh, whole: Dict[int, Tensor]):
+    """The two faces of a node's value a lowering asks for:
+    ``ev.value(node)`` as lowered (a Shard stays a Shard) and
+    ``ev(node)`` whole — a Shard gathered once (``_gather_rep``,
+    memoised in ``whole``) for the lowerings that need every entry
+    (solve, inverse, vec, a value join's entry vectors, a broadcast
+    vector, a replicated join operand)."""
+    ranked = mesh.ranked
+
+    def ev(node: MatExpr) -> Tensor:
+        out = value(node)
+        if not ranked or isinstance(out, Tensor):
+            return out
+        if node.uid not in whole:
+            whole[node.uid] = _gather_rep(out, mesh)
+        return whole[node.uid]
+
+    ev.value = value
+    return ev
+
+
+def _same(v):
+    return v
+
+
+def _t(v):
+    """The transpose of a tensor or a Shard (no data moves)."""
+    return v.T if isinstance(v, Tensor) else v.t()
+
+
+#: The layout of a value every rank holds whole.
+_WHOLE = ((), ())
+
+
+class ShardLayoutError(ValueError):
+    """A sharded lowering met operands whose blocks it cannot line up
+    (their padded shapes differ)."""
 
 
 def _op_label(node: MatExpr, region: bool) -> str:
@@ -298,9 +346,7 @@ class Lowerer:
         leaf_pos = {l.uid: i for i, l in enumerate(leaf_order)}
         pshapes = [padding.padded_shape(r.shape, self.mesh) for r in roots]
         ranked = self.mesh.ranked
-        # on a rank mesh a fused region lowers staged (the same values):
-        # its epilogue would meet one rank's block of the anchor output
-        fused = self.config.fusion_enable and not ranked
+        fused = self.config.fusion_enable
         cfg = self.config
         hook = self.op_hook
         if self.config.reshard_peak_budget_bytes > 0:
@@ -333,15 +379,7 @@ class Lowerer:
                     memo[node.uid] = out
                 return memo[node.uid]
 
-            def ev(node: MatExpr) -> Tensor:
-                out = value(node)
-                if not ranked or isinstance(out, Tensor):
-                    return out
-                if node.uid not in whole:
-                    whole[node.uid] = _gather_rep(out, self.mesh)
-                return whole[node.uid]
-
-            ev.value = value
+            ev = _evaluator(value, self.mesh, whole)
 
             def root_out(r: MatExpr, ps) -> Tensor:
                 if ranked:
@@ -446,29 +484,29 @@ class Lowerer:
         if k == "rank1":
             return _unsigned_via_int64(self._rank1, node, ev)
         if k == "select_value":
-            x = ev(node.children[0])
+            x, off, wrap = self._block(node.children[0], ev)
             pred, fill = node.attrs["predicate"], node.attrs["fill"]
             out = torch.where(_mask(pred(x), x.device), x,
                               torch.tensor(fill, dtype=x.dtype,
                                            device=x.device))
             if fill != 0.0:
-                out = _mask_to_logical(out, node.shape)
-            return out
+                out = _mask_to_logical(out, node.shape, off)
+            return wrap(out)
         if k == "select_index":
             return self._select_index(node, ev)
         if k == "select_block":
-            x = ev(node.children[0])
+            x, off, wrap = self._block(node.children[0], ev)
             bs = node.attrs["block_size"]
             pn, pm = x.shape
-            bi = (_index(pn, x.device) // bs)[:, None]
-            bj = (_index(pm, x.device) // bs)[None, :]
-            return torch.where(_mask(node.attrs["predicate"](bi, bj),
-                                     x.device), x,
-                               torch.zeros((), dtype=x.dtype,
-                                           device=x.device))
+            bi = (_index(pn, x.device, off[0]) // bs)[:, None]
+            bj = (_index(pm, x.device, off[1]) // bs)[None, :]
+            return wrap(torch.where(
+                _mask(node.attrs["predicate"](bi, bj), x.device), x,
+                torch.zeros((), dtype=x.dtype, device=x.device)))
         if k == "join_index":
-            a, b = ev(node.children[0]), ev(node.children[1])
-            return _mask_to_logical(node.attrs["merge"](a, b), node.shape)
+            a, b, off, wrap = self._pair(node, ev)
+            return wrap(_mask_to_logical(node.attrs["merge"](a, b),
+                                         node.shape, off))
         if k == "join_value":
             return self._join_value(node, ev)
         if k in ("join_rows", "join_cols"):
@@ -492,39 +530,46 @@ class Lowerer:
             info = self._regions[root.uid] = _region_info(root)
         members, anchor, epi_ew = info
 
-        def make_lev(env: Dict[int, Tensor]):
+        def make_lev(env: Dict[int, object], whole: Dict[int, Tensor]):
             """ONE member evaluator for the region body and the
             epilogue closure, so the two never diverge."""
 
-            def lev(n: MatExpr) -> Tensor:
+            def value(n: MatExpr):
                 out = env.get(n.uid)
                 if out is not None:
                     return out
                 if n.uid not in members:
-                    out = ev(n)          # region input
+                    out = ev.value(n)          # region input
                 else:
                     out = self._eval(n, lev, leaf_arrays, leaf_pos)
                 env[n.uid] = out
                 return out
 
+            lev = _evaluator(value, self.mesh, whole)
             return lev
 
         # lev refers to itself, so each env is cleared on the way out:
         # left to the garbage collector, the intermediates it holds would
         # outlive the call (the lower_multi memo's rule)
-        env: Dict[int, Tensor] = {}
-        lev = make_lev(env)
+        env: Dict[int, object] = {}
+        whole: Dict[int, Tensor] = {}
+        lev = make_lev(env, whole)
         try:
             if anchor is None:
-                return lev(root)
+                return lev.value(root)
 
-            def epilogue(x: Tensor) -> Tensor:
+            def epilogue(x):
+                # x: the anchor's output — on a rank mesh this rank's
+                # block (a Shard) where the anchor keeps it sharded, so
+                # the chain's re-masks read the block's global offsets
                 env2 = dict(env)
                 env2[anchor.uid] = x
+                whole2: Dict[int, Tensor] = {}
                 try:
-                    return make_lev(env2)(root)
+                    return make_lev(env2, whole2).value(root)
                 finally:
                     env2.clear()
+                    whole2.clear()
 
             # the anchor's lowering consumes the epilogue: its output is
             # the region root's value (operand prologues below the anchor
@@ -533,29 +578,78 @@ class Lowerer:
                                 epilogue_elementwise=epi_ew)
         finally:
             env.clear()
+            whole.clear()
 
     def _pad_to_node(self, out: Tensor, node: MatExpr) -> Tensor:
         return _pad_to(out, padding.padded_shape(node.shape, self.mesh))
 
+    # -- blocks on a rank mesh ----------------------------------------------
+
+    def _block(self, child: MatExpr, ev):
+        """(tensor, global (row, col) offset of its first entry, wrap):
+        a child's value as a lowering runs on it — this rank's block of
+        a Shard (``wrap`` makes the result a Shard of the same layout),
+        else the whole tensor at (0, 0)."""
+        v = ev.value(child)
+        if isinstance(v, Tensor):
+            return v, (0, 0), _same
+        from matrel_tpu_torch.parallel import collectives as coll
+        r0, _, c0, _ = coll.block_rect(v, self.mesh)
+        return v.local, (r0, c0), (
+            lambda t: coll.Shard(t, v.layout, v.pshape))
+
+    def _align(self, v, ref) -> Tensor:
+        """This rank's block of ``v`` (a whole tensor or a Shard) under
+        Shard ``ref``'s layout: a whole tensor is cut (no collective), a
+        Shard of another layout moves through one counted
+        ``collectives.relay``."""
+        from matrel_tpu_torch.parallel import collectives as coll
+        if isinstance(v, Tensor):
+            if tuple(v.shape) != tuple(ref.pshape):
+                raise ShardLayoutError(
+                    f"a whole {tuple(v.shape)} operand cannot meet a "
+                    f"{ref.pshape} Shard")
+            return coll.local_of(v, ref.layout, self.mesh)
+        if tuple(v.pshape) != tuple(ref.pshape):
+            raise ShardLayoutError(f"Shards of padded shapes {v.pshape} "
+                                   f"and {ref.pshape} cannot line up")
+        if v.layout != ref.layout:
+            v = coll.relay(v, ref.layout, self.mesh)
+        return v.local
+
+    def _pair(self, node: MatExpr, ev):
+        """(a, b, offset, wrap) for a same-shaped binary op: both whole,
+        or both this rank's block under the first Shard's layout."""
+        l, r = node.children
+        va, vb = ev.value(l), ev.value(r)
+        if isinstance(va, Tensor) and isinstance(vb, Tensor):
+            return va, vb, (0, 0), _same
+        from matrel_tpu_torch.parallel import collectives as coll
+        ref = va if not isinstance(va, Tensor) else vb
+        r0, _, c0, _ = coll.block_rect(ref, self.mesh)
+        return (self._align(va, ref), self._align(vb, ref), (r0, c0),
+                lambda t: coll.Shard(t, ref.layout, ref.pshape))
+
     def _select_index(self, node: MatExpr, ev) -> Tensor:
-        x = ev(node.children[0])
+        x, off, wrap = self._block(node.children[0], ev)
         rows, cols = node.attrs["rows"], node.attrs["cols"]
         pn, pm = x.shape
         keep = torch.ones((), dtype=torch.bool, device=x.device)
         if rows is not None:
-            keep = keep & _mask(rows(_index(pn, x.device)), x.device)[:, None]
+            keep = keep & _mask(rows(_index(pn, x.device, off[0])),
+                                x.device)[:, None]
         if cols is not None:
-            keep = keep & _mask(cols(_index(pm, x.device)), x.device)[None, :]
-        return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
-                                                device=x.device))
+            keep = keep & _mask(cols(_index(pm, x.device, off[1])),
+                                x.device)[None, :]
+        return wrap(torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                     device=x.device)))
 
     def _join_axis(self, node: MatExpr, ev) -> Tensor:
         """Row/col index joins: the statically shaped pairwise merge along
         the non-join axis. The planner's ``attrs["replicate"]``
-        (choose_join_scheme) names the scheme; on one card both
-        operands are whole on the device, so no placement applies (the
-        JAX package constrains shardings only when its mesh has more
-        than one device)."""
+        (choose_join_scheme) names the scheme. On one card both
+        operands are whole on the device, so no placement applies; on a
+        rank mesh :meth:`_join_axis_ranked` places them by it."""
         out_entries = node.shape[0] * node.shape[1]
         cap = self.config.join_pair_cap_entries
         if out_entries > cap:
@@ -564,17 +658,73 @@ class Lowerer:
                 f"{node.shape[1]} = {out_entries} entries (> "
                 f"join_pair_cap_entries = {cap}); select/aggregate the "
                 f"operands first or raise the cap in MatrelConfig.")
+        if self.mesh.ranked:
+            out = self._join_axis_ranked(node, ev)
+            if out is not None:
+                return out
         l, r = node.children
         a = ev(l)[: l.shape[0], : l.shape[1]]
         b = ev(r)[: r.shape[0], : r.shape[1]]
+        return self._pad_to_node(self._merge_axis(node, a, b), node)
+
+    @staticmethod
+    def _merge_axis(node: MatExpr, a: Tensor, b: Tensor) -> Tensor:
+        """The pairwise merge of a row (col) join over operands cut to
+        their logical columns (rows) — whole, or one slice of the join
+        axis."""
+        l, r = node.children
         merge = node.attrs["merge"]
         if node.kind == "join_rows":
             out = merge(a[:, :, None], b[:, None, :])       # (n, ma, mb)
-            out = out.reshape(l.shape[0], l.shape[1] * r.shape[1])
+            return out.reshape(a.shape[0], l.shape[1] * r.shape[1])
+        out = merge(a[:, None, :], b[None, :, :])           # (na, nb, m)
+        return out.reshape(l.shape[0] * r.shape[0], a.shape[1])
+
+    def _join_axis_ranked(self, node: MatExpr, ev):
+        """A row/col join on a rank mesh, as the JAX package places it
+        (``matrel_tpu/executor.py`` ``_join_axis``): every rank merges
+        its slice of the join axis (the 1-D layout along it). Under
+        "left" / "right" that operand is gathered whole (one counted
+        ``gather_rep``) and cut to the slice; the other, and both under
+        "align", are re-laid 1-D along the join axis — no whole operand
+        moves. The result stays a Shard in that layout. None where the
+        padded join axis does not split over the ranks (a 1-long axis):
+        the caller's counted whole route."""
+        from matrel_tpu_torch.parallel import collectives as coll
+        rows = node.kind == "join_rows"
+        l, r = node.children
+        ext = l.shape[0] if rows else l.shape[1]
+        pj = padding.pad_dim(ext, self.mesh.size)
+        if pj % self.mesh.size or pj < self.mesh.size:
+            return None
+        line = coll.STATES["row" if rows else "col"]
+        rep = node.attrs.get("replicate")
+
+        def slice_of(c: MatExpr, replicated: bool) -> Tensor:
+            if replicated:
+                return coll.local_of(ev(c), line, self.mesh)
+            v = ev.value(c)
+            if isinstance(v, Tensor):
+                return coll.local_of(v, line, self.mesh)
+            return coll.relay(v, line, self.mesh).local
+
+        a = slice_of(l, rep == "left")
+        b = slice_of(r, rep == "right")
+        pshape = padding.padded_shape(node.shape, self.mesh)
+        j0 = coll.rect(line, self.mesh.ranks.coords, self.mesh.grid,
+                       (pj, pj))[0 if rows else 2]
+        if rows:
+            out = self._merge_axis(node, a[:, : l.shape[1]],
+                                   b[:, : r.shape[1]])
+            out = _mask_to_logical(out, (node.shape[0], out.shape[1]),
+                                   (j0, 0))
+            out = _pad_to(out, (out.shape[0], pshape[1]))
         else:
-            out = merge(a[:, None, :], b[None, :, :])       # (na, nb, m)
-            out = out.reshape(l.shape[0] * r.shape[0], l.shape[1])
-        return self._pad_to_node(out, node)
+            out = self._merge_axis(node, a[: l.shape[0]], b[: r.shape[0]])
+            out = _mask_to_logical(out, (out.shape[0], node.shape[1]),
+                                   (0, j0))
+            out = _pad_to(out, (pshape[0], out.shape[1]))
+        return coll.Shard(out, line, pshape)
 
     def _entry_vectors(self, node: MatExpr, ev):
         """Column-major logical-entry vectors (va, vb) of a join_value
@@ -616,6 +766,23 @@ class Lowerer:
                 f"{expr_mod.JOIN_MERGES}) for the O(n log n) sort "
                 f"path, or raise the cap.")
         va, vb, out_dtype = self._entry_vectors(jnode, ev)
+        query_n = na if axis in ("row", "all") else nb
+        if (self.mesh.ranked and axis != "diag"
+                and query_n >= 128 * self.mesh.size):
+            if kind not in vj.AGG_KINDS:
+                raise ValueError(f"unknown aggregate {kind!r}")
+            # the JAX package's guard (matrel_tpu/executor.py): the query
+            # side splits across the ranks, the other side stays whole
+            stats = self._value_join_shares(
+                va, vb, axis, query_n,
+                lambda a, b: (vj.row_stats_sorted(
+                    a, b, pred_kind or "always", merge_kind, axis)
+                    if structured else vj.row_stats_chunked(
+                        a, b, merge_fn, pred_fn, axis,
+                        self.config.join_chunk_entries)))
+            out = vj.finish(kind, axis, *stats)
+            shape = {"row": (-1, 1), "col": (1, -1)}.get(axis, (1, 1))
+            return self._pad_to_node(out.reshape(shape).to(out_dtype), node)
         if axis == "diag":
             L = min(na, nb)
             d = merge_fn(va[:L], vb[:L])
@@ -639,6 +806,29 @@ class Lowerer:
             out = out.reshape(1, 1)
         return self._pad_to_node(out.to(out_dtype), node)
 
+    def _value_join_shares(self, va: Tensor, vb: Tensor, axis: str,
+                           query_n: int, stats_of) -> tuple:
+        """A value-join aggregate's per-query stats (Σ float64, nonzero
+        count, max, min) with the query side split over the ranks: rank
+        k computes the k-th equal share of the queries against the whole
+        other side (``stats_of(a, b)``), and one all-gather
+        (``share_gather``) brings every share to every rank, so the
+        finish reads the stats one card computes."""
+        from matrel_tpu_torch.parallel import collectives as coll
+        size = -(-query_n // self.mesh.size)
+        k = self.mesh.ranks.rank
+        lo, hi = min(k * size, query_n), min((k + 1) * size, query_n)
+        if axis in ("row", "all"):
+            s64, nnz, mx, mn = stats_of(va[lo:hi], vb)
+        else:
+            s64, nnz, mx, mn = stats_of(va, vb[lo:hi])
+        pack = torch.stack([s64.double(), nnz.double(), mx.double(),
+                            mn.double()], dim=1)
+        pack = torch.nn.functional.pad(pack, (0, 0, 0, size - pack.shape[0]))
+        got = coll.share_gather(pack, self.mesh)[:query_n]
+        return (got[:, 0], got[:, 1].long(), got[:, 2].float(),
+                got[:, 3].float())
+
     def _join_value(self, node: MatExpr, ev) -> Tensor:
         """The materialised value join: the (|A|, |B|) pair matrix with
         merge(va, vb) where the predicate holds, else 0. Capped by
@@ -658,12 +848,29 @@ class Lowerer:
         va = a[: l.shape[0], : l.shape[1]].T.reshape(-1)
         vb = b[: r.shape[0], : r.shape[1]].T.reshape(-1)
         merge, pred = node.attrs["merge"], node.attrs["predicate"]
+        ranked = self.mesh.ranked and na >= 128 * self.mesh.size
+        if ranked:
+            # the pair matrix's rows split across the ranks (the query
+            # side; the JAX package's guard): each rank builds its
+            # block of rows against the whole B, and the result stays a
+            # Shard — the pair matrix is the value that outgrows a rank
+            from matrel_tpu_torch.parallel import collectives as coll
+            line = coll.STATES["row"]
+            pshape = padding.padded_shape(node.shape, self.mesh)
+            i0, i1, _, _ = coll.rect(line, self.mesh.ranks.coords,
+                                     self.mesh.grid, pshape)
+            va = va[min(i0, na):min(i1, na)]
         A, B = va[:, None], vb[None, :]
         out = merge(A, B)
         if pred is not None:
             out = torch.where(_mask(pred(A, B), out.device), out,
                               torch.zeros((), dtype=out.dtype,
                                           device=out.device))
+        if ranked:
+            out = torch.as_tensor(out, device=va.device).expand(
+                A.shape[0], B.shape[1])
+            return coll.Shard(_pad_to(out, (i1 - i0, pshape[1])), line,
+                              pshape)
         return self._pad_to_node(out, node)
 
     def _solve(self, node: MatExpr, ev) -> Tensor:
@@ -790,30 +997,27 @@ class Lowerer:
             out = self._coo_spmv_stack(plan, a.T).T
             return fin(self._pad_to_node(out, node))
         if l.kind == "sparse_leaf":
-            from matrel_tpu_torch.ops import spmm as spmm_lib
-            return spmm_lib.apply(l.attrs["matrix"], ev(r), r.shape,
-                                  self.config, epilogue=epilogue)
+            return self._spmm(l.attrs["matrix"], self._operand(ev, r),
+                              r.shape, epilogue=epilogue)
         if r.kind == "sparse_leaf":
             # A·S = (Sᵀ·Aᵀ)ᵀ
-            from matrel_tpu_torch.ops import spmm as spmm_lib
-            out = spmm_lib.apply(_sparse_transposed(r.attrs["matrix"]),
-                                 ev(l).T, (l.shape[1], l.shape[0]),
-                                 self.config)
-            return fin(out.T)
+            out = self._spmm(_sparse_transposed(r.attrs["matrix"]),
+                             _t(self._operand(ev, l)),
+                             (l.shape[1], l.shape[0]))
+            return fin(_t(out))
         if _transposed_sparse(l):
             # Sᵀ·X: B1 over the transposed tile stack, never a densified
             # Sᵀ
-            from matrel_tpu_torch.ops import spmm as spmm_lib
             S = l.children[0].attrs["matrix"]
-            return spmm_lib.apply(_sparse_transposed(S), ev(r), r.shape,
-                                  self.config, epilogue=epilogue)
+            return self._spmm(_sparse_transposed(S), self._operand(ev, r),
+                              r.shape, epilogue=epilogue)
         if _transposed_sparse(r):
             # X·Sᵀ = (S·Xᵀ)ᵀ: the rewrite of t(S·D) into Dᵀ·Sᵀ lands
             # here, and runs B1's S·D on D itself
-            from matrel_tpu_torch.ops import spmm as spmm_lib
-            out = spmm_lib.apply(r.children[0].attrs["matrix"], ev(l).T,
-                                 (l.shape[1], l.shape[0]), self.config)
-            return fin(out.T)
+            out = self._spmm(r.children[0].attrs["matrix"],
+                             _t(self._operand(ev, l)),
+                             (l.shape[1], l.shape[0]))
+            return fin(_t(out))
         gram = None
         if l.kind == "transpose" and self._same_operand(l.children[0], r):
             gram = ("AtA", r)
@@ -852,10 +1056,10 @@ class Lowerer:
             from matrel_tpu_torch.ops import precision as precision_lib
             if self.mesh.ranked:
                 # the tier's passes run inside the recipe, on the blocks
-                return strategies.run_ranked(
+                return fin(strategies.run_ranked(
                     strategy, a, b, self.mesh,
                     lambda p, q: precision_lib.tiered_matmul(
-                        tier, p, q, strategies.local_dot))
+                        tier, p, q, strategies.local_dot)))
             mm = lambda p, q: strategies.run_matmul(
                 strategy, p, q, self.mesh, self.config)
             return fin(precision_lib.tiered_matmul(tier, a, b, mm))
@@ -870,6 +1074,23 @@ class Lowerer:
 
         return strategies.run_matmul(strategy, a, b, self.mesh,
                                      self.config, epilogue=storage_epi)
+
+    def _spmm(self, S, d, d_shape, epilogue=None):
+        """S·D through B1 (``ops/spmm.py``). On a rank mesh each rank
+        runs B1 on its column slice of D where ``spmm.rank_split``
+        allows it (the product stays a Shard, laid out by columns), else
+        D is gathered whole (one counted ``gather_rep``) and every rank
+        runs the whole product — the choice ``plan_matmul_decisions``
+        records as ``spmm_ranks``."""
+        from matrel_tpu_torch.ops import spmm as spmm_lib
+        if self.mesh.ranked:
+            pm = padding.pad_dim(d_shape[1], self.mesh.size)
+            if spmm_lib.rank_split(S, pm, self.mesh) == "col_slice":
+                return spmm_lib.apply_cols(S, d, d_shape, self.mesh,
+                                           self.config, epilogue=epilogue)
+            if not isinstance(d, Tensor):
+                d = _gather_rep(d, self.mesh)
+        return spmm_lib.apply(S, d, d_shape, self.config, epilogue=epilogue)
 
     def _operand(self, ev, node: MatExpr):
         """A dense matmul operand: on a rank mesh as lowered (a Shard
@@ -930,10 +1151,15 @@ class Lowerer:
 
     def _rank1(self, node: MatExpr, ev) -> Tensor:
         """A + u·vᵀ over the padded operands (their padding is zero). The
-        outer product takes jnp.matmul's result dtype."""
-        a, u, v = (ev(c) for c in node.children)
+        outer product takes jnp.matmul's result dtype. On a rank mesh A
+        keeps its blocks: u and v are gathered whole (vectors) and cut
+        to the block's rows and columns."""
+        a, off, wrap = self._block(node.children[0], ev)
+        u, v = ev(node.children[1]), ev(node.children[2])
+        u = u[off[0]: off[0] + a.shape[0]]
+        v = v[off[1]: off[1] + a.shape[1]]
         uv = strategies.local_dot(u, v.T)
-        return a + uv.to(torch.promote_types(u.dtype, v.dtype))
+        return wrap(a + uv.to(torch.promote_types(u.dtype, v.dtype)))
 
     def _coo_spmv_stack(self, plan, X: Tensor) -> Tensor:
         """A·X for the k columns of ``X`` (n_cols, k) as an (n_rows, k)
@@ -975,7 +1201,38 @@ class Lowerer:
 
     def _elemwise(self, node: MatExpr, ev) -> Tensor:
         l, r = node.children
-        a, b = ev(l), ev(r)
+        va, vb = ev.value(l), ev.value(r)
+        if isinstance(va, Tensor) and isinstance(vb, Tensor):
+            return self._elemwise_local(node, va, vb)
+        from matrel_tpu_torch.parallel import collectives as coll
+        # the full-shaped Shard sets the layout; a broadcast vector is
+        # gathered alone (it is small) and cut to the block
+        ref = next((v for v, c in ((va, l), (vb, r))
+                    if not isinstance(v, Tensor) and c.shape == node.shape),
+                   None)
+        if ref is None:
+            # two vectors broadcast against each other: the counted
+            # whole route
+            return self._elemwise_local(node, ev(l), ev(r))
+        r0, r1, c0, c1 = coll.block_rect(ref, self.mesh)
+
+        def local(v, c: MatExpr) -> Tensor:
+            if c.shape == node.shape:
+                return self._align(v, ref)
+            v = ev(c)
+            rows = slice(r0, r1) if c.shape[0] != 1 else slice(None)
+            cols = slice(c0, c1) if c.shape[1] != 1 else slice(None)
+            return v[rows, cols]
+
+        out = self._elemwise_local(node, local(va, l), local(vb, r),
+                                   (r0, c0))
+        return coll.Shard(out, ref.layout, ref.pshape)
+
+    def _elemwise_local(self, node: MatExpr, a: Tensor, b: Tensor,
+                        off: Tuple[int, int] = (0, 0)) -> Tensor:
+        """The op over whole operands, or over one rank's blocks whose
+        first entry sits at global ``off``."""
+        l, r = node.children
         broadcast = l.shape != r.shape
         if broadcast:
             a = self._slice_for_broadcast(a, l.shape, node.shape)
@@ -1001,7 +1258,7 @@ class Lowerer:
         else:
             raise NotImplementedError(op)
         if broadcast and op != "mul":
-            out = _mask_to_logical(out, node.shape)
+            out = _mask_to_logical(out, node.shape, off)
         return out
 
     @staticmethod
@@ -1013,7 +1270,7 @@ class Lowerer:
         return x
 
     def _scalar(self, node: MatExpr, ev) -> Tensor:
-        x = ev(node.children[0])
+        x, off, wrap = self._block(node.children[0], ev)
         op, v = node.attrs["op"], node.attrs["value"]
         if (not x.dtype.is_floating_point and x.dtype != torch.bool
                 and not (torch.iinfo(x.dtype).min <= v
@@ -1024,13 +1281,15 @@ class Lowerer:
             x = x.to(torch.int64)
         s = torch.tensor(v, dtype=x.dtype, device=x.device)
         if op == "mul":
-            return x * s
+            return wrap(x * s)
         if op == "add":
             out = x + s
-            return _mask_to_logical(out, node.shape) if v != 0.0 else out
+            return wrap(_mask_to_logical(out, node.shape, off)
+                        if v != 0.0 else out)
         if op == "pow":
             out = torch.pow(x, s)
-            return _mask_to_logical(out, node.shape) if v <= 0 else out
+            return wrap(_mask_to_logical(out, node.shape, off)
+                        if v <= 0 else out)
         raise NotImplementedError(op)
 
     def _agg(self, node: MatExpr, ev) -> Tensor:
@@ -1038,7 +1297,10 @@ class Lowerer:
         if child.kind == "join_value":
             # never materialise the pair matrix under an aggregate
             return self._agg_join_value(node, child, ev)
-        x = ev(child)
+        v = ev.value(child)
+        if not isinstance(v, Tensor):
+            return self._agg_ranked(node, v)
+        x = v
         kind, axis = node.attrs["agg"], node.attrs["axis"]
         n, m = child.shape
         pn, pm = x.shape
@@ -1068,16 +1330,8 @@ class Lowerer:
                                      torch.zeros((), device=x.device)
                                      ).to(x.dtype))
         elif kind in ("max", "min"):
-            if x.dtype.is_floating_point or x.dtype == torch.bool:
-                fill = float("-inf") if kind == "max" else float("inf")
-            else:
-                # an integer dtype has no infinity: its extreme value is
-                # the identity of max / min
-                info = torch.iinfo(x.dtype)
-                fill = info.min if kind == "max" else info.max
-            masked = torch.where(_valid_mask((n, m), (pn, pm), x.device), x,
-                                 torch.tensor(fill, dtype=x.dtype,
-                                              device=x.device))
+            masked = torch.where(padding.valid_mask((n, m), (pn, pm), x.device), x,
+                                 _extreme_fill(x.dtype, kind, x.device))
             if dim is None:
                 res = masked.max() if kind == "max" else masked.min()
             else:
@@ -1090,6 +1344,103 @@ class Lowerer:
         else:
             raise NotImplementedError(kind)
         return _mask_to_logical(out, node.shape)
+
+    def _agg_ranked(self, node: MatExpr, x) -> object:
+        """An aggregate of a Shard: each rank reduces its block, then the
+        ranks that split the reduced dim reduce across their group
+        (``collectives.axis_reduce``): ``row_*`` over the column axes
+        (the result stays sharded along the rows), ``col_*`` over the
+        row axes, ``all`` and ``diag`` over every axis of the layout.
+        count and avg carry (sum, count) pairs in one reduction; max /
+        min fill the padding with their identity (C2's integer rule).
+        The partial sums group differently from one card's sum (f32
+        rounding of ``mesh.size`` partials)."""
+        from matrel_tpu_torch.parallel import collectives as coll
+        import torch.distributed as dist
+        (child,) = node.children
+        kind, axis = node.attrs["agg"], node.attrs["axis"]
+        n, m = child.shape
+        loc = x.local
+        dev, dt = loc.device, loc.dtype
+        r0, r1, c0, c1 = coll.block_rect(x, self.mesh)
+        rows, cols = x.layout
+        axes = {"row": cols, "col": rows}.get(axis, rows + cols)
+        # sums run in f32 for narrower floats (one rounding at the end,
+        # as torch.sum of a bf16 tensor accumulates) and in int64 for
+        # integers and bool (jnp's 32-bit result cast at the end)
+        wide = (torch.float32 if dt.is_floating_point and dt.itemsize < 4
+                else dt if dt.is_floating_point else torch.int64)
+        pair_dt = torch.float64 if dt.is_floating_point else torch.int64
+        if axis == "diag":
+            # the entries i < min(pn, pm, n) of the diagonal this block holds
+            L = min(x.pshape[0], x.pshape[1], n)
+            i0, i1 = max(r0, c0), max(min(r1, c1, L), max(r0, c0))
+            idx = torch.arange(i0, i1, device=dev)
+            vals = loc[idx - r0, idx - c0]
+            dim = None
+        else:
+            vals = loc
+            dim = {"row": 1, "col": 0, "all": None}[axis]
+
+        def red(fn, t):
+            return fn(t) if dim is None else fn(t, dim=dim)
+
+        if kind in ("sum", "count", "avg"):
+            s = red(torch.sum, vals.to(wide))
+            c = red(torch.sum, vals != 0)
+            pair = torch.stack([s.to(pair_dt), c.to(pair_dt)])
+            pair = coll.axis_reduce(pair, self.mesh, axes)
+            s, c = pair[0].to(wide), pair[1].to(torch.int64)
+            if kind == "sum":
+                res = s.to(_JNP_SUM_DTYPE.get(dt, dt)) \
+                    if not dt.is_floating_point else s.to(dt)
+            elif kind == "count":
+                res = c.to(dt)
+            else:
+                res = torch.where(c > 0, s / c.clamp(min=1),
+                                  torch.zeros((), device=dev)).to(dt)
+        elif kind in ("max", "min"):
+            fill = _extreme_fill(dt, kind, dev)
+            if axis != "diag":
+                vals = torch.where(padding.valid_mask((n, m), tuple(loc.shape), dev,
+                                               (r0, c0)), loc, fill)
+            if vals.numel() == 0:          # a block off the diagonal
+                res = fill
+            elif dim is None:
+                res = vals.max() if kind == "max" else vals.min()
+            else:
+                res = (vals.amax(dim=dim) if kind == "max"
+                       else vals.amin(dim=dim))
+            res = coll.axis_reduce(res.clone(), self.mesh, axes,
+                                   dist.ReduceOp.MAX if kind == "max"
+                                   else dist.ReduceOp.MIN)
+            if axis != "diag":
+                res = torch.where(torch.isfinite(res), res,
+                                  torch.zeros((), dtype=dt, device=dev))
+        else:
+            raise NotImplementedError(kind)
+        if axis == "diag":
+            return res.reshape(1, 1).to(dt)
+        if axis == "all":
+            return _mask_to_logical(res.reshape(1, 1), node.shape)
+        if axis == "row":
+            out = _mask_to_logical(res.reshape(-1, 1), node.shape, (r0, 0))
+            lay, ps = (rows, ()), (x.pshape[0], 1)
+        else:
+            out = _mask_to_logical(res.reshape(1, -1), node.shape, (0, c0))
+            lay, ps = ((), cols), (1, x.pshape[1])
+        return out if lay == _WHOLE else coll.Shard(out, lay, ps)
+
+
+def _extreme_fill(dtype: torch.dtype, kind: str, device) -> Tensor:
+    """The identity of max / min in ``dtype``: ∓inf for floats and bool,
+    an integer dtype's extreme value (it has no infinity)."""
+    if dtype.is_floating_point or dtype == torch.bool:
+        fill = float("-inf") if kind == "max" else float("inf")
+    else:
+        info = torch.iinfo(dtype)
+        fill = info.min if kind == "max" else info.max
+    return torch.tensor(fill, dtype=dtype, device=device)
 
 
 def _spgemm_block_size(node: MatExpr, config=None):
@@ -1212,6 +1563,19 @@ def _sparse_transposed(S):
         st = S.transpose()
         S._transposed_memo = st
     return st
+
+
+def spmm_rank_split(node: MatExpr, mesh: Mesh) -> str:
+    """How an S·D (or D·S) matmul's B1 runs on a rank mesh: "col_slice"
+    or "whole" (``ops/spmm.rank_split``), the choice
+    ``Lowerer._spmm`` makes."""
+    from matrel_tpu_torch.ops import spmm as spmm_lib
+    l, r = node.children
+    if l.kind == "sparse_leaf":
+        S, width = l.attrs["matrix"], r.shape[1]
+    else:
+        S, width = r.attrs["matrix"], l.shape[0]
+    return spmm_lib.rank_split(S, padding.pad_dim(width, mesh.size), mesh)
 
 
 def _coo_dispatch_plan(node: MatExpr):
@@ -1616,8 +1980,9 @@ def _unit_fn(low: Lowerer, root: MatExpr, input_uids: Tuple[int, ...]):
 
     def fn(*arrs):
         env = dict(zip(input_uids, arrs))
+        whole: Dict[int, Tensor] = {}
 
-        def lev(n: MatExpr):
+        def value(n: MatExpr):
             v = env.get(n.uid)
             if v is not None:
                 return v
@@ -1625,10 +1990,12 @@ def _unit_fn(low: Lowerer, root: MatExpr, input_uids: Tuple[int, ...]):
             env[n.uid] = v
             return v
 
+        lev = _evaluator(value, low.mesh, whole)
         try:
-            return lev(root)
+            return value(root)
         finally:
             env.clear()       # lev refers to itself (the memo's rule)
+            whole.clear()
 
     return fn
 
@@ -1638,7 +2005,10 @@ class UnitPrograms:
     """An expression compiled as a sequence of unit programs —
     ``dispatches`` units per run (the count fusion shrinks). ``run()``
     executes the units in topological order over padded tensors and
-    returns the root unit's output."""
+    returns the root unit's output: on a rank mesh each rank runs its
+    units over its leaves' Shards (a unit's output is what its lowering
+    keeps — a Shard or a whole tensor) and returns its block of the root
+    under the canonical spec, as ``CompiledPlan.run`` holds it."""
 
     #: (node, unit fn, input uids, member count) in execution order.
     units: List
@@ -1652,12 +2022,20 @@ class UnitPrograms:
         return len(self.units)
 
     def run(self, bindings: Optional[Dict[int, Tensor]] = None):
-        env = {l.uid: l.attrs["matrix"].data for l in self.leaf_order}
+        ranked = self.mesh.ranked
+        env = {l.uid: (l.attrs["matrix"].as_shard() if ranked
+                       else l.attrs["matrix"].data)
+               for l in self.leaf_order}
         if bindings:
             env.update(bindings)
         for node, fn, input_uids, _n in self.units:
             env[node.uid] = fn(*(env[u] for u in input_uids))
-        return env[self.optimized.uid]
+        out = env[self.optimized.uid]
+        if not ranked:
+            return out
+        root = self.optimized
+        return Lowerer(self.mesh, self.config)._ranked_root(
+            root, out, padding.padded_shape(root.shape, self.mesh))
 
 
 def _build_units(opt: MatExpr, mesh: Mesh, cfg: MatrelConfig,
@@ -1717,10 +2095,6 @@ def _units_mesh(expr: MatExpr, mesh: Optional[Mesh],
         lvs = expr_leaves(expr)
         mesh = lvs[0].attrs["matrix"].mesh if lvs else mesh_lib.make_mesh(
             cfg.mesh_shape, cfg.mesh_axis_names)
-    if mesh.ranked:
-        raise NotPortedError(
-            "unit programs run on one device; on a rank mesh a plan "
-            "lowers through compile_expr (fused regions staged)")
     return mesh
 
 

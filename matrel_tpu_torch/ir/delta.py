@@ -64,8 +64,7 @@ import numpy as np
 
 import torch
 
-from matrel_tpu_torch.config import (MatrelConfig, NotPortedError,
-                                     default_config)
+from matrel_tpu_torch.config import MatrelConfig, default_config
 from matrel_tpu_torch.ir import expr as E
 from matrel_tpu_torch.ir.expr import MatExpr
 
@@ -237,30 +236,36 @@ class MatrixDelta:
         from matrel_tpu_torch.core.blockmatrix import (BlockMatrix,
                                                        tensor_from_numpy)
         from matrel_tpu_torch.core.sparse import BlockSparseMatrix
-        if getattr(old.mesh, "ranked", False):
-            raise NotPortedError(
-                "register_delta on a rank mesh: the delta plane runs on "
-                "one device")
         if isinstance(old, BlockSparseMatrix):
+            # on a rank mesh the tile stack is whole on every rank:
+            # every rank rebuilds the same touched tiles
             return _apply_block_sparse(old, self)
         if not isinstance(old, BlockMatrix):
             raise TypeError(
                 f"register_delta target must be a BlockMatrix or "
                 f"BlockSparseMatrix, got {type(old).__name__}")
         dev = old.data.device
+        # on a rank mesh ``old.data`` is this rank's block: the entries
+        # inside its rectangle land there, at block-local coordinates
+        r0, r1, c0, c1 = _block_rect(old)
         if self.kind == "coo":
+            rows = np.asarray(self.rows, np.int64)
+            cols = np.asarray(self.cols, np.int64)
+            vals = np.asarray(self.vals, np.float32)
+            inside = (rows >= r0) & (rows < r1) & (cols >= c0) & (cols < c1)
             data = old.data.clone()
             data.index_put_(
-                (torch.as_tensor(self.rows, device=dev),
-                 torch.as_tensor(self.cols, device=dev)),
-                tensor_from_numpy(np.asarray(self.vals, np.float32),
-                                  old.data.dtype, dev),
+                (torch.as_tensor(rows[inside] - r0, device=dev),
+                 torch.as_tensor(cols[inside] - c0, device=dev)),
+                tensor_from_numpy(vals[inside], old.data.dtype, dev),
                 accumulate=True)
         else:
             pad = np.zeros(old.padded_shape, np.float32)
             d = self.to_dense_numpy()
             pad[: self.shape[0], : self.shape[1]] = d
-            data = old.data + tensor_from_numpy(pad, old.data.dtype, dev)
+            data = old.data + tensor_from_numpy(
+                np.ascontiguousarray(pad[r0:r1, c0:c1]), old.data.dtype,
+                dev)
         integral = bool(old.integral and self.integral)
         amax = None
         if integral and old.int_abs_max is not None:
@@ -281,6 +286,15 @@ class MatrixDelta:
         rebind factor/dense leaves instead of recompiling (constant
         edge-batch streams hit this every step)."""
         return (self.kind, self.shape, self.rank, self.integral)
+
+
+def _block_rect(bm) -> Tuple[int, int, int, int]:
+    """(r0, r1, c0, c1) of the padded matrix ``bm.data`` holds: all of
+    it on one card, this rank's block on a rank mesh."""
+    if not getattr(bm.mesh, "ranked", False):
+        return 0, bm.data.shape[0], 0, bm.data.shape[1]
+    from matrel_tpu_torch.parallel import collectives as coll
+    return coll.block_rect(bm.as_shard(), bm.mesh)
 
 
 def _apply_block_sparse(old, delta: MatrixDelta):

@@ -76,6 +76,54 @@ def apply(S: BlockSparseMatrix, dd: torch.Tensor, d_shape: Tuple[int, int],
     return out if epilogue is None else epilogue(out)
 
 
+def rank_split(S: BlockSparseMatrix, pm: int, mesh) -> str:
+    """How B1 runs on a rank mesh against a dense operand of ``pm``
+    padded columns: "col_slice" — each rank its slice of pm / size
+    columns (the JAX package's ``P(None, (x, y))`` for D), where the
+    width divides over the ranks and the slice runs on the tile body
+    the whole width runs on (``ops/tile_body.py``: a narrower slice
+    could fall to another body, whose sums round differently) — else
+    "whole": every rank the whole product."""
+    from matrel_tpu_torch.ops import tile_body
+    p = mesh.size
+    if pm % p or pm < p:
+        return "whole"
+
+    def body(w: int) -> str:
+        if S.dtype == torch.float32:
+            return tile_body.f32_body(w)
+        return tile_body.bf16_body(S.block_size, w, True)
+
+    return "col_slice" if body(pm // p) == body(pm) else "whole"
+
+
+def apply_cols(S: BlockSparseMatrix, d, d_shape: Tuple[int, int], mesh,
+               config: Optional[MatrelConfig] = None, epilogue=None):
+    """S × D on a rank mesh, each rank running B1 on its column slice of
+    D (``d`` a ``collectives.Shard``, re-laid by columns through one
+    counted relay, or a whole tensor, cut with no collective) against
+    the whole tile stack; returns this rank's columns of the product as
+    a Shard laid out by columns. Columns are independent, so each slice
+    is one card's columns of the product. ``epilogue`` gets that
+    Shard."""
+    from matrel_tpu_torch.parallel import collectives as coll
+    cfg = config or default_config()
+    n, k = S.shape
+    if k != d_shape[0]:
+        raise ValueError(f"spmm shape mismatch: {S.shape} x {d_shape}")
+    col = coll.STATES["col"]
+    if isinstance(d, torch.Tensor):
+        local = coll.local_of(d, col, mesh)
+    else:
+        local = coll.relay(d, col, mesh).local
+    local = local.to(S.dtype).contiguous()
+    out_pshape = padding.padded_shape((n, d_shape[1]), mesh)
+    w = local.shape[1]
+    run = _cached_runner(S, w, (out_pshape[0], w), cfg)
+    out = coll.Shard(run(S.blocks, local), col, out_pshape)
+    return out if epilogue is None else epilogue(out)
+
+
 def spmm(S: BlockSparseMatrix, D: BlockMatrix,
          config: Optional[MatrelConfig] = None) -> BlockMatrix:
     """C = S @ D with S block-sparse (n×k), D dense (k×m)."""

@@ -135,10 +135,11 @@ def _group(mesh, axis):
     return mesh.ranks.group(axis)
 
 
-def all_gather(t: Tensor, mesh, axis: Optional[str], dim: int = 0
-               ) -> Tensor:
+def all_gather(t: Tensor, mesh, axis: Optional[str], dim: int = 0,
+               kind: str = "all_gather") -> Tensor:
     """The group's shards of ``t`` concatenated along ``dim`` in group
-    order (``jax.lax.all_gather(..., tiled=True)``)."""
+    order (``jax.lax.all_gather(..., tiled=True)``), counted as
+    ``kind``."""
     n = len(group_ranks(mesh, axis))
     t = t.contiguous()
     out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]),
@@ -146,7 +147,7 @@ def all_gather(t: Tensor, mesh, axis: Optional[str], dim: int = 0
     host_staged("all_gather", mesh,
                 lambda i, o: dist.all_gather_into_tensor(
                     o[0], i[0], group=_group(mesh, axis)), [t], [out])
-    _count("all_gather", axis)
+    _count(kind, axis)
     if dim == 0:
         return out
     return torch.cat(out.chunk(n, 0), dim=dim)
@@ -169,15 +170,17 @@ def reduce_scatter(t: Tensor, mesh, axis: Optional[str], dim: int = 0
 
 
 def all_reduce(t: Tensor, mesh, op=dist.ReduceOp.SUM,
-               axis: Optional[str] = None) -> Tensor:
-    """In-place sum (or ``op``) of ``t`` over the group; returns ``t``."""
+               axis: Optional[str] = None,
+               kind: str = "all_reduce") -> Tensor:
+    """In-place sum (or ``op``) of ``t`` over the group, counted as
+    ``kind``; returns ``t``."""
     def call(i, o):
         if o[0] is not i[0]:
             o[0].copy_(i[0])
         dist.all_reduce(o[0], op=op, group=_group(mesh, axis))
 
     host_staged("all_reduce", mesh, call, [t], [t])
-    _count("all_reduce", axis)
+    _count(kind, axis)
     return t
 
 
@@ -188,6 +191,14 @@ def broadcast_object(obj, mesh, src: int = 0):
     dist.broadcast_object_list(box, src=src, group=_group(mesh, None))
     _count("broadcast", None)
     return box[0]
+
+
+def gather_objects(obj, mesh) -> list:
+    """Every rank's ``obj`` (pickled), in rank order, on every rank."""
+    out = [None] * mesh.size
+    dist.all_gather_object(out, obj, group=_group(mesh, None))
+    _count("gather_object", None)
+    return out
 
 
 def barrier(mesh) -> None:
@@ -364,6 +375,10 @@ class Shard:
         return Shard(self.local.T, (self.layout[1], self.layout[0]),
                      (self.pshape[1], self.pshape[0]))
 
+    def to(self, dtype) -> "Shard":
+        """The block cast to ``dtype`` (the same layout)."""
+        return Shard(self.local.to(dtype), self.layout, self.pshape)
+
     @property
     def dtype(self) -> torch.dtype:
         return self.local.dtype
@@ -467,6 +482,45 @@ def relay(x: Shard, dst, mesh) -> Shard:
         if _meet(r, want) is not None:
             place(piece, r)
     return Shard(out, dst, pshape)
+
+
+def block_rect(x: Shard, mesh) -> Tuple[int, int, int, int]:
+    """(r0, r1, c0, c1): the global offsets and extent of this rank's
+    block of ``x``."""
+    return rect(x.layout, mesh.ranks.coords, mesh.grid, x.pshape)
+
+
+def group_axis(axes) -> Optional[str]:
+    """The group whose ranks hold the blocks a dim cut over ``axes``
+    splits: "x", "y", None for the world (both axes), or "none" when
+    ``axes`` is empty (every rank holds the whole dim)."""
+    axes = set(axes)
+    if not axes:
+        return "none"
+    if axes == {"x", "y"}:
+        return None
+    return axes.pop()
+
+
+def axis_reduce(t: Tensor, mesh, axes, op=dist.ReduceOp.SUM) -> Tensor:
+    """``t`` reduced over the ranks that split a dim cut over ``axes``
+    (:func:`group_axis`; nothing moves for empty ``axes``), counted as
+    ``axis_reduce``. gloo reduces no bool: a bool ``t`` goes as
+    uint8."""
+    axis = group_axis(axes)
+    if axis == "none":
+        return t
+    if t.dtype == torch.bool:
+        return all_reduce(t.to(torch.uint8), mesh, op, axis,
+                          "axis_reduce").to(torch.bool)
+    return all_reduce(t, mesh, op, axis, "axis_reduce")
+
+
+def share_gather(t: Tensor, mesh) -> Tensor:
+    """Every rank's equal share of a result along dim 0, concatenated in
+    rank order on every rank: one all-gather over the world, counted as
+    ``share_gather``."""
+    return all_gather(t, mesh, None, kind="share_gather")
 
 
 def gather_full(x: Shard, mesh) -> Tensor:

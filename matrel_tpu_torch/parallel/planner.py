@@ -1133,6 +1133,9 @@ def matmul_decisions(root: MatExpr, mesh: Mesh,
                                else "densify")
         elif any(c.kind == "sparse_leaf" for c in n.children):
             rec["dispatch"] = "spmm"
+            if getattr(mesh, "ranked", False):
+                from matrel_tpu_torch import executor as _exec
+                rec["spmm_ranks"] = _exec.spmm_rank_split(n, mesh)
         else:
             la = infer_layout(a, mesh, lmemo, cfg)
             lb = infer_layout(b, mesh, lmemo, cfg)

@@ -207,9 +207,10 @@ def run_matmul(strategy: str, a, b, mesh,
     """The stamped strategy's product. On one device, one local product
     of two tensors; on a rank mesh, the strategy's recipe
     (:func:`run_ranked`) over Shards, returning a Shard. ``epilogue`` is
-    applied to the output (the JAX package's fused-region slot, used
-    here for the ``keep_input_dtype`` storage cast; on a rank mesh to
-    this rank's block)."""
+    applied to the output (the JAX package's fused-region slot: the
+    ``keep_input_dtype`` storage cast and a fused region's epilogue;
+    on a rank mesh it gets the output Shard, this rank's block with its
+    layout)."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}")
     # fault site "strategy" (resilience/faults.py): one attribute read
@@ -221,8 +222,6 @@ def run_matmul(strategy: str, a, b, mesh,
         la = a.local if isinstance(a, coll.Shard) else a
         lb = b.local if isinstance(b, coll.Shard) else b
         out = run_ranked(strategy, a, b, mesh, _dot_for(cfg, la, lb))
-        if epilogue is not None:
-            out = coll.Shard(epilogue(out.local), out.layout, out.pshape)
-        return out
+        return out if epilogue is None else epilogue(out)
     out = _dot_for(cfg, a, b)(a, b)
     return out if epilogue is None else epilogue(out)

@@ -174,10 +174,11 @@ def entry_stats(va: Tensor, vb: Tensor, pred: str, merge: str) -> dict:
             "mx": mx, "mn": mn}
 
 
-def _finish(kind: str, axis: str, s64: Tensor, nnz: Tensor, mx: Tensor,
-            mn: Tensor) -> Tensor:
+def finish(kind: str, axis: str, s64: Tensor, nnz: Tensor, mx: Tensor,
+           mn: Tensor) -> Tensor:
     """One axis result from per-query sums (float64), nonzero counts
-    (integers) and row extrema (f32): f32 out, cast once."""
+    (integers) and row extrema (f32): f32 out, cast once ("row" and
+    "col" alike: one result a query)."""
     if axis == "all":
         if kind == "sum":
             return s64.sum().float()
@@ -197,6 +198,19 @@ def _finish(kind: str, axis: str, s64: Tensor, nnz: Tensor, mx: Tensor,
     return mx if kind == "max" else mn
 
 
+def row_stats_sorted(va: Tensor, vb: Tensor, pred: str, merge: str,
+                     axis: str = "row") -> tuple:
+    """(Σ float64, nonzero count, max, min) of every QUERY entry's
+    pair-matrix row (:func:`entry_stats`): A's entries for "row" /
+    "all", B's for "col" (roles swapped, predicate and merge mirrored).
+    Queries are independent, so a slice of them gives the slice of the
+    stats — what a rank mesh splits."""
+    if axis == "col":
+        va, vb, pred, merge = vb, va, _PRED_SWAP[pred], _MERGE_SWAP[merge]
+    st = entry_stats(va, vb, pred, merge)
+    return st["sum"], st["nnz"], st["mx"], st["mn"]
+
+
 def axis_agg_sorted(va: Tensor, vb: Tensor, pred: str, merge: str,
                     kind: str, axis: str) -> Tensor:
     """Aggregate the (na, nb) pair matrix without building it.
@@ -206,14 +220,10 @@ def axis_agg_sorted(va: Tensor, vb: Tensor, pred: str, merge: str,
     """
     if kind not in AGG_KINDS:
         raise ValueError(f"unknown aggregate {kind!r}")
-    if axis == "col":
-        return axis_agg_sorted(vb, va, _PRED_SWAP[pred],
-                               _MERGE_SWAP[merge], kind, "row")
-    if axis not in ("row", "all"):
+    if axis not in ("row", "col", "all"):
         raise ValueError(f"unknown axis {axis!r} for a value-join "
                          "aggregate (diag is handled elementwise upstream)")
-    st = entry_stats(va, vb, pred, merge)
-    return _finish(kind, axis, st["sum"], st["nnz"], st["mx"], st["mn"])
+    return finish(kind, axis, *row_stats_sorted(va, vb, pred, merge, axis))
 
 
 def axis_agg_chunked(va: Tensor, vb: Tensor, merge_fn, pred_fn,
@@ -230,18 +240,30 @@ def axis_agg_chunked(va: Tensor, vb: Tensor, merge_fn, pred_fn,
     unmatched pairs keep their 0, as the dense lowering sees them."""
     if kind not in AGG_KINDS:
         raise ValueError(f"unknown aggregate {kind!r}")
+    if (vb if axis != "col" else va).shape[0] == 0:
+        # every row of the pair matrix is empty: all aggregates are 0
+        na = (va if axis != "col" else vb).shape[0]
+        z = torch.zeros(na, dtype=torch.float32, device=va.device)
+        return z.sum() if axis == "all" else z
+    return finish(kind, axis, *row_stats_chunked(
+        va, vb, merge_fn, pred_fn, axis, chunk_entries))
+
+
+def row_stats_chunked(va: Tensor, vb: Tensor, merge_fn, pred_fn,
+                      axis: str, chunk_entries: int) -> tuple:
+    """:func:`row_stats_sorted`'s stats for black-box callables, chunk
+    by chunk over the other side (:func:`axis_agg_chunked`'s loop)."""
     if axis == "col":
-        return axis_agg_chunked(
+        return row_stats_chunked(
             vb, va, lambda b, a: merge_fn(a, b),
             None if pred_fn is None else (lambda b, a: pred_fn(a, b)),
-            kind, "row", chunk_entries)
+            "row", chunk_entries)
     va = va.float()
     vb = vb.float()
     na, nb = va.shape[0], vb.shape[0]
     if nb == 0:
-        # every row of the pair matrix is empty: all aggregates are 0
         z = torch.zeros(na, dtype=torch.float32, device=va.device)
-        return z.sum() if axis == "all" else z
+        return z.double(), z.long(), z, z
     cb = max(1, min(nb, chunk_entries // max(na, 1)))
     s = torch.zeros(na, dtype=torch.float64, device=va.device)
     c = torch.zeros(na, dtype=torch.int64, device=va.device)
@@ -262,4 +284,4 @@ def axis_agg_chunked(va: Tensor, vb: Tensor, merge_fn, pred_fn,
         mn = torch.minimum(mn, pairs.amin(dim=1))
     # no finiteness masking: a legitimate ±inf/NaN extremum surfaces as
     # the dense lowering reports it (nb >= 1: the inits never survive)
-    return _finish(kind, axis, s, c, mx, mn)
+    return s, c, mx, mn

@@ -186,6 +186,21 @@ class SnapshotCorruption(CheckpointCorruption):
             + " — refusing to thaw silently-corrupt data")
 
 
+class SnapshotGridMismatch(ResilienceError):
+    """A ``save_state()`` snapshot holds cached results as per-rank
+    blocks of another rank grid (or whole values where this session's
+    mesh holds blocks, or blocks where it holds whole values): a block
+    cut for one grid is not a block of another, so the restore refuses
+    before it registers anything rather than thaw a wrong block."""
+
+    def __init__(self, saved, current):
+        self.saved = saved
+        self.current = current
+        super().__init__(
+            f"snapshot cached results were saved on rank grid {saved} "
+            f"(None: one device) and cannot be restored on {current}")
+
+
 #: Exception type names treated as transient runtime faults: the CUDA
 #: allocator's out-of-memory error as torch raises it (``OutOfMemoryError``;
 #: a retry after the caching allocator releases blocks can succeed).

@@ -59,7 +59,8 @@ def _itemsize(dtype) -> int:
 def result_nbytes(result: BlockMatrix) -> int:
     """Device bytes a cached result pins: its PADDED tensor,
     ``numel() * element_size()`` (bf16 sizes as 2 bytes — the JAX
-    package's numpy-dtype sizing has no bf16 and would fall back).
+    package's numpy-dtype sizing has no bf16 and would fall back); on a
+    rank mesh the whole padded value's.
 
     A foreign array with a shape and dtype sizes the same way. One
     missing even those must NOT size as 0 — a 0-byte entry escapes the
@@ -68,6 +69,13 @@ def result_nbytes(result: BlockMatrix) -> int:
     too), warning once."""
     data = getattr(result, "data", None)
     if isinstance(data, torch.Tensor):
+        mesh = getattr(result, "mesh", None)
+        if getattr(mesh, "ranked", False):
+            # a rank holds one block: the entry is sized as the whole
+            # padded value, as the JAX package sizes a sharded array,
+            # so every rank's budget evicts what one card's would
+            ps = result.padded_shape
+            return int(ps[0]) * int(ps[1]) * int(data.element_size())
         return int(data.numel()) * int(data.element_size())
     try:
         return int(np.prod(data.shape)) * _itemsize(data.dtype)

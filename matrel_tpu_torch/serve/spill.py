@@ -59,8 +59,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from matrel_tpu_torch.config import NotPortedError
-from matrel_tpu_torch.resilience.errors import SnapshotCorruption
+from matrel_tpu_torch.resilience.errors import (SnapshotCorruption,
+                                                SnapshotGridMismatch)
 from matrel_tpu_torch.utils import lockdep
 
 _log = logging.getLogger("matrel_tpu_torch.serve")
@@ -117,11 +117,27 @@ def to_host(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _world(mesh):
+    """The rank grid whose blocks a result holds ([gx, gy]), or None on
+    one device (whole values)."""
+    return list(mesh.grid) if mesh.ranked else None
+
+
+def _artifact_suffix(mesh) -> str:
+    """What a rank's artifact names carry after the key hash: its rank
+    and the world's grid (``.r3.2x2``), so two ranks never write one
+    file; nothing on one device."""
+    if not mesh.ranked:
+        return ""
+    return f".r{mesh.ranks.rank}.{mesh.grid[0]}x{mesh.grid[1]}"
+
+
 def _entry_meta(ent) -> dict:
-    """CacheEntry + its BlockMatrix → the JSON-able tier metadata."""
+    """CacheEntry + its BlockMatrix → the JSON-able tier metadata (on a
+    rank mesh also the grid whose block the entry holds)."""
     from matrel_tpu_torch.utils.checkpoint import _spec_to_json
     bm = ent.result
-    return {
+    meta = {
         "key_hash": ent.key_hash,
         "shape": list(bm.shape),
         "spec": _spec_to_json(bm.spec),
@@ -137,21 +153,22 @@ def _entry_meta(ent) -> dict:
         "delta_gen": ent.delta_gen,
         "delta_rule": ent.delta_rule,
     }
+    if bm.mesh.ranked:
+        meta["world"] = _world(bm.mesh)
+    return meta
 
 
 class SpillManager:
     """The host/disk tiers under one session's ResultCache, plus the
-    restored-entry index a snapshot load seeds. Lock order:
+    restored-entry index a snapshot load seeds. On a rank mesh every
+    rank runs one, over its own blocks (every rank evicts, demotes and
+    promotes the same entries: the ranks run the same queries), and its
+    artifact names carry the rank and the grid. Lock order:
     ``serve.result_cache`` → ``serve.spill`` (demotions run inside the
     cache's eviction loop; promotions inside its miss path) — this
     manager never calls back into the cache."""
 
     def __init__(self, session):
-        if session.mesh.ranked:
-            raise NotPortedError(
-                "spill_enable on a rank mesh: each rank would spill its "
-                "own block under one artifact name; the spill hierarchy "
-                "runs on one card")
         _CONSTRUCTED["count"] += 1
         self._session = session
         self.config = session.config
@@ -494,7 +511,8 @@ class SpillManager:
             raise ValueError("spill: no disk tier (state_dir unset)")
         _check_name(key_hash)
         os.makedirs(d, exist_ok=True)
-        final = os.path.join(d, f"{key_hash}.npy")
+        final = os.path.join(d, f"{key_hash}{_artifact_suffix(self.mesh)}"
+                                f".npy")
         tmp = f"{final}.tmp{os.getpid()}"
         # an open handle, not a path: np.save appends ".npy" to a bare
         # path, which would break the atomic tmp -> final rename
@@ -675,6 +693,9 @@ def save_state(session, directory: Optional[str] = None) -> dict:
         for nk, te in restored.items():
             _freeze(nk, te, list(te.meta.get("dep_names") or ()))
 
+    mesh = session.mesh
+    if mesh.ranked:
+        index = _merge_rank_indexes(index, mesh)
     state = {
         "spill_schema": SNAPSHOT_SCHEMA,
         "rc_index": index,
@@ -686,11 +707,19 @@ def save_state(session, directory: Optional[str] = None) -> dict:
     ckpt = CheckpointManager(os.path.join(root, "state"),
                              config=session.config)
     step = ckpt.next_step()
+    if mesh.ranked:
+        # rank 0 writes the step: every rank names the one it will
+        from matrel_tpu_torch.parallel import collectives as coll
+        step = coll.broadcast_object(step, mesh)
     dense, sparse, other = split_catalog(session.catalog)
     if other:
         _log.warning("save_state: catalog table(s) %s have no checkpoint "
                      "entry (COO) and are not saved", other)
-    path = ckpt.save(step, matrices=dense, sparse=sparse, state=state)
+    path = ckpt.save(step, matrices=dense, sparse=sparse, state=state,
+                     mesh=mesh)
+    if mesh.ranked:
+        # no rank reads the snapshot before rank 0 has committed it
+        coll.barrier(mesh)
     summary = {"path": path, "step": step,
                "catalog": len(dense) + len(sparse),
                "rc_entries": len(index), "rc_skipped": skipped,
@@ -698,6 +727,32 @@ def save_state(session, directory: Optional[str] = None) -> dict:
     if other:
         summary["catalog_skipped"] = other
     return summary
+
+
+def _merge_rank_indexes(index: list, mesh) -> list:
+    """Every rank's index records, merged for the one snapshot rank 0
+    writes: each record keeps its name key and metadata and carries the
+    artifact of every rank (``files`` / ``sha1s``, in rank order). The
+    ranks froze the same entries in the same order (they ran the same
+    queries); a disagreement raises rather than index a wrong block."""
+    from matrel_tpu_torch.parallel import collectives as coll
+    per_rank = coll.gather_objects(
+        [(r["nk"], r["file"], r["sha1"]) for r in index], mesh)
+    out = []
+    for i, rec in enumerate(index):
+        got = [recs[i] if i < len(recs) else None for recs in per_rank]
+        if any(g is None or g[0] != rec["nk"] for g in got):
+            raise RuntimeError("save_state: the ranks froze different "
+                               "result-cache entries")
+        rec = dict(rec)
+        del rec["file"], rec["sha1"]
+        rec["files"] = [g[1] for g in got]
+        rec["sha1s"] = [g[2] for g in got]
+        out.append(rec)
+    if any(len(recs) != len(index) for recs in per_rank):
+        raise RuntimeError("save_state: the ranks froze different "
+                           "result-cache entries")
+    return out
 
 
 def _export_fleet(session):
@@ -785,6 +840,7 @@ def load_snapshot(session, directory: Optional[str] = None) -> dict:
                      (state or {}).get("spill_schema"))
         out["reason"] = "foreign schema"
         return out
+    _check_world(state.get("rc_index") or (), session.mesh)
     out["restored"] = True
     out["step"] = step
     # catalog — through register(), the load_catalog discipline
@@ -806,6 +862,17 @@ def load_snapshot(session, directory: Optional[str] = None) -> dict:
     return out
 
 
+def _check_world(rc_index, mesh) -> None:
+    """Refuse (:class:`SnapshotGridMismatch`) a snapshot whose cached
+    results are blocks of another grid than this mesh's, before
+    anything is registered."""
+    current = _world(mesh)
+    for rec in rc_index:
+        meta = rec.get("meta") if isinstance(rec, dict) else None
+        if isinstance(meta, dict) and meta.get("world") != current:
+            raise SnapshotGridMismatch(meta.get("world"), current)
+
+
 def _restore_rc_index(session, root: str, rc_index) -> int:
     """Seed the spill manager's restored index from the snapshot's
     name-keyed entry records. Requires an attached spill hierarchy
@@ -822,12 +889,17 @@ def _restore_rc_index(session, root: str, rc_index) -> int:
     for rec in rc_index:
         try:
             meta = dict(rec["meta"])
+            if "files" in rec:
+                # a rank grid's snapshot: this rank's own block
+                r = session.mesh.ranks.rank
+                file, sha1 = rec["files"][r], rec["sha1s"][r]
+            else:
+                file, sha1 = rec["file"], rec.get("sha1")
             entries[rec["nk"]] = TierEntry(
                 tier="restored", meta=meta,
                 nbytes=int(rec["nbytes"]),
                 hits=int(rec.get("hits") or 0),
-                file=os.path.join(root, rec["file"]),
-                sha1=rec.get("sha1"))
+                file=os.path.join(root, file), sha1=sha1)
         except (KeyError, TypeError, ValueError):
             _log.warning("restore: malformed rc index record skipped",
                          exc_info=True)

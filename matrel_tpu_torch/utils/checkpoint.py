@@ -202,7 +202,10 @@ class CheckpointManager:
              matrices: Optional[Mapping[str, BlockMatrix]] = None,
              arrays: Optional[Mapping[str, Any]] = None,
              sparse: Optional[Mapping[str, Any]] = None,
-             state: Optional[Dict[str, Any]] = None) -> str:
+             state: Optional[Dict[str, Any]] = None,
+             mesh: Optional[Mesh] = None) -> str:
+        """Write step ``step``. On a rank mesh (``mesh``, else the dense
+        matrices' mesh) every rank calls it and rank 0 writes."""
         self._fault_check()
         matrices = dict(matrices or {})
         arrays = dict(arrays or {})
@@ -213,7 +216,8 @@ class CheckpointManager:
         # every rank gathers (a collective); only the writer touches disk
         hosts = {name: tensor_to_host(_whole(bm))
                  for name, bm in matrices.items()}
-        mesh = next((bm.mesh for bm in matrices.values()), None)
+        if mesh is None:
+            mesh = next((bm.mesh for bm in matrices.values()), None)
         if not _writes(mesh):
             return final
         tmp = final + ".tmp"

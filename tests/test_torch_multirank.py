@@ -51,6 +51,197 @@ GRAPH_N, GRAPH_E = 700, 6000
 CHAIN_N, CHAIN_TILE = 64, 8
 
 
+#: sharded-lowering inputs: ragged shapes, so block edges meet padding
+LOW_N, LOW_M = 37, 29
+#: index-join operands (row joins share LOW_N rows, col joins LOW_M
+#: columns) and value-join operands: Va's 1,280 entries and Vb's 1,152
+#: reach the query split (>= 128 entries a rank on 8 ranks); Vc's 20
+#: keep the callable join's pairs few
+JOIN_SHAPES = {"Ja": (LOW_N, 3), "Jb": (LOW_N, 4), "Ka": (3, LOW_M),
+               "Kb": (2, LOW_M)}
+VJ_SHAPES = {"Va": (32, 40), "Vb": (36, 32), "Vc": (4, 5)}
+AGG_KINDS = ("sum", "count", "avg", "max", "min")
+AGG_AXES = ("row", "col", "all", "diag")
+#: lowerings that keep their one counted whole gather (``gather_rep``)
+#: on a rank mesh: a broadcast vector, rank1's vectors, the replicated
+#: operand of a "left" / "right" join, a value join's entry vectors
+GATHERS = ("sub_col", "div_row", "rank1", "jrows_left", "jrows_right",
+           "jcols_left", "jcols_right", "vj_row_sum", "vj_col_count",
+           "vj_all_max", "vj_all_avg", "vj_callable_row", "vj_pairs")
+#: elementwise, scalar, σ and index-join lowerings: bit-equal to one card
+EXACT = ("add", "sub_col", "div_row", "mul", "max", "min_t", "scalar",
+         "pow", "pow0", "sel_value", "sel_fill", "sel_index", "sel_block",
+         "join_index", "rank1", "jrows_left", "jrows_right", "jrows_align",
+         "jcols_left", "jcols_right", "jcols_align", "vj_pairs",
+         "vj_row_sum", "vj_col_count", "vj_all_max", "vj_all_avg")
+#: S·D widths: 72 columns cut into slices of 18 / 9 (the f32 wide body
+#: either way), 16 into slices of 4 / 2 on 2 × 2 / 2 × 4 (the narrow
+#: body: the whole product runs on every rank)
+SPMM_WIDTHS = (72, 16)
+#: the durable and delta scenarios' matrix side and one cached entry
+DUR_N = 24
+DUR_ENTRY = DUR_N * DUR_N * 4
+
+
+def _lowering_arrays():
+    rng = np.random.default_rng(21)
+    f = lambda shape: rng.standard_normal(shape).astype(np.float32)
+    out = {"X": f((LOW_N, LOW_M)), "Y": f((LOW_N, LOW_M)),
+           "Z": f((LOW_M, LOW_N)), "Q": f((LOW_M, LOW_M)),
+           "u": f((LOW_N, 1)), "w": f((1, LOW_M)), "v": f((LOW_M, 1)),
+           "P": f((LOW_N, LOW_N)),
+           "I": rng.integers(-50, 50, (LOW_N, LOW_M)).astype(np.int32),
+           "Iq": rng.integers(-50, 50, (LOW_N, LOW_N)).astype(np.int32)}
+    out.update({k: f(v) for k, v in JOIN_SHAPES.items()})
+    # a few distinct values, so the equality predicates match
+    out.update({k: np.round(f(v) * 4) / 4 for k, v in VJ_SHAPES.items()})
+    return out
+
+
+def _lowering_exprs(R, m):
+    """name -> expression over one package's BlockMatrices ``m`` (``R``:
+    its relational.ops)."""
+    X, Y, Z, Q, u, w, v, P, I, Iq = (
+        m[k].expr() for k in "X Y Z Q u w v P I Iq".split())
+    ex = {
+        "add": X.add(Y), "sub_col": X.subtract(u), "div_row": X.divide(w),
+        "mul": X.elem_multiply(Y), "max": X.elem_max(Y),
+        "min_t": X.elem_min(Z.t()),
+        "scalar": X.multiply_scalar(0.5).add_scalar(1.0),
+        "pow": Y.power(2.0), "pow0": X.power(0.0),
+        "sel_value": X.select_value(lambda x: x > 0),
+        "sel_fill": X.select_value(lambda x: x > 0, fill=7.0),
+        "sel_index": X.select_index(rows=lambda i: i % 3 == 0,
+                                    cols=lambda j: j < 10),
+        "sel_block": R.select_blocks(X, lambda bi, bj: bi >= bj,
+                                     block_size=8),
+        "join_index": X.join_on_index(Y, lambda a, b: a + 2 * b),
+        "rank1": X.rank_one_update(u, v),
+        "norm": X.norm("fro"), "norm_l1": X.norm("l1"),
+        "norm_max": X.norm("max"),
+        "tail": X.multiply(Q).elem_multiply(Y).multiply_scalar(0.5)
+        .add_scalar(1.0).row_sum(),
+        "isum_row": R.aggregate(I, "sum", "row"),
+        "imax_col": R.aggregate(I, "max", "col"),
+        "imin_all": R.aggregate(I, "min", "all"),
+        "isum_diag": R.aggregate(Iq, "sum", "diag"),
+    }
+    for kind in AGG_KINDS:
+        for axis in AGG_AXES:
+            ex[f"agg_{kind}_{axis}"] = R.aggregate(
+                P if axis == "diag" else X, kind, axis)
+    for scheme in ("left", "right", "align"):
+        ex[f"jrows_{scheme}"] = R.join_on_rows(
+            m["Ja"], m["Jb"], "mul").with_attrs(replicate=scheme)
+        ex[f"jcols_{scheme}"] = R.join_on_cols(
+            m["Ka"], m["Kb"], lambda a, b: a - b).with_attrs(
+                replicate=scheme)
+    Va, Vb, Vc = m["Va"], m["Vb"], m["Vc"]
+    ex["vj_row_sum"] = R.aggregate(R.join_on_values(Va, Vb, "add", "lt"),
+                                   "sum", "row")
+    ex["vj_col_count"] = R.aggregate(
+        R.join_on_values(Va, Vb, "mul", "eq"), "count", "col")
+    ex["vj_all_max"] = R.aggregate(R.join_on_values(Va, Vb, "add", "ge"),
+                                   "max", "all")
+    ex["vj_all_avg"] = R.aggregate(R.join_on_values(Va, Vb, "mul", "gt"),
+                                   "avg", "all")
+    ex["vj_callable_row"] = R.aggregate(R.join_on_values(
+        Va, Vc, lambda a, b: a * b + 1, lambda a, b: a > b), "max", "row")
+    ex["vj_pairs"] = R.join_on_values(Va, Vc, lambda a, b: a - b)
+    return ex
+
+
+def _spmm_arrays(width):
+    rng = np.random.default_rng(31)
+    s = rng.standard_normal((48, 40)).astype(np.float32)
+    s[rng.random((6, 5)).repeat(8, 0).repeat(8, 1) < 0.5] = 0.0
+    return s, rng.standard_normal((40, width)).astype(np.float32)
+
+
+def _dur_arrays():
+    rng = np.random.default_rng(41)
+    return {nm: rng.standard_normal((DUR_N, DUR_N)).astype(np.float32)
+            for nm in ("a", "b", "c")}
+
+
+def _spill_cfg(Config, root, **over):
+    cfg = dict(spill_enable=True,
+               result_cache_max_bytes=int(1.5 * DUR_ENTRY),
+               result_cache_max_entries=8,
+               spill_host_max_bytes=8 * DUR_ENTRY, spill_disk_hits=0,
+               state_dir=root)
+    cfg.update(over)
+    return Config(**cfg)
+
+
+def _spill_scenario(Session, Config, mesh, root):
+    """The spill tiers and a save / restore, in either package: Gram
+    queries that evict one another through the host tier (then, with a
+    one-byte host budget, to disk), a snapshot, and a fresh session
+    restored from it. Returns the counters and every answer."""
+    arrs = _dur_arrays()
+    gram = lambda s, nm: s.catalog[nm].expr().t().multiply(
+        s.catalog[nm].expr())
+    out = {"ans": [], "ans2": []}
+    sess = Session(mesh=mesh, config=_spill_cfg(Config, root))
+    for nm, a in arrs.items():
+        sess.register(nm, sess.from_numpy(a))
+    for nm in ("a", "b", "a", "c", "b"):
+        out["ans"].append(sess.run(gram(sess, nm)).to_numpy())
+    out["info1"] = dict(sess.result_cache_info()["spill"])
+    disk = Session(mesh=mesh, config=_spill_cfg(
+        Config, root, spill_host_max_bytes=1))
+    for nm, a in arrs.items():
+        disk.register(nm, disk.from_numpy(a))
+    for nm in ("a", "b", "c", "a"):
+        out["ans"].append(disk.run(gram(disk, nm)).to_numpy())
+    out["info_disk"] = dict(disk.result_cache_info()["spill"])
+    saved = sess.save_state()
+    out["saved"] = {k: saved[k] for k in ("catalog", "rc_entries",
+                                          "rc_skipped")}
+    again = Session(mesh=mesh, config=_spill_cfg(Config, root))
+    rest = again.restore()
+    out["restored"] = {k: rest[k] for k in ("restored", "catalog",
+                                            "rc_entries")}
+    for nm in ("a", "b", "c"):
+        out["ans2"].append(again.run(gram(again, nm)).to_numpy())
+    out["info2"] = dict(again.result_cache_info()["spill"])
+    return out
+
+
+def _delta_scenario(Session, Config, BSM, mesh):
+    """register_delta on a dense and on a block-sparse target, in either
+    package: the cached product is patched, and answers the rebound
+    product. Returns the summaries (less their wall clock), the cache
+    counters and the answers."""
+    rng = np.random.default_rng(51)
+    a = rng.standard_normal((DUR_N, DUR_N)).astype(np.float32)
+    b = rng.standard_normal((DUR_N, DUR_N)).astype(np.float32)
+    s = a.copy()
+    s[rng.random((3, 3)).repeat(8, 0).repeat(8, 1) < 0.5] = 0.0
+    rows = rng.integers(0, DUR_N, 5)
+    cols = rng.integers(0, DUR_N, 5)
+    vals = rng.standard_normal(5).astype(np.float32)
+    sess = Session(mesh=mesh, config=Config(
+        result_cache_max_bytes=256 << 20))
+    B = sess.from_numpy(b)
+    sess.register("A", sess.from_numpy(a))
+    sess.register("S", BSM.from_numpy(s, block_size=8, mesh=mesh))
+    out = {}
+    for name in ("A", "S"):
+        q = lambda: sess.catalog[name].expr().multiply(B.expr())
+        out[f"{name}_before"] = sess.run(q()).to_numpy()
+        rec = sess.register_delta(name, (rows, cols, vals), kind="coo")
+        out[f"{name}_summary"] = {k: v for k, v in rec.items() if k != "ms"}
+        out[f"{name}_after"] = sess.run(q()).to_numpy()
+    info = sess.result_cache_info()
+    out["counters"] = {k: info[k] for k in ("hits", "patched")}
+    upd = np.zeros((DUR_N, DUR_N), np.float32)
+    np.add.at(upd, (rows, cols), vals)
+    out["rebound"] = (a + upd, s + upd, b)
+    return out
+
+
 def _graph(seed=5):
     rng = np.random.default_rng(seed)
     src = rng.integers(0, GRAPH_N, GRAPH_E)
@@ -226,6 +417,9 @@ def _battery(mesh, world, out_dir):
                    bool(torch.equal(got.data, A.data)),
                    bool(np.array_equal(got.to_numpy(), a)))
 
+    _mark("sharded lowerings")
+    res.update(_sharded_battery(mesh, out_dir))
+
     _mark("a measured matmul choice")
     # a measured matmul choice: rank 0's medians on every rank
     best, times = autotune.autotune_matmul(16, 16, 16, mesh=mesh)
@@ -234,6 +428,127 @@ def _battery(mesh, world, out_dir):
     res["loaded"] = sorted(m for m in sys.modules
                            if m.split(".")[0] in ("jax", "jaxlib",
                                                   "matrel_tpu"))
+    return res
+
+
+def _sharded_battery(mesh, out_dir):
+    """The sharded lowerings, B1 on column slices, fused regions, unit
+    programs, register_delta and the spill tiers on the ranks, each with
+    the one-card answer beside it where the tests hold the two
+    bit-equal."""
+    from matrel_tpu_torch import executor
+    from matrel_tpu_torch.config import MatrelConfig
+    from matrel_tpu_torch.core import padding
+    from matrel_tpu_torch.core.mesh import make_mesh
+    from matrel_tpu_torch.core.sparse import BlockSparseMatrix
+    from matrel_tpu_torch.parallel import collectives as coll
+    from matrel_tpu_torch.relational import ops as R
+    from matrel_tpu_torch.resilience.errors import SnapshotGridMismatch
+    from matrel_tpu_torch.session import MatrelSession
+    res = {}
+    one_mesh = make_mesh(device="cpu")
+    sess, one = MatrelSession(mesh=mesh), MatrelSession(mesh=one_mesh)
+    arrs = _lowering_arrays()
+    exprs = _lowering_exprs(R, {k: sess.from_numpy(a)
+                                for k, a in arrs.items()})
+    oexprs = _lowering_exprs(R, {k: one.from_numpy(a)
+                                 for k, a in arrs.items()})
+    low = {}
+    for name, e in exprs.items():
+        coll.reset_tally()
+        got = sess.compute(e)
+        tally = coll.tally()
+        low[name] = (tally, got.to_numpy(), one.compute(oexprs[name])
+                     .to_numpy())
+    res["lowerings"] = low
+
+    def whole(block, shape):
+        ps = padding.padded_shape(shape, mesh)
+        sh = coll.Shard(block, coll.layout_of(
+            padding.canonical_spec(ps, mesh), mesh), ps)
+        return coll.gather_full(sh, mesh)[: shape[0], : shape[1]].numpy()
+
+    # B1 on each rank's column slice of D (its plain version here), a
+    # sharded tail read in place, the choice in the plan's decisions
+    spmm = {}
+    for width in SPMM_WIDTHS:
+        s, d = _spmm_arrays(width)
+        S = BlockSparseMatrix.from_numpy(s, block_size=8, mesh=mesh)
+        oS = BlockSparseMatrix.from_numpy(s, block_size=8, mesh=one_mesh)
+        D, oD = sess.from_numpy(d), one.from_numpy(d)
+        e = S.multiply(D)
+        tail = S.multiply(D).multiply_scalar(0.5).add_scalar(1.0).row_sum()
+        coll.reset_tally()
+        prod = sess.compute(e)
+        prod_tally = coll.tally()
+        coll.reset_tally()
+        tail_out = sess.compute(tail)
+        tail_tally = coll.tally()
+        fs = MatrelSession(mesh=mesh, config=MatrelConfig(
+            fusion_enable=True))
+        fused_tail = S.multiply(fs.from_numpy(d)).multiply_scalar(0.5)\
+            .add_scalar(1.0)
+        fplan = fs.compile(fused_tail)
+        spmm[width] = {
+            "split": [rec.get("spmm_ranks") for rec in
+                      executor.plan_matmul_decisions(sess.compile(e))],
+            "prod": prod.to_numpy(), "prod_tally": prod_tally,
+            "one": one.compute(oS.multiply(oD)).to_numpy(),
+            "tail": tail_out.to_numpy(), "tail_tally": tail_tally,
+            "one_tail": one.compute(oS.multiply(oD).multiply_scalar(0.5)
+                                    .add_scalar(1.0).row_sum()).to_numpy(),
+            "fused_regions": fplan.meta["fusion"]["regions"],
+            "fused": fs.compute(fused_tail).to_numpy(),
+            "staged": sess.compute(S.multiply(D).multiply_scalar(0.5)
+                                   .add_scalar(1.0)).to_numpy(),
+        }
+    res["spmm_cols"] = spmm
+
+    # fused regions against staged ones, and the plan as unit programs
+    x, q, y = (sess.from_numpy(arrs[k]) for k in "XQY")
+    fcfg = MatrelConfig(fusion_enable=True)
+    fs = MatrelSession(mesh=mesh, config=fcfg)
+    fx, fq, fy = (fs.from_numpy(arrs[k]) for k in "XQY")
+    chain = lambda a, b, c: a.multiply(b).elem_multiply(c)\
+        .multiply_scalar(0.5).add_scalar(1.0)
+    e = chain(fx, fq, fy)
+    coll.reset_tally()
+    fused = fs.compute(e).to_numpy()
+    fused_tally = coll.tally()
+    staged_u = executor.compile_staged_units(e, mesh, fcfg)
+    region_u = executor.compile_region_units(e, mesh, fcfg)
+    res["fusion"] = {
+        "regions": fs.compile(e).meta["fusion"]["regions"],
+        "fused": fused, "fused_tally": fused_tally,
+        "staged": sess.compute(chain(x, q, y)).to_numpy(),
+        "staged_units": whole(staged_u.run(), (LOW_N, LOW_M)),
+        "region_units": whole(region_u.run(), (LOW_N, LOW_M)),
+        "dispatches": (staged_u.dispatches, region_u.dispatches),
+    }
+
+    res["delta"] = _delta_scenario(MatrelSession, MatrelConfig,
+                                   BlockSparseMatrix, mesh)
+
+    root = os.path.join(out_dir, "spill_state")
+    res["spill"] = _spill_scenario(MatrelSession, MatrelConfig, mesh, root)
+    suffix = f".r{mesh.ranks.rank}.{mesh.grid[0]}x{mesh.grid[1]}.npy"
+    files = sorted(os.listdir(os.path.join(root, "spill")))
+    res["spill_files"] = (len(files), sum(f.endswith(suffix) for f in files))
+    other = MatrelSession(mesh=one_mesh, config=_spill_cfg(MatrelConfig,
+                                                           root))
+    try:
+        other.restore()
+        res["spill_other_grid"] = "restored"
+    except SnapshotGridMismatch as e:
+        res["spill_other_grid"] = (e.saved, e.current)
+    # the fleet stays a one-card plane (its rank-mesh slice is next)
+    from matrel_tpu_torch.config import NotPortedError
+    try:
+        MatrelSession(mesh=mesh, config=MatrelConfig(
+            fleet_slices=2))._ensure_fleet()
+        res["fleet_fence"] = False
+    except NotPortedError:
+        res["fleet_fence"] = True
     return res
 
 
@@ -552,3 +867,314 @@ def test_backend_is_explicit():
     if torch.cuda.device_count() < 4:
         with pytest.raises(mesh_lib.DeviceUnavailableError, match="nccl"):
             mesh_lib.init_distributed("nccl", "file:///nonexistent", 4, 0)
+
+
+# -- the sharded lowerings (``_sharded_battery``) -------------------------------
+
+#: f32's unit roundoff
+U32 = 2.0 ** -24
+
+
+def _jax_lowerings(world):
+    """The JAX package's answers to ``_lowering_exprs`` on the world's
+    CPU mesh (``mesh_square`` / ``mesh8``)."""
+    from matrel_tpu import executor as j_exec
+    from matrel_tpu.core.blockmatrix import BlockMatrix as JBM
+    from matrel_tpu.relational import ops as JR
+    mesh = _jax_mesh(world)
+    arrs = _lowering_arrays()
+    ex = _lowering_exprs(JR, {k: JBM.from_numpy(a, mesh=mesh)
+                              for k, a in arrs.items()})
+    return {k: np.asarray(j_exec.execute(e, mesh).to_numpy())
+            for k, e in ex.items()}
+
+
+def _numpy_oracle(arrs):
+    """name -> float64 numpy answer of every ``_lowering_exprs`` entry
+    (logical shapes)."""
+    a = {k: v.astype(np.float64) for k, v in arrs.items()}
+    X, Y, Z, Q, u, w, v, P = (a[k] for k in "X Y Z Q u w v P".split())
+    n, m = X.shape
+    i, j = np.arange(n)[:, None], np.arange(m)[None, :]
+    out = {
+        "add": X + Y, "sub_col": X - u,
+        "div_row": np.where(w == 0, 0.0, X / np.where(w == 0, 1.0, w)),
+        "mul": X * Y, "max": np.maximum(X, Y), "min_t": np.minimum(X, Z.T),
+        "scalar": X * 0.5 + 1.0, "pow": Y ** 2, "pow0": np.ones_like(X),
+        "sel_value": np.where(X > 0, X, 0.0),
+        "sel_fill": np.where(X > 0, X, 7.0),
+        "sel_index": np.where((i % 3 == 0) & (j < 10), X, 0.0),
+        "sel_block": np.where(i // 8 >= j // 8, X, 0.0),
+        "join_index": X + 2 * Y, "rank1": X + u @ v.T,
+        "norm": np.sqrt((X * X).sum()).reshape(1, 1),
+        "norm_l1": np.abs(X).sum().reshape(1, 1),
+        "norm_max": np.abs(X).max().reshape(1, 1),
+        "tail": ((X @ Q) * Y * 0.5 + 1.0).sum(1, keepdims=True),
+        "isum_row": a["I"].sum(1, keepdims=True),
+        "imax_col": a["I"].max(0, keepdims=True),
+        "imin_all": a["I"].min().reshape(1, 1),
+        "isum_diag": np.trace(a["Iq"]).reshape(1, 1),
+    }
+    reds = {"sum": np.sum, "count": np.count_nonzero, "max": np.max,
+            "min": np.min}
+    for kind in AGG_KINDS:
+        for axis in AGG_AXES:
+            src = np.diag(P)[None, :] if axis == "diag" else X
+            ax = {"row": 1, "col": 0}.get(axis)
+            kw = {"axis": ax, "keepdims": True} if ax is not None else {}
+            if kind == "avg":
+                r = reds["sum"](src, **kw) / reds["count"](src, **kw)
+            else:
+                r = reds[kind](src, **kw)
+            out[f"agg_{kind}_{axis}"] = np.asarray(
+                r, np.float64).reshape(-1 if ax == 1 else 1,
+                                       -1 if ax == 0 else 1)
+    pr = (a["Ja"][:, :, None] * a["Jb"][:, None, :]).reshape(n, -1)
+    pc = (a["Ka"][:, None, :] - a["Kb"][None, :, :]).reshape(-1, m)
+    for scheme in ("left", "right", "align"):
+        out[f"jrows_{scheme}"], out[f"jcols_{scheme}"] = pr, pc
+    va, vb, vc = (a[k].T.reshape(-1) for k in ("Va", "Vb", "Vc"))
+    A, B, C = va[:, None], vb[None, :], vc[None, :]
+    rs = np.where(A < B, A + B, 0.0)
+    out["vj_row_sum"] = rs.sum(1, keepdims=True)
+    out["vj_col_count"] = np.count_nonzero(np.where(A == B, A * B, 0.0),
+                                           axis=0, keepdims=True)
+    out["vj_all_max"] = np.where(A >= B, A + B, 0.0).max().reshape(1, 1)
+    g = np.where(A > B, A * B, 0.0)
+    out["vj_all_avg"] = (g.sum() / np.count_nonzero(g)).reshape(1, 1)
+    out["vj_callable_row"] = np.where(A > C, A * C + 1, 0.0).max(
+        1, keepdims=True)
+    out["vj_pairs"] = A - C
+    return out
+
+
+def _sum_bound(name, arrs):
+    """For an aggregate that sums f32 terms: 2·K·u·Σ|x| over the K
+    terms each output sums (the rank mesh's sum of ``mesh.size``
+    partials and one card's running sum each lie within K·u·Σ|x| of the
+    exact sum), divided by the count for an average; (K + 2)·u·‖X‖ for
+    the Frobenius norm (the sum's bound through the square root, and
+    its rounding). None for a lowering held by another rule."""
+    parts = name.split("_")
+    if name == "norm":
+        x = arrs["X"].astype(np.float64)
+        return (x.size + 2) * U32 * np.sqrt((x * x).sum())
+    if name == "norm_l1":
+        x = np.abs(arrs["X"].astype(np.float64))
+        return 2 * x.size * U32 * x.sum()
+    if parts[0] != "agg" or parts[1] not in ("sum", "avg"):
+        return None
+    axis = parts[2]
+    x = np.abs(arrs["P" if axis == "diag" else "X"].astype(np.float64))
+    if axis == "row":
+        s, k = x.sum(1, keepdims=True), x.shape[1]
+    elif axis == "col":
+        s, k = x.sum(0, keepdims=True), x.shape[0]
+    elif axis == "all":
+        s, k = x.sum().reshape(1, 1), x.size
+    else:
+        s, k = np.diag(x).sum().reshape(1, 1), x.shape[0]
+    if parts[1] == "avg":
+        s = s / k             # gaussian entries: every term is nonzero
+    return 2 * k * U32 * s
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_lowerings_match(worlds, world):
+    """Every lowering of items 2–4 on the ranks: elementwise, scalar, σ,
+    index and row/col joins, rank1 and the value joins bit-equal to one
+    card; integer aggregates, counts, max and min equal; f32 sums and
+    averages within 2·K·u·Σ|x| of one card's (``_sum_bound``); all
+    within the same bounds (or 1e-5, 1e-4 for the value joins' f32
+    sums and the matmul tail) of the JAX package on the conftest's
+    mesh, and of float64 numpy (``_numpy_oracle``; rtol 1e-5, atol 1e-4,
+    1e-3 for the matmul tail, the sum bound for f32 sums)."""
+    arrs = _lowering_arrays()
+    jax_out = _jax_lowerings(world)
+    oracle = _numpy_oracle(arrs)
+    for r in worlds[world]:
+        for name, (_tally, got, one) in r["lowerings"].items():
+            want = jax_out[name]
+            assert got.shape == one.shape == want.shape, name
+            bound = _sum_bound(name, arrs)
+            exact = oracle[name]
+            if bound is not None:
+                assert (np.abs(got - exact) <= bound).all(), name
+            else:
+                np.testing.assert_allclose(
+                    got, exact, rtol=1e-5,
+                    atol=1e-3 if name == "tail" else 1e-4, err_msg=name)
+            if name in EXACT or name.startswith(("agg_count", "agg_max",
+                                                 "agg_min", "i", "norm_max")):
+                np.testing.assert_array_equal(got, one, err_msg=name)
+            elif bound is not None:
+                assert (np.abs(got.astype(np.float64) - one)
+                        <= bound).all(), name
+            if bound is not None:
+                assert (np.abs(got.astype(np.float64) - want)
+                        <= bound).all(), name
+            elif name.startswith(("vj_", "tail")):
+                np.testing.assert_allclose(got, want, rtol=1e-5,
+                                           atol=1e-4, err_msg=name)
+                np.testing.assert_allclose(got, one, rtol=1e-5,
+                                           atol=1e-4, err_msg=name)
+            else:
+                np.testing.assert_allclose(got, want, rtol=1e-6,
+                                           atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_lowering_tallies(worlds, world):
+    """No whole gather (``gather_rep``) but where a lowering keeps one:
+    a broadcast vector (one), rank1's two vectors, the replicated
+    operand of a "left" / "right" join (exactly one), a value join's
+    two entry vectors. The ((A·B) ⊙ C) * 0.5 + 1 → row_sum tail counts
+    none; "align" moves no whole operand (no all-gather of any kind —
+    the JAX package's ``test_align_hlo_avoids_full_operand_allgather``);
+    aggregates reduce over their axis group only."""
+    want = {"sub_col": 1, "div_row": 1, "rank1": 2, "jrows_left": 1,
+            "jrows_right": 1, "jcols_left": 1, "jcols_right": 1}
+    for r in worlds[world]:
+        for name, (tally, _got, _one) in r["lowerings"].items():
+            gathers = tally.get("gather_rep:world", 0)
+            if name not in GATHERS:
+                assert gathers == 0, (name, tally)
+            elif name.startswith("vj_"):
+                assert gathers == 2, (name, tally)
+            else:
+                assert gathers == want[name], (name, tally)
+        for scheme in ("jrows_align", "jcols_align"):
+            tally = r["lowerings"][scheme][0]
+            assert not any(k.startswith(("all_gather", "gather_rep"))
+                           for k in tally), (scheme, tally)
+        assert r["lowerings"]["agg_sum_row"][0] == {"axis_reduce:y": 1}
+        assert r["lowerings"]["agg_max_col"][0] == {"axis_reduce:x": 1}
+        assert r["lowerings"]["agg_count_all"][0] == {
+            "axis_reduce:world": 1}
+        assert "gather_rep:world" not in r["lowerings"]["tail"][0]
+        assert r["lowerings"]["vj_row_sum"][0]["share_gather:world"] == 1
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_spmm_column_slices(worlds, world):
+    """S·D on the ranks: 72 columns run B1 (its plain version here) on
+    each rank's column slice, the product a Shard by columns that the
+    sharded tail reads in place (no whole gather) and that fused and
+    staged lowerings agree on; 16 columns (a slice of 4 / 2 would fall
+    to the narrow body) run the whole product on every rank, recorded
+    as such. Both bit-equal to one card, and within 1e-4 of the JAX
+    package and float64 numpy."""
+    from matrel_tpu import executor as j_exec
+    from matrel_tpu.core.blockmatrix import BlockMatrix as JBM
+    from matrel_tpu.core.sparse import BlockSparseMatrix as JBS
+    mesh = _jax_mesh(world)
+    for width in SPMM_WIDTHS:
+        s, d = _spmm_arrays(width)
+        jS = JBS.from_numpy(s, block_size=8, mesh=mesh)
+        want = np.asarray(j_exec.execute(
+            jS.multiply(JBM.from_numpy(d, mesh=mesh)), mesh).to_numpy())
+        exact = s.astype(np.float64) @ d
+        for r in worlds[world]:
+            rec = r["spmm_cols"][width]
+            assert rec["split"] == (["col_slice"] if width == 72
+                                    else ["whole"])
+            np.testing.assert_array_equal(rec["prod"], rec["one"])
+            np.testing.assert_allclose(rec["prod"], want, rtol=1e-4,
+                                       atol=1e-4)
+            np.testing.assert_allclose(rec["prod"], exact, rtol=1e-4,
+                                       atol=1e-4)
+            np.testing.assert_allclose(rec["tail"], rec["one_tail"],
+                                       rtol=1e-5, atol=1e-4)
+            np.testing.assert_allclose(
+                rec["tail"], (0.5 * exact + 1.0).sum(1, keepdims=True),
+                rtol=1e-4, atol=1e-3)
+            assert rec["fused_regions"] == 1
+            np.testing.assert_array_equal(rec["fused"], rec["staged"])
+            if width == 72:
+                assert "gather_rep:world" not in rec["prod_tally"]
+                assert "gather_rep:world" not in rec["tail_tally"]
+            else:
+                assert rec["prod_tally"]["gather_rep:world"] == 1
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_fused_regions_and_unit_programs(worlds, world):
+    """A fused region on the ranks (the epilogue on each rank's block of
+    the anchor output) equals the staged lowering bit for bit; the plan
+    as staged and as region unit programs equals both; region and
+    dispatch counts are the JAX package's on its mesh, and the values
+    within 1e-4 of its fused result."""
+    from matrel_tpu import executor as j_exec
+    from matrel_tpu.config import MatrelConfig as JConfig
+    from matrel_tpu.core.blockmatrix import BlockMatrix as JBM
+    mesh = _jax_mesh(world)
+    arrs = _lowering_arrays()
+    cfg = JConfig(fusion_enable=True)
+    x, q, y = (JBM.from_numpy(arrs[k], mesh=mesh) for k in "XQY")
+    e = x.multiply(q).elem_multiply(y).multiply_scalar(0.5).add_scalar(1.0)
+    plan = j_exec.compile_expr(e, mesh, cfg)
+    want = np.asarray(plan.run().to_numpy())
+    staged = j_exec.compile_staged_units(e, mesh, cfg)
+    region = j_exec.compile_region_units(e, mesh, cfg)
+    for r in worlds[world]:
+        f = r["fusion"]
+        assert f["regions"] == plan.meta["fusion"]["regions"] == 1
+        assert f["dispatches"] == (staged.dispatches, region.dispatches)
+        np.testing.assert_array_equal(f["fused"], f["staged"])
+        np.testing.assert_array_equal(f["staged_units"], f["fused"])
+        np.testing.assert_array_equal(f["region_units"], f["fused"])
+        np.testing.assert_allclose(f["fused"], want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_register_delta_on_ranks(worlds, world):
+    """register_delta on a dense target (each rank scatters the entries
+    inside its block) and a block-sparse one (every rank rebuilds the
+    touched tiles): the cached products are patched, the summaries and
+    counters are the JAX package's on its mesh, and the patched answers
+    equal the rebound product within 1e-4 of float64 numpy."""
+    from matrel_tpu.config import MatrelConfig as JConfig
+    from matrel_tpu.core.sparse import BlockSparseMatrix as JBS
+    from matrel_tpu.session import MatrelSession as JSession
+    want = _delta_scenario(JSession, JConfig, JBS, _jax_mesh(world))
+    for r in worlds[world]:
+        got = r["delta"]
+        a, s, b = got["rebound"]
+        assert got["counters"] == want["counters"]
+        assert got["counters"]["patched"] == 2
+        for name, full in (("A", a @ b), ("S", s @ b)):
+            assert got[f"{name}_summary"] == want[f"{name}_summary"]
+            np.testing.assert_allclose(got[f"{name}_after"], full,
+                                       rtol=1e-4, atol=1e-4)
+            np.testing.assert_allclose(got[f"{name}_after"],
+                                       want[f"{name}_after"], rtol=1e-4,
+                                       atol=1e-4)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_spill_tiers_on_ranks(worlds, world, tmp_path):
+    """The spill tiers on the ranks: each rank demotes, ages to disk and
+    promotes its own block under artifact names that carry its rank and
+    the grid; the tier counters, the snapshot's and the restore's are
+    the JAX package's on its mesh; a restore on the same grid thaws
+    every rank's block back bit for bit; a restore on one device refuses
+    with ``SnapshotGridMismatch``. The fleet still refuses a rank
+    mesh."""
+    from matrel_tpu.config import MatrelConfig as JConfig
+    from matrel_tpu.session import MatrelSession as JSession
+    want = _spill_scenario(JSession, JConfig, _jax_mesh(world),
+                           str(tmp_path))
+    gx, gy = WORLDS[world]
+    for r in worlds[world]:
+        got = r["spill"]
+        for key in ("info1", "info_disk", "saved", "restored", "info2"):
+            assert got[key] == want[key], key
+        assert got["info2"]["thawed_restored"] == 3
+        for g, o in zip(got["ans2"], [got["ans"][i] for i in (0, 1, 3)]):
+            np.testing.assert_array_equal(g, o)
+        for g, w in zip(got["ans"], want["ans"]):
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+        total, mine = r["spill_files"]
+        assert mine >= 1 and total == mine * gx * gy
+        assert r["spill_other_grid"] == ([gx, gy], None)
+        assert r["fleet_fence"] is True
