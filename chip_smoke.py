@@ -294,9 +294,20 @@
    spgemm_sharded at n = 32,768, spmm_sharded at row 4's shape,
    streaming_chain_sharded at n = 65,536 (one panel a rank, within
    (p - 1)·u of the one-card slab) and autotune_matmul at 4096 (one
-   winner on every rank), each rank under its own peak bounds
-   (MR_PEAK_LIMIT_GIB). The ranks' B2 / B3 launches join the kernels
-   line (launches_on_ranks). The kernel phase also holds B2 / B3 on the
+   winner on every rank), the sharded tail, then serving on the ranks
+   (mr_serving: submit on the decision log, the reproducer's three
+   queries at row 4's width in an even round and a round with rank 1
+   staggered, each rank's blocks held to one card's answers, and a
+   cycle's three control exchanges timed with the ranks lined up) and
+   the fleet on 2 slices of 2 ranks (mr_fleet: S·D placed on a slice
+   and run through the slice's pipeline, B1 on its ranks only and held
+   to B1's plain version; row 2's chain on the span; a directory hit
+   with no launch; kill_slice and S·D on the survivor; row 5's A·x
+   placed on a slice, B2 on its ranks only; fleet_info equal on every
+   rank; the router's five exchanges a routed cycle timed lined up),
+   each rank under its own
+   peak bounds (MR_PEAK_LIMIT_GIB). The ranks' B1 / B2 / B3 launches
+   join the kernels line (launches_on_ranks). The kernel phase also holds B2 / B3 on the
    sentinel-padded slices of four ranks (spmv_slice_phase).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
@@ -7500,20 +7511,30 @@ MR_SPGEMM_N = 32_768
 #: autotune_matmul's side on the rank grid.
 MR_AT_SIDE = 4096
 #: Each rank's own peak device memory bound (GiB), per sub-phase:
-#: 1.25 × the peak every rank read on the card (four ranks on one H100
-#: 80GB HBM3 over gloo, PERF.md §6; the chain's is one 16,384-row panel;
-#: "tail" the largest of sharded_tail's four, row 4's S·D with the tile
-#: stack whole on every rank).
+#: 1.25 × the largest peak a rank read on the card (four ranks on one
+#: H100 80GB HBM3 over gloo, a `--multirank` run in PERF.md §6; the
+#: chain's is one 16,384-row panel; "tail" the largest of
+#: sharded_tail's four, row 4's S·D with the tile stack whole on every
+#: rank; "serving" row 4's S·D and its three queries' answers, "fleet"
+#: S·D on a slice of two ranks).
 MR_PEAK_LIMIT_GIB = {k: 1.25 * v for k, v in {
-    "row1": 0.422, "row2": 0.132, "row5": 0.438, "spgemm": 0.166,
+    "row1": 0.422, "row2": 0.129, "row5": 0.438, "spgemm": 0.166,
     "spmm": 0.920, "chain": 7.000, "autotune": 0.297,
-    "tail": 0.562}.items()}
+    "tail": 0.562, "serving": 0.793, "fleet": 0.747}.items()}
 #: sharded_tail (d): register_delta's matrix side and edge count, and
 #: the align join's rows and operand widths
 MR_DELTA_N, MR_DELTA_EDGES = 4096, 64
 MR_JOIN_ROWS, MR_JOIN_COLS = 65_536, 16
 #: The single-rank answers the ranks compare with, written by the parent.
 MR_DIR = os.path.join(HERE, "build", "chip_smoke", "multirank")
+#: mr_serving: rank 1 sleeps this long after each submit (the staggered
+#: round), and the two 512² bf16 right-hand sides' seeds
+MR_SERVE_STAGGER_S = 0.5
+MR_SERVE_W_SEEDS = (7, 8)
+#: mr_fleet: its slices (2 × 2 ranks) and the span margin that places
+#: row 4's S·D on a slice (a margin under 1 biases toward slices)
+MR_FLEET_SLICES = 2
+MR_FLEET_SPAN_MARGIN = 0.01
 
 
 def mr_stamps(plan) -> list:
@@ -8011,6 +8032,260 @@ def mr_sharded_tail(me: MrRank) -> dict:
     return out
 
 
+def mr_serve_queries(sess):
+    """The serving reproducer at row 4's width: one shared S·D (bf16)
+    and three queries over it — two chains S·D·W (W square, D's width)
+    and a sum."""
+    S, D = row4_inputs(sess)
+    k = D.shape[1]
+    W1, W2 = (sess.random((k, k), dtype="bfloat16", seed=s)
+              for s in MR_SERVE_W_SEEDS)
+    sh = S.multiply(D)
+    return [sh.multiply(W1), sh.multiply(W2).multiply_scalar(2.0),
+            sh.add(D)]
+
+
+def mr_sync(mesh) -> None:
+    import torch
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+
+
+def mr_serving(me: MrRank) -> dict:
+    """``submit`` on the decision log: the reproducer's three queries at
+    row 4's width, one warm round, then a round with every rank
+    submitting at once and one with rank 1 sleeping MR_SERVE_STAGGER_S
+    after each submit. Each rank's blocks of the three answers are held
+    to the one-card answers (bf16 tolerance); submit-to-result (rank 0's
+    clock, from its first submit to its last result on the device), B1
+    launches and the records' cost are reported a round."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.ops import pallas_spmm
+    sess = MatrelSession(mesh=me.mesh, config=MatrelConfig(
+        serve_max_batch=8, cse_enable=True))
+    qs = mr_serve_queries(sess)
+    refs = [np.load(os.path.join(MR_DIR, f"serve_ref{i}.npy"),
+                    mmap_mode="r") for i in range(len(qs))]
+    out = {}
+    for name, stagger in (("warm", 0.0), ("even", 0.0),
+                          ("staggered", MR_SERVE_STAGGER_S)):
+        pipe = sess._serve
+        before = pipe._log.info() if pipe is not None else {
+            "cycles": 0, "exchanges": 0, "control_ms": 0.0}
+        with me.mesh.ranks.held():
+            from matrel_tpu_torch.parallel import collectives as coll
+            coll.barrier(me.mesh)
+        pallas_spmm.LAUNCHES = 0
+        t0 = time.perf_counter()
+        futs = []
+        for q in qs:
+            futs.append(sess.submit(q))
+            if stagger and me.rank == 1:
+                time.sleep(stagger)
+        res = [f.result(timeout=MR_TIMEOUT_S) for f in futs]
+        mr_sync(me.mesh)
+        ms = (time.perf_counter() - t0) * 1e3
+        sess.serve_drain()
+        after = sess._serve._log.info()
+        errs = []
+        for i, (r, ref) in enumerate(zip(res, refs)):
+            want = torch.as_tensor(np.array(me.block_of(ref, r.spec)),
+                                   device=r.data.device)
+            errs.append(check_close(f"serving {name} q{i}", r.data.float(),
+                                    want, "bfloat16"))
+        cycles = after["cycles"] - before["cycles"]
+        out[name] = {
+            "ms": ms, "launches": pallas_spmm.LAUNCHES,
+            "max_abs_err": max(errs), "cycles": cycles,
+            "exchanges": after["exchanges"] - before["exchanges"],
+            "control_ms": after["control_ms"] - before["control_ms"],
+            "batches": sess._serve.batches}
+        del res, futs
+    pipe = sess._serve
+    out["counters"] = {"deadline_misses": pipe.deadline_misses,
+                       "divergences": pipe.divergences,
+                       "batches": pipe.batches}
+    out["record_ms"] = mr_record_cost(me, pipe._log, len(qs))
+    sess.serve_close(timeout=MR_TIMEOUT_S)
+    return out
+
+
+def mr_record_cost(me: MrRank, dlog, n: int, cycles: int = 20,
+                   routed: bool = False) -> float:
+    """The agreement's own cost a cycle, the ranks lined up (a barrier
+    first, the worker idle): a record of ``n`` entries published, the
+    ranks' reports gathered, one group's outcome gathered — the three
+    exchanges of a pipeline's cycle — median ms on this rank's clock.
+    ``routed``: the fleet router's cycle of one item on a rank mesh, two
+    more in front (the router's record and the ranks' reports on the
+    directory), five in all."""
+    from matrel_tpu_torch.parallel import collectives as coll
+    rec = {"cycle": 0, "seqs": list(range(n)), "fail": {}, "admit": [],
+           "sample": None, "rung": 0, "stale": [],
+           "waits": dict.fromkeys(range(n), 0.1), "depth": 0,
+           "tenant_depths": {}}
+    facts = {s: (True, "0" * 16, "", None) for s in range(n)}
+    outcome = {"ok": True, "err": None, "late": [],
+               "lat": dict.fromkeys(range(n), 1.0)}
+    times = []
+    item = {"cycle": 0, "seq": 0, "key": "0" * 16,
+            "verdict": ("route", "k", 0, [], None)}
+    with me.mesh.ranks.held():
+        coll.barrier(me.mesh)
+        for _ in range(cycles):
+            t = time.perf_counter()
+            if routed:
+                dlog.publish(item if dlog.lead else None)
+                dlog.gather((True, "0" * 16, {}, True))
+            dlog.broadcast(rec if dlog.lead else None)
+            dlog.gather(facts)
+            dlog.gather(outcome)
+            times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def mr_slice_block(full, local, mesh):
+    """The block of a whole host array that ``local`` (a BlockMatrix on
+    a slice's mesh) holds on this rank."""
+    from matrel_tpu_torch.parallel import collectives as coll
+    r0, r1, c0, c1 = coll.rect(coll.layout_of(local.spec, mesh),
+                               mesh.ranks.coords, mesh.grid, full.shape)
+    return full[r0:r1, c0:c1]
+
+
+def mr_fleet(me: MrRank) -> dict:
+    """The fleet on groups of ranks: 2 slices of 2 ranks. Row 4's S·D
+    (bf16, registered) placed on a slice — B1 launches on that slice's
+    ranks only, its blocks held to B1's plain version on one card; row
+    2's chain over unregistered leaves placed on the span; the same
+    S·D again, answered by the directory (no launch); then kill_slice
+    of its owner and S·D once more, recomputed on the survivor, its
+    to_numpy (a world collective) held to the plain version on every
+    rank; last, row 5's A·x (a COO table) placed on a slice, B2 on its
+    ranks only, held to one card's B2 answer. fleet_info is returned for
+    the parent to compare across ranks."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.ops import pallas_spmm
+    from matrel_tpu_torch.workloads import chain_bench
+    plain = np.load(os.path.join(MR_DIR, "fleet_plain.npy"), mmap_mode="r")
+    sess = MatrelSession(mesh=me.mesh, config=MatrelConfig(
+        fleet_slices=MR_FLEET_SLICES, result_cache_max_bytes=8 << 30,
+        fleet_span_margin=MR_FLEET_SPAN_MARGIN))
+    S, D = row4_inputs(sess)
+    sess.register("S", S)
+    sess.register("D", D)
+    t0 = time.perf_counter()
+    fleet = sess._ensure_fleet()
+    out = {"replicate_s": time.perf_counter() - t0,
+           "source": fleet.source}
+
+    def run(e, name):
+        pallas_spmm.LAUNCHES = 0
+        t = time.perf_counter()
+        r = sess.submit(e).result(timeout=MR_TIMEOUT_S)
+        mr_sync(me.mesh)
+        ms = (time.perf_counter() - t) * 1e3
+        sess.serve_drain()
+        out[name] = {"ms": ms, "launches": pallas_spmm.LAUNCHES}
+        return r
+
+    def held_to_plain(r, name):
+        sl = next(s for s in fleet.slices
+                  if s.session.mesh is r.slice_mesh)
+        out[name]["slice"] = sl.slice_id
+        out[name]["member"] = sl.member
+        if r.local is None:
+            if out[name]["launches"]:
+                raise AssertionError(f"fleet {name}: B1 launched on a "
+                                     f"rank outside slice {sl.slice_id}")
+            return
+        want = torch.as_tensor(np.array(mr_slice_block(
+            plain, r.local, r.slice_mesh)), device=r.local.data.device)
+        out[name]["max_abs_err"] = check_close(
+            f"fleet {name}", r.local.data.float(), want, "bfloat16")
+        return r.local.data
+
+    q = S.multiply(D)
+    first = run(q, "slice_sd")
+    got1 = held_to_plain(first, "slice_sd")
+    if out["slice_sd"]["member"] and out["slice_sd"]["launches"] < 1:
+        raise AssertionError("fleet: no B1 launch on the slice's ranks")
+    mats = chain_bench.skewed_abc(me.mesh, *MR_ROW2, seed=3)
+    chain = run(chain_bench.build_chain(mats), "span_chain")
+    ref = np.load(os.path.join(MR_DIR, "row2_ref.npy"), mmap_mode="r")
+    rel = float(np.abs(chain.data.cpu().numpy() - me.block_of(
+        ref, chain.spec)).max() / np.abs(ref).max())
+    if rel > 1e-5:
+        raise AssertionError(f"fleet span chain: rel err {rel}")
+    out["span_chain"]["rel_err"] = rel
+    hit = run(q, "directory_hit")
+    if out["directory_hit"]["launches"]:
+        raise AssertionError("fleet: the directory hit launched B1")
+    if hit.local is not None and got1 is not None and not torch.equal(
+            hit.local.data, got1):
+        raise AssertionError("fleet: the directory hit differs")
+    owner = out["slice_sd"]["slice"]
+    t = time.perf_counter()
+    requeued = fleet.kill_slice(owner)
+    out["kill_ms"] = (time.perf_counter() - t) * 1e3
+    out["requeued"] = requeued
+    again = run(q, "failover_sd")
+    held_to_plain(again, "failover_sd")
+    if out["failover_sd"]["slice"] == owner:
+        raise AssertionError("fleet: the killed slice served S·D")
+    t = time.perf_counter()
+    host = again.to_numpy()
+    out["to_numpy_ms"] = (time.perf_counter() - t) * 1e3
+    check_close("fleet to_numpy", torch.from_numpy(host),
+                torch.from_numpy(np.array(plain)), "bfloat16")
+    del host
+    # row 5's A·x placed on a slice: B2 on that slice's ranks only, held
+    # to one card's B2 answer (the COO table is a host edge list the
+    # slice's ranks take as it is)
+    from matrel_tpu_torch.ops import pallas_spmv as pc
+    _src, _dst, A5 = row5_matrix()
+    x5 = np.random.default_rng(11).standard_normal(ROW5_N).astype(
+        np.float32)
+    sess.register("A5", A5)
+    sess.register("x5", sess.from_numpy(x5[:, None]))
+    pc.LAUNCHES_SPMV = 0
+    t = time.perf_counter()
+    y5 = sess.submit(A5.expr().multiply(sess.table("x5").expr())).result(
+        timeout=MR_TIMEOUT_S)
+    mr_sync(me.mesh)
+    sess.serve_drain()
+    out["slice_coo"] = {"ms": (time.perf_counter() - t) * 1e3,
+                        "launches": pc.LAUNCHES_SPMV,
+                        "member": y5.local is not None}
+    if y5.local is not None:
+        if out["slice_coo"]["launches"] < 1:
+            raise AssertionError("fleet: no B2 launch on the slice's ranks")
+        want = mr_slice_block(np.load(os.path.join(MR_DIR, "row5_y.npy"))
+                              [:, None], y5.local, y5.slice_mesh)
+        got = y5.local.data.cpu().numpy()
+        out["slice_coo"]["max_abs_err"] = float(np.abs(got - want).max())
+        out["slice_coo"]["bit_equal"] = bool(np.array_equal(got, want))
+        check_close("fleet COO A·x", torch.from_numpy(got),
+                    torch.from_numpy(np.array(want)), "float32")
+    elif out["slice_coo"]["launches"]:
+        raise AssertionError("fleet: B2 launched outside its slice")
+    info = sess.fleet_info()
+    out["info"] = {k: info[k] for k in (
+        "source", "directory", "placed", "pinned", "migrations",
+        "failovers", "requeued")}
+    out["info"]["slices"] = [{k: sl[k] for k in ("id", "alive", "devices",
+                                                 "submitted")}
+                             for sl in info["slices"]]
+    out["router"] = fleet._log.info()
+    out["record_ms"] = mr_record_cost(me, fleet._log, 1, routed=True)
+    sess.serve_close(timeout=MR_TIMEOUT_S)
+    return out
+
+
 def mr_rank(rank: int, world: int, backend: str, init: str,
             limits: dict) -> None:
     """One rank of path_multirank: its log to ``rank<r>.log``, its
@@ -8036,7 +8311,8 @@ def mr_rank(rank: int, world: int, backend: str, init: str,
     for name, fn in (("row1", mr_row1), ("row2", mr_row2),
                      ("row5", mr_row5), ("sparse", mr_sparse),
                      ("chain", mr_chain), ("autotune", mr_autotune),
-                     ("sharded_tail", mr_sharded_tail)):
+                     ("sharded_tail", mr_sharded_tail),
+                     ("serving", mr_serving), ("fleet", mr_fleet)):
         log(f"rank {rank}: {name}")
         if name in limits:
             with me.meter(name):
@@ -8105,7 +8381,14 @@ def mr_references(sess, ns_fro: float) -> None:
     S, D = row4_inputs(sess)
     save("spmm_ref.npy", sess.compute(S.multiply(D)).data.float()
          .cpu().numpy())
+    from matrel_tpu_torch.ops import pallas_spmm
+    save("fleet_plain.npy", pallas_spmm.spmm_blocksparse_plain(
+        S.blocks, S.block_rows, S.block_cols, D.data, S.shape[0])
+        .float().cpu().numpy())
     del S, D
+    for i, q in enumerate(mr_serve_queries(sess)):
+        save(f"serve_ref{i}.npy", sess.compute(q).data.float()
+             .cpu().numpy())
     with open(os.path.join(MR_DIR, "one_card.json"), "w") as f:
         json.dump({"ns_fro": ns_fro}, f)
     torch.cuda.empty_cache()
@@ -8284,9 +8567,67 @@ def path_multirank(sess, ns_fro: float) -> dict:
             f"rank {r} " + ", ".join(f"{k} {v:.3f}" for k, v in
                                      t["peaks"].items())
             for r, t in enumerate(tails)))
+    sv = [o["serving"] for o in ranks]
+    log(f"  serving: a decision cycle's three exchanges (record, reports,"
+        f" outcome), ranks lined up: "
+        + ", ".join(f"{o['record_ms']:.3f}" for o in sv)
+        + " ms by rank (median of 20)")
+    for name in ("warm", "even", "staggered"):
+        r0s = sv[0][name]
+        log(f"  serving {name}: submit-to-result {r0s['ms']:.1f} ms "
+            f"(rank 0's clock; ranks: "
+            + ", ".join(f"{o[name]['ms']:.1f}" for o in sv)
+            + f"), {r0s['cycles']} decision cycle(s), "
+            f"{r0s['exchanges']} control exchanges, "
+            f"{r0s['control_ms'] / max(r0s['exchanges'], 1):.3f} ms an "
+            f"exchange on rank 0, B1 launches "
+            f"{sum(o[name]['launches'] for o in sv)} over the ranks, max "
+            f"err {max(o[name]['max_abs_err'] for o in sv):.3e} vs one "
+            f"card")
+    if any(o["counters"] != sv[0]["counters"] for o in sv) \
+            or sv[0]["counters"]["divergences"]:
+        raise AssertionError(f"serving counters differ: "
+                             f"{[o['counters'] for o in sv]}")
+    fl = [o["fleet"] for o in ranks]
+    if any(o["info"] != fl[0]["info"] for o in fl):
+        raise AssertionError(f"fleet_info differs across ranks: "
+                             f"{[o['info'] for o in fl]}")
+    f0 = fl[0]
+    fleet_b1 = sum(o[k]["launches"] for o in fl
+                   for k in ("slice_sd", "failover_sd"))
+    members = [r for r, o in enumerate(fl) if o["slice_sd"]["member"]]
+    log(f"  fleet ({f0['source']}, {MR_FLEET_SLICES} slices of "
+        f"{world // MR_FLEET_SLICES} ranks; tables replicated in "
+        f"{f0['replicate_s']:.2f} s): S·D on slice "
+        f"{f0['slice_sd']['slice']} (ranks {members}) "
+        f"{f0['slice_sd']['ms']:.1f} ms submit-to-result, B1 launches "
+        + ", ".join(str(o["slice_sd"]["launches"]) for o in fl)
+        + " by rank, max err "
+        f"{max(o['slice_sd'].get('max_abs_err', 0.0) for o in fl):.3e} vs"
+        f" B1's plain version; span chain {f0['span_chain']['ms']:.1f} ms "
+        f"(rel {f0['span_chain']['rel_err']:.2e}); directory hit "
+        f"{f0['directory_hit']['ms']:.2f} ms, 0 launches; kill_slice "
+        f"{f0['kill_ms']:.2f} ms (requeued {f0['requeued']}), then S·D on "
+        f"slice {f0['failover_sd']['slice']} "
+        f"{f0['failover_sd']['ms']:.1f} ms, to_numpy (world) "
+        f"{f0['to_numpy_ms']:.1f} ms; row 5's A·x on a slice "
+        f"{f0['slice_coo']['ms']:.1f} ms, B2 launches "
+        + ", ".join(str(o["slice_coo"]["launches"]) for o in fl)
+        + " by rank, bit-equal to one card on "
+        f"{sum(o['slice_coo'].get('bit_equal', False) for o in fl)} of "
+        f"{sum(o['slice_coo']['member'] for o in fl)} slice ranks; router "
+        f"{f0['router']}; a routed cycle's five exchanges, ranks lined "
+        f"up: " + ", ".join(f"{o['record_ms']:.3f}" for o in fl)
+        + f" ms by rank (median of 20); fleet_info equal on every rank: "
+        f"{f0['info']}")
+    if fleet_b1 < 1:
+        raise AssertionError("path multirank: no B1 launch in the fleet")
+    launches["spmv_compact"] += sum(o["slice_coo"]["launches"] for o in fl)
     if min(launches.values()) < 1:
         raise AssertionError(f"path multirank: B2/B3 launches {launches}")
-    b1 = sum(t["row4"]["launches"] for t in tails)
+    serve_b1 = sum(o[name]["launches"] for o in sv
+                   for name in ("warm", "even", "staggered"))
+    b1 = sum(t["row4"]["launches"] for t in tails) + fleet_b1 + serve_b1
     if b1 < world:
         raise AssertionError(f"path multirank: B1 launches {b1} on the "
                              f"ranks")

@@ -253,7 +253,9 @@ class BlockMatrix:
         full = self.data
         if self.mesh.ranked:
             from matrel_tpu_torch.parallel import collectives as coll
-            full = coll.gather_full(self.as_shard(), self.mesh)
+            # a collective: in its turn against the serve workers
+            with self.mesh.ranks.held():
+                full = coll.gather_full(self.as_shard(), self.mesh)
         return tensor_to_numpy(full[: self.shape[0], : self.shape[1]])
 
     def block_until_ready(self) -> "BlockMatrix":
@@ -274,7 +276,8 @@ class BlockMatrix:
         data = self.data
         if self.mesh.ranked:
             from matrel_tpu_torch.parallel import collectives as coll
-            data = coll.relay(self.as_shard(), spec, self.mesh).local
+            with self.mesh.ranks.held():
+                data = coll.relay(self.as_shard(), spec, self.mesh).local
         return dataclasses.replace(self, data=data, spec=spec)
 
     def valid_mask(self) -> torch.Tensor:

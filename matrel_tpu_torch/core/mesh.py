@@ -18,9 +18,11 @@ its partitioners are ``PartitionSpec``s. This package has two meshes:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import threading
 from typing import Optional, Tuple, Union
 
 import torch
@@ -69,24 +71,123 @@ class RankGroups:
     axes (``x`` joins the ranks of one column j, ``y`` those of one row
     i, as ``shard_map`` axes do) and the collectives that stage CUDA
     tensors through host memory (gloo refuses some of them; see
-    ``parallel/collectives.host_staged``). Compared by identity."""
+    ``parallel/collectives.host_staged``). Compared by identity.
 
-    def __init__(self, device_mesh, backend: str, grid: Tuple[int, int]):
+    ``members`` are the global ranks of the mesh's cells, row-major: the
+    whole world for a mesh of :func:`init_distributed`, a contiguous run
+    of it for a serving slice (:func:`slice_meshes`). ``rank`` and
+    ``coords`` are this process's place among them (None when the
+    process holds no cell of the slice).
+
+    The world mesh also owns the serve plane's agreement machinery:
+    ``control``, a gloo group of the whole world that carries nothing
+    but the decision records of ``serve/ranklog.py`` (so control traffic
+    never interleaves with a data collective, under NCCL as well), and
+    :meth:`held`, the drain-and-hold every collective entry point takes
+    while a serve worker is live."""
+
+    def __init__(self, device_mesh, backend: str, grid: Tuple[int, int],
+                 members=None, groups=None, parent=None):
         import torch.distributed as dist
         self.device_mesh = device_mesh
         self.backend = backend
-        self.rank = dist.get_rank()
-        self.world_size = dist.get_world_size()
-        self.coords = divmod(self.rank, grid[1])
-        self.groups = {"x": device_mesh.get_group("x"),
-                       "y": device_mesh.get_group("y"),
-                       None: dist.group.WORLD}
+        me = dist.get_rank()
+        self.members = (list(members) if members is not None
+                        else list(range(dist.get_world_size())))
+        self.world_size = len(self.members)
+        self.global_rank = me
+        self.rank = (self.members.index(me) if me in self.members
+                     else None)
+        self.coords = (divmod(self.rank, grid[1])
+                       if self.rank is not None else None)
+        self.groups = groups if groups is not None else {
+            "x": device_mesh.get_group("x"),
+            "y": device_mesh.get_group("y"),
+            None: dist.group.WORLD}
         #: collective names routed through host memory for CUDA tensors
         self.host_staged: frozenset = frozenset()
+        self._parent = parent.root if parent is not None else None
+        self.control = None
+        if parent is None:
+            self._exec_lock = threading.RLock()
+            self._holder: Optional[int] = None
+            self._workers_lock = threading.Lock()
+            self._workers: list = []
+
+    @property
+    def root(self) -> "RankGroups":
+        """The world's RankGroups (this one on the world mesh): the
+        control group, the execution lock and the live serve workers
+        live there."""
+        return self._parent if self._parent is not None else self
+
+    @property
+    def member(self) -> bool:
+        """Does this process hold a cell of the mesh?"""
+        return self.rank is not None
 
     def group(self, axis: Optional[str]):
-        """Process group of mesh axis "x" / "y", or the world (None)."""
+        """Process group of mesh axis "x" / "y", or the mesh's world
+        (None)."""
         return self.groups[axis]
+
+    def global_of(self, local: int) -> int:
+        """The global rank of the mesh's ``local``-th cell."""
+        return self.members[local]
+
+    # -- drain and hold (serve/ranklog.py) ---------------------------------
+
+    def register_worker(self, worker) -> None:
+        """A live serve worker (an object with ``drain()``,
+        ``owns_thread()`` and ``closed``) that :meth:`held` drains
+        first. One a world: two workers would interleave their decision
+        records on the control group differently on different ranks."""
+        root = self.root
+        with root._workers_lock:
+            root._workers = [w for w in root._workers
+                             if w is not worker and not w.closed]
+            if root._workers:
+                raise RuntimeError(
+                    "a rank mesh serves one session's submissions at a "
+                    "time: serve_close() the other session first")
+            root._workers.append(worker)
+
+    def unregister_worker(self, worker) -> None:
+        root = self.root
+        with root._workers_lock:
+            root._workers = [w for w in root._workers if w is not worker]
+
+    @contextlib.contextmanager
+    def held(self):
+        """Run a collective entry point in its turn: drain every live
+        serve worker of the world (so every rank has applied the same
+        decision records), then hold the execution lock the workers
+        take around each cycle. Re-entrant; a worker's own thread (and
+        anything it calls) passes straight through."""
+        root = self.root
+        if root._holder == threading.get_ident():
+            yield
+            return
+        with root._workers_lock:
+            workers = list(root._workers)
+        for w in workers:
+            if not w.owns_thread():
+                w.drain()
+        with self.cycle():
+            yield
+
+    @contextlib.contextmanager
+    def cycle(self):
+        """The execution lock as a serve worker takes it around one
+        decision cycle (no drain: the worker IS the drained party)."""
+        root = self.root
+        me = threading.get_ident()
+        with root._exec_lock:
+            outer, root._holder = root._holder, me
+            try:
+                yield
+            finally:
+                root._holder = outer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,6 +284,8 @@ def init_distributed(backend: str, init_method: str, world_size: int,
     dm = init_device_mesh("cuda" if backend == "nccl" else "cpu",
                           (gx, gy), mesh_dim_names=tuple(axis_names))
     ranks = RankGroups(dm, backend, (gx, gy))
+    # the decision log's own group, made on every rank in this order
+    ranks.control = dist.new_group(backend="gloo")
     mesh = Mesh(dev, (gx, gy), tuple(axis_names), ranks)
     if backend == "gloo" and dev.type == "cuda":
         from matrel_tpu_torch.parallel import collectives
@@ -195,10 +298,16 @@ def shutdown_distributed() -> None:
     a rank that tore its connections down while a peer still read the
     last collective (a broadcast's sender returns before its receivers)
     would fail that peer."""
+    import gc
     import torch.distributed as dist
     if dist.is_initialized():
         dist.barrier()
         dist.destroy_process_group()
+    # let the groups still referenced (the topology memo keys on meshes;
+    # sessions and their serve workers form cycles) go now: destroyed in
+    # the interpreter's teardown they can abort the process
+    _resolve_topology_cached.cache_clear()
+    gc.collect()
 
 
 #: Default relative inverse bandwidth of a mesh axis whose hops cross a
@@ -353,10 +462,39 @@ def slice_meshes(mesh, n: int):
     groups, source = slice_device_groups(mesh, n)
     if source == "shared":
         return [mesh for _ in groups], source
+    if getattr(mesh, "ranked", False):
+        return [_rank_slice(mesh, [c.id for c in g]) for g in groups], \
+            source
     return [Mesh(getattr(mesh, "device", None),
                  near_square_factors(len(g)),
                  tuple(getattr(mesh, "axis_names", ("x", "y"))))
             for g in groups], source
+
+
+def _rank_slice(mesh: Mesh, members) -> Mesh:
+    """The slice mesh over a contiguous run ``members`` of a rank mesh's
+    world: a near-square grid of those ranks with its own world, x and y
+    groups. ``new_group`` is collective over the whole world, so every
+    rank makes every group of every slice, in this fixed order, whether
+    or not it holds a cell of the slice."""
+    import torch.distributed as dist
+    sx, sy = near_square_factors(len(members))
+    at = lambda i, j: members[i * sy + j]
+    me = dist.get_rank()
+    groups = {None: dist.new_group(ranks=list(members))}
+    for axis, lines in (("x", [[at(i, j) for i in range(sx)]
+                               for j in range(sy)]),
+                        ("y", [[at(i, j) for j in range(sy)]
+                               for i in range(sx)])):
+        for line in lines:
+            g = dist.new_group(ranks=line)
+            if me in line:
+                groups[axis] = g
+    parent = mesh.ranks
+    ranks = RankGroups(None, parent.backend, (sx, sy), members=members,
+                       groups=groups, parent=parent)
+    ranks.host_staged = parent.host_staged
+    return Mesh(mesh.device, (sx, sy), mesh.axis_names, ranks)
 
 
 def _spec(mesh: Mesh, rows, cols) -> P:

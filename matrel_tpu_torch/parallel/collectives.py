@@ -98,8 +98,10 @@ def _count(kind: str, axis: Optional[str]) -> None:
 
 
 def group_ranks(mesh, axis: Optional[str], coords=None) -> List[int]:
-    """Global ranks of the group of ``axis`` through cell ``coords``
-    (default: this rank's), in group order."""
+    """Ranks of the mesh (cell ids, row-major) in the group of ``axis``
+    through cell ``coords`` (default: this rank's), in group order;
+    ``mesh.ranks.global_of`` maps one to its global rank (the same
+    number on a world mesh)."""
     gx, gy = mesh.grid
     i, j = coords if coords is not None else mesh.ranks.coords
     if axis == "x":
@@ -185,10 +187,12 @@ def all_reduce(t: Tensor, mesh, op=dist.ReduceOp.SUM,
 
 
 def broadcast_object(obj, mesh, src: int = 0):
-    """Rank ``src``'s ``obj`` on every rank (pickled over the world
-    group): how every rank agrees on a measured choice."""
+    """Rank ``src``'s ``obj`` on every rank (pickled over the mesh's
+    world group; ``src`` is a rank of the mesh, mapped to its global
+    rank): how every rank agrees on a measured choice."""
     box = [obj]
-    dist.broadcast_object_list(box, src=src, group=_group(mesh, None))
+    dist.broadcast_object_list(box, src=mesh.ranks.global_of(src),
+                               group=_group(mesh, None))
     _count("broadcast", None)
     return box[0]
 
@@ -212,7 +216,8 @@ def shift(t: Tensor, mesh, axis: str, step: int = -1) -> Tensor:
     ranks = group_ranks(mesh, axis)
     g = len(ranks)
     me = ranks.index(mesh.ranks.rank)
-    dst, src = ranks[(me + step) % g], ranks[(me - step) % g]
+    dst, src = (mesh.ranks.global_of(ranks[(me + step) % g]),
+                mesh.ranks.global_of(ranks[(me - step) % g]))
     t = t.contiguous()
     out = torch.empty_like(t)
 

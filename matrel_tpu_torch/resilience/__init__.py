@@ -17,6 +17,7 @@ from matrel_tpu_torch.resilience.errors import (AdmissionShed,
                                                 InjectedFault,
                                                 PipelineClosed,
                                                 QueryAborted,
+                                                RankDivergence,
                                                 ResilienceError,
                                                 classify, is_transient)
 from matrel_tpu_torch.resilience import (breaker, brownout, degrade,
@@ -27,7 +28,8 @@ from matrel_tpu_torch.resilience.retry import Deadline, RetryPolicy
 
 __all__ = [
     "AdmissionShed", "CircuitOpen", "DeadlineExceeded", "DrainTimeout",
-    "InjectedFault", "PipelineClosed", "QueryAborted", "ResilienceError",
+    "InjectedFault", "PipelineClosed", "QueryAborted", "RankDivergence",
+    "ResilienceError",
     "classify", "is_transient", "Deadline", "RetryPolicy",
     "BreakerRegistry", "LoadController", "breaker", "brownout",
     "degrade", "faults", "retry",

@@ -119,6 +119,18 @@ class CircuitBreaker:
         raise CircuitOpen(self.plan_class, self.cooldown_s * 1e3,
                           self.probes)
 
+    def follow(self, admitted: bool) -> None:
+        """Mirror the lead rank's admission verdict (a rank mesh,
+        ``serve/ranklog.py``): the state moves exactly as :meth:`admit`
+        moved it on the lead, without reading this rank's clock."""
+        if not admitted or self.state == "closed":
+            return
+        if self.state == "open":
+            self.state = "half_open"
+            self._probes_out = 0
+            self.transitions["half_open"] += 1
+        self._probes_out += 1
+
     def record(self, ok: Optional[bool]) -> None:
         """One admitted query's terminal outcome. ``None`` = the
         outcome says nothing about the class (deadline/shed/abort):
@@ -194,6 +206,12 @@ class BreakerRegistry:
     def admit(self, plan_cls: str) -> None:
         with self._lock:
             self._get(plan_cls).admit()
+
+    def follow(self, plan_cls: str, admitted: bool) -> None:
+        """Apply the lead rank's verdict for one entry (see
+        :meth:`CircuitBreaker.follow`)."""
+        with self._lock:
+            self._get(plan_cls).follow(admitted)
 
     def record(self, plan_cls: str, ok: Optional[bool]) -> None:
         with self._lock:

@@ -141,6 +141,26 @@ class FleetSliceLost(ResilienceError):
               "slice")
 
 
+class RankDivergence(ResilienceError):
+    """The ranks of a rank mesh did not submit the same work
+    (``serve/ranklog.py``): a sequence number the lead rank decided on
+    never reached another rank's queue within the bound, or reached it
+    with another plan key, or a rank's result-cache state would split
+    the cycle. Every future of that decision cycle fails with this
+    error on EVERY rank, before any rank starts a collective the others
+    would not join. Never retried: the programs differ, not the
+    hardware."""
+
+    def __init__(self, cycle: int, detail: str = ""):
+        self.cycle = cycle
+        self.detail = detail
+        super().__init__(
+            f"ranks diverged at decision cycle {cycle}"
+            + (f": {detail}" if detail else "")
+            + " — every rank must submit the same queries in the same "
+              "order")
+
+
 class CircuitOpen(ResilienceError):
     """A plan class's circuit breaker is OPEN
     (``resilience/breaker.py``): the class kept failing after the retry

@@ -10,13 +10,16 @@
                 quota sheds
   mqo           cross-query CSE and plan templates (``cse_enable``)
   ivm           the delta plane behind ``session.register_delta``
+  spill         host and disk tiers under the result cache, save_state
+                and restore (``spill_enable``, ``state_dir``)
+  replan        drift-triggered re-planning (``coeff_replan_enable``)
+  fleet         the multi-slice serving fleet (``fleet_slices``) and
+  placement     its placement model
+  ranklog       the decision log the pipeline and the fleet run on a
+                rank mesh: the lead rank decides, every rank applies
 
 The pipeline also carries the brownout controller, the circuit
 breakers and the SLO outcome feed (``resilience/``, ``obs/slo.py``).
-The spill hierarchy (``spill.py``), the fleet (``fleet.py``,
-``placement.py``) and the cost-model re-plan controller (``replan.py``)
-are not ported: they need the checkpoint plane first (the drift table
-and the learned coefficients they read are ported).
 """
 
 from matrel_tpu_torch.serve.admission import AdmissionQueue  # noqa: F401

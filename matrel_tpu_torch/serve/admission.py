@@ -90,6 +90,12 @@ class AdmissionQueue:
         self.sheds: Dict[str, int] = {}
         self.purged_expired = 0
         self._last_purge = 0.0
+        #: the lead rank's queue on a rank mesh (``serve/ranklog.py``):
+        #: a shed raises uncounted and a purge resolves nothing — both
+        #: become entries of the next decision record, counted and
+        #: resolved on every rank when the record is applied
+        self.deferring = False
+        self._deferred: list = []
 
     # -- weights -----------------------------------------------------------
 
@@ -131,8 +137,9 @@ class AdmissionQueue:
                 if self.tenant_max > 0 and len(dq) >= self.tenant_max:
                     self._purge_expired_locked(key, to_fail)
                     if len(dq) >= self.tenant_max:
-                        shed = True
-                        self.sheds[key] = self.sheds.get(key, 0) + 1
+                        shed = not self.deferring
+                        if shed:
+                            self.sheds[key] = self.sheds.get(key, 0) + 1
                         raise AdmissionShed(self.tenant_max,
                                             tenant=key or None,
                                             scope="tenant")
@@ -140,8 +147,9 @@ class AdmissionQueue:
                         and self._size >= self.global_max:
                     self._purge_expired_locked(None, to_fail)
                     if self._size >= self.global_max:
-                        shed = True
-                        self.sheds[key] = self.sheds.get(key, 0) + 1
+                        shed = not self.deferring
+                        if shed:
+                            self.sheds[key] = self.sheds.get(key, 0) + 1
                         raise AdmissionShed(self.global_max,
                                             tenant=key or None,
                                             scope="queue")
@@ -170,6 +178,28 @@ class AdmissionQueue:
 
     # queue.Queue compat (tests enqueue legacy short tuples directly)
     put_nowait = put
+
+    def defer(self, entry, verdict: tuple) -> None:
+        """Hold one entry the lead refused (``verdict``: ("shed", scope,
+        bound) or ("purged", budget_ms, elapsed_ms)) for the next
+        decision record; it counts as an unfinished task until the
+        record is applied."""
+        with self._lock:
+            self._deferred.append((entry, verdict))
+            self.unfinished_tasks += 1
+            self._not_empty.notify()
+
+    def take_deferred(self) -> list:
+        with self._lock:
+            out, self._deferred = self._deferred, []
+            return out
+
+    def note_purged(self, tenant: Optional[str]) -> None:
+        """Count a purge a decision record carried."""
+        with self._lock:
+            self.purged_expired += 1
+        if self.slo is not None:
+            self.slo.record_miss(tenant or None)
 
     def record_shed(self, tenant: Optional[str]) -> None:
         """Count a shed decided outside the bounds (the brownout rung-3
@@ -215,7 +245,11 @@ class AdmissionQueue:
             keep: deque = deque()
             for it in dq:
                 dl = it[4] if len(it) > 4 else None
-                if dl is not None and dl.expired():
+                if dl is not None and dl.expired() and self.deferring:
+                    self._deferred.append((it, (
+                        "purged", dl.budget_ms, dl.elapsed_ms())))
+                    self._size -= 1
+                elif dl is not None and dl.expired():
                     to_fail.append((it[1], DeadlineExceeded(
                         dl.budget_ms, dl.elapsed_ms(),
                         context="queued query (purged)"), key))
@@ -224,7 +258,7 @@ class AdmissionQueue:
                     self.unfinished_tasks -= 1
                 else:
                     keep.append(it)
-            if purged:
+            if len(keep) != len(dq):
                 dq.clear()
                 dq.extend(keep)
         if purged:

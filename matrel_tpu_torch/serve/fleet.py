@@ -36,6 +36,62 @@ The slices share one card and one execution lock (``fleet.exec``):
 slices' programs are never in flight together. Off by default
 (``fleet_slices=0``): ``submit`` runs the single-session pipeline and no
 fleet object is built.
+
+**On a rank mesh** a slice is a group of ranks: ``slice_meshes`` cuts
+the world into contiguous row-major runs ("virtual", each with its own
+world, x and y process groups), or every slice is the whole world when
+the count does not divide it ("shared"). Each rank holds every slice's
+session; only the slice's own ranks hold its tables and cache. Every
+fleet choice rides the decision log (``serve/ranklog.py``), one item a
+cycle in submission order: the lead rank decides placement and the
+directory candidates, the ranks report
+whether the candidate slices' ranks hold the cached entry, and every
+rank applies the same hit, miss, route, migration and ``kill_slice``.
+A routed query then runs through the target session's own pipeline —
+the parent's for a span, the slice's for a slice — as one cycle of
+that pipeline driven by the router (``ServePipeline.decide_routed`` /
+``apply_routed``), so the one-card contracts hold: a queued or late
+deadline fails typed, never a late answer; a transient failure
+retries; an open breaker fails fast; the brownout rung downshifts or
+serves stale; and a failed batch raises the same typed error on every
+rank. A span-placed query runs on the whole world; a slice-placed one
+runs on its slice's ranks only (B1 there runs over the slice's column
+slices of D), the other ranks join only the agreement, and every
+rank's future resolves to a :class:`SliceResult`: the value lives on
+the slice, and ``to_numpy`` is a world collective (the slice gathers
+it to its first rank, which broadcasts it).
+
+**Slices are serialised on ranks.** The router is one thread a rank
+and each cycle ends in a world exchange, so one slice's query runs
+while the other slices' ranks wait at that exchange: slices never run
+concurrently there (on one card they share the card and its execution
+lock anyway). No slice holds a queue — an item waits in the router's
+store until its cycle — so placement sees every slice's load as 0 and
+its round-robin tick decides among the live slices; ``kill_slice``
+steals and re-admits nothing (``requeued`` stays 0), and the items not
+yet placed land on the survivors. The queue bounds
+(``serve_tenant_queue_max``, ``serve_queue_max``) apply to the router's
+store: the lead sheds an item that finds its tenant's backlog, or the
+whole backlog, at the bound, and the shed rides that item's record.
+
+Tables reach a slice as a world gather of each rank's block
+(``collectives.gather_full``) that the slice's ranks cut into their own
+blocks, in the table's dtype (bf16 stays bf16); a block-sparse table
+(its tile stack is whole on every rank already) and a COO table (a host
+edge list) are taken as they are, so a slice-placed S·D runs B1 and a
+slice-placed COO matvec B2 on the slice's ranks (on one card's grid
+both stay pinned); a hot entry migrates as a dense table does, at its
+record. ``register`` writes through in its turn (drain and hold), and
+``fleet_info`` is the same on every rank. A slice has no worker of its
+own there, so ``check_health`` finds nothing to probe: a slice leaves
+the fleet through ``kill_slice`` alone.
+
+Why the router is not the one-card routing on a one-rank log: on one
+card ``submit`` routes in the caller's thread — a directory hit comes
+back as an already-resolved future, a slice queue's ``AdmissionShed``
+raises at the call, and every slice's worker batches its own queue
+concurrently (``tests/test_torch_fleet.py`` holds these to the JAX
+package). The router answers on its own thread, one item a cycle.
 """
 
 from __future__ import annotations
@@ -50,14 +106,18 @@ from collections import OrderedDict
 from concurrent.futures import Future
 from typing import Dict, Optional
 
+import torch
+
 from matrel_tpu_torch.core import mesh as mesh_lib
 from matrel_tpu_torch.resilience import retry as retry_lib
-from matrel_tpu_torch.config import NotPortedError
 from matrel_tpu_torch.resilience.errors import (AdmissionShed,
                                                 DeadlineExceeded,
                                                 FleetSliceLost,
-                                                PipelineClosed)
+                                                PipelineClosed,
+                                                RankDivergence)
+from matrel_tpu_torch.serve import pipeline as pipeline_lib
 from matrel_tpu_torch.serve import placement as placement_lib
+from matrel_tpu_torch.serve import ranklog
 from matrel_tpu_torch.serve.result_cache import CacheEntry, result_nbytes
 from matrel_tpu_torch.utils import lockdep
 
@@ -65,11 +125,71 @@ log = logging.getLogger("matrel_tpu_torch.serve.fleet")
 
 
 def _fail(fut: Future, ex: BaseException) -> None:
-    if fut.set_running_or_notify_cancel() and not fut.done():
+    if not fut.done() and (fut.running()
+                           or fut.set_running_or_notify_cancel()):
         fut.set_exception(ex)
 
 
 _remaining = retry_lib.deadline_left
+
+
+class SliceResult:
+    """A slice-placed answer on a rank mesh. Its value lives on the
+    slice's ranks: ``local`` is the BlockMatrix there (None on a rank
+    outside the slice). ``to_numpy`` is a world collective every rank
+    calls, in its turn: the slice gathers the value and its first rank
+    broadcasts it to the world."""
+
+    def __init__(self, world_mesh, slice_mesh, local):
+        self.world_mesh = world_mesh
+        self.slice_mesh = slice_mesh
+        self.local = local
+
+    def to_numpy(self):
+        from matrel_tpu_torch.parallel import collectives as coll
+        with self.world_mesh.ranks.held():
+            host = (self.local.to_numpy() if self.local is not None
+                    else None)
+            return coll.broadcast_object(
+                host, self.world_mesh,
+                src=self.slice_mesh.ranks.members[0])
+
+
+class _SliceRoute:
+    """A slice pipeline's hooks on a rank mesh
+    (``ServePipeline.route``): its answers are :class:`SliceResult`
+    values, and a success the slice's ranks report cached is recorded
+    in the directory on every rank. ``keys`` maps a routed item's
+    sequence number to its fleet key and dependency names while its
+    cycle runs."""
+
+    def __init__(self, fleet, sl):
+        self.fleet = fleet
+        self.sl = sl
+        self.keys: Dict[int, tuple] = {}
+
+    def wrap(self, out):
+        return SliceResult(self.fleet.session.mesh, self.sl.session.mesh,
+                           out)
+
+    def info(self, batch, outs) -> list:
+        return [self.fleet._entry_info(self.sl, it[0], it[3], o)
+                for it, o in zip(batch, outs)]
+
+    def served(self, batch, info, late) -> None:
+        """``info`` is the slice's first reporting rank's; the owner key
+        is this rank's own (a plan key holds this process's ids)."""
+        fleet, sl = self.fleet, self.sl
+        for it, (cached, nbytes, layout, dtype) in zip(batch, info or ()):
+            fkey, deps = self.keys.get(it[pipeline_lib.SEQ], (None, None))
+            if fkey is None or not cached or it[pipeline_lib.SEQ] in late:
+                continue
+            fleet.directory.record_insert(fkey, DirectoryRecord(
+                owner=sl.slice_id,
+                owner_key=(fleet._local_key(sl, it[0], it[3])
+                           if sl.member else None),
+                nbytes=nbytes, layout=layout, dtype=dtype,
+                dep_names=deps))
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +267,12 @@ class FleetDirectory:
                 return None
             self._records.move_to_end(key)
             return rec
+
+    def peek(self, key: str) -> Optional[DirectoryRecord]:
+        """The record for ``key``, counting nothing (the lead rank's
+        decision; every rank then applies the counted lookup)."""
+        with self._lock:
+            return self._records.get(key)
 
     def record_insert(self, key: str, rec: DirectoryRecord,
                       expected_gen: Optional[int] = None) -> None:
@@ -353,6 +479,10 @@ class FleetSlice:
         self.alive = True
         self.submitted = 0
         self.names_by_id: Dict[int, str] = {}
+        ranks = session.mesh.ranks
+        #: does this process hold a cell of the slice? (always off a
+        #: rank mesh)
+        self.member = ranks is None or ranks.member
 
     @property
     def devices(self) -> int:
@@ -360,6 +490,8 @@ class FleetSlice:
         return self.session.mesh.size
 
     def queue_depth(self) -> int:
+        if self.session.mesh.ranked:
+            return 0            # no slice holds a queue on a rank mesh
         pipe = self.session._serve
         return pipe._q.qsize() if pipe is not None else 0
 
@@ -393,10 +525,6 @@ class FleetController:
 
     def __init__(self, session):
         from matrel_tpu_torch.session import MatrelSession
-        if session.mesh.ranked:
-            raise NotPortedError(
-                "the fleet runs on one card's virtual grid; a rank mesh "
-                "has no slice sessions")
         self.session = session
         self.config = session.config
         n = int(self.config.fleet_slices)
@@ -445,6 +573,18 @@ class FleetController:
         self.migrations_priced_out = 0
         self.failovers = 0
         self.requeued = 0
+        # the rank mesh's router: the decision log, one store of items
+        # by sequence number, and the lead's sheds of items that found
+        # the backlog at its bound (by sequence number)
+        self._log = None
+        if session.mesh.ranked:
+            self._log = ranklog.DecisionLog(session.mesh)
+            self._seq = itertools.count()
+            self._items = ranklog.EntryStore(pipeline_lib.SEQ)
+            self._router: Optional[threading.Thread] = None
+            self._stop = threading.Event()
+            self._rr_count = 0
+            self._sheds: Dict[int, tuple] = {}
         for name in sorted(session.catalog):
             self._replicate(name, session.catalog[name])
 
@@ -459,6 +599,8 @@ class FleetController:
         unreplicated — queries touching it stay full-mesh ("pinned"
         placement), still correct."""
         from matrel_tpu_torch.core.blockmatrix import BlockMatrix
+        from matrel_tpu_torch.core.coo import COOMatrix
+        from matrel_tpu_torch.core.sparse import BlockSparseMatrix
         self._names[id(matrix)] = name
         # host-stage lazily, on the first slice whose mesh differs
         # from the parent's: shared/solo partitions take the
@@ -471,6 +613,34 @@ class FleetController:
         for sl in self.slices:
             if sl.session.mesh == self.session.mesh:
                 replica = matrix
+            elif self._log is not None and type(matrix) in (
+                    BlockSparseMatrix, COOMatrix):
+                # a tile stack is whole on every rank of a rank mesh, and
+                # a COO edge list lives on the host: the slice's ranks
+                # take them as they are
+                replicated = True
+                if not sl.member:
+                    continue
+                if type(matrix) is BlockSparseMatrix:
+                    replica = dataclasses.replace(matrix,
+                                                  mesh=sl.session.mesh)
+                elif matrix._mesh is not None:
+                    replica = matrix.shard(sl.session.mesh)
+                else:
+                    replica = matrix
+            elif self._log is not None:
+                if type(matrix) is not BlockMatrix:
+                    continue           # pinned, as on one card
+                if host is None:
+                    # a world gather every rank joins; the slice's ranks
+                    # cut their own blocks from it
+                    host = matrix.to_numpy()
+                replicated = True
+                if not sl.member:
+                    continue
+                replica = BlockMatrix.from_numpy(
+                    host, mesh=sl.session.mesh, config=sl.session.config,
+                    dtype=matrix.dtype, integral=matrix.integral)
             else:
                 if (host is None and not host_failed
                         and type(matrix) is BlockMatrix):
@@ -605,6 +775,9 @@ class FleetController:
                tenant: Optional[str] = None,
                staleness_ms: Optional[float] = None) -> Future:
         from matrel_tpu_torch.session import _prec_prefix
+        if self._log is not None:
+            return self._enqueue(e, sla, deadline_ms, tenant,
+                                 staleness_ms)
         self.check_health()
         live = self.live_slices()
         if not live:
@@ -998,7 +1171,7 @@ class FleetController:
         that window looked wedged and killed healthy slices (the JAX
         package reads without it)."""
         for sl in self.slices:
-            if not sl.alive:
+            if not sl.alive or self._log is not None:
                 continue
             pipe = sl.session._serve
             if pipe is None:
@@ -1019,6 +1192,9 @@ class FleetController:
         intact. Entries the worker already pulled complete normally
         (their results are still correct — the slice session itself
         is healthy host-side). Returns the number re-admitted."""
+        if self._log is not None:
+            return self._enqueue(None, "", None, None, None,
+                                 kill=(slice_id, reason)).result()
         with self._lock:
             sl = self.slice_by_id(slice_id)
             if sl is None or not sl.alive:
@@ -1099,6 +1275,375 @@ class FleetController:
                     "re-admission"))
         return ok
 
+    # -- the rank mesh's router (serve/ranklog.py) ---------------------------
+
+    def _enqueue(self, e, sla, deadline_ms, tenant, staleness_ms,
+                 kill=None) -> Future:
+        """File one item under the next sequence number on this rank (a
+        query, or ``kill`` = (slice id, reason)); the router applies it
+        in its cycle. Every rank files the same items in the same
+        order. The lead sheds a query that finds the backlog at a
+        bound; the shed rides the item's record."""
+        fut: Future = Future()
+        fut.ready_event = None
+        dl = (retry_lib.Deadline(deadline_ms) if deadline_ms is not None
+              else None)
+        key = (f"kill:{kill[0]}" if kill is not None
+               else ranklog.rank_key(e))
+        with self._lock:
+            if self._router is None:
+                self.session.mesh.ranks.register_worker(self)
+                self._router = threading.Thread(
+                    target=self._run_router, name="matrel-fleet",
+                    daemon=True)
+                self._router.start()
+            seq = next(self._seq)
+            if self._log.lead and kill is None:
+                self._bound(seq, tenant or "")
+            self._items.put((e, fut, time.perf_counter(), sla, dl,
+                             tenant or "", staleness_ms, seq, key, kill))
+        return fut
+
+    def _bound(self, seq: int, tenant: str) -> None:
+        """The lead's queue bounds on the router's backlog: per tenant
+        first, then the whole store (the pipeline's order)."""
+        cfg = self.config
+        if cfg.serve_tenant_queue_max > 0 and self._items.count(
+                lambda it: it[5] == tenant) >= cfg.serve_tenant_queue_max:
+            self._sheds[seq] = ("tenant", cfg.serve_tenant_queue_max)
+        elif (cfg.serve_queue_max > 0
+              and self._items.count() >= cfg.serve_queue_max):
+            self._sheds[seq] = ("queue", cfg.serve_queue_max)
+
+    def owns_thread(self) -> bool:
+        return threading.current_thread() is getattr(self, "_router",
+                                                     None)
+
+    @property
+    def closed(self) -> bool:
+        """Has ``close`` stopped the router (a rank mesh)?"""
+        return self._stop.is_set()
+
+    def _run_router(self) -> None:
+        """One item a cycle, in sequence order: the lead decides and
+        publishes, every rank agrees on what it holds and applies."""
+        dlog = self._log
+        dev = self.session.mesh.device
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        while not self._stop.is_set():
+            if not self._items.wait_any(0.05):
+                continue
+            if dlog.lead:
+                rec = dlog.publish(self._decide_item(self._items.first()))
+            else:
+                rec = dlog.publish()
+            got = self._items.take([rec["seq"]], ranklog.RANK_WAIT_S)
+            it = got.get(rec["seq"])
+            try:
+                with self.session.mesh.ranks.cycle():
+                    self._apply_item(rec, it)
+            except Exception as ex:  # the item's future carries it; the
+                # router lives on
+                log.warning("fleet: cycle %s failed", rec["cycle"],
+                            exc_info=True)
+                if it is not None:
+                    _fail(it[1], ex)
+            finally:
+                self._items.done(len(got))
+
+    def _pipeline(self, sl: Optional[FleetSlice]):
+        """The pipeline a routed query runs through on a rank mesh: the
+        parent's for a span, ``sl``'s for a slice (its answers wrapped
+        as :class:`SliceResult`, its successes recorded in the
+        directory)."""
+        if sl is None:
+            return self.session._ensure_serve()
+        pipe = sl.session._ensure_serve()
+        if pipe.route is None:
+            pipe.route = _SliceRoute(self, sl)
+        return pipe
+
+    def _decide_item(self, it) -> dict:
+        """The lead's verdict on one item: a shed, placement (its round-robin tick; every slice's load is 0, see
+        the module docstring) and the directory's serving candidates.
+        The target pipeline's own record (the deadline among its
+        verdicts) follows once the ranks know that no candidate
+        answers."""
+        from matrel_tpu_torch.session import _prec_prefix
+        e, _f, _t, sla, dl, _tenant, _st, seq, key, kill = it
+        rec = {"cycle": self._log.cycles, "seq": seq, "key": key}
+        if kill is not None:
+            return rec
+        live = self.live_slices()
+        shed = self._sheds.pop(seq, None)
+        if shed is not None:
+            rec["verdict"] = ("shed",) + shed
+        elif not live:
+            rec["verdict"] = ("lost",)
+        else:
+            fkey = placement_lib.fleet_key(e, self._names,
+                                           _prec_prefix(sla))
+            loads = {sl.slice_id: 0 for sl in live}
+            rr = self._rr_count
+            preferred = placement_lib.pick_slice(loads, rr)
+            cands = []
+            drec = (self.directory.peek(fkey) if fkey is not None
+                    else None)
+            if drec is not None:
+                if preferred in drec.replicas:
+                    cands.append(preferred)
+                cands.append(drec.owner)
+            dec = placement_lib.decide(
+                e, self.config,
+                mesh_lib.axis_weights(self.session.mesh, self.config),
+                total_devices=self.session.mesh.size,
+                slice_devices=live[0].devices, slice_loads=loads,
+                backend=self.session.mesh.device.type, sla=sla,
+                eligible=fkey is not None, rr_tick=rr)
+            rec["verdict"] = ("route", fkey, preferred, cands, dec)
+        return rec
+
+    def _holds(self, sid: int, fkey: str) -> Optional[bool]:
+        """Does this rank hold slice ``sid``'s copy of the directory
+        entry ``fkey``? None off the slice."""
+        sl = self.slice_by_id(sid)
+        rec = self.directory.peek(fkey)
+        if sl is None or not sl.member or rec is None:
+            return None
+        k = rec.owner_key if sid == rec.owner else rec.replicas.get(sid)
+        return (k is not None and sl.alive and sl.session._rc_enabled()
+                and sl.session._result_cache.holds(k))
+
+    def _apply_item(self, rec: dict, it) -> None:
+        """Apply one record on this rank: agree, then kill / fail /
+        serve from the directory / route through the target's
+        pipeline."""
+        verdict = rec.get("verdict")
+        route = verdict is not None and verdict[0] == "route"
+        cands = verdict[3] if route else []
+        rebound = None
+        if route and verdict[4].mode == "slice" and it is not None:
+            # a member rebinds onto its slice's replicas; one that
+            # cannot sends the query to the span, on every rank
+            sl = self.slice_by_id(verdict[4].slice_id)
+            rebound = it[0]
+            if sl.member:
+                try:
+                    rebound = self._rebind(it[0], sl)
+                except KeyError:
+                    rebound = None
+        facts = self._log.gather(
+            (it is not None, it[8] if it is not None else None,
+             {sid: self._holds(sid, verdict[1]) for sid in cands},
+             rebound is not None))
+        why = ranklog.divergence(
+            [{rec["seq"]: (f[0], f[1], None, None)} for f in facts],
+            [rec["seq"]])
+        if why is not None:
+            ex = RankDivergence(rec["cycle"], why)
+            if it is None:
+                self._items.mark_dead(rec["seq"], ex)
+            else:
+                _fail(it[1], ex)
+            return
+        fut = it[1]
+        if it[9] is not None:
+            if fut.set_running_or_notify_cancel():
+                fut.set_result(self._kill_ranked(*it[9]))
+            return
+        if verdict[0] == "shed":
+            self.session._ensure_serve()._q.record_shed(it[5])
+            _fail(fut, AdmissionShed(verdict[2], tenant=it[5] or None,
+                                     scope=verdict[1]))
+            return
+        if verdict[0] == "lost":
+            _fail(fut, FleetSliceLost(-1, "no live slices"))
+            return
+        _k, fkey, preferred, cands, dec = verdict
+        self._rr_count += 1
+        if fkey is not None and self._serve_hit(
+                it, fut, fkey, preferred, cands, facts):
+            return
+        sl = None
+        if dec.mode == "slice" and not all(f[3] for f in facts):
+            # raced a rebind: the full mesh answers (always correct),
+            # recorded as the fallback, not as pinned
+            dec = dataclasses.replace(dec, mode="span", reason="fallback")
+            expr = it[0]
+        elif dec.mode == "span":
+            expr = it[0].with_attrs(placement=dec.stamp())
+        else:
+            sl = self.slice_by_id(dec.slice_id)
+            expr = rebound
+        with self._lock:
+            if sl is None:
+                if dec.reason == "pinned":
+                    self.pinned += 1
+                self.placed["span"] += 1
+            else:
+                sl.submitted += 1
+                self.placed["slice"] += 1
+        self._emit_placement(dec, fkey, "span" if sl is None else "slice",
+                             None if sl is None else sl.slice_id)
+        pipe = self._pipeline(sl)
+        entry = (expr,) + it[1:pipeline_lib.KEY + 1]
+        prec = self._log.broadcast(
+            pipe.decide_routed(entry) if self._log.lead else None)
+        if sl is not None:
+            pipe.route.keys[it[7]] = (fkey, self._dep_names(it[0]))
+        try:
+            pipe.apply_routed(prec, entry)
+        finally:
+            if sl is not None:
+                pipe.route.keys.pop(it[7], None)
+
+    def _entry_info(self, sl, rebound, sla, out):
+        """(cached?, nbytes, layout, dtype) of a slice-placed result on
+        one of the slice's ranks."""
+        from matrel_tpu_torch.ir import expr as expr_mod
+        from matrel_tpu_torch.parallel import planner
+        from matrel_tpu_torch.session import _dtype_name
+        key = self._local_key(sl, rebound, sla)
+        return (sl.session._rc_enabled()
+                and sl.session._result_cache.holds(key),
+                result_nbytes(out),
+                planner._layout_of(expr_mod.leaf(out), sl.session.mesh),
+                _dtype_name(out.dtype))
+
+    def _serve_hit(self, it, fut, fkey, preferred, cands, facts) -> bool:
+        """The hit-anywhere protocol on every rank: the first candidate
+        whose every rank holds the entry serves it; a replica that does
+        not loses its claim, an owner that does not its record."""
+        drec = self.directory.lookup(fkey)
+        if drec is None:
+            return False
+        serving = None
+        for sid in cands:
+            held = [f[2].get(sid) for f in facts]
+            if all(h is not False for h in held) and any(held):
+                serving = sid
+                break
+            if sid != drec.owner:
+                self.directory.drop_replica(fkey, sid)
+        if serving is None:
+            self.directory.drop(fkey)
+            return False
+        remote = serving != preferred
+        self.directory.record_hit(fkey, preferred, remote)
+        sl = self.slice_by_id(serving)
+        local = None
+        if sl.member:
+            k = (drec.owner_key if serving == drec.owner
+                 else drec.replicas[serving])
+            local = sl.session._result_cache.lookup(k).result
+        if fut.set_running_or_notify_cancel():
+            fut.set_result(SliceResult(self.session.mesh, sl.session.mesh,
+                                       local))
+        if sl.session._slo is not None:
+            sl.session._slo.record_ok(it[5] or None, 0.0)
+        if remote:
+            self._migrate_ranked(it, fkey, drec, serving,
+                                 self.slice_by_id(preferred))
+        self._emit_hit(fkey, "directory_remote" if remote
+                       else "directory", serving)
+        return True
+
+    def _migrate_ranked(self, it, fkey, drec, serving, target) -> None:
+        """Hot-entry replication at its record, on every rank: priced as
+        on one card; the value crosses as a world collective and the
+        target slice's ranks cut their blocks from it."""
+        from matrel_tpu_torch.core.blockmatrix import BlockMatrix
+        from matrel_tpu_torch.ir import expr as expr_mod
+        from matrel_tpu_torch.parallel import planner, reshard
+        from matrel_tpu_torch.session import (_dtype_name, _plan_key,
+                                              _prec_prefix)
+        cfg = self.config
+        if (cfg.fleet_replicate_hits <= 0 or target is None
+                or not target.alive
+                or not target.session._rc_enabled()
+                or drec.hits.get(target.slice_id, 0)
+                < cfg.fleet_replicate_hits
+                or target.slice_id in drec.replicas
+                or target.slice_id in drec.priced_out):
+            return
+        gx, gy = mesh_lib.mesh_grid_shape(self.session.mesh)
+        weights = mesh_lib.axis_weights(self.session.mesh, cfg)
+        plan = reshard.compile_reshard(
+            reshard.normalize_layout(drec.layout) or "rep", "rep",
+            float(drec.nbytes), gx, gy, weights,
+            cfg.reshard_peak_budget_bytes)
+        budget = cfg.reshard_peak_budget_bytes
+        if budget > 0 and not plan.fits(budget):
+            self.directory.mark_priced_out(fkey, target.slice_id)
+            with self._lock:
+                self.migrations_priced_out += 1
+            self._emit_fleet({"event": "migrate_priced_out",
+                              "key_hash": _khash(fkey),
+                              "owner": drec.owner, "to": target.slice_id,
+                              "nbytes": drec.nbytes,
+                              "peak_bytes": plan.peak_bytes,
+                              "peak_budget": budget})
+            return
+        src = self.slice_by_id(serving)
+        local = None
+        if src.member:
+            local = src.session._result_cache.lookup(
+                drec.owner_key if serving == drec.owner
+                else drec.replicas[serving]).result
+        host = SliceResult(self.session.mesh, src.session.mesh,
+                           local).to_numpy()
+        key, put = None, False
+        if target.member:
+            rebound = self._rebind(it[0], target)
+            replica = BlockMatrix.from_numpy(
+                host, mesh=target.session.mesh,
+                config=target.session.config,
+                dtype=getattr(torch, drec.dtype),
+                integral=not getattr(torch, drec.dtype).is_floating_point)
+            lk, pins = _plan_key(rebound)
+            key = target.session._rc_key_prefix(it[3]) + lk
+            put = target.session._result_cache.put(key, CacheEntry(
+                key_hash=_khash(key), result=replica, pins=tuple(pins),
+                dep_ids=target.session._rc_deps(rebound),
+                layout=planner._layout_of(expr_mod.leaf(replica),
+                                          target.session.mesh),
+                dtype=_dtype_name(replica.dtype),
+                nbytes=result_nbytes(replica), expr=rebound,
+                prec=_prec_prefix(it[3]),
+                fleet={"owner": drec.owner, "layout": drec.layout,
+                       "dtype": drec.dtype}),
+                cfg.result_cache_max_bytes, cfg.result_cache_max_entries)
+        if not any(p for p in self._log.gather(put)):
+            return
+        self.directory.claim_replica(fkey, target.slice_id, key)
+        with self._lock:
+            self.migrations += 1
+        self._emit_fleet({"event": "migrate", "key_hash": _khash(fkey),
+                          "owner": drec.owner, "to": target.slice_id,
+                          "nbytes": drec.nbytes,
+                          "est_dcn_cost": drec.nbytes
+                          * placement_lib.effective_dcn_weight(weights),
+                          "reshard_steps": [st.kind for st in plan.steps],
+                          "peak_bytes": plan.peak_bytes})
+
+    def _kill_ranked(self, slice_id: int, reason: str) -> int:
+        """``kill_slice`` at its record, on every rank: the slice leaves
+        and its directory records drop. It holds no queue (see the
+        module docstring), so nothing is stolen: the items not yet
+        placed land on the survivors. Returns 0, the number
+        re-admitted."""
+        sl = self.slice_by_id(slice_id)
+        if sl is None or not sl.alive:
+            return 0
+        sl.alive = False
+        self.directory.drop_slice(slice_id)
+        with self._lock:
+            self.failovers += 1
+        self._emit_fleet({"event": "slice_kill", "slice": slice_id,
+                          "reason": reason, "stolen": 0, "requeued": 0})
+        return 0
+
     # -- lifecycle / observability ------------------------------------------
 
     def drain(self, timeout: Optional[float] = None) -> None:
@@ -1109,6 +1654,13 @@ class FleetController:
         many slices the fleet has."""
         t_end = (None if timeout is None
                  else retry_lib.now() + timeout)
+        if self._log is not None:
+            # every item's cycle, then each pipeline's dispatched
+            # batches (the router ran them)
+            self._items.join(timeout)
+            for sl in self.slices:
+                sl.session.serve_drain(timeout=_remaining(t_end))
+            return
         self.quiesce_replication(timeout=_remaining(t_end))
         # live slices first, then killed ones: kill_slice steals only
         # QUEUED entries — a batch its worker had already pulled keeps
@@ -1124,6 +1676,14 @@ class FleetController:
     def close(self, timeout: Optional[float] = None) -> None:
         t_end = (None if timeout is None
                  else retry_lib.now() + timeout)
+        if self._log is not None:
+            try:
+                self._items.join(timeout)
+            finally:
+                self._stop.set()
+                self.session.mesh.ranks.unregister_worker(self)
+                if self._router is not None and not self.owns_thread():
+                    self._router.join(timeout=1.0)
         self.quiesce_replication(timeout=_remaining(t_end))
         # close EVERY slice before reporting failure: one wedged
         # slice's DrainTimeout aborting the loop would leave the
@@ -1156,7 +1716,16 @@ class FleetController:
         return self.directory.seed_hints(records)
 
     def info(self) -> dict:
-        return {"slices": [sl.snapshot() for sl in self.slices],
+        snaps = [sl.snapshot() for sl in self.slices]
+        if self._log is not None:
+            # a slice's cache and planes live on its ranks: its first
+            # rank's snapshot, on every rank
+            from matrel_tpu_torch.parallel import collectives as coll
+            snaps = [coll.broadcast_object(
+                snap, self.session.mesh,
+                src=sl.session.mesh.ranks.members[0])
+                for sl, snap in zip(self.slices, snaps)]
+        return {"slices": snaps,
                 "source": self.source,
                 "directory": self.directory.info(),
                 "placed": dict(self.placed),

@@ -60,12 +60,31 @@ Resilience and overload contracts kept from the JAX package:
   re-admissions and bisections, the SLO outcome feed, and fault site
   ``serve_admit``.
 
+- **One decision path** (``serve/ranklog.py``): every admission cycle
+  is a record that the worker decides (:meth:`ServePipeline._decide`)
+  and then applies (:meth:`ServePipeline._apply`). Off a rank mesh the
+  log has one rank and exchanges nothing. On a rank mesh
+  (``session.mesh.ranked``) the lead rank decides and every rank
+  applies the same record; a shed or purge the lead decides fails the
+  future typed on every rank, so there ``submit`` never raises
+  ``AdmissionShed`` itself: the future carries it. The worker holds the
+  world's execution lock (``RankGroups.cycle``) while it applies a
+  record; the session's collective entry points drain it first and
+  hold the same lock (``RankGroups.held``). The fleet's router on a
+  rank mesh drives a slice's pipeline, or the parent's, one routed
+  query a cycle (:meth:`ServePipeline.decide_routed` /
+  :meth:`ServePipeline.apply_routed`), so a slice-placed query keeps
+  every contract above; a rank outside the slice joins the agreement
+  and runs nothing.
+
 Locks are built through ``utils/lockdep`` (``"serve.pipeline"``).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import itertools
 import logging
 import queue
 import threading
@@ -85,17 +104,23 @@ from matrel_tpu_torch.resilience.errors import (AdmissionShed,
                                                 DeadlineExceeded,
                                                 DrainTimeout,
                                                 PipelineClosed,
+                                                RankDivergence,
                                                 is_transient)
 from matrel_tpu_torch.resilience.retry import Deadline
+from matrel_tpu_torch.serve import ranklog
 from matrel_tpu_torch.serve.admission import AdmissionQueue
 from matrel_tpu_torch.utils import lockdep
 
 log = logging.getLogger("matrel_tpu_torch.serve")
 
 #: Entry layout: (expr, future, t_enqueue, sla, deadline, tenant,
-#: staleness_ms). Shorter tuples (white-box callers) are right-padded
-#: with these defaults.
+#: staleness_ms), and on a rank mesh also (sequence number, rank key).
+#: Shorter tuples (white-box callers) are right-padded with these
+#: defaults.
 _ENTRY_DEFAULTS = ("default", None, "", None)
+
+#: Positions of the rank-mesh fields (``serve/ranklog.py``).
+SEQ, KEY = 7, 8
 
 #: Poll interval of a bounded sync (seconds): a batch's event is
 #: queried this often until it completes or the budget runs out.
@@ -170,6 +195,28 @@ class ServePipeline:
         # one observe() per admission cycle. Worker-thread-only.
         self._late_misses = 0
         self.batches = 0
+        # the decision log (one rank off a rank mesh). On a rank mesh
+        # the lead's queue defers its sheds and purges into the next
+        # record, a follower keeps its entries in a store keyed by
+        # sequence number
+        self._log = ranklog.DecisionLog(session.mesh)
+        self._ranked = self._log.world > 1
+        #: does this rank hold a cell of the session's mesh? (False on a
+        #: rank outside a fleet slice: it agrees, and runs nothing)
+        self._member = not session.mesh.ranked or session.mesh.ranks.member
+        #: the fleet's hooks for a slice-placed answer on a rank mesh
+        #: (``serve/fleet.py``): ``wrap(out)``, ``info(batch, outs)``,
+        #: ``served(batch, info, late)``; None elsewhere
+        self.route = None
+        self._seq = itertools.count()
+        self._store = None
+        self._tasks = self._q
+        self.divergences = 0
+        if self._ranked:
+            if self._log.lead:
+                self._q.deferring = True
+            else:
+                self._store = self._tasks = ranklog.EntryStore(SEQ)
 
     # -- public surface ----------------------------------------------------
 
@@ -197,6 +244,12 @@ class ServePipeline:
                     "submit after close(): the admission worker is "
                     "stopped — build a new session (or pipeline) to "
                     "serve again")
+            if self._ranked:
+                self._ensure_worker()
+                self._admit_ranked(
+                    (*entry, next(self._seq), ranklog.rank_key(expr)),
+                    tenant)
+                return fut
             # brownout rung 3: shed lowest-weight tenants FIRST —
             # typed, before any queue slot is consumed
             ctl = self._brownout
@@ -211,6 +264,29 @@ class ServePipeline:
             self._ensure_worker()
         return fut
 
+    def _admit_ranked(self, entry, tenant: Optional[str]) -> None:
+        """A rank mesh's enqueue: a follower files the entry under its
+        sequence number; the lead admits it, and a shed it decides
+        (brownout rung 3, a quota, the global bound) rides the next
+        record instead of raising here."""
+        if self._store is not None:
+            self._store.put(entry)
+            return
+        ctl = self._brownout
+        if (ctl is not None and ctl.rung() >= brownout_lib.SHED_RUNG
+                and self._q.lowest_weight_tenant(tenant)):
+            self._q.defer(entry, ("shed", "brownout",
+                                  self._q.tenant_max or self._q.global_max))
+            return
+        try:
+            self._q.put(entry, tenant or "")
+        except AdmissionShed as ex:
+            self._q.defer(entry, ("shed", ex.scope, ex.queue_max))
+
+    def owns_thread(self) -> bool:
+        """Is the caller this pipeline's worker thread?"""
+        return threading.current_thread() is self._worker
+
     def drain(self, timeout: Optional[float] = None) -> None:
         """Block until every submitted query is dispatched AND every
         dispatched batch has completed on the device. ``timeout``
@@ -218,14 +294,14 @@ class ServePipeline:
         raises the typed ``DrainTimeout``; queue state is untouched."""
         t_abs = (retry_lib.now() + timeout
                  if timeout is not None else None)
-        with self._q.all_tasks_done:
-            while self._q.unfinished_tasks:
+        tasks = self._tasks
+        with tasks.all_tasks_done:
+            while tasks.unfinished_tasks:
                 rem = (None if t_abs is None
                        else t_abs - retry_lib.now())
                 if rem is not None and rem <= 0:
-                    raise DrainTimeout(timeout,
-                                       self._q.unfinished_tasks)
-                self._q.all_tasks_done.wait(rem)
+                    raise DrainTimeout(timeout, tasks.unfinished_tasks)
+                tasks.all_tasks_done.wait(rem)
         while self._inflight:
             rem = None if t_abs is None else t_abs - retry_lib.now()
             if rem is not None and rem <= 0:
@@ -252,6 +328,12 @@ class ServePipeline:
             self.drain(timeout=timeout)
         finally:
             self._stop.set()
+            if self._ranked:
+                self.session.mesh.ranks.unregister_worker(self)
+                # the worker leaves within one poll: a rank's process
+                # must not reach its teardown with it still running
+                if self._worker is not None and not self.owns_thread():
+                    self._worker.join(timeout=1.0)
 
     def readmit_entry(self, entry, tenant: str) -> None:
         """Fleet-failover seam (``serve/fleet.py`` is the one caller):
@@ -283,138 +365,331 @@ class ServePipeline:
             if self._closed:
                 return
             if self._worker is None or not self._worker.is_alive():
+                if self._ranked:
+                    self.session.mesh.ranks.register_worker(self)
                 self._stop.clear()
                 self._worker = threading.Thread(
                     target=self._run, name="matrel-serve", daemon=True)
                 self._worker.start()
 
     def _run(self) -> None:
+        """One decision cycle a loop: the lead pulls a batch, decides
+        and publishes the record; a follower waits for entries of its
+        own, then for the record and the entries it names. Every rank
+        applies the record (on a rank mesh under the world's execution
+        lock)."""
         dev = self.session.device
         if dev.type == "cuda":
             # a CUDA context is per thread: launch on the session's card
             torch.cuda.set_device(dev)
+        log = self._log
         while not self._stop.is_set():
-            try:
-                first = self._q.get(timeout=0.05)
-            except queue.Empty:
-                if self._slo is not None:
-                    # burn decays as the windows slide: a drained plane
-                    # clears its alerts without waiting for a query
-                    self._slo.tick()
-                continue
-            pulled = [first]
-            while len(pulled) < self.max_batch:
-                try:
-                    pulled.append(self._q.get_nowait())
-                except queue.Empty:
-                    break
-            pulled = [(*it, *_ENTRY_DEFAULTS[len(it) - 3:])
-                      if len(it) < 7 else it for it in pulled]
-            # RUNNING first: a future the caller cancelled while queued
-            # drops out here — set_result on it would raise and kill
-            # the worker, stranding every sibling future
-            batch = [it for it in pulled
-                     if it[1].set_running_or_notify_cancel()]
-            t_admit = time.perf_counter()
-            cycle_waits = [round((t_admit - it[2]) * 1e3, 3)
-                           for it in batch]
-            # deadline shed BEFORE compilation
-            live = []
-            misses = 0
-            for it in batch:
-                dl = it[4]
-                if dl is not None and dl.expired():
-                    _fail(it[1], DeadlineExceeded(
-                        dl.budget_ms, dl.elapsed_ms(),
-                        context="queued query"))
-                    misses += 1
+            if log.lead:
+                deferred = self._q.take_deferred()
+                pulled = self._pull(0.0 if deferred else 0.05)
+                if not pulled and not deferred:
                     if self._slo is not None:
-                        self._slo.record_miss(it[5] or None)
-                else:
-                    live.append(it)
-            self.deadline_misses += misses
-            # circuit breakers: an entry whose plan class is OPEN fails
-            # fast (typed, probe schedule attached)
-            if self._breakers is not None:
-                admitted = []
-                for it in live:
-                    try:
-                        self._breakers.admit(
-                            self._breakers.plan_class(it[0]))
-                    except CircuitOpen as ex:
-                        _fail(it[1], ex)
-                        if self._slo is not None:
-                            self._slo.record_shed(it[5] or None)
-                    else:
-                        admitted.append(it)
-                live = admitted
-            # per-tenant queue waits AT ADMISSION — what the controller
-            # and the overload event read
-            tenant_waits: dict = {}
-            for it, w in zip(batch, cycle_waits):
-                tenant_waits.setdefault(it[5] or "", []).append(w)
-            # brownout: ONE load sample per admission cycle (late
-            # deadline misses of earlier batches fold in here), then
-            # act on the (possibly new) rung
-            rung = 0
-            ctl = self._brownout
-            if ctl is not None:
-                late, self._late_misses = self._late_misses, 0
-                rung = ctl.observe(depth=self._q.qsize(),
-                                   waits_ms=cycle_waits,
-                                   misses=misses + late,
-                                   admitted=len(live))
-            stale_served = 0
-            if (rung >= brownout_lib.STALE_RUNG
-                    and self.session._rc_enabled()):
-                # rung 2: a query that DECLARED a staleness tolerance
-                # may be answered by the stale ghost of a rebind-
-                # invalidated entry — exact answer, slightly old
-                # catalog; nothing compiles, nothing runs
-                remaining = []
-                for it in live:
-                    ent = (self.session._rc_stale_probe(
-                        it[0], it[3], it[6]) if it[6] else None)
-                    if ent is not None:
-                        if not it[1].done():
-                            it[1].set_result(ent.result)
-                        stale_served += 1
-                        if self.session._prov is not None:
-                            self.session._prov_capture_stale(
-                                it[0], ent,
-                                AdmissionQueue.entry_provenance(it))
-                        if self._slo is not None:
-                            self._slo.record_ok(
-                                it[5] or None,
-                                (time.perf_counter() - it[2]) * 1e3)
-                        # a cache hit says nothing about the class's
-                        # execution health: release the probe slot
-                        self._breaker_done(it[0], None)
-                    else:
-                        remaining.append(it)
-                live = remaining
-                self.stale_served += stale_served
-            if rung >= brownout_lib.TIER_RUNG:
-                # rung 1: default-SLA queries downshift to the "fast"
-                # tier, stamped on the expr root (the prec:fast| key
-                # prefix isolates the browned-out plan and result)
-                live = [self._downshift(it, rung) for it in live]
-            # same-SLA sub-batches, admission order preserved
-            groups: "collections.OrderedDict" = collections.OrderedDict()
-            for it in live:
-                groups.setdefault(it[3], []).append(it)
+                        # burn decays as the windows slide: a drained
+                        # plane clears its alerts without a query
+                        self._slo.tick()
+                    continue
+                entries = {it[SEQ]: it
+                           for it in [d[0] for d in deferred] + pulled}
+                rec = log.publish(self._decide(pulled, deferred))
+            else:
+                if not self._store.wait_any(0.05):
+                    continue
+                rec = log.publish()
+                entries = self._store.take(rec["seqs"],
+                                           ranklog.RANK_WAIT_S)
             try:
-                for sla, part in groups.items():
-                    self._run_group(
-                        sla, part, t_admit, depth=0,
-                        retries=self.session.config.retry_max_attempts,
-                        rung=rung)
+                with self._cycle():
+                    self._apply(rec, entries)
             finally:
-                for _ in pulled:
-                    self._q.task_done()
-                if self._overload_active:
-                    self._emit_overload(rung, tenant_waits, misses,
-                                        stale_served)
+                if log.lead:
+                    for _ in entries:
+                        self._q.task_done()
+                else:
+                    self._store.done(len(entries))
+
+    def _cycle(self):
+        """The world's execution lock around one cycle (a rank mesh)."""
+        return (self.session.mesh.ranks.cycle() if self._ranked
+                else contextlib.nullcontext())
+
+    def _pull(self, timeout: float) -> list:
+        """Up to ``max_batch`` queued entries (none within ``timeout``
+        seconds: an empty list)."""
+        try:
+            pulled = [self._q.get(timeout=timeout)]
+        except queue.Empty:
+            return []
+        while len(pulled) < self.max_batch:
+            try:
+                pulled.append(self._q.get_nowait())
+            except queue.Empty:
+                break
+        return [self._numbered(it) for it in pulled]
+
+    def _numbered(self, it):
+        """An entry in the full layout: a shorter tuple (a white-box
+        caller's, or one re-admitted by the one-card fleet) padded with
+        the defaults and given the next sequence number."""
+        if len(it) > SEQ:
+            return it
+        if len(it) < 7:
+            it = (*it, *_ENTRY_DEFAULTS[len(it) - 3:])
+        return (*it[:7], next(self._seq), None)
+
+    def _decide(self, pulled: list, deferred: list) -> dict:
+        """The lead's decisions for one cycle, as the record every rank
+        applies: sheds and purges it deferred, deadline verdicts on its
+        clock, breaker verdicts, the brownout sample and rung, the
+        stale serves, and its depths and waits for the overload
+        event. Off a rank mesh a future the caller cancelled while
+        queued drops out here; on a rank mesh it rides its cycle (the
+        other ranks run it) and simply receives nothing."""
+        if not self._ranked:
+            # RUNNING first: set_result on a cancelled future would
+            # raise and kill the worker, stranding every sibling
+            pulled = [it for it in pulled
+                      if it[1].set_running_or_notify_cancel()]
+        t_admit = time.perf_counter()
+        fail = {it[SEQ]: verdict for it, verdict in deferred}
+        live, misses = [], 0
+        for it in pulled:
+            dl = it[4]
+            if dl is not None and dl.expired():
+                fail[it[SEQ]] = ("deadline", dl.budget_ms, dl.elapsed_ms())
+                misses += 1
+            else:
+                live.append(it)
+        admit = []
+        if self._breakers is not None:
+            kept = []
+            for it in live:
+                cls = self._breakers.plan_class(it[0])
+                try:
+                    self._breakers.admit(cls)
+                except CircuitOpen as ex:
+                    admit.append((it[SEQ], cls, False))
+                    fail[it[SEQ]] = ("breaker", ex.plan_class,
+                                     ex.retry_after_ms, ex.probes)
+                else:
+                    admit.append((it[SEQ], cls, True))
+                    kept.append(it)
+            live = kept
+        waits = {it[SEQ]: round((t_admit - it[2]) * 1e3, 3)
+                 for it in pulled}
+        sample, rung = None, 0
+        if self._brownout is not None:
+            late, self._late_misses = self._late_misses, 0
+            sample = {"depth": self._q.qsize(),
+                      "waits_ms": [waits[it[SEQ]] for it in pulled],
+                      "misses": misses + late, "admitted": len(live)}
+            rung = self._brownout.observe(**sample)
+        stale = []
+        if (rung >= brownout_lib.STALE_RUNG
+                and self.session._rc_enabled()):
+            stale = [it[SEQ] for it in live if it[6]
+                     and self.session._rc_stale_probe(
+                         it[0], it[3], it[6], peek=True) is not None]
+        return {"cycle": self._log.cycles,
+                "seqs": [it[SEQ] for it, _v in deferred]
+                + [it[SEQ] for it in pulled],
+                "fail": fail, "admit": admit, "sample": sample,
+                "rung": rung, "stale": stale, "waits": waits,
+                "depth": self._q.qsize(),
+                "tenant_depths": self._q.tenant_depths()}
+
+    def _facts(self, rec: dict, entries: dict, run: list) -> dict:
+        """What this rank holds for ``rec``: per sequence number its
+        presence, rank key, result-cache pattern (entries that run) and
+        stale entry (stale serves) — what the ranks compare before any
+        collective."""
+        sess = self.session
+        facts = {s: [s in entries, entries[s][KEY] if s in entries
+                     else None, None, None] for s in rec["seqs"]}
+        if not self._member:
+            # the slice's cache lives on the slice's ranks
+            for s in set(rec["stale"]) | {it[SEQ] for it in run}:
+                facts[s][2:] = [ranklog.ANY, ranklog.ANY]
+            return {s: tuple(v) for s, v in facts.items()}
+        for it in run:
+            facts[it[SEQ]][2] = sess._rc_pattern(it[0], it[3])
+        for s in rec["stale"]:
+            if s in entries:
+                it = entries[s]
+                facts[s][3] = sess._rc_stale_probe(
+                    it[0], it[3], it[6], peek=True, aged=True) is not None
+        return {s: tuple(v) for s, v in facts.items()}
+
+    def _apply(self, rec: dict, entries: dict) -> None:
+        """Apply one record on this rank (the lead too): agree, mirror
+        the lead's breaker and brownout state, resolve the refused and
+        stale-served futures, run the SLA groups in order."""
+        log, sess = self._log, self.session
+        seqs, fail, rung = rec["seqs"], rec["fail"], rec["rung"]
+        stale = [s for s in rec["stale"] if s in entries]
+        t_admit = time.perf_counter()
+        if self._ranked:
+            for it in entries.values():
+                # a cancelled future still rides its cycle (the other
+                # ranks run it); it simply receives nothing
+                it[1].set_running_or_notify_cancel()
+        run = [entries[s] for s in seqs
+               if s in entries and s not in fail and s not in stale]
+        if rung >= brownout_lib.TIER_RUNG:
+            run = [self._downshift(it, rung) for it in run]
+        why = (ranklog.divergence(
+            log.gather(self._facts(rec, entries, run)), seqs)
+            if self._ranked else None)
+        if not log.lead:
+            if self._breakers is not None:
+                for _s, cls, ok in rec["admit"]:
+                    self._breakers.follow(cls, ok)
+            if rec["sample"] is not None:
+                self._late_misses = 0
+                self._brownout.observe(**rec["sample"])
+        if why is not None:
+            ex = RankDivergence(rec["cycle"], why)
+            self.divergences += 1
+            if self._breakers is not None:
+                for _s, cls, ok in rec["admit"]:
+                    if ok:
+                        self._breakers.record(cls, None)
+            for s in seqs:
+                if s in entries:
+                    _fail(entries[s][1], ex)
+                else:
+                    self._store.mark_dead(s, ex)
+            return
+        misses = 0
+        for s in seqs:
+            v = fail.get(s)
+            if v is None:
+                continue
+            it = entries[s]
+            tenant = it[5] or None
+            if v[0] == "shed":
+                self._q.record_shed(it[5])
+                _fail(it[1], AdmissionShed(v[2], tenant=tenant,
+                                           scope=v[1]))
+            elif v[0] == "purged":
+                self._q.note_purged(it[5])
+                _fail(it[1], DeadlineExceeded(
+                    v[1], v[2], context="queued query (purged)"))
+            elif v[0] == "deadline":
+                misses += 1
+                _fail(it[1], DeadlineExceeded(v[1], v[2],
+                                              context="queued query"))
+                if self._slo is not None:
+                    self._slo.record_miss(tenant)
+            else:
+                _fail(it[1], CircuitOpen(v[1], v[2], v[3]))
+                if self._slo is not None:
+                    self._slo.record_shed(tenant)
+        self.deadline_misses += misses
+        for s in stale:
+            # rung 2: a query that DECLARED a staleness tolerance is
+            # answered by the stale ghost of a rebind-invalidated entry
+            # — exact answer, slightly old catalog; nothing runs
+            it = entries[s]
+            ent = (sess._rc_stale_probe(it[0], it[3], it[6], aged=True)
+                   if self._member else None)
+            if not it[1].done():
+                it[1].set_result(self._wrap(
+                    ent.result if ent is not None else None))
+            if ent is not None and sess._prov is not None:
+                sess._prov_capture_stale(
+                    it[0], ent, AdmissionQueue.entry_provenance(it))
+            if self._slo is not None:
+                self._slo.record_ok(it[5] or None,
+                                    (time.perf_counter() - it[2]) * 1e3)
+            self._breaker_done(it[0], None)
+        self.stale_served += len(stale)
+        tenant_waits: dict = {}
+        for s, w in rec["waits"].items():
+            tenant_waits.setdefault(entries[s][5] or "", []).append(w)
+        groups: "collections.OrderedDict" = collections.OrderedDict()
+        for it in run:
+            groups.setdefault(it[3], []).append(it)
+        try:
+            for sla, part in groups.items():
+                self._run_group(
+                    sla, part, t_admit, depth=0,
+                    retries=sess.config.retry_max_attempts, rung=rung)
+        finally:
+            if self._overload_active:
+                # the lead's depths on a rank mesh; the queue's own now
+                # off it
+                self._emit_overload(
+                    rung, tenant_waits, misses, len(stale),
+                    depth=rec["depth"] if self._ranked else None,
+                    tenant_depths=(rec["tenant_depths"] if self._ranked
+                                   else None))
+
+    # -- the fleet's router on a rank mesh (serve/fleet.py) ----------------
+
+    def decide_routed(self, entry) -> dict:
+        """The lead's record for one query the fleet routed to this
+        pipeline: admitted as a submission is (a brownout rung-3 shed,
+        the queue's bounds), then decided as a cycle. The router is the
+        worker: this pipeline's own never starts."""
+        self._admit_ranked(entry, entry[5] or None)
+        deferred = self._q.take_deferred()
+        pulled = self._pull(0.0) if not deferred else []
+        try:
+            return self._decide(pulled, deferred)
+        finally:
+            for _ in range(len(pulled) + len(deferred)):
+                self._q.task_done()
+
+    def apply_routed(self, rec: dict, entry) -> None:
+        """Apply :meth:`decide_routed`'s record on this rank (every rank
+        of the world, inside the router's cycle)."""
+        self._apply(rec, {entry[SEQ]: entry})
+
+    def _wrap(self, out):
+        return self.route.wrap(out) if self.route is not None else out
+
+    def _agree_group(self, batch: list, outs, ex):
+        """One group's outcome, agreed over the ranks: (error or None,
+        transient, late sequence numbers, latencies in ms, the route's
+        info). A failure is the first failing rank's error, the same
+        typed error on every rank (a rank keeps its own instance when it
+        is of that class); the retry decision is the failing ranks' own
+        classification. After a success the lead judges late deadlines
+        and latencies on its clock once every rank has finished."""
+        log = self._log
+        mine = {"err": None if ex is None else ranklog.error_record(ex),
+                "info": (self.route.info(batch, outs)
+                         if self.route is not None and ex is None
+                         and self._member else None)}
+        got = log.gather(mine)
+        bad = [g["err"] for g in got if g["err"] is not None]
+        if bad:
+            agreed = ranklog.rebuild_error(bad[0])
+            if ex is not None and type(ex) is type(agreed) \
+                    and mine["err"]["text"] == bad[0]["text"]:
+                agreed = ex
+            elif ex is not None:
+                agreed.__cause__ = ex
+            return (agreed, all(b["transient"] for b in bad), None, None,
+                    None)
+        info = next((g["info"] for g in got if g["info"] is not None),
+                    None)
+        if not (any(it[4] is not None for it in batch)
+                or self._slo is not None):
+            return None, False, set(), None, info
+        verdict = None
+        if log.lead:
+            t = time.perf_counter()
+            verdict = ([it[SEQ] for it in batch
+                        if it[4] is not None and it[4].expired()],
+                       {it[SEQ]: (t - it[2]) * 1e3 for it in batch})
+        late, lat = log.broadcast(verdict)
+        return None, False, set(late), lat, info
 
     @staticmethod
     def _downshift(it, rung: int):
@@ -428,7 +703,7 @@ class ServePipeline:
         stamp = brownout_lib.downshift_stamp(
             it[6] if rung >= brownout_lib.STALE_RUNG else None)
         e = it[0].with_attrs(brownout=stamp)
-        return (e, it[1], it[2], "fast", it[4], it[5], it[6])
+        return (e, it[1], it[2], "fast", it[4], it[5], it[6], *it[7:])
 
     def _breaker_done(self, expr, ok, ex: BaseException = None) -> None:
         """Record one admitted entry's terminal outcome against its
@@ -446,7 +721,9 @@ class ServePipeline:
             self._breakers.record(cls, None)
 
     def _emit_overload(self, rung: int, tenant_waits: dict,
-                       misses: int, stale_served: int) -> None:
+                       misses: int, stale_served: int,
+                       depth: Optional[int] = None,
+                       tenant_depths: Optional[dict] = None) -> None:
         """One ``overload`` record per admission cycle while the
         control plane is active: rung/depths, this cycle's per-tenant
         admission-time waits, and shed/purge/breaker-transition DELTAS
@@ -465,8 +742,11 @@ class ServePipeline:
             rec = {
                 "rung": rung,
                 "rung_label": brownout_lib.rung_label(rung),
-                "queue_depth": self._q.qsize(),
-                "tenant_depths": self._q.tenant_depths(),
+                "queue_depth": (self._q.qsize() if depth is None
+                                else depth),
+                "tenant_depths": (self._q.tenant_depths()
+                                  if tenant_depths is None
+                                  else tenant_depths),
                 "admitted": admitted,
                 "tenant_waits_ms": tenant_waits,
                 "sheds": shed_delta,
@@ -495,6 +775,22 @@ class ServePipeline:
         except Exception:   # the never-fail obs contract
             log.warning("obs: overload event dropped", exc_info=True)
 
+    def _run_many(self, sla: str, batch: list, depth: int,
+                  waits_ms: list, rung: int) -> list:
+        sess = self.session
+        # worker-thread tracer activation: the admission span is the
+        # serve trail's root; run_many's spans link under it
+        with trace_lib.activate(sess._tracer), trace_lib.span(
+                "serve.admit", batch=len(batch),
+                inflight=len(self._inflight), bisect_depth=depth,
+                max_wait_ms=max(waits_ms) if waits_ms else 0.0):
+            return sess.run_many(
+                [it[0] for it in batch], precision=sla,
+                _queue_wait_ms=waits_ms,
+                _inflight_depth=len(self._inflight),
+                _tenants=[it[5] for it in batch],
+                _brownout_rung=rung or None)
+
     def _run_group(self, sla: str, batch: list, t_admit: float,
                    depth: int, retries: int = 0, rung: int = 0) -> None:
         """Run one same-SLA sub-batch through ``session.run_many`` and
@@ -504,34 +800,30 @@ class ServePipeline:
             return
         waits_ms = [round((t_admit - it[2]) * 1e3, 3) for it in batch]
         sess = self.session
+        ex = late = lat = info = None
+        outs = [None] * len(batch)
         try:
             # fault site "serve_admit" INSIDE the try: an injected
             # admission fault takes the bisection/re-admission path
+            # (checked on every rank, so it fires on every rank)
             faults_lib.check("serve_admit", sess.config)
-            # worker-thread tracer activation: the admission span is
-            # the serve trail's root; run_many's spans link under it
-            with trace_lib.activate(sess._tracer), \
-                    trace_lib.span(
-                        "serve.admit", batch=len(batch),
-                        inflight=len(self._inflight),
-                        bisect_depth=depth,
-                        max_wait_ms=(max(waits_ms) if waits_ms
-                                     else 0.0)):
-                outs = sess.run_many(
-                    [it[0] for it in batch], precision=sla,
-                    _queue_wait_ms=waits_ms,
-                    _inflight_depth=len(self._inflight),
-                    _tenants=[it[5] for it in batch],
-                    _brownout_rung=rung or None)
-            done = Dispatched(outs, _record_event(sess.device))
-        except Exception as ex:  # noqa: BLE001 — bisect, re-admit or
+            if self._member:
+                outs = self._run_many(sla, batch, depth, waits_ms, rung)
+        except Exception as e:  # noqa: BLE001 — bisect, re-admit or
             # fail the lone future; the worker survives either way
+            ex = e
+        if self._ranked:
+            ex, transient, late, lat, info = self._agree_group(
+                batch, outs, ex)
+        else:
+            transient = ex is not None and is_transient(ex)
+        if ex is not None:
             if depth == 0:
                 # the post-mortem trail of a failed serve batch (no-op
                 # with the flight recorder off)
                 sess._flight_auto_dump(ex, reason="serve_batch_failure")
             if len(batch) == 1:
-                if retries > 0 and is_transient(ex):
+                if retries > 0 and transient:
                     sess._emit_retry_event(ex, attempt=depth + 1,
                                            rung=0, scope="serve_readmit")
                     self._run_group(sla, batch, t_admit, depth + 1,
@@ -554,9 +846,12 @@ class ServePipeline:
                             retries=retries, rung=rung)
             return
         self.batches += 1
+        done = Dispatched(outs, _record_event(sess.device)
+                          if self._member else None)
         for it, out in zip(batch, outs):
             fut, dl = it[1], it[4]
-            if dl is not None and dl.expired():
+            if (it[SEQ] in late if late is not None
+                    else dl is not None and dl.expired()):
                 # the batch finished past this query's deadline: the
                 # future resolves typed, never a late answer; the miss
                 # folds into the NEXT cycle's controller sample
@@ -572,13 +867,17 @@ class ServePipeline:
                 self._breaker_done(it[0], True)
                 if not fut.done():
                     fut.ready_event = done.event
-                    fut.set_result(out)
+                    fut.set_result(self._wrap(out))
                 if self._slo is not None:
                     # resolution latency = enqueue → dispatched, the
-                    # serve plane's own clock (host; no device sync)
+                    # serve plane's own clock (host; no device sync;
+                    # the lead's on a rank mesh)
                     self._slo.record_ok(
                         it[5] or None,
-                        (time.perf_counter() - it[2]) * 1e3)
+                        lat[it[SEQ]] if lat is not None
+                        else (time.perf_counter() - it[2]) * 1e3)
+        if self.route is not None:
+            self.route.served(batch, info, late)
         if outs:
             self._inflight.append(done)
         while len(self._inflight) > self.max_inflight:

@@ -356,13 +356,24 @@ class ResultCache:
             self._bytes = max(self._bytes, 0)
             return dropped_n
 
-    def lookup_stale(self, key: str, max_age_ms: float
+    def holds(self, key: str) -> bool:
+        """Is ``key`` resident? No LRU touch, no counter, no thaw: the
+        side-effect-free view a rank reports to the decision log."""
+        with self._lock:
+            return key in self._entries
+
+    def lookup_stale(self, key: str, max_age_ms: float,
+                     peek: bool = False, aged: bool = False
                      ) -> Optional[CacheEntry]:
         """Brownout rung-2 consult: the STALE entry for ``key``, iff
         its age since invalidation fits the query's declared
         ``staleness_ms`` tolerance. Entries older than the asking
         query's tolerance stay (a later query may tolerate more);
-        the graveyard stays bounded by the insert-side cap."""
+        the graveyard stays bounded by the insert-side cap. ``peek``
+        answers without touching the LRU or the counter (the lead
+        rank's decision); ``aged`` skips the age test, which the lead
+        already made on its own clock (every rank applying the
+        decision)."""
         if max_age_ms is None or max_age_ms <= 0:
             return None
         with self._lock:
@@ -370,8 +381,10 @@ class ResultCache:
             if got is None:
                 return None
             ent, t_stale = got
-            if (_now() - t_stale) * 1e3 > max_age_ms:
+            if not aged and (_now() - t_stale) * 1e3 > max_age_ms:
                 return None
+            if peek:
+                return ent
             self._stale.move_to_end(key)
             self.stale_hits += 1
             return ent

@@ -57,10 +57,25 @@ The multi-slice serving fleet (``fleet_slices`` >= 1; ``serve/fleet.py``)
 turns ``submit`` into a routing decision: per-slice sessions on the
 same card (each its own queue, worker and result cache), a catalog-name
 keyed directory that answers a repeat from any slice's cache, hot-entry
-replication and failover. ``fleet_info`` reports it; with the default 0
-no fleet object is built and ``submit`` is the single-session pipeline.
+replication and failover; on a rank mesh a slice is a group of ranks.
+``fleet_info`` reports it; with the default 0 no fleet object is built
+and ``submit`` is the single-session pipeline.
 ``sql``/``explain_sql`` compile the SQL surface (``sql.py``) into the
 same IR.
+
+On a rank mesh ``submit`` runs on the decision log
+(``serve/ranklog.py``): every rank submits the same queries in the same
+order, the lead rank decides each admission cycle and every rank
+applies it. The other collective entry points — ``compute``/``run``,
+``run_many``, ``compile`` (a measured choice is agreed across the
+ranks), ``register``/``register_delta``, ``explain`` (whose
+``analyze=True`` runs the plan), ``save_state``/``restore``,
+``save_catalog``/``load_catalog`` and ``fleet_info`` — DRAIN AND HOLD
+(:func:`_in_turn`): each waits until every rank's worker has applied
+every record, then runs holding the execution lock the worker takes
+around a cycle, so no collective of theirs can meet a worker's batch
+in a different order on another rank. A result's ``to_numpy`` /
+``with_spec`` take the same turn.
 
 Plan-cache keys are structural; a callable attr (a σ predicate, a ⋈
 merge) keys by the ``__matrel_key__`` tag ``sql.py`` attaches (so the
@@ -71,6 +86,7 @@ pinned identity (``_fn_token``).
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import itertools
 import logging
@@ -114,6 +130,24 @@ _active: Optional["MatrelSession"] = None
 Device = Union[str, torch.device, None]
 
 _query_seq = itertools.count()
+
+
+def _in_turn(method):
+    """A collective entry point on a rank mesh takes its turn against
+    the serve workers: drain and hold. It waits until every live worker
+    of the world has applied every decision record (so on every rank
+    the same submissions are done), then runs holding the execution
+    lock the workers take around a cycle (``RankGroups.held``). Off a
+    rank mesh, and on a worker's own thread, the method runs as is."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kw):
+        if not self.mesh.ranked:
+            return method(self, *args, **kw)
+        with self.mesh.ranks.held():
+            return method(self, *args, **kw)
+
+    return run
 
 
 class MatrelSession:
@@ -249,6 +283,7 @@ class MatrelSession:
 
     # -- catalog ------------------------------------------------------------
 
+    @_in_turn
     def register(self, name: str, matrix) -> None:
         old = self.catalog.get(name)
         self.catalog[name] = matrix
@@ -280,6 +315,7 @@ class MatrelSession:
     def table(self, name: str):
         return self.catalog[name]
 
+    @_in_turn
     def register_delta(self, name: str, delta, kind: str = "auto"
                        ) -> dict:
         """Rebind a catalog name to ``A + ΔA`` and MAINTAIN the cached
@@ -322,6 +358,7 @@ class MatrelSession:
                                       float(out["ms"]))
         return out
 
+    @_in_turn
     def save_catalog(self, directory: str,
                      step: Optional[int] = None) -> str:
         """Persist every registered table (atomic step directory, specs
@@ -344,6 +381,7 @@ class MatrelSession:
             step = mgr.next_step()
         return mgr.save(step, matrices=dense, sparse=sparse)
 
+    @_in_turn
     def load_catalog(self, directory: str,
                      step: Optional[int] = None) -> list:
         """Restore tables saved by :meth:`save_catalog` (by either
@@ -364,6 +402,7 @@ class MatrelSession:
             self.register(name, mats[name])
         return sorted(mats)
 
+    @_in_turn
     def save_state(self, directory: Optional[str] = None) -> dict:
         """Snapshot this session's durable state — catalog bindings
         (the checkpoint step format), the result-cache index (entries
@@ -382,6 +421,7 @@ class MatrelSession:
         self._emit_spill_event({"op": "save_state", **out})
         return out
 
+    @_in_turn
     def restore(self, directory: Optional[str] = None) -> dict:
         """Warm-restart this session from a :meth:`save_state` snapshot:
         the catalog restored through :meth:`register`, tables written if
@@ -419,6 +459,7 @@ class MatrelSession:
 
     # -- actions ------------------------------------------------------------
 
+    @_in_turn
     def compile(self, expr: MatExpr,
                 precision: Optional[str] = None
                 ) -> executor_lib.CompiledPlan:
@@ -760,17 +801,35 @@ class MatrelSession:
         return frozenset(deps)
 
     def _rc_stale_probe(self, e: MatExpr, sla: str,
-                        staleness_ms: Optional[float]):
+                        staleness_ms: Optional[float],
+                        peek: bool = False, aged: bool = False):
         """The STALE entry for this query iff it declared a
         ``staleness_ms`` tolerance its age fits (the brownout rung-2
         consult: only a session with a brownout controller keeps the
-        graveyard, so otherwise this finds nothing)."""
+        graveyard, so otherwise this finds nothing). ``peek`` / ``aged``
+        as ``ResultCache.lookup_stale`` (the rank-mesh decision log)."""
         if (not self._rc_enabled() or not staleness_ms
                 or staleness_ms <= 0):
             return None
         parts, _pins, _spans = _plan_key_spans(e)
         key = self._rc_key_prefix(sla) + "|".join(parts)
-        return self._result_cache.lookup_stale(key, staleness_ms)
+        return self._result_cache.lookup_stale(key, staleness_ms,
+                                               peek=peek, aged=aged)
+
+    def _rc_pattern(self, e: MatExpr, sla: str) -> str:
+        """Which of ``e``'s subtrees the result cache holds now, as
+        key-part spans ("H": the whole query): the same string on every
+        rank whose cache agrees, whatever the id()s in the keys. What a
+        rank reports to the decision log; touches nothing."""
+        if not self._rc_enabled():
+            return ""
+        prefix = self._rc_key_prefix(self._resolve_sla(sla))
+        parts, _pins, spans = _plan_key_spans(e)
+        if self._result_cache.holds(prefix + "|".join(parts)):
+            return "H"
+        return ",".join(f"{a}:{b}" for a, b in sorted(spans.values())
+                        if b - a > 1 and self._result_cache.holds(
+                            prefix + "|".join(parts[a:b])))
 
     def _rc_insert(self, key: str, pins: list, executed: MatExpr,
                    out: BlockMatrix, orig: Optional[MatExpr] = None,
@@ -1500,6 +1559,7 @@ class MatrelSession:
 
     # -- actions ------------------------------------------------------------
 
+    @_in_turn
     def compute(self, expr: MatExpr,
                 precision: Optional[str] = None,
                 deadline_ms: Optional[float] = None,
@@ -1653,6 +1713,7 @@ class MatrelSession:
                 pol.backoff_sleep(attempt, deadline,
                                   should_abort=should_abort)
 
+    @_in_turn
     def run_many(self, exprs, precision: Optional[str] = None,
                  deadline_ms: Optional[float] = None,
                  tenant: Optional[str] = None,
@@ -1898,7 +1959,12 @@ class MatrelSession:
         the multi-slice serving fleet (``serve/fleet.py``): placement
         decides slice-local vs spanning execution, the directory answers
         repeats from any slice's cache, and a dead slice's queue fails
-        over. The default (0) runs the single-session pipeline."""
+        over. The default (0) runs the single-session pipeline.
+
+        On a rank mesh every rank submits the same queries in the same
+        order; the lead rank decides each admission cycle and every
+        rank applies it (``serve/ranklog.py``), so a shed or a
+        ``RankDivergence`` arrives on the future."""
         e = as_expr(expr)
         if deadline_ms is None and self.config.deadline_ms > 0:
             deadline_ms = self.config.deadline_ms
@@ -1943,6 +2009,7 @@ class MatrelSession:
                                            tenant=tenant,
                                            staleness_ms=staleness_ms)
 
+    @_in_turn
     def fleet_info(self) -> Optional[dict]:
         """Fleet snapshot (None when the fleet is off or not yet built):
         per-slice state, directory counters, placement census,
@@ -1982,6 +2049,7 @@ class MatrelSession:
                 if self._exporter is not None:
                     self._exporter.stop()
 
+    @_in_turn
     def explain(self, expr: MatExpr, physical: bool = True,
                 analyze: bool = False,
                 precision: Optional[str] = None) -> str:

@@ -541,14 +541,10 @@ def _sharded_battery(mesh, out_dir):
         res["spill_other_grid"] = "restored"
     except SnapshotGridMismatch as e:
         res["spill_other_grid"] = (e.saved, e.current)
-    # the fleet stays a one-card plane (its rank-mesh slice is next)
-    from matrel_tpu_torch.config import NotPortedError
-    try:
-        MatrelSession(mesh=mesh, config=MatrelConfig(
-            fleet_slices=2))._ensure_fleet()
-        res["fleet_fence"] = False
-    except NotPortedError:
-        res["fleet_fence"] = True
+    # the fleet builds on a rank mesh: each slice a group of ranks
+    fsess = MatrelSession(mesh=mesh, config=MatrelConfig(fleet_slices=2))
+    res["fleet_source"] = fsess._ensure_fleet().source
+    fsess.serve_close(timeout=60)
     return res
 
 
@@ -1158,8 +1154,8 @@ def test_spill_tiers_on_ranks(worlds, world, tmp_path):
     the grid; the tier counters, the snapshot's and the restore's are
     the JAX package's on its mesh; a restore on the same grid thaws
     every rank's block back bit for bit; a restore on one device refuses
-    with ``SnapshotGridMismatch``. The fleet still refuses a rank
-    mesh."""
+    with ``SnapshotGridMismatch``. The fleet builds on a rank mesh, its
+    two slices each a group of ranks."""
     from matrel_tpu.config import MatrelConfig as JConfig
     from matrel_tpu.session import MatrelSession as JSession
     want = _spill_scenario(JSession, JConfig, _jax_mesh(world),
@@ -1177,4 +1173,4 @@ def test_spill_tiers_on_ranks(worlds, world, tmp_path):
         total, mine = r["spill_files"]
         assert mine >= 1 and total == mine * gx * gy
         assert r["spill_other_grid"] == ([gx, gy], None)
-        assert r["fleet_fence"] is True
+        assert r["fleet_source"] == "virtual"

@@ -60,7 +60,11 @@ def _session(root, log, jmesh):
 def _workload(root, log, jmesh):
     """A small fleet serving run that writes every record kind the
     tools read: query, serve, placement, fleet, provenance, overload,
-    span and analyze records."""
+    span and analyze records. The provenance ids restart at "p1" (a
+    process-wide counter: a test run before this one in the same process
+    would otherwise have taken the ids ``why --key p1`` reads)."""
+    import itertools
+    _mods(root)["obs.provenance"]._prov_seq = itertools.count(1)
     sess = _session(root, log, jmesh)
     rng = np.random.default_rng(3)
     for nm in ("A", "B"):
