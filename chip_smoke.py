@@ -294,7 +294,9 @@
    spgemm_sharded at n = 32,768, spmm_sharded at row 4's shape,
    streaming_chain_sharded at n = 65,536 (one panel a rank, within
    (p - 1)·u of the one-card slab) and autotune_matmul at 4096 (one
-   winner on every rank), the sharded tail, then serving on the ranks
+   winner on every rank), the sharded tail (its (e) the autotune fuse|
+   probes of a fused region over each rank's Shards, one winner on
+   every rank), then serving on the ranks
    (mr_serving: submit on the decision log, the reproducer's three
    queries at row 4's width in an even round and a round with rank 1
    staggered, each rank's blocks held to one card's answers, and a
@@ -304,8 +306,13 @@
    to B1's plain version; row 2's chain on the span; a directory hit
    with no launch; kill_slice and S·D on the survivor; row 5's A·x
    placed on a slice, B2 on its ranks only; fleet_info equal on every
-   rank; the router's five exchanges a routed cycle timed lined up),
-   each rank under its own
+   rank; the router's record of one item timed lined up),
+   then the slices serving at the same time (mr_fleet_concurrent, a
+   fresh fleet: (g) two S·D submitted together, one a slice, against
+   each alone, B1 on every rank; (h) S·D six times at once and
+   kill_slice, the entries waiting in the dead slice's queue re-admitted
+   on the survivor, requeued equal on every rank, every answer held to
+   B1's plain version), each rank under its own
    peak bounds (MR_PEAK_LIMIT_GIB). The ranks' B1 / B2 / B3 launches
    join the kernels line (launches_on_ranks). The kernel phase also holds B2 / B3 on the
    sentinel-padded slices of four ranks (spmv_slice_phase).
@@ -7516,11 +7523,13 @@ MR_AT_SIDE = 4096
 #: chain's is one 16,384-row panel; "tail" the largest of
 #: sharded_tail's four, row 4's S·D with the tile stack whole on every
 #: rank; "serving" row 4's S·D and its three queries' answers, "fleet"
-#: S·D on a slice of two ranks).
+#: S·D on a slice of two ranks, "fleet_concurrent" its overlap and
+#: failover phases, "fuse" sharded_tail (e)'s fuse| probes).
 MR_PEAK_LIMIT_GIB = {k: 1.25 * v for k, v in {
     "row1": 0.422, "row2": 0.129, "row5": 0.438, "spgemm": 0.166,
     "spmm": 0.920, "chain": 7.000, "autotune": 0.297,
-    "tail": 0.562, "serving": 0.793, "fleet": 0.747}.items()}
+    "tail": 0.562, "serving": 0.793, "fleet": 0.747,
+    "fleet_concurrent": 0.716, "fuse": 0.254}.items()}
 #: sharded_tail (d): register_delta's matrix side and edge count, and
 #: the align join's rows and operand widths
 MR_DELTA_N, MR_DELTA_EDGES = 4096, 64
@@ -7535,6 +7544,8 @@ MR_SERVE_W_SEEDS = (7, 8)
 #: row 4's S·D on a slice (a margin under 1 biases toward slices)
 MR_FLEET_SLICES = 2
 MR_FLEET_SPAN_MARGIN = 0.01
+#: mr_fleet_concurrent (h): the S·D submitted at once before kill_slice
+MR_FLEET_BURST = 6
 
 
 def mr_stamps(plan) -> list:
@@ -7864,7 +7875,10 @@ def mr_sharded_tail(me: MrRank) -> dict:
     bf16, B1 on each rank's 128-column slice of D, against the one-card
     product; (c) row 5's A·x through compute with the damping tail
     (A·x) · 0.85 + c (B2 on each rank's slice of block rows); (d) one
-    register_delta on a 4096² dense table and one "align" row join."""
+    register_delta on a 4096² dense table and one "align" row join; (e)
+    (a)'s tail with fusion and autotune on: the ``fuse|`` probes of its
+    fused region on the ranks (bounded apart, MR_PEAK_LIMIT_GIB["fuse"]),
+    the winner and the answer held as (a)'s."""
     import gc
     import numpy as np
     import torch
@@ -8020,15 +8034,57 @@ def mr_sharded_tail(me: MrRank) -> dict:
                 "delta_s": delta_s, "delta_rel_err": rel,
                 "join_tally": jtally, "join_ms": join_ms}
 
+    def fuse_probe():
+        """(e) row 1's tail with fusion and autotune on: the fused
+        region's ``fuse|`` probes run over each rank's Shards, rank 0's
+        medians decide on every rank; the table is under MR_DIR."""
+        from matrel_tpu_torch.parallel import autotune
+        table = os.path.join(MR_DIR, "fuse_autotune.json")
+        if me.rank == 0 and os.path.exists(table):
+            os.remove(table)
+        autotune._FUSION_CACHE.clear()
+        fsess = MatrelSession(mesh=me.mesh, config=MatrelConfig(
+            fusion_enable=True, autotune=True, autotune_table_path=table))
+        X, Y, C = (fsess.random((MR_ROW1_N, MR_ROW1_N), seed=s)
+                   for s in (4, 5, 6))
+        e = (X.multiply(Y).elem_multiply(C).multiply_scalar(0.5)
+             .add_scalar(1.0).row_sum())
+        t = time.perf_counter()
+        plan = fsess.compile(e)
+        compile_s = time.perf_counter() - t
+        res = fsess.compute(e)
+        got = res.data.cpu().numpy()
+        want = me.block_of(np.load(os.path.join(MR_DIR, "tail_ref.npy"))
+                           [:, None], res.spec)
+        bound = me.block_of(np.load(os.path.join(MR_DIR, "tail_bound.npy"))
+                            [:, None], res.spec)
+        err = np.abs(got.astype(np.float64) - want)
+        if not np.isfinite(got).all() or (err > bound).any():
+            raise AssertionError(f"sharded tail (e) fused: "
+                                 f"{int((err > bound).sum())} rows past "
+                                 f"their bound")
+        rows = {k: v for k, v in autotune.load_table(table).items()
+                if k.startswith("fuse|")}
+        return {"rows": rows, "compile_s": compile_s,
+                "winners": {k: v for k, v in autotune._FUSION_CACHE.items()
+                            if k.startswith("fuse|")},
+                "regions": plan.meta["fusion"]["regions"],
+                "max_abs_err": float(err.max())}
+
     for name, fn in (("row1", row1_tail), ("row4", row4_cols),
-                     ("row5", row5_damping), ("delta_join", delta_and_join)):
+                     ("row5", row5_damping), ("delta_join", delta_and_join),
+                     ("fuse", fuse_probe)):
         log(f"rank {me.rank}: sharded_tail {name}")
         sub(name, fn)
-    peak = max(out["peaks"].values())
+    peak = max(v for k, v in out["peaks"].items() if k != "fuse")
     if peak > me.limits["tail"]:
         raise AssertionError(f"rank {me.rank} sharded_tail: peak device "
                              f"memory {peak:.3f} GiB > "
                              f"{me.limits['tail']:.3f} GiB ({out['peaks']})")
+    if out["peaks"]["fuse"] > me.limits["fuse"]:
+        raise AssertionError(f"rank {me.rank} sharded_tail (e): peak "
+                             f"device memory {out['peaks']['fuse']:.3f} GiB"
+                             f" > {me.limits['fuse']:.3f} GiB")
     return out
 
 
@@ -8118,9 +8174,9 @@ def mr_record_cost(me: MrRank, dlog, n: int, cycles: int = 20,
     first, the worker idle): a record of ``n`` entries published, the
     ranks' reports gathered, one group's outcome gathered — the three
     exchanges of a pipeline's cycle — median ms on this rank's clock.
-    ``routed``: the fleet router's cycle of one item on a rank mesh, two
-    more in front (the router's record and the ranks' reports on the
-    directory), five in all."""
+    ``routed``: the fleet router's record of one item instead, its two
+    exchanges (the record, the ranks' reports on the item and their
+    slices); a slice's own cycle then runs on the slice's ranks."""
     from matrel_tpu_torch.parallel import collectives as coll
     rec = {"cycle": 0, "seqs": list(range(n)), "fail": {}, "admit": [],
            "sample": None, "rung": 0, "stale": [],
@@ -8130,18 +8186,21 @@ def mr_record_cost(me: MrRank, dlog, n: int, cycles: int = 20,
     outcome = {"ok": True, "err": None, "late": [],
                "lat": dict.fromkeys(range(n), 1.0)}
     times = []
-    item = {"cycle": 0, "seq": 0, "key": "0" * 16,
+    item = {"seq": 0, "key": "0" * 16,
             "verdict": ("route", "k", 0, [], None)}
     with me.mesh.ranks.held():
         coll.barrier(me.mesh)
         for _ in range(cycles):
             t = time.perf_counter()
             if routed:
-                dlog.publish(item if dlog.lead else None)
-                dlog.gather((True, "0" * 16, {}, True))
-            dlog.broadcast(rec if dlog.lead else None)
-            dlog.gather(facts)
-            dlog.gather(outcome)
+                dlog.publish({"cycle": 0, "items": [item]} if dlog.lead
+                             else None)
+                dlog.gather(([(True, "0" * 16, {}, True)],
+                             {"wedged": [], "slices": {}}))
+            else:
+                dlog.broadcast(rec if dlog.lead else None)
+                dlog.gather(facts)
+                dlog.gather(outcome)
             times.append((time.perf_counter() - t) * 1e3)
     return statistics.median(times)
 
@@ -8286,6 +8345,119 @@ def mr_fleet(me: MrRank) -> dict:
     return out
 
 
+def mr_fleet_concurrent(me: MrRank) -> dict:
+    """A fresh fleet of 2 slices of 2 ranks, one query a batch, no
+    result cache (no directory hit): (g) row 4's S·D once on each slice
+    alone, then twice at once, one on each slice — the pair's
+    submit-to-result against each alone, B1 launched on every rank;
+    (h) S·D MR_FLEET_BURST times at once, slice 0's first run held
+    until kill_slice(0) returns: the entries still waiting in slice 0's
+    queue re-admit onto slice 1, the one in a cycle finishes on slice
+    0. Every answer's blocks are held to B1's plain version on the
+    slice's ranks."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch import MatrelConfig, MatrelSession
+    from matrel_tpu_torch.ops import pallas_spmm
+    plain = np.load(os.path.join(MR_DIR, "fleet_plain.npy"), mmap_mode="r")
+    sess = MatrelSession(mesh=me.mesh, config=MatrelConfig(
+        fleet_slices=MR_FLEET_SLICES, result_cache_max_bytes=0,
+        serve_max_batch=1, fleet_span_margin=MR_FLEET_SPAN_MARGIN))
+    S, D = row4_inputs(sess)
+    sess.register("S", S)
+    sess.register("D", D)
+    fleet = sess._ensure_fleet()
+    q = S.multiply(D)
+    out = {}
+
+    def held(results, name):
+        errs = []
+        for r in results:
+            if r.local is None:
+                continue
+            want = torch.as_tensor(np.array(mr_slice_block(
+                plain, r.local, r.slice_mesh)), device=r.local.data.device)
+            errs.append(check_close(f"fleet {name}", r.local.data.float(),
+                                    want, "bfloat16"))
+        return max(errs, default=0.0)
+
+    def burst(n, name):
+        """n S·D at once: this rank's submit-to-result (every answer
+        here) and to its own slice's answers (resolved by its slice's
+        worker, synchronised), its B1 launches, the answers."""
+        with me.mesh.ranks.held():
+            from matrel_tpu_torch.parallel import collectives as coll
+            coll.barrier(me.mesh)
+        pallas_spmm.LAUNCHES = 0
+        done = {}
+        t = time.perf_counter()
+        futs = [sess.submit(q) for _ in range(n)]
+        for i, f in enumerate(futs):
+            f.add_done_callback(
+                lambda f, i=i: done.setdefault(i, time.perf_counter()))
+        res = [f.result(timeout=MR_TIMEOUT_S) for f in futs]
+        mr_sync(me.mesh)
+        ms = (time.perf_counter() - t) * 1e3
+        own = [done[i] for i, r in enumerate(res) if r.local is not None]
+        sess.serve_drain()
+        out[name] = {"ms": ms, "launches": pallas_spmm.LAUNCHES,
+                     "own_ms": (max(own) - t) * 1e3 if own else None,
+                     "slices": [next(sl.slice_id for sl in fleet.slices
+                                     if sl.session.mesh is r.slice_mesh)
+                                for r in res]}
+        out[name]["max_abs_err"] = held(res, name)
+        return res
+
+    burst(2, "warm")                # each slice builds its plan
+    for k in range(2):
+        burst(1, f"alone{k}")
+    pair = burst(2, "pair")
+    if sorted(out["pair"]["slices"]) != [0, 1]:
+        raise AssertionError(f"fleet (g): the pair ran on slices "
+                             f"{out['pair']['slices']}")
+    if out["pair"]["launches"] < 1:
+        raise AssertionError(f"fleet (g): no B1 launch on rank {me.rank}")
+    del pair
+    # (h) the burst with slice 0's first run held until the kill, so
+    # that its queue still holds the rest
+    import threading
+    gate = threading.Event()
+    s0 = fleet.slices[0]
+    run = s0.session.run_many
+
+    def gated(*a, **k):
+        gate.wait(MR_TIMEOUT_S)
+        return run(*a, **k)
+
+    s0.session.run_many = gated
+    pallas_spmm.LAUNCHES = 0
+    t = time.perf_counter()
+    futs = [sess.submit(q) for _ in range(MR_FLEET_BURST)]
+    out["requeued"] = fleet.kill_slice(0)
+    gate.set()
+    res = [f.result(timeout=MR_TIMEOUT_S) for f in futs]
+    mr_sync(me.mesh)
+    sess.serve_drain()
+    del s0.session.run_many
+    out["burst"] = {"ms": (time.perf_counter() - t) * 1e3,
+                    "launches": pallas_spmm.LAUNCHES,
+                    "max_abs_err": held(res, "burst")}
+    if out["requeued"] < 1:
+        raise AssertionError("fleet (h): kill_slice re-admitted nothing")
+    info = sess.fleet_info()
+    out["info"] = {k: info[k] for k in ("placed", "failovers", "requeued")}
+    out["info"]["slices"] = [{k: sl[k] for k in ("id", "alive",
+                                                  "submitted")}
+                             for sl in info["slices"]]
+    if out["info"]["requeued"] != out["requeued"]:
+        raise AssertionError(f"fleet (h): requeued {out['requeued']} vs "
+                             f"fleet_info {out['info']}")
+    out["router"] = fleet._log.info()
+    del res, futs
+    sess.serve_close(timeout=MR_TIMEOUT_S)
+    return out
+
+
 def mr_rank(rank: int, world: int, backend: str, init: str,
             limits: dict) -> None:
     """One rank of path_multirank: its log to ``rank<r>.log``, its
@@ -8312,7 +8484,8 @@ def mr_rank(rank: int, world: int, backend: str, init: str,
                      ("row5", mr_row5), ("sparse", mr_sparse),
                      ("chain", mr_chain), ("autotune", mr_autotune),
                      ("sharded_tail", mr_sharded_tail),
-                     ("serving", mr_serving), ("fleet", mr_fleet)):
+                     ("serving", mr_serving), ("fleet", mr_fleet),
+                     ("fleet_concurrent", mr_fleet_concurrent)):
         log(f"rank {rank}: {name}")
         if name in limits:
             with me.meter(name):
@@ -8562,6 +8735,22 @@ def path_multirank(sess, ns_fro: float) -> dict:
         f"{max(t['delta_join']['delta_rel_err'] for t in tails):.3e} vs "
         f"recompute; align join {MR_JOIN_ROWS}×{MR_JOIN_COLS}²: "
         f"{d['join_ms']:.3f} ms, tally {d['join_tally']}")
+    fz = [t["fuse"] for t in tails]
+    if any(f["winners"] != fz[0]["winners"] or f["regions"]
+           != fz[0]["regions"] for f in fz) or len(fz[0]["rows"]) != 1:
+        raise AssertionError(f"sharded tail (e): the ranks' fuse| winners "
+                             f"differ or no single row: "
+                             f"{[(f['winners'], f['regions']) for f in fz]}")
+    (fkey, frow), = fz[0]["rows"].items()
+    log(f"  sharded_tail (e) fuse| probes of (a)'s fused region on the "
+        f"ranks: {fkey}: "
+        + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
+                    frow["times"].items())
+        + f" (rank 0's medians of 5, CUDA events), winner "
+        f"{frow['best']} on every rank, {fz[0]['regions']} fused "
+        f"region(s) stamped, compile with the probes "
+        f"{fz[0]['compile_s']:.2f} s, max err "
+        f"{max(f['max_abs_err'] for f in fz):.3e} within (a)'s bound")
     log(f"  sharded_tail per-rank peaks (GiB; the whole {MR_ROW1_N}² f32 "
         f"product is {MR_ROW1_N ** 2 * 4 / 2**30:.4f} GiB): " + "; ".join(
             f"rank {r} " + ", ".join(f"{k} {v:.3f}" for k, v in
@@ -8616,10 +8805,41 @@ def path_multirank(sess, ns_fro: float) -> dict:
         + " by rank, bit-equal to one card on "
         f"{sum(o['slice_coo'].get('bit_equal', False) for o in fl)} of "
         f"{sum(o['slice_coo']['member'] for o in fl)} slice ranks; router "
-        f"{f0['router']}; a routed cycle's five exchanges, ranks lined "
-        f"up: " + ", ".join(f"{o['record_ms']:.3f}" for o in fl)
+        f"{f0['router']}; the router's record of one item (two "
+        f"exchanges), ranks lined up: "
+        + ", ".join(f"{o['record_ms']:.3f}" for o in fl)
         + f" ms by rank (median of 20); fleet_info equal on every rank: "
         f"{f0['info']}")
+    fc = [o["fleet_concurrent"] for o in ranks]
+    if any(o["requeued"] != fc[0]["requeued"] or o["info"] != fc[0]["info"]
+           for o in fc):
+        raise AssertionError(f"fleet (h): requeued / fleet_info differ "
+                             f"across ranks: "
+                             f"{[(o['requeued'], o['info']) for o in fc]}")
+    if any(o["pair"]["launches"] < 1 for o in fc):
+        raise AssertionError(f"fleet (g): B1 launches by rank "
+                             f"{[o['pair']['launches'] for o in fc]}")
+    for name in ("alone0", "alone1", "pair"):
+        log(f"  fleet (g) {name} (slices {fc[0][name]['slices']}): "
+            f"submit-to-result "
+            + ", ".join(f"{o[name]['ms']:.2f}" for o in fc)
+            + " ms by rank's clock (its own slice's answer: "
+            + ", ".join("—" if o[name]["own_ms"] is None
+                        else f"{o[name]['own_ms']:.2f}" for o in fc)
+            + " ms, unsynchronised), B1 launches "
+            + ", ".join(str(o[name]["launches"]) for o in fc)
+            + f" by rank, max err "
+            f"{max(o[name]['max_abs_err'] for o in fc):.3e} vs B1's plain "
+            f"version")
+    log(f"  fleet (h) {MR_FLEET_BURST} S·D at once, slice 0's first run "
+        f"held until kill_slice(0) returned: requeued "
+        f"{fc[0]['requeued']} on every rank, B1 "
+        f"launches " + ", ".join(str(o["burst"]["launches"]) for o in fc)
+        + f" by rank, max err "
+        f"{max(o['burst']['max_abs_err'] for o in fc):.3e}; fleet_info "
+        f"{fc[0]['info']}; router {fc[0]['router']}")
+    fleet_b1 += sum(o[k]["launches"] for o in fc
+                    for k in ("warm", "alone0", "alone1", "pair", "burst"))
     if fleet_b1 < 1:
         raise AssertionError("path multirank: no B1 launch in the fleet")
     launches["spmv_compact"] += sum(o["slice_coo"]["launches"] for o in fl)

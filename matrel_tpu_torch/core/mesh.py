@@ -79,12 +79,13 @@ class RankGroups:
     ``coords`` are this process's place among them (None when the
     process holds no cell of the slice).
 
-    The world mesh also owns the serve plane's agreement machinery:
-    ``control``, a gloo group of the whole world that carries nothing
-    but the decision records of ``serve/ranklog.py`` (so control traffic
-    never interleaves with a data collective, under NCCL as well), and
-    :meth:`held`, the drain-and-hold every collective entry point takes
-    while a serve worker is live."""
+    Each mesh also owns its serve plane's agreement group: ``control``,
+    a gloo group of the mesh's ranks that carries nothing but the
+    decision records of ``serve/ranklog.py`` (so control traffic never
+    interleaves with a data collective, under NCCL as well); a serving
+    slice's is its own, so each slice's worker agrees among its ranks
+    only. The world mesh owns :meth:`held`, the drain-and-hold every
+    collective entry point takes while a serve worker is live."""
 
     def __init__(self, device_mesh, backend: str, grid: Tuple[int, int],
                  members=None, groups=None, parent=None):
@@ -139,14 +140,17 @@ class RankGroups:
 
     def register_worker(self, worker) -> None:
         """A live serve worker (an object with ``drain()``,
-        ``owns_thread()`` and ``closed``) that :meth:`held` drains
-        first. One a world: two workers would interleave their decision
-        records on the control group differently on different ranks."""
+        ``owns_thread()``, ``closed`` and ``control``, the group its
+        decision records travel on) that :meth:`held` drains first. One
+        a control group: two workers on one group would interleave their
+        records differently on different ranks. The fleet's router (the
+        world's group) and each slice's pipeline (the slice's) are
+        workers of disjoint groups."""
         root = self.root
         with root._workers_lock:
             root._workers = [w for w in root._workers
                              if w is not worker and not w.closed]
-            if root._workers:
+            if any(w.control is worker.control for w in root._workers):
                 raise RuntimeError(
                     "a rank mesh serves one session's submissions at a "
                     "time: serve_close() the other session first")
@@ -474,7 +478,8 @@ def slice_meshes(mesh, n: int):
 def _rank_slice(mesh: Mesh, members) -> Mesh:
     """The slice mesh over a contiguous run ``members`` of a rank mesh's
     world: a near-square grid of those ranks with its own world, x and y
-    groups. ``new_group`` is collective over the whole world, so every
+    groups and its own gloo control group (its serve worker's decision
+    records). ``new_group`` is collective over the whole world, so every
     rank makes every group of every slice, in this fixed order, whether
     or not it holds a cell of the slice."""
     import torch.distributed as dist
@@ -493,6 +498,7 @@ def _rank_slice(mesh: Mesh, members) -> Mesh:
     parent = mesh.ranks
     ranks = RankGroups(None, parent.backend, (sx, sy), members=members,
                        groups=groups, parent=parent)
+    ranks.control = dist.new_group(ranks=list(members), backend="gloo")
     ranks.host_staged = parent.host_staged
     return Mesh(mesh.device, (sx, sy), mesh.axis_names, ranks)
 

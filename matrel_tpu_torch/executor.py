@@ -2126,12 +2126,12 @@ def region_probe_programs(root_node: MatExpr, member_uids,
     """(fused_fn, staged_units, input_uids, probe_tensors, root_uid) for
     ONE region — the autotune ``fuse|`` measurement harness. Region
     inputs are replaced by padded f32 probes from
-    ``np.random.default_rng(0)`` on the mesh's device; a region whose
-    members read sparse-leaf payloads returns None (a probe cannot
-    stand in for static tile metadata) or on a rank mesh (unit programs
-    run on one device)."""
-    if mesh.ranked:
-        return None
+    ``np.random.default_rng(0)`` on the mesh's device; on a rank mesh
+    each probe is this rank's Shard of that same array, cut as a leaf's
+    ``as_shard()`` cuts it (the canonical spec), so every rank probes
+    the same matrix and the fused and staged units run on every rank in
+    step. A region whose members read sparse-leaf payloads returns None
+    (a probe cannot stand in for static tile metadata)."""
     members = {root_node.uid: root_node}
     want = set(member_uids)
     stack = [root_node]
@@ -2171,7 +2171,14 @@ def region_probe_programs(root_node: MatExpr, member_uids,
         ins = tuple(c.uid for c in n.children)
         staged.append((n, _unit_fn(low, n, ins), ins))
     rng = np.random.default_rng(0)
-    arrays = {c.uid: torch.as_tensor(rng.standard_normal(
-        padding.padded_shape(c.shape, mesh)).astype(np.float32),
-        device=mesh.device) for c in inputs}
+    arrays = {}
+    for c in inputs:
+        ps = padding.padded_shape(c.shape, mesh)
+        full = torch.as_tensor(rng.standard_normal(ps).astype(np.float32),
+                               device=mesh.device)
+        if mesh.ranked:
+            from matrel_tpu_torch.parallel import collectives as coll
+            full = coll.shard_from_full(
+                full, padding.canonical_spec(ps, mesh), mesh)
+        arrays[c.uid] = full
     return fused, staged, input_uids, arrays, root_node.uid

@@ -35,7 +35,7 @@ from __future__ import annotations
 import queue
 import threading
 from collections import OrderedDict, deque
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 from matrel_tpu_torch.config import parse_tenant_weights
 from matrel_tpu_torch.resilience.errors import (AdmissionShed,
@@ -330,6 +330,12 @@ class AdmissionQueue:
     def qsize(self) -> int:
         with self._lock:
             return self._size
+
+    def load(self) -> Tuple[int, bool]:
+        """(queued entries, busy): busy while the worker holds entries
+        it took (or deferred) and has not finished."""
+        with self._lock:
+            return self._size, self.unfinished_tasks > self._size
 
     def tenant_depths(self) -> Dict[str, int]:
         with self._lock:

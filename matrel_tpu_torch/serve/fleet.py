@@ -39,40 +39,60 @@ fleet object is built.
 
 **On a rank mesh** a slice is a group of ranks: ``slice_meshes`` cuts
 the world into contiguous row-major runs ("virtual", each with its own
-world, x and y process groups), or every slice is the whole world when
+world, x, y and control groups), or every slice is the whole world when
 the count does not divide it ("shared"). Each rank holds every slice's
-session; only the slice's own ranks hold its tables and cache. Every
-fleet choice rides the decision log (``serve/ranklog.py``), one item a
-cycle in submission order: the lead rank decides placement and the
-directory candidates, the ranks report
-whether the candidate slices' ranks hold the cached entry, and every
-rank applies the same hit, miss, route, migration and ``kill_slice``.
-A routed query then runs through the target session's own pipeline —
-the parent's for a span, the slice's for a slice — as one cycle of
-that pipeline driven by the router (``ServePipeline.decide_routed`` /
-``apply_routed``), so the one-card contracts hold: a queued or late
-deadline fails typed, never a late answer; a transient failure
-retries; an open breaker fails fast; the brownout rung downshifts or
-serves stale; and a failed batch raises the same typed error on every
-rank. A span-placed query runs on the whole world; a slice-placed one
-runs on its slice's ranks only (B1 there runs over the slice's column
-slices of D), the other ranks join only the agreement, and every
-rank's future resolves to a :class:`SliceResult`: the value lives on
-the slice, and ``to_numpy`` is a world collective (the slice gathers
-it to its first rank, which broadcasts it).
+session; only the slice's own ranks hold its tables, its cache and its
+pipeline. Every fleet choice rides the router's decision log
+(``serve/ranklog.py``), one item a record in submission order: the
+lead rank decides placement and the directory candidates, the ranks
+report whether the candidate slices' ranks hold the cached entry, and
+every rank applies the same hit, miss, route, migration and
+``kill_slice``.
 
-**Slices are serialised on ranks.** The router is one thread a rank
-and each cycle ends in a world exchange, so one slice's query runs
-while the other slices' ranks wait at that exchange: slices never run
-concurrently there (on one card they share the card and its execution
-lock anyway). No slice holds a queue — an item waits in the router's
-store until its cycle — so placement sees every slice's load as 0 and
-its round-robin tick decides among the live slices; ``kill_slice``
-steals and re-admits nothing (``requeued`` stays 0), and the items not
-yet placed land on the survivors. The queue bounds
-(``serve_tenant_queue_max``, ``serve_queue_max``) apply to the router's
-store: the lead sheds an item that finds its tenant's backlog, or the
-whole backlog, at the bound, and the shed rides that item's record.
+**Slices serve at the same time.** A slice-placed query is filed, at
+its record, into its slice's own pipeline on the slice's ranks only,
+under the sequence number the record assigned; that pipeline's worker
+decides its cycles on the slice's control group, its first rank the
+lead, so one slice computes while the others compute too and the
+router goes on routing. Its answer keeps the one-card contracts (a
+queued or late deadline fails typed, never a late answer; a transient
+failure retries; an open breaker fails fast; the brownout rung
+downshifts or serves stale; a failed batch raises the same typed error
+on every rank of the slice), and is a :class:`SliceResult`: the value
+lives on the slice, and ``to_numpy`` is a world collective (the slice
+gathers it to its first rank, which broadcasts it). The slices agree
+with the world at the router's next record: each slice's first rank
+reports the outcomes finished since the last record and its queue
+depth, so every rank outside the slice resolves its future (a
+:class:`SliceResult` with no local value, or the same typed error,
+rebuilt), a cached answer enters the directory, and placement reads
+each slice's load as of that record. While an outcome is outstanding
+the lead publishes an empty record every :data:`REPORT_EVERY_S`.
+Counters (``placed``, ``pinned``, ``failovers``, ``requeued``, each
+slice's ``submitted``, the directory) follow from the records, so
+``fleet_info`` is the same on every rank. A span-placed query, a
+migration and every collective entry point (``register``,
+``to_numpy``) wait until every slice's pipeline on every rank has
+drained (``RankGroups.held``), then run on the world. ``kill_slice``
+closes the slice's pipeline at its record; the slice's lead takes the
+entries it has not admitted and every rank re-admits them onto the
+survivors by load, futures, deadlines and tenants intact (``requeued``
+counts them), while entries already in a cycle complete normally.
+Each slice's ranks probe their worker at every record, and a dead
+worker with entries waiting and no stop asked fails the slice over
+(``reason="wedged"``) on every rank at that record; ``check_health``
+files an item so that a record happens. The queue bounds
+(``serve_tenant_queue_max``, ``serve_queue_max``) apply to each slice's
+admission queue, as one card's do, and to the router's store: the lead
+sheds an item that finds its tenant's backlog, or the whole backlog, at
+the bound, and the shed rides that item's record; every shed counts on
+the parent's queue on every rank.
+
+A "shared" slicing cannot overlap (every slice is the world), so there
+the router drives the target pipeline's cycle itself, one item a
+record (``ServePipeline.decide_routed`` / ``apply_routed``), with no
+slice queue: placement sees every load as 0 and ``kill_slice``
+re-admits nothing.
 
 Tables reach a slice as a world gather of each rank's block
 (``collectives.gather_full``) that the slice's ranks cut into their own
@@ -81,17 +101,14 @@ blocks, in the table's dtype (bf16 stays bf16); a block-sparse table
 edge list) are taken as they are, so a slice-placed S·D runs B1 and a
 slice-placed COO matvec B2 on the slice's ranks (on one card's grid
 both stay pinned); a hot entry migrates as a dense table does, at its
-record. ``register`` writes through in its turn (drain and hold), and
-``fleet_info`` is the same on every rank. A slice has no worker of its
-own there, so ``check_health`` finds nothing to probe: a slice leaves
-the fleet through ``kill_slice`` alone.
+record. ``register`` writes through in its turn (drain and hold).
 
 Why the router is not the one-card routing on a one-rank log: on one
 card ``submit`` routes in the caller's thread — a directory hit comes
 back as an already-resolved future, a slice queue's ``AdmissionShed``
 raises at the call, and every slice's worker batches its own queue
 concurrently (``tests/test_torch_fleet.py`` holds these to the JAX
-package). The router answers on its own thread, one item a cycle.
+package). The router answers on its own thread, one item a record.
 """
 
 from __future__ import annotations
@@ -124,10 +141,24 @@ from matrel_tpu_torch.utils import lockdep
 log = logging.getLogger("matrel_tpu_torch.serve.fleet")
 
 
+#: How often the rank mesh's router publishes an empty record while a
+#: slice-placed item's outcome is outstanding (seconds).
+REPORT_EVERY_S = 0.01
+#: The most items the router decides in one record.
+ROUTE_BATCH = 16
+
+
 def _fail(fut: Future, ex: BaseException) -> None:
     if not fut.done() and (fut.running()
                            or fut.set_running_or_notify_cancel()):
         fut.set_exception(ex)
+
+
+def _resolve(fut: Future, value, ready_event=None) -> None:
+    if not fut.done() and (fut.running()
+                           or fut.set_running_or_notify_cancel()):
+        fut.ready_event = ready_event
+        fut.set_result(value)
 
 
 _remaining = retry_lib.deadline_left
@@ -158,38 +189,31 @@ class SliceResult:
 class _SliceRoute:
     """A slice pipeline's hooks on a rank mesh
     (``ServePipeline.route``): its answers are :class:`SliceResult`
-    values, and a success the slice's ranks report cached is recorded
-    in the directory on every rank. ``keys`` maps a routed item's
-    sequence number to its fleet key and dependency names while its
-    cycle runs."""
+    values. ``keys`` maps a routed item's sequence number to the
+    expression and SLA it was routed with (the slice's cache key at
+    routing), ``infos`` to what the slice's ranks cached of its answer
+    (cached?, bytes, layout, dtype), until the fleet reads it."""
 
     def __init__(self, fleet, sl):
         self.fleet = fleet
         self.sl = sl
         self.keys: Dict[int, tuple] = {}
+        self.infos: Dict[int, tuple] = {}
 
     def wrap(self, out):
         return SliceResult(self.fleet.session.mesh, self.sl.session.mesh,
                            out)
 
     def info(self, batch, outs) -> list:
-        return [self.fleet._entry_info(self.sl, it[0], it[3], o)
-                for it, o in zip(batch, outs)]
+        return [self.fleet._entry_info(
+            self.sl, *self.keys.get(it[pipeline_lib.SEQ], (it[0], it[3])),
+            o) for it, o in zip(batch, outs)]
 
     def served(self, batch, info, late) -> None:
-        """``info`` is the slice's first reporting rank's; the owner key
-        is this rank's own (a plan key holds this process's ids)."""
-        fleet, sl = self.fleet, self.sl
-        for it, (cached, nbytes, layout, dtype) in zip(batch, info or ()):
-            fkey, deps = self.keys.get(it[pipeline_lib.SEQ], (None, None))
-            if fkey is None or not cached or it[pipeline_lib.SEQ] in late:
-                continue
-            fleet.directory.record_insert(fkey, DirectoryRecord(
-                owner=sl.slice_id,
-                owner_key=(fleet._local_key(sl, it[0], it[3])
-                           if sl.member else None),
-                nbytes=nbytes, layout=layout, dtype=dtype,
-                dep_names=deps))
+        """``info`` is the slice lead's; a late answer records none."""
+        for it, inf in zip(batch, info or ()):
+            if it[pipeline_lib.SEQ] not in late:
+                self.infos[it[pipeline_lib.SEQ]] = inf
 
 
 # ---------------------------------------------------------------------------
@@ -490,8 +514,8 @@ class FleetSlice:
         return self.session.mesh.size
 
     def queue_depth(self) -> int:
-        if self.session.mesh.ranked:
-            return 0            # no slice holds a queue on a rank mesh
+        """Entries waiting in the slice's admission queue (on a rank
+        mesh, the slice's first rank holds it)."""
         pipe = self.session._serve
         return pipe._q.qsize() if pipe is not None else 0
 
@@ -579,12 +603,29 @@ class FleetController:
         self._log = None
         if session.mesh.ranked:
             self._log = ranklog.DecisionLog(session.mesh)
+            self.control = self._log.group
             self._seq = itertools.count()
             self._items = ranklog.EntryStore(pipeline_lib.SEQ)
             self._router: Optional[threading.Thread] = None
             self._stop = threading.Event()
             self._rr_count = 0
             self._sheds: Dict[int, tuple] = {}
+            #: slices of their own ranks serve at the same time, each
+            #: through its pipeline; "shared" slices are the world
+            #: itself, and the router drives them one item a cycle
+            self._concurrent = source != "shared"
+            #: slice-placed items whose outcome is outstanding:
+            #: sequence number -> (item, holding slice id, fleet key,
+            #: the directory's registration generation at routing)
+            self._routed: Dict[int, tuple] = {}
+            #: each slice lead's (queued, busy) at the last record, and
+            #: what the records since routed to each slice
+            self._depth: Dict[int, tuple] = {}
+            self._since: Dict[int, int] = {}
+            #: outcomes of the slice this rank leads, not yet reported:
+            #: (sequence number, error record or None, cached info)
+            self._outbox: list = []
+            self._outbox_lock = lockdep.make_lock("fleet.outbox")
         for name in sorted(session.catalog):
             self._replicate(name, session.catalog[name])
 
@@ -1169,9 +1210,18 @@ class FleetController:
         and then starts a new worker under that lock, and between the
         two the new thread is not alive yet — read without the lock,
         that window looked wedged and killed healthy slices (the JAX
-        package reads without it)."""
+        package reads without it).
+
+        On a rank mesh each slice's ranks probe their own worker at
+        every record of the router (``_report``) and a wedged verdict
+        fails the slice over on every rank at that record; this call
+        files an item so that a record happens, and returns after it."""
+        if self._log is not None:
+            self._enqueue(None, "", None, None, None,
+                          ctl=("health",)).result()
+            return
         for sl in self.slices:
-            if not sl.alive or self._log is not None:
+            if not sl.alive:
                 continue
             pipe = sl.session._serve
             if pipe is None:
@@ -1194,7 +1244,7 @@ class FleetController:
         is healthy host-side). Returns the number re-admitted."""
         if self._log is not None:
             return self._enqueue(None, "", None, None, None,
-                                 kill=(slice_id, reason)).result()
+                                 ctl=("kill", slice_id, reason)).result()
         with self._lock:
             sl = self.slice_by_id(slice_id)
             if sl is None or not sl.alive:
@@ -1278,17 +1328,17 @@ class FleetController:
     # -- the rank mesh's router (serve/ranklog.py) ---------------------------
 
     def _enqueue(self, e, sla, deadline_ms, tenant, staleness_ms,
-                 kill=None) -> Future:
+                 ctl=None) -> Future:
         """File one item under the next sequence number on this rank (a
-        query, or ``kill`` = (slice id, reason)); the router applies it
-        in its cycle. Every rank files the same items in the same
-        order. The lead sheds a query that finds the backlog at a
-        bound; the shed rides the item's record."""
+        query, or ``ctl``: ("kill", slice id, reason) or ("health",));
+        the router applies it at its record. Every rank files the same
+        items in the same order. The lead sheds a query that finds the
+        backlog at a bound; the shed rides the item's record."""
         fut: Future = Future()
         fut.ready_event = None
         dl = (retry_lib.Deadline(deadline_ms) if deadline_ms is not None
               else None)
-        key = (f"kill:{kill[0]}" if kill is not None
+        key = (":".join(map(str, ctl)) if ctl is not None
                else ranklog.rank_key(e))
         with self._lock:
             if self._router is None:
@@ -1298,10 +1348,10 @@ class FleetController:
                     daemon=True)
                 self._router.start()
             seq = next(self._seq)
-            if self._log.lead and kill is None:
+            if self._log.lead and ctl is None:
                 self._bound(seq, tenant or "")
             self._items.put((e, fut, time.perf_counter(), sla, dl,
-                             tenant or "", staleness_ms, seq, key, kill))
+                             tenant or "", staleness_ms, seq, key, ctl))
         return fut
 
     def _bound(self, seq: int, tenant: str) -> None:
@@ -1325,55 +1375,91 @@ class FleetController:
         return self._stop.is_set()
 
     def _run_router(self) -> None:
-        """One item a cycle, in sequence order: the lead decides and
-        publishes, every rank agrees on what it holds and applies."""
+        """One record at a time: the lead decides every item waiting in
+        its store (up to :data:`ROUTE_BATCH`, a control item alone) and
+        publishes, every rank reports and applies them in sequence
+        order. While a slice-placed item's outcome is outstanding the
+        lead publishes an empty record every :data:`REPORT_EVERY_S`, so
+        that the outcome reaches every rank without waiting for the
+        next submission."""
         dlog = self._log
         dev = self.session.mesh.device
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         while not self._stop.is_set():
-            if not self._items.wait_any(0.05):
+            has = self._items.wait_any(REPORT_EVERY_S if self._routed
+                                       else 0.05)
+            if not has and not self._routed:
                 continue
             if dlog.lead:
-                rec = dlog.publish(self._decide_item(self._items.first()))
+                rec = dlog.publish(self._decide_items() if has else
+                                   {"cycle": dlog.cycles, "items": []})
             else:
                 rec = dlog.publish()
-            got = self._items.take([rec["seq"]], ranklog.RANK_WAIT_S)
-            it = got.get(rec["seq"])
+            seqs = [r["seq"] for r in rec["items"]]
+            got = (self._items.take(seqs, ranklog.RANK_WAIT_S)
+                   if seqs else {})
             try:
-                with self.session.mesh.ranks.cycle():
-                    self._apply_item(rec, it)
-            except Exception as ex:  # the item's future carries it; the
-                # router lives on
-                log.warning("fleet: cycle %s failed", rec["cycle"],
+                self._apply_record(rec, got)
+            except Exception:  # the items' futures carry it; the router
+                # lives on
+                log.warning("fleet: record %s failed", rec["cycle"],
                             exc_info=True)
-                if it is not None:
-                    _fail(it[1], ex)
-            finally:
-                self._items.done(len(got))
 
     def _pipeline(self, sl: Optional[FleetSlice]):
         """The pipeline a routed query runs through on a rank mesh: the
         parent's for a span, ``sl``'s for a slice (its answers wrapped
-        as :class:`SliceResult`, its successes recorded in the
-        directory)."""
+        as :class:`SliceResult`)."""
         if sl is None:
             return self.session._ensure_serve()
         pipe = sl.session._ensure_serve()
         if pipe.route is None:
-            pipe.route = _SliceRoute(self, sl)
+            pipe.attach_route(_SliceRoute(self, sl))
         return pipe
 
-    def _decide_item(self, it) -> dict:
-        """The lead's verdict on one item: a shed, placement (its round-robin tick; every slice's load is 0, see
-        the module docstring) and the directory's serving candidates.
-        The target pipeline's own record (the deadline among its
-        verdicts) follows once the ranks know that no candidate
-        answers."""
+    def _load(self, slice_id: int, since=None) -> int:
+        """A slice's placement load as of the last record: the entries
+        its lead reported queued plus those routed to it since
+        (``since``, the records' count by default), less what an idle
+        worker takes at once (the JAX package's queue depth once the
+        worker has pulled)."""
+        q, busy = self._depth.get(slice_id, (0, False))
+        q += (self._since if since is None else since).get(slice_id, 0)
+        return q if busy else max(q - self.config.serve_max_batch, 0)
+
+    def _decide_items(self) -> dict:
+        """The lead's record: a verdict for each waiting item in
+        sequence order (a control item alone in its record), each
+        placed as if the ones before it had been routed (the
+        round-robin tick and the loads move with them)."""
+        items = []
+        for it in self._items.lowest(ROUTE_BATCH):
+            if it[9] is not None and items:
+                break
+            items.append(it)
+            if it[9] is not None:
+                break
+        rr, since, recs = self._rr_count, dict(self._since), []
+        for it in items:
+            rec = self._decide_item(it, rr, since)
+            v = rec.get("verdict")
+            if v is not None and v[0] == "route":
+                rr += 1
+                if v[4].mode == "slice" and not v[3]:
+                    since[v[4].slice_id] = since.get(v[4].slice_id, 0) + 1
+            recs.append(rec)
+        return {"cycle": self._log.cycles, "items": recs}
+
+    def _decide_item(self, it, rr: int, since) -> dict:
+        """The lead's verdict on one item: a shed, placement (the
+        slices' loads, ties broken by the round-robin tick ``rr``) and
+        the directory's serving candidates. The target pipeline's own
+        record (the deadline among its verdicts) follows once the ranks
+        know that no candidate answers."""
         from matrel_tpu_torch.session import _prec_prefix
-        e, _f, _t, sla, dl, _tenant, _st, seq, key, kill = it
-        rec = {"cycle": self._log.cycles, "seq": seq, "key": key}
-        if kill is not None:
+        e, _f, _t, sla, dl, _tenant, _st, seq, key, ctl = it
+        rec = {"seq": seq, "key": key}
+        if ctl is not None:
             return rec
         live = self.live_slices()
         shed = self._sheds.pop(seq, None)
@@ -1384,8 +1470,8 @@ class FleetController:
         else:
             fkey = placement_lib.fleet_key(e, self._names,
                                            _prec_prefix(sla))
-            loads = {sl.slice_id: 0 for sl in live}
-            rr = self._rr_count
+            loads = {sl.slice_id: self._load(sl.slice_id, since)
+                     for sl in live}
             preferred = placement_lib.pick_slice(loads, rr)
             cands = []
             drec = (self.directory.peek(fkey) if fkey is not None
@@ -1415,43 +1501,113 @@ class FleetController:
         return (k is not None and sl.alive and sl.session._rc_enabled()
                 and sl.session._result_cache.holds(k))
 
-    def _apply_item(self, rec: dict, it) -> None:
-        """Apply one record on this rank: agree, then kill / fail /
-        serve from the directory / route through the target's
-        pipeline."""
-        verdict = rec.get("verdict")
-        route = verdict is not None and verdict[0] == "route"
-        cands = verdict[3] if route else []
-        rebound = None
-        if route and verdict[4].mode == "slice" and it is not None:
-            # a member rebinds onto its slice's replicas; one that
-            # cannot sends the query to the span, on every rank
-            sl = self.slice_by_id(verdict[4].slice_id)
-            rebound = it[0]
-            if sl.member:
+    def _report(self) -> dict:
+        """What this rank tells a record about the slices it serves:
+        each slice whose worker it finds wedged (a dead thread with
+        entries waiting, no stop asked), and, for the slice it leads,
+        the outcomes finished since the last record and its load."""
+        rep = {"wedged": [], "slices": {}}
+        for sl in self.slices:
+            pipe = sl.session._serve if sl.member else None
+            if not self._concurrent or pipe is None:
+                continue
+            if sl.alive and pipe.wedged():
+                rep["wedged"].append(sl.slice_id)
+            if sl.session.mesh.ranks.rank == 0:
+                with self._outbox_lock:
+                    outs, self._outbox = self._outbox, []
+                rep["slices"][sl.slice_id] = (outs, pipe.load())
+        return rep
+
+    def _take_reports(self, facts) -> list:
+        """Apply the ranks' reports, the same on every rank: settle the
+        outcomes, note the loads; the live slices found wedged."""
+        wedged = set()
+        for f in facts:
+            wedged.update(f["wedged"])
+            for sid, (outs, load) in f["slices"].items():
+                self._depth[sid] = load
+                for seq, err, info in outs:
+                    self._settle(seq, err, info)
+        self._since = {}
+        return sorted(s for s in wedged if self.slice_by_id(s).alive)
+
+    def _apply_record(self, rec: dict, got: dict) -> None:
+        """One record on this rank: the ranks report what they hold of
+        each item and what their slices did (one gather), then the items
+        apply in sequence order and a wedged slice fails over."""
+        recs = rec["items"]
+        mine, rebounds = [], []
+        for r in recs:
+            it = got.get(r["seq"])
+            verdict = r.get("verdict")
+            route = verdict is not None and verdict[0] == "route"
+            rebound = None
+            if route and verdict[4].mode == "slice" and it is not None:
+                # a member rebinds onto its slice's replicas; one that
+                # cannot sends the query to the span, on every rank
+                sl = self.slice_by_id(verdict[4].slice_id)
+                rebound = it[0]
+                if sl.member:
+                    try:
+                        rebound = self._rebind(it[0], sl)
+                    except KeyError:
+                        rebound = None
+            rebounds.append(rebound)
+            mine.append((it is not None, it[8] if it is not None else None,
+                         {sid: self._holds(sid, verdict[1])
+                          for sid in (verdict[3] if route else ())},
+                         rebound is not None))
+        try:
+            facts = self._log.gather((mine, self._report()))
+        except Exception as ex:
+            for it in got.values():
+                _fail(it[1], ex)
+                self._items.done(1)
+            raise
+        # a slice found wedged leaves before the items apply, as one
+        # card's submit checks health before it places
+        for sid in self._take_reports([f[1] for f in facts]):
+            self._kill_ranked(sid, "wedged")
+        try:
+            for k, r in enumerate(recs):
+                it = got.get(r["seq"])
                 try:
-                    rebound = self._rebind(it[0], sl)
-                except KeyError:
-                    rebound = None
-        facts = self._log.gather(
-            (it is not None, it[8] if it is not None else None,
-             {sid: self._holds(sid, verdict[1]) for sid in cands},
-             rebound is not None))
+                    self._apply_item(r, it, [f[0][k] for f in facts],
+                                     rebounds[k])
+                except Exception as ex:  # the item's future carries it
+                    log.warning("fleet: item %s failed", r["seq"],
+                                exc_info=True)
+                    if it is not None:
+                        _fail(it[1], ex)
+                finally:
+                    if it is not None and r["seq"] not in self._routed:
+                        self._items.done(1)
+        finally:
+            for it in got.values():
+                if it[9] == ("health",):
+                    _resolve(it[1], None)
+
+    def _apply_item(self, rec: dict, it, facts, rebound) -> None:
+        """Apply one item on this rank, the ranks agreed (``facts`` each
+        rank's report on it): kill / fail / serve from the directory /
+        route to the target's pipeline."""
         why = ranklog.divergence(
             [{rec["seq"]: (f[0], f[1], None, None)} for f in facts],
             [rec["seq"]])
         if why is not None:
-            ex = RankDivergence(rec["cycle"], why)
+            ex = RankDivergence(self._log.cycles, why)
             if it is None:
                 self._items.mark_dead(rec["seq"], ex)
             else:
                 _fail(it[1], ex)
             return
-        fut = it[1]
-        if it[9] is not None:
-            if fut.set_running_or_notify_cancel():
-                fut.set_result(self._kill_ranked(*it[9]))
+        fut, ctl = it[1], it[9]
+        if ctl is not None:
+            if ctl[0] == "kill":
+                _resolve(fut, self._kill_ranked(ctl[1], ctl[2]))
             return
+        verdict = rec["verdict"]
         if verdict[0] == "shed":
             self.session._ensure_serve()._q.record_shed(it[5])
             _fail(fut, AdmissionShed(verdict[2], tenant=it[5] or None,
@@ -1476,6 +1632,15 @@ class FleetController:
         else:
             sl = self.slice_by_id(dec.slice_id)
             expr = rebound
+            if not sl.alive:
+                # failed over at this record after the lead placed it:
+                # the least-loaded survivor takes it
+                live = self.live_slices()
+                if not live:
+                    _fail(fut, FleetSliceLost(-1, "no live slices"))
+                    return
+                sl = min(live, key=lambda x: self._load(x.slice_id))
+                expr = None
         with self._lock:
             if sl is None:
                 if dec.reason == "pinned":
@@ -1486,17 +1651,112 @@ class FleetController:
                 self.placed["slice"] += 1
         self._emit_placement(dec, fkey, "span" if sl is None else "slice",
                              None if sl is None else sl.slice_id)
+        if sl is not None and self._concurrent:
+            self._route_to(sl, it, fkey, expr)
+            return
+        # the world runs it: every slice's pipeline drains first
+        # (``held``), then the target's cycle runs under the lock
         pipe = self._pipeline(sl)
         entry = (expr,) + it[1:pipeline_lib.KEY + 1]
-        prec = self._log.broadcast(
-            pipe.decide_routed(entry) if self._log.lead else None)
-        if sl is not None:
-            pipe.route.keys[it[7]] = (fkey, self._dep_names(it[0]))
-        try:
-            pipe.apply_routed(prec, entry)
-        finally:
+        with self.session.mesh.ranks.held():
+            prec = self._log.broadcast(
+                pipe.decide_routed(entry) if self._log.lead else None)
             if sl is not None:
-                pipe.route.keys.pop(it[7], None)
+                pipe.route.keys[it[7]] = (expr, it[3])
+            try:
+                pipe.apply_routed(prec, entry)
+            finally:
+                if sl is not None:
+                    pipe.route.keys.pop(it[7], None)
+                    info = pipe.route.infos.pop(it[7], None)
+                    if fut.done() and fut.exception() is None:
+                        self._record_owner(sl, it, fkey, info, expr)
+
+    def _route_to(self, sl: FleetSlice, it, fkey, expr=None) -> None:
+        """File a slice-placed item into ``sl``'s pipeline, on every
+        rank at the same record: the slice's ranks admit it (``expr``
+        rebound onto their replicas, or rebound here), the others wait
+        for its outcome at a later record. ``fkey`` None records no
+        directory entry for the answer (a re-admitted one, as on one
+        card)."""
+        seq = it[7]
+        self._routed[seq] = (it, sl.slice_id, fkey, self.directory.reg_gen)
+        self._since[sl.slice_id] = self._since.get(sl.slice_id, 0) + 1
+        if not sl.member:
+            return
+        inner: Future = Future()
+        inner.ready_event = None
+        inner.add_done_callback(
+            lambda f: self._inner_done(sl, seq, it[1], f))
+        try:
+            if expr is None:
+                expr = self._rebind(it[0], sl)
+            pipe = self._pipeline(sl)
+            pipe.route.keys[seq] = (expr, it[3])
+            pipe.admit_routed((expr, inner) + it[2:pipeline_lib.KEY + 1])
+        except (KeyError, PipelineClosed) as ex:
+            _fail(inner, FleetSliceLost(sl.slice_id, f"not admitted: "
+                                        f"{type(ex).__name__}"))
+
+    def _inner_done(self, sl: FleetSlice, seq: int, fut: Future,
+                    f: Future) -> None:
+        """A slice rank's answer to a routed item: the caller's future
+        takes it, and the slice's first rank keeps the outcome for the
+        next record's report."""
+        ex = f.exception()
+        if ex is None:
+            _resolve(fut, f.result(), f.ready_event)
+        else:
+            _fail(fut, ex)
+        pipe = sl.session._serve
+        info = pipe.route.infos.pop(seq, None) if pipe is not None else None
+        if sl.session.mesh.ranks.rank == 0:
+            with self._outbox_lock:
+                self._outbox.append(
+                    (seq, None if ex is None else ranklog.error_record(ex),
+                     info))
+
+    def _settle(self, seq: int, err, info) -> None:
+        """A routed item's outcome, from its slice lead's report, on
+        every rank: a rank outside the slice resolves the future (a
+        :class:`SliceResult` with no local value, or the same typed
+        error rebuilt), a cached answer enters the directory, a shed
+        counts on the parent's queue."""
+        it, sid, fkey, gen = self._routed.pop(seq)
+        sl = self.slice_by_id(sid)
+        if not sl.member:
+            if err is None:
+                _resolve(it[1], SliceResult(self.session.mesh,
+                                            sl.session.mesh, None))
+            else:
+                _fail(it[1], ranklog.rebuild_error(err))
+        expr = None
+        if sl.member:
+            pipe = sl.session._serve
+            expr = pipe.route.keys.pop(seq, (None,))[0]
+        if err is None:
+            self._record_owner(sl, it, fkey, info, expr, gen)
+        elif err["cls"][1] == AdmissionShed.__qualname__:
+            self.session._ensure_serve()._q.record_shed(it[5])
+        self._items.done(1)
+
+    def _record_owner(self, sl: FleetSlice, it, fkey, info, expr,
+                      gen: Optional[int] = None) -> None:
+        """Record ``sl`` as the owner of a slice-placed answer its ranks
+        cached under the routing-time key (``info`` the slice lead's
+        (cached?, bytes, layout, dtype)); the owner key is this rank's
+        own (a plan key holds this process's ids). A rebind or a slice
+        kill since the routing (``gen``, the registration generation
+        then) makes the insert stale, as on one card."""
+        if fkey is None or info is None or not info[0]:
+            return
+        _cached, nbytes, layout, dtype = info
+        self.directory.record_insert(fkey, DirectoryRecord(
+            owner=sl.slice_id,
+            owner_key=(self._local_key(sl, expr, it[3])
+                       if sl.member and expr is not None else None),
+            nbytes=nbytes, layout=layout, dtype=dtype,
+            dep_names=self._dep_names(it[0])), expected_gen=gen)
 
     def _entry_info(self, sl, rebound, sla, out):
         """(cached?, nbytes, layout, dtype) of a slice-placed result on
@@ -1532,14 +1792,8 @@ class FleetController:
         remote = serving != preferred
         self.directory.record_hit(fkey, preferred, remote)
         sl = self.slice_by_id(serving)
-        local = None
-        if sl.member:
-            k = (drec.owner_key if serving == drec.owner
-                 else drec.replicas[serving])
-            local = sl.session._result_cache.lookup(k).result
-        if fut.set_running_or_notify_cancel():
-            fut.set_result(SliceResult(self.session.mesh, sl.session.mesh,
-                                       local))
+        _resolve(fut, SliceResult(self.session.mesh, sl.session.mesh,
+                                  self._cached(sl, drec, serving)))
         if sl.session._slo is not None:
             sl.session._slo.record_ok(it[5] or None, 0.0)
         if remote:
@@ -1549,10 +1803,21 @@ class FleetController:
                        else "directory", serving)
         return True
 
+    @staticmethod
+    def _cached(sl: FleetSlice, drec: DirectoryRecord, sid: int):
+        """Slice ``sid``'s cached answer for ``drec`` on this rank (None
+        off the slice)."""
+        if not sl.member:
+            return None
+        ent = sl.session._result_cache.lookup(
+            drec.owner_key if sid == drec.owner else drec.replicas[sid])
+        return ent.result if ent is not None else None
+
     def _migrate_ranked(self, it, fkey, drec, serving, target) -> None:
         """Hot-entry replication at its record, on every rank: priced as
-        on one card; the value crosses as a world collective and the
-        target slice's ranks cut their blocks from it."""
+        on one card; the value crosses as a world collective (every
+        slice's pipeline drained first) and the target slice's ranks cut
+        their blocks from it."""
         from matrel_tpu_torch.core.blockmatrix import BlockMatrix
         from matrel_tpu_torch.ir import expr as expr_mod
         from matrel_tpu_torch.parallel import planner, reshard
@@ -1586,13 +1851,8 @@ class FleetController:
                               "peak_budget": budget})
             return
         src = self.slice_by_id(serving)
-        local = None
-        if src.member:
-            local = src.session._result_cache.lookup(
-                drec.owner_key if serving == drec.owner
-                else drec.replicas[serving]).result
         host = SliceResult(self.session.mesh, src.session.mesh,
-                           local).to_numpy()
+                           self._cached(src, drec, serving)).to_numpy()
         key, put = None, False
         if target.member:
             rebound = self._rebind(it[0], target)
@@ -1629,20 +1889,76 @@ class FleetController:
 
     def _kill_ranked(self, slice_id: int, reason: str) -> int:
         """``kill_slice`` at its record, on every rank: the slice leaves
-        and its directory records drop. It holds no queue (see the
-        module docstring), so nothing is stolen: the items not yet
-        placed land on the survivors. Returns 0, the number
-        re-admitted."""
+        and its directory records drop; its ranks close its pipeline,
+        and its lead takes the entries it has not admitted and tells
+        every rank their sequence numbers (with a verdict for a deadline
+        that expired while they waited, on the lead's clock). Every rank
+        re-admits them onto the survivors by load. Entries already in a
+        cycle complete normally. Returns the number re-admitted."""
         sl = self.slice_by_id(slice_id)
         if sl is None or not sl.alive:
             return 0
         sl.alive = False
+        stolen = []
+        if self._concurrent:
+            pipe = sl.session._serve if sl.member else None
+            mine = pipe.abandon() if pipe is not None else []
+            lead = sl.session.mesh.ranks.members[0]
+            stolen = self._log.broadcast(
+                [(e[pipeline_lib.SEQ], v) for e, v in mine]
+                if self.session.mesh.ranks.global_rank == lead else None,
+                src=lead)
+            if pipe is not None:
+                seqs = [seq for seq, _v in stolen]
+                if pipe._store is not None:
+                    pipe._store.drop(seqs)
+                for seq in seqs:
+                    pipe.route.keys.pop(seq, None)
         self.directory.drop_slice(slice_id)
+        requeued = self._readmit_ranked(stolen, sl)
         with self._lock:
             self.failovers += 1
+            self.requeued += requeued
         self._emit_fleet({"event": "slice_kill", "slice": slice_id,
-                          "reason": reason, "stolen": 0, "requeued": 0})
-        return 0
+                          "reason": reason, "stolen": len(stolen),
+                          "requeued": requeued})
+        return requeued
+
+    def _readmit_ranked(self, stolen, dead: FleetSlice) -> int:
+        """Re-admit a dead slice's waiting entries onto the survivors,
+        on every rank alike: each to the least-loaded live slice (the
+        loads as of the last record, plus what this failover has placed
+        already), futures, deadlines and tenants intact. Every refusal
+        is typed."""
+        live = self.live_slices()
+        ok = 0
+        for seq, verdict in stolen:
+            it = self._routed[seq][0]
+            ex = None
+            if verdict is not None and verdict[0] == "shed":
+                ex = AdmissionShed(verdict[2], tenant=it[5] or None,
+                                   scope=verdict[1])
+            elif verdict is not None:
+                ex = DeadlineExceeded(
+                    verdict[1], verdict[2],
+                    context="queued query (slice failover)"
+                    if verdict[0] == "deadline"
+                    else "queued query (purged)")
+            elif not self.config.fleet_failover or not live:
+                ex = FleetSliceLost(dead.slice_id,
+                                    "failover disabled" if live
+                                    else "no surviving slice")
+            if ex is not None:
+                del self._routed[seq]
+                _fail(it[1], ex)
+                self._items.done(1)
+                continue
+            target = min(live, key=lambda s: self._load(s.slice_id))
+            self._route_to(target, it, None)
+            with self._lock:
+                target.submitted += 1
+            ok += 1
+        return ok
 
     # -- lifecycle / observability ------------------------------------------
 

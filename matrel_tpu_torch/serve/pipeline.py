@@ -70,12 +70,17 @@ Resilience and overload contracts kept from the JAX package:
   ``AdmissionShed`` itself: the future carries it. The worker holds the
   world's execution lock (``RankGroups.cycle``) while it applies a
   record; the session's collective entry points drain it first and
-  hold the same lock (``RankGroups.held``). The fleet's router on a
-  rank mesh drives a slice's pipeline, or the parent's, one routed
-  query a cycle (:meth:`ServePipeline.decide_routed` /
-  :meth:`ServePipeline.apply_routed`), so a slice-placed query keeps
-  every contract above; a rank outside the slice joins the agreement
-  and runs nothing.
+  hold the same lock (``RankGroups.held``). A fleet slice's pipeline
+  on a rank mesh (``serve/fleet.py``) runs on the slice's ranks only,
+  its records on the slice's own control group with the slice's first
+  rank as lead, so the slices serve at the same time; the fleet's
+  router files each slice-placed query into it
+  (:meth:`ServePipeline.admit_routed`) under the sequence number the
+  router's record assigned, and it keeps every contract above. The
+  router drives the parent's pipeline (a span-placed query), and a
+  slice's where the slices share the world, one routed query a cycle
+  (:meth:`ServePipeline.decide_routed` /
+  :meth:`ServePipeline.apply_routed`).
 
 Locks are built through ``utils/lockdep`` (``"serve.pipeline"``).
 """
@@ -201,13 +206,20 @@ class ServePipeline:
         # sequence number
         self._log = ranklog.DecisionLog(session.mesh)
         self._ranked = self._log.world > 1
-        #: does this rank hold a cell of the session's mesh? (False on a
-        #: rank outside a fleet slice: it agrees, and runs nothing)
-        self._member = not session.mesh.ranked or session.mesh.ranks.member
+        #: a rank mesh's worker registers with the world's drain-and-hold
+        #: and takes its execution lock around a cycle (a fleet slice of
+        #: one rank too, though its log exchanges nothing)
+        self._on_ranks = session.mesh.ranked
+        self.control = self._log.group
         #: the fleet's hooks for a slice-placed answer on a rank mesh
         #: (``serve/fleet.py``): ``wrap(out)``, ``info(batch, outs)``,
         #: ``served(batch, info, late)``; None elsewhere
         self.route = None
+        #: set by a fleet failover on every rank of a slice whose worker
+        #: lives: the lead's worker publishes one last record,
+        #: ``{"stop": True}``, that releases a follower waiting for a
+        #: record on an entry the failover took away
+        self._await_stop = False
         self._seq = itertools.count()
         self._store = None
         self._tasks = self._q
@@ -328,7 +340,7 @@ class ServePipeline:
             self.drain(timeout=timeout)
         finally:
             self._stop.set()
-            if self._ranked:
+            if self._on_ranks:
                 self.session.mesh.ranks.unregister_worker(self)
                 # the worker leaves within one poll: a rank's process
                 # must not reach its teardown with it still running
@@ -365,7 +377,7 @@ class ServePipeline:
             if self._closed:
                 return
             if self._worker is None or not self._worker.is_alive():
-                if self._ranked:
+                if self._on_ranks:
                     self.session.mesh.ranks.register_worker(self)
                 self._stop.clear()
                 self._worker = threading.Thread(
@@ -377,13 +389,18 @@ class ServePipeline:
         and publishes the record; a follower waits for entries of its
         own, then for the record and the entries it names. Every rank
         applies the record (on a rank mesh under the world's execution
-        lock)."""
+        lock). After a fleet failover (``_await_stop``) the lead ends
+        with a ``{"stop": True}`` record and a follower reads records
+        until it."""
         dev = self.session.device
         if dev.type == "cuda":
             # a CUDA context is per thread: launch on the session's card
             torch.cuda.set_device(dev)
         log = self._log
-        while not self._stop.is_set():
+        while True:
+            stopping = self._stop.is_set()
+            if stopping and (log.lead or not self._await_stop):
+                break
             if log.lead:
                 deferred = self._q.take_deferred()
                 pulled = self._pull(0.0 if deferred else 0.05)
@@ -397,9 +414,11 @@ class ServePipeline:
                            for it in [d[0] for d in deferred] + pulled}
                 rec = log.publish(self._decide(pulled, deferred))
             else:
-                if not self._store.wait_any(0.05):
+                if not stopping and not self._store.wait_any(0.05):
                     continue
                 rec = log.publish()
+                if rec.get("stop"):
+                    break
                 entries = self._store.take(rec["seqs"],
                                            ranklog.RANK_WAIT_S)
             try:
@@ -411,10 +430,12 @@ class ServePipeline:
                         self._q.task_done()
                 else:
                     self._store.done(len(entries))
+        if log.lead and self._ranked and self._await_stop:
+            log.publish({"stop": True})
 
     def _cycle(self):
         """The world's execution lock around one cycle (a rank mesh)."""
-        return (self.session.mesh.ranks.cycle() if self._ranked
+        return (self.session.mesh.ranks.cycle() if self._on_ranks
                 else contextlib.nullcontext())
 
     def _pull(self, timeout: float) -> list:
@@ -510,11 +531,6 @@ class ServePipeline:
         sess = self.session
         facts = {s: [s in entries, entries[s][KEY] if s in entries
                      else None, None, None] for s in rec["seqs"]}
-        if not self._member:
-            # the slice's cache lives on the slice's ranks
-            for s in set(rec["stale"]) | {it[SEQ] for it in run}:
-                facts[s][2:] = [ranklog.ANY, ranklog.ANY]
-            return {s: tuple(v) for s, v in facts.items()}
         for it in run:
             facts[it[SEQ]][2] = sess._rc_pattern(it[0], it[3])
         for s in rec["stale"]:
@@ -595,8 +611,7 @@ class ServePipeline:
             # answered by the stale ghost of a rebind-invalidated entry
             # — exact answer, slightly old catalog; nothing runs
             it = entries[s]
-            ent = (sess._rc_stale_probe(it[0], it[3], it[6], aged=True)
-                   if self._member else None)
+            ent = sess._rc_stale_probe(it[0], it[3], it[6], aged=True)
             if not it[1].done():
                 it[1].set_result(self._wrap(
                     ent.result if ent is not None else None))
@@ -629,7 +644,64 @@ class ServePipeline:
                     tenant_depths=(rec["tenant_depths"] if self._ranked
                                    else None))
 
-    # -- the fleet's router on a rank mesh (serve/fleet.py) ----------------
+    # -- the fleet on a rank mesh (serve/fleet.py) --------------------------
+
+    def attach_route(self, route) -> None:
+        """Serve as a fleet slice's pipeline: answers go through
+        ``route``'s hooks, and a shed or purge the lead decides rides
+        the next record (on every rank of the slice, typed)."""
+        self.route = route
+        self._q.deferring = True
+
+    def admit_routed(self, entry) -> None:
+        """File one entry the fleet's router placed on this slice, on
+        each of the slice's ranks at the router's record: the lead
+        admits it (a shed rides the next record), a follower files it
+        under its sequence number; the worker starts if need be."""
+        with self._lock:
+            if self._closed:
+                raise PipelineClosed("re-admission after close(): the "
+                                     "admission worker is stopped")
+            self._admit_ranked(entry, entry[5] or None)
+            self._ensure_worker()
+
+    def load(self) -> tuple:
+        """(queued entries, busy): the lead's admission queue and
+        whether its worker holds entries it has taken (the fleet's
+        placement load)."""
+        return self._q.load()
+
+    def wedged(self) -> bool:
+        """Did the worker die with entries waiting and no stop asked?"""
+        with self._lock:
+            return (self._worker is not None
+                    and not self._worker.is_alive()
+                    and not self._stop.is_set()
+                    and self._tasks.unfinished_tasks > 0)
+
+    def abandon(self) -> list:
+        """A fleet failover on each rank of the slice: close, stop the
+        worker, and on the lead take every entry it has not admitted,
+        each as ``(entry, verdict)``: a deadline that expired while it
+        waited (("deadline", budget ms, elapsed ms), on the lead's
+        clock), a shed or purge it had deferred, or None. Entries
+        already in a cycle complete normally."""
+        with self._lock:
+            self._closed = True
+            self._await_stop = (self._ranked and self._worker is not None
+                                and self._worker.is_alive())
+            self._stop.set()
+        if not self._log.lead:
+            return []
+        deferred = self._q.take_deferred()
+        for _ in deferred:
+            self._q.task_done()
+        out = []
+        for it, _tenant in self._q.steal_entries():
+            dl = it[4]
+            out.append((it, ("deadline", dl.budget_ms, dl.elapsed_ms())
+                        if dl is not None and dl.expired() else None))
+        return deferred + out
 
     def decide_routed(self, entry) -> dict:
         """The lead's record for one query the fleet routed to this
@@ -655,9 +727,9 @@ class ServePipeline:
 
     def _agree_group(self, batch: list, outs, ex):
         """One group's outcome, agreed over the ranks: (error or None,
-        transient, late sequence numbers, latencies in ms, the route's
-        info). A failure is the first failing rank's error, the same
-        typed error on every rank (a rank keeps its own instance when it
+        transient, late sequence numbers, latencies in ms, the lead's
+        route info). A failure is the first failing rank's error, the
+        same typed error on every rank (a rank keeps its own instance when it
         is of that class); the retry decision is the failing ranks' own
         classification. After a success the lead judges late deadlines
         and latencies on its clock once every rank has finished."""
@@ -665,7 +737,7 @@ class ServePipeline:
         mine = {"err": None if ex is None else ranklog.error_record(ex),
                 "info": (self.route.info(batch, outs)
                          if self.route is not None and ex is None
-                         and self._member else None)}
+                         else None)}
         got = log.gather(mine)
         bad = [g["err"] for g in got if g["err"] is not None]
         if bad:
@@ -677,8 +749,7 @@ class ServePipeline:
                 agreed.__cause__ = ex
             return (agreed, all(b["transient"] for b in bad), None, None,
                     None)
-        info = next((g["info"] for g in got if g["info"] is not None),
-                    None)
+        info = got[0]["info"]
         if not (any(it[4] is not None for it in batch)
                 or self._slo is not None):
             return None, False, set(), None, info
@@ -807,8 +878,7 @@ class ServePipeline:
             # admission fault takes the bisection/re-admission path
             # (checked on every rank, so it fires on every rank)
             faults_lib.check("serve_admit", sess.config)
-            if self._member:
-                outs = self._run_many(sla, batch, depth, waits_ms, rung)
+            outs = self._run_many(sla, batch, depth, waits_ms, rung)
         except Exception as e:  # noqa: BLE001 — bisect, re-admit or
             # fail the lone future; the worker survives either way
             ex = e
@@ -817,6 +887,10 @@ class ServePipeline:
                 batch, outs, ex)
         else:
             transient = ex is not None and is_transient(ex)
+            if ex is None and self.route is not None:
+                late = {it[SEQ] for it in batch
+                        if it[4] is not None and it[4].expired()}
+                info = self.route.info(batch, outs)
         if ex is not None:
             if depth == 0:
                 # the post-mortem trail of a failed serve batch (no-op
@@ -846,8 +920,11 @@ class ServePipeline:
                             retries=retries, rung=rung)
             return
         self.batches += 1
-        done = Dispatched(outs, _record_event(sess.device)
-                          if self._member else None)
+        done = Dispatched(outs, _record_event(sess.device))
+        if self.route is not None:
+            # before the futures resolve: the fleet reports each answer
+            # with what the slice's ranks cached of it
+            self.route.served(batch, info, late)
         for it, out in zip(batch, outs):
             fut, dl = it[1], it[4]
             if (it[SEQ] in late if late is not None
@@ -876,8 +953,6 @@ class ServePipeline:
                         it[5] or None,
                         lat[it[SEQ]] if lat is not None
                         else (time.perf_counter() - it[2]) * 1e3)
-        if self.route is not None:
-            self.route.served(batch, info, late)
         if outs:
             self._inflight.append(done)
         while len(self._inflight) > self.max_inflight:

@@ -9,7 +9,8 @@ timeout). So on a rank mesh:
   same order. Each pipeline numbers its submissions; an entry carries
   its sequence number and a rank-invariant digest of its plan key
   (:func:`rank_key`: leaves numbered by first appearance, not by id).
-- **The lead decides.** Rank 0 of the world is the lead. Only its
+- **The lead decides.** The first rank of the worker's mesh (rank 0
+  of the world, or a fleet slice's first rank) is the lead. Only its
   worker pulls from the admission queue and makes the cycle's
   decisions (which sequence numbers, sheds, deadline and breaker
   verdicts on its clock, the brownout sample and rung, stale serves,
@@ -38,12 +39,14 @@ One process (a session off a rank mesh) runs the same cycle on a
 :class:`DecisionLog` of one rank: its worker is the lead, a record is
 applied where it is made, and nothing is exchanged.
 
-The records travel on ``mesh.ranks.control``, a gloo group of the whole
-world that ``core/mesh.init_distributed`` makes for this alone, so
-control traffic never interleaves with a data collective (under NCCL
-too). Counters the plane reports — deadline misses, stale serves,
-sheds, SLO outcomes, breaker and brownout state, serve events — follow
-from the records, so they are equal on every rank.
+The records travel on ``mesh.ranks.control``, a gloo group of the
+mesh's ranks that ``core/mesh`` makes for this alone (the world's in
+``init_distributed``, each fleet slice's in ``_rank_slice``), so control
+traffic never interleaves with a data collective (under NCCL too), and
+the slices of a fleet agree each among its own ranks at the same time.
+Counters the plane reports — deadline misses, stale serves, sheds, SLO
+outcomes, breaker and brownout state, serve events — follow from the
+records, so they are equal on every rank of the log.
 """
 
 from __future__ import annotations
@@ -80,18 +83,20 @@ def rank_key(e) -> str:
 
 
 class DecisionLog:
-    """The lead / follower exchange of one serve worker over the world's
-    control group. ``lead`` is True on global rank ``members[0]``; off a
-    rank mesh the log has one rank, the lead, and exchanges nothing.
-    ``control_ms`` sums the host time spent in the exchanges (what a
-    cycle pays for agreeing)."""
+    """The lead / follower exchange of one serve worker over its mesh's
+    control group: the world's for a session's pipeline and the fleet's
+    router, a slice's own for that slice's pipeline. ``lead`` is True on
+    the mesh's first rank (``members[0]``); off a rank mesh the log has
+    one rank, the lead, and exchanges nothing. ``control_ms`` sums the
+    host time spent in the exchanges (what a cycle pays for
+    agreeing)."""
 
     def __init__(self, mesh):
-        root = mesh.ranks.root if mesh.ranked else None
-        self.group = root.control if root is not None else None
-        self.lead_rank = root.members[0] if root is not None else 0
-        self.lead = root is None or root.global_rank == self.lead_rank
-        self.world = root.world_size if root is not None else 1
+        ranks = mesh.ranks if mesh.ranked else None
+        self.group = ranks.control if ranks is not None else None
+        self.lead_rank = ranks.members[0] if ranks is not None else 0
+        self.lead = ranks is None or ranks.global_rank == self.lead_rank
+        self.world = ranks.world_size if ranks is not None else 1
         self.cycles = 0
         self.exchanges = 0
         self.control_ms = 0.0
@@ -102,15 +107,17 @@ class DecisionLog:
         self.cycles += 1
         return self.broadcast(rec)
 
-    def broadcast(self, obj=None):
-        """The lead's ``obj`` on every rank."""
+    def broadcast(self, obj=None, src: Optional[int] = None):
+        """The lead's ``obj`` on every rank (global rank ``src``'s when
+        given)."""
         if self.world == 1:
             return obj
         import torch.distributed as dist
         t0 = time.perf_counter()
         box = [obj]
-        dist.broadcast_object_list(box, src=self.lead_rank,
-                                   group=self.group)
+        dist.broadcast_object_list(
+            box, src=self.lead_rank if src is None else src,
+            group=self.group)
         self._count(t0)
         return box[0]
 
@@ -177,11 +184,11 @@ class EntryStore:
             return sum(1 for e in self._by_seq.values()
                        if pred is None or pred(e))
 
-    def first(self):
-        """The waiting entry with the lowest sequence number (left in
-        place)."""
+    def lowest(self, n: int) -> list:
+        """Up to ``n`` waiting entries, lowest sequence numbers first
+        (left in place)."""
         with self._lock:
-            return self._by_seq[min(self._by_seq)]
+            return [self._by_seq[s] for s in sorted(self._by_seq)[:n]]
 
     def take(self, seqs, bound_s: float) -> Dict[int, tuple]:
         """Remove and return the named entries, waiting up to
@@ -197,6 +204,13 @@ class EntryStore:
                 self.all_tasks_done.wait(min(rem, 0.05))
             return {s: self._by_seq.pop(s) for s in seqs
                     if s in self._by_seq}
+
+    def drop(self, seqs) -> None:
+        """Remove the named entries without resolving them (a fleet
+        failover re-admitted them elsewhere); they count as done."""
+        with self._lock:
+            n = sum(self._by_seq.pop(s, None) is not None for s in seqs)
+        self.done(n)
 
     def mark_dead(self, seq: int, ex: BaseException) -> None:
         """Fail ``seq`` when it arrives (its cycle already failed)."""
@@ -222,21 +236,13 @@ class EntryStore:
                 self.all_tasks_done.notify_all()
 
 
-#: A fact a rank outside a serving slice reports for what only the
-#: slice's ranks hold (their result cache): it agrees with anything.
-ANY = "*"
-
-
 def divergence(facts: list, seqs) -> Optional[str]:
     """The first difference between the ranks' reports for one record
     (None when they agree). ``facts[r]`` maps each sequence number to
-    rank r's ``(present, key digest, cache pattern, stale ghost)``; a
-    cache fact of :data:`ANY` is compared with nothing."""
+    rank r's ``(present, key digest, cache pattern, stale ghost)``."""
     lead = facts[0]
     for s in seqs:
         want = lead.get(s)
-        held = [got[s][2:] for got in facts if got.get(s) is not None
-                and got[s][0] and got[s][2] != ANY]
         for r, got in enumerate(facts):
             mine = got.get(s)
             if mine is None or not mine[0]:
@@ -244,12 +250,10 @@ def divergence(facts: list, seqs) -> Optional[str]:
             if mine[1] != want[1]:
                 return (f"sequence number {s}: rank {r}'s plan key "
                         f"{mine[1]} differs from the lead's {want[1]}")
-            if mine[2] == ANY:
-                continue
-            if mine[2] != held[0][0]:
+            if mine[2] != want[2]:
                 return (f"sequence number {s}: rank {r}'s result-cache "
                         f"state differs from the lead's")
-            if mine[3] != held[0][1]:
+            if mine[3] != want[3]:
                 return (f"sequence number {s}: rank {r} holds no stale "
                         f"entry for the lead's stale serve")
     return None

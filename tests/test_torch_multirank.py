@@ -441,7 +441,7 @@ def _sharded_battery(mesh, out_dir):
     from matrel_tpu_torch.core import padding
     from matrel_tpu_torch.core.mesh import make_mesh
     from matrel_tpu_torch.core.sparse import BlockSparseMatrix
-    from matrel_tpu_torch.parallel import collectives as coll
+    from matrel_tpu_torch.parallel import autotune, collectives as coll
     from matrel_tpu_torch.relational import ops as R
     from matrel_tpu_torch.resilience.errors import SnapshotGridMismatch
     from matrel_tpu_torch.session import MatrelSession
@@ -525,6 +525,21 @@ def _sharded_battery(mesh, out_dir):
         "region_units": whole(region_u.run(), (LOW_N, LOW_M)),
         "dispatches": (staged_u.dispatches, region_u.dispatches),
     }
+
+    # the autotune fuse| probes on the ranks: the region measured over
+    # each rank's Shards of the probe arrays, rank 0's medians agreed
+    table = os.path.join(out_dir, "fuse_autotune.json")
+    autotune.clear_caches()
+    acfg = fcfg.replace(autotune=True, autotune_table_path=table)
+    asess = MatrelSession(mesh=mesh, config=acfg)
+    ae = chain(*(asess.from_numpy(arrs[k]) for k in "XQY"))
+    aplan = asess.compile(ae)
+    aout = asess.compute(ae).to_numpy()
+    res["fuse_autotune"] = {
+        "rows": {k: v for k, v in autotune.load_table(table).items()
+                 if k.startswith("fuse|")},
+        "regions": aplan.meta["fusion"]["regions"],
+        "out": aout}
 
     res["delta"] = _delta_scenario(MatrelSession, MatrelConfig,
                                    BlockSparseMatrix, mesh)
@@ -1174,3 +1189,40 @@ def test_spill_tiers_on_ranks(worlds, world, tmp_path):
         assert mine >= 1 and total == mine * gx * gy
         assert r["spill_other_grid"] == ([gx, gy], None)
         assert r["fleet_source"] == "virtual"
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_fuse_probes_on_ranks(worlds, world, tmp_path, monkeypatch):
+    """Autotune over a dense fused region on the ranks: one ``fuse|``
+    row, under the JAX package's key for the same region on its mesh,
+    the same region stamp on every rank, and the answer within 1e-4 of
+    float64 numpy's."""
+    from matrel_tpu.config import MatrelConfig as JConfig
+    from matrel_tpu.core.blockmatrix import BlockMatrix as JBM
+    from matrel_tpu.ir import fusion as j_fusion
+    from matrel_tpu.ir.rules import optimize as j_optimize
+    from matrel_tpu.parallel import autotune as j_at, planner as j_planner
+    mesh = _jax_mesh(world)
+    arrs = _lowering_arrays()
+    jcfg = JConfig(fusion_enable=True, autotune=True,
+                   autotune_table_path=str(tmp_path / "jax.json"))
+    x, q, y = (JBM.from_numpy(arrs[k], mesh=mesh) for k in "XQY")
+    je = x.multiply(q).elem_multiply(y).multiply_scalar(0.5).add_scalar(1.0)
+    jopt = j_planner.annotate_strategies(j_optimize(je, jcfg), mesh, jcfg)
+    (jreg,) = j_fusion.segment(jopt, jcfg, mesh=mesh)
+    monkeypatch.setattr(j_at, "_FUSION_CACHE", {})
+    monkeypatch.setattr(j_at, "measure_fusion_region",
+                        lambda *a, **k: {"fused": 1.0, "staged": 2.0})
+    j_at.lookup_or_measure_fusion(jreg, jopt, mesh, jcfg)
+    (jkey,) = [k for k in j_at.load_table(jcfg.autotune_table_path)
+               if k.startswith("fuse|")]
+    a = {k: v.astype(np.float64) for k, v in arrs.items()}
+    want = (a["X"] @ a["Q"]) * a["Y"] * 0.5 + 1.0
+    got = [r["fuse_autotune"] for r in worlds[world]]
+    for g in got:
+        assert list(g["rows"]) == [jkey]
+        assert set(g["rows"][jkey]["times"]) == {"fused", "staged"}
+        assert g["regions"] == got[0]["regions"]
+        assert g["regions"] == (
+            1 if g["rows"][jkey]["best"] != "staged" else 0)
+        np.testing.assert_allclose(g["out"], want, rtol=1e-4, atol=1e-4)

@@ -23,17 +23,23 @@ rank's results back through a pickle file:
   pipeline's contracts on a slice that does not hold the lead rank (a
   deadline that expires while the slice runs, a transient failure that
   retries, a failing query whose error reaches every rank as the same
-  typed error) — each ``fleet_info`` equal on every rank and to the
-  JAX package's on ``mesh8`` for the same sequence. Then the router's
-  backlog bound, which sheds typed on every rank alike.
+  typed error); then the slices serving at the same time: slowed
+  queries on different slices overlap, ``kill_slice`` re-admits an
+  entry waiting in the dead slice's queue, placement sends a query past
+  a busy slice, and ``check_health`` fails over a slice whose worker
+  died with an entry waiting — each ``fleet_info`` equal on every rank
+  and to the JAX package's on ``mesh8`` for the same sequence. Then the
+  backlog bounds, which shed typed on every rank alike.
 
 This module is imported by the rank processes, so it imports neither
 ``jax`` nor ``matrel_tpu`` at the top.
 """
 
+import concurrent.futures
 import importlib
 import os
 import pickle
+import threading
 import time
 import traceback
 
@@ -42,7 +48,8 @@ import pytest
 import torch
 
 WORLDS = {"1x2": (1, 2), "2x4": (2, 4)}
-#: seconds a world may take before it is killed (each runs in ~7 s alone)
+#: seconds a world may take before it is killed ((1, 2) runs in ~7 s
+#: alone, (2, 4) in ~25 s)
 JOIN_TIMEOUT_S = {"1x2": 60.0, "2x4": 120.0}
 N = 64
 #: the (1, 2) world's cases
@@ -52,7 +59,10 @@ SERVE_CASES = ("reproducer", "follower_deadline", "breaker", "brownout",
 SLICES = (2, 4)
 FLEET_CASES = ("routing", "directory_hit", "migration", "priced_out",
                "failover", "write_through", "late_deadline", "transient",
-               "failing")
+               "failing", "overlap", "queued_failover", "by_load", "wedged")
+#: the cases that run with one query a batch (a slice's queue holds the
+#: rest)
+ONE_A_BATCH = ("queued_failover", "by_load", "backlog")
 #: how long a slowed slice's run takes, and the deadline it outlives (s)
 SLOW_S, LATE_MS = 1.0, 500.0
 #: fleet_info keys that both packages report alike (result-cache bytes
@@ -209,6 +219,34 @@ def _poison(run):
     return poisoned
 
 
+def _gate(sl):
+    """Hold slice ``sl``'s runs until ``release`` is set; ``started`` is
+    set when the first one begins."""
+    started, release = threading.Event(), threading.Event()
+    run = sl.session.run_many
+
+    def gated(*a, **k):
+        started.set()
+        release.wait(60)
+        return run(*a, **k)
+
+    sl.session.run_many = gated
+    return started, release
+
+
+def _member(sl) -> bool:
+    """Does this process run slice ``sl`` (always in the JAX
+    package)?"""
+    return getattr(sl, "member", True)
+
+
+def _settled(fut):
+    """Wait for ``fut`` without touching its value (``to_numpy`` is a
+    collective that waits for every outstanding query)."""
+    concurrent.futures.wait([fut], timeout=60)
+    return fut
+
+
 def _fleet_scenario(Session, Config, mesh, n_slices, case):
     """One fleet case, as either package runs it. Returns its results:
     outcomes and fleet_info."""
@@ -216,6 +254,8 @@ def _fleet_scenario(Session, Config, mesh, n_slices, case):
         Session.__module__.split(".")[0] + ".resilience.faults")
     faults.reset()
     kw = {"fleet_slices": n_slices, "result_cache_max_bytes": 1 << 28}
+    if case in ONE_A_BATCH:
+        kw["serve_max_batch"] = 1
     if case == "migration":
         kw["fleet_replicate_hits"] = 1
     if case == "priced_out":
@@ -272,6 +312,63 @@ def _fleet_scenario(Session, Config, mesh, n_slices, case):
         else:
             outs.append(_outcome(sess.submit(q.multiply_scalar(2.0))))
         outs.append(_outcome(sess.submit(q.multiply_scalar(3.0))))
+    elif case == "overlap":
+        fleet = sess._ensure_fleet()
+        _patched_runs(sess, fleet, _slow)
+        t0 = time.monotonic()
+        futs = [sess.submit(q.multiply_scalar(float(i + 1)))
+                for i in range(4)]
+        concurrent.futures.wait(futs, timeout=60)
+        res["seconds"] = time.monotonic() - t0
+        sess.serve_drain()
+        _unpatched_runs(sess, fleet)
+        outs.extend(_outcome(f) for f in futs)
+        # each slice's decision log: its lead rank, ranks and cycles
+        res["logs"] = {sl.slice_id: (sl.session._serve._log.lead_rank,
+                                     sl.session._serve._log.world)
+                       for sl in fleet.slices if _member(sl)
+                       and getattr(sl.session._serve, "_log", None)}
+    elif case in ("queued_failover", "by_load"):
+        # slice 0 holds its first query in a run until released; the
+        # next query placed there waits in its queue
+        fleet = sess._ensure_fleet()
+        started, release = _gate(fleet.slices[0])
+        futs = [sess.submit(q)]
+        if _member(fleet.slices[0]):
+            started.wait(60)
+        # one query on each other slice, then slice 0's second (the
+        # round-robin is back at slice 0, every load 0)
+        futs += [_settled(sess.submit(q.multiply_scalar(float(i + 1))))
+                 for i in range(1, n_slices)]
+        futs.append(sess.submit(q.multiply_scalar(float(n_slices + 1))))
+        if case == "queued_failover":
+            res["requeued"] = fleet.kill_slice(0)
+        else:
+            # slice 0's load is 1: the next n queries go past it, the
+            # last at a round-robin tick that points at slice 0
+            futs += [_settled(sess.submit(q.multiply_scalar(
+                float(n_slices + 2 + i)))) for i in range(n_slices)]
+        release.set()
+        outs.extend(_outcome(f) for f in futs)
+        del fleet.slices[0].session.run_many
+    elif case == "wedged":
+        fleet = sess._ensure_fleet()
+        for i in range(n_slices):
+            outs.append(_outcome(sess.submit(q.multiply_scalar(
+                float(i + 1)))))
+        sess.serve_drain()
+        sl = fleet.slices[0]
+        if _member(sl):
+            # the worker dies (a stop, then the stop flag erased) and is
+            # not restarted: the next query placed there waits
+            pipe = sl.session._serve
+            pipe._stop.set()
+            pipe._worker.join(timeout=10)
+            pipe._stop.clear()
+            pipe._ensure_worker = lambda: None
+        fut = sess.submit(q.multiply_scalar(float(n_slices + 1)))
+        fleet.check_health()
+        outs.append(_outcome(fut))
     sess.serve_drain()
     faults.reset()
     info = sess.fleet_info()
@@ -284,20 +381,21 @@ def _fleet_scenario(Session, Config, mesh, n_slices, case):
 
 
 def _backlog_scenario(mesh, n_slices):
-    """The router's backlog bound (``serve_tenant_queue_max`` = 1): with
-    every run slowed, three queries of one tenant submitted at once find
-    the first one running and the second waiting, so the lead sheds at
-    least the third; every rank fails the same futures typed."""
+    """The backlog bounds (``serve_tenant_queue_max`` = 1, one query a
+    batch): with every run slowed, 2n + 1 queries of one tenant
+    submitted at once find a query running and one waiting on every
+    slice, so a slice's queue (or, sooner, the router's store) sheds at
+    least the last; every rank fails the same futures typed."""
     from matrel_tpu_torch.config import MatrelConfig
     from matrel_tpu_torch.session import MatrelSession
     sess = _session(MatrelSession, MatrelConfig, mesh,
                     fleet_slices=n_slices, result_cache_max_bytes=1 << 28,
-                    serve_tenant_queue_max=1)
+                    serve_tenant_queue_max=1, serve_max_batch=1)
     fleet = sess._ensure_fleet()
     q = _fleet_q(sess)
     _patched_runs(sess, fleet, _slow)
     futs = [sess.submit(q.multiply_scalar(float(i + 1)), tenant="tenantA")
-            for i in range(3)]
+            for i in range(2 * n_slices + 1)]
     sess.serve_drain()
     _unpatched_runs(sess, fleet)
     res = {"out": [_outcome(f) for f in futs],
@@ -633,3 +731,77 @@ def test_sparse_and_coo_tables_serve_on_slices(fleet_world, n_slices):
         for (s, g), w in zip(got["out"], want):
             assert s == "ok"
             np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+
+
+def _slice_of(rank: int, n_slices: int) -> int:
+    return rank // (8 // n_slices)
+
+
+@pytest.mark.parametrize("n_slices", SLICES)
+def test_slices_overlap(fleet_world, n_slices):
+    """Four slowed queries on the slices finish in under 3 × SLOW_S on
+    every rank (serialised slices took 4 ×); each slice's pipeline
+    agrees on its own control group, its first rank the lead."""
+    per = 8 // n_slices
+    for r, got in enumerate(fleet_world):
+        run = got[(n_slices, "overlap")]
+        assert run["seconds"] < 3 * SLOW_S, (r, run["seconds"])
+        sid = _slice_of(r, n_slices)
+        assert run["logs"] == {sid: (sid * per, per)}
+
+
+@pytest.mark.parametrize("n_slices", SLICES)
+def test_queued_entry_requeued_on_failover(fleet_world, n_slices):
+    """``kill_slice(0)`` while slice 0 runs one query and holds another
+    in its queue: the queued one re-admits onto a survivor (``requeued``
+    1 on every rank, the JAX package's count on ``mesh8``), the running
+    one completes on the dead slice, every answer float64 numpy's."""
+    want = _jax_fleet(n_slices, "queued_failover")
+    t = _f64()
+    base = t["A"] @ t["B"]
+    scales = [1.0] + [float(i + 1) for i in range(1, n_slices + 1)]
+    for got in (r[(n_slices, "queued_failover")] for r in fleet_world):
+        assert got["requeued"] == want["requeued"] >= 1
+        assert got["info"]["requeued"] == got["requeued"]
+        assert got["slices"][0]["alive"] is False
+        for (s, g), k in zip(got["out"], scales):
+            assert s == "ok"
+            np.testing.assert_allclose(g, base * k, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_slices", SLICES)
+def test_placement_reads_slice_loads(fleet_world, n_slices):
+    """With slice 0 busy and one query waiting there, the next queries
+    go to the idle slices, the last one at a round-robin tick that
+    points at slice 0 too: slice 0 took 2 queries, as
+    ``placement.pick_slice`` decides in the JAX package."""
+    want = _jax_fleet(n_slices, "by_load")
+    assert want["slices"][0]["submitted"] == 2
+    for got in (r[(n_slices, "by_load")] for r in fleet_world):
+        assert got["slices"] == want["slices"]
+        assert got["info"]["placed"] == {"slice": 2 * n_slices + 1,
+                                         "span": 0}
+
+
+@pytest.mark.parametrize("n_slices", SLICES)
+def test_check_health_fails_over_a_wedged_slice(fleet_world, n_slices):
+    """A slice whose worker died with a query waiting is failed over on
+    every rank alike: the query answers through a survivor."""
+    t = _f64()
+    for got in (r[(n_slices, "wedged")] for r in fleet_world):
+        assert got["info"]["failovers"] == 1
+        assert got["info"]["requeued"] == 1
+        assert got["slices"][0]["alive"] is False
+        s, g = got["out"][-1]
+        assert s == "ok"
+        np.testing.assert_allclose(g, (t["A"] @ t["B"]) * (n_slices + 1),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_slices", SLICES)
+def test_failing_query_same_error_in_and_out_of_slice(fleet_world,
+                                                      n_slices):
+    """The poisoned query runs on slice 1: its ranks and every other
+    rank raise the same typed error with the same text."""
+    outs = [r[(n_slices, "failing")]["out"][1] for r in fleet_world]
+    assert outs == [("err", "ValueError", "poison query")] * 8
