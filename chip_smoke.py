@@ -207,9 +207,11 @@
    naming each plan, the registry's count, the log read back; with (h)
    one scrape of /metrics and /json on the loopback endpoint and no
    exporter thread after serve_close; (b) EXPLAIN ANALYZE of each: the
-   kernel's torch.profiler ms against its PERF.md kernel ms (within
-   OPS_ANALYZE_FACTOR), every launch under a matrel.* range, the B1 /
-   B2 / B4 node's synced ms between that kernel's and PERF.md's device
+   kernel's launch counter moved over the profiled calls, its
+   torch.profiler ms (a trace that saw it: up to OPS_PROFILE_TRIES
+   traces, each retry logged) against its PERF.md kernel ms (within
+   OPS_ANALYZE_FACTOR), every traced launch under a matrel.* range, the
+   B1 / B2 / B4 node's synced ms between that kernel's and PERF.md's device
    time of the query plus OPS_NODE_HOST_MS, the plan-as-run line beside
    it; (c) warm
    ms obs off against obs on, in turns, off against path_latency's; (d)
@@ -273,7 +275,22 @@
    roll-up), trace --export chrome, why and top --once --log over the
    run's own event log, the bridge on localhost, and the CLI's pagerank
    over row 5's edges (B2), the same top ten as path_row5_pagerank.
-13. spgemm_library: torch.sparse.mm of each S×S pair's element-CSR
+13. path_soak (the port's randomized oracle soak,
+   matrel_tpu_torch/tools/soak.py, at --base 10000 with SOAK_TRIALS a
+   battery, under its own bound SOAK_PEAK_LIMIT_GIB): the kernel
+   batteries first — spmv (B2 over uniform, hub, banded and
+   single-column graphs), routed (B8), sparse_kernels (B4-B7, every
+   kernel id forced, the executor path with a poisoned to_dense), fuzz
+   and deep (random expression trees: B1's f32 bodies through
+   block-sparse leaves, B2 / B3 through COO leaves), precision (the SLA
+   tiers; block-sparse bf16 S·D through B1's wgmma and WMMA bodies),
+   fusion — then the serving batteries and sharded (four gloo ranks
+   sharing the card); one line a battery (trials, failures, wall s,
+   launches a kernel), zero failures, and every kernel but B3 launched
+   during the phase (B1's wgmma, WMMA and f32 bodies apart); then the
+   chaos drill (tools/chaos_drill.py) on the card, its JSON line
+   printed and held to ok.
+14. spgemm_library: torch.sparse.mm of each S×S pair's element-CSR
    forms in f32 (cuSPARSE SpGEMM) at n = 100,352, by CUDA events, as the
    library column of B4–B7 (xla_gather kept beside it); where cuSPARSE
    cannot hold its workspace, the failure and the operand sizes. Then
@@ -342,6 +359,10 @@ runs only path_durable (after the build).
     python3 chip_smoke.py --fleet
 
 runs only path_fleet (after the build).
+
+    python3 chip_smoke.py --soak
+
+runs only path_soak (after the build).
 
     python3 chip_smoke.py --multirank
 
@@ -5627,6 +5648,9 @@ OPS_ANALYZE_RUNS = 5
 #: The device-event substring of each kernel's symbol (csrc/).
 OPS_KERNEL_SYMBOL = {"B1": "bf16_wgmma_kernel", "B2": "csr_walk",
                      "B4": "bf16_wgmma_kernel"}
+#: (b) traces of a query at most: a later profiler in a process can miss
+#: the CUPTI record of one sub-ms call (the launch counter cannot).
+OPS_PROFILE_TRIES = 3
 #: (d) the ladder runs transient faults at execute 1, 2, 3 times.
 OPS_LADDER_FIRES = (1, 2, 3)
 #: (e) breaker threshold and cooldown.
@@ -5839,11 +5863,13 @@ def ops_obs(dev, qs: dict, want: dict, tmp: str) -> dict:
 
 def ops_analyze(dev, qs: dict, tmp: str) -> dict:
     """(b) EXPLAIN ANALYZE of each query: the tree names its B1 / B2 /
-    B4 node; the kernel's profiled device ms against its PERF.md kernel
-    ms (OPS_ANALYZE_FACTOR), every launch under a ``matrel.*`` range, and
-    the node's synced ms between that kernel's and PERF.md's device ms
-    of the query plus OPS_NODE_HOST_MS; the plan-as-run line beside
-    it."""
+    B4 node; the kernel's launch counter moved over the profiled calls;
+    its profiled device ms (a trace that saw the kernel; up to
+    OPS_PROFILE_TRIES, each retry logged) against its PERF.md kernel ms
+    (OPS_ANALYZE_FACTOR), every traced launch under a ``matrel.*``
+    range, and the node's synced ms between that kernel's and PERF.md's
+    device ms of the query plus OPS_NODE_HOST_MS; the plan-as-run line
+    beside it."""
     from matrel_tpu_torch import MatrelConfig, MatrelSession
     from matrel_tpu_torch.obs import analyze as analyze_mod
     meter = PeakMeter("ops_analyze", OPS_PEAK_LIMIT_GIB)
@@ -5852,7 +5878,7 @@ def ops_analyze(dev, qs: dict, tmp: str) -> dict:
         device=dev)
     f = OPS_ANALYZE_FACTOR
     rows = {}
-    for name, (build, _k) in qs.items():
+    for name, (build, kernel) in qs.items():
         e = build()
         text = sess.explain(e, analyze=True)
         if "== Analyzed physical plan" not in text:
@@ -5872,10 +5898,32 @@ def ops_analyze(dev, qs: dict, tmp: str) -> dict:
             runs.append((node[0][1], node[0][0], per_op, total_s))
         runs.sort(key=lambda r: r[0])
         node_s, label, per_op, total_s = runs[len(runs) // 2]
-        prof = ops_profiled(lambda: analyze_mod.measure_per_op(plan))
-        launched, nested, kern_us, unlinked = ops_nested(
-            prof, OPS_KERNEL_SYMBOL[name])
-        if launched < 1 or nested != launched:
+        # the launch proof: the kernel's own counter over the profiled
+        # calls; the device time and the nesting: the trace, taken again
+        # (OPS_PROFILE_TRIES in all) only when CUPTI delivered no record
+        # of the kernel's symbol
+        symbol = OPS_KERNEL_SYMBOL[name]
+        for attempt in range(1, OPS_PROFILE_TRIES + 1):
+            c0 = ops_counts()
+            prof = ops_profiled(lambda: analyze_mod.measure_per_op(plan))
+            counted = ops_since(c0)[kernel]
+            if counted < 1:
+                raise AssertionError(f"ops (b) {name}: no {kernel} launch "
+                                     f"counted over the profiled calls")
+            launched, nested, kern_us, unlinked = ops_nested(prof, symbol)
+            if launched:
+                break
+            log(f"ops (b) {name}: trace {attempt} of {OPS_PROFILE_TRIES} "
+                f"holds no record of {symbol} ({counted} launches "
+                f"counted, {unlinked} records without their launch "
+                f"call)" + ("; tracing again" if attempt < OPS_PROFILE_TRIES
+                            else ""))
+        else:
+            raise AssertionError(f"ops (b) {name}: no trace of "
+                                 f"{OPS_PROFILE_TRIES} saw {symbol}, "
+                                 f"though {kernel} counted {counted} "
+                                 f"launches")
+        if nested != launched:
             raise AssertionError(f"ops (b) {name}: {nested} of {launched} "
                                  f"launches under a matrel.* range "
                                  f"({unlinked} without their launch call)")
@@ -5892,6 +5940,7 @@ def ops_analyze(dev, qs: dict, tmp: str) -> dict:
                 f"host), kernel {kern_ms:.4f} ms (PERF "
                 f"{OPS_KERNEL_MS[name]}, factor {f})")
         rows[name] = {"node": label, "node_ms": node_ms,
+                      "launches_counted": counted, "traces": attempt,
                       "launches_under_matrel_range": nested,
                       "profiled_kernel_ms": kern_ms,
                       "per_op_total_ms": sum(s for _, s in
@@ -7501,6 +7550,144 @@ def fleet_only() -> int:
     return 0
 
 
+# -- the randomized soak and the chaos drill on the card (path_soak) ----------
+
+#: path_soak's seed base and tolerance: the soak's own (tools/soak.py; each
+#: battery's tolerance from it by soak.tol_of).
+SOAK_BASE, SOAK_TOL = 10_000, 3e-3
+#: Trials a battery, the kernel batteries first; chosen so the phase stays
+#: within its share of the script's time (PERF.md §6, the soak table).
+SOAK_TRIALS = {"spmv": 60, "routed": 30, "sparse_kernels": 16,
+               "fuzz": 150, "deep": 25, "precision": 40, "fusion": 24,
+               "serve": 10, "cse": 4, "chaos": 8, "overload": 5,
+               "stream": 4, "fleet": 4, "race": 3, "coeffs": 8, "ckpt": 5,
+               "durable": 3, "sharded": 5}
+#: sharded's world on the card: four gloo ranks sharing it.
+SOAK_SHARDED_GRID = (2, 2)
+#: The phase's peak device memory over what was held when it started, the
+#: largest of three runs on the H100 (PERF.md §6, the soak table), plus
+#: 25%.
+SOAK_PEAK_LIMIT_GIB = {"soak": 1.25 * 0.378}
+#: The kernels path_soak must launch, each as the counters of which one
+#: must move: B1's wgmma and WMMA bodies, either f32 body, B2, B4-B7, B8
+#: (B3 is reported, launched only where a tree reaches it).
+SOAK_MUST_LAUNCH = (("b1_wgmma",), ("b1_wmma",), ("b1_f32", "b1_f32_narrow"),
+                    ("spmv_compact",), ("spgemm_pairs",), ("spgemm_grouped",),
+                    ("spgemm_band",), ("spgemm_powerlaw",), ("spmv_routed",))
+SOAK_DIR = os.path.join(HERE, "build", "chip_smoke", "soak")
+
+
+def soak_counts() -> dict:
+    """Every kernel's launch count: serve_counts' B1 (in all and by
+    body), B2 and B4-B7, with B3 and B8."""
+    from matrel_tpu_torch.ops import pallas_spmv as pc, spmv_routed
+    return dict(serve_counts(), spmm_compact=pc.LAUNCHES_SPMM,
+                spmv_routed=spmv_routed.LAUNCHES_ROUTED)
+
+
+def path_soak(dev) -> dict:
+    """The port's randomized oracle soak on the card
+    (matrel_tpu_torch/tools/soak.py at SOAK_BASE, SOAK_TRIALS a battery,
+    the kernel batteries first): one line a battery (trials, failures,
+    wall s, launches a kernel), zero failures; every kernel of
+    SOAK_MUST_LAUNCH launched during the phase (B1's wgmma, WMMA and f32
+    bodies counted apart); then the chaos drill on the card, its JSON
+    line printed and held to ``ok``. The durable battery's restoring
+    process and sharded's ranks count their launches in their own
+    processes, not here. Peak under SOAK_PEAK_LIMIT_GIB, each battery's
+    own peak printed (the garbage of the one before collected first)."""
+    import gc
+    import shutil
+    import torch
+    from matrel_tpu_torch.tools import chaos_drill, soak
+    t_start = time.perf_counter()
+    meter = PeakMeter("soak", SOAK_PEAK_LIMIT_GIB)
+    c_start = soak_counts()
+    rows, failed = {}, []
+    for name, trials in SOAK_TRIALS.items():
+        gc.collect()      # twice: finalizers of the first pass free the rest
+        gc.collect()
+        meter._read()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = soak_counts()
+        t0 = time.perf_counter()
+        if name == "sharded":
+            fails = soak.soak_sharded(trials, SOAK_BASE,
+                                      soak.tol_of(name, SOAK_TOL), dev,
+                                      grid=SOAK_SHARDED_GRID)
+        else:
+            fails, _ = soak.run_battery(name, trials, SOAK_BASE, SOAK_TOL,
+                                        dev)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - meter.base) / 2**30
+        launched = {k: v - c0[k] for k, v in soak_counts().items()
+                    if v > c0[k]}
+        rows[name] = {"trials": trials, "failures": len(fails),
+                      "wall_s": wall, "launches": launched,
+                      "peak_gib": peak,
+                      "fail_heads": [str(f) for f in fails[:5]]}
+        log(f"soak {name}: {trials} trials, {len(fails)} failures, "
+            f"{wall:.1f} s, launches {launched}, peak {peak:.3f} GiB")
+        for f in fails[:5]:
+            log(f"  FAIL {f}")
+        if fails:
+            failed.append(name)
+    total = {k: v - c_start[k] for k, v in soak_counts().items()}
+    print(json.dumps({"soak": rows}, default=str))
+    if failed:
+        raise AssertionError(f"soak: failures in {failed}")
+    missing = [k for k in SOAK_MUST_LAUNCH if sum(total[c] for c in k) < 1]
+    if missing:
+        raise AssertionError(f"soak: no launch of {missing} ({total})")
+    shutil.rmtree(SOAK_DIR, ignore_errors=True)
+    os.makedirs(SOAK_DIR)
+    prior = os.environ.get("MATREL_OBS_EVENT_LOG")
+    os.environ["MATREL_OBS_EVENT_LOG"] = os.path.join(SOAK_DIR,
+                                                      "chaos.jsonl")
+    c0 = soak_counts()
+    t0 = time.perf_counter()
+    try:
+        drill = chaos_drill.drill(dev)
+    finally:
+        if prior is None:
+            os.environ.pop("MATREL_OBS_EVENT_LOG")
+        else:
+            os.environ["MATREL_OBS_EVENT_LOG"] = prior
+        shutil.rmtree(SOAK_DIR, ignore_errors=True)
+    drill_s = time.perf_counter() - t0
+    print(json.dumps(drill))
+    if not drill["ok"]:
+        raise AssertionError("soak: the chaos drill failed on the card")
+    peak = meter.gib()
+    total = {k: v - c_start[k] for k, v in soak_counts().items()}
+    log(f"path soak: {time.perf_counter() - t_start:.1f} s (chaos drill "
+        f"{drill_s:.1f} s, launches "
+        f"{ {k: v - c0[k] for k, v in soak_counts().items() if v > c0[k]} }"
+        f"); launches {total}; peak {peak:.3f} GiB")
+    return {"launches": total, "rows": rows, "peak_gib": peak,
+            "spmm_bodies": {k[3:]: v for k, v in total.items()
+                            if k.startswith("b1_") and v}}
+
+
+def soak_only() -> int:
+    """``python3 chip_smoke.py --soak``: only path_soak (after building
+    the kernels), printing the card line and its launches."""
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
+                                      pallas_spmv, spmv_routed)
+    from matrel_tpu_torch.utils import cuda_build
+    card = device_line()
+    log(f"torch {torch.__version__}; {card}")
+    modules = (pallas_spmm, pallas_spmv, pallas_spgemm, spmv_routed)
+    cuda_build.build([cuda_build.CSRC_DIR / m.SOURCE for m in modules])
+    out = path_soak(MatrelSession().device)
+    print(card)
+    print(json.dumps({"soak_launches": out["launches"]}))
+    return 0
+
+
 # -- multi-rank execution over torch.distributed (path_multirank) --------------
 
 #: The rank grid: 4 ranks, 2 × 2 (the square grid SUMMA needs).
@@ -9011,6 +9198,8 @@ def main() -> int:
         return durable_only()
     if sys.argv[1:] == ["--fleet"]:
         return fleet_only()
+    if sys.argv[1:] == ["--soak"]:
+        return soak_only()
     from matrel_tpu_torch import MatrelSession
     from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
                                       pallas_spmv, spmv_routed)
@@ -9111,6 +9300,9 @@ def main() -> int:
     fleet = path_fleet(sess)          # each sub-phase its bound
     l_fl = fleet["launches"]
     torch.cuda.empty_cache()
+    soaked = path_soak(dev)           # its own bound
+    l_sk = soaked["launches"]
+    torch.cuda.empty_cache()
     spgemm_library(sess.mesh, b47)    # cuSPARSE SpGEMM beside B4-B7
     torch.cuda.empty_cache()
     l_mr = path_multirank(sess, ns["fro"])["launches"]   # four ranks
@@ -9122,7 +9314,7 @@ def main() -> int:
     for part in (l_batch["spmm_bodies"], coo["bsp"]["bodies"],
                  fused["spmm_bodies"], served["spmm_bodies"],
                  ops["spmm_bodies"], durable["spmm_bodies"],
-                 fleet["spmm_bodies"],
+                 fleet["spmm_bodies"], soaked["spmm_bodies"],
                  {"wgmma": l_mr["spmm_blocksparse"]}):
         for b, v in part.items():
             b1_bodies[b] = b1_bodies.get(b, 0) + v
@@ -9136,10 +9328,12 @@ def main() -> int:
                           + l_ops["spmm_blocksparse"]
                           + l_du["spmm_blocksparse"]
                           + l_fl["spmm_blocksparse"]
+                          + l_sk["spmm_blocksparse"]
                           + l_mr["spmm_blocksparse"], row),
              launches_by_body=b1_bodies, f32_one_column=coo["b1_f32_m1"],
              f32_row4=row4_f32,
-             launches_on_ranks=l_mr["spmm_blocksparse"]),
+             launches_on_ranks=l_mr["spmm_blocksparse"],
+             launches_in_soak=l_sk["spmm_blocksparse"]),
         dict(kernel_entry("spmv_compact", pallas_spmv.SOURCE,
                           "matrel_tpu/ops/pallas_spmv.py:50",
                           launches_pr + l_spmv + l_batch["spmv_compact"]
@@ -9147,25 +9341,30 @@ def main() -> int:
                           + l_at["spmv_compact"] + l_fu["spmv_compact"]
                           + l_sv["spmv_compact"] + l_ops["spmv_compact"]
                           + l_du["spmv_compact"] + l_fl["spmv_compact"]
-                          + l_mr["spmv_compact"],
+                          + l_sk["spmv_compact"] + l_mr["spmv_compact"],
                           b23["spmv_compact"]),
-             launches_on_ranks=l_mr["spmv_compact"]),
+             launches_on_ranks=l_mr["spmv_compact"],
+             launches_in_soak=l_sk["spmv_compact"]),
         dict(kernel_entry("spmm_compact", pallas_spmv.SOURCE,
                           "matrel_tpu/ops/pallas_spmv.py:334",
                           l_spmm + l_at["spmm_compact"]
-                          + l_mr["spmm_compact"], b23["spmm_compact"]),
-             launches_on_ranks=l_mr["spmm_compact"]),
-    ] + [kernel_entry(name, pallas_spgemm.SOURCE, SPGEMM_REPLACES[name],
-                      l_spgemm[name] + l_rel[name] + l_at[name]
-                      + l_fu[name] + l_sv[name] + l_ops.get(name, 0)
-                      + l_du.get(name, 0) + l_fl.get(name, 0),
-                      b47[name])
+                          + l_sk["spmm_compact"] + l_mr["spmm_compact"],
+                          b23["spmm_compact"]),
+             launches_on_ranks=l_mr["spmm_compact"],
+             launches_in_soak=l_sk["spmm_compact"]),
+    ] + [dict(kernel_entry(name, pallas_spgemm.SOURCE, SPGEMM_REPLACES[name],
+                           l_spgemm[name] + l_rel[name] + l_at[name]
+                           + l_fu[name] + l_sv[name] + l_ops.get(name, 0)
+                           + l_du.get(name, 0) + l_fl.get(name, 0)
+                           + l_sk[name], b47[name]),
+              launches_in_soak=l_sk[name])
          for name in SPGEMM_REPLACES]
     kernels.append(dict(
         kernel_entry("spmv_routed", spmv_routed.SOURCE,
-                     "matrel_tpu/ops/spmv_routed.py:232", l_routed + l_cg,
-                     b8[3]),
-        also_replaces="matrel_tpu/ops/spmv_routed.py:261"))
+                     "matrel_tpu/ops/spmv_routed.py:232",
+                     l_routed + l_cg + l_sk["spmv_routed"], b8[3]),
+        also_replaces="matrel_tpu/ops/spmv_routed.py:261",
+        launches_in_soak=l_sk["spmv_routed"]))
     if sum(b1_bodies.values()) != kernels[0]["launches"]:
         raise AssertionError(f"B1 launches by body {b1_bodies} do not add "
                              f"up to its {kernels[0]['launches']} launches")

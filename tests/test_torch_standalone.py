@@ -32,6 +32,9 @@ ported.
   ``restore``, ``save_catalog`` / ``load_catalog``, ``run_resilient``)
   and the static verifier (``verify_plans``, ``session.verify``) run on
   the CPU with the JAX package blocked.
+- The randomized soak, the chaos drill and the race drill
+  (``matrel_tpu_torch/tools/``) run on the CPU with the JAX package
+  blocked.
 - Node kinds outside ``LOWERED_KINDS`` and the knobs of unported planes
   (the fleet, the JAX-only execution knobs) raise ``NotPortedError``.
 """
@@ -689,6 +692,38 @@ def test_rank_processes_without_jax(tmp_path):
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err
         assert "rank ok" in out
+
+
+def test_soak_and_drills_without_jax(tmp_path):
+    """The soak (a fuzz, spmv, routed, sparse-kernel and precision
+    battery), the chaos drill and the race drill of ``tools/`` run on the
+    CPU with the JAX package blocked, and find nothing."""
+    code = textwrap.dedent("""
+        import os, sys
+        for name in ("jax", "jaxlib", "matrel_tpu"):
+            sys.modules[name] = None          # import raises ImportError
+        os.environ["MATREL_OBS_EVENT_LOG"] = sys.argv[1] + "/events.jsonl"
+        os.environ["MATREL_SOAKLOG_PATH"] = sys.argv[1] + "/soak.jsonl"
+        os.environ["MATREL_RACE_SEEDS"] = "1"
+        from matrel_tpu_torch.tools import chaos_drill, race_drill, soak
+        for battery in ("fuzz", "spmv", "routed", "sparse_kernels",
+                        "precision"):
+            assert soak.main([battery, "--seeds", "2",
+                              "--device", "cpu"]) == 0, battery
+        assert chaos_drill.main(["--device", "cpu"]) == 0
+        assert race_drill.main(["--device", "cpu"]) == 0
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "matrel_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("standalone tools ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=str(REPO), env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone tools ok" in proc.stdout
 
 
 def test_default_device_needs_a_card(monkeypatch):
