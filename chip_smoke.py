@@ -290,7 +290,23 @@
    during the phase (B1's wgmma, WMMA and f32 bodies apart); then the
    chaos drill (tools/chaos_drill.py) on the card, its JSON line
    printed and held to ok.
-14. spgemm_library: torch.sparse.mm of each S×S pair's element-CSR
+14. path_tools (the operator drills and the open-loop traffic harness,
+   matrel_tpu_torch/tools/, each through its main on the card, under its
+   own bound TOOLS_PEAK_LIMIT_GIB; artifacts under build/chip_smoke/tools/,
+   removed at the end): plan_snapshot (the ten-case corpus planned on the
+   virtual (2, 4) grid, every signature equal to
+   tests/plan_snapshots.json), plan_verify (0 diagnostics), topology_flip
+   (rmm flips to bmm_right under the (1, 8) axis weights, MV106, the
+   weighted multiply against numpy), flight_drill (run_many, submit, a
+   compile failure dumped by the flight recorder, the chrome export, the
+   drift table), provenance_drill (every provenance path, the audit
+   replay, MV115), traffic in its three modes (the overload run against
+   the closed-loop capacity C measured on the card, --slo with the
+   loopback metrics endpoint polled, --slices with a mid-stream
+   kill_slice) and multihost_check over two gloo ranks sharing the card;
+   each record printed, each held to ok / exit code 0; launches a kernel
+   counted over the phase (launches_in_tools in the kernels line).
+15. spgemm_library: torch.sparse.mm of each S×S pair's element-CSR
    forms in f32 (cuSPARSE SpGEMM) at n = 100,352, by CUDA events, as the
    library column of B4–B7 (xla_gather kept beside it); where cuSPARSE
    cannot hold its workspace, the failure and the operand sizes. Then
@@ -363,6 +379,10 @@ runs only path_fleet (after the build).
     python3 chip_smoke.py --soak
 
 runs only path_soak (after the build).
+
+    python3 chip_smoke.py --tools
+
+runs only path_tools (after the build).
 
     python3 chip_smoke.py --multirank
 
@@ -7688,6 +7708,135 @@ def soak_only() -> int:
     return 0
 
 
+# -- the operator drills and the open-loop traffic harness (path_tools) -------
+
+#: The phase's peak device memory over what was held when it started, the
+#: largest of three runs on the H100 (PERF.md §6, PR 23), plus 25%: the
+#: traffic harness holds every answer on the card until it checks it.
+TOOLS_PEAK_LIMIT_GIB = {"tools": 1.25 * 0.388}
+#: multihost_check's world: gloo ranks sharing the card.
+TOOLS_MH_NPROC = 2
+TOOLS_DIR = os.path.join(HERE, "build", "chip_smoke", "tools")
+
+
+def tools_runs(device: str) -> list:
+    """(name, callable) of every device-facing tool of
+    matrel_tpu_torch/tools/, each returning its exit code."""
+    from matrel_tpu_torch.tools import (flight_drill, multihost_check,
+                                        plan_snapshot, plan_verify,
+                                        provenance_drill, topology_flip,
+                                        traffic)
+    dev = ["--device", device]
+    return [
+        ("plan_snapshot", lambda: plan_snapshot.main(dev)),
+        ("plan_verify", lambda: plan_verify.main(dev)),
+        ("topology_flip", lambda: topology_flip.main(dev)),
+        ("flight_drill", lambda: flight_drill.main(dev)),
+        ("provenance_drill", lambda: provenance_drill.main(dev)),
+        ("traffic", lambda: traffic.main(slo=False, device=device)),
+        ("traffic --slo", lambda: traffic.main(slo=True, device=device)),
+        ("traffic --slices", lambda: traffic.main_slices(device)),
+        ("multihost_check", lambda: multihost_check.main(
+            ["--nproc", str(TOOLS_MH_NPROC)] + dev)),
+    ]
+
+
+def path_tools(dev) -> dict:
+    """The operator drills and the open-loop traffic harness of
+    matrel_tpu_torch/tools/ on the card, each through its ``main``:
+    plan_snapshot and plan_verify (the corpus on the virtual (2, 4) grid,
+    leaves on the card), topology_flip, flight_drill, provenance_drill,
+    traffic in its three modes (overload, --slo, --slices) and
+    multihost_check over TOOLS_MH_NPROC gloo ranks sharing the card. Each
+    tool's record or verdict is printed on its own line; the phase fails
+    unless every exit code is 0 and every record's ``ok`` is true. The
+    artifacts (event log, flight dump, drift table) go under TOOLS_DIR,
+    removed at the end. Launches of every kernel are counted over the
+    phase (the multihost ranks count theirs in their own processes);
+    peak under TOOLS_PEAK_LIMIT_GIB, each tool's own peak printed."""
+    import gc
+    import io
+    import shutil
+    import torch
+    t_start = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    env = {"MATREL_OBS_EVENT_LOG": os.path.join(TOOLS_DIR, "events.jsonl"),
+           "MATREL_OBS_FLIGHT_RECORDER_PATH": os.path.join(TOOLS_DIR,
+                                                           "flight.json"),
+           "MATREL_DRIFT_TABLE_PATH": os.path.join(TOOLS_DIR, "drift.json")}
+    prior = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    meter = PeakMeter("tools", TOOLS_PEAK_LIMIT_GIB)
+    c_start = soak_counts()
+    rows, failed = {}, []
+    try:
+        for name, fn in tools_runs(str(dev)):
+            gc.collect()
+            gc.collect()
+            meter._read()
+            torch.cuda.reset_peak_memory_stats()
+            c0 = soak_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = fn()
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - meter.base) / 2**30
+            launched = {k: v - c0[k] for k, v in soak_counts().items()
+                        if v > c0[k]}
+            record = None
+            for line in buf.getvalue().splitlines():
+                if line.startswith("{"):
+                    print(line, flush=True)       # the tool's record
+                    record = json.loads(line)
+                else:
+                    log(f"  {name}: {line}")      # its verdict lines
+            ok = rc == 0 and (record is None or bool(record.get("ok")))
+            rows[name] = {"rc": rc, "ok": ok, "wall_s": wall,
+                          "launches": launched, "peak_gib": peak}
+            log(f"tools {name}: rc {rc}, ok {ok}, {wall:.1f} s, launches "
+                f"{launched}, peak {peak:.3f} GiB")
+            if not ok:
+                failed.append(name)
+    finally:
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    print(json.dumps({"tools": rows}, default=str))
+    if failed:
+        raise AssertionError(f"tools: {failed} failed on the card")
+    peak = meter.gib()
+    total = {k: v - c_start[k] for k, v in soak_counts().items()}
+    log(f"path tools: {time.perf_counter() - t_start:.1f} s; launches "
+        f"{ {k: v for k, v in total.items() if v} }; peak {peak:.3f} GiB")
+    return {"launches": total, "rows": rows, "peak_gib": peak,
+            "spmm_bodies": {k[3:]: v for k, v in total.items()
+                            if k.startswith("b1_") and v}}
+
+
+def tools_only() -> int:
+    """``python3 chip_smoke.py --tools``: only path_tools (after building
+    the kernels), printing the card line and its launches."""
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
+                                      pallas_spmv, spmv_routed)
+    from matrel_tpu_torch.utils import cuda_build
+    card = device_line()
+    log(f"torch {torch.__version__}; {card}")
+    modules = (pallas_spmm, pallas_spmv, pallas_spgemm, spmv_routed)
+    cuda_build.build([cuda_build.CSRC_DIR / m.SOURCE for m in modules])
+    out = path_tools(MatrelSession().device)
+    print(card)
+    print(json.dumps({"tools_launches": out["launches"]}))
+    return 0
+
+
 # -- multi-rank execution over torch.distributed (path_multirank) --------------
 
 #: The rank grid: 4 ranks, 2 × 2 (the square grid SUMMA needs).
@@ -9200,6 +9349,8 @@ def main() -> int:
         return fleet_only()
     if sys.argv[1:] == ["--soak"]:
         return soak_only()
+    if sys.argv[1:] == ["--tools"]:
+        return tools_only()
     from matrel_tpu_torch import MatrelSession
     from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
                                       pallas_spmv, spmv_routed)
@@ -9303,6 +9454,9 @@ def main() -> int:
     soaked = path_soak(dev)           # its own bound
     l_sk = soaked["launches"]
     torch.cuda.empty_cache()
+    tooled = path_tools(dev)          # its own bound
+    l_tl = tooled["launches"]
+    torch.cuda.empty_cache()
     spgemm_library(sess.mesh, b47)    # cuSPARSE SpGEMM beside B4-B7
     torch.cuda.empty_cache()
     l_mr = path_multirank(sess, ns["fro"])["launches"]   # four ranks
@@ -9315,6 +9469,7 @@ def main() -> int:
                  fused["spmm_bodies"], served["spmm_bodies"],
                  ops["spmm_bodies"], durable["spmm_bodies"],
                  fleet["spmm_bodies"], soaked["spmm_bodies"],
+                 tooled["spmm_bodies"],
                  {"wgmma": l_mr["spmm_blocksparse"]}):
         for b, v in part.items():
             b1_bodies[b] = b1_bodies.get(b, 0) + v
@@ -9329,11 +9484,13 @@ def main() -> int:
                           + l_du["spmm_blocksparse"]
                           + l_fl["spmm_blocksparse"]
                           + l_sk["spmm_blocksparse"]
+                          + l_tl["spmm_blocksparse"]
                           + l_mr["spmm_blocksparse"], row),
              launches_by_body=b1_bodies, f32_one_column=coo["b1_f32_m1"],
              f32_row4=row4_f32,
              launches_on_ranks=l_mr["spmm_blocksparse"],
-             launches_in_soak=l_sk["spmm_blocksparse"]),
+             launches_in_soak=l_sk["spmm_blocksparse"],
+             launches_in_tools=l_tl["spmm_blocksparse"]),
         dict(kernel_entry("spmv_compact", pallas_spmv.SOURCE,
                           "matrel_tpu/ops/pallas_spmv.py:50",
                           launches_pr + l_spmv + l_batch["spmv_compact"]
@@ -9341,30 +9498,36 @@ def main() -> int:
                           + l_at["spmv_compact"] + l_fu["spmv_compact"]
                           + l_sv["spmv_compact"] + l_ops["spmv_compact"]
                           + l_du["spmv_compact"] + l_fl["spmv_compact"]
-                          + l_sk["spmv_compact"] + l_mr["spmv_compact"],
+                          + l_sk["spmv_compact"] + l_tl["spmv_compact"]
+                          + l_mr["spmv_compact"],
                           b23["spmv_compact"]),
              launches_on_ranks=l_mr["spmv_compact"],
-             launches_in_soak=l_sk["spmv_compact"]),
+             launches_in_soak=l_sk["spmv_compact"],
+             launches_in_tools=l_tl["spmv_compact"]),
         dict(kernel_entry("spmm_compact", pallas_spmv.SOURCE,
                           "matrel_tpu/ops/pallas_spmv.py:334",
                           l_spmm + l_at["spmm_compact"]
-                          + l_sk["spmm_compact"] + l_mr["spmm_compact"],
+                          + l_sk["spmm_compact"] + l_tl["spmm_compact"]
+                          + l_mr["spmm_compact"],
                           b23["spmm_compact"]),
              launches_on_ranks=l_mr["spmm_compact"],
-             launches_in_soak=l_sk["spmm_compact"]),
+             launches_in_soak=l_sk["spmm_compact"],
+             launches_in_tools=l_tl["spmm_compact"]),
     ] + [dict(kernel_entry(name, pallas_spgemm.SOURCE, SPGEMM_REPLACES[name],
                            l_spgemm[name] + l_rel[name] + l_at[name]
                            + l_fu[name] + l_sv[name] + l_ops.get(name, 0)
                            + l_du.get(name, 0) + l_fl.get(name, 0)
-                           + l_sk[name], b47[name]),
-              launches_in_soak=l_sk[name])
+                           + l_sk[name] + l_tl[name], b47[name]),
+              launches_in_soak=l_sk[name], launches_in_tools=l_tl[name])
          for name in SPGEMM_REPLACES]
     kernels.append(dict(
         kernel_entry("spmv_routed", spmv_routed.SOURCE,
                      "matrel_tpu/ops/spmv_routed.py:232",
-                     l_routed + l_cg + l_sk["spmv_routed"], b8[3]),
+                     l_routed + l_cg + l_sk["spmv_routed"]
+                     + l_tl["spmv_routed"], b8[3]),
         also_replaces="matrel_tpu/ops/spmv_routed.py:261",
-        launches_in_soak=l_sk["spmv_routed"]))
+        launches_in_soak=l_sk["spmv_routed"],
+        launches_in_tools=l_tl["spmv_routed"]))
     if sum(b1_bodies.values()) != kernels[0]["launches"]:
         raise AssertionError(f"B1 launches by body {b1_bodies} do not add "
                              f"up to its {kernels[0]['launches']} launches")

@@ -109,11 +109,11 @@ class BridgeServer(socketserver.ThreadingTCPServer):
                 if params.get("store"):
                     self.session.register(params["store"], out)
                     return {"stored": params["store"], "shape": list(out.shape)}
-                return {"data": out.to_numpy().tolist(),
+                return {"data": out.to_numpy().tolist(),  # lockcheck: disable=LK102 bridge.server IS the RPC serializer: the session is not thread-safe, so each RPC (including result materialization) runs under it by design; no other thread ever waits on this lock for latency
                         "shape": list(out.shape)}
             if method == "fetch":
                 m = self.session.table(params["name"])
-                return {"data": m.to_numpy().tolist(),
+                return {"data": m.to_numpy().tolist(),  # lockcheck: disable=LK102 same RPC-serializer design as "sql" above: fetch materializes under bridge.server deliberately
                         "shape": list(m.shape)}
             if method == "explain":
                 return {"plan": self.session.explain(

@@ -278,17 +278,22 @@ class SpillManager:
             te = self._host.pop(key, None)
             if te is not None:
                 self._host_bytes = max(self._host_bytes - te.nbytes, 0)
-                return self._thaw(key, te, src_tier="host")
-            te = self._disk.pop(key, None)
-            if te is not None:
+                src = "host"
+            else:
+                te = self._disk.pop(key, None)
+                if te is None:
+                    return None
                 self._disk_bytes = max(self._disk_bytes - te.nbytes, 0)
-                return self._thaw(key, te, src_tier="disk")
-        return None
+                src = "disk"
+        # the entry has left its tier, so it is this caller's alone: the
+        # read and the h2d leg (a device sync) run outside the lock
+        return self._thaw(key, te, src_tier=src)
 
     def _thaw(self, key: str, te: TierEntry, src_tier: str):
         """TierEntry → CacheEntry: read (disk) + h2d, stamped with the
         priced legs so MV117 can re-check the move against the plan
-        vocabulary."""
+        vocabulary. Called without the lock on an entry already taken
+        out of its tier; the counters it bumps take the lock."""
         from matrel_tpu_torch.serve.result_cache import CacheEntry
         legs = []
         arr = te.array
@@ -300,7 +305,8 @@ class SpillManager:
                              "bytes": float(te.nbytes),
                              "ms": round(_now_ms() - t0, 4)})
             except SnapshotCorruption as e:
-                self.corrupt += 1
+                with self._lock:
+                    self.corrupt += 1
                 _log.warning("spill: %s — treating as a cache miss "
                              "(the query recomputes)", e)
                 return None
@@ -319,7 +325,8 @@ class SpillManager:
             delta_rule=te.meta.get("delta_rule"),
             ivm_id=te.ivm_id, fleet=te.fleet,
             provenance=te.provenance, hits=te.hits, spill=stamp)
-        self.promoted += 1
+        with self._lock:
+            self.promoted += 1
         self._emit("promote", te.meta, src_tier, legs,
                    est_ms=stamp["est_ms"], cost=stamp["cost"])
         return ent
@@ -384,13 +391,14 @@ class SpillManager:
                     return None
                 deps.append(m)
             te = self._restored.pop(name_key)
-            te = dataclasses.replace(
-                te, dep_ids=frozenset(id(m) for m in deps),
-                pins=tuple(deps))
-            ent = self._thaw(name_key, te, src_tier="restored")
-            if ent is not None:
+        te = dataclasses.replace(
+            te, dep_ids=frozenset(id(m) for m in deps),
+            pins=tuple(deps))
+        ent = self._thaw(name_key, te, src_tier="restored")
+        if ent is not None:
+            with self._lock:
                 self.thawed_restored += 1
-            return ent
+        return ent
 
     # -- invalidation cascades ---------------------------------------------
 

@@ -35,6 +35,10 @@ ported.
 - The randomized soak, the chaos drill and the race drill
   (``matrel_tpu_torch/tools/``) run on the CPU with the JAX package
   blocked.
+- The operator drills of ``tools/`` (plan_snapshot, plan_verify,
+  topology_flip, flight_drill, provenance_drill, the traffic harness's
+  pool and arrival schedule, lockcheck) run on the CPU with the JAX
+  package blocked.
 - Node kinds outside ``LOWERED_KINDS`` and the knobs of unported planes
   (the fleet, the JAX-only execution knobs) raise ``NotPortedError``.
 """
@@ -724,6 +728,50 @@ def test_soak_and_drills_without_jax(tmp_path):
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "standalone tools ok" in proc.stdout
+
+
+def test_operator_tools_without_jax(tmp_path):
+    """The operator drills run on the CPU with the JAX package blocked
+    and pass: the plan corpus against the committed snapshot, the
+    verifier, the topology flip, the flight-recorder and provenance
+    drills, the traffic pool's answers, and lockcheck over the port."""
+    code = textwrap.dedent("""
+        import os, sys
+        for name in ("jax", "jaxlib", "matrel_tpu"):
+            sys.modules[name] = None          # import raises ImportError
+        d = sys.argv[1]
+        os.environ["MATREL_OBS_EVENT_LOG"] = d + "/events.jsonl"
+        os.environ["MATREL_OBS_FLIGHT_RECORDER_PATH"] = d + "/flight.json"
+        os.environ["MATREL_DRIFT_TABLE_PATH"] = d + "/drift.json"
+        import numpy as np
+        from matrel_tpu_torch import MatrelSession
+        from matrel_tpu_torch.core.mesh import make_mesh
+        from matrel_tpu_torch.tools import (flight_drill, lockcheck,
+                                            plan_snapshot, plan_verify,
+                                            provenance_drill, topology_flip,
+                                            traffic)
+        cpu = ["--device", "cpu"]
+        for tool in (plan_snapshot, plan_verify, topology_flip,
+                     flight_drill, provenance_drill):
+            assert tool.main(cpu) == 0, tool.__name__
+        assert lockcheck.main([]) == 0
+        rng = np.random.default_rng(0)
+        assert traffic.arrival_schedule(rng, 100.0, 1.0, "bursty")
+        s = MatrelSession(mesh=make_mesh((2, 4), device="cpu"))
+        for name, e, want in traffic.build_pool(s, rng):
+            assert traffic.oracle_ok(s.run(e).to_numpy(), want), name
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "matrel_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("standalone operator tools ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=str(REPO), env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "standalone operator tools ok" in proc.stdout
 
 
 def test_default_device_needs_a_card(monkeypatch):
