@@ -303,9 +303,33 @@
    replay, MV115), traffic in its three modes (the overload run against
    the closed-loop capacity C measured on the card, --slo with the
    loopback metrics endpoint polled, --slices with a mid-stream
-   kill_slice) and multihost_check over two gloo ranks sharing the card;
-   each record printed, each held to ok / exit code 0; launches a kernel
-   counted over the phase (launches_in_tools in the kernels line).
+   kill_slice), multihost_check over two gloo ranks sharing the card, and
+   the port's matlint over matrel_tpu_torch/ and this script (static,
+   0 findings); each record printed, each held to ok / exit code 0;
+   launches a kernel counted over the phase (launches_in_tools in the
+   kernels line).
+14b. path_examples (the eight worked examples, matrel_tpu_torch/examples/,
+   each through its run on the card at the JAX demos' sizes, its lines
+   and wall seconds printed, each under its bound in
+   EXAMPLES_PEAK_LIMIT_GIB): graph_demo (degrees, two-hop mass, PageRank
+   over 50,000 nodes / 400,000 edges against a float64 power iteration,
+   B2 a round), linreg_demo (fit's relative error), chain_optimizer_demo
+   (the planned FLOP ratio 64, both plans' checksums), relational_sql_demo
+   (counts against numpy, SQL agrees, 419 nonzeros), analytics_demo
+   (triangles and cosine pairs equal their oracles), the layout demo's
+   stamps, autotune_demo (no measurement in the second session) and
+   distributed_sparse_demo on four gloo ranks sharing the card (every
+   error within the demo's bounds, B1 and B2 on every rank, the largest
+   rank's peak under EXAMPLE_RANK_PEAK_LIMIT_GIB; the ranks' launches
+   join the kernels line as launches_on_example_ranks). B1 and
+   B2 launches are asserted where the examples reach them.
+14c. path_overlap (tools/pagerank_overlap.py at the JAX tool's sizes: 1M
+   nodes, 10M edges; compact_apply against compact_apply_chunked at
+   k = 2, 4, 8, each bit-equal and k B2 launches a matvec, the marginal
+   ms by CUDA events around replays of CUDA graphs of the chained
+   products, so the host's dispatch is left out; the 10% stop rule's
+   verdict), its JSON record
+   printed, under OVERLAP_PEAK_LIMIT_GIB.
 15. spgemm_library: torch.sparse.mm of each S×S pair's element-CSR
    forms in f32 (cuSPARSE SpGEMM) at n = 100,352, by CUDA events, as the
    library column of B4–B7 (xla_gather kept beside it); where cuSPARSE
@@ -384,6 +408,10 @@ runs only path_soak (after the build).
 
 runs only path_tools (after the build).
 
+    python3 chip_smoke.py --examples
+
+runs only path_examples and path_overlap (after the build).
+
     python3 chip_smoke.py --multirank
 
 runs only path_multirank (after the build and the one-card 65k slab it
@@ -394,6 +422,7 @@ a rank.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import math
 import os
@@ -7722,10 +7751,10 @@ TOOLS_DIR = os.path.join(HERE, "build", "chip_smoke", "tools")
 def tools_runs(device: str) -> list:
     """(name, callable) of every device-facing tool of
     matrel_tpu_torch/tools/, each returning its exit code."""
-    from matrel_tpu_torch.tools import (flight_drill, multihost_check,
-                                        plan_snapshot, plan_verify,
-                                        provenance_drill, topology_flip,
-                                        traffic)
+    from matrel_tpu_torch.tools import (flight_drill, matlint,
+                                        multihost_check, plan_snapshot,
+                                        plan_verify, provenance_drill,
+                                        topology_flip, traffic)
     dev = ["--device", device]
     return [
         ("plan_snapshot", lambda: plan_snapshot.main(dev)),
@@ -7738,6 +7767,7 @@ def tools_runs(device: str) -> list:
         ("traffic --slices", lambda: traffic.main_slices(device)),
         ("multihost_check", lambda: multihost_check.main(
             ["--nproc", str(TOOLS_MH_NPROC)] + dev)),
+        ("matlint", lambda: matlint.main([])),
     ]
 
 
@@ -7834,6 +7864,206 @@ def tools_only() -> int:
     out = path_tools(MatrelSession().device)
     print(card)
     print(json.dumps({"tools_launches": out["launches"]}))
+    return 0
+
+
+# -- the worked examples (path_examples) and the overlap experiment -----------
+
+#: Each example's peak device memory over what was held when it started,
+#: and the overlap experiment's, on the H100 (PERF.md §6), plus
+#: 25%; an example's at least 1/16 GiB before the 25% (a few of them
+#: allocate under a MiB, and the caching allocator's blocks and a cuBLAS
+#: workspace are larger than that).
+EXAMPLES_PEAK_LIMIT_GIB = {k: 1.25 * max(v, 1 / 16) for k, v in {
+    "graph_demo": 0.172, "linreg_demo": 0.048, "chain_optimizer_demo": 0.066,
+    "relational_sql_demo": 0.001, "analytics_demo": 0.007,
+    "layout_aware_planning_demo": 0.013, "autotune_demo": 0.001}.items()}
+#: distributed_sparse_demo's device memory is all in its rank processes:
+#: the largest rank's own peak (torch.cuda.max_memory_allocated in the
+#: rank; 0.074 GiB on the H100, PERF.md §6), plus 25%.
+EXAMPLE_RANK_PEAK_LIMIT_GIB = 1.25 * 0.074
+OVERLAP_PEAK_LIMIT_GIB = {"overlap": 1.25 * 0.858}
+#: The examples B1 / B2 must launch in (distributed_sparse_demo: on
+#: every rank).
+EXAMPLES_MUST_LAUNCH = {"graph_demo": ("spmv_compact",)}
+
+
+def example_checks(name: str, out: dict) -> None:
+    """Each example's own checks on the card: its numbers against its
+    oracle, within the demo's bounds."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.examples import (distributed_sparse_demo,
+                                           graph_demo)
+    if name == "graph_demo":
+        n, m = graph_demo.N_NODES, graph_demo.N_EDGES
+        rng = np.random.default_rng(0)
+        src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+        want = pagerank_oracle(src, dst, n, graph_demo.ROUNDS)
+        rel_err(f"{name} PageRank vs float64",
+                torch.as_tensor(out["ranks"]), torch.as_tensor(want),
+                PR_REL_TOL)
+        if (out["deg_out"].sum(), out["deg_in"].sum()) != (m, m):
+            raise AssertionError(f"{name}: degrees do not sum to {m}")
+        if abs(out["rank_mass"] - 1.0) > 1e-3:
+            raise AssertionError(f"{name}: rank mass {out['rank_mass']}")
+    elif name == "linreg_demo":
+        if not out["rel_err"] < 1e-3:
+            raise AssertionError(f"{name}: relative error {out['rel_err']}")
+    elif name == "chain_optimizer_demo":
+        if out["flop_ratio"] != 64:
+            raise AssertionError(f"{name}: FLOP ratio {out['flop_ratio']}")
+        if abs(out["raw_checksum"] - out["opt_checksum"]) > 1e-3:
+            raise AssertionError(f"{name}: the plans disagree")
+    elif name == "relational_sql_demo":
+        rng = np.random.default_rng(1)
+        a, b = (rng.standard_normal((64, 64)).astype(np.float32)
+                for _ in range(2))
+        want = ((a * b) > 0).sum(1)
+        if not (np.array_equal(out["counts"].ravel(), want)
+                and out["sql_agrees"] and out["where_nonzeros"]
+                == int(((a * b) > 1).sum())):
+            raise AssertionError(f"{name}: counts / SQL / WHERE disagree")
+    elif name == "analytics_demo":
+        if not (out["triangles"] == out["triangles_oracle"]
+                == out["triangles_sql"]
+                and out["pairs"] == out["pairs_oracle"]):
+            raise AssertionError(f"{name}: {out}")
+    elif name == "layout_aware_planning_demo":
+        got = (out["canonical"], out["col_sharded"], out["interior"],
+               out["root"])
+        if got != ("A*(B*C)", "(A*B)*C", "bmm_right", "cpmm"):
+            raise AssertionError(f"{name}: stamps {got}")
+    elif name == "autotune_demo":
+        if out["second_measurements"] or out["first_measurements"] < 2:
+            raise AssertionError(f"{name}: {out['first_measurements']} / "
+                                 f"{out['second_measurements']} "
+                                 f"measurements")
+    elif name == "distributed_sparse_demo":
+        ex = distributed_sparse_demo
+        for k, tol in (("spmm_err", ex.SPMM_TOL), ("b1_err", ex.SPMM_TOL),
+                       ("spmv_err", ex.SPMV_TOL), ("b2_err", ex.SPMV_TOL)):
+            if not out[k] <= tol:
+                raise AssertionError(f"{name}: {k} {out[k]} > {tol}")
+        idle = [r for r, ln in enumerate(out["launches"])
+                if min(ln.values()) < 1]
+        if idle:
+            raise AssertionError(f"{name}: ranks {idle} launched no B1 or "
+                                 f"no B2 ({out['launches']})")
+
+
+def path_examples(dev) -> dict:
+    """The eight worked examples of matrel_tpu_torch/examples/ on the
+    card, each through its ``run`` at the JAX demo's sizes: its lines
+    printed, its own checks (example_checks), its wall seconds, launches
+    and peak (EXAMPLES_PEAK_LIMIT_GIB). distributed_sparse_demo spawns
+    four gloo ranks sharing the card under MR_TIMEOUT_S; their B1 / B2
+    launches and their peaks come back in its record, the largest peak
+    held under EXAMPLE_RANK_PEAK_LIMIT_GIB."""
+    import gc
+    import torch
+    from matrel_tpu_torch.examples import distributed_sparse_demo
+    from matrel_tpu_torch.tools.batch import EXAMPLES
+    t_start = time.perf_counter()
+    c_start = soak_counts()
+    rows, ranks = {}, {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"matrel_tpu_torch.examples.{name}")
+        gc.collect()
+        gc.collect()
+        meter = (None if mod is distributed_sparse_demo else
+                 PeakMeter(name, EXAMPLES_PEAK_LIMIT_GIB))
+        c0 = soak_counts()
+        kw = ({"nproc": 4, "timeout_s": MR_TIMEOUT_S}
+              if mod is distributed_sparse_demo else {})
+        t0 = time.perf_counter()
+        out = mod.run(dev, emit=lambda ln, name=name: log(f"  {name}: {ln}"),
+                      **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if meter is None:
+            peak = out["rank_peak_gib"]
+            if peak > EXAMPLE_RANK_PEAK_LIMIT_GIB:
+                raise AssertionError(
+                    f"{name}: a rank's peak device memory {peak:.3f} GiB > "
+                    f"{EXAMPLE_RANK_PEAK_LIMIT_GIB:.3f} GiB")
+        else:
+            peak = meter.gib()
+        example_checks(name, out)
+        launched = {k: v - c0[k] for k, v in soak_counts().items()
+                    if v > c0[k]}
+        for k in EXAMPLES_MUST_LAUNCH.get(name, ()):
+            if not launched.get(k):
+                raise AssertionError(f"{name}: no {k} launch ({launched})")
+        if mod is distributed_sparse_demo:
+            ranks = {"spmm_blocksparse": sum(
+                r["spmm_blocksparse"] for r in out["launches"]),
+                "spmv_compact": sum(r["spmv_compact"]
+                                    for r in out["launches"]),
+                "b1_bodies": out["b1_bodies"]}
+        rows[name] = {"wall_s": wall, "launches": launched,
+                      "peak_gib": peak}
+        log(f"example {name}: {wall:.2f} s, launches {launched}, peak "
+            f"{peak:.3f} GiB")
+    print(json.dumps({"examples": rows, "example_ranks": ranks},
+                     default=str))
+    total = {k: v - c_start[k] for k, v in soak_counts().items()}
+    log(f"path examples: {time.perf_counter() - t_start:.1f} s; launches "
+        f"{ {k: v for k, v in total.items() if v} }; on the ranks {ranks}")
+    return {"launches": total, "rows": rows, "ranks": ranks,
+            "spmm_bodies": {k[3:]: v for k, v in total.items()
+                            if k.startswith("b1_") and v}}
+
+
+def path_overlap(dev) -> dict:
+    """tools/pagerank_overlap.py at the JAX tool's sizes on the card:
+    the plan through the native fill, then ``experiment`` (every chunked
+    product bit-equal to compact_apply's, one B2 launch a stripe, the
+    marginal ms by CUDA events around CUDA-graph replays, the stop rule's
+    verdict); the record
+    printed with the card line, under OVERLAP_PEAK_LIMIT_GIB."""
+    from matrel_tpu_torch.ops import spmv as spmv_lib
+    from matrel_tpu_torch.tools import pagerank_overlap as overlap
+    t0 = time.perf_counter()
+    c0 = soak_counts()
+    meter = PeakMeter("overlap", OVERLAP_PEAK_LIMIT_GIB)
+    src, dst = overlap.graph(overlap.N_NODES, overlap.N_EDGES)
+    plan = spmv_lib.build_spmv_plan(dst, src, None, n_rows=overlap.N_NODES,
+                                    n_cols=overlap.N_NODES)
+    t_plan = time.perf_counter() - t0
+    rec = overlap.experiment(plan, dev)
+    peak = meter.gib()
+    rec = {"metric": "pagerank_overlap_experiment", **rec,
+           "n": overlap.N_NODES, "edges": overlap.N_EDGES,
+           "fill": plan.fill, "device": device_line(), "peak_gib": peak}
+    print(json.dumps(rec))
+    total = {k: v - c0[k] for k, v in soak_counts().items()}
+    log(f"path overlap: {time.perf_counter() - t0:.1f} s (plan "
+        f"{t_plan:.1f} s), verdict {rec['verdict'].split()[0]}, launches "
+        f"{ {k: v for k, v in total.items() if v} }, peak {peak:.3f} GiB")
+    return {"launches": total, "record": rec}
+
+
+def examples_only() -> int:
+    """``python3 chip_smoke.py --examples``: only path_examples and
+    path_overlap (after building the kernels), printing the card line and
+    their launches."""
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
+                                      pallas_spmv, spmv_routed)
+    from matrel_tpu_torch.utils import cuda_build
+    card = device_line()
+    log(f"torch {torch.__version__}; {card}")
+    modules = (pallas_spmm, pallas_spmv, pallas_spgemm, spmv_routed)
+    cuda_build.build([cuda_build.CSRC_DIR / m.SOURCE for m in modules])
+    dev = MatrelSession().device
+    ex = path_examples(dev)
+    ov = path_overlap(dev)
+    print(card)
+    print(json.dumps({"examples_launches": ex["launches"],
+                      "example_ranks": ex["ranks"],
+                      "overlap_launches": ov["launches"]}))
     return 0
 
 
@@ -9351,6 +9581,8 @@ def main() -> int:
         return soak_only()
     if sys.argv[1:] == ["--tools"]:
         return tools_only()
+    if sys.argv[1:] == ["--examples"]:
+        return examples_only()
     from matrel_tpu_torch import MatrelSession
     from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
                                       pallas_spmv, spmv_routed)
@@ -9457,6 +9689,11 @@ def main() -> int:
     tooled = path_tools(dev)          # its own bound
     l_tl = tooled["launches"]
     torch.cuda.empty_cache()
+    exampled = path_examples(dev)     # each example its bound
+    l_ex, l_exr = exampled["launches"], exampled["ranks"]
+    torch.cuda.empty_cache()
+    l_ov = path_overlap(dev)["launches"]    # its own bound
+    torch.cuda.empty_cache()
     spgemm_library(sess.mesh, b47)    # cuSPARSE SpGEMM beside B4-B7
     torch.cuda.empty_cache()
     l_mr = path_multirank(sess, ns["fro"])["launches"]   # four ranks
@@ -9469,7 +9706,8 @@ def main() -> int:
                  fused["spmm_bodies"], served["spmm_bodies"],
                  ops["spmm_bodies"], durable["spmm_bodies"],
                  fleet["spmm_bodies"], soaked["spmm_bodies"],
-                 tooled["spmm_bodies"],
+                 tooled["spmm_bodies"], exampled["spmm_bodies"],
+                 l_exr["b1_bodies"],
                  {"wgmma": l_mr["spmm_blocksparse"]}):
         for b, v in part.items():
             b1_bodies[b] = b1_bodies.get(b, 0) + v
@@ -9485,12 +9723,18 @@ def main() -> int:
                           + l_fl["spmm_blocksparse"]
                           + l_sk["spmm_blocksparse"]
                           + l_tl["spmm_blocksparse"]
+                          + l_ex["spmm_blocksparse"]
+                          + l_exr["spmm_blocksparse"]
+                          + l_ov["spmm_blocksparse"]
                           + l_mr["spmm_blocksparse"], row),
              launches_by_body=b1_bodies, f32_one_column=coo["b1_f32_m1"],
              f32_row4=row4_f32,
              launches_on_ranks=l_mr["spmm_blocksparse"],
              launches_in_soak=l_sk["spmm_blocksparse"],
-             launches_in_tools=l_tl["spmm_blocksparse"]),
+             launches_in_tools=l_tl["spmm_blocksparse"],
+             launches_in_examples=l_ex["spmm_blocksparse"],
+             launches_on_example_ranks=l_exr["spmm_blocksparse"],
+             launches_in_overlap=l_ov["spmm_blocksparse"]),
         dict(kernel_entry("spmv_compact", pallas_spmv.SOURCE,
                           "matrel_tpu/ops/pallas_spmv.py:50",
                           launches_pr + l_spmv + l_batch["spmv_compact"]
@@ -9499,35 +9743,45 @@ def main() -> int:
                           + l_sv["spmv_compact"] + l_ops["spmv_compact"]
                           + l_du["spmv_compact"] + l_fl["spmv_compact"]
                           + l_sk["spmv_compact"] + l_tl["spmv_compact"]
-                          + l_mr["spmv_compact"],
+                          + l_ex["spmv_compact"] + l_exr["spmv_compact"]
+                          + l_ov["spmv_compact"] + l_mr["spmv_compact"],
                           b23["spmv_compact"]),
              launches_on_ranks=l_mr["spmv_compact"],
              launches_in_soak=l_sk["spmv_compact"],
-             launches_in_tools=l_tl["spmv_compact"]),
+             launches_in_tools=l_tl["spmv_compact"],
+             launches_in_examples=l_ex["spmv_compact"],
+             launches_on_example_ranks=l_exr["spmv_compact"],
+             launches_in_overlap=l_ov["spmv_compact"]),
         dict(kernel_entry("spmm_compact", pallas_spmv.SOURCE,
                           "matrel_tpu/ops/pallas_spmv.py:334",
                           l_spmm + l_at["spmm_compact"]
                           + l_sk["spmm_compact"] + l_tl["spmm_compact"]
+                          + l_ex["spmm_compact"] + l_ov["spmm_compact"]
                           + l_mr["spmm_compact"],
                           b23["spmm_compact"]),
              launches_on_ranks=l_mr["spmm_compact"],
              launches_in_soak=l_sk["spmm_compact"],
-             launches_in_tools=l_tl["spmm_compact"]),
+             launches_in_tools=l_tl["spmm_compact"],
+             launches_in_examples=l_ex["spmm_compact"]),
     ] + [dict(kernel_entry(name, pallas_spgemm.SOURCE, SPGEMM_REPLACES[name],
                            l_spgemm[name] + l_rel[name] + l_at[name]
                            + l_fu[name] + l_sv[name] + l_ops.get(name, 0)
                            + l_du.get(name, 0) + l_fl.get(name, 0)
-                           + l_sk[name] + l_tl[name], b47[name]),
-              launches_in_soak=l_sk[name], launches_in_tools=l_tl[name])
+                           + l_sk[name] + l_tl[name] + l_ex[name]
+                           + l_ov[name], b47[name]),
+              launches_in_soak=l_sk[name], launches_in_tools=l_tl[name],
+              launches_in_examples=l_ex[name])
          for name in SPGEMM_REPLACES]
     kernels.append(dict(
         kernel_entry("spmv_routed", spmv_routed.SOURCE,
                      "matrel_tpu/ops/spmv_routed.py:232",
                      l_routed + l_cg + l_sk["spmv_routed"]
-                     + l_tl["spmv_routed"], b8[3]),
+                     + l_tl["spmv_routed"] + l_ex["spmv_routed"]
+                     + l_ov["spmv_routed"], b8[3]),
         also_replaces="matrel_tpu/ops/spmv_routed.py:261",
         launches_in_soak=l_sk["spmv_routed"],
-        launches_in_tools=l_tl["spmv_routed"]))
+        launches_in_tools=l_tl["spmv_routed"],
+        launches_in_examples=l_ex["spmv_routed"]))
     if sum(b1_bodies.values()) != kernels[0]["launches"]:
         raise AssertionError(f"B1 launches by body {b1_bodies} do not add "
                              f"up to its {kernels[0]['launches']} launches")

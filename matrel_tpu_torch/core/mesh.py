@@ -110,9 +110,9 @@ class RankGroups:
         self._parent = parent.root if parent is not None else None
         self.control = None
         if parent is None:
-            self._exec_lock = threading.RLock()
+            self._exec_lock = threading.RLock()  # matlint: disable=ML017 the rank mesh's execution lock, built with the mesh before any session can arm lockdep
             self._holder: Optional[int] = None
-            self._workers_lock = threading.Lock()
+            self._workers_lock = threading.Lock()  # matlint: disable=ML017 the rank mesh's worker registry lock, built with the mesh before any session can arm lockdep
             self._workers: list = []
 
     @property
@@ -305,7 +305,7 @@ def shutdown_distributed() -> None:
     import gc
     import torch.distributed as dist
     if dist.is_initialized():
-        dist.barrier()
+        dist.barrier()  # matlint: disable=ML003 teardown barrier of shutdown_distributed — no data moves, nothing to tally
         dist.destroy_process_group()
     # let the groups still referenced (the topology memo keys on meshes;
     # sessions and their serve workers form cycles) go now: destroyed in

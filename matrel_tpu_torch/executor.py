@@ -283,7 +283,7 @@ def _device_sync(mesh: Mesh) -> None:
     """Wait for the mesh's device (analyze mode only; nothing on the
     CPU, whose ops are synchronous)."""
     if mesh.device.type == "cuda":
-        torch.cuda.synchronize(mesh.device)
+        torch.cuda.synchronize(mesh.device)  # matlint: disable=ML001 analyze-mode op_hook only (Lowerer.op_hook set), never a served query
 
 
 def _pad_to(out: Tensor, pshape: Tuple[int, int]) -> Tensor:
@@ -421,12 +421,12 @@ class Lowerer:
         if hook is not None:
             child_time.append(0.0)
             _device_sync(self.mesh)
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # matlint: disable=ML006 analyze-mode op_hook measurement — lands in analyze events
         with annotate(f"matrel.{label}"):
             out = self._eval_node(node, region, ev, leaf_arrays, leaf_pos)
         if hook is not None:
             _device_sync(self.mesh)
-            dt = time.perf_counter() - t0
+            dt = time.perf_counter() - t0  # matlint: disable=ML006 analyze-mode op_hook measurement
             spent_in_children = child_time.pop()
             if child_time:
                 child_time[-1] += dt

@@ -324,7 +324,7 @@ def _apply_block_sparse(old, delta: MatrixDelta):
         np.add.at(payload, (dpos.ravel(), rows % bs, cols % bs), vals)
         at = torch.as_tensor(np.searchsorted(keys, dtiles), device=dev)
         blocks[at] += tensor_from_numpy(payload, torch.float32, dev)
-    keep = (blocks != 0).flatten(1).any(dim=1).cpu().numpy()
+    keep = (blocks != 0).flatten(1).any(dim=1).cpu().numpy()  # matlint: disable=ML001 a delta patch's new tile set — once per registered delta, not per query
     if not keep.any():
         keep[0] = True                 # one zero tile, as from_numpy
         blocks[0].zero_()
@@ -956,7 +956,7 @@ def pagerank_warm_restart(adj: torch.Tensor, r0,
         contrib = a.T @ (w * r)
         dmass = (dangling @ r) / n
         nxt = alpha * (contrib + dmass) + (1.0 - alpha) / n
-        if float((nxt - r).abs().sum()) < tol:
+        if float((nxt - r).abs().sum()) < tol:  # matlint: disable=ML001 the warm restart's convergence test, one scalar a round as in the JAX package's; a streaming tick's refresh, not a query lowering
             r = nxt
             break
         r = nxt

@@ -355,7 +355,7 @@ def classify_block_structure(rows, cols, gr: int, gc: int) -> str:
     occ = np.bincount(rows, minlength=gr)
     occ = occ[occ > 0]
     if (occ.size >= POWERLAW_MIN_ROWS
-            and float(occ.max())
+            and float(occ.max())  # matlint: disable=ML001 host numpy tile-row counts (structure classification), no device
             >= POWERLAW_SKEW * float(np.median(occ))):
         return "powerlaw_coo"
 

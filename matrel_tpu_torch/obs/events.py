@@ -130,13 +130,13 @@ def _jsonable(v):
     if callable(tolist):
         try:
             return tolist()
-        except Exception:  # fallback encoder — falls through to the next encoding, ends at repr()
+        except Exception:  # matlint: disable=ML007 fallback encoder — falls through to the next encoding, ends at repr()
             pass
     item = getattr(v, "item", None)
     if callable(item):
         try:
             return item()
-        except Exception:  # fallback encoder — falls through to repr()
+        except Exception:  # matlint: disable=ML007 fallback encoder — falls through to repr()
             pass
     return repr(v)
 

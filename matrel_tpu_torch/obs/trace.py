@@ -204,7 +204,7 @@ class Tracer:
     def emit_span(self, rec: dict) -> None:
         try:
             self._emit_fn("span", rec)
-        except Exception:  # never-fail obs sink — a broken emitter must not fail the observed scope (and logging here could recurse per span)
+        except Exception:  # matlint: disable=ML007 never-fail obs sink — a broken emitter must not fail the observed scope (and logging here could recurse per span)
             pass
 
 

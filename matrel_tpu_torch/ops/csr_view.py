@@ -69,13 +69,13 @@ class CSRView:
                              "8-byte load")
         if not 0 <= self.n_cols < 1 << 31:
             raise ValueError(f"n_cols {self.n_cols} outside [0, 2^31)")
-        ends = torch.stack([row_ptr[0], row_ptr[-1]]).tolist()
+        ends = torch.stack([row_ptr[0], row_ptr[-1]]).tolist()  # matlint: disable=ML001 a view's validation — once where the view is made, memoised on its plan
         if ends != [0, cv.shape[0]]:
             raise ValueError(f"row_ptr runs from {ends[0]} to {ends[1]}, "
                              f"want 0 to nnz = {cv.shape[0]}")
-        if row_ptr.numel() > 1 and bool((row_ptr[1:] < row_ptr[:-1]).any()):
+        if row_ptr.numel() > 1 and bool((row_ptr[1:] < row_ptr[:-1]).any()):  # matlint: disable=ML001 a view's validation — once where the view is made, memoised on its plan
             raise ValueError("row_ptr must not decrease")
-        if cv.shape[0] and bool(((cv[:, 0] < 0)
+        if cv.shape[0] and bool(((cv[:, 0] < 0)  # matlint: disable=ML001 a view's validation — once where the view is made, memoised on its plan
                                  | (cv[:, 0] >= self.n_cols)).any()):
             raise ValueError(f"a column of cv lies outside [0, "
                              f"{self.n_cols})")

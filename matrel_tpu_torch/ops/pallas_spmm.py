@@ -80,23 +80,29 @@ def spmm_blocksparse_plain(blocks: torch.Tensor, block_rows: torch.Tensor,
     nnzb, bs, _ = blocks.shape
     pm = d.shape[1]
     gr_out = math.ceil(out_rows / bs)
-    want = (int(block_cols.max()) + 1) * bs if nnzb else bs
+    want = max(-(-d.shape[0] // bs), 1) * bs     # d's last block padded
     if d.shape[0] < want:
         d = torch.nn.functional.pad(d, (0, 0, 0, want - d.shape[0]))
-    dblocks = d[:want].reshape(-1, bs, pm)
+    dblocks = d.reshape(-1, bs, pm)
+    nd = dblocks.shape[0]
+    # a tile whose column block lies past d's end reads zeros: its product
+    # goes to a spare output block that is dropped, chosen on the device
+    # (no host read of the largest column)
+    cols = block_cols.long()
+    src = cols.clamp(max=nd - 1)
+    dest = torch.where(cols < nd, block_rows.long(), gr_out)
     narrow = (blocks.dtype == torch.float32
               and tile_body.f32_body(pm) == "f32_narrow")
     acc_dtype = torch.float64 if narrow else torch.float32
-    acc = torch.zeros((gr_out, bs, pm), dtype=acc_dtype,
+    acc = torch.zeros((gr_out + 1, bs, pm), dtype=acc_dtype,
                       device=blocks.device)
     _highest_precision()
     step = max(1, _PLAIN_CHUNK_ELEMS // (bs * max(bs, pm)))
     for s in range(0, nnzb, step):
         tiles = blocks[s:s + step].to(acc_dtype)
-        gathered = dblocks[block_cols[s:s + step].long()].to(acc_dtype)
-        acc.index_add_(0, block_rows[s:s + step].long(),
-                       torch.bmm(tiles, gathered))
-    return acc.reshape(gr_out * bs, pm)[:out_rows].to(blocks.dtype)
+        gathered = dblocks[src[s:s + step]].to(acc_dtype)
+        acc.index_add_(0, dest[s:s + step], torch.bmm(tiles, gathered))
+    return acc[:gr_out].reshape(gr_out * bs, pm)[:out_rows].to(blocks.dtype)
 
 
 def _check(blocks, row_ptr, bcols, d, out_rows) -> None:
@@ -184,8 +190,8 @@ def csr_payload(S) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
     memo = getattr(S, "_spmm_csr_memo", None)
     if memo is not None and memo[0] is S.blocks:
         return memo
-    rows = S.block_rows.cpu().numpy().astype(np.int64)
-    cols = S.block_cols.cpu().numpy().astype(np.int64)
+    rows = S.block_rows.cpu().numpy().astype(np.int64)  # matlint: disable=ML001 once-per-matrix CSR memo (csr_payload), never a warm query
+    cols = S.block_cols.cpu().numpy().astype(np.int64)  # matlint: disable=ML001 once-per-matrix CSR memo (csr_payload), never a warm query
     order = np.lexsort((cols, rows))
     dev = S.blocks.device
     payload = S.blocks

@@ -61,7 +61,7 @@ def pair_structure(a_rows: np.ndarray, a_cols: np.ndarray,
     starts = np.searchsorted(brs, a_cols, side="left")
     ends = np.searchsorted(brs, a_cols, side="right")
     counts = ends - starts
-    total = int(counts.sum())
+    total = int(counts.sum())  # matlint: disable=ML001 host numpy counts of the pair plan, no device
     empty = (np.zeros(0, np.int32),) * 3 + (np.zeros(0, np.int32),) * 2
     if total == 0:
         return empty

@@ -210,9 +210,9 @@ def build_spmv_plan(rows, cols, vals=None, n_rows: int = None,
     cols = np.asarray(cols, dtype=np.int64)
     m = rows.shape[0]
     if n_rows is None:
-        n_rows = int(rows.max()) + 1 if m else 1
+        n_rows = int(rows.max()) + 1 if m else 1  # matlint: disable=ML001 host numpy edge list of the plan build, no device
     if n_cols is None:
-        n_cols = int(cols.max()) + 1 if m else 1
+        n_cols = int(cols.max()) + 1 if m else 1  # matlint: disable=ML001 host numpy edge list of the plan build, no device
     if vals is not None:
         vals = np.asarray(vals, dtype=np.float32)
     if block % LO:
@@ -238,7 +238,7 @@ def build_spmv_plan(rows, cols, vals=None, n_rows: int = None,
         return None
     if max_slots is not None and nb * cap > max_slots:
         return None
-    n_ov = int(np.maximum(cnt - cap, 0).sum())
+    n_ov = int(np.maximum(cnt - cap, 0).sum())  # matlint: disable=ML001 host numpy block counts of the plan build, no device
     filled = native_lib.spmv_fill(rows, cols, vals, n_cols, block, nb, cap,
                                   WIDTH, n_ov) if use_native else None
     fill = "native" if filled is not None else "numpy"
@@ -499,7 +499,7 @@ def shard_plan(plan: EdgeSpMVPlan, mesh) -> PlanSlice:
     real = ((cols < plan.n_cols) & (plan.off < plan.block)
             & (rows < plan.n_rows))
     sl = PlanSlice(plan, local, rank, p,
-                   lanes_per_row(int(real.sum()), plan.n_rows))
+                   lanes_per_row(int(real.sum()), plan.n_rows))  # matlint: disable=ML001 host numpy plan tables, once per plan and mesh (memoised)
     memo[id(mesh)] = (mesh, sl)
     return sl
 

@@ -204,9 +204,9 @@ def build_routed_plan(rows, cols, vals=None, n_rows: int = None,
     cols = np.asarray(cols, dtype=np.int64)
     m = rows.shape[0]
     if n_rows is None:
-        n_rows = int(rows.max()) + 1 if m else 1
+        n_rows = int(rows.max()) + 1 if m else 1  # matlint: disable=ML001 host numpy edge list of the plan build, no device
     if n_cols is None:
-        n_cols = int(cols.max()) + 1 if m else 1
+        n_cols = int(cols.max()) + 1 if m else 1  # matlint: disable=ML001 host numpy edge list of the plan build, no device
     if m and (rows.min() < 0 or rows.max() >= n_rows
               or cols.min() < 0 or cols.max() >= n_cols):
         raise ValueError("edge indices out of bounds for "

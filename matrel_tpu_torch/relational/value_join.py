@@ -66,24 +66,31 @@ def match_range(sv, x, pred: str):
     pred(NaN, ·) is False. Both halves are explicit: the search runs
     over the non-NaN prefix only (``torch.searchsorted`` does not treat
     a NaN tail as +inf, so it may not search it), and NaN queries get
-    empty ranges. "always" keeps every pair, NaNs included."""
+    empty ranges. "always" keeps every pair, NaNs included. On tensors
+    the non-NaN count stays on the device (:func:`_search_head`)."""
     xp = torch if isinstance(sv, Tensor) else np
     nb = sv.shape[0]
     if pred == "always":      # predicate omitted: every pair matches
-        z = xp.zeros(x.shape, dtype=xp.int64)
-        if xp is torch:
-            z = z.to(x.device)
+        z = (torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+             if xp is torch else np.zeros(x.shape, dtype=np.int64))
         return z, z + nb
-    n_valid = nb - int(xp.isnan(sv).sum())
-    head = sv[:n_valid]
-    left = xp.searchsorted(head, x, side="left")
-    right = xp.searchsorted(head, x, side="right")
+    if xp is torch:
+        head, n_valid = _search_head(sv)
+        left = torch.minimum(torch.searchsorted(head, x, side="left"),
+                             n_valid)
+        right = torch.minimum(torch.searchsorted(head, x, side="right"),
+                              n_valid)
+    else:
+        n_valid = nb - np.count_nonzero(np.isnan(sv))
+        head = sv[:n_valid]
+        left = np.searchsorted(head, x, side="left")
+        right = np.searchsorted(head, x, side="right")
     if pred == "eq":
         lo, hi = left, right
     elif pred == "lt":        # vb > x
-        lo, hi = right, xp.full_like(right, n_valid)
+        lo, hi = right, xp.zeros_like(right) + n_valid
     elif pred == "le":        # vb >= x
-        lo, hi = left, xp.full_like(left, n_valid)
+        lo, hi = left, xp.zeros_like(left) + n_valid
     elif pred == "gt":        # vb < x
         lo, hi = xp.zeros_like(left), left
     elif pred == "ge":        # vb <= x
@@ -94,15 +101,27 @@ def match_range(sv, x, pred: str):
     return lo, hi
 
 
+def _search_head(sv: Tensor):
+    """(head, n_valid) for searching ascending ``sv`` (NaNs last) over
+    its non-NaN prefix with no host read: head is sv with the NaN tail
+    read as +inf, n_valid the 0-d count of non-NaN entries on sv's
+    device. Clamped to n_valid, a search of head equals a search of
+    ``sv[:n_valid]``: no entry of the tail is below any x, and the tail
+    is at most x only where x is +inf, past n_valid."""
+    nan = torch.isnan(sv)
+    head = sv.masked_fill(nan, torch.inf) if sv.is_floating_point() else sv
+    return head, sv.shape[0] - nan.sum()
+
+
 def _range_eq_count(sv: Tensor, v: Tensor, lo: Tensor,
                     hi: Tensor) -> Tensor:
     """#entries equal to v INSIDE [lo, hi) of sorted sv (int64, exact);
     ``v`` is one value per query or a single value for all. A NaN v
     equals nothing (searched over the non-NaN prefix only, as in
     :func:`match_range`)."""
-    head = sv[:sv.shape[0] - int(torch.isnan(sv).sum())]
-    zl = torch.searchsorted(head, v, side="left")
-    zr = torch.searchsorted(head, v, side="right")
+    head, n_valid = _search_head(sv)
+    zl = torch.minimum(torch.searchsorted(head, v, side="left"), n_valid)
+    zr = torch.minimum(torch.searchsorted(head, v, side="right"), n_valid)
     n = (torch.minimum(zr, hi) - torch.maximum(zl, lo)).clamp_(min=0)
     return torch.where(torch.isnan(v), 0, n)
 

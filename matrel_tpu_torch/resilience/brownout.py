@@ -119,7 +119,7 @@ class LoadController:
         with self._lock:
             self._depth = int(depth)
             for w in waits_ms or ():
-                self._waits.append(float(w))  # bounded sliding window
+                self._waits.append(float(w))  # matlint: disable=ML013 bounded sliding window — measurement IS the brownout controller, its p95 reads through obs.metrics.percentile
             for _ in range(max(int(misses), 0)):
                 self._outcomes.append(1)
             for _ in range(max(int(admitted), 0)):

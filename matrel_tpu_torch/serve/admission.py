@@ -132,7 +132,7 @@ class AdmissionQueue:
             with self._lock:
                 dq = self._queues.get(key)
                 if dq is None:
-                    dq = self._queues[key] = deque()
+                    dq = self._queues[key] = deque()  # matlint: disable=ML011 bounded by the typed shed checks below — a maxlen deque would DROP silently instead of refusing typed
                     self._pass[key] = self._vtime
                 if self.tenant_max > 0 and len(dq) >= self.tenant_max:
                     self._purge_expired_locked(key, to_fail)
@@ -242,7 +242,7 @@ class AdmissionQueue:
             dq = self._queues.get(key)
             if not dq:
                 continue
-            keep: deque = deque()
+            keep: deque = deque()  # matlint: disable=ML011 transient rebuild buffer for one purge pass, bounded by the queue it rebuilds
             for it in dq:
                 dl = it[4] if len(it) > 4 else None
                 if dl is not None and dl.expired() and self.deferring:

@@ -976,7 +976,7 @@ class FleetController:
         slice's plane — the steady-state repeat path is the fleet's
         best-performing one, and leaving it unaccounted would starve
         the availability windows of good events and read as burn."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # matlint: disable=ML006 SLO resolution-latency sample — lands in the slo plane's sketches and alert records
         rec = self.directory.lookup(fkey)
         if rec is None:
             return None
@@ -1032,7 +1032,7 @@ class FleetController:
         slo = self.slice_by_id(serving_id).session._slo
         if slo is not None:
             slo.record_ok(tenant,
-                          (time.perf_counter() - t0) * 1e3)
+                          (time.perf_counter() - t0) * 1e3)  # matlint: disable=ML006 SLO resolution-latency sample — lands in the slo plane's sketches and alert records
         if remote:
             # AFTER the future resolves, and off-thread: replication
             # is a device->host->device copy of the whole entry — run
@@ -1350,7 +1350,7 @@ class FleetController:
             seq = next(self._seq)
             if self._log.lead and ctl is None:
                 self._bound(seq, tenant or "")
-            self._items.put((e, fut, time.perf_counter(), sla, dl,
+            self._items.put((e, fut, time.perf_counter(), sla, dl,  # matlint: disable=ML006 queue-wait timestamp — lands in the serve event record
                              tenant or "", staleness_ms, seq, key, ctl))
         return fut
 

@@ -176,7 +176,7 @@ class ServePipeline:
         # misses — the outcome stream the burn-rate monitors watch
         self._slo = session._slo
         self._q = AdmissionQueue(session.config, slo=self._slo)
-        self._inflight: "collections.deque" = collections.deque()
+        self._inflight: "collections.deque" = collections.deque()  # matlint: disable=ML011 bounded by the serve_max_inflight sync loop in _run_group
         self._worker: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._closed = False
@@ -246,7 +246,7 @@ class ServePipeline:
         fut: Future = Future()
         fut.ready_event = None
         dl = Deadline(deadline_ms) if deadline_ms is not None else None
-        entry = (expr, fut, time.perf_counter(), sla, dl, tenant or "",
+        entry = (expr, fut, time.perf_counter(), sla, dl, tenant or "",  # matlint: disable=ML006 queue-wait timestamp — lands in the serve event record
                  staleness_ms)
         # closed-check + enqueue + worker-ensure are ONE atomic step vs
         # close(): no future can be stranded in a dead queue
@@ -475,7 +475,7 @@ class ServePipeline:
             # raise and kill the worker, stranding every sibling
             pulled = [it for it in pulled
                       if it[1].set_running_or_notify_cancel()]
-        t_admit = time.perf_counter()
+        t_admit = time.perf_counter()  # matlint: disable=ML006 queue-wait timestamp — lands in the serve event record
         fail = {it[SEQ]: verdict for it, verdict in deferred}
         live, misses = [], 0
         for it in pulled:
@@ -547,7 +547,7 @@ class ServePipeline:
         log, sess = self._log, self.session
         seqs, fail, rung = rec["seqs"], rec["fail"], rec["rung"]
         stale = [s for s in rec["stale"] if s in entries]
-        t_admit = time.perf_counter()
+        t_admit = time.perf_counter()  # matlint: disable=ML006 queue-wait timestamp — lands in the serve event record
         if self._ranked:
             for it in entries.values():
                 # a cancelled future still rides its cycle (the other
@@ -620,7 +620,7 @@ class ServePipeline:
                     it[0], ent, AdmissionQueue.entry_provenance(it))
             if self._slo is not None:
                 self._slo.record_ok(it[5] or None,
-                                    (time.perf_counter() - it[2]) * 1e3)
+                                    (time.perf_counter() - it[2]) * 1e3)  # matlint: disable=ML006 SLO resolution-latency sample — lands in the slo plane's sketches and alert records
             self._breaker_done(it[0], None)
         self.stale_served += len(stale)
         tenant_waits: dict = {}
@@ -755,7 +755,7 @@ class ServePipeline:
             return None, False, set(), None, info
         verdict = None
         if log.lead:
-            t = time.perf_counter()
+            t = time.perf_counter()  # matlint: disable=ML006 the lead's queue-wait verdict — broadcast in the cycle's record, lands in the serve event record
             verdict = ([it[SEQ] for it in batch
                         if it[4] is not None and it[4].expired()],
                        {it[SEQ]: (t - it[2]) * 1e3 for it in batch})
@@ -952,7 +952,7 @@ class ServePipeline:
                     self._slo.record_ok(
                         it[5] or None,
                         lat[it[SEQ]] if lat is not None
-                        else (time.perf_counter() - it[2]) * 1e3)
+                        else (time.perf_counter() - it[2]) * 1e3)  # matlint: disable=ML006 SLO resolution-latency sample — lands in the slo plane's sketches and alert records
         if outs:
             self._inflight.append(done)
         while len(self._inflight) > self.max_inflight:

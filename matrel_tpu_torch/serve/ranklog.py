@@ -113,9 +113,9 @@ class DecisionLog:
         if self.world == 1:
             return obj
         import torch.distributed as dist
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # matlint: disable=ML006 control-exchange ms — DecisionLog.info() reports it (control_ms)
         box = [obj]
-        dist.broadcast_object_list(
+        dist.broadcast_object_list(  # matlint: disable=ML003 the decision log's control exchange on its own gloo group, counted by DecisionLog.exchanges — not a data collective of a plan
             box, src=self.lead_rank if src is None else src,
             group=self.group)
         self._count(t0)
@@ -126,15 +126,15 @@ class DecisionLog:
         if self.world == 1:
             return [obj]
         import torch.distributed as dist
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # matlint: disable=ML006 control-exchange ms — DecisionLog.info() reports it (control_ms)
         out: List = [None] * self.world
-        dist.all_gather_object(out, obj, group=self.group)
+        dist.all_gather_object(out, obj, group=self.group)  # matlint: disable=ML003 the decision log's control exchange on its own gloo group, counted by DecisionLog.exchanges — not a data collective of a plan
         self._count(t0)
         return out
 
     def _count(self, t0: float) -> None:
         self.exchanges += 1
-        self.control_ms += (time.perf_counter() - t0) * 1e3
+        self.control_ms += (time.perf_counter() - t0) * 1e3  # matlint: disable=ML006 control-exchange ms — DecisionLog.info() reports it (control_ms)
 
     def info(self) -> dict:
         return {"lead": self.lead, "cycles": self.cycles,
@@ -194,11 +194,11 @@ class EntryStore:
         """Remove and return the named entries, waiting up to
         ``bound_s`` for those not here yet; the missing ones are simply
         absent from the result."""
-        t_end = time.monotonic() + bound_s
+        t_end = time.monotonic() + bound_s  # matlint: disable=ML006 wait deadline, not a measurement (the retry.py exemption's arithmetic)
         with self._lock:
             while True:
                 missing = [s for s in seqs if s not in self._by_seq]
-                rem = t_end - time.monotonic()
+                rem = t_end - time.monotonic()  # matlint: disable=ML006 wait deadline, not a measurement
                 if not missing or rem <= 0:
                     break
                 self.all_tasks_done.wait(min(rem, 0.05))
@@ -221,10 +221,10 @@ class EntryStore:
         """Wait until every entry put here is done; ``DrainTimeout``
         past ``timeout`` seconds."""
         from matrel_tpu_torch.resilience.errors import DrainTimeout
-        t_end = None if timeout is None else time.monotonic() + timeout
+        t_end = None if timeout is None else time.monotonic() + timeout  # matlint: disable=ML006 drain deadline, not a measurement
         with self._lock:
             while self.unfinished_tasks:
-                rem = None if t_end is None else t_end - time.monotonic()
+                rem = None if t_end is None else t_end - time.monotonic()  # matlint: disable=ML006 drain deadline, not a measurement
                 if rem is not None and rem <= 0:
                     raise DrainTimeout(timeout, self.unfinished_tasks)
                 self.all_tasks_done.wait(rem)

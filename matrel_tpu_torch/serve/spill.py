@@ -76,7 +76,7 @@ SNAPSHOT_SCHEMA = 1
 
 
 def _now_ms() -> float:
-    return time.perf_counter() * 1e3
+    return time.perf_counter() * 1e3  # matlint: disable=ML006 spill-leg transfer samples ARE the drift loop's measurement — they land in the spill event log
 
 
 @dataclasses.dataclass
@@ -495,7 +495,7 @@ class SpillManager:
         from matrel_tpu_torch.core.blockmatrix import BlockMatrix
         from matrel_tpu_torch.utils.checkpoint import _spec_from_json
         spec = _spec_from_json(meta["spec"])
-        data = arr.to(self.mesh.device)
+        data = arr.to(self.mesh.device)  # matlint: disable=ML008 the h2d promotion leg IS priced — spill_plan stages it and coeffs prices it
         if data.is_cuda:
             # the leg's clock stops when the bytes have landed
             torch.cuda.synchronize(data.device)

@@ -622,7 +622,7 @@ class MatrelSession:
                 continue
             try:
                 decs = executor_lib.plan_matmul_decisions(plan)
-            except Exception:
+            except Exception:  # matlint: disable=ML007 best-effort re-plan census — an unreadable plan is skipped; the lazy coeffv: miss still re-plans it
                 # best-effort census: an unreadable plan is skipped; the
                 # lazy coeffv: miss still re-plans it
                 continue
@@ -1128,7 +1128,7 @@ class MatrelSession:
             if full is None:
                 from matrel_tpu_torch.obs.events import SCHEMA_VERSION
                 full = {"schema": SCHEMA_VERSION,
-                        "ts": round(time.time(), 3), "kind": kind}
+                        "ts": round(time.time(), 3), "kind": kind}  # matlint: disable=ML006 record timestamp — the obs funnel's ts mirrors EventLog.emit's stamp
                 full.update(record)
             self._flight.add(full)
 

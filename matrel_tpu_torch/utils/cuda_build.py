@@ -28,7 +28,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # matlint: disable=ML017 import-time guard of the kernel build cache, never held across a query
 _LIBS: Dict[Path, ctypes.CDLL] = {}
 
 

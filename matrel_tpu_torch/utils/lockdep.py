@@ -120,7 +120,7 @@ def _record(diag: dict, exc_type) -> None:
     if emit is not None:
         try:
             emit(dict(diag))
-        except Exception:  # diagnostics must never take a query down with a failing sink; the record is already in diagnostics()
+        except Exception:  # matlint: disable=ML007 diagnostics must never take a query down with a failing sink; the record is already in diagnostics()
             pass
     if _RAISE or diag.get("fatal"):
         raise exc_type(diag)

@@ -44,7 +44,7 @@ SPMV_SOURCE = os.path.join(_REPO_ROOT, "native", "spmv_plan.cc")
 SPMV_LIB_PATH = os.path.join(_REPO_ROOT, "build", "native",
                              "libmatrel_spmv_plan.so")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # matlint: disable=ML017 import-time guard of the native library cache, never held across a query
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 _ingest_lib: Optional[ctypes.CDLL] = None
@@ -111,7 +111,7 @@ def load() -> Optional[ctypes.CDLL]:
                 and not os.path.exists(LIB_PATH)):
             return None
         try:
-            lib = ctypes.CDLL(LIB_PATH)
+            lib = ctypes.CDLL(LIB_PATH)  # matlint: disable=ML009 host C++ library (g++), not a kernel — the JAX package's utils/native.py counterpart
             _bind(lib)
         except (OSError, AttributeError) as e:
             log.debug("native chain-dp load failed: %s", e)
@@ -212,7 +212,7 @@ def load_ingest() -> Optional[ctypes.CDLL]:
                 and not os.path.exists(INGEST_LIB_PATH)):
             return None
         try:
-            lib = ctypes.CDLL(INGEST_LIB_PATH)
+            lib = ctypes.CDLL(INGEST_LIB_PATH)  # matlint: disable=ML009 host C++ library (g++), not a kernel — the JAX package's utils/native.py counterpart
             _bind_ingest(lib)
         except (OSError, AttributeError) as e:
             log.debug("native ingest load failed: %s", e)
@@ -314,7 +314,7 @@ def load_spmv() -> Optional[ctypes.CDLL]:
                 and not os.path.exists(SPMV_LIB_PATH)):
             return None
         try:
-            lib = ctypes.CDLL(SPMV_LIB_PATH)
+            lib = ctypes.CDLL(SPMV_LIB_PATH)  # matlint: disable=ML009 host C++ library (g++), not a kernel — the JAX package's utils/native.py counterpart
             _bind_spmv(lib)
         except (OSError, AttributeError) as e:
             log.debug("native spmv-plan load failed: %s", e)

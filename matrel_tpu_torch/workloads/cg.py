@@ -75,7 +75,7 @@ def _padded_vector(v, n_pad: int, device) -> Tensor:
     zero past its length."""
     v = (v.detach().float() if torch.is_tensor(v)
          else torch.as_tensor(np.asarray(v, np.float32)))
-    v = v.reshape(-1).to(device)
+    v = v.reshape(-1).to(device)  # matlint: disable=ML008 the solve's right-hand side, placed once a solve on its device
     out = torch.zeros(n_pad, dtype=torch.float32, device=device)
     out[: v.shape[0]] = v
     return out

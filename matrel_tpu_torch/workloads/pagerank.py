@@ -171,7 +171,7 @@ def run_pagerank_onehot(prepared, rounds: int = 30, alpha: float = 0.85,
     static = (plan.n_rows, plan.n_cols, plan.block)
     arrays = plan.arrays(dev)
     return _power_iterate(lambda r: spmv_lib.spmv_apply(static, arrays, r),
-                          plan.n_rows, rounds, alpha, dangling.to(dev), dev)
+                          plan.n_rows, rounds, alpha, dangling.to(dev), dev)  # matlint: disable=ML008 the prepared plan's dangling mask — a no-op on the device it was prepared on
 
 
 def run_pagerank_compact(prepared, rounds: int = 30, alpha: float = 0.85,
@@ -184,7 +184,7 @@ def run_pagerank_compact(prepared, rounds: int = 30, alpha: float = 0.85,
     dev = _prepared_device(prepared, device)
     plan, dangling = prepared
     return _power_iterate(lambda r: pc.compact_apply(plan, r, passes),
-                          plan.n_rows, rounds, alpha, dangling.to(dev), dev)
+                          plan.n_rows, rounds, alpha, dangling.to(dev), dev)  # matlint: disable=ML008 the prepared plan's dangling mask — a no-op on the device it was prepared on
 
 
 # Prepared-plan cache for repeated calls on the same graph (alpha/round
@@ -298,7 +298,7 @@ def run_pagerank_sharded(prepared, mesh, rounds: int = 30,
         sl = spmv_lib.shard_plan(plan, mesh)
         matvec = lambda r: spmv_lib.spmv_sharded_apply(sl, r, mesh)
     return _power_iterate(matvec, plan.n_rows, rounds, alpha,
-                          dangling.to(dev), dev)
+                          dangling.to(dev), dev)  # matlint: disable=ML008 the prepared plan's dangling mask — a no-op on the device it was prepared on
 
 
 def _pagerank_segment(src, dst, n: int, rounds: int, alpha: float,
