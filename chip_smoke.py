@@ -4699,13 +4699,14 @@ FUSION_LR_ROWS, FUSION_LR_K = 1_000_000, 1000
 FUSION_PEAK_LIMIT_GIB = {"fusion": 1.25 * 16.988}
 
 
-def in_turns(fa, fb) -> tuple:
+def in_turns(fa, fb, batch: int = 1) -> tuple:
     """(ms of fa, ms of fb), each the mean of two time_ms medians taken
-    in the order a, b, b, a (warm, CUDA events, 10 calls a median)."""
-    a1 = time_ms(fa, warmup=2, runs=10)
-    b1 = time_ms(fb, warmup=2, runs=10)
-    b2 = time_ms(fb, warmup=2, runs=10)
-    a2 = time_ms(fa, warmup=2, runs=10)
+    in the order a, b, b, a (warm, CUDA events, 10 samples a median,
+    ``batch`` calls a sample)."""
+    a1 = time_ms(fa, warmup=2, runs=10, batch=batch)
+    b1 = time_ms(fb, warmup=2, runs=10, batch=batch)
+    b2 = time_ms(fb, warmup=2, runs=10, batch=batch)
+    a2 = time_ms(fa, warmup=2, runs=10, batch=batch)
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
@@ -8067,6 +8068,207 @@ def examples_only() -> int:
     return 0
 
 
+# -- the compiled plan's iteration path (path_bound_runner) -------------------
+
+#: The JAX headline's chained step (bench.py's bf16_safe_chain_step,
+#: (C·B)·(2/N), at N = 4096 in bf16, 40 repeats).
+BOUND_N, BOUND_STEPS = 4096, 40
+#: Rows of the chain held against float64 numpy: a row of C·B·s depends
+#: only on the same row of C, so the sampled rows' float64 chain is exact.
+BOUND_ROWS = 32
+#: The chain against float64: max |err| <= BOUND_CHAIN_RTOL x mean|C| of
+#: the float64 rows. Each step rounds C to bf16 (2^-9 relative) and the
+#: next step averages those errors over the 4096-long contraction, so
+#: what stays is about one rounding of an entry (<= ~2 x the mean): 2^-8
+#: of the mean, allowed 4 times.
+BOUND_CHAIN_RTOL = 2.0 ** -6
+#: bench.py's check_chain_canary band for mean|C|.
+BOUND_CANARY = (1e-3, 1e3)
+#: The donated chain's peak device memory over what was held when it
+#: started, on the H100 (PERF.md §6), plus 25%.
+BOUND_PEAK_LIMIT_GIB = {"bound_runner": 1.25 * 0.219}
+#: Steps of (a) run before its turns are timed (~0.2 s on the H100).
+BOUND_WARM_STEPS = 400
+#: x <- A·x steps through the bound runner over row 5's COO matrix (the
+#: PageRank iteration through a compiled plan).
+BOUND_PR_STEPS = 10
+
+
+def path_bound_runner(sess) -> dict:
+    """CompiledPlan.bound_runner on the card, the counts read from its
+    start: (a) the JAX headline's chain through ``bound_runner
+    (rebind_uids=(a,))``, bit-equal to the same chain through
+    ``run(bindings=…)``, within BOUND_CHAIN_RTOL of float64 numpy on
+    BOUND_ROWS rows, mean|C| in BOUND_CANARY; again with ``donate=True``
+    (bit-equal) under BOUND_PEAK_LIMIT_GIB; (b) row 4's S·D with D
+    rebound (B1, against its plain version); (c) row 5's COO matvec,
+    x <- A·x with x rebound (B2, the last step against its plain
+    version); (d) ms a step through the runner and through run(), in
+    turns (CUDA events around BOUND_STEPS or BOUND_PR_STEPS steps a
+    sample), with the card line."""
+    import numpy as np
+    import torch
+    from matrel_tpu_torch.executor import compile_expr
+    from matrel_tpu_torch.ops import pallas_spmm, pallas_spmv as pc
+    from matrel_tpu_torch.parallel import strategies
+    t_start = time.perf_counter()
+    c_start = soak_counts()
+    card = device_line()
+    n, rec = BOUND_N, {"device": card}
+
+    # (a) the chained step at the JAX headline's shape
+    A = sess.random((n, n), seed=0, dtype="bfloat16")
+    B = sess.random((n, n), seed=1, dtype="bfloat16")
+    plan = compile_expr(A.expr().multiply(B.expr()).multiply_scalar(
+        2.0 / n), sess.mesh)
+    uid = plan.leaf_order[0].uid
+    step = plan.bound_runner(rebind_uids=(uid,))
+    cur = step(A.data)
+    for _ in range(BOUND_STEPS - 1):
+        cur = step(cur)
+    via = A
+    for _ in range(BOUND_STEPS):
+        via = plan.run(bindings={uid: via})
+    if not torch.equal(cur, via.data):
+        raise AssertionError("bound runner chain: not bit-equal to run()'s")
+    del via
+    rows = np.linspace(0, n - 1, BOUND_ROWS).astype(np.int64)
+    b64 = B.data.double().cpu().numpy()
+    want = A.data[rows].double().cpu().numpy()
+    for _ in range(BOUND_STEPS):
+        want = want @ b64 * (2.0 / n)
+    scale = float(np.abs(want).mean())
+    canary = float(cur.float().abs().mean())
+    if not (math.isfinite(canary) and BOUND_CANARY[0] < canary
+            < BOUND_CANARY[1]):
+        raise AssertionError(f"bound runner chain: mean|C| {canary!r}")
+    err = rows_vs_f64("bound runner chain vs float64 numpy",
+                      cur[rows].cpu(), torch.from_numpy(want),
+                      BOUND_CHAIN_RTOL * scale)
+    del b64
+    meter = PeakMeter("bound_runner", BOUND_PEAK_LIMIT_GIB)
+    dstep = plan.bound_runner(rebind_uids=(uid,), donate=True)
+    dcur = dstep(A.data.clone())         # the caller keeps no reference
+    for _ in range(BOUND_STEPS - 1):
+        dcur = dstep(dcur)
+    peak = meter.gib()
+    if not torch.equal(dcur, cur):
+        raise AssertionError("donated chain: not bit-equal to the kept one")
+    del dcur
+    # where that peak comes from: one bf16 local product alone
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    strategies.local_dot(A.data, B.data)
+    torch.cuda.synchronize()
+    dot_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    cbm = dense_leaf(sess, cur)
+    # BOUND_WARM_STEPS steps before the turns, so the first of them
+    # (the runner's) starts on a card as warm as the others do
+    time_ms(lambda: step(cur), warmup=0, runs=1, batch=BOUND_WARM_STEPS)
+    ms_a = in_turns(lambda: step(cur),
+                    lambda: plan.run(bindings={uid: cbm}),
+                    batch=BOUND_STEPS)
+    rec["chain"] = {"n": n, "steps": BOUND_STEPS, "dtype": "bfloat16",
+                    "mean_abs_c": canary, "max_abs_err_f64_rows": err,
+                    "bound_f64": BOUND_CHAIN_RTOL * scale,
+                    "donated_peak_gib": peak, "local_dot_peak_gib": dot_peak,
+                    "ms_bound_runner": ms_a[0],
+                    "ms_run": ms_a[1]}
+    log(f"bound runner (a): (C·B)·(2/N) at N = {n} bf16, {BOUND_STEPS} "
+        f"steps bit-equal to run()'s chain; mean|C| {canary:.4f}; max err "
+        f"on {BOUND_ROWS} rows vs float64 numpy {err:.3e} (bound "
+        f"{BOUND_CHAIN_RTOL * scale:.3e}); donated chain bit-equal, peak "
+        f"{peak:.3f} GiB (one local_dot alone {dot_peak:.3f}); ms a step "
+        f"{ms_a[0]:.4f} (bound runner) / "
+        f"{ms_a[1]:.4f} (run), {card}")
+    del A, B, plan, step, dstep, cur, cbm
+    torch.cuda.empty_cache()
+
+    # (b) B1: row 4's S·D with D rebound
+    S, D = row4_inputs(sess)
+    D2 = sess.random(D.shape, dtype="bfloat16", seed=3)
+    bplan = compile_expr(S.multiply(D), sess.mesh)
+    d_uid = bplan.leaf_order[0].uid
+    bstep = bplan.bound_runner(rebind_uids=(d_uid,))
+    l0 = pallas_spmm.LAUNCHES
+    y = bstep(D2.data)
+    torch.cuda.synchronize()
+    l_b1 = need_launches("bound runner S·D (B1)", pallas_spmm.LAUNCHES - l0)
+    want1 = pallas_spmm.spmm_blocksparse_plain(
+        S.blocks, S.block_rows, S.block_cols, D2.data, S.shape[0])
+    e_b1 = check_close("bound runner S·D (B1)", y, want1, "bfloat16")
+    del y, want1
+    ms_b = in_turns(lambda: bstep(D2.data),
+                    lambda: bplan.run(bindings={d_uid: D2}),
+                    batch=BOUND_PR_STEPS)
+    rec["b1"] = {"launches": l_b1, "max_abs_err": e_b1,
+                 "ms_bound_runner": ms_b[0], "ms_run": ms_b[1]}
+    log(f"bound runner (b): row 4 S·D with D rebound, {l_b1} B1 launch, "
+        f"max_abs_err vs plain {e_b1:.3e}; ms a step {ms_b[0]:.4f} / "
+        f"{ms_b[1]:.4f} (run)")
+    del S, D, D2, bplan, bstep
+    torch.cuda.empty_cache()
+
+    # (c) B2: x <- A·x through row 5's compiled COO matvec
+    _, _, Ac = row5_matrix()
+    x = sess.random((ROW5_N, 1), seed=6)
+    cplan = compile_expr(Ac.multiply(x), sess.mesh)
+    x_uid = cplan.leaf_order[0].uid
+    cstep = cplan.bound_runner(rebind_uids=(x_uid,))
+    l0 = pc.LAUNCHES_SPMV
+    prev, xk = None, x.data
+    for _ in range(BOUND_PR_STEPS):
+        prev, xk = xk, cstep(xk)
+    torch.cuda.synchronize()
+    l_b2 = pc.LAUNCHES_SPMV - l0
+    if l_b2 < BOUND_PR_STEPS:
+        raise AssertionError(f"bound runner x <- A·x: {l_b2} B2 launches "
+                             f"in {BOUND_PR_STEPS} steps")
+    e_b2 = rel_err("bound runner x <- A·x (B2)", xk[:, 0],
+                   pc.spmv_compact(Ac._get_plan(), prev[:, 0],
+                                   device=prev.device, use_pallas=False),
+                   SPMV_REL_TOL[3])
+    ms_c = in_turns(lambda: cstep(x.data),
+                    lambda: cplan.run(bindings={x_uid: x}),
+                    batch=BOUND_PR_STEPS)
+    rec["b2"] = {"launches": l_b2, "steps": BOUND_PR_STEPS,
+                 "max_abs_err": e_b2, "ms_bound_runner": ms_c[0],
+                 "ms_run": ms_c[1]}
+    log(f"bound runner (c): row 5 x <- A·x, {BOUND_PR_STEPS} steps, {l_b2} "
+        f"B2 launches, max_abs_err vs plain {e_b2:.3e}; ms a step "
+        f"{ms_c[0]:.4f} / {ms_c[1]:.4f} (run)")
+    del Ac, x, cplan, cstep, prev, xk
+    torch.cuda.empty_cache()
+
+    total = {k: v - c_start[k] for k, v in soak_counts().items()}
+    print(json.dumps({"bound_runner": rec}))
+    log(f"path bound runner: {time.perf_counter() - t_start:.1f} s; "
+        f"launches {({k: v for k, v in total.items() if v})}")
+    return {"launches": total, "record": rec,
+            "spmm_bodies": {k[3:]: v for k, v in total.items()
+                            if k.startswith("b1_") and v}}
+
+
+def bound_runner_only() -> int:
+    """``python3 chip_smoke.py --bound-runner``: only path_bound_runner
+    (after building the kernels), printing the card line and its
+    launches."""
+    import torch
+    from matrel_tpu_torch import MatrelSession
+    from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
+                                      pallas_spmv, spmv_routed)
+    from matrel_tpu_torch.utils import cuda_build
+    card = device_line()
+    log(f"torch {torch.__version__}; {card}")
+    modules = (pallas_spmm, pallas_spmv, pallas_spgemm, spmv_routed)
+    cuda_build.build([cuda_build.CSRC_DIR / m.SOURCE for m in modules])
+    out = path_bound_runner(MatrelSession())
+    print(card)
+    print(json.dumps({"bound_runner_launches": out["launches"]}))
+    return 0
+
+
 # -- multi-rank execution over torch.distributed (path_multirank) --------------
 
 #: The rank grid: 4 ranks, 2 × 2 (the square grid SUMMA needs).
@@ -8212,7 +8414,18 @@ def mr_row1(me: MrRank) -> dict:
         X = sess.random((MR_ROW1_N, MR_ROW1_N), seed=4)
         Y = sess.random((MR_ROW1_N, MR_ROW1_N), seed=5)
         e = X.multiply(Y)
-        stamps = mr_stamps(sess.compile(e))
+        plan = sess.compile(e)
+        stamps = mr_stamps(plan)
+        # CompiledPlan.collectives() / explain() on the ranks: one run
+        # of the plan, every rank together (path_bound_runner (e))
+        cols, text = plan.collectives(), plan.explain()
+        if not text.endswith("\n== Collectives ==\n" + str(cols)):
+            raise AssertionError(f"row 1 {s}: explain has no Collectives "
+                                 f"section ({text[-200:]!r})")
+        if s == "cpmm" and (cols.get("reduce-scatter", 0) < 1
+                            or "strategy=cpmm" not in text):
+            raise AssertionError(f"row 1 cpmm: collectives {cols}, "
+                                 f"explain {text!r}")
         sess.compute(e)                       # warm
         coll.reset_tally()
         res, ms = me.timed(lambda: sess.compute(e), runs=1)
@@ -8227,6 +8440,7 @@ def mr_row1(me: MrRank) -> dict:
                                  f"entries past 8·u·√K·‖X_i‖·‖Y_:j‖ (max "
                                  f"err {float(err.max()):.3e})")
         out[s] = {"stamps": stamps, "tally": tally, "ms": ms,
+                  "collectives": cols,
                   "max_abs_err": float(err.max()),
                   "err_over_bound": float((err / bound).max()),
                   "bit_equal": bool(np.array_equal(got, want))}
@@ -8234,7 +8448,7 @@ def mr_row1(me: MrRank) -> dict:
             # the BMM operand re-lay (2d -> row / col) and the root's
             # re-lay staged under a budget: apply_staged moves the blocks
             out[s]["staged"] = mr_staged(me, s, X, Y, got)
-        del sess, X, Y, e, res
+        del sess, X, Y, e, res, plan
     return out
 
 
@@ -9205,9 +9419,14 @@ def path_multirank(sess, ns_fro: float) -> dict:
     for s in MR_STRATEGIES:
         row = r0["row1"][s]
         errs = [o["row1"][s]["max_abs_err"] for o in ranks]
+        if any(o["row1"][s]["collectives"] != row["collectives"]
+               for o in ranks):
+            raise AssertionError(f"row 1 {s}: collectives() differ by "
+                                 f"rank")
         log(f"  row 1 {s}: stamps {row['stamps']}, {row['ms']:.3f} ms a "
             f"product (rank 0, CUDA events between barriers, median of "
-            f"3), tally {row['tally']}, max err {max(errs):.3e} ("
+            f"3), tally {row['tally']}, collectives() "
+            f"{row['collectives']}, max err {max(errs):.3e} ("
             f"{max(o['row1'][s]['err_over_bound'] for o in ranks):.3f} of "
             f"8·u·√K·‖X_i‖·‖Y_:j‖), bit-equal to one rank on "
             f"{sum(o['row1'][s]['bit_equal'] for o in ranks)}/{world} "
@@ -9583,6 +9802,8 @@ def main() -> int:
         return tools_only()
     if sys.argv[1:] == ["--examples"]:
         return examples_only()
+    if sys.argv[1:] == ["--bound-runner"]:
+        return bound_runner_only()
     from matrel_tpu_torch import MatrelSession
     from matrel_tpu_torch.ops import (pallas_spgemm, pallas_spmm,
                                       pallas_spmv, spmv_routed)
@@ -9694,6 +9915,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     l_ov = path_overlap(dev)["launches"]    # its own bound
     torch.cuda.empty_cache()
+    bound = path_bound_runner(sess)   # its own bound
+    l_br = bound["launches"]
+    torch.cuda.empty_cache()
     spgemm_library(sess.mesh, b47)    # cuSPARSE SpGEMM beside B4-B7
     torch.cuda.empty_cache()
     l_mr = path_multirank(sess, ns["fro"])["launches"]   # four ranks
@@ -9707,7 +9931,7 @@ def main() -> int:
                  ops["spmm_bodies"], durable["spmm_bodies"],
                  fleet["spmm_bodies"], soaked["spmm_bodies"],
                  tooled["spmm_bodies"], exampled["spmm_bodies"],
-                 l_exr["b1_bodies"],
+                 l_exr["b1_bodies"], bound["spmm_bodies"],
                  {"wgmma": l_mr["spmm_blocksparse"]}):
         for b, v in part.items():
             b1_bodies[b] = b1_bodies.get(b, 0) + v
@@ -9726,6 +9950,7 @@ def main() -> int:
                           + l_ex["spmm_blocksparse"]
                           + l_exr["spmm_blocksparse"]
                           + l_ov["spmm_blocksparse"]
+                          + l_br["spmm_blocksparse"]
                           + l_mr["spmm_blocksparse"], row),
              launches_by_body=b1_bodies, f32_one_column=coo["b1_f32_m1"],
              f32_row4=row4_f32,
@@ -9734,7 +9959,8 @@ def main() -> int:
              launches_in_tools=l_tl["spmm_blocksparse"],
              launches_in_examples=l_ex["spmm_blocksparse"],
              launches_on_example_ranks=l_exr["spmm_blocksparse"],
-             launches_in_overlap=l_ov["spmm_blocksparse"]),
+             launches_in_overlap=l_ov["spmm_blocksparse"],
+             launches_through_bound_runner=l_br["spmm_blocksparse"]),
         dict(kernel_entry("spmv_compact", pallas_spmv.SOURCE,
                           "matrel_tpu/ops/pallas_spmv.py:50",
                           launches_pr + l_spmv + l_batch["spmv_compact"]
@@ -9744,20 +9970,22 @@ def main() -> int:
                           + l_du["spmv_compact"] + l_fl["spmv_compact"]
                           + l_sk["spmv_compact"] + l_tl["spmv_compact"]
                           + l_ex["spmv_compact"] + l_exr["spmv_compact"]
-                          + l_ov["spmv_compact"] + l_mr["spmv_compact"],
+                          + l_ov["spmv_compact"] + l_br["spmv_compact"]
+                          + l_mr["spmv_compact"],
                           b23["spmv_compact"]),
              launches_on_ranks=l_mr["spmv_compact"],
              launches_in_soak=l_sk["spmv_compact"],
              launches_in_tools=l_tl["spmv_compact"],
              launches_in_examples=l_ex["spmv_compact"],
              launches_on_example_ranks=l_exr["spmv_compact"],
-             launches_in_overlap=l_ov["spmv_compact"]),
+             launches_in_overlap=l_ov["spmv_compact"],
+             launches_through_bound_runner=l_br["spmv_compact"]),
         dict(kernel_entry("spmm_compact", pallas_spmv.SOURCE,
                           "matrel_tpu/ops/pallas_spmv.py:334",
                           l_spmm + l_at["spmm_compact"]
                           + l_sk["spmm_compact"] + l_tl["spmm_compact"]
                           + l_ex["spmm_compact"] + l_ov["spmm_compact"]
-                          + l_mr["spmm_compact"],
+                          + l_br["spmm_compact"] + l_mr["spmm_compact"],
                           b23["spmm_compact"]),
              launches_on_ranks=l_mr["spmm_compact"],
              launches_in_soak=l_sk["spmm_compact"],
@@ -9768,7 +9996,7 @@ def main() -> int:
                            + l_fu[name] + l_sv[name] + l_ops.get(name, 0)
                            + l_du.get(name, 0) + l_fl.get(name, 0)
                            + l_sk[name] + l_tl[name] + l_ex[name]
-                           + l_ov[name], b47[name]),
+                           + l_ov[name] + l_br[name], b47[name]),
               launches_in_soak=l_sk[name], launches_in_tools=l_tl[name],
               launches_in_examples=l_ex[name])
          for name in SPGEMM_REPLACES]
@@ -9777,7 +10005,7 @@ def main() -> int:
                      "matrel_tpu/ops/spmv_routed.py:232",
                      l_routed + l_cg + l_sk["spmv_routed"]
                      + l_tl["spmv_routed"] + l_ex["spmv_routed"]
-                     + l_ov["spmv_routed"], b8[3]),
+                     + l_ov["spmv_routed"] + l_br["spmv_routed"], b8[3]),
         also_replaces="matrel_tpu/ops/spmv_routed.py:261",
         launches_in_soak=l_sk["spmv_routed"],
         launches_in_tools=l_tl["spmv_routed"],

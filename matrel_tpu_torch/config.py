@@ -87,10 +87,12 @@ class MatrelConfig:
       the kernel: the flag is accepted either way and changes no plan
       and no value.
     - ``donate_intermediates``: the JAX package donates rebound leaf
-      buffers only in ``CompiledPlan.run(donate=True)``, which nothing
-      in it calls. Torch frees an intermediate at its last reference
-      and ``CompiledPlan.run`` has no donate argument, so both values
-      run the same plan.
+      buffers in ``CompiledPlan.run(donate=True)`` and
+      ``bound_runner(donate=True)``. Here ``bound_runner`` takes the
+      same flag as the caller's promise to give up the rebound tensors;
+      the runner keeps no reference to them, torch frees an
+      intermediate at its last reference and the caching allocator
+      reuses the blocks, so both values run the same plan.
     - ``plan_cache_max_bytes``: the byte bound on the hoisted payloads
       cached plans pin. A plan here pins none (its tables live on its
       leaf matrices), so the bound counts zero bytes and only

@@ -5,12 +5,13 @@ MatRel's flagship optimization is the linear-algebra analogue of
 join-order enumeration — an interval DP over a multiply chain with
 sparsity-aware cost estimates. The skewed chain here (4096×64 · 64×4096 ·
 4096×64) costs 64× fewer FLOPs right-associated; the optimizer picks that
-order and both plans are timed. The JAX demo reads FLOPs from XLA's
-``cost_analysis()``; the port has no compiled program to ask, so it
-prints the FLOPs of each plan's chosen order as the port's planner counts
-them (``ir/stats.matmul_cost`` over the optimized tree), the measured ms a
-run (CUDA events on the card, the host clock on the CPU) and
-``sess.explain(expr, analyze=True)``.
+order and both plans are timed through ``CompiledPlan.bound_runner()``,
+the iteration path, as the JAX demo's ``timed`` does. The JAX demo reads
+FLOPs from XLA's ``cost_analysis()``; the port has no compiled program to
+ask, so it prints the FLOPs of each plan's chosen order as the port's
+planner counts them (``ir/stats.matmul_cost`` over the optimized tree),
+the measured ms a run (CUDA events on the card, the host clock on the
+CPU) and ``sess.explain(expr, analyze=True)``.
 
 Run: python -m matrel_tpu_torch.examples.chain_optimizer_demo [--device cpu]
 """
@@ -99,8 +100,9 @@ def run(device=None, emit=print, dims=DIMS, runs: int = 20) -> dict:
     out = {"left_flops": left, "right_flops": right, "explain": explain}
     for plan, label, key in ((raw, "left-assoc", "raw"),
                              (opt, "DP-reordered", "opt")):
-        ms = ms_per_run(plan.run, sess.device, runs)
-        check = float(plan.run().to_numpy().sum())
+        step = plan.bound_runner()
+        ms = ms_per_run(step, sess.device, runs)
+        check = float(step().sum())        # padding is zero
         flops = plan_flops(plan)
         emit(f"{label:>12}: {flops / 1e6:7.0f} MFLOPs planned, "
              f"{ms:7.3f} ms/exec  (checksum {check:+.4f})")

@@ -7,7 +7,10 @@ operand against a narrow dense one to the compact SpMV/SpMM kernel route
 (``_coo_spmv_stack``), and everything else to torch ops. PyTorch runs
 eagerly, so nothing stands in for ``jax.jit``: ``compile_expr`` plans
 once and the returned :class:`CompiledPlan` re-runs the lowered
-function.
+function — through ``run`` (rebindings as BlockMatrices), or through
+``bound_runner``, the iteration path (raw padded tensors in and out,
+the leaf layout resolved once). ``CompiledPlan.collectives`` counts
+the collectives one run issues, under the JAX package's HLO names.
 
 Zero-padding invariant: every lowered intermediate is exactly 0 outside
 its logical region; ops that would break it (scalar-add, pow ≤ 0,
@@ -89,6 +92,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+from collections import Counter
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -393,11 +397,14 @@ class Lowerer:
                 return tuple(root_out(r, ps)
                              for r, ps in zip(roots, pshapes))
             finally:
-                # ev refers to itself, so the memo would outlive the call
-                # (and hold every intermediate, the results included)
-                # until the garbage collector breaks the cycle
+                # value and ev refer to each other, so without this the
+                # memo (every intermediate, the results included) and the
+                # leaf tensors would outlive the call until the garbage
+                # collector breaks the cycle: rebinding ev breaks it, and
+                # the leaves go at return (bound_runner's donate promise)
                 memo.clear()
                 whole.clear()
+                ev = None
 
         return fn
 
@@ -532,7 +539,9 @@ class Lowerer:
 
         def make_lev(env: Dict[int, object], whole: Dict[int, Tensor]):
             """ONE member evaluator for the region body and the
-            epilogue closure, so the two never diverge."""
+            epilogue closure, so the two never diverge: a dict holding it
+            under "lev", which the caller clears on the way out."""
+            handle: Dict[str, Callable] = {}
 
             def value(n: MatExpr):
                 out = env.get(n.uid)
@@ -541,19 +550,22 @@ class Lowerer:
                 if n.uid not in members:
                     out = ev.value(n)          # region input
                 else:
-                    out = self._eval(n, lev, leaf_arrays, leaf_pos)
+                    out = self._eval(n, handle["lev"], leaf_arrays,
+                                     leaf_pos)
                 env[n.uid] = out
                 return out
 
-            lev = _evaluator(value, self.mesh, whole)
-            return lev
+            handle["lev"] = _evaluator(value, self.mesh, whole)
+            return handle
 
-        # lev refers to itself, so each env is cleared on the way out:
-        # left to the garbage collector, the intermediates it holds would
-        # outlive the call (the lower_multi memo's rule)
+        # lev refers to itself through its handle, so each env and handle
+        # are cleared on the way out: left to the garbage collector, the
+        # intermediates and the leaf tensors they hold would outlive the
+        # call (the lower_multi memo's rule)
         env: Dict[int, object] = {}
         whole: Dict[int, Tensor] = {}
-        lev = make_lev(env, whole)
+        handle = make_lev(env, whole)
+        lev = handle["lev"]
         try:
             if anchor is None:
                 return lev.value(root)
@@ -565,11 +577,13 @@ class Lowerer:
                 env2 = dict(env)
                 env2[anchor.uid] = x
                 whole2: Dict[int, Tensor] = {}
+                handle2 = make_lev(env2, whole2)
                 try:
-                    return make_lev(env2, whole2).value(root)
+                    return handle2["lev"].value(root)
                 finally:
                     env2.clear()
                     whole2.clear()
+                    handle2.clear()
 
             # the anchor's lowering consumes the epilogue: its output is
             # the region root's value (operand prologues below the anchor
@@ -579,6 +593,7 @@ class Lowerer:
         finally:
             env.clear()
             whole.clear()
+            handle.clear()
 
     def _pad_to_node(self, out: Tensor, node: MatExpr) -> Tensor:
         return _pad_to(out, padding.padded_shape(node.shape, self.mesh))
@@ -1736,12 +1751,25 @@ def _plan_meta(opts, cfg: MatrelConfig, optimize_ms: float,
     return meta
 
 
+class DeviceMismatchError(ValueError):
+    """A rebound leaf lies on another device than the plan's: a plan
+    never copies a binding to its device quietly."""
+
+
+def _check_device(t: Tensor, mesh: Mesh) -> None:
+    if t.device != mesh.device:
+        raise DeviceMismatchError(
+            f"rebound leaf on {t.device}, the plan runs on {mesh.device}")
+
+
 def _leaf_values(leaf_order, bindings, mesh) -> list:
     """The current or rebound (uid → BlockMatrix) leaves' values: their
     tensors, or on a rank mesh their Shards."""
     out = []
     for l in leaf_order:
         bound = (bindings or {}).get(l.uid)
+        if bound is not None:
+            _check_device(bound.data, mesh)
         m = bound if bound is not None else l.attrs["matrix"]
         out.append(m.as_shard() if mesh.ranked else m.data)
     return out
@@ -1775,12 +1803,98 @@ class CompiledPlan:
         out = self.fn(*_leaf_values(self.leaf_order, bindings, self.mesh))
         return _result(out, self.optimized, self.mesh)
 
+    def bound_runner(self, rebind_uids: tuple = (), donate: bool = False
+                     ) -> Callable:
+        """The iteration path: the leaf layout resolved ONCE, raw padded
+        tensors in and out — none of ``run``'s per-call dict walk or
+        BlockMatrix wrapping.
+
+        Returns ``call(*tensors)``: one tensor for each uid of
+        ``rebind_uids``, in that order, each replacing its leaf's padded
+        tensor (on a rank mesh, this rank's block, in the leaf's
+        layout); ``call`` returns the root's padded tensor (on a rank
+        mesh, this rank's canonical block). With no ``rebind_uids`` it
+        returns a zero-argument closure. An unknown uid raises
+        ``KeyError`` here; a call with the wrong number of tensors
+        raises ``ValueError``, one on another device than the plan's
+        :class:`DeviceMismatchError`. Block-sparse and COO payloads stay
+        inside the lowered function, as in ``run``.
+
+        ``donate=True`` (honoured under ``config.donate_intermediates``)
+        is the JAX package's contract for C ← f(C) loops: the caller
+        gives up the rebound tensors. The runner keeps no reference to
+        them, so once the caller drops its own the caching allocator
+        hands their blocks to the next output; without the promise a
+        caller may keep reading them, which ``call`` never writes."""
+        uid_pos = {l.uid: i for i, l in enumerate(self.leaf_order)}
+        positions = [uid_pos[u] for u in rebind_uids]
+        base = _leaf_values(self.leaf_order, None, self.mesh)
+        fn, mesh = self.fn, self.mesh
+        if not positions:
+            return lambda: fn(*base)
+        ranked = mesh.ranked
+        if ranked:
+            from matrel_tpu_torch.parallel.collectives import Shard
+
+        def call(*tensors: Tensor) -> Tensor:
+            if len(tensors) != len(positions):
+                raise ValueError(
+                    f"bound runner expects {len(positions)} rebound "
+                    f"tensor(s), got {len(tensors)}")
+            argv = list(base)
+            for p, t in zip(positions, tensors):
+                _check_device(t, mesh)
+                argv[p] = (Shard(t, base[p].layout, base[p].pshape)
+                           if ranked else t)
+            return fn(*argv)
+
+        return call
+
+    def collectives(self) -> Dict[str, int]:
+        """{kind: count} of the collectives one run of the plan issues,
+        under the JAX package's HLO names — the assertable plan shape.
+        One card issues none (``{}``, as the JAX package's one-device
+        plan). On a rank mesh the plan runs once, counted in
+        ``parallel/collectives.TALLY`` under a phase of its own, so
+        every rank calls this together, as it calls ``run``; the counts
+        are kept in ``meta``."""
+        if not self.mesh.ranked:
+            return {}
+        if "collectives" not in self.meta:
+            from matrel_tpu_torch.parallel import collectives as coll
+            before = Counter(coll.TALLY)
+            with coll.phase("plan.collectives"):
+                self.bound_runner()()
+            issued: Counter = Counter()
+            for key, n in coll.TALLY.items():     # (phase, kind, axis)
+                name = _HLO_COLLECTIVE.get(key[1])
+                if name is not None and n > before[key]:
+                    issued[name] += n - before[key]
+            self.meta["collectives"] = {k: issued[k] for k in _HLO_ORDER
+                                        if issued[k]}
+        return dict(self.meta["collectives"])
+
     def explain(self) -> str:
-        """Optimized plan with strategies and inferred layouts."""
+        """Optimized plan with strategies and inferred layouts, then the
+        collectives one run issues (on a rank mesh every rank calls it:
+        see :meth:`collectives`)."""
         from matrel_tpu_torch.ir.expr import pretty
         return "\n".join(["== Optimized plan ==",
                           pretty(self.optimized, mesh=self.mesh,
-                                 config=self.config)])
+                                 config=self.config),
+                          "== Collectives ==", str(self.collectives())])
+
+
+#: The JAX package's HLO collective names, in its order, and the tally
+#: kinds each counts. Not counted: ``gather_rep`` (a label on a gather
+#: counted as such), ``broadcast`` / ``gather_object`` (the ranks'
+#: agreement on a host object, which has no op in the JAX program).
+_HLO_ORDER = ("all-gather", "reduce-scatter", "all-reduce",
+              "collective-permute", "all-to-all")
+_HLO_COLLECTIVE = {"all_gather": "all-gather", "share_gather": "all-gather",
+                   "reduce_scatter": "reduce-scatter",
+                   "all_reduce": "all-reduce", "axis_reduce": "all-reduce",
+                   "p2p": "collective-permute", "all_to_all": "all-to-all"}
 
 
 @dataclasses.dataclass
@@ -1788,7 +1902,9 @@ class MultiPlan:
     """Several optimized roots lowered into one function over their
     shared leaves (one memo per call, so common subexpressions run
     once) — the counterpart of the JAX package's one-program MultiPlan.
-    Donation has no counterpart: PyTorch frees what no one holds."""
+    ``run`` takes no ``donate``: as in ``CompiledPlan.bound_runner``,
+    the plan keeps no reference to a rebound leaf, so the caching
+    allocator reuses its blocks once the caller drops it."""
 
     fn: Callable
     leaf_order: List[MatExpr]

@@ -134,14 +134,18 @@ def artifact_env(workdir: str, dry: bool) -> Dict[str, str]:
 
 
 def _record(stdout: str):
-    """A step's record: its last JSON object line, else its last line."""
+    """A step's record: its last JSON object line that holds a key (an
+    explain's ``== Collectives ==`` section ends in a bare ``{}`` on one
+    card), else its last line."""
     lines = [ln.strip() for ln in stdout.splitlines() if ln.strip()]
     for ln in reversed(lines):
         if ln.startswith("{"):
             try:
-                return json.loads(ln)
+                rec = json.loads(ln)
             except ValueError:
                 continue
+            if rec:
+                return rec
     return lines[-1] if lines else None
 
 

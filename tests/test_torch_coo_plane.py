@@ -41,6 +41,11 @@ from matrel_tpu_torch.ops import spmv as tspmv
 from matrel_tpu_torch.utils import native
 from matrel_tpu_torch.workloads import pagerank as tpr
 
+from test_torch_native_guard import ensure_reference_native
+
+# the JAX package's native library, whole and loaded in this process
+ensure_reference_native()
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():

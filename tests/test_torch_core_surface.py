@@ -51,6 +51,11 @@ from matrel_tpu_torch.session import MatrelSession
 from matrel_tpu_torch.utils import native
 from matrel_tpu_torch.workloads import chain_bench as t_chain_bench
 
+from test_torch_native_guard import ensure_reference_native
+
+# the JAX package's native library, whole and loaded in this process
+ensure_reference_native()
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

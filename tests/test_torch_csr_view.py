@@ -35,6 +35,11 @@ from matrel_tpu_torch.ops import pallas_spmv as tpc
 from matrel_tpu_torch.ops import spmv as tspmv
 from matrel_tpu_torch.ops import spmv_routed as trouted
 
+from test_torch_native_guard import ensure_reference_native
+
+# the JAX package's native library, whole and loaded in this process
+ensure_reference_native()
+
 SPAN = trouted.SPAN
 #: routed product, port vs JAX interpret mode, relative to max|y|
 ROUTED_VS_JAX = 2e-6

@@ -213,7 +213,12 @@ def test_layout_demo_stamps_match_jax(mesh8):
          .expr().multiply(JBM.from_numpy(b, mesh=mesh).expr())
          .multiply(JBM.from_numpy(c, mesh=mesh).expr()))
     plan = jexec.compile_expr(e, mesh)
-    assert got["explain"] == plan.explain().split("\n== Collectives")[0]
+    # the plan sections agree; the Collectives sections differ by
+    # design: the port's virtual grid runs on one device and issues none,
+    # the JAX plan's HLO on eight CPU devices has them
+    mine, cols = got["explain"].split("\n== Collectives ==\n")
+    assert mine == plan.explain().split("\n== Collectives")[0]
+    assert cols == "{}"
     ca, cb, cc = (rng.standard_normal(s).astype(np.float32)
                   for s in ((16, 512), (512, 512), (512, 16)))
 

@@ -27,6 +27,11 @@ from matrel_tpu_torch import io as tio
 from matrel_tpu_torch.core.mesh import make_mesh
 from matrel_tpu_torch.utils import native
 
+from test_torch_native_guard import ensure_reference_native
+
+# the JAX package's native library, whole and loaded in this process
+ensure_reference_native()
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -148,6 +148,18 @@ def test_dry_batch_runs_every_step(tmp_path):
     print(f"batch --dry: {wall:.1f} s wall")
 
 
+@pytest.mark.parametrize("out, want", [
+    ('x\n{"ok": true}\ntail\n', {"ok": True}),
+    ("== Collectives ==\n{}\nlast words\n", "last words"),
+    ('{"a": 1}\n== Collectives ==\n{}\n', {"a": 1}),
+    ("{not json\nend\n", "end"),
+    ("", None)])
+def test_step_record(out, want):
+    """A step's record: its last JSON object line with a key (an
+    explain's bare ``{}`` is none), else its last line."""
+    assert batch._record(out) == want
+
+
 def test_a_failing_step_fails_the_batch(tmp_path, monkeypatch, capsys):
     fail = batch.Step("fails", ["-c", "import sys; print('{\"ok\": false}')"
                                       "; sys.exit(3)"], 60.0)

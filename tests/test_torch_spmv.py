@@ -27,6 +27,11 @@ from matrel_tpu_torch.ops import spmv as tspmv
 from matrel_tpu_torch.ops import spmv_routed as trouted
 from matrel_tpu_torch.utils import native as tnative
 
+from test_torch_native_guard import ensure_reference_native
+
+# the JAX package's native library, whole and loaded in this process
+ensure_reference_native()
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
